@@ -1,0 +1,467 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`semi_tts_tpu_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. device: a CUDA card must be present; prints nvidia-smi's name and power limit;
+2. build: compiles every kernel under ``semi_tts_tpu_torch/csrc`` with nvcc (sm_90a);
+3. kernels: each kernel at its serving shapes against its plain PyTorch version
+   (max abs error against a stated tolerance); device time of the kernel and of
+   the plain version (CUDA events around a replayed CUDA graph of many calls), the
+   kernel's eager time through its Python wrapper, the eager time of one PyTorch
+   library call where one computes the same function, and the least time the
+   card could take (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s fp32, whichever
+   is larger);
+4. serving at the flagship width of ``config/semi-multi-spkr-paired-data.yaml``:
+   a seeded random model written with the port's ``save_checkpoint``, loaded with
+   ``TTSServer.from_checkpoint`` on the card, one warm-up request, then five timed
+   requests of B=16 utterances of U=32 tokens (100 decode steps, 300 frames, 82225
+   samples each; the median wall time is reported), with every kernel's launch
+   counter reset before the first and read after it; the wall time of each stage;
+   one request under torch.profiler for the device's busy time and idle share; and
+   a small request against the same checkpoint served by the plain path on the CPU.
+
+Prints a ``{"kernels": [...]}`` line, a ``{"serving": ...}`` line and, last,
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# the `model` and `data.audio` blocks of config/semi-multi-spkr-paired-data.yaml
+FLAGSHIP_MODEL = {
+    "stop_threshold": 0.5, "max_frames_per_phn": 3, "txt_update_codebook": False,
+    "spkr_latent_dim": 128,
+    "encoder": {"dim": 512, "kernel": [3, 4, 3, 3, 3, 1], "stride": [1, 2, 1, 1, 1, 1],
+                "residual": [0, 0, 1, 1, 1, 1], "dropout": 0.5, "activation": "Tanh",
+                "batch_norm": True, "rnn_bid": True, "rnn_layers": 2, "rnn_dim": 256,
+                "layer_norm": False},
+    "codebook": {"bone": "l2", "softmax": "normal", "latent_dim": 64, "commit_weight": 0,
+                 "vq_weight": 0, "temp": 1, "skip_prob": 0, "stop_grad": True,
+                 "phn_attr_pth": "data/phn_attr.csv", "proj_attr": 16},
+    "decoder": {
+        "separate_postnet": True,
+        "encoder": {"enc_n_conv": 3, "enc_kernel_size": 5, "enc_rnn_layer": 1,
+                    "enc_embed_dim": 512, "enc_dropout": 0.0},
+        "decoder": {"n_frames_per_step": 3, "prenet_dim": 256, "prenet_dropout": 0.5,
+                    "query_rnn_dim": 1024, "dec_rnn_dim": 1024, "query_dropout": 0.1,
+                    "dec_dropout": 0.1, "attn_dim": 256, "n_location_filters": 32,
+                    "location_kernel_size": 31, "loc_aware": True,
+                    "use_summed_weights": True, "drop_dec_in": 0.0},
+    },
+}
+FLAGSHIP_AUDIO = {"num_freq": 1025, "num_mels": 80, "frame_length_ms": 50,
+                  "frame_shift_ms": 12.5, "preemphasis_coeff": 0.97, "sample_rate": 22050,
+                  "use_linear": True, "snr_range": [10, 100], "time_stretch_range": [0.9, 1.1]}
+
+B, U = 16, 32                   # serving batch and padded text length
+REQUESTS = 5                    # timed requests; the kernel launches are counted in the first
+HOP = int(FLAGSHIP_AUDIO["frame_shift_ms"] / 1000 * FLAGSHIP_AUDIO["sample_rate"])
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM
+FP32_FLOP_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+
+def time_ms(fn, iters):
+    """Mean time of ``fn()`` over ``iters`` back-to-back eager calls after two
+    warm-ups: device time plus whatever host time the calls do not hide."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters, reps=3):
+    """Device time of one ``fn()``: ``iters`` calls captured in a CUDA graph,
+    replayed ``reps`` times, so no host time enters."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def max_err(got, want):
+    if isinstance(got, tuple):
+        return max(max_err(g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    return float((got - want).abs().max())
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _case_lstm(randn, unif, dev):
+    """K1: the TTS encoder BiLSTM, one direction per launch."""
+    from semi_tts_tpu_torch.kernels import rnn as k12
+
+    T, H, D = 32, 256, 512
+    x_in = randn(T, B, D)
+    w_ih, w_hh = unif(4 * H, D, a=H ** -0.5), unif(4 * H, H, a=H ** -0.5)
+    b = unif(4 * H, a=H ** -0.5)
+    x_proj = (x_in @ w_ih.T + b).contiguous()
+    lstm = torch.nn.LSTM(D, H).to(dev)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(w_ih)
+        lstm.weight_hh_l0.copy_(w_hh)
+        lstm.bias_ih_l0.copy_(b)
+        lstm.bias_hh_l0.zero_()
+    return dict(
+        name="lstm_rec", replaces="tools/proto_pallas_rnn.py:33 (pallas_lstm_rec, pallas_call "
+        "at :61); semi_tts_tpu/ops/rnn.py:95 (_lstm_rec_fwd)",
+        source="semi_tts_tpu_torch/csrc/rnn.cu", shapes=f"x_proj ({T},{B},{4 * H}) w_hh ({4 * H},{H})",
+        kernel=lambda: k12.lstm_rec(True, w_hh, x_proj),
+        plain=lambda: k12.lstm_rec_plain(True, w_hh, x_proj),
+        library=lambda: lstm(x_in), library_note="cuDNN nn.LSTM, includes the input GEMM",
+        tol=1e-4, nbytes=4 * (T * B * 4 * H + 4 * H * H + T * B * H),
+        flops=2 * T * B * 4 * H * H, iters=20)
+
+
+def _case_gru(randn, unif, dev):
+    """K2: the CBHG BiGRU, one direction per launch."""
+    from semi_tts_tpu_torch.kernels import rnn as k12
+
+    T, H = 300, 80
+    x_in = randn(T, B, H)
+    w_ih, w_hh = unif(3 * H, H, a=H ** -0.5), unif(3 * H, H, a=H ** -0.5)
+    b_ih, b_hh = unif(3 * H, a=H ** -0.5), unif(3 * H, a=H ** -0.5)
+    x_proj = (x_in @ w_ih.T + b_ih).contiguous()
+    gru = torch.nn.GRU(H, H).to(dev)
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(w_ih)
+        gru.weight_hh_l0.copy_(w_hh)
+        gru.bias_ih_l0.copy_(b_ih)
+        gru.bias_hh_l0.copy_(b_hh)
+    return dict(
+        name="gru_rec", replaces="semi_tts_tpu/ops/rnn.py:225 (_gru_rec_fwd)",
+        source="semi_tts_tpu_torch/csrc/rnn.cu", shapes=f"x_proj ({T},{B},{3 * H}) w_hh ({3 * H},{H})",
+        kernel=lambda: k12.gru_rec(False, w_hh, b_hh, x_proj),
+        plain=lambda: k12.gru_rec_plain(False, w_hh, b_hh, x_proj),
+        library=lambda: gru(x_in), library_note="cuDNN nn.GRU, includes the input GEMM",
+        tol=1e-4, nbytes=4 * (T * B * 3 * H + 3 * H * H + 3 * H + T * B * H),
+        flops=2 * T * B * 3 * H * H, iters=10)
+
+
+def _case_attention(randn, unif, dev):
+    """K3: one decoder attention step (no mask, as the flagship decodes).
+    Also checked with a padding mask, and at a memory length that is not a
+    multiple of 32 (the softmax warp and the conv edges)."""
+    from semi_tts_tpu_torch.kernels import attention as k3
+
+    L, A, D, C, F_, K = 32, 256, 512, 2, 32, 31
+    weights = (unif(F_, C, K, a=0.3), unif(A, F_, a=0.3), unif(A, a=0.1))
+
+    def inputs(L):
+        pq, pm, mem = randn(B, A), randn(B, L, A, scale=0.5), randn(B, L, D)
+        w = torch.softmax(randn(B, L), -1)
+        hist = torch.stack([w, w + torch.softmax(randn(B, L), -1)], 1).contiguous()
+        lengths = 20 + torch.arange(B, device=dev) % (L - 19)
+        mask = torch.arange(L, device=dev)[None, :] >= lengths[:, None]
+        return (pq, pm, mem, hist) + weights, mask
+
+    args, mask = inputs(L)
+    odd, odd_mask = inputs(45)
+    return dict(
+        name="attention_step", replaces="semi_tts_tpu/models/attention.py:39 (attention_step, "
+        "in the decoder_apply step body, models/decoder.py:227)",
+        source="semi_tts_tpu_torch/csrc/attention.cu",
+        shapes=f"B={B} L={L} A={A} D={D} C={C} F={F_} K={K}",
+        kernel=lambda: k3.attention_step(*args), plain=lambda: k3.attention_step_plain(*args),
+        checks=[(lambda a=a, m=m: k3.attention_step(*a, m),
+                 lambda a=a, m=m: k3.attention_step_plain(*a, m))
+                for a, m in ((args, mask), (odd, None), (odd, odd_mask))],
+        library=None, tol=1e-4,
+        nbytes=4 * (B * A + B * L * A + B * L * D + B * C * L + F_ * C * K + A * F_ + A + B * D + B * L),
+        flops=2 * B * L * (F_ * C * K + A * F_ + 2 * A + D), iters=200)
+
+
+def _case_gl_project(randn, unif, dev):
+    """K4a: the phase projection at 300 frames of a 2048-point DFT."""
+    from semi_tts_tpu_torch.kernels import griffin_lim as k4
+
+    T, F_ = 300, 1025
+    reim, mag = randn(B, T, 2 * F_), randn(B, T, F_).abs()
+    reim[:, :2, :8] = 0.0  # exercise angle(0) = 0
+    reim[:, :2, F_:F_ + 8] = 0.0
+    return dict(
+        name="gl_project", replaces="semi_tts_tpu/ops/griffin_lim.py:71 (griffin_lim body: "
+        "phase projection)", source="semi_tts_tpu_torch/csrc/griffin_lim.cu",
+        shapes=f"reim ({B},{T},{2 * F_}) mag ({B},{T},{F_})",
+        kernel=lambda: k4.gl_project(reim, mag), plain=lambda: k4.gl_project_plain(reim, mag),
+        library=None, tol=1e-4, nbytes=4 * B * T * 5 * F_, flops=6 * B * T * F_, iters=50)
+
+
+def _case_gl_ola_frame(randn, unif, dev):
+    """K4b: overlap-add + next-round framing at n_fft 2048, hop 275, win 1102."""
+    from semi_tts_tpu_torch.kernels import griffin_lim as k4
+    from semi_tts_tpu_torch.ops.stft import window_support
+
+    T, geo = 300, dict(n_fft=2048, hop=275, win_length=1102)
+    span = window_support(2048, 1102)[1]
+    frames = randn(B, T, span, scale=0.1)
+    S = geo["hop"] * (T - 1)
+    return dict(
+        name="gl_ola_frame", replaces="semi_tts_tpu/ops/stft.py:400 (istft_reim OLA/divide/trim) "
+        "+ :373 (stft_reim pad/framing), per griffin_lim.py:77 round",
+        source="semi_tts_tpu_torch/csrc/griffin_lim.cu", shapes=f"frames ({B},{T},{span})",
+        kernel=lambda: k4.gl_ola_frame(frames, emit_signal=False, **geo),
+        plain=lambda: k4.gl_ola_frame_plain(frames, emit_signal=False, **geo),
+        checks=[(lambda: k4.gl_ola_frame(frames, emit_signal=True, **geo),
+                 lambda: k4.gl_ola_frame_plain(frames, emit_signal=True, **geo))],
+        library=None, tol=1e-4, nbytes=4 * (2 * B * T * span + S),
+        flops=B * T * span * (-(-span // geo["hop"]) + 1), iters=50)
+
+
+def kernel_cases(dev):
+    """One dict per kernel at its serving shapes: the kernel call, its plain
+    version, a PyTorch library call or None, tolerance, bytes, FLOPs."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def unif(*shape, a):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * a
+
+    return [case(randn, unif, dev) for case in
+            (_case_lstm, _case_gru, _case_attention, _case_gl_project, _case_gl_ola_frame)]
+
+
+def phase_kernels(dev):
+    out = []
+    with torch.no_grad():
+        for c in kernel_cases(dev):
+            err = max(max_err(kernel(), plain())
+                      for kernel, plain in [(c["kernel"], c["plain"])] + c.get("checks", []))
+            print(f"kernel {c['name']}: max_abs_err {err:.3e} (tol {c['tol']:.0e})", flush=True)
+            if not err <= c["tol"]:
+                raise SystemExit(f"chip_smoke: {c['name']} disagrees with its plain version")
+            ms = device_ms(c["kernel"], c["iters"])
+            eager_ms = time_ms(c["kernel"], c["iters"])
+            plain_ms = device_ms(c["plain"], max(2, c["iters"] // 10))
+            lib_ms = time_ms(c["library"], c["iters"]) if c["library"] else None
+            bound_ms, bound_by = bound(c["nbytes"], c["flops"])
+            out.append({"name": c["name"], "route": "cuda", "source": c["source"],
+                        "replaces": c["replaces"], "shapes": c["shapes"],
+                        "launches": None, "max_abs_err": err, "max_err": err, "tol": c["tol"],
+                        "ms": ms, "kernel_ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                        "library": c.get("library_note")})
+    return out
+
+
+def serving_inputs(B, U, seed=0):
+    """(text, sid) shaped like the JAX package's serving benches."""
+    rng = np.random.RandomState(seed)
+    text = np.zeros((B, U), np.int32)
+    text[:, : U - 2] = rng.randint(3, 43, size=(B, U - 2))
+    return text, rng.randint(0, 109, size=B).astype(np.int32)
+
+
+def flagship_config(prenet_dropout=None):
+    model = copy.deepcopy(FLAGSHIP_MODEL)
+    model["codebook"]["phn_attr_pth"] = os.path.join(HERE, model["codebook"]["phn_attr_pth"])
+    if prenet_dropout is not None:
+        model["decoder"]["decoder"]["prenet_dropout"] = prenet_dropout
+    return {"data": {"corpus": {"vocab_file": os.path.join(HERE, "data/cmu_phn.vocab"),
+                                "spkr_map": os.path.join(HERE, "corpus_meta/spkr/lj_vctk.json")},
+                     "audio": copy.deepcopy(FLAGSHIP_AUDIO)},
+            "model": model}
+
+
+def write_checkpoint(path, config):
+    from semi_tts_tpu_torch.bridge import to_jax_params
+    from semi_tts_tpu_torch.data.text import load_text_encoder
+    from semi_tts_tpu_torch.models import vqvae as V
+    from semi_tts_tpu_torch.train.checkpoint import save_checkpoint
+
+    corpus = config["data"]["corpus"]
+    with open(corpus["spkr_map"]) as f:
+        n_spkr = len(json.load(f))
+    vocab = load_text_encoder("phoneme", corpus["vocab_file"]).vocab_size
+    cfg = V.config_from_yaml(config["model"], n_mels=80, linear_dim=1025, vocab_size=vocab,
+                             n_spkr=n_spkr, attr_dim=31)
+    model = V.VQVAE(cfg, generator=torch.Generator().manual_seed(0))
+    params, state = to_jax_params(model)
+    save_checkpoint(path, params=params, state=state, opt_state={}, step=0)
+    return sum(p.numel() for p in model.parameters())
+
+
+def phase_serving(build_dir):
+    from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.serve import TTSServer
+
+    ckpt = os.path.join(build_dir, "chip_smoke_ckpt.pth")
+    try:
+        n_params = write_checkpoint(ckpt, flagship_config())
+        server = TTSServer.from_checkpoint(flagship_config(), ckpt)
+        text, sid = serving_inputs(B, U)
+        steps = server.decode_steps_for(text)
+        server.synthesize(text, sid, key=1)  # warm-up: cuBLAS/cuDNN handles, bases
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        walls = []
+        for i in range(REQUESTS):
+            t0 = time.perf_counter()
+            out = server.synthesize(text, sid, key=2 + i)  # returns on the host: synchronised
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                launches, wav = kernels.launch_counts(), out
+        S = HOP * (steps * 3 - 1)
+        if wav.shape != (B, S) or not np.isfinite(wav).all():
+            raise SystemExit(f"chip_smoke: bad waveforms {wav.shape}, finite={np.isfinite(wav).all()}")
+        if np.abs(wav).max() == 0.0:
+            raise SystemExit("chip_smoke: all-zero waveforms")
+        peak = torch.cuda.max_memory_allocated()
+        wall = float(np.median(walls))
+        idle = [n for n, c in launches.items() if c == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels not launched on the main path: {idle}")
+        stage_s = stage_times(server, text, sid, steps)
+        profile = profiled_request(server, text, sid, wall)
+        ref = reference_check(ckpt)
+    finally:
+        if os.path.exists(ckpt):
+            os.remove(ckpt)
+    return dict(batch=B, text_len=U, decode_steps=steps, frames=steps * 3, samples=S,
+                params=n_params, wall_s=wall, walls_s=walls, utt_per_s=B / wall, peak_mem_bytes=peak,
+                stage_s=stage_s, profile=profile, launches=launches, reference=ref)
+
+
+def profiled_request(server, text, sid, wall):
+    """One more request under torch.profiler: device busy time (the sum of
+    the durations of device-side events: kernels and copies, on one stream),
+    the idle share against the unprofiled median wall time, and the device
+    time by kernel name, largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.synthesize(text, sid, key=99)
+        profiled_wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy = sum(us for _, us in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"profiled_wall_s": profiled_wall, "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall,
+            "top_device_ms": [[name[:70], n, us / 1e3] for name, (n, us) in top]}
+
+
+def stage_times(server, text, sid, steps):
+    """Wall seconds of the synthesis and vocoder stages of one more request,
+    each ended by a synchronise."""
+    synth, vocode = server.stages(steps)
+    t, s = server._place(text, sid)
+    g = server.generator(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    amp = synth(server.model, t, s, g)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    vocode(amp, g)
+    torch.cuda.synchronize()
+    return {"synth": t1 - t0, "vocode": time.perf_counter() - t1}
+
+
+def reference_check(ckpt):
+    """A small request through the card's kernels and through the plain path
+    on the CPU, on the same checkpoint, prenet dropout 0 and the same phases."""
+    from semi_tts_tpu_torch.serve import TTSServer
+
+    config = flagship_config(prenet_dropout=0.0)
+    gpu = TTSServer.from_checkpoint(config, ckpt)
+    cpu = TTSServer.from_checkpoint(config, ckpt, device="cpu")
+    text, sid = serving_inputs(2, 10, seed=3)
+    steps = 4
+    out = {}
+    amps = []
+    for srv in (gpu, cpu):
+        synth, _ = srv.stages(steps)
+        t, s = srv._place(text, sid)
+        amps.append(synth(srv.model, t, s).cpu())
+    rel = float(((amps[0] - amps[1]).abs() / amps[1].abs().clamp_min(1e-3)).max())
+    phases = (torch.rand(amps[1].shape, generator=torch.Generator().manual_seed(4)) * 2 - 1) * math.pi
+    wavs = [srv.stages(steps)[1](a.to(srv.device), phases=phases.to(srv.device)).cpu()
+            for srv, a in ((gpu, amps[1]), (cpu, amps[1]))]
+    out["amp_max_rel_err"] = rel
+    out["amp_tol_rel"] = 1e-3
+    out["wav_max_abs_err"] = float((wavs[0] - wavs[1]).abs().max())
+    out["wav_tol"] = 1e-3
+    if not (rel <= out["amp_tol_rel"] and out["wav_max_abs_err"] <= out["wav_tol"]):
+        raise SystemExit(f"chip_smoke: card and CPU reference disagree: {out}")
+    return out
+
+
+def main():
+    phase_device()
+    from semi_tts_tpu_torch import kernels, use_fp32
+    from semi_tts_tpu_torch.kernels.build import BUILD_DIR
+
+    use_fp32()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    kernels.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, {BUILD_DIR})", flush=True)
+    table = phase_kernels(dev)
+    serving = phase_serving(str(BUILD_DIR))
+    for row in table:
+        row["launches"] = serving["launches"][row["name"]]
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"serving": serving}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,121 @@
+"""VQVAE composite, text->speech half (counterpart of
+`semi_tts_tpu/models/vqvae.py`): configuration, parameters (codebook,
+speaker table, TTS), `embed_text` and `text_to_speech`. The ASR encoder and
+ASR postnet are not ported yet; `config_from_yaml` reads the same YAML
+``model`` block and leaves the ASR ``encoder`` block aside."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from torch import nn
+
+from ..ops.init import normal
+from .decoder import DecoderConfig
+from .embed import Codebook, CodebookConfig, codebook_inference
+from .tts import TTS, TTSConfig, tts_apply
+
+FRAME_PHN_RATIO = 6.0  # mel frames per phoneme for text-only decode budgets
+
+
+@dataclasses.dataclass(frozen=True)
+class VQVAEConfig:
+    n_mels: int = 80
+    linear_dim: Optional[int] = 1025
+    vocab_size: int = 43
+    n_spkr: int = 109
+    spkr_latent_dim: int = 128
+    max_frames_per_phn: int = 3
+    stop_threshold: float = 0.5
+    txt_update_codebook: bool = False
+    asr_postnet_weight: float = 0.0
+    codebook: CodebookConfig = dataclasses.field(default_factory=CodebookConfig)
+    tts: TTSConfig = dataclasses.field(default_factory=TTSConfig)
+
+    @property
+    def latent_dim(self) -> int:
+        return self.codebook.latent_dim
+
+    @property
+    def n_frames_per_step(self) -> int:
+        return self.tts.decoder.n_frames_per_step
+
+
+def config_from_yaml(model_cfg: dict, *, n_mels: int, linear_dim, vocab_size: int,
+                     n_spkr: int, attr_dim: int = 31) -> VQVAEConfig:
+    """VQVAEConfig from the YAML ``model`` block (a dict), with the JAX
+    package's field names and defaults."""
+    cb = dict(model_cfg["codebook"])
+    dec = dict(model_cfg["decoder"])
+    latent_dim = cb["latent_dim"]
+    phn_attr_pth = cb.get("phn_attr_pth") or ""
+    cb_cfg = CodebookConfig(
+        bone=cb["bone"], vocab_size=vocab_size, latent_dim=latent_dim,
+        commit_weight=cb["commit_weight"], vq_weight=cb["vq_weight"],
+        temp=cb["temp"], skip_prob=cb["skip_prob"], stop_grad=cb["stop_grad"],
+        softmax=cb["softmax"], use_phn_attr=phn_attr_pth != "",
+        attr_dim=attr_dim, proj_attr=cb.get("proj_attr") or 0,
+    )
+    d = dec["decoder"]
+    dec_cfg = DecoderConfig(
+        n_mels=n_mels, n_frames_per_step=d["n_frames_per_step"],
+        enc_embed_dim=dec["encoder"]["enc_embed_dim"],
+        spkr_embed_dim=model_cfg["spkr_latent_dim"],
+        prenet_dim=d["prenet_dim"], prenet_dropout=d["prenet_dropout"],
+        query_rnn_dim=d["query_rnn_dim"], dec_rnn_dim=d["dec_rnn_dim"],
+        query_dropout=d["query_dropout"], dec_dropout=d["dec_dropout"],
+        attn_dim=d["attn_dim"], n_location_filters=d["n_location_filters"],
+        location_kernel_size=d["location_kernel_size"], loc_aware=d["loc_aware"],
+        use_summed_weights=d["use_summed_weights"], drop_dec_in=d["drop_dec_in"],
+        spkr_embed_mode=d.get("spkr_embed_mode", "adaIN").lower(),
+        mask_attention=d.get("mask_attention", False),
+    )
+    tts_cfg = TTSConfig(
+        n_mels=n_mels, linear_dim=linear_dim, in_embed_dim=latent_dim,
+        spkr_embed_dim=model_cfg["spkr_latent_dim"],
+        separate_postnet=dec.get("separate_postnet", False),
+        enc_n_conv=dec["encoder"]["enc_n_conv"],
+        enc_kernel_size=dec["encoder"]["enc_kernel_size"],
+        enc_rnn_layer=dec["encoder"]["enc_rnn_layer"],
+        enc_embed_dim=dec["encoder"]["enc_embed_dim"],
+        enc_dropout=dec["encoder"]["enc_dropout"],
+        decoder=dec_cfg,
+    )
+    return VQVAEConfig(
+        n_mels=n_mels, linear_dim=linear_dim, vocab_size=vocab_size, n_spkr=n_spkr,
+        spkr_latent_dim=model_cfg["spkr_latent_dim"],
+        max_frames_per_phn=model_cfg["max_frames_per_phn"],
+        stop_threshold=model_cfg["stop_threshold"],
+        txt_update_codebook=model_cfg.get("txt_update_codebook", False),
+        asr_postnet_weight=model_cfg.get("asr_postnet_weight", 0.0),
+        codebook=cb_cfg, tts=tts_cfg,
+    )
+
+
+class VQVAE(nn.Module):
+    """Codebook + speaker table (``spkr_embed``, N(0, 1)) + TTS, with the
+    parameter paths of the JAX ``vqvae_init`` tree (minus ``asr``). Fresh
+    parameters follow the JAX init rules, drawn from ``generator`` (a CPU
+    `torch.Generator`); move the module to its device afterwards."""
+
+    def __init__(self, cfg: VQVAEConfig, generator=None):
+        super().__init__()
+        self.codebook = Codebook(cfg.codebook, generator=generator)
+        self.spkr_embed = nn.Parameter(normal((cfg.n_spkr, cfg.spkr_latent_dim), generator))
+        self.tts = TTS(cfg.tts, generator=generator)
+
+
+def embed_text(model: VQVAE, cfg: VQVAEConfig, phn_attr, txt):
+    """Text ids -> codebook latents."""
+    return codebook_inference(model.codebook, cfg.codebook, txt, phn_attr)
+
+
+def text_to_speech(model: VQVAE, cfg: VQVAEConfig, all_latent, all_sid, *, decode_steps: int,
+                   latent_lengths=None, generator=None):
+    """Free-running decode of a latent batch -> (mel, linear, align, stop).
+    ``all_sid``: (B,) speaker ids."""
+    spkr = model.spkr_embed[all_sid]
+    return tts_apply(model.tts, all_latent, spkr, cfg=cfg.tts, decode_steps=decode_steps,
+                     txt_lengths=latent_lengths, generator=generator)
+
