@@ -8,12 +8,13 @@ Phases, each fatal on failure:
 1. device: a CUDA card must be present; prints nvidia-smi's name and power limit;
 2. build: compiles every kernel under ``semi_tts_tpu_torch/csrc`` with nvcc (sm_90a);
 3. kernels: each kernel at its serving shapes against its plain PyTorch version
-   (max abs error against a stated tolerance); device time of the kernel and of
-   the plain version (CUDA events around a replayed CUDA graph of many calls), the
-   kernel's eager time through its Python wrapper, the eager time of one PyTorch
-   library call where one computes the same function, and the least time the
-   card could take (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s fp32, whichever
-   is larger);
+   (max abs error against a stated tolerance), plus ragged shapes; device time of
+   the kernel, of the plain version and of one PyTorch library call where one
+   computes the same function (CUDA events around a replayed CUDA graph of many
+   calls), the kernel's eager time through its Python wrapper, and the least
+   time the card could take (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s fp32,
+   whichever is larger); for the recurrences also the time per step, for K1
+   by batch rows per cluster and at the ASR shape T=267;
 4. serving at the flagship width of ``config/semi-multi-spkr-paired-data.yaml``:
    a seeded random model written with the port's ``save_checkpoint``, loaded with
    ``TTSServer.from_checkpoint`` on the card, one warm-up request, then five timed
@@ -23,7 +24,9 @@ Phases, each fatal on failure:
    one request under torch.profiler for the device's busy time and idle share; and
    a small request against the same checkpoint served by the plain path on the CPU.
 
-Prints a ``{"kernels": [...]}`` line, a ``{"serving": ...}`` line and, last,
+Prints a ``{"ptxas": ...}`` line (registers and spills of the recurrence
+kernels), an ``{"asr_shape": ...}`` line, a ``{"kernels": [...]}`` line, a
+``{"serving": ...}`` line and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -33,6 +36,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -135,55 +139,133 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _lstm_inputs(randn, unif, T, B, H):
+    """Both directions' W_hh and x_proj of a BiLSTM layer."""
+    w = [unif(4 * H, H, a=H ** -0.5) for _ in range(2)]
+    return w + [randn(T, B, 4 * H, scale=0.5) for _ in range(2)]
+
+
+def _gru_inputs(randn, unif, T, B, H):
+    """Both directions' W_hh, b_hh and x_proj of a BiGRU."""
+    w = [unif(3 * H, H, a=H ** -0.5) for _ in range(2)]
+    b = [unif(3 * H, a=H ** -0.5) for _ in range(2)]
+    return w + b + [randn(T, B, 3 * H, scale=0.5) for _ in range(2)]
+
+
 def _case_lstm(randn, unif, dev):
-    """K1: the TTS encoder BiLSTM, one direction per launch."""
+    """K1: the TTS encoder BiLSTM, both directions in one launch. Also
+    checked at T=1, at B=5 (not a multiple of the rows per cluster), at
+    H=80, and one direction at a time, forward and reversed."""
     from semi_tts_tpu_torch.kernels import rnn as k12
 
     T, H, D = 32, 256, 512
     x_in = randn(T, B, D)
-    w_ih, w_hh = unif(4 * H, D, a=H ** -0.5), unif(4 * H, H, a=H ** -0.5)
-    b = unif(4 * H, a=H ** -0.5)
-    x_proj = (x_in @ w_ih.T + b).contiguous()
-    lstm = torch.nn.LSTM(D, H).to(dev)
+    w_ih = [unif(4 * H, D, a=H ** -0.5) for _ in range(2)]
+    bias = [unif(4 * H, a=H ** -0.5) for _ in range(2)]
+    w_hh = [unif(4 * H, H, a=H ** -0.5) for _ in range(2)]
+    x_proj = [(x_in @ w.T + b).contiguous() for w, b in zip(w_ih, bias)]
+    lstm = torch.nn.LSTM(D, H, bidirectional=True).to(dev)
     with torch.no_grad():
-        lstm.weight_ih_l0.copy_(w_ih)
-        lstm.weight_hh_l0.copy_(w_hh)
-        lstm.bias_ih_l0.copy_(b)
-        lstm.bias_hh_l0.zero_()
+        for sfx, wi, wh, b in zip(("", "_reverse"), w_ih, w_hh, bias):
+            getattr(lstm, "weight_ih_l0" + sfx).copy_(wi)
+            getattr(lstm, "weight_hh_l0" + sfx).copy_(wh)
+            getattr(lstm, "bias_ih_l0" + sfx).copy_(b)
+            getattr(lstm, "bias_hh_l0" + sfx).zero_()
+    args = w_hh + x_proj
+    checks = [(lambda a=a: k12.bilstm_rec(*a), lambda a=a: k12.bilstm_rec_plain(*a))
+              for a in (_lstm_inputs(randn, unif, 1, B, H), _lstm_inputs(randn, unif, T, 5, H),
+                        _lstm_inputs(randn, unif, T, 5, 80))]
+    checks += [(lambda r=r: k12.lstm_rec(r, w_hh[0], x_proj[0]),
+                lambda r=r: k12.lstm_rec_plain(r, w_hh[0], x_proj[0])) for r in (False, True)]
     return dict(
-        name="lstm_rec", replaces="tools/proto_pallas_rnn.py:33 (pallas_lstm_rec, pallas_call "
-        "at :61); semi_tts_tpu/ops/rnn.py:95 (_lstm_rec_fwd)",
-        source="semi_tts_tpu_torch/csrc/rnn.cu", shapes=f"x_proj ({T},{B},{4 * H}) w_hh ({4 * H},{H})",
-        kernel=lambda: k12.lstm_rec(True, w_hh, x_proj),
-        plain=lambda: k12.lstm_rec_plain(True, w_hh, x_proj),
-        library=lambda: lstm(x_in), library_note="cuDNN nn.LSTM, includes the input GEMM",
-        tol=1e-4, nbytes=4 * (T * B * 4 * H + 4 * H * H + T * B * H),
-        flops=2 * T * B * 4 * H * H, iters=20)
+        name="bilstm_rec", replaces="tools/proto_pallas_rnn.py:33 (pallas_lstm_rec, pallas_call "
+        "at :61); semi_tts_tpu/ops/rnn.py:95 (_lstm_rec_fwd), both directions",
+        source="semi_tts_tpu_torch/csrc/rnn.cu",
+        shapes=f"2 x x_proj ({T},{B},{4 * H}), 2 x w_hh ({4 * H},{H})", steps=T,
+        kernel=lambda: k12.bilstm_rec(*args), plain=lambda: k12.bilstm_rec_plain(*args),
+        checks=checks, rows=lambda r: k12.bilstm_rec(*args, rows=r), row_options=k12.LSTM_ROWS,
+        library=lambda: lstm(x_in),
+        library_note="cuDNN nn.LSTM(bidirectional=True), includes the input GEMM; graph-timed",
+        tol=1e-4, nbytes=2 * 4 * (T * B * 4 * H + 4 * H * H + T * B * H),
+        flops=2 * 2 * T * B * 4 * H * H, iters=20)
 
 
 def _case_gru(randn, unif, dev):
-    """K2: the CBHG BiGRU, one direction per launch."""
+    """K2: the CBHG BiGRU, both directions in one launch. Also checked at
+    T=1, at B=5, at H=50, and one direction at a time, forward and
+    reversed."""
     from semi_tts_tpu_torch.kernels import rnn as k12
 
     T, H = 300, 80
     x_in = randn(T, B, H)
-    w_ih, w_hh = unif(3 * H, H, a=H ** -0.5), unif(3 * H, H, a=H ** -0.5)
-    b_ih, b_hh = unif(3 * H, a=H ** -0.5), unif(3 * H, a=H ** -0.5)
-    x_proj = (x_in @ w_ih.T + b_ih).contiguous()
-    gru = torch.nn.GRU(H, H).to(dev)
+    w_ih = [unif(3 * H, H, a=H ** -0.5) for _ in range(2)]
+    b_ih = [unif(3 * H, a=H ** -0.5) for _ in range(2)]
+    w_hh = [unif(3 * H, H, a=H ** -0.5) for _ in range(2)]
+    b_hh = [unif(3 * H, a=H ** -0.5) for _ in range(2)]
+    x_proj = [(x_in @ w.T + b).contiguous() for w, b in zip(w_ih, b_ih)]
+    gru = torch.nn.GRU(H, H, bidirectional=True).to(dev)
     with torch.no_grad():
-        gru.weight_ih_l0.copy_(w_ih)
-        gru.weight_hh_l0.copy_(w_hh)
-        gru.bias_ih_l0.copy_(b_ih)
-        gru.bias_hh_l0.copy_(b_hh)
+        for sfx, wi, wh, bi, bh in zip(("", "_reverse"), w_ih, w_hh, b_ih, b_hh):
+            getattr(gru, "weight_ih_l0" + sfx).copy_(wi)
+            getattr(gru, "weight_hh_l0" + sfx).copy_(wh)
+            getattr(gru, "bias_ih_l0" + sfx).copy_(bi)
+            getattr(gru, "bias_hh_l0" + sfx).copy_(bh)
+    args = w_hh + b_hh + x_proj
+    checks = [(lambda a=a: k12.bigru_rec(*a), lambda a=a: k12.bigru_rec_plain(*a))
+              for a in (_gru_inputs(randn, unif, 1, B, H), _gru_inputs(randn, unif, T, 5, H),
+                        _gru_inputs(randn, unif, 40, 5, 50))]
+    checks += [(lambda r=r: k12.gru_rec(r, w_hh[0], b_hh[0], x_proj[0]),
+                lambda r=r: k12.gru_rec_plain(r, w_hh[0], b_hh[0], x_proj[0]))
+               for r in (False, True)]
     return dict(
-        name="gru_rec", replaces="semi_tts_tpu/ops/rnn.py:225 (_gru_rec_fwd)",
-        source="semi_tts_tpu_torch/csrc/rnn.cu", shapes=f"x_proj ({T},{B},{3 * H}) w_hh ({3 * H},{H})",
-        kernel=lambda: k12.gru_rec(False, w_hh, b_hh, x_proj),
-        plain=lambda: k12.gru_rec_plain(False, w_hh, b_hh, x_proj),
-        library=lambda: gru(x_in), library_note="cuDNN nn.GRU, includes the input GEMM",
-        tol=1e-4, nbytes=4 * (T * B * 3 * H + 3 * H * H + 3 * H + T * B * H),
-        flops=2 * T * B * 3 * H * H, iters=10)
+        name="bigru_rec", replaces="semi_tts_tpu/ops/rnn.py:225 (_gru_rec_fwd), both directions",
+        source="semi_tts_tpu_torch/csrc/rnn.cu",
+        shapes=f"2 x x_proj ({T},{B},{3 * H}), 2 x w_hh ({3 * H},{H})", steps=T,
+        kernel=lambda: k12.bigru_rec(*args), plain=lambda: k12.bigru_rec_plain(*args),
+        checks=checks,
+        library=lambda: gru(x_in),
+        library_note="cuDNN nn.GRU(bidirectional=True), includes the input GEMM; graph-timed",
+        tol=1e-4, nbytes=2 * 4 * (T * B * 3 * H + 3 * H * H + 3 * H + T * B * H),
+        flops=2 * 2 * T * B * 3 * H * H, iters=10)
+
+
+def ptxas_report(log):
+    """Registers, spills and static shared memory of each instantiation of
+    the recurrence kernels, from nvcc's ``-Xptxas -v`` output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(lstm|gru)_rec_kernelILi(\d+)E(?:Li(\d+)E)?", line)
+        if "Compiling entry function" in line:
+            args = ",".join(a for a in m.groups()[1:] if a) if m else ""
+            name = f"{m.group(1)}_rec_kernel<{args}>" if m else None
+        elif name and "spill stores" in line:
+            out.setdefault(name, {})["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores", line)[1])
+        elif name and "Used" in line:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(name, {}).update(registers=int(re.search(r"Used (\d+) registers", line)[1]),
+                                            static_smem_bytes=int(smem[1]) if smem else 0)
+    return out
+
+
+@torch.no_grad()
+def asr_lstm_check(dev):
+    """K1 at P1's own shape, the ASR BiLSTM of `tools/proto_pallas_rnn.py`
+    (T=267, B=16, H=256, input 512): agreement with the plain version and
+    device time, beside cuDNN's bidirectional LSTM (input GEMM included)."""
+    from semi_tts_tpu_torch.kernels import rnn as k12
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    T, H, D = 267, 256, 512
+    args = [(torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) * H ** -0.5 for _ in range(2)]
+    args += [torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5 for _ in range(2)]
+    err = max_err(k12.bilstm_rec(*args), k12.bilstm_rec_plain(*args))
+    if not err <= 1e-4:
+        raise SystemExit(f"chip_smoke: bilstm_rec at T={T} disagrees with its plain version ({err})")
+    ms = device_ms(lambda: k12.bilstm_rec(*args), 5)
+    lstm, x_in = torch.nn.LSTM(D, H, bidirectional=True).to(dev), torch.randn(T, B, D, device=dev)
+    return {"name": "bilstm_rec", "T": T, "B": B, "H": H, "max_abs_err": err, "tol": 1e-4,
+            "ms": ms, "ms_per_step": ms / T, "library_ms": device_ms(lambda: lstm(x_in), 5),
+            "library": "cuDNN nn.LSTM(bidirectional=True), includes the input GEMM; graph-timed"}
 
 
 def _case_attention(randn, unif, dev):
@@ -283,14 +365,20 @@ def phase_kernels(dev):
             ms = device_ms(c["kernel"], c["iters"])
             eager_ms = time_ms(c["kernel"], c["iters"])
             plain_ms = device_ms(c["plain"], max(2, c["iters"] // 10))
-            lib_ms = time_ms(c["library"], c["iters"]) if c["library"] else None
+            lib_ms = device_ms(c["library"], c["iters"]) if c["library"] else None
             bound_ms, bound_by = bound(c["nbytes"], c["flops"])
-            out.append({"name": c["name"], "route": "cuda", "source": c["source"],
-                        "replaces": c["replaces"], "shapes": c["shapes"],
-                        "launches": None, "max_abs_err": err, "max_err": err, "tol": c["tol"],
-                        "ms": ms, "kernel_ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-                        "library": c.get("library_note")})
+            row = {"name": c["name"], "route": "cuda", "source": c["source"],
+                   "replaces": c["replaces"], "shapes": c["shapes"],
+                   "launches": None, "max_abs_err": err, "max_err": err, "tol": c["tol"],
+                   "ms": ms, "kernel_ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                   "library": c.get("library_note")}
+            if "steps" in c:
+                row["ms_per_step"] = ms / c["steps"]
+            if "rows" in c:
+                row["ms_by_rows"] = {r: device_ms(lambda r=r: c["rows"](r), c["iters"])
+                                     for r in c["row_options"]}
+            out.append(row)
     return out
 
 
@@ -445,14 +533,16 @@ def reference_check(ckpt):
 def main():
     phase_device()
     from semi_tts_tpu_torch import kernels, use_fp32
-    from semi_tts_tpu_torch.kernels.build import BUILD_DIR
+    from semi_tts_tpu_torch.kernels.build import BUILD_DIR, LOGS
 
     use_fp32()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     kernels.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, {BUILD_DIR})", flush=True)
+    print(json.dumps({"ptxas": ptxas_report(LOGS.get("rnn", ""))}), flush=True)
     table = phase_kernels(dev)
+    print(json.dumps({"asr_shape": asr_lstm_check(dev)}), flush=True)
     serving = phase_serving(str(BUILD_DIR))
     for row in table:
         row["launches"] = serving["launches"][row["name"]]

@@ -1,186 +1,468 @@
-// LSTM and GRU recurrences over pre-projected inputs (forward only).
+// LSTM and GRU recurrences over pre-projected inputs (forward only), one or
+// both directions of a bidirectional layer in one launch.
 //
-// Replaces: the forward of `semi_tts_tpu/ops/rnn.py` `_lstm_rec`
-// (`_lstm_rec_fwd`, the same function as the Pallas kernel
-// `tools/proto_pallas_rnn.py` `pallas_lstm_rec`) and of `_gru_rec`
-// (`_gru_rec_fwd`, with b_hh added before r gates the hidden n-part).
+// Replaces: K1 `lstm_rec`, the Pallas kernel P1 `tools/proto_pallas_rnn.py:33`
+// `pallas_lstm_rec`, which is the forward of `semi_tts_tpu/ops/rnn.py:95`
+// `_lstm_rec_fwd` (gates i, f, g, o); K2 `gru_rec`, the forward of
+// `semi_tts_tpu/ops/rnn.py:225` `_gru_rec_fwd` (gates r, z, n, with b_hh
+// inside the recurrence so that r gates h @ W_hn^T + b_hn). fp32 FFMA
+// throughout, no tensor cores, as in the JAX recurrences.
 //
-// What bounds it on an H100: the T steps are sequential, so the time is T
-// times the latency of one step: one (H) x (H, G*H) product per batch row,
-// then the cell update. The bytes are small (x_proj, W_hh once, hs) and the
-// FLOPs are 2*T*B*G*H*H; neither is near the card's rate at serving shapes.
-// The latency of one step is the read of W_hh (1 MB at H=256 for the LSTM,
-// 77 KB at H=80 for the GRU) from L2 and two block barriers.
+// What bounds it on an H100: step t needs h_{t-1}, so the time is about
+// T x (the latency of one step). The bytes (x_proj, W_hh once, hs) and the
+// FLOPs (2*T*B*G*H*H) put the card's bound far below that. A step is the
+// product h @ W_hh^T (G*H rows of H) and its reduction, the cell update, and
+// the barrier that publishes the new h. Reading W_hh from L2 every step
+// (1 MiB for the LSTM at H=256) would dominate, so W_hh stays on chip.
 //
-// Design: one block per batch row, with a loop over T inside the block in
-// place of the TPU's sequential grid. h, c and the gate pre-activations live
-// in shared memory across steps (the TPU kernel kept them in VMEM scratch).
-// Each warp owns a set of gates and works on four W_hh rows at once, so four
-// row reads are in flight per lane; its lanes read a row with neighbouring
-// lanes on neighbouring addresses (coalesced, float4 where H % 128 == 0) and
-// reduce with shuffles. The product h @ W_hh^T is computed here, not by
-// cuBLAS, as in the Pallas body.
+// Design:
+// - Both directions run in one launch: the direction is blockIdx.y, and each
+//   writes its half of the (T, B, ndir*H) output that the caller concatenates.
+// - A group of 8 lanes owns one hidden unit j and splits the reduction axis k
+//   between its lanes; each lane holds all gate rows of unit j for its k, so
+//   a few xor shuffles leave the unit's gate pre-activations in the group's
+//   lanes, which apply the cell update there, with no trip through shared
+//   memory.
+// - x_proj of the next kAhead - 1 steps is staged in a shared-memory ring with
+//   cp.async, so no step waits on a load from L2.
+// - K2 (GRU, H <= 128): W_hh lives in registers for the whole sequence (3
+//   gates x ceil(H/8) values a lane), loaded once; h is double-buffered in
+//   shared memory so one __syncthreads a step is race-free. One block serves
+//   one batch row of one direction.
+// - K1 (LSTM, H <= 288, H % 4 == 0): W_hh (4H x H) does not fit one SM, so a
+//   cluster of 8 CTAs splits the hidden units: CTA r owns units
+//   [r*U, r*U + U) and keeps their 4*U gate rows in dynamic shared memory
+//   (128 KiB at H=256), loaded once with cp.async; below 8 rows each lane
+//   also keeps half of its slice in registers, which halves the W_hh reads
+//   from shared memory. A cluster serves R batch rows of one direction, and
+//   each W_hh value read feeds all R of them. After the k-split sums a
+//   reduce-scatter leaves each lane the 4 gates of one row, so the cell
+//   update runs once per (unit, row) and the cell state never leaves its lane. Each step the new h values go into
+//   the next h buffer of all 8 CTAs through distributed shared memory, then
+//   the cluster meets at one barrier; h is double-buffered, so one barrier a
+//   step is race-free, and the barrier that ends the last step also keeps
+//   every CTA alive until no peer writes into it. The wrapper picks R so that
+//   the clusters fit on the card at once (kernels/rnn.py `lstm_plan`).
+// - Measured on an H100 (PERF.md): a K1 step is held back by the shared-memory
+//   reads of the product (W_hh and h, 16 bytes a lane per load) and by the
+//   DSMEM stores plus cluster barrier; a K2 step by the cell update and the
+//   block barrier.
 // Gate order is torch's: i, f, g, o for the LSTM and r, z, n for the GRU.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kGroup = 8;          // lanes per hidden unit
+constexpr int kCluster = 8;        // K1 CTAs per cluster
+constexpr int kLstmMaxH = 288;
+constexpr int kLstmMaxUnits = 36;  // lstm_units(kLstmMaxH)
+constexpr int kGruMaxH = 128;
+constexpr int kAhead = 4;          // x_proj ring: steps in shared memory
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+// fp32 through the fast exponential and divide; chip_smoke.py holds both
+// kernels to their plain versions at 1e-4 (they differ by ~2e-7).
+__device__ __forceinline__ float sigmoid(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float tanh_(float x) {
+  return copysignf(1.0f - __fdividef(2.0f, __expf(2.0f * fabsf(x)) + 1.0f), x);
 }
 
-// pre[g] = bias[g] + sum_k w[g, k] * h[k] for g in [0, G). Each warp takes
-// kRows gates at a time, so kRows independent row reads are in flight per
-// lane (the loop is bound by load latency, not by bandwidth); kVec4 reads
-// w and h as float4 (needs H % 128 == 0 and a 16-byte aligned w).
-constexpr int kRows = 4;
-
-template <bool kVec4>
-__device__ __forceinline__ void hidden_product(const float* __restrict__ w,
-                                               const float* __restrict__ bias,
-                                               const float* h, float* pre,
-                                               int G, int H) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int g0 = warp * kRows; g0 < G; g0 += nwarps * kRows) {
-    float acc[kRows];
+// Sum over the 8 lanes of a unit's group; every lane gets the total.
+template <int N>
+__device__ __forceinline__ void group_sum(float (&v)[N]) {
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) acc[j] = 0.0f;
-    if (kVec4) {
-      for (int k = lane * 4; k < H; k += 128) {
-        const float4 hv = *reinterpret_cast<const float4*>(h + k);
+  for (int o = 1; o < kGroup; o <<= 1)
 #pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          if (g0 + j < G) {
-            const float4 wv = __ldg(reinterpret_cast<const float4*>(w + (size_t)(g0 + j) * H + k));
-            acc[j] = fmaf(wv.w, hv.w, fmaf(wv.z, hv.z, fmaf(wv.y, hv.y, fmaf(wv.x, hv.x, acc[j]))));
-          }
-        }
-      }
-    } else {
-      for (int k = lane; k < H; k += 32) {
-        const float hv = h[k];
-#pragma unroll
-        for (int j = 0; j < kRows; ++j)
-          if (g0 + j < G) acc[j] = fmaf(__ldg(w + (size_t)(g0 + j) * H + k), hv, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const float sum = warp_sum(acc[j]);
-      if (lane == 0 && g0 + j < G) pre[g0 + j] = bias[g0 + j] + sum;
-    }
-  }
+    for (int n = 0; n < N; ++n) v[n] += __shfl_xor_sync(0xffffffffu, v[n], o);
 }
 
-template <bool kVec4>
-__global__ void lstm_rec_kernel(const float* __restrict__ x_proj, const float* __restrict__ w_hh,
-                                float* __restrict__ hs, int T, int B, int H, int reverse) {
-  extern __shared__ float smem[];
-  float* h = smem;          // (H)
-  float* c = h + H;         // (H)
-  float* gates = c + H;     // (4H)
-  const int b = blockIdx.x;
-  const int H4 = 4 * H;
-  for (int j = threadIdx.x; j < H; j += blockDim.x) { h[j] = 0.0f; c[j] = 0.0f; }
-  __syncthreads();
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    // gates = x_proj[t, b] + h @ W_hh^T  (x_proj enters as the "bias")
-    hidden_product<kVec4>(w_hh, x_proj + ((size_t)t * B + b) * H4, h, gates, H4, H);
-    __syncthreads();
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      const float i = sigmoid(gates[j]);
-      const float f = sigmoid(gates[H + j]);
-      const float g = tanhf(gates[2 * H + j]);
-      const float o = sigmoid(gates[3 * H + j]);
-      const float c2 = f * c[j] + i * g;
-      const float h2 = o * tanhf(c2);
-      c[j] = c2;
-      h[j] = h2;
-      hs[((size_t)t * B + b) * H + j] = h2;
-    }
-    __syncthreads();
-  }
+struct Dir {
+  const float* x_proj;  // (T, B, G*H)
+  const float* w_hh;    // (G*H, H)
+  const float* b_hh;    // (G*H), GRU only
+  int reverse;
+  int col;              // first column of this direction in a row of hs
+};
+
+struct Dirs {
+  Dir d[2];
+};
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
 }
 
-template <bool kVec4>
-__global__ void gru_rec_kernel(const float* __restrict__ x_proj, const float* __restrict__ w_hh,
-                               const float* __restrict__ b_hh, float* __restrict__ hs,
-                               int T, int B, int H, int reverse) {
-  extern __shared__ float smem[];
-  float* h = smem;          // (H)
-  float* hp = h + H;        // (3H): h @ W_hh^T + b_hh
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kAhead - 2 groups are in flight: the group of the next
+// step has landed.
+__device__ __forceinline__ void cp_async_wait_next() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead - 2) : "memory");
+}
+
+__device__ __forceinline__ Dir this_dir(const Dirs& dirs) {
+  return blockIdx.y ? dirs.d[1] : dirs.d[0];
+}
+
+// ---------------------------------------------------------------- K2: GRU --
+
+// KPL: k values a lane holds (8*KPL >= H). One block per batch row.
+template <int KPL>
+__global__ void __launch_bounds__(64 * KPL) gru_rec_kernel(Dirs dirs, float* __restrict__ hs,
+                                                           int T, int B, int H, int ld) {
+  constexpr int KP = kGroup * KPL;  // h padded with zeros to KP
+  __shared__ float hbuf[2][KP];
+  __shared__ float xring[kAhead][3 * KP];  // x_proj of the coming steps
+  const Dir d = this_dir(dirs);
+  const int g = threadIdx.x & (kGroup - 1);
+  const int j = threadIdx.x / kGroup;
+  const bool active = j < H;
+  const bool leader = active && g == 0;
   const int b = blockIdx.x;
   const int H3 = 3 * H;
-  for (int j = threadIdx.x; j < H; j += blockDim.x) h[j] = 0.0f;
-  __syncthreads();
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    hidden_product<kVec4>(w_hh, b_hh, h, hp, H3, H);
-    __syncthreads();
-    const float* xp = x_proj + ((size_t)t * B + b) * H3;
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      const float r = sigmoid(xp[j] + hp[j]);
-      const float z = sigmoid(xp[H + j] + hp[H + j]);
-      const float n = tanhf(xp[2 * H + j] + r * hp[2 * H + j]);
-      const float h2 = (1.0f - z) * n + z * h[j];
-      h[j] = h2;
-      hs[((size_t)t * B + b) * H + j] = h2;
+
+  // W_hh rows of unit j at k = g + 8*i, zero past H: registers for all T steps
+  float wr[KPL], wz[KPL], wn[KPL];
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) {
+    const int k = g + kGroup * i;
+    const bool in = active && k < H;
+    wr[i] = in ? d.w_hh[(size_t)j * H + k] : 0.0f;
+    wz[i] = in ? d.w_hh[(size_t)(H + j) * H + k] : 0.0f;
+    wn[i] = in ? d.w_hh[(size_t)(2 * H + j) * H + k] : 0.0f;
+  }
+  const float br = leader ? d.b_hh[j] : 0.0f;
+  const float bz = leader ? d.b_hh[H + j] : 0.0f;
+  const float bn = leader ? d.b_hh[2 * H + j] : 0.0f;
+  for (int i = threadIdx.x; i < 2 * KP; i += blockDim.x) (&hbuf[0][0])[i] = 0.0f;
+
+  // thread e < 3H copies x_proj[t(s), b, e] of step s
+  auto fetch_x = [&](int s) {
+    if (threadIdx.x < H3) {
+      const int t = d.reverse ? T - 1 - s : s;
+      const float* src = s < T ? d.x_proj + ((size_t)t * B + b) * H3 + threadIdx.x : d.x_proj;
+      cp_async4(&xring[s % kAhead][threadIdx.x], src, s < T ? 4 : 0);
     }
+    cp_async_commit();
+  };
+  for (int s = 0; s < kAhead - 1; ++s) fetch_x(s);
+  cp_async_wait_next();  // step 0's x has landed (kAhead - 2 groups may still fly)
+  __syncthreads();
+
+  for (int s = 0; s < T; ++s) {
+    const int cur = s & 1;
+    const int t = d.reverse ? T - 1 - s : s;
+    fetch_x(s + kAhead - 1);  // into the slot that step s - 1 read
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) {
+      const float hk = hbuf[cur][g + kGroup * i];
+      acc[0] = fmaf(wr[i], hk, acc[0]);
+      acc[1] = fmaf(wz[i], hk, acc[1]);
+      acc[2] = fmaf(wn[i], hk, acc[2]);
+    }
+    group_sum(acc);
+    if (leader) {
+      const float* x = xring[s % kAhead];
+      const float rg = sigmoid(x[j] + (acc[0] + br));
+      const float zg = sigmoid(x[H + j] + (acc[1] + bz));
+      const float ng = tanh_(x[2 * H + j] + rg * (acc[2] + bn));
+      const float h2 = (1.0f - zg) * ng + zg * hbuf[cur][j];
+      hbuf[cur ^ 1][j] = h2;
+      hs[((size_t)t * B + b) * ld + d.col + j] = h2;
+    }
+    cp_async_wait_next();
     __syncthreads();
   }
 }
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+template <int KPL>
+cudaError_t launch_gru_t(const Dirs& dirs, float* hs, int T, int B, int H, int ndir,
+                         cudaStream_t stream) {
+  const int threads = (kGroup * H + 31) / 32 * 32;
+  gru_rec_kernel<KPL><<<dim3(B, ndir), threads, 0, stream>>>(dirs, hs, T, B, H, ndir * H);
+  return cudaGetLastError();
 }
 
-bool vec4_ok(const float* w, int H) {
-  return H % 128 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+// --------------------------------------------------------------- K1: LSTM --
+
+// Hidden units per CTA: ceil(H / 8) rounded up to a multiple of 4, so that a
+// CTA's slice of an x_proj row is whole 16-byte chunks.
+__host__ __device__ constexpr int lstm_units(int H) {
+  return ((H + kCluster - 1) / kCluster + 3) / 4 * 4;
 }
 
-template <bool kVec4>
-int launch_lstm(const float* x_proj, const float* w_hh, float* hs, int T, int B, int H,
-                int reverse, cudaStream_t stream) {
-  // h, c and the gates; 16-byte aligned offsets for the float4 reads of h
-  const size_t smem = (size_t)6 * H * sizeof(float);
-  cudaError_t err = set_smem(lstm_rec_kernel<kVec4>, smem);
-  if (err != cudaSuccess) return (int)err;
-  lstm_rec_kernel<kVec4><<<B, kThreads, smem, stream>>>(x_proj, w_hh, hs, T, B, H, reverse);
-  return (int)cudaGetLastError();
+// Dynamic shared memory of one K1 CTA, in floats: W_hh rows (4, U, KP), h
+// (2, R, KP) and the x_proj ring (kAhead, R, 4, U); KP = 64*KP64 is H padded
+// with zeros.
+__host__ __device__ constexpr size_t lstm_smem_floats(int KP64, int R, int U) {
+  return (size_t)(4 * U + 2 * R) * 64 * KP64 + (size_t)kAhead * R * 4 * U;
 }
 
-template <bool kVec4>
-int launch_gru(const float* x_proj, const float* w_hh, const float* b_hh, float* hs,
-               int T, int B, int H, int reverse, cudaStream_t stream) {
-  const size_t smem = (size_t)4 * H * sizeof(float);
-  cudaError_t err = set_smem(gru_rec_kernel<kVec4>, smem);
-  if (err != cudaSuccess) return (int)err;
-  gru_rec_kernel<kVec4><<<B, kThreads, smem, stream>>>(x_proj, w_hh, b_hh, hs, T, B, H, reverse);
-  return (int)cudaGetLastError();
+// After the k-split sums, lane g of a unit holds the 4 gates of row
+// g / (kGroup / R): a reduce-scatter over the rows, then a butterfly over the
+// lanes that share a row. acc is (R, 4) row-major on entry; acc[0..4) is the
+// lane's row on exit.
+template <int R>
+__device__ __forceinline__ void row_sums(float (&acc)[4 * R], int g) {
+  constexpr int kScatter = R == 1 ? 0 : R == 2 ? 1 : R == 4 ? 2 : 3;
+#pragma unroll
+  for (int st = 0; st < kScatter; ++st) {
+    const int half = 2 * R >> st;  // values kept after this step
+    const int o = (kGroup / 2) >> st;
+    const bool hi = (g & o) != 0;
+#pragma unroll
+    for (int k = 0; k < 2 * R; ++k) {
+      if (k < half) {
+        const float send = hi ? acc[k] : acc[k + half];
+        const float keep = hi ? acc[k + half] : acc[k];
+        acc[k] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = (kGroup / 2) >> kScatter; o > 0; o >>= 1)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], o);
+}
+
+// KP64: ceil(H / 64); R: batch rows per cluster. blockDim.x = kGroup * U.
+template <int KP64, int R>
+__global__ void __launch_bounds__(kGroup * kLstmMaxUnits, 1)
+    lstm_rec_kernel(Dirs dirs, float* __restrict__ hs, int T, int B, int H, int ld) {
+  constexpr int KP = 64 * KP64;
+  constexpr int KP4 = KP / 4;
+  constexpr int NCH = KP4 / kGroup;       // float4 chunks of k per lane
+  constexpr int kRowLanes = kGroup / R;   // lanes that share a row after row_sums
+  static_assert(kGroup == kCluster, "each of a row's lanes stores h into R of the CTAs");
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Dir d = this_dir(dirs);
+  const int U = blockDim.x / kGroup;
+  float* w_s = reinterpret_cast<float*>(smem4);  // (4, U, KP)
+  float* h_s = w_s + (size_t)4 * U * KP;         // (2, R, KP)
+  float* x_s = h_s + (size_t)2 * R * KP;         // (kAhead, R, 4, U)
+  const int rank = (int)cluster.block_rank();
+  const int g = threadIdx.x & (kGroup - 1);
+  const int u = threadIdx.x / kGroup;
+  const int j = rank * U + u;
+  const int row = g / kRowLanes, dup = g % kRowLanes;
+  const int b0 = (blockIdx.x / kCluster) * R;
+  const bool writes = j < H && b0 + row < B;
+  const int H4 = 4 * H;
+
+  // this CTA's gate rows of W_hh, once: row (q, u) is W_hh[q*H + rank*U + u]
+  for (int idx = threadIdx.x; idx < 4 * U * KP4; idx += blockDim.x) {
+    const int wrow = idx / KP4, c = idx % KP4;
+    const int q = wrow / U, jj = rank * U + wrow % U;
+    const bool ok = jj < H && 4 * c < H;
+    const float* src = ok ? d.w_hh + ((size_t)q * H + jj) * H + 4 * c : d.w_hh;
+    cp_async16(w_s + (size_t)wrow * KP + 4 * c, src, ok ? 16 : 0);
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < 2 * R * KP; i += blockDim.x) h_s[i] = 0.0f;
+
+  // thread e < R*U copies chunk e of this CTA's x_proj slice of step s:
+  // row e / U, gate (e % U) / (U/4), units 4*(e % (U/4)) .. + 4
+  const int xe_r = threadIdx.x / U, xe_q = threadIdx.x % U / (U / 4), xe_m = threadIdx.x % (U / 4);
+  auto fetch_x = [&](int s) {
+    if (xe_r < R) {
+      const int t = d.reverse ? T - 1 - s : s;
+      const int jj = rank * U + 4 * xe_m;
+      const bool ok = s < T && b0 + xe_r < B && jj < H;
+      const float* src =
+          ok ? d.x_proj + ((size_t)t * B + b0 + xe_r) * H4 + xe_q * H + jj : d.x_proj;
+      cp_async16(x_s + (((size_t)(s % kAhead) * R + xe_r) * 4 + xe_q) * U + 4 * xe_m, src,
+                 ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < kAhead - 1; ++s) fetch_x(s);
+  cp_async_wait_next();  // W_hh and step 0's x have landed
+  float c_state = 0.0f;
+  // every peer has started and zeroed its h before anyone stores into it
+  cluster.sync();
+
+  const float4* w4 = reinterpret_cast<const float4*>(w_s) + (size_t)u * KP4;
+  // the first NREG chunks of the lane's W_hh slice are also kept in
+  // registers, halving the shared-memory reads of W_hh a step (at 8 rows the
+  // accumulators need those registers)
+  constexpr int NREG = R < 8 ? NCH / 2 : 0;
+  float4 wreg[4][NREG > 0 ? NREG : 1];
+#pragma unroll
+  for (int i = 0; i < NREG; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wreg[q][i] = w4[(size_t)q * U * KP4 + g + kGroup * i];
+  for (int s = 0; s < T; ++s) {
+    const int cur = s & 1;
+    const int t = d.reverse ? T - 1 - s : s;
+    fetch_x(s + kAhead - 1);  // into the slot that step s - 1 read
+    float acc[4 * R];         // (R, 4)
+#pragma unroll
+    for (int n = 0; n < 4 * R; ++n) acc[n] = 0.0f;
+    const float4* h4 = reinterpret_cast<const float4*>(h_s + (size_t)cur * R * KP);
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      const int c = g + kGroup * i;
+      float4 hv[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) hv[r] = h4[r * KP4 + c];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 wv = i < NREG ? wreg[q][i < NREG ? i : 0] : w4[(size_t)q * U * KP4 + c];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float a = acc[r * 4 + q];
+          a = fmaf(wv.x, hv[r].x, a);
+          a = fmaf(wv.y, hv[r].y, a);
+          a = fmaf(wv.z, hv[r].z, a);
+          acc[r * 4 + q] = fmaf(wv.w, hv[r].w, a);
+        }
+      }
+    }
+    row_sums<R>(acc, g);
+    // lane g: the cell update of (unit j, row), c never leaves the CTA; the
+    // kRowLanes lanes of a row share the 8 stores of h into the cluster: lane
+    // dup stores into CTAs dup*R .. dup*R + R - 1
+    const float* x = x_s + ((size_t)(s % kAhead) * R + row) * 4 * U + u;
+    const float ig = sigmoid(x[0] + acc[0]);
+    const float fg = sigmoid(x[U] + acc[1]);
+    const float gg = tanh_(x[2 * U] + acc[2]);
+    const float og = sigmoid(x[3 * U] + acc[3]);
+    c_state = fg * c_state + ig * gg;
+    const float h2 = og * tanh_(c_state);
+    if (writes) {
+      float* next = h_s + ((size_t)(cur ^ 1) * R + row) * KP + j;
+#pragma unroll
+      for (int m = 0; m < R; ++m) *cluster.map_shared_rank(next, dup * R + m) = h2;
+      if (dup == 0) hs[((size_t)t * B + b0 + row) * ld + d.col + j] = h2;
+    }
+    cp_async_wait_next();
+    cluster.sync();
+  }
+}
+
+// Launches K1, or (max_clusters != nullptr) asks how many of its clusters fit
+// on the card at once.
+template <int KP64, int R>
+cudaError_t launch_lstm_t(const Dirs& dirs, float* hs, int T, int B, int H, int ndir,
+                          cudaStream_t stream, int* max_clusters) {
+  auto kernel = lstm_rec_kernel<KP64, R>;
+  const int U = lstm_units(H);
+  const size_t smem = sizeof(float) * lstm_smem_floats(KP64, R, U);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * ((B + R - 1) / R), ndir);
+  cfg.blockDim = dim3(kGroup * U);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr)
+    return cudaOccupancyMaxActiveClusters(max_clusters, (const void*)kernel, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kernel, dirs, hs, T, B, H, ndir * H);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_lstm_r(const Dirs& dirs, float* hs, int T, int B, int H, int ndir,
+                          cudaStream_t stream, int* max_clusters) {
+  switch ((H + 63) / 64) {
+    case 1: return launch_lstm_t<1, R>(dirs, hs, T, B, H, ndir, stream, max_clusters);
+    case 2: return launch_lstm_t<2, R>(dirs, hs, T, B, H, ndir, stream, max_clusters);
+    case 3: return launch_lstm_t<3, R>(dirs, hs, T, B, H, ndir, stream, max_clusters);
+    case 4: return launch_lstm_t<4, R>(dirs, hs, T, B, H, ndir, stream, max_clusters);
+    case 5: return launch_lstm_t<5, R>(dirs, hs, T, B, H, ndir, stream, max_clusters);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_lstm(const Dirs& dirs, float* hs, int T, int B, int H, int ndir, int rows,
+                        cudaStream_t stream, int* max_clusters) {
+  if (H < 4 || H > kLstmMaxH || H % 4 != 0 || ndir < 1 || ndir > 2) return cudaErrorInvalidValue;
+  switch (rows) {
+    case 1: return launch_lstm_r<1>(dirs, hs, T, B, H, ndir, stream, max_clusters);
+    case 2: return launch_lstm_r<2>(dirs, hs, T, B, H, ndir, stream, max_clusters);
+    case 4: return launch_lstm_r<4>(dirs, hs, T, B, H, ndir, stream, max_clusters);
+    case 8: return launch_lstm_r<8>(dirs, hs, T, B, H, ndir, stream, max_clusters);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+Dir make_dir(const float* x_proj, const float* w_hh, const float* b_hh, int reverse, int col) {
+  Dir d;
+  d.x_proj = x_proj;
+  d.w_hh = w_hh;
+  d.b_hh = b_hh;
+  d.reverse = reverse;
+  d.col = col;
+  return d;
 }
 
 }  // namespace
 
-extern "C" int lstm_rec_f32(const float* x_proj, const float* w_hh, float* hs,
-                            int T, int B, int H, int reverse, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return vec4_ok(w_hh, H) ? launch_lstm<true>(x_proj, w_hh, hs, T, B, H, reverse, s)
-                          : launch_lstm<false>(x_proj, w_hh, hs, T, B, H, reverse, s);
+// hs (T, B, ndir*H): direction k (x_proj_k, w_hh_k, reverse_k) fills columns
+// [k*H, k*H + H). `rows` is the batch rows per cluster (1, 2, 4 or 8).
+extern "C" int lstm_rec_f32(const float* x_proj0, const float* x_proj1, const float* w_hh0,
+                            const float* w_hh1, float* hs, int T, int B, int H, int ndir,
+                            int reverse0, int reverse1, int rows, void* stream) {
+  Dirs dirs;
+  dirs.d[0] = make_dir(x_proj0, w_hh0, nullptr, reverse0, 0);
+  dirs.d[1] = make_dir(x_proj1, w_hh1, nullptr, reverse1, H);
+  return (int)launch_lstm(dirs, hs, T, B, H, ndir, rows, (cudaStream_t)stream, nullptr);
 }
 
-extern "C" int gru_rec_f32(const float* x_proj, const float* w_hh, const float* b_hh, float* hs,
-                           int T, int B, int H, int reverse, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return vec4_ok(w_hh, H) ? launch_gru<true>(x_proj, w_hh, b_hh, hs, T, B, H, reverse, s)
-                          : launch_gru<false>(x_proj, w_hh, b_hh, hs, T, B, H, reverse, s);
+// How many K1 clusters of `rows` batch rows at hidden size H fit on the card
+// at once, or minus a cudaError_t.
+extern "C" int lstm_rec_max_clusters(int H, int rows) {
+  Dirs dirs = {};
+  int n = 0;
+  const cudaError_t err = launch_lstm(dirs, nullptr, 1, rows, H, 1, rows, nullptr, &n);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// As lstm_rec_f32 for the GRU, with b_hh per direction.
+extern "C" int gru_rec_f32(const float* x_proj0, const float* x_proj1, const float* w_hh0,
+                           const float* w_hh1, const float* b_hh0, const float* b_hh1, float* hs,
+                           int T, int B, int H, int ndir, int reverse0, int reverse1,
+                           void* stream) {
+  if (H < 1 || H > kGruMaxH || ndir < 1 || ndir > 2) return (int)cudaErrorInvalidValue;
+  Dirs dirs;
+  dirs.d[0] = make_dir(x_proj0, w_hh0, b_hh0, reverse0, 0);
+  dirs.d[1] = make_dir(x_proj1, w_hh1, b_hh1, reverse1, H);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (2 * ((H + 15) / 16)) {
+    case 2: return (int)launch_gru_t<2>(dirs, hs, T, B, H, ndir, s);
+    case 4: return (int)launch_gru_t<4>(dirs, hs, T, B, H, ndir, s);
+    case 6: return (int)launch_gru_t<6>(dirs, hs, T, B, H, ndir, s);
+    case 8: return (int)launch_gru_t<8>(dirs, hs, T, B, H, ndir, s);
+    case 10: return (int)launch_gru_t<10>(dirs, hs, T, B, H, ndir, s);
+    case 12: return (int)launch_gru_t<12>(dirs, hs, T, B, H, ndir, s);
+    case 14: return (int)launch_gru_t<14>(dirs, hs, T, B, H, ndir, s);
+    case 16: return (int)launch_gru_t<16>(dirs, hs, T, B, H, ndir, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -25,10 +25,11 @@ SOURCES = ("rnn", "attention", "griffin_lim")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict = {}
+LOGS: dict = {}  # nvcc's output (ptxas registers, spills) of each source built here
 
 
 def _nvcc() -> str:
@@ -68,6 +69,7 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+    LOGS[name] = out
     os.replace(tmp, target)
 
 

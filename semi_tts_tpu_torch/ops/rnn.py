@@ -1,7 +1,8 @@
 """Recurrent primitives with torch gate math (counterpart of
 `semi_tts_tpu/ops/rnn.py`): LSTM gates i, f, g, o; GRU gates r, z, n with
 b_hn inside r. The input projection of a whole sequence is one GEMM outside
-the recurrence; the recurrence itself runs in the K1/K2 kernels.
+the recurrence; the recurrence itself runs in the K1/K2 kernels, both
+directions of a bidirectional layer in one launch.
 
 Parameters are `LSTMParams`/`GRUParams` modules named as the JAX pytree
 leaves (``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``).
@@ -14,11 +15,11 @@ import math
 import torch
 from torch import nn
 
-from ..kernels.rnn import gru_rec, lstm_rec
+from ..kernels.rnn import bigru_rec, bilstm_rec, gru_rec, lstm_rec
 from .init import uniform
 
-__all__ = ["GRUParams", "LSTMParams", "bigru", "gru_rec", "lstm_cell", "lstm_rec",
-           "multi_lstm", "multi_lstm_init"]
+__all__ = ["GRUParams", "LSTMParams", "bigru", "bigru_rec", "bilstm_rec", "gru_rec",
+           "lstm_cell", "lstm_rec", "multi_lstm", "multi_lstm_init"]
 
 
 class _RNNParams(nn.Module):
@@ -53,12 +54,9 @@ def lstm_cell(p: LSTMParams, x, h, c):
     return h2, c2
 
 
-def _lstm_scan(p: LSTMParams, xs, reverse: bool = False):
-    """One LSTM direction over xs (B, T, D) -> (B, T, H); b_ih + b_hh are
-    folded into the projected inputs."""
-    x_proj = xs @ p.w_ih.T + (p.b_ih + p.b_hh)                       # (B, T, 4H)
-    hs = lstm_rec(reverse, p.w_hh, x_proj.transpose(0, 1).contiguous())
-    return hs.transpose(0, 1)
+def _lstm_proj(p: LSTMParams, xs):
+    """xs (B, T, D) -> x_proj (T, B, 4H); b_ih + b_hh are folded in."""
+    return (xs @ p.w_ih.T + (p.b_ih + p.b_hh)).transpose(0, 1).contiguous()
 
 
 def multi_lstm_init(input_dim: int, hidden_dim: int, num_layers: int,
@@ -80,20 +78,23 @@ def multi_lstm(layers: nn.ModuleList, xs):
     (no inter-layer dropout)."""
     h = xs
     for layer in layers:
-        outs = [_lstm_scan(layer["fwd"], h)]
+        f = layer["fwd"]
         if "bwd" in layer:
-            outs.append(_lstm_scan(layer["bwd"], h, reverse=True))
-        h = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+            b = layer["bwd"]
+            hs = bilstm_rec(f.w_hh, b.w_hh, _lstm_proj(f, h), _lstm_proj(b, h))
+        else:
+            hs = lstm_rec(False, f.w_hh, _lstm_proj(f, h))
+        h = hs.transpose(0, 1)
     return h
 
 
-def _gru_scan(p: GRUParams, xs, reverse: bool = False):
-    """One GRU direction over (B, T, D) -> (B, T, H); b_hh stays inside the
-    recurrence (the b_hn-inside-r quirk)."""
-    x_proj = xs @ p.w_ih.T + p.b_ih                                  # (B, T, 3H)
-    hs = gru_rec(reverse, p.w_hh, p.b_hh, x_proj.transpose(0, 1).contiguous())
-    return hs.transpose(0, 1)
+def _gru_proj(p: GRUParams, xs):
+    """xs (B, T, D) -> x_proj (T, B, 3H); b_hh stays inside the recurrence
+    (the b_hn-inside-r quirk)."""
+    return (xs @ p.w_ih.T + p.b_ih).transpose(0, 1).contiguous()
 
 
 def bigru(p: nn.ModuleDict, xs):
-    return torch.cat([_gru_scan(p["fwd"], xs), _gru_scan(p["bwd"], xs, reverse=True)], dim=-1)
+    f, b = p["fwd"], p["bwd"]
+    hs = bigru_rec(f.w_hh, b.w_hh, f.b_hh, b.b_hh, _gru_proj(f, xs), _gru_proj(b, xs))
+    return hs.transpose(0, 1)

@@ -1,5 +1,6 @@
 """The port's recurrences (`semi_tts_tpu_torch/ops/rnn.py`, kernels K1/K2 via
-their plain versions on the CPU) against `semi_tts_tpu.ops.rnn`."""
+their plain versions on the CPU) against `semi_tts_tpu.ops.rnn`, and the
+kernels' launch plans."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 
 from semi_tts_tpu.ops import rnn as J
 from semi_tts_tpu_torch.bridge import load_jax_params
+from semi_tts_tpu_torch.kernels import rnn as K
 from semi_tts_tpu_torch.ops import rnn as P
 
 ATOL = 1e-5  # fp32 on both sides; only the summation order of h @ W_hh^T differs
@@ -83,12 +85,106 @@ def test_lstm_cell_matches_jax():
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("T,B,H", [(9, 3, 16), (1, 2, 8), (6, 5, 12)])
+def test_bilstm_rec_matches_jax_per_direction(T, B, H):
+    """Both directions in one call: forward in [..., :H], reversed in [..., H:]."""
+    rng = np.random.RandomState(T)
+    w_f, w_b = ((0.3 * rng.randn(4 * H, H)).astype(np.float32) for _ in range(2))
+    x_f, x_b = ((0.5 * rng.randn(T, B, 4 * H)).astype(np.float32) for _ in range(2))
+    want = np.concatenate([np.asarray(J._lstm_rec(False, jnp.asarray(w_f), jnp.asarray(x_f))),
+                           np.asarray(J._lstm_rec(True, jnp.asarray(w_b), jnp.asarray(x_b)))], -1)
+    got = K.bilstm_rec(_t(w_f), _t(w_b), _t(x_f), _t(x_b)).numpy()
+    assert got.shape == (T, B, 2 * H)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("T,B,H", [(11, 3, 12), (1, 2, 8), (7, 5, 10)])
+def test_bigru_rec_matches_jax_per_direction(T, B, H):
+    rng = np.random.RandomState(T)
+    w_f, w_b = ((0.3 * rng.randn(3 * H, H)).astype(np.float32) for _ in range(2))
+    b_f, b_b = ((0.3 * rng.randn(3 * H)).astype(np.float32) for _ in range(2))
+    x_f, x_b = ((0.5 * rng.randn(T, B, 3 * H)).astype(np.float32) for _ in range(2))
+    want = np.concatenate(
+        [np.asarray(J._gru_rec(False, jnp.asarray(w_f), jnp.asarray(b_f), jnp.asarray(x_f))),
+         np.asarray(J._gru_rec(True, jnp.asarray(w_b), jnp.asarray(b_b), jnp.asarray(x_b)))], -1)
+    got = K.bigru_rec(_t(w_f), _t(w_b), _t(b_f), _t(b_b), _t(x_f), _t(x_b)).numpy()
+    assert got.shape == (T, B, 2 * H)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_bidirectional_wrappers_match_jax_layer(kind):
+    """bilstm_rec / bigru_rec on x_proj built from the JAX layer's weights
+    equal `J.multi_lstm` / `J.bigru` (batch-first, forward then backward)."""
+    rng = np.random.RandomState(6)
+    B, T, D, H = 3, 8, 6, 5
+    xs = rng.randn(B, T, D).astype(np.float32)
+    if kind == "lstm":
+        params = J.multi_lstm_init(jax.random.PRNGKey(7), D, H, 1, True)
+        want = np.asarray(J.multi_lstm(params, jnp.asarray(xs)))
+        layer = jax.tree_util.tree_map(np.asarray, params)[0]
+        f, b = layer["fwd"], layer["bwd"]
+        proj = [np.einsum("btd,gd->tbg", xs, p["w_ih"]) + p["b_ih"] + p["b_hh"] for p in (f, b)]
+        got = K.bilstm_rec(_t(f["w_hh"]), _t(b["w_hh"]), *map(_t, proj))
+    else:
+        params = J.bigru_init(jax.random.PRNGKey(8), D, H)
+        want = np.asarray(J.bigru(params, jnp.asarray(xs)))
+        p = jax.tree_util.tree_map(np.asarray, params)
+        f, b = p["fwd"], p["bwd"]
+        proj = [np.einsum("btd,gd->tbg", xs, q["w_ih"]) + q["b_ih"] for q in (f, b)]
+        got = K.bigru_rec(_t(f["w_hh"]), _t(b["w_hh"]), _t(f["b_hh"]), _t(b["b_hh"]),
+                          *map(_t, proj))
+    np.testing.assert_allclose(got.transpose(0, 1).numpy(), want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("max_clusters,rows,clusters", [(16, 2, 16), (15, 4, 8), (64, 1, 32)])
+def test_lstm_plan_flagship(max_clusters, rows, clusters):
+    """The serving BiLSTM (B=16, H=256, both directions): the fewest rows per
+    cluster that let every cluster of 8 CTAs run at once."""
+    plan = K.lstm_plan(16, 256, 2, max_clusters)
+    assert (plan["cluster"], plan["rows"], plan["clusters"]) == (8, rows, clusters)
+    assert plan["grid"] == (8 * clusters // 2, 2)
+    assert plan["units_per_cta"] == 32 and plan["threads"] == 256
+    assert plan["smem_bytes"] <= K.SMEM_PER_BLOCK
+    assert plan["smem_bytes"] >= 128 * 256 * 4   # the CTA's 128 gate rows of W_hh
+
+
+@pytest.mark.parametrize("rows", K.LSTM_ROWS)
+def test_lstm_plan_fits_shared_memory_up_to_max_h(rows):
+    for H in (4, 80, 256, K.LSTM_MAX_H):
+        plan = K.lstm_plan(16, H, 2, 15, rows)
+        assert plan["smem_bytes"] <= K.SMEM_PER_BLOCK
+        assert plan["units_per_cta"] * plan["cluster"] >= H
+
+
+def test_gru_plan_flagship():
+    plan = K.gru_plan(16, 80, 2)
+    assert plan["grid"] == (16, 2)
+    assert plan["threads"] == 640 and plan["weights_per_lane"] == 30
+
+
+@pytest.mark.parametrize("plan,H", [("lstm", K.LSTM_MAX_H + 4), ("lstm", 258), ("lstm", 0),
+                                    ("gru", K.GRU_MAX_H + 1), ("gru", 0)])
+def test_plans_raise_outside_their_h_range(plan, H):
+    with pytest.raises(ValueError):
+        K.lstm_plan(16, H, 2, 15) if plan == "lstm" else K.gru_plan(16, H, 2)
+
+
+def test_lstm_plan_raises_on_unknown_rows():
+    with pytest.raises(ValueError):
+        K.lstm_plan(16, 256, 2, 15, rows=3)
+
+
 def test_wrappers_count_no_launch_on_cpu():
     """On CPU tensors the wrappers take the plain version: no kernel launch
     is counted."""
     from semi_tts_tpu_torch import kernels
 
-    before = kernels.launch_counts()
+    wrappers = (K.lstm_rec, K.gru_rec, K.bilstm_rec, K.bigru_rec)
+    before = kernels.launch_counts(), [w.launches for w in wrappers]
     P.lstm_rec(False, torch.zeros(8, 2), torch.zeros(3, 1, 8))
     P.gru_rec(True, torch.zeros(6, 2), torch.zeros(6), torch.zeros(3, 1, 6))
-    assert kernels.launch_counts() == before
+    K.bilstm_rec(torch.zeros(8, 2), torch.zeros(8, 2), torch.zeros(3, 1, 8), torch.zeros(3, 1, 8))
+    K.bigru_rec(torch.zeros(6, 2), torch.zeros(6, 2), torch.zeros(6), torch.zeros(6),
+                torch.zeros(3, 1, 6), torch.zeros(3, 1, 6))
+    assert (kernels.launch_counts(), [w.launches for w in wrappers]) == before
