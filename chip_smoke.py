@@ -14,7 +14,10 @@ Phases, each fatal on failure:
    calls), the kernel's eager time through its Python wrapper, and the least
    time the card could take (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s fp32,
    whichever is larger); for the recurrences also the time per step, for K1
-   by batch rows per cluster and at the ASR shape T=267;
+   by batch rows per cluster (``ms_by_rows``) and at the ASR shape T=267; for
+   K3 its cluster size (``cluster``), for K4 ``gl_ola_frame`` its time by
+   output frames per CTA (``ms_by_tile``) and the default tile (``tile``);
+   rows without a library yardstick say why in ``library``;
 4. serving at the flagship width of ``config/semi-multi-spkr-paired-data.yaml``:
    a seeded random model written with the port's ``save_checkpoint``, loaded with
    ``TTSServer.from_checkpoint`` on the card, one warm-up request, then five timed
@@ -268,25 +271,35 @@ def asr_lstm_check(dev):
             "library": "cuDNN nn.LSTM(bidirectional=True), includes the input GEMM; graph-timed"}
 
 
+NO_LIBRARY = "none: no single PyTorch call computes this function"
+
+
 def _case_attention(randn, unif, dev):
     """K3: one decoder attention step (no mask, as the flagship decodes).
-    Also checked with a padding mask, and at a memory length that is not a
-    multiple of 32 (the softmax warp and the conv edges)."""
+    Also checked with a padding mask, at memory lengths that are not a
+    multiple of 32 (L=45, and L=1000 near the plan's limit, where memory is
+    read from L2 instead of shared memory), at B=5 and without location
+    features (loc_aware: false)."""
     from semi_tts_tpu_torch.kernels import attention as k3
 
     L, A, D, C, F_, K = 32, 256, 512, 2, 32, 31
     weights = (unif(F_, C, K, a=0.3), unif(A, F_, a=0.3), unif(A, a=0.1))
 
-    def inputs(L):
+    def inputs(L, B=B):
         pq, pm, mem = randn(B, A), randn(B, L, A, scale=0.5), randn(B, L, D)
         w = torch.softmax(randn(B, L), -1)
         hist = torch.stack([w, w + torch.softmax(randn(B, L), -1)], 1).contiguous()
-        lengths = 20 + torch.arange(B, device=dev) % (L - 19)
+        lengths = L - 12 + torch.arange(B, device=dev) % 13
         mask = torch.arange(L, device=dev)[None, :] >= lengths[:, None]
         return (pq, pm, mem, hist) + weights, mask
 
     args, mask = inputs(L)
     odd, odd_mask = inputs(45)
+    long, long_mask = inputs(1000)
+    five, five_mask = inputs(L, B=5)
+    no_loc = args[:4] + (None, None, args[6])
+    cases = ((args, mask), (odd, None), (odd, odd_mask), (long, None), (long, long_mask),
+             (five, None), (five, five_mask), (no_loc, None), (no_loc, mask))
     return dict(
         name="attention_step", replaces="semi_tts_tpu/models/attention.py:39 (attention_step, "
         "in the decoder_apply step body, models/decoder.py:227)",
@@ -294,9 +307,9 @@ def _case_attention(randn, unif, dev):
         shapes=f"B={B} L={L} A={A} D={D} C={C} F={F_} K={K}",
         kernel=lambda: k3.attention_step(*args), plain=lambda: k3.attention_step_plain(*args),
         checks=[(lambda a=a, m=m: k3.attention_step(*a, m),
-                 lambda a=a, m=m: k3.attention_step_plain(*a, m))
-                for a, m in ((args, mask), (odd, None), (odd, odd_mask))],
-        library=None, tol=1e-4,
+                 lambda a=a, m=m: k3.attention_step_plain(*a, m)) for a, m in cases],
+        extra={"cluster": k3.attention_plan(B, L, A, D, C, F_, K)["cluster"]},
+        library=None, library_note=NO_LIBRARY, tol=1e-4,
         nbytes=4 * (B * A + B * L * A + B * L * D + B * C * L + F_ * C * K + A * F_ + A + B * D + B * L),
         flops=2 * B * L * (F_ * C * K + A * F_ + 2 * A + D), iters=200)
 
@@ -314,27 +327,41 @@ def _case_gl_project(randn, unif, dev):
         "phase projection)", source="semi_tts_tpu_torch/csrc/griffin_lim.cu",
         shapes=f"reim ({B},{T},{2 * F_}) mag ({B},{T},{F_})",
         kernel=lambda: k4.gl_project(reim, mag), plain=lambda: k4.gl_project_plain(reim, mag),
-        library=None, tol=1e-4, nbytes=4 * B * T * 5 * F_, flops=6 * B * T * F_, iters=50)
+        library=None, library_note=NO_LIBRARY, tol=1e-4, nbytes=4 * B * T * 5 * F_,
+        flops=6 * B * T * F_, iters=50)
 
 
 def _case_gl_ola_frame(randn, unif, dev):
-    """K4b: overlap-add + next-round framing at n_fft 2048, hop 275, win 1102."""
+    """K4b: overlap-add + next-round framing at n_fft 2048, hop 275, win 1102.
+    Also checked with the signal out (the last round) at T=300, and at T=5,
+    where a tile's segment is reflected at both ends: with the default tile
+    (greater than T), with one frame a tile and with 2 frames a tile, both
+    outputs; at T=300 with one frame a tile; and at an odd window length
+    (n_fft 512, hop 220, win 441). Timed by frames per tile."""
     from semi_tts_tpu_torch.kernels import griffin_lim as k4
     from semi_tts_tpu_torch.ops.stft import window_support
 
     T, geo = 300, dict(n_fft=2048, hop=275, win_length=1102)
     span = window_support(2048, 1102)[1]
     frames = randn(B, T, span, scale=0.1)
+    short = randn(B, 5, span, scale=0.1)
+    odd_geo = dict(n_fft=512, hop=220, win_length=441)  # odd span: scalar stores
+    odd = randn(B, 12, 441, scale=0.1)
     S = geo["hop"] * (T - 1)
+    checks = [(lambda x=x, e=e, n=n, g=g: k4.gl_ola_frame(x, emit_signal=e, tile=n, **g),
+               lambda x=x, e=e, g=g: k4.gl_ola_frame_plain(x, emit_signal=e, **g))
+              for x, n, g in ((frames, None, geo), (frames, 1, geo), (short, None, geo),
+                              (short, 1, geo), (short, 2, geo), (odd, None, odd_geo))
+              for e in (False, True)]
     return dict(
         name="gl_ola_frame", replaces="semi_tts_tpu/ops/stft.py:400 (istft_reim OLA/divide/trim) "
         "+ :373 (stft_reim pad/framing), per griffin_lim.py:77 round",
         source="semi_tts_tpu_torch/csrc/griffin_lim.cu", shapes=f"frames ({B},{T},{span})",
         kernel=lambda: k4.gl_ola_frame(frames, emit_signal=False, **geo),
         plain=lambda: k4.gl_ola_frame_plain(frames, emit_signal=False, **geo),
-        checks=[(lambda: k4.gl_ola_frame(frames, emit_signal=True, **geo),
-                 lambda: k4.gl_ola_frame_plain(frames, emit_signal=True, **geo))],
-        library=None, tol=1e-4, nbytes=4 * (2 * B * T * span + S),
+        checks=checks, tiles=lambda n: k4.gl_ola_frame(frames, emit_signal=False, tile=n, **geo),
+        tile_options=(4, 8, 12, 16, 32), extra={"tile": k4.OLA_TILE},
+        library=None, library_note=NO_LIBRARY, tol=1e-4, nbytes=4 * (2 * B * T * span + S),
         flops=B * T * span * (-(-span // geo["hop"]) + 1), iters=50)
 
 
@@ -378,6 +405,10 @@ def phase_kernels(dev):
             if "rows" in c:
                 row["ms_by_rows"] = {r: device_ms(lambda r=r: c["rows"](r), c["iters"])
                                      for r in c["row_options"]}
+            if "tiles" in c:
+                row["ms_by_tile"] = {n: device_ms(lambda n=n: c["tiles"](n), c["iters"])
+                                     for n in c["tile_options"]}
+            row.update(c.get("extra", {}))
             out.append(row)
     return out
 
@@ -465,7 +496,7 @@ def profiled_request(server, text, sid, wall):
     """One more request under torch.profiler: device busy time (the sum of
     the durations of device-side events: kernels and copies, on one stream),
     the idle share against the unprofiled median wall time, and the device
-    time by kernel name, largest first."""
+    time of the 16 busiest kernel names, largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -479,7 +510,7 @@ def profiled_request(server, text, sid, wall):
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in by_name.values()) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:16]
     return {"profiled_wall_s": profiled_wall, "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall,
             "top_device_ms": [[name[:70], n, us / 1e3] for name, (n, us) in top]}

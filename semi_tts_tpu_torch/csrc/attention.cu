@@ -11,28 +11,59 @@
 // loc_w (F, C, K) location conv weights (no bias, padding (K-1)//2,
 // cross-correlation over L exactly as lax.conv with TIO weights),
 // loc_lin (A, F), v (A), an optional mask (B, L) of bytes (1 = padded).
-// Outputs: context (B, D) and weights (B, L).
+// F = 0 (no loc_w) is the location-free attention. Outputs: context (B, D)
+// and weights (B, L).
 //
-// What bounds it on an H100: bytes. At serving shapes (B=16, L=32, A=256,
-// D=512, F=32, K=31) it reads ~1.6 MB (processed_memory and memory) and
-// does ~11 MFLOP, so the floor is ~0.5 us of HBM time; the real cost is
-// the launch and the dependent phases (conv -> energy -> softmax -> context).
+// What bounds it on an H100: bytes, in principle. At serving shapes (B=16,
+// L=32, A=256, D=512, F=32, K=31) it reads ~1.6 MB (processed_memory and
+// memory) and does ~11 MFLOP, so the floor is ~0.5 us of HBM time. What a
+// call really pays is latency: the launch, the loads, and a chain of
+// dependent phases (location conv -> energies -> softmax -> context), each
+// too small to fill an SM. `chip_ablate.py` times the phases (PERF.md).
 //
-// Design: one block per batch row, all phases in one launch, intermediates
-// (location features, energies, weights) in shared memory only. The small
-// location weights are staged in shared memory first (loc_lin transposed to
-// (F, A) so a warp's lanes read neighbouring words): the phases are bound by
-// the latency of dependent loads, and shared memory is the nearest store.
-// Energies: one warp per position l, lanes over the attention dim (coalesced
-// reads of processed_memory), shuffle reduction. Softmax: one warp over L,
-// with -inf for masked positions. Context: threads over D (coalesced reads).
+// Design: one thread-block cluster of kCluster CTAs per batch row, so that
+// B=16 fills 128 of the 132 SMs and every phase runs on 8 SMs at once.
+// - CTA r owns the attention columns [r*A/n, (r+1)*A/n) and the context
+//   columns [r*D/n, (r+1)*D/n). Its prologue issues every load it needs at
+//   once with cp.async, in two groups: first what the location features
+//   and energies need (attn_hist zero-padded for the conv, loc_w, its rows
+//   of loc_lin, its slices of pq and v), then its slices of
+//   processed_memory and memory (16 bytes a copy; memory only when it fits,
+//   else the context loop reads it from L2). The conv waits only for the
+//   first group; the mask is read into shared memory meanwhile.
+// - Location features loc[l, f] are needed whole by every CTA, and each
+//   CTA computes them itself (63k FMAs at serving shapes): a thread slides
+//   a window of 4 positions of the history through registers, 4 chains of
+//   FMAs. They come in tiles of `loc_tile` positions so that L up to ~1,200
+//   fits in shared memory. Splitting the filters over the cluster and
+//   exchanging them through distributed shared memory read slower.
+// - Energies: a warp takes 4 positions at once, lanes over the CTA's
+//   attention columns, reading loc_lin and the features as float4 (rows
+//   padded to an odd number of float4s, so a warp's reads do not collide in
+//   the banks). The partials go into this CTA's slot, then into slot r of
+//   every peer as 16-byte stores to distributed shared memory, then one
+//   cluster barrier. Each CTA sums the n partials in the order r = 0..n-1,
+//   so all CTAs hold the same energies bit for bit, and applies the mask
+//   and the softmax itself. CTA 0 writes the weights; each CTA writes its
+//   context columns. No CTA touches a peer's shared memory after the
+//   barrier, so none can exit while a peer still needs it.
+// - tanh and exp use __expf / __fdividef, as the recurrences do.
+// The launch plan (cluster, grid, shared memory, loc_tile, whether memory
+// is staged) is computed by `kernels/attention.py` `attention_plan`; this
+// file lays out shared memory the same way.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kCluster = 8;   // CTAs per batch row (attention.py CLUSTER)
+constexpr int kThreads = 256;
+constexpr int kRows = 4;      // energy positions a warp computes together
+constexpr int kConvL = 4;     // location-feature positions a thread computes together
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -44,107 +75,306 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__global__ void attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm,
-                                      const float* __restrict__ memory,
-                                      const float* __restrict__ hist,
-                                      const float* __restrict__ loc_w,
-                                      const float* __restrict__ loc_lin,
-                                      const float* __restrict__ v,
-                                      const unsigned char* __restrict__ mask,
-                                      float* __restrict__ context, float* __restrict__ weights,
-                                      int L, int A, int D, int C, int F, int K) {
-  extern __shared__ float smem[];
-  float* hist_s = smem;           // (C, L)
-  float* locf = hist_s + C * L;   // (L, F)
-  float* e = locf + L * F;        // (L) energies, then weights
-  float* wloc = e + L;            // (F, C, K) loc_w
-  float* lin_t = wloc + F * C * K;  // (F, A) loc_lin transposed
-  __shared__ float stat[2];       // softmax max and sum
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int pad = (K - 1) / 2;
+__device__ __forceinline__ float tanh_(float x) {
+  return copysignf(1.0f - __fdividef(2.0f, __expf(2.0f * fabsf(x)) + 1.0f), x);
+}
 
-  for (int i = threadIdx.x; i < C * L; i += blockDim.x) hist_s[i] = hist[(size_t)b * C * L + i];
-  for (int i = threadIdx.x; i < F * C * K; i += blockDim.x) wloc[i] = loc_w[i];
-  for (int i = threadIdx.x; i < A * F; i += blockDim.x) lin_t[(i % F) * A + i / F] = loc_lin[i];
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// Copy a (rows, cols) slice of a row-major array with row stride `ld` into
+// shared memory with row stride `ds`; 16 bytes a copy when `vec`.
+__device__ __forceinline__ void stage_slice(float* dst, int ds, const float* src, int ld,
+                                            int rows, int cols, bool vec) {
+  if (vec) {
+    const int c4 = cols >> 2;
+    for (int i = threadIdx.x; i < rows * c4; i += blockDim.x) {
+      const int row = i / c4, c = (i - row * c4) << 2;
+      cp_async16(dst + row * ds + c, src + row * ld + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+      const int row = i / cols, c = i - row * cols;
+      cp_async4(dst + row * ds + c, src + row * ld + c);
+    }
+  }
+}
+
+// Zero columns [from, ds) of a (rows, ds) shared-memory array.
+__device__ __forceinline__ void zero_tail(float* dst, int ds, int rows, int from) {
+  const int n = ds - from;
+  for (int i = threadIdx.x; i < rows * n; i += blockDim.x) dst[(i / n) * ds + from + i % n] = 0.0f;
+}
+
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+// Row stride of loc_lin and of the location features in shared memory: F
+// rounded up to whole float4s, an odd number of them, so that the float4
+// reads of 8 neighbouring lanes fall in 8 different 16-byte bank groups.
+__host__ __device__ __forceinline__ int feature_stride(int F) {
+  const int n = round4(F);
+  return (n / 4) % 2 ? n : n + 4;
+}
+
+// Shared-memory layout in floats, each region a multiple of 4 floats
+// (attention.py `attention_plan` adds up the same regions).
+struct Layout {
+  int pm, mem, part, e, w, hist, locf, lin, wloc, pq, v, red, total;
+  __host__ __device__ Layout(int L, int Ac, int Dc, int C, int F, int K, int tile, int stage_mem) {
+    int at = 0;
+    pm = at;   at += round4(L * Ac);
+    mem = at;  at += stage_mem ? round4(L * Dc) : 0;
+    part = at; at += kCluster * round4(L);
+    e = at;    at += round4(L);
+    w = at;    at += round4(L);
+    hist = at; at += round4(C * (L + K - 1 + kConvL - 1));
+    locf = at; at += tile * feature_stride(F);
+    lin = at;  at += Ac * feature_stride(F);
+    wloc = at; at += round4(F * (C * K + 1));
+    pq = at;   at += round4(Ac);
+    v = at;    at += round4(Ac);
+    red = at;  at += round4(Dc > kThreads ? Dc : kThreads);
+    total = at;
+  }
+};
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads)
+attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm,
+                      const float* __restrict__ memory, const float* __restrict__ hist,
+                      const float* __restrict__ loc_w, const float* __restrict__ loc_lin,
+                      const float* __restrict__ v, const unsigned char* __restrict__ mask,
+                      float* __restrict__ context, float* __restrict__ weights,
+                      int L, int A, int D, int C, int F, int K, int tile, int stage_mem,
+                      int vec) {
+  cg::cluster_group cluster = cg::this_cluster();
+  // Peers write into this CTA's `part` only after every CTA of the cluster
+  // has started: arrive now, wait just before the first remote store.
+  cluster_arrive_relaxed();
+  extern __shared__ __align__(16) float smem[];
+  const int r = (int)cluster.block_rank();
+  const int b = blockIdx.x / kCluster;
+  const int Ac = A / kCluster, Dc = D / kCluster;
+  const Layout lay(L, Ac, Dc, C, F, K, tile, stage_mem);
+  float* pm_s = smem + lay.pm;
+  float* mem_s = smem + lay.mem;
+  float* part = smem + lay.part;   // (kCluster, Lr) partial energies, slot = sender
+  float* e = smem + lay.e;         // (L) the mask as 0/1, then energies
+  float* w = smem + lay.w;         // (L) weights
+  float* hist_s = smem + lay.hist; // (C, Lp) attn_hist zero-padded by (K-1)/2 on the left
+  float* locf = smem + lay.locf;   // (tile, FS) location features, zero past F
+  float* lin_s = smem + lay.lin;   // (Ac, FS) this CTA's rows of loc_lin, zero past F
+  float* wloc = smem + lay.wloc;   // (F, C*K + 1): loc_w, rows padded by one (no bank conflicts)
+  float* pq_s = smem + lay.pq;
+  float* v_s = smem + lay.v;
+  float* red = smem + lay.red;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+
+  // prologue: every load of the CTA in flight at once, in two groups: what
+  // the location features and energies need, then the memory slices
+  const int pad = (K - 1) / 2, Lp = L + K - 1 + kConvL - 1, CK = C * K, FS = feature_stride(F);
+  for (int i = tid; i < C * Lp; i += blockDim.x) {
+    const int c = i / Lp, x = i - c * Lp - pad;
+    if (x >= 0 && x < L) cp_async4(hist_s + i, hist + ((size_t)b * C + c) * L + x);
+    else hist_s[i] = 0.0f;
+  }
+  for (int i = tid; i < F * CK; i += blockDim.x) cp_async4(wloc + i + i / CK, loc_w + i);
+  if (F > 0) {
+    stage_slice(lin_s, FS, loc_lin + (size_t)r * Ac * F, F, Ac, F, vec && F % 4 == 0);
+    zero_tail(lin_s, FS, Ac, F);
+    zero_tail(locf, FS, tile, F);
+  }
+  for (int i = tid; i < Ac; i += blockDim.x) {
+    cp_async4(pq_s + i, pq + (size_t)b * A + r * Ac + i);
+    cp_async4(v_s + i, v + r * Ac + i);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  stage_slice(pm_s, Ac, pm + ((size_t)b * L) * A + r * Ac, A, L, Ac, vec);
+  const float* mem_b = memory + ((size_t)b * L) * D + r * Dc;
+  if (stage_mem) stage_slice(mem_s, Dc, mem_b, D, L, Dc, vec);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int l = tid; l < L; l += blockDim.x) e[l] = mask != nullptr && mask[(size_t)b * L + l];
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // the first group has landed
   __syncthreads();
+  cluster_wait();
 
-  // location features: locf[l, f] = sum_c sum_k loc_w[f, c, k] * hist[c, l + k - pad]
-  for (int i = threadIdx.x; i < L * F; i += blockDim.x) {
-    const int l = i / F, f = i % F;
-    float acc = 0.0f;
-    for (int c = 0; c < C; ++c) {
-      const float* w = wloc + (f * C + c) * K;
-      for (int k = 0; k < K; ++k) {
-        const int src = l + k - pad;
-        if (src >= 0 && src < L) acc = fmaf(w[k], hist_s[c * L + src], acc);
+  const int Lr = round4(L);
+  float* own = part + r * Lr;      // this CTA's slot
+  const int step = tile > 0 ? tile : L;
+  for (int l0 = 0; l0 < L; l0 += step) {
+    const int rows = min(step, L - l0);
+    if (F > 0) {
+      // locf[ll, f] = sum_c sum_k loc_w[f, c, k] * hist[c, l0 + ll + k - pad]
+      if (l0 > 0) __syncthreads();  // the previous tile's energies are done with locf
+      // a thread makes kConvL neighbouring positions of one filter, sliding
+      // a window of the history through registers
+      const int groups = (rows + kConvL - 1) / kConvL;
+      for (int i = tid; i < groups * F; i += blockDim.x) {
+        const int lb = (i / F) * kConvL, f = i - (i / F) * F;
+        float acc[kConvL] = {};
+        for (int c = 0; c < C; ++c) {
+          const float* wk = wloc + f * (CK + 1) + c * K;
+          const float* h = hist_s + c * Lp + l0 + lb;  // h[q + k] = hist[c, l0+lb+q + k - pad]
+          float win[kConvL];
+#pragma unroll
+          for (int q = 0; q < kConvL - 1; ++q) win[q + 1] = h[q];
+#pragma unroll 4
+          for (int k = 0; k < K; ++k) {
+#pragma unroll
+            for (int q = 0; q < kConvL - 1; ++q) win[q] = win[q + 1];
+            win[kConvL - 1] = h[k + kConvL - 1];
+            const float wv = wk[k];
+#pragma unroll
+            for (int q = 0; q < kConvL; ++q) acc[q] = fmaf(wv, win[q], acc[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kConvL; ++q)
+          if (lb + q < rows) locf[(lb + q) * FS + f] = acc[q];
       }
     }
-    locf[i] = acc;
-  }
-  __syncthreads();
-
-  // energies: e[l] = sum_a v[a] * tanh(pq[a] + loc[l, a] + pm[l, a])
-  const float* pq_b = pq + (size_t)b * A;
-  for (int l = warp; l < L; l += nwarps) {
-    const float* pm_l = pm + ((size_t)b * L + l) * A;
-    const float* lf = locf + l * F;
-    float acc = 0.0f;
-    for (int a = lane; a < A; a += 32) {
-      float loc = 0.0f;
-#pragma unroll 8
-      for (int f = 0; f < F; ++f) loc = fmaf(lf[f], lin_t[f * A + a], loc);
-      acc = fmaf(tanhf((pq_b[a] + loc) + pm_l[a]), v[a], acc);
+    if (l0 == 0) asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // pm and memory
+    __syncthreads();
+    // partial energies over this CTA's columns for kRows positions a warp at
+    // once (lanes over columns), pushed into slot r of every CTA
+    for (int lb = warp * kRows; lb < rows; lb += nwarps * kRows) {
+      int lq[kRows];
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) lq[q] = min(lb + q, rows - 1);
+      float acc[kRows] = {};
+      for (int a = lane; a < Ac; a += 32) {
+        float loc[kRows] = {};
+        const float* la = lin_s + a * FS;
+#pragma unroll 2
+        for (int f = 0; f < F; f += 4) {
+          const float4 lv = *reinterpret_cast<const float4*>(la + f);
+#pragma unroll
+          for (int q = 0; q < kRows; ++q) {
+            const float4 lf = *reinterpret_cast<const float4*>(locf + lq[q] * FS + f);
+            loc[q] = fmaf(lf.x, lv.x, loc[q]);
+            loc[q] = fmaf(lf.y, lv.y, loc[q]);
+            loc[q] = fmaf(lf.z, lv.z, loc[q]);
+            loc[q] = fmaf(lf.w, lv.w, loc[q]);
+          }
+        }
+        const float pa = pq_s[a], va = v_s[a];
+#pragma unroll
+        for (int q = 0; q < kRows; ++q)
+          acc[q] = fmaf(tanh_((pa + loc[q]) + pm_s[(l0 + lq[q]) * Ac + a]), va, acc[q]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], o);
+      if (lane == 0) {
+#pragma unroll
+        for (int q = 0; q < kRows; ++q)
+          if (lb + q < rows) own[l0 + lb + q] = acc[q];
+      }
     }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      const bool masked = mask != nullptr && mask[(size_t)b * L + l];
-      e[l] = masked ? -INFINITY : acc;
-    }
   }
+  // push this CTA's partials into slot r of every peer, 16 bytes a store
   __syncthreads();
+  const int L4 = Lr / 4;
+  for (int i = tid; i < (kCluster - 1) * L4; i += blockDim.x) {
+    const int q = i / L4, m = i - q * L4;
+    float4* dst = reinterpret_cast<float4*>(own) + m;
+    *cluster.map_shared_rank(dst, q < r ? q : q + 1) = *dst;
+  }
+  cluster.sync();  // every partial has landed; no remote access after this
 
-  // softmax over L (one warp)
-  if (warp == 0) {
-    float m = -INFINITY;
-    for (int l = lane; l < L; l += 32) m = fmaxf(m, e[l]);
-    m = warp_max(m);
+  for (int l = tid; l < L; l += blockDim.x) {
     float s = 0.0f;
-    for (int l = lane; l < L; l += 32) s += expf(e[l] - m);
-    s = warp_sum(s);
-    if (lane == 0) { stat[0] = m; stat[1] = s; }
+    for (int q = 0; q < kCluster; ++q) s += part[q * Lr + l];
+    e[l] = e[l] != 0.0f ? -INFINITY : s;
   }
   __syncthreads();
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    const float w = expf(e[l] - stat[0]) / stat[1];
-    weights[(size_t)b * L + l] = w;
-    e[l] = w;  // each thread rewrites only its own entries
+  // softmax statistics, computed by every warp for itself (same order, same result)
+  float m = -INFINITY;
+  for (int l = lane; l < L; l += 32) m = fmaxf(m, e[l]);
+  m = warp_max(m);
+  float sum = 0.0f;
+  for (int l = lane; l < L; l += 32) sum += __expf(e[l] - m);
+  sum = warp_sum(sum);
+  for (int l = tid; l < L; l += blockDim.x) {
+    const float wl = __expf(e[l] - m) / sum;
+    w[l] = wl;
+    if (r == 0) weights[(size_t)b * L + l] = wl;
   }
   __syncthreads();
 
-  // context[d] = sum_l w[l] * memory[l, d]
-  const float* mem_b = memory + (size_t)b * L * D;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+  // context[d] = sum_l w[l] * memory[l, d] over this CTA's columns; G groups
+  // of positions when the columns leave threads idle, summed in group order
+  const int G = Dc >= (int)blockDim.x ? 1 : (int)blockDim.x / Dc;
+  for (int i = tid; i < G * Dc; i += blockDim.x) {
+    const int g = i / Dc, d = i - g * Dc;
     float acc = 0.0f;
-    for (int l = 0; l < L; ++l) acc = fmaf(e[l], mem_b[(size_t)l * D + d], acc);
-    context[(size_t)b * D + d] = acc;
+    if (stage_mem) {
+      for (int l = g; l < L; l += G) acc = fmaf(w[l], mem_s[l * Dc + d], acc);
+    } else {
+      for (int l = g; l < L; l += G) acc = fmaf(w[l], mem_b[(size_t)l * D + d], acc);
+    }
+    if (G == 1) context[(size_t)b * D + r * Dc + d] = acc;
+    else red[i] = acc;
+  }
+  if (G > 1) {
+    __syncthreads();
+    for (int d = tid; d < Dc; d += blockDim.x) {
+      float acc = 0.0f;
+      for (int g = 0; g < G; ++g) acc += red[g * Dc + d];
+      context[(size_t)b * D + r * Dc + d] = acc;
+    }
   }
 }
 
 }  // namespace
 
+// `tile` (location-feature rows per tile, 0 when F = 0) and `stage_mem`
+// come from attention.py `attention_plan`; `vec` = 1 when A/kCluster and
+// D/kCluster are multiples of 4 and processed_memory and memory are 16-byte
+// aligned.
 extern "C" int attention_step_f32(const float* pq, const float* pm, const float* memory,
                                   const float* hist, const float* loc_w, const float* loc_lin,
                                   const float* v, const unsigned char* mask,
                                   float* context, float* weights,
-                                  int B, int L, int A, int D, int C, int F, int K, void* stream) {
-  const size_t smem = (size_t)(C * L + L * F + L + F * C * K + F * A) * sizeof(float);
+                                  int B, int L, int A, int D, int C, int F, int K,
+                                  int tile, int stage_mem, int vec, void* stream) {
+  if (A % kCluster || D % kCluster || L < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const Layout lay(L, A / kCluster, D / kCluster, C, F, K, tile, stage_mem);
+  const size_t smem = (size_t)lay.total * sizeof(float);
+  cudaError_t err;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(attention_step_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = cudaFuncSetAttribute(attention_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  attention_step_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      pq, pm, memory, hist, loc_w, loc_lin, v, mask, context, weights, L, A, D, C, F, K);
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, attention_step_kernel, pq, pm, memory, hist, loc_w, loc_lin, v,
+                           mask, context, weights, L, A, D, C, F, K, tile, stage_mem, vec);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

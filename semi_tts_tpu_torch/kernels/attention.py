@@ -2,15 +2,62 @@
 one location-sensitive attention step, given the projected query.
 
 The wrapper launches `csrc/attention.cu` for CUDA tensors and runs its plain
-PyTorch version only for CPU tensors.
+PyTorch version only for CPU tensors. `attention_plan` computes the launch
+plan (one thread-block cluster per batch row) and names the shapes the
+kernel takes.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from . import build
+
+CLUSTER = 8                 # CTAs per batch row (kCluster in csrc/attention.cu)
+THREADS = 256
+LOC_TILE = 64               # location-feature rows computed per tile
+CONV_L = 4                  # location-feature positions a thread computes together
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _smem_floats(L, Ac, Dc, C, F_, K, tile, stage_memory) -> int:
+    """Floats of the CTA's shared memory, region by region as `Layout` in
+    csrc/attention.cu lays them out."""
+    fs = _round4(F_) + (4 if _round4(F_) % 8 == 0 else 0)  # float4 row stride, odd in float4s
+    regions = (L * Ac, L * Dc if stage_memory else 0, CLUSTER * _round4(L), L, L,
+               C * (L + K - 1 + CONV_L - 1), tile * fs, Ac * fs, F_ * (C * K + 1), Ac, Ac,
+               max(Dc, THREADS))
+    return sum(_round4(n) for n in regions)
+
+
+@functools.lru_cache(maxsize=64)
+def attention_plan(B: int, L: int, A: int, D: int, C: int, F_: int, K: int) -> dict:
+    """K3's launch plan: B clusters of CLUSTER CTAs, CTA r owning A/CLUSTER
+    attention columns and D/CLUSTER context columns. ``memory`` is staged in
+    shared memory when it fits and read from L2 otherwise. F_ = 0 is the
+    location-free attention. Raises ValueError when A or D is not divisible
+    by CLUSTER or the shared memory needed exceeds what a block may use.
+    Cached: the wrapper asks for it on every call; do not mutate it."""
+    if A % CLUSTER or D % CLUSTER:
+        raise ValueError(f"attention_step kernel needs A and D divisible by {CLUSTER}, "
+                         f"got A={A}, D={D}")
+    if L < 1:
+        raise ValueError(f"attention_step kernel needs L >= 1, got L={L}")
+    Ac, Dc = A // CLUSTER, D // CLUSTER
+    tile = min(L, LOC_TILE) if F_ else 0
+    stage = 4 * _smem_floats(L, Ac, Dc, C, F_, K, tile, True) <= build.SMEM_PER_BLOCK
+    smem = 4 * _smem_floats(L, Ac, Dc, C, F_, K, tile, stage)
+    if smem > build.SMEM_PER_BLOCK:
+        raise ValueError(f"attention_step kernel: L={L} needs {smem} bytes of shared memory "
+                         f"at A={A}, D={D}, F={F_}; a block may use {build.SMEM_PER_BLOCK}")
+    return dict(cluster=CLUSTER, grid=(CLUSTER * B,), threads=THREADS, smem_bytes=smem,
+                a_per_cta=Ac, d_per_cta=Dc, loc_tile=tile, stage_memory=stage)
 
 
 def attention_step_plain(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, mask=None):
@@ -57,15 +104,20 @@ def attention_step(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, m
                 and tuple(mask.shape) == (B, L)):
             raise ValueError("attention mask: expected a contiguous CUDA bool tensor (B, L)")
         mask_ptr = mask.data_ptr()  # torch.bool is one byte per element
+    plan = attention_plan(B, L, A, D, C, n_filt, K)
     context = torch.empty((B, D), device=pq.device, dtype=torch.float32)
     weights = torch.empty((B, L), device=pq.device, dtype=torch.float32)
     if B == 0:
         return context, weights
-    fn = build.bind("attention", "attention_step_f32", 10, 7)
+    vec = (plan["a_per_cta"] % 4 == 0 and plan["d_per_cta"] % 4 == 0
+           and processed_memory.data_ptr() % 16 == 0 and memory.data_ptr() % 16 == 0
+           and (loc_lin is None or loc_lin.data_ptr() % 16 == 0))
+    fn = build.bind("attention", "attention_step_f32", 10, 10)
     build.check(fn(pq.data_ptr(), processed_memory.data_ptr(), memory.data_ptr(),
                    attn_hist.data_ptr(), loc_ptr, lin_ptr, v.data_ptr(), mask_ptr,
                    context.data_ptr(), weights.data_ptr(),
-                   B, L, A, D, C, n_filt, K, build.stream()), "attention_step")
+                   B, L, A, D, C, n_filt, K, plan["loc_tile"], int(plan["stage_memory"]),
+                   int(vec), build.stream()), "attention_step")
     attention_step.launches += 1
     return context, weights
 

@@ -24,6 +24,7 @@ import torch
 SOURCES = ("rnn", "attention", "griffin_lim")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SMEM_PER_BLOCK = 232_448    # H100: dynamic shared memory a block may use
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -25,7 +25,7 @@ LSTM_MAX_H = 288            # K1: 4*U gate rows of W_hh per CTA in shared memory
 LSTM_ROWS = (1, 2, 4, 8)    # K1: batch rows per cluster
 AHEAD = 4                   # x_proj steps staged in shared memory
 GRU_MAX_H = 128             # K2: 8 lanes per hidden unit, at most 1024 threads
-SMEM_PER_BLOCK = 232_448    # H100: dynamic shared memory a block may use
+SMEM_PER_BLOCK = build.SMEM_PER_BLOCK
 
 
 def _round_up(x: int, m: int) -> int:

@@ -87,3 +87,46 @@ def test_kernel_wrapper_takes_plain_version_on_cpu():
     assert k3.attention_step.launches == before
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+FLAGSHIP = dict(B=16, L=32, A=256, D=512, C=2, F_=32, K=31)  # decoder attention, B=16 serving
+
+
+def test_attention_plan_flagship():
+    """One cluster of 8 CTAs per batch row: 128 CTAs at B=16, 32 attention and
+    64 context columns each, memory staged in shared memory."""
+    from semi_tts_tpu_torch.kernels import attention as k3, build
+
+    plan = k3.attention_plan(**FLAGSHIP)
+    assert plan["cluster"] == 8 and plan["grid"] == (128,) and plan["threads"] == 256
+    assert (plan["a_per_cta"], plan["d_per_cta"]) == (32, 64)
+    assert plan["stage_memory"] and plan["loc_tile"] == 32
+    assert plan["smem_bytes"] <= build.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("L", [1, 45, 1000, 1024])
+def test_attention_plan_fits_up_to_1024_positions(L):
+    from semi_tts_tpu_torch.kernels import attention as k3, build
+
+    plan = k3.attention_plan(**{**FLAGSHIP, "L": L})
+    assert plan["smem_bytes"] <= build.SMEM_PER_BLOCK
+    assert plan["loc_tile"] == min(L, k3.LOC_TILE)
+    # memory is read from L2 once its slice (L x 64 floats) no longer fits
+    assert plan["stage_memory"] == (L <= 299)
+
+
+@pytest.mark.parametrize("change", [dict(A=260), dict(D=516), dict(A=4), dict(L=4096), dict(L=0)])
+def test_attention_plan_raises_outside_its_shapes(change):
+    from semi_tts_tpu_torch.kernels import attention as k3
+
+    with pytest.raises(ValueError):
+        k3.attention_plan(**{**FLAGSHIP, **change})
+
+
+def test_attention_plan_location_free():
+    """loc_aware: false plans with F = 0: no location tiles, less shared memory."""
+    from semi_tts_tpu_torch.kernels import attention as k3
+
+    plan = k3.attention_plan(**{**FLAGSHIP, "F_": 0, "K": 1})
+    assert plan["loc_tile"] == 0 and plan["grid"] == (128,)
+    assert plan["smem_bytes"] < k3.attention_plan(**FLAGSHIP)["smem_bytes"]

@@ -131,3 +131,95 @@ def test_k4_wrappers_take_plain_versions_on_cpu():
         torch.testing.assert_close(got, sig if emit else PS.frame_reflect(sig, **GEO),
                                    rtol=0, atol=0)
     assert (k4.gl_project.launches, k4.gl_ola_frame.launches) == before
+
+
+# (n_fft, hop, win_length): the flagship's, the tiny config's, and one short
+# enough that two frames can be reflect-padded
+OLA_GEOMETRIES = {"flagship": (2048, 275, 1102), "tiny": (512, 220, 441), "short": (8, 6, 7)}
+OLA_CASES = [(g, T) for g in ("flagship", "tiny") for T in (5, 7, 300)] + \
+            [("short", T) for T in (2, 5, 7, 300)]
+
+
+def _ola_geometry(name):
+    n_fft, hop, win = OLA_GEOMETRIES[name]
+    off, span = PS.window_support(n_fft, win)
+    return dict(span=span, hop=hop, off=off, half=n_fft // 2), dict(n_fft=n_fft, hop=hop,
+                                                                    win_length=win)
+
+
+def _reflect(x, S):
+    x = np.abs(x)
+    return np.where(x >= S, 2 * (S - 1) - x, x)
+
+
+@pytest.mark.parametrize("tile", [1, 8, 32, "T+3"])
+@pytest.mark.parametrize("geo,T", OLA_CASES)
+def test_ola_plan_tiles(geo, T, tile):
+    """Tiles cover the frames once; each segment is exactly the span of the
+    reflected signal indices its frames read; every inverse frame that
+    overlaps the segment is among those the tile reads; the signal stretches
+    of the last round partition the signal."""
+    g, _ = _ola_geometry(geo)
+    span, hop, off, half = g["span"], g["hop"], g["off"], g["half"]
+    S = hop * (T - 1)
+    plan = k4.ola_plan(T, **g, tile=T + 3 if tile == "T+3" else tile)
+    tiles = plan["tiles"]
+    assert plan["grid_x"] == len(tiles)
+    assert [t for tl in tiles for t in range(tl["t0"], tl["t1"])] == list(range(T))
+    assert [s for tl in tiles for s in range(tl["sig_lo"], tl["sig_hi"])] == list(range(S))
+    t_all = np.arange(T)
+    starts = t_all * hop + off - half          # signal position of each inverse frame's start
+    for tl in tiles:
+        x = (np.arange(tl["t0"], tl["t1"])[:, None] * hop + off - half + np.arange(span)[None, :])
+        read = _reflect(x, S)
+        assert (tl["seg_lo"], tl["seg_hi"]) == (read.min(), read.max())
+        overlaps = t_all[(starts <= tl["seg_hi"]) & (starts + span - 1 >= tl["seg_lo"])]
+        assert tl["f_lo"] <= overlaps.min() and overlaps.max() <= tl["f_hi"]
+    assert plan["smem_bytes"] == 4 * max(tl["seg_hi"] - tl["seg_lo"] + 1 for tl in tiles)
+
+
+def _ola_frame_tiled(frames, env, plan, g, emit_signal):
+    """The algorithm of csrc/griffin_lim.cu `gl_ola_frame_kernel` in numpy:
+    per tile, the overlap-add of its segment summed from the highest frame
+    down, divided by the envelope once, then framed out of the segment."""
+    B, T, span = frames.shape
+    hop, off, half = g["hop"], g["off"], g["half"]
+    S = hop * (T - 1)
+    out = np.zeros((B, S) if emit_signal else (B, T, span), np.float32)
+    for tl in plan["tiles"]:
+        lo, hi = (tl["sig_lo"], tl["sig_hi"] - 1) if emit_signal else (tl["seg_lo"], tl["seg_hi"])
+        rel = np.arange(lo, hi + 1) + half - off
+        acc = np.zeros((B, hi - lo + 1), np.float32)
+        for t in range(T - 1, -1, -1):
+            e = rel - t * hop
+            ok = (e >= 0) & (e < span)
+            acc[:, ok] += frames[:, t, e[ok]]
+        seg = acc / env[lo : hi + 1]
+        if emit_signal:
+            out[:, lo : hi + 1] = seg
+            continue
+        for t in range(tl["t0"], tl["t1"]):
+            out[:, t] = seg[:, _reflect(t * hop + off - half + np.arange(span), S) - lo]
+    return out
+
+
+@pytest.mark.parametrize("emit_signal", [False, True])
+@pytest.mark.parametrize("geo,T,tile", [("flagship", 5, 1), ("flagship", 5, 8), ("flagship", 7, 3),
+                                        ("flagship", 300, 32), ("tiny", 7, 2), ("short", 2, 1),
+                                        ("short", 7, 4)])
+def test_tiled_ola_frame_is_bit_identical_to_plain(geo, T, tile, emit_signal):
+    """The tiled overlap-add keeps the plain version's summation order, so
+    the kernel's algorithm equals `gl_ola_frame_plain` exactly."""
+    g, stft_geo = _ola_geometry(geo)
+    frames = np.random.RandomState(T).randn(2, T, g["span"]).astype(np.float32)
+    env = PS.trimmed_envelope(stft_geo["n_fft"], g["hop"], stft_geo["win_length"], T, "cpu").numpy()
+    got = _ola_frame_tiled(frames, env, k4.ola_plan(T, **g, tile=tile), g, emit_signal)
+    want = k4.gl_ola_frame_plain(torch.from_numpy(frames), emit_signal=emit_signal, **stft_geo)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("T,tile", [(1, None), (5, 0)])
+def test_ola_plan_raises(T, tile):
+    g, _ = _ola_geometry("flagship")
+    with pytest.raises(ValueError):
+        k4.ola_plan(T, **g, tile=tile)
