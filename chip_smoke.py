@@ -25,17 +25,35 @@ Phases, each fatal on failure:
    samples each; the median wall time is reported), with every kernel's launch
    counter reset before the first and read after it; the wall time of each stage;
    one request under torch.profiler for the device's busy time and idle share; and
-   a small request against the same checkpoint served by the plain path on the CPU.
+   a small request against the same checkpoint served by the plain path on the CPU;
+5. ASR training at the same width: a seeded random model driven by ``AsrTrainer``
+   for one warm-up step and five timed ``asr_step``s of B=8 utterances of 3.0 s
+   (66150 samples) and U=32 tokens (median wall, peak memory, the loss and
+   gradient norm of every step, all finite), with ``validate_asr`` after the
+   first (finite PER); the kernel launches of one step and of the validation;
+   one more step under torch.profiler for the device's busy time and idle
+   share; and one step's loss and gradients on the card against the CPU plain
+   path on the same weights, dropout 0 and the same SNRs, stretch rate and
+   noise. The featurizer is also timed against ``torch.stft`` + ``abs`` + the
+   mel GEMM at equal row lengths.
+
+The training kernels (K5 ``stft_frames``/``spec_db``, K6 ``ctc_alpha``/
+``ctc_beta_grad``, K7 ``bilstm_rec_bwd`` and K1 with cell states,
+``bilstm_rec_cs``) are held to their plain versions in phase 3 at the train
+step's shapes and at ragged ones; their rows' ``launches`` count one train
+step, the serving kernels' one request.
 
 Prints a ``{"ptxas": ...}`` line (registers and spills of the recurrence
-kernels), an ``{"asr_shape": ...}`` line, a ``{"kernels": [...]}`` line, a
-``{"serving": ...}`` line and, last,
-``{"ok": true, "device": {...}}``.
+kernels), an ``{"asr_shape": ...}`` line, a ``{"featurizer": ...}`` line, a
+``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, a
+``{"training": ...}`` line and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -77,6 +95,12 @@ FLAGSHIP_AUDIO = {"num_freq": 1025, "num_mels": 80, "frame_length_ms": 50,
 
 B, U = 16, 32                   # serving batch and padded text length
 REQUESTS = 5                    # timed requests; the kernel launches are counted in the first
+TRAIN_B, TRAIN_S = 8, 66150     # ASR training batch: 3.0 s utterances
+TRAIN_STEPS = 5                 # timed train steps after one warm-up
+SERVING_KERNELS = ("bilstm_rec", "bigru_rec", "attention_step", "gl_project", "gl_ola_frame")
+TRAINING_KERNELS = ("stft_frames", "spec_db", "bilstm_rec_cs", "bilstm_rec_bwd", "ctc_alpha",
+                    "ctc_beta_grad")
+VALIDATION_KERNELS = ("stft_frames", "spec_db", "bilstm_rec")
 HOP = int(FLAGSHIP_AUDIO["frame_shift_ms"] / 1000 * FLAGSHIP_AUDIO["sample_rate"])
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 FP32_FLOP_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
@@ -132,7 +156,9 @@ def device_ms(fn, iters, reps=3):
 
 def max_err(got, want):
     if isinstance(got, tuple):
-        return max(max_err(g, w) for g, w in zip(got, want))
+        if [g is None for g in got] != [w is None for w in want]:
+            raise SystemExit("chip_smoke: a kernel and its plain version return different outputs")
+        return max(max_err(g, w) for g, w in zip(got, want) if g is not None)
     torch.cuda.synchronize()
     return float((got - want).abs().max())
 
@@ -234,13 +260,14 @@ def _case_gru(randn, unif, dev):
 
 def ptxas_report(log):
     """Registers, spills and static shared memory of each instantiation of
-    the recurrence kernels, from nvcc's ``-Xptxas -v`` output."""
+    the recurrence kernels (K1 with its cell-state flag, K2, K7), from
+    nvcc's ``-Xptxas -v`` output."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"(lstm|gru)_rec_kernelILi(\d+)E(?:Li(\d+)E)?", line)
+        m = re.search(r"(lstm_rec|gru_rec|lstm_bwd)_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if "Compiling entry function" in line:
             args = ",".join(a for a in m.groups()[1:] if a) if m else ""
-            name = f"{m.group(1)}_rec_kernel<{args}>" if m else None
+            name = f"{m.group(1)}_kernel<{args}>" if m else None
         elif name and "spill stores" in line:
             out.setdefault(name, {})["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores", line)[1])
         elif name and "Used" in line:
@@ -365,6 +392,273 @@ def _case_gl_ola_frame(randn, unif, dev):
         flops=B * T * span * (-(-span // geo["hop"]) + 1), iters=50)
 
 
+def audio_config():
+    from semi_tts_tpu_torch.ops.features import AudioConfig
+
+    a = dict(FLAGSHIP_AUDIO, snr_range=tuple(FLAGSHIP_AUDIO["snr_range"]),
+             time_stretch_range=tuple(FLAGSHIP_AUDIO["time_stretch_range"]))
+    return AudioConfig(**a)
+
+
+def numpy_waves(lengths, S, seed):
+    """Speech-like test signals from a numpy seed: three amplitude-modulated
+    partials and a little noise, zero past each row's length."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(S) / FLAGSHIP_AUDIO["sample_rate"]
+    waves = np.zeros((len(lengths), S), np.float32)
+    for b, n in enumerate(lengths):
+        f0 = rng.uniform(90, 250)
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 6) * t)
+        sig = sum(np.sin(2 * np.pi * f0 * k * t + rng.uniform(0, 6)) / k for k in (1, 2, 3))
+        sig = 0.3 * env * sig + 0.02 * rng.randn(S)
+        waves[b, :n] = sig[:n]
+    return waves
+
+
+RAGGED = (66150, 60001, 51234, 40000, 33333, 22050, 15000, 11025)  # down to 0.5 s
+
+
+def _case_stft_frames(randn, unif, dev):
+    """K5a at the train step's augmented shapes (stretch rate 1.0, noise
+    mixed in): (8, 66150) -> frames (8, 267, 1212). Also checked on the
+    clean path (hop 275, window 1102, frames (8, 241, 1102)) at full and
+    ragged lengths down to 0.5 s, and augmented at rates 0.9 and 1.1 on
+    ragged lengths."""
+    from semi_tts_tpu_torch.kernels import features as k5
+    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
+    from semi_tts_tpu_torch.ops.stft import window_support
+
+    audio = audio_config()
+    feat = AudioFeaturizer(audio, dev)
+    S, n_fft = TRAIN_S, audio.n_fft
+    waves = torch.from_numpy(numpy_waves([S] * TRAIN_B, S, seed=5)).to(dev)
+    full = torch.full((TRAIN_B,), S, dtype=torch.int32, device=dev)
+    ragged = torch.tensor(RAGGED, dtype=torch.int32, device=dev)
+    noise = randn(TRAIN_B, S)
+    mix = torch.rand(TRAIN_B, device=dev) * 0.3
+    T_aug = 1 + S // audio.min_stretch_hop
+    aug = dict(n_fft=n_fft, support=window_support(n_fft, audio.max_stretch_win), num_frames=T_aug,
+               clamp=True, coeff=audio.preemphasis_coeff, noise=noise, mix=mix)
+    clean = dict(n_fft=n_fft, support=window_support(n_fft, audio.win_length),
+                 num_frames=1 + S // audio.hop_length, clamp=False, coeff=audio.preemphasis_coeff)
+    calls = [(full, feat.stretch_geometry(1.0, dev), aug)]
+    calls += [(L, feat._clean_geom, clean) for L in (full, ragged)]
+    calls += [(ragged, feat.stretch_geometry(r, dev), aug) for r in (0.9, 1.1)]
+    checks = [(lambda c=c: k5.stft_frames(waves, c[0], c[1], **c[2]),
+               lambda c=c: k5.stft_frames_plain(waves, c[0], c[1], **c[2])) for c in calls]
+    main = calls[0]
+    span = aug["support"][1]
+    return dict(
+        name="stft_frames", replaces="semi_tts_tpu/ops/features.py:183 (_augment_impl: noise, "
+        "pre-emphasis, reflect_pad_ragged, framing scan, dynamic_hann_window) and :158 "
+        "(featurize: ops/stft.py:297 stft_magnitude framing)",
+        source="semi_tts_tpu_torch/csrc/features.cu",
+        shapes=f"waves ({TRAIN_B},{S}) + noise -> frames ({TRAIN_B},{T_aug},{span})",
+        kernel=checks[0][0], plain=checks[0][1], checks=checks[1:],
+        library=None, library_note="none per kernel: the featurizer line sets the whole "
+        "featurizer beside torch.stft + abs + the mel GEMM", tol=1e-4,
+        nbytes=4 * (TRAIN_B * T_aug * span + 2 * TRAIN_B * S), flops=6 * TRAIN_B * T_aug * span,
+        iters=50, extra={"hop_win": main[1].tolist()})
+
+
+def _case_spec_db(randn, unif, dev):
+    """K5b as the train step calls it first: [re | im] (8, 267, 2050) ->
+    magnitude. Also checked with the dB output (the clean path's linear
+    spectrogram) and on a mel amplitude (8, 267, 80), ragged frame lengths."""
+    from semi_tts_tpu_torch.kernels import features as k5
+    from semi_tts_tpu_torch.ops.features import MIN_LEVEL_DB, REF_LEVEL_DB
+
+    lv = dict(min_db=MIN_LEVEL_DB, ref_db=REF_LEVEL_DB)
+    T, F_, M = 1 + TRAIN_S // 248, 1025, 80
+    reim = randn(TRAIN_B, T, 2 * F_, scale=3.0)
+    reim[:, :2, :4] = 1e-7  # below the 1e-5 amplitude floor
+    amp = randn(TRAIN_B, T, M).abs()
+    flen = (1 + torch.tensor(RAGGED, device=dev) // 248).to(torch.int32)
+    checks = [(lambda r=r, d=d: k5.spec_db(reim, flen, reim=r, db=d, **lv),
+               lambda r=r, d=d: k5.spec_db_plain(reim, flen, reim=r, db=d, **lv))
+              for r, d in ((True, True),)]
+    checks += [(lambda: k5.spec_db(amp, flen, reim=False, **lv)[1],
+                lambda: k5.spec_db_plain(amp, flen, reim=False, **lv)[1])]
+    return dict(
+        name="spec_db", replaces="semi_tts_tpu/ops/stft.py:262 (magnitude_dft |.|) + "
+        "ops/features.py:154 (_finalize: amp_to_db, normalize_db) and the frame masks "
+        "(stft.py:330, features.py:244)", source="semi_tts_tpu_torch/csrc/features.cu",
+        shapes=f"reim ({TRAIN_B},{T},{2 * F_}) -> magnitude ({TRAIN_B},{T},{F_})",
+        kernel=lambda: k5.spec_db(reim, flen, reim=True, db=False, **lv)[0],
+        plain=lambda: k5.spec_db_plain(reim, flen, reim=True, db=False, **lv)[0], checks=checks,
+        library=None, library_note="none per kernel: see the featurizer line", tol=1e-4,
+        nbytes=4 * TRAIN_B * T * 3 * F_, flops=3 * TRAIN_B * T * F_, iters=50)
+
+
+def _ctc_inputs(randn, dev, B_=8, T=133, C=43, U=32, seed=0):
+    """log(softmax + 1e-10) as the train step feeds CTC, targets in 3..42
+    padded with the blank, full input lengths."""
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log(torch.softmax(randn(B_, T, C, scale=2.0), -1) + 1e-10)
+    tl = torch.tensor([32, 30, 28, 24, 32, 20, 16, 31][:B_], dtype=torch.int32)
+    tg = torch.randint(3, C, (B_, U), generator=g, dtype=torch.int32)
+    tg[torch.arange(U)[None, :] >= tl[:, None]] = 0
+    il = torch.full((B_,), T, dtype=torch.int32)
+    return lp, tg.to(dev), il.to(dev), tl.to(dev)
+
+
+def _ctc_edge_cases(randn, dev):
+    """(log_probs, targets, input_lengths, target_lengths) sets: input
+    lengths below T, a target length of 0, repeated labels, an impossible
+    alignment (32 equal labels need 63 frames; the row has 40) and T = 1."""
+    lp, tg, il, tl = _ctc_inputs(randn, dev, seed=1)
+    il2 = torch.tensor([133, 120, 100, 133, 90, 133, 70, 40], dtype=torch.int32, device=dev)
+    tg2, tl2 = tg.clone(), tl.clone()
+    tg2[3], tl2[3] = 0, 0
+    tg2[5, :20] = 7                   # repeated labels
+    tg2[7, :] = 9                     # impossible within 40 frames
+    tl2[7] = 32
+    lp1 = lp[:, :1].contiguous()
+    tg1 = torch.zeros_like(tg)
+    tg1[::2, 0] = 5
+    tl1 = (tg1[:, 0] > 0).to(torch.int32)
+    return [(lp, tg, il, tl), (lp, tg2, il2, tl2),
+            (lp1, tg1, torch.ones_like(il), tl1)]
+
+
+def _ctc_library(lp, tg, il, tl, backward):
+    """F.ctc_loss on the card, reduction 'mean', forward (and backward)."""
+    x = lp.detach().clone().requires_grad_(backward)
+    t64, ilc, tlc = tg.long(), il.cpu().long(), tl.cpu().long()
+
+    def run():
+        with torch.enable_grad():
+            loss = torch.nn.functional.ctc_loss(x.transpose(0, 1), t64, ilc, tlc, reduction="mean")
+            return torch.autograd.grad(loss, x) if backward else loss
+
+    return run
+
+
+def _case_ctc_alpha(randn, unif, dev):
+    """K6a at the train step's shapes (B=8, T=133, C=43, U=32: S=65 states);
+    the edge cases of `_ctc_edge_cases` checked too."""
+    from semi_tts_tpu_torch.kernels import ctc as k6
+
+    args = _ctc_inputs(randn, dev)
+    B_, T, C = args[0].shape
+    S = 2 * args[1].shape[1] + 1
+    checks = [(lambda a=a: k6.ctc_alpha(*a), lambda a=a: k6.ctc_alpha_plain(*a))
+              for a in _ctc_edge_cases(randn, dev)]
+    return dict(
+        name="ctc_alpha", replaces="semi_tts_tpu/ops/ctc.py:63 (_alpha_pass, with "
+        "_logaddexp3 :34; forward of the custom VJP _ctc_nll_fwd :114)",
+        source="semi_tts_tpu_torch/csrc/ctc.cu", shapes=f"log_probs ({B_},{T},{C}), S={S}",
+        kernel=lambda: k6.ctc_alpha(*args), plain=lambda: k6.ctc_alpha_plain(*args),
+        checks=checks, library=_ctc_library(*args, backward=False), library_timing="eager",
+        library_note="F.ctc_loss forward, reduction mean, on the card (CUDA events, eager: "
+        "its lengths go through the host)", tol=1e-4,
+        nbytes=4 * (B_ * T * C + T * B_ * S + B_ * (4 + args[1].shape[1])),
+        flops=12 * T * B_ * S, iters=50)
+
+
+def _case_ctc_beta_grad(randn, unif, dev):
+    """K6b at the train step's shapes, from the plain version's alphas; the
+    edge cases checked too (the impossible row's gradient must be zero)."""
+    from semi_tts_tpu_torch.kernels import ctc as k6
+
+    def full_args(a):
+        alphas, nll = k6.ctc_alpha_plain(*a)
+        g = 1.0 / (a[0].shape[0] * torch.clamp(a[3], min=1).to(torch.float32))
+        return a + (alphas, nll, g)
+
+    args = full_args(_ctc_inputs(randn, dev))
+    B_, T, C = args[0].shape
+    S = args[4].shape[2]
+    edge = [full_args(a) for a in _ctc_edge_cases(randn, dev)]
+    impossible = edge[1]
+    if not float(impossible[5][7]) > 1e29:
+        raise SystemExit("chip_smoke: the impossible CTC alignment has a finite NLL")
+    checks = [(lambda a=a: k6.ctc_beta_grad(*a), lambda a=a: k6.ctc_beta_grad_plain(*a))
+              for a in edge]
+    checks.append((lambda: k6.ctc_beta_grad(*impossible)[7].abs().max(),
+                   lambda: torch.zeros((), device=dev)))
+    return dict(
+        name="ctc_beta_grad", replaces="semi_tts_tpu/ops/ctc.py:123 (_ctc_nll_bwd: beta "
+        "recursion, occupancies, one-hot gradient einsum)",
+        source="semi_tts_tpu_torch/csrc/ctc.cu", shapes=f"log_probs ({B_},{T},{C}), S={S}",
+        kernel=lambda: k6.ctc_beta_grad(*args), plain=lambda: k6.ctc_beta_grad_plain(*args),
+        checks=checks, library=_ctc_library(*args[:4], backward=True), library_timing="eager",
+        library_note="F.ctc_loss forward + backward, reduction mean, on the card (CUDA events, "
+        "eager; includes the forward)", tol=1e-4,
+        nbytes=4 * (2 * B_ * T * C + T * B_ * S + 3 * B_), flops=16 * T * B_ * S + T * B_ * C,
+        iters=50)
+
+
+def _lstm_bwd_inputs(randn, unif, T, B_, H, ndir=2):
+    """W_hh, gate pre-activations (T, B, 4H) per direction, cell states and
+    the gradient of hs (T, B, ndir*H); the second direction None for one."""
+    w = [unif(4 * H, H, a=H ** -0.5) for _ in range(ndir)]
+    gates = [randn(T, B_, 4 * H) for _ in range(ndir)]
+    if ndir == 1:
+        w, gates = w + [None], gates + [None]
+    return w + gates + [randn(T, B_, ndir * H, scale=0.5), randn(T, B_, ndir * H)]
+
+
+def _case_lstm_bwd(randn, unif, dev):
+    """K7 at the ASR BiLSTM's train-step shape (T=133, B=8, H=256, both
+    directions in one launch); also at T=1, B=5, H=80 and one direction."""
+    from semi_tts_tpu_torch.kernels import rnn as k17
+
+    T, H, D = 133, 256, 512
+    args = _lstm_bwd_inputs(randn, unif, T, TRAIN_B, H)
+    others = [_lstm_bwd_inputs(randn, unif, 1, TRAIN_B, H), _lstm_bwd_inputs(randn, unif, 40, 5, H),
+              _lstm_bwd_inputs(randn, unif, 40, 5, 80), _lstm_bwd_inputs(randn, unif, T, 5, H, 1)]
+    checks = [(lambda a=a: k17.bilstm_rec_bwd(*a), lambda a=a: k17.bilstm_rec_bwd_plain(*a))
+              for a in others]
+    lstm = torch.nn.LSTM(D, H, bidirectional=True).to(dev)
+    x = randn(T, TRAIN_B, D).requires_grad_(True)
+    with torch.enable_grad():
+        y, _ = lstm(x)
+    gy = randn(*y.shape)
+    leaves = [x] + list(lstm.parameters())
+    return dict(
+        name="bilstm_rec_bwd", replaces="semi_tts_tpu/ops/rnn.py:114 (_lstm_rec_bwd, the "
+        "backward scan of the custom VJP of _lstm_rec), both directions",
+        source="semi_tts_tpu_torch/csrc/rnn.cu",
+        shapes=f"2 x gates ({T},{TRAIN_B},{4 * H}), W_hh ({4 * H},{H})", steps=T,
+        kernel=lambda: k17.bilstm_rec_bwd(*args), plain=lambda: k17.bilstm_rec_bwd_plain(*args),
+        checks=checks,
+        library=lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True),
+        library_timing="eager",
+        library_note="the backward of cuDNN nn.LSTM(bidirectional=True): also the input "
+        "GEMM's data and weight gradients and dW_hh (CUDA events, eager)", tol=1e-4,
+        nbytes=4 * (2 * 2 * T * TRAIN_B * 4 * H + 2 * T * TRAIN_B * 2 * H + 2 * 4 * H * H),
+        flops=2 * 2 * T * TRAIN_B * 4 * H * H, iters=10,
+        extra={"plan": k17.lstm_bwd_plan(TRAIN_B, H, 2, k17.max_clusters(H, "lstm_rec_bwd"))})
+
+
+def _case_lstm_cs(randn, unif, dev):
+    """K1 as training launches it (cell states kept) at the ASR BiLSTM's
+    shape (T=133, B=8, H=256); also at T=1, B=5, H=80 and one direction."""
+    from semi_tts_tpu_torch.kernels import rnn as k17
+
+    T, H, D = 133, 256, 512
+    args = _lstm_inputs(randn, unif, T, TRAIN_B, H)
+    one = _lstm_inputs(randn, unif, T, 5, H)
+    checks = [(lambda a=a: k17.bilstm_rec_cs(*a), lambda a=a: k17.bilstm_rec_cs_plain(*a))
+              for a in (_lstm_inputs(randn, unif, 1, TRAIN_B, H), _lstm_inputs(randn, unif, 40, 5, H),
+                        _lstm_inputs(randn, unif, 40, 5, 80))]
+    checks.append((lambda: k17.bilstm_rec_cs(one[0], None, one[2], None),
+                   lambda: k17.bilstm_rec_cs_plain(one[0], None, one[2], None)))
+    lstm, x_in = torch.nn.LSTM(D, H, bidirectional=True).to(dev), randn(T, TRAIN_B, D)
+    return dict(
+        name="bilstm_rec_cs", replaces="tools/proto_pallas_rnn.py:33 (pallas_lstm_rec); "
+        "semi_tts_tpu/ops/rnn.py:95 (_lstm_rec_fwd, which keeps cs for the backward)",
+        source="semi_tts_tpu_torch/csrc/rnn.cu",
+        shapes=f"2 x x_proj ({T},{TRAIN_B},{4 * H}) -> hs, cs ({T},{TRAIN_B},{2 * H})", steps=T,
+        kernel=lambda: k17.bilstm_rec_cs(*args), plain=lambda: k17.bilstm_rec_cs_plain(*args),
+        checks=checks, library=lambda: lstm(x_in),
+        library_note="cuDNN nn.LSTM(bidirectional=True) forward, includes the input GEMM; "
+        "graph-timed", tol=1e-4,
+        nbytes=2 * 4 * (T * TRAIN_B * 4 * H + 4 * H * H + 2 * T * TRAIN_B * H),
+        flops=2 * 2 * T * TRAIN_B * 4 * H * H, iters=10)
+
+
 def kernel_cases(dev):
     """One dict per kernel at its serving shapes: the kernel call, its plain
     version, a PyTorch library call or None, tolerance, bytes, FLOPs."""
@@ -377,7 +671,9 @@ def kernel_cases(dev):
         return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * a
 
     return [case(randn, unif, dev) for case in
-            (_case_lstm, _case_gru, _case_attention, _case_gl_project, _case_gl_ola_frame)]
+            (_case_lstm, _case_gru, _case_attention, _case_gl_project, _case_gl_ola_frame,
+             _case_stft_frames, _case_spec_db, _case_ctc_alpha, _case_ctc_beta_grad,
+             _case_lstm_cs, _case_lstm_bwd)]
 
 
 def phase_kernels(dev):
@@ -392,7 +688,8 @@ def phase_kernels(dev):
             ms = device_ms(c["kernel"], c["iters"])
             eager_ms = time_ms(c["kernel"], c["iters"])
             plain_ms = device_ms(c["plain"], max(2, c["iters"] // 10))
-            lib_ms = device_ms(c["library"], c["iters"]) if c["library"] else None
+            lib_time = time_ms if c.get("library_timing") == "eager" else device_ms
+            lib_ms = lib_time(c["library"], c["iters"]) if c["library"] else None
             bound_ms, bound_by = bound(c["nbytes"], c["flops"])
             row = {"name": c["name"], "route": "cuda", "source": c["source"],
                    "replaces": c["replaces"], "shapes": c["shapes"],
@@ -432,37 +729,50 @@ def flagship_config(prenet_dropout=None):
             "model": model}
 
 
-def write_checkpoint(path, config):
-    from semi_tts_tpu_torch.bridge import to_jax_params
+def flagship_vqvae_config(config):
     from semi_tts_tpu_torch.data.text import load_text_encoder
     from semi_tts_tpu_torch.models import vqvae as V
-    from semi_tts_tpu_torch.train.checkpoint import save_checkpoint
 
     corpus = config["data"]["corpus"]
     with open(corpus["spkr_map"]) as f:
         n_spkr = len(json.load(f))
     vocab = load_text_encoder("phoneme", corpus["vocab_file"]).vocab_size
-    cfg = V.config_from_yaml(config["model"], n_mels=80, linear_dim=1025, vocab_size=vocab,
-                             n_spkr=n_spkr, attr_dim=31)
-    model = V.VQVAE(cfg, generator=torch.Generator().manual_seed(0))
+    return V.config_from_yaml(config["model"], n_mels=80, linear_dim=1025, vocab_size=vocab,
+                              n_spkr=n_spkr, attr_dim=31)
+
+
+def write_checkpoint(path, config):
+    """A seeded random checkpoint; returns the number of parameters serving
+    loads (all of them) and of its ASR half."""
+    from semi_tts_tpu_torch.bridge import to_jax_params
+    from semi_tts_tpu_torch.models import vqvae as V
+    from semi_tts_tpu_torch.train.checkpoint import save_checkpoint
+
+    model = V.VQVAE(flagship_vqvae_config(config), generator=torch.Generator().manual_seed(0))
     params, state = to_jax_params(model)
     save_checkpoint(path, params=params, state=state, opt_state={}, step=0)
-    return sum(p.numel() for p in model.parameters())
+    return (sum(p.numel() for p in model.parameters()),
+            sum(p.numel() for n, p in model.named_parameters() if n.startswith("asr")))
 
 
 def phase_serving(build_dir):
+    """The serving phase; ``peak_mem_bytes`` is torch.cuda.max_memory_allocated
+    over the timed requests, ``mem_baseline_bytes`` what was allocated when
+    its count started (model, caches of earlier phases)."""
     from semi_tts_tpu_torch import kernels
     from semi_tts_tpu_torch.serve import TTSServer
 
     ckpt = os.path.join(build_dir, "chip_smoke_ckpt.pth")
     try:
-        n_params = write_checkpoint(ckpt, flagship_config())
+        n_params, n_asr = write_checkpoint(ckpt, flagship_config())
         server = TTSServer.from_checkpoint(flagship_config(), ckpt)
         text, sid = serving_inputs(B, U)
         steps = server.decode_steps_for(text)
         server.synthesize(text, sid, key=1)  # warm-up: cuBLAS/cuDNN handles, bases
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         kernels.reset_launches()
         walls = []
         for i in range(REQUESTS):
@@ -478,7 +788,7 @@ def phase_serving(build_dir):
             raise SystemExit("chip_smoke: all-zero waveforms")
         peak = torch.cuda.max_memory_allocated()
         wall = float(np.median(walls))
-        idle = [n for n, c in launches.items() if c == 0]
+        idle = [n for n in SERVING_KERNELS if launches[n] == 0]
         if idle:
             raise SystemExit(f"chip_smoke: kernels not launched on the main path: {idle}")
         stage_s = stage_times(server, text, sid, steps)
@@ -488,7 +798,8 @@ def phase_serving(build_dir):
         if os.path.exists(ckpt):
             os.remove(ckpt)
     return dict(batch=B, text_len=U, decode_steps=steps, frames=steps * 3, samples=S,
-                params=n_params, wall_s=wall, walls_s=walls, utt_per_s=B / wall, peak_mem_bytes=peak,
+                params=n_params, asr_params=n_asr, wall_s=wall, walls_s=walls, utt_per_s=B / wall, peak_mem_bytes=peak,
+                mem_baseline_bytes=base,
                 stage_s=stage_s, profile=profile, launches=launches, reference=ref)
 
 
@@ -561,6 +872,179 @@ def reference_check(ckpt):
     return out
 
 
+@torch.no_grad()
+def featurizer_line(dev):
+    """The port's clean `featurize` (K5 + two fp32 GEMMs) beside torch.stft
+    (center, reflect) + abs + the mel GEMM on the same pre-emphasized waves,
+    at equal row lengths (8 x 3.0 s, where the two reflect pads agree):
+    device time of each, and the largest difference of the normalized mel."""
+    from semi_tts_tpu_torch.ops.features import (REF_LEVEL_DB, AudioFeaturizer, amp_to_db,
+                                                 normalize_db, preemphasis)
+
+    audio = audio_config()
+    feat = AudioFeaturizer(audio, dev)
+    waves = torch.from_numpy(numpy_waves([TRAIN_S] * TRAIN_B, TRAIN_S, seed=7)).to(dev)
+    lengths = torch.full((TRAIN_B,), TRAIN_S, dtype=torch.int32, device=dev)
+    pre = preemphasis(waves, audio.preemphasis_coeff)
+    window = torch.hann_window(audio.win_length, device=dev)
+
+    def library():
+        spec = torch.stft(pre, audio.n_fft, audio.hop_length, audio.win_length, window,
+                          center=True, pad_mode="reflect", return_complex=True).abs()
+        return spec.transpose(1, 2) @ feat.mel_fb_t
+
+    mel = feat.featurize(waves, lengths)[0]
+    want = normalize_db(amp_to_db(library()) - REF_LEVEL_DB)
+    err = max_err(mel, want)
+    if not err <= 1e-3:
+        raise SystemExit(f"chip_smoke: featurize disagrees with torch.stft ({err})")
+    return {"shapes": f"waves ({TRAIN_B},{TRAIN_S}) -> mel {tuple(mel.shape)}",
+            "ms": device_ms(lambda: feat.featurize(waves, lengths), 20),
+            "library_ms": device_ms(library, 20),
+            "library": "torch.stft(center=True, pad_mode='reflect') + abs + mel matmul, "
+                       "graph-timed", "max_abs_err_mel": err, "tol": 1e-3}
+
+
+def training_batch(seed, dev, lengths=(TRAIN_S,) * TRAIN_B, U_=32):
+    """(waves, wave_len, text, sid) on ``dev`` from a numpy seed: texts of
+    24..32 tokens in 3..42, padded with 0."""
+    rng = np.random.RandomState(seed)
+    text = np.zeros((len(lengths), U_), np.int64)
+    for b in range(len(lengths)):
+        n = rng.randint(24, U_ + 1)
+        text[b, :n] = rng.randint(3, 43, size=n)
+    waves = numpy_waves(lengths, TRAIN_S, seed)
+    return (torch.from_numpy(waves).to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev),
+            torch.from_numpy(text).to(dev), torch.from_numpy(rng.randint(0, 109, len(lengths))).to(dev))
+
+
+def phase_training(dev):
+    """AsrTrainer at flagship width: a warm-up step (then validate_asr), five
+    timed steps, the launches of one step and of the validation, one
+    profiled step, and one step on the card against the CPU plain path."""
+    from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.models import vqvae as V
+    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
+    from semi_tts_tpu_torch.train.optim import Optimizer
+    from semi_tts_tpu_torch.train.steps import StepBuilder
+    from semi_tts_tpu_torch.train.train_asr import AsrTrainer
+    from semi_tts_tpu_torch.utils.metrics import read_phn_attr
+
+    config = flagship_config()
+    cfg = flagship_vqvae_config(config)
+    phn_attr = torch.from_numpy(read_phn_attr(config["model"]["codebook"]["phn_attr_pth"])).to(dev)
+    model = V.VQVAE(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    builder = StepBuilder(cfg, AudioFeaturizer(audio_config(), dev), phn_attr)
+    opt = Optimizer(model.parameters(), lr=1e-3, lr_scheduler="decay")
+    batch = training_batch(0, dev)
+    dev_batch = training_batch(1, dev, lengths=RAGGED)
+    marks, launches, logged, mem = [], {}, [], {}
+
+    def batches():
+        for i in range(1 + TRAIN_STEPS):
+            if i == 1:  # after the warm-up step and its validation, outside the timed steps
+                gc.collect()
+                torch.cuda.reset_peak_memory_stats()
+                mem["base"] = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if i == 2:
+                launches["step"] = kernels.launch_counts()
+            kernels.reset_launches()
+            yield batch
+
+    trainer = AsrTrainer(model, builder, opt, pair_iter=batches(), dev_set=[dev_batch],
+                         max_step=1 + TRAIN_STEPS, valid_step=10 ** 9, progress_step=1,
+                         log=lambda *a: logged.append(a))
+    trainer.exec()
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated()
+    walls = [b - a for a, b in zip(marks[1:], marks[2:])]
+    losses = [v for _, n, v in logged if n == "txt_loss/pair"]
+    gnorms = [v for _, n, v in logged if n == "grad_norm"]
+    per_first = [v for _, n, v in logged if n == "per/dev"]
+    kernels.reset_launches()
+    per = trainer.validate_asr()
+    launches["validate"] = kernels.launch_counts()
+    if len(losses) != 1 + TRAIN_STEPS or not np.isfinite(losses + gnorms + per_first + [per]).all():
+        raise SystemExit(f"chip_smoke: training went non-finite: {losses} {gnorms} {per}")
+    for path, names in (("step", TRAINING_KERNELS), ("validate", VALIDATION_KERNELS)):
+        idle = [n for n in names if launches[path][n] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels not launched on the {path} path: {idle}")
+    profile = profiled_step(trainer, batch, float(np.median(walls)))
+    ref = training_reference(model, cfg, phn_attr, dev)
+    return dict(batch=TRAIN_B, samples=TRAIN_S, text_len=32, steps=1 + TRAIN_STEPS,
+                params=sum(p.numel() for p in model.parameters()),
+                asr_params=sum(p.numel() for p in model.asr.parameters()),
+                wall_s=float(np.median(walls)), walls_s=walls, peak_mem_bytes=peak,
+                mem_baseline_bytes=mem["base"],
+                losses=losses, grad_norms=gnorms, dev_per=per, dev_per_after_step1=per_first[0],
+                launches=launches["step"], launches_validate=launches["validate"],
+                profile=profile, reference=ref)
+
+
+def profiled_step(trainer, batch, wall):
+    """One more step under torch.profiler: device busy time, idle share
+    against the unprofiled median step wall, and the busiest kernel names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._asr_step(trainer.model, trainer.step, *batch)
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy = sum(us for _, us in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:16]
+    return {"profiled_wall_s": profiled_wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+            "kernel_launches": sum(n for n, _ in by_name.values()),
+            "top_device_ms": [[name[:70], n, us / 1e3] for name, (n, us) in top]}
+
+
+def training_reference(model, cfg, phn_attr, dev):
+    """One step's loss and gradients through the card's kernels and through
+    the plain path on the CPU: the same weights and BN statistics, dropout
+    0, B=2 rows of 3.0 s and 2.5 s, and the same SNRs, stretch rate and
+    noise (numpy draws) given to both."""
+    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
+    from semi_tts_tpu_torch.train.steps import StepBuilder
+    from semi_tts_tpu_torch.train.train_asr import asr_loss_and_grads
+
+    cfg0 = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, dropout=0.0))
+    cpu_model = copy.deepcopy(model).cpu()
+    rng = np.random.RandomState(11)
+    lengths = (TRAIN_S, TRAIN_S - 11025)
+    snrs = rng.uniform(10, 100, size=2).astype(np.float32)
+    noise = rng.randn(2, TRAIN_S).astype(np.float32)
+    rate = float(np.float32(rng.uniform(0.9, 1.1)))
+    out = []
+    for device, m in ((dev, model), (torch.device("cpu"), cpu_model)):
+        builder = StepBuilder(cfg0, AudioFeaturizer(audio_config(), device), phn_attr.to(device))
+        waves, wave_len, text, _ = training_batch(3, device, lengths=lengths)
+        aug = (torch.from_numpy(snrs).to(device), rate, torch.from_numpy(noise).to(device))
+        loss, _, grads = asr_loss_and_grads(builder, m, waves, wave_len, text, None, augment=aug)
+        out.append((float(loss), [None if g is None else g.cpu() for g in grads]))
+    (loss_g, grads_g), (loss_c, grads_c) = out
+    if [g is None for g in grads_g] != [g is None for g in grads_c]:
+        raise SystemExit("chip_smoke: card and CPU reach different parameters")
+    gmax = max(float(g.abs().max()) for g in grads_c if g is not None)
+    gerr = max(float((a - b).abs().max()) for a, b in zip(grads_g, grads_c) if a is not None)
+    res = {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c),
+           "loss_tol_rel": 1e-4, "grad_max_abs_err": gerr, "grad_max_abs": gmax,
+           "grad_tol": 1e-3 * gmax}
+    if not (res["loss_rel_err"] <= 1e-4 and gerr <= 1e-3 * gmax):
+        raise SystemExit(f"chip_smoke: card and CPU training steps disagree: {res}")
+    return res
+
+
 def main():
     phase_device()
     from semi_tts_tpu_torch import kernels, use_fp32
@@ -574,11 +1058,16 @@ def main():
     print(json.dumps({"ptxas": ptxas_report(LOGS.get("rnn", ""))}), flush=True)
     table = phase_kernels(dev)
     print(json.dumps({"asr_shape": asr_lstm_check(dev)}), flush=True)
+    print(json.dumps({"featurizer": featurizer_line(dev)}), flush=True)
     serving = phase_serving(str(BUILD_DIR))
+    training = phase_training(dev)
     for row in table:
-        row["launches"] = serving["launches"][row["name"]]
+        on_path = serving if row["name"] in SERVING_KERNELS else training
+        row["launches"] = on_path["launches"][row["name"]]
+        row["launches_per"] = "serving request" if on_path is serving else "train step"
     print(json.dumps({"kernels": table}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

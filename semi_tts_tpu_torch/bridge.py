@@ -6,8 +6,7 @@ The JAX side is a pair of nested dicts/lists of numpy arrays: the
 the JAX params paths (``tts.encoder.convs.0.w`` <-> ``tts/encoder/convs/0/w``).
 BatchNorm buffers map to the JAX state tree, which drops the ``cbhg`` level
 and the ``bn`` leaf of the postnet (``tts.postnet.cbhg.banks.0.bn.mean`` <->
-``tts/postnet/banks/0/mean``). The ASR subtrees (``asr``, ``asr_postnet``)
-are not ported and are skipped by name.
+``tts/postnet/banks/0/mean``).
 """
 
 from __future__ import annotations
@@ -15,15 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-SKIPPED = ("asr", "asr_postnet")
-
 
 def _flatten(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
-            if prefix == "" and k in SKIPPED:
-                continue
             out.update(_flatten(v, f"{prefix}{k}/"))
         return out
     if isinstance(tree, (list, tuple)):

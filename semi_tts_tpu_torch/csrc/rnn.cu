@@ -110,6 +110,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Wait until at most kAhead - 2 groups are in flight: the group of the next
 // step has landed.
 __device__ __forceinline__ void cp_async_wait_next() {
@@ -242,10 +246,12 @@ __device__ __forceinline__ void row_sums(float (&acc)[4 * R], int g) {
     for (int q = 0; q < 4; ++q) acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], o);
 }
 
-// KP64: ceil(H / 64); R: batch rows per cluster. blockDim.x = kGroup * U.
-template <int KP64, int R>
+// KP64: ceil(H / 64); R: batch rows per cluster; CS: also store the cell
+// states (training keeps them for K7). blockDim.x = kGroup * U.
+template <int KP64, int R, bool CS>
 __global__ void __launch_bounds__(kGroup * kLstmMaxUnits, 1)
-    lstm_rec_kernel(Dirs dirs, float* __restrict__ hs, int T, int B, int H, int ld) {
+    lstm_rec_kernel(Dirs dirs, float* __restrict__ hs, float* __restrict__ cs, int T, int B, int H,
+                    int ld) {
   constexpr int KP = 64 * KP64;
   constexpr int KP4 = KP / 4;
   constexpr int NCH = KP4 / kGroup;       // float4 chunks of k per lane
@@ -351,7 +357,10 @@ __global__ void __launch_bounds__(kGroup * kLstmMaxUnits, 1)
       float* next = h_s + ((size_t)(cur ^ 1) * R + row) * KP + j;
 #pragma unroll
       for (int m = 0; m < R; ++m) *cluster.map_shared_rank(next, dup * R + m) = h2;
-      if (dup == 0) hs[((size_t)t * B + b0 + row) * ld + d.col + j] = h2;
+      if (dup == 0) {
+        hs[((size_t)t * B + b0 + row) * ld + d.col + j] = h2;
+        if (CS) cs[((size_t)t * B + b0 + row) * ld + d.col + j] = c_state;
+      }
     }
     cp_async_wait_next();
     cluster.sync();
@@ -360,10 +369,10 @@ __global__ void __launch_bounds__(kGroup * kLstmMaxUnits, 1)
 
 // Launches K1, or (max_clusters != nullptr) asks how many of its clusters fit
 // on the card at once.
-template <int KP64, int R>
-cudaError_t launch_lstm_t(const Dirs& dirs, float* hs, int T, int B, int H, int ndir,
+template <int KP64, int R, bool CS>
+cudaError_t launch_lstm_t(const Dirs& dirs, float* hs, float* cs, int T, int B, int H, int ndir,
                           cudaStream_t stream, int* max_clusters) {
-  auto kernel = lstm_rec_kernel<KP64, R>;
+  auto kernel = lstm_rec_kernel<KP64, R, CS>;
   const int U = lstm_units(H);
   const size_t smem = sizeof(float) * lstm_smem_floats(KP64, R, U);
   cudaError_t err =
@@ -383,33 +392,42 @@ cudaError_t launch_lstm_t(const Dirs& dirs, float* hs, int T, int B, int H, int 
   cfg.numAttrs = 1;
   if (max_clusters != nullptr)
     return cudaOccupancyMaxActiveClusters(max_clusters, (const void*)kernel, &cfg);
-  err = cudaLaunchKernelEx(&cfg, kernel, dirs, hs, T, B, H, ndir * H);
+  err = cudaLaunchKernelEx(&cfg, kernel, dirs, hs, cs, T, B, H, ndir * H);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int R>
-cudaError_t launch_lstm_r(const Dirs& dirs, float* hs, int T, int B, int H, int ndir,
+template <int R, bool CS>
+cudaError_t launch_lstm_r(const Dirs& dirs, float* hs, float* cs, int T, int B, int H, int ndir,
                           cudaStream_t stream, int* max_clusters) {
   switch ((H + 63) / 64) {
-    case 1: return launch_lstm_t<1, R>(dirs, hs, T, B, H, ndir, stream, max_clusters);
-    case 2: return launch_lstm_t<2, R>(dirs, hs, T, B, H, ndir, stream, max_clusters);
-    case 3: return launch_lstm_t<3, R>(dirs, hs, T, B, H, ndir, stream, max_clusters);
-    case 4: return launch_lstm_t<4, R>(dirs, hs, T, B, H, ndir, stream, max_clusters);
-    case 5: return launch_lstm_t<5, R>(dirs, hs, T, B, H, ndir, stream, max_clusters);
+    case 1: return launch_lstm_t<1, R, CS>(dirs, hs, cs, T, B, H, ndir, stream, max_clusters);
+    case 2: return launch_lstm_t<2, R, CS>(dirs, hs, cs, T, B, H, ndir, stream, max_clusters);
+    case 3: return launch_lstm_t<3, R, CS>(dirs, hs, cs, T, B, H, ndir, stream, max_clusters);
+    case 4: return launch_lstm_t<4, R, CS>(dirs, hs, cs, T, B, H, ndir, stream, max_clusters);
+    case 5: return launch_lstm_t<5, R, CS>(dirs, hs, cs, T, B, H, ndir, stream, max_clusters);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t launch_lstm(const Dirs& dirs, float* hs, int T, int B, int H, int ndir, int rows,
-                        cudaStream_t stream, int* max_clusters) {
-  if (H < 4 || H > kLstmMaxH || H % 4 != 0 || ndir < 1 || ndir > 2) return cudaErrorInvalidValue;
+template <bool CS>
+cudaError_t launch_lstm_cs(const Dirs& dirs, float* hs, float* cs, int T, int B, int H, int ndir,
+                           int rows, cudaStream_t stream, int* max_clusters) {
   switch (rows) {
-    case 1: return launch_lstm_r<1>(dirs, hs, T, B, H, ndir, stream, max_clusters);
-    case 2: return launch_lstm_r<2>(dirs, hs, T, B, H, ndir, stream, max_clusters);
-    case 4: return launch_lstm_r<4>(dirs, hs, T, B, H, ndir, stream, max_clusters);
-    case 8: return launch_lstm_r<8>(dirs, hs, T, B, H, ndir, stream, max_clusters);
+    case 1: return launch_lstm_r<1, CS>(dirs, hs, cs, T, B, H, ndir, stream, max_clusters);
+    case 2: return launch_lstm_r<2, CS>(dirs, hs, cs, T, B, H, ndir, stream, max_clusters);
+    case 4: return launch_lstm_r<4, CS>(dirs, hs, cs, T, B, H, ndir, stream, max_clusters);
+    case 8: return launch_lstm_r<8, CS>(dirs, hs, cs, T, B, H, ndir, stream, max_clusters);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// cs == nullptr launches the serving kernel, which stores no cell states.
+cudaError_t launch_lstm(const Dirs& dirs, float* hs, float* cs, int T, int B, int H, int ndir,
+                        int rows, cudaStream_t stream, int* max_clusters) {
+  if (H < 4 || H > kLstmMaxH || H % 4 != 0 || ndir < 1 || ndir > 2) return cudaErrorInvalidValue;
+  return cs != nullptr
+             ? launch_lstm_cs<true>(dirs, hs, cs, T, B, H, ndir, rows, stream, max_clusters)
+             : launch_lstm_cs<false>(dirs, hs, cs, T, B, H, ndir, rows, stream, max_clusters);
 }
 
 Dir make_dir(const float* x_proj, const float* w_hh, const float* b_hh, int reverse, int col) {
@@ -422,17 +440,225 @@ Dir make_dir(const float* x_proj, const float* w_hh, const float* b_hh, int reve
   return d;
 }
 
+// --------------------------------------------------------- K7: LSTM bwd --
+//
+// The backward recurrence of `_lstm_rec_bwd` (`semi_tts_tpu/ops/rnn.py:114`),
+// walked opposite to the forward's time direction, per (batch row, unit j):
+//   dh = g_hs[t] + dh_rec;  dc = dc_rec + dh * o * (1 - tanh(c)^2)
+//   dgates = [dc*g*i*(1-i), dc*c_prev*f*(1-f), dc*i*(1-g^2), dh*tanh(c)*o*(1-o)]
+//   dh_rec = dgates @ W_hh (all 4H rows -> H);  dc_rec = dc * f
+// with i, f, g, o the activations of the gate pre-activations that the
+// caller recomputed with one GEMM (x_proj + h_prev @ W_hh^T, as JAX does).
+// dW_hh = sum_t dgates_t^T h_prev_t is one GEMM outside the kernel.
+//
+// What bounds it: as K1, the latency of T dependent steps. The step product
+// has K1's shape transposed, so K1's layout is kept: a cluster of 8 CTAs
+// serves R batch rows of one direction, and CTA r keeps the 4*U gate rows of
+// W_hh of its units [r*U, r*U + U) in shared memory (128 KiB at H=256),
+// loaded once. A step: (A) thread (row, unit) updates dh/dc and its 4 gate
+// gradients, which only need that unit's dh_rec and dc, so they stay local;
+// (B) thread k forms the CTA's partial sum of dh_rec[k] over its 4*U rows for
+// all R rows (W_hh read once per row group, gate gradients as float4
+// broadcasts) and stores it into the slot of its rank in the CTA that owns
+// unit k, through distributed shared memory; one cluster barrier; the owner
+// sums the 8 slots in rank order at the next step's (A). The slots are
+// double-buffered, so one barrier a step is race-free. The next step's
+// inputs are loaded into registers one step ahead.
+
+struct BwdDir {
+  const float* gates;  // (T, B, 4H) pre-activations
+  const float* w_hh;   // (4H, H)
+  float* dgates;       // (T, B, 4H)
+  int reverse;
+  int col;             // columns of this direction in cs and g_hs
+};
+
+struct BwdDirs {
+  BwdDir d[2];
+};
+
+BwdDir make_bwd_dir(const float* gates, const float* w_hh, float* dgates, int reverse, int col) {
+  BwdDir d;
+  d.gates = gates;
+  d.w_hh = w_hh;
+  d.dgates = dgates;
+  d.reverse = reverse;
+  d.col = col;
+  return d;
+}
+
+// Shared memory of one K7 CTA, in floats: W_hh rows (4U, H), the partial-sum
+// slots (2, kCluster, R, U) and the gate gradients (R, 4U).
+__host__ __device__ constexpr size_t lstm_bwd_smem_floats(int H, int R, int U) {
+  return (size_t)4 * U * H + (size_t)2 * kCluster * R * U + (size_t)R * 4 * U;
+}
+
+__device__ __forceinline__ float sigmoid_acc(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+struct StepIn {  // one (row, unit)'s inputs of a step
+  float gi, gf, gg, go, c, c_prev, gy;
+};
+
+template <int R>
+__global__ void __launch_bounds__(kGroup * kLstmMaxUnits, 1)
+    lstm_bwd_kernel(BwdDirs dirs, const float* __restrict__ cs, const float* __restrict__ g_hs,
+                    int T, int B, int H, int ld) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const BwdDir d = blockIdx.y ? dirs.d[1] : dirs.d[0];
+  const int U = blockDim.x / kGroup;
+  const int U4 = 4 * U;
+  float* w_s = reinterpret_cast<float*>(smem4);         // (4U, H): row q*U + u
+  float* slot = w_s + (size_t)U4 * H;                   // (2, kCluster, R, U)
+  float* dg_s = slot + (size_t)2 * kCluster * R * U;    // (R, 4U)
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int b0 = (blockIdx.x / kCluster) * R;
+  const int H4 = 4 * H;
+
+  for (int idx = tid; idx < U4 * (H / 4); idx += blockDim.x) {
+    const int wrow = idx / (H / 4), c = idx % (H / 4);
+    const int q = wrow / U, jj = rank * U + wrow % U;
+    const bool ok = jj < H;
+    const float* src = ok ? d.w_hh + ((size_t)q * H + jj) * H + 4 * c : d.w_hh;
+    cp_async16(w_s + (size_t)wrow * H + 4 * c, src, ok ? 16 : 0);
+  }
+  cp_async_commit();
+  for (int i = tid; i < 2 * kCluster * R * U; i += blockDim.x) slot[i] = 0.0f;
+
+  // phase A: thread (r, u)
+  const int r = tid / U, u = tid % U;
+  const int j = rank * U + u;
+  const bool active = r < R && j < H && b0 + r < B;
+  auto fetch = [&](int s) {
+    StepIn in = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (active && s < T) {
+      const int t = d.reverse ? s : T - 1 - s;
+      const int tp = d.reverse ? t + 1 : t - 1;  // the step whose carry t consumed
+      const size_t row = (size_t)t * B + b0 + r;
+      const float* gt = d.gates + row * H4 + j;
+      in.gi = gt[0];
+      in.gf = gt[H];
+      in.gg = gt[2 * H];
+      in.go = gt[3 * H];
+      in.c = cs[row * ld + d.col + j];
+      in.c_prev = (tp >= 0 && tp < T) ? cs[((size_t)tp * B + b0 + r) * ld + d.col + j] : 0.0f;
+      in.gy = g_hs[row * ld + d.col + j];
+    }
+    return in;
+  };
+  StepIn cur = fetch(0);
+  float dc_rec = 0.0f;
+  cp_async_wait_all();
+  // W_hh has landed and every peer has started before any slot store
+  cluster.sync();
+
+  for (int s = 0; s < T; ++s) {
+    const StepIn nxt = fetch(s + 1);
+    if (r < R) {
+      float dh_rec = 0.0f;
+      if (s > 0) {
+        const float* sl = slot + ((size_t)((s - 1) & 1) * kCluster * R + r) * U + u;
+#pragma unroll
+        for (int c = 0; c < kCluster; ++c) dh_rec += sl[(size_t)c * R * U];
+      }
+      const float i = sigmoid_acc(cur.gi), f = sigmoid_acc(cur.gf);
+      const float g = tanhf(cur.gg), o = sigmoid_acc(cur.go);
+      const float tc = tanhf(cur.c);
+      const float dh = cur.gy + dh_rec;
+      const float dc = dc_rec + dh * o * (1.0f - tc * tc);
+      const float dg[4] = {dc * g * i * (1.0f - i), dc * cur.c_prev * f * (1.0f - f),
+                           dc * i * (1.0f - g * g), dh * tc * o * (1.0f - o)};
+      dc_rec = dc * f;
+      if (active) {
+        const int t = d.reverse ? s : T - 1 - s;
+        float* out = d.dgates + ((size_t)t * B + b0 + r) * H4 + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) out[q * H] = dg[q];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dg_s[r * U4 + q * U + u] = active ? dg[q] : 0.0f;
+    }
+    if (s == T - 1) break;  // the last step's dh_rec is not needed
+    __syncthreads();
+    // phase B: thread k, the CTA's partial dh_rec[k] for each of its R rows
+    const int buf = s & 1;
+    for (int k = tid; k < H; k += blockDim.x) {
+      float acc[R];
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) acc[rr] = 0.0f;
+      const float4* dg4 = reinterpret_cast<const float4*>(dg_s);
+      for (int q4 = 0; q4 < U; ++q4) {  // rows 4*q4 .. 4*q4 + 3 of the CTA's 4U
+        const float* wr = w_s + (size_t)(4 * q4) * H + k;
+        const float w0 = wr[0], w1 = wr[H], w2 = wr[2 * H], w3 = wr[3 * H];
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+          const float4 v = dg4[rr * U + q4];
+          acc[rr] = fmaf(v.x, w0, fmaf(v.y, w1, fmaf(v.z, w2, fmaf(v.w, w3, acc[rr]))));
+        }
+      }
+      const int owner = k / U, uu = k % U;
+      float* dst = slot + ((size_t)(buf * kCluster + rank) * R) * U + uu;
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) *cluster.map_shared_rank(dst + (size_t)rr * U, owner) = acc[rr];
+    }
+    cluster.sync();
+    cur = nxt;
+  }
+}
+
+template <int R>
+cudaError_t launch_lstm_bwd_r(const BwdDirs& dirs, const float* cs, const float* g_hs, int T,
+                              int B, int H, int ndir, cudaStream_t stream, int* max_clusters) {
+  auto kernel = lstm_bwd_kernel<R>;
+  const int U = lstm_units(H);
+  const size_t smem = sizeof(float) * lstm_bwd_smem_floats(H, R, U);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * ((B + R - 1) / R), ndir);
+  cfg.blockDim = dim3(kGroup * U);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr)
+    return cudaOccupancyMaxActiveClusters(max_clusters, (const void*)kernel, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kernel, dirs, cs, g_hs, T, B, H, ndir * H);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+cudaError_t launch_lstm_bwd(const BwdDirs& dirs, const float* cs, const float* g_hs, int T, int B,
+                            int H, int ndir, int rows, cudaStream_t stream, int* max_clusters) {
+  if (H < 4 || H > kLstmMaxH || H % 4 != 0 || ndir < 1 || ndir > 2) return cudaErrorInvalidValue;
+  switch (rows) {
+    case 1: return launch_lstm_bwd_r<1>(dirs, cs, g_hs, T, B, H, ndir, stream, max_clusters);
+    case 2: return launch_lstm_bwd_r<2>(dirs, cs, g_hs, T, B, H, ndir, stream, max_clusters);
+    case 4: return launch_lstm_bwd_r<4>(dirs, cs, g_hs, T, B, H, ndir, stream, max_clusters);
+    case 8: return launch_lstm_bwd_r<8>(dirs, cs, g_hs, T, B, H, ndir, stream, max_clusters);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+
 // hs (T, B, ndir*H): direction k (x_proj_k, w_hh_k, reverse_k) fills columns
-// [k*H, k*H + H). `rows` is the batch rows per cluster (1, 2, 4 or 8).
+// [k*H, k*H + H); cs, when not null, gets the cell states in the same layout.
+// `rows` is the batch rows per cluster (1, 2, 4 or 8).
 extern "C" int lstm_rec_f32(const float* x_proj0, const float* x_proj1, const float* w_hh0,
-                            const float* w_hh1, float* hs, int T, int B, int H, int ndir,
-                            int reverse0, int reverse1, int rows, void* stream) {
+                            const float* w_hh1, float* hs, float* cs, int T, int B, int H,
+                            int ndir, int reverse0, int reverse1, int rows, void* stream) {
   Dirs dirs;
   dirs.d[0] = make_dir(x_proj0, w_hh0, nullptr, reverse0, 0);
   dirs.d[1] = make_dir(x_proj1, w_hh1, nullptr, reverse1, H);
-  return (int)launch_lstm(dirs, hs, T, B, H, ndir, rows, (cudaStream_t)stream, nullptr);
+  return (int)launch_lstm(dirs, hs, cs, T, B, H, ndir, rows, (cudaStream_t)stream, nullptr);
 }
 
 // How many K1 clusters of `rows` batch rows at hidden size H fit on the card
@@ -440,7 +666,30 @@ extern "C" int lstm_rec_f32(const float* x_proj0, const float* x_proj1, const fl
 extern "C" int lstm_rec_max_clusters(int H, int rows) {
   Dirs dirs = {};
   int n = 0;
-  const cudaError_t err = launch_lstm(dirs, nullptr, 1, rows, H, 1, rows, nullptr, &n);
+  const cudaError_t err = launch_lstm(dirs, nullptr, nullptr, 1, rows, H, 1, rows, nullptr, &n);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// dgates_k (T, B, 4H) of direction k from its gate pre-activations gates_k
+// (T, B, 4H) and W_hh_k, and from cs and g_hs (T, B, ndir*H), direction k in
+// columns [k*H, k*H + H). `rows` as for lstm_rec_f32.
+extern "C" int lstm_rec_bwd_f32(const float* gates0, const float* gates1, const float* w_hh0,
+                                const float* w_hh1, const float* cs, const float* g_hs,
+                                float* dgates0, float* dgates1, int T, int B, int H, int ndir,
+                                int reverse0, int reverse1, int rows, void* stream) {
+  BwdDirs dirs;
+  dirs.d[0] = make_bwd_dir(gates0, w_hh0, dgates0, reverse0, 0);
+  dirs.d[1] = make_bwd_dir(gates1, w_hh1, dgates1, reverse1, H);
+  return (int)launch_lstm_bwd(dirs, cs, g_hs, T, B, H, ndir, rows, (cudaStream_t)stream, nullptr);
+}
+
+// How many K7 clusters of `rows` batch rows at hidden size H fit on the card
+// at once, or minus a cudaError_t.
+extern "C" int lstm_rec_bwd_max_clusters(int H, int rows) {
+  BwdDirs dirs = {};
+  int n = 0;
+  const cudaError_t err =
+      launch_lstm_bwd(dirs, nullptr, nullptr, 1, rows, H, 1, rows, nullptr, &n);
   return err == cudaSuccess ? n : -(int)err;
 }
 

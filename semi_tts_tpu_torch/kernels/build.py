@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("rnn", "attention", "griffin_lim")
+SOURCES = ("rnn", "attention", "griffin_lim", "features", "ctc")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SMEM_PER_BLOCK = 232_448    # H100: dynamic shared memory a block may use
@@ -96,12 +96,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def bind(name: str, fn: str, n_ptrs: int, n_ints: int):
-    """A C entry point ``int fn(ptr * n_ptrs, int * n_ints, stream)`` with
-    its ``argtypes`` declared (pointers and the stream as ``c_void_p``, so
-    ctypes does not cut them to 32 bits)."""
+def bind(name: str, fn: str, n_ptrs: int, n_ints: int, floats: int = 0):
+    """A C entry point ``int fn(ptr * n_ptrs, int * n_ints, float * floats,
+    stream)`` with its ``argtypes`` declared (pointers and the stream as
+    ``c_void_p``, so ctypes does not cut them to 32 bits)."""
     f = getattr(load(name), fn)
-    f.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    f.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                  + [ctypes.c_float] * floats + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
 
@@ -118,6 +119,18 @@ def require(t, shape, what: str) -> None:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.float32:
         raise ValueError(f"{what}: expected float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def require_int(t, shape, what: str) -> None:
+    """Validate an index operand: CUDA, int32, contiguous, exact shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{what}: expected int32, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
     if tuple(t.shape) != tuple(shape):

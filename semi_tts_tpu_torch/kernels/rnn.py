@@ -1,12 +1,18 @@
-"""K1 `lstm_rec` and K2 `gru_rec`: the sequence recurrences over
-pre-projected inputs, in the JAX layout (x_proj (T, B, G*H), W_hh (G*H, H)).
+"""K1 `lstm_rec`, K2 `gru_rec` and K7 `lstm_rec_bwd`: the sequence
+recurrences over pre-projected inputs, in the JAX layout (x_proj
+(T, B, G*H), W_hh (G*H, H)).
 
 `lstm_rec`/`gru_rec` run one direction, as `semi_tts_tpu.ops.rnn._lstm_rec`
 and `_gru_rec` do; `bilstm_rec`/`bigru_rec` run a forward and a reversed
-direction in one launch and return (T, B, 2H), forward first. Each wrapper
-launches `csrc/rnn.cu` for CUDA tensors and runs its plain PyTorch version
-only for CPU tensors. `lstm_plan` and `gru_plan` compute the launch plans
-and name the hidden sizes each kernel takes.
+direction in one launch and return (T, B, 2H), forward first.
+`bilstm_rec_cs` is K1 for training: it also returns the cell states
+(T, B, nH) that the backward needs, for one or two directions.
+`bilstm_rec_bwd` is K7, the backward recurrence of `_lstm_rec_bwd`: from the
+recomputed gate pre-activations, the cell states and the incoming gradient
+of hs it returns the gate gradients (T, B, 4H) of each direction. Each
+wrapper launches `csrc/rnn.cu` for CUDA tensors and runs its plain PyTorch
+version only for CPU tensors. `lstm_plan`, `lstm_bwd_plan` and `gru_plan`
+compute the launch plans and name the hidden sizes each kernel takes.
 """
 
 from __future__ import annotations
@@ -56,6 +62,26 @@ def lstm_plan(B: int, H: int, ndir: int, max_clusters: int, rows: int | None = N
                 units_per_cta=units, smem_bytes=smem, max_h=LSTM_MAX_H)
 
 
+def lstm_bwd_plan(B: int, H: int, ndir: int, max_clusters: int, rows: int | None = None) -> dict:
+    """K7's launch plan: a cluster of 8 CTAs per ``rows`` batch rows and
+    direction; CTA r keeps the 4*U gate rows of W_hh of its hidden units in
+    shared memory, plus the (2, 8, rows, U) partial-sum slots of the
+    reduce-scatter and the rows' gate gradients. Same H limits as K1;
+    ``rows`` defaults as K1's do (an explicit value checks one of the
+    kernel's instantiations)."""
+    _check_lstm_h(H)
+    if rows is None:
+        rows = next((r for r in LSTM_ROWS if math.ceil(B / r) * ndir <= max_clusters), LSTM_ROWS[-1])
+    elif rows not in LSTM_ROWS:
+        raise ValueError(f"lstm_rec_bwd rows must be one of {LSTM_ROWS}, got {rows}")
+    units = _round_up(math.ceil(H / CLUSTER), 4)
+    smem = 4 * (4 * units * H + 2 * CLUSTER * rows * units + rows * 4 * units)
+    clusters = math.ceil(B / rows) * ndir
+    return dict(cluster=CLUSTER, rows=rows, clusters=clusters,
+                grid=(CLUSTER * math.ceil(B / rows), ndir), threads=LANES * units,
+                units_per_cta=units, smem_bytes=smem, max_h=LSTM_MAX_H)
+
+
 def gru_plan(B: int, H: int, ndir: int) -> dict:
     """K2's launch plan: one block per batch row and direction, 8 lanes per
     hidden unit, W_hh in registers. Takes 1 <= H <= 128 and raises
@@ -67,32 +93,40 @@ def gru_plan(B: int, H: int, ndir: int) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def max_clusters(H: int) -> int:
-    """How many K1 clusters fit on the current card at once, from
+def max_clusters(H: int, kernel: str = "lstm_rec") -> int:
+    """How many clusters of K1 (``kernel="lstm_rec"``) or K7
+    (``"lstm_rec_bwd"``) fit on the current card at once, from
     ``cudaOccupancyMaxActiveClusters`` (asked with the largest rows)."""
-    fn = build.load("rnn").lstm_rec_max_clusters
+    fn = getattr(build.load("rnn"), f"{kernel}_max_clusters")
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     n = fn(H, LSTM_ROWS[-1])
     if n <= 0:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters for lstm_rec failed ({n})")
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters for {kernel} failed ({n})")
     return n
 
 
-def lstm_rec_plain(reverse: bool, w_hh, x_proj):
-    """x_proj (T, B, 4H) -> hs (T, B, H); gate order i, f, g, o."""
+def lstm_rec_cs_plain(reverse: bool, w_hh, x_proj):
+    """x_proj (T, B, 4H) -> (hs, cs), each (T, B, H); gate order i, f, g, o."""
     T, B, H4 = x_proj.shape
     H = H4 // 4
     h = x_proj.new_zeros((B, H))
     c = x_proj.new_zeros((B, H))
     hs = x_proj.new_empty((T, B, H))
+    cs = x_proj.new_empty((T, B, H))
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         gates = x_proj[t] + h @ w_hh.T
         i, f, g, o = gates.split(H, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs[t] = h
-    return hs
+        cs[t] = c
+    return hs, cs
+
+
+def lstm_rec_plain(reverse: bool, w_hh, x_proj):
+    """x_proj (T, B, 4H) -> hs (T, B, H); gate order i, f, g, o."""
+    return lstm_rec_cs_plain(reverse, w_hh, x_proj)[0]
 
 
 def bilstm_rec_plain(w_hh_f, w_hh_b, x_proj_f, x_proj_b):
@@ -100,8 +134,9 @@ def bilstm_rec_plain(w_hh_f, w_hh_b, x_proj_f, x_proj_b):
                       lstm_rec_plain(True, w_hh_b, x_proj_b)], dim=-1)
 
 
-def _launch_lstm(dirs, rows):
-    """One K1 launch over ``dirs`` = [(reverse, w_hh, x_proj)] (1 or 2)."""
+def _launch_lstm(wrapper, dirs, rows, with_cs=False):
+    """One K1 launch over ``dirs`` = [(reverse, w_hh, x_proj)] (1 or 2),
+    counted on ``wrapper``; returns hs, or (hs, cs) ``with_cs``."""
     T, B, H4 = dirs[0][2].shape
     H = H4 // 4
     for _, w_hh, x_proj in dirs:
@@ -112,23 +147,22 @@ def _launch_lstm(dirs, rows):
     _check_lstm_h(H)
     plan = lstm_plan(B, H, len(dirs), max_clusters(H), rows)
     hs = torch.empty((T, B, len(dirs) * H), device=dirs[0][2].device, dtype=torch.float32)
-    if T == 0 or B == 0:
-        return hs
-    (r0, w0, x0), (r1, w1, x1) = dirs[0], dirs[-1]
-    fn = build.bind("rnn", "lstm_rec_f32", 5, 7)
-    build.check(fn(x0.data_ptr(), x1.data_ptr(), w0.data_ptr(), w1.data_ptr(), hs.data_ptr(),
-                   T, B, H, len(dirs), int(r0), int(r1), plan["rows"], build.stream()),
-                "lstm_rec")
-    return hs
+    cs = torch.empty_like(hs) if with_cs else None
+    if T and B:
+        (r0, w0, x0), (r1, w1, x1) = dirs[0], dirs[-1]
+        fn = build.bind("rnn", "lstm_rec_f32", 6, 7)
+        build.check(fn(x0.data_ptr(), x1.data_ptr(), w0.data_ptr(), w1.data_ptr(), hs.data_ptr(),
+                       0 if cs is None else cs.data_ptr(), T, B, H, len(dirs), int(r0), int(r1),
+                       plan["rows"], build.stream()), "lstm_rec")
+        wrapper.launches += 1
+    return (hs, cs) if with_cs else hs
 
 
 def lstm_rec(reverse: bool, w_hh, x_proj):
     """Forward of `semi_tts_tpu.ops.rnn._lstm_rec`: one launch per call."""
     if not x_proj.is_cuda:
         return lstm_rec_plain(reverse, w_hh, x_proj)
-    hs = _launch_lstm([(reverse, w_hh, x_proj)], None)
-    lstm_rec.launches += 1
-    return hs
+    return _launch_lstm(lstm_rec, [(reverse, w_hh, x_proj)], None)
 
 
 def bilstm_rec(w_hh_f, w_hh_b, x_proj_f, x_proj_b, rows: int | None = None):
@@ -137,13 +171,105 @@ def bilstm_rec(w_hh_f, w_hh_b, x_proj_f, x_proj_b, rows: int | None = None):
     ``rows`` overrides the plan's batch rows per cluster (for measuring)."""
     if not x_proj_f.is_cuda:
         return bilstm_rec_plain(w_hh_f, w_hh_b, x_proj_f, x_proj_b)
-    hs = _launch_lstm([(False, w_hh_f, x_proj_f), (True, w_hh_b, x_proj_b)], rows)
-    bilstm_rec.launches += 1
-    return hs
+    return _launch_lstm(bilstm_rec, [(False, w_hh_f, x_proj_f), (True, w_hh_b, x_proj_b)], rows)
+
+
+def _dirs(*per_dir):
+    """[(reverse, *tensors)] of the forward direction and, where its tensors
+    are given, the reversed one."""
+    fwd, bwd = per_dir[0::2], per_dir[1::2]
+    return [(False, *fwd)] + ([] if bwd[0] is None else [(True, *bwd)])
+
+
+def bilstm_rec_cs_plain(w_hh_f, w_hh_b, x_proj_f, x_proj_b):
+    outs = [lstm_rec_cs_plain(r, w, x) for r, w, x in _dirs(w_hh_f, w_hh_b, x_proj_f, x_proj_b)]
+    return torch.cat([o[0] for o in outs], -1), torch.cat([o[1] for o in outs], -1)
+
+
+def bilstm_rec_cs(w_hh_f, w_hh_b, x_proj_f, x_proj_b):
+    """K1 for training: (hs, cs), each (T, B, nH), forward direction first;
+    ``w_hh_b``/``x_proj_b`` None runs the forward direction alone."""
+    if not x_proj_f.is_cuda:
+        return bilstm_rec_cs_plain(w_hh_f, w_hh_b, x_proj_f, x_proj_b)
+    return _launch_lstm(bilstm_rec_cs, _dirs(w_hh_f, w_hh_b, x_proj_f, x_proj_b), None,
+                        with_cs=True)
 
 
 lstm_rec.launches = 0
 bilstm_rec.launches = 0
+bilstm_rec_cs.launches = 0
+
+
+def shift_prev(ys, reverse: bool):
+    """The carry each step of a (T, B, H) scan consumed: ys[t-1] forward
+    (zero at t=0), ys[t+1] reversed (zero at t=T-1)."""
+    z = torch.zeros_like(ys[:1])
+    return torch.cat([ys[1:], z]) if reverse else torch.cat([z, ys[:-1]])
+
+
+def lstm_rec_bwd_plain(reverse: bool, w_hh, gates, cs, g_hs):
+    """One direction of `_lstm_rec_bwd`'s recurrence: gate pre-activations
+    ``gates`` (T, B, 4H), cell states ``cs`` and the gradient ``g_hs`` of hs
+    (T, B, H) -> gate gradients (T, B, 4H), the time axis walked opposite to
+    the forward."""
+    T, B, H4 = gates.shape
+    H = H4 // 4
+    ia, fa, ga, oa = gates.split(H, dim=-1)
+    ia, fa, ga, oa = torch.sigmoid(ia), torch.sigmoid(fa), torch.tanh(ga), torch.sigmoid(oa)
+    tc = torch.tanh(cs)
+    c_prev = shift_prev(cs, reverse)
+    dh_rec = gates.new_zeros((B, H))
+    dc_rec = gates.new_zeros((B, H))
+    dgates = gates.new_empty((T, B, H4))
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        i, f, g, o = ia[t], fa[t], ga[t], oa[t]
+        dh = g_hs[t] + dh_rec
+        dc = dc_rec + dh * o * (1.0 - tc[t] * tc[t])
+        dg = torch.cat([dc * g * i * (1.0 - i), dc * c_prev[t] * f * (1.0 - f),
+                        dc * i * (1.0 - g * g), dh * tc[t] * o * (1.0 - o)], dim=-1)
+        dgates[t] = dg
+        dh_rec, dc_rec = dg @ w_hh, dc * f
+    return dgates
+
+
+def bilstm_rec_bwd_plain(w_hh_f, w_hh_b, gates_f, gates_b, cs, g_hs):
+    dirs = _dirs(w_hh_f, w_hh_b, gates_f, gates_b)
+    H = w_hh_f.shape[1]
+    out = [lstm_rec_bwd_plain(r, w, g, cs[..., k * H:(k + 1) * H], g_hs[..., k * H:(k + 1) * H])
+           for k, (r, w, g) in enumerate(dirs)]
+    return out[0], (out[1] if len(out) > 1 else None)
+
+
+def bilstm_rec_bwd(w_hh_f, w_hh_b, gates_f, gates_b, cs, g_hs):
+    """K7: the LSTM backward recurrence of one or both directions in one
+    launch. ``gates_*`` (T, B, 4H) are the gate pre-activations ``x_proj +
+    h_prev @ W_hh^T``; ``cs``, ``g_hs`` (T, B, nH) hold the directions side
+    by side, forward first. Returns (dgates_f, dgates_b or None)."""
+    if not gates_f.is_cuda:
+        return bilstm_rec_bwd_plain(w_hh_f, w_hh_b, gates_f, gates_b, cs, g_hs)
+    dirs = _dirs(w_hh_f, w_hh_b, gates_f, gates_b)
+    T, B, H4 = gates_f.shape
+    H = H4 // 4
+    for _, w_hh, gates in dirs:
+        build.require(gates, (T, B, 4 * H), "lstm_rec_bwd gates")
+        build.require(w_hh, (4 * H, H), "lstm_rec_bwd w_hh")
+        if w_hh.data_ptr() % 16:
+            raise ValueError("lstm_rec_bwd: expected a 16-byte aligned w_hh")
+    build.require(cs, (T, B, len(dirs) * H), "lstm_rec_bwd cs")
+    build.require(g_hs, (T, B, len(dirs) * H), "lstm_rec_bwd g_hs")
+    plan = lstm_bwd_plan(B, H, len(dirs), max_clusters(H, "lstm_rec_bwd"))
+    dg = [torch.empty_like(gates_f) for _ in dirs]
+    if T and B:
+        (r0, w0, g0), (r1, w1, g1) = dirs[0], dirs[-1]
+        fn = build.bind("rnn", "lstm_rec_bwd_f32", 8, 7)
+        build.check(fn(g0.data_ptr(), g1.data_ptr(), w0.data_ptr(), w1.data_ptr(), cs.data_ptr(),
+                       g_hs.data_ptr(), dg[0].data_ptr(), dg[-1].data_ptr(), T, B, H, len(dirs),
+                       int(r0), int(r1), plan["rows"], build.stream()), "lstm_rec_bwd")
+        bilstm_rec_bwd.launches += 1
+    return dg[0], (dg[1] if len(dg) > 1 else None)
+
+
+bilstm_rec_bwd.launches = 0
 
 
 def gru_rec_plain(reverse: bool, w_hh, b_hh, x_proj):
@@ -169,8 +295,9 @@ def bigru_rec_plain(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b):
                       gru_rec_plain(True, w_hh_b, b_hh_b, x_proj_b)], dim=-1)
 
 
-def _launch_gru(dirs):
-    """One K2 launch over ``dirs`` = [(reverse, w_hh, b_hh, x_proj)] (1 or 2)."""
+def _launch_gru(wrapper, dirs):
+    """One K2 launch over ``dirs`` = [(reverse, w_hh, b_hh, x_proj)] (1 or 2),
+    counted on ``wrapper``."""
     T, B, H3 = dirs[0][3].shape
     H = H3 // 3
     for _, w_hh, b_hh, x_proj in dirs:
@@ -186,6 +313,7 @@ def _launch_gru(dirs):
     build.check(fn(x0.data_ptr(), x1.data_ptr(), w0.data_ptr(), w1.data_ptr(), b0.data_ptr(),
                    b1.data_ptr(), hs.data_ptr(), T, B, H, len(dirs), int(r0), int(r1),
                    build.stream()), "gru_rec")
+    wrapper.launches += 1
     return hs
 
 
@@ -193,18 +321,15 @@ def gru_rec(reverse: bool, w_hh, b_hh, x_proj):
     """Forward of `semi_tts_tpu.ops.rnn._gru_rec`: one launch per call."""
     if not x_proj.is_cuda:
         return gru_rec_plain(reverse, w_hh, b_hh, x_proj)
-    hs = _launch_gru([(reverse, w_hh, b_hh, x_proj)])
-    gru_rec.launches += 1
-    return hs
+    return _launch_gru(gru_rec, [(reverse, w_hh, b_hh, x_proj)])
 
 
 def bigru_rec(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b):
     """Both directions of a BiGRU in one launch: (T, B, 2H), forward first."""
     if not x_proj_f.is_cuda:
         return bigru_rec_plain(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b)
-    hs = _launch_gru([(False, w_hh_f, b_hh_f, x_proj_f), (True, w_hh_b, b_hh_b, x_proj_b)])
-    bigru_rec.launches += 1
-    return hs
+    return _launch_gru(bigru_rec, [(False, w_hh_f, b_hh_f, x_proj_f),
+                                   (True, w_hh_b, b_hh_b, x_proj_b)])
 
 
 gru_rec.launches = 0

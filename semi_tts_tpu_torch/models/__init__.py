@@ -1,2 +1,2 @@
-"""Model modules of the port: codebook, encoder, attention, decoder, CBHG,
-TTS and the VQVAE composite (text->speech half)."""
+"""Model modules of the port: codebook, ASR encoder, TTS encoder,
+attention, decoder, CBHG, TTS and the VQVAE composite."""

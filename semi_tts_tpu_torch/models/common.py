@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import dropout
 from ..ops.init import uniform
 
 GAINS = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0, "sigmoid": 1.0}
@@ -109,15 +110,6 @@ def batchnorm(p: BatchNorm, x, *, train: bool):
     else:
         mean, var = p.mean, p.var
     return (x - mean) * torch.rsqrt(var + p.eps) * p.scale + p.bias
-
-
-# ---------------- Dropout ----------------
-
-def dropout(x, rate: float, *, enabled: bool = True, generator=None):
-    if not enabled or rate <= 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - rate)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 # ---------------- Prenet (dropout ALWAYS on, serving included) ----------------

@@ -6,8 +6,9 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import dropout
 from ..ops.rnn import multi_lstm, multi_lstm_init
-from .common import BatchNorm, Conv1d, batchnorm, conv1d, dropout
+from .common import BatchNorm, Conv1d, batchnorm, conv1d
 
 
 class Encoder(nn.Module):

@@ -1,8 +1,7 @@
-"""VQVAE composite, text->speech half (counterpart of
-`semi_tts_tpu/models/vqvae.py`): configuration, parameters (codebook,
-speaker table, TTS), `embed_text` and `text_to_speech`. The ASR encoder and
-ASR postnet are not ported yet; `config_from_yaml` reads the same YAML
-``model`` block and leaves the ASR ``encoder`` block aside."""
+"""VQVAE composite (counterpart of `semi_tts_tpu/models/vqvae.py`): the
+configuration, the parameters (ASR encoder and postnet, codebook, speaker
+table, TTS), `speech_to_text`, `embed_text` and `text_to_speech`.
+`config_from_yaml` reads the YAML ``model`` block."""
 
 from __future__ import annotations
 
@@ -12,8 +11,9 @@ from typing import Optional
 from torch import nn
 
 from ..ops.init import normal
+from .asr import ASR, ASRConfig, ASRPostnet, asr_apply, asr_postnet_apply
 from .decoder import DecoderConfig
-from .embed import Codebook, CodebookConfig, codebook_inference
+from .embed import Codebook, CodebookConfig, codebook_forward, codebook_inference
 from .tts import TTS, TTSConfig, tts_apply
 
 FRAME_PHN_RATIO = 6.0  # mel frames per phoneme for text-only decode budgets
@@ -30,12 +30,21 @@ class VQVAEConfig:
     stop_threshold: float = 0.5
     txt_update_codebook: bool = False
     asr_postnet_weight: float = 0.0
+    encoder: ASRConfig = dataclasses.field(default_factory=ASRConfig)
     codebook: CodebookConfig = dataclasses.field(default_factory=CodebookConfig)
     tts: TTSConfig = dataclasses.field(default_factory=TTSConfig)
 
     @property
+    def use_asr_postnet(self) -> bool:
+        return self.asr_postnet_weight > 0
+
+    @property
     def latent_dim(self) -> int:
         return self.codebook.latent_dim
+
+    @property
+    def time_reduce_factor(self) -> int:
+        return self.encoder.time_reduce_factor
 
     @property
     def n_frames_per_step(self) -> int:
@@ -46,9 +55,18 @@ def config_from_yaml(model_cfg: dict, *, n_mels: int, linear_dim, vocab_size: in
                      n_spkr: int, attr_dim: int = 31) -> VQVAEConfig:
     """VQVAEConfig from the YAML ``model`` block (a dict), with the JAX
     package's field names and defaults."""
+    enc = dict(model_cfg["encoder"])
     cb = dict(model_cfg["codebook"])
     dec = dict(model_cfg["decoder"])
     latent_dim = cb["latent_dim"]
+    enc_cfg = ASRConfig(
+        in_dim=n_mels, out_dim=latent_dim, dim=enc["dim"],
+        kernel=tuple(enc["kernel"]), stride=tuple(enc["stride"]),
+        residual=tuple(enc["residual"]), dropout=enc["dropout"],
+        activation=enc["activation"], batch_norm=enc["batch_norm"],
+        rnn_bid=enc["rnn_bid"], rnn_layers=enc["rnn_layers"],
+        rnn_dim=enc["rnn_dim"], layer_norm=enc["layer_norm"],
+    )
     phn_attr_pth = cb.get("phn_attr_pth") or ""
     cb_cfg = CodebookConfig(
         bone=cb["bone"], vocab_size=vocab_size, latent_dim=latent_dim,
@@ -89,21 +107,42 @@ def config_from_yaml(model_cfg: dict, *, n_mels: int, linear_dim, vocab_size: in
         stop_threshold=model_cfg["stop_threshold"],
         txt_update_codebook=model_cfg.get("txt_update_codebook", False),
         asr_postnet_weight=model_cfg.get("asr_postnet_weight", 0.0),
-        codebook=cb_cfg, tts=tts_cfg,
+        encoder=enc_cfg, codebook=cb_cfg, tts=tts_cfg,
     )
 
 
 class VQVAE(nn.Module):
-    """Codebook + speaker table (``spkr_embed``, N(0, 1)) + TTS, with the
-    parameter paths of the JAX ``vqvae_init`` tree (minus ``asr``). Fresh
-    parameters follow the JAX init rules, drawn from ``generator`` (a CPU
-    `torch.Generator`); move the module to its device afterwards."""
+    """ASR encoder (and ASR postnet when its loss weight is above 0) +
+    codebook + speaker table (``spkr_embed``, N(0, 1)) + TTS, with the
+    parameter paths of the JAX ``vqvae_init`` tree. Fresh parameters follow
+    the JAX init rules, drawn from ``generator`` (a CPU `torch.Generator`);
+    move the module to its device afterwards."""
 
     def __init__(self, cfg: VQVAEConfig, generator=None):
         super().__init__()
+        self.asr = ASR(cfg.encoder, generator=generator)
+        if cfg.use_asr_postnet:
+            self.asr_postnet = ASRPostnet(cfg.latent_dim, cfg.latent_dim, generator=generator)
         self.codebook = Codebook(cfg.codebook, generator=generator)
         self.spkr_embed = nn.Parameter(normal((cfg.n_spkr, cfg.spkr_latent_dim), generator))
         self.tts = TTS(cfg.tts, generator=generator)
+
+
+def speech_to_text(model: VQVAE, cfg: VQVAEConfig, phn_attr, all_mel, *, paired_bs: int,
+                   first_n_real_mel: int = 0, train: bool, generator=None):
+    """ASR-encode a mel batch (B, T, n_mels) and quantize it ->
+    (p_code (B, T', V), quantized (B, T', D), post_prob of the first
+    ``paired_bs`` rows or None). In train mode the BN running statistics are
+    updated in place."""
+    latents = asr_apply(model.asr, all_mel, cfg=cfg.encoder, train=train, generator=generator)
+    post_prob = None
+    if cfg.use_asr_postnet:
+        post_prob = asr_postnet_apply(model.asr_postnet, latents[:paired_bs], train=train,
+                                      generator=generator)
+    p_code, quantized = codebook_forward(model.codebook, cfg.codebook, latents,
+                                         phn_attr=phn_attr, first_n_real_mel=first_n_real_mel,
+                                         train=train, generator=generator)
+    return p_code, quantized, post_prob
 
 
 def embed_text(model: VQVAE, cfg: VQVAEConfig, phn_attr, txt):

@@ -4,6 +4,12 @@ b_hn inside r. The input projection of a whole sequence is one GEMM outside
 the recurrence; the recurrence itself runs in the K1/K2 kernels, both
 directions of a bidirectional layer in one launch.
 
+When autograd records, an LSTM layer's recurrence is `lstm_rec_fn`, a
+`torch.autograd.Function` as `_lstm_rec`'s custom VJP is: its forward runs
+K1 with the cell states kept, its backward recomputes the gate
+pre-activations with one GEMM per direction, runs the K7 backward
+recurrence and forms ``dW_hh = sum_t dgates_t^T h_prev_t`` as one GEMM.
+
 Parameters are `LSTMParams`/`GRUParams` modules named as the JAX pytree
 leaves (``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``).
 """
@@ -15,11 +21,13 @@ import math
 import torch
 from torch import nn
 
-from ..kernels.rnn import bigru_rec, bilstm_rec, gru_rec, lstm_rec
+from ..kernels.rnn import (bigru_rec, bilstm_rec, bilstm_rec_bwd, bilstm_rec_cs, gru_rec,
+                           lstm_rec, shift_prev)
+from .dropout import dropout as drop
 from .init import uniform
 
 __all__ = ["GRUParams", "LSTMParams", "bigru", "bigru_rec", "bilstm_rec", "gru_rec",
-           "lstm_cell", "lstm_rec", "multi_lstm", "multi_lstm_init"]
+           "lstm_cell", "lstm_rec", "lstm_rec_fn", "multi_lstm", "multi_lstm_init"]
 
 
 class _RNNParams(nn.Module):
@@ -73,18 +81,59 @@ def multi_lstm_init(input_dim: int, hidden_dim: int, num_layers: int,
     return layers
 
 
-def multi_lstm(layers: nn.ModuleList, xs):
-    """Stacked (bi)LSTM matching ``nn.LSTM(batch_first=True)`` at inference
-    (no inter-layer dropout)."""
+class _LSTMRec(torch.autograd.Function):
+    """The recurrence of one or two LSTM directions (the reversed one second,
+    or None): x_proj (T, B, 4H) each -> hs (T, B, nH)."""
+
+    @staticmethod
+    def forward(ctx, w_hh_f, w_hh_b, x_proj_f, x_proj_b):
+        hs, cs = bilstm_rec_cs(w_hh_f, w_hh_b, x_proj_f, x_proj_b)
+        ctx.save_for_backward(w_hh_f, w_hh_b, x_proj_f, x_proj_b, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g_hs):
+        w_hh_f, w_hh_b, x_proj_f, x_proj_b, hs, cs = ctx.saved_tensors
+        H = w_hh_f.shape[1]
+        dirs = [(False, w_hh_f, x_proj_f)] + ([] if w_hh_b is None else [(True, w_hh_b, x_proj_b)])
+        h_prev = [shift_prev(hs[..., k * H:(k + 1) * H], r) for k, (r, _, _) in enumerate(dirs)]
+        gates = [x + hp @ w.T for (_, w, x), hp in zip(dirs, h_prev)]
+        dgates = bilstm_rec_bwd(w_hh_f, w_hh_b, gates[0], gates[1] if len(gates) > 1 else None,
+                                cs, g_hs.contiguous())
+        dw = [dg.reshape(-1, 4 * H).T @ hp.reshape(-1, H) if dg is not None else None
+              for dg, hp in zip(dgates, h_prev + [None])]
+        return dw[0], dw[1], dgates[0], dgates[1]
+
+
+def lstm_rec_fn(w_hh_f, w_hh_b, x_proj_f, x_proj_b):
+    """Differentiable LSTM recurrence (K1 forward, K7 backward) of the
+    forward direction and, unless ``w_hh_b`` is None, the reversed one."""
+    return _LSTMRec.apply(w_hh_f, w_hh_b, x_proj_f, x_proj_b)
+
+
+def _records(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def multi_lstm(layers: nn.ModuleList, xs, *, dropout: float = 0.0, train: bool = False,
+               generator=None):
+    """Stacked (bi)LSTM matching ``nn.LSTM(batch_first=True)``: in train
+    mode, dropout at ``dropout`` on every layer's output but the last."""
     h = xs
-    for layer in layers:
+    for li, layer in enumerate(layers):
         f = layer["fwd"]
-        if "bwd" in layer:
-            b = layer["bwd"]
-            hs = bilstm_rec(f.w_hh, b.w_hh, _lstm_proj(f, h), _lstm_proj(b, h))
+        b = layer["bwd"] if "bwd" in layer else None
+        x_f = _lstm_proj(f, h)
+        x_b = None if b is None else _lstm_proj(b, h)
+        if _records(x_f, f.w_hh) or (b is not None and _records(x_b, b.w_hh)):
+            hs = lstm_rec_fn(f.w_hh, None if b is None else b.w_hh, x_f, x_b)
+        elif b is not None:
+            hs = bilstm_rec(f.w_hh, b.w_hh, x_f, x_b)
         else:
-            hs = lstm_rec(False, f.w_hh, _lstm_proj(f, h))
+            hs = lstm_rec(False, f.w_hh, x_f)
         h = hs.transpose(0, 1)
+        if li < len(layers) - 1:
+            h = drop(h, dropout, enabled=train, generator=generator)
     return h
 
 

@@ -1,15 +1,26 @@
-"""Static-geometry STFT pieces for Griffin-Lim, as GEMMs over the window
-support (counterpart of `semi_tts_tpu/ops/stft.py`).
+"""STFT pieces as GEMMs over the window support (counterpart of
+`semi_tts_tpu/ops/stft.py`).
 
-The forward STFT is the whole-signal reflect pad, framing over the nonzero
-support of the centred Hann window, then two GEMMs with the windowed DFT
-basis; the inverse is two GEMMs with the windowed inverse basis, then
-overlap-add, the squared-window envelope divide and the ``n_fft // 2`` trim.
-Bases and envelopes are built in float64 with numpy and cast to float32.
+Griffin-Lim (static geometry): the forward STFT is the whole-signal reflect
+pad, framing over the nonzero support of the centred Hann window, then two
+GEMMs with the windowed DFT basis; the inverse is two GEMMs with the
+windowed inverse basis, then overlap-add, the squared-window envelope divide
+and the ``n_fft // 2`` trim.
+
+Featurizer (ragged rows): `reflect_pad_ragged` reflects each row around its
+own length, `dynamic_hann_window` centres a window of runtime length, and
+`frame_signal` cuts frames at a static hop (zero past the end) or a runtime
+hop (the start clamped, as ``dynamic_slice`` does); the plain version of
+kernel K5 (`kernels/features.py`) is built on these three.
+`support_dft_basis` is the ``[cos | -sin]`` basis of the featurizer's DFT
+GEMM, which with K5's ``spec_db`` takes the place of the JAX package's
+``magnitude_dft``/``stft_magnitude``. Bases and envelopes are built in
+float64 with numpy and cast to float32.
 """
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -148,3 +159,70 @@ def istft_reim(re, im, *, n_fft: int, hop: int, win_length: int):
     A, B = inv_dft_basis(n_fft, win_length, re.device)
     frames = re @ A + im @ B
     return overlap_add(frames, n_fft=n_fft, hop=hop, win_length=win_length)
+
+
+# ---------------- featurizer pieces (ragged rows, runtime hop) ----------------
+
+def dynamic_hann_window(n_fft: int, win_length, device=None):
+    """Periodic Hann of ``win_length`` (an int or a 0-d integer tensor),
+    centred in ``n_fft`` zeros, float32 ``(n_fft,)``."""
+    win = torch.as_tensor(win_length, dtype=torch.int32, device=device)
+    left = (n_fft - win) // 2
+    k = torch.arange(n_fft, dtype=torch.int32, device=win.device) - left
+    w = 0.5 - 0.5 * torch.cos(2.0 * math.pi * k.to(torch.float32) / win.to(torch.float32))
+    return torch.where((k >= 0) & (k < win), w, 0.0)
+
+
+def reflect_pad_ragged(x, lengths, pad: int):
+    """Reflect-pad each row of a right-zero-padded ``(B, S)`` batch around 0
+    and around its own end ``lengths[b]`` -> ``(B, S + 2*pad)``. Samples at
+    or past a row's length are zeroed first. Needs ``lengths > pad``; below
+    that the right mirror's start is clamped to 0 as ``dynamic_slice`` does."""
+    B, S = x.shape
+    L = lengths.to(torch.int64)
+    xm = torch.where(torch.arange(S, device=x.device)[None, :] < L[:, None], x, 0.0)
+    y = torch.cat([xm[:, 1:pad + 1].flip(-1), xm, xm.new_zeros((B, pad))], dim=1)
+    k = torch.arange(pad, device=x.device)[None, :]
+    start = (L - (pad + 1)).clamp(0, S - pad)[:, None]
+    tails = xm.gather(1, start + pad - 1 - k)                  # xm[L-2-k]
+    at = (L + pad).clamp(0, S + pad)[:, None]
+    return y.scatter(1, at + k, tails)
+
+
+def frame_signal_static(x_padded, hop: int, num_frames: int, *, support: tuple):
+    """Frames at a static ``hop`` over ``support`` = (offset, span) of each
+    nominal frame -> ``(B, T, span)``. A frame whose tail runs past the
+    padded signal is zero-padded."""
+    off, span = support
+    B, S_pad = x_padded.shape
+    need = off + (num_frames - 1) * hop + span
+    if S_pad < need:
+        x_padded = F.pad(x_padded, (0, need - S_pad))
+    return x_padded[:, off:].unfold(-1, span, hop)[:, :num_frames]
+
+
+def frame_signal(x_padded, n_fft: int, hop, num_frames: int, *, support: tuple | None = None):
+    """Frames of a padded batch ``(B, S_pad)`` -> ``(B, T, span)``. An int
+    ``hop`` takes `frame_signal_static` (zeros past the end); a tensor hop
+    clamps each frame's start to ``S_pad - span``, as ``dynamic_slice``
+    does, so an overrunning frame repeats the final samples."""
+    off, span = support if support is not None else (0, n_fft)
+    if isinstance(hop, int):
+        return frame_signal_static(x_padded, hop, num_frames, support=(off, span))
+    B, S_pad = x_padded.shape
+    t = torch.arange(num_frames, device=x_padded.device)
+    start = (t * hop.to(torch.int64) + off).clamp(0, S_pad - span)
+    idx = start[:, None] + torch.arange(span, device=x_padded.device)[None, :]
+    return x_padded[:, idx]
+
+
+@lru_cache(maxsize=16)
+def support_dft_basis(n_fft: int, off: int, span: int, device) -> torch.Tensor:
+    """Unwindowed ``[cos | -sin]`` real-DFT rows ``off .. off + span`` of an
+    ``n_fft`` frame, ``(span, 2F)``: one GEMM gives ``[re | im]`` of windowed
+    frames. Float64 with the phase reduced exactly, cast to float32."""
+    n = np.arange(off, off + span, dtype=np.int64)[:, None]
+    k = np.arange(n_fft // 2 + 1, dtype=np.int64)[None, :]
+    ang = 2.0 * np.pi * ((n * k) % n_fft) / n_fft
+    basis = np.concatenate([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+    return torch.from_numpy(basis).to(device)

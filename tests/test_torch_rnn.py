@@ -188,3 +188,137 @@ def test_wrappers_count_no_launch_on_cpu():
     K.bigru_rec(torch.zeros(6, 2), torch.zeros(6, 2), torch.zeros(6), torch.zeros(6),
                 torch.zeros(3, 1, 6), torch.zeros(3, 1, 6))
     assert (kernels.launch_counts(), [w.launches for w in wrappers]) == before
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_backward_matches_jax_vjp(reverse):
+    """The K7 plain recurrence inside the autograd Function: dW_hh and
+    dx_proj of one direction against ``jax.vjp`` of `_lstm_rec`."""
+    rng = np.random.RandomState(10 + reverse)
+    T, B, H = 7, 3, 8
+    x_proj = (0.5 * rng.randn(T, B, 4 * H)).astype(np.float32)
+    w_hh = (0.3 * rng.randn(4 * H, H)).astype(np.float32)
+    g_hs = rng.randn(T, B, H).astype(np.float32)
+    _, vjp = jax.vjp(lambda w, x: J._lstm_rec(reverse, w, x), jnp.asarray(w_hh),
+                     jnp.asarray(x_proj))
+    want_w, want_x = vjp(jnp.asarray(g_hs))
+    w, x = _t(w_hh).requires_grad_(True), _t(x_proj).requires_grad_(True)
+    if reverse:  # the reversed direction alone: the forward slot gets a zero-length twin
+        hs = P.lstm_rec_fn(_t(w_hh), w, _t(x_proj), x)[..., H:]
+    else:
+        hs = P.lstm_rec_fn(w, None, x, None)
+    hs.backward(_t(g_hs))
+    np.testing.assert_allclose(w.grad.numpy(), np.asarray(want_w), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_x), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("T,B,H", [(6, 2, 8), (1, 3, 4)])
+def test_lstm_function_matches_autograd_through_plain(T, B, H):
+    """Both directions through `lstm_rec_fn` (K1 forward, K7 backward) equal
+    autograd through `lstm_rec_plain`, gradients of W_hh and x_proj."""
+    rng = np.random.RandomState(T)
+    ws = [(0.3 * rng.randn(4 * H, H)).astype(np.float32) for _ in range(2)]
+    xs = [(0.5 * rng.randn(T, B, 4 * H)).astype(np.float32) for _ in range(2)]
+    g = _t(rng.randn(T, B, 2 * H).astype(np.float32))
+    grads = []
+    for use_fn in (True, False):
+        leaves = [_t(a).requires_grad_(True) for a in ws + xs]
+        if use_fn:
+            hs = P.lstm_rec_fn(*leaves)
+        else:
+            hs = torch.cat([K.lstm_rec_plain(False, leaves[0], leaves[2]),
+                            K.lstm_rec_plain(True, leaves[1], leaves[3])], -1)
+        hs.backward(g)
+        grads.append([leaf.grad.numpy() for leaf in leaves])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_multi_lstm_grad_matches_jax():
+    """A 2-layer BiLSTM in train mode, dropout 0: input and weight
+    gradients of sum(out * probe) against JAX."""
+    rng = np.random.RandomState(12)
+    B, T, D, H = 2, 6, 5, 4
+    params = J.multi_lstm_init(jax.random.PRNGKey(3), D, H, 2, True)
+    xs = rng.randn(B, T, D).astype(np.float32)
+    probe = rng.randn(B, T, 2 * H).astype(np.float32)
+    f = lambda p, x: jnp.sum(J.multi_lstm(p, x, dropout=0.0, train=True) * probe)
+    want_p, want_x = jax.grad(f, argnums=(0, 1))(params, jnp.asarray(xs))
+    layers = P.multi_lstm_init(D, H, 2, True, generator=torch.Generator())
+    load_jax_params(layers, jax.tree_util.tree_map(np.asarray, params), {})
+    x = _t(xs).requires_grad_(True)
+    (P.multi_lstm(layers, x, dropout=0.0, train=True) * _t(probe)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_x), rtol=0, atol=ATOL)
+    for li in range(2):
+        for d in ("fwd", "bwd"):
+            for name in ("w_ih", "w_hh", "b_ih"):
+                got = getattr(layers[li][d], name).grad.numpy()
+                np.testing.assert_allclose(got, np.asarray(want_p[li][d][name]), rtol=0,
+                                           atol=ATOL, err_msg=f"{li}/{d}/{name}")
+
+
+def test_multi_lstm_inter_layer_dropout():
+    """Train mode drops units of every layer's output but the last, at the
+    configured rate, scaled by 1/(1-p); eval mode and dropout 0 draw
+    nothing."""
+    B, T, D, H = 8, 40, 6, 16
+    layers = P.multi_lstm_init(D, H, 2, True, generator=torch.Generator().manual_seed(0))
+    xs = torch.randn(B, T, D, generator=torch.Generator().manual_seed(1))
+    seen = []
+    orig = P.drop
+
+    def spy(h, rate, *, enabled=True, generator=None):
+        out = orig(h, rate, enabled=enabled, generator=generator)
+        seen.append((h.detach(), out.detach(), enabled, rate))
+        return out
+
+    P.drop = spy
+    try:
+        with torch.no_grad():
+            P.multi_lstm(layers, xs, dropout=0.3, train=True,
+                         generator=torch.Generator().manual_seed(2))
+            base = P.multi_lstm(layers, xs)
+            again = P.multi_lstm(layers, xs, dropout=0.3, train=False)
+    finally:
+        P.drop = orig
+    assert len(seen) == 3  # one between the two layers, per call
+    h, out, enabled, rate = seen[0]
+    assert enabled and rate == 0.3
+    kept = out != 0
+    assert abs(1.0 - kept.float().mean().item() - 0.3) < 0.02
+    torch.testing.assert_close(out[kept], h[kept] / 0.7)
+    assert not seen[1][2] and torch.equal(base, again)
+
+
+@pytest.mark.parametrize("B,ndir,max_clusters,rows,clusters", [
+    (8, 2, 15, 2, 8), (8, 2, 16, 1, 16), (16, 2, 15, 4, 8), (5, 1, 15, 1, 5), (64, 2, 4, 8, 16)])
+def test_lstm_bwd_plan(B, ndir, max_clusters, rows, clusters):
+    """K7 at the ASR shapes (H=256): the fewest rows per cluster that let
+    every cluster run at once (8 rows when none does)."""
+    plan = K.lstm_bwd_plan(B, 256, ndir, max_clusters)
+    assert (plan["cluster"], plan["rows"], plan["clusters"]) == (8, rows, clusters)
+    assert plan["threads"] == 256 and plan["units_per_cta"] == 32
+    assert plan["grid"] == (8 * -(-B // rows), ndir)
+    assert 128 * 256 * 4 <= plan["smem_bytes"] <= K.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("H", [4, 80, 256, K.LSTM_MAX_H])
+def test_lstm_bwd_plan_fits_shared_memory(H):
+    for rows in K.LSTM_ROWS:
+        plan = K.lstm_bwd_plan(16, H, 2, 15, rows)
+        assert plan["smem_bytes"] <= K.SMEM_PER_BLOCK
+        assert plan["units_per_cta"] * plan["cluster"] >= H
+
+
+@pytest.mark.parametrize("H,rows", [(K.LSTM_MAX_H + 4, None), (258, None), (0, None), (256, 3)])
+def test_lstm_bwd_plan_raises(H, rows):
+    with pytest.raises(ValueError):
+        K.lstm_bwd_plan(8, H, 2, 15, rows)
+
+
+def test_training_wrappers_count_no_launch_on_cpu():
+    before = (K.bilstm_rec_cs.launches, K.bilstm_rec_bwd.launches)
+    w = torch.zeros(8, 2, requires_grad=True)
+    x = torch.zeros(3, 1, 8, requires_grad=True)
+    P.lstm_rec_fn(w, w, x, x).sum().backward()
+    assert (K.bilstm_rec_cs.launches, K.bilstm_rec_bwd.launches) == before

@@ -21,6 +21,7 @@ import yaml
 
 from helpers import REPO
 from semi_tts_tpu import serve as JS
+from semi_tts_tpu.models import asr as JA
 from semi_tts_tpu.models import embed as JB
 from semi_tts_tpu.models import tts as JT
 from semi_tts_tpu.models import vqvae as JV
@@ -38,16 +39,19 @@ AUDIO = {"num_freq": 257, "num_mels": 20, "frame_length_ms": 20, "frame_shift_ms
 
 
 def jax_tts_tree(cfg, phn_attr, seed=0):
-    """The text->speech part of a JAX ``vqvae_init`` tree, from the JAX init
-    functions (jitted: eager init compiles every draw separately)."""
+    """A JAX ``vqvae_init`` tree from the JAX init functions (jitted: eager
+    init compiles every draw separately): the text->speech part, plus the
+    ``asr`` subtree every checkpoint carries."""
 
     def init(key):
         k_cb, k_spk, k_tts = jax.random.split(key, 3)
         tts_p, tts_s = JT.tts_init(k_tts, cfg.tts)
-        params = {"codebook": JB.codebook_init(k_cb, cfg.codebook, jnp.asarray(phn_attr)),
+        asr_p, asr_s = JA.asr_init(jax.random.fold_in(key, 1), cfg.encoder)
+        params = {"asr": asr_p,
+                  "codebook": JB.codebook_init(k_cb, cfg.codebook, jnp.asarray(phn_attr)),
                   "spkr_embed": jax.random.normal(k_spk, (cfg.n_spkr, cfg.spkr_latent_dim)),
                   "tts": tts_p}
-        return params, {"tts": tts_s}
+        return params, {"asr": asr_s, "tts": tts_s}
 
     return jax.tree_util.tree_map(np.asarray, jax.jit(init)(jax.random.PRNGKey(seed)))
 
@@ -134,9 +138,8 @@ def test_synthesize_full_matches_jax(served):
 
 def test_bridge_round_trip_is_exact(served):
     _, _, params, state, _, pserver = served
-    with_asr = dict(params, asr={"skipped": np.ones(3, np.float32)})
-    model = PV.VQVAE(pserver.cfg, generator=torch.Generator())
-    p2, s2 = bridge.to_jax_params(bridge.load_jax_params(model, with_asr, dict(state, asr={})))
+    model = PV.VQVAE(pserver.cfg, generator=torch.Generator())  # the serving model
+    p2, s2 = bridge.to_jax_params(bridge.load_jax_params(model, params, state))
     assert jax.tree_util.tree_structure(p2) == jax.tree_util.tree_structure(params)
     assert jax.tree_util.tree_structure(s2) == jax.tree_util.tree_structure(state)
     for got, want in zip(jax.tree_util.tree_leaves((p2, s2)), jax.tree_util.tree_leaves((params, state))):
