@@ -35,18 +35,36 @@ Phases, each fatal on failure:
    share; and one step's loss and gradients on the card against the CPU plain
    path on the same weights, dropout 0 and the same SNRs, stretch rate and
    noise. The featurizer is also timed against ``torch.stft`` + ``abs`` + the
-   mel GEMM at equal row lengths.
+   mel GEMM at equal row lengths;
+6. paired training at the same width: ``VqvaeTrainer`` with the unpaired loss
+   weights 0 runs one warm-up paired step (ASR on augmented features, CTC,
+   the TTS teacher-forced over 81 decode steps on the clean mel, CBHG postnet,
+   mel and linear losses, backward, Adam) and five timed ones of B=8 x 3.0 s
+   x U=32 (median wall, peak memory, the ASR, mel and linear losses and the
+   gradient norm of every step, all finite), then ``validate`` (dev TTS loss
+   and PER); the kernel launches of one step (K1 with cell states, K7, K2,
+   K8, K3, K9, K5, K6: each must launch) and of a validation; one profiled
+   step; and one step's loss and gradients on the card against the CPU plain
+   path (B=2, every dropout 0, tf_rate 1, the same augmentation), the
+   gradients held in all and, but where a ReLU or max-pool lies on the way
+   back from the loss (``KINKED_LEAVES``), leaf by leaf (``compare_grads``),
+   beside how far the card's own gradients move in a rerun and on weights
+   an ulp off (``card_spread``; the ASR step's check reports both too).
 
 The training kernels (K5 ``stft_frames``/``spec_db``, K6 ``ctc_alpha``/
 ``ctc_beta_grad``, K7 ``bilstm_rec_bwd`` and K1 with cell states,
-``bilstm_rec_cs``) are held to their plain versions in phase 3 at the train
-step's shapes and at ragged ones; their rows' ``launches`` count one train
-step, the serving kernels' one request.
+``bilstm_rec_cs``) and the paired step's backward kernels (K8
+``bigru_rec_bwd``, K9 ``attention_step_bwd``) are held to their plain
+versions in phase 3 at their step's shapes and at ragged ones. A row's
+``launches`` counts one serving request (K1-K4), one ASR train step
+(K5-K7, K1 with cell states) or one paired train step (K8, K9), as its
+``launches_per`` says; ``launches_by_path`` has all three.
 
 Prints a ``{"ptxas": ...}`` line (registers and spills of the recurrence
 kernels), an ``{"asr_shape": ...}`` line, a ``{"featurizer": ...}`` line, a
 ``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, a
-``{"training": ...}`` line and, last, ``{"ok": true, "device": {...}}``.
+``{"training": ...}`` line, a ``{"paired": ...}`` line and, last,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -100,7 +118,11 @@ TRAIN_STEPS = 5                 # timed train steps after one warm-up
 SERVING_KERNELS = ("bilstm_rec", "bigru_rec", "attention_step", "gl_project", "gl_ola_frame")
 TRAINING_KERNELS = ("stft_frames", "spec_db", "bilstm_rec_cs", "bilstm_rec_bwd", "ctc_alpha",
                     "ctc_beta_grad")
-VALIDATION_KERNELS = ("stft_frames", "spec_db", "bilstm_rec")
+PAIRED_KERNELS = ("bigru_rec_bwd", "attention_step_bwd")
+# every kernel the paired step launches: K1 with cell states, K7, K2, K8, K3, K9, K5, K6
+PAIRED_STEP_KERNELS = TRAINING_KERNELS + ("bigru_rec", "attention_step") + PAIRED_KERNELS
+VALIDATION_KERNELS = ("stft_frames", "spec_db", "bilstm_rec", "bigru_rec", "attention_step")
+PAIRED_T = 243                  # clean mel frames of a 3.0 s utterance, padded to r = 3
 HOP = int(FLAGSHIP_AUDIO["frame_shift_ms"] / 1000 * FLAGSHIP_AUDIO["sample_rate"])
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 FP32_FLOP_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
@@ -260,11 +282,12 @@ def _case_gru(randn, unif, dev):
 
 def ptxas_report(log):
     """Registers, spills and static shared memory of each instantiation of
-    the recurrence kernels (K1 with its cell-state flag, K2, K7), from
+    the recurrence kernels (K1 with its cell-state flag, K2, K7, K8), from
     nvcc's ``-Xptxas -v`` output."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"(lstm_rec|gru_rec|lstm_bwd)_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
+        m = re.search(r"(lstm_rec|gru_rec|lstm_bwd|gru_bwd)_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?",
+                      line)
         if "Compiling entry function" in line:
             args = ",".join(a for a in m.groups()[1:] if a) if m else ""
             name = f"{m.group(1)}_kernel<{args}>" if m else None
@@ -659,6 +682,91 @@ def _case_lstm_cs(randn, unif, dev):
         flops=2 * 2 * T * TRAIN_B * 4 * H * H, iters=10)
 
 
+def _gru_bwd_inputs(randn, unif, T, B_, H):
+    """Both directions' W_hh, update gates z (T, B, H), coefficients coef_h
+    (T, B, 3H), and the gradient of hs (T, B, 2H)."""
+    w = [unif(3 * H, H, a=H ** -0.5) for _ in range(2)]
+    z = [torch.sigmoid(randn(T, B_, H)) for _ in range(2)]
+    return w + z + [randn(T, B_, 3 * H, scale=0.3) for _ in range(2)] + [randn(T, B_, 2 * H)]
+
+
+def _case_gru_bwd(randn, unif, dev):
+    """K8 at the CBHG BiGRU's paired-step shape (T=243, B=8, H=80, both
+    directions in one launch); also at T=37, B=3, H=50, at T=1, and at
+    H=128, the largest K2 takes."""
+    from semi_tts_tpu_torch.kernels import rnn as k8
+
+    T, H = PAIRED_T, 80
+    args = _gru_bwd_inputs(randn, unif, T, TRAIN_B, H)
+    others = [_gru_bwd_inputs(randn, unif, 37, 3, 50), _gru_bwd_inputs(randn, unif, 1, 3, H),
+              _gru_bwd_inputs(randn, unif, 20, 5, 128)]
+    gru = torch.nn.GRU(H, H, bidirectional=True).to(dev)
+    x = randn(T, TRAIN_B, H).requires_grad_(True)
+    with torch.enable_grad():
+        y, _ = gru(x)
+    gy = randn(*y.shape)
+    leaves = [x] + list(gru.parameters())
+    return dict(
+        name="bigru_rec_bwd", replaces="semi_tts_tpu/ops/rnn.py:244 (_gru_rec_bwd, the backward "
+        "scan of the custom VJP of _gru_rec), both directions",
+        source="semi_tts_tpu_torch/csrc/rnn.cu",
+        shapes=f"2 x z ({T},{TRAIN_B},{H}), 2 x coef_h ({T},{TRAIN_B},{3 * H}), W_hh ({3 * H},{H})",
+        steps=T, kernel=lambda: k8.bigru_rec_bwd(*args), plain=lambda: k8.bigru_rec_bwd_plain(*args),
+        checks=[(lambda a=a: k8.bigru_rec_bwd(*a), lambda a=a: k8.bigru_rec_bwd_plain(*a))
+                for a in others],
+        library=lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True),
+        library_timing="eager",
+        library_note="the backward of cuDNN nn.GRU(bidirectional=True): also the input GEMM's "
+        "data and weight gradients and dW_hh (CUDA events, eager)", tol=1e-4,
+        nbytes=4 * (T * TRAIN_B * H * 12 + 2 * 3 * H * H), flops=2 * 2 * T * TRAIN_B * 3 * H * H,
+        iters=10)
+
+
+def _case_attention_bwd(randn, unif, dev):
+    """K9, one decoder step's attention backward at the paired step's shapes
+    (B=8, L=32 tokens); also at L=45 and B=3, at L=5 (nearly every tap of
+    the 31-wide location conv reaches the padding), with a padding mask, at
+    L=280 (near the plan's limit), at L=1 and without location features.
+    The forward's weights come from K3 on the same inputs."""
+    from semi_tts_tpu_torch.kernels import attention as k9
+
+    L, A, D, C, F_, K = 32, 256, 512, 2, 32, 31
+    wts = (unif(F_, C, K, a=0.3), unif(A, F_, a=0.3), unif(A, a=0.1))
+
+    def inputs(B_, L, mask=False, loc=True):
+        pq, pm, mem = randn(B_, A), randn(B_, L, A, scale=0.5), randn(B_, L, D)
+        w = torch.softmax(randn(B_, L), -1)
+        hist = torch.stack([w, w + torch.softmax(randn(B_, L), -1)], 1).contiguous()
+        lw, ll = wts[:2] if loc else (None, None)
+        m = None
+        if mask:
+            lengths = L - 12 + torch.arange(B_, device=dev) % 13
+            m = torch.arange(L, device=dev)[None, :] >= lengths[:, None]
+        _, weights = k9.attention_step(pq, pm, mem, hist, lw, ll, wts[2], m)
+        return (pq, pm, mem, hist, lw, ll, wts[2], weights, randn(B_, D), randn(B_, L))
+
+    args = inputs(TRAIN_B, L)
+    others = [inputs(3, 45), inputs(TRAIN_B, 5), inputs(3, 45, mask=True), inputs(3, 280),
+              inputs(5, 1), inputs(3, 45, loc=False)]
+    B_ = TRAIN_B
+    return dict(
+        name="attention_step_bwd", replaces="semi_tts_tpu/models/attention.py:39 (autodiff of "
+        "attention_step in the decoder's training scan, models/decoder.py:227; with the "
+        "wgrad_probes of :91-127 as one GEMM per cell)",
+        source="semi_tts_tpu_torch/csrc/attention.cu",
+        shapes=f"B={B_} L={L} A={A} D={D} C={C} F={F_} K={K}",
+        kernel=lambda: k9.attention_step_bwd(*args),
+        plain=lambda: k9.attention_step_bwd_plain(*args),
+        checks=[(lambda a=a: k9.attention_step_bwd(*a), lambda a=a: k9.attention_step_bwd_plain(*a))
+                for a in others],
+        extra={"cluster": k9.attention_bwd_plan(B_, L, A, D, C, F_, K)["cluster"]},
+        library=None, library_note=NO_LIBRARY, tol=1e-4,
+        nbytes=4 * (2 * (B_ * A + B_ * L * A + B_ * L * D + B_ * C * L + F_ * C * K + A * F_ + A)
+                    + 2 * B_ * L + B_ * D),
+        flops=2 * B_ * L * (3 * F_ * C * K + 3 * A * F_ + D) + B_ * L * D + 5 * B_ * L * A,
+        iters=200)
+
+
 def kernel_cases(dev):
     """One dict per kernel at its serving shapes: the kernel call, its plain
     version, a PyTorch library call or None, tolerance, bytes, FLOPs."""
@@ -673,7 +781,7 @@ def kernel_cases(dev):
     return [case(randn, unif, dev) for case in
             (_case_lstm, _case_gru, _case_attention, _case_gl_project, _case_gl_ola_frame,
              _case_stft_frames, _case_spec_db, _case_ctc_alpha, _case_ctc_beta_grad,
-             _case_lstm_cs, _case_lstm_bwd)]
+             _case_lstm_cs, _case_lstm_bwd, _case_gru_bwd, _case_attention_bwd)]
 
 
 def phase_kernels(dev):
@@ -973,7 +1081,7 @@ def phase_training(dev):
         idle = [n for n in names if launches[path][n] == 0]
         if idle:
             raise SystemExit(f"chip_smoke: kernels not launched on the {path} path: {idle}")
-    profile = profiled_step(trainer, batch, float(np.median(walls)))
+    profile = profiled_step(lambda: trainer._train_step(*batch), float(np.median(walls)))
     ref = training_reference(model, cfg, phn_attr, dev)
     return dict(batch=TRAIN_B, samples=TRAIN_S, text_len=32, steps=1 + TRAIN_STEPS,
                 params=sum(p.numel() for p in model.parameters()),
@@ -985,16 +1093,17 @@ def phase_training(dev):
                 profile=profile, reference=ref)
 
 
-def profiled_step(trainer, batch, wall):
-    """One more step under torch.profiler: device busy time, idle share
-    against the unprofiled median step wall, and the busiest kernel names."""
+def profiled_step(run_step, wall):
+    """One more step (``run_step()``) under torch.profiler: device busy
+    time, idle share against the unprofiled median step wall, and the
+    busiest kernel names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer._asr_step(trainer.model, trainer.step, *batch)
+        run_step()
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
     by_name = {}
@@ -1025,23 +1134,227 @@ def training_reference(model, cfg, phn_attr, dev):
     snrs = rng.uniform(10, 100, size=2).astype(np.float32)
     noise = rng.randn(2, TRAIN_S).astype(np.float32)
     rate = float(np.float32(rng.uniform(0.9, 1.1)))
-    out = []
-    for device, m in ((dev, model), (torch.device("cpu"), cpu_model)):
+
+    def run(m, device):
         builder = StepBuilder(cfg0, AudioFeaturizer(audio_config(), device), phn_attr.to(device))
         waves, wave_len, text, _ = training_batch(3, device, lengths=lengths)
         aug = (torch.from_numpy(snrs).to(device), rate, torch.from_numpy(noise).to(device))
         loss, _, grads = asr_loss_and_grads(builder, m, waves, wave_len, text, None, augment=aug)
-        out.append((float(loss), [None if g is None else g.cpu() for g in grads]))
-    (loss_g, grads_g), (loss_c, grads_c) = out
-    if [g is None for g in grads_g] != [g is None for g in grads_c]:
-        raise SystemExit("chip_smoke: card and CPU reach different parameters")
-    gmax = max(float(g.abs().max()) for g in grads_c if g is not None)
-    gerr = max(float((a - b).abs().max()) for a, b in zip(grads_g, grads_c) if a is not None)
+        return float(loss), [None if g is None else g.cpu() for g in grads]
+
+    (loss_g, grads_g), (loss_c, grads_c) = run(model, dev), run(cpu_model, torch.device("cpu"))
     res = {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c),
-           "loss_tol_rel": 1e-4, "grad_max_abs_err": gerr, "grad_max_abs": gmax,
-           "grad_tol": 1e-3 * gmax}
-    if not (res["loss_rel_err"] <= 1e-4 and gerr <= 1e-3 * gmax):
+           "loss_tol_rel": 1e-4, **compare_grads(model, grads_g, grads_c),
+           "card_spread": card_spread(model, lambda m: run(m, dev)[1], grads_g)}
+    if not (res["loss_rel_err"] <= 1e-4 and res["grads_ok"]):
         raise SystemExit(f"chip_smoke: card and CPU training steps disagree: {res}")
+    return res
+
+
+# Conv biases in front of a train-mode BatchNorm: BN's mean subtraction
+# makes their exact gradient 0, so what both sides hold is rounding noise.
+ZERO_GRAD_LEAVES = re.compile(r"^(asr|tts\.encoder)\.convs\.\d+\.b$")
+
+
+def leaf_errors(names, grads_a, grads_b):
+    """{leaf: (L2 error / L2 norm, largest error / largest value)} of
+    ``grads_a`` against ``grads_b``, the zero-gradient leaves left out."""
+    if [g is None for g in grads_a] != [g is None for g in grads_b]:
+        raise SystemExit("chip_smoke: two runs reach different parameters")
+    return {n: (float(torch.linalg.vector_norm(a - b)) / max(float(torch.linalg.vector_norm(b)), 1e-30),
+                float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+            for n, a, b in zip(names, grads_a, grads_b)
+            if a is not None and not ZERO_GRAD_LEAVES.match(n)}
+
+
+def worst_leaves(rel):
+    """The worst leaf of `leaf_errors` by each measure."""
+    l2, mx = max(rel, key=lambda n: rel[n][0]), max(rel, key=lambda n: rel[n][1])
+    return {"worst_leaf_l2": l2, "worst_leaf_l2_rel_err": rel[l2][0],
+            "worst_leaf_max": mx, "worst_leaf_max_rel_err": rel[mx][1]}
+
+
+# Leaves of the paired step whose gradient passes a ReLU or a max-pool on its
+# way back from the loss: the CBHG before its GRU, the TTS encoder's convs,
+# the text embedding (the codebook) in front of them, the decoder's prenet,
+# and the speaker embedding and AdaIN std layer (a ReLU). Where the card and
+# the CPU round an input to opposite sides of such a kink, one position's
+# term of the gradient jumps: these leaves are not a smooth function of the
+# weights, and the card's own gradient moves as far on weights an ulp off
+# (``card_spread``).
+KINKED_LEAVES = re.compile(r"^(tts\.postnet\.cbhg\.(banks|projs|pre_highway|highways)\."
+                           r"|tts\.encoder\.(convs|bn)\.|tts\.decoder\.(prenet|pseudo_std)\."
+                           r"|codebook\.|spkr_embed$)")
+
+
+def compare_grads(model, grads_g, grads_c, tol=1e-3, kinked=None):
+    """The card's gradients against the CPU's: the largest error of all
+    within ``tol`` x the largest gradient of all, and each leaf but the
+    zero-gradient and the ``kinked`` ones (held to the first rule only)
+    within ``tol`` x that leaf's size in the L2 norm. Reports the worst
+    leaf of all, by L2 and by largest element, and the worst held one."""
+    names = [n for n, _ in model.named_parameters()]
+    leaves = [(a, b) for a, b in zip(grads_g, grads_c) if a is not None]
+    gmax = max(float(b.abs().max()) for _, b in leaves)
+    gerr = max(float((a - b).abs().max()) for a, b in leaves)
+    rel = leaf_errors(names, grads_g, grads_c)
+    held = {n: v for n, v in rel.items() if kinked is None or not kinked.match(n)}
+    worst = max(held, key=lambda n: held[n][0])
+    return {"grad_max_abs_err": gerr, "grad_max_abs": gmax, "grad_tol": tol * gmax,
+            **{"grad_" + k: v for k, v in worst_leaves(rel).items()},
+            "grad_held_worst_leaf": worst, "grad_held_worst_l2_rel_err": held[worst][0],
+            "grad_leaf_tol_rel_l2": tol, "grad_leaves_held": len(held),
+            "grad_leaves_checked": len(rel),
+            "grads_ok": gerr <= tol * gmax and held[worst][0] <= tol}
+
+
+SPREAD_DRAWS = 4
+
+
+def card_spread(model, grads_fn, grads_g, kinked=None, draws=SPREAD_DRAWS):
+    """How far the card's own gradients move, leaf by leaf, in a second run
+    on the same inputs (``rerun``: the library's nondeterministic
+    reductions) and in ``draws`` runs on weights moved by one ulp each, up
+    or down at random (``ulp``: kinks that the rounding crosses, which any
+    two fp32 implementations meet). The worst leaf by each measure of
+    `compare_grads`, and in L2 the worst of those `compare_grads` holds;
+    reported beside the card-vs-CPU errors, not held."""
+    names = [n for n, _ in model.named_parameters()]
+    out = {"rerun": worst_leaves(leaf_errors(names, grads_fn(model), grads_g))}
+    worst = {}
+    for s in range(draws):
+        moved = copy.deepcopy(model)
+        gen = torch.Generator().manual_seed(s)
+        with torch.no_grad():
+            for p in moved.parameters():
+                up = (torch.rand(p.shape, generator=gen) < 0.5).to(p.device)
+                p.copy_(torch.where(up, torch.nextafter(p, torch.full_like(p, math.inf)),
+                                    torch.nextafter(p, torch.full_like(p, -math.inf))))
+        for n, (l2, mx) in leaf_errors(names, grads_fn(moved), grads_g).items():
+            a, b = worst.get(n, (0.0, 0.0))
+            worst[n] = (max(a, l2), max(b, mx))
+        del moved
+    held = [n for n in worst if kinked is None or not kinked.match(n)]
+    held_worst = max(held, key=lambda n: worst[n][0])
+    out["ulp"] = {**worst_leaves(worst), "held_worst_leaf": held_worst,
+                  "held_worst_l2_rel_err": worst[held_worst][0], "draws": draws}
+    return out
+
+
+FLAGSHIP_FREQ_LOSS = dict(sample_rate=FLAGSHIP_AUDIO["sample_rate"], n_mels=80, loss="mse",
+                          differential_loss=True, emphasize_linear_low=True)
+
+
+def phase_paired(dev):
+    """VqvaeTrainer at flagship width with the unpaired weights 0 (every step
+    is the paired step): a warm-up step (then `validate`), five timed steps,
+    `validate` again, the kernel launches of one step and of a validation,
+    one profiled step, and one step on the card against the CPU plain path."""
+    from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.models import vqvae as V
+    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
+    from semi_tts_tpu_torch.train.optim import Optimizer
+    from semi_tts_tpu_torch.train.steps import StepBuilder
+    from semi_tts_tpu_torch.train.train_vqvae import VqvaeTrainer
+    from semi_tts_tpu_torch.utils.metrics import read_phn_attr
+
+    config = flagship_config()
+    cfg = flagship_vqvae_config(config)
+    phn_attr = torch.from_numpy(read_phn_attr(config["model"]["codebook"]["phn_attr_pth"])).to(dev)
+    model = V.VQVAE(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    builder = StepBuilder(cfg, AudioFeaturizer(audio_config(), dev), phn_attr,
+                          freq_loss_kwargs=FLAGSHIP_FREQ_LOSS)
+    opt = Optimizer(model.parameters(), lr=1e-3, lr_scheduler="decay")
+    batch = training_batch(0, dev)
+    dev_batch = training_batch(1, dev, lengths=RAGGED)
+    marks, launches, logged, mem = [], {}, [], {}
+
+    def batches():
+        for i in range(1 + TRAIN_STEPS):
+            if i == 1:  # after the warm-up step and its validation, outside the timed steps
+                gc.collect()
+                torch.cuda.reset_peak_memory_stats()
+                mem["base"] = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if i == 2:
+                launches["step"] = kernels.launch_counts()
+            kernels.reset_launches()
+            yield batch
+
+    trainer = VqvaeTrainer(model, builder, opt, pair_iter=batches(), dev_set=[dev_batch],
+                           max_step=1 + TRAIN_STEPS, valid_step=10 ** 9, progress_step=1,
+                           log=lambda *a: logged.append(a))
+    trainer.exec()
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated()
+    walls = [b - a for a, b in zip(marks[1:], marks[2:])]
+    per_step = {k: [v for _, n, v in logged if n == name]
+                for k, name in (("asr_loss", "txt_loss/pair"), ("mel_loss", "speech_loss/mel"),
+                                ("linear_loss", "speech_loss/linear"), ("grad_norm", "grad_norm"))}
+    kernels.reset_launches()
+    dev_tts, dev_per = trainer.validate()
+    launches["validate"] = kernels.launch_counts()
+    values = sum(per_step.values(), []) + [dev_tts, dev_per]
+    if any(len(v) != 1 + TRAIN_STEPS for v in per_step.values()) or not np.isfinite(values).all():
+        raise SystemExit(f"chip_smoke: paired training went non-finite: {per_step} {dev_tts} {dev_per}")
+    for path, names in (("step", PAIRED_STEP_KERNELS), ("validate", VALIDATION_KERNELS)):
+        idle = [n for n in names if launches[path][n] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels not launched on the paired {path} path: {idle}")
+    profile = profiled_step(lambda: trainer._train_step(*batch), float(np.median(walls)))
+    ref = paired_reference(model, cfg, phn_attr, dev)
+    return dict(batch=TRAIN_B, samples=TRAIN_S, text_len=32, decode_steps=PAIRED_T // 3,
+                steps=1 + TRAIN_STEPS, params=sum(p.numel() for p in model.parameters()),
+                wall_s=float(np.median(walls)), walls_s=walls, peak_mem_bytes=peak,
+                mem_baseline_bytes=mem["base"], **per_step, dev_tts_loss=dev_tts,
+                dev_per=dev_per, best_tts_loss=trainer.best_tts_loss, best_per=trainer.best_per,
+                launches=launches["step"], launches_validate=launches["validate"],
+                profile=profile, reference=ref)
+
+
+def paired_reference(model, cfg, phn_attr, dev):
+    """One paired step's loss and gradients through the card's kernels and
+    through the plain path on the CPU: the same weights and BN statistics,
+    every dropout 0 (the prenet's included), tf_rate 1, B=2 rows of 3.0 s and
+    2.5 s, and the same SNRs, stretch rate and noise (numpy draws) given to
+    both."""
+    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
+    from semi_tts_tpu_torch.train.steps import StepBuilder
+
+    d = cfg.tts.decoder
+    dec0 = dataclasses.replace(d, prenet_dropout=0.0, query_dropout=0.0, dec_dropout=0.0)
+    cfg0 = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, dropout=0.0),
+                               tts=dataclasses.replace(cfg.tts, enc_dropout=0.0, decoder=dec0))
+    cpu_model = copy.deepcopy(model).cpu()
+    rng = np.random.RandomState(12)
+    lengths = (TRAIN_S, TRAIN_S - 11025)
+    snrs = rng.uniform(10, 100, size=2).astype(np.float32)
+    noise = rng.randn(2, TRAIN_S).astype(np.float32)
+    rate = float(np.float32(rng.uniform(0.9, 1.1)))
+
+    def run(m, device):
+        builder = StepBuilder(cfg0, AudioFeaturizer(audio_config(), device), phn_attr.to(device),
+                              freq_loss_kwargs=FLAGSHIP_FREQ_LOSS)
+        waves, wave_len, text, sid = training_batch(4, device, lengths=lengths)
+        aug = (torch.from_numpy(snrs).to(device), rate, torch.from_numpy(noise).to(device))
+        t0 = time.perf_counter()
+        loss, mets, grads = builder.paired_loss_and_grads(m, waves, wave_len, text, sid, 1.0, None,
+                                                          augment=aug)
+        return (float(loss), [None if g is None else g.cpu() for g in grads],
+                {k: float(mets[k]) for k in ("asr_loss", "mel_loss", "linear_loss")},
+                time.perf_counter() - t0)
+
+    (loss_g, grads_g, mets_g, s_g), (loss_c, grads_c, mets_c, s_c) = (
+        run(model, dev), run(cpu_model, torch.device("cpu")))
+    res = {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c),
+           "loss_tol_rel": 1e-4, "losses_card": mets_g, "losses_cpu": mets_c,
+           **compare_grads(model, grads_g, grads_c, kinked=KINKED_LEAVES), "card_s": s_g,
+           "cpu_s": s_c,
+           "card_spread": card_spread(model, lambda m: run(m, dev)[1], grads_g, KINKED_LEAVES)}
+    if not (res["loss_rel_err"] <= 1e-4 and res["grads_ok"]):
+        raise SystemExit(f"chip_smoke: card and CPU paired steps disagree: {res}")
     return res
 
 
@@ -1061,13 +1374,18 @@ def main():
     print(json.dumps({"featurizer": featurizer_line(dev)}), flush=True)
     serving = phase_serving(str(BUILD_DIR))
     training = phase_training(dev)
+    paired = phase_paired(dev)
+    paths = {"serving request": serving, "ASR train step": training, "paired train step": paired}
     for row in table:
-        on_path = serving if row["name"] in SERVING_KERNELS else training
-        row["launches"] = on_path["launches"][row["name"]]
-        row["launches_per"] = "serving request" if on_path is serving else "train step"
+        per = ("serving request" if row["name"] in SERVING_KERNELS else
+               "ASR train step" if row["name"] in TRAINING_KERNELS else "paired train step")
+        row["launches"] = paths[per]["launches"][row["name"]]
+        row["launches_per"] = per
+        row["launches_by_path"] = {k: v["launches"][row["name"]] for k, v in paths.items()}
     print(json.dumps({"kernels": table}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"paired": paired}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

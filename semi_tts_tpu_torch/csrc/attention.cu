@@ -341,7 +341,324 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
   }
 }
 
+// ------------------------------------------------- K9: the step's backward --
+//
+// Replaces the autodiff of `semi_tts_tpu/models/attention.py:39`
+// `attention_step` inside the decoder's training scan. From the forward's
+// inputs, its weights w (B, L) and the cotangents d_context (B, D) and
+// d_weights (B, L), per batch row:
+//   dw[l]   = d_weights[l] + sum_d memory[l, d] * d_context[d]
+//   de[l]   = w[l] * (dw[l] - sum_l' w[l'] dw[l'])            (softmax)
+//   th      = tanh(pq + loc @ loc_lin^T + processed_memory)   (recomputed)
+//   dpre    = de[l] * v[a] * (1 - th^2)                       (L, A)
+//   d_pq = sum_l dpre, d_processed_memory = dpre, d_v = sum_l de[l] th[l, :],
+//   d_memory[l, d] = w[l] * d_context[d],
+//   d_loc_lin = dpre^T loc, d_loc = dpre @ loc_lin            (L, F)
+//   d_loc_w[f, c, k] = sum_l d_loc[l, f] hist[c, l + k - pad]
+//   d_attn_hist[c, x] = sum_{f, k} loc_w[f, c, k] d_loc[x - k + pad, f]
+// A masked position has w = 0 from the forward, so de, dpre and d_memory are
+// 0 there with no mask read. The weight gradients d_v, d_loc_lin and d_loc_w
+// are written as per-row partials into one (B, ...) buffer that the wrapper
+// sums with one reduction: each element has one writer, so there are no
+// atomics and the sum is deterministic.
+//
+// What bounds it: as K3, a chain of dependent phases, each too small to fill
+// an SM; the bytes (pm, memory, d_pm, d_memory, ~2.4 MB at B=8, L=32) put the
+// card's floor near 1 us.
+//
+// Design: K3's layout, one cluster of kCluster CTAs per batch row. CTA r owns
+// attention columns [r*Ac, r*Ac + Ac), context columns [r*Dc, r*Dc + Dc),
+// and the filters f = r + kCluster*i. Its prologue issues every load it needs
+// at once with cp.async and waits once (plain loads in a loop would pay a
+// memory round trip per iteration), loc_lin's rows at an odd stride so a warp
+// reading down a column hits 32 banks. It recomputes the location features
+// itself (as K3 does) and the tanh of its columns. Partial sums cross the
+// cluster through distributed shared memory in three exchanges, each ended
+// by one cluster barrier: the memory.d_context partials of dw (all-gather,
+// summed in rank order so every CTA holds the same dw bit for bit), the
+// partials of d_loc over the CTA's columns (reduce-scatter by filter), and
+// the partials of d_attn_hist over the CTA's filters (reduce-scatter by
+// position). No CTA touches a peer's shared memory after the last barrier.
+
+struct BwdLayout {
+  int hist, wloc, lin, locf, th, mem, dctx, dwt, pq, v, w, dw, de, part, red, dslot, dloc, hslot,
+      total;
+  __host__ __device__ BwdLayout(int L, int Ac, int Dc, int C, int F, int K) {
+    const int Fr = (F + kCluster - 1) / kCluster;
+    int at = 0;
+    hist = at;  at += round4(C * (L + K - 1));
+    wloc = at;  at += round4(F * C * K);
+    lin = at;   at += round4(Ac * (F | 1));
+    locf = at;  at += round4(L * F);
+    th = at;    at += round4(L * Ac);
+    mem = at;   at += round4(L * Dc);
+    dctx = at;  at += round4(Dc);
+    dwt = at;   at += round4(L);
+    pq = at;    at += round4(Ac);
+    v = at;     at += round4(Ac);
+    w = at;     at += round4(L);
+    dw = at;    at += round4(L);
+    de = at;    at += round4(L);
+    part = at;  at += kCluster * round4(L);
+    red = at;   at += 2 * round4(Ac > kThreads ? Ac : kThreads);
+    dslot = at; at += round4(kCluster * L * Fr);
+    dloc = at;  at += round4(L * Fr);
+    hslot = at; at += round4(kCluster * C * L);
+    total = at;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_kernel(const float* __restrict__ pq, const float* __restrict__ pm,
+                     const float* __restrict__ memory, const float* __restrict__ hist,
+                     const float* __restrict__ loc_w, const float* __restrict__ loc_lin,
+                     const float* __restrict__ v, const float* __restrict__ weights,
+                     const float* __restrict__ d_context, const float* __restrict__ d_weights,
+                     float* __restrict__ d_pq, float* __restrict__ d_pm,
+                     float* __restrict__ d_memory, float* __restrict__ d_hist,
+                     float* __restrict__ rows, int L, int A, int D, int C, int F, int K) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const int r = (int)cluster.block_rank();
+  const int b = blockIdx.x / kCluster;
+  const int Ac = A / kCluster, Dc = D / kCluster;
+  const int Fr = (F + kCluster - 1) / kCluster;
+  const int pad = (K - 1) / 2, Lp = L + K - 1, CK = C * K, CL = C * L;
+  const int FS = F | 1;  // odd row stride of loc_lin
+  const BwdLayout lay(L, Ac, Dc, C, F, K);
+  float* hist_s = smem + lay.hist;  // (C, Lp): hist[c, j - pad], zero outside [0, L)
+  float* wloc = smem + lay.wloc;    // (F, C, K)
+  float* lin_s = smem + lay.lin;    // (Ac, FS): this CTA's rows of loc_lin
+  float* locf = smem + lay.locf;    // (L, F) location features
+  float* th = smem + lay.th;        // (L, Ac): processed_memory, then tanh, then dpre
+  float* mem_s = smem + lay.mem;    // (L, Dc): this CTA's columns of memory
+  float* dctx = smem + lay.dctx;    // (Dc) this CTA's columns of d_context
+  float* dwt = smem + lay.dwt;      // (L) d_weights
+  float* pq_s = smem + lay.pq;
+  float* v_s = smem + lay.v;
+  float* w = smem + lay.w;
+  float* dw = smem + lay.dw;
+  float* de = smem + lay.de;
+  float* part = smem + lay.part;    // (kCluster, Lr) partials of dw, slot = sender
+  float* red = smem + lay.red;      // (2, G * Ac) partial column sums over l
+  float* dslot = smem + lay.dslot;  // (kCluster, L, Fr) partials of d_loc, slot = sender
+  float* dloc = smem + lay.dloc;    // (L, Fr) d_loc of this CTA's filters
+  float* hslot = smem + lay.hslot;  // (kCluster, C*L) partials of d_attn_hist, slot = sender
+  // per-row partials of the weight gradients, one row of `rows` per batch row:
+  // d_loc_w (F, C, K), d_loc_lin (A, F), d_v (A)
+  const int ld_rows = F * CK + A * F + A;
+  float* dlw_row = rows + (size_t)b * ld_rows;
+  float* dll_row = dlw_row + F * CK;
+  float* dv_row = dll_row + A * F;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int Lr = round4(L);
+
+  // prologue: every load of the CTA in flight at once (cp.async), one wait
+  for (int i = tid; i < C * Lp; i += blockDim.x) {
+    const int c = i / Lp, x = i - c * Lp - pad;
+    if (x >= 0 && x < L) cp_async4(hist_s + i, hist + ((size_t)b * C + c) * L + x);
+    else hist_s[i] = 0.0f;
+  }
+  for (int i = tid; i < F * CK; i += blockDim.x) cp_async4(wloc + i, loc_w + i);
+  for (int i = tid; i < Ac * F; i += blockDim.x) {
+    const int a = i / F, f = i - a * F;
+    cp_async4(lin_s + a * FS + f, loc_lin + (size_t)r * Ac * F + i);
+  }
+  for (int i = tid; i < L * Ac; i += blockDim.x) {
+    const int l = i / Ac, a = i - l * Ac;
+    cp_async4(th + i, pm + ((size_t)b * L + l) * A + r * Ac + a);
+  }
+  for (int i = tid; i < L * Dc; i += blockDim.x) {
+    const int l = i / Dc, d = i - l * Dc;
+    cp_async4(mem_s + i, memory + ((size_t)b * L + l) * D + r * Dc + d);
+  }
+  for (int i = tid; i < Dc; i += blockDim.x) cp_async4(dctx + i, d_context + (size_t)b * D + r * Dc + i);
+  for (int i = tid; i < Ac; i += blockDim.x) {
+    cp_async4(pq_s + i, pq + (size_t)b * A + r * Ac + i);
+    cp_async4(v_s + i, v + r * Ac + i);
+  }
+  for (int l = tid; l < L; l += blockDim.x) {
+    cp_async4(w + l, weights + (size_t)b * L + l);
+    cp_async4(dwt + l, d_weights + (size_t)b * L + l);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  // this CTA's part of dw: memory[l, its columns] . d_context[its columns],
+  // a warp per position; and its columns of d_memory
+  float* own = part + r * Lr;
+  for (int l = warp; l < L; l += nwarps) {
+    const float* mrow = mem_s + l * Dc;
+    float* drow = d_memory + ((size_t)b * L + l) * D + r * Dc;
+    float acc = 0.0f;
+    for (int d = lane; d < Dc; d += 32) {
+      const float g = dctx[d];
+      acc = fmaf(mrow[d], g, acc);
+      drow[d] = w[l] * g;
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) own[l] = acc;
+  }
+  // location features: locf[l, f] = sum_c sum_k loc_w[f, c, k] hist[c, l + k - pad]
+  for (int i = tid; i < L * F; i += blockDim.x) {
+    const int l = i / F, f = i - l * F;
+    float acc = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      const float* h = hist_s + c * Lp + l;
+      const float* wk = wloc + (f * C + c) * K;
+      for (int k = 0; k < K; ++k) acc = fmaf(wk[k], h[k], acc);
+    }
+    locf[i] = acc;
+  }
+  cluster.sync();  // every CTA has started and holds its dw partial
+  for (int i = tid; i < (kCluster - 1) * L; i += blockDim.x) {
+    const int q = i / L, l = i - q * L;
+    *cluster.map_shared_rank(own + l, q < r ? q : q + 1) = own[l];
+  }
+  // th[l, a] = tanh(pq[a] + loc[l, :] . loc_lin[a, :] + pm[l, a]) over this CTA's columns
+  for (int i = tid; i < L * Ac; i += blockDim.x) {
+    const int l = i / Ac, a = i - l * Ac;
+    float loc = 0.0f;
+    for (int f = 0; f < F; ++f) loc = fmaf(locf[l * F + f], lin_s[a * FS + f], loc);
+    th[i] = tanhf((pq_s[a] + loc) + th[i]);
+  }
+  cluster.sync();  // every dw partial has landed
+
+  for (int l = tid; l < L; l += blockDim.x) {
+    float s = dwt[l];
+    for (int q = 0; q < kCluster; ++q) s += part[q * Lr + l];
+    dw[l] = s;
+  }
+  __syncthreads();
+  float wdw = 0.0f;  // sum_l w[l] dw[l], every warp for itself (same order, same result)
+  for (int l = lane; l < L; l += 32) wdw = fmaf(w[l], dw[l], wdw);
+  wdw = warp_sum(wdw);
+  for (int l = tid; l < L; l += blockDim.x) de[l] = w[l] * (dw[l] - wdw);
+  __syncthreads();
+
+  // dpre over this CTA's columns, in place of th; G groups of positions a
+  // column when the columns leave threads idle, summed in group order
+  const int G = Ac >= (int)blockDim.x ? 1 : (int)blockDim.x / Ac;
+  const int GA = G * Ac;
+  for (int i = tid; i < GA; i += blockDim.x) {
+    const int g = i / Ac, a = i - g * Ac;
+    float dv = 0.0f, dq = 0.0f;
+    for (int l = g; l < L; l += G) {
+      const float t = th[l * Ac + a];
+      const float dp = de[l] * v_s[a] * (1.0f - t * t);
+      dv = fmaf(de[l], t, dv);
+      dq += dp;
+      th[l * Ac + a] = dp;
+      d_pm[((size_t)b * L + l) * A + r * Ac + a] = dp;
+    }
+    red[i] = dv;
+    red[GA + i] = dq;
+  }
+  __syncthreads();
+  for (int a = tid; a < Ac; a += blockDim.x) {
+    float dv = 0.0f, dq = 0.0f;
+    for (int g = 0; g < G; ++g) {
+      dv += red[g * Ac + a];
+      dq += red[GA + g * Ac + a];
+    }
+    dv_row[r * Ac + a] = dv;
+    d_pq[(size_t)b * A + r * Ac + a] = dq;
+  }
+  if (F > 0) {
+    // d_loc_lin rows of this CTA's columns: sum_l dpre[l, a] loc[l, f]
+    for (int i = tid; i < Ac * F; i += blockDim.x) {
+      const int a = i / F, f = i - a * F;
+      float acc = 0.0f;
+      for (int l = 0; l < L; ++l) acc = fmaf(th[l * Ac + a], locf[l * F + f], acc);
+      dll_row[(r * Ac + a) * F + f] = acc;
+    }
+    // partial d_loc[l, f] over this CTA's columns, into slot r of the CTA
+    // that owns filter f
+    for (int i = tid; i < L * F; i += blockDim.x) {
+      const int l = i / F, f = i - l * F;
+      float acc = 0.0f;
+      for (int a = 0; a < Ac; ++a) acc = fmaf(th[l * Ac + a], lin_s[a * FS + f], acc);
+      float* dst = dslot + ((size_t)r * L + l) * Fr + f / kCluster;
+      *cluster.map_shared_rank(dst, f % kCluster) = acc;
+    }
+    cluster.sync();  // every d_loc partial has landed
+    for (int i = tid; i < L * Fr; i += blockDim.x) {
+      float s = 0.0f;
+      for (int q = 0; q < kCluster; ++q) s += dslot[(size_t)q * L * Fr + i];
+      dloc[i] = s;
+    }
+    __syncthreads();
+    // d_loc_w of this CTA's filters, complete over l
+    for (int i = tid; i < Fr * CK; i += blockDim.x) {
+      const int fi = i / CK, ck = i - fi * CK, c = ck / K, k = ck - c * K;
+      const int f = r + kCluster * fi;
+      if (f >= F) continue;
+      const float* h = hist_s + c * Lp + k;
+      float acc = 0.0f;
+      for (int l = 0; l < L; ++l) acc = fmaf(dloc[l * Fr + fi], h[l], acc);
+      dlw_row[f * CK + ck] = acc;
+    }
+    // partial d_attn_hist over this CTA's filters, into slot r of the CTA
+    // that owns position c*L + x
+    for (int i = tid; i < CL; i += blockDim.x) {
+      const int c = i / L, x = i - c * L;
+      float acc = 0.0f;
+      for (int fi = 0; fi < Fr && r + kCluster * fi < F; ++fi) {
+        const float* wk = wloc + ((r + kCluster * fi) * C + c) * K;
+        const int k0 = max(0, x + pad - L + 1), k1 = min(K - 1, x + pad);
+        for (int k = k0; k <= k1; ++k) acc = fmaf(wk[k], dloc[(x - k + pad) * Fr + fi], acc);
+      }
+      *cluster.map_shared_rank(hslot + (size_t)r * CL + i, i % kCluster) = acc;
+    }
+    cluster.sync();  // every d_attn_hist partial has landed; no remote access after this
+    for (int i = r + kCluster * tid; i < CL; i += kCluster * blockDim.x) {
+      float s = 0.0f;
+      for (int q = 0; q < kCluster; ++q) s += hslot[(size_t)q * CL + i];
+      d_hist[(size_t)b * CL + i] = s;
+    }
+  }
+}
+
 }  // namespace
+
+// d_pq (B, A), d_pm (B, L, A), d_memory (B, L, D), d_hist (B, C, L) and
+// `rows` (B, F*C*K + A*F + A): each batch row's partials of d_loc_w (F, C,
+// K), d_loc_lin (A, F) and d_v (A), which the caller sums over the batch.
+// F = 0 (loc_w, loc_lin and d_hist null) is the location-free attention.
+extern "C" int attention_step_bwd_f32(const float* pq, const float* pm, const float* memory,
+                                      const float* hist, const float* loc_w,
+                                      const float* loc_lin, const float* v,
+                                      const float* weights, const float* d_context,
+                                      const float* d_weights, float* d_pq, float* d_pm,
+                                      float* d_memory, float* d_hist, float* rows, int B, int L,
+                                      int A, int D, int C, int F, int K, void* stream) {
+  if (A % kCluster || D % kCluster || L < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const BwdLayout lay(L, A / kCluster, D / kCluster, C, F, K);
+  const size_t smem = (size_t)lay.total * sizeof(float);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, attention_bwd_kernel, pq, pm, memory, hist, loc_w, loc_lin, v,
+                           weights, d_context, d_weights, d_pq, d_pm, d_memory, d_hist, rows, L,
+                           A, D, C, F, K);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
 
 // `tile` (location-feature rows per tile, 0 when F = 0) and `stage_mem`
 // come from attention.py `attention_plan`; `vec` = 1 when A/kCluster and

@@ -1,5 +1,6 @@
-// LSTM and GRU recurrences over pre-projected inputs (forward only), one or
-// both directions of a bidirectional layer in one launch.
+// LSTM and GRU recurrences over pre-projected inputs, one or both directions
+// of a bidirectional layer in one launch: the forwards K1 and K2 here, the
+// backward recurrences K7 (LSTM) and K8 (GRU) in their own sections below.
 //
 // Replaces: K1 `lstm_rec`, the Pallas kernel P1 `tools/proto_pallas_rnn.py:33`
 // `pallas_lstm_rec`, which is the forward of `semi_tts_tpu/ops/rnn.py:95`
@@ -646,6 +647,131 @@ cudaError_t launch_lstm_bwd(const BwdDirs& dirs, const float* cs, const float* g
   }
 }
 
+// ---------------------------------------------------------- K8: GRU bwd --
+//
+// The backward recurrence of `_gru_rec_bwd` (`semi_tts_tpu/ops/rnn.py:244`),
+// walked opposite to the forward's time direction, per (batch row, unit k):
+//   dh2[t] = g_hs[t] + dh_rec
+//   dh_rec = dh2[t] * z[t] + sum_g (coef_h[t, g] * dh2[t, g mod H]) * W_hh[g, k]
+// over the 3H gate rows g. Every gate gradient is a coefficient times dh2,
+// so the caller recomputes z and coef_h = [cr, cz, dn_c * r] (T, B, 3H) with
+// one GEMM and elementwise work, as JAX does, and forms dx_proj, dW_hh and
+// db_hh from dh2 with one product or sum each.
+//
+// What bounds it: as K2, the latency of T dependent steps; bytes and FLOPs
+// are far below. K2's layout transposed: one block per batch row and
+// direction, a group of 8 lanes per unit k, each lane holding column k of
+// W_hh at the gate rows g + 8i of each gate in registers for the whole
+// sequence. A step: the unit's leader lane forms dh2 and the three products
+// coef * dh2 of its unit into a double-buffered shared vector; one block
+// barrier; every lane sums its rows of that vector against its W_hh column
+// and a few xor shuffles give the leader the unit's dh_rec. dh_rec never
+// leaves the leader's registers, and the next step's inputs are loaded one
+// step ahead.
+
+struct GruBwdDir {
+  const float* z;     // (T, B, H) update gate
+  const float* coef;  // (T, B, 3H) coef_h
+  const float* w_hh;  // (3H, H)
+  float* dh;          // (T, B, H) dh2
+  int reverse;
+  int col;            // columns of this direction in g_hs
+};
+
+struct GruBwdDirs {
+  GruBwdDir d[2];
+};
+
+GruBwdDir make_gru_bwd_dir(const float* z, const float* coef, const float* w_hh, float* dh,
+                           int reverse, int col) {
+  GruBwdDir d;
+  d.z = z;
+  d.coef = coef;
+  d.w_hh = w_hh;
+  d.dh = dh;
+  d.reverse = reverse;
+  d.col = col;
+  return d;
+}
+
+struct GruBwdIn {  // a unit's inputs of one step
+  float gy, z, cr, cz, cn;
+};
+
+// KPL: gate rows of each gate a lane holds (8*KPL >= H). One block per batch row.
+template <int KPL>
+__global__ void __launch_bounds__(64 * KPL)
+    gru_bwd_kernel(GruBwdDirs dirs, const float* __restrict__ g_hs, int T, int B, int H, int ld) {
+  constexpr int KP = kGroup * KPL;  // rows of one gate, zero past H
+  __shared__ float dhp[2][3 * KP];  // coef_h * dh2 of a step, gate q at [q * KP, q * KP + H)
+  const GruBwdDir d = blockIdx.y ? dirs.d[1] : dirs.d[0];
+  const int g = threadIdx.x & (kGroup - 1);
+  const int k = threadIdx.x / kGroup;
+  const bool active = k < H;
+  const bool leader = active && g == 0;
+  const int b = blockIdx.x;
+
+  // column k of W_hh at rows q*H + g + 8i: registers for all T steps
+  float w[3][KPL];
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) {
+      const int row = g + kGroup * i;
+      w[q][i] = active && row < H ? d.w_hh[(size_t)(q * H + row) * H + k] : 0.0f;
+    }
+  for (int i = threadIdx.x; i < 2 * 3 * KP; i += blockDim.x) (&dhp[0][0])[i] = 0.0f;
+
+  auto fetch = [&](int s) {
+    GruBwdIn in = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (leader && s < T) {
+      const int t = d.reverse ? s : T - 1 - s;
+      const size_t row = (size_t)t * B + b;
+      const float* c = d.coef + row * 3 * H;
+      in.gy = g_hs[row * ld + d.col + k];
+      in.z = d.z[row * H + k];
+      in.cr = c[k];
+      in.cz = c[H + k];
+      in.cn = c[2 * H + k];
+    }
+    return in;
+  };
+  GruBwdIn cur = fetch(0);
+  float dh_rec = 0.0f;
+  __syncthreads();
+
+  for (int s = 0; s < T; ++s) {
+    const GruBwdIn nxt = fetch(s + 1);
+    float* v = dhp[s & 1];
+    float dh2 = 0.0f;
+    if (leader) {
+      const int t = d.reverse ? s : T - 1 - s;
+      dh2 = cur.gy + dh_rec;
+      d.dh[((size_t)t * B + b) * H + k] = dh2;
+      v[k] = cur.cr * dh2;
+      v[KP + k] = cur.cz * dh2;
+      v[2 * KP + k] = cur.cn * dh2;
+    }
+    __syncthreads();  // dhp is double-buffered: one barrier a step is race-free
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) acc[q] = fmaf(w[q][i], v[q * KP + g + kGroup * i], acc[q]);
+    group_sum(acc);
+    if (leader) dh_rec = fmaf(dh2, cur.z, (acc[0] + acc[1]) + acc[2]);
+    cur = nxt;
+  }
+}
+
+template <int KPL>
+cudaError_t launch_gru_bwd_t(const GruBwdDirs& dirs, const float* g_hs, int T, int B, int H,
+                             int ndir, cudaStream_t stream) {
+  const int threads = (kGroup * H + 31) / 32 * 32;
+  gru_bwd_kernel<KPL><<<dim3(B, ndir), threads, 0, stream>>>(dirs, g_hs, T, B, H, ndir * H);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 
@@ -712,6 +838,31 @@ extern "C" int gru_rec_f32(const float* x_proj0, const float* x_proj1, const flo
     case 12: return (int)launch_gru_t<12>(dirs, hs, T, B, H, ndir, s);
     case 14: return (int)launch_gru_t<14>(dirs, hs, T, B, H, ndir, s);
     case 16: return (int)launch_gru_t<16>(dirs, hs, T, B, H, ndir, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dh_k (T, B, H), the dh2 of direction k, from its update gate z_k (T, B, H),
+// its coefficients coef_k (T, B, 3H) and W_hh_k, and from g_hs (T, B,
+// ndir*H), direction k in columns [k*H, k*H + H).
+extern "C" int gru_rec_bwd_f32(const float* z0, const float* z1, const float* coef0,
+                               const float* coef1, const float* w_hh0, const float* w_hh1,
+                               const float* g_hs, float* dh0, float* dh1, int T, int B, int H,
+                               int ndir, int reverse0, int reverse1, void* stream) {
+  if (H < 1 || H > kGruMaxH || ndir < 1 || ndir > 2) return (int)cudaErrorInvalidValue;
+  GruBwdDirs dirs;
+  dirs.d[0] = make_gru_bwd_dir(z0, coef0, w_hh0, dh0, reverse0, 0);
+  dirs.d[1] = make_gru_bwd_dir(z1, coef1, w_hh1, dh1, reverse1, H);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (2 * ((H + 15) / 16)) {
+    case 2: return (int)launch_gru_bwd_t<2>(dirs, g_hs, T, B, H, ndir, s);
+    case 4: return (int)launch_gru_bwd_t<4>(dirs, g_hs, T, B, H, ndir, s);
+    case 6: return (int)launch_gru_bwd_t<6>(dirs, g_hs, T, B, H, ndir, s);
+    case 8: return (int)launch_gru_bwd_t<8>(dirs, g_hs, T, B, H, ndir, s);
+    case 10: return (int)launch_gru_bwd_t<10>(dirs, g_hs, T, B, H, ndir, s);
+    case 12: return (int)launch_gru_bwd_t<12>(dirs, g_hs, T, B, H, ndir, s);
+    case 14: return (int)launch_gru_bwd_t<14>(dirs, g_hs, T, B, H, ndir, s);
+    case 16: return (int)launch_gru_bwd_t<16>(dirs, g_hs, T, B, H, ndir, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,10 +1,11 @@
 """K3 `attention_step`: location features, energies, softmax and context of
-one location-sensitive attention step, given the projected query.
+one location-sensitive attention step, given the projected query; K9
+`attention_step_bwd`: its backward, from the forward's inputs and weights.
 
-The wrapper launches `csrc/attention.cu` for CUDA tensors and runs its plain
-PyTorch version only for CPU tensors. `attention_plan` computes the launch
-plan (one thread-block cluster per batch row) and names the shapes the
-kernel takes.
+The wrappers launch `csrc/attention.cu` for CUDA tensors and run their plain
+PyTorch versions only for CPU tensors. `attention_plan` and
+`attention_bwd_plan` compute the launch plans (one thread-block cluster per
+batch row) and name the shapes the kernels take.
 """
 
 from __future__ import annotations
@@ -123,3 +124,109 @@ def attention_step(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, m
 
 
 attention_step.launches = 0
+
+
+def _bwd_smem_floats(L, Ac, Dc, C, F_, K) -> int:
+    """Floats of a K9 CTA's shared memory, region by region as `BwdLayout` in
+    csrc/attention.cu lays them out."""
+    Fr = -(-F_ // CLUSTER)
+    regions = (C * (L + K - 1), F_ * C * K, Ac * (F_ | 1), L * F_, L * Ac, L * Dc, Dc, L, Ac, Ac,
+               L, L, L)
+    return (sum(_round4(n) for n in regions) + CLUSTER * _round4(L)
+            + 2 * _round4(max(Ac, THREADS)) + _round4(CLUSTER * L * Fr) + _round4(L * Fr)
+            + _round4(CLUSTER * C * L))
+
+
+@functools.lru_cache(maxsize=64)
+def attention_bwd_plan(B: int, L: int, A: int, D: int, C: int, F_: int, K: int) -> dict:
+    """K9's launch plan: K3's layout, B clusters of CLUSTER CTAs, CTA r
+    owning A/CLUSTER attention columns, D/CLUSTER context columns and the
+    filters f = r + CLUSTER*i. Raises ValueError when A or D is not divisible
+    by CLUSTER, L < 1, or the shared memory needed exceeds what a block may
+    use (L above ~285 at flagship widths)."""
+    if A % CLUSTER or D % CLUSTER:
+        raise ValueError(f"attention_step_bwd kernel needs A and D divisible by {CLUSTER}, "
+                         f"got A={A}, D={D}")
+    if L < 1:
+        raise ValueError(f"attention_step_bwd kernel needs L >= 1, got L={L}")
+    smem = 4 * _bwd_smem_floats(L, A // CLUSTER, D // CLUSTER, C, F_, K)
+    if smem > build.SMEM_PER_BLOCK:
+        raise ValueError(f"attention_step_bwd kernel: L={L} needs {smem} bytes of shared memory "
+                         f"at A={A}, F={F_}; a block may use {build.SMEM_PER_BLOCK}")
+    return dict(cluster=CLUSTER, grid=(CLUSTER * B,), threads=THREADS, smem_bytes=smem,
+                a_per_cta=A // CLUSTER, d_per_cta=D // CLUSTER,
+                filters_per_cta=-(-F_ // CLUSTER))
+
+
+def attention_step_bwd_plain(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, weights,
+                             d_context, d_weights):
+    """The backward of `attention_step_plain` in closed form, from the
+    forward's inputs, its ``weights`` and the cotangents ``d_context`` (B, D)
+    and ``d_weights`` (B, L) -> (d_pq, d_processed_memory, d_memory,
+    d_attn_hist, d_loc_w, d_loc_lin, d_v); the location terms are None when
+    ``loc_w`` is None. A masked position has weight 0, so it gets zero
+    gradient without the mask."""
+    energy_in = pq[:, None, :]
+    if loc_w is not None:
+        pad = (loc_w.shape[2] - 1) // 2
+        loc = F.conv1d(attn_hist, loc_w, padding=pad)               # (B, F, L)
+        energy_in = energy_in + loc.transpose(1, 2) @ loc_lin.T
+    th = torch.tanh(energy_in + processed_memory)                   # (B, L, A)
+    dw = d_weights + torch.einsum("bld,bd->bl", memory, d_context)
+    de = weights * (dw - (weights * dw).sum(1, keepdim=True))
+    dpre = de[:, :, None] * v * (1.0 - th * th)
+    d_memory = weights[:, :, None] * d_context[:, None, :]
+    d_v = torch.einsum("bl,bla->a", de, th)
+    if loc_w is None:
+        return dpre.sum(1), dpre, d_memory, torch.zeros_like(attn_hist), None, None, d_v
+    d_loc = (dpre @ loc_lin).transpose(1, 2)                        # (B, F, L)
+    return (dpre.sum(1), dpre, d_memory,
+            torch.nn.grad.conv1d_input(attn_hist.shape, loc_w, d_loc, padding=pad),
+            torch.nn.grad.conv1d_weight(attn_hist, loc_w.shape, d_loc, padding=pad),
+            torch.einsum("bla,bfl->af", dpre, loc), d_v)
+
+
+def attention_step_bwd(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, weights,
+                       d_context, d_weights):
+    """K9: the backward of one attention step (`attention_step_bwd_plain`'s
+    outputs); one launch per call on the card, then one sum over the batch
+    of the weight gradients' per-row partials."""
+    if not pq.is_cuda:
+        return attention_step_bwd_plain(pq, processed_memory, memory, attn_hist, loc_w, loc_lin,
+                                        v, weights, d_context, d_weights)
+    B, L, A = processed_memory.shape
+    D = memory.shape[2]
+    C = attn_hist.shape[1]
+    for t, shape, what in ((pq, (B, A), "pq"), (processed_memory, (B, L, A), "processed_memory"),
+                           (memory, (B, L, D), "memory"), (attn_hist, (B, C, L), "attn_hist"),
+                           (v, (A,), "v"), (weights, (B, L), "weights"),
+                           (d_context, (B, D), "d_context"), (d_weights, (B, L), "d_weights")):
+        build.require(t, shape, f"attention_step_bwd {what}")
+    if loc_w is None:
+        n_filt, K = 0, 1
+    else:
+        n_filt, K = loc_w.shape[0], loc_w.shape[2]
+        build.require(loc_w, (n_filt, C, K), "attention_step_bwd loc_w")
+        build.require(loc_lin, (A, n_filt), "attention_step_bwd loc_lin")
+    attention_bwd_plan(B, L, A, D, C, n_filt, K)
+    empty = functools.partial(torch.empty, device=pq.device, dtype=torch.float32)
+    d_pq, d_pm, d_mem = empty((B, A)), empty((B, L, A)), empty((B, L, D))
+    d_hist = torch.zeros_like(attn_hist) if loc_w is None else empty((B, C, L))
+    n_lw, n_ll = n_filt * C * K, A * n_filt
+    rows = empty((B, n_lw + n_ll + A))  # per-row partials of d_loc_w, d_loc_lin, d_v
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = build.bind("attention", "attention_step_bwd_f32", 15, 7)
+    build.check(fn(pq.data_ptr(), processed_memory.data_ptr(), memory.data_ptr(),
+                   attn_hist.data_ptr(), ptr(loc_w), ptr(loc_lin), v.data_ptr(), weights.data_ptr(),
+                   d_context.data_ptr(), d_weights.data_ptr(), d_pq.data_ptr(), d_pm.data_ptr(),
+                   d_mem.data_ptr(), None if loc_w is None else d_hist.data_ptr(),
+                   rows.data_ptr(), B, L, A, D, C, n_filt, K, build.stream()),
+                "attention_step_bwd")
+    attention_step_bwd.launches += 1
+    sums = rows.sum(0)
+    d_lw = sums[:n_lw].view(n_filt, C, K) if n_filt else None
+    d_ll = sums[n_lw:n_lw + n_ll].view(A, n_filt) if n_filt else None
+    return d_pq, d_pm, d_mem, d_hist, d_lw, d_ll, sums[n_lw + n_ll:]
+
+
+attention_step_bwd.launches = 0

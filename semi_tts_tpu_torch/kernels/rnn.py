@@ -1,6 +1,6 @@
-"""K1 `lstm_rec`, K2 `gru_rec` and K7 `lstm_rec_bwd`: the sequence
-recurrences over pre-projected inputs, in the JAX layout (x_proj
-(T, B, G*H), W_hh (G*H, H)).
+"""K1 `lstm_rec`, K2 `gru_rec`, K7 `lstm_rec_bwd` and K8 `gru_rec_bwd`:
+the sequence recurrences over pre-projected inputs and their backward
+recurrences, in the JAX layout (x_proj (T, B, G*H), W_hh (G*H, H)).
 
 `lstm_rec`/`gru_rec` run one direction, as `semi_tts_tpu.ops.rnn._lstm_rec`
 and `_gru_rec` do; `bilstm_rec`/`bigru_rec` run a forward and a reversed
@@ -9,10 +9,13 @@ direction in one launch and return (T, B, 2H), forward first.
 (T, B, nH) that the backward needs, for one or two directions.
 `bilstm_rec_bwd` is K7, the backward recurrence of `_lstm_rec_bwd`: from the
 recomputed gate pre-activations, the cell states and the incoming gradient
-of hs it returns the gate gradients (T, B, 4H) of each direction. Each
+of hs it returns the gate gradients (T, B, 4H) of each direction. `bigru_rec_bwd` is K8, the backward recurrence of
+`_gru_rec_bwd`: from the update gates, the hidden-side coefficients and the
+incoming gradient of hs it returns dh2 (T, B, H) of each direction. Each
 wrapper launches `csrc/rnn.cu` for CUDA tensors and runs its plain PyTorch
 version only for CPU tensors. `lstm_plan`, `lstm_bwd_plan` and `gru_plan`
-compute the launch plans and name the hidden sizes each kernel takes.
+compute the launch plans and name the hidden sizes each kernel takes (K8
+takes K2's).
 """
 
 from __future__ import annotations
@@ -334,3 +337,52 @@ def bigru_rec(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b):
 
 gru_rec.launches = 0
 bigru_rec.launches = 0
+
+
+def gru_rec_bwd_plain(reverse: bool, w_hh, z, coef_h, g_hs):
+    """One direction of `_gru_rec_bwd`'s recurrence: the update gate ``z``
+    (T, B, H), the coefficients ``coef_h`` (T, B, 3H) and the gradient
+    ``g_hs`` of hs (T, B, H) -> dh2 (T, B, H), the time axis walked opposite
+    to the forward."""
+    T, B, H = z.shape
+    dh_rec = z.new_zeros((B, H))
+    dh2 = z.new_empty((T, B, H))
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        d = g_hs[t] + dh_rec
+        dh2[t] = d
+        dh_rec = d * z[t] + (coef_h[t] * d.repeat(1, 3)) @ w_hh
+    return dh2
+
+
+def bigru_rec_bwd_plain(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs):
+    H = w_hh_f.shape[1]
+    return (gru_rec_bwd_plain(False, w_hh_f, z_f, coef_f, g_hs[..., :H]),
+            gru_rec_bwd_plain(True, w_hh_b, z_b, coef_b, g_hs[..., H:]))
+
+
+def bigru_rec_bwd(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs):
+    """K8: the GRU backward recurrence of both directions in one launch.
+    ``z_*`` (T, B, H) and ``coef_*`` (T, B, 3H) are the update gates and the
+    hidden-side coefficients ``[cr, cz, dn_c * r]`` that `_gru_rec_bwd`
+    recomputes; ``g_hs`` (T, B, 2H) holds the directions side by side,
+    forward first. Returns (dh2_f, dh2_b), each (T, B, H)."""
+    if not z_f.is_cuda:
+        return bigru_rec_bwd_plain(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs)
+    T, B, H = z_f.shape
+    for w_hh, z, coef in ((w_hh_f, z_f, coef_f), (w_hh_b, z_b, coef_b)):
+        build.require(z, (T, B, H), "gru_rec_bwd z")
+        build.require(coef, (T, B, 3 * H), "gru_rec_bwd coef_h")
+        build.require(w_hh, (3 * H, H), "gru_rec_bwd w_hh")
+    build.require(g_hs, (T, B, 2 * H), "gru_rec_bwd g_hs")
+    gru_plan(B, H, 2)
+    dh = [torch.empty_like(z_f), torch.empty_like(z_b)]
+    if T and B:
+        fn = build.bind("rnn", "gru_rec_bwd_f32", 9, 6)
+        build.check(fn(z_f.data_ptr(), z_b.data_ptr(), coef_f.data_ptr(), coef_b.data_ptr(),
+                       w_hh_f.data_ptr(), w_hh_b.data_ptr(), g_hs.data_ptr(), dh[0].data_ptr(),
+                       dh[1].data_ptr(), T, B, H, 2, 0, 1, build.stream()), "gru_rec_bwd")
+        bigru_rec_bwd.launches += 1
+    return dh[0], dh[1]
+
+
+bigru_rec_bwd.launches = 0

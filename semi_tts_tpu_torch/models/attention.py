@@ -1,9 +1,11 @@
 """Location-sensitive additive attention, one decode step (counterpart of
 `semi_tts_tpu/models/attention.py`). After the query projection the step
-runs through kernel K3."""
+runs through kernel K3; when autograd records, through `_AttentionStep`,
+whose backward is kernel K9."""
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from ..kernels import attention as k3
@@ -32,12 +34,33 @@ def process_memory(p: Attention, memory):
     return linear(p.memory_layer, memory)
 
 
+class _AttentionStep(torch.autograd.Function):
+    """K3 forward, K9 backward. Saves its inputs (views, never copies: the
+    decoder's 81 steps share one memory and processed memory) and the
+    weights."""
+
+    @staticmethod
+    def forward(ctx, pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, mask):
+        context, weights = k3.attention_step(pq, processed_memory, memory, attn_hist, loc_w,
+                                             loc_lin, v, mask)
+        ctx.save_for_backward(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, weights)
+        return context, weights
+
+    @staticmethod
+    def backward(ctx, d_context, d_weights):
+        grads = k3.attention_step_bwd(*ctx.saved_tensors, d_context.contiguous(),
+                                      d_weights.contiguous())
+        return grads + (None,)
+
+
 def attention_step(p: Attention, query, memory, processed_memory, attn_history, mask=None):
     """query (B, Q); memory (B, L, D); processed_memory (B, L, A);
     attn_history (B, C, L); mask (B, L) bool, True = padded.
     Returns (context (B, D), weights (B, L))."""
     pq = linear(p.query_layer, query)
     loc = hasattr(p, "loc_conv")
-    return k3.attention_step(pq, processed_memory, memory, attn_history,
-                             p.loc_conv.w if loc else None, p.loc_linear.w if loc else None,
-                             p.v.w.reshape(-1), mask)
+    args = (pq, processed_memory, memory, attn_history,
+            p.loc_conv.w if loc else None, p.loc_linear.w if loc else None, p.v.w.reshape(-1))
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
+        return _AttentionStep.apply(*args, mask)
+    return k3.attention_step(*args, mask)

@@ -1,5 +1,8 @@
 """CBHG mel->linear postnet: conv bank + highways + BiGRU (counterpart of
-`semi_tts_tpu/models/cbhg.py`). The BiGRU runs through kernel K2."""
+`semi_tts_tpu/models/cbhg.py`). The BiGRU runs through kernel K2, and
+under autograd its backward through kernel K8. In train mode the
+BatchNorms normalize with the batch's statistics and update their running
+ones in place."""
 
 from __future__ import annotations
 

@@ -1,5 +1,8 @@
 """Tacotron2 text-side encoder: conv x N + BiLSTM (counterpart of
-`semi_tts_tpu/models/encoder.py`). The BiLSTM runs through kernel K1."""
+`semi_tts_tpu/models/encoder.py`). The BiLSTM runs through kernel K1, and
+under autograd through K1 with cell states and the K7 backward. In train
+mode the BatchNorms normalize with the batch's statistics and update their
+running ones in place."""
 
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Tacotron2 TTS model: text encoder + AR decoder + CBHG mel->linear
-postnet (counterpart of `semi_tts_tpu/models/tts.py`), inference path."""
+postnet (counterpart of `semi_tts_tpu/models/tts.py`), free-running and
+in training."""
 
 from __future__ import annotations
 
@@ -48,15 +49,23 @@ class TTS(nn.Module):
 
 
 def tts_apply(p: TTS, txt_embed, spkr_embed, *, cfg: TTSConfig, decode_steps: int,
-              txt_lengths=None, generator=None):
+              txt_lengths=None, generator=None, train: bool = False, teacher=None,
+              teacher_rows=None, tf_rate: float = 1.0, wgrad_probes=None):
     """txt_embed (B, L, in_embed_dim) codebook latents -> (mel, linear,
-    align, stop); ``linear`` is None when the model has no postnet."""
-    memory = encoder_apply(p.encoder, txt_embed, dropout_rate=cfg.enc_dropout, train=False,
+    align, stop), plus the decoder's ``aux`` with ``wgrad_probes``;
+    ``linear`` is None when the model has no postnet. ``train``: batch
+    statistics in every BatchNorm (the running ones updated in place) and
+    dropout; the teacher arguments are `decoder_apply`'s.
+    ``cfg.separate_postnet`` detaches the postnet's input."""
+    memory = encoder_apply(p.encoder, txt_embed, dropout_rate=cfg.enc_dropout, train=train,
                            generator=generator)
-    mel, align, stop = decoder_apply(p.decoder, memory, spkr_embed, cfg=cfg.decoder,
-                                     decode_steps=decode_steps, memory_lengths=txt_lengths,
-                                     generator=generator)
+    out = decoder_apply(p.decoder, memory, spkr_embed, cfg=cfg.decoder,
+                        decode_steps=decode_steps, memory_lengths=txt_lengths,
+                        generator=generator, train=train, teacher=teacher,
+                        teacher_rows=teacher_rows, tf_rate=tf_rate, wgrad_probes=wgrad_probes)
+    mel, align, stop = out[:3]
     lin = None
     if hasattr(p, "postnet"):
-        lin = linear(p.postnet.linear, cbhg_apply(p.postnet.cbhg, mel, train=False))
-    return mel, lin, align, stop
+        post_in = mel.detach() if cfg.separate_postnet else mel
+        lin = linear(p.postnet.linear, cbhg_apply(p.postnet.cbhg, post_in, train=train))
+    return (mel, lin, align, stop) + tuple(out[3:])

@@ -151,10 +151,15 @@ def embed_text(model: VQVAE, cfg: VQVAEConfig, phn_attr, txt):
 
 
 def text_to_speech(model: VQVAE, cfg: VQVAEConfig, all_latent, all_sid, *, decode_steps: int,
-                   latent_lengths=None, generator=None):
-    """Free-running decode of a latent batch -> (mel, linear, align, stop).
-    ``all_sid``: (B,) speaker ids."""
+                   latent_lengths=None, generator=None, train: bool = False, teacher=None,
+                   teacher_rows=None, tf_rate: float = 1.0, wgrad_probes=None):
+    """Decode a latent batch -> (mel, linear, align, stop), plus the
+    decoder's ``aux`` with ``wgrad_probes``; free-running without a
+    ``teacher``. ``all_sid``: (B,) speaker ids; the other arguments are
+    `tts_apply`'s."""
     spkr = model.spkr_embed[all_sid]
     return tts_apply(model.tts, all_latent, spkr, cfg=cfg.tts, decode_steps=decode_steps,
-                     txt_lengths=latent_lengths, generator=generator)
+                     txt_lengths=latent_lengths, generator=generator, train=train,
+                     teacher=teacher, teacher_rows=teacher_rows, tf_rate=tf_rate,
+                     wgrad_probes=wgrad_probes)
 

@@ -9,6 +9,10 @@ When autograd records, an LSTM layer's recurrence is `lstm_rec_fn`, a
 K1 with the cell states kept, its backward recomputes the gate
 pre-activations with one GEMM per direction, runs the K7 backward
 recurrence and forms ``dW_hh = sum_t dgates_t^T h_prev_t`` as one GEMM.
+A BiGRU's recurrence is `gru_rec_fn`, the counterpart of `_gru_rec`'s
+custom VJP: K2 forward; backward from the recomputed gates (one GEMM per
+direction), the K8 backward recurrence, and dW_hh, db_hh and dx_proj as
+one product or sum each.
 
 Parameters are `LSTMParams`/`GRUParams` modules named as the JAX pytree
 leaves (``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``).
@@ -21,13 +25,14 @@ import math
 import torch
 from torch import nn
 
-from ..kernels.rnn import (bigru_rec, bilstm_rec, bilstm_rec_bwd, bilstm_rec_cs, gru_rec,
-                           lstm_rec, shift_prev)
+from ..kernels.rnn import (bigru_rec, bigru_rec_bwd, bilstm_rec, bilstm_rec_bwd, bilstm_rec_cs,
+                           gru_rec, lstm_rec, shift_prev)
 from .dropout import dropout as drop
 from .init import uniform
 
-__all__ = ["GRUParams", "LSTMParams", "bigru", "bigru_rec", "bilstm_rec", "gru_rec",
-           "lstm_cell", "lstm_rec", "lstm_rec_fn", "multi_lstm", "multi_lstm_init"]
+__all__ = ["GRUParams", "LSTMParams", "bigru", "bigru_rec", "bilstm_rec", "gru_bwd_coefficients",
+           "gru_rec", "gru_rec_fn", "lstm_cell", "lstm_rec", "lstm_rec_fn", "multi_lstm",
+           "multi_lstm_init"]
 
 
 class _RNNParams(nn.Module):
@@ -53,9 +58,18 @@ class GRUParams(_RNNParams):
     gates = 3
 
 
-def lstm_cell(p: LSTMParams, x, h, c):
-    """One LSTMCell step. x: (B, D); h, c: (B, H). Returns (h', c')."""
-    gates = x @ p.w_ih.T + p.b_ih + h @ p.w_hh.T + p.b_hh
+def lstm_cell(p: LSTMParams, x, h, c, *, probe=None, stop_w: bool = False):
+    """One LSTMCell step. x: (B, D); h, c: (B, H). Returns (h', c').
+
+    ``probe``/``stop_w``: the batched weight gradient of an autoregressive
+    loop (`models.decoder.decoder_apply`). With the weight matrices detached
+    and a zero ``probe`` (B, 4H) added to the gate pre-activations, the
+    probe's gradient is the gate gradient, and the caller forms dW outside
+    the loop with one product."""
+    w_ih, w_hh = (p.w_ih.detach(), p.w_hh.detach()) if stop_w else (p.w_ih, p.w_hh)
+    gates = x @ w_ih.T + p.b_ih + h @ w_hh.T + p.b_hh
+    if probe is not None:
+        gates = gates + probe
     i, f, g, o = gates.chunk(4, dim=-1)
     c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h2 = torch.sigmoid(o) * torch.tanh(c2)
@@ -143,7 +157,62 @@ def _gru_proj(p: GRUParams, xs):
     return (xs @ p.w_ih.T + p.b_ih).transpose(0, 1).contiguous()
 
 
+def gru_bwd_coefficients(reverse: bool, w_hh, b_hh, x_proj, hs):
+    """What `_gru_rec_bwd` recomputes from one direction's saved hs (T, B, H)
+    with one GEMM: (h_prev, z, coef_h, coef_x), where every gate gradient is
+    a coefficient times dh2: ``coef_h`` (T, B, 3H) the hidden-side ones
+    (the reset gate inside, b_hn-inside-r) and ``coef_x`` the input-side."""
+    H = hs.shape[-1]
+    h_prev = shift_prev(hs, reverse)
+    hp = h_prev @ w_hh.T + b_hh
+    xr, xz, xn = x_proj.split(H, dim=-1)
+    hr, hz, hn = hp.split(H, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    dn_c = (1.0 - z) * (1.0 - n * n)
+    cr = dn_c * hn * r * (1.0 - r)
+    cz = (h_prev - n) * z * (1.0 - z)
+    return (h_prev, z.contiguous(), torch.cat([cr, cz, dn_c * r], dim=-1),
+            torch.cat([cr, cz, dn_c], dim=-1))
+
+
+class _GRURec(torch.autograd.Function):
+    """The recurrence of both GRU directions (the reversed one second):
+    x_proj (T, B, 3H) each -> hs (T, B, 2H)."""
+
+    @staticmethod
+    def forward(ctx, w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b):
+        hs = bigru_rec(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b)
+        ctx.save_for_backward(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g_hs):
+        w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b, hs = ctx.saved_tensors
+        H = w_hh_f.shape[1]
+        dirs = ((False, w_hh_f, b_hh_f, x_proj_f), (True, w_hh_b, b_hh_b, x_proj_b))
+        co = [gru_bwd_coefficients(r, w, b, x, hs[..., k * H:(k + 1) * H])
+              for k, (r, w, b, x) in enumerate(dirs)]
+        dh2 = bigru_rec_bwd(w_hh_f, w_hh_b, co[0][1], co[1][1], co[0][2], co[1][2],
+                            g_hs.contiguous())
+        out = []
+        for (h_prev, _, coef_h, coef_x), d in zip(co, dh2):
+            d3 = d.repeat(1, 1, 3)
+            dhp = coef_h * d3
+            out.append((dhp.reshape(-1, 3 * H).T @ h_prev.reshape(-1, H), dhp.sum((0, 1)),
+                        coef_x * d3))
+        (dw_f, db_f, dx_f), (dw_b, db_b, dx_b) = out
+        return dw_f, dw_b, db_f, db_b, dx_f, dx_b
+
+
+def gru_rec_fn(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b):
+    """Differentiable BiGRU recurrence (K2 forward, K8 backward)."""
+    return _GRURec.apply(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b)
+
+
 def bigru(p: nn.ModuleDict, xs):
     f, b = p["fwd"], p["bwd"]
-    hs = bigru_rec(f.w_hh, b.w_hh, f.b_hh, b.b_hh, _gru_proj(f, xs), _gru_proj(b, xs))
+    args = (f.w_hh, b.w_hh, f.b_hh, b.b_hh, _gru_proj(f, xs), _gru_proj(b, xs))
+    hs = gru_rec_fn(*args) if _records(*args) else bigru_rec(*args)
     return hs.transpose(0, 1)

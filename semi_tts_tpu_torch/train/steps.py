@@ -1,18 +1,41 @@
-"""Step pieces of the trainers (counterpart of `semi_tts_tpu/train/steps.py`):
-feature extraction with the frame padding, the CTC input lengths, the paired
-CTC loss and the ASR half of the evaluation step. The TTS losses, the paired
-step and the cycle steps come with the TTS half of training."""
+"""Step functions of the trainers (counterpart of
+`semi_tts_tpu/train/steps.py`): feature extraction with the frame padding,
+the CTC input lengths, the paired CTC and TTS losses, the paired
+(supervised) train step and the evaluation step. The unpaired cycle steps
+are not ported yet.
+
+A step draws its augmentation (SNRs, stretch rate, noise), its dropout and
+prenet masks and its scheduled-sampling coins from one `torch.Generator` on
+the model's device, seeded from (seed, step number) as the JAX step folds
+the step number into its key. Building a step turns TF32 off (`use_fp32`),
+so the card computes in the fp32 the CPU path does.
+"""
 
 from __future__ import annotations
+
+from functools import partial
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..device import use_fp32
 from ..models import vqvae as V
+from ..models.decoder import merge_wgrads, wgrad_probes
 from ..ops.ctc import ctc_loss
+from .losses import freq_loss
 
 EPS = 1e-10
 SPEC_PAD_VALUE = 0.0
+
+
+class Weights(NamedTuple):
+    asr: float = 1.0
+    tts: float = 1.0
+    unpair_text: float = 0.0
+    unpair_speech: float = 0.0
+    unpair_text_start: int = 0
+    unpair_speech_start: int = 0
 
 
 def round_up(x, r):
@@ -25,28 +48,48 @@ def _pad_frames(x, r):
     return F.pad(x, (0, 0, 0, r - x.shape[1] % r), value=SPEC_PAD_VALUE)
 
 
+def step_generator(seed: int, step_no: int, device) -> torch.Generator:
+    """The generator of one step: a 64-bit mix of (seed, step_no)."""
+    mixed = (int(seed) * 0x9E3779B97F4A7C15 + int(step_no) * 0xBF58476D1CE4E5B9) % (1 << 63)
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
 class StepBuilder:
     """What the step functions share: model and audio configuration, the
-    featurizer, the phonological attribute table and the CTC length rule.
-    ``actual_len``: CTC input lengths from the non-pad frames instead of the
-    full encoder length."""
+    featurizer, the phonological attribute table, the loss weights, the
+    spectrogram loss (``freq_loss_kwargs``: `freq_loss`'s keywords, whose
+    ``sample_rate`` and ``n_mels`` default to the featurizer's and the
+    model's, the rest to `freq_loss`'s defaults, the YAML ``hparas``
+    defaults) and the CTC length rule. ``actual_len``: CTC input lengths
+    from the non-pad frames instead of the full encoder length."""
 
-    def __init__(self, cfg: V.VQVAEConfig, feat, phn_attr, *, actual_len: bool = False):
+    def __init__(self, cfg: V.VQVAEConfig, feat, phn_attr, *, weights: Weights = Weights(),
+                 freq_loss_kwargs: dict | None = None, actual_len: bool = False):
         self.cfg = cfg
         self.feat = feat
         self.phn_attr = phn_attr
+        self.w = weights
+        floss = {"n_mels": cfg.n_mels}
+        if feat is not None:
+            floss["sample_rate"] = feat.cfg.sample_rate
+        self.floss = partial(freq_loss, **{**floss, **(freq_loss_kwargs or {})})
         self.actual_len = actual_len
         self.r = cfg.n_frames_per_step
 
-    def _features(self, waves, wave_len, generator=None, *, need_clean=True, need_aug=True):
+    def _features(self, waves, wave_len, generator=None, *, need_clean=True, need_aug=True,
+                  augment=None):
         """(mel, linear, aug, flen, aug_flen); clean features padded to a
-        multiple of ``r`` frames; what is not asked for is None."""
+        multiple of ``r`` frames; what is not asked for is None. ``augment``:
+        (snrs, rate, noise) to featurize with instead of drawing them from
+        ``generator``."""
         mel = linear = flen = aug = aug_flen = None
         if need_clean:
             mel, linear, flen = self.feat.featurize(waves, wave_len)
             mel, linear = _pad_frames(mel, self.r), _pad_frames(linear, self.r)
-        if need_aug:
+        if need_aug and augment is None:
             aug, aug_flen = self.feat.featurize_augmented(waves, wave_len, generator)
+        elif need_aug:
+            aug, aug_flen = self.feat.featurize_augmented_at(waves, wave_len, *augment)
         return mel, linear, aug, flen, aug_flen
 
     def _enc_len(self, flen, t_enc):
@@ -68,17 +111,97 @@ class StepBuilder:
         lens = self._ctc_lengths(model_input, probs)
         return ctc_loss(ctc_in, text, lens, (text != 0).sum(-1))
 
+    def _losses_paired(self, model, mel, linear, aug_mel, text, sid, tf_rate, generator, *,
+                       wgrad_probes=None):
+        """Paired forward: ASR on the augmented features and CTC, then the
+        TTS teacher-forced on the clean mel, and the weighted total.
+        Returns (total, metrics, the decoder's aux or None)."""
+        cfg = self.cfg
+        B = mel.shape[0]
+        p_code, _, post_prob = V.speech_to_text(model, cfg, self.phn_attr, aug_mel, paired_bs=B,
+                                                train=True, generator=generator)
+        asr_loss = self._paired_ctc(aug_mel, p_code, text)
+        lat = V.embed_text(model, cfg, self.phn_attr, text)
+        lat_len = (text != 0).sum(-1) + 1  # the non-pad tokens and the trailing <pad>
+        out = V.text_to_speech(model, cfg, lat, sid, decode_steps=mel.shape[1] // self.r,
+                               latent_lengths=lat_len, generator=generator, train=True,
+                               teacher=mel, tf_rate=tf_rate, wgrad_probes=wgrad_probes)
+        mel_pred, lin_pred, align = out[:3]
+        mel_loss = self.floss(mel_pred, mel)
+        lin_loss = self.floss(lin_pred, linear) if lin_pred is not None else mel_loss.new_zeros(())
+        total = self.w.tts * (mel_loss + lin_loss)
+        if cfg.use_asr_postnet:
+            post_loss = self._paired_ctc(aug_mel, post_prob, text, apply_log=False)
+            w = cfg.asr_postnet_weight
+            total = total + self.w.asr * (1 - w) * asr_loss + self.w.asr * w * post_loss
+        else:
+            post_loss = mel_loss.new_zeros(())
+            total = total + self.w.asr * asr_loss
+        mets = dict(asr_loss=asr_loss.detach(), mel_loss=mel_loss.detach(),
+                    linear_loss=lin_loss.detach(), tts_loss=(mel_loss + lin_loss).detach(),
+                    post_loss=post_loss.detach(), pair_align=align.detach(),
+                    pair_pred=p_code.detach().argmax(-1))
+        return total, mets, (out[4] if wgrad_probes is not None else None)
+
+    def paired_loss_and_grads(self, model, waves, wave_len, text, sid, tf_rate, generator, *,
+                              augment=None):
+        """The paired loss of one batch and its gradients with respect to
+        ``model.parameters()`` (None where the loss does not reach), the
+        decoder cells' weight gradients formed from the probes. Returns
+        (total, metrics, grads)."""
+        mel, linear, aug, _, aug_flen = self._features(waves, wave_len, generator,
+                                                       augment=augment)
+        probes = wgrad_probes(self.cfg.tts.decoder, mel.shape[1] // self.r, mel.shape[0],
+                              mel.device)
+        total, mets, aux = self._losses_paired(model, mel, linear, aug, text, sid, tf_rate,
+                                               generator, wgrad_probes=probes)
+        mets["pair_pred_len"] = self._enc_len(aug_flen, mets["pair_pred"].shape[1])
+        params = list(model.parameters())
+        *grads, gq, gd = torch.autograd.grad(total, params + [probes["q"], probes["d"]],
+                                             allow_unused=True)
+        grads = merge_wgrads(model.tts.decoder, dict(zip(params, grads)), aux, {"q": gq, "d": gd})
+        return total.detach(), mets, [grads[p] for p in params]
+
+    def make_paired_step(self, optimizer, *, seed: int = 0):
+        """``paired_step(model, step_no, tf_rate, waves, wave_len, text, sid,
+        augment=None)`` -> metrics (losses, grad_norm,
+        pair_align, pair_pred, pair_pred_len); the parameters and the
+        BatchNorm running statistics are updated in place. ``optimizer``
+        holds ``model.parameters()`` in order."""
+        use_fp32()
+
+        def paired_step(model, step_no, tf_rate, waves, wave_len, text, sid, *, augment=None):
+            g = step_generator(seed, step_no, waves.device)
+            total, mets, grads = self.paired_loss_and_grads(model, waves, wave_len, text, sid,
+                                                            tf_rate, g, augment=augment)
+            mets.update(total_loss=total, grad_norm=optimizer.step(grads))
+            return mets
+
+        return paired_step
+
     def make_eval_step(self):
-        """The ASR half of the dev-set step: clean features ->
-        ``speech_to_text(train=False)`` -> dict(mel, linear, p_code,
-        post_prob, enc_len)."""
+        """The dev-set step: clean features -> ``speech_to_text(train=False)``
+        for PER, and a free-running decode of ``mel.shape[1] // r`` steps
+        (``tf_rate`` 0, no teacher) for the TTS loss ->
+        dict(mel, linear, p_code, post_prob, enc_len, mel_pred, lin_pred,
+        align, tts_loss). ``generator`` draws the prenet's dropout."""
 
         @torch.no_grad()
-        def step(model, waves, wave_len, text, sid):
+        def step(model, waves, wave_len, text, sid, generator=None):
+            cfg = self.cfg
             mel, linear, _, flen, _ = self._features(waves, wave_len, need_aug=False)
-            p_code, _, post_prob = V.speech_to_text(model, self.cfg, self.phn_attr, mel,
+            p_code, _, post_prob = V.speech_to_text(model, cfg, self.phn_attr, mel,
                                                     paired_bs=mel.shape[0], train=False)
+            lat = V.embed_text(model, cfg, self.phn_attr, text)
+            mel_pred, lin_pred, align, _ = V.text_to_speech(
+                model, cfg, lat, sid, decode_steps=mel.shape[1] // self.r,
+                latent_lengths=(text != 0).sum(-1) + 1, generator=generator)
+            T = mel.shape[1]
+            tts_loss = self.floss(mel_pred[:, :T], mel)
+            if lin_pred is not None:
+                tts_loss = tts_loss + self.floss(lin_pred[:, :T], linear)
             return dict(mel=mel, linear=linear, p_code=p_code, post_prob=post_prob,
-                        enc_len=self._enc_len(flen, p_code.shape[1]))
+                        enc_len=self._enc_len(flen, p_code.shape[1]), mel_pred=mel_pred,
+                        lin_pred=lin_pred, align=align, tts_loss=tts_loss)
 
         return step

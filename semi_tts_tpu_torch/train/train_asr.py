@@ -3,13 +3,13 @@
 codebook -> paired CTC -> backward -> clip/Adam/schedule update.
 
 A step draws its augmentation (SNRs, stretch rate, noise) and its dropout
-masks from one `torch.Generator` on the model's device, seeded from
-(seed, step number) as the JAX step folds the step number into its key. The
-step does not compute the clean features, which it would not use; the clean
-path runs in `AsrTrainer.validate_asr`. The step runs where the model and the
-featurizer live: the card, unless they were built with ``device="cpu"``
-(`AudioFeaturizer` resolves its device so). Building a step turns TF32 off
-(`use_fp32`), so the card computes in the fp32 the CPU path does.
+masks from one `torch.Generator` on the model's device (`step_generator`).
+The step does not compute the clean features, which it would not use; the
+clean path runs in `AsrTrainer.validate_asr`. The step runs where the model
+and the featurizer live: the card, unless they were built with
+``device="cpu"`` (`AudioFeaturizer` resolves its device so). Building a step
+turns TF32 off (`use_fp32`), so the card computes in the fp32 the CPU path
+does.
 """
 
 from __future__ import annotations
@@ -20,12 +20,8 @@ import torch
 from ..device import use_fp32
 from ..models import vqvae as V
 from ..utils.metrics import cal_per
-
-
-def step_generator(seed: int, step_no: int, device) -> torch.Generator:
-    """The generator of one step: a 64-bit mix of (seed, step_no)."""
-    mixed = (int(seed) * 0x9E3779B97F4A7C15 + int(step_no) * 0xBF58476D1CE4E5B9) % (1 << 63)
-    return torch.Generator(device=device).manual_seed(mixed)
+from .steps import step_generator
+from .train_vqvae import VqvaeTrainer
 
 
 def asr_loss_and_grads(builder, model, waves, wave_len, text, generator, *, augment=None):
@@ -34,10 +30,8 @@ def asr_loss_and_grads(builder, model, waves, wave_len, text, generator, *, augm
     ``augment``: (snrs, rate, noise) to featurize with instead of drawing
     them from ``generator``. Returns (total, metrics, grads)."""
     cfg = builder.cfg
-    if augment is None:
-        aug, aug_flen = builder.feat.featurize_augmented(waves, wave_len, generator)
-    else:
-        aug, aug_flen = builder.feat.featurize_augmented_at(waves, wave_len, *augment)
+    _, _, aug, _, aug_flen = builder._features(waves, wave_len, generator, need_clean=False,
+                                               augment=augment)
     B = aug.shape[0]
     p_code, _, post_prob = V.speech_to_text(model, cfg, builder.phn_attr, aug, paired_bs=B,
                                             train=True, generator=generator)
@@ -72,46 +66,24 @@ def make_asr_step(builder, optimizer, *, seed: int = 0):
     return asr_step
 
 
-class AsrTrainer:
-    """Runs ``max_step`` ASR steps over ``pair_iter`` (an iterator of
-    ``(waves, wave_len, text, sid)`` batches on the model's device), logs
-    the loss and gradient norm after the first step and every
-    ``progress_step`` steps, and scores the dev set (an iterable of such
-    batches) after the first step and every ``valid_step`` steps. ``log``
-    receives (step, name, value)."""
+class AsrTrainer(VqvaeTrainer):
+    """`VqvaeTrainer`'s loop over ASR steps: logs the ASR loss and gradient
+    norm, and validates with `validate_asr` (PER only)."""
 
-    def __init__(self, model, builder, optimizer, *, pair_iter, dev_set, max_step: int,
-                 valid_step: int, progress_step: int = 20, seed: int = 0, log=None):
-        self.model = model
-        self.builder = builder
-        self.optimizer = optimizer
-        self.pair_iter = pair_iter
-        self.dev_set = dev_set
-        self.max_step = max_step
-        self.valid_step = valid_step
-        self.progress_step = progress_step
-        self.step = 0
-        self.best_per = float("inf")
-        self.log = log or (lambda step, name, value: None)
-        self._asr_step = make_asr_step(builder, optimizer, seed=seed)
-        self._eval_step = builder.make_eval_step()
+    def _make_step(self):
+        return make_asr_step(self.builder, self.optimizer, seed=self.seed)
 
-    def exec(self):
-        while self.step < self.max_step:
-            waves, wave_len, text, sid = next(self.pair_iter)
-            mets = self._asr_step(self.model, self.step, waves, wave_len, text, sid)
-            self.step += 1
-            if self.step == 1 or self.step % self.progress_step == 0:
-                self.log(self.step, "txt_loss/pair", float(mets["asr_loss"]))
-                self.log(self.step, "grad_norm", float(mets["grad_norm"]))
-            if self.step == 1 or self.step % self.valid_step == 0:
-                self.validate_asr()
+    def _train_step(self, waves, wave_len, text, sid):
+        return self._step_fn(self.model, self.step, waves, wave_len, text, sid)
+
+    def validate(self):
+        return self.validate_asr()
 
     def validate_asr(self) -> float:
         """Mean phone error rate over the dev set; keeps the best."""
         pers = []
-        for waves, wave_len, text, sid in self.dev_set:
-            out = self._eval_step(self.model, waves, wave_len, text, sid)
+        for i, (waves, wave_len, text, sid) in enumerate(self.dev_set):
+            out = self._eval(i, waves, wave_len, text, sid)
             pers.append(cal_per(out["p_code"].cpu().numpy(), np.asarray(text.cpu()),
                                 pred_lens=out["enc_len"].cpu().numpy()))
         dev_per = sum(pers) / max(len(pers), 1)

@@ -130,3 +130,83 @@ def test_attention_plan_location_free():
     plan = k3.attention_plan(**{**FLAGSHIP, "F_": 0, "K": 1})
     assert plan["loc_tile"] == 0 and plan["grid"] == (128,)
     assert plan["smem_bytes"] < k3.attention_plan(**FLAGSHIP)["smem_bytes"]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("use_summed_weights,loc_aware", [(True, True), (False, True), (True, False)])
+def test_attention_step_backward_matches_jax_grad(masked, use_summed_weights, loc_aware):
+    """`_AttentionStep` (K9's plain version on the CPU) under autograd: the
+    gradients of sum(context * gc) + sum(weights * gw) with respect to the
+    query, memory, processed memory, history and every weight, against
+    ``jax.grad`` of `attention_step`."""
+    params, attn, query, memory, hist, mask = _setup(use_summed_weights, loc_aware, seed=2)
+    rng = np.random.RandomState(7)
+    pm = rng.randn(*memory.shape[:2], 8).astype(np.float32)
+    gc = rng.randn(memory.shape[0], memory.shape[2]).astype(np.float32)
+    gw = rng.randn(*memory.shape[:2]).astype(np.float32)
+    m = jnp.asarray(mask) if masked else None
+
+    def f(p, q, mem, pm_, h):
+        ctx, w = J.attention_step(p, q, mem, pm_, h, mask=m)
+        return jnp.sum(ctx * gc) + jnp.sum(w * gw)
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3, 4))(params, *map(jnp.asarray, (query, memory, pm, hist)))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (query, memory, pm, hist)]
+    ctx, w = P.attention_step(attn, leaves[0], leaves[1], leaves[2], leaves[3],
+                              mask=torch.from_numpy(mask) if masked else None)
+    names = ["query_layer", "v"] + (["loc_conv", "loc_linear"] if loc_aware else [])
+    weights = [getattr(attn, n).w for n in names]
+    got = torch.autograd.grad((ctx * torch.from_numpy(gc)).sum() + (w * torch.from_numpy(gw)).sum(),
+                              leaves + weights, allow_unused=True)
+    for g, wt, what in zip(got, want[1:], ("query", "memory", "processed_memory", "hist")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wt), rtol=0, atol=ATOL, err_msg=what)
+    for g, n in zip(got[4:], names):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[0][n]["w"]), rtol=0, atol=ATOL,
+                                   err_msg=n)
+    if masked:
+        assert np.all(got[1].numpy()[mask] == 0.0) and np.all(got[2].numpy()[mask] == 0.0)
+
+
+@pytest.mark.parametrize("loc_aware", [True, False])
+def test_attention_step_bwd_plain_matches_autograd(loc_aware):
+    """K9's plain version (closed form) equals autograd through K3's plain
+    version, every output, with a mask."""
+    from semi_tts_tpu_torch.kernels import attention as k3
+
+    _, attn, query, memory, hist, mask = _setup(loc_aware=loc_aware, seed=3)
+    rng = np.random.RandomState(8)
+    B, L, _ = memory.shape
+    ins = [torch.from_numpy(a).requires_grad_(True)
+           for a in (rng.randn(B, 8).astype(np.float32), rng.randn(B, L, 8).astype(np.float32),
+                     memory, hist)]
+    wts = [attn.loc_conv.w, attn.loc_linear.w] if loc_aware else [None, None]
+    args = ins + wts + [attn.v.w.reshape(-1)]
+    ctx, w = k3.attention_step_plain(*args, torch.from_numpy(mask))
+    gc, gw = torch.randn(ctx.shape), torch.randn(w.shape)
+    leaves = ins + [a for a in wts if a is not None] + [attn.v.w]
+    want = torch.autograd.grad((ctx * gc).sum() + (w * gw).sum(), leaves, allow_unused=True)
+    before = k3.attention_step_bwd.launches
+    got = k3.attention_step_bwd(*[a.detach() if a is not None else None for a in args],
+                                w.detach(), gc, gw)
+    assert k3.attention_step_bwd.launches == before
+    got = [g for g in got if g is not None]
+    for g, wt in zip(got, want):
+        wt = torch.zeros_like(g) if wt is None else wt.reshape(g.shape)  # hist unused: F = 0
+        torch.testing.assert_close(g, wt, rtol=0, atol=ATOL)
+
+
+def test_attention_bwd_plan_flagship():
+    """K9 at the paired step's shapes (B=8, L=32): K3's clusters, 4 filters
+    a CTA; L up to ~285 fits; outside its shapes it raises."""
+    from semi_tts_tpu_torch.kernels import attention as k3, build
+
+    shapes = {**FLAGSHIP, "B": 8}
+    plan = k3.attention_bwd_plan(**shapes)
+    assert plan["cluster"] == 8 and plan["grid"] == (64,) and plan["threads"] == 256
+    assert (plan["a_per_cta"], plan["d_per_cta"], plan["filters_per_cta"]) == (32, 64, 4)
+    assert plan["smem_bytes"] <= 64 * 1024
+    assert k3.attention_bwd_plan(**{**shapes, "L": 280})["smem_bytes"] <= build.SMEM_PER_BLOCK
+    assert k3.attention_bwd_plan(**{**shapes, "F_": 0, "K": 1})["filters_per_cta"] == 0
+    for change in (dict(A=260), dict(D=516), dict(L=0), dict(L=300)):
+        with pytest.raises(ValueError):
+            k3.attention_bwd_plan(**{**shapes, **change})

@@ -26,7 +26,7 @@ from semi_tts_tpu.models import encoder as JE
 from semi_tts_tpu.models import tts as JT
 from semi_tts_tpu.models import vqvae as JV
 from semi_tts_tpu.utils.metrics import read_phn_attr
-from semi_tts_tpu_torch.bridge import load_jax_params, to_jax_params
+from semi_tts_tpu_torch.bridge import _flatten, load_jax_params, to_jax_params
 from semi_tts_tpu_torch.models import cbhg as PC
 from semi_tts_tpu_torch.models import common as PCommon
 from semi_tts_tpu_torch.models import decoder as PD
@@ -227,3 +227,130 @@ def test_config_from_yaml_mirrors_jax(model):
     for name in ("n_mels", "linear_dim", "vocab_size", "n_spkr", "spkr_latent_dim",
                  "n_frames_per_step", "latent_dim"):
         assert getattr(pcfg, name) == getattr(jcfg, name), name
+
+
+def _jax_coins(key, steps):
+    """The scheduled-sampling coins JAX `decoder_apply` draws from ``key``:
+    the scan key of its 4-way split, split 5 ways a step, the 5th uniform."""
+    _, _, _, rng = jax.random.split(key, 4)
+    coins = []
+    for _ in range(steps):
+        rng, _, _, _, k_coin = jax.random.split(rng, 5)
+        coins.append(np.asarray(jax.random.uniform(k_coin, (2,))))
+    return np.stack(coins)
+
+
+def _train_decoder(drop_dec_in=0.0):
+    """A decoder with every dropout 0 (prenet included), its JAX weights, and
+    seeded memory, speaker embeddings, teacher and output cotangents."""
+    base = dict(n_mels=20, n_frames_per_step=3, enc_embed_dim=16, spkr_embed_dim=8,
+                prenet_dim=8, prenet_dropout=0.0, query_rnn_dim=16, dec_rnn_dim=16,
+                query_dropout=0.0, dec_dropout=0.0, attn_dim=8, n_location_filters=4,
+                location_kernel_size=7, drop_dec_in=drop_dec_in)
+    jcfg, pcfg = JD.DecoderConfig(**base), PD.DecoderConfig(**base)
+    params, _ = _jax_weights(PD.Decoder(pcfg, generator=_gen(4)))
+    dec = load_jax_params(PD.Decoder(pcfg, generator=_gen(5)), params, {})
+    rng = np.random.RandomState(6)
+    B, L, steps = 3, 9, 8
+    arrays = dict(memory=rng.randn(B, L, 16), spk=rng.randn(B, 8),
+                  teacher=rng.randn(B, 18, 20),          # 6 frame groups: steps 6, 7 reuse the last
+                  gm=rng.randn(B, steps * 3, 20), ga=rng.randn(B, steps, L),
+                  gs=rng.randn(B, steps * 3))
+    return jcfg, pcfg, params, dec, {k: v.astype(np.float32) for k, v in arrays.items()}, steps
+
+
+def _port_decoder_grads(dec, pcfg, a, steps, *, probes, **kw):
+    """Outputs and gradients (by parameter name, and of memory and speaker
+    embeddings) of sum(mel*gm) + sum(align*ga) + sum(stop*gs), through the
+    probes or through plain autograd."""
+    memory, spk = (torch.from_numpy(a[k]).requires_grad_(True) for k in ("memory", "spk"))
+    pr = PD.wgrad_probes(pcfg, steps, memory.shape[0]) if probes else None
+    out = PD.decoder_apply(dec, memory, spk, cfg=pcfg, decode_steps=steps, train=True,
+                           teacher=torch.from_numpy(a["teacher"]), wgrad_probes=pr, **kw)
+    loss = sum((o * torch.from_numpy(a[k])).sum() for o, k in zip(out, ("gm", "ga", "gs")))
+    names, params = zip(*dec.named_parameters())
+    extra = [memory, spk] + ([pr["q"], pr["d"]] if probes else [])
+    grads = torch.autograd.grad(loss, list(params) + extra, allow_unused=True)
+    by_param = dict(zip(params, grads[:len(params)]))
+    if probes:
+        PD.merge_wgrads(dec, by_param, out[3], {"q": grads[-2], "d": grads[-1]})
+    named = {n: by_param[p] for n, p in zip(names, params)}
+    return out[:3], named, grads[len(params)], grads[len(params) + 1]
+
+
+@pytest.mark.parametrize("tf_rate,rows,drop_dec_in", [(1.0, None, 0.0), (0.5, (1, 0, 1), 0.5),
+                                                      (0.0, None, 0.0)])
+def test_decoder_training_matches_jax(tf_rate, rows, drop_dec_in):
+    """`decoder_apply(train=True)` teacher-forced, with ``teacher_rows`` and
+    the coins JAX draws passed as ``coins=``, through the weight-gradient
+    probes: outputs, every parameter gradient (the cells' weights from
+    `merge_wgrads`) and the memory and speaker gradients against JAX
+    `decoder_apply(train=True, wgrad_probes=...)` + `merge_wgrads`."""
+    jcfg, pcfg, params, dec, a, steps = _train_decoder(drop_dec_in)
+    key = jax.random.PRNGKey(11)
+    t_rows = None if rows is None else np.asarray(rows, bool)
+
+    def f(p, probes, memory, spk):
+        mel, align, stop, aux = JD.decoder_apply(
+            p, key, memory, spk, cfg=jcfg, decode_steps=steps, train=True,
+            teacher=jnp.asarray(a["teacher"]),
+            teacher_rows=None if t_rows is None else jnp.asarray(t_rows), tf_rate=tf_rate,
+            wgrad_probes=probes)
+        loss = jnp.sum(mel * a["gm"]) + jnp.sum(align * a["ga"]) + jnp.sum(stop * a["gs"])
+        return loss, ((mel, align, stop), aux)
+
+    probes = JD.wgrad_probes(jcfg, steps, 3)
+    (_, (want_out, aux)), (gp, gpr, gmem, gspk) = jax.value_and_grad(
+        f, argnums=(0, 1, 2, 3), has_aux=True)(params, probes, jnp.asarray(a["memory"]),
+                                               jnp.asarray(a["spk"]))
+    want = _flatten(JD.merge_wgrads(
+        jax.tree_util.tree_map(np.asarray, gp), aux, gpr))
+    coins = _jax_coins(key, steps)
+    if tf_rate == 0.5:  # the case mixes teacher and own steps
+        assert (coins[:, 0] > tf_rate).any() and (coins[:, 0] <= tf_rate).any()
+    out, grads, g_mem, g_spk = _port_decoder_grads(
+        dec, pcfg, a, steps, probes=True, coins=torch.from_numpy(coins), tf_rate=tf_rate,
+        teacher_rows=None if t_rows is None else torch.from_numpy(t_rows))
+    for g, w in zip(out, want_out):
+        _close(g, w)
+    for name, g in grads.items():
+        _close(g, want[name.replace(".", "/")], atol=ATOL)
+    _close(g_mem, gmem)
+    _close(g_spk, gspk)
+
+
+def test_decoder_probes_match_plain_autograd():
+    """The two routes to the cells' weight gradients agree: the probes with
+    `merge_wgrads`, and autograd through the undetached weights (outputs
+    bit-identical, gradients within fp32 summation order)."""
+    _, pcfg, _, dec, a, steps = _train_decoder(drop_dec_in=0.5)
+    coins = torch.from_numpy(np.random.RandomState(9).rand(steps, 2).astype(np.float32))
+    kw = dict(coins=coins, tf_rate=0.5, teacher_rows=torch.tensor([True, False, True]))
+    out_p, grads_p, mem_p, spk_p = _port_decoder_grads(dec, pcfg, a, steps, probes=True, **kw)
+    out_a, grads_a, mem_a, spk_a = _port_decoder_grads(dec, pcfg, a, steps, probes=False, **kw)
+    for g, w in zip(out_p, out_a):
+        assert torch.equal(g, w)
+    assert grads_a["query_rnn.w_ih"] is not None
+    for name in grads_a:
+        torch.testing.assert_close(grads_p[name], grads_a[name], rtol=0, atol=1e-5, msg=name)
+    torch.testing.assert_close(mem_p, mem_a, rtol=0, atol=1e-5)
+    torch.testing.assert_close(spk_p, spk_a, rtol=0, atol=1e-5)
+
+
+def test_decoder_training_dropout_and_coins_from_the_generator():
+    """With dropout on and no ``coins``, the step's generator draws the
+    cells' dropout, the prenet masks and the coins: the same seed gives the
+    same outputs, another seed other ones, and tf_rate 0 ignores the
+    teacher."""
+    _, pcfg, _, dec, a, steps = _train_decoder()
+    pcfg = dataclasses.replace(pcfg, prenet_dropout=0.5, query_dropout=0.1, dec_dropout=0.1)
+    mem, spk, teacher = (torch.from_numpy(a[k]) for k in ("memory", "spk", "teacher"))
+
+    def run(seed, tf_rate=0.5, teacher=teacher):
+        with torch.no_grad():
+            return PD.decoder_apply(dec, mem, spk, cfg=pcfg, decode_steps=steps, train=True,
+                                    teacher=teacher, tf_rate=tf_rate,
+                                    generator=torch.Generator().manual_seed(seed))[0]
+
+    assert torch.equal(run(1), run(1)) and not torch.equal(run(1), run(2))
+    assert torch.equal(run(3, tf_rate=0.0), run(3, tf_rate=0.0, teacher=teacher * 2.0))

@@ -322,3 +322,73 @@ def test_training_wrappers_count_no_launch_on_cpu():
     x = torch.zeros(3, 1, 8, requires_grad=True)
     P.lstm_rec_fn(w, w, x, x).sum().backward()
     assert (K.bilstm_rec_cs.launches, K.bilstm_rec_bwd.launches) == before
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_rec_bwd_plain_matches_jax(reverse):
+    """One direction of K8's plain recurrence, between the recomputed
+    coefficients and the dW_hh/db_hh/dx_proj products, against JAX
+    `_gru_rec_bwd` on the residuals of `_gru_rec_fwd`."""
+    rng = np.random.RandomState(20 + reverse)
+    T, B, H = 9, 3, 10
+    x_proj = (0.5 * rng.randn(T, B, 3 * H)).astype(np.float32)
+    w_hh = (0.3 * rng.randn(3 * H, H)).astype(np.float32)
+    b_hh = (0.3 * rng.randn(3 * H)).astype(np.float32)
+    g_hs = rng.randn(T, B, H).astype(np.float32)
+    hs, res = J._gru_rec_fwd(reverse, jnp.asarray(w_hh), jnp.asarray(b_hh), jnp.asarray(x_proj))
+    want = J._gru_rec_bwd(reverse, res, jnp.asarray(g_hs))
+    h_prev, z, coef_h, coef_x = P.gru_bwd_coefficients(reverse, _t(w_hh), _t(b_hh), _t(x_proj),
+                                                       _t(hs))
+    dh2 = K.gru_rec_bwd_plain(reverse, _t(w_hh), z, coef_h, _t(g_hs)).repeat(1, 1, 3)
+    got = ((coef_h * dh2).reshape(-1, 3 * H).T @ h_prev.reshape(-1, H),
+           (coef_h * dh2).sum((0, 1)), coef_x * dh2)
+    for g, w, what in zip(got, want, ("dw_hh", "db_hh", "dx_proj")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=ATOL, err_msg=what)
+
+
+def test_bigru_grad_matches_jax():
+    """`bigru` under autograd (`_GRURec`: K2 forward, K8 backward, plain on
+    the CPU): input and every weight gradient of sum(out * probe) against
+    ``jax.grad`` of JAX `bigru`."""
+    rng = np.random.RandomState(13)
+    B, T, D = 3, 11, 6
+    params = J.bigru_init(jax.random.PRNGKey(7), D, D)
+    xs = rng.randn(B, T, D).astype(np.float32)
+    probe = rng.randn(B, T, 2 * D).astype(np.float32)
+    want_p, want_x = jax.grad(lambda p, x: jnp.sum(J.bigru(p, x) * probe),
+                              argnums=(0, 1))(params, jnp.asarray(xs))
+    gru = torch.nn.ModuleDict({"fwd": P.GRUParams(D, D), "bwd": P.GRUParams(D, D)})
+    load_jax_params(gru, jax.tree_util.tree_map(np.asarray, params), {})
+    x = _t(xs).requires_grad_(True)
+    before = K.bigru_rec_bwd.launches
+    (P.bigru(gru, x) * _t(probe)).sum().backward()
+    assert K.bigru_rec_bwd.launches == before
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_x), rtol=0, atol=ATOL)
+    for d in ("fwd", "bwd"):
+        for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            np.testing.assert_allclose(getattr(gru[d], name).grad.numpy(),
+                                       np.asarray(want_p[d][name]), rtol=0, atol=ATOL,
+                                       err_msg=f"{d}/{name}")
+
+
+@pytest.mark.parametrize("T,B,H", [(7, 2, 8), (1, 3, 5)])
+def test_gru_function_matches_autograd_through_plain(T, B, H):
+    """Both directions through `gru_rec_fn` equal autograd through
+    `gru_rec_plain`: gradients of W_hh, b_hh and x_proj."""
+    rng = np.random.RandomState(30 + T)
+    arrays = ([(0.3 * rng.randn(3 * H, H)).astype(np.float32) for _ in range(2)]
+              + [(0.3 * rng.randn(3 * H)).astype(np.float32) for _ in range(2)]
+              + [(0.5 * rng.randn(T, B, 3 * H)).astype(np.float32) for _ in range(2)])
+    g = _t(rng.randn(T, B, 2 * H).astype(np.float32))
+    grads = []
+    for use_fn in (True, False):
+        leaves = [_t(a).requires_grad_(True) for a in arrays]
+        if use_fn:
+            hs = P.gru_rec_fn(*leaves)
+        else:
+            hs = torch.cat([K.gru_rec_plain(False, leaves[0], leaves[2], leaves[4]),
+                            K.gru_rec_plain(True, leaves[1], leaves[3], leaves[5])], -1)
+        hs.backward(g)
+        grads.append([leaf.grad.numpy() for leaf in leaves])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)

@@ -167,7 +167,7 @@ def test_asr_trainer_runs_and_validates():
     pb = PBuilder(pcfg, PFeat(PAudio(**CFG), device="cpu"), torch.from_numpy(phn_attr))
     opt = PO.Optimizer(port.parameters(), lr=1e-3)
     waves, lengths, text, _, _ = _batch()
-    batch = tuple(map(torch.from_numpy, (waves, lengths, text))) + (torch.zeros(2),)
+    batch = tuple(map(torch.from_numpy, (waves, lengths, text))) + (torch.zeros(2, dtype=torch.long),)
     logged = []
     trainer = AsrTrainer(port, pb, opt, pair_iter=iter([batch] * 2), dev_set=[batch],
                          max_step=2, valid_step=2, log=lambda *a: logged.append(a))
