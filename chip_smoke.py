@@ -49,21 +49,42 @@ Phases, each fatal on failure:
    gradients held in all and, but where a ReLU or max-pool lies on the way
    back from the loss (``KINKED_LEAVES``), leaf by leaf (``compare_grads``),
    beside how far the card's own gradients move in a rerun and on weights
-   an ulp off (``card_spread``; the ASR step's check reports both too).
+   an ulp off (``card_spread``; the ASR step's check reports both too);
+7. the unpaired cycles at the same width: ``VqvaeTrainer`` with the
+   flagship's unpaired speech weight (10) and an unpaired text weight of 1
+   runs step 0 paired, then the text-first cycle on odd steps and the
+   speech-first cycle (with B6 trim/merge) on even ones, B=8 x 3.0 s x U=32
+   paired and unpaired batches: three warm-up steps and three timed steps
+   of each kind (median wall, peak memory, every step's losses and the
+   trainer's counters, all finite); the kernel launches of one step of each
+   kind (K1 with cell states, K7, K2, K8, K3, K9, K5, K6 and, speech-first,
+   B6: each must launch; K6 twice in the text-first step); one profiled
+   step of each kind; one step of each kind on the card against the CPU
+   plain path (B = 2 + 2, every dropout 0, tf_rate 1, the same
+   augmentation; the CPU follows the card's unpaired argmax tokens); and a
+   speech-first step whose unpaired utterance is 15.28 s long, so that K3
+   and K9 run at L ~ 680.
+
+Every card-vs-CPU check holds the gradients in all and leaf by leaf in L2;
+a leaf behind a ReLU or max-pool (``KINKED_LEAVES``) to max(1e-3, KINK_K x
+its own ulp spread on the card); and the card's rerun of the same step must
+repeat bit for bit (the train steps ask cuDNN for deterministic algorithms).
 
 The training kernels (K5 ``stft_frames``/``spec_db``, K6 ``ctc_alpha``/
 ``ctc_beta_grad``, K7 ``bilstm_rec_bwd`` and K1 with cell states,
 ``bilstm_rec_cs``) and the paired step's backward kernels (K8
-``bigru_rec_bwd``, K9 ``attention_step_bwd``) are held to their plain
-versions in phase 3 at their step's shapes and at ragged ones. A row's
-``launches`` counts one serving request (K1-K4), one ASR train step
-(K5-K7, K1 with cell states) or one paired train step (K8, K9), as its
-``launches_per`` says; ``launches_by_path`` has all three.
+``bigru_rec_bwd``, K9 ``attention_step_bwd``, up to L = 1,187) and the speech-first step's B6 (``trim_merge``,
+``trim_merge_bwd``) are held to their plain versions in phase 3 at their
+step's shapes and at ragged ones. A row's ``launches`` counts one serving
+request (K1-K4), one ASR train step (K5-K7, K1 with cell states), one
+paired train step (K8, K9) or one speech-first step (B6), as its
+``launches_per`` says; ``launches_by_path`` has all five paths.
 
 Prints a ``{"ptxas": ...}`` line (registers and spills of the recurrence
 kernels), an ``{"asr_shape": ...}`` line, a ``{"featurizer": ...}`` line, a
 ``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, a
-``{"training": ...}`` line, a ``{"paired": ...}`` line and, last,
+``{"training": ...}`` line, a ``{"paired": ...}`` line, a ``{"cycles": ...}``
+line and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -726,8 +747,14 @@ def _case_attention_bwd(randn, unif, dev):
     """K9, one decoder step's attention backward at the paired step's shapes
     (B=8, L=32 tokens); also at L=45 and B=3, at L=5 (nearly every tap of
     the 31-wide location conv reaches the padding), with a padding mask, at
-    L=280 (near the plan's limit), at L=1 and without location features.
-    The forward's weights come from K3 on the same inputs."""
+    L=280, at L=1 and without location features; at the speech-first
+    step's shape (B=16, L=133), at L=700 (a 15 s unpaired utterance's
+    memory) and at L=1,187 (the longest K3 takes at these widths), the last
+    three in tiles of 64 positions with a partial last tile. Timed by shape,
+    beside the plain version and the bound (``ms_by_shape``,
+    ``plain_ms_by_shape``, ``bound_ms_by_shape``; ``tiles``: each shape's
+    tile and shared memory). The
+    forward's weights come from K3 on the same inputs."""
     from semi_tts_tpu_torch.kernels import attention as k9
 
     L, A, D, C, F_, K = 32, 256, 512, 2, 32, 31
@@ -746,8 +773,21 @@ def _case_attention_bwd(randn, unif, dev):
         return (pq, pm, mem, hist, lw, ll, wts[2], weights, randn(B_, D), randn(B_, L))
 
     args = inputs(TRAIN_B, L)
+    cycle, long, longest = inputs(2 * TRAIN_B, 133), inputs(2, 700), inputs(2, 1187)
     others = [inputs(3, 45), inputs(TRAIN_B, 5), inputs(3, 45, mask=True), inputs(3, 280),
-              inputs(5, 1), inputs(3, 45, loc=False)]
+              inputs(5, 1), inputs(3, 45, loc=False), cycle, long, longest]
+    checks = [(lambda a=a: k9.attention_step_bwd(*a), lambda a=a: k9.attention_step_bwd_plain(*a))
+              for a in others]
+    def cost(B_, L):  # (bytes moved, FLOPs) of one call
+        nbytes = 4 * (2 * (B_ * A + B_ * L * A + B_ * L * D + B_ * C * L + F_ * C * K + A * F_ + A)
+                      + 2 * B_ * L + B_ * D)
+        return nbytes, 2 * B_ * L * (3 * F_ * C * K + 3 * A * F_ + D) + B_ * L * D + 5 * B_ * L * A
+
+    by_shape = {f"B={a[0].shape[0]} L={a[1].shape[1]}": a for a in (args, cycle, long, longest)}
+    timed = {n: lambda a=a: k9.attention_step_bwd(*a) for n, a in by_shape.items()}
+    timed_plain = {n: lambda a=a: k9.attention_step_bwd_plain(*a) for n, a in by_shape.items()}
+    plans = {n: k9.attention_bwd_plan(a[0].shape[0], a[1].shape[1], A, D, C, F_, K)
+             for n, a in by_shape.items()}
     B_ = TRAIN_B
     return dict(
         name="attention_step_bwd", replaces="semi_tts_tpu/models/attention.py:39 (autodiff of "
@@ -756,15 +796,97 @@ def _case_attention_bwd(randn, unif, dev):
         source="semi_tts_tpu_torch/csrc/attention.cu",
         shapes=f"B={B_} L={L} A={A} D={D} C={C} F={F_} K={K}",
         kernel=lambda: k9.attention_step_bwd(*args),
-        plain=lambda: k9.attention_step_bwd_plain(*args),
-        checks=[(lambda a=a: k9.attention_step_bwd(*a), lambda a=a: k9.attention_step_bwd_plain(*a))
-                for a in others],
-        extra={"cluster": k9.attention_bwd_plan(B_, L, A, D, C, F_, K)["cluster"]},
-        library=None, library_note=NO_LIBRARY, tol=1e-4,
-        nbytes=4 * (2 * (B_ * A + B_ * L * A + B_ * L * D + B_ * C * L + F_ * C * K + A * F_ + A)
-                    + 2 * B_ * L + B_ * D),
-        flops=2 * B_ * L * (3 * F_ * C * K + 3 * A * F_ + D) + B_ * L * D + 5 * B_ * L * A,
-        iters=200)
+        plain=lambda: k9.attention_step_bwd_plain(*args), checks=checks, timed=timed,
+        timed_plain=timed_plain,
+        extra={"cluster": k9.attention_bwd_plan(B_, L, A, D, C, F_, K)["cluster"],
+               "tiles": {n: [p["tile"], p["smem_bytes"]] for n, p in plans.items()},
+               "bound_ms_by_shape": {n: bound(*cost(a[0].shape[0], a[1].shape[1]))[0]
+                                     for n, a in by_shape.items()}},
+        library=None, library_note=NO_LIBRARY, tol=1e-4, nbytes=cost(B_, L)[0],
+        flops=cost(B_, L)[1], iters=200)
+
+
+def _trim_merge_inputs(randn, dev, B_, T, C=43, D=64, blank_row=False, long_runs=False,
+                       ties=False):
+    """(p_code, latent) shaped as the speech-first step's unpaired rows:
+    softmax outputs over the 43 tokens and codebook latents. ``blank_row``:
+    row 0's blank class wins everywhere; ``long_runs``: rows of runs of 5 to
+    9 frames of one token (longer than max_frames_per_phn = 3); ``ties``:
+    two classes (one of them the blank in places) exactly equal at the top."""
+    p = torch.softmax(randn(B_, T, C, scale=3.0), -1)
+    if blank_row:
+        p[0, :, 0] = 1.0
+    if long_runs:
+        tok = (torch.arange(T, device=dev)[None, :] // (5 + torch.arange(B_, device=dev)[:, None] % 5)
+               * 7 + 3) % C
+        p = torch.full((B_, T, C), 0.01, device=dev).scatter_(2, tok[..., None], 0.9)
+    if ties:
+        p = torch.full((B_, T, C), 0.01, device=dev)
+        p[:, :, 4] = p[:, :, 9] = 0.4
+        p[:, T // 3:T // 2, 0] = 0.4
+    return p, randn(B_, T, D)
+
+
+def _case_trim_merge(randn, unif, dev):
+    """B6 at the speech-first step's shapes: the unpaired rows' p_code
+    (8, 133, 43) and quantized latents (8, 133, 64), max_frames_per_phn 3.
+    Also at T=1, at T=680 (a 15 s utterance), with an all-blank row, with
+    runs longer than max_frames_per_phn and with exact ties. The checks
+    compare the trimmed latents, the lengths, the per-frame slots and
+    counts, and ``ok``; the timed calls are the kernel and its plain version
+    alone."""
+    from semi_tts_tpu_torch.kernels import quantize as b6
+
+    B_, T, C, D_ = TRAIN_B, 133, 43, 64
+    p, lat = _trim_merge_inputs(randn, dev, B_, T)
+
+    def pair(p, lat):
+        def ok_too(fn):
+            out = fn(p, lat, 3)
+            return out + ((out[1] > 0).all().float(),)
+        return (lambda: ok_too(b6.trim_merge), lambda: ok_too(b6.trim_merge_plain))
+
+    cases = [_trim_merge_inputs(randn, dev, 3, 1), _trim_merge_inputs(randn, dev, 2, 680),
+             _trim_merge_inputs(randn, dev, 3, 50, blank_row=True),
+             _trim_merge_inputs(randn, dev, 5, 60, long_runs=True),
+             _trim_merge_inputs(randn, dev, 2, 40, ties=True)]
+    return dict(
+        name="trim_merge", replaces="semi_tts_tpu/ops/quantize.py:26 (trim_merge_segments: "
+        "argmax, segment-id scan, segment_sum means, cumsum compaction)",
+        source="semi_tts_tpu_torch/csrc/quantize.cu",
+        shapes=f"p_code ({B_},{T},{C}), latent ({B_},{T},{D_}) -> trimmed ({B_},{T},{D_})",
+        kernel=lambda: b6.trim_merge(p, lat, 3), plain=lambda: b6.trim_merge_plain(p, lat, 3),
+        checks=[pair(*c) for c in [(p, lat)] + cases],
+        library=None, library_note=NO_LIBRARY, tol=1e-6,
+        nbytes=4 * (B_ * T * C + 2 * B_ * T * D_ + B_ + 2 * B_ * T),
+        flops=B_ * T * (C + D_), iters=200)
+
+
+def _case_trim_merge_bwd(randn, unif, dev):
+    """B6's backward at the speech-first step's shapes, from the slots and
+    counts of the forward; also at T=1, T=680, with an all-blank row and
+    with runs longer than max_frames_per_phn."""
+    from semi_tts_tpu_torch.kernels import quantize as b6
+
+    def inputs(*a, **k):
+        p, lat = _trim_merge_inputs(randn, dev, *a, **k)
+        _, _, slot, count = b6.trim_merge_plain(p, lat, 3)
+        return randn(*lat.shape), slot, count
+
+    B_, T, D_ = TRAIN_B, 133, 64
+    args = inputs(B_, T)
+    cases = [inputs(3, 1), inputs(2, 680), inputs(3, 50, blank_row=True),
+             inputs(5, 60, long_runs=True)]
+    return dict(
+        name="trim_merge_bwd", replaces="semi_tts_tpu/ops/quantize.py:26 (the autodiff of "
+        "trim_merge_segments: the transpose of segment_sum and of the compaction scatter)",
+        source="semi_tts_tpu_torch/csrc/quantize.cu",
+        shapes=f"d_trimmed ({B_},{T},{D_}), slot and count ({B_},{T}) -> d_latent",
+        kernel=lambda: b6.trim_merge_bwd(*args), plain=lambda: b6.trim_merge_bwd_plain(*args),
+        checks=[(lambda a=a: b6.trim_merge_bwd(*a), lambda a=a: b6.trim_merge_bwd_plain(*a))
+                for a in cases],
+        library=None, library_note=NO_LIBRARY, tol=1e-6,
+        nbytes=4 * (2 * B_ * T * D_ + 2 * B_ * T), flops=B_ * T * D_, iters=200)
 
 
 def kernel_cases(dev):
@@ -781,7 +903,8 @@ def kernel_cases(dev):
     return [case(randn, unif, dev) for case in
             (_case_lstm, _case_gru, _case_attention, _case_gl_project, _case_gl_ola_frame,
              _case_stft_frames, _case_spec_db, _case_ctc_alpha, _case_ctc_beta_grad,
-             _case_lstm_cs, _case_lstm_bwd, _case_gru_bwd, _case_attention_bwd)]
+             _case_lstm_cs, _case_lstm_bwd, _case_gru_bwd, _case_attention_bwd,
+             _case_trim_merge, _case_trim_merge_bwd)]
 
 
 def phase_kernels(dev):
@@ -810,6 +933,12 @@ def phase_kernels(dev):
             if "rows" in c:
                 row["ms_by_rows"] = {r: device_ms(lambda r=r: c["rows"](r), c["iters"])
                                      for r in c["row_options"]}
+            if "timed" in c:
+                row["ms_by_shape"] = {k: device_ms(f, max(10, c["iters"] // 4))
+                                      for k, f in c["timed"].items()}
+            if "timed_plain" in c:
+                row["plain_ms_by_shape"] = {k: device_ms(f, max(2, c["iters"] // 40))
+                                            for k, f in c["timed_plain"].items()}
             if "tiles" in c:
                 row["ms_by_tile"] = {n: device_ms(lambda n=n: c["tiles"](n), c["iters"])
                                      for n in c["tile_options"]}
@@ -1015,13 +1144,14 @@ def featurizer_line(dev):
 
 def training_batch(seed, dev, lengths=(TRAIN_S,) * TRAIN_B, U_=32):
     """(waves, wave_len, text, sid) on ``dev`` from a numpy seed: texts of
-    24..32 tokens in 3..42, padded with 0."""
+    24..32 tokens in 3..42, padded with 0; waves padded to 3.0 s or to the
+    longest row."""
     rng = np.random.RandomState(seed)
     text = np.zeros((len(lengths), U_), np.int64)
     for b in range(len(lengths)):
         n = rng.randint(24, U_ + 1)
         text[b, :n] = rng.randint(3, 43, size=n)
-    waves = numpy_waves(lengths, TRAIN_S, seed)
+    waves = numpy_waves(lengths, max(TRAIN_S, max(lengths)), seed)
     return (torch.from_numpy(waves).to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev),
             torch.from_numpy(text).to(dev), torch.from_numpy(rng.randint(0, 109, len(lengths))).to(dev))
 
@@ -1081,7 +1211,7 @@ def phase_training(dev):
         idle = [n for n in names if launches[path][n] == 0]
         if idle:
             raise SystemExit(f"chip_smoke: kernels not launched on the {path} path: {idle}")
-    profile = profiled_step(lambda: trainer._train_step(*batch), float(np.median(walls)))
+    profile = profiled_step(lambda: trainer._train_step(batch), float(np.median(walls)))
     ref = training_reference(model, cfg, phn_attr, dev)
     return dict(batch=TRAIN_B, samples=TRAIN_S, text_len=32, steps=1 + TRAIN_STEPS,
                 params=sum(p.numel() for p in model.parameters()),
@@ -1093,10 +1223,11 @@ def phase_training(dev):
                 profile=profile, reference=ref)
 
 
-def profiled_step(run_step, wall):
+def profiled_step(run_step, wall, picked=()):
     """One more step (``run_step()``) under torch.profiler: device busy
-    time, idle share against the unprofiled median step wall, and the
-    busiest kernel names."""
+    time, idle share against the unprofiled median step wall, the busiest
+    kernel names, and the launches and device time of the kernels whose
+    names hold one of ``picked``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1115,7 +1246,10 @@ def profiled_step(run_step, wall):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:16]
     return {"profiled_wall_s": profiled_wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
             "kernel_launches": sum(n for n, _ in by_name.values()),
-            "top_device_ms": [[name[:70], n, us / 1e3] for name, (n, us) in top]}
+            "top_device_ms": [[name[:70], n, us / 1e3] for name, (n, us) in top],
+            "picked_ms": {p: [sum(n for k, (n, _) in by_name.items() if p in k),
+                              sum(us for k, (_, us) in by_name.items() if p in k) / 1e3]
+                          for p in picked}}
 
 
 def training_reference(model, cfg, phn_attr, dev):
@@ -1143,12 +1277,11 @@ def training_reference(model, cfg, phn_attr, dev):
         return float(loss), [None if g is None else g.cpu() for g in grads]
 
     (loss_g, grads_g), (loss_c, grads_c) = run(model, dev), run(cpu_model, torch.device("cpu"))
-    res = {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c),
-           "loss_tol_rel": 1e-4, **compare_grads(model, grads_g, grads_c),
-           "card_spread": card_spread(model, lambda m: run(m, dev)[1], grads_g)}
-    if not (res["loss_rel_err"] <= 1e-4 and res["grads_ok"]):
-        raise SystemExit(f"chip_smoke: card and CPU training steps disagree: {res}")
-    return res
+    spread, _ = card_spread(model, lambda m: run(m, dev)[1], grads_g)
+    return checked({"loss_card": loss_g, "loss_cpu": loss_c,
+                    "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c), "loss_tol_rel": 1e-4,
+                    **compare_grads(model, grads_g, grads_c), "card_spread": spread},
+                   "ASR training steps")
 
 
 # Conv biases in front of a train-mode BatchNorm: BN's mean subtraction
@@ -1187,25 +1320,44 @@ KINKED_LEAVES = re.compile(r"^(tts\.postnet\.cbhg\.(banks|projs|pre_highway|high
                            r"|codebook\.|spkr_embed$)")
 
 
-def compare_grads(model, grads_g, grads_c, tol=1e-3, kinked=None):
+# A kinked leaf is held by itself, in L2, to max(tol, KINK_K x the card's own
+# ulp spread of that leaf): card and CPU differ in rounding by more than an
+# ulp of the weights, so they may cross a few more kinks than one ulp move
+# does. Measured on the card (PERF.md), a kinked leaf's card-vs-CPU error
+# came to at most 1.0x its own largest ulp spread (2.113e-3 against
+# 2.113e-3, the same leaf).
+KINK_K = 3.0
+
+
+def compare_grads(model, grads_g, grads_c, tol=1e-3, kinked=None, spread=None):
     """The card's gradients against the CPU's: the largest error of all
     within ``tol`` x the largest gradient of all, and each leaf but the
-    zero-gradient and the ``kinked`` ones (held to the first rule only)
-    within ``tol`` x that leaf's size in the L2 norm. Reports the worst
-    leaf of all, by L2 and by largest element, and the worst held one."""
+    zero-gradient ones within ``tol`` x that leaf's size in the L2 norm; a
+    ``kinked`` leaf within max(``tol``, KINK_K x ``spread[leaf]``), its own
+    L2 ulp spread on the card (`card_spread`). Reports the worst leaf of
+    all, by L2 and by largest element, the worst smooth leaf, and the
+    kinked leaf nearest its bound."""
     names = [n for n, _ in model.named_parameters()]
     leaves = [(a, b) for a, b in zip(grads_g, grads_c) if a is not None]
     gmax = max(float(b.abs().max()) for _, b in leaves)
     gerr = max(float((a - b).abs().max()) for a, b in leaves)
     rel = leaf_errors(names, grads_g, grads_c)
-    held = {n: v for n, v in rel.items() if kinked is None or not kinked.match(n)}
+    kinks = {n for n in rel if kinked is not None and kinked.match(n)}
+    bound = {n: max(tol, KINK_K * spread[n]) if n in kinks else tol for n in rel}
+    held = {n: v for n, v in rel.items() if n not in kinks}
     worst = max(held, key=lambda n: held[n][0])
-    return {"grad_max_abs_err": gerr, "grad_max_abs": gmax, "grad_tol": tol * gmax,
-            **{"grad_" + k: v for k, v in worst_leaves(rel).items()},
-            "grad_held_worst_leaf": worst, "grad_held_worst_l2_rel_err": held[worst][0],
-            "grad_leaf_tol_rel_l2": tol, "grad_leaves_held": len(held),
-            "grad_leaves_checked": len(rel),
-            "grads_ok": gerr <= tol * gmax and held[worst][0] <= tol}
+    out = {"grad_max_abs_err": gerr, "grad_max_abs": gmax, "grad_tol": tol * gmax,
+           **{"grad_" + k: v for k, v in worst_leaves(rel).items()},
+           "grad_held_worst_leaf": worst, "grad_held_worst_l2_rel_err": held[worst][0],
+           "grad_leaf_tol_rel_l2": tol, "grad_leaves_held": len(held),
+           "grad_leaves_checked": len(rel)}
+    if kinks:
+        k = max(kinks, key=lambda n: rel[n][0] / bound[n])
+        out.update(kink_k=KINK_K, kinked_leaves=len(kinks), kinked_nearest_leaf=k,
+                   kinked_nearest_l2_rel_err=rel[k][0], kinked_nearest_bound=bound[k],
+                   kinked_worst_leaf=max(kinks, key=lambda n: rel[n][0]))
+    out["grads_ok"] = gerr <= tol * gmax and all(rel[n][0] <= bound[n] for n in rel)
+    return out
 
 
 SPREAD_DRAWS = 4
@@ -1213,14 +1365,17 @@ SPREAD_DRAWS = 4
 
 def card_spread(model, grads_fn, grads_g, kinked=None, draws=SPREAD_DRAWS):
     """How far the card's own gradients move, leaf by leaf, in a second run
-    on the same inputs (``rerun``: the library's nondeterministic
-    reductions) and in ``draws`` runs on weights moved by one ulp each, up
-    or down at random (``ulp``: kinks that the rounding crosses, which any
-    two fp32 implementations meet). The worst leaf by each measure of
-    `compare_grads`, and in L2 the worst of those `compare_grads` holds;
-    reported beside the card-vs-CPU errors, not held."""
+    on the same inputs (``rerun``, which must repeat bit for bit:
+    ``rerun_identical``) and in ``draws`` runs on weights moved by one ulp
+    each, up or down at random (``ulp``: kinks that the rounding crosses,
+    which any two fp32 implementations meet). The worst leaf by each
+    measure of `compare_grads`, and in L2 the worst of the leaves not
+    ``kinked``. Returns (report, {leaf: largest L2 ulp spread})."""
     names = [n for n, _ in model.named_parameters()]
-    out = {"rerun": worst_leaves(leaf_errors(names, grads_fn(model), grads_g))}
+    again = grads_fn(model)
+    out = {"rerun": worst_leaves(leaf_errors(names, again, grads_g)),
+           "rerun_identical": all(a is None and b is None or torch.equal(a, b)
+                                  for a, b in zip(again, grads_g))}
     worst = {}
     for s in range(draws):
         moved = copy.deepcopy(model)
@@ -1238,7 +1393,16 @@ def card_spread(model, grads_fn, grads_g, kinked=None, draws=SPREAD_DRAWS):
     held_worst = max(held, key=lambda n: worst[n][0])
     out["ulp"] = {**worst_leaves(worst), "held_worst_leaf": held_worst,
                   "held_worst_l2_rel_err": worst[held_worst][0], "draws": draws}
-    return out
+    return out, {n: v[0] for n, v in worst.items()}
+
+
+def checked(res, what):
+    """Raise unless ``res`` (a card-vs-CPU check) passed: loss, gradients,
+    and a card rerun that repeats bit for bit."""
+    if not (res["loss_rel_err"] <= res["loss_tol_rel"] and res["grads_ok"]
+            and res["card_spread"]["rerun_identical"]):
+        raise SystemExit(f"chip_smoke: card and CPU {what} disagree: {res}")
+    return res
 
 
 FLAGSHIP_FREQ_LOSS = dict(sample_rate=FLAGSHIP_AUDIO["sample_rate"], n_mels=80, loss="mse",
@@ -1303,7 +1467,7 @@ def phase_paired(dev):
         idle = [n for n in names if launches[path][n] == 0]
         if idle:
             raise SystemExit(f"chip_smoke: kernels not launched on the paired {path} path: {idle}")
-    profile = profiled_step(lambda: trainer._train_step(*batch), float(np.median(walls)))
+    profile = profiled_step(lambda: trainer._train_step(batch), float(np.median(walls)))
     ref = paired_reference(model, cfg, phn_attr, dev)
     return dict(batch=TRAIN_B, samples=TRAIN_S, text_len=32, decode_steps=PAIRED_T // 3,
                 steps=1 + TRAIN_STEPS, params=sum(p.numel() for p in model.parameters()),
@@ -1312,6 +1476,15 @@ def phase_paired(dev):
                 dev_per=dev_per, best_tts_loss=trainer.best_tts_loss, best_per=trainer.best_per,
                 launches=launches["step"], launches_validate=launches["validate"],
                 profile=profile, reference=ref)
+
+
+def no_dropout(cfg):
+    """``cfg`` with every dropout 0: the ASR's, the TTS encoder's, the
+    prenet's and the decoder cells'."""
+    d = cfg.tts.decoder
+    dec0 = dataclasses.replace(d, prenet_dropout=0.0, query_dropout=0.0, dec_dropout=0.0)
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, dropout=0.0),
+                               tts=dataclasses.replace(cfg.tts, enc_dropout=0.0, decoder=dec0))
 
 
 def paired_reference(model, cfg, phn_attr, dev):
@@ -1323,10 +1496,7 @@ def paired_reference(model, cfg, phn_attr, dev):
     from semi_tts_tpu_torch.ops.features import AudioFeaturizer
     from semi_tts_tpu_torch.train.steps import StepBuilder
 
-    d = cfg.tts.decoder
-    dec0 = dataclasses.replace(d, prenet_dropout=0.0, query_dropout=0.0, dec_dropout=0.0)
-    cfg0 = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, dropout=0.0),
-                               tts=dataclasses.replace(cfg.tts, enc_dropout=0.0, decoder=dec0))
+    cfg0 = no_dropout(cfg)
     cpu_model = copy.deepcopy(model).cpu()
     rng = np.random.RandomState(12)
     lengths = (TRAIN_S, TRAIN_S - 11025)
@@ -1348,14 +1518,216 @@ def paired_reference(model, cfg, phn_attr, dev):
 
     (loss_g, grads_g, mets_g, s_g), (loss_c, grads_c, mets_c, s_c) = (
         run(model, dev), run(cpu_model, torch.device("cpu")))
-    res = {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c),
-           "loss_tol_rel": 1e-4, "losses_card": mets_g, "losses_cpu": mets_c,
-           **compare_grads(model, grads_g, grads_c, kinked=KINKED_LEAVES), "card_s": s_g,
-           "cpu_s": s_c,
-           "card_spread": card_spread(model, lambda m: run(m, dev)[1], grads_g, KINKED_LEAVES)}
-    if not (res["loss_rel_err"] <= 1e-4 and res["grads_ok"]):
-        raise SystemExit(f"chip_smoke: card and CPU paired steps disagree: {res}")
-    return res
+    spread, by_leaf = card_spread(model, lambda m: run(m, dev)[1], grads_g, KINKED_LEAVES)
+    return checked({"loss_card": loss_g, "loss_cpu": loss_c,
+                    "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c), "loss_tol_rel": 1e-4,
+                    "losses_card": mets_g, "losses_cpu": mets_c,
+                    **compare_grads(model, grads_g, grads_c, kinked=KINKED_LEAVES, spread=by_leaf),
+                    "card_s": s_g, "cpu_s": s_c, "card_spread": spread}, "paired steps")
+
+
+# the flagship YAML's unpaired speech weight; no shipped YAML sets the text weight
+CYCLE_WEIGHTS = dict(unpair_speech=10.0, unpair_text=1.0)
+CYCLE_STEPS = 9   # 0 paired, 1 text-first, 2 speech-first (warm-ups); 3-8 timed, three of each
+LONG_S = 336924   # 15.28 s, the longest utterance of data/partition_tables/*.csv
+SPEECH_FIRST, TEXT_FIRST = "speech_first", "text_first"
+CYCLE_KERNELS = ("trim_merge", "trim_merge_bwd")
+# K1 with cell states, K7, K2, K8, K3, K9, K5, K6 and, in the speech-first step, B6
+STEP_KERNELS = {SPEECH_FIRST: PAIRED_STEP_KERNELS + CYCLE_KERNELS, TEXT_FIRST: PAIRED_STEP_KERNELS}
+OWN_KERNELS = ("trim_merge_kernel", "trim_merge_bwd_kernel", "attention_bwd_kernel")
+
+
+def phase_cycles(dev):
+    """VqvaeTrainer at flagship width with the flagship's unpaired speech
+    weight (10) and an unpaired text weight of 1, both cycles from step 0:
+    step 0 paired, then text-first on odd and speech-first on even steps,
+    over B=8 x 3.0 s x U=32 paired and unpaired batches; steps 0-2 warm up,
+    3-8 are timed (median wall of each kind). Peak memory, the losses and
+    counters of every step, the kernel launches of one step of each kind
+    (each kernel of its path must launch; K6 twice in the text-first step),
+    one profiled step of each kind (with B6's and K9's own device time; the
+    same step number is profiled again and the next step of its kind once
+    more, ``launches_by_step``, to show how far the profiler's count of
+    device events moves between profiles), one step of each kind on the
+    card against the CPU plain path, and a speech-first step whose unpaired
+    row is 15.28 s long (K3 and K9 at L ~ 680)."""
+    from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.models import vqvae as V
+    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
+    from semi_tts_tpu_torch.train.optim import Optimizer
+    from semi_tts_tpu_torch.train.steps import StepBuilder, Weights
+    from semi_tts_tpu_torch.train.train_vqvae import VqvaeTrainer
+    from semi_tts_tpu_torch.utils.metrics import read_phn_attr
+
+    config = flagship_config()
+    cfg = flagship_vqvae_config(config)
+    phn_attr = torch.from_numpy(read_phn_attr(config["model"]["codebook"]["phn_attr_pth"])).to(dev)
+    model = V.VQVAE(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    builder = StepBuilder(cfg, AudioFeaturizer(audio_config(), dev), phn_attr,
+                          weights=Weights(**CYCLE_WEIGHTS), freq_loss_kwargs=FLAGSHIP_FREQ_LOSS)
+    opt = Optimizer(model.parameters(), lr=1e-3, lr_scheduler="decay")
+    batch, u_batch = training_batch(0, dev), training_batch(2, dev)
+    marks, kinds, launches, logged, mem = [], [], {}, [], {}
+
+    def batches():
+        for i in range(CYCLE_STEPS):
+            if i == 3:  # after the warm-up steps, outside the timed ones
+                gc.collect()
+                torch.cuda.reset_peak_memory_stats()
+                mem["base"] = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if i in (4, 5):  # the launches of step 3 (text-first) and step 4 (speech-first)
+                launches[kinds[-1]] = kernels.launch_counts()
+            kinds.append(trainer.step_kind())
+            kernels.reset_launches()
+            yield batch
+
+    trainer = VqvaeTrainer(model, builder, opt, pair_iter=batches(),
+                           unpair_iter=iter([u_batch] * CYCLE_STEPS),
+                           dev_set=[training_batch(1, dev, lengths=RAGGED)], max_step=CYCLE_STEPS,
+                           valid_step=10 ** 9, progress_step=1, log=lambda *a: logged.append(a))
+    trainer.exec()
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated()
+    want = ["paired"] + [TEXT_FIRST if i % 2 else SPEECH_FIRST for i in range(1, CYCLE_STEPS)]
+    if kinds != want:
+        raise SystemExit(f"chip_smoke: the trainer ran {kinds}, not {want}")
+    walls = [b - a for a, b in zip(marks, marks[1:])]
+    timed = {k: [walls[i] for i in range(3, CYCLE_STEPS) if kinds[i] == k]
+             for k in (SPEECH_FIRST, TEXT_FIRST)}
+    per_step = {}
+    for step, name, value in logged:
+        per_step.setdefault(name, []).append(value)
+    if not np.isfinite([v for vs in per_step.values() for v in vs]).all():
+        raise SystemExit(f"chip_smoke: the cycles went non-finite: {per_step}")
+    if len(per_step["txt_loss/unpair"]) != 4 or len(per_step["speech_loss/unpair"]) != 4:
+        raise SystemExit(f"chip_smoke: the cycles' losses were not logged: {per_step}")
+    for kind, names in STEP_KERNELS.items():
+        idle = [n for n in names if launches[kind][n] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels not launched in the {kind} step: {idle}")
+    if min(launches[TEXT_FIRST]["ctc_alpha"], launches[TEXT_FIRST]["ctc_beta_grad"]) < 2:
+        raise SystemExit(f"chip_smoke: the text-first step ran K6 once: {launches[TEXT_FIRST]}")
+    wall = {k: float(np.median(v)) for k, v in timed.items()}
+    profile = {}
+    for kind, steps in ((SPEECH_FIRST, (10, 10, 12)), (TEXT_FIRST, (11, 11, 13))):
+        runs = []
+        for step in steps:
+            trainer.step = step
+            runs.append(profiled_step(lambda: trainer._train_step(batch, u_batch), wall[kind],
+                                      picked=OWN_KERNELS))
+        profile[kind] = dict(runs[0], launches_by_step=[[s, r["kernel_launches"]]
+                                                        for s, r in zip(steps, runs)])
+    ref = cycles_reference(model, cfg, phn_attr, dev)
+    long = long_memory_step(model, builder, dev)
+    return dict(batch=TRAIN_B, unpaired_batch=TRAIN_B, samples=TRAIN_S, text_len=32,
+                steps=CYCLE_STEPS, kinds=kinds, weights=CYCLE_WEIGHTS, wall_s=wall,
+                walls_s=walls, peak_mem_bytes=peak, mem_baseline_bytes=mem["base"],
+                per_step=per_step, token_usage=trainer.token_usage.tolist(), launches=launches,
+                profile=profile, reference=ref, long_memory=long)
+
+
+def cycles_reference(model, cfg, phn_attr, dev):
+    """One speech-first and one text-first step's loss and gradients through
+    the card's kernels and through the plain path on the CPU: the same
+    weights and BN statistics, every dropout 0, tf_rate 1, B = 2 + 2 rows
+    (3.0 s and 2.5 s paired, 2.8 s and 3.0 s unpaired), the same SNRs,
+    stretch rates and noise for both batches; the CPU's speech-first step
+    segments by the card's unpaired argmax tokens (``tokens=``), and the
+    frames where its own argmax differs are counted (``flipped_frames``).
+    Each beside the card's own rerun (which must repeat bit for bit) and ulp
+    spread, which also sets the kinked leaves' bounds."""
+    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
+    from semi_tts_tpu_torch.train.steps import StepBuilder, Weights
+
+    cfg0 = no_dropout(cfg)
+    cpu_model = copy.deepcopy(model).cpu()
+    rng = np.random.RandomState(13)
+    lengths = {"pair": (TRAIN_S, TRAIN_S - 11025), "unpair": (TRAIN_S - 4410, TRAIN_S)}
+    draws = {k: (rng.uniform(10, 100, size=2).astype(np.float32),
+                 float(np.float32(rng.uniform(0.9, 1.1))),
+                 rng.randn(2, TRAIN_S).astype(np.float32)) for k in lengths}
+
+    def run(m, device, kind, tokens=None):
+        builder = StepBuilder(cfg0, AudioFeaturizer(audio_config(), device), phn_attr.to(device),
+                              weights=Weights(**CYCLE_WEIGHTS), freq_loss_kwargs=FLAGSHIP_FREQ_LOSS)
+        pair = training_batch(5, device, lengths=lengths["pair"])
+        unpair = training_batch(6, device, lengths=lengths["unpair"])
+        aug, u_aug = ((torch.from_numpy(d[0]).to(device), d[1], torch.from_numpy(d[2]).to(device))
+                      for d in (draws["pair"], draws["unpair"]))
+        t0 = time.perf_counter()
+        if kind == SPEECH_FIRST:
+            loss, mets, grads = builder.speech_first_loss_and_grads(
+                m, 2, 1.0, pair, unpair, None, augment=aug, u_augment=u_aug,
+                tokens=None if tokens is None else tokens.to(device))
+        else:
+            loss, mets, grads = builder.text_first_loss_and_grads(m, 1.0, pair, unpair, None,
+                                                                  augment=aug)
+        return (float(loss), [None if g is None else g.cpu() for g in grads],
+                {k: v.cpu() for k, v in mets.items() if v.numel() <= 4096},
+                time.perf_counter() - t0)
+
+    out = {}
+    for kind in (SPEECH_FIRST, TEXT_FIRST):
+        loss_g, grads_g, mets_g, s_g = run(model, dev, kind)
+        tokens = mets_g.get("unpair_pred")
+        loss_c, grads_c, mets_c, s_c = run(cpu_model, torch.device("cpu"), kind, tokens)
+        spread, by_leaf = card_spread(model, lambda m: run(m, dev, kind, tokens)[1], grads_g,
+                                      KINKED_LEAVES)
+        losses = [k for k in mets_g if k.endswith("_loss")]
+        res = {"loss_card": loss_g, "loss_cpu": loss_c,
+               "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c), "loss_tol_rel": 1e-4,
+               "losses_card": {k: float(mets_g[k]) for k in losses},
+               "losses_cpu": {k: float(mets_c[k]) for k in losses},
+               **compare_grads(model, grads_g, grads_c, kinked=KINKED_LEAVES, spread=by_leaf),
+               "card_s": s_g, "cpu_s": s_c, "card_spread": spread}
+        if kind == SPEECH_FIRST:
+            res.update(flipped_frames=int((mets_c["unpair_pred"] != tokens).sum()),
+                       unpair_ok=[bool(mets_g["unpair_ok"]), bool(mets_c["unpair_ok"])])
+        else:
+            res["ctc_nan"] = [bool(mets_g["ctc_nan"]), bool(mets_c["ctc_nan"])]
+        out[kind] = checked(res, f"{kind} steps")
+    return out
+
+
+def long_memory_step(model, builder, dev):
+    """One speech-first step's loss and gradients with B = 1 + 1 rows: a
+    3.0 s paired utterance and a 15.28 s unpaired one, whose trimmed latents
+    (padded to the ASR encoder's length) are the attention memory: K3 and K9
+    at L ~ 680, K9 in tiles of 64 positions. Its losses and gradients must be
+    finite, and K3 and K9 must launch."""
+    from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.kernels.attention import attention_bwd_plan
+    from semi_tts_tpu_torch.train.steps import step_generator
+
+    pair = training_batch(7, dev, lengths=(TRAIN_S,))
+    unpair = training_batch(8, dev, lengths=(LONG_S,))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss, mets, grads = builder.speech_first_loss_and_grads(
+        model, 2, 1.0, pair, unpair, step_generator(0, 2, dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    d = builder.cfg.tts.decoder
+    L = mets["unpair_pred"].shape[1]
+    losses = {k: float(v) for k, v in mets.items() if k.endswith("_loss")}
+    finite = np.isfinite(list(losses.values()) + [float(loss)]).all() and all(
+        g is None or bool(torch.isfinite(g).all()) for g in grads)
+    plan = attention_bwd_plan(2, L, d.attn_dim, d.enc_embed_dim, 2, d.n_location_filters,
+                              d.location_kernel_size)
+    out = dict(samples=[TRAIN_S, LONG_S], memory_len=L,
+               k9_tile=plan["tile"], decode_steps=mets["pair_align"].shape[1], losses=losses,
+               total_loss=float(loss), unpair_ok=bool(mets["unpair_ok"]),
+               unpair_len=int(mets["unpair_pred_len"][0]), wall_s=wall,
+               launches={k: launches[k] for k in ("attention_step", "attention_step_bwd",
+                                                  "trim_merge", "trim_merge_bwd")})
+    if not (finite and launches["attention_step_bwd"] and launches["attention_step"]):
+        raise SystemExit(f"chip_smoke: the long-memory speech-first step failed: {out}")
+    return out
 
 
 def main():
@@ -1375,17 +1747,23 @@ def main():
     serving = phase_serving(str(BUILD_DIR))
     training = phase_training(dev)
     paired = phase_paired(dev)
-    paths = {"serving request": serving, "ASR train step": training, "paired train step": paired}
+    cycles = phase_cycles(dev)
+    launches = {"serving request": serving["launches"], "ASR train step": training["launches"],
+                "paired train step": paired["launches"],
+                "speech-first step": cycles["launches"][SPEECH_FIRST],
+                "text-first step": cycles["launches"][TEXT_FIRST]}
     for row in table:
         per = ("serving request" if row["name"] in SERVING_KERNELS else
-               "ASR train step" if row["name"] in TRAINING_KERNELS else "paired train step")
-        row["launches"] = paths[per]["launches"][row["name"]]
+               "ASR train step" if row["name"] in TRAINING_KERNELS else
+               "speech-first step" if row["name"] in CYCLE_KERNELS else "paired train step")
+        row["launches"] = launches[per][row["name"]]
         row["launches_per"] = per
-        row["launches_by_path"] = {k: v["launches"][row["name"]] for k, v in paths.items()}
+        row["launches_by_path"] = {k: v[row["name"]] for k, v in launches.items()}
     print(json.dumps({"kernels": table}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"paired": paired}))
+    print(json.dumps({"cycles": cycles}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -7,6 +7,6 @@ tested against. Hand-written CUDA kernels live in `csrc/` and are bound by
 function beside it, which runs only for tensors on the CPU.
 """
 
-from .device import resolve_device, use_fp32
+from .device import resolve_device, use_deterministic, use_fp32
 
-__all__ = ["resolve_device", "use_fp32"]
+__all__ = ["resolve_device", "use_deterministic", "use_fp32"]

@@ -368,92 +368,108 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
 //
 // Design: K3's layout, one cluster of kCluster CTAs per batch row. CTA r owns
 // attention columns [r*Ac, r*Ac + Ac), context columns [r*Dc, r*Dc + Dc),
-// and the filters f = r + kCluster*i. Its prologue issues every load it needs
-// at once with cp.async and waits once (plain loads in a loop would pay a
-// memory round trip per iteration), loc_lin's rows at an odd stride so a warp
-// reading down a column hits 32 banks. It recomputes the location features
-// itself (as K3 does) and the tanh of its columns. Partial sums cross the
-// cluster through distributed shared memory in three exchanges, each ended
-// by one cluster barrier: the memory.d_context partials of dw (all-gather,
-// summed in rank order so every CTA holds the same dw bit for bit), the
-// partials of d_loc over the CTA's columns (reduce-scatter by filter), and
-// the partials of d_attn_hist over the CTA's filters (reduce-scatter by
-// position). No CTA touches a peer's shared memory after the last barrier.
+// and the filters f = r + kCluster*i. Shared memory holds only what has few
+// floats a position: the padded history, the weights, dw (then de, in
+// place) and this CTA's filters of d_loc (2 + C + Fr floats a position, 32
+// bytes at flagship widths, fewer than K3 holds), so K9 takes every L K3
+// takes (1,187 at flagship widths; a trimmed unpaired latent is as long as
+// the ASR encoder's output, ~680 frames for a 15 s utterance). The prologue
+// issues every load of those at once with cp.async and waits once (plain
+// loads in a loop would pay a memory round trip per iteration), loc_lin's
+// rows at an odd stride so a warp reading down a column hits 32 banks. The
+// wide per-position operands are streamed in tiles of `tile` positions:
+// memory is read from L2 once in the dw phase, processed memory is staged a
+// tile ahead with cp.async into a second buffer, the location features and
+// the tanh of the CTA's columns are recomputed per tile. Partial sums cross
+// the cluster through distributed shared memory a tile at a time: the
+// memory.d_context partials of dw (all-gather, summed in rank order so every
+// CTA holds the same dw bit for bit), the partials of d_loc over the CTA's
+// columns (reduce-scatter by filter) and the partials of d_attn_hist over
+// the CTA's filters (reduce-scatter by position), each through
+// double-buffered slots with one cluster barrier a tile: a peer writes the
+// buffer of tile i + 2 only after every CTA has passed the barrier of tile
+// i + 1, so after it has read tile i's. A thread keeps its positions
+// l = g mod G across tiles and every cluster sum is in rank order, so the
+// result does not depend on the tile. No CTA touches a peer's shared memory
+// after the last barrier.
 
 struct BwdLayout {
-  int hist, wloc, lin, locf, th, mem, dctx, dwt, pq, v, w, dw, de, part, red, dslot, dloc, hslot,
-      total;
-  __host__ __device__ BwdLayout(int L, int Ac, int Dc, int C, int F, int K) {
+  int hist, wloc, lin, dctx, pq, v, w, dw, wslot, red, dloc, pmt, locf, dslot, hslot, total;
+  __host__ __device__ BwdLayout(int L, int Ac, int Dc, int C, int F, int K, int tile) {
     const int Fr = (F + kCluster - 1) / kCluster;
     int at = 0;
     hist = at;  at += round4(C * (L + K - 1));
     wloc = at;  at += round4(F * C * K);
     lin = at;   at += round4(Ac * (F | 1));
-    locf = at;  at += round4(L * F);
-    th = at;    at += round4(L * Ac);
-    mem = at;   at += round4(L * Dc);
     dctx = at;  at += round4(Dc);
-    dwt = at;   at += round4(L);
     pq = at;    at += round4(Ac);
     v = at;     at += round4(Ac);
     w = at;     at += round4(L);
     dw = at;    at += round4(L);
-    de = at;    at += round4(L);
-    part = at;  at += kCluster * round4(L);
+    wslot = at; at += 2 * kCluster * round4(tile);
     red = at;   at += 2 * round4(Ac > kThreads ? Ac : kThreads);
-    dslot = at; at += round4(kCluster * L * Fr);
     dloc = at;  at += round4(L * Fr);
-    hslot = at; at += round4(kCluster * C * L);
+    pmt = at;   at += 2 * round4(tile * Ac);
+    locf = at;  at += round4(tile * F);
+    dslot = at; at += 2 * round4(kCluster * tile * Fr);
+    hslot = at; at += 2 * round4(kCluster * C * tile);
     total = at;
   }
 };
 
+// Stage rows [l0, l0 + rows) of this CTA's columns of processed memory.
+__device__ __forceinline__ void stage_pm_tile(float* dst, const float* pm, int b, int r, int L,
+                                              int A, int Ac, int l0, int rows, bool vec) {
+  stage_slice(dst, Ac, pm + ((size_t)b * L + l0) * A + r * Ac, A, rows, Ac, vec);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_kernel(const float* __restrict__ pq, const float* __restrict__ pm,
-                     const float* __restrict__ memory, const float* __restrict__ hist,
-                     const float* __restrict__ loc_w, const float* __restrict__ loc_lin,
-                     const float* __restrict__ v, const float* __restrict__ weights,
-                     const float* __restrict__ d_context, const float* __restrict__ d_weights,
-                     float* __restrict__ d_pq, float* __restrict__ d_pm,
-                     float* __restrict__ d_memory, float* __restrict__ d_hist,
-                     float* __restrict__ rows, int L, int A, int D, int C, int F, int K) {
+                           const float* __restrict__ memory, const float* __restrict__ hist,
+                           const float* __restrict__ loc_w, const float* __restrict__ loc_lin,
+                           const float* __restrict__ v, const float* __restrict__ weights,
+                           const float* __restrict__ d_context,
+                           const float* __restrict__ d_weights, float* __restrict__ d_pq,
+                           float* __restrict__ d_pm, float* __restrict__ d_memory,
+                           float* __restrict__ d_hist, float* __restrict__ rows, int L, int A,
+                           int D, int C, int F, int K, int tile) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
   const int r = (int)cluster.block_rank();
   const int b = blockIdx.x / kCluster;
   const int Ac = A / kCluster, Dc = D / kCluster;
   const int Fr = (F + kCluster - 1) / kCluster;
-  const int pad = (K - 1) / 2, Lp = L + K - 1, CK = C * K, CL = C * L;
+  const int pad = (K - 1) / 2, Lp = L + K - 1, CK = C * K;
   const int FS = F | 1;  // odd row stride of loc_lin
-  const BwdLayout lay(L, Ac, Dc, C, F, K);
+  const BwdLayout lay(L, Ac, Dc, C, F, K, tile);
   float* hist_s = smem + lay.hist;  // (C, Lp): hist[c, j - pad], zero outside [0, L)
   float* wloc = smem + lay.wloc;    // (F, C, K)
   float* lin_s = smem + lay.lin;    // (Ac, FS): this CTA's rows of loc_lin
-  float* locf = smem + lay.locf;    // (L, F) location features
-  float* th = smem + lay.th;        // (L, Ac): processed_memory, then tanh, then dpre
-  float* mem_s = smem + lay.mem;    // (L, Dc): this CTA's columns of memory
   float* dctx = smem + lay.dctx;    // (Dc) this CTA's columns of d_context
-  float* dwt = smem + lay.dwt;      // (L) d_weights
   float* pq_s = smem + lay.pq;
   float* v_s = smem + lay.v;
   float* w = smem + lay.w;
-  float* dw = smem + lay.dw;
-  float* de = smem + lay.de;
-  float* part = smem + lay.part;    // (kCluster, Lr) partials of dw, slot = sender
-  float* red = smem + lay.red;      // (2, G * Ac) partial column sums over l
-  float* dslot = smem + lay.dslot;  // (kCluster, L, Fr) partials of d_loc, slot = sender
+  float* dw = smem + lay.dw;        // (L) d_weights, then dw, then de
+  float* wslot = smem + lay.wslot;  // 2 x (kCluster, tile4) partials of dw, slot = sender
+  float* red = smem + lay.red;      // (2, G * Ac) running d_v and d_pq chains
   float* dloc = smem + lay.dloc;    // (L, Fr) d_loc of this CTA's filters
-  float* hslot = smem + lay.hslot;  // (kCluster, C*L) partials of d_attn_hist, slot = sender
-  // per-row partials of the weight gradients, one row of `rows` per batch row:
-  // d_loc_w (F, C, K), d_loc_lin (A, F), d_v (A)
+  float* pmt = smem + lay.pmt;      // 2 x (tile, Ac): processed memory, then dpre
+  float* locf = smem + lay.locf;    // (tile, F) location features of the tile
+  float* dslot = smem + lay.dslot;  // 2 x (kCluster, tile, Fr) partials of d_loc, slot = sender
+  float* hslot = smem + lay.hslot;  // 2 x (kCluster, C, tile) partials of d_attn_hist
+  const int pm_buf = round4(tile * Ac), d_buf = round4(kCluster * tile * Fr),
+            h_buf = round4(kCluster * C * tile);
   const int ld_rows = F * CK + A * F + A;
   float* dlw_row = rows + (size_t)b * ld_rows;
   float* dll_row = dlw_row + F * CK;
   float* dv_row = dll_row + A * F;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const int Lr = round4(L);
+  const int tile4 = round4(tile), ntiles = (L + tile - 1) / tile;
+  const bool vec = Ac % 4 == 0 && ((size_t)pm & 15) == 0;
 
-  // prologue: every load of the CTA in flight at once (cp.async), one wait
+  // prologue: the operands held for the whole launch in one cp.async group,
+  // the first tile of processed memory in a second
   for (int i = tid; i < C * Lp; i += blockDim.x) {
     const int c = i / Lp, x = i - c * Lp - pad;
     if (x >= 0 && x < L) cp_async4(hist_s + i, hist + ((size_t)b * C + c) * L + x);
@@ -464,14 +480,6 @@ attention_bwd_kernel(const float* __restrict__ pq, const float* __restrict__ pm,
     const int a = i / F, f = i - a * F;
     cp_async4(lin_s + a * FS + f, loc_lin + (size_t)r * Ac * F + i);
   }
-  for (int i = tid; i < L * Ac; i += blockDim.x) {
-    const int l = i / Ac, a = i - l * Ac;
-    cp_async4(th + i, pm + ((size_t)b * L + l) * A + r * Ac + a);
-  }
-  for (int i = tid; i < L * Dc; i += blockDim.x) {
-    const int l = i / Dc, d = i - l * Dc;
-    cp_async4(mem_s + i, memory + ((size_t)b * L + l) * D + r * Dc + d);
-  }
   for (int i = tid; i < Dc; i += blockDim.x) cp_async4(dctx + i, d_context + (size_t)b * D + r * Dc + i);
   for (int i = tid; i < Ac; i += blockDim.x) {
     cp_async4(pq_s + i, pq + (size_t)b * A + r * Ac + i);
@@ -479,143 +487,170 @@ attention_bwd_kernel(const float* __restrict__ pq, const float* __restrict__ pm,
   }
   for (int l = tid; l < L; l += blockDim.x) {
     cp_async4(w + l, weights + (size_t)b * L + l);
-    cp_async4(dwt + l, d_weights + (size_t)b * L + l);
+    cp_async4(dw + l, d_weights + (size_t)b * L + l);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  stage_pm_tile(pmt, pm, b, r, L, A, Ac, 0, min(tile, L), vec);
+  const int G = Ac >= (int)blockDim.x ? 1 : (int)blockDim.x / Ac;
+  const int GA = G * Ac;
+  for (int i = tid; i < 2 * GA; i += blockDim.x) red[i] = 0.0f;
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // the held operands have landed
   __syncthreads();
+  cluster.sync();  // every CTA of the cluster has started: peers' shared memory is live
 
-  // this CTA's part of dw: memory[l, its columns] . d_context[its columns],
-  // a warp per position; and its columns of d_memory
-  float* own = part + r * Lr;
-  for (int l = warp; l < L; l += nwarps) {
-    const float* mrow = mem_s + l * Dc;
-    float* drow = d_memory + ((size_t)b * L + l) * D + r * Dc;
-    float acc = 0.0f;
-    for (int d = lane; d < Dc; d += 32) {
-      const float g = dctx[d];
-      acc = fmaf(mrow[d], g, acc);
-      drow[d] = w[l] * g;
+  // dw = d_weights + memory . d_context a tile of positions at a time: this
+  // CTA's partials over its columns (a warp per position, memory read from
+  // L2) into slot r of every CTA, then, after the tile's barrier, the slots
+  // summed in rank order; and this CTA's columns of d_memory
+  const float* mem_b = memory + (size_t)b * L * D + r * Dc;
+  for (int it = 0; it < ntiles; ++it) {
+    const int l0 = it * tile, nrow = min(tile, L - l0);
+    float* ws = wslot + (it & 1) * kCluster * tile4;
+    for (int ll = warp; ll < nrow; ll += nwarps) {
+      const int l = l0 + ll;
+      const float* mrow = mem_b + (size_t)l * D;
+      float* drow = d_memory + ((size_t)b * L + l) * D + r * Dc;
+      float acc = 0.0f;
+      for (int d = lane; d < Dc; d += 32) {
+        const float g = dctx[d];
+        acc = fmaf(__ldg(mrow + d), g, acc);
+        drow[d] = w[l] * g;
+      }
+      acc = warp_sum(acc);
+      if (lane < kCluster) *cluster.map_shared_rank(ws + r * tile4 + ll, lane) = acc;
     }
-    acc = warp_sum(acc);
-    if (lane == 0) own[l] = acc;
-  }
-  // location features: locf[l, f] = sum_c sum_k loc_w[f, c, k] hist[c, l + k - pad]
-  for (int i = tid; i < L * F; i += blockDim.x) {
-    const int l = i / F, f = i - l * F;
-    float acc = 0.0f;
-    for (int c = 0; c < C; ++c) {
-      const float* h = hist_s + c * Lp + l;
-      const float* wk = wloc + (f * C + c) * K;
-      for (int k = 0; k < K; ++k) acc = fmaf(wk[k], h[k], acc);
+    cluster.sync();  // this tile's dw partials have landed
+    for (int ll = tid; ll < nrow; ll += blockDim.x) {
+      float s = dw[l0 + ll];
+      for (int q = 0; q < kCluster; ++q) s += ws[q * tile4 + ll];
+      dw[l0 + ll] = s;
     }
-    locf[i] = acc;
-  }
-  cluster.sync();  // every CTA has started and holds its dw partial
-  for (int i = tid; i < (kCluster - 1) * L; i += blockDim.x) {
-    const int q = i / L, l = i - q * L;
-    *cluster.map_shared_rank(own + l, q < r ? q : q + 1) = own[l];
-  }
-  // th[l, a] = tanh(pq[a] + loc[l, :] . loc_lin[a, :] + pm[l, a]) over this CTA's columns
-  for (int i = tid; i < L * Ac; i += blockDim.x) {
-    const int l = i / Ac, a = i - l * Ac;
-    float loc = 0.0f;
-    for (int f = 0; f < F; ++f) loc = fmaf(locf[l * F + f], lin_s[a * FS + f], loc);
-    th[i] = tanhf((pq_s[a] + loc) + th[i]);
-  }
-  cluster.sync();  // every dw partial has landed
-
-  for (int l = tid; l < L; l += blockDim.x) {
-    float s = dwt[l];
-    for (int q = 0; q < kCluster; ++q) s += part[q * Lr + l];
-    dw[l] = s;
   }
   __syncthreads();
   float wdw = 0.0f;  // sum_l w[l] dw[l], every warp for itself (same order, same result)
   for (int l = lane; l < L; l += 32) wdw = fmaf(w[l], dw[l], wdw);
   wdw = warp_sum(wdw);
-  for (int l = tid; l < L; l += blockDim.x) de[l] = w[l] * (dw[l] - wdw);
-  __syncthreads();
+  __syncthreads();  // every warp has read dw before it becomes de
+  for (int l = tid; l < L; l += blockDim.x) dw[l] = w[l] * (dw[l] - wdw);
+  const float* de = dw;
 
-  // dpre over this CTA's columns, in place of th; G groups of positions a
-  // column when the columns leave threads idle, summed in group order
-  const int G = Ac >= (int)blockDim.x ? 1 : (int)blockDim.x / Ac;
-  const int GA = G * Ac;
-  for (int i = tid; i < GA; i += blockDim.x) {
-    const int g = i / Ac, a = i - g * Ac;
-    float dv = 0.0f, dq = 0.0f;
-    for (int l = g; l < L; l += G) {
-      const float t = th[l * Ac + a];
-      const float dp = de[l] * v_s[a] * (1.0f - t * t);
-      dv = fmaf(de[l], t, dv);
-      dq += dp;
-      th[l * Ac + a] = dp;
-      d_pm[((size_t)b * L + l) * A + r * Ac + a] = dp;
-    }
-    red[i] = dv;
-    red[GA + i] = dq;
-  }
-  __syncthreads();
-  for (int a = tid; a < Ac; a += blockDim.x) {
-    float dv = 0.0f, dq = 0.0f;
-    for (int g = 0; g < G; ++g) {
-      dv += red[g * Ac + a];
-      dq += red[GA + g * Ac + a];
-    }
-    dv_row[r * Ac + a] = dv;
-    d_pq[(size_t)b * A + r * Ac + a] = dq;
-  }
-  if (F > 0) {
-    // d_loc_lin rows of this CTA's columns: sum_l dpre[l, a] loc[l, f]
-    for (int i = tid; i < Ac * F; i += blockDim.x) {
-      const int a = i / F, f = i - a * F;
+  for (int it = 0; it < ntiles; ++it) {
+    const int l0 = it * tile, nrow = min(tile, L - l0);
+    float* pm_cur = pmt + (it & 1) * pm_buf;
+    // the next tile's processed memory into the other buffer, whose last
+    // reader (the previous tile) finished before the barrier that ended it
+    if (it + 1 < ntiles)
+      stage_pm_tile(pmt + ((it + 1) & 1) * pm_buf, pm, b, r, L, A, Ac, l0 + tile,
+                    min(tile, L - l0 - tile), vec);
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    // locf[ll, f] = sum_c sum_k loc_w[f, c, k] hist[c, l0 + ll + k - pad]
+    for (int i = tid; i < nrow * F; i += blockDim.x) {
+      const int ll = i / F, f = i - ll * F;
       float acc = 0.0f;
-      for (int l = 0; l < L; ++l) acc = fmaf(th[l * Ac + a], locf[l * F + f], acc);
-      dll_row[(r * Ac + a) * F + f] = acc;
+      for (int c = 0; c < C; ++c) {
+        const float* h = hist_s + c * Lp + l0 + ll;
+        const float* wk = wloc + (f * C + c) * K;
+        for (int k = 0; k < K; ++k) acc = fmaf(wk[k], h[k], acc);
+      }
+      locf[i] = acc;
     }
-    // partial d_loc[l, f] over this CTA's columns, into slot r of the CTA
-    // that owns filter f
-    for (int i = tid; i < L * F; i += blockDim.x) {
-      const int l = i / F, f = i - l * F;
-      float acc = 0.0f;
-      for (int a = 0; a < Ac; ++a) acc = fmaf(th[l * Ac + a], lin_s[a * FS + f], acc);
-      float* dst = dslot + ((size_t)r * L + l) * Fr + f / kCluster;
-      *cluster.map_shared_rank(dst, f % kCluster) = acc;
-    }
-    cluster.sync();  // every d_loc partial has landed
-    for (int i = tid; i < L * Fr; i += blockDim.x) {
-      float s = 0.0f;
-      for (int q = 0; q < kCluster; ++q) s += dslot[(size_t)q * L * Fr + i];
-      dloc[i] = s;
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this tile's processed memory
+    __syncthreads();
+    // tanh, dpre in place of processed memory, d_pm, and the d_v and d_pq
+    // chains of each (position group g, column a) over l = g mod G
+    for (int i = tid; i < GA; i += blockDim.x) {
+      const int g = i / Ac, a = i - g * Ac;
+      float dv = red[i], dq = red[GA + i];
+      for (int l = l0 + ((g - l0) % G + G) % G; l < l0 + nrow; l += G) {
+        const int ll = l - l0;
+        float loc = 0.0f;
+        for (int f = 0; f < F; ++f) loc = fmaf(locf[ll * F + f], lin_s[a * FS + f], loc);
+        const float t = tanhf((pq_s[a] + loc) + pm_cur[ll * Ac + a]);
+        const float dp = de[l] * v_s[a] * (1.0f - t * t);
+        dv = fmaf(de[l], t, dv);
+        dq += dp;
+        pm_cur[ll * Ac + a] = dp;
+        d_pm[((size_t)b * L + l) * A + r * Ac + a] = dp;
+      }
+      red[i] = dv;
+      red[GA + i] = dq;
     }
     __syncthreads();
-    // d_loc_w of this CTA's filters, complete over l
-    for (int i = tid; i < Fr * CK; i += blockDim.x) {
-      const int fi = i / CK, ck = i - fi * CK, c = ck / K, k = ck - c * K;
-      const int f = r + kCluster * fi;
-      if (f >= F) continue;
-      const float* h = hist_s + c * Lp + k;
-      float acc = 0.0f;
-      for (int l = 0; l < L; ++l) acc = fmaf(dloc[l * Fr + fi], h[l], acc);
-      dlw_row[f * CK + ck] = acc;
+    if (F > 0) {
+      // d_loc_lin of this CTA's columns, summed over l in order across tiles
+      // in its row of `rows` (one writer an element)
+      for (int i = tid; i < Ac * F; i += blockDim.x) {
+        const int a = i / F, f = i - a * F;
+        float* out = dll_row + (size_t)r * Ac * F + i;
+        float acc = it ? *out : 0.0f;
+        for (int ll = 0; ll < nrow; ++ll) acc = fmaf(pm_cur[ll * Ac + a], locf[ll * F + f], acc);
+        *out = acc;
+      }
+      // partial d_loc[l, f] over this CTA's columns, into slot r of the CTA
+      // that owns filter f
+      float* ds = dslot + (it & 1) * d_buf;
+      for (int i = tid; i < nrow * F; i += blockDim.x) {
+        const int ll = i / F, f = i - ll * F;
+        float acc = 0.0f;
+        for (int a = 0; a < Ac; ++a) acc = fmaf(pm_cur[ll * Ac + a], lin_s[a * FS + f], acc);
+        *cluster.map_shared_rank(ds + ((size_t)r * tile + ll) * Fr + f / kCluster, f % kCluster) = acc;
+      }
+      cluster.sync();  // this tile's d_loc partials have landed
+      for (int i = tid; i < nrow * Fr; i += blockDim.x) {
+        float s = 0.0f;
+        for (int q = 0; q < kCluster; ++q) s += ds[(size_t)q * tile * Fr + i];
+        dloc[l0 * Fr + i] = s;
+      }
+    } else {
+      __syncthreads();  // the tile's buffers are free for the next
     }
-    // partial d_attn_hist over this CTA's filters, into slot r of the CTA
-    // that owns position c*L + x
-    for (int i = tid; i < CL; i += blockDim.x) {
-      const int c = i / L, x = i - c * L;
+  }
+  __syncthreads();
+
+  for (int a = tid; a < Ac; a += blockDim.x) {
+    float dvs = 0.0f, dqs = 0.0f;
+    for (int g = 0; g < G; ++g) {
+      dvs += red[g * Ac + a];
+      dqs += red[GA + g * Ac + a];
+    }
+    dv_row[r * Ac + a] = dvs;
+    d_pq[(size_t)b * A + r * Ac + a] = dqs;
+  }
+  if (F == 0) return;
+  // d_loc_w of this CTA's filters, complete over l
+  for (int i = tid; i < Fr * CK; i += blockDim.x) {
+    const int fi = i / CK, ck = i - fi * CK, c = ck / K, k = ck - c * K;
+    const int f = r + kCluster * fi;
+    if (f >= F) continue;
+    const float* h = hist_s + c * Lp + k;
+    float acc = 0.0f;
+    for (int l = 0; l < L; ++l) acc = fmaf(dloc[l * Fr + fi], h[l], acc);
+    dlw_row[f * CK + ck] = acc;
+  }
+  // d_attn_hist a tile of positions at a time: partials over this CTA's
+  // filters into slot r of the CTA that owns element j = c * tile + xx
+  for (int it = 0; it < ntiles; ++it) {
+    const int x0 = it * tile, nrow = min(tile, L - x0);
+    float* hs = hslot + (it & 1) * h_buf;
+    for (int i = tid; i < C * nrow; i += blockDim.x) {
+      const int c = i / nrow, xx = i - c * nrow, x = x0 + xx;
       float acc = 0.0f;
       for (int fi = 0; fi < Fr && r + kCluster * fi < F; ++fi) {
         const float* wk = wloc + ((r + kCluster * fi) * C + c) * K;
         const int k0 = max(0, x + pad - L + 1), k1 = min(K - 1, x + pad);
         for (int k = k0; k <= k1; ++k) acc = fmaf(wk[k], dloc[(x - k + pad) * Fr + fi], acc);
       }
-      *cluster.map_shared_rank(hslot + (size_t)r * CL + i, i % kCluster) = acc;
+      const int j = c * tile + xx;
+      *cluster.map_shared_rank(hs + (size_t)r * C * tile + j, j % kCluster) = acc;
     }
-    cluster.sync();  // every d_attn_hist partial has landed; no remote access after this
-    for (int i = r + kCluster * tid; i < CL; i += kCluster * blockDim.x) {
+    cluster.sync();  // this tile's partials have landed; after the last, no remote access
+    for (int j = r + kCluster * tid; j < C * tile; j += kCluster * blockDim.x) {
+      const int c = j / tile, xx = j - c * tile;
+      if (xx >= nrow) continue;
       float s = 0.0f;
-      for (int q = 0; q < kCluster; ++q) s += hslot[(size_t)q * CL + i];
-      d_hist[(size_t)b * CL + i] = s;
+      for (int q = 0; q < kCluster; ++q) s += hs[(size_t)q * C * tile + j];
+      d_hist[((size_t)b * C + c) * L + x0 + xx] = s;
     }
   }
 }
@@ -626,16 +661,18 @@ attention_bwd_kernel(const float* __restrict__ pq, const float* __restrict__ pm,
 // `rows` (B, F*C*K + A*F + A): each batch row's partials of d_loc_w (F, C,
 // K), d_loc_lin (A, F) and d_v (A), which the caller sums over the batch.
 // F = 0 (loc_w, loc_lin and d_hist null) is the location-free attention.
+// `tile` (positions a tile, at least 1) comes from attention.py
+// `attention_bwd_plan`.
 extern "C" int attention_step_bwd_f32(const float* pq, const float* pm, const float* memory,
                                       const float* hist, const float* loc_w,
                                       const float* loc_lin, const float* v,
                                       const float* weights, const float* d_context,
                                       const float* d_weights, float* d_pq, float* d_pm,
                                       float* d_memory, float* d_hist, float* rows, int B, int L,
-                                      int A, int D, int C, int F, int K, void* stream) {
-  if (A % kCluster || D % kCluster || L < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const BwdLayout lay(L, A / kCluster, D / kCluster, C, F, K);
-  const size_t smem = (size_t)lay.total * sizeof(float);
+                                      int A, int D, int C, int F, int K, int tile, void* stream) {
+  if (A % kCluster || D % kCluster || L < 1 || B < 1 || tile < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)BwdLayout(L, A / kCluster, D / kCluster, C, F, K, tile).total * sizeof(float);
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -656,7 +693,7 @@ extern "C" int attention_step_bwd_f32(const float* pq, const float* pm, const fl
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, attention_bwd_kernel, pq, pm, memory, hist, loc_w, loc_lin, v,
                            weights, d_context, d_weights, d_pq, d_pm, d_memory, d_hist, rows, L,
-                           A, D, C, F, K);
+                           A, D, C, F, K, tile);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 

@@ -19,6 +19,14 @@ def use_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def use_deterministic() -> None:
+    """cuDNN's deterministic algorithms and no autotuning, so that a train
+    step on the card repeats bit for bit (the convolutions' backward is
+    otherwise free to sum in another order on each call)."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card; it raises when there is none."""
     if device is None:

@@ -5,8 +5,9 @@ plain PyTorch version only for CPU tensors; each counts its launches in an
 integer attribute ``launches``. `SERVING` lists the wrappers that the
 text->wav serving path calls, `TRAINING` those that the ASR train step
 adds (`validate_asr` calls `stft_frames`, `spec_db` and `bilstm_rec`),
-`PAIRED` the backward kernels that the paired train step adds to both, and
-`WRAPPERS` all of them.
+`PAIRED` the backward kernels that the paired train step adds to both,
+`CYCLES` those that the unpaired speech-first step adds to the paired
+step's, and `WRAPPERS` all of them.
 """
 
 from .attention import attention_step, attention_step_bwd
@@ -14,13 +15,15 @@ from .build import build_all
 from .ctc import ctc_alpha, ctc_beta_grad
 from .features import spec_db, stft_frames
 from .griffin_lim import gl_ola_frame, gl_project
+from .quantize import trim_merge, trim_merge_bwd
 from .rnn import (bigru_rec, bigru_rec_bwd, bilstm_rec, bilstm_rec_bwd, bilstm_rec_cs, gru_rec,
                   lstm_rec)
 
 SERVING = (bilstm_rec, bigru_rec, attention_step, gl_project, gl_ola_frame)
 TRAINING = (stft_frames, spec_db, bilstm_rec_cs, bilstm_rec_bwd, ctc_alpha, ctc_beta_grad)
 PAIRED = (bigru_rec_bwd, attention_step_bwd)
-WRAPPERS = SERVING + TRAINING + PAIRED
+CYCLES = (trim_merge, trim_merge_bwd)
+WRAPPERS = SERVING + TRAINING + PAIRED + CYCLES
 
 
 def reset_launches() -> None:
@@ -32,7 +35,8 @@ def launch_counts() -> dict:
     return {w.__name__: w.launches for w in WRAPPERS}
 
 
-__all__ = ["PAIRED", "SERVING", "TRAINING", "WRAPPERS", "attention_step", "attention_step_bwd",
-           "bigru_rec", "bigru_rec_bwd", "bilstm_rec", "bilstm_rec_bwd", "bilstm_rec_cs",
-           "build_all", "ctc_alpha", "ctc_beta_grad", "gl_ola_frame", "gl_project", "gru_rec",
-           "launch_counts", "lstm_rec", "reset_launches", "spec_db", "stft_frames"]
+__all__ = ["CYCLES", "PAIRED", "SERVING", "TRAINING", "WRAPPERS", "attention_step",
+           "attention_step_bwd", "bigru_rec", "bigru_rec_bwd", "bilstm_rec", "bilstm_rec_bwd",
+           "bilstm_rec_cs", "build_all", "ctc_alpha", "ctc_beta_grad", "gl_ola_frame",
+           "gl_project", "gru_rec", "launch_counts", "lstm_rec", "reset_launches", "spec_db",
+           "stft_frames", "trim_merge", "trim_merge_bwd"]

@@ -126,36 +126,40 @@ def attention_step(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, m
 attention_step.launches = 0
 
 
-def _bwd_smem_floats(L, Ac, Dc, C, F_, K) -> int:
+def _bwd_smem_floats(L, Ac, Dc, C, F_, K, tile) -> int:
     """Floats of a K9 CTA's shared memory, region by region as `BwdLayout` in
     csrc/attention.cu lays them out."""
     Fr = -(-F_ // CLUSTER)
-    regions = (C * (L + K - 1), F_ * C * K, Ac * (F_ | 1), L * F_, L * Ac, L * Dc, Dc, L, Ac, Ac,
-               L, L, L)
-    return (sum(_round4(n) for n in regions) + CLUSTER * _round4(L)
-            + 2 * _round4(max(Ac, THREADS)) + _round4(CLUSTER * L * Fr) + _round4(L * Fr)
-            + _round4(CLUSTER * C * L))
+    regions = (C * (L + K - 1), F_ * C * K, Ac * (F_ | 1), Dc, Ac, Ac, L, L, L * Fr, tile * F_)
+    return (sum(_round4(n) for n in regions) + 2 * CLUSTER * _round4(tile)
+            + 2 * _round4(max(Ac, THREADS)) + 2 * _round4(tile * Ac)
+            + 2 * _round4(CLUSTER * tile * Fr) + 2 * _round4(CLUSTER * C * tile))
+
+
+BWD_TILES = (64, 32, 16, 8, 4, 2, 1)  # positions a tile, largest first
 
 
 @functools.lru_cache(maxsize=64)
 def attention_bwd_plan(B: int, L: int, A: int, D: int, C: int, F_: int, K: int) -> dict:
     """K9's launch plan: K3's layout, B clusters of CLUSTER CTAs, CTA r
     owning A/CLUSTER attention columns, D/CLUSTER context columns and the
-    filters f = r + CLUSTER*i. Raises ValueError when A or D is not divisible
-    by CLUSTER, L < 1, or the shared memory needed exceeds what a block may
-    use (L above ~285 at flagship widths)."""
-    if A % CLUSTER or D % CLUSTER:
-        raise ValueError(f"attention_step_bwd kernel needs A and D divisible by {CLUSTER}, "
-                         f"got A={A}, D={D}")
-    if L < 1:
-        raise ValueError(f"attention_step_bwd kernel needs L >= 1, got L={L}")
-    smem = 4 * _bwd_smem_floats(L, A // CLUSTER, D // CLUSTER, C, F_, K)
-    if smem > build.SMEM_PER_BLOCK:
-        raise ValueError(f"attention_step_bwd kernel: L={L} needs {smem} bytes of shared memory "
-                         f"at A={A}, F={F_}; a block may use {build.SMEM_PER_BLOCK}")
-    return dict(cluster=CLUSTER, grid=(CLUSTER * B,), threads=THREADS, smem_bytes=smem,
-                a_per_cta=A // CLUSTER, d_per_cta=D // CLUSTER,
-                filters_per_cta=-(-F_ // CLUSTER))
+    filters f = r + CLUSTER*i. Shared memory holds 2 + C + Fr floats a
+    position; the wide per-position operands are streamed in tiles of
+    ``tile`` positions, the largest of `BWD_TILES` (at most L) that fits (64
+    at flagship widths; less where a tile of wide rows does not fit beside
+    the history). K9 takes the shapes K3 takes (`attention_plan`; L up to
+    1,187 at flagship widths) and raises ValueError where it does."""
+    attention_plan(B, L, A, D, C, F_, K)
+    Ac, Dc = A // CLUSTER, D // CLUSTER
+    sizes = [(t, _bwd_smem_floats(L, Ac, Dc, C, F_, K, t))
+             for t in sorted({min(t, L) for t in BWD_TILES}, reverse=True)]
+    fits = [(t, n) for t, n in sizes if 4 * n <= build.SMEM_PER_BLOCK]
+    if not fits:
+        raise ValueError(f"attention_step_bwd kernel: L={L} needs {4 * sizes[-1][1]} bytes of "
+                         f"shared memory; a block may use {build.SMEM_PER_BLOCK}")
+    t, n = fits[0]
+    return dict(cluster=CLUSTER, grid=(CLUSTER * B,), threads=THREADS, smem_bytes=4 * n,
+                a_per_cta=Ac, d_per_cta=Dc, filters_per_cta=-(-F_ // CLUSTER), tile=t)
 
 
 def attention_step_bwd_plain(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, weights,
@@ -208,19 +212,19 @@ def attention_step_bwd(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, 
         n_filt, K = loc_w.shape[0], loc_w.shape[2]
         build.require(loc_w, (n_filt, C, K), "attention_step_bwd loc_w")
         build.require(loc_lin, (A, n_filt), "attention_step_bwd loc_lin")
-    attention_bwd_plan(B, L, A, D, C, n_filt, K)
+    plan = attention_bwd_plan(B, L, A, D, C, n_filt, K)
     empty = functools.partial(torch.empty, device=pq.device, dtype=torch.float32)
     d_pq, d_pm, d_mem = empty((B, A)), empty((B, L, A)), empty((B, L, D))
     d_hist = torch.zeros_like(attn_hist) if loc_w is None else empty((B, C, L))
     n_lw, n_ll = n_filt * C * K, A * n_filt
     rows = empty((B, n_lw + n_ll + A))  # per-row partials of d_loc_w, d_loc_lin, d_v
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = build.bind("attention", "attention_step_bwd_f32", 15, 7)
+    fn = build.bind("attention", "attention_step_bwd_f32", 15, 8)
     build.check(fn(pq.data_ptr(), processed_memory.data_ptr(), memory.data_ptr(),
                    attn_hist.data_ptr(), ptr(loc_w), ptr(loc_lin), v.data_ptr(), weights.data_ptr(),
                    d_context.data_ptr(), d_weights.data_ptr(), d_pq.data_ptr(), d_pm.data_ptr(),
                    d_mem.data_ptr(), None if loc_w is None else d_hist.data_ptr(),
-                   rows.data_ptr(), B, L, A, D, C, n_filt, K, build.stream()),
+                   rows.data_ptr(), B, L, A, D, C, n_filt, K, plan["tile"], build.stream()),
                 "attention_step_bwd")
     attention_step_bwd.launches += 1
     sums = rows.sum(0)

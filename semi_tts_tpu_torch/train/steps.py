@@ -1,14 +1,19 @@
 """Step functions of the trainers (counterpart of
 `semi_tts_tpu/train/steps.py`): feature extraction with the frame padding,
 the CTC input lengths, the paired CTC and TTS losses, the paired
-(supervised) train step and the evaluation step. The unpaired cycle steps
-are not ported yet.
+(supervised) train step, the unpaired cycles (the speech-first step on even
+steps, the text-first step on odd ones) and the evaluation step.
 
 A step draws its augmentation (SNRs, stretch rate, noise), its dropout and
 prenet masks and its scheduled-sampling coins from one `torch.Generator` on
 the model's device, seeded from (seed, step number) as the JAX step folds
 the step number into its key. Building a step turns TF32 off (`use_fp32`),
-so the card computes in the fp32 the CPU path does.
+so the card computes in the fp32 the CPU path does, and asks cuDNN for
+deterministic algorithms (`use_deterministic`), so a step repeats bit for
+bit. A cycle's escapes stay on the device: the speech-first step gates its
+unpaired loss with the all-blank flag of trim/merge, and the text-first
+step zeroes a non-finite unpaired CTC loss, each a multiplier or a select,
+never a host branch.
 """
 
 from __future__ import annotations
@@ -19,10 +24,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..device import use_fp32
+from ..device import use_deterministic, use_fp32
 from ..models import vqvae as V
 from ..models.decoder import merge_wgrads, wgrad_probes
 from ..ops.ctc import ctc_loss
+from ..ops.quantize import padded_concat, trim_merge_segments
 from .losses import freq_loss
 
 EPS = 1e-10
@@ -46,6 +52,17 @@ def round_up(x, r):
 def _pad_frames(x, r):
     """Pad time (axis 1) to a multiple of ``r`` with at least one extra frame."""
     return F.pad(x, (0, 0, 0, r - x.shape[1] % r), value=SPEC_PAD_VALUE)
+
+
+def _grads(model, total, probes, aux):
+    """The gradients of ``total`` with respect to ``model.parameters()``
+    (None where it does not reach), the decoder cells' weight gradients
+    formed from the probes."""
+    params = list(model.parameters())
+    *grads, gq, gd = torch.autograd.grad(total, params + [probes["q"], probes["d"]],
+                                         allow_unused=True)
+    grads = merge_wgrads(model.tts.decoder, dict(zip(params, grads)), aux, {"q": gq, "d": gd})
+    return [grads[p] for p in params]
 
 
 def step_generator(seed: int, step_no: int, device) -> torch.Generator:
@@ -156,11 +173,123 @@ class StepBuilder:
         total, mets, aux = self._losses_paired(model, mel, linear, aug, text, sid, tf_rate,
                                                generator, wgrad_probes=probes)
         mets["pair_pred_len"] = self._enc_len(aug_flen, mets["pair_pred"].shape[1])
-        params = list(model.parameters())
-        *grads, gq, gd = torch.autograd.grad(total, params + [probes["q"], probes["d"]],
-                                             allow_unused=True)
-        grads = merge_wgrads(model.tts.decoder, dict(zip(params, grads)), aux, {"q": gq, "d": gd})
-        return total.detach(), mets, [grads[p] for p in params]
+        return total.detach(), mets, _grads(model, total, probes, aux)
+
+    def speech_first_loss_and_grads(self, model, step_no, tf_rate, batch, u_batch, generator, *,
+                                    augment=None, u_augment=None, tokens=None):
+        """The speech-first cycle (the JAX builder's even step): the ASR on
+        the paired and unpaired augmented features packed into one batch,
+        the paired CTC, trim/merge of the unpaired rows' quantized latents,
+        the TTS teacher-forced on both batches' clean mels from the paired
+        text's latents and the unpaired trimmed ones, the paired mel and
+        linear losses and the unpaired reconstruction, gated on the device
+        by trim/merge's ``ok`` (no row all blank) and ``step_no >
+        unpair_speech_start``. ``batch``, ``u_batch``: (waves, wave_len,
+        text, sid); ``augment``, ``u_augment``: each batch's (snrs, rate,
+        noise), drawn from ``generator`` when None; ``tokens``: the unpaired
+        rows' tokens for trim/merge instead of their argmax. Returns (total,
+        metrics, grads) as `paired_loss_and_grads`."""
+        cfg, r = self.cfg, self.r
+        waves, wave_len, text, sid = batch
+        u_waves, u_wave_len, _, u_sid = u_batch
+        mel, linear, aug, _, aug_flen = self._features(waves, wave_len, generator, augment=augment)
+        u_mel, u_linear, u_aug, _, u_aug_flen = self._features(u_waves, u_wave_len, generator,
+                                                               augment=u_augment)
+        Bp, Bu = mel.shape[0], u_mel.shape[0]
+        # the decoder runs as many steps as the longer of the two teachers
+        decode_steps = max(mel.shape[1], u_mel.shape[1]) // r
+        probes = wgrad_probes(cfg.tts.decoder, decode_steps, Bp + Bu, mel.device)
+        p_code, q, _ = V.speech_to_text(model, cfg, self.phn_attr, padded_concat(aug, u_aug),
+                                        paired_bs=Bp, train=True, generator=generator)
+        trf = cfg.time_reduce_factor
+        pair_prob = p_code[:Bp, :aug.shape[1] // trf]
+        u_latent, u_lens, ok = trim_merge_segments(p_code[Bp:], q[Bp:],
+                                                   max_frames_per_phn=cfg.max_frames_per_phn,
+                                                   tokens=tokens)
+        asr_loss = self._paired_ctc(aug, pair_prob, text)
+        pair_lat = V.embed_text(model, cfg, self.phn_attr, text)
+        lat_len = torch.cat([(text != 0).sum(-1) + 1, u_lens.to(torch.int64)])
+        mel_pred, lin_pred, align, _, aux = V.text_to_speech(
+            model, cfg, padded_concat(pair_lat, u_latent), torch.cat([sid, u_sid]),
+            decode_steps=decode_steps, latent_lengths=lat_len, generator=generator, train=True,
+            teacher=padded_concat(mel, u_mel), tf_rate=tf_rate, wgrad_probes=probes)
+        Tp, Tu = mel.shape[1], u_mel.shape[1]
+        mel_loss = self.floss(mel_pred[:Bp, :Tp], mel)
+        lin_loss = self.floss(lin_pred[:Bp, :Tp], linear)
+        u_sph_loss = (self.floss(mel_pred[Bp:, :Tu], u_mel)
+                      + self.floss(lin_pred[Bp:, :Tu], u_linear))
+        gate = ok.to(mel.dtype) * float(step_no > self.w.unpair_speech_start)
+        total = (self.w.asr * asr_loss + self.w.tts * (mel_loss + lin_loss)
+                 + self.w.unpair_speech * gate * u_sph_loss)
+        p_det = p_code.detach()
+        mets = dict(asr_loss=asr_loss.detach(), mel_loss=mel_loss.detach(),
+                    linear_loss=lin_loss.detach(), tts_loss=(mel_loss + lin_loss).detach(),
+                    unpair_speech_loss=u_sph_loss.detach(), unpair_ok=ok,
+                    pair_align=align[:Bp].detach(), unpair_align=align[Bp:].detach(),
+                    pair_pred=pair_prob.detach().argmax(-1),
+                    pair_pred_len=self._enc_len(aug_flen, pair_prob.shape[1]),
+                    unpair_pred=p_det[Bp:].argmax(-1),
+                    unpair_pred_len=self._enc_len(u_aug_flen, p_code.shape[1]))
+        return total.detach(), mets, _grads(model, total, probes, aux)
+
+    def text_first_loss_and_grads(self, model, tf_rate, batch, u_batch, generator, *,
+                                  augment=None):
+        """The text-first cycle (the JAX builder's odd step): the TTS on the
+        paired and unpaired texts' latents, the paired rows teacher-forced
+        on their clean mel and the unpaired rows fed their own output for
+        ``round_up(FRAME_PHN_RATIO * U_u, r)`` frames, the paired mel and
+        linear losses; then the ASR on the paired augmented features packed
+        with the unpaired fake mel (detached; the codebook table detached
+        for those rows), the paired CTC and the unpaired text's CTC, zeroed
+        on the device where it is not finite (``ctc_nan``). ``batch``,
+        ``u_batch``: (waves, wave_len, text, sid), of the unpaired batch
+        only the text and sids are read. Returns (total, metrics, grads) as
+        `paired_loss_and_grads`."""
+        cfg, r = self.cfg, self.r
+        waves, wave_len, text, sid = batch
+        u_text, u_sid = u_batch[2], u_batch[3]
+        mel, linear, aug, _, aug_flen = self._features(waves, wave_len, generator, augment=augment)
+        Bp, Bu = mel.shape[0], u_text.shape[0]
+        # the fake mel's length: FRAME_PHN_RATIO frames a token, rounded up to r
+        u_ts = round_up(int(V.FRAME_PHN_RATIO * u_text.shape[1]), r)
+        decode_steps = max(mel.shape[1] // r, u_ts // r)
+        probes = wgrad_probes(cfg.tts.decoder, decode_steps, Bp + Bu, mel.device)
+        pair_lat = V.embed_text(model, cfg, self.phn_attr, text)
+        u_lat = V.embed_text(model, cfg, self.phn_attr, u_text)
+        teacher = torch.cat([mel, mel.new_zeros((Bu,) + mel.shape[1:])])
+        teacher_rows = torch.arange(Bp + Bu, device=mel.device) < Bp
+        lat_len = torch.cat([(text != 0).sum(-1) + 1, (u_text != 0).sum(-1) + 1])
+        mel_pred, lin_pred, align, _, aux = V.text_to_speech(
+            model, cfg, padded_concat(pair_lat, u_lat), torch.cat([sid, u_sid]),
+            decode_steps=decode_steps, latent_lengths=lat_len, generator=generator, train=True,
+            teacher=teacher, teacher_rows=teacher_rows, tf_rate=tf_rate, wgrad_probes=probes)
+        Tp = mel.shape[1]
+        mel_loss = self.floss(mel_pred[:Bp, :Tp], mel)
+        lin_loss = self.floss(lin_pred[:Bp, :Tp], linear)
+        fake_mel = mel_pred[Bp:, :u_ts].detach()
+        p_code, _, _ = V.speech_to_text(model, cfg, self.phn_attr, padded_concat(aug, fake_mel),
+                                        paired_bs=Bp, first_n_real_mel=Bp, train=True,
+                                        generator=generator)
+        trf = cfg.time_reduce_factor
+        pair_prob = p_code[:Bp, :aug.shape[1] // trf]
+        u_prob = p_code[Bp:, :u_ts // trf]
+        asr_loss = self._paired_ctc(aug, pair_prob, text)
+        u_tlen = (u_text != 0).sum(-1)
+        if self.actual_len:
+            ctc_len = 1 + round_up(u_tlen * int(V.FRAME_PHN_RATIO), r) // trf
+        else:
+            ctc_len = torch.full((Bu,), u_prob.shape[1], dtype=torch.int32, device=mel.device)
+        u_txt_loss = ctc_loss(torch.log(u_prob + EPS), u_text, ctc_len, u_tlen)
+        ctc_nan = ~torch.isfinite(u_txt_loss)
+        u_txt_loss = torch.where(ctc_nan, 0.0, u_txt_loss)
+        total = (self.w.asr * asr_loss + self.w.tts * (mel_loss + lin_loss)
+                 + self.w.unpair_text * u_txt_loss)
+        mets = dict(asr_loss=asr_loss.detach(), mel_loss=mel_loss.detach(),
+                    linear_loss=lin_loss.detach(), tts_loss=(mel_loss + lin_loss).detach(),
+                    unpair_text_loss=u_txt_loss.detach(), ctc_nan=ctc_nan,
+                    pair_align=align[:Bp].detach(), pair_pred=pair_prob.detach().argmax(-1),
+                    pair_pred_len=self._enc_len(aug_flen, pair_prob.shape[1]))
+        return total.detach(), mets, _grads(model, total, probes, aux)
 
     def make_paired_step(self, optimizer, *, seed: int = 0):
         """``paired_step(model, step_no, tf_rate, waves, wave_len, text, sid,
@@ -169,6 +298,7 @@ class StepBuilder:
         BatchNorm running statistics are updated in place. ``optimizer``
         holds ``model.parameters()`` in order."""
         use_fp32()
+        use_deterministic()
 
         def paired_step(model, step_no, tf_rate, waves, wave_len, text, sid, *, augment=None):
             g = step_generator(seed, step_no, waves.device)
@@ -178,6 +308,46 @@ class StepBuilder:
             return mets
 
         return paired_step
+
+    def make_speech_first_step(self, optimizer, *, seed: int = 0):
+        """``speech_first_step(model, step_no, tf_rate, waves, wave_len, text,
+        sid, u_waves, u_wave_len, u_text, u_sid, augment=None, u_augment=None,
+        tokens=None)`` -> the metrics of `speech_first_loss_and_grads`, with
+        total_loss and grad_norm; updates as `make_paired_step`'s step."""
+        use_fp32()
+        use_deterministic()
+
+        def speech_first_step(model, step_no, tf_rate, waves, wave_len, text, sid, u_waves,
+                              u_wave_len, u_text, u_sid, *, augment=None, u_augment=None,
+                              tokens=None):
+            g = step_generator(seed, step_no, waves.device)
+            total, mets, grads = self.speech_first_loss_and_grads(
+                model, step_no, tf_rate, (waves, wave_len, text, sid),
+                (u_waves, u_wave_len, u_text, u_sid), g, augment=augment, u_augment=u_augment,
+                tokens=tokens)
+            mets.update(total_loss=total, grad_norm=optimizer.step(grads))
+            return mets
+
+        return speech_first_step
+
+    def make_text_first_step(self, optimizer, *, seed: int = 0):
+        """``text_first_step(model, step_no, tf_rate, waves, wave_len, text,
+        sid, u_waves, u_wave_len, u_text, u_sid, augment=None)`` -> the
+        metrics of `text_first_loss_and_grads`, with total_loss and
+        grad_norm; updates as `make_paired_step`'s step."""
+        use_fp32()
+        use_deterministic()
+
+        def text_first_step(model, step_no, tf_rate, waves, wave_len, text, sid, u_waves,
+                            u_wave_len, u_text, u_sid, *, augment=None):
+            g = step_generator(seed, step_no, waves.device)
+            total, mets, grads = self.text_first_loss_and_grads(
+                model, tf_rate, (waves, wave_len, text, sid), (u_waves, u_wave_len, u_text, u_sid),
+                g, augment=augment)
+            mets.update(total_loss=total, grad_norm=optimizer.step(grads))
+            return mets
+
+        return text_first_step
 
     def make_eval_step(self):
         """The dev-set step: clean features -> ``speech_to_text(train=False)``

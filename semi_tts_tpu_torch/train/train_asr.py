@@ -9,7 +9,8 @@ clean path runs in `AsrTrainer.validate_asr`. The step runs where the model
 and the featurizer live: the card, unless they were built with
 ``device="cpu"`` (`AudioFeaturizer` resolves its device so). Building a step
 turns TF32 off (`use_fp32`), so the card computes in the fp32 the CPU path
-does.
+does, and asks cuDNN for deterministic algorithms (`use_deterministic`), so
+a step repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -17,11 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import use_fp32
+from ..device import use_deterministic, use_fp32
 from ..models import vqvae as V
 from ..utils.metrics import cal_per
 from .steps import step_generator
-from .train_vqvae import VqvaeTrainer
+from .train_vqvae import PAIRED, VqvaeTrainer
 
 
 def asr_loss_and_grads(builder, model, waves, wave_len, text, generator, *, augment=None):
@@ -55,6 +56,7 @@ def make_asr_step(builder, optimizer, *, seed: int = 0):
     parameters and the BN running statistics are updated in place.
     ``optimizer`` holds ``model.parameters()`` in order."""
     use_fp32()
+    use_deterministic()
 
     def asr_step(model, step_no, waves, wave_len, text, sid, *, augment=None):
         g = step_generator(seed, step_no, waves.device)
@@ -73,8 +75,14 @@ class AsrTrainer(VqvaeTrainer):
     def _make_step(self):
         return make_asr_step(self.builder, self.optimizer, seed=self.seed)
 
-    def _train_step(self, waves, wave_len, text, sid):
-        return self._step_fn(self.model, self.step, waves, wave_len, text, sid)
+    def _make_cycles(self):
+        return {}
+
+    def step_kind(self) -> str:
+        return PAIRED
+
+    def _train_step(self, batch, unpaired=None):
+        return self._step_fn(self.model, self.step, *batch)
 
     def validate(self):
         return self.validate_asr()

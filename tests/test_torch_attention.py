@@ -197,16 +197,55 @@ def test_attention_step_bwd_plain_matches_autograd(loc_aware):
 
 def test_attention_bwd_plan_flagship():
     """K9 at the paired step's shapes (B=8, L=32): K3's clusters, 4 filters
-    a CTA; L up to ~285 fits; outside its shapes it raises."""
+    a CTA, the 32 positions in one tile; longer memories in tiles of 64
+    positions (a partial last one at L=700 and 1,187), up to the 1,187 K3
+    takes at flagship widths (the first L that K3 refuses, K9 refuses too);
+    outside its shapes it raises."""
     from semi_tts_tpu_torch.kernels import attention as k3, build
 
     shapes = {**FLAGSHIP, "B": 8}
     plan = k3.attention_bwd_plan(**shapes)
     assert plan["cluster"] == 8 and plan["grid"] == (64,) and plan["threads"] == 256
     assert (plan["a_per_cta"], plan["d_per_cta"], plan["filters_per_cta"]) == (32, 64, 4)
-    assert plan["smem_bytes"] <= 64 * 1024
-    assert k3.attention_bwd_plan(**{**shapes, "L": 280})["smem_bytes"] <= build.SMEM_PER_BLOCK
+    assert plan["smem_bytes"] <= 64 * 1024 and plan["tile"] == 32
+    assert k3.attention_bwd_plan(**{**shapes, "L": 280})["tile"] == 64
+    for L in (700, 1187):
+        long = k3.attention_bwd_plan(**{**shapes, "L": L})
+        assert long["tile"] == 64 and L % 64 and long["smem_bytes"] <= build.SMEM_PER_BLOCK
+    assert k3.attention_bwd_plan(**{**shapes, "L": 1})["tile"] == 1
     assert k3.attention_bwd_plan(**{**shapes, "F_": 0, "K": 1})["filters_per_cta"] == 0
-    for change in (dict(A=260), dict(D=516), dict(L=0), dict(L=300)):
+    first_refused = dict(L=1188)
+    with pytest.raises(ValueError):
+        k3.attention_plan(**{**shapes, **first_refused})
+    for change in (dict(A=260), dict(D=516), dict(L=0), first_refused):
         with pytest.raises(ValueError):
             k3.attention_bwd_plan(**{**shapes, **change})
+
+
+def _longest(plan, widths):
+    """The largest L that ``plan`` takes at ``widths`` (0 if none)."""
+    lo, hi = 0, 1 << 15
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        try:
+            plan(1, mid, *widths)
+            lo = mid
+        except ValueError:
+            hi = mid - 1
+    return lo
+
+
+@pytest.mark.parametrize("A,D,C,F_,K", [(256, 512, 2, 32, 31), (8, 16, 2, 4, 7), (8, 8, 1, 64, 31),
+                                         (32, 64, 2, 64, 31), (1024, 512, 1, 0, 1),
+                                         (4096, 8, 2, 64, 31), (2048, 4096, 2, 8, 7)])
+def test_attention_bwd_plan_takes_every_length_k3_takes(A, D, C, F_, K):
+    """K9 takes every memory length K3 takes and no other, at the flagship's
+    widths, the tests' and others down to one attention column a CTA: it
+    holds fewer floats a position than K3, in tiles of fewer positions where
+    a tile of 64 does not fit."""
+    from semi_tts_tpu_torch.kernels import attention as k3
+
+    widths = (A, D, C, F_, K)
+    k3_max = _longest(k3.attention_plan, widths)
+    assert k3_max > 0 and _longest(k3.attention_bwd_plan, widths) == k3_max
+    assert k3.attention_bwd_plan(1, k3_max, *widths)["smem_bytes"] <= k3.build.SMEM_PER_BLOCK

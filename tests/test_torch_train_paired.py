@@ -217,11 +217,13 @@ def _trainer(weights, **kw):
     opt = PO.Optimizer(port.parameters(), lr=1e-3)
     waves, lengths, text, _, _ = _batch()
     batch = tuple(map(torch.from_numpy, (waves, lengths, text))) + (torch.tensor([0, 1]),)
+    u_waves, u_lengths, u_text, _, _ = _batch(S=9000, seed=7)
+    unpaired = tuple(map(torch.from_numpy, (u_waves, u_lengths, u_text))) + (torch.tensor([2, 1]),)
     logged = []
-    trainer = VqvaeTrainer(port, pb, opt, pair_iter=iter([batch] * 3), dev_set=[batch],
+    trainer = VqvaeTrainer(port, pb, opt, pair_iter=iter([batch] * 4),
+                           unpair_iter=iter([unpaired] * 4), dev_set=[batch],
                            log=lambda *a: logged.append(a), **kw)
     return trainer, opt, logged
-
 
 def test_vqvae_trainer_runs_paired_steps_and_validates():
     """A paired-only config: every step is the paired step; the losses and
@@ -241,15 +243,54 @@ def test_vqvae_trainer_runs_paired_steps_and_validates():
     assert trainer.best_tts_loss == min(dev_tts) and trainer.best_per == min(dev_per + [2.0])
 
 
-@pytest.mark.parametrize("weights,fails_at", [(Weights(unpair_speech=1.0), 2),
-                                              (Weights(unpair_text=1.0), 1),
-                                              (Weights(unpair_text=1.0, unpair_text_start=2), 3)])
-def test_vqvae_trainer_raises_where_a_cycle_would_run(weights, fails_at):
-    """Where the JAX loop would run a speech-first (even steps) or
-    text-first (odd steps) cycle after its start step, the trainer raises
-    NotImplementedError naming ROADMAP A7; the paired steps before run."""
-    trainer, _, _ = _trainer(weights, max_step=4, valid_step=100)
-    trainer.pair_iter = iter([next(trainer.pair_iter)] * 4)
-    with pytest.raises(NotImplementedError, match="A7"):
+@pytest.mark.parametrize("weights,kinds", [
+    (Weights(unpair_speech=1.0), ["paired", "paired", "speech_first", "paired"]),
+    (Weights(unpair_text=1.0), ["paired", "text_first", "paired", "text_first"]),
+    (Weights(unpair_text=1.0, unpair_text_start=2), ["paired", "paired", "paired", "text_first"])])
+def test_vqvae_trainer_runs_the_cycle_of_each_step(weights, kinds):
+    """The trainer runs the step the JAX loop runs: the speech-first cycle
+    on even steps and the text-first cycle on odd steps past their start
+    step, the paired step otherwise (told apart by their metrics). The
+    cycles' device flags are read back in one transfer at each progress
+    step (steps 1, 2 and 4 with progress_step 2), after which nothing is
+    pending; the logged counters add up to the cycles run. A speech-first
+    step whose unpaired tokens (``tokens=``) keep segments is counted in
+    ``unp_sph`` and fills the token usage; one whose tokens are all blank is
+    not counted and leaves the token usage empty."""
+    for token in ((5, 0) if "speech_first" in kinds else (None,)):
+        trainer, opt, logged = _trainer(weights, max_step=4, valid_step=100, progress_step=2)
+        ran, reads = [], []
+        step, read = trainer._train_step, trainer._read
+
+        def record(batch, unpaired=None):
+            mets = step(batch, unpaired)
+            ran.append("speech_first" if "unpair_ok" in mets else
+                       "text_first" if "ctc_nan" in mets else "paired")
+            return mets
+
+        def count_read(tensors):
+            reads.append((trainer.step, len(trainer._pending)))
+            return read(tensors)
+
+        trainer._train_step, trainer._read = record, count_read
+        if token is not None:
+            probe = copy.deepcopy(trainer.model)
+            _, mets, _ = trainer.builder.speech_first_loss_and_grads(
+                probe, 2, 1.0, next(iter(trainer.dev_set)), next(trainer.unpair_iter), None)
+            tokens = torch.full_like(mets["unpair_pred"], token)
+            fn = trainer._cycle_fns["speech_first"]
+            trainer._cycle_fns["speech_first"] = lambda *a, **k: fn(*a, tokens=tokens, **k)
         trainer.exec()
-    assert trainer.step == fails_at
+        assert ran == kinds and trainer.step == 4 and int(opt.count) == 4
+        assert [s for s, _ in reads] == [1, 2, 4] and trainer._pending == []
+        n_cycles = [sum(k != "paired" for k in kinds[:s]) for s in (1, 2, 4)]
+        assert [n for _, n in reads] == [b - a for a, b in zip([0] + n_cycles, n_cycles)]
+        counts = {k: sum(v for _, n, v in logged if n == "counter/" + k)
+                  for k in ("ctc_nan", "unp_sph", "unp_txt")}
+        assert counts["unp_txt"] == kinds.count("text_first") and counts["ctc_nan"] == 0
+        if token == 0:
+            assert counts["unp_sph"] == 0 and trainer.token_usage.sum() == 0
+        else:
+            assert counts["unp_sph"] == kinds.count("speech_first")
+            assert (trainer.token_usage.sum() > 0) == (token is not None)
+        assert all(np.isfinite(v) for _, _, v in logged)
