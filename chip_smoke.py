@@ -8,13 +8,18 @@ Phases, each fatal on failure:
 1. device: a CUDA card must be present; prints nvidia-smi's name and power limit;
 2. build: compiles every kernel under ``semi_tts_tpu_torch/csrc`` with nvcc (sm_90a);
 3. kernels: each kernel at its serving shapes against its plain PyTorch version
-   (max abs error against a stated tolerance), plus ragged shapes; device time of
+   (max abs error against a stated tolerance), plus ragged shapes and every
+   shape it is timed at; device time of
    the kernel, of the plain version and of one PyTorch library call where one
    computes the same function (CUDA events around a replayed CUDA graph of many
    calls), the kernel's eager time through its Python wrapper, and the least
    time the card could take (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s fp32,
    whichever is larger); for the recurrences also the time per step, for K1
    by batch rows per cluster (``ms_by_rows``) and at the ASR shape T=267; for
+   K7 and K8 their time, plain time and bound at every shape the train
+   steps give them (``ms_by_shape``, ``plain_ms_by_shape``,
+   ``bound_ms_by_shape``; shapes a step gives that phase 3 did not time are
+   held to the plain version and timed after phase 7, ``shapes_seen``), for
    K3 its cluster size (``cluster``), for K4 ``gl_ola_frame`` its time by
    output frames per CTA (``ms_by_tile``) and the default tile (``tile``);
    rows without a library yardstick say why in ``library``;
@@ -643,15 +648,56 @@ def _lstm_bwd_inputs(randn, unif, T, B_, H, ndir=2):
     return w + gates + [randn(T, B_, ndir * H, scale=0.5), randn(T, B_, ndir * H)]
 
 
+def _lstm_bwd_cost(T, B_, H, ndir=2):
+    """(bytes moved, FLOPs) of one K7 call: gates in and dgates out per
+    direction, cs and g_hs, W_hh per direction; the step products."""
+    return (4 * (2 * ndir * T * B_ * 4 * H + 2 * T * B_ * ndir * H + ndir * 4 * H * H),
+            2 * ndir * T * B_ * 4 * H * H)
+
+
+def _gru_bwd_cost(T, B_, H):
+    """(bytes moved, FLOPs) of one K8 call (both directions): z, coef_h,
+    g_hs and dh2, W_hh per direction; the step products."""
+    return 4 * (T * B_ * H * 12 + 2 * 3 * H * H), 2 * 2 * T * B_ * 3 * H * H
+
+
+def shape_key(T, B_, H, ndir=2):
+    return f"T={T} B={B_} H={H}" + ("" if ndir == 2 else f" ndir={ndir}")
+
+
+def _timed_by_shape(shapes, inputs, kernel, plain, cost):
+    """``timed``, ``timed_plain`` and ``bound_ms_by_shape`` of a recurrence
+    at each (T, B, H[, ndir]) of ``shapes``."""
+    args = {shape_key(*sh): inputs(*sh) for sh in shapes}
+    return ({k: lambda a=a: kernel(*a) for k, a in args.items()},
+            {k: lambda a=a: plain(*a) for k, a in args.items()},
+            {shape_key(*sh): bound(*cost(*sh))[0] for sh in shapes})
+
+
+# (T, B, H, ndir) of K7 in the train steps: the ASR BiLSTM (T=133) on 8
+# (ASR and paired steps) or 16 rows (cycles), the TTS encoder's (T=32 tokens)
+# on 8 or 16 rows; the run adds any other shape the steps give the wrappers
+K7_SHAPES = ((133, 8, 256, 2), (133, 16, 256, 2), (32, 8, 256, 2), (32, 16, 256, 2))
+# (T, B, H) of K8, the CBHG BiGRU over the paired (8) or paired + unpaired (16) rows
+K8_SHAPES = ((PAIRED_T, 8, 80), (PAIRED_T, 16, 80))
+
+
 def _case_lstm_bwd(randn, unif, dev):
     """K7 at the ASR BiLSTM's train-step shape (T=133, B=8, H=256, both
-    directions in one launch); also at T=1, B=5, H=80 and one direction."""
+    directions in one launch); also at T=1, B=5, H=80, one direction, and
+    one direction at H=288 (the largest it takes) on a ragged batch. Timed
+    at every shape of `K7_SHAPES` (``ms_by_shape``, ``plain_ms_by_shape``,
+    ``bound_ms_by_shape``)."""
     from semi_tts_tpu_torch.kernels import rnn as k17
 
     T, H, D = 133, 256, 512
     args = _lstm_bwd_inputs(randn, unif, T, TRAIN_B, H)
     others = [_lstm_bwd_inputs(randn, unif, 1, TRAIN_B, H), _lstm_bwd_inputs(randn, unif, 40, 5, H),
-              _lstm_bwd_inputs(randn, unif, 40, 5, 80), _lstm_bwd_inputs(randn, unif, T, 5, H, 1)]
+              _lstm_bwd_inputs(randn, unif, 40, 5, 80), _lstm_bwd_inputs(randn, unif, T, 5, H, 1),
+              _lstm_bwd_inputs(randn, unif, 40, 5, k17.LSTM_MAX_H, 1)]
+    timed, timed_plain, bounds = _timed_by_shape(
+        K7_SHAPES, lambda T_, B_, H_, n: _lstm_bwd_inputs(randn, unif, T_, B_, H_, n),
+        k17.bilstm_rec_bwd, k17.bilstm_rec_bwd_plain, _lstm_bwd_cost)
     checks = [(lambda a=a: k17.bilstm_rec_bwd(*a), lambda a=a: k17.bilstm_rec_bwd_plain(*a))
               for a in others]
     lstm = torch.nn.LSTM(D, H, bidirectional=True).to(dev)
@@ -671,9 +717,10 @@ def _case_lstm_bwd(randn, unif, dev):
         library_timing="eager",
         library_note="the backward of cuDNN nn.LSTM(bidirectional=True): also the input "
         "GEMM's data and weight gradients and dW_hh (CUDA events, eager)", tol=1e-4,
-        nbytes=4 * (2 * 2 * T * TRAIN_B * 4 * H + 2 * T * TRAIN_B * 2 * H + 2 * 4 * H * H),
-        flops=2 * 2 * T * TRAIN_B * 4 * H * H, iters=10,
-        extra={"plan": k17.lstm_bwd_plan(TRAIN_B, H, 2, k17.max_clusters(H, "lstm_rec_bwd"))})
+        nbytes=_lstm_bwd_cost(T, TRAIN_B, H)[0], flops=_lstm_bwd_cost(T, TRAIN_B, H)[1], iters=10,
+        timed=timed, timed_plain=timed_plain,
+        extra={"plan": k17.lstm_bwd_plan(TRAIN_B, H, 2, k17.max_clusters(H, "lstm_rec_bwd")),
+               "bound_ms_by_shape": bounds})
 
 
 def _case_lstm_cs(randn, unif, dev):
@@ -714,11 +761,14 @@ def _gru_bwd_inputs(randn, unif, T, B_, H):
 def _case_gru_bwd(randn, unif, dev):
     """K8 at the CBHG BiGRU's paired-step shape (T=243, B=8, H=80, both
     directions in one launch); also at T=37, B=3, H=50, at T=1, and at
-    H=128, the largest K2 takes."""
+    H=128, the largest K2 takes. Timed at every shape of `K8_SHAPES`."""
     from semi_tts_tpu_torch.kernels import rnn as k8
 
     T, H = PAIRED_T, 80
     args = _gru_bwd_inputs(randn, unif, T, TRAIN_B, H)
+    timed, timed_plain, bounds = _timed_by_shape(
+        K8_SHAPES, lambda T_, B_, H_: _gru_bwd_inputs(randn, unif, T_, B_, H_),
+        k8.bigru_rec_bwd, k8.bigru_rec_bwd_plain, _gru_bwd_cost)
     others = [_gru_bwd_inputs(randn, unif, 37, 3, 50), _gru_bwd_inputs(randn, unif, 1, 3, H),
               _gru_bwd_inputs(randn, unif, 20, 5, 128)]
     gru = torch.nn.GRU(H, H, bidirectional=True).to(dev)
@@ -739,8 +789,9 @@ def _case_gru_bwd(randn, unif, dev):
         library_timing="eager",
         library_note="the backward of cuDNN nn.GRU(bidirectional=True): also the input GEMM's "
         "data and weight gradients and dW_hh (CUDA events, eager)", tol=1e-4,
-        nbytes=4 * (T * TRAIN_B * H * 12 + 2 * 3 * H * H), flops=2 * 2 * T * TRAIN_B * 3 * H * H,
-        iters=10)
+        nbytes=_gru_bwd_cost(T, TRAIN_B, H)[0], flops=_gru_bwd_cost(T, TRAIN_B, H)[1], iters=10,
+        timed=timed, timed_plain=timed_plain, extra={"plan": k8.gru_bwd_plan(TRAIN_B, H, 2),
+                                                     "bound_ms_by_shape": bounds})
 
 
 def _case_attention_bwd(randn, unif, dev):
@@ -889,6 +940,70 @@ def _case_trim_merge_bwd(randn, unif, dev):
         nbytes=4 * (2 * B_ * T * D_ + 2 * B_ * T), flops=B_ * T * D_, iters=200)
 
 
+def record_recurrence_shapes():
+    """Record every (T, B, H[, ndir]) that the train steps give K7 and K8 on
+    the card, into the returned {wrapper name: set of shapes}: the autograd
+    Functions of ``ops/rnn.py`` call the wrappers by the names they
+    imported, which this wraps (the wrappers still count their own
+    launches)."""
+    from semi_tts_tpu_torch.ops import rnn as ops_rnn
+
+    seen = {"bilstm_rec_bwd": set(), "bigru_rec_bwd": set()}
+
+    def wrap(name, shape_of):
+        fn = getattr(ops_rnn, name)
+
+        def recorded(*a):
+            if a[2].is_cuda:
+                seen[name].add(shape_of(*a))
+            return fn(*a)
+        setattr(ops_rnn, name, recorded)
+
+    wrap("bilstm_rec_bwd", lambda w_f, w_b, g_f, g_b, *_: (*g_f.shape[:2], w_f.shape[1],
+                                                          1 if g_b is None else 2))
+    wrap("bigru_rec_bwd", lambda w_f, w_b, z_f, *_: (*z_f.shape[:2], w_f.shape[1]))
+    return seen
+
+
+def time_seen_shapes(table, dev, seen_shapes):
+    """K7 and K8 at each shape the train steps gave them that phase 3 did
+    not time: held to the plain version and timed as phase 3 times its
+    shapes; ``shapes_seen`` lists every shape the steps gave them."""
+    from semi_tts_tpu_torch.kernels import rnn as k
+
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def unif(*shape, a):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * a
+
+    specs = {"bilstm_rec_bwd": (lambda *sh: _lstm_bwd_inputs(randn, unif, *sh), k.bilstm_rec_bwd,
+                                k.bilstm_rec_bwd_plain, _lstm_bwd_cost),
+             "bigru_rec_bwd": (lambda *sh: _gru_bwd_inputs(randn, unif, *sh), k.bigru_rec_bwd,
+                               k.bigru_rec_bwd_plain, _gru_bwd_cost)}
+    for row in table:
+        if row["name"] not in specs:
+            continue
+        inputs, kernel, plain, cost = specs[row["name"]]
+        seen = sorted(seen_shapes[row["name"]])
+        row["shapes_seen"] = [shape_key(*sh) for sh in seen]
+        with torch.no_grad():
+            for sh in seen:
+                key = shape_key(*sh)
+                if key in row["ms_by_shape"]:
+                    continue
+                a = inputs(*sh)
+                err = max_err(kernel(*a), plain(*a))
+                if not err <= row["tol"]:
+                    raise SystemExit(f"chip_smoke: {row['name']} disagrees with its plain "
+                                     f"version at {key}: {err}")
+                row["ms_by_shape"][key] = device_ms(lambda: kernel(*a), 10)
+                row["plain_ms_by_shape"][key] = device_ms(lambda: plain(*a), 2)
+                row["bound_ms_by_shape"][key] = bound(*cost(*sh))[0]
+
+
 def kernel_cases(dev):
     """One dict per kernel at its serving shapes: the kernel call, its plain
     version, a PyTorch library call or None, tolerance, bytes, FLOPs."""
@@ -911,8 +1026,9 @@ def phase_kernels(dev):
     out = []
     with torch.no_grad():
         for c in kernel_cases(dev):
+            timed = [(f, c["timed_plain"][k]) for k, f in c.get("timed", {}).items()]
             err = max(max_err(kernel(), plain())
-                      for kernel, plain in [(c["kernel"], c["plain"])] + c.get("checks", []))
+                      for kernel, plain in [(c["kernel"], c["plain"])] + c.get("checks", []) + timed)
             print(f"kernel {c['name']}: max_abs_err {err:.3e} (tol {c['tol']:.0e})", flush=True)
             if not err <= c["tol"]:
                 raise SystemExit(f"chip_smoke: {c['name']} disagrees with its plain version")
@@ -1741,6 +1857,7 @@ def main():
     kernels.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, {BUILD_DIR})", flush=True)
     print(json.dumps({"ptxas": ptxas_report(LOGS.get("rnn", ""))}), flush=True)
+    seen_shapes = record_recurrence_shapes()
     table = phase_kernels(dev)
     print(json.dumps({"asr_shape": asr_lstm_check(dev)}), flush=True)
     print(json.dumps({"featurizer": featurizer_line(dev)}), flush=True)
@@ -1748,6 +1865,7 @@ def main():
     training = phase_training(dev)
     paired = phase_paired(dev)
     cycles = phase_cycles(dev)
+    time_seen_shapes(table, dev, seen_shapes)
     launches = {"serving request": serving["launches"], "ASR train step": training["launches"],
                 "paired train step": paired["launches"],
                 "speech-first step": cycles["launches"][SPEECH_FIRST],

@@ -47,7 +47,8 @@
 // - Measured on an H100 (PERF.md): a K1 step is held back by the shared-memory
 //   reads of the product (W_hh and h, 16 bytes a lane per load) and by the
 //   DSMEM stores plus cluster barrier; a K2 step by the cell update and the
-//   block barrier.
+//   block barrier; a K7 step by its partial sums (phase B), a K8 step by its
+//   FMA chain behind the barrier.
 // Gate order is torch's: i, f, g, o for the LSTM and r, z, n for the GRU.
 
 #include <cooperative_groups.h>
@@ -452,19 +453,30 @@ Dir make_dir(const float* x_proj, const float* w_hh, const float* b_hh, int reve
 // caller recomputed with one GEMM (x_proj + h_prev @ W_hh^T, as JAX does).
 // dW_hh = sum_t dgates_t^T h_prev_t is one GEMM outside the kernel.
 //
-// What bounds it: as K1, the latency of T dependent steps. The step product
-// has K1's shape transposed, so K1's layout is kept: a cluster of 8 CTAs
-// serves R batch rows of one direction, and CTA r keeps the 4*U gate rows of
-// W_hh of its units [r*U, r*U + U) in shared memory (128 KiB at H=256),
-// loaded once. A step: (A) thread (row, unit) updates dh/dc and its 4 gate
-// gradients, which only need that unit's dh_rec and dc, so they stay local;
-// (B) thread k forms the CTA's partial sum of dh_rec[k] over its 4*U rows for
-// all R rows (W_hh read once per row group, gate gradients as float4
-// broadcasts) and stores it into the slot of its rank in the CTA that owns
-// unit k, through distributed shared memory; one cluster barrier; the owner
-// sums the 8 slots in rank order at the next step's (A). The slots are
-// double-buffered, so one barrier a step is race-free. The next step's
-// inputs are loaded into registers one step ahead.
+// What bounds it: as K1, the latency of T dependent steps. A cluster of 8
+// CTAs serves R batch rows of one direction; CTA r owns the units
+// [r*U, r*U + U) and their 4*U gate rows of W_hh. A step:
+// - (A) thread (row, unit) waits for its unit's partial sums of dh_rec (one
+//   from each CTA that owns units: 8 unless 8U > H), adds them in rank
+//   order and forms dh, dc and the 4 gate gradients. All that does not
+//   depend on dh_rec (the activations, the products that multiply dh and
+//   dc) was formed before the wait, from inputs that a cp.async ring holds
+//   kRing steps ahead.
+// - (B) lane (quad kq, g) of a group of 8 holds W_hh at the columns
+//   4kq .. 4kq + 3 and at the gate rows 4(8i + g) .. + 3 of the CTA's slice,
+//   most of them in registers for the whole sequence (the rest in its own
+//   slots of shared memory); it forms 4R independent chains over its rows,
+//   then an xor-shuffle tree (a reduce-scatter over offsets 4, 2, 1) leaves
+//   each lane whole CTA sums of one row at 1, 2 or 4 columns.
+// - (C) each lane sends its sums with st.async into the slot of its rank in
+//   the owner CTA's double-buffered slots; the bytes complete the owner's
+//   mbarrier of that buffer, which the owner armed with the step's byte
+//   count from its peers (its own lanes store theirs and arrive on it).
+//   No cluster barrier a step: a producer forms its step s+2 partial
+//   only after the owner's step s+1 partial reached it, and the owner sends
+//   that only after it read buffer s & 1 and re-armed its mbarrier.
+// The summation order is fixed (chains in row order, the shuffle tree, the
+// slots in rank order), so reruns are bit-identical.
 
 struct BwdDir {
   const float* gates;  // (T, B, 4H) pre-activations
@@ -488,130 +500,355 @@ BwdDir make_bwd_dir(const float* gates, const float* w_hh, float* dgates, int re
   return d;
 }
 
-// Shared memory of one K7 CTA, in floats: W_hh rows (4U, H), the partial-sum
-// slots (2, kCluster, R, U) and the gate gradients (R, 4U).
+constexpr int kRing = 4;        // K7: steps of inputs in shared memory
+constexpr int kStepIn = 6;      // K7: inputs of a (row, unit) a step: 4 gates, c, g_hs
+
+// Chunks of 4 gate rows a lane of K7 holds: the 4U rows over 8 lanes.
+__host__ __device__ constexpr int lstm_bwd_chunks(int U) { return (U + 7) / 8; }
+
+// Of those, the chunks kept in registers; the accumulators of more rows take
+// the rest of the register file.
+// Past 512 threads (NCH = 5) 18 warps leave 96 registers a thread.
+__host__ __device__ constexpr int lstm_bwd_reg_chunks(int R, int NCH) {
+  return NCH >= 5 ? (R <= 2 ? 3 : 1) : NCH < (R <= 2 ? 4 : R == 4 ? 3 : 2) ? NCH
+                                       : (R <= 2 ? 4 : R == 4 ? 3 : 2);
+}
+
+__host__ __device__ constexpr int lstm_bwd_threads(int H, int R, int U) {
+  return ((2 * H > R * U ? 2 * H : R * U) + 31) / 32 * 32;
+}
+
+// Dynamic shared memory of one K7 CTA, in floats: 2 mbarriers (4 floats),
+// the W_hh chunks not in registers (NCH - NREG, 4, H/4, 8 lanes, 4), the
+// partial-sum slots (2, kCluster, R, U), the gate gradients (2, R, 32*NCH)
+// and the input ring (kRing, kStepIn, R*U).
 __host__ __device__ constexpr size_t lstm_bwd_smem_floats(int H, int R, int U) {
-  return (size_t)4 * U * H + (size_t)2 * kCluster * R * U + (size_t)R * 4 * U;
+  return 4 +
+         (size_t)(lstm_bwd_chunks(U) - lstm_bwd_reg_chunks(R, lstm_bwd_chunks(U))) * 128 * (H / 4) +
+         (size_t)2 * kCluster * R * U + (size_t)2 * R * 32 * lstm_bwd_chunks(U) +
+         (size_t)kRing * kStepIn * R * U;
 }
 
 __device__ __forceinline__ float sigmoid_acc(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-struct StepIn {  // one (row, unit)'s inputs of a step
-  float gi, gf, gg, go, c, c_prev, gy;
-};
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
-template <int R>
-__global__ void __launch_bounds__(kGroup * kLstmMaxUnits, 1)
+// The address in CTA `rank` of the cluster of this CTA's shared address a.
+__device__ __forceinline__ unsigned map_rank(unsigned a, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(a), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of parity `parity` of the mbarrier has completed; the
+// acquire at cluster scope makes the peers' st.async bytes visible. A wait
+// of more than 2 s traps, so a lost hand-off fails the launch instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 2000000000ull) __trap();
+}
+
+template <int N>
+__device__ __forceinline__ void st_async(unsigned dst, const float* v, unsigned bar) {
+  if (N == 1)
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
+                     dst),
+                 "f"(v[0]), "r"(bar)
+                 : "memory");
+  else if (N == 2)
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+            dst),
+        "f"(v[0]), "f"(v[1]), "r"(bar)
+        : "memory");
+  else
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+        "[%5];\n" ::"r"(dst),
+        "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar)
+        : "memory");
+}
+
+// Sum the (R, 4) values of the 8 lanes of a group: a reduce-scatter over the
+// lane offsets 4, 2, 1 while more than one value is left, then a butterfly.
+// Lane g keeps the flat entries [g*N/8, g*N/8 + N/8) for N = 4R >= 8, or entry
+// g / 2 for R = 1, in v[0..). Every partner adds the same two numbers, so
+// each entry is ((c0 + c4) + (c2 + c6)) + ((c1 + c5) + (c3 + c7)) of the
+// lanes' chains c, in every lane that holds it.
+template <int N>
+__device__ __forceinline__ void lane_scatter(float (&v)[N], int g) {
+  int n = N;
+#pragma unroll
+  for (int o = kGroup / 2; o > 0; o >>= 1) {
+    const bool hi = (g & o) != 0;
+    if (n >= 2) {
+      const int half = n / 2;
+#pragma unroll
+      for (int k = 0; k < N / 2; ++k) {
+        if (k < half) {
+          const float send = hi ? v[k] : v[k + half];
+          const float keep = hi ? v[k + half] : v[k];
+          v[k] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+        }
+      }
+      n = half;
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+    }
+  }
+}
+
+// R: batch rows per cluster; NCH: lstm_bwd_chunks(U). blockDim.x =
+// lstm_bwd_threads(H, R, U).
+template <int R, int NCH>
+__global__ void __launch_bounds__(128 * NCH < 576 ? 128 * NCH : 576, 1)
     lstm_bwd_kernel(BwdDirs dirs, const float* __restrict__ cs, const float* __restrict__ g_hs,
                     int T, int B, int H, int ld) {
+  constexpr int NREG = lstm_bwd_reg_chunks(R, NCH);
+  constexpr int PR = 32 * NCH;  // the CTA's gate rows, padded with zeros
+  // phase B in NP passes of RP rows: at 8 rows and 576 threads (96 registers
+  // a thread) the accumulators of 4 rows at a time
+  constexpr int NP = R == 8 && NCH >= 5 ? 2 : 1, RP = R / NP;
+  constexpr int NV = 4 * RP >= kGroup ? 4 * RP / kGroup : 1;  // sums a lane sends a pass
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const BwdDir d = blockIdx.y ? dirs.d[1] : dirs.d[0];
-  const int U = blockDim.x / kGroup;
-  const int U4 = 4 * U;
-  float* w_s = reinterpret_cast<float*>(smem4);         // (4U, H): row q*U + u
-  float* slot = w_s + (size_t)U4 * H;                   // (2, kCluster, R, U)
-  float* dg_s = slot + (size_t)2 * kCluster * R * U;    // (R, 4U)
+  const int U = lstm_units(H);
+  const int KQ = H / 4;
+  const int RU = R * U;
+  float* base = reinterpret_cast<float*>(smem4);
+  const unsigned bar0 = smem_addr(base);                      // 2 mbarriers: slots 0 and 1
+  float4* w_s = reinterpret_cast<float4*>(base + 4);           // (NCH - NREG, 4, KQ, 8)
+  float* slot = base + 4 + (size_t)(NCH - NREG) * 128 * KQ;  // (2, kCluster, R, U)
+  float* dg_s = slot + (size_t)2 * kCluster * RU;              // (2, R, PR)
+  float* ring = dg_s + (size_t)2 * R * PR;                     // (kRing, kStepIn, R*U)
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x;
   const int b0 = (blockIdx.x / kCluster) * R;
   const int H4 = 4 * H;
+  // units this CTA owns (fewer than U in the last CTAs when 8U > H); a step
+  // fills its slots with the 7 peers' bytes and the arrivals of its own lanes
+  // that hold sums of its units
+  // CTAs [owners, 8) own no unit: their W_hh rows are zero, so they sit the
+  // recurrence out (a CTA that waited for nothing would run ahead of the
+  // double-buffered slots), and the owners sum the first `owners` slots
+  const int owners = (H + U - 1) / U;
+  const int owned = H - rank * U < 0 ? 0 : H - rank * U < U ? H - rank * U : U;
+  const unsigned step_bytes = (unsigned)(4 * (owners - 1) * R * owned);
+  const unsigned own_lanes = (unsigned)(owned / 4 * (RP == 1 ? kGroup / 2 : kGroup) * NP);
 
-  for (int idx = tid; idx < U4 * (H / 4); idx += blockDim.x) {
-    const int wrow = idx / (H / 4), c = idx % (H / 4);
-    const int q = wrow / U, jj = rank * U + wrow % U;
-    const bool ok = jj < H;
-    const float* src = ok ? d.w_hh + ((size_t)q * H + jj) * H + 4 * c : d.w_hh;
-    cp_async16(w_s + (size_t)wrow * H + 4 * c, src, ok ? 16 : 0);
-  }
-  cp_async_commit();
-  for (int i = tid; i < 2 * kCluster * R * U; i += blockDim.x) slot[i] = 0.0f;
+  // phase B lane: columns 4kq .. 4kq + 3, gate-row chunks 8i + g
+  const int g = tid & (kGroup - 1), kq = tid / kGroup;
+  const bool sums = kq < KQ;
+  float4 wreg[NREG][4];
+#pragma unroll
+  for (int i = 0; i < NCH; ++i)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int p = 4 * (kGroup * i + g) + m;  // padded gate row of the CTA: q*U + u
+      const int jj = rank * U + p % U;
+      float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (sums && p < 4 * U && jj < H)
+        w = *reinterpret_cast<const float4*>(d.w_hh + ((size_t)(p / U) * H + jj) * H + 4 * kq);
+      if (i < NREG)
+        wreg[i < NREG ? i : 0][m] = w;
+      else if (sums)
+        w_s[(((size_t)(i - NREG) * 4 + m) * KQ + kq) * kGroup + g] = w;
+    }
+  for (int i = tid; i < 2 * R * PR; i += blockDim.x) dg_s[i] = 0.0f;
 
-  // phase A: thread (r, u)
+  // phase A thread: (row r, unit j)
   const int r = tid / U, u = tid % U;
   const int j = rank * U + u;
-  const bool active = r < R && j < H && b0 + r < B;
-  auto fetch = [&](int s) {
-    StepIn in = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (active && s < T) {
+  const bool unit = tid < RU && j < H;
+  const bool active = unit && b0 + r < B;
+  auto fetch = [&](int s) {  // step s's inputs into ring slot s % kRing, zero past T
+    if (tid < RU) {
+      const bool ok = active && s < T;
       const int t = d.reverse ? s : T - 1 - s;
-      const int tp = d.reverse ? t + 1 : t - 1;  // the step whose carry t consumed
       const size_t row = (size_t)t * B + b0 + r;
-      const float* gt = d.gates + row * H4 + j;
-      in.gi = gt[0];
-      in.gf = gt[H];
-      in.gg = gt[2 * H];
-      in.go = gt[3 * H];
-      in.c = cs[row * ld + d.col + j];
-      in.c_prev = (tp >= 0 && tp < T) ? cs[((size_t)tp * B + b0 + r) * ld + d.col + j] : 0.0f;
-      in.gy = g_hs[row * ld + d.col + j];
+      float* dst = ring + (size_t)(s % kRing) * kStepIn * RU + tid;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        cp_async4(dst + (size_t)q * RU, ok ? d.gates + row * H4 + q * H + j : d.gates, ok ? 4 : 0);
+      cp_async4(dst + (size_t)4 * RU, ok ? cs + row * ld + d.col + j : cs, ok ? 4 : 0);
+      cp_async4(dst + (size_t)5 * RU, ok ? g_hs + row * ld + d.col + j : g_hs, ok ? 4 : 0);
     }
-    return in;
+    cp_async_commit();
   };
-  StepIn cur = fetch(0);
-  float dc_rec = 0.0f;
-  cp_async_wait_all();
-  // W_hh has landed and every peer has started before any slot store
+  auto store_dg = [&](int s, const float(&dg)[4]) {
+    if (active) {
+      const int t = d.reverse ? s : T - 1 - s;
+      float* out = d.dgates + ((size_t)t * B + b0 + r) * H4 + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) out[q * H] = dg[q];
+    }
+  };
+  for (int s = 0; s < kRing; ++s) fetch(s);
+  if (tid == 0) {
+    mbar_init(bar0, 1 + own_lanes);
+    mbar_init(bar0 + 8, 1 + own_lanes);
+    // each slot buffer armed for the first step that sends into it
+    if (owned > 0 && T >= 2) mbar_expect_tx(bar0, step_bytes);
+    if (owned > 0 && T >= 3) mbar_expect_tx(bar0 + 8, step_bytes);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every peer has started and armed its mbarriers before any st.async
   cluster.sync();
 
-  for (int s = 0; s < T; ++s) {
-    const StepIn nxt = fetch(s + 1);
-    if (r < R) {
-      float dh_rec = 0.0f;
-      if (s > 0) {
-        const float* sl = slot + ((size_t)((s - 1) & 1) * kCluster * R + r) * U + u;
+  float dc_rec = 0.0f, dh_rec = 0.0f;
+  for (int s = 0; s < (rank < owners ? T : 0); ++s) {
+    // inputs: all of step s that does not wait for dh_rec
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 2) : "memory");
+    float ca = 0.0f, cb = 0.0f, cc = 0.0f, cd = 0.0f, ce = 0.0f, f = 0.0f, gy = 0.0f;
+    if (tid < RU) {
+      const float* in = ring + (size_t)(s % kRing) * kStepIn * RU + tid;
+      const float c_prev = ring[(size_t)((s + 1) % kRing) * kStepIn * RU + 4 * RU + tid];
+      const float i = sigmoid_acc(in[0]), gg = tanhf(in[2 * RU]), o = sigmoid_acc(in[3 * RU]);
+      f = sigmoid_acc(in[RU]);
+      const float tc = tanhf(in[4 * RU]);
+      gy = in[5 * RU];
+      ca = gg * i * (1.0f - i);
+      cb = c_prev * f * (1.0f - f);
+      cc = i * (1.0f - gg * gg);
+      cd = tc * o * (1.0f - o);
+      ce = o * (1.0f - tc * tc);
+    }
+    fetch(s + kRing);  // into the slot just read
+    // phase A: dh_rec from the partial sums of the last step, in rank order.
+    // Whole warps wait (with only the unit lanes waiting, K7 hung at one row
+    // and 8 or 12 units a CTA on an H100; cause not established, PERF.md)
+    float dg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (s > 0 && owned > 0 && tid < (RU + 31) / 32 * 32)
+      mbar_wait(bar0 + 8 * ((s - 1) & 1), ((s - 1) >> 1) & 1);
+    if (tid < RU) {
+      if (unit && s > 0) {
+        const int buf = (s - 1) & 1;
+        const float* sl = slot + ((size_t)buf * kCluster * R + r) * U + u;
+        float part[kCluster];
 #pragma unroll
-        for (int c = 0; c < kCluster; ++c) dh_rec += sl[(size_t)c * R * U];
+        for (int c = 0; c < kCluster; ++c) part[c] = c < owners ? sl[(size_t)c * RU] : 0.0f;
+        dh_rec = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kCluster; ++c)
+          if (c < owners) dh_rec += part[c];
+        // buffer `buf` is next sent into at step s + 1
+        if (tid == 0 && s + 1 <= T - 2) mbar_expect_tx(bar0 + 8 * buf, step_bytes);
       }
-      const float i = sigmoid_acc(cur.gi), f = sigmoid_acc(cur.gf);
-      const float g = tanhf(cur.gg), o = sigmoid_acc(cur.go);
-      const float tc = tanhf(cur.c);
-      const float dh = cur.gy + dh_rec;
-      const float dc = dc_rec + dh * o * (1.0f - tc * tc);
-      const float dg[4] = {dc * g * i * (1.0f - i), dc * cur.c_prev * f * (1.0f - f),
-                           dc * i * (1.0f - g * g), dh * tc * o * (1.0f - o)};
+      const float dh = gy + dh_rec;
+      const float dc = dc_rec + dh * ce;
       dc_rec = dc * f;
       if (active) {
-        const int t = d.reverse ? s : T - 1 - s;
-        float* out = d.dgates + ((size_t)t * B + b0 + r) * H4 + j;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) out[q * H] = dg[q];
+        dg[0] = dc * ca;
+        dg[1] = dc * cb;
+        dg[2] = dc * cc;
+        dg[3] = dh * cd;
       }
+      float* dgs = dg_s + (size_t)((s & 1) * R + r) * PR + u;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) dg_s[r * U4 + q * U + u] = active ? dg[q] : 0.0f;
+      for (int q = 0; q < 4; ++q) dgs[q * U] = dg[q];
     }
-    if (s == T - 1) break;  // the last step's dh_rec is not needed
-    __syncthreads();
-    // phase B: thread k, the CTA's partial dh_rec[k] for each of its R rows
-    const int buf = s & 1;
-    for (int k = tid; k < H; k += blockDim.x) {
-      float acc[R];
+    // with two passes the gate gradients leave their registers first
+    if (NP > 1) store_dg(s, dg);
+    if (s < T - 1) {
+      __syncwarp();  // every warp meets the block barrier converged
+      __syncthreads();
+      // phase B: the CTA's partial dh_rec at columns 4kq .. + 3 for its R rows
+      // (every lane of a warp takes part in the shuffles; lanes past H/4
+      // quads hold zeros and send nothing)
 #pragma unroll
-      for (int rr = 0; rr < R; ++rr) acc[rr] = 0.0f;
-      const float4* dg4 = reinterpret_cast<const float4*>(dg_s);
-      for (int q4 = 0; q4 < U; ++q4) {  // rows 4*q4 .. 4*q4 + 3 of the CTA's 4U
-        const float* wr = w_s + (size_t)(4 * q4) * H + k;
-        const float w0 = wr[0], w1 = wr[H], w2 = wr[2 * H], w3 = wr[3 * H];
+      for (int pass = 0; pass < NP; ++pass) {  // rows pass*RP .. + RP
+        float acc[4 * RP];  // (RP, 4)
 #pragma unroll
-        for (int rr = 0; rr < R; ++rr) {
-          const float4 v = dg4[rr * U + q4];
-          acc[rr] = fmaf(v.x, w0, fmaf(v.y, w1, fmaf(v.z, w2, fmaf(v.w, w3, acc[rr]))));
+        for (int n = 0; n < 4 * RP; ++n) acc[n] = 0.0f;
+        const float4* dg4 =
+            reinterpret_cast<const float4*>(dg_s + ((size_t)(s & 1) * R + pass * RP) * PR);
+#pragma unroll
+        for (int i = 0; i < NCH; ++i) {
+          float4 w[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            w[m] = i < NREG ? wreg[i < NREG ? i : 0][m]
+                   : sums   ? w_s[(((size_t)(i - NREG) * 4 + m) * KQ + kq) * kGroup + g]
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+          for (int rr = 0; rr < RP; ++rr) {
+            const float4 v = dg4[rr * (PR / 4) + kGroup * i + g];
+            const float dv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              acc[rr * 4 + 0] = fmaf(dv[m], w[m].x, acc[rr * 4 + 0]);
+              acc[rr * 4 + 1] = fmaf(dv[m], w[m].y, acc[rr * 4 + 1]);
+              acc[rr * 4 + 2] = fmaf(dv[m], w[m].z, acc[rr * 4 + 2]);
+              acc[rr * 4 + 3] = fmaf(dv[m], w[m].w, acc[rr * 4 + 3]);
+            }
+          }
+        }
+        lane_scatter(acc, g);
+        // exchange: the lane's sums into the owner's slot of this rank
+        const int e = 4 * RP >= kGroup ? g * NV : g / 2;  // first flat (row, column) entry
+        const int k = 4 * kq + e % 4;
+        const int owner = k / U, buf = s & 1;
+        float* dst =
+            slot + ((size_t)(buf * kCluster + rank) * R + pass * RP + e / 4) * U + k % U;
+        if (sums && (RP > 1 || (g & 1) == 0)) {
+          if (owner == rank) {  // the CTA's own sums: plain stores and an arrival
+#pragma unroll
+            for (int n = 0; n < NV; ++n) dst[n] = acc[n];
+            mbar_arrive(bar0 + 8 * buf);
+          } else {
+            st_async<NV>(map_rank(smem_addr(dst), owner), acc, map_rank(bar0 + 8 * buf, owner));
+          }
         }
       }
-      const int owner = k / U, uu = k % U;
-      float* dst = slot + ((size_t)(buf * kCluster + rank) * R) * U + uu;
-#pragma unroll
-      for (int rr = 0; rr < R; ++rr) *cluster.map_shared_rank(dst + (size_t)rr * U, owner) = acc[rr];
     }
-    cluster.sync();
-    cur = nxt;
+    if (NP == 1) store_dg(s, dg);  // off the critical path
   }
+  cp_async_wait_all();
+  // no CTA leaves while a peer may still address it
+  cluster.sync();
 }
 
-template <int R>
-cudaError_t launch_lstm_bwd_r(const BwdDirs& dirs, const float* cs, const float* g_hs, int T,
+template <int R, int NCH>
+cudaError_t launch_lstm_bwd_t(const BwdDirs& dirs, const float* cs, const float* g_hs, int T,
                               int B, int H, int ndir, cudaStream_t stream, int* max_clusters) {
-  auto kernel = lstm_bwd_kernel<R>;
+  auto kernel = lstm_bwd_kernel<R, NCH>;
   const int U = lstm_units(H);
   const size_t smem = sizeof(float) * lstm_bwd_smem_floats(H, R, U);
   cudaError_t err =
@@ -624,7 +861,7 @@ cudaError_t launch_lstm_bwd_r(const BwdDirs& dirs, const float* cs, const float*
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster * ((B + R - 1) / R), ndir);
-  cfg.blockDim = dim3(kGroup * U);
+  cfg.blockDim = dim3(lstm_bwd_threads(H, R, U));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -633,6 +870,19 @@ cudaError_t launch_lstm_bwd_r(const BwdDirs& dirs, const float* cs, const float*
     return cudaOccupancyMaxActiveClusters(max_clusters, (const void*)kernel, &cfg);
   err = cudaLaunchKernelEx(&cfg, kernel, dirs, cs, g_hs, T, B, H, ndir * H);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_lstm_bwd_r(const BwdDirs& dirs, const float* cs, const float* g_hs, int T,
+                              int B, int H, int ndir, cudaStream_t stream, int* max_clusters) {
+  switch (lstm_bwd_chunks(lstm_units(H))) {
+    case 1: return launch_lstm_bwd_t<R, 1>(dirs, cs, g_hs, T, B, H, ndir, stream, max_clusters);
+    case 2: return launch_lstm_bwd_t<R, 2>(dirs, cs, g_hs, T, B, H, ndir, stream, max_clusters);
+    case 3: return launch_lstm_bwd_t<R, 3>(dirs, cs, g_hs, T, B, H, ndir, stream, max_clusters);
+    case 4: return launch_lstm_bwd_t<R, 4>(dirs, cs, g_hs, T, B, H, ndir, stream, max_clusters);
+    case 5: return launch_lstm_bwd_t<R, 5>(dirs, cs, g_hs, T, B, H, ndir, stream, max_clusters);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t launch_lstm_bwd(const BwdDirs& dirs, const float* cs, const float* g_hs, int T, int B,
@@ -659,15 +909,20 @@ cudaError_t launch_lstm_bwd(const BwdDirs& dirs, const float* cs, const float* g
 // db_hh from dh2 with one product or sum each.
 //
 // What bounds it: as K2, the latency of T dependent steps; bytes and FLOPs
-// are far below. K2's layout transposed: one block per batch row and
-// direction, a group of 8 lanes per unit k, each lane holding column k of
-// W_hh at the gate rows g + 8i of each gate in registers for the whole
-// sequence. A step: the unit's leader lane forms dh2 and the three products
-// coef * dh2 of its unit into a double-buffered shared vector; one block
-// barrier; every lane sums its rows of that vector against its W_hh column
-// and a few xor shuffles give the leader the unit's dh_rec. dh_rec never
-// leaves the leader's registers, and the next step's inputs are loaded one
-// step ahead.
+// are far below. One block per batch row and direction. A group of 16 lanes
+// (half a warp) serves 4 units k: lane l holds W_hh at the rows l + 16i of
+// each gate and the group's 4 columns in registers for the whole sequence
+// (past kGruRegRows rows a lane, in its own slots of shared memory), so each
+// value of the step's vector read from shared memory feeds 4 FMAs. A step:
+// the lanes sum their rows of the vector into 4 chains, a reduce-scatter and
+// a butterfly over the group's lane offsets leave unit n's dh_rec in lanes
+// 4n .. 4n + 3, which all form dh2; lanes 4n + q (q < 3) write the product
+// coef_q * dh2 into the double-buffered vector and lane 4n + 3 stores dh2 to
+// global memory after the hand-off. The hand-off is one barrier a step over
+// the block's warps (H/4 groups: 10 warps at H = 80); an mbarrier that each
+// warp arrives on read slower on an H100 (PERF.md).
+// The inputs are loaded two steps ahead into registers, and the step loop is
+// unrolled by 2 (faster on an H100, PERF.md).
 
 struct GruBwdDir {
   const float* z;     // (T, B, H) update gate
@@ -694,81 +949,122 @@ GruBwdDir make_gru_bwd_dir(const float* z, const float* coef, const float* w_hh,
   return d;
 }
 
-struct GruBwdIn {  // a unit's inputs of one step
-  float gy, z, cr, cz, cn;
+constexpr int kGruLanes = 16;       // K8: lanes of a group of 4 units
+constexpr int kGruRegRows = 7;      // K8: rows of each gate a lane keeps in registers
+
+// RPL: rows of each gate a lane holds (16*RPL >= H). blockDim.x: 16 lanes for
+// each 4 units, rounded up to whole warps.
+struct GruBwdIn {  // a lane's inputs of one step
+  float gy, z, cf;
 };
 
-// KPL: gate rows of each gate a lane holds (8*KPL >= H). One block per batch row.
-template <int KPL>
-__global__ void __launch_bounds__(64 * KPL)
+template <int RPL>
+__global__ void __launch_bounds__(64 * RPL, 1)
     gru_bwd_kernel(GruBwdDirs dirs, const float* __restrict__ g_hs, int T, int B, int H, int ld) {
-  constexpr int KP = kGroup * KPL;  // rows of one gate, zero past H
-  __shared__ float dhp[2][3 * KP];  // coef_h * dh2 of a step, gate q at [q * KP, q * KP + H)
+  constexpr int KP = kGruLanes * RPL;  // rows of one gate, zero past H
+  constexpr int NR = RPL < kGruRegRows ? RPL : kGruRegRows;
+  __shared__ float v[2][3 * KP];       // coef_h * dh2 of a step, gate q at [q * KP, q * KP + H)
+  __shared__ float4 w_s[RPL > NR ? 3 * (RPL - NR) * 64 * RPL : 1];  // (3, RPL - NR, threads)
   const GruBwdDir d = blockIdx.y ? dirs.d[1] : dirs.d[0];
-  const int g = threadIdx.x & (kGroup - 1);
-  const int k = threadIdx.x / kGroup;
-  const bool active = k < H;
-  const bool leader = active && g == 0;
+  const int l = threadIdx.x & (kGruLanes - 1);
+  const int k4 = 4 * (threadIdx.x / kGruLanes);  // the group's first unit
   const int b = blockIdx.x;
 
-  // column k of W_hh at rows q*H + g + 8i: registers for all T steps
-  float w[3][KPL];
+  // W_hh[q*H + l + 16i, k4 .. k4 + 3]
+  float4 w[3][NR];
 #pragma unroll
   for (int q = 0; q < 3; ++q)
 #pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      const int row = g + kGroup * i;
-      w[q][i] = active && row < H ? d.w_hh[(size_t)(q * H + row) * H + k] : 0.0f;
+    for (int i = 0; i < RPL; ++i) {
+      const int row = l + kGruLanes * i;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (row < H) {
+        const float* src = d.w_hh + (size_t)(q * H + row) * H + k4;
+        x.x = k4 < H ? src[0] : 0.0f;
+        x.y = k4 + 1 < H ? src[1] : 0.0f;
+        x.z = k4 + 2 < H ? src[2] : 0.0f;
+        x.w = k4 + 3 < H ? src[3] : 0.0f;
+      }
+      if (i < NR)
+        w[q][i < NR ? i : 0] = x;
+      else
+        w_s[((size_t)q * (RPL - NR) + i - NR) * blockDim.x + threadIdx.x] = x;
     }
-  for (int i = threadIdx.x; i < 2 * 3 * KP; i += blockDim.x) (&dhp[0][0])[i] = 0.0f;
+  for (int i = threadIdx.x; i < 2 * 3 * KP; i += blockDim.x) (&v[0][0])[i] = 0.0f;
 
+  // after the reduction lane l holds unit k = k4 + l / 4; lanes 4n + q write
+  // the product of gate q < 3, lane 4n + 3 stores dh2
+  const int k = k4 + l / 4, role = l % 4;
+  const bool active = k < H;
   auto fetch = [&](int s) {
-    GruBwdIn in = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (leader && s < T) {
+    GruBwdIn in = {0.0f, 0.0f, 0.0f};
+    if (active && s < T) {
       const int t = d.reverse ? s : T - 1 - s;
       const size_t row = (size_t)t * B + b;
-      const float* c = d.coef + row * 3 * H;
       in.gy = g_hs[row * ld + d.col + k];
       in.z = d.z[row * H + k];
-      in.cr = c[k];
-      in.cz = c[H + k];
-      in.cn = c[2 * H + k];
+      if (role < 3) in.cf = d.coef[row * 3 * H + role * H + k];
     }
     return in;
   };
-  GruBwdIn cur = fetch(0);
+  GruBwdIn cur = fetch(0), nx1 = fetch(1);
   float dh_rec = 0.0f;
   __syncthreads();
 
+#pragma unroll 2
   for (int s = 0; s < T; ++s) {
-    const GruBwdIn nxt = fetch(s + 1);
-    float* v = dhp[s & 1];
-    float dh2 = 0.0f;
-    if (leader) {
+    const GruBwdIn nx2 = fetch(s + 2);
+    float* vs = v[s & 1];
+    const float dh2 = cur.gy + dh_rec;
+    if (active && role < 3) vs[role * KP + k] = cur.cf * dh2;
+    __syncthreads();  // vs is double-buffered: one barrier a step is race-free
+    if (active && role == 3) {
       const int t = d.reverse ? s : T - 1 - s;
-      dh2 = cur.gy + dh_rec;
       d.dh[((size_t)t * B + b) * H + k] = dh2;
-      v[k] = cur.cr * dh2;
-      v[KP + k] = cur.cz * dh2;
-      v[2 * KP + k] = cur.cn * dh2;
     }
-    __syncthreads();  // dhp is double-buffered: one barrier a step is race-free
-    float acc[3] = {0.0f, 0.0f, 0.0f};
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int q = 0; q < 3; ++q)
 #pragma unroll
-      for (int i = 0; i < KPL; ++i) acc[q] = fmaf(w[q][i], v[q * KP + g + kGroup * i], acc[q]);
-    group_sum(acc);
-    if (leader) dh_rec = fmaf(dh2, cur.z, (acc[0] + acc[1]) + acc[2]);
-    cur = nxt;
+      for (int i = 0; i < RPL; ++i) {
+        const float x = vs[q * KP + l + kGruLanes * i];
+        const float4 wv = i < NR ? w[q][i < NR ? i : 0]
+                                 : w_s[((size_t)q * (RPL - NR) + i - NR) * blockDim.x + threadIdx.x];
+        acc[0] = fmaf(wv.x, x, acc[0]);
+        acc[1] = fmaf(wv.y, x, acc[1]);
+        acc[2] = fmaf(wv.z, x, acc[2]);
+        acc[3] = fmaf(wv.w, x, acc[3]);
+      }
+    // reduce-scatter over lane offsets 8 and 4, then a butterfly over 2 and 1
+#pragma unroll
+    for (int o = kGruLanes / 2, n = 4; o > 0; o >>= 1) {
+      const bool hi = (l & o) != 0;
+      if (n >= 2) {
+        const int half = n / 2;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          if (m < half) {
+            const float send = hi ? acc[m] : acc[m + half];
+            const float keep = hi ? acc[m + half] : acc[m];
+            acc[m] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+          }
+        }
+        n = half;
+      } else {
+        acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], o);
+      }
+    }
+    dh_rec = fmaf(dh2, cur.z, acc[0]);
+    cur = nx1;
+    nx1 = nx2;
   }
 }
 
-template <int KPL>
+template <int RPL>
 cudaError_t launch_gru_bwd_t(const GruBwdDirs& dirs, const float* g_hs, int T, int B, int H,
                              int ndir, cudaStream_t stream) {
-  const int threads = (kGroup * H + 31) / 32 * 32;
-  gru_bwd_kernel<KPL><<<dim3(B, ndir), threads, 0, stream>>>(dirs, g_hs, T, B, H, ndir * H);
+  const int threads = (kGruLanes * ((H + 3) / 4) + 31) / 32 * 32;
+  gru_bwd_kernel<RPL><<<dim3(B, ndir), threads, 0, stream>>>(dirs, g_hs, T, B, H, ndir * H);
   return cudaGetLastError();
 }
 
@@ -854,15 +1150,15 @@ extern "C" int gru_rec_bwd_f32(const float* z0, const float* z1, const float* co
   dirs.d[0] = make_gru_bwd_dir(z0, coef0, w_hh0, dh0, reverse0, 0);
   dirs.d[1] = make_gru_bwd_dir(z1, coef1, w_hh1, dh1, reverse1, H);
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (2 * ((H + 15) / 16)) {
+  switch ((H + 15) / 16) {
+    case 1: return (int)launch_gru_bwd_t<1>(dirs, g_hs, T, B, H, ndir, s);
     case 2: return (int)launch_gru_bwd_t<2>(dirs, g_hs, T, B, H, ndir, s);
+    case 3: return (int)launch_gru_bwd_t<3>(dirs, g_hs, T, B, H, ndir, s);
     case 4: return (int)launch_gru_bwd_t<4>(dirs, g_hs, T, B, H, ndir, s);
+    case 5: return (int)launch_gru_bwd_t<5>(dirs, g_hs, T, B, H, ndir, s);
     case 6: return (int)launch_gru_bwd_t<6>(dirs, g_hs, T, B, H, ndir, s);
+    case 7: return (int)launch_gru_bwd_t<7>(dirs, g_hs, T, B, H, ndir, s);
     case 8: return (int)launch_gru_bwd_t<8>(dirs, g_hs, T, B, H, ndir, s);
-    case 10: return (int)launch_gru_bwd_t<10>(dirs, g_hs, T, B, H, ndir, s);
-    case 12: return (int)launch_gru_bwd_t<12>(dirs, g_hs, T, B, H, ndir, s);
-    case 14: return (int)launch_gru_bwd_t<14>(dirs, g_hs, T, B, H, ndir, s);
-    case 16: return (int)launch_gru_bwd_t<16>(dirs, g_hs, T, B, H, ndir, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

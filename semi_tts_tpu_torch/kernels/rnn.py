@@ -13,9 +13,9 @@ of hs it returns the gate gradients (T, B, 4H) of each direction. `bigru_rec_bwd
 `_gru_rec_bwd`: from the update gates, the hidden-side coefficients and the
 incoming gradient of hs it returns dh2 (T, B, H) of each direction. Each
 wrapper launches `csrc/rnn.cu` for CUDA tensors and runs its plain PyTorch
-version only for CPU tensors. `lstm_plan`, `lstm_bwd_plan` and `gru_plan`
-compute the launch plans and name the hidden sizes each kernel takes (K8
-takes K2's).
+version only for CPU tensors. `lstm_plan`, `lstm_bwd_plan`, `gru_plan` and
+`gru_bwd_plan` compute the launch plans and name the hidden sizes each
+kernel takes (K7 takes K1's, K8 K2's).
 """
 
 from __future__ import annotations
@@ -65,24 +65,40 @@ def lstm_plan(B: int, H: int, ndir: int, max_clusters: int, rows: int | None = N
                 units_per_cta=units, smem_bytes=smem, max_h=LSTM_MAX_H)
 
 
+def _lstm_bwd_reg_chunks(rows: int, chunks: int) -> int:
+    """K7's W_hh chunks in registers: fewer for more rows' accumulators, and
+    fewer past 512 threads (5 chunks), where 18 warps leave 96 registers a
+    thread (8 rows then run phase B in two passes of 4)."""
+    if chunks >= 5:
+        return 3 if rows <= 2 else 1
+    return min(chunks, 4 if rows <= 2 else 3 if rows == 4 else 2)
+
+
 def lstm_bwd_plan(B: int, H: int, ndir: int, max_clusters: int, rows: int | None = None) -> dict:
     """K7's launch plan: a cluster of 8 CTAs per ``rows`` batch rows and
-    direction; CTA r keeps the 4*U gate rows of W_hh of its hidden units in
-    shared memory, plus the (2, 8, rows, U) partial-sum slots of the
-    reduce-scatter and the rows' gate gradients. Same H limits as K1;
-    ``rows`` defaults as K1's do (an explicit value checks one of the
-    kernel's instantiations)."""
+    direction; CTA r owns the units [r*U, r*U + U) and their 4*U gate rows of
+    W_hh. A group of 8 lanes serves 4 columns of W_hh: lane g holds the gate
+    rows 4(8i + g) .. + 3 for i < ``chunks`` (the 4*U rows padded to 32 a
+    chunk), the first ``reg_chunks`` of them in registers and the rest in
+    shared memory, beside 2 mbarriers, the (2, 8, rows, U) partial-sum slots,
+    the rows' gate gradients (2, rows, 32*chunks) and a ring of AHEAD steps of
+    6 inputs a (row, unit). Same H limits as K1; ``rows`` defaults as K1's do
+    (an explicit value checks one of the kernel's instantiations)."""
     _check_lstm_h(H)
     if rows is None:
         rows = next((r for r in LSTM_ROWS if math.ceil(B / r) * ndir <= max_clusters), LSTM_ROWS[-1])
     elif rows not in LSTM_ROWS:
         raise ValueError(f"lstm_rec_bwd rows must be one of {LSTM_ROWS}, got {rows}")
     units = _round_up(math.ceil(H / CLUSTER), 4)
-    smem = 4 * (4 * units * H + 2 * CLUSTER * rows * units + rows * 4 * units)
+    chunks = math.ceil(units / LANES)
+    reg_chunks = _lstm_bwd_reg_chunks(rows, chunks)
+    smem = 4 * (4 + (chunks - reg_chunks) * 128 * (H // 4) + 2 * CLUSTER * rows * units
+                + 2 * rows * 32 * chunks + AHEAD * 6 * rows * units)
     clusters = math.ceil(B / rows) * ndir
     return dict(cluster=CLUSTER, rows=rows, clusters=clusters,
-                grid=(CLUSTER * math.ceil(B / rows), ndir), threads=LANES * units,
-                units_per_cta=units, smem_bytes=smem, max_h=LSTM_MAX_H)
+                grid=(CLUSTER * math.ceil(B / rows), ndir),
+                threads=_round_up(max(2 * H, rows * units), 32), units_per_cta=units,
+                chunks=chunks, reg_chunks=reg_chunks, smem_bytes=smem, max_h=LSTM_MAX_H)
 
 
 def gru_plan(B: int, H: int, ndir: int) -> dict:
@@ -93,6 +109,26 @@ def gru_plan(B: int, H: int, ndir: int) -> dict:
         raise ValueError(f"gru_rec kernel takes 1 <= H <= {GRU_MAX_H}, got H={H}")
     return dict(grid=(B, ndir), threads=_round_up(LANES * H, 32),
                 weights_per_lane=3 * 2 * math.ceil(H / 16), max_h=GRU_MAX_H)
+
+
+GRU_BWD_LANES = 16          # K8: lanes of a group of 4 units
+GRU_BWD_REG_ROWS = 7        # K8: rows of each gate a lane keeps in registers
+
+
+def gru_bwd_plan(B: int, H: int, ndir: int) -> dict:
+    """K8's launch plan: one block per batch row and direction; a group of 16
+    lanes serves 4 units, lane l holding the rows l + 16i (i < ``rows_per_lane``)
+    of each gate at the group's 4 columns, the first ``reg_rows`` in
+    registers and the rest in shared memory, beside the double-buffered
+    step vector. Takes K2's H range."""
+    if not 1 <= H <= GRU_MAX_H:
+        raise ValueError(f"gru_rec_bwd kernel takes 1 <= H <= {GRU_MAX_H}, got H={H}")
+    rpl = math.ceil(H / GRU_BWD_LANES)
+    reg_rows = min(rpl, GRU_BWD_REG_ROWS)
+    w_s = 3 * (rpl - reg_rows) * 64 * rpl if rpl > reg_rows else 1
+    return dict(grid=(B, ndir), threads=_round_up(GRU_BWD_LANES * math.ceil(H / 4), 32),
+                rows_per_lane=rpl, reg_rows=reg_rows,
+                smem_bytes=4 * 2 * 3 * GRU_BWD_LANES * rpl + 16 * w_s, max_h=GRU_MAX_H)
 
 
 @functools.lru_cache(maxsize=None)
@@ -374,7 +410,7 @@ def bigru_rec_bwd(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs):
         build.require(coef, (T, B, 3 * H), "gru_rec_bwd coef_h")
         build.require(w_hh, (3 * H, H), "gru_rec_bwd w_hh")
     build.require(g_hs, (T, B, 2 * H), "gru_rec_bwd g_hs")
-    gru_plan(B, H, 2)
+    gru_bwd_plan(B, H, 2)
     dh = [torch.empty_like(z_f), torch.empty_like(z_b)]
     if T and B:
         fn = build.bind("rnn", "gru_rec_bwd_f32", 9, 6)

@@ -161,6 +161,17 @@ def test_gru_plan_flagship():
     plan = K.gru_plan(16, 80, 2)
     assert plan["grid"] == (16, 2)
     assert plan["threads"] == 640 and plan["weights_per_lane"] == 30
+    # K8: 16 lanes for each 4 units (10 warps), 5 rows of each gate a lane,
+    # all in registers; at H = 128 one row of each gate in shared memory
+    bwd = K.gru_bwd_plan(16, 80, 2)
+    assert bwd["grid"] == (16, 2) and bwd["threads"] == 320
+    assert (bwd["rows_per_lane"], bwd["reg_rows"]) == (5, 5)
+    for H in range(1, K.GRU_MAX_H + 1):
+        bwd = K.gru_bwd_plan(16, H, 2)
+        assert bwd["threads"] <= 1024 and bwd["threads"] % 32 == 0
+        assert bwd["threads"] >= 16 * -(-H // 4)
+        assert 16 * bwd["rows_per_lane"] >= H and bwd["smem_bytes"] <= 48 * 1024
+    assert K.gru_bwd_plan(16, 128, 2)["reg_rows"] == 7
 
 
 @pytest.mark.parametrize("plan,H", [("lstm", K.LSTM_MAX_H + 4), ("lstm", 258), ("lstm", 0),
@@ -297,17 +308,25 @@ def test_lstm_bwd_plan(B, ndir, max_clusters, rows, clusters):
     every cluster run at once (8 rows when none does)."""
     plan = K.lstm_bwd_plan(B, 256, ndir, max_clusters)
     assert (plan["cluster"], plan["rows"], plan["clusters"]) == (8, rows, clusters)
-    assert plan["threads"] == 256 and plan["units_per_cta"] == 32
+    assert plan["threads"] == 512 and plan["units_per_cta"] == 32
     assert plan["grid"] == (8 * -(-B // rows), ndir)
-    assert 128 * 256 * 4 <= plan["smem_bytes"] <= K.SMEM_PER_BLOCK
+    # the CTA's 128 gate rows over 8 lanes: 4 chunks of 4 rows, all in
+    # registers up to 2 rows per cluster
+    assert plan["chunks"] == 4 and plan["reg_chunks"] == (4 if rows <= 2 else 3 if rows == 4 else 2)
+    w_smem = (plan["chunks"] - plan["reg_chunks"]) * 128 * 256 // 4 * 4
+    assert w_smem < plan["smem_bytes"] <= K.SMEM_PER_BLOCK
 
 
-@pytest.mark.parametrize("H", [4, 80, 256, K.LSTM_MAX_H])
+@pytest.mark.parametrize("H", [4, 12, 80, 132, 200, 256, K.LSTM_MAX_H])
 def test_lstm_bwd_plan_fits_shared_memory(H):
     for rows in K.LSTM_ROWS:
         plan = K.lstm_bwd_plan(16, H, 2, 15, rows)
         assert plan["smem_bytes"] <= K.SMEM_PER_BLOCK
         assert plan["units_per_cta"] * plan["cluster"] >= H
+        # every column quad has its 8 lanes, every (row, unit) a thread
+        assert plan["threads"] <= 1024 and plan["threads"] % 32 == 0
+        assert plan["threads"] >= max(2 * H, rows * plan["units_per_cta"])
+        assert 32 * plan["chunks"] >= 4 * plan["units_per_cta"]
 
 
 @pytest.mark.parametrize("H,rows", [(K.LSTM_MAX_H + 4, None), (258, None), (0, None), (256, 3)])
@@ -392,3 +411,156 @@ def test_gru_function_matches_autograd_through_plain(T, B, H):
         grads.append([leaf.grad.numpy() for leaf in leaves])
     for got, want in zip(*grads):
         np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def _k7_lane_scatter(chains):
+    """numpy replay of K7's ``lane_scatter`` over the 8 lanes of a group:
+    ``chains`` (8, 4R) float32 -> (values, entries), each lane's kept
+    values and the flat (row, column) entries they stand for."""
+    n = chains.shape[1]
+    vals = chains.copy()
+    idx = np.tile(np.arange(n), (8, 1))
+    for o in (4, 2, 1):
+        new_v, new_i = vals.copy(), idx.copy()
+        for g in range(8):
+            p, hi = g ^ o, bool(g & o)
+            if n >= 2:
+                half = n // 2
+                for k in range(half):
+                    keep = k + half if hi else k
+                    send = k if (p & o) else k + half  # what the partner sends
+                    assert idx[p][send] == idx[g][keep]
+                    new_v[g][k] = vals[g][keep] + vals[p][send]
+                    new_i[g][k] = idx[g][keep]
+            else:
+                new_v[g][0] = vals[g][0] + vals[p][0]
+        vals, idx = new_v, new_i
+        n = max(n // 2, 1)
+    return vals[:, :n], idx[:, :n]
+
+
+def _k7_tree(c):
+    """The sum of the 8 lanes' chains that every lane holding an entry has."""
+    return ((c[0] + c[4]) + (c[2] + c[6])) + ((c[1] + c[5]) + (c[3] + c[7]))
+
+
+@pytest.mark.parametrize("rows", K.LSTM_ROWS)
+def test_k7_lane_scatter_leaves_each_sum_in_one_sender(rows):
+    """K7's shuffle tree: lane g ends with the flat entries g*N/8 .. (N = 4R
+    >= 8) or entry g // 2 (R = 1), each equal, bit for bit, to the fixed tree
+    of the 8 chains; the lanes that send (all, or the even ones at R = 1)
+    cover every (row, column) entry once."""
+    rng = np.random.RandomState(rows)
+    chains = rng.randn(8, 4 * rows).astype(np.float32)
+    vals, idx = _k7_lane_scatter(chains)
+    nv = max(4 * rows // 8, 1)
+    assert vals.shape == (8, nv)
+    sent = []
+    for g in range(8):
+        first = g * nv if 4 * rows >= 8 else g // 2
+        assert list(idx[g]) == list(range(first, first + nv))
+        np.testing.assert_array_equal(vals[g], _k7_tree(chains[:, idx[g]]))
+        if rows > 1 or g % 2 == 0:
+            sent += list(idx[g])
+    assert sorted(sent) == list(range(4 * rows))
+
+
+@pytest.mark.parametrize("H", [4, 12, 40, 80, 256, K.LSTM_MAX_H])
+def test_k7_exchange_fills_each_owner_once(H):
+    """A producer CTA's sums for an owner fill the owner's slot of that
+    producer once, R * owned units; the owner's own lanes among the senders
+    number owned / 4 * (4 at R = 1, else 8) a pass of phase B (two passes of
+    4 rows at R = 8 past 256 units), the arrivals its mbarrier counts beside
+    its peers' st.async bytes. Only CTAs that own units send (the rest hold
+    zero rows of W_hh), and no sum goes to a CTA past them."""
+    for rows in K.LSTM_ROWS:
+        plan = K.lstm_bwd_plan(16, H, 2, 15, rows)
+        U = plan["units_per_cta"]
+        passes = 2 if rows == 8 and plan["chunks"] >= 5 else 1  # phase B's row passes
+        rp = rows // passes
+        nv = max(4 * rp // 8, 1)
+        got, lanes = {}, {}
+        for tid in range(plan["threads"]):
+            g, kq = tid % 8, tid // 8
+            if kq >= H // 4 or (rp == 1 and g % 2):
+                continue
+            e = g * nv if 4 * rp >= 8 else g // 2
+            k = 4 * kq + e % 4
+            for p in range(passes):
+                lanes[k // U] = lanes.get(k // U, 0) + 1
+                for v in range(nv):
+                    slot = (p * rp + e // 4, k % U + v)
+                    assert slot not in got.setdefault(k // U, set())
+                    got[k // U].add(slot)
+        assert max(got) == -(-H // U) - 1
+        for owner in range(8):
+            owned = min(max(H - owner * U, 0), U)
+            assert len(got.get(owner, ())) == rows * owned
+            assert lanes.get(owner, 0) == owned // 4 * (4 if rp == 1 else 8) * passes
+
+
+def _k7_replay(reverse, w_hh, gates, cs, g_hs):
+    """numpy replay of K7's arithmetic, one direction: the products that do
+    not wait for dh_rec, then per step each CTA's lanes' chains over their
+    gate rows 4(8i + g) .. + 3 (an FMA as a float64 product and sum rounded to
+    float32), the fixed shuffle tree, and the 8 slots summed in rank order."""
+    f32 = np.float32
+    T, B, H4 = gates.shape
+    H = H4 // 4
+    plan = K.lstm_bwd_plan(B, H, 1, 16, 1)
+    U, nch = plan["units_per_cta"], plan["chunks"]
+    w_p = np.zeros((8, 32 * nch, H), f32)  # each CTA's gate rows q*U + u, padded
+    for rank in range(8):
+        for p in range(4 * U):
+            q, j = p // U, rank * U + p % U
+            if j < H:
+                w_p[rank, p] = w_hh[q * H + j]
+    lane_rows = [[4 * (8 * i + g) + m for i in range(nch) for m in range(4)] for g in range(8)]
+    sig = lambda x: f32(1) / (f32(1) + np.exp(-x))
+    dh_rec, dc_rec = np.zeros((B, H), f32), np.zeros((B, H), f32)
+    out = np.zeros_like(gates)
+    for s in range(T):
+        t = s if reverse else T - 1 - s
+        tp = t + 1 if reverse else t - 1
+        gi, gf, gg, go = (gates[t][:, q * H:(q + 1) * H] for q in range(4))
+        c_prev = cs[tp] if 0 <= tp < T else np.zeros((B, H), f32)
+        i, f, g_, o = sig(gi), sig(gf), np.tanh(gg), sig(go)
+        tc = np.tanh(cs[t])
+        dh = g_hs[t] + dh_rec
+        dc = dc_rec + dh * (o * (f32(1) - tc * tc))
+        dc_rec = dc * f
+        dg = [dc * (g_ * i * (f32(1) - i)), dc * (c_prev * f * (f32(1) - f)),
+              dc * (i * (f32(1) - g_ * g_)), dh * (tc * o * (f32(1) - o))]
+        out[t] = np.concatenate(dg, -1)
+        slots = []
+        for rank in range(8):
+            dg_p = np.zeros((B, 32 * nch), f32)
+            for p in range(4 * U):
+                q, j = p // U, rank * U + p % U
+                if j < H:
+                    dg_p[:, p] = dg[q][:, j]
+            chains = np.zeros((8, B, H), f32)
+            for g in range(8):
+                for p in lane_rows[g]:
+                    chains[g] = (chains[g].astype(np.float64) + dg_p[:, p, None].astype(np.float64)
+                                 * w_p[rank, p].astype(np.float64)).astype(f32)
+            slots.append(_k7_tree(chains))
+        dh_rec = np.zeros((B, H), f32)
+        for part in slots[:-(-H // U)]:  # the CTAs that own units
+            dh_rec = dh_rec + part
+    return out
+
+
+@pytest.mark.parametrize("T,B,H,reverse", [(5, 3, 8, False), (6, 2, 40, True), (4, 3, 80, False)])
+def test_k7_replay_matches_plain(T, B, H, reverse):
+    """K7's reduction order (lane chains, shuffle tree, slots in rank order,
+    replayed in numpy) computes `lstm_rec_bwd_plain`'s gate gradients to
+    1e-5: fp32 on both sides, only the order of the sums differs."""
+    rng = np.random.RandomState(40 + H)
+    w_hh = rng.uniform(-H ** -0.5, H ** -0.5, (4 * H, H)).astype(np.float32)
+    gates = rng.randn(T, B, 4 * H).astype(np.float32)
+    cs = (0.5 * rng.randn(T, B, H)).astype(np.float32)
+    g_hs = rng.randn(T, B, H).astype(np.float32)
+    want = K.lstm_rec_bwd_plain(reverse, _t(w_hh), _t(gates), _t(cs), _t(g_hs)).numpy()
+    np.testing.assert_allclose(_k7_replay(reverse, w_hh, gates, cs, g_hs), want, rtol=0,
+                               atol=ATOL)
