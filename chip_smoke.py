@@ -86,7 +86,7 @@ paired train step (K8, K9) or one speech-first step (B6), as its
 ``launches_per`` says; ``launches_by_path`` has all five paths.
 
 Prints a ``{"ptxas": ...}`` line (registers and spills of the recurrence
-kernels), an ``{"asr_shape": ...}`` line, a ``{"featurizer": ...}`` line, a
+and attention kernels), an ``{"asr_shape": ...}`` line, a ``{"featurizer": ...}`` line, a
 ``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, a
 ``{"training": ...}`` line, a ``{"paired": ...}`` line, a ``{"cycles": ...}``
 line and, last,
@@ -95,6 +95,7 @@ line and, last,
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -308,15 +309,16 @@ def _case_gru(randn, unif, dev):
 
 def ptxas_report(log):
     """Registers, spills and static shared memory of each instantiation of
-    the recurrence kernels (K1 with its cell-state flag, K2, K7, K8), from
-    nvcc's ``-Xptxas -v`` output."""
+    the recurrence kernels (K1 with its cell-state flag, K2, K7, K8) and of
+    the attention kernels (K3; K9 by span and loc_lin staging, and its sums
+    kernel), from nvcc's ``-Xptxas -v`` output."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"(lstm_rec|gru_rec|lstm_bwd|gru_bwd)_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?",
-                      line)
+        m = re.search(r"(lstm_rec|gru_rec|lstm_bwd|gru_bwd|attention_bwd_sum|attention_bwd|"
+                      r"attention_step)_kernel(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?)?", line)
         if "Compiling entry function" in line:
             args = ",".join(a for a in m.groups()[1:] if a) if m else ""
-            name = f"{m.group(1)}_kernel<{args}>" if m else None
+            name = f"{m.group(1)}_kernel" + (f"<{args}>" if args else "") if m else None
         elif name and "spill stores" in line:
             out.setdefault(name, {})["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores", line)[1])
         elif name and "Used" in line:
@@ -794,24 +796,45 @@ def _case_gru_bwd(randn, unif, dev):
                                                      "bound_ms_by_shape": bounds})
 
 
+@contextlib.contextmanager
+def k9_span(k9, span):
+    """K9 launched with ``span`` positions a CTA in place of its plan's."""
+    plan = k9.attention_bwd_plan
+
+    def forced(B, L, A, D, C, F_, K):
+        S = -(-L // span)
+        return dict(plan(B, L, A, D, C, F_, K), span=span, spans=S, grid=(S, B),
+                    part_floats=B * S * k9._bwd_part_floats(span, A, C, F_, K))
+
+    k9.attention_bwd_plan = forced
+    try:
+        yield
+    finally:
+        k9.attention_bwd_plan = plan
+
+
 def _case_attention_bwd(randn, unif, dev):
     """K9, one decoder step's attention backward at the paired step's shapes
     (B=8, L=32 tokens); also at L=45 and B=3, at L=5 (nearly every tap of
     the 31-wide location conv reaches the padding), with a padding mask, at
-    L=280, at L=1 and without location features; at the speech-first
-    step's shape (B=16, L=133), at L=700 (a 15 s unpaired utterance's
-    memory) and at L=1,187 (the longest K3 takes at these widths), the last
-    three in tiles of 64 positions with a partial last tile. Timed by shape,
-    beside the plain version and the bound (``ms_by_shape``,
-    ``plain_ms_by_shape``, ``bound_ms_by_shape``; ``tiles``: each shape's
-    tile and shared memory). The
-    forward's weights come from K3 on the same inputs."""
+    L=280, at L=1 and without location features; at the text-first step's
+    shape (B=16, L=32), the speech-first step's (B=16, L=133), at L=700 (a
+    15 s unpaired utterance's memory) and at L=1,187 (the longest K3 takes
+    at these widths); with every span of `SPANS` in place of the plan's (at
+    L=45 masked and at B=16 L=133); and at A=1024 F=64, where loc_lin does
+    not fit in shared memory. Timed at every shape a step gives it, beside
+    the plain version and the bound (``ms_by_shape``, ``plain_ms_by_shape``,
+    ``bound_ms_by_shape``; ``plans``: each shape's span, spans, grid and
+    shared memory). The forward's weights and context come from K3 on the
+    same inputs."""
     from semi_tts_tpu_torch.kernels import attention as k9
 
     L, A, D, C, F_, K = 32, 256, 512, 2, 32, 31
     wts = (unif(F_, C, K, a=0.3), unif(A, F_, a=0.3), unif(A, a=0.1))
+    wide = (unif(64, C, K, a=0.3), unif(1024, 64, a=0.3), unif(1024, a=0.1))
 
-    def inputs(B_, L, mask=False, loc=True):
+    def inputs(B_, L, mask=False, loc=True, wts=wts):
+        A = wts[2].shape[0]
         pq, pm, mem = randn(B_, A), randn(B_, L, A, scale=0.5), randn(B_, L, D)
         w = torch.softmax(randn(B_, L), -1)
         hist = torch.stack([w, w + torch.softmax(randn(B_, L), -1)], 1).contiguous()
@@ -820,21 +843,34 @@ def _case_attention_bwd(randn, unif, dev):
         if mask:
             lengths = L - 12 + torch.arange(B_, device=dev) % 13
             m = torch.arange(L, device=dev)[None, :] >= lengths[:, None]
-        _, weights = k9.attention_step(pq, pm, mem, hist, lw, ll, wts[2], m)
-        return (pq, pm, mem, hist, lw, ll, wts[2], weights, randn(B_, D), randn(B_, L))
+        context, weights = k9.attention_step(pq, pm, mem, hist, lw, ll, wts[2], m)
+        return (pq, pm, mem, hist, lw, ll, wts[2], weights, context, randn(B_, D), randn(B_, L))
 
     args = inputs(TRAIN_B, L)
-    cycle, long, longest = inputs(2 * TRAIN_B, 133), inputs(2, 700), inputs(2, 1187)
-    others = [inputs(3, 45), inputs(TRAIN_B, 5), inputs(3, 45, mask=True), inputs(3, 280),
-              inputs(5, 1), inputs(3, 45, loc=False), cycle, long, longest]
+    text_first, cycle = inputs(2 * TRAIN_B, L), inputs(2 * TRAIN_B, 133)
+    long, longest = inputs(2, 700), inputs(2, 1187)
+    masked, wide_args = inputs(3, 45, mask=True), inputs(3, 45, mask=True, wts=wide)
+    if k9.attention_bwd_plan(3, 45, 1024, D, C, 64, K)["stage_lin"]:
+        raise SystemExit("chip_smoke: K9's plan stages loc_lin at A=1024 F=64")
+    others = [inputs(3, 45), inputs(TRAIN_B, 5), masked, inputs(3, 280), inputs(5, 1),
+              inputs(3, 45, loc=False), text_first, cycle, long, longest, wide_args]
     checks = [(lambda a=a: k9.attention_step_bwd(*a), lambda a=a: k9.attention_step_bwd_plain(*a))
               for a in others]
+
+    def at_span(P, a):
+        with k9_span(k9, P):
+            return k9.attention_step_bwd(*a)
+
+    checks += [(lambda P=P, a=a: at_span(P, a), lambda a=a: k9.attention_step_bwd_plain(*a))
+               for P in k9.SPANS for a in (masked, cycle)]
+
     def cost(B_, L):  # (bytes moved, FLOPs) of one call
         nbytes = 4 * (2 * (B_ * A + B_ * L * A + B_ * L * D + B_ * C * L + F_ * C * K + A * F_ + A)
                       + 2 * B_ * L + B_ * D)
         return nbytes, 2 * B_ * L * (3 * F_ * C * K + 3 * A * F_ + D) + B_ * L * D + 5 * B_ * L * A
 
-    by_shape = {f"B={a[0].shape[0]} L={a[1].shape[1]}": a for a in (args, cycle, long, longest)}
+    by_shape = {f"B={a[0].shape[0]} L={a[1].shape[1]}": a
+                for a in (args, text_first, cycle, long, longest)}
     timed = {n: lambda a=a: k9.attention_step_bwd(*a) for n, a in by_shape.items()}
     timed_plain = {n: lambda a=a: k9.attention_step_bwd_plain(*a) for n, a in by_shape.items()}
     plans = {n: k9.attention_bwd_plan(a[0].shape[0], a[1].shape[1], A, D, C, F_, K)
@@ -849,8 +885,8 @@ def _case_attention_bwd(randn, unif, dev):
         kernel=lambda: k9.attention_step_bwd(*args),
         plain=lambda: k9.attention_step_bwd_plain(*args), checks=checks, timed=timed,
         timed_plain=timed_plain,
-        extra={"cluster": k9.attention_bwd_plan(B_, L, A, D, C, F_, K)["cluster"],
-               "tiles": {n: [p["tile"], p["smem_bytes"]] for n, p in plans.items()},
+        extra={"plans": {n: {k: p[k] for k in ("span", "spans", "grid", "smem_bytes")}
+                         for n, p in plans.items()},
                "bound_ms_by_shape": {n: bound(*cost(a[0].shape[0], a[1].shape[1]))[0]
                                      for n, a in by_shape.items()}},
         library=None, library_note=NO_LIBRARY, tol=1e-4, nbytes=cost(B_, L)[0],
@@ -1650,7 +1686,7 @@ SPEECH_FIRST, TEXT_FIRST = "speech_first", "text_first"
 CYCLE_KERNELS = ("trim_merge", "trim_merge_bwd")
 # K1 with cell states, K7, K2, K8, K3, K9, K5, K6 and, in the speech-first step, B6
 STEP_KERNELS = {SPEECH_FIRST: PAIRED_STEP_KERNELS + CYCLE_KERNELS, TEXT_FIRST: PAIRED_STEP_KERNELS}
-OWN_KERNELS = ("trim_merge_kernel", "trim_merge_bwd_kernel", "attention_bwd_kernel")
+OWN_KERNELS = ("trim_merge_kernel", "trim_merge_bwd_kernel", "attention_bwd")
 
 
 def phase_cycles(dev):
@@ -1812,7 +1848,7 @@ def long_memory_step(model, builder, dev):
     """One speech-first step's loss and gradients with B = 1 + 1 rows: a
     3.0 s paired utterance and a 15.28 s unpaired one, whose trimmed latents
     (padded to the ASR encoder's length) are the attention memory: K3 and K9
-    at L ~ 680, K9 in tiles of 64 positions. Its losses and gradients must be
+    at L ~ 680 (K9 in spans of 12 positions). Its losses and gradients must be
     finite, and K3 and K9 must launch."""
     from semi_tts_tpu_torch import kernels
     from semi_tts_tpu_torch.kernels.attention import attention_bwd_plan
@@ -1836,7 +1872,7 @@ def long_memory_step(model, builder, dev):
     plan = attention_bwd_plan(2, L, d.attn_dim, d.enc_embed_dim, 2, d.n_location_filters,
                               d.location_kernel_size)
     out = dict(samples=[TRAIN_S, LONG_S], memory_len=L,
-               k9_tile=plan["tile"], decode_steps=mets["pair_align"].shape[1], losses=losses,
+               k9_span=plan["span"], decode_steps=mets["pair_align"].shape[1], losses=losses,
                total_loss=float(loss), unpair_ok=bool(mets["unpair_ok"]),
                unpair_len=int(mets["unpair_pred_len"][0]), wall_s=wall,
                launches={k: launches[k] for k in ("attention_step", "attention_step_bwd",
@@ -1856,7 +1892,8 @@ def main():
     t0 = time.perf_counter()
     kernels.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, {BUILD_DIR})", flush=True)
-    print(json.dumps({"ptxas": ptxas_report(LOGS.get("rnn", ""))}), flush=True)
+    print(json.dumps({"ptxas": ptxas_report(LOGS.get("rnn", "") + LOGS.get("attention", ""))}),
+          flush=True)
     seen_shapes = record_recurrence_shapes()
     table = phase_kernels(dev)
     print(json.dumps({"asr_shape": asr_lstm_check(dev)}), flush=True)

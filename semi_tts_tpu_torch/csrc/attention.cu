@@ -345,10 +345,12 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
 //
 // Replaces the autodiff of `semi_tts_tpu/models/attention.py:39`
 // `attention_step` inside the decoder's training scan. From the forward's
-// inputs, its weights w (B, L) and the cotangents d_context (B, D) and
-// d_weights (B, L), per batch row:
+// inputs, its outputs (weights w (B, L), context (B, D)) and the cotangents
+// d_context (B, D) and d_weights (B, L), per batch row:
 //   dw[l]   = d_weights[l] + sum_d memory[l, d] * d_context[d]
-//   de[l]   = w[l] * (dw[l] - sum_l' w[l'] dw[l'])            (softmax)
+//   s       = sum_l w[l] d_weights[l] + sum_d context[d] d_context[d]
+//           ( = sum_l w[l] dw[l], since context = sum_l w[l] memory[l, :])
+//   de[l]   = w[l] * (dw[l] - s)                              (softmax)
 //   th      = tanh(pq + loc @ loc_lin^T + processed_memory)   (recomputed)
 //   dpre    = de[l] * v[a] * (1 - th^2)                       (L, A)
 //   d_pq = sum_l dpre, d_processed_memory = dpre, d_v = sum_l de[l] th[l, :],
@@ -357,343 +359,569 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
 //   d_loc_w[f, c, k] = sum_l d_loc[l, f] hist[c, l + k - pad]
 //   d_attn_hist[c, x] = sum_{f, k} loc_w[f, c, k] d_loc[x - k + pad, f]
 // A masked position has w = 0 from the forward, so de, dpre and d_memory are
-// 0 there with no mask read. The weight gradients d_v, d_loc_lin and d_loc_w
-// are written as per-row partials into one (B, ...) buffer that the wrapper
-// sums with one reduction: each element has one writer, so there are no
-// atomics and the sum is deterministic.
+// 0 there with no mask read.
 //
-// What bounds it: as K3, a chain of dependent phases, each too small to fill
-// an SM; the bytes (pm, memory, d_pm, d_memory, ~2.4 MB at B=8, L=32) put the
-// card's floor near 1 us.
+// What bounds it: the bytes (pm, memory, d_pm, d_memory: ~13 MB at B=16,
+// L=133, ~4 us of HBM time) and ~30k FMAs a position (~2 us of fp32 SIMT
+// over the card), so neither: what a call pays is how few SMs work and how
+// long the chain of dependent phases is.
 //
-// Design: K3's layout, one cluster of kCluster CTAs per batch row. CTA r owns
-// attention columns [r*Ac, r*Ac + Ac), context columns [r*Dc, r*Dc + Dc),
-// and the filters f = r + kCluster*i. Shared memory holds only what has few
-// floats a position: the padded history, the weights, dw (then de, in
-// place) and this CTA's filters of d_loc (2 + C + Fr floats a position, 32
-// bytes at flagship widths, fewer than K3 holds), so K9 takes every L K3
-// takes (1,187 at flagship widths; a trimmed unpaired latent is as long as
-// the ASR encoder's output, ~680 frames for a 15 s utterance). The prologue
-// issues every load of those at once with cp.async and waits once (plain
-// loads in a loop would pay a memory round trip per iteration), loc_lin's
-// rows at an odd stride so a warp reading down a column hits 32 banks. The
-// wide per-position operands are streamed in tiles of `tile` positions:
-// memory is read from L2 once in the dw phase, processed memory is staged a
-// tile ahead with cp.async into a second buffer, the location features and
-// the tanh of the CTA's columns are recomputed per tile. Partial sums cross
-// the cluster through distributed shared memory a tile at a time: the
-// memory.d_context partials of dw (all-gather, summed in rank order so every
-// CTA holds the same dw bit for bit), the partials of d_loc over the CTA's
-// columns (reduce-scatter by filter) and the partials of d_attn_hist over
-// the CTA's filters (reduce-scatter by position), each through
-// double-buffered slots with one cluster barrier a tile: a peer writes the
-// buffer of tile i + 2 only after every CTA has passed the barrier of tile
-// i + 1, so after it has read tile i's. A thread keeps its positions
-// l = g mod G across tiles and every cluster sum is in rank order, so the
-// result does not depend on the tile. No CTA touches a peer's shared memory
-// after the last barrier.
+// Design: the grid covers (span of P positions, batch row), so a row's
+// positions run on many SMs at once (P, a multiple of 4 up to 32, from
+// `attention_bwd_plan`: the least (CTAs an SM) x (P + a CTA's fixed work),
+// as `chip_ablate.py`'s span sweep measured it; 4 at L=32, 20 at B=16
+// L=133, 12 at B=2 L=700). No phase needs another span's data: s comes from
+// the row's w, d_weights, context and d_context (each CTA sums them itself,
+// in the same order), so de is local. A CTA of 256 threads:
+// - prologue: the loads of s's operands first, then loc_lin (rows at an
+//   odd float4 stride), loc_w, the history window [l0 - pad, l0 + P + pad),
+//   pq and v in one cp.async group and the span's processed memory in a
+//   second; meanwhile dw a warp per position (a warp's memory rows loaded
+//   together, 16 bytes a lane, d_memory written beside them), then s;
+// - the location features of the span, once (F x P, a thread each);
+// - a thread per attention column a: loc from its row of loc_lin (float4)
+//   and the features (float4 broadcasts), tanh, dpre into registers and
+//   d_pm, its d_v and d_pq over the span, and its column of d_loc_lin
+//   (dpre . loc) over the span;
+// - d_loc (F x P, 4 positions and 2 filters a thread, A split into as many
+//   groups as leave no thread idle, summed in group order); d_loc_w over
+//   the span (4 taps a thread, the history through a register window) and
+//   mk = loc_w^T d_loc, from which each element of the span's d_attn_hist
+//   window [l0 - pad, l0 + P + pad) (the halo) is a sum over the span.
+// Every weight gradient, d_pq and the d_attn_hist windows are written as
+// per-(row, span) partials into one buffer (`PartLayout`: each element has
+// one writer), and a second kernel, launched as a programmatic dependent
+// launch (scheduled while the first runs, waiting for its end), sums them
+// in a fixed order: the weight gradients over every (row, span), d_pq over
+// a row's spans, d_attn_hist over the spans whose window holds the
+// position. No atomics: a rerun repeats bit for bit.
+
+// Row stride of dpre (A, P) in shared memory: an odd number of float4s, so
+// the float4 stores of 8 neighbouring columns fall in 8 bank groups.
+__host__ __device__ __forceinline__ int dpre_stride(int P) { return (P / 4) % 2 ? P : P + 4; }
 
 struct BwdLayout {
-  int hist, wloc, lin, dctx, pq, v, w, dw, wslot, red, dloc, pmt, locf, dslot, hslot, total;
-  __host__ __device__ BwdLayout(int L, int Ac, int Dc, int C, int F, int K, int tile) {
-    const int Fr = (F + kCluster - 1) / kCluster;
+  int lin, wloc, hist, pq, v, red, de, pm, dpre, locf, dloc, mk, total;
+  __host__ __device__ BwdLayout(int P, int A, int C, int F, int K, int stage_lin) {
     int at = 0;
-    hist = at;  at += round4(C * (L + K - 1));
-    wloc = at;  at += round4(F * C * K);
-    lin = at;   at += round4(Ac * (F | 1));
-    dctx = at;  at += round4(Dc);
-    pq = at;    at += round4(Ac);
-    v = at;     at += round4(Ac);
-    w = at;     at += round4(L);
-    dw = at;    at += round4(L);
-    wslot = at; at += 2 * kCluster * round4(tile);
-    red = at;   at += 2 * round4(Ac > kThreads ? Ac : kThreads);
-    dloc = at;  at += round4(L * Fr);
-    pmt = at;   at += 2 * round4(tile * Ac);
-    locf = at;  at += round4(tile * F);
-    dslot = at; at += 2 * round4(kCluster * tile * Fr);
-    hslot = at; at += 2 * round4(kCluster * C * tile);
+    lin = at;  at += stage_lin ? A * feature_stride(F) : 0;
+    wloc = at; at += round4(F * C * K);
+    hist = at; at += round4(C * (P + K - 1));
+    pq = at;   at += round4(A);
+    v = at;    at += round4(A);
+    red = at;  at += 12 * kThreads;
+    de = at;   at += P;
+    pm = at;   at += round4(P * A);
+    dpre = at; at += A * dpre_stride(P);
+    locf = at; at += round4(F) * P;
+    dloc = at; at += F * dpre_stride(P);
+    mk = at;   at += round4(P * C * K);
     total = at;
   }
 };
 
-// Stage rows [l0, l0 + rows) of this CTA's columns of processed memory.
-__device__ __forceinline__ void stage_pm_tile(float* dst, const float* pm, int b, int r, int L,
-                                              int A, int Ac, int l0, int rows, bool vec) {
-  stage_slice(dst, Ac, pm + ((size_t)b * L + l0) * A + r * Ac, A, rows, Ac, vec);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+// One (row, span)'s partials, in floats: d_loc_w (F, C, K), d_loc_lin
+// transposed (F, A), d_v (A), d_pq (A), d_attn_hist over the window (C, P + K - 1).
+struct PartLayout {
+  int lw, ll, v, q, h, total;
+  __host__ __device__ PartLayout(int P, int A, int C, int F, int K) {
+    int at = 0;
+    lw = at; at += round4(F * C * K);
+    ll = at; at += round4(F * A);
+    v = at;  at += round4(A);
+    q = at;  at += round4(A);
+    h = at;  at += F > 0 ? round4(C * (P + K - 1)) : 0;
+    total = at;
+  }
+};
 
+template <int P, bool kStageLin>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_kernel(const float* __restrict__ pq, const float* __restrict__ pm,
-                           const float* __restrict__ memory, const float* __restrict__ hist,
-                           const float* __restrict__ loc_w, const float* __restrict__ loc_lin,
-                           const float* __restrict__ v, const float* __restrict__ weights,
-                           const float* __restrict__ d_context,
-                           const float* __restrict__ d_weights, float* __restrict__ d_pq,
-                           float* __restrict__ d_pm, float* __restrict__ d_memory,
-                           float* __restrict__ d_hist, float* __restrict__ rows, int L, int A,
-                           int D, int C, int F, int K, int tile) {
-  cg::cluster_group cluster = cg::this_cluster();
+                     const float* __restrict__ memory, const float* __restrict__ hist,
+                     const float* __restrict__ loc_w, const float* __restrict__ loc_lin,
+                     const float* __restrict__ v, const float* __restrict__ weights,
+                     const float* __restrict__ context, const float* __restrict__ d_context,
+                     const float* __restrict__ d_weights, float* __restrict__ d_pm,
+                     float* __restrict__ d_memory, float* __restrict__ part, int L, int A,
+                     int D, int C, int F, int K) {
   extern __shared__ __align__(16) float smem[];
-  const int r = (int)cluster.block_rank();
-  const int b = blockIdx.x / kCluster;
-  const int Ac = A / kCluster, Dc = D / kCluster;
-  const int Fr = (F + kCluster - 1) / kCluster;
-  const int pad = (K - 1) / 2, Lp = L + K - 1, CK = C * K;
-  const int FS = F | 1;  // odd row stride of loc_lin
-  const BwdLayout lay(L, Ac, Dc, C, F, K, tile);
-  float* hist_s = smem + lay.hist;  // (C, Lp): hist[c, j - pad], zero outside [0, L)
+  const int span = blockIdx.x, b = blockIdx.y, S = gridDim.x;
+  const int l0 = span * P, np = min(P, L - l0);
+  const int pad = (K - 1) / 2, W = P + K - 1, CK = C * K, FS = feature_stride(F);
+  const int PS = dpre_stride(P), F4 = round4(F);
+  const BwdLayout lay(P, A, C, F, K, kStageLin);
+  const PartLayout pl(P, A, C, F, K);
+  float* lin_s = smem + lay.lin;    // (A, FS) loc_lin, zero past F
   float* wloc = smem + lay.wloc;    // (F, C, K)
-  float* lin_s = smem + lay.lin;    // (Ac, FS): this CTA's rows of loc_lin
-  float* dctx = smem + lay.dctx;    // (Dc) this CTA's columns of d_context
+  float* hist_s = smem + lay.hist;  // (C, W): hist[c, l0 - pad + j], zero outside [0, L)
   float* pq_s = smem + lay.pq;
   float* v_s = smem + lay.v;
-  float* w = smem + lay.w;
-  float* dw = smem + lay.dw;        // (L) d_weights, then dw, then de
-  float* wslot = smem + lay.wslot;  // 2 x (kCluster, tile4) partials of dw, slot = sender
-  float* red = smem + lay.red;      // (2, G * Ac) running d_v and d_pq chains
-  float* dloc = smem + lay.dloc;    // (L, Fr) d_loc of this CTA's filters
-  float* pmt = smem + lay.pmt;      // 2 x (tile, Ac): processed memory, then dpre
-  float* locf = smem + lay.locf;    // (tile, F) location features of the tile
-  float* dslot = smem + lay.dslot;  // 2 x (kCluster, tile, Fr) partials of d_loc, slot = sender
-  float* hslot = smem + lay.hslot;  // 2 x (kCluster, C, tile) partials of d_attn_hist
-  const int pm_buf = round4(tile * Ac), d_buf = round4(kCluster * tile * Fr),
-            h_buf = round4(kCluster * C * tile);
-  const int ld_rows = F * CK + A * F + A;
-  float* dlw_row = rows + (size_t)b * ld_rows;
-  float* dll_row = dlw_row + F * CK;
-  float* dv_row = dll_row + A * F;
+  float* red = smem + lay.red;      // warp sums of s, then d_loc's group partials (G, F, PS)
+  float* de = smem + lay.de;        // (P) dw, then de
+  float* pm_s = smem + lay.pm;      // (P, A) processed memory, zero past the row
+  float* dpre = smem + lay.dpre;    // (A, PS)
+  float* locf = smem + lay.locf;    // (F4, P) location features, zero past F
+  float* dloc = smem + lay.dloc;    // (F, PS)
+  float* mk = smem + lay.mk;        // (P, C, K)
+  float* prow = part + (size_t)(b * S + span) * pl.total;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const int tile4 = round4(tile), ntiles = (L + tile - 1) / tile;
-  const bool vec = Ac % 4 == 0 && ((size_t)pm & 15) == 0;
+  // the sums kernel may be scheduled now: it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
-  // prologue: the operands held for the whole launch in one cp.async group,
-  // the first tile of processed memory in a second
-  for (int i = tid; i < C * Lp; i += blockDim.x) {
-    const int c = i / Lp, x = i - c * Lp - pad;
+  // s's operands first (for rows up to 4 * kThreads and D up to 2 * kThreads;
+  // the rest below), so that their loads fly while the copies are issued
+  const float* w_b = weights + (size_t)b * L;
+  const float* dwt_b = d_weights + (size_t)b * L;
+  const float* ctx_b = context + (size_t)b * D;
+  const float* g = d_context + (size_t)b * D;
+  float sw[4], sd[4], sc[2], sg[2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int l = tid + j * kThreads;
+    sw[j] = l < L ? __ldg(w_b + l) : 0.0f;
+    sd[j] = l < L ? __ldg(dwt_b + l) : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int d = tid + j * kThreads;
+    sc[j] = d < D ? __ldg(ctx_b + d) : 0.0f;
+    sg[j] = d < D ? __ldg(g + d) : 0.0f;
+  }
+  // prologue: what the whole CTA holds in one cp.async group, the span's
+  // processed memory in a second
+  if (kStageLin) {
+    stage_slice(lin_s, FS, loc_lin, F, A, F, F % 4 == 0 && ((size_t)loc_lin & 15) == 0);
+    zero_tail(lin_s, FS, A, F);
+  }
+  for (int i = tid; i < F * CK; i += blockDim.x) cp_async4(wloc + i, loc_w + i);
+  for (int i = tid; i < C * W; i += blockDim.x) {
+    const int c = i / W, x = l0 - pad + i - c * W;
     if (x >= 0 && x < L) cp_async4(hist_s + i, hist + ((size_t)b * C + c) * L + x);
     else hist_s[i] = 0.0f;
   }
-  for (int i = tid; i < F * CK; i += blockDim.x) cp_async4(wloc + i, loc_w + i);
-  for (int i = tid; i < Ac * F; i += blockDim.x) {
-    const int a = i / F, f = i - a * F;
-    cp_async4(lin_s + a * FS + f, loc_lin + (size_t)r * Ac * F + i);
-  }
-  for (int i = tid; i < Dc; i += blockDim.x) cp_async4(dctx + i, d_context + (size_t)b * D + r * Dc + i);
-  for (int i = tid; i < Ac; i += blockDim.x) {
-    cp_async4(pq_s + i, pq + (size_t)b * A + r * Ac + i);
-    cp_async4(v_s + i, v + r * Ac + i);
-  }
-  for (int l = tid; l < L; l += blockDim.x) {
-    cp_async4(w + l, weights + (size_t)b * L + l);
-    cp_async4(dw + l, d_weights + (size_t)b * L + l);
+  for (int i = tid; i < A; i += blockDim.x) {
+    cp_async4(pq_s + i, pq + (size_t)b * A + i);
+    cp_async4(v_s + i, v + i);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  stage_pm_tile(pmt, pm, b, r, L, A, Ac, 0, min(tile, L), vec);
-  const int G = Ac >= (int)blockDim.x ? 1 : (int)blockDim.x / Ac;
-  const int GA = G * Ac;
-  for (int i = tid; i < 2 * GA; i += blockDim.x) red[i] = 0.0f;
+  stage_slice(pm_s, A, pm + ((size_t)b * L + l0) * A, A, np, A,
+              A % 4 == 0 && ((size_t)pm & 15) == 0);
+  for (int i = np * A + tid; i < P * A; i += blockDim.x) pm_s[i] = 0.0f;
+  for (int i = (F4 - F) * P, j = tid; j < i; j += blockDim.x) locf[F * P + j] = 0.0f;
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // dw a warp per position (memory . d_context), the loads of a warp's
+  // positions in flight together, and the span's rows of d_memory
+  constexpr int PW = (P + kThreads / 32 - 1) / (kThreads / 32);  // positions a warp
+  float dot[PW], wl[PW];
+#pragma unroll
+  for (int q = 0; q < PW; ++q) {
+    const int ll = warp + nwarps * q;
+    dot[q] = 0.0f;
+    wl[q] = ll < np ? __ldg(w_b + l0 + ll) : 0.0f;
+  }
+  if (D % 4 == 0 && (((size_t)memory | (size_t)d_memory | (size_t)d_context) & 15) == 0) {
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int d0 = 4 * lane; d0 < D; d0 += 512) {
+      float4 gv[4], m[PW][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int d = d0 + 128 * j;
+        gv[j] = d < D ? __ldg(reinterpret_cast<const float4*>(g + d)) : zero;
+#pragma unroll
+        for (int q = 0; q < PW; ++q) {
+          const int ll = warp + nwarps * q;
+          m[q][j] = d < D && ll < np ? __ldg(reinterpret_cast<const float4*>(
+                                            memory + ((size_t)b * L + l0 + ll) * D + d)) : zero;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < PW; ++q) {
+        const int ll = warp + nwarps * q;
+        if (ll >= np) continue;
+        float* drow = d_memory + ((size_t)b * L + l0 + ll) * D;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int d = d0 + 128 * j;
+          if (d >= D) continue;
+          dot[q] = fmaf(m[q][j].x, gv[j].x, dot[q]);
+          dot[q] = fmaf(m[q][j].y, gv[j].y, dot[q]);
+          dot[q] = fmaf(m[q][j].z, gv[j].z, dot[q]);
+          dot[q] = fmaf(m[q][j].w, gv[j].w, dot[q]);
+          *reinterpret_cast<float4*>(drow + d) =
+              make_float4(wl[q] * gv[j].x, wl[q] * gv[j].y, wl[q] * gv[j].z, wl[q] * gv[j].w);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < PW; ++q) {
+      const int ll = warp + nwarps * q;
+      if (ll >= np) continue;
+      const float* mrow = memory + ((size_t)b * L + l0 + ll) * D;
+      float* drow = d_memory + ((size_t)b * L + l0 + ll) * D;
+      for (int d = lane; d < D; d += 32) {
+        const float gv = __ldg(g + d);
+        dot[q] = fmaf(__ldg(mrow + d), gv, dot[q]);
+        drow[d] = wl[q] * gv;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < PW; ++q) {
+    const int ll = warp + nwarps * q;
+    const float x = warp_sum(dot[q]);
+    if (lane == 0 && ll < np) de[ll] = __ldg(dwt_b + l0 + ll) + x;
+  }
+  // s = sum_l w d_weights + context . d_context, the same order in every CTA
+  float acc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc = fmaf(sw[j], sd[j], acc);
+  for (int l = tid + 4 * kThreads; l < L; l += kThreads) acc = fmaf(__ldg(w_b + l), __ldg(dwt_b + l), acc);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) acc = fmaf(sc[j], sg[j], acc);
+  for (int d = tid + 2 * kThreads; d < D; d += kThreads) acc = fmaf(__ldg(ctx_b + d), __ldg(g + d), acc);
+  acc = warp_sum(acc);
+  if (lane == 0) red[warp] = acc;
+  __syncthreads();
+  if (tid < P) {
+    float s = 0.0f;
+    for (int q = 0; q < nwarps; ++q) s += red[q];
+    const float wl = tid < np ? __ldg(w_b + l0 + tid) : 0.0f;
+    de[tid] = tid < np ? wl * (de[tid] - s) : 0.0f;
+  }
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // the held operands have landed
   __syncthreads();
-  cluster.sync();  // every CTA of the cluster has started: peers' shared memory is live
 
-  // dw = d_weights + memory . d_context a tile of positions at a time: this
-  // CTA's partials over its columns (a warp per position, memory read from
-  // L2) into slot r of every CTA, then, after the tile's barrier, the slots
-  // summed in rank order; and this CTA's columns of d_memory
-  const float* mem_b = memory + (size_t)b * L * D + r * Dc;
-  for (int it = 0; it < ntiles; ++it) {
-    const int l0 = it * tile, nrow = min(tile, L - l0);
-    float* ws = wslot + (it & 1) * kCluster * tile4;
-    for (int ll = warp; ll < nrow; ll += nwarps) {
-      const int l = l0 + ll;
-      const float* mrow = mem_b + (size_t)l * D;
-      float* drow = d_memory + ((size_t)b * L + l) * D + r * Dc;
-      float acc = 0.0f;
-      for (int d = lane; d < Dc; d += 32) {
-        const float g = dctx[d];
-        acc = fmaf(__ldg(mrow + d), g, acc);
-        drow[d] = w[l] * g;
-      }
-      acc = warp_sum(acc);
-      if (lane < kCluster) *cluster.map_shared_rank(ws + r * tile4 + ll, lane) = acc;
+  // locf[f, l] = sum_c sum_k loc_w[f, c, k] hist[c, l0 + l + k - pad]
+  for (int i = tid; i < F * P; i += blockDim.x) {
+    const int f = i / P, l = i - f * P;
+    float a = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      const float* h = hist_s + c * W + l;
+      const float* wk = wloc + f * CK + c * K;
+#pragma unroll 8
+      for (int k = 0; k < K; ++k) a = fmaf(wk[k], h[k], a);
     }
-    cluster.sync();  // this tile's dw partials have landed
-    for (int ll = tid; ll < nrow; ll += blockDim.x) {
-      float s = dw[l0 + ll];
-      for (int q = 0; q < kCluster; ++q) s += ws[q * tile4 + ll];
-      dw[l0 + ll] = s;
-    }
+    locf[i] = a;
   }
-  __syncthreads();
-  float wdw = 0.0f;  // sum_l w[l] dw[l], every warp for itself (same order, same result)
-  for (int l = lane; l < L; l += 32) wdw = fmaf(w[l], dw[l], wdw);
-  wdw = warp_sum(wdw);
-  __syncthreads();  // every warp has read dw before it becomes de
-  for (int l = tid; l < L; l += blockDim.x) dw[l] = w[l] * (dw[l] - wdw);
-  const float* de = dw;
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int l0 = it * tile, nrow = min(tile, L - l0);
-    float* pm_cur = pmt + (it & 1) * pm_buf;
-    // the next tile's processed memory into the other buffer, whose last
-    // reader (the previous tile) finished before the barrier that ended it
-    if (it + 1 < ntiles)
-      stage_pm_tile(pmt + ((it + 1) & 1) * pm_buf, pm, b, r, L, A, Ac, l0 + tile,
-                    min(tile, L - l0 - tile), vec);
-    else
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-    // locf[ll, f] = sum_c sum_k loc_w[f, c, k] hist[c, l0 + ll + k - pad]
-    for (int i = tid; i < nrow * F; i += blockDim.x) {
-      const int ll = i / F, f = i - ll * F;
-      float acc = 0.0f;
-      for (int c = 0; c < C; ++c) {
-        const float* h = hist_s + c * Lp + l0 + ll;
-        const float* wk = wloc + (f * C + c) * K;
-        for (int k = 0; k < K; ++k) acc = fmaf(wk[k], h[k], acc);
-      }
-      locf[i] = acc;
-    }
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this tile's processed memory
-    __syncthreads();
-    // tanh, dpre in place of processed memory, d_pm, and the d_v and d_pq
-    // chains of each (position group g, column a) over l = g mod G
-    for (int i = tid; i < GA; i += blockDim.x) {
-      const int g = i / Ac, a = i - g * Ac;
-      float dv = red[i], dq = red[GA + i];
-      for (int l = l0 + ((g - l0) % G + G) % G; l < l0 + nrow; l += G) {
-        const int ll = l - l0;
-        float loc = 0.0f;
-        for (int f = 0; f < F; ++f) loc = fmaf(locf[ll * F + f], lin_s[a * FS + f], loc);
-        const float t = tanhf((pq_s[a] + loc) + pm_cur[ll * Ac + a]);
-        const float dp = de[l] * v_s[a] * (1.0f - t * t);
-        dv = fmaf(de[l], t, dv);
-        dq += dp;
-        pm_cur[ll * Ac + a] = dp;
-        d_pm[((size_t)b * L + l) * A + r * Ac + a] = dp;
-      }
-      red[i] = dv;
-      red[GA + i] = dq;
-    }
-    __syncthreads();
-    if (F > 0) {
-      // d_loc_lin of this CTA's columns, summed over l in order across tiles
-      // in its row of `rows` (one writer an element)
-      for (int i = tid; i < Ac * F; i += blockDim.x) {
-        const int a = i / F, f = i - a * F;
-        float* out = dll_row + (size_t)r * Ac * F + i;
-        float acc = it ? *out : 0.0f;
-        for (int ll = 0; ll < nrow; ++ll) acc = fmaf(pm_cur[ll * Ac + a], locf[ll * F + f], acc);
-        *out = acc;
-      }
-      // partial d_loc[l, f] over this CTA's columns, into slot r of the CTA
-      // that owns filter f
-      float* ds = dslot + (it & 1) * d_buf;
-      for (int i = tid; i < nrow * F; i += blockDim.x) {
-        const int ll = i / F, f = i - ll * F;
-        float acc = 0.0f;
-        for (int a = 0; a < Ac; ++a) acc = fmaf(pm_cur[ll * Ac + a], lin_s[a * FS + f], acc);
-        *cluster.map_shared_rank(ds + ((size_t)r * tile + ll) * Fr + f / kCluster, f % kCluster) = acc;
-      }
-      cluster.sync();  // this tile's d_loc partials have landed
-      for (int i = tid; i < nrow * Fr; i += blockDim.x) {
-        float s = 0.0f;
-        for (int q = 0; q < kCluster; ++q) s += ds[(size_t)q * tile * Fr + i];
-        dloc[l0 * Fr + i] = s;
-      }
-    } else {
-      __syncthreads();  // the tile's buffers are free for the next
-    }
-  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // processed memory
   __syncthreads();
 
-  for (int a = tid; a < Ac; a += blockDim.x) {
-    float dvs = 0.0f, dqs = 0.0f;
-    for (int g = 0; g < G; ++g) {
-      dvs += red[g * Ac + a];
-      dqs += red[GA + g * Ac + a];
+  // a thread per attention column: tanh, dpre, d_pm, and its partials of
+  // d_v, d_pq and d_loc_lin over the span
+  for (int a = tid; a < A; a += blockDim.x) {
+    float loc[P];
+#pragma unroll
+    for (int l = 0; l < P; ++l) loc[l] = 0.0f;
+    for (int f = 0; f < F4; f += 4) {
+      float lv[4];
+      if (kStageLin) {
+        const float4 x = *reinterpret_cast<const float4*>(lin_s + a * FS + f);
+        lv[0] = x.x, lv[1] = x.y, lv[2] = x.z, lv[3] = x.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) lv[j] = f + j < F ? __ldg(loc_lin + (size_t)a * F + f + j) : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4* lf = reinterpret_cast<const float4*>(locf + (f + j) * P);
+#pragma unroll
+        for (int q = 0; q < P / 4; ++q) {
+          const float4 x = lf[q];
+          loc[4 * q] = fmaf(x.x, lv[j], loc[4 * q]);
+          loc[4 * q + 1] = fmaf(x.y, lv[j], loc[4 * q + 1]);
+          loc[4 * q + 2] = fmaf(x.z, lv[j], loc[4 * q + 2]);
+          loc[4 * q + 3] = fmaf(x.w, lv[j], loc[4 * q + 3]);
+        }
+      }
     }
-    dv_row[r * Ac + a] = dvs;
-    d_pq[(size_t)b * A + r * Ac + a] = dqs;
+    const float pa = pq_s[a], va = v_s[a];
+    float dv = 0.0f, dq = 0.0f, dp[P];
+#pragma unroll
+    for (int l = 0; l < P; ++l) {
+      const float t = tanh_((pa + loc[l]) + pm_s[l * A + a]);
+      dp[l] = de[l] * va * (1.0f - t * t);
+      dv = fmaf(de[l], t, dv);
+      dq += dp[l];
+      if (l < np) d_pm[((size_t)b * L + l0 + l) * A + a] = dp[l];
+    }
+#pragma unroll
+    for (int q = 0; q < P / 4; ++q)
+      *reinterpret_cast<float4*>(dpre + a * PS + 4 * q) =
+          make_float4(dp[4 * q], dp[4 * q + 1], dp[4 * q + 2], dp[4 * q + 3]);
+    prow[pl.v + a] = dv;
+    prow[pl.q + a] = dq;
+    // unrolled by 2, and not at span 24: no span spills (unrolled by 4,
+    // spans 20 and 24 did; by 2, span 24 does)
+#pragma unroll (P == 24 ? 1 : 2)
+    for (int f = 0; f < F; ++f) {
+      const float4* lf = reinterpret_cast<const float4*>(locf + f * P);
+      float x = 0.0f;
+#pragma unroll
+      for (int q = 0; q < P / 4; ++q) {
+        const float4 y = lf[q];
+        x = fmaf(dp[4 * q], y.x, x);
+        x = fmaf(dp[4 * q + 1], y.y, x);
+        x = fmaf(dp[4 * q + 2], y.z, x);
+        x = fmaf(dp[4 * q + 3], y.w, x);
+      }
+      prow[pl.ll + f * A + a] = x;
+    }
   }
   if (F == 0) return;
-  // d_loc_w of this CTA's filters, complete over l
-  for (int i = tid; i < Fr * CK; i += blockDim.x) {
-    const int fi = i / CK, ck = i - fi * CK, c = ck / K, k = ck - c * K;
-    const int f = r + kCluster * fi;
-    if (f >= F) continue;
-    const float* h = hist_s + c * Lp + k;
-    float acc = 0.0f;
-    for (int l = 0; l < L; ++l) acc = fmaf(dloc[l * Fr + fi], h[l], acc);
-    dlw_row[f * CK + ck] = acc;
-  }
-  // d_attn_hist a tile of positions at a time: partials over this CTA's
-  // filters into slot r of the CTA that owns element j = c * tile + xx
-  for (int it = 0; it < ntiles; ++it) {
-    const int x0 = it * tile, nrow = min(tile, L - x0);
-    float* hs = hslot + (it & 1) * h_buf;
-    for (int i = tid; i < C * nrow; i += blockDim.x) {
-      const int c = i / nrow, xx = i - c * nrow, x = x0 + xx;
-      float acc = 0.0f;
-      for (int fi = 0; fi < Fr && r + kCluster * fi < F; ++fi) {
-        const float* wk = wloc + ((r + kCluster * fi) * C + c) * K;
-        const int k0 = max(0, x + pad - L + 1), k1 = min(K - 1, x + pad);
-        for (int k = k0; k <= k1; ++k) acc = fmaf(wk[k], dloc[(x - k + pad) * Fr + fi], acc);
+  __syncthreads();
+
+  // d_loc[f, l] = sum_a dpre[a, l] loc_lin[a, f]: a thread makes 4 positions
+  // of two filters over one of G groups of columns; the groups summed in order
+  const int F2 = (F + 1) / 2, items = F2 * (P / 4);
+  const int G = items >= (int)blockDim.x ? 1 : (int)blockDim.x / items;
+  const int chunk = (A + G - 1) / G;
+  for (int i = tid; i < items * G; i += blockDim.x) {
+    const int g = i / items, it = i - g * items, f = 2 * (it % F2), lq = it / F2;
+    float4 x0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), x1 = x0;
+    const int a1 = min(A, (g + 1) * chunk);
+#pragma unroll 4
+    for (int a = g * chunk; a < a1; ++a) {
+      float2 lv;
+      if (kStageLin) {
+        lv = *reinterpret_cast<const float2*>(lin_s + a * FS + f);
+      } else {
+        lv.x = __ldg(loc_lin + (size_t)a * F + f);
+        lv.y = f + 1 < F ? __ldg(loc_lin + (size_t)a * F + f + 1) : 0.0f;
       }
-      const int j = c * tile + xx;
-      *cluster.map_shared_rank(hs + (size_t)r * C * tile + j, j % kCluster) = acc;
+      const float4 y = *reinterpret_cast<const float4*>(dpre + a * PS + 4 * lq);
+      x0.x = fmaf(y.x, lv.x, x0.x);
+      x0.y = fmaf(y.y, lv.x, x0.y);
+      x0.z = fmaf(y.z, lv.x, x0.z);
+      x0.w = fmaf(y.w, lv.x, x0.w);
+      x1.x = fmaf(y.x, lv.y, x1.x);
+      x1.y = fmaf(y.y, lv.y, x1.y);
+      x1.z = fmaf(y.z, lv.y, x1.z);
+      x1.w = fmaf(y.w, lv.y, x1.w);
     }
-    cluster.sync();  // this tile's partials have landed; after the last, no remote access
-    for (int j = r + kCluster * tid; j < C * tile; j += kCluster * blockDim.x) {
-      const int c = j / tile, xx = j - c * tile;
-      if (xx >= nrow) continue;
-      float s = 0.0f;
-      for (int q = 0; q < kCluster; ++q) s += hs[(size_t)q * C * tile + j];
-      d_hist[((size_t)b * C + c) * L + x0 + xx] = s;
+    float* out = (G == 1 ? dloc : red + g * F * PS) + f * PS + 4 * lq;
+    *reinterpret_cast<float4*>(out) = x0;
+    if (f + 1 < F) *reinterpret_cast<float4*>(out + PS) = x1;
+  }
+  if (G > 1) {
+    __syncthreads();
+    for (int i = tid; i < F * PS; i += blockDim.x) {
+      float x = 0.0f;
+      for (int g = 0; g < G; ++g) x += red[g * F * PS + i];
+      dloc[i] = x;
     }
   }
+  __syncthreads();
+
+  // d_loc_w over the span, 4 taps a thread (the history through a window of
+  // registers); and mk[l, c, k] = sum_f loc_w[f, c, k] d_loc[f, l], what
+  // position l0 + l sends to d_attn_hist at l0 + l + k - pad, 4 positions a
+  // thread
+  const int K4 = (K + 3) / 4;
+  for (int i = tid; i < F * C * K4; i += blockDim.x) {
+    const int f = i / (C * K4), ck = i - f * C * K4, c = ck / K4, k = 4 * (ck - c * K4);
+    const float* h = hist_s + c * W + k;  // may read past the row for taps >= K, unused
+    const float* dl = dloc + f * PS;
+    float x[4] = {}, win[4];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) win[q + 1] = h[q];
+#pragma unroll
+    for (int l = 0; l < P; ++l) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) win[q] = win[q + 1];
+      win[3] = h[l + 3];
+      const float d = dl[l];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = fmaf(d, win[q], x[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (k + q < K) prow[pl.lw + f * CK + c * K + k + q] = x[q];
+  }
+  for (int i = tid; i < (P / 4) * CK; i += blockDim.x) {
+    const int lq = i / CK, ck = i - lq * CK;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+    for (int f = 0; f < F; ++f) {
+      const float wv = wloc[f * CK + ck];
+      const float4 d = *reinterpret_cast<const float4*>(dloc + f * PS + 4 * lq);
+      x.x = fmaf(wv, d.x, x.x);
+      x.y = fmaf(wv, d.y, x.y);
+      x.z = fmaf(wv, d.z, x.z);
+      x.w = fmaf(wv, d.w, x.w);
+    }
+    mk[(4 * lq) * CK + ck] = x.x;
+    mk[(4 * lq + 1) * CK + ck] = x.y;
+    mk[(4 * lq + 2) * CK + ck] = x.z;
+    mk[(4 * lq + 3) * CK + ck] = x.w;
+  }
+  __syncthreads();
+  // the span's d_attn_hist over the window, j = x - (l0 - pad), summed over
+  // the span's positions in order
+  for (int o = tid; o < C * W; o += blockDim.x) {
+    const int c = o / W, j = o - c * W;
+    float x = 0.0f;
+    for (int l = max(0, j - K + 1); l <= min(P - 1, j); ++l) x += mk[l * CK + c * K + j - l];
+    prow[pl.h + o] = x;
+  }
+}
+
+// The fixed-order sums of `attention_bwd_kernel`'s partials, read as
+// float4s (the `PartLayout` regions are whole float4s). Blocks [0, n_w): 32
+// float4s of the weight gradients' columns (d_loc_w, d_loc_lin, d_v) over
+// every (row, span); the next B * ceil(A / 128): d_pq of a row over its
+// spans. Warp q sums the partial rows r = q mod 8 (8 loads in flight a
+// lane), and the 8 warp sums are added in warp order. The rest: d_attn_hist,
+// a thread a position, over the spans whose window holds it, in span order.
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ d_pq,
+                         float* __restrict__ d_hist, float* __restrict__ d_loc_w,
+                         float* __restrict__ d_loc_lin, float* __restrict__ d_v, int B, int L,
+                         int A, int C, int F, int K, int P, int S, int n_w) {
+  __shared__ float4 sums[kThreads];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // every partial is written
+  const PartLayout pl(P, A, C, F, K);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int a_blocks = (A + 127) / 128;
+  int blk = blockIdx.x;
+  if (blk < n_w + B * a_blocks) {
+    const bool wgt = blk < n_w;
+    int col, r0, nr, bb = 0;
+    if (wgt) {
+      col = 4 * (blk * 32 + lane);
+      r0 = 0, nr = B * S;
+      if (col >= pl.q) col = -1;
+    } else {
+      blk -= n_w;
+      bb = blk / a_blocks;
+      const int a = (blk - bb * a_blocks) * 128 + 4 * lane;
+      col = a < A ? pl.q + a : -1;
+      r0 = bb * S, nr = S;
+    }
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (col >= 0) {
+#pragma unroll 8
+      for (int r = warp; r < nr; r += nwarps) {
+        const float4 y = __ldg(reinterpret_cast<const float4*>(part + (size_t)(r0 + r) * pl.total + col));
+        x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
+      }
+    }
+    sums[tid] = x;
+    __syncthreads();
+    if (warp != 0 || col < 0) return;
+    float y[4] = {};
+    for (int q = 0; q < nwarps; ++q) {
+      const float4 z = sums[q * 32 + lane];
+      y[0] += z.x, y[1] += z.y, y[2] += z.z, y[3] += z.w;
+    }
+    const int FCK = F * C * K, FA = F * A;
+    for (int j = 0; j < 4; ++j) {
+      const int c = col + j;
+      if (!wgt) {
+        if (c - pl.q < A) d_pq[(size_t)bb * A + c - pl.q] = y[j];
+      } else if (c < pl.ll) {
+        if (c - pl.lw < FCK) d_loc_w[c - pl.lw] = y[j];
+      } else if (c < pl.v) {
+        const int e = c - pl.ll, f = e / A;
+        if (e < FA) d_loc_lin[(size_t)(e - f * A) * F + f] = y[j];
+      } else if (c - pl.v < A) {
+        d_v[c - pl.v] = y[j];
+      }
+    }
+    return;
+  }
+  const int i = (blk - n_w - B * a_blocks) * blockDim.x + tid;
+  if (i >= B * C * L) return;
+  const int bb = i / (C * L), c = (i / L) % C, x = i % L;
+  const int pad = (K - 1) / 2, W = P + K - 1;
+  // span s holds x when 0 <= x - s * P + pad < W
+  const int s_lo = max(0, (x + pad - W + P) / P), s_hi = min(S - 1, (x + pad) / P);
+  float y = 0.0f;
+#pragma unroll 4
+  for (int s = s_lo; s <= s_hi; ++s)
+    y += __ldg(part + (size_t)(bb * S + s) * pl.total + pl.h + c * W + x - s * P + pad);
+  d_hist[i] = y;
+}
+
+template <int P, bool kStageLin>
+cudaError_t launch_bwd(const float* pq, const float* pm, const float* memory, const float* hist,
+                       const float* loc_w, const float* loc_lin, const float* v,
+                       const float* weights, const float* context, const float* d_context,
+                       const float* d_weights, float* d_pm, float* d_memory, float* part, int B,
+                       int L, int A, int D, int C, int F, int K, cudaStream_t stream) {
+  const size_t smem = (size_t)BwdLayout(P, A, C, F, K, kStageLin).total * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<P, kStageLin>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  attention_bwd_kernel<P, kStageLin><<<dim3((L + P - 1) / P, B), kThreads, smem, stream>>>(
+      pq, pm, memory, hist, loc_w, loc_lin, v, weights, context, d_context, d_weights, d_pm,
+      d_memory, part, L, A, D, C, F, K);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// d_pq (B, A), d_pm (B, L, A), d_memory (B, L, D), d_hist (B, C, L) and
-// `rows` (B, F*C*K + A*F + A): each batch row's partials of d_loc_w (F, C,
-// K), d_loc_lin (A, F) and d_v (A), which the caller sums over the batch.
-// F = 0 (loc_w, loc_lin and d_hist null) is the location-free attention.
-// `tile` (positions a tile, at least 1) comes from attention.py
-// `attention_bwd_plan`.
+// d_pq (B, A), d_pm (B, L, A), d_memory (B, L, D), d_hist (B, C, L),
+// d_loc_w (F, C, K), d_loc_lin (A, F) and d_v (A) from the forward's inputs,
+// weights and context; `part` (part_len floats, at least B * ceil(L / span)
+// `PartLayout`s) holds the per-(row, span) partials between the two
+// kernels. F = 0 (loc_w, loc_lin, d_hist, d_loc_w and d_loc_lin null) is the
+// location-free attention. `span` (a multiple of 4 up to 32) and `stage_lin`
+// (loc_lin held in shared memory) come from attention.py `attention_bwd_plan`.
 extern "C" int attention_step_bwd_f32(const float* pq, const float* pm, const float* memory,
                                       const float* hist, const float* loc_w,
                                       const float* loc_lin, const float* v,
-                                      const float* weights, const float* d_context,
-                                      const float* d_weights, float* d_pq, float* d_pm,
-                                      float* d_memory, float* d_hist, float* rows, int B, int L,
-                                      int A, int D, int C, int F, int K, int tile, void* stream) {
-  if (A % kCluster || D % kCluster || L < 1 || B < 1 || tile < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)BwdLayout(L, A / kCluster, D / kCluster, C, F, K, tile).total * sizeof(float);
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
+                                      const float* weights, const float* context,
+                                      const float* d_context, const float* d_weights,
+                                      float* d_pq, float* d_pm, float* d_memory, float* d_hist,
+                                      float* d_loc_w, float* d_loc_lin, float* d_v, float* part,
+                                      int B, int L, int A, int D, int C, int F, int K, int span,
+                                      int stage_lin, int part_len, void* stream) {
+  if (L < 1 || B < 1 || A < 1 || D < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  // loc_lin is read from L2 (stage_lin 0) only at the smallest span
+  decltype(&launch_bwd<4, true>) launch = nullptr;
+  if (!stage_lin) {
+    if (span == 4) launch = launch_bwd<4, false>;
+  } else {
+    switch (span) {
+      case 4: launch = launch_bwd<4, true>; break;
+      case 8: launch = launch_bwd<8, true>; break;
+      case 12: launch = launch_bwd<12, true>; break;
+      case 16: launch = launch_bwd<16, true>; break;
+      case 20: launch = launch_bwd<20, true>; break;
+      case 24: launch = launch_bwd<24, true>; break;
+      case 28: launch = launch_bwd<28, true>; break;
+      case 32: launch = launch_bwd<32, true>; break;
+    }
   }
+  if (launch == nullptr) return (int)cudaErrorInvalidValue;
+  const int S = (L + span - 1) / span;
+  if ((long long)B * S * PartLayout(span, A, C, F, K).total > part_len)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = launch(pq, pm, memory, hist, loc_w, loc_lin, v, weights, context, d_context,
+                           d_weights, d_pm, d_memory, part, B, L, A, D, C, F, K, st);
+  if (err != cudaSuccess) return (int)err;
+  const int n_w = (PartLayout(span, A, C, F, K).q + 127) / 128;
+  const int n_h = F > 0 ? (B * C * L + kThreads - 1) / kThreads : 0;
+  // a programmatic dependent launch: the sums kernel is scheduled while the
+  // per-span kernel runs and waits for its end (griddepcontrol.wait)
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * B);
+  cfg.gridDim = dim3(n_w + B * ((A + 127) / 128) + n_h);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
+  cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, attention_bwd_kernel, pq, pm, memory, hist, loc_w, loc_lin, v,
-                           weights, d_context, d_weights, d_pq, d_pm, d_memory, d_hist, rows, L,
-                           A, D, C, F, K, tile);
+  err = cudaLaunchKernelEx(&cfg, attention_bwd_sum_kernel, (const float*)part, d_pq, d_hist,
+                           d_loc_w, d_loc_lin, d_v, B, L, A, C, F, K, span, S, n_w);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 

@@ -4,8 +4,9 @@ one location-sensitive attention step, given the projected query; K9
 
 The wrappers launch `csrc/attention.cu` for CUDA tensors and run their plain
 PyTorch versions only for CPU tensors. `attention_plan` and
-`attention_bwd_plan` compute the launch plans (one thread-block cluster per
-batch row) and name the shapes the kernels take.
+`attention_bwd_plan` compute the launch plans (K3: one thread-block cluster
+per batch row; K9: a CTA per span of positions and batch row) and name the
+shapes the kernels take.
 """
 
 from __future__ import annotations
@@ -126,50 +127,60 @@ def attention_step(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, m
 attention_step.launches = 0
 
 
-def _bwd_smem_floats(L, Ac, Dc, C, F_, K, tile) -> int:
+SPANS = (4, 8, 12, 16, 20, 24, 28, 32)  # positions a K9 CTA takes (csrc/attention.cu)
+SMS = 132                   # H100 SXM
+SPAN_COST = 8               # a K9 CTA's fixed work, in positions (chip_ablate.py's span sweep)
+
+
+def _bwd_smem_floats(P, A, C, F_, K, stage_lin) -> int:
     """Floats of a K9 CTA's shared memory, region by region as `BwdLayout` in
     csrc/attention.cu lays them out."""
-    Fr = -(-F_ // CLUSTER)
-    regions = (C * (L + K - 1), F_ * C * K, Ac * (F_ | 1), Dc, Ac, Ac, L, L, L * Fr, tile * F_)
-    return (sum(_round4(n) for n in regions) + 2 * CLUSTER * _round4(tile)
-            + 2 * _round4(max(Ac, THREADS)) + 2 * _round4(tile * Ac)
-            + 2 * _round4(CLUSTER * tile * Fr) + 2 * _round4(CLUSTER * C * tile))
+    fs = _round4(F_) + (4 if _round4(F_) % 8 == 0 else 0)  # loc_lin's float4 row stride
+    ps = P if (P // 4) % 2 else P + 4                       # dpre's row stride
+    return (A * fs if stage_lin else 0) + sum(_round4(n) for n in (
+        F_ * C * K, C * (P + K - 1), A, A, 12 * THREADS, P, P * A, A * ps,
+        _round4(F_) * P, F_ * ps, P * C * K))
 
 
-BWD_TILES = (64, 32, 16, 8, 4, 2, 1)  # positions a tile, largest first
+def _bwd_part_floats(P, A, C, F_, K) -> int:
+    """Floats of one (row, span)'s partials, as `PartLayout` lays them out."""
+    return sum(_round4(n) for n in (F_ * C * K, F_ * A, A, A, C * (P + K - 1) if F_ else 0))
 
 
 @functools.lru_cache(maxsize=64)
 def attention_bwd_plan(B: int, L: int, A: int, D: int, C: int, F_: int, K: int) -> dict:
-    """K9's launch plan: K3's layout, B clusters of CLUSTER CTAs, CTA r
-    owning A/CLUSTER attention columns, D/CLUSTER context columns and the
-    filters f = r + CLUSTER*i. Shared memory holds 2 + C + Fr floats a
-    position; the wide per-position operands are streamed in tiles of
-    ``tile`` positions, the largest of `BWD_TILES` (at most L) that fits (64
-    at flagship widths; less where a tile of wide rows does not fit beside
-    the history). K9 takes the shapes K3 takes (`attention_plan`; L up to
-    1,187 at flagship widths) and raises ValueError where it does."""
+    """K9's launch plan: a CTA of THREADS threads for each (span of ``span``
+    positions, batch row), ``spans`` spans a row. The span is the one of
+    `SPANS` with the least (CTAs an SM) x (span + SPAN_COST), the smaller on
+    a tie, among those whose shared memory fits; where none does, span 4
+    with loc_lin read from L2 (``stage_lin`` False). ``part_floats``: the
+    buffer of per-(row, span) partials the wrapper allocates for the second
+    kernel, which sums them. K9 takes the shapes K3 takes
+    (`attention_plan`; L up to 1,187 at flagship widths) and raises
+    ValueError where it does."""
     attention_plan(B, L, A, D, C, F_, K)
-    Ac, Dc = A // CLUSTER, D // CLUSTER
-    sizes = [(t, _bwd_smem_floats(L, Ac, Dc, C, F_, K, t))
-             for t in sorted({min(t, L) for t in BWD_TILES}, reverse=True)]
-    fits = [(t, n) for t, n in sizes if 4 * n <= build.SMEM_PER_BLOCK]
-    if not fits:
-        raise ValueError(f"attention_step_bwd kernel: L={L} needs {4 * sizes[-1][1]} bytes of "
-                         f"shared memory; a block may use {build.SMEM_PER_BLOCK}")
-    t, n = fits[0]
-    return dict(cluster=CLUSTER, grid=(CLUSTER * B,), threads=THREADS, smem_bytes=4 * n,
-                a_per_cta=Ac, d_per_cta=Dc, filters_per_cta=-(-F_ // CLUSTER), tile=t)
+    cost = lambda P: (-(-B * -(-L // P) // SMS) * (P + SPAN_COST), P)
+    choices = [(P, True) for P in sorted(SPANS, key=cost)] if F_ else []
+    for P, stage_lin in choices + [(SPANS[0], False)]:
+        smem = 4 * _bwd_smem_floats(P, A, C, F_, K, stage_lin)
+        if smem <= build.SMEM_PER_BLOCK:
+            S = -(-L // P)
+            return dict(span=P, spans=S, grid=(S, B), threads=THREADS, smem_bytes=smem,
+                        stage_lin=stage_lin,
+                        part_floats=B * S * _bwd_part_floats(P, A, C, F_, K))
+    raise ValueError(f"attention_step_bwd kernel: A={A}, D={D}, F={F_} need {smem} bytes of "
+                     f"shared memory at the smallest span; a block may use {build.SMEM_PER_BLOCK}")
 
 
 def attention_step_bwd_plain(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, weights,
-                             d_context, d_weights):
+                             context, d_context, d_weights):
     """The backward of `attention_step_plain` in closed form, from the
-    forward's inputs, its ``weights`` and the cotangents ``d_context`` (B, D)
-    and ``d_weights`` (B, L) -> (d_pq, d_processed_memory, d_memory,
-    d_attn_hist, d_loc_w, d_loc_lin, d_v); the location terms are None when
-    ``loc_w`` is None. A masked position has weight 0, so it gets zero
-    gradient without the mask."""
+    forward's inputs, its ``weights`` and ``context`` (unused here: the
+    kernel uses it) and the cotangents ``d_context`` (B, D) and ``d_weights``
+    (B, L) -> (d_pq, d_processed_memory, d_memory, d_attn_hist, d_loc_w,
+    d_loc_lin, d_v); the location terms are None when ``loc_w`` is None. A
+    masked position has weight 0, so it gets zero gradient without the
+    mask."""
     energy_in = pq[:, None, :]
     if loc_w is not None:
         pad = (loc_w.shape[2] - 1) // 2
@@ -191,20 +202,22 @@ def attention_step_bwd_plain(pq, processed_memory, memory, attn_hist, loc_w, loc
 
 
 def attention_step_bwd(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, weights,
-                       d_context, d_weights):
+                       context, d_context, d_weights):
     """K9: the backward of one attention step (`attention_step_bwd_plain`'s
-    outputs); one launch per call on the card, then one sum over the batch
-    of the weight gradients' per-row partials."""
+    outputs), given the forward's ``context`` as K3 returned it; on the card
+    one call launches the per-span kernel and the kernel that sums its
+    partials."""
     if not pq.is_cuda:
         return attention_step_bwd_plain(pq, processed_memory, memory, attn_hist, loc_w, loc_lin,
-                                        v, weights, d_context, d_weights)
+                                        v, weights, context, d_context, d_weights)
     B, L, A = processed_memory.shape
     D = memory.shape[2]
     C = attn_hist.shape[1]
     for t, shape, what in ((pq, (B, A), "pq"), (processed_memory, (B, L, A), "processed_memory"),
                            (memory, (B, L, D), "memory"), (attn_hist, (B, C, L), "attn_hist"),
                            (v, (A,), "v"), (weights, (B, L), "weights"),
-                           (d_context, (B, D), "d_context"), (d_weights, (B, L), "d_weights")):
+                           (context, (B, D), "context"), (d_context, (B, D), "d_context"),
+                           (d_weights, (B, L), "d_weights")):
         build.require(t, shape, f"attention_step_bwd {what}")
     if loc_w is None:
         n_filt, K = 0, 1
@@ -214,23 +227,21 @@ def attention_step_bwd(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, 
         build.require(loc_lin, (A, n_filt), "attention_step_bwd loc_lin")
     plan = attention_bwd_plan(B, L, A, D, C, n_filt, K)
     empty = functools.partial(torch.empty, device=pq.device, dtype=torch.float32)
-    d_pq, d_pm, d_mem = empty((B, A)), empty((B, L, A)), empty((B, L, D))
+    d_pq, d_pm, d_mem, d_v = empty((B, A)), empty((B, L, A)), empty((B, L, D)), empty((A,))
     d_hist = torch.zeros_like(attn_hist) if loc_w is None else empty((B, C, L))
-    n_lw, n_ll = n_filt * C * K, A * n_filt
-    rows = empty((B, n_lw + n_ll + A))  # per-row partials of d_loc_w, d_loc_lin, d_v
+    d_lw, d_ll = (empty((n_filt, C, K)), empty((A, n_filt))) if n_filt else (None, None)
+    part = empty((plan["part_floats"],))
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = build.bind("attention", "attention_step_bwd_f32", 15, 8)
+    fn = build.bind("attention", "attention_step_bwd_f32", 19, 10)
     build.check(fn(pq.data_ptr(), processed_memory.data_ptr(), memory.data_ptr(),
                    attn_hist.data_ptr(), ptr(loc_w), ptr(loc_lin), v.data_ptr(), weights.data_ptr(),
-                   d_context.data_ptr(), d_weights.data_ptr(), d_pq.data_ptr(), d_pm.data_ptr(),
-                   d_mem.data_ptr(), None if loc_w is None else d_hist.data_ptr(),
-                   rows.data_ptr(), B, L, A, D, C, n_filt, K, plan["tile"], build.stream()),
+                   context.data_ptr(), d_context.data_ptr(), d_weights.data_ptr(), d_pq.data_ptr(),
+                   d_pm.data_ptr(), d_mem.data_ptr(), None if loc_w is None else d_hist.data_ptr(),
+                   ptr(d_lw), ptr(d_ll), d_v.data_ptr(), part.data_ptr(), B, L, A, D, C, n_filt, K,
+                   plan["span"], int(plan["stage_lin"]), plan["part_floats"], build.stream()),
                 "attention_step_bwd")
     attention_step_bwd.launches += 1
-    sums = rows.sum(0)
-    d_lw = sums[:n_lw].view(n_filt, C, K) if n_filt else None
-    d_ll = sums[n_lw:n_lw + n_ll].view(A, n_filt) if n_filt else None
-    return d_pq, d_pm, d_mem, d_hist, d_lw, d_ll, sums[n_lw + n_ll:]
+    return d_pq, d_pm, d_mem, d_hist, d_lw, d_ll, d_v
 
 
 attention_step_bwd.launches = 0

@@ -36,14 +36,16 @@ def process_memory(p: Attention, memory):
 
 class _AttentionStep(torch.autograd.Function):
     """K3 forward, K9 backward. Saves its inputs (views, never copies: the
-    decoder's 81 steps share one memory and processed memory) and the
-    weights."""
+    decoder's 81 steps share one memory and processed memory) and its
+    outputs, the weights and the context (K9 needs sum_l w dw, which the
+    context gives without the row's other positions)."""
 
     @staticmethod
     def forward(ctx, pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, mask):
         context, weights = k3.attention_step(pq, processed_memory, memory, attn_hist, loc_w,
                                              loc_lin, v, mask)
-        ctx.save_for_backward(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, weights)
+        ctx.save_for_backward(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, weights,
+                              context)
         return context, weights
 
     @staticmethod

@@ -18,8 +18,8 @@ from semi_tts_tpu_torch.models import attention as P
 ATOL = 1e-5  # fp32 on both sides; only summation orders differ
 
 
-def _setup(use_summed_weights=True, loc_aware=True, seed=0):
-    B, L, Q, D, A, F, K = 3, 13, 12, 10, 8, 4, 7  # L not a multiple of 32
+def _setup(use_summed_weights=True, loc_aware=True, seed=0, L=13, D=10, A=8):
+    B, Q, F, K = 3, 12, 4, 7  # L not a multiple of 32 by default
     params = J.attention_init(jax.random.PRNGKey(seed), Q, D, A, F, K, loc_aware=loc_aware,
                               use_summed_weights=use_summed_weights)
     params = jax.tree_util.tree_map(np.asarray, params)
@@ -187,7 +187,7 @@ def test_attention_step_bwd_plain_matches_autograd(loc_aware):
     want = torch.autograd.grad((ctx * gc).sum() + (w * gw).sum(), leaves, allow_unused=True)
     before = k3.attention_step_bwd.launches
     got = k3.attention_step_bwd(*[a.detach() if a is not None else None for a in args],
-                                w.detach(), gc, gw)
+                                w.detach(), ctx.detach(), gc, gw)
     assert k3.attention_step_bwd.launches == before
     got = [g for g in got if g is not None]
     for g, wt in zip(got, want):
@@ -196,24 +196,33 @@ def test_attention_step_bwd_plain_matches_autograd(loc_aware):
 
 
 def test_attention_bwd_plan_flagship():
-    """K9 at the paired step's shapes (B=8, L=32): K3's clusters, 4 filters
-    a CTA, the 32 positions in one tile; longer memories in tiles of 64
-    positions (a partial last one at L=700 and 1,187), up to the 1,187 K3
-    takes at flagship widths (the first L that K3 refuses, K9 refuses too);
-    outside its shapes it raises."""
-    from semi_tts_tpu_torch.kernels import attention as k3, build
+    """K9 at every (B, L) the train steps give it, flagship widths: a CTA of
+    256 threads for each span of positions and batch row; the span the one
+    of `SPANS` with the least (CTAs an SM) x (span + SPAN_COST), the smaller
+    on a tie (4 at L=32, 20 at B=16 L=133, 12 at B=2 L=700); loc_lin in
+    shared memory, two CTAs an SM up to spans of 20; one partials row a
+    (row, span); up to the 1,187 positions K3 takes (the first L that K3
+    refuses, K9 refuses too); outside its shapes it raises."""
+    from semi_tts_tpu_torch.kernels import attention as k3
 
     shapes = {**FLAGSHIP, "B": 8}
-    plan = k3.attention_bwd_plan(**shapes)
-    assert plan["cluster"] == 8 and plan["grid"] == (64,) and plan["threads"] == 256
-    assert (plan["a_per_cta"], plan["d_per_cta"], plan["filters_per_cta"]) == (32, 64, 4)
-    assert plan["smem_bytes"] <= 64 * 1024 and plan["tile"] == 32
-    assert k3.attention_bwd_plan(**{**shapes, "L": 280})["tile"] == 64
-    for L in (700, 1187):
-        long = k3.attention_bwd_plan(**{**shapes, "L": L})
-        assert long["tile"] == 64 and L % 64 and long["smem_bytes"] <= build.SMEM_PER_BLOCK
-    assert k3.attention_bwd_plan(**{**shapes, "L": 1})["tile"] == 1
-    assert k3.attention_bwd_plan(**{**shapes, "F_": 0, "K": 1})["filters_per_cta"] == 0
+    # (B, L): (span, spans): paired, text-first, speech-first, the 15.28 s
+    # step, the longest memory K3 takes, and two more
+    expect = {(8, 32): (4, 8), (16, 32): (4, 8), (16, 133): (20, 7), (2, 679): (12, 57),
+              (2, 700): (12, 59), (2, 1187): (20, 60), (16, 280): (20, 14), (5, 1): (4, 1)}
+    for (B_, L), (span, spans) in expect.items():
+        plan = k3.attention_bwd_plan(**{**shapes, "B": B_, "L": L})
+        assert (plan["span"], plan["spans"], plan["grid"]) == (span, spans, (spans, B_))
+        assert plan["threads"] == 256 and plan["stage_lin"]
+        cost = {P: -(-B_ * -(-L // P) // k3.SMS) * (P + k3.SPAN_COST) for P in k3.SPANS}
+        assert cost[span] == min(cost.values()) and span == min(P for P in cost
+                                                                if cost[P] == cost[span])
+        # two CTAs an SM (228 KB, 1 KB of it reserved a CTA) up to spans of 20
+        assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024
+        window = -(-2 * (span + 30) // 4) * 4
+        assert plan["part_floats"] == B_ * spans * (1984 + 32 * 256 + 256 + 256 + window)
+    free = k3.attention_bwd_plan(**{**shapes, "F_": 0, "K": 1})
+    assert not free["stage_lin"] and free["span"] == 4 and free["part_floats"] == 8 * 8 * 512
     first_refused = dict(L=1188)
     with pytest.raises(ValueError):
         k3.attention_plan(**{**shapes, **first_refused})
@@ -240,12 +249,124 @@ def _longest(plan, widths):
                                          (4096, 8, 2, 64, 31), (2048, 4096, 2, 8, 7)])
 def test_attention_bwd_plan_takes_every_length_k3_takes(A, D, C, F_, K):
     """K9 takes every memory length K3 takes and no other, at the flagship's
-    widths, the tests' and others down to one attention column a CTA: it
-    holds fewer floats a position than K3, in tiles of fewer positions where
-    a tile of 64 does not fit."""
+    widths, the tests' and others down to one attention column a CTA: its
+    shared memory does not grow with L (a span of positions, the row's
+    weights read from L2), and where loc_lin does not fit it is read from
+    L2 too."""
     from semi_tts_tpu_torch.kernels import attention as k3
 
     widths = (A, D, C, F_, K)
     k3_max = _longest(k3.attention_plan, widths)
     assert k3_max > 0 and _longest(k3.attention_bwd_plan, widths) == k3_max
     assert k3.attention_bwd_plan(1, k3_max, *widths)["smem_bytes"] <= k3.build.SMEM_PER_BLOCK
+
+
+def _k9_replay(pq, pm, memory, hist, loc_w, loc_lin, v, weights, context, d_context, d_weights,
+               span):
+    """K9's decomposition in torch, as csrc/attention.cu computes it: for
+    each (row, span of ``span`` positions) its partials from that span's
+    positions alone (s from the row's weights, d_weights and the forward's
+    context; the location features over the history window; d_attn_hist
+    over the window [l0 - pad, l0 + span + pad), the halo), then the fixed-
+    order sums: the weight gradients over every (row, span), d_pq over a
+    row's spans, d_attn_hist over the spans whose window holds the
+    position. Returns what `attention_step_bwd_plain` returns."""
+    B, L, A = pm.shape
+    n_filt, C, K = loc_w.shape
+    pad, P = (K - 1) // 2, span
+    S, W = -(-L // P), P + K - 1
+    grow = lambda t: torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, S * P - L))
+    pm_p, mem_p, w_p, dwt_p = grow(pm), grow(memory), grow(weights), grow(d_weights)
+    hp = torch.nn.functional.pad(hist, (pad, pad + S * P - L))     # hp[..., i]: position i - pad
+    s = (weights * d_weights).sum(1) + (context * d_context).sum(1)
+    d_pm = torch.zeros(B, S * P, A)
+    sums = {"lw": 0.0, "ll": 0.0, "v": 0.0}
+    d_pq, d_hist = torch.zeros(B, A), torch.zeros(B, C, L)
+    for b in range(B):
+        for sp in range(S):
+            rows = slice(sp * P, sp * P + P)
+            win = hp[b, :, sp * P:sp * P + W]                          # (C, W)
+            de = w_p[b, rows] * (dwt_p[b, rows] + mem_p[b, rows] @ d_context[b] - s[b])
+            unf = win.unfold(1, P, 1)                                  # (C, K, P): win[c, k + l]
+            locf = torch.einsum("fck,ckl->lf", loc_w, unf)             # (P, F)
+            th = torch.tanh((pq[b] + locf @ loc_lin.T) + pm_p[b, rows])
+            dp = de[:, None] * v * (1.0 - th * th)
+            d_pm[b, rows] = dp
+            d_loc = dp @ loc_lin                                       # (P, F)
+            ext = torch.zeros(C, W)                                    # d_attn_hist over the window
+            for l in range(P):
+                ext[:, l:l + K] += torch.einsum("fck,f->ck", loc_w, d_loc[l])
+            sums["lw"] = sums["lw"] + torch.einsum("lf,ckl->fck", d_loc, unf)
+            sums["ll"] = sums["ll"] + dp.T @ locf
+            sums["v"] = sums["v"] + (de[:, None] * th).sum(0)
+            d_pq[b] += dp.sum(0)
+            for j in range(W):
+                x = sp * P - pad + j
+                if 0 <= x < L:
+                    d_hist[b, :, x] += ext[:, j]
+    d_memory = weights[:, :, None] * d_context[:, None, :]
+    return d_pq, d_pm[:, :L], d_memory, d_hist, sums["lw"], sums["ll"], sums["v"]
+
+
+@pytest.mark.parametrize("span", [None, 20])  # None: the plan's (4 at these shapes)
+@pytest.mark.parametrize("L,masked", [(1, False), (5, False), (45, True), (133, False)])
+def test_attention_bwd_decomposition_matches_plain_and_jax_grad(L, masked, span, monkeypatch):
+    """The per-span decomposition K9 computes (`_k9_replay`, at the plan's
+    span and at 20) against `attention_step_bwd_plain` and, through
+    `_AttentionStep` in place of the wrapper, against ``jax.grad`` of the JAX
+    `attention_step`: every input and weight gradient within ATOL (fp32 on
+    all sides; s = sum w d_weights + context . d_context differs from
+    sum w dw only in rounding)."""
+    from semi_tts_tpu_torch.kernels import attention as k3
+
+    A, D = 16, 16  # K3 and K9 take A and D divisible by 8
+    params, attn, query, memory, hist, mask = _setup(seed=4, L=L, D=D, A=A)
+    B = memory.shape[0]
+    span = span or k3.attention_bwd_plan(B, L, A, D, 2, 4, 7)["span"]
+    rng = np.random.RandomState(9)
+    pm = rng.randn(B, L, A).astype(np.float32)
+    gc = rng.randn(B, D).astype(np.float32)
+    gw = rng.randn(B, L).astype(np.float32)
+    m = jnp.asarray(mask) if masked else None
+
+    with torch.no_grad():
+        pq = torch.from_numpy(query) @ attn.query_layer.w.T
+        args = (pq, torch.from_numpy(pm), torch.from_numpy(memory), torch.from_numpy(hist),
+                attn.loc_conv.w, attn.loc_linear.w, attn.v.w.reshape(-1))
+        ctx, w = k3.attention_step_plain(*args, torch.from_numpy(mask) if masked else None)
+        cot = (ctx, torch.from_numpy(gc), torch.from_numpy(gw))
+        got = _k9_replay(*args, w, *cot, span)
+        want = k3.attention_step_bwd_plain(*args, w, *cot)
+    for g, wt, what in zip(got, want, ("d_pq", "d_pm", "d_memory", "d_hist", "d_loc_w",
+                                       "d_loc_lin", "d_v")):
+        np.testing.assert_allclose(g.numpy(), wt.numpy(), rtol=0, atol=ATOL, err_msg=what)
+
+    def f(p, q, mem, pm_, h):
+        c, wts = J.attention_step(p, q, mem, pm_, h, mask=m)
+        return jnp.sum(c * gc) + jnp.sum(wts * gw)
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3, 4))(params, *map(jnp.asarray, (query, memory, pm, hist)))
+    monkeypatch.setattr(k3, "attention_step_bwd", lambda *a: _k9_replay(*a, span))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (query, memory, pm, hist)]
+    c, wts = P.attention_step(attn, *leaves, mask=torch.from_numpy(mask) if masked else None)
+    names = ["query_layer", "v", "loc_conv", "loc_linear"]
+    got = torch.autograd.grad((c * torch.from_numpy(gc)).sum() + (wts * torch.from_numpy(gw)).sum(),
+                              leaves + [getattr(attn, n).w for n in names])
+    for g, wt, what in zip(got, want[1:], ("query", "memory", "processed_memory", "hist")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wt), rtol=0, atol=ATOL, err_msg=what)
+    for g, n in zip(got[4:], names):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[0][n]["w"]), rtol=0, atol=ATOL,
+                                   err_msg=n)
+
+
+def test_attention_step_saves_k3_context_not_a_copy():
+    """`_AttentionStep` keeps the context K3 returned (the tensor itself,
+    B x D floats a step) for K9, beside the weights."""
+    _, attn, query, memory, hist, mask = _setup(seed=5)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (query, memory, hist)]
+    pm = P.process_memory(attn, leaves[1])
+    ctx, w = P.attention_step(attn, leaves[0], leaves[1], pm, leaves[2],
+                              mask=torch.from_numpy(mask))
+    saved = ctx.grad_fn.saved_tensors
+    assert saved[-2].data_ptr() == w.data_ptr() and saved[-1].data_ptr() == ctx.data_ptr()
+    assert saved[-1].shape == ctx.shape == (3, 10)
