@@ -1,40 +1,45 @@
 #!/usr/bin/env python3
 """Where the time of K3 `attention_step`, K9 `attention_step_bwd`, K4
-`gl_ola_frame`, K7 `bilstm_rec_bwd` and K8 `bigru_rec_bwd` goes, on one
-NVIDIA card; and the paired or speech-first train step's time in a given
-tree.
+`gl_ola_frame`, K6 `ctc_alpha` and `ctc_beta_grad`, K7 `bilstm_rec_bwd` and
+K8 `bigru_rec_bwd` goes, on one NVIDIA card; and the ASR, paired or
+speech-first train step's time in a given tree.
 
-    python3 chip_ablate.py [--src TREE]
+    python3 chip_ablate.py [--src TREE] [--only SRC,...]
+    python3 chip_ablate.py --asr-busy TREE
     python3 chip_ablate.py --paired-busy TREE
     python3 chip_ablate.py --speech-first-busy TREE
     python3 chip_ablate.py --kernel-mem TREE
 
 The first builds copies of ``semi_tts_tpu_torch/csrc/attention.cu``,
-``griffin_lim.cu`` and ``rnn.cu`` that stop after a phase (into the
-kernels' build directory, under ``ablate/``), and times each copy at
-`chip_smoke.py`'s shapes for that kernel (K9 at every shape a train step
-gives it, `K9_SHAPES`), beside the whole kernel, as device time per call
-from a replayed CUDA graph. A cut copy computes nothing useful: only its
-time means anything, and the time of a phase is the difference between two
-cuts. A one-shot kernel (K3, K4, K9) returns after the phase; a recurrence
+``ctc.cu``, ``griffin_lim.cu`` and ``rnn.cu`` that stop after a phase
+(into the kernels' build directory, under ``ablate/``), and times each copy
+at `chip_smoke.py`'s shapes for that kernel (K9 at every shape a train step
+gives it, `K9_SHAPES`; K6 at `K6_SHAPES`), beside the whole kernel, as
+device time per call from a replayed CUDA graph. A cut copy computes
+nothing useful: only its time means anything, and the time of a phase is
+the difference between two cuts. Entries named "whole kernel, ..." are
+whole variants of the kernel (another design, a constant changed); their
+largest difference from the plain version is reported (``max_abs_err``). A one-shot kernel (K3, K4, K9) returns after the phase; a recurrence
 (K7, K8) ends every step there, and its cuts also drop the waits on the
 phases cut away, so that no step waits for data that never comes. Each
 kernel has a cut list per design, and the copy takes the list whose every
 marker is a line of the source: an edit that moves a marker fails loudly.
 ``--src TREE`` times the checkout at TREE the same way, with that tree's
 sources, wrappers and `chip_smoke.py`, which times an earlier design beside
-this one. Prints the card's name and power limit, then one JSON line
-``{"ablation": ...}``.
+this one. ``--only ctc,rnn`` times the cuts of those sources alone. Prints
+the card's name and power limit, then one JSON line ``{"ablation": ...}``.
 
-The other two run the flagship paired step, or the speech-first step with
-the flagship's unpaired weights (`chip_smoke.py`'s B=8 x 3.0 s batches;
-K9 at L=133), of the checkout at TREE, with that tree's `chip_smoke.py`
+The other three run the flagship ASR step (K6 at T=133), the paired step,
+or the speech-first step with the flagship's unpaired weights
+(`chip_smoke.py`'s B=8 x 3.0 s batches; K9 at L=133), of the checkout at
+TREE, with that tree's `chip_smoke.py`
 and package: six steps (the median wall of the last five) and three
-profiled steps, numbers 10 to 12 (device busy time and kernel launches),
-and the peak device memory of the six.
+profiled steps, numbers 10 to 12 (device busy time, kernel launches and
+the device time of K6's kernels or K9's, ``picked_ms``), and the peak
+device memory of the six.
 To compare two trees, run it for each in one call, in the order parent,
-change, change, parent. Prints one JSON line ``{"paired_busy": ...}`` or
-``{"speech_first_busy": ...}``.
+change, change, parent. Prints one JSON line ``{"asr_busy": ...}``,
+``{"paired_busy": ...}`` or ``{"speech_first_busy": ...}``.
 
 ``--kernel-mem TREE`` reports the device memory that the checkout's
 `chip_smoke.py` phases before serving leave allocated (`kernel_mem`).
@@ -75,6 +80,344 @@ K9_LOOP_END = ("      __syncthreads();  // the tile's buffers are free for the n
 # to read it from L2
 K9_DISPATCH = tuple("".join(f"      case {P}: launch = launch_bwd<{P}, {stage}>; break;\n"
                             for P in range(4, 33, 4)) for stage in ("true", "false"))
+
+# K6, the first design: the end of each kernel's parameter list, where a cut
+# returns at once
+K6_ALPHA_START = " " * 33 + "float* __restrict__ nll, int B, int T, int C, int U, int blank) {\n"
+K6_BETA_START = " " * 32 + "float* __restrict__ occ, int B, int T, int C, int U, int blank) {\n"
+K6_GRAD_START = " " * 32 + "float* __restrict__ grad, int B, int T, int C, int U, int blank) {\n"
+# K6, chain warps: the start of each kernel; a thread's alpha stores of a step;
+# the chain's barrier a step; the backward chain's wait for a consumed slot
+# and its log occupancies; the class-sum warps after their lists
+K6_ALPHA_W = ("  const int nl = blockDim.x, L = threadIdx.x, ls = 32 * K * (nl >> 5) + 4;  "
+              "// a step's row\n")
+K6_BETA_W = ("  const int W = (blockDim.x >> 5) - kConsumerWarps, nl = 32 * W, "
+             "ls = 32 * K * W + 4;\n")
+K6_ALPHA_STORE = ("        next[j] = a[j];\n        st_if((on >> j) & 1, out + j, a[j]);\n",
+                  "        next[j] = a[j];\n")
+K6_BAR = 'asm volatile("bar.sync 1, %0;\\n" ::"r"(nl) : "memory");\n'
+K6_ALPHA_BAR = ("      " + K6_BAR + "    }\n    cur = nxt;\n", "    }\n    cur = nxt;\n")
+K6_BETA_BAR = ("          " + K6_BAR + "          if (i > 0)", "          if (i > 0)")
+K6_EMPTY_WAIT = ("      if (k >= kDepth) mbar_wait(empty0 + 8 * slot, ((k / kDepth) - 1) & 1);  "
+                 "// slot consumed\n", "")
+K6_OCC = ("      for (int j = 0; j < K; ++j) ok[(size_t)(i * K + j) * nl] = a_cur.v[i][j] + beta[j] + "
+          "nll_b;\n")
+K6_NO_SUMS = ("  const float gb = g[b];\n", "  return;\n  const float gb = g[b];\n")
+K6_SEG_SUMS = ('    asm volatile("bar.sync 2, %0;\\n" ::"r"(kConsumers) : "memory");  '
+               "// the segment sums are in\n")
+# the class sums with runs not cut into segments: a thread a (run, step)
+# adds the exp of the whole run's occupancies from the ring, and the ring
+# slot is handed back after that (the chain-warp design's first class sums)
+K6_RUN_SUMS = [
+    ("      const int r = blk * 32 + lane;\n", "      continue;\n      const int r = blk * 32 + lane;\n"),
+    ("    mbar_arrive(empty0 + 8 * slot);  // chunk k's occupancies are read\n", ""),
+    ("      for (int j = run_seg[q]; j < run_seg[q + 1]; ++j) acc += part[j * CH + i];\n",
+     "      for (int r = seg[run_seg[q]]; r < seg[run_seg[q + 1]]; ++r)\n"
+     "        acc += expf(fminf(ok[(size_t)i * K * nl + (spos[r] & 0xffff)], 0.0f));\n"),
+    ('    asm volatile("bar.sync 2, %0;\\n" ::"r"(kConsumers) : "memory");  // part is free again\n',
+     '    mbar_arrive(empty0 + 8 * slot);\n'
+     '    asm volatile("bar.sync 2, %0;\\n" ::"r"(kConsumers) : "memory");  // part is free again\n')]
+K6_WARPS_5 = ("constexpr int kConsumerWarps = 8;", "constexpr int kConsumerWarps = 5;")
+K6_SEG_32 = ("constexpr int kSeg = 8;", "constexpr int kSeg = 32;")
+K6_ALPHA_LAUNCH = "template <int K>\ncudaError_t launch_alpha("
+K6_ALPHA_SMEM = "  const size_t smem = alpha_smem(K, W);\n"
+K6_ALPHA_ARGS = "log_probs, targets, input_lengths, target_lengths, alphas, nll, B, T, C, U, blank"
+# Two designs of ctc_alpha that were not kept, whole kernels launched in its
+# place. One warp a row, KV states a lane, s-1 and s-2 across
+# lanes by shuffles, the gathered emissions in a shared ring of kRing chunks
+# that the warp fills with cp.async two chunks ahead.
+K6_ONE_WARP = r"""
+constexpr int kRing = 3;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+template <int KV>
+__global__ void __launch_bounds__(32)
+    ctc_alpha_warp_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
+                          const int* __restrict__ input_lengths,
+                          const int* __restrict__ target_lengths, float* __restrict__ alphas,
+                          float* __restrict__ nll, int B, int T, int C, int U, int blank) {
+  extern __shared__ __align__(16) float ring[];  // (kRing, kChunk, KV, 32)
+  const int L = threadIdx.x, S = 2 * U + 1, b = blockIdx.x;
+  const int* tgt = targets + (size_t)b * U;
+  const int tl = min(target_lengths[b], U);
+  const int Tc = max(1, min(input_lengths[b], T));
+  const float* lp = log_probs + (size_t)b * T * C;
+  int z[KV];
+  unsigned on = 0, valid = 0, skip = 0;
+#pragma unroll
+  for (int j = 0; j < KV; ++j) {
+    const int s = L * KV + j;
+    z[j] = s < S ? label(tgt, s, blank) : blank;
+    if (s < S) on |= 1u << j;
+    if (s < 2 * tl + 1) valid |= 1u << j;
+    if ((s & 1) && s >= 2 && s < S && z[j] != label(tgt, s - 2, blank)) skip |= 1u << j;
+  }
+  const int n_chunks = (Tc + kChunk - 1) / kChunk;
+  auto load_chunk = [&](int k) {  // chunk k's emissions of this lane's states: one group
+    if (k < n_chunks) {
+      float* dst = ring + (size_t)(k % kRing) * kChunk * KV * 32 + L;
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        const float* row = lp + (size_t)min(k * kChunk + i, Tc - 1) * C;
+#pragma unroll
+        for (int j = 0; j < KV; ++j) cp_async4(dst + (i * KV + j) * 32, row + z[j]);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  load_chunk(0);
+  load_chunk(1);
+  const size_t t_stride = (size_t)B * S;
+  float* out = alphas + (size_t)b * S + L * KV;
+  float a[KV];
+  for (int k = 0; k < n_chunks; ++k) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // chunk k has landed
+    const float* e = ring + (size_t)(k % kRing) * kChunk * KV * 32 + L;
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      const int t = k * kChunk + i;
+      if (t >= Tc) break;
+      if (t == 0) {
+#pragma unroll
+        for (int j = 0; j < KV; ++j)
+          a[j] = sel(((valid >> j) & 1) && L * KV + j <= 1, e[j * 32], kNegInf);
+      } else {
+        float up1 = __shfl_up_sync(0xffffffffu, a[KV - 1], 1);
+        float up2 = KV >= 2 ? __shfl_up_sync(0xffffffffu, a[KV >= 2 ? KV - 2 : 0], 1)
+                            : __shfl_up_sync(0xffffffffu, a[0], 2);
+        up1 = sel(L == 0, kNegInf, up1);
+        up2 = sel(L < (KV >= 2 ? 1 : 2), kNegInf, up2);
+        float nw[KV];
+#pragma unroll
+        for (int j = 0; j < KV; ++j) {
+          const float a1 = j >= 1 ? a[j >= 1 ? j - 1 : 0] : up1;
+          const float a2 = sel((skip >> j) & 1, j >= 2 ? a[j >= 2 ? j - 2 : 0] : j == 1 ? up1 : up2,
+                               kNegInf);
+          nw[j] = sel((valid >> j) & 1, logaddexp3(a[j], a1, a2) + e[(i * KV + j) * 32], kNegInf);
+        }
+#pragma unroll
+        for (int j = 0; j < KV; ++j) a[j] = nw[j];
+      }
+#pragma unroll
+      for (int j = 0; j < KV; ++j) st_if((on >> j) & 1, out + j, a[j]);
+      out += t_stride;
+    }
+    load_chunk(k + 2);  // into the slot of chunk k - 1, read in the last round
+  }
+  for (int t = Tc; t < T; ++t, out += t_stride) {
+#pragma unroll
+    for (int j = 0; j < KV; ++j) st_if((on >> j) & 1, out + j, a[j]);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < KV; ++j) ring[L * KV + j] = a[j];
+  __syncwarp();
+  if (L == 0) {
+    const float a_end = ring[2 * tl];
+    const float a_last = tl > 0 ? ring[2 * tl - 1] : kNegInf;
+    const float m = fmaxf(a_end, a_last);
+    nll[b] = -(m + log1pf(expf(-fabsf(a_end - a_last))));
+  }
+}
+
+template <int KV>
+cudaError_t launch_alpha_warp_kv(const float* log_probs, const int* targets,
+                                 const int* input_lengths, const int* target_lengths,
+                                 float* alphas, float* nll, int B, int T, int C, int U, int blank,
+                                 cudaStream_t st) {
+  const size_t smem = (size_t)4 * kRing * kChunk * KV * 32;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ctc_alpha_warp_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  ctc_alpha_warp_kernel<KV><<<B, 32, smem, st>>>(log_probs, targets, input_lengths,
+                                                 target_lengths, alphas, nll, B, T, C, U, blank);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_alpha_warp(const float* log_probs, const int* targets, const int* input_lengths,
+                              const int* target_lengths, float* alphas, float* nll, int B, int T,
+                              int C, int U, int blank, cudaStream_t st) {
+  const int kv = (2 * U + 1 + 31) / 32;
+  auto f = kv <= 1 ? launch_alpha_warp_kv<1> : kv <= 2 ? launch_alpha_warp_kv<2>
+         : kv <= 3 ? launch_alpha_warp_kv<3> : kv <= 4 ? launch_alpha_warp_kv<4>
+         : kv <= 8 ? launch_alpha_warp_kv<8> : kv <= 16 ? launch_alpha_warp_kv<16>
+                   : launch_alpha_warp_kv<32>;
+  return f(log_probs, targets, input_lengths, target_lengths, alphas, nll, B, T, C, U, blank, st);
+}
+
+"""
+# The kept chain warps with no barrier: s-1 and s-2 inside a warp by
+# shuffles; across warps, lane 31 (and 30) of warp w stores its top states'
+# values of step t tagged with t in one 64-bit word, into a ring of
+# kTagRing steps that warp w + 1 polls. Once a chunk, a warp waits until the
+# warp above has read the slots it is about to overwrite. A poll of more
+# than 2 s traps.
+K6_TAGGED = r"""
+constexpr int kTagRing = 32;
+
+__device__ __forceinline__ unsigned long long ld_word(const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.volatile.shared.u64 %0, [%1];\n" : "=l"(w) : "r"(smem_addr(p)) : "memory");
+  return w;
+}
+
+__device__ __forceinline__ float ld_tagged(const unsigned long long* p, int t) {
+  unsigned long long w = ld_word(p);
+  if ((int)(w >> 32) != t) {
+    const unsigned long long t0 = global_ns();
+    while ((int)((w = ld_word(p)) >> 32) != t)
+      if (global_ns() - t0 > 2000000000ull) __trap();
+  }
+  return __uint_as_float((unsigned)w);
+}
+
+__device__ __forceinline__ void st_word(unsigned long long* p, unsigned long long w) {
+  asm volatile("st.volatile.shared.u64 [%0], %1;\n" ::"r"(smem_addr(p)), "l"(w) : "memory");
+}
+
+__device__ __forceinline__ void st_tagged(unsigned long long* p, float v, int t) {
+  st_word(p, ((unsigned long long)(unsigned)t << 32) | __float_as_uint(v));
+}
+
+template <int K>
+__global__ void __launch_bounds__(32 * kMaxChainWarps)
+    ctc_alpha_tagged_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
+                            const int* __restrict__ input_lengths,
+                            const int* __restrict__ target_lengths, float* __restrict__ alphas,
+                            float* __restrict__ nll, int B, int T, int C, int U, int blank) {
+  constexpr int CH = kChunk;
+  // (W, 2, kTagRing) tagged words; W progress counters (as words); the
+  // final alphas
+  extern __shared__ __align__(16) unsigned long long tags[];
+  const int W = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31, L = threadIdx.x;
+  unsigned long long* progress = tags + (size_t)W * 2 * kTagRing;
+  float* fin = reinterpret_cast<float*>(progress + W);
+  for (int i = threadIdx.x; i < W * (2 * kTagRing + 1); i += blockDim.x) tags[i] = ~0ull;
+  __syncthreads();
+  unsigned long long* mine = tags + (size_t)w * 2 * kTagRing;
+  const unsigned long long* below = mine - 2 * kTagRing;
+  const int S = 2 * U + 1;
+  const int b = blockIdx.x;
+  const int* tgt = targets + (size_t)b * U;
+  const int tl = min(target_lengths[b], U);
+  const int Tc = max(1, min(input_lengths[b], T));
+  const float* lp = log_probs + (size_t)b * T * C;
+  int z[K];
+  unsigned on = 0, valid = 0, skip = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int s = L * K + j;
+    z[j] = s < S ? label(tgt, s, blank) : blank;
+    if (s < S) on |= 1u << j;
+    if (s < 2 * tl + 1) valid |= 1u << j;
+    if ((s & 1) && s >= 2 && s < S && z[j] != label(tgt, s - 2, blank)) skip |= 1u << j;
+  }
+  auto fetch = [&](Chunk<CH, K>& c, int k) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const float* row = lp + (size_t)min(k * CH + i, Tc - 1) * C;
+#pragma unroll
+      for (int j = 0; j < K; ++j) c.v[i][j] = __ldg(row + z[j]);
+    }
+  };
+  const int n_chunks = (Tc + CH - 1) / CH;
+  Chunk<CH, K> cur, nxt;
+  fetch(cur, 0);
+  if (n_chunks > 1) fetch(nxt, 1);
+  const size_t t_stride = (size_t)B * S;
+  float* out = alphas + (size_t)b * S + L * K;
+  float a[K];
+  for (int k = 0; k < n_chunks; ++k) {
+    // the warp above has read the steps whose slots this chunk overwrites
+    const int need = k * CH + CH - kTagRing;
+    if (w + 1 < W && need > 0) {
+      const unsigned long long t0 = global_ns();
+      while ((long long)ld_word(progress + w + 1) < need)  // ~0 (-1): no chunk yet
+        if (global_ns() - t0 > 2000000000ull) __trap();
+    }
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int t = k * CH + i;
+      if (t >= Tc) break;
+      if (t == 0) {
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          a[j] = sel(((valid >> j) & 1) && L * K + j <= 1, cur.v[0][j], kNegInf);
+      } else {
+        const int sl = (t - 1) % kTagRing;
+        const float x1 = w > 0 ? ld_tagged(below + sl, t - 1) : kNegInf;
+        const float x2 = w > 0 ? ld_tagged(below + kTagRing + sl, t - 1) : kNegInf;
+        float up1 = __shfl_up_sync(0xffffffffu, a[K - 1], 1);
+        float up2 = K >= 2 ? __shfl_up_sync(0xffffffffu, a[K >= 2 ? K - 2 : 0], 1)
+                           : __shfl_up_sync(0xffffffffu, a[0], 2);
+        up1 = sel(lane == 0, x1, up1);
+        up2 = sel(lane == 0, x2, K == 1 && lane == 1 ? x1 : up2);
+        float nw[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const float a1 = j >= 1 ? a[j >= 1 ? j - 1 : 0] : up1;
+          const float a2 = sel((skip >> j) & 1, j >= 2 ? a[j >= 2 ? j - 2 : 0] : j == 1 ? up1 : up2,
+                               kNegInf);
+          nw[j] = sel((valid >> j) & 1, logaddexp3(a[j], a1, a2) + cur.v[i][j], kNegInf);
+        }
+#pragma unroll
+        for (int j = 0; j < K; ++j) a[j] = nw[j];
+      }
+      const int sl = t % kTagRing;
+      if (lane == 31) st_tagged(mine + sl, a[K - 1], t);
+      if (K >= 2 && lane == 31) st_tagged(mine + kTagRing + sl, a[K >= 2 ? K - 2 : 0], t);
+      if (K == 1 && lane == 30) st_tagged(mine + kTagRing + sl, a[0], t);
+#pragma unroll
+      for (int j = 0; j < K; ++j) st_if((on >> j) & 1, out + j, a[j]);
+      out += t_stride;
+    }
+    if (lane == 0) st_word(progress + w, (unsigned long long)min(k * CH + CH - 1, Tc - 1));
+    cur = nxt;
+    if (k + 2 < n_chunks) fetch(nxt, k + 2);
+  }
+  for (int t = Tc; t < T; ++t, out += t_stride) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) st_if((on >> j) & 1, out + j, a[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) fin[L * K + j] = a[j];
+  __syncthreads();
+  if (L == 0) {
+    const float a_end = fin[2 * tl];
+    const float a_last = tl > 0 ? fin[2 * tl - 1] : kNegInf;
+    const float m = fmaxf(a_end, a_last);
+    nll[b] = -(m + log1pf(expf(-fabsf(a_end - a_last))));
+  }
+}
+
+template <int K>
+cudaError_t launch_alpha_tagged(const float* log_probs, const int* targets,
+                                const int* input_lengths, const int* target_lengths,
+                                float* alphas, float* nll, int B, int T, int C, int U, int blank,
+                                int W, cudaStream_t st) {
+  const size_t smem = (size_t)8 * W * (2 * kTagRing + 1) + (size_t)4 * 32 * K * W;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ctc_alpha_tagged_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  ctc_alpha_tagged_kernel<K><<<B, 32 * W, smem, st>>>(log_probs, targets, input_lengths,
+                                                      target_lengths, alphas, nll, B, T, C, U,
+                                                      blank);
+  return cudaGetLastError();
+}
+
+"""
+K6_FAST_MATH = [("  const float s = expf(a - ms) + expf(b - ms) + expf(c - ms);\n",
+                 "  const float s = __expf(a - ms) + __expf(b - ms) + __expf(c - ms);\n"),
+                ("ms + logf(fmaxf(s, 1e-37f))", "ms + __logf(fmaxf(s, 1e-37f))")]
 
 # source -> [(kernel case in chip_smoke.py, {design: [(cut name, [(old, new), ...])]})]
 CUTS = {
@@ -135,6 +478,77 @@ CUTS = {
         ("d_v, d_pq and d_loc_w", [("  // d_attn_hist a tile of positions at a time",
                                     "  return;\n  // d_attn_hist a tile of positions at a time")]),
     ]})],
+    "ctc": [
+        ("ctc_alpha", {
+            "chain warps, the lattice and a named barrier, register chunks": [
+                ("launch", [after(K6_ALPHA_W, "  return;\n")]),
+                ("the chain, no alpha stores", [K6_ALPHA_STORE]),
+                # not cuts: the chain's log-adds alone (each thread's state
+                # from its own, no barrier, no stores), the whole kernel
+                # without its barrier a step (its results are wrong), and
+                # with the fast, inexact __expf/__logf in the log-add
+                ("whole kernel, the log-add alone", [
+                    K6_ALPHA_STORE, K6_ALPHA_BAR,
+                    ("        const float up1 = prev[-1], up2 = prev[-2];\n",
+                     "        const float up1 = a[0], up2 = a[K - 1];\n")]),
+                ("whole kernel, no barrier", [K6_ALPHA_BAR]),
+                ("whole kernel, __expf and __logf", K6_FAST_MATH),
+                # designs not kept, whole kernels in its place (their results
+                # are checked too: `err`)
+                ("whole kernel, one warp a row, shuffles, a cp.async ring", [
+                    (K6_ALPHA_LAUNCH, K6_ONE_WARP + K6_ALPHA_LAUNCH),
+                    (K6_ALPHA_SMEM, f"  return launch_alpha_warp({K6_ALPHA_ARGS}, st);\n"
+                                    + K6_ALPHA_SMEM)]),
+                ("whole kernel, chain warps, a tagged hand-off and no barrier", [
+                    (K6_ALPHA_LAUNCH, K6_TAGGED + K6_ALPHA_LAUNCH),
+                    (K6_ALPHA_SMEM, f"  return launch_alpha_tagged<K>({K6_ALPHA_ARGS}, W, st);\n"
+                                    + K6_ALPHA_SMEM)]),
+            ],
+            "a CTA a row, the lattice in shared memory": [
+                ("launch", [ret(K6_ALPHA_START)]),
+                ("the recursion, no alpha stores",
+                 [("      alphas[((size_t)t * B + b) * S + s] = nw;\n", "")]),
+            ],
+        }),
+        ("ctc_beta_grad", {
+            "one kernel: chain warps, an occupancy ring, class-sum warps": [
+                ("launch", [after(K6_BETA_W, "  return;\n")]),
+                # the chain's warps return once their first chunks are asked
+                # for; the class-sum warps once the rows past the input are
+                # zero and their lists are built
+                ("prologue: zero rows, class lists, first loads", [
+                    after("    if (n_chunks > 1) fetch(e_nxt, a_nxt, 1);\n", "    return;\n"),
+                    K6_NO_SUMS]),
+                # the chain keeps its betas in the occupancy ring
+                ("the chain, no log occupancies or class sums", [
+                    K6_EMPTY_WAIT,
+                    (K6_OCC, "      for (int j = 0; j < K; ++j) ok[(size_t)(i * K + j) * nl] = beta[j];\n"),
+                    K6_NO_SUMS]),
+                ("and the log occupancies", [K6_EMPTY_WAIT, K6_NO_SUMS]),
+                # the class sums' first pass: the segments' sums, no runs' sums
+                ("and the segment sums", [after(K6_SEG_SUMS, "    continue;\n")]),
+                ("whole kernel, no barrier", [K6_BETA_BAR]),
+                ("whole kernel, a ring of 2 chunks", [("constexpr int kDepth = 4;",
+                                                       "constexpr int kDepth = 2;")]),
+                ("whole kernel, a thread a (run, step), no segments", K6_RUN_SUMS),
+                # with 3 or 5 class-sum warps in place of 8
+                ("whole kernel, 3 class-sum warps", [("constexpr int kConsumerWarps = 8;",
+                                                      "constexpr int kConsumerWarps = 3;")]),
+                ("whole kernel, 5 class-sum warps", [K6_WARPS_5]),
+                # segments of up to a warp's 32 states (fewer partials a run)
+                ("whole kernel, segments of 32", [K6_SEG_32]),
+                ("whole kernel, __expf and __logf", K6_FAST_MATH),
+            ],
+            "the recursion, an occupancy scratch, a sums kernel": [
+                ("launch", [ret(K6_BETA_START), ret(K6_GRAD_START)]),
+                ("the recursion, no occupancy stores", [
+                    ("      occ[((size_t)t * B + b) * S + s] = v0 ? expf(fminf(cal + beta + nll_b, "
+                     "0.0f)) : 0.0f;\n", ""), ret(K6_GRAD_START)]),
+                ("and the stores (no ctc_grad_kernel)", [ret(K6_GRAD_START)]),
+                ("ctc_grad_kernel alone", [ret(K6_BETA_START)]),
+            ],
+        }),
+    ],
     "griffin_lim": [("gl_ola_frame", {"tiled overlap-add (PR 3)": [
         ("overlap-add into shared memory",
          [ret("  ola_segment(fb, env, lo, hi - lo + 1, g, [&](int i, float v) { seg[i] = v; });\n"
@@ -222,6 +636,23 @@ CUTS = {
 }
 
 
+def ctc_ptxas(log):
+    """{"kernel<K>": [registers, spill bytes]} of K6's kernels (and the
+    variants'), from nvcc's ``-Xptxas -v`` output."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(ctc_[a-z_]*?_kernel)(?:ILi(\d+)E)?", line)
+            name = (m[1] + (f"<{m[2]}>" if m[2] else "")) if m else None
+        elif name and "spill stores" in line:
+            out.setdefault(name, [None, None])[1] = int(re.search(r"(\d+) bytes spill stores", line)[1])
+        elif name and "Used" in line:
+            out.setdefault(name, [None, None])[0] = int(re.search(r"Used (\d+) registers", line)[1])
+    return out
+
+
 def pick_design(text, src, name, designs):
     """The (design, cuts) of ``designs`` whose every edit finds its marker
     once in ``text``."""
@@ -264,6 +695,37 @@ def k9_calls(k9, dev):
     return calls
 
 
+# (B, T, C, S) of K6: the ASR, paired and speech-first steps (8, 133), the
+# text-first step's unpaired CTC (8, 96), and chip_smoke.py's longest and
+# widest checks (T=700; U=511, S=1,023)
+K6_SHAPES = ((8, 133, 43, 65), (8, 96, 43, 65), (8, 700, 43, 65), (2, 600, 43, 1023))
+
+
+def k6_calls(k6, dev):
+    """{name: {"B=.. T=.. C=.. S=..": (kernel call, plain call)}} of K6's
+    two wrappers at `K6_SHAPES`, from seeded inputs as `chip_smoke.py` makes
+    them (log-softmax rows, targets in 3..42, target lengths from U down to
+    two thirds of U, full input lengths; ctc_beta_grad from the plain
+    alphas, g as the 'mean' reduction's); works with either design's tree."""
+    alpha, beta = {}, {}
+    for B_, T, C, S in K6_SHAPES:
+        U = (S - 1) // 2
+        g = torch.Generator(device=dev).manual_seed(5)
+        lp = torch.log(torch.softmax(torch.randn(B_, T, C, generator=g, device=dev) * 2.0, -1)
+                       + 1e-10)
+        tl = torch.tensor([U - (5 * b) % (U // 3 + 1) for b in range(B_)], dtype=torch.int32)
+        tg = torch.randint(3, C, (B_, U), generator=torch.Generator().manual_seed(6),
+                           dtype=torch.int32)
+        tg[torch.arange(U)[None, :] >= tl[:, None]] = 0
+        a = (lp, tg.to(dev), torch.full((B_,), T, dtype=torch.int32, device=dev), tl.to(dev))
+        alphas, nll = k6.ctc_alpha_plain(*a)
+        b_ = a + (alphas, nll, 1.0 / (B_ * torch.clamp(a[3], min=1).to(torch.float32)))
+        key = f"B={B_} T={T} C={C} S={S}"
+        alpha[key] = (lambda a=a: k6.ctc_alpha(*a), lambda a=a: k6.ctc_alpha_plain(*a))
+        beta[key] = (lambda b_=b_: k6.ctc_beta_grad(*b_), lambda b_=b_: k6.ctc_beta_grad_plain(*b_))
+    return {"ctc_alpha": alpha, "ctc_beta_grad": beta}
+
+
 def k9_span_times(k9, calls, chip_smoke):
     """K9 at each of ``calls``' shapes with every span of `SPANS` in place of
     the plan's: {span: {shape: ms}}."""
@@ -282,12 +744,13 @@ def enter_tree(tree):
     return tree
 
 
-def main(src_tree=None):
+def main(src_tree=None, only=None):
+    """Time the cuts of every source in `CUTS`, or of the sources in ``only``."""
     if src_tree is not None:
         src_tree = enter_tree(src_tree)
     import chip_smoke
     from semi_tts_tpu_torch import kernels, use_fp32
-    from semi_tts_tpu_torch.kernels import attention as k9, build
+    from semi_tts_tpu_torch.kernels import attention as k9, build, ctc as k6
 
     chip_smoke.phase_device()
     use_fp32()
@@ -297,6 +760,8 @@ def main(src_tree=None):
     out_dir.mkdir(parents=True, exist_ok=True)
     procs, plans = {}, []
     for src, kernel_cuts in CUTS.items():
+        if only and src not in only:
+            continue
         text = open(os.path.join(csrc, f"{src}.cu")).read()
         copies = {f"{src}_whole": text}
         for name, designs in kernel_cuts:
@@ -319,6 +784,10 @@ def main(src_tree=None):
     k9_copies = {stem: cut for _, name, _, names in plans if name == "attention_step_bwd"
                  for cut, stem in names if cut.startswith("whole")}
     k9_copies["attention_whole"] = "whole"
+    # and K6's whole copies
+    ctc_copies = {stem: cut for src, _, _, names in plans if src == "ctc"
+                  for cut, stem in names if cut.startswith("whole")}
+    ctc_copies["ctc_whole"] = "whole"
     ptxas = {}
     for stem, proc in procs.items():
         log, _ = proc.communicate()
@@ -328,37 +797,61 @@ def main(src_tree=None):
             ptxas[k9_copies[stem]] = {k: [v.get("registers"), v.get("spill_bytes")]
                                       for k, v in chip_smoke.ptxas_report(log).items()
                                       if k.startswith("attention_bwd_kernel<")}
+        if stem in ctc_copies:
+            ptxas["ctc " + ctc_copies[stem]] = ctc_ptxas(log)
     dev = torch.device("cuda")
     cases = {c["name"]: c for c in chip_smoke.kernel_cases(dev)}
     cases["attention_step_bwd"]["by_shape"] = k9_calls(k9, dev)
+    for name, calls in k6_calls(k6, dev).items():
+        cases[name]["by_shape"] = {n: f for n, (f, _) in calls.items()}
+        cases[name]["shape_checks"] = list(calls.values())
 
-    def timed(src, stem, case):
+    def load(src, stem):
         build._libs[src] = ctypes.CDLL(str(out_dir / f"{stem}.so"))
         build.bind.cache_clear()
+
+    def timed(src, stem, case):
+        load(src, stem)
         if "by_shape" in case:
             return {n: chip_smoke.device_ms(f, 50) for n, f in case["by_shape"].items()}
         return chip_smoke.device_ms(case["kernel"], case["iters"])
 
+    def err(src, stem, case):
+        """The largest difference from the plain version of a whole-kernel
+        copy: at the case's shape, and at K6's every shape."""
+        load(src, stem)
+        pairs = [(case["kernel"], case["plain"])] + case.get("shape_checks", [])
+        return max(chip_smoke.max_err(f(), p()) for f, p in pairs)
+
     result = {}
     with torch.no_grad():
-        if hasattr(k9, "SPANS"):
+        if hasattr(k9, "SPANS") and (not only or "attention" in only):
             result["attention_step_bwd by span"] = k9_span_times(
                 k9, cases["attention_step_bwd"]["by_shape"], chip_smoke)
         for src, name, design, names in plans:
             case, mine = cases[name], build.load(src)
             times = {"whole": timed(src, f"{src}_whole", case)}
+            errs = {"whole": err(src, f"{src}_whole", case)}
             for cut, stem in names:
                 times[cut if cut.startswith("whole") else "to " + cut] = timed(src, stem, case)
+                if cut.startswith("whole"):
+                    errs[cut] = err(src, stem, case)
             times["whole again"] = timed(src, f"{src}_whole", case)
             build._libs[src] = mine
             build.bind.cache_clear()
             result[name] = {"design": design, "shapes": case["shapes"], "steps": case.get("steps"),
-                            "ms": times}
+                            "ms": times, "max_abs_err": errs}
     print(json.dumps({"ablation": result, "src": str(csrc), "ptxas": ptxas}))
 
 
+# the kernels whose device time a profiled step picks out: K6 (either
+# design's kernel names) in the ASR step, K9 in the others
+PICKED = {"asr": ("ctc_alpha", "ctc_beta", "ctc_grad"), "paired": ("attention_bwd",),
+          "speech_first": ("attention_bwd",)}
+
+
 def step_busy(tree, kind):
-    """The flagship ``kind`` step ("paired" or "speech_first") of the
+    """The flagship ``kind`` step ("asr", "paired" or "speech_first") of the
     checkout at ``tree``: six steps, then steps 10 to 12 profiled."""
     import time
 
@@ -382,7 +875,13 @@ def step_busy(tree, kind):
     model = V.VQVAE(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
     opt = Optimizer(model.parameters(), lr=1e-3, lr_scheduler="decay")
     batch = cs.training_batch(0, dev)
-    if kind == "paired":
+    if kind == "asr":
+        from semi_tts_tpu_torch.train.train_asr import make_asr_step
+
+        asr_step = make_asr_step(StepBuilder(cfg, AudioFeaturizer(cs.audio_config(), dev),
+                                             phn_attr), opt)
+        step, rest = (lambda m, i, _rate, *b: asr_step(m, i, *b)), ()
+    elif kind == "paired":
         builder = StepBuilder(cfg, AudioFeaturizer(cs.audio_config(), dev), phn_attr,
                               freq_loss_kwargs=cs.FLAGSHIP_FREQ_LOSS)
         step, rest = builder.make_paired_step(opt), ()
@@ -401,13 +900,13 @@ def step_busy(tree, kind):
         walls.append(time.perf_counter() - t0)
     wall = float(np.median(walls[1:]))
     prof = [cs.profiled_step(lambda k=k: step(model, 10 + k, 1.0, *batch, *rest), wall,
-                             picked=("attention_bwd",)) for k in range(3)]
+                             picked=PICKED[kind]) for k in range(3)]
     print(json.dumps({f"{kind}_busy": {
         "tree": tree, "cudnn_deterministic": torch.backends.cudnn.deterministic, "wall_s": wall,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "walls_s": walls, "busy_s": [p["device_busy_s"] for p in prof],
         "launches": [p["kernel_launches"] for p in prof],
-        "k9_ms": [p["picked_ms"]["attention_bwd"] for p in prof]}}))
+        "picked_ms": [p["picked_ms"] for p in prof]}}))
 
 
 def kernel_mem(tree):
@@ -454,10 +953,12 @@ def kernel_mem(tree):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--kernel-mem"]:
         sys.exit(kernel_mem(sys.argv[2]))
+    if sys.argv[1:2] == ["--asr-busy"]:
+        sys.exit(step_busy(sys.argv[2], "asr"))
     if sys.argv[1:2] == ["--paired-busy"]:
         sys.exit(step_busy(sys.argv[2], "paired"))
     if sys.argv[1:2] == ["--speech-first-busy"]:
         sys.exit(step_busy(sys.argv[2], "speech_first"))
-    if sys.argv[1:2] == ["--src"]:
-        sys.exit(main(sys.argv[2]))
-    sys.exit(main())
+    args = sys.argv[1:]
+    only = args[args.index("--only") + 1].split(",") if "--only" in args else None
+    sys.exit(main(args[args.index("--src") + 1] if "--src" in args else None, only))

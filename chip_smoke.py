@@ -16,10 +16,11 @@ Phases, each fatal on failure:
    time the card could take (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s fp32,
    whichever is larger); for the recurrences also the time per step, for K1
    by batch rows per cluster (``ms_by_rows``) and at the ASR shape T=267; for
-   K7 and K8 their time, plain time and bound at every shape the train
+   K6, K7 and K8 their time, plain time and bound at every shape the train
    steps give them (``ms_by_shape``, ``plain_ms_by_shape``,
    ``bound_ms_by_shape``; shapes a step gives that phase 3 did not time are
-   held to the plain version and timed after phase 7, ``shapes_seen``), for
+   held to the plain version and timed after phase 7, ``shapes_seen``), K6's
+   time a step (``us_per_step``) and `ctc_plan` at each shape (``plans``), for
    K3 its cluster size (``cluster``), for K4 ``gl_ola_frame`` its time by
    output frames per CTA (``ms_by_tile``) and the default tile (``tile``);
    rows without a library yardstick say why in ``library``;
@@ -37,10 +38,11 @@ Phases, each fatal on failure:
    gradient norm of every step, all finite), with ``validate_asr`` after the
    first (finite PER); the kernel launches of one step and of the validation;
    one more step under torch.profiler for the device's busy time and idle
-   share; and one step's loss and gradients on the card against the CPU plain
-   path on the same weights, dropout 0 and the same SNRs, stretch rate and
-   noise. The featurizer is also timed against ``torch.stft`` + ``abs`` + the
-   mel GEMM at equal row lengths;
+   share, and K6's own device time (``picked_ms``); and one step's loss and
+   gradients on the card against the CPU plain path on the same weights,
+   dropout 0 and the same SNRs, stretch rate and noise. The featurizer is
+   also timed against ``torch.stft`` + ``abs`` + the mel GEMM at equal row
+   lengths;
 6. paired training at the same width: ``VqvaeTrainer`` with the unpaired loss
    weights 0 runs one warm-up paired step (ASR on augmented features, CTC,
    the TTS teacher-forced over 81 decode steps on the clean mel, CBHG postnet,
@@ -541,22 +543,26 @@ def _case_spec_db(randn, unif, dev):
         nbytes=4 * TRAIN_B * T * 3 * F_, flops=3 * TRAIN_B * T * F_, iters=50)
 
 
-def _ctc_inputs(randn, dev, B_=8, T=133, C=43, U=32, seed=0):
+def _ctc_inputs(randn, dev, B_=8, T=133, C=43, U=32, seed=0, tl=(32, 30, 28, 24, 32, 20, 16, 31),
+                il=None):
     """log(softmax + 1e-10) as the train step feeds CTC, targets in 3..42
-    padded with the blank, full input lengths."""
+    padded with the blank, target lengths ``tl`` (the first B_), input
+    lengths ``il`` (default: full)."""
     g = torch.Generator().manual_seed(seed)
     lp = torch.log(torch.softmax(randn(B_, T, C, scale=2.0), -1) + 1e-10)
-    tl = torch.tensor([32, 30, 28, 24, 32, 20, 16, 31][:B_], dtype=torch.int32)
+    tl = torch.tensor(tl[:B_], dtype=torch.int32)
     tg = torch.randint(3, C, (B_, U), generator=g, dtype=torch.int32)
     tg[torch.arange(U)[None, :] >= tl[:, None]] = 0
-    il = torch.full((B_,), T, dtype=torch.int32)
+    il = torch.tensor([T] * B_ if il is None else il, dtype=torch.int32)
     return lp, tg.to(dev), il.to(dev), tl.to(dev)
 
 
 def _ctc_edge_cases(randn, dev):
     """(log_probs, targets, input_lengths, target_lengths) sets: input
     lengths below T, a target length of 0, repeated labels, an impossible
-    alignment (32 equal labels need 63 frames; the row has 40) and T = 1."""
+    alignment (32 equal labels need 63 frames; the row has 40), T = 1; T=700
+    with ragged input lengths (many chunks of steps); and U=511 (S=1,023
+    states, two a thread in 16 chain warps: the widest `ctc_plan` takes)."""
     lp, tg, il, tl = _ctc_inputs(randn, dev, seed=1)
     il2 = torch.tensor([133, 120, 100, 133, 90, 133, 70, 40], dtype=torch.int32, device=dev)
     tg2, tl2 = tg.clone(), tl.clone()
@@ -569,7 +575,49 @@ def _ctc_edge_cases(randn, dev):
     tg1[::2, 0] = 5
     tl1 = (tg1[:, 0] > 0).to(torch.int32)
     return [(lp, tg, il, tl), (lp, tg2, il2, tl2),
-            (lp1, tg1, torch.ones_like(il), tl1)]
+            (lp1, tg1, torch.ones_like(il), tl1),
+            _ctc_inputs(randn, dev, T=700, seed=2, il=(700, 651, 533, 420, 301, 133, 96, 41)),
+            _ctc_inputs(randn, dev, B_=2, T=600, U=511, seed=3, tl=(511, 400), il=(600, 571))]
+
+
+def ctc_shape_key(B_, T, C, S):
+    return f"B={B_} T={T} C={C} S={S}"
+
+
+def _ctc_shape_inputs(randn, dev, B_, T, C, S):
+    """K6's inputs at (B, T, C, S): `_ctc_inputs` with target lengths of U
+    down to two thirds of U, full input lengths."""
+    U = (S - 1) // 2
+    return _ctc_inputs(randn, dev, B_, T, C, U, tl=[U - (5 * b) % (U // 3 + 1) for b in range(B_)])
+
+
+def _ctc_beta_args(a):
+    """``ctc_beta_grad``'s arguments from K6's inputs: the plain version's
+    alphas and nll, and the 'mean' reduction's g."""
+    from semi_tts_tpu_torch.kernels import ctc as k6
+
+    alphas, nll = k6.ctc_alpha_plain(*a)
+    g = 1.0 / (a[0].shape[0] * torch.clamp(a[3], min=1).to(torch.float32))
+    return a + (alphas, nll, g)
+
+
+def _ctc_alpha_cost(B_, T, C, S):
+    """(bytes moved, FLOPs) of one ctc_alpha call: log_probs read once, the
+    alphas written, targets and lengths; ~12 FLOPs a state a step."""
+    return 4 * (B_ * T * C + T * B_ * S + B_ * (4 + (S - 1) // 2)), 12 * T * B_ * S
+
+
+def _ctc_beta_cost(B_, T, C, S):
+    """(bytes moved, FLOPs) of one ctc_beta_grad call: log_probs read and
+    the gradient written, the alphas read, targets, lengths, nll and g."""
+    return 4 * (2 * B_ * T * C + T * B_ * S + 3 * B_), 16 * T * B_ * S + T * B_ * C
+
+
+# (B, T, C, S) of K6 in the train steps: the ASR, paired and speech-first
+# steps' CTC (8 rows of T=133) and the text-first step's unpaired CTC (T=96,
+# u_ts // time_reduce_factor); also T=700 and S=1,023, the longest and
+# widest of the checks; the run adds any other shape the steps give it
+K6_SHAPES = ((8, 133, 43, 65), (8, 96, 43, 65), (8, 700, 43, 65), (2, 600, 43, 1023))
 
 
 def _ctc_library(lp, tg, il, tl, backward):
@@ -587,7 +635,9 @@ def _ctc_library(lp, tg, il, tl, backward):
 
 def _case_ctc_alpha(randn, unif, dev):
     """K6a at the train step's shapes (B=8, T=133, C=43, U=32: S=65 states);
-    the edge cases of `_ctc_edge_cases` checked too."""
+    the edge cases of `_ctc_edge_cases` checked too. Timed at every shape
+    of `K6_SHAPES` (``ms_by_shape``, ``plain_ms_by_shape``,
+    ``bound_ms_by_shape``; ``plans``: `ctc_plan` at each)."""
     from semi_tts_tpu_torch.kernels import ctc as k6
 
     args = _ctc_inputs(randn, dev)
@@ -595,6 +645,10 @@ def _case_ctc_alpha(randn, unif, dev):
     S = 2 * args[1].shape[1] + 1
     checks = [(lambda a=a: k6.ctc_alpha(*a), lambda a=a: k6.ctc_alpha_plain(*a))
               for a in _ctc_edge_cases(randn, dev)]
+    timed, timed_plain, bounds = _timed_by_shape(
+        K6_SHAPES, lambda *sh: _ctc_shape_inputs(randn, dev, *sh), k6.ctc_alpha, k6.ctc_alpha_plain,
+        _ctc_alpha_cost, ctc_shape_key)
+    nbytes, flops = _ctc_alpha_cost(B_, T, C, S)
     return dict(
         name="ctc_alpha", replaces="semi_tts_tpu/ops/ctc.py:63 (_alpha_pass, with "
         "_logaddexp3 :34; forward of the custom VJP _ctc_nll_fwd :114)",
@@ -602,25 +656,29 @@ def _case_ctc_alpha(randn, unif, dev):
         kernel=lambda: k6.ctc_alpha(*args), plain=lambda: k6.ctc_alpha_plain(*args),
         checks=checks, library=_ctc_library(*args, backward=False), library_timing="eager",
         library_note="F.ctc_loss forward, reduction mean, on the card (CUDA events, eager: "
-        "its lengths go through the host)", tol=1e-4,
-        nbytes=4 * (B_ * T * C + T * B_ * S + B_ * (4 + args[1].shape[1])),
-        flops=12 * T * B_ * S, iters=50)
+        "its lengths go through the host)", tol=1e-4, nbytes=nbytes, flops=flops, iters=50,
+        steps=T, timed=timed, timed_plain=timed_plain,
+        extra={"bound_ms_by_shape": bounds, "plans": _ctc_plans()})
+
+
+def _ctc_plans():
+    from semi_tts_tpu_torch.kernels import ctc as k6
+
+    return {ctc_shape_key(*sh): k6.ctc_plan(sh[0], sh[1], sh[3]) for sh in K6_SHAPES}
 
 
 def _case_ctc_beta_grad(randn, unif, dev):
     """K6b at the train step's shapes, from the plain version's alphas; the
-    edge cases checked too (the impossible row's gradient must be zero)."""
+    edge cases checked too (the impossible row's gradient must be zero), and
+    a rerun at the step's shape and at T=700 must repeat bit for bit (the
+    check's error is the count of elements that differ). Timed at every
+    shape of `K6_SHAPES`."""
     from semi_tts_tpu_torch.kernels import ctc as k6
 
-    def full_args(a):
-        alphas, nll = k6.ctc_alpha_plain(*a)
-        g = 1.0 / (a[0].shape[0] * torch.clamp(a[3], min=1).to(torch.float32))
-        return a + (alphas, nll, g)
-
-    args = full_args(_ctc_inputs(randn, dev))
+    args = _ctc_beta_args(_ctc_inputs(randn, dev))
     B_, T, C = args[0].shape
     S = args[4].shape[2]
-    edge = [full_args(a) for a in _ctc_edge_cases(randn, dev)]
+    edge = [_ctc_beta_args(a) for a in _ctc_edge_cases(randn, dev)]
     impossible = edge[1]
     if not float(impossible[5][7]) > 1e29:
         raise SystemExit("chip_smoke: the impossible CTC alignment has a finite NLL")
@@ -628,6 +686,12 @@ def _case_ctc_beta_grad(randn, unif, dev):
               for a in edge]
     checks.append((lambda: k6.ctc_beta_grad(*impossible)[7].abs().max(),
                    lambda: torch.zeros((), device=dev)))
+    checks += [(lambda a=a: (k6.ctc_beta_grad(*a) != k6.ctc_beta_grad(*a)).sum().float(),
+                lambda: torch.zeros((), device=dev)) for a in (args, edge[3])]
+    timed, timed_plain, bounds = _timed_by_shape(
+        K6_SHAPES, lambda *sh: _ctc_beta_args(_ctc_shape_inputs(randn, dev, *sh)),
+        k6.ctc_beta_grad, k6.ctc_beta_grad_plain, _ctc_beta_cost, ctc_shape_key)
+    nbytes, flops = _ctc_beta_cost(B_, T, C, S)
     return dict(
         name="ctc_beta_grad", replaces="semi_tts_tpu/ops/ctc.py:123 (_ctc_nll_bwd: beta "
         "recursion, occupancies, one-hot gradient einsum)",
@@ -635,9 +699,9 @@ def _case_ctc_beta_grad(randn, unif, dev):
         kernel=lambda: k6.ctc_beta_grad(*args), plain=lambda: k6.ctc_beta_grad_plain(*args),
         checks=checks, library=_ctc_library(*args[:4], backward=True), library_timing="eager",
         library_note="F.ctc_loss forward + backward, reduction mean, on the card (CUDA events, "
-        "eager; includes the forward)", tol=1e-4,
-        nbytes=4 * (2 * B_ * T * C + T * B_ * S + 3 * B_), flops=16 * T * B_ * S + T * B_ * C,
-        iters=50)
+        "eager; includes the forward)", tol=1e-4, nbytes=nbytes, flops=flops, iters=50,
+        steps=T, timed=timed, timed_plain=timed_plain,
+        extra={"bound_ms_by_shape": bounds, "plans": _ctc_plans()})
 
 
 def _lstm_bwd_inputs(randn, unif, T, B_, H, ndir=2):
@@ -667,13 +731,14 @@ def shape_key(T, B_, H, ndir=2):
     return f"T={T} B={B_} H={H}" + ("" if ndir == 2 else f" ndir={ndir}")
 
 
-def _timed_by_shape(shapes, inputs, kernel, plain, cost):
-    """``timed``, ``timed_plain`` and ``bound_ms_by_shape`` of a recurrence
-    at each (T, B, H[, ndir]) of ``shapes``."""
-    args = {shape_key(*sh): inputs(*sh) for sh in shapes}
+def _timed_by_shape(shapes, inputs, kernel, plain, cost, key=shape_key):
+    """``timed``, ``timed_plain`` and ``bound_ms_by_shape`` of a kernel at
+    each shape of ``shapes`` (a recurrence's (T, B, H[, ndir]), or K6's
+    (B, T, C, S) with ``key=ctc_shape_key``)."""
+    args = {key(*sh): inputs(*sh) for sh in shapes}
     return ({k: lambda a=a: kernel(*a) for k, a in args.items()},
             {k: lambda a=a: plain(*a) for k, a in args.items()},
-            {shape_key(*sh): bound(*cost(*sh))[0] for sh in shapes})
+            {key(*sh): bound(*cost(*sh))[0] for sh in shapes})
 
 
 # (T, B, H, ndir) of K7 in the train steps: the ASR BiLSTM (T=133) on 8
@@ -977,33 +1042,36 @@ def _case_trim_merge_bwd(randn, unif, dev):
 
 
 def record_recurrence_shapes():
-    """Record every (T, B, H[, ndir]) that the train steps give K7 and K8 on
-    the card, into the returned {wrapper name: set of shapes}: the autograd
-    Functions of ``ops/rnn.py`` call the wrappers by the names they
-    imported, which this wraps (the wrappers still count their own
-    launches)."""
-    from semi_tts_tpu_torch.ops import rnn as ops_rnn
+    """Record every (T, B, H[, ndir]) that the train steps give K7 and K8
+    and every (B, T, C, S) they give K6 on the card, into the returned
+    {wrapper name: set of shapes}: the autograd Functions of ``ops/rnn.py``
+    and ``ops/ctc.py`` call the wrappers by the names they imported, which
+    this wraps (the wrappers still count their own launches)."""
+    from semi_tts_tpu_torch.ops import ctc as ops_ctc, rnn as ops_rnn
 
-    seen = {"bilstm_rec_bwd": set(), "bigru_rec_bwd": set()}
+    seen = {"bilstm_rec_bwd": set(), "bigru_rec_bwd": set(), "ctc_alpha": set(),
+            "ctc_beta_grad": set()}
 
-    def wrap(name, shape_of):
-        fn = getattr(ops_rnn, name)
+    def wrap(module, name, shape_of):
+        fn = getattr(module, name)
 
         def recorded(*a):
             if a[2].is_cuda:
                 seen[name].add(shape_of(*a))
             return fn(*a)
-        setattr(ops_rnn, name, recorded)
+        setattr(module, name, recorded)
 
-    wrap("bilstm_rec_bwd", lambda w_f, w_b, g_f, g_b, *_: (*g_f.shape[:2], w_f.shape[1],
-                                                          1 if g_b is None else 2))
-    wrap("bigru_rec_bwd", lambda w_f, w_b, z_f, *_: (*z_f.shape[:2], w_f.shape[1]))
+    wrap(ops_rnn, "bilstm_rec_bwd", lambda w_f, w_b, g_f, g_b, *_: (
+        *g_f.shape[:2], w_f.shape[1], 1 if g_b is None else 2))
+    wrap(ops_rnn, "bigru_rec_bwd", lambda w_f, w_b, z_f, *_: (*z_f.shape[:2], w_f.shape[1]))
+    for name in ("ctc_alpha", "ctc_beta_grad"):
+        wrap(ops_ctc, name, lambda lp, tg, *_: (*lp.shape, 2 * tg.shape[1] + 1))
     return seen
 
 
 def time_seen_shapes(table, dev, seen_shapes):
-    """K7 and K8 at each shape the train steps gave them that phase 3 did
-    not time: held to the plain version and timed as phase 3 times its
+    """K7, K8 and K6 at each shape the train steps gave them that phase 3
+    did not time: held to the plain version and timed as phase 3 times its
     shapes; ``shapes_seen`` lists every shape the steps gave them."""
     from semi_tts_tpu_torch.kernels import rnn as k
 
@@ -1015,19 +1083,26 @@ def time_seen_shapes(table, dev, seen_shapes):
     def unif(*shape, a):
         return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * a
 
+    from semi_tts_tpu_torch.kernels import ctc as k6
+
     specs = {"bilstm_rec_bwd": (lambda *sh: _lstm_bwd_inputs(randn, unif, *sh), k.bilstm_rec_bwd,
-                                k.bilstm_rec_bwd_plain, _lstm_bwd_cost),
+                                k.bilstm_rec_bwd_plain, _lstm_bwd_cost, shape_key),
              "bigru_rec_bwd": (lambda *sh: _gru_bwd_inputs(randn, unif, *sh), k.bigru_rec_bwd,
-                               k.bigru_rec_bwd_plain, _gru_bwd_cost)}
+                               k.bigru_rec_bwd_plain, _gru_bwd_cost, shape_key),
+             "ctc_alpha": (lambda *sh: _ctc_shape_inputs(randn, dev, *sh), k6.ctc_alpha,
+                           k6.ctc_alpha_plain, _ctc_alpha_cost, ctc_shape_key),
+             "ctc_beta_grad": (lambda *sh: _ctc_beta_args(_ctc_shape_inputs(randn, dev, *sh)),
+                               k6.ctc_beta_grad, k6.ctc_beta_grad_plain, _ctc_beta_cost,
+                               ctc_shape_key)}
     for row in table:
         if row["name"] not in specs:
             continue
-        inputs, kernel, plain, cost = specs[row["name"]]
+        inputs, kernel, plain, cost, key_of = specs[row["name"]]
         seen = sorted(seen_shapes[row["name"]])
-        row["shapes_seen"] = [shape_key(*sh) for sh in seen]
+        row["shapes_seen"] = [key_of(*sh) for sh in seen]
         with torch.no_grad():
             for sh in seen:
-                key = shape_key(*sh)
+                key = key_of(*sh)
                 if key in row["ms_by_shape"]:
                     continue
                 a = inputs(*sh)
@@ -1082,6 +1157,7 @@ def phase_kernels(dev):
                    "library": c.get("library_note")}
             if "steps" in c:
                 row["ms_per_step"] = ms / c["steps"]
+                row["us_per_step"] = 1e3 * ms / c["steps"]
             if "rows" in c:
                 row["ms_by_rows"] = {r: device_ms(lambda r=r: c["rows"](r), c["iters"])
                                      for r in c["row_options"]}
@@ -1363,7 +1439,8 @@ def phase_training(dev):
         idle = [n for n in names if launches[path][n] == 0]
         if idle:
             raise SystemExit(f"chip_smoke: kernels not launched on the {path} path: {idle}")
-    profile = profiled_step(lambda: trainer._train_step(batch), float(np.median(walls)))
+    profile = profiled_step(lambda: trainer._train_step(batch), float(np.median(walls)),
+                            picked=K6_KERNELS)
     ref = training_reference(model, cfg, phn_attr, dev)
     return dict(batch=TRAIN_B, samples=TRAIN_S, text_len=32, steps=1 + TRAIN_STEPS,
                 params=sum(p.numel() for p in model.parameters()),
@@ -1373,6 +1450,9 @@ def phase_training(dev):
                 losses=losses, grad_norms=gnorms, dev_per=per, dev_per_after_step1=per_first[0],
                 launches=launches["step"], launches_validate=launches["validate"],
                 profile=profile, reference=ref)
+
+
+K6_KERNELS = ("ctc_alpha", "ctc_beta")  # K6's kernels in a profile, by name
 
 
 def profiled_step(run_step, wall, picked=()):

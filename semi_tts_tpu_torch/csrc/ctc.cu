@@ -1,4 +1,4 @@
-// K6: CTC over the log-semiring lattice, one CTA per utterance.
+// K6: CTC over the log-semiring lattice, a CTA of chain warps a row.
 //
 // Replaces: B5, `semi_tts_tpu/ops/ctc.py`: `_alpha_pass` (`:63`, the
 // forward recursion and the NLL), `_ctc_nll_bwd` (`:123`, the backward
@@ -9,44 +9,108 @@
 //
 // ctc_alpha: alphas (T, B, S) and nll (B,). Rows freeze past their input
 //   length (alpha_t = alpha_{t-1}); nll = -logaddexp(alpha[2L], alpha[2L-1]).
-// ctc_beta_grad: two kernels. ctc_beta: beta_t = term for t >= input_len - 1,
-//   else the three-way log-add of the next step's (beta + emit), and the
-//   occupancy exp(min(alpha + beta + nll, 0)) of each valid state, written
-//   to a (T, B, S) scratch. ctc_grad: grad[b, t, c] = -g[b] * sum over the
-//   valid states s with z_s = c of the occupancy, zero at t >= input_len and
-//   for rows with nll >= 5e29 (an impossible alignment: P = 0).
+// ctc_beta_grad: one kernel. beta_t = term for t >= input_len - 1, else the
+//   three-way log-add of the next step's (beta + emit); the occupancy
+//   exp(min(alpha + beta + nll, 0)) of each valid state; grad[b, t, c] =
+//   -g[b] * the sum over the valid states s with z_s = c of the occupancy,
+//   zero at t >= input_len and for rows with nll >= 5e29 (an impossible
+//   alignment: P = 0).
 //
 // Every edge of the JAX version is kept: the -1e30 sentinel, the 1e-37
 // clamp inside the log-add (a dead branch must not poison the sum), target
 // length 0 (only the blank path), T = 1 (alphas are the first step; beta is
-// the terminal vector).
+// the terminal vector). The arithmetic is the plain version's, operation for
+// operation (accurate expf and logf), so the alphas match it bit for bit even
+// where they reach thousands and an fp32 ulp is above the check's 1e-4.
 //
-// What bounds it on an H100: latency. A step is a handful of flops per
-// state and T steps depend on each other; the bytes (log_probs once, alphas
-// written and read back, the gradient) are ~1 MB at the flagship shapes
-// (B=8, T=133, C=43, S<=65). Design: one CTA per utterance with one thread
-// per lattice state; the lattice lives in shared memory, double-buffered so
-// one __syncthreads a step is race-free; each thread loads the next step's
-// emissions (and, backward, alphas) one step ahead. The gradient is not
-// summed inside the recursion (a class's sum over states would lengthen
-// every step of the chain): the occupancies go to a scratch buffer and a
-// second, fully parallel kernel sums them, a thread per (row, step, class)
-// adding its states in order of s, without atomics, so the result is
-// deterministic.
+// What bounds it on an H100: the latency of the chain. The bytes (log_probs
+// once, alphas written and read back, the gradient) are ~1 MB at the
+// flagship shapes (B=8, T=133, C=43, S=65), a fraction of a microsecond; the
+// T steps depend on each other, and a step is one three-way log-add per
+// state: ~45 dependent instructions through three accurate expf and a logf
+// (`chip_ablate.py` times the chain with nothing else in its step). A step
+// can cost no less, and the design keeps everything else off it:
+//
+// - A state a thread (two past 512 states), the row's states over up to 16
+//   chain warps that run in parallel on the SM's schedulers. A thread's
+//   s-1 and s-2 (backward: s+1 and s+2) come from the lattice of the last
+//   two steps in shared memory, double-buffered, so one named barrier of
+//   the chain warps a step is race-free (in ctc_alpha those are all of the
+//   CTA's warps; ctc_beta_grad's class-sum warps are not in it). Timed
+//   whole, the barrier costs nothing measurable; one warp a row with several
+//   states a lane linked by shuffles, and chain warps handing their edge
+//   states to the next by tagged words with no barrier, are 1.6-1.9x slower
+//   (`chip_ablate.py` keeps both as whole-kernel variants).
+// - Emissions (backward, also the alphas) are gathered per state, S values
+//   a step and not C, in register chunks of steps loaded a chunk ahead: no
+//   step waits on a global load, and nothing grows with C or T. A chunk
+//   holds 8 steps, backward 8 / K, so that a thread's two chunks of
+//   emissions and two of alphas fit its registers beside the class-sum
+//   warps without a spill.
+// - ctc_beta_grad writes each chunk's log occupancies alpha + beta + nll
+//   into a ring of kDepth slots in shared memory, handed to 8 class-sum
+//   warps by an mbarrier a slot (each step's a step late, past the next
+//   barrier). Those sort the valid states by (class, s) once (bitonic) and
+//   cut each class's run of sorted states at every multiple of kSeg into
+//   segments. A chunk is summed in two passes: a warp a block of 32 sorted
+//   states, a lane a state, takes the exp of its occupancies at the chunk's
+//   steps and sums each segment by shuffles in a fixed order; then a thread
+//   a (run, step) adds its segments' sums in order into grad[b, t, class].
+//   No thread's serial sum grows with S (the blank class holds half the
+//   states); the rest of the row is zero. No (T, B, S) scratch, no second
+//   launch, no atomics: a rerun is bit for bit.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxThreads = 1024;
+constexpr int kChunk = 8;            // steps a register chunk holds; backward kChunk / K (CHUNK)
+constexpr int kMaxChainWarps = 16;   // warps that carry a row's chain (MAX_CHAIN_WARPS)
+constexpr int kConsumerWarps = 8;    // ctc_beta_grad's class-sum warps (CONSUMER_WARPS)
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kDepth = 4;            // occupancy ring slots, chunks (DEPTH)
+constexpr int kSeg = 8;              // sorted states a class-sum segment adds at most (SEG)
+// a sorted state's ring position (bits 0-15) | its segment (bits 16-29) |
+// kHead where the segment starts
+constexpr int kHead = 1 << 30;
+constexpr int kSmemLimit = 232448;   // H100: dynamic shared memory a block may use
+
+// Shared bytes at K states a lane and W chain warps; kernels/ctc.py
+// `_alpha_smem`/`_beta_smem` are the same formulas. Both hold the lattice of
+// the last two steps, each with four -inf guard cells (below state 0
+// forward, above the last state backward).
+__host__ __device__ constexpr int lattice_floats(int K, int W) { return 2 * (32 * K * W + 4); }
+constexpr size_t alpha_smem(int K, int W) { return 4 * (size_t)lattice_floats(K, W); }
+constexpr size_t beta_smem(int K, int W) {
+  // the occupancy ring's full and empty mbarriers and the count of class
+  // runs; the lattice; the occupancy ring (kDepth, kChunk / K,
+  // K, 32 W); four lists of 32 K W ints (segment starts, sorted classes,
+  // sorted positions, runs' first segments); the segments' sums of a chunk
+  // (32 K W, kChunk / K), which first hold the sort's keys
+  return 16 * kDepth + 16 +
+         4 * ((size_t)lattice_floats(K, W) + (size_t)32 * W * (kDepth + 1) * kChunk +
+              (size_t)4 * 32 * K * W);
+}
+
+// p ? x : y. The kernels' selects go through this call: written inline as
+// conditional expressions they compiled to a slower chain.
+__device__ __forceinline__ float sel(bool p, float x, float y) { return p ? x : y; }
+
+// *g = v where p, without a branch.
+__device__ __forceinline__ void st_if(bool p, float* g, float v) {
+  asm volatile("{\n .reg .pred q;\n setp.ne.s32 q, %2, 0;\n @q st.global.f32 [%0], %1;\n}\n" ::"l"(g),
+               "f"(v), "r"((int)p));
+}
 
 __device__ __forceinline__ float logaddexp3(float a, float b, float c) {
   const float m = fmaxf(fmaxf(a, b), c);
   const bool dead = m <= kNegInf / 2;
-  const float ms = dead ? 0.0f : m;
+  const float ms = sel(dead, 0.0f, m);
   const float s = expf(a - ms) + expf(b - ms) + expf(c - ms);
-  return dead ? kNegInf : ms + logf(fmaxf(s, 1e-37f));
+  return sel(dead, kNegInf, ms + logf(fmaxf(s, 1e-37f)));
 }
 
 // Extended label of state s (blank at even states).
@@ -54,49 +118,147 @@ __device__ __forceinline__ int label(const int* tgt, int s, int blank) {
   return (s & 1) ? tgt[(s - 1) >> 1] : blank;
 }
 
-__global__ void ctc_alpha_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
-                                 const int* __restrict__ input_lengths,
-                                 const int* __restrict__ target_lengths, float* __restrict__ alphas,
-                                 float* __restrict__ nll, int B, int T, int C, int U, int blank) {
-  extern __shared__ float a_s[];  // (2, S)
-  const int S = 2 * U + 1;
-  const int b = blockIdx.x, s = threadIdx.x;
-  const bool on = s < S;
-  const int* tgt = targets + (size_t)b * U;
-  const int tl = min(target_lengths[b], U), il = input_lengths[b];
-  const int z = on ? label(tgt, s, blank) : blank;
-  const bool valid = on && s < 2 * tl + 1;
-  const bool skip = on && (s & 1) && s >= 2 && z != label(tgt, s - 2, blank);
-  const float* lp = log_probs + (size_t)b * T * C;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
-  float a = kNegInf;
-  if (s == 0) a = lp[blank];
-  else if (s == 1) a = tl > 0 ? lp[z] : kNegInf;
-  if (!valid) a = kNegInf;
-  if (on) {
-    a_s[s] = a;
-    alphas[(size_t)b * S + s] = a;
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, 1000000;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of parity `parity` of the mbarrier has completed. A
+// wait of more than 2 s traps, so a lost hand-off fails the launch instead
+// of hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 2000000000ull) __trap();
+}
+
+// A chunk of CH steps of this thread's emissions (and, backward, alphas),
+// loaded into registers a chunk ahead of the chain: no step waits on a
+// global load.
+template <int CH, int K>
+struct Chunk {
+  float v[CH][K];
+};
+
+// A CTA a row: lane L = threadIdx.x of its W = blockDim.x / 32 chain warps
+// holds states L*K .. L*K+K-1. Shared memory: the lattice of the last two
+// steps, (2, 32 K W + 4) floats, state s of step t at (t & 1, 2 + s) with
+// -inf at 0 and 1 (below state 0).
+template <int K>
+__global__ void __launch_bounds__(32 * kMaxChainWarps)
+    ctc_alpha_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
+                     const int* __restrict__ input_lengths, const int* __restrict__ target_lengths,
+                     float* __restrict__ alphas, float* __restrict__ nll, int B, int T, int C, int U,
+                     int blank) {
+  constexpr int CH = kChunk;  // steps a chunk
+  extern __shared__ __align__(16) float lat[];
+  const int nl = blockDim.x, L = threadIdx.x, ls = 32 * K * (nl >> 5) + 4;  // a step's row
+  const int S = 2 * U + 1;
+  const int b = blockIdx.x;
+  const int* tgt = targets + (size_t)b * U;
+  const int tl = min(target_lengths[b], U);
+  // steps computed; from Tc on the row is frozen (step 0 always is computed)
+  const int Tc = max(1, min(input_lengths[b], T));
+  const float* lp = log_probs + (size_t)b * T * C;
+  if (L < 2) lat[L] = lat[ls + L] = kNegInf;
+
+  int z[K];
+  unsigned on = 0, valid = 0, skip = 0;  // bit j: state L*K + j
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int s = L * K + j;
+    z[j] = s < S ? label(tgt, s, blank) : blank;
+    if (s < S) on |= 1u << j;
+    if (s < 2 * tl + 1) valid |= 1u << j;
+    if ((s & 1) && s >= 2 && s < S && z[j] != label(tgt, s - 2, blank)) skip |= 1u << j;
   }
-  float emit = (on && T > 1) ? lp[C + z] : 0.0f;
-  __syncthreads();
-  for (int t = 1; t < T; ++t) {
-    const float* prev = a_s + ((t - 1) & 1) * S;
-    float* next = a_s + (t & 1) * S;
-    const float e = emit;
-    if (on && t + 1 < T) emit = lp[(size_t)(t + 1) * C + z];
-    if (on) {
-      const float a0 = prev[s];
-      const float a1 = s >= 1 ? prev[s - 1] : kNegInf;
-      const float a2 = skip ? prev[s - 2] : kNegInf;
-      float nw = valid ? logaddexp3(a0, a1, a2) + e : kNegInf;
-      if (t >= il) nw = a0;  // the row's input has ended: frozen
-      next[s] = nw;
-      alphas[((size_t)t * B + b) * S + s] = nw;
+  auto fetch = [&](Chunk<CH, K>& c, int k) {  // chunk k's emissions, this thread's states
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const float* row = lp + (size_t)min(k * CH + i, Tc - 1) * C;
+#pragma unroll
+      for (int j = 0; j < K; ++j) c.v[i][j] = __ldg(row + z[j]);
     }
-    __syncthreads();
+  };
+  const int n_chunks = (Tc + CH - 1) / CH;
+  Chunk<CH, K> cur, nxt;
+  fetch(cur, 0);
+  if (n_chunks > 1) fetch(nxt, 1);
+
+  const size_t t_stride = (size_t)B * S;
+  float* out = alphas + (size_t)b * S + L * K;
+  float a[K];
+  for (int k = 0; k < n_chunks; ++k) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int t = k * CH + i;
+      if (t >= Tc) break;
+      if (t == 0) {
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          a[j] = sel(((valid >> j) & 1) && L * K + j <= 1, cur.v[0][j], kNegInf);
+      } else {
+        // alpha[s-1] and alpha[s-2] below this thread's first state, from the
+        // lattice of step t - 1
+        const float* prev = lat + ((t - 1) & 1) * ls + 2 + L * K;
+        const float up1 = prev[-1], up2 = prev[-2];
+        float nw[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const float a1 = j >= 1 ? a[j >= 1 ? j - 1 : 0] : up1;
+          const float a2 = sel((skip >> j) & 1, j >= 2 ? a[j >= 2 ? j - 2 : 0] : j == 1 ? up1 : up2,
+                               kNegInf);
+          nw[j] = sel((valid >> j) & 1, logaddexp3(a[j], a1, a2) + cur.v[i][j], kNegInf);
+        }
+#pragma unroll
+        for (int j = 0; j < K; ++j) a[j] = nw[j];
+      }
+      float* next = lat + (t & 1) * ls + 2 + L * K;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        next[j] = a[j];
+        st_if((on >> j) & 1, out + j, a[j]);
+      }
+      out += t_stride;
+      // the chain warps' barrier: step t's lattice is complete; the buffer
+      // of step t - 1 is free for step t + 1
+      asm volatile("bar.sync 1, %0;\n" ::"r"(nl) : "memory");
+    }
+    cur = nxt;
+    if (k + 2 < n_chunks) fetch(nxt, k + 2);
   }
-  if (s == 0) {
-    const float* fin = a_s + ((T - 1) & 1) * S;
+  for (int t = Tc; t < T; ++t, out += t_stride) {  // the row's input has ended: frozen
+#pragma unroll
+    for (int j = 0; j < K; ++j) st_if((on >> j) & 1, out + j, a[j]);
+  }
+  if (L == 0) {
+    const float* fin = lat + ((Tc - 1) & 1) * ls + 2;
     const float a_end = fin[2 * tl];
     const float a_last = tl > 0 ? fin[2 * tl - 1] : kNegInf;
     const float m = fmaxf(a_end, a_last);
@@ -104,112 +266,326 @@ __global__ void ctc_alpha_kernel(const float* __restrict__ log_probs, const int*
   }
 }
 
-__global__ void ctc_beta_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
-                                const int* __restrict__ input_lengths,
-                                const int* __restrict__ target_lengths,
-                                const float* __restrict__ alphas, const float* __restrict__ nll,
-                                float* __restrict__ occ, int B, int T, int C, int U, int blank) {
-  extern __shared__ float b_s[];  // (2, S) betas
+// A CTA a row: W = blockDim.x / 32 - kConsumerWarps chain warps (lane L =
+// threadIdx.x holds states L*K .. L*K+K-1), then the class-sum warps.
+// Shared memory: the full and empty mbarriers of the occupancy ring's slots;
+// the chain's values x = beta + emission of the last two steps, (2, 32 K W +
+// 4) floats, state s of step n at (n & 1, s) with -inf above the last
+// state; the occupancy ring, (kDepth, CH, K, 32 W) floats (CH = kChunk /
+// K steps a chunk), entry (i, j, L) at step n = k*CH + i of the chain (t =
+// Tc - 1 - n) and state L*K + j; the class sums' lists, 32 K W ints each,
+// and a chunk's segment sums.
+template <int K>
+__global__ void __launch_bounds__(32 * (kMaxChainWarps + kConsumerWarps))
+    ctc_beta_grad_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
+                         const int* __restrict__ input_lengths,
+                         const int* __restrict__ target_lengths, const float* __restrict__ alphas,
+                         const float* __restrict__ nll, const float* __restrict__ g,
+                         float* __restrict__ grad, int B, int T, int C, int U, int blank) {
+  constexpr int CH = kChunk / K;  // steps a chunk: kChunk values a thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = (blockDim.x >> 5) - kConsumerWarps, nl = 32 * W, ls = 32 * K * W + 4;
   const int S = 2 * U + 1;
-  const int b = blockIdx.x, s = threadIdx.x;
-  const bool on = s < S;
+  const int b = blockIdx.x;
   const int* tgt = targets + (size_t)b * U;
-  const int tl = min(target_lengths[b], U), il = input_lengths[b];
+  const int tl = min(target_lengths[b], U), n_valid = 2 * tl + 1;
+  const int Tc = min(input_lengths[b], T);  // steps with a gradient
   const float nll_b = nll[b];
-  const float* lp = log_probs + (size_t)b * T * C;
-
-  auto valid_at = [&](int q) { return q < S && q < 2 * tl + 1; };
-  const int z0 = on ? label(tgt, s, blank) : blank;
-  const int z1 = s + 1 < S ? label(tgt, s + 1, blank) : blank;
-  const int z2 = s + 2 < S ? label(tgt, s + 2, blank) : blank;
-  const bool v0 = valid_at(s), v1 = valid_at(s + 1), v2 = valid_at(s + 2);
-  // s -> s+2 is allowed iff the skip into s+2 is
-  const bool skip_from = (s & 1) && s + 2 < S && z2 != z0;
-  const int end = 2 * tl;
-  const float term = (v0 && (s == end || (s == end - 1 && tl > 0))) ? 0.0f : kNegInf;
-
-  // emissions of step t+1 and alphas of step t, loaded one step ahead
-  float e0 = 0.0f, e1 = 0.0f, e2 = 0.0f;
-  float al = on ? alphas[((size_t)(T - 1) * B + b) * S + s] : 0.0f;
-  for (int t = T - 1; t >= 0; --t) {
-    const float ce0 = e0, ce1 = e1, ce2 = e2, cal = al;
-    if (on && t > 0) {
-      const float* row = lp + (size_t)t * C;  // the emissions that step t-1 needs
-      e0 = row[z0];
-      e1 = row[z1];
-      e2 = row[z2];
-      al = alphas[((size_t)(t - 1) * B + b) * S + s];
+  float* grow = grad + (size_t)b * T * C;
+  if (Tc <= 0 || !(nll_b < -kNegInf / 2)) {  // no input, or an impossible alignment: zero
+    for (size_t i = threadIdx.x; i < (size_t)T * C; i += blockDim.x) grow[i] = 0.0f;
+    return;
+  }
+  const unsigned full0 = smem_addr(smem), empty0 = full0 + 8 * kDepth;
+  int* n_runs = reinterpret_cast<int*>(smem + 16 * kDepth);
+  float* lat = reinterpret_cast<float*>(smem + 16 * kDepth + 16);
+  float* o_ring = lat + lattice_floats(K, W);
+  int* zs = reinterpret_cast<int*>(o_ring + (size_t)kDepth * CH * K * nl);
+  int* sz = zs + K * nl;
+  int* spos = sz + K * nl;
+  int* run_seg = spos + K * nl;
+  float* part = reinterpret_cast<float*>(run_seg + K * nl);
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kDepth; ++i) {
+      mbar_init(full0 + 8 * i, nl);
+      mbar_init(empty0 + 8 * i, kConsumers);
     }
-    if (on) {
-      float beta = term;
-      if (t < T - 1 && t < il - 1) {
-        const float* nx = b_s + ((t + 1) & 1) * S;
-        const float x0 = v0 ? nx[s] + ce0 : kNegInf;
-        const float x1 = v1 ? nx[s + 1] + ce1 : kNegInf;
-        const float x2 = (skip_from && v2) ? nx[s + 2] + ce2 : kNegInf;
-        beta = logaddexp3(x0, x1, x2);
+  if (threadIdx.x < 4) lat[ls - 4 + threadIdx.x] = lat[2 * ls - 4 + threadIdx.x] = kNegInf;
+  __syncthreads();
+  const int n_chunks = (Tc + CH - 1) / CH;
+
+  if (threadIdx.x < nl) {  // the backward chain
+    const int L = threadIdx.x;
+    const float* lp = log_probs + (size_t)b * T * C;
+    int z[K];
+    unsigned on = 0, valid = 0, skip_from = 0, term = 0;  // bit j: state L*K + j
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int s = L * K + j;
+      z[j] = s < S ? label(tgt, s, blank) : blank;
+      if (s < S) on |= 1u << j;
+      if (s < n_valid) valid |= 1u << j;
+      // s -> s+2 is allowed iff the skip into s+2 is
+      if ((s & 1) && s + 2 < S && label(tgt, s + 2, blank) != z[j]) skip_from |= 1u << j;
+      if (s < n_valid && (s == 2 * tl || (s == 2 * tl - 1 && tl > 0))) term |= 1u << j;
+    }
+    // chunk k's next-step emissions and alphas, this thread's states (states
+    // past S read state 0's: they are masked)
+    auto fetch = [&](Chunk<CH, K>& e, Chunk<CH, K>& al, int k) {
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        const int t = max(Tc - 1 - (k * CH + i), 0);
+        const float* erow = lp + (size_t)min(t + 1, Tc - 1) * C;
+        const float* arow = alphas + ((size_t)t * B + b) * S;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          e.v[i][j] = __ldg(erow + z[j]);
+          al.v[i][j] = __ldg(arow + ((on >> j) & 1 ? L * K + j : 0));
+        }
       }
-      b_s[(t & 1) * S + s] = beta;
-      occ[((size_t)t * B + b) * S + s] = v0 ? expf(fminf(cal + beta + nll_b, 0.0f)) : 0.0f;
+    };
+    Chunk<CH, K> e_cur, a_cur, e_nxt, a_nxt;
+    fetch(e_cur, a_cur, 0);
+    if (n_chunks > 1) fetch(e_nxt, a_nxt, 1);
+
+    float beta[K];
+    // step i's log occupancies alpha + beta + nll into the chunk's slot
+    // (the class-sum warps take their exp): stored a step late, after the
+    // next step's barrier, so that the chain does not wait for them
+    auto put_occ = [&](float* ok, int i) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) ok[(size_t)(i * K + j) * nl] = a_cur.v[i][j] + beta[j] + nll_b;
+    };
+    for (int k = 0; k < n_chunks; ++k) {
+      const int slot = k % kDepth;
+      if (k >= kDepth) mbar_wait(empty0 + 8 * slot, ((k / kDepth) - 1) & 1);  // slot consumed
+      float* ok = o_ring + (size_t)slot * CH * K * nl + L;
+      const int i_end = min(CH, Tc - k * CH);
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        const int n = k * CH + i;
+        if (i >= i_end) break;
+        if (n == 0) {  // t = Tc - 1: the terminal vector
+#pragma unroll
+          for (int j = 0; j < K; ++j) beta[j] = sel((term >> j) & 1, 0.0f, kNegInf);
+        } else {
+          float x[K];
+          float* xs = lat + (n & 1) * ls + L * K;
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            x[j] = sel((valid >> j) & 1, beta[j] + e_cur.v[i][j], kNegInf);
+            xs[j] = x[j];
+          }
+          // the chain warps' barrier: step n's x is complete; the buffer of
+          // step n - 1 is free for step n + 1
+          asm volatile("bar.sync 1, %0;\n" ::"r"(nl) : "memory");
+          if (i > 0) put_occ(ok, i - 1);
+          const float dn1 = xs[K], dn2 = xs[K + 1];  // x[s+1] and x[s+2] above this thread's states
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            const float x1 = j + 1 < K ? x[j + 1 < K ? j + 1 : 0] : dn1;
+            const float x2 = sel((skip_from >> j) & 1,
+                                 j + 2 < K ? x[j + 2 < K ? j + 2 : 0] : j + 2 == K ? dn1 : dn2,
+                                 kNegInf);
+            beta[j] = logaddexp3(x[j], x1, x2);
+          }
+        }
+      }
+      put_occ(ok, i_end - 1);
+      mbar_arrive(full0 + 8 * slot);  // this thread's occupancies of chunk k are in the ring
+      e_cur = e_nxt;
+      a_cur = a_nxt;
+      if (k + 2 < n_chunks) fetch(e_nxt, a_nxt, k + 2);
     }
-    __syncthreads();
+    return;
+  }
+
+  // The class sums. The row is zero but at the classes of the valid states
+  // below the input length, which the chunks' sums overwrite.
+  const int ct = threadIdx.x - nl;
+  for (size_t i = ct; i < (size_t)T * C; i += kConsumers) grow[i] = 0.0f;
+  // the valid states sorted by (class, s): a bitonic sort of the keys
+  // class << 32 | s in `part` (free until the first chunk's sums), padded
+  // to a power of two; then their classes and ring positions
+  long long* key = reinterpret_cast<long long*>(part);
+  int n_pow = 1;
+  while (n_pow < n_valid) n_pow <<= 1;
+  for (int i = ct; i < n_pow; i += kConsumers)
+    key[i] = i < n_valid ? (long long)label(tgt, i, blank) << 32 | i : LLONG_MAX;
+  for (int k = 2; k <= n_pow; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      asm volatile("bar.sync 2, %0;\n" ::"r"(kConsumers) : "memory");
+      for (int i = ct; i < n_pow / 2; i += kConsumers) {
+        const int lo = 2 * i - (i & (j - 1)), hi = lo + j;  // lo: bit j clear
+        const long long x = key[lo], y = key[hi];
+        if ((x > y) == ((lo & k) == 0)) key[lo] = y, key[hi] = x;
+      }
+    }
+  asm volatile("bar.sync 2, %0;\n" ::"r"(kConsumers) : "memory");
+  for (int r = ct; r < n_valid; r += kConsumers) {
+    const int s = (int)(key[r] & 0xffffffff);
+    sz[r] = (int)(key[r] >> 32);
+    spos[r] = (s % K) * nl + s / K;
+  }
+  asm volatile("bar.sync 2, %0;\n" ::"r"(kConsumers) : "memory");
+  // The runs of a class in that order, cut into segments at every multiple
+  // of kSeg: segment q holds sorted states seg[q] .. seg[q + 1] - 1; run q
+  // (of class sz[seg[run_seg[q]]]) segments run_seg[q] .. run_seg[q + 1] - 1.
+  // A thread numbers the starts in its block of sorted states after an
+  // exclusive scan of the blocks' counts (runs in bits 16 on, segments below).
+  int* seg = zs;
+  auto starts = [&](int r) {
+    const int rs = r == 0 || sz[r] != sz[r - 1];
+    return rs << 16 | (rs | (r % kSeg == 0));
+  };
+  const int per = (n_valid + kConsumers - 1) / kConsumers;
+  const int r0 = min(ct * per, n_valid), r1 = min(r0 + per, n_valid);
+  int count = 0;
+  for (int r = r0; r < r1; ++r) count += starts(r);
+  int* wsum = reinterpret_cast<int*>(part);  // the keys are read
+  int x = count;
+  const int lane = ct & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) wsum[ct >> 5] = x;
+  asm volatile("bar.sync 2, %0;\n" ::"r"(kConsumers) : "memory");
+  for (int w = 0; w < (ct >> 5); ++w) x += wsum[w];
+  int nr = (x - count) >> 16, ns = (x - count) & 0xffff;
+  for (int r = r0; r < r1; ++r) {
+    const int st = starts(r);
+    if (st >> 16) run_seg[nr++] = ns;
+    if (st & 1) {
+      spos[r] |= kHead;
+      seg[ns++] = r;
+    }
+    spos[r] |= (ns - 1) << 16;
+  }
+  if (ct == kConsumers - 1) {
+    seg[ns] = n_valid;
+    run_seg[nr] = ns;
+    *n_runs = nr;
+  }
+  asm volatile("bar.sync 2, %0;\n" ::"r"(kConsumers) : "memory");  // and the zeros are written
+  const int runs = *n_runs, n_blocks = (n_valid + 31) >> 5, cw = ct >> 5;
+  const float gb = g[b];
+  for (int k = 0; k < n_chunks; ++k) {
+    const int slot = k % kDepth;
+    mbar_wait(full0 + 8 * slot, (k / kDepth) & 1);
+    const float* ok = o_ring + (size_t)slot * CH * K * nl;
+    const int i_end = min(CH, Tc - k * CH), t0 = Tc - 1 - k * CH;
+    // a warp a block of 32 sorted states, a lane a state: its occupancies
+    // exp(min(alpha + beta + nll, 0)) at the chunk's steps; then each
+    // segment's sums, in a fixed order of shuffles within the segment, into
+    // part
+    for (int blk = cw; blk < n_blocks; blk += kConsumerWarps) {
+      const int r = blk * 32 + lane;
+      const bool in = r < n_valid;
+      const int sp = in ? spos[r] : kHead;  // past the states: a head, summed into none
+      const unsigned heads = __ballot_sync(0xffffffffu, sp & kHead);
+      const float* o = ok + (sp & 0xffff);
+      float v[CH];
+#pragma unroll
+      for (int i = 0; i < CH; ++i) v[i] = in && i < i_end ? expf(fminf(o[(size_t)i * K * nl], 0.0f)) : 0.0f;
+#pragma unroll
+      for (int d = 1; d < kSeg; d <<= 1) {
+        // lanes lane + 1 .. lane + d are in this segment
+        const bool take =
+            (lane & (kSeg - 1)) + d < kSeg && !((heads >> (lane + 1)) & ((1u << d) - 1));
+#pragma unroll
+        for (int i = 0; i < CH; ++i) {
+          const float y = __shfl_down_sync(0xffffffffu, v[i], d);
+          if (take) v[i] += y;
+        }
+      }
+      if (in && (sp & kHead)) {
+#pragma unroll
+        for (int i = 0; i < CH; ++i)
+          if (i < i_end) part[(sp >> 16 & 0x3fff) * CH + i] = v[i];
+      }
+    }
+    mbar_arrive(empty0 + 8 * slot);  // chunk k's occupancies are read
+    asm volatile("bar.sync 2, %0;\n" ::"r"(kConsumers) : "memory");  // the segment sums are in
+    // a thread a (run, step): the run's segment sums in order
+    for (int p = ct; p < runs * CH; p += kConsumers) {
+      const int q = p / CH, i = p % CH;
+      if (i >= i_end) continue;
+      float acc = 0.0f;
+#pragma unroll 8
+      for (int j = run_seg[q]; j < run_seg[q + 1]; ++j) acc += part[j * CH + i];
+      grow[(size_t)(t0 - i) * C + sz[seg[run_seg[q]]]] = -acc * gb;
+    }
+    asm volatile("bar.sync 2, %0;\n" ::"r"(kConsumers) : "memory");  // part is free again
   }
 }
 
-// grad[b, t, c] = -g[b] * sum_{valid s, z_s = c} occ[t, b, s] for t < il and a
-// finite nll, else 0: a thread per (t, c) of a row, states summed in order.
-__global__ void ctc_grad_kernel(const int* __restrict__ targets, const int* __restrict__ input_lengths,
-                                const int* __restrict__ target_lengths, const float* __restrict__ nll,
-                                const float* __restrict__ g, const float* __restrict__ occ,
-                                float* __restrict__ grad, int B, int T, int C, int U, int blank) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= T * C) return;
-  const int t = i / C, c = i - t * C;
-  const int S = 2 * U + 1;
-  const int tl = min(target_lengths[b], U);
-  float out = 0.0f;
-  if (t < input_lengths[b] && nll[b] < -kNegInf / 2) {
-    const float* o = occ + ((size_t)t * B + b) * S;
-    const int* tgt = targets + (size_t)b * U;
-    float acc = 0.0f;
-    for (int s = 0; s < 2 * tl + 1; ++s)
-      if (label(tgt, s, blank) == c) acc += o[s];
-    out = -acc * g[b];
+template <int K>
+cudaError_t launch_alpha(const float* log_probs, const int* targets, const int* input_lengths,
+                         const int* target_lengths, float* alphas, float* nll, int B, int T, int C,
+                         int U, int blank, int W, cudaStream_t st) {
+  const size_t smem = alpha_smem(K, W);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ctc_alpha_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
   }
-  grad[((size_t)b * T + t) * C + c] = out;
+  ctc_alpha_kernel<K><<<B, 32 * W, smem, st>>>(log_probs, targets, input_lengths, target_lengths,
+                                               alphas, nll, B, T, C, U, blank);
+  return cudaGetLastError();
 }
 
-int threads_for(int n) { return (n + 31) / 32 * 32; }
+template <int K>
+cudaError_t launch_beta_grad(const float* log_probs, const int* targets, const int* input_lengths,
+                             const int* target_lengths, const float* alphas, const float* nll,
+                             const float* g, float* grad, int B, int T, int C, int U, int blank,
+                             int W, cudaStream_t st) {
+  const size_t smem = beta_smem(K, W);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ctc_beta_grad_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  ctc_beta_grad_kernel<K><<<B, 32 * (W + kConsumerWarps), smem, st>>>(
+      log_probs, targets, input_lengths, target_lengths, alphas, nll, g, grad, B, T, C, U, blank);
+  return cudaGetLastError();
+}
+
+// `ctc_plan`'s (states a lane, chain warps) hold S states.
+bool plan_ok(int S, int K, int W) {
+  return (K == 1 || K == 2) && W >= 1 && W <= kMaxChainWarps && S <= 32 * K * W;
+}
+
+bool args_ok(int B, int T, int C, int U, int blank) {
+  return B >= 1 && T >= 1 && U >= 1 && blank >= 0 && blank < C;
+}
 
 }  // namespace
 
+// K and W come from kernels/ctc.py `ctc_plan`: K states a lane (1 or 2) in
+// W chain warps, 32 K W >= S = 2U + 1.
 extern "C" int ctc_alpha_f32(const float* log_probs, const int* targets, const int* input_lengths,
                              const int* target_lengths, float* alphas, float* nll, int B, int T,
-                             int C, int U, int blank, void* stream) {
-  const int S = 2 * U + 1;
-  if (B < 1 || T < 1 || U < 1 || S > kMaxThreads || blank < 0 || blank >= C)
-    return (int)cudaErrorInvalidValue;
-  ctc_alpha_kernel<<<B, threads_for(S), 2 * S * sizeof(float), (cudaStream_t)stream>>>(
-      log_probs, targets, input_lengths, target_lengths, alphas, nll, B, T, C, U, blank);
-  return (int)cudaGetLastError();
-}
-
-// occ (T, B, S) is scratch for the occupancies between the two kernels.
-extern "C" int ctc_beta_grad_f32(const float* log_probs, const int* targets,
-                                 const int* input_lengths, const int* target_lengths,
-                                 const float* alphas, const float* nll, const float* g, float* occ,
-                                 float* grad, int B, int T, int C, int U, int blank, void* stream) {
-  const int S = 2 * U + 1;
-  if (B < 1 || T < 1 || U < 1 || S > kMaxThreads || blank < 0 || blank >= C || B > 65535)
+                             int C, int U, int blank, int K, int W, void* stream) {
+  if (!args_ok(B, T, C, U, blank) || !plan_ok(2 * U + 1, K, W))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  ctc_beta_kernel<<<B, threads_for(S), 2 * S * sizeof(float), st>>>(
-      log_probs, targets, input_lengths, target_lengths, alphas, nll, occ, B, T, C, U, blank);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T * C + 255) / 256, B);
-  ctc_grad_kernel<<<grid, 256, 0, st>>>(targets, input_lengths, target_lengths, nll, g, occ, grad,
-                                        B, T, C, U, blank);
-  return (int)cudaGetLastError();
+  return (int)(K == 1 ? launch_alpha<1> : launch_alpha<2>)(log_probs, targets, input_lengths,
+                                                           target_lengths, alphas, nll, B, T, C,
+                                                           U, blank, W, st);
+}
+
+extern "C" int ctc_beta_grad_f32(const float* log_probs, const int* targets,
+                                 const int* input_lengths, const int* target_lengths,
+                                 const float* alphas, const float* nll, const float* g,
+                                 float* grad, int B, int T, int C, int U, int blank, int K, int W,
+                                 void* stream) {
+  if (!args_ok(B, T, C, U, blank) || !plan_ok(2 * U + 1, K, W) ||
+      beta_smem(K, W) > (size_t)kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(K == 1 ? launch_beta_grad<1> : launch_beta_grad<2>)(
+      log_probs, targets, input_lengths, target_lengths, alphas, nll, g, grad, B, T, C, U, blank,
+      W, st);
 }

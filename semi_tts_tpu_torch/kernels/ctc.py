@@ -1,16 +1,34 @@
-"""K6: CTC over the log-semiring lattice (`csrc/ctc.cu`), one CTA per
-utterance.
+"""K6: CTC over the log-semiring lattice (`csrc/ctc.cu`), a CTA of chain
+warps for each utterance.
 
 `ctc_alpha` is the forward recursion: alphas (T, B, S) and the negative log
 likelihood (B,), S = 2U + 1. `ctc_beta_grad` runs the backward recursion and
 turns the occupancies ``exp(min(alpha + beta + nll, 0))`` into the gradient
-of ``sum_b g[b] * nll[b]`` with respect to the log-probabilities, (B, T, C)
-(two kernels in one launch call: the recursion, then a parallel sum).
-Both reproduce `semi_tts_tpu/ops/ctc.py` edge for edge: the ``NEG_INF``
-sentinel and the ``1e-37`` clamp of the three-way log-add, rows frozen past
-their input length, target length 0, T = 1, and an impossible alignment
-(nll ~ 1e30) with a zero gradient. Each wrapper launches its kernel for
-CUDA tensors and runs its plain PyTorch version only for CPU tensors.
+of ``sum_b g[b] * nll[b]`` with respect to the log-probabilities, (B, T, C),
+in one kernel. Both reproduce `semi_tts_tpu/ops/ctc.py` edge for edge: the
+``NEG_INF`` sentinel and the ``1e-37`` clamp of the three-way log-add, rows
+frozen past their input length, target length 0, T = 1, and an impossible
+alignment (nll ~ 1e30) with a zero gradient. Each wrapper launches its
+kernel for CUDA tensors and runs its plain PyTorch version only for CPU
+tensors.
+
+What bounds K6 on the card is the latency of its chain: T dependent steps,
+each a three-way log-add (three accurate ``expf``, a ``logf``) per state,
+over ~1 MB of data; the log-adds alone take ~0.13 us a step on the card
+(`chip_ablate.py`, "the log-add alone"). So a row's states are
+spread a state a thread over `ctc_plan`'s ``chain_warps`` warps (two states
+a thread past 512), which exchange their neighbours through the lattice of
+the last two steps in shared memory under one named barrier a step, and
+everything else is kept off the step: the emissions (and, backward, the
+alphas) are gathered per state, S values a step and not C, in chunks of
+`CHUNK` steps (backward `CHUNK` // K) loaded a chunk ahead, and the
+backward's log occupancies go through a ring of `DEPTH` chunks to
+`CONSUMER_WARPS` more warps that take their exp and sum them into the
+gradient: a warp a block of 32 of the valid states sorted by (class, s), a
+lane a state, sums each segment of at most `SEG` states of one class by
+shuffles in a fixed order at each of the chunk's steps; then a thread a
+class and a step adds its segments' sums in order of s (no scratch in
+device memory, no second launch, no atomics).
 """
 
 from __future__ import annotations
@@ -20,7 +38,49 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-MAX_STATES = 1024  # S = 2U + 1 states a CTA holds: one thread each
+MAX_STATES = 1024     # S = 2U + 1 states a row
+STATES_PER_LANE = (1, 2)  # the kernels' instantiations
+MAX_CHAIN_WARPS = 16  # warps that carry a row's chain
+CHUNK = 8             # steps a register chunk holds; backward CHUNK // K (csrc/ctc.cu kChunk)
+DEPTH = 4             # occupancy ring slots, chunks (csrc/ctc.cu kDepth)
+SEG = 8               # sorted states a class-sum segment adds at most (csrc/ctc.cu kSeg)
+CONSUMER_WARPS = 8    # ctc_beta_grad's class-sum warps beside the chain's
+
+
+def _lattice_floats(K: int, W: int) -> int:
+    """Floats of the lattice of the last two steps, with four guard cells each."""
+    return 2 * (32 * K * W + 4)
+
+
+def _alpha_smem(K: int, W: int) -> int:
+    """ctc_alpha's shared bytes: the lattice."""
+    return 4 * _lattice_floats(K, W)
+
+
+def _beta_smem(K: int, W: int) -> int:
+    """ctc_beta_grad's shared bytes: the occupancy ring slots' mbarriers and
+    the count of class runs, the lattice, the occupancy ring, the class
+    sums' four lists and a chunk's segment sums (first the sort's keys)."""
+    return 16 * DEPTH + 16 + 4 * (_lattice_floats(K, W) + 32 * W * (DEPTH + 1) * CHUNK
+                                  + 4 * 32 * K * W)
+
+
+def ctc_plan(B: int, T: int, S: int) -> dict:
+    """K6's launch plan for B rows of T steps and S lattice states: a CTA a
+    row, whose ``chain_warps`` warps carry the chain with
+    ``states_per_lane`` states a lane (one up to 512 states, two past that)
+    and, in ctc_beta_grad, `CONSUMER_WARPS` more sum the gradient from a
+    ring of `DEPTH` chunks. A register chunk holds ``chunk`` = `CHUNK`
+    steps, backward ``beta_chunk`` = `CHUNK` // K (a ring chunk too).
+    Nothing depends on T or C.
+    Raises ValueError past `MAX_STATES` states."""
+    if not 1 <= S <= MAX_STATES:
+        raise ValueError(f"ctc kernels: {S} lattice states, they take 1 to {MAX_STATES}")
+    K = 1 if S <= 32 * MAX_CHAIN_WARPS else 2
+    W = -(-S // (32 * K))
+    return dict(states_per_lane=K, chain_warps=W, chunk=CHUNK, beta_chunk=CHUNK // K, grid=(B,),
+                alpha_threads=32 * W, beta_threads=32 * (W + CONSUMER_WARPS),
+                alpha_smem_bytes=_alpha_smem(K, W), beta_smem_bytes=_beta_smem(K, W))
 
 
 def _logaddexp3(a, b, c):
@@ -117,9 +177,7 @@ def _check(log_probs, targets, input_lengths, target_lengths, what):
     build.require_int(input_lengths, (B,), f"{what} input_lengths")
     build.require_int(target_lengths, (B,), f"{what} target_lengths")
     S = 2 * targets.shape[1] + 1
-    if S > MAX_STATES:
-        raise ValueError(f"{what}: {S} lattice states, the kernel takes at most {MAX_STATES}")
-    return B, T, C, S
+    return B, T, C, S, ctc_plan(B, T, S)
 
 
 def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank: int = 0):
@@ -127,14 +185,15 @@ def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank: int = 0)
     and the lengths are int32 (pad == blank)."""
     if not log_probs.is_cuda:
         return ctc_alpha_plain(log_probs, targets, input_lengths, target_lengths, blank)
-    B, T, C, S = _check(log_probs, targets, input_lengths, target_lengths, "ctc_alpha")
+    B, T, C, S, plan = _check(log_probs, targets, input_lengths, target_lengths, "ctc_alpha")
     alphas = torch.empty((T, B, S), device=log_probs.device, dtype=torch.float32)
     nll = torch.empty((B,), device=log_probs.device, dtype=torch.float32)
     if B and T:
-        fn = build.bind("ctc", "ctc_alpha_f32", 6, 5)
+        fn = build.bind("ctc", "ctc_alpha_f32", 6, 7)
         build.check(fn(log_probs.data_ptr(), targets.data_ptr(), input_lengths.data_ptr(),
                        target_lengths.data_ptr(), alphas.data_ptr(), nll.data_ptr(),
-                       B, T, C, targets.shape[1], blank, build.stream()), "ctc_alpha")
+                       B, T, C, targets.shape[1], blank, plan["states_per_lane"],
+                       plan["chain_warps"], build.stream()), "ctc_alpha")
         ctc_alpha.launches += 1
     return alphas, nll
 
@@ -146,18 +205,19 @@ def ctc_beta_grad(log_probs, targets, input_lengths, target_lengths, alphas, nll
     if not log_probs.is_cuda:
         return ctc_beta_grad_plain(log_probs, targets, input_lengths, target_lengths,
                                    alphas, nll, g, blank)
-    B, T, C, S = _check(log_probs, targets, input_lengths, target_lengths, "ctc_beta_grad")
+    B, T, C, S, plan = _check(log_probs, targets, input_lengths, target_lengths,
+                              "ctc_beta_grad")
     build.require(alphas, (T, B, S), "ctc_beta_grad alphas")
     build.require(nll, (B,), "ctc_beta_grad nll")
     build.require(g, (B,), "ctc_beta_grad g")
     grad = torch.empty((B, T, C), device=log_probs.device, dtype=torch.float32)
-    occ = torch.empty((T, B, S), device=log_probs.device, dtype=torch.float32)  # scratch
     if B and T:
-        fn = build.bind("ctc", "ctc_beta_grad_f32", 9, 5)
+        fn = build.bind("ctc", "ctc_beta_grad_f32", 8, 7)
         build.check(fn(log_probs.data_ptr(), targets.data_ptr(), input_lengths.data_ptr(),
                        target_lengths.data_ptr(), alphas.data_ptr(), nll.data_ptr(),
-                       g.data_ptr(), occ.data_ptr(), grad.data_ptr(), B, T, C,
-                       targets.shape[1], blank, build.stream()), "ctc_beta_grad")
+                       g.data_ptr(), grad.data_ptr(), B, T, C, targets.shape[1], blank,
+                       plan["states_per_lane"], plan["chain_warps"], build.stream()),
+                    "ctc_beta_grad")
         ctc_beta_grad.launches += 1
     return grad
 

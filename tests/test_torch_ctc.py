@@ -143,3 +143,214 @@ def test_ctc_wrappers_count_no_launch_on_cpu():
     before = (K6.ctc_alpha.launches, K6.ctc_beta_grad.launches)
     _port(*_inputs())
     assert (K6.ctc_alpha.launches, K6.ctc_beta_grad.launches) == before
+
+
+# --- K6's launch plan and its decomposition (csrc/ctc.cu), replayed in torch ---
+
+
+@pytest.mark.parametrize("lo", range(3, 1025, 128))
+def test_ctc_plan_fits_every_state_count(lo):
+    """Every S from 3 to 1,024 gets chain warps and states a lane that hold
+    it, and a ring that fits a block's shared memory, forward and backward."""
+    for S in range(lo, min(lo + 128, 1025)):
+        plan = K6.ctc_plan(8, 133, S)
+        K, W = plan["states_per_lane"], plan["chain_warps"]
+        assert K in K6.STATES_PER_LANE and 1 <= W <= K6.MAX_CHAIN_WARPS and 32 * K * W >= S
+        assert plan["beta_threads"] <= 1024
+        assert max(plan["alpha_smem_bytes"], plan["beta_smem_bytes"]) <= 232_448
+
+
+def test_ctc_plan_raises_past_its_states():
+    with pytest.raises(ValueError):
+        K6.ctc_plan(8, 133, 1025)
+
+
+@pytest.mark.parametrize("S", [3, 65, 129, 513, 1023, 1024])
+def test_ctc_plan_needs_no_more_memory_for_longer_inputs(S):
+    """The ring holds chunks of steps, so T from 1 to 5,000 needs no more
+    shared memory than T = 1."""
+    at_one = K6.ctc_plan(8, 1, S)
+    for T in (1, 2, 8, 9, 133, 700, 4999, 5000):
+        plan = K6.ctc_plan(8, T, S)
+        assert plan["alpha_smem_bytes"] <= at_one["alpha_smem_bytes"]
+        assert plan["beta_smem_bytes"] <= at_one["beta_smem_bytes"]
+
+
+def _k6_replay(lp, targets, ilen, tlen, blank=0):
+    """K6 as `csrc/ctc.cu` decomposes it, row by row in torch: thread L of
+    the row's chain warps (K states a thread, W warps, from `ctc_plan`)
+    holds states L*K .. L*K+K-1 and reads s-1 and s-2 (backward: s+1 and
+    s+2 of x = beta + emission) past its own from the lattice of the last
+    two steps, which has -inf guard cells below state 0 (above the last
+    state); its emissions (and, backward, alphas) come in chunks of `chunk`
+    steps (backward `beta_chunk`) loaded a chunk ahead; the occupancies go
+    through a ring of `DEPTH` chunks; the class-sum warps cut each run of a
+    class in the valid states sorted by (class, s) at every multiple of
+    `SEG` sorted states, sum each (segment, step) (here in order of s, on
+    the card by shuffles in a fixed order), then each (run, step) over its
+    segments in order. Returns
+    (alphas (T, B, S), nll (B,), the gradient of sum(nll) (B, T, C))."""
+    B, T, C = lp.shape
+    U = targets.shape[1]
+    S = 2 * U + 1
+    plan = K6.ctc_plan(B, T, S)
+    K, W, D = plan["states_per_lane"], plan["chain_warps"], K6.DEPTH
+    n = 32 * K * W
+    NEG = torch.tensor(K6.NEG_INF)
+    s = torch.arange(n).view(32 * W, K)     # (thread, j) -> state
+    zf = torch.full((B, n + 2), blank, dtype=torch.long)
+    zf[:, 1:2 * U:2] = targets.long()
+    alphas = torch.full((T, B, S), float("nan"))
+    nll = torch.empty(B)
+    grad = torch.zeros((B, T, C))
+    for b in range(B):
+        z = zf[b, :n].view(32 * W, K)
+        tl = int(tlen[b])
+        valid = s < 2 * tl + 1
+        skip = valid & (s % 2 == 1) & (s >= 2) & (z != zf[b, (s - 2).clamp(min=0)])
+        skip_from = (s % 2 == 1) & (s + 2 < S) & (zf[b, s + 2] != z)
+        term = valid & ((s == 2 * tl) | ((s == 2 * tl - 1) & (tl > 0)))
+        lpb = lp[b]
+
+        CH = plan["chunk"]
+
+        def chunk(k, rows):   # a thread's chunk k: rows[i] of its states, clamped steps
+            return torch.stack([rows(i) for i in range(k * CH, k * CH + CH)])
+
+        # forward: the lattice (2, 2 + n), two -inf guards below state 0
+        Tc = max(1, min(int(ilen[b]), T))
+        lat = torch.full((2, 2 + n), K6.NEG_INF)
+        emit = lambda t: lpb[min(t, Tc - 1)][z]
+        cur, nxt = chunk(0, emit), chunk(1, emit)
+        out = torch.empty((T, 32 * W, K))
+        for k in range(-(-Tc // CH)):
+            for i in range(min(CH, Tc - k * CH)):
+                t = k * CH + i
+                if t == 0:
+                    a = torch.where(valid & (s <= 1), cur[0], NEG)
+                else:
+                    prev = lat[(t - 1) & 1]
+                    up1, up2 = prev[2 + s[:, 0] - 1], prev[2 + s[:, 0] - 2]
+                    a1 = torch.cat([up1[:, None], a[:, :K - 1]], 1)
+                    a2 = torch.cat([up2[:, None], up1[:, None], a[:, :K - 2]], 1)[:, -K:] \
+                        if K >= 2 else up2[:, None]
+                    a2 = torch.where(skip, a2, NEG)
+                    a = torch.where(valid, K6._logaddexp3(a, a1, a2) + cur[i], NEG)
+                lat[t & 1, 2:] = a.reshape(-1)
+                out[t] = a
+            cur, nxt = nxt, chunk(k + 2, emit)
+        out[Tc:] = a
+        al = out.view(T, n)
+        alphas[:, b] = al[:, :S]
+        fin = lat[(Tc - 1) & 1, 2:]
+        a_last = fin[2 * tl - 1] if tl > 0 else NEG
+        nll[b] = -K6._logaddexp(fin[2 * tl], a_last)
+
+        # backward: the chain over steps t = Tc - 1 down to 0; x in a lattice
+        # with two -inf guards above the last state
+        Tc = min(int(ilen[b]), T)
+        if Tc <= 0 or not nll[b] < -K6.NEG_INF / 2:
+            continue
+        step = lambda m: max(Tc - 1 - m, 0)
+        CH = plan["beta_chunk"]
+        emit_next = lambda m: lpb[min(step(m) + 1, Tc - 1)][z]
+        alpha = lambda m: al[step(m)].view(32 * W, K)
+        e_cur, e_nxt = chunk(0, emit_next), chunk(1, emit_next)
+        a_cur, a_nxt = chunk(0, alpha), chunk(1, alpha)
+        xlat = torch.full((2, n + 4), K6.NEG_INF)
+        ring = torch.zeros((D, CH, n))
+        order = sorted(range(2 * tl + 1), key=lambda q: (int(zf[b, q]), q))
+        classes = sorted({int(zf[b, q]) for q in order})
+        runs = [[q for q in order if int(zf[b, q]) == c] for c in classes]
+        for k in range(-(-Tc // CH)):
+            for i in range(min(CH, Tc - k * CH)):
+                if k == 0 and i == 0:
+                    beta = torch.where(term, 0.0, NEG)
+                else:
+                    x = torch.where(valid, beta + e_cur[i], NEG)
+                    xlat[(k * CH + i) & 1, :n] = x.reshape(-1)
+                    row = xlat[(k * CH + i) & 1]
+                    dn1, dn2 = row[s[:, -1] + 1], row[s[:, -1] + 2]
+                    x1 = torch.cat([x[:, 1:], dn1[:, None]], 1)
+                    x2 = torch.cat([x[:, 2:], dn1[:, None], dn2[:, None]], 1)[:, :K] \
+                        if K >= 2 else dn2[:, None]
+                    x2 = torch.where(skip_from, x2, NEG)
+                    beta = K6._logaddexp3(x, x1, x2)
+                occ = torch.exp(torch.clamp(a_cur[i] + beta + nll[b], max=0.0))
+                ring[k % D, i] = torch.where(valid, occ, 0.0).reshape(-1)
+            # the class sums of the chunk: a (segment, step) each, in order of
+            # s; then a (run, step) each over its segments, in order
+            m = min(CH, Tc - k * CH)
+            steps = Tc - 1 - (k * CH + torch.arange(m))
+            for run in runs:
+                acc = part = torch.zeros(m)
+                for i, q in enumerate(run):
+                    if i > 0 and order.index(q) % K6.SEG == 0:   # a new segment
+                        acc, part = acc + part, torch.zeros(m)
+                    part = part + ring[k % D, :m, q]
+                grad[b, steps, int(zf[b, run[0]])] = -(acc + part)
+            e_cur, e_nxt = e_nxt, chunk(k + 2, emit_next)
+            a_cur, a_nxt = a_nxt, chunk(k + 2, alpha)
+    return alphas, nll, grad
+
+
+def _k6_case(name):
+    """(lp, targets, ilen, tlen) of each edge the kernels keep; at 1, 2 and 3
+    chain warps (U = 4, 20, 40), at 2 states a lane in 10 warps (U=300) and
+    at T=300 (the ring's chunks many times over)."""
+    if name == "T=300":
+        lp, targets, ilen, tlen = _inputs(B=3, T=300, C=9, U=24, seed=11)
+        ilen[:] = [300, 217, 41]
+        tlen[:] = [24, 20, 24]
+        targets[1, 20:] = 0
+        return lp, targets, ilen, tlen
+    U = {"U=20": 20, "U=40": 40, "U=300": 300}.get(name, 4)
+    lp, targets, ilen, tlen = _inputs(B=2 if U > 40 else 4, T=21 if U < 300 else 400, C=7, U=U,
+                                      seed=12)
+    if name == "U=300":
+        targets[:] = np.random.RandomState(13).randint(1, 7, size=targets.shape)
+        targets[1, 261:] = 0
+        tlen[:] = [300, 261]
+    if name == "input lengths below T":
+        ilen[:] = [21, 9, 10, 1]
+    elif name == "target length 0":
+        targets[1], tlen[1] = 0, 0
+    elif name == "T=1":
+        lp, ilen = lp[:, :1].copy(), np.ones(4, np.int32)
+        tlen[:] = [1, 0, 1, 0]
+        targets[:, 1:] = 0
+        targets[[1, 3]] = 0
+    elif name == "repeated labels":
+        targets[:] = [[3, 3, 5, 5], [2, 2, 2, 0], [1, 1, 1, 1], [4, 0, 0, 0]]
+        tlen[:] = [4, 3, 4, 1]
+    elif name == "impossible alignment":
+        targets[0], tlen[0], ilen[0] = 4, 4, 6   # four equal labels need 7 frames
+    return lp, targets, ilen, tlen
+
+
+K6_CASES = ["U=4", "U=20", "U=40", "U=300", "input lengths below T", "target length 0", "T=1",
+            "repeated labels", "impossible alignment", "T=300"]
+
+
+@pytest.mark.parametrize("name", K6_CASES)
+def test_k6_replay_matches_plain_and_jax(name):
+    """The kernels' decomposition gives the plain versions' alphas, NLL and
+    gradient, and JAX's custom VJP's NLL and gradient."""
+    lp, targets, ilen, tlen = _k6_case(name)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    alphas, nll, grad = _k6_replay(t(lp), t(targets), t(ilen), t(tlen))
+    want_a, want_nll = K6.ctc_alpha_plain(t(lp), t(targets), t(ilen), t(tlen))
+    np.testing.assert_allclose(alphas.numpy(), want_a.numpy(), rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(nll.numpy(), want_nll.numpy(), rtol=1e-6)
+    want_g = K6.ctc_beta_grad_plain(t(lp), t(targets), t(ilen), t(tlen), want_a, want_nll,
+                                    torch.ones(lp.shape[0]))
+    np.testing.assert_allclose(grad.numpy(), want_g.numpy(), rtol=0, atol=ATOL)
+    # against JAX's own exp and log: at T=300 the alphas reach ~770, where an
+    # fp32 ulp is 6e-5, and the occupancies' exponent carries that rounding
+    # (the plain version is 1.9e-5 from JAX there), so the card check's 1e-4
+    jax_nll, jax_g = _jax(lp, targets, ilen, tlen, reduction="none")
+    np.testing.assert_allclose(nll.numpy(), jax_nll, rtol=1e-6)
+    atol = ATOL if lp.shape[1] < 100 else 1e-4
+    np.testing.assert_allclose(grad.numpy(), jax_g, rtol=0, atol=atol)
+    if name == "impossible alignment":
+        assert nll[0] > 1e29 and np.all(grad[0].numpy() == 0)
