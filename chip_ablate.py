@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of K3 `attention_step`, K9 `attention_step_bwd`, K4
-`gl_ola_frame`, K6 `ctc_alpha` and `ctc_beta_grad`, K7 `bilstm_rec_bwd` and
-K8 `bigru_rec_bwd` goes, on one NVIDIA card; and the ASR, paired or
-speech-first train step's time in a given tree.
+`gl_ola_frame`, K5 `stft_frames`, K6 `ctc_alpha` and `ctc_beta_grad`, K7
+`bilstm_rec_bwd`, K8 `bigru_rec_bwd` and B6 `trim_merge` goes, on one NVIDIA
+card; and the ASR, paired or speech-first train step's time in a given tree.
 
     python3 chip_ablate.py [--src TREE] [--only SRC,...]
     python3 chip_ablate.py --asr-busy TREE
@@ -11,10 +11,12 @@ speech-first train step's time in a given tree.
     python3 chip_ablate.py --kernel-mem TREE
 
 The first builds copies of ``semi_tts_tpu_torch/csrc/attention.cu``,
-``ctc.cu``, ``griffin_lim.cu`` and ``rnn.cu`` that stop after a phase
-(into the kernels' build directory, under ``ablate/``), and times each copy
-at `chip_smoke.py`'s shapes for that kernel (K9 at every shape a train step
-gives it, `K9_SHAPES`; K6 at `K6_SHAPES`), beside the whole kernel, as
+``ctc.cu``, ``features.cu``, ``griffin_lim.cu``, ``quantize.cu`` and
+``rnn.cu`` that stop after a phase (into the kernels' build directory,
+under ``ablate/``), and times each copy at `chip_smoke.py`'s shapes for that
+kernel (K9 at every shape a train step gives it, `K9_SHAPES`; K6 at
+`K6_SHAPES`; K5 at `K5_SHAPES`, and at every tile of `K5_TILES`; B6 at
+`B6_SHAPES`), beside the whole kernel, as
 device time per call from a replayed CUDA graph. A cut copy computes
 nothing useful: only its time means anything, and the time of a phase is
 the difference between two cuts. Entries named "whole kernel, ..." are
@@ -35,7 +37,8 @@ or the speech-first step with the flagship's unpaired weights
 TREE, with that tree's `chip_smoke.py`
 and package: six steps (the median wall of the last five) and three
 profiled steps, numbers 10 to 12 (device busy time, kernel launches and
-the device time of K6's kernels or K9's, ``picked_ms``), and the peak
+the device time of K6's kernels or K9's, and in the speech-first step K5's
+and B6's, ``picked_ms``), and the peak
 device memory of the six.
 To compare two trees, run it for each in one call, in the order parent,
 change, change, parent. Prints one JSON line ``{"asr_busy": ...}``,
@@ -70,6 +73,19 @@ def ret(marker):
 WAIT = ("    if (s > 0 && owned > 0 && tid < (RU + 31) / 32 * 32)\n"
         "      mbar_wait(bar0 + 8 * ((s - 1) & 1), ((s - 1) >> 1) & 1);\n")
 REARM = "        if (tid == 0 && s + 1 <= T - 2) mbar_expect_tx(bar0 + 8 * buf, step_bytes);\n"
+# K5, a CTA a tile: the starts of a tile's staging, padded signal and frames
+K5_STAGE = "  // 1. the tile's samples on their way; the window row meanwhile\n"
+K5_SIGNAL = "  // 2. the tile's padded signal, a sample at a time\n"
+K5_FRAMES = "  // 3. the windowed frames: a thread a column of the tile's rows, its window\n"
+# K5, a CTA a tile: the kernel built and launched with n threads a CTA
+def K5_THREADS(n):
+    return [("constexpr int kThreads = 256;", f"constexpr int kThreads = {n};"),
+            ("      threads < 32 || threads > kThreads ||", "      threads < 32 || threads > 1024 ||"),
+            ("  cfg.blockDim = dim3(threads);\n", f"  cfg.blockDim = dim3({n});\n")]
+
+
+# B6, bulk copies at entry: a cut's wait for the staged latent's bulk copy
+B6_LATENT_WAIT = "  if (stage_latent) mbar_wait(bar0 + 16, 0);\n"
 # K9 (PR 6): the end of a tile's wait for its processed memory, and of the tile loop
 K9_PM_WAIT = ('    asm volatile("cp.async.wait_group 1;\\n" ::: "memory");  '
               "// this tile's processed memory\n    __syncthreads();\n")
@@ -549,6 +565,88 @@ CUTS = {
             ],
         }),
     ],
+    "features": [("stft_frames", {
+        "a CTA a tile of frames, staged in shared memory": [
+            ("launch", [ret("  const int tid = threadIdx.x, nt = blockDim.x;\n")]),
+            # the row's length and the geometry; the tiles past the row's
+            # frames write their zeros
+            ("row loads and zero tiles", [(K5_STAGE, "  return;\n" + K5_STAGE)]),
+            ("staged samples and the window", [(K5_SIGNAL, "  return;\n" + K5_SIGNAL)]),
+            ("the padded signal", [(K5_FRAMES, "  return;\n" + K5_FRAMES)]),
+            # not cuts: the window by cospif(2 k / win) in place of the plain
+            # version's rounding (within an ulp of it); every tile through the
+            # mirror-and-mask path
+            ("whole kernel, the window by cospif", [(
+                "                ? __fsub_rn(0.5f, __fmul_rn(0.5f, cosf(__fdiv_rn(__fmul_rn(6.2831855f, "
+                "(float)k),\n" + " " * 66 + "(float)win))))\n",
+                "                ? 0.5f - 0.5f * cospif(2.0f * (float)k / (float)win)\n")]),
+            ("whole kernel, no interior path", [("  if (tl.i0 >= 1 && tl.i0 + W <= L) {",
+                                                 "  if (false) {")]),
+            # a plain launch, in place of the programmatic dependent one
+            ("whole kernel, plain launch", [
+                ("  attr[0].val.programmaticStreamSerializationAllowed = 1;\n  cudaLaunchConfig_t cfg",
+                 "  attr[0].val.programmaticStreamSerializationAllowed = 0;\n  cudaLaunchConfig_t cfg")]),
+            # 128 or 512 threads a CTA in place of 256
+            ("whole kernel, 128 threads", K5_THREADS(128)),
+            ("whole kernel, 512 threads", K5_THREADS(512)),
+            # an interior tile's frames straight from the staged samples
+            # (the pre-emphasis once a frame that reads a sample), no padded
+            # signal and one barrier fewer
+            ("whole kernel, interior frames from the staged samples", [(
+                "  padded_signal(xs, tl, rw, rw + R, sw, sz, noisy, tl.m, coeff, pad);\n",
+                "  if (noisy && tl.i0 >= 1 && tl.i0 + tl.W <= tl.L) {\n"
+                "    const float* z = rw + R;\n"
+                "    for (int n = tid; n < span; n += nt) {\n"
+                "      const float w = hw[n];\n"
+                "      for (int g = 0; g < tl.kept; ++g) {\n"
+                "        const int j = g * hop + n;\n"
+                "        const float cur = __fadd_rn(rw[sw + j + 1], __fmul_rn(tl.m, z[sz + j + 1]));\n"
+                "        const float prev = __fadd_rn(rw[sw + j], __fmul_rn(tl.m, z[sz + j]));\n"
+                "        out[(size_t)g * span + n] = __fmul_rn(__fsub_rn(cur, __fmul_rn(coeff, prev)), w);\n"
+                "      }\n"
+                "      for (int g = tl.kept; g < tl.rows; ++g) out[(size_t)g * span + n] = 0.0f;\n"
+                "    }\n"
+                "    return;\n"
+                "  }\n"
+                "  padded_signal(xs, tl, rw, rw + R, sw, sz, noisy, tl.m, coeff, pad);\n")]),
+        ],
+        "a thread an output element (the first design)": [
+            ("launch", [ret("  const int n = blockIdx.x * blockDim.x + threadIdx.x;\n")]),
+            # each thread's loads of its row's length and the geometry; the
+            # frames past the row's end written
+            ("row loads and zero frames", [ret("    *out = 0.0f;\n    return;\n  }\n")]),
+            # not a cut: the whole kernel with a window of ones, no cosf
+            # (its results are wrong)
+            ("whole kernel, no window cosf", [(
+                "      (k >= 0 && k < win) ? 0.5f - 0.5f * cosf(6.2831855f * (float)k / (float)win) : "
+                "0.0f;\n", "      (k >= 0 && k < win) ? 1.0f : 0.0f;\n")]),
+        ],
+    })],
+    "quantize": [("trim_merge", {
+        # a cut waits for the bulk copies still in flight before it returns,
+        # so that none lands in shared memory the CTA has left
+        "bulk copies at entry, ballot scans": [
+            ("launch", [ret("  const int n_chunks = tokens != nullptr ? 0 : (T + chunk - 1) / chunk;\n")]),
+            ("copies landed", [after(
+                "  __syncthreads();  // the copies' ends (and the given tokens) are in\n",
+                "  for (int k = 0; k < min(depth, n_chunks); ++k) mbar_wait(bar0 + 8 * k, 0);\n"
+                + B6_LATENT_WAIT + "  return;\n")]),
+            ("tokens", [after(
+                "      pshift[sl] = issue(k + depth);  // its ends are in by the next chunk's barrier\n"
+                "    }\n  }\n", B6_LATENT_WAIT + "  return;\n")]),
+            ("scans, slots and counts", [after(
+                "  __syncthreads();  // every slot's start is in\n", B6_LATENT_WAIT + "  return;\n")]),
+        ],
+        "a CTA a row, Hillis-Steele scans (the first design)": [
+            ("launch", [ret("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, "
+                            "nwarps = blockDim.x >> 5;\n")]),
+            ("tokens", [("  __syncthreads();\n  for (int t = tid; t < T; t += blockDim.x) acc[t] = (t == 0",
+                         "  __syncthreads();\n  return;\n"
+                         "  for (int t = tid; t < T; t += blockDim.x) acc[t] = (t == 0")]),
+            ("scans, slots and counts", [ret("  if (tid == 0) lengths[b] = n_kept;\n"
+                                             "  __syncthreads();\n")]),
+        ],
+    })],
     "griffin_lim": [("gl_ola_frame", {"tiled overlap-add (PR 3)": [
         ("overlap-add into shared memory",
          [ret("  ola_segment(fb, env, lo, hi - lo + 1, g, [&](int i, float v) { seg[i] = v; });\n"
@@ -726,6 +824,79 @@ def k6_calls(k6, dev):
     return {"ctc_alpha": alpha, "ctc_beta_grad": beta}
 
 
+# (B, S, path) of K5: the flagship step's augmented and clean framing (B=8 x
+# 3.0 s) and the 15.28 s utterance's, the longest of the corpus
+K5_SHAPES = ((8, 66150, "augmented"), (8, 66150, "clean"), (1, 336924, "augmented"),
+             (1, 336924, "clean"))
+
+
+def k5_calls(k5, dev, chip_smoke, tile=None):
+    """{"B=.. T=.. span=..": (kernel call, plain call)} of `stft_frames` at
+    `K5_SHAPES` and the flagship audio config: the augmented path at stretch
+    rate 1.0 with noise mixed in, the clean path at the static hop; works
+    with a tree whose wrapper does not take ``max_hop``. ``tile``: frames a
+    CTA in place of the plan's."""
+    import inspect
+
+    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
+    from semi_tts_tpu_torch.ops.stft import window_support
+
+    audio = chip_smoke.audio_config()
+    feat = AudioFeaturizer(audio, dev)
+    takes_max_hop = "max_hop" in inspect.signature(k5.stft_frames).parameters
+    # the hop at the highest stretch rate, as `AudioConfig.max_stretch_hop`
+    max_hop = int(audio.frame_shift_ms / 1000 * int(audio.sample_rate
+                                                      * max(audio.time_stretch_range)))
+    g = torch.Generator(device=dev).manual_seed(4)
+    calls = {}
+    for B_, S, path in K5_SHAPES:
+        waves = torch.from_numpy(chip_smoke.numpy_waves([S] * B_, S, seed=5)).to(dev)
+        lengths = torch.full((B_,), S, dtype=torch.int32, device=dev)
+        if path == "augmented":
+            kw = dict(n_fft=audio.n_fft, support=window_support(audio.n_fft, audio.max_stretch_win),
+                      num_frames=1 + S // audio.min_stretch_hop, clamp=True,
+                      coeff=audio.preemphasis_coeff, noise=torch.randn(B_, S, generator=g, device=dev),
+                      mix=torch.rand(B_, generator=g, device=dev) * 0.3)
+            geom, hop = feat.stretch_geometry(1.0, dev), max_hop
+        else:
+            kw = dict(n_fft=audio.n_fft, support=window_support(audio.n_fft, audio.win_length),
+                      num_frames=1 + S // audio.hop_length, clamp=False,
+                      coeff=audio.preemphasis_coeff)
+            geom, hop = feat._clean_geom, audio.hop_length
+        mine = dict(kw, max_hop=hop) if takes_max_hop else kw
+        if tile is not None:
+            mine["tile"] = tile
+        key = f"{path} B={B_} T={kw['num_frames']} span={kw['support'][1]}"
+        calls[key] = (lambda a=(waves, lengths, geom), k=mine: k5.stft_frames(*a, **k),
+                      lambda a=(waves, lengths, geom), k=kw: k5.stft_frames_plain(*a, **k))
+    return calls
+
+
+# (B, T) of B6: the flagship speech-first step and its 15.28 s utterance
+B6_SHAPES = ((8, 133), (1, 680))
+
+
+def b6_calls(b6, dev, chip_smoke):
+    """{"B=.. T=..": (kernel call, plain call)} of `trim_merge` at
+    `B6_SHAPES` (C=43, D=64, max_frames_per_phn 3), from `chip_smoke.py`'s
+    inputs."""
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    calls = {}
+    for B_, T in B6_SHAPES:
+        p, lat = chip_smoke._trim_merge_inputs(randn, dev, B_, T)
+        calls[f"B={B_} T={T}"] = (lambda p=p, lat=lat: b6.trim_merge(p, lat, 3),
+                                  lambda p=p, lat=lat: b6.trim_merge_plain(p, lat, 3))
+    return calls
+
+
+# frames a CTA that `stft_frames` is timed at beside its plan's
+K5_TILES = (1, 2, 3, 4, 5, 6, 7, 8)
+
+
 def k9_span_times(k9, calls, chip_smoke):
     """K9 at each of ``calls``' shapes with every span of `SPANS` in place of
     the plan's: {span: {shape: ms}}."""
@@ -751,6 +922,7 @@ def main(src_tree=None, only=None):
     import chip_smoke
     from semi_tts_tpu_torch import kernels, use_fp32
     from semi_tts_tpu_torch.kernels import attention as k9, build, ctc as k6
+    from semi_tts_tpu_torch.kernels import features as k5, quantize as b6
 
     chip_smoke.phase_device()
     use_fp32()
@@ -802,7 +974,9 @@ def main(src_tree=None, only=None):
     dev = torch.device("cuda")
     cases = {c["name"]: c for c in chip_smoke.kernel_cases(dev)}
     cases["attention_step_bwd"]["by_shape"] = k9_calls(k9, dev)
-    for name, calls in k6_calls(k6, dev).items():
+    by_shape = dict(k6_calls(k6, dev), stft_frames=k5_calls(k5, dev, chip_smoke),
+                    trim_merge=b6_calls(b6, dev, chip_smoke))
+    for name, calls in by_shape.items():
         cases[name]["by_shape"] = {n: f for n, (f, _) in calls.items()}
         cases[name]["shape_checks"] = list(calls.values())
 
@@ -825,6 +999,11 @@ def main(src_tree=None, only=None):
 
     result = {}
     with torch.no_grad():
+        if hasattr(k5, "frames_plan") and (not only or "features" in only):
+            result["stft_frames by tile"] = {
+                G: {n: chip_smoke.device_ms(f, 50)
+                    for n, (f, _) in k5_calls(k5, dev, chip_smoke, tile=G).items()}
+                for G in K5_TILES}
         if hasattr(k9, "SPANS") and (not only or "attention" in only):
             result["attention_step_bwd by span"] = k9_span_times(
                 k9, cases["attention_step_bwd"]["by_shape"], chip_smoke)
@@ -847,7 +1026,7 @@ def main(src_tree=None, only=None):
 # the kernels whose device time a profiled step picks out: K6 (either
 # design's kernel names) in the ASR step, K9 in the others
 PICKED = {"asr": ("ctc_alpha", "ctc_beta", "ctc_grad"), "paired": ("attention_bwd",),
-          "speech_first": ("attention_bwd",)}
+          "speech_first": ("attention_bwd", "stft_frames_kernel", "trim_merge_kernel")}
 
 
 def step_busy(tree, kind):

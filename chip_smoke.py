@@ -22,7 +22,11 @@ Phases, each fatal on failure:
    held to the plain version and timed after phase 7, ``shapes_seen``), K6's
    time a step (``us_per_step``) and `ctc_plan` at each shape (``plans``), for
    K3 its cluster size (``cluster``), for K4 ``gl_ola_frame`` its time by
-   output frames per CTA (``ms_by_tile``) and the default tile (``tile``);
+   output frames per CTA (``ms_by_tile``) and the default tile (``tile``),
+   for K5 ``stft_frames`` and B6 ``trim_merge`` their time, plain time and
+   bound at the flagship and 15.28 s shapes (``ms_by_shape``, ...) and
+   their launch plans (``plans``), for K5 also its time by frames per CTA
+   (``ms_by_tile``) and a check on 49 rows of 15.28 s (66,591 frame rows);
    rows without a library yardstick say why in ``library``;
 4. serving at the flagship width of ``config/semi-multi-spkr-paired-data.yaml``:
    a seeded random model written with the port's ``save_checkpoint``, loaded with
@@ -471,47 +475,94 @@ def numpy_waves(lengths, S, seed):
 RAGGED = (66150, 60001, 51234, 40000, 33333, 22050, 15000, 11025)  # down to 0.5 s
 
 
+# (B, S, path) of K5 timed by shape: the flagship step's augmented and clean
+# framing (B=8 x 3.0 s) and the 15.28 s utterance's
+K5_SHAPES = ((TRAIN_B, TRAIN_S, "augmented"), (TRAIN_B, TRAIN_S, "clean"),
+             (1, 336924, "augmented"), (1, 336924, "clean"))
+K5_WIDE_B = 49  # rows of 15.28 s, augmented: 66,591 frame rows, past grid.y's 65,535
+
+
+def _k5_call(k5, feat, audio, randn, dev, B_, S, path, lengths=None, rate=1.0, seed=5,
+             tile=None):
+    """`stft_frames` on B_ seeded rows of S samples, the augmented path at
+    ``rate`` with noise mixed in or the clean path: {"kernel", "plain",
+    "plain_timed" (calls), "cost" (bytes, FLOPs), "key", "plan"
+    (`frames_plan`)}. "plain_timed" frames the clean path at the tensor hop
+    (``clamp=True``), which a CUDA graph can capture (the static hop reads
+    it to the host) and which gives the same frames, as its check holds."""
+    from semi_tts_tpu_torch.ops.stft import window_support
+
+    waves = torch.from_numpy(numpy_waves([S] * B_, S, seed=seed)).to(dev)
+    if lengths is None:
+        lengths = torch.full((B_,), S, dtype=torch.int32, device=dev)
+    aug = path == "augmented"
+    if aug:
+        kw = dict(n_fft=audio.n_fft, support=window_support(audio.n_fft, audio.max_stretch_win),
+                  num_frames=1 + S // audio.min_stretch_hop, clamp=True,
+                  coeff=audio.preemphasis_coeff, noise=randn(B_, S),
+                  mix=torch.rand(B_, device=dev) * 0.3)
+        geom, max_hop = feat.stretch_geometry(rate, dev), audio.max_stretch_hop
+    else:
+        kw = dict(n_fft=audio.n_fft, support=window_support(audio.n_fft, audio.win_length),
+                  num_frames=1 + S // audio.hop_length, clamp=False, coeff=audio.preemphasis_coeff)
+        geom, max_hop = feat._clean_geom, audio.hop_length
+    T, span = kw["num_frames"], kw["support"][1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return dict(kernel=lambda: k5.stft_frames(waves, lengths, geom, max_hop=max_hop, tile=tile,
+                                              **kw),
+                plain=lambda: k5.stft_frames_plain(waves, lengths, geom, **kw),
+                plain_timed=lambda: k5.stft_frames_plain(waves, lengths, geom,
+                                                         **dict(kw, clamp=True)),
+                cost=(4 * (B_ * T * span + (2 if aug else 1) * B_ * S), 6 * B_ * T * span),
+                key=f"{path} B={B_} T={T} span={span}",
+                plan=k5.frames_plan(B_, T, span, max_hop, noise=aug, sms=sms, tile=tile))
+
+
 def _case_stft_frames(randn, unif, dev):
     """K5a at the train step's augmented shapes (stretch rate 1.0, noise
     mixed in): (8, 66150) -> frames (8, 267, 1212). Also checked on the
     clean path (hop 275, window 1102, frames (8, 241, 1102)) at full and
-    ragged lengths down to 0.5 s, and augmented at rates 0.9 and 1.1 on
-    ragged lengths."""
+    ragged lengths down to 0.5 s, augmented at rates 0.9 and 1.1 on ragged
+    lengths, and on `K5_WIDE_B` rows of 15.28 s (66,591 frame rows). Timed
+    at every shape of `K5_SHAPES` (``ms_by_shape``, ``plain_ms_by_shape``,
+    ``bound_ms_by_shape``; ``plans``: `frames_plan` at each) and, at the
+    main shape, at every tile of `FRAMES_TILES` (``ms_by_tile``)."""
     from semi_tts_tpu_torch.kernels import features as k5
     from semi_tts_tpu_torch.ops.features import AudioFeaturizer
-    from semi_tts_tpu_torch.ops.stft import window_support
 
     audio = audio_config()
     feat = AudioFeaturizer(audio, dev)
-    S, n_fft = TRAIN_S, audio.n_fft
-    waves = torch.from_numpy(numpy_waves([S] * TRAIN_B, S, seed=5)).to(dev)
-    full = torch.full((TRAIN_B,), S, dtype=torch.int32, device=dev)
+    S = TRAIN_S
     ragged = torch.tensor(RAGGED, dtype=torch.int32, device=dev)
-    noise = randn(TRAIN_B, S)
-    mix = torch.rand(TRAIN_B, device=dev) * 0.3
-    T_aug = 1 + S // audio.min_stretch_hop
-    aug = dict(n_fft=n_fft, support=window_support(n_fft, audio.max_stretch_win), num_frames=T_aug,
-               clamp=True, coeff=audio.preemphasis_coeff, noise=noise, mix=mix)
-    clean = dict(n_fft=n_fft, support=window_support(n_fft, audio.win_length),
-                 num_frames=1 + S // audio.hop_length, clamp=False, coeff=audio.preemphasis_coeff)
-    calls = [(full, feat.stretch_geometry(1.0, dev), aug)]
-    calls += [(L, feat._clean_geom, clean) for L in (full, ragged)]
-    calls += [(ragged, feat.stretch_geometry(r, dev), aug) for r in (0.9, 1.1)]
-    checks = [(lambda c=c: k5.stft_frames(waves, c[0], c[1], **c[2]),
-               lambda c=c: k5.stft_frames_plain(waves, c[0], c[1], **c[2])) for c in calls]
-    main = calls[0]
-    span = aug["support"][1]
+
+    def call(*a, **k):
+        return _k5_call(k5, feat, audio, randn, dev, *a, **k)
+
+    main = call(TRAIN_B, S, "augmented")
+    checks = [call(TRAIN_B, S, "clean"), call(TRAIN_B, S, "clean", lengths=ragged)]
+    checks += [call(TRAIN_B, S, "augmented", lengths=ragged, rate=r) for r in (0.9, 1.1)]
+    wide = call(K5_WIDE_B, 336924, "augmented", rate=1.1, seed=6)
+    by_shape = {c["key"]: c for c in (call(*sh) for sh in K5_SHAPES)}
+    tiled = {G: call(TRAIN_B, S, "augmented", tile=G)["kernel"] for G in k5.FRAMES_TILES}
     return dict(
         name="stft_frames", replaces="semi_tts_tpu/ops/features.py:183 (_augment_impl: noise, "
         "pre-emphasis, reflect_pad_ragged, framing scan, dynamic_hann_window) and :158 "
         "(featurize: ops/stft.py:297 stft_magnitude framing)",
-        source="semi_tts_tpu_torch/csrc/features.cu",
-        shapes=f"waves ({TRAIN_B},{S}) + noise -> frames ({TRAIN_B},{T_aug},{span})",
-        kernel=checks[0][0], plain=checks[0][1], checks=checks[1:],
+        source="semi_tts_tpu_torch/csrc/features.cu", shapes=f"waves ({TRAIN_B},{S}) + noise -> "
+        f"frames ({TRAIN_B},{1 + S // audio.min_stretch_hop},{audio.max_stretch_win})",
+        kernel=main["kernel"], plain=main["plain"],
+        checks=[(c["kernel"], c["plain"]) for c in checks + [wide]]
+        + [(c["plain_timed"], c["plain"]) for c in by_shape.values()],
         library=None, library_note="none per kernel: the featurizer line sets the whole "
         "featurizer beside torch.stft + abs + the mel GEMM", tol=1e-4,
-        nbytes=4 * (TRAIN_B * T_aug * span + 2 * TRAIN_B * S), flops=6 * TRAIN_B * T_aug * span,
-        iters=50, extra={"hop_win": main[1].tolist()})
+        nbytes=main["cost"][0], flops=main["cost"][1], iters=50,
+        timed={k: c["kernel"] for k, c in by_shape.items()},
+        timed_plain={k: c["plain_timed"] for k, c in by_shape.items()},
+        tiles=lambda G: tiled[G](), tile_options=tuple(k5.FRAMES_TILES),
+        extra={"hop_win": feat.stretch_geometry(1.0, dev).tolist(), "tile": main["plan"]["tile"],
+               "bound_ms_by_shape": {k: bound(*c["cost"])[0] for k, c in by_shape.items()},
+               "plans": {k: c["plan"] for k, c in by_shape.items()},
+               "wide_check": f"{wide['key']}: {wide['plan']['grid']} CTAs"})
 
 
 def _case_spec_db(randn, unif, dev):
@@ -986,7 +1037,10 @@ def _case_trim_merge(randn, unif, dev):
     runs longer than max_frames_per_phn and with exact ties. The checks
     compare the trimmed latents, the lengths, the per-frame slots and
     counts, and ``ok``; the timed calls are the kernel and its plain version
-    alone."""
+    alone, also at every shape of `B6_SHAPES` (``ms_by_shape``,
+    ``plain_ms_by_shape``, ``bound_ms_by_shape``; ``plans``:
+    `trim_merge_plan` at each). T=1,500 takes p_code through a ring of two
+    chunks."""
     from semi_tts_tpu_torch.kernels import quantize as b6
 
     B_, T, C, D_ = TRAIN_B, 133, 43, 64
@@ -1001,7 +1055,9 @@ def _case_trim_merge(randn, unif, dev):
     cases = [_trim_merge_inputs(randn, dev, 3, 1), _trim_merge_inputs(randn, dev, 2, 680),
              _trim_merge_inputs(randn, dev, 3, 50, blank_row=True),
              _trim_merge_inputs(randn, dev, 5, 60, long_runs=True),
-             _trim_merge_inputs(randn, dev, 2, 40, ties=True)]
+             _trim_merge_inputs(randn, dev, 2, 40, ties=True),
+             _trim_merge_inputs(randn, dev, 2, 1500, long_runs=True)]  # a ring of two chunks
+    by_shape = {f"B={b} T={t}": _trim_merge_inputs(randn, dev, b, t) for b, t in B6_SHAPES}
     return dict(
         name="trim_merge", replaces="semi_tts_tpu/ops/quantize.py:26 (trim_merge_segments: "
         "argmax, segment-id scan, segment_sum means, cumsum compaction)",
@@ -1010,8 +1066,22 @@ def _case_trim_merge(randn, unif, dev):
         kernel=lambda: b6.trim_merge(p, lat, 3), plain=lambda: b6.trim_merge_plain(p, lat, 3),
         checks=[pair(*c) for c in [(p, lat)] + cases],
         library=None, library_note=NO_LIBRARY, tol=1e-6,
-        nbytes=4 * (B_ * T * C + 2 * B_ * T * D_ + B_ + 2 * B_ * T),
-        flops=B_ * T * (C + D_), iters=200)
+        nbytes=_trim_merge_cost(B_, T, C, D_)[0], flops=_trim_merge_cost(B_, T, C, D_)[1],
+        iters=200, timed={k: lambda a=a: b6.trim_merge(*a, 3) for k, a in by_shape.items()},
+        timed_plain={k: lambda a=a: b6.trim_merge_plain(*a, 3) for k, a in by_shape.items()},
+        extra={"bound_ms_by_shape": {f"B={b} T={t}": bound(*_trim_merge_cost(b, t, C, D_))[0]
+                                     for b, t in B6_SHAPES},
+               "plans": {f"B={b} T={t}": b6.trim_merge_plan(t, C, D_) for b, t in B6_SHAPES}})
+
+
+# (B, T) of B6 timed by shape: the flagship speech-first step's unpaired rows
+# and the 15.28 s utterance's
+B6_SHAPES = ((TRAIN_B, 133), (1, 680))
+
+
+def _trim_merge_cost(B_, T, C, D_):
+    """B6's bytes (p_code, latent and trimmed, lengths, slots and counts) and FLOPs."""
+    return 4 * (B_ * T * C + 2 * B_ * T * D_ + B_ + 2 * B_ * T), B_ * T * (C + D_)
 
 
 def _case_trim_merge_bwd(randn, unif, dev):
@@ -1766,7 +1836,8 @@ SPEECH_FIRST, TEXT_FIRST = "speech_first", "text_first"
 CYCLE_KERNELS = ("trim_merge", "trim_merge_bwd")
 # K1 with cell states, K7, K2, K8, K3, K9, K5, K6 and, in the speech-first step, B6
 STEP_KERNELS = {SPEECH_FIRST: PAIRED_STEP_KERNELS + CYCLE_KERNELS, TEXT_FIRST: PAIRED_STEP_KERNELS}
-OWN_KERNELS = ("trim_merge_kernel", "trim_merge_bwd_kernel", "attention_bwd")
+OWN_KERNELS = ("trim_merge_kernel", "trim_merge_bwd_kernel", "attention_bwd",
+               "stft_frames_kernel")
 
 
 def phase_cycles(dev):

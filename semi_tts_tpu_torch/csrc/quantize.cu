@@ -17,47 +17,126 @@
 //
 // What bounds it on an H100: neither bytes nor operations. At the flagship
 // speech-first step (p_code (8, 133, 43), latent (8, 133, 64)) it moves
-// ~0.73 MB, ~0.2 us of HBM time; a launch costs more. So the design is the
-// simple one: one CTA per batch row, each phase a short loop between block
-// barriers.
-// - Tokens: a warp per frame, lanes over the classes; the first maximum wins
-//   ties, and NaN counts as the maximum, as jnp.argmax.
-// - Segment starts without the scan's carry: a max-scan of the frames where
-//   the token changes gives each frame its run's start, and a frame starts a
-//   segment where (t - run_start) % (max_frames_per_phn + 1) == 0 (the JAX
-//   scan's `last_pos` resets at each boundary, so a run is cut every
-//   max_frames_per_phn + 1 frames). A sum-scan of the kept starts (token not
-//   0) gives each kept segment its output slot. A segment is at most
-//   max_frames_per_phn + 1 frames long, so a frame finds its segment's
-//   bounds by walking to the neighbouring starts.
-// - Means: a thread per (slot, d), the segment's frames summed in time order
-//   and divided by the count, as `segment_sum` then the division.
+// ~0.74 MB, ~0.22 us of HBM time; what is left is latency: one CTA a batch
+// row, each phase waiting on the one before. So the design takes global
+// memory off that chain, and keeps few barriers on it.
+// - Entry: thread 0 starts bulk copies (cp.async.bulk, completing an
+//   mbarrier) of the row's p_code into shared memory, in a ring of two
+//   chunks of frames where the row does not fit in one, and of the row's
+//   latent where it fits beside p_code (else an L2 prefetch of it,
+//   cp.async.bulk.prefetch.L2). A copy's unaligned ends (at most 3 floats
+//   each side) are loaded by threads. Tokens given in place of p_code are
+//   read straight into shared memory.
+// - Tokens: a thread per frame, the classes from shared memory; the first
+//   maximum wins ties, and NaN counts as the maximum, as jnp.argmax.
+// - Scans, in chunks of blockDim frames, a thread a frame: a frame's run
+//   start is the last change point at or before it (the warp's by
+//   __ballot_sync and __clz, earlier warps' and chunks' by a carry: one
+//   barrier); a frame starts a segment where (t - run_start) %
+//   (max_frames_per_phn + 1) == 0 (the JAX scan's `last_pos` resets at each
+//   boundary, so a run is cut every max_frames_per_phn + 1 frames); the
+//   kept segments (token not 0) before a frame by __ballot_sync and
+//   __popc, carried the same way (a second barrier). A segment ends at the
+//   next change point or max_frames_per_phn + 1 frames after its start,
+//   found by walking the tokens (at most max_frames_per_phn steps).
+// - Means: a warp an output row, lanes over D (float2 when D is even), the
+//   segment's start and frame count kept by the scans, its rows summed in
+//   time order and divided by the count, as `segment_sum` then the
+//   division; rows past the kept count are zero.
 // The backward is a gather: d_latent[b, t] = d_trimmed[b, slot[t]] /
 // count[t] on kept frames, 0 elsewhere; one thread per element, no atomics.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // trim_merge_bwd
+constexpr int kMaxThreads = 1024;   // trim_merge
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
+constexpr int kHeader = 16 * 32;    // 3 mbarriers (32 bytes), two warp arrays of 32 ints
 
-struct Max {
-  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
-};
-struct Add {
-  __device__ int operator()(int a, int b) const { return a + b; }
-};
+__host__ __device__ constexpr long long round4(long long n) { return (n + 3) & ~3LL; }
 
-// Inclusive scan of a[0, T) in place (Hillis-Steele, scratch tmp of T ints).
-template <class Op>
-__device__ void block_scan(int* a, int* tmp, int T, Op op) {
-  for (int off = 1; off < T; off <<= 1) {
-    for (int t = threadIdx.x; t < T; t += blockDim.x) tmp[t] = t >= off ? op(a[t - off], a[t]) : a[t];
-    __syncthreads();
-    for (int t = threadIdx.x; t < T; t += blockDim.x) a[t] = tmp[t];
-    __syncthreads();
+// The plan's shared memory in bytes: the header, tokens, slot starts and
+// slot frame counts (T ints each), the p_code ring (`depth` slots of
+// `chunk` frames of C floats, 8 floats of slack each for the alignment
+// shift) and the staged latent.
+__host__ __device__ constexpr long long trim_smem_bytes(int T, int C, int D, int chunk, int depth,
+                                                        int stage_latent) {
+  return kHeader + 4 * (3 * round4(T) + depth * round4((long long)chunk * C + 8) +
+                        (stage_latent ? round4((long long)T * D + 8) : 0));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, 1000000;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of parity `parity` of the mbarrier has completed; a
+// wait of more than 2 s traps, so a lost copy fails the launch instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 2000000000ull) __trap();
+}
+
+// dst[shift + k] = src[k] for k in [0, n), shift (returned) putting dst at
+// src's alignment mod 16 bytes: thread 0 bulk-copies the 16-byte aligned
+// interior, completing `bar` (armed for its bytes, or for none); threads
+// 0..7 load the ends. Nothing outside src[0, n) is read. The caller
+// synchronizes the block before it reads the ends.
+__device__ __forceinline__ int bulk_stage(float* dst, const float* src, int n, unsigned bar) {
+  const int shift = (int)(((uintptr_t)src & 15) >> 2);
+  const int head = min(n, (4 - shift) & 3);  // floats before the first aligned one
+  const int body = (n - head) & ~3;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_expect_tx(bar, 4u * body);
+    if (body > 0)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];\n" ::"r"(smem_addr(dst + shift + head)),
+          "l"(src + head), "r"(4 * body), "r"(bar)
+          : "memory");
   }
+  if (tid < 4) {
+    if (tid < head) dst[shift + tid] = src[tid];
+  } else if (tid < 8) {
+    const int k = head + body + tid - 4;
+    if (k < n) dst[shift + k] = src[k];
+  }
+  return shift;
 }
 
 // x beats the current best (value, index): larger, or NaN over a number.
@@ -65,72 +144,185 @@ __device__ __forceinline__ bool beats(float x, float best) {
   return (isnan(x) && !isnan(best)) || x > best;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The end of the segment [s, .) that holds frame t, the frames' tokens in tok.
+__device__ __forceinline__ int segment_end(const int* tok, int s, int t, int T, int m1) {
+  const int tk = tok[t];
+  int e = t + 1;
+  while (e < s + m1 && e < T && tok[e] == tk) ++e;
+  return e;
+}
+
+// Sum over the warp of v, lanes below `upto` only; every lane gets it.
+__device__ __forceinline__ int warp_sum_below(int v, int lane, int upto) {
+  v = lane < upto ? v : 0;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ int warp_max_below(int v, int lane, int upto) {
+  v = lane < upto ? v : -1;
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Output row j: the mean of the kept segment j, or zeros; V floats a lane.
+template <int V>
+__device__ __forceinline__ void mean_row(const float* x, float* o, const int* sstart,
+                                         const int* scnt, int j, int n_kept, int D, int lane) {
+  if (j >= n_kept) {
+    for (int d = V * lane; d < D; d += 32 * V) {
+      if (V == 2) *reinterpret_cast<float2*>(o + d) = make_float2(0.0f, 0.0f);
+      else o[d] = 0.0f;
+    }
+    return;
+  }
+  const int s = sstart[j], e = s + scnt[j];
+  const float cnt = (float)(e - s);
+  for (int d = V * lane; d < D; d += 32 * V) {
+    if (V == 2) {
+      float2 v = make_float2(0.0f, 0.0f);
+      for (int t = s; t < e; ++t) {
+        const float2 a = *reinterpret_cast<const float2*>(x + (size_t)t * D + d);
+        v.x += a.x;
+        v.y += a.y;
+      }
+      *reinterpret_cast<float2*>(o + d) = make_float2(v.x / cnt, v.y / cnt);
+    } else {
+      float v = 0.0f;
+      for (int t = s; t < e; ++t) v += x[(size_t)t * D + d];
+      o[d] = v / cnt;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
 trim_merge_kernel(const float* __restrict__ p_code, const int* __restrict__ tokens,
                   const float* __restrict__ latent, float* __restrict__ out,
                   int* __restrict__ lengths, int* __restrict__ slot, float* __restrict__ count,
-                  int T, int C, int D, int max_frames) {
-  extern __shared__ int sm[];
-  int* tok = sm;           // (T) the frame's token
-  int* acc = tok + T;      // (T) run starts, then the count of kept starts so far
-  int* start = acc + T;    // (T) 1 where a segment starts
-  int* tmp = start + T;    // (T) scan scratch, then the start frame of each slot
+                  int T, int C, int D, int max_frames, int chunk, int depth, int stage_latent) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const unsigned bar0 = smem_addr(smem);             // p_code ring slots 0, 1; the latent: 2
+  int* wlast = reinterpret_cast<int*>(smem + 32);     // (32) a warp's last change point
+  int* wkept = wlast + 32;                            // (32) a warp's kept segment starts
+  int* tok = reinterpret_cast<int*>(smem + kHeader);  // (T) the frame's token
+  int* sstart = tok + round4(T);                      // (T) the start frame of each kept slot
+  int* scnt = sstart + round4(T);                     // (T) ... and its frame count
+  float* ring = reinterpret_cast<float*>(scnt + round4(T));
+  const int ring_slot = (int)round4((long long)chunk * C + 8);
+  float* lat_s = ring + depth * ring_slot;            // (T * D + 8) the staged latent
   const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nt = blockDim.x;
+  const int nwarps = nt >> 5, m1 = max_frames + 1;
+  const float* p_row = p_code + (size_t)b * T * C;
+  const float* x_row = latent + (size_t)b * T * D;
+  const int n_chunks = tokens != nullptr ? 0 : (T + chunk - 1) / chunk;
 
-  if (tokens != nullptr) {
-    for (int t = tid; t < T; t += blockDim.x) tok[t] = tokens[(size_t)b * T + t];
-  } else {
-    for (int t = warp; t < T; t += nwarps) {
-      const float* p = p_code + ((size_t)b * T + t) * C;
-      float best = lane < C ? p[lane] : -INFINITY;
-      int bi = lane < C ? lane : C;
-      for (int c = lane + 32; c < C; c += 32) {
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar0 + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // entry: every copy the row needs is started before any phase waits
+  auto issue = [&](int k) {  // p_code chunk k into ring slot k % depth
+    const int f0 = k * chunk, nf = min(chunk, T - f0);
+    return bulk_stage(ring + (k % depth) * ring_slot, p_row + (size_t)f0 * C, nf * C,
+                      bar0 + 8 * (k % depth));
+  };
+  int pshift[2] = {0, 0};
+  for (int k = 0; k < min(depth, n_chunks); ++k) pshift[k] = issue(k);
+  int lshift = 0;
+  if (stage_latent) {
+    lshift = bulk_stage(lat_s, x_row, T * D, bar0 + 16);
+  } else if (tid == 0) {  // the aligned interior of the row's latent, into L2
+    const float* a = reinterpret_cast<const float*>(((uintptr_t)x_row + 15) & ~(uintptr_t)15);
+    const long long n = ((long long)T * D - (a - x_row)) & ~3LL;
+    for (long long i = 0; i < n; i += 8192)  // 32 KB a prefetch
+      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(a + i),
+                   "r"((unsigned)(4 * min(n - i, 8192LL)))
+                   : "memory");
+  }
+  if (tokens != nullptr)
+    for (int t = tid; t < T; t += nt) tok[t] = tokens[(size_t)b * T + t];
+  __syncthreads();  // the copies' ends (and the given tokens) are in
+
+  // tokens: a thread a frame of each chunk, the chunk's classes in the ring
+  for (int k = 0; k < n_chunks; ++k) {
+    const int sl = k % depth, f0 = k * chunk, nf = min(chunk, T - f0);
+    mbar_wait(bar0 + 8 * sl, (k / depth) & 1);
+    const float* pc = ring + sl * ring_slot + pshift[sl];
+    for (int f = tid; f < nf; f += nt) {
+      const float* p = pc + (size_t)f * C;
+      float best = p[0];
+      int bi = 0;
+#pragma unroll 8
+      for (int c = 1; c < C; ++c) {
         const float x = p[c];
-        if (beats(x, best)) { best = x; bi = c; }
+        if (beats(x, best)) {
+          best = x;
+          bi = c;
+        }
       }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-        const bool tie = ob == best || (isnan(ob) && isnan(best));
-        if (beats(ob, best) || (tie && oi < bi)) { best = ob; bi = oi; }
-      }
-      if (lane == 0) tok[t] = bi;
+      tok[f0 + f] = bi;
+    }
+    __syncthreads();  // slot sl is read; chunk k's tokens are in
+    if (k + depth < n_chunks) {
+      pshift[sl] = issue(k + depth);  // its ends are in by the next chunk's barrier
     }
   }
-  __syncthreads();
-  for (int t = tid; t < T; t += blockDim.x) acc[t] = (t == 0 || tok[t] != tok[t - 1]) ? t : 0;
-  __syncthreads();
-  block_scan(acc, tmp, T, Max());  // acc[t]: the start of t's run
-  for (int t = tid; t < T; t += blockDim.x) start[t] = (t - acc[t]) % (max_frames + 1) == 0;
-  __syncthreads();
-  for (int t = tid; t < T; t += blockDim.x) acc[t] = start[t] && tok[t] != 0;
-  __syncthreads();
-  block_scan(acc, tmp, T, Add());  // acc[t]: kept segments starting at or before t
-  const int n_kept = acc[T - 1];
-  for (int t = tid; t < T; t += blockDim.x) {
-    int s = t, e = t + 1;
-    while (!start[s]) --s;
-    while (e < T && !start[e]) ++e;
-    const bool kept = tok[t] != 0;
-    slot[(size_t)b * T + t] = kept ? acc[t] - 1 : -1;
-    count[(size_t)b * T + t] = (float)(e - s);
-    if (kept && s == t) tmp[acc[t] - 1] = t;
+
+  // scans: a thread a frame, in chunks of nt frames, carried across warps and chunks
+  const unsigned le = lane == 31 ? 0xffffffffu : (2u << lane) - 1u;  // lanes at or below
+  int run_carry = 0, kept_carry = 0;
+  for (int c0 = 0; c0 < T; c0 += nt) {
+    const int t = c0 + tid, w0 = c0 + 32 * warp;
+    const bool in = t < T;
+    const int tk = in ? tok[t] : 0;
+    const bool chg = in && (t == 0 || tk != tok[t - 1]);
+    const unsigned cm = __ballot_sync(0xffffffffu, chg);
+    if (lane == 0) wlast[warp] = cm ? w0 + 31 - __clz(cm) : -1;
+    __syncthreads();
+    const unsigned mine = cm & le;
+    const int wl = wlast[lane < nwarps ? lane : 0];
+    const int earlier = max(run_carry, warp_max_below(wl, lane, warp));  // whole warp shuffles
+    const int run = mine ? w0 + 31 - __clz(mine) : earlier;
+    run_carry = max(run_carry, warp_max_below(wl, lane, nwarps));
+    const int pos = t - run;
+    const bool st = in && pos % m1 == 0;
+    const bool ks = st && tk != 0;
+    const unsigned km = __ballot_sync(0xffffffffu, ks);
+    if (lane == 0) wkept[warp] = __popc(km);
+    __syncthreads();
+    const int wk = wkept[lane < nwarps ? lane : 0];
+    const int before = kept_carry + warp_sum_below(wk, lane, warp) +
+                       __popc(km & le);  // kept segments starting at or before t
+    kept_carry += warp_sum_below(wk, lane, nwarps);
+    if (in) {
+      const int s = t - pos % m1, n = segment_end(tok, s, t, T, m1) - s;
+      slot[(size_t)b * T + t] = tk != 0 ? before - 1 : -1;
+      count[(size_t)b * T + t] = (float)n;
+      if (ks) {
+        sstart[before - 1] = t;
+        scnt[before - 1] = n;
+      }
+    }
   }
+  const int n_kept = kept_carry;
   if (tid == 0) lengths[b] = n_kept;
-  __syncthreads();
-  for (int i = tid; i < T * D; i += blockDim.x) {
-    const int j = i / D, d = i - j * D;
-    float v = 0.0f;
-    if (j < n_kept) {
-      const int s = tmp[j];
-      int e = s + 1;
-      while (e < T && !start[e]) ++e;
-      const float* x = latent + ((size_t)b * T + s) * D + d;
-      for (int t = s; t < e; ++t) v += x[(size_t)(t - s) * D];
-      v = v / (float)(e - s);
-    }
-    out[(size_t)b * T * D + i] = v;
+  __syncthreads();  // every slot's start is in
+
+  // means: a warp an output row
+  const float* x = x_row;
+  if (stage_latent) {
+    mbar_wait(bar0 + 16, 0);
+    x = lat_s + lshift;
+  }
+  float* o_row = out + (size_t)b * T * D;
+  if ((D & 1) == 0 && (((uintptr_t)x | (uintptr_t)o_row) & 7) == 0) {
+    for (int j = warp; j < T; j += nwarps)
+      mean_row<2>(x, o_row + (size_t)j * D, sstart, scnt, j, n_kept, D, lane);
+  } else {
+    for (int j = warp; j < T; j += nwarps)
+      mean_row<1>(x, o_row + (size_t)j * D, sstart, scnt, j, n_kept, D, lane);
   }
 }
 
@@ -150,20 +342,29 @@ __global__ void trim_merge_bwd_kernel(const float* __restrict__ d_out,
 }  // namespace
 
 // trimmed (B, T, D), lengths (B), slot (B, T), count (B, T); `tokens` null
-// to take the argmax of `p_code`, else `p_code` is not read.
+// to take the argmax of `p_code`, else `p_code` is not read. The plan
+// (`trim_merge_plan` in kernels/quantize.py): `threads`, the p_code ring's
+// `chunk` frames and `depth` slots (0 with tokens), `stage_latent`, and
+// `smem_bytes` as `trim_smem_bytes` gives them.
 extern "C" int trim_merge_f32(const float* p_code, const int* tokens, const float* latent,
                               float* out, int* lengths, int* slot, float* count, int B, int T,
-                              int C, int D, int max_frames, void* stream) {
-  if (B < 1 || T < 1 || C < 1 || D < 1 || max_frames < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)4 * T * sizeof(int);
-  cudaError_t err;
+                              int C, int D, int max_frames, int threads, int chunk, int depth,
+                              int stage_latent, int smem_bytes, void* stream) {
+  if (B < 1 || T < 1 || C < 1 || D < 1 || max_frames < 0 || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 || depth < 0 || depth > 2 ||
+      (tokens == nullptr) != (depth > 0) || (depth > 0 && chunk < 1) ||
+      (depth == 1 && chunk < T) || (long long)T * (C > D ? C : D) > 0x3fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = trim_smem_bytes(T, C, D, depth > 0 ? chunk : 0, depth, stage_latent);
+  if (smem != smem_bytes || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(trim_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        trim_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  trim_merge_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      p_code, tokens, latent, out, lengths, slot, count, T, C, D, max_frames);
+  trim_merge_kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
+      p_code, tokens, latent, out, lengths, slot, count, T, C, D, max_frames,
+      depth > 0 ? chunk : 1, depth, stage_latent);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
 """B6 `trim_merge` and `trim_merge_bwd` (`csrc/quantize.cu`): the unpaired
 speech cycle's segment trim/merge (`semi_tts_tpu/ops/quantize.py`
-`trim_merge_segments`) and its backward, one CTA per batch row.
+`trim_merge_segments`) and its backward, one CTA per batch row
+(`trim_merge_plan`: the row's p_code and latent bulk-copied into shared
+memory at entry, warp-ballot scans carried across warps and chunks).
 
 `trim_merge` takes each frame's argmax token (or the ``tokens`` given),
 cuts the frames into segments where the token changes or a run grows past
@@ -18,7 +20,49 @@ import torch
 
 from . import build
 
-MAX_FRAMES = build.SMEM_PER_BLOCK // 16  # T a CTA holds: four ints a frame in shared memory
+MAX_FRAMES = 14_528     # T a CTA takes (README's launch-plan limit)
+TRIM_THREADS = 1024
+_HEADER = 512           # bytes: 3 mbarriers, two warp arrays of 32 ints
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _trim_smem(T: int, C: int, D: int, chunk: int, depth: int, stage_latent: bool) -> int:
+    return _HEADER + 4 * (3 * _round4(T) + depth * _round4(chunk * C + 8)
+                          + (_round4(T * D + 8) if stage_latent else 0))
+
+
+def trim_merge_plan(T: int, C: int, D: int, *, tokens: bool = False) -> dict:
+    """`trim_merge`'s launch plan for rows of T frames, C classes and D
+    latent channels: ``threads`` a CTA (one CTA a row); the row's p_code in
+    shared memory as one slot of T frames (``depth`` 1) where it fits, else
+    a ring of two slots of ``chunk`` frames (``depth`` 2; ``depth`` 0 when
+    the tokens are given); ``stage_latent``: the row's latent in shared
+    memory too where it fits beside them, else read from L2; and
+    ``smem_bytes``: the header, tokens, slot starts and slot frame counts
+    (T ints each), the ring and the latent. The C dispatch recomputes it.
+    Raises ValueError past `MAX_FRAMES` frames, or where not one frame of
+    p_code fits."""
+    if not 1 <= T <= MAX_FRAMES:
+        raise ValueError(f"trim_merge kernel: T={T} frames, it takes 1 to {MAX_FRAMES}")
+    limit = build.SMEM_PER_BLOCK
+    if tokens:
+        chunk, depth = 0, 0
+    elif _trim_smem(T, C, D, T, 1, False) <= limit:
+        chunk, depth = T, 1
+    else:
+        free = limit - _trim_smem(T, C, D, 0, 0, False)
+        chunk, depth = (free // 8 - 8) // C, 2
+        while chunk > 0 and _trim_smem(T, C, D, chunk, 2, False) > limit:
+            chunk -= 1
+        if chunk < 1:
+            raise ValueError(f"trim_merge kernel: T={T} frames of C={C} classes: not one frame "
+                             f"of p_code fits in shared memory")
+    stage = _trim_smem(T, C, D, chunk, depth, True) <= limit
+    return dict(threads=TRIM_THREADS, chunk=chunk, depth=depth, stage_latent=stage,
+                smem_bytes=_trim_smem(T, C, D, chunk, depth, stage))
 
 
 def _tokens(p_code, tokens):
@@ -70,20 +114,20 @@ def trim_merge(p_code, latent, max_frames_per_phn: int, tokens=None):
     else:
         build.require_int(tokens, (B, T), "trim_merge tokens")
         C, p_ptr, tok_ptr = 1, None, tokens.data_ptr()
-    if T > MAX_FRAMES:
-        raise ValueError(f"trim_merge kernel: T={T} frames, it takes at most {MAX_FRAMES}")
     if max_frames_per_phn < 0:
         raise ValueError(f"trim_merge: max_frames_per_phn must be >= 0, got {max_frames_per_phn}")
+    plan = trim_merge_plan(T, C, D, tokens=tokens is not None)
     dev = latent.device
     out = torch.empty((B, T, D), device=dev, dtype=torch.float32)
     lengths = torch.empty((B,), device=dev, dtype=torch.int32)
     slot = torch.empty((B, T), device=dev, dtype=torch.int32)
     count = torch.empty((B, T), device=dev, dtype=torch.float32)
     if B:
-        fn = build.bind("quantize", "trim_merge_f32", 7, 5)
+        fn = build.bind("quantize", "trim_merge_f32", 7, 10)
         build.check(fn(p_ptr, tok_ptr, latent.data_ptr(), out.data_ptr(), lengths.data_ptr(),
                        slot.data_ptr(), count.data_ptr(), B, T, C, D, max_frames_per_phn,
-                       build.stream()), "trim_merge")
+                       plan["threads"], plan["chunk"], plan["depth"], int(plan["stage_latent"]),
+                       plan["smem_bytes"], build.stream()), "trim_merge")
         trim_merge.launches += 1
     return out, lengths, slot, count
 

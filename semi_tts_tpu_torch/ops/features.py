@@ -135,6 +135,13 @@ class AudioConfig:
         return int(self.frame_shift_ms / 1000 * sr_min)
 
     @property
+    def max_stretch_hop(self) -> int:
+        """Largest augmented hop (fewest frames), at the highest stretch
+        rate: the bound on the hop that sizes K5's staging buffers."""
+        sr_max = int(self.sample_rate * max(self.time_stretch_range))
+        return int(self.frame_shift_ms / 1000 * sr_max)
+
+    @property
     def max_stretch_win(self) -> int:
         """Largest augmented window, at the highest stretch rate; every
         smaller centred window's support nests inside its support."""
@@ -178,7 +185,8 @@ class AudioFeaturizer:
         frame_lengths = 1 + lengths // c.hop_length
         support = window_support(c.n_fft, c.win_length)
         frames = K5.stft_frames(waves, lengths, self._clean_geom, n_fft=c.n_fft, support=support,
-                                num_frames=T, clamp=False, coeff=c.preemphasis_coeff)
+                                num_frames=T, clamp=False, coeff=c.preemphasis_coeff,
+                                max_hop=c.hop_length)
         mel, lin = self._spectra(frames, frame_lengths, support, linear=True)
         return mel, lin, frame_lengths
 
@@ -213,7 +221,8 @@ class AudioFeaturizer:
         support = window_support(c.n_fft, c.max_stretch_win)
         frames = K5.stft_frames(waves, lengths, geom, n_fft=c.n_fft,
                                 support=support, num_frames=T_max, clamp=True,
-                                coeff=c.preemphasis_coeff, noise=noise, mix=mix)
+                                coeff=c.preemphasis_coeff, noise=noise, mix=mix,
+                                max_hop=c.max_stretch_hop)
         mel, _ = self._spectra(frames, frame_lengths, support, linear=False)
         return mel, frame_lengths
 

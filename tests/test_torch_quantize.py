@@ -136,3 +136,137 @@ def test_padded_concat_matches_jax(shapes):
     _, want = j_padded_concat(jnp.asarray(a), jnp.asarray(b))
     got = padded_concat(torch.from_numpy(a), torch.from_numpy(b))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------- B6 trim_merge: its launch plan and a replay of its scans ----------------
+
+@pytest.mark.parametrize("T", [1, 133, 680, 1000, 5000, 14_528])
+@pytest.mark.parametrize("tokens", [False, True])
+def test_trim_merge_plan_fits(T, tokens):
+    """Every T the kernel takes (up to `MAX_FRAMES`, as the first design's)
+    plans within the card's shared memory at the flagship's C=43 and D=64:
+    the row's p_code in one slot where it fits, else a ring of two."""
+    plan = B6.trim_merge_plan(T, 43, 64, tokens=tokens)
+    assert plan["smem_bytes"] <= 232_448 and plan["threads"] == 1024
+    if tokens:
+        assert plan["depth"] == 0
+    elif plan["depth"] == 1:
+        assert plan["chunk"] == T
+    else:
+        assert plan["depth"] == 2 and 1 <= plan["chunk"] < T
+    assert plan["stage_latent"] == (T <= 133 or (tokens and T <= 680))
+
+
+def test_trim_merge_plan_limits():
+    assert B6.trim_merge_plan(133, 43, 64)["depth"] == 1
+    assert B6.trim_merge_plan(14_528, 43, 64)["chunk"] == 167
+    with pytest.raises(ValueError, match="1 to 14528"):
+        B6.trim_merge_plan(14_529, 43, 64)
+    with pytest.raises(ValueError, match="not one frame"):
+        B6.trim_merge_plan(14_528, 20_000, 64)
+
+
+def _b6_replay(p_code, latent, max_f, *, threads, chunk):
+    """`trim_merge_kernel` in numpy: the argmax a chunk of `chunk` frames at a
+    time; the scans a chunk of `threads` frames at a time, each warp's run
+    starts and kept counts from its ballots, carried across warps and
+    chunks; the segment ends by walking the tokens; the means in time
+    order. Returns (trimmed, lengths, slot, count)."""
+    B, T, D = latent.shape
+    m1 = max_f + 1
+    out = np.zeros_like(latent)
+    lengths = np.zeros(B, np.int32)
+    slot = np.zeros((B, T), np.int32)
+    count = np.zeros((B, T), np.float32)
+    for b in range(B):
+        tok = np.zeros(T, np.int64)
+        for f0 in range(0, T, chunk):
+            tok[f0:f0 + chunk] = p_code[b, f0:f0 + chunk].argmax(-1)
+        sstart, scnt = [0] * T, [0] * T
+        run_carry = kept_carry = 0
+        for c0 in range(0, T, threads):
+            nw = threads // 32
+            t = c0 + np.arange(threads)
+            inn = t < T
+            tk = np.where(inn, tok[np.minimum(t, T - 1)], 0)
+            chg = inn & ((t == 0) | (tk != tok[np.maximum(np.minimum(t, T - 1) - 1, 0)]))
+            chg = chg.reshape(nw, 32)
+            wlast = [c0 + 32 * w + int(np.flatnonzero(chg[w])[-1]) if chg[w].any() else -1
+                     for w in range(nw)]
+            run = np.zeros(threads, np.int64)
+            for w in range(nw):
+                earlier = max([run_carry] + wlast[:w])
+                for lane in range(32):
+                    mine = np.flatnonzero(chg[w, :lane + 1])
+                    run[32 * w + lane] = c0 + 32 * w + mine[-1] if len(mine) else earlier
+            run_carry = max([run_carry] + wlast)
+            pos = t - run
+            ks = (inn & (pos % m1 == 0) & (tk != 0)).reshape(nw, 32)
+            wkept = ks.sum(1)
+            for w in range(nw):
+                for lane in range(32):
+                    i = 32 * w + lane
+                    if not inn[i]:
+                        continue
+                    before = kept_carry + int(wkept[:w].sum()) + int(ks[w, :lane + 1].sum())
+                    s = t[i] - pos[i] % m1
+                    e = t[i] + 1
+                    while e < s + m1 and e < T and tok[e] == tk[i]:
+                        e += 1
+                    slot[b, t[i]] = before - 1 if tk[i] != 0 else -1
+                    count[b, t[i]] = e - s
+                    if ks[w, lane]:
+                        sstart[before - 1], scnt[before - 1] = t[i], e - s
+            kept_carry += int(wkept.sum())
+        lengths[b] = kept_carry
+        for j in range(kept_carry):
+            v = np.zeros(D, np.float32)
+            for t_ in range(sstart[j], sstart[j] + scnt[j]):
+                v += latent[b, t_]
+            out[b, j] = v / np.float32(scnt[j])
+    return out, lengths, slot, count
+
+
+def _one_hot_runs(runs, C=6, D=5, seed=0):
+    """p_code of rows of (token, frames) runs, and a seeded latent."""
+    T = sum(n for _, n in runs[0])
+    p = np.full((len(runs), T, C), 0.01, np.float32)
+    for b, row in enumerate(runs):
+        t = 0
+        for tok, n in row:
+            p[b, t:t + n, tok] = 1.0
+            t += n
+    return p, np.random.RandomState(seed).randn(len(runs), T, D).astype(np.float32)
+
+
+# runs that cross the warp edges at frames 31, 32 and 33 and the chunk edge
+# at 64 (the replay's chunk of 64 frames), some longer than max_frames_per_phn
+EDGES = {
+    "warp_edges": lambda: _one_hot_runs([[(2, 31), (3, 1), (3, 1), (4, 33), (1, 30)],
+                                         [(0, 30), (5, 4), (0, 28), (2, 34)],
+                                         [(1, 32), (1, 32), (0, 1), (3, 31)]]),
+    "chunk_edges": lambda: _one_hot_runs([[(4, 60), (2, 9), (0, 3), (3, 24)],
+                                          [(1, 63), (1, 1), (2, 2), (0, 30)],
+                                          [(2, 64), (0, 1), (5, 31)]], seed=1),
+    "all_blank": lambda: _one_hot_runs([[(0, 70)], [(0, 69), (3, 1)]], seed=2),
+    "T1": lambda: _case(9, T=1),
+    "T680": lambda: _case(11, B=2, T=680),
+}
+
+
+@pytest.mark.parametrize("max_f", [0, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("case", sorted(EDGES))
+def test_trim_merge_replay_matches_plain_and_jax(case, max_f):
+    """The kernel's carries replayed (2 warps a chunk of 64 frames, and the
+    kernel's 1,024 threads) equal the plain version bit for bit (trimmed,
+    lengths, slots, counts) and the JAX package to 1e-6."""
+    p, latent = EDGES[case]()
+    want = [x.numpy() for x in B6.trim_merge_plain(torch.from_numpy(p), torch.from_numpy(latent),
+                                                    max_f)]
+    for threads, chunk in ((64, 64), (1024, 167)):
+        got = _b6_replay(p, latent, max_f, threads=threads, chunk=chunk)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    j_out, j_len, _ = j_trim_merge(jnp.asarray(p), jnp.asarray(latent), max_frames_per_phn=max_f)
+    np.testing.assert_array_equal(got[1], np.asarray(j_len))
+    np.testing.assert_allclose(got[0], np.asarray(j_out), rtol=0, atol=ATOL)
