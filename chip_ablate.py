@@ -9,6 +9,8 @@ card; and the ASR, paired or speech-first train step's time in a given tree.
     python3 chip_ablate.py --paired-busy TREE
     python3 chip_ablate.py --speech-first-busy TREE
     python3 chip_ablate.py --kernel-mem TREE
+    python3 chip_ablate.py --sanitize k7|k6|b6|b6_bwd --plan T=..,B=..[,...] [--variant unit_lanes]
+    python3 chip_ablate.py --sanitize-all
 
 The first builds copies of ``semi_tts_tpu_torch/csrc/attention.cu``,
 ``ctc.cu``, ``features.cu``, ``griffin_lim.cu``, ``quantize.cu`` and
@@ -46,6 +48,21 @@ change, change, parent. Prints one JSON line ``{"asr_busy": ...}``,
 
 ``--kernel-mem TREE`` reports the device memory that the checkout's
 `chip_smoke.py` phases before serving leave allocated (`kernel_mem`).
+
+``--sanitize`` launches one kernel once at the given plan (K7
+`bilstm_rec_bwd`: T, B, H, ndir; K6 `ctc_beta_grad`: B, T, S; B6
+`trim_merge`: B, T; `trim_merge_bwd`: B, T), from a copy of its source whose
+mbarrier waits trap after 60 s instead of 2 s (a kernel under
+``compute-sanitizer`` runs many times slower), and prints its largest
+difference from the plain version; ``--variant unit_lanes`` builds K7 with
+only its unit lanes waiting for the partial sums (the wait that hung at one
+row and 8 or 12 units a CTA). ``--sanitize-all`` runs every plan of
+`SANITIZE_PLANS` under ``compute-sanitizer --tool synccheck`` and ``--tool
+racecheck`` (each instrumenting only the kernel's own launches) and once
+without a tool, writes each log under the kernels' build directory
+(``ablate/sanitize/``), and prints
+one JSON line ``{"sanitize": [...]}``: each run's error summary, exit code
+and wall time.
 """
 
 from __future__ import annotations
@@ -646,6 +663,16 @@ CUTS = {
             ("scans, slots and counts", [ret("  if (tid == 0) lengths[b] = n_kept;\n"
                                              "  __syncthreads();\n")]),
         ],
+    }), ("trim_merge_bwd", {
+        "a lane group a frame, float4, a dependent launch": [
+            ("launch", [ret('  asm volatile("griddepcontrol.wait;\\n" ::: "memory");\n'
+                            "  const int lane = threadIdx.x & 31, lanes = 1 << lanes_log2;\n")]),
+            ("slot and count", [after("  c = __shfl_sync(0xffffffffu, c, leader);\n", "  return;\n")]),
+        ],
+        "a thread an element, grid-stride (the first design)": [
+            ("launch", [after("                                      float* __restrict__ d_latent, "
+                              "int T, int D, size_t n) {\n", "  return;\n")]),
+        ],
     })],
     "griffin_lim": [("gl_ola_frame", {"tiled overlap-add (PR 3)": [
         ("overlap-add into shared memory",
@@ -893,6 +920,30 @@ def b6_calls(b6, dev, chip_smoke):
     return calls
 
 
+# (B, T) of B6's backward: the flagship speech-first step's unpaired rows,
+# both batches' rows, and the 15.28 s utterance's
+B6_BWD_SHAPES = ((8, 133), (16, 133), (1, 680))
+
+
+def b6_bwd_calls(b6, dev, chip_smoke):
+    """{"B=.. T=..": (kernel call, plain call)} of `trim_merge_bwd` at
+    `B6_BWD_SHAPES` (D=64), from the slots and counts of the forward's plain
+    version on `chip_smoke.py`'s inputs."""
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    calls = {}
+    for B_, T in B6_BWD_SHAPES:
+        p, lat = chip_smoke._trim_merge_inputs(randn, dev, B_, T)
+        _, _, slot, count = b6.trim_merge_plain(p, lat, 3)
+        a = (randn(*lat.shape), slot, count)
+        calls[f"B={B_} T={T}"] = (lambda a=a: b6.trim_merge_bwd(*a),
+                                  lambda a=a: b6.trim_merge_bwd_plain(*a))
+    return calls
+
+
 # frames a CTA that `stft_frames` is timed at beside its plan's
 K5_TILES = (1, 2, 3, 4, 5, 6, 7, 8)
 
@@ -975,7 +1026,8 @@ def main(src_tree=None, only=None):
     cases = {c["name"]: c for c in chip_smoke.kernel_cases(dev)}
     cases["attention_step_bwd"]["by_shape"] = k9_calls(k9, dev)
     by_shape = dict(k6_calls(k6, dev), stft_frames=k5_calls(k5, dev, chip_smoke),
-                    trim_merge=b6_calls(b6, dev, chip_smoke))
+                    trim_merge=b6_calls(b6, dev, chip_smoke),
+                    trim_merge_bwd=b6_bwd_calls(b6, dev, chip_smoke))
     for name, calls in by_shape.items():
         cases[name]["by_shape"] = {n: f for n, (f, _) in calls.items()}
         cases[name]["shape_checks"] = list(calls.values())
@@ -1129,7 +1181,245 @@ def kernel_mem(tree):
                                      "kernels": names, "after_each_timed_call": timed}}))
 
 
+# K7 with only its unit lanes waiting for the partial sums, inside phase
+# A's branch (the wait as first written; it hung at one row and 8 or 12
+# units a CTA)
+K7_UNIT_LANES = [(WAIT, ""),
+                 ("        const int buf = (s - 1) & 1;\n        const float* sl",
+                  "        const int buf = (s - 1) & 1;\n"
+                  "        mbar_wait(bar0 + 8 * buf, ((s - 1) >> 1) & 1);\n        const float* sl")]
+# the unit-lane wait with a trace: each thread of K7 stores its step and a
+# code into host-mapped memory (`k7_set_trace`) at the step's start (1),
+# around the wait (2, 3), before and after the warp and block barriers (4,
+# 5, 6), at the end (7) and after the closing cluster barrier (8); a wait
+# that times out stores 9 before it traps
+K7_TRACE = [
+    ("__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {\n",
+     "__device__ unsigned long long* g_k7_trace;\n"
+     "__device__ __forceinline__ void k7_trace(int s, int code) {\n"
+     "  if (g_k7_trace != nullptr) {\n"
+     "    volatile unsigned long long* q = g_k7_trace + ((size_t)(blockIdx.y * gridDim.x + "
+     "blockIdx.x) * blockDim.x + threadIdx.x);\n"
+     "    *q = ((unsigned long long)(unsigned)s << 8) | (unsigned)code;\n"
+     "    __threadfence_system();\n  }\n}\n\n"
+     "__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {\n"),
+    ("if (global_ns() - t0 > 60000000000ull) __trap();",
+     "if (global_ns() - t0 > 60000000000ull) {\n      k7_trace(0, 9);\n      __trap();\n    }"),
+    ("  for (int s = 0; s < (rank < owners ? T : 0); ++s) {\n",
+     "  for (int s = 0; s < (rank < owners ? T : 0); ++s) {\n    k7_trace(s, 1);\n"),
+    ("        mbar_wait(bar0 + 8 * buf, ((s - 1) >> 1) & 1);\n",
+     "        k7_trace(s, 2);\n        mbar_wait(bar0 + 8 * buf, ((s - 1) >> 1) & 1);\n"
+     "        k7_trace(s, 3);\n"),
+    ("      __syncwarp();  // every warp meets the block barrier converged\n      __syncthreads();\n",
+     "      k7_trace(s, 4);\n      __syncwarp();  // every warp meets the block barrier converged\n"
+     "      k7_trace(s, 5);\n      __syncthreads();\n      k7_trace(s, 6);\n"),
+    ("  cp_async_wait_all();\n  // no CTA leaves while a peer may still address it\n  cluster.sync();\n",
+     "  cp_async_wait_all();\n  k7_trace(T, 7);\n  // no CTA leaves while a peer may still address "
+     "it\n  cluster.sync();\n  k7_trace(T, 8);\n"),
+    ("}  // namespace\n",
+     "}  // namespace\n\nextern \"C\" int k7_set_trace(void* p, void* stream) {\n"
+     "  return (int)cudaMemcpyToSymbol(g_k7_trace, &p, sizeof(p));\n}\n")]
+# every mbarrier wait's trap, 2 s, made 60 s for a kernel under compute-sanitizer
+SLOW_TRAP = ("if (global_ns() - t0 > 2000000000ull) __trap();",
+             "if (global_ns() - t0 > 60000000000ull) __trap();")
+# kernel -> (source, the kernel's name as compute-sanitizer filters it)
+SANITIZED = {"k7": ("rnn", "lstm_bwd"), "k6": ("ctc", "ctc_beta"), "b6": ("quantize", "trim_merge_kernel"),
+             "b6_bwd": ("quantize", "trim_merge_bwd_kernel")}
+# (kernel, plan, variant) of --sanitize-all: K7 at the plans that hung (one
+# row, 8 and 12 units a CTA), with either wait, and at the shipped plans of
+# the ASR step (B=8), the cycles (B=16: 4 rows a cluster) and the 15.28 s
+# step (T=679, B=2); K6's ctc_beta_grad at the flagship step and at S=1,023;
+# B6 at the flagship step and through the p_code ring (T=1,500). Then the
+# unit-lane wait where no warp is partly unit lanes (B=8 H=256: 64 unit
+# lanes), at 16 units a CTA (H=128), and at T=2 (one hand-off) and T=3
+SANITIZE_PLANS = (
+    [("k7", f"T=133,B=1,H={H},ndir=2", v) for H in (64, 96) for v in ("", "unit_lanes")]
+    + [("k7", "T=133,B=8,H=256,ndir=2", ""), ("k7", "T=133,B=16,H=256,ndir=2", ""),
+       ("k7", "T=679,B=2,H=256,ndir=2", ""),
+       ("k6", "B=8,T=133,S=65", ""), ("k6", "B=2,T=600,S=1023", ""),
+       ("b6", "B=8,T=133", ""), ("b6", "B=2,T=1500", ""), ("b6_bwd", "B=8,T=133", "")]
+    + [("k7", p, "unit_lanes") for p in ("T=133,B=8,H=256,ndir=2", "T=133,B=1,H=128,ndir=2",
+                                         "T=2,B=1,H=64,ndir=2", "T=3,B=1,H=64,ndir=2")]
+    + [("k7", f"T=133,B=1,H={H},ndir={n}", "unit_lanes_trace") for H in (64, 96) for n in (1, 2)])
+# compute-sanitizer's answer on a card it cannot instrument
+UNSUPPORTED = "Device not supported"
+
+
+SANITIZE_BUDGET_S = 1500   # --sanitize-all starts no run past this
+
+
+def sanitize_lib(src, variant):
+    """The library of a copy of ``csrc/<src>.cu`` with `SLOW_TRAP` (and the
+    variant's edits), built once into the ablation directory."""
+    from semi_tts_tpu_torch.kernels import build
+
+    text = open(os.path.join(build.CSRC, f"{src}.cu")).read()
+    edits = ([SLOW_TRAP] + (K7_UNIT_LANES if variant.startswith("unit_lanes") else [])
+             + (K7_TRACE if variant.endswith("trace") else []))
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit(f"chip_ablate: csrc/{src}.cu has {text.count(old)} of {old!r}")
+        text = text.replace(old, new)
+    out_dir = build.BUILD_DIR / "ablate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stem = out_dir / f"sanitize_{src}_{variant or 'shipped'}"
+    so = stem.with_suffix(".so")
+    if not so.exists():
+        stem.with_suffix(".cu").write_text(text)
+        res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
+                              str(stem.with_suffix(".cu"))], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise SystemExit(f"chip_ablate: nvcc failed for {stem}:\n{res.stdout}{res.stderr}")
+    return so
+
+
+def sanitize(kernel, plan, variant=""):
+    """One launch of ``kernel`` at ``plan`` ("K=v,..."), from its
+    `sanitize_lib`; prints its largest difference from the plain version,
+    or the error of a failed launch and the seconds it took to come."""
+    import time
+
+    import chip_smoke as cs
+    from semi_tts_tpu_torch.kernels import build, ctc as k6, quantize as b6, rnn as k7
+
+    src = SANITIZED[kernel][0]
+    build._libs[src] = ctypes.CDLL(str(sanitize_lib(src, variant)))
+    build.bind.cache_clear()
+    kw = {k: int(v) for k, v in (x.split("=") for x in plan.split(","))}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def unif(*shape, a):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * a
+
+    trace = None
+    if kernel == "k7":
+        a = cs._lstm_bwd_inputs(randn, unif, kw["T"], kw["B"], kw["H"], kw["ndir"])
+        run, plain = lambda: k7.bilstm_rec_bwd(*a), lambda: k7.bilstm_rec_bwd_plain(*a)
+        info = k7.lstm_bwd_plan(kw["B"], kw["H"], kw["ndir"], k7.max_clusters(kw["H"], "lstm_rec_bwd"))
+        if variant.endswith("trace"):
+            trace = torch.zeros(info["grid"][0] * info["grid"][1] * info["threads"],
+                                dtype=torch.int64).pin_memory()
+            build.check(build.bind(src, "k7_set_trace", 1, 0)(trace.data_ptr(), build.stream()),
+                        "k7_set_trace")
+    elif kernel == "k6":
+        a = cs._ctc_beta_args(cs._ctc_shape_inputs(randn, dev, kw["B"], kw["T"], 43, kw["S"]))
+        run, plain = lambda: k6.ctc_beta_grad(*a), lambda: k6.ctc_beta_grad_plain(*a)
+        info = k6.ctc_plan(kw["B"], kw["T"], kw["S"])
+    elif kernel == "b6":
+        p, lat = cs._trim_merge_inputs(randn, dev, kw["B"], kw["T"], long_runs=kw["T"] > 680)
+        run, plain = lambda: b6.trim_merge(p, lat, 3), lambda: b6.trim_merge_plain(p, lat, 3)
+        info = b6.trim_merge_plan(kw["T"], 43, 64)
+    else:
+        p, lat = cs._trim_merge_inputs(randn, dev, kw["B"], kw["T"])
+        _, _, slot, count = b6.trim_merge_plain(p, lat, 3)
+        a = (randn(*lat.shape), slot, count)
+        run, plain = lambda: b6.trim_merge_bwd(*a), lambda: b6.trim_merge_bwd_plain(*a)
+        info = b6.trim_merge_bwd_plan(kw["B"], kw["T"], 64)
+    out = {"kernel": kernel, "plan": plan, "variant": variant, "launch_plan": info}
+    with torch.no_grad():
+        want = plain()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            got = run()
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # the launch failed: how soon, and with what
+            out.update(error=str(e).splitlines()[0], s_to_error=time.perf_counter() - t0)
+            if trace is not None:
+                out["trace"] = k7_trace_summary(trace.numpy(), info)
+            print(json.dumps({"sanitized": out}))
+            return 1
+        if trace is not None:
+            out["trace"] = k7_trace_summary(trace.numpy(), info)
+        out.update(s=time.perf_counter() - t0, max_abs_err=cs.max_err(got, want))
+    print(json.dumps({"sanitized": out}))
+
+
+def k7_trace_summary(trace, info):
+    """For each CTA of a traced K7 launch: {"(step, code)": threads that
+    stored it last}, from `K7_TRACE`'s host-mapped stores."""
+    per_cta = trace.reshape(-1, info["threads"])
+    out = {}
+    for c, row in enumerate(per_cta):
+        counts = {}
+        for v in row.tolist():
+            key = f"{v >> 8},{v & 0xff}"
+            counts[key] = counts.get(key, 0) + 1
+        out[f"cta {c % info['grid'][0]} dir {c // info['grid'][0]}"] = counts
+    return out
+
+
+def sanitize_all():
+    """Every plan of `SANITIZE_PLANS` under synccheck and racecheck, and
+    once without a tool; logs under the build directory's ablate/sanitize/."""
+    import re
+    import signal
+    import time
+
+    import chip_smoke as cs
+    from semi_tts_tpu_torch.kernels import build
+
+    cs.phase_device()
+    tool_bin = os.path.join(os.path.dirname(build._nvcc()), "compute-sanitizer")
+    for src, variant in {(SANITIZED[k][0], v) for k, _, v in SANITIZE_PLANS}:
+        sanitize_lib(src, variant)
+    logs = build.BUILD_DIR / "ablate" / "sanitize"
+    logs.mkdir(parents=True, exist_ok=True)
+    runs, start, unsupported = [], time.perf_counter(), False
+    for kernel, plan, variant in SANITIZE_PLANS:
+        for tool in ("none", "synccheck", "racecheck"):
+            why = ("over SANITIZE_BUDGET_S" if time.perf_counter() - start > SANITIZE_BUDGET_S
+                   else "compute-sanitizer: " + UNSUPPORTED if tool != "none" and unsupported
+                   else None)
+            if why:
+                runs.append({"kernel": kernel, "plan": plan, "variant": variant or "shipped",
+                             "tool": tool, "rc": "not run: " + why})
+                continue
+            cmd = [sys.executable, os.path.abspath(__file__), "--sanitize", kernel, "--plan", plan]
+            if variant:
+                cmd += ["--variant", variant]
+            if tool != "none":
+                cmd = [tool_bin, "--tool", tool, "--kernel-name",
+                       f"regex={SANITIZED[kernel][1]}"] + cmd
+            t0 = time.perf_counter()
+            # its own session, so that a timeout stops the sanitizer and the run under it
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True, start_new_session=True)
+            try:
+                out, _ = proc.communicate(timeout=120 if tool == "none" else 420)
+                rc = proc.returncode
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                out, _ = proc.communicate()
+                rc = "timeout"
+            name = f"{kernel}_{plan.replace(',', '_').replace('=', '')}_{variant or 'shipped'}_{tool}"
+            with open(logs / (name + ".log"), "w") as f:
+                f.write(out)
+            unsupported = unsupported or UNSUPPORTED in out
+            summary = re.findall(r"ERROR SUMMARY: .*", out)
+            line = [json.loads(l)["sanitized"] for l in out.splitlines() if l.startswith('{"sanitized"')]
+            launch = {k: v for k, v in (line[0] if line else {}).items()
+                      if k not in ("kernel", "plan", "variant")}
+            runs.append({"kernel": kernel, "plan": plan, "variant": variant or "shipped",
+                         "tool": tool, "rc": rc, "process_s": round(time.perf_counter() - t0, 1),
+                         "summary": summary[-1] if summary else None,
+                         "sanitizer": UNSUPPORTED if UNSUPPORTED in out else None, **launch,
+                         "tail": None if line else out[-600:]})
+            print(json.dumps(runs[-1]), flush=True)
+    print(json.dumps({"sanitize": runs}))
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sanitize"]:
+        args = sys.argv[1:]
+        sys.exit(sanitize(args[1], args[args.index("--plan") + 1],
+                          args[args.index("--variant") + 1] if "--variant" in args else ""))
+    if sys.argv[1:2] == ["--sanitize-all"]:
+        sys.exit(sanitize_all())
     if sys.argv[1:2] == ["--kernel-mem"]:
         sys.exit(kernel_mem(sys.argv[2]))
     if sys.argv[1:2] == ["--asr-busy"]:

@@ -74,7 +74,19 @@ Phases, each fatal on failure:
    plain path (B = 2 + 2, every dropout 0, tf_rate 1, the same
    augmentation; the CPU follows the card's unpaired argmax tokens); and a
    speech-first step whose unpaired utterance is 15.28 s long, so that K3
-   and K9 run at L ~ 680.
+   and K9 run at L ~ 680;
+8. the CLI's solvers at the same width (`phase_cli`), on a synthetic
+   corpus written here from a seeded numpy generator (16 paired, 16
+   unpaired, 8 dev and 8 test utterances of 2-4 s, a partition table and a
+   map table): `VqvaeSolver` (``python -m semi_tts_tpu_torch``'s default)
+   runs ``load_data -> set_model -> exec`` for 4 steps of B=8 (paired,
+   text-first, speech-first, text-first) from the loader's batches,
+   validating every 2, and writes the checkpoints the policy names; a second
+   solver resumes from step 2's checkpoint (state equal bit for bit) and
+   repeats step 3 bit for bit; `SpecgramGenerator` with --gen-wav writes
+   the test split's mel, linear, alignment and Griffin-Lim wave files. The
+   kernels of both paths must launch; the solver's step wall is reported
+   beside the bare steps' of phases 6 and 7.
 
 Every card-vs-CPU check holds the gradients in all and leaf by leaf in L2;
 a leaf behind a ReLU or max-pool (``KINKED_LEAVES``) to max(1e-3, KINK_K x
@@ -85,8 +97,9 @@ The training kernels (K5 ``stft_frames``/``spec_db``, K6 ``ctc_alpha``/
 ``ctc_beta_grad``, K7 ``bilstm_rec_bwd`` and K1 with cell states,
 ``bilstm_rec_cs``) and the paired step's backward kernels (K8
 ``bigru_rec_bwd``, K9 ``attention_step_bwd``, up to L = 1,187) and the speech-first step's B6 (``trim_merge``,
-``trim_merge_bwd``) are held to their plain versions in phase 3 at their
-step's shapes and at ragged ones. A row's ``launches`` counts one serving
+``trim_merge_bwd``, bit for bit) are held to their plain versions in
+phase 3 at their step's shapes and at ragged ones; K3 also at the memory
+lengths 1 and 2 of an all-pad or one-token request. A row's ``launches`` counts one serving
 request (K1-K4), one ASR train step (K5-K7, K1 with cell states), one
 paired train step (K8, K9) or one speech-first step (B6), as its
 ``launches_per`` says; ``launches_by_path`` has all five paths.
@@ -95,7 +108,7 @@ Prints a ``{"ptxas": ...}`` line (registers and spills of the recurrence
 and attention kernels), an ``{"asr_shape": ...}`` line, a ``{"featurizer": ...}`` line, a
 ``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, a
 ``{"training": ...}`` line, a ``{"paired": ...}`` line, a ``{"cycles": ...}``
-line and, last,
+line, a ``{"cli": ...}`` line and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -362,8 +375,9 @@ def _case_attention(randn, unif, dev):
     """K3: one decoder attention step (no mask, as the flagship decodes).
     Also checked with a padding mask, at memory lengths that are not a
     multiple of 32 (L=45, and L=1000 near the plan's limit, where memory is
-    read from L2 instead of shared memory), at B=5 and without location
-    features (loc_aware: false)."""
+    read from L2 instead of shared memory), at B=5, without location
+    features (loc_aware: false), and at L=1 and L=2 (the memory of an
+    all-pad or one-token request: rows of length 1 and 2, masked past it)."""
     from semi_tts_tpu_torch.kernels import attention as k3
 
     L, A, D, C, F_, K = 32, 256, 512, 2, 32, 31
@@ -373,7 +387,8 @@ def _case_attention(randn, unif, dev):
         pq, pm, mem = randn(B, A), randn(B, L, A, scale=0.5), randn(B, L, D)
         w = torch.softmax(randn(B, L), -1)
         hist = torch.stack([w, w + torch.softmax(randn(B, L), -1)], 1).contiguous()
-        lengths = L - 12 + torch.arange(B, device=dev) % 13
+        lengths = (L - 12 + torch.arange(B, device=dev) % 13 if L > 12
+                   else 1 + torch.arange(B, device=dev) % L)
         mask = torch.arange(L, device=dev)[None, :] >= lengths[:, None]
         return (pq, pm, mem, hist) + weights, mask
 
@@ -382,8 +397,9 @@ def _case_attention(randn, unif, dev):
     long, long_mask = inputs(1000)
     five, five_mask = inputs(L, B=5)
     no_loc = args[:4] + (None, None, args[6])
+    short = [inputs(n) for n in (1, 2)]
     cases = ((args, mask), (odd, None), (odd, odd_mask), (long, None), (long, long_mask),
-             (five, None), (five, five_mask), (no_loc, None), (no_loc, mask))
+             (five, None), (five, five_mask), (no_loc, None), (no_loc, mask), *short)
     return dict(
         name="attention_step", replaces="semi_tts_tpu/models/attention.py:39 (attention_step, "
         "in the decoder_apply step body, models/decoder.py:227)",
@@ -1084,21 +1100,42 @@ def _trim_merge_cost(B_, T, C, D_):
     return 4 * (B_ * T * C + 2 * B_ * T * D_ + B_ + 2 * B_ * T), B_ * T * (C + D_)
 
 
+# (B, T) of B6's backward timed by shape: the flagship speech-first step's
+# unpaired rows, both batches' rows, and the 15.28 s utterance's
+B6_BWD_SHAPES = ((TRAIN_B, 133), (2 * TRAIN_B, 133), (1, 680))
+
+
+def _trim_merge_bwd_cost(B_, T, D_):
+    """B6 backward's bytes (d_trimmed in, d_latent out, slots and counts) and FLOPs."""
+    return 4 * (2 * B_ * T * D_ + 2 * B_ * T), B_ * T * D_
+
+
 def _case_trim_merge_bwd(randn, unif, dev):
     """B6's backward at the speech-first step's shapes, from the slots and
-    counts of the forward; also at T=1, T=680, with an all-blank row and
-    with runs longer than max_frames_per_phn."""
+    counts of the forward; also at T=1, T=680, with an all-blank row, with
+    runs longer than max_frames_per_phn, at D=12 and D=3 (float4 and scalar
+    loads) and on rows that are not 16-byte aligned (scalar loads). Held to
+    the plain version bit for bit (tolerance 0: both divide by the count).
+    Timed at every shape of `B6_BWD_SHAPES` (``ms_by_shape``,
+    ``plain_ms_by_shape``, ``bound_ms_by_shape``; ``plans``:
+    `trim_merge_bwd_plan` at each)."""
     from semi_tts_tpu_torch.kernels import quantize as b6
 
-    def inputs(*a, **k):
-        p, lat = _trim_merge_inputs(randn, dev, *a, **k)
+    def inputs(*a, D=64, **k):
+        p, lat = _trim_merge_inputs(randn, dev, *a, D=D, **k)
         _, _, slot, count = b6.trim_merge_plain(p, lat, 3)
         return randn(*lat.shape), slot, count
+
+    def unaligned(B_, T):  # d_trimmed one float into its storage
+        d, slot, count = inputs(B_, T)
+        return randn(d.numel() + 1)[1:].view(d.shape).copy_(d), slot, count
 
     B_, T, D_ = TRAIN_B, 133, 64
     args = inputs(B_, T)
     cases = [inputs(3, 1), inputs(2, 680), inputs(3, 50, blank_row=True),
-             inputs(5, 60, long_runs=True)]
+             inputs(5, 60, long_runs=True), inputs(4, 50, D=12), inputs(4, 50, D=3),
+             unaligned(B_, T)]
+    by_shape = {f"B={b} T={t}": inputs(b, t) for b, t in B6_BWD_SHAPES}
     return dict(
         name="trim_merge_bwd", replaces="semi_tts_tpu/ops/quantize.py:26 (the autodiff of "
         "trim_merge_segments: the transpose of segment_sum and of the compaction scatter)",
@@ -1107,8 +1144,14 @@ def _case_trim_merge_bwd(randn, unif, dev):
         kernel=lambda: b6.trim_merge_bwd(*args), plain=lambda: b6.trim_merge_bwd_plain(*args),
         checks=[(lambda a=a: b6.trim_merge_bwd(*a), lambda a=a: b6.trim_merge_bwd_plain(*a))
                 for a in cases],
-        library=None, library_note=NO_LIBRARY, tol=1e-6,
-        nbytes=4 * (2 * B_ * T * D_ + 2 * B_ * T), flops=B_ * T * D_, iters=200)
+        library=None, library_note=NO_LIBRARY, tol=0.0,
+        nbytes=_trim_merge_bwd_cost(B_, T, D_)[0], flops=_trim_merge_bwd_cost(B_, T, D_)[1],
+        iters=200, timed={k: lambda a=a: b6.trim_merge_bwd(*a) for k, a in by_shape.items()},
+        timed_plain={k: lambda a=a: b6.trim_merge_bwd_plain(*a) for k, a in by_shape.items()},
+        extra={"bound_ms_by_shape": {f"B={b} T={t}": bound(*_trim_merge_bwd_cost(b, t, D_))[0]
+                                     for b, t in B6_BWD_SHAPES},
+               "plans": {f"B={b} T={t}": b6.trim_merge_bwd_plan(b, t, D_)
+                         for b, t in B6_BWD_SHAPES}})
 
 
 def record_recurrence_shapes():
@@ -2033,6 +2076,235 @@ def long_memory_step(model, builder, dev):
     return out
 
 
+# phase 8, the CLI's solvers: a corpus of CLI_SPLITS utterances of 2-4 s
+CLI_SPLITS = (("paired", 16), ("unpaired", 16), ("dev", 8), ("test", 8))
+CLI_STEPS, CLI_VALID = 4, 2
+CLI_SPEAKERS = ("p225", "p226", "p227", "p228", "p229", "p230", "p231", "p232")
+CLI_GEN_KERNELS = SERVING_KERNELS + ("stft_frames", "spec_db")
+CLI_TRAIN_KERNELS = PAIRED_STEP_KERNELS + CYCLE_KERNELS
+
+
+def write_cli_corpus(root, seed=0):
+    """A synthetic VCTK-layout corpus under ``root`` from a numpy generator:
+    harmonic waves with noise of 2-4 s at 22,050 Hz written with the port's
+    `wavio`, a partition table, and a map table of 20-32 phonemes each from
+    the repo's vocabulary; returns the YAML ``data.corpus`` block."""
+    from semi_tts_tpu_torch.data import wavio
+
+    rng = np.random.RandomState(seed)
+    sr = FLAGSHIP_AUDIO["sample_rate"]
+    with open(os.path.join(HERE, "data/cmu_phn.vocab")) as f:
+        vocab = [line.strip() for line in f if line.strip()]
+    rows, phones = [",speaker,split,duration"], ["\tphn_seq\tspkr"]
+    n = 0
+    for split, count in CLI_SPLITS:
+        for _ in range(count):
+            spk = CLI_SPEAKERS[n % len(CLI_SPEAKERS)]
+            fid = f"{spk}_{n:03d}"
+            n += 1
+            dur = rng.uniform(2.0, 4.0)
+            t = np.arange(int(dur * sr)) / sr
+            f0 = rng.uniform(90, 250)
+            wav = sum(np.sin(2 * np.pi * k * f0 * t) / k for k in range(1, 6))
+            wav = 0.2 * wav / np.abs(wav).max() + 0.01 * rng.randn(len(t))
+            os.makedirs(os.path.join(root, "wavs", spk), exist_ok=True)
+            wavio.write(os.path.join(root, "wavs", spk, fid + ".wav"), wav, sr)
+            rows.append(f"{fid},{spk},{split},{dur:.2f}")
+            phones.append(f"{fid}\t{' '.join(rng.choice(vocab, rng.randint(20, 33)))}\t{spk}")
+    for name, lines in (("partition.csv", rows), ("map_table.csv", phones)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return {"name": "vctk", "path": os.path.join(root, "wavs"), "bucketing": False,
+            "batch_size": TRAIN_B, "spkr_map": os.path.join(HERE, "corpus_meta/spkr/lj_vctk.json"),
+            "partition_table": os.path.join(root, "partition.csv"),
+            "map_table": os.path.join(root, "map_table.csv"),
+            "vocab_file": os.path.join(HERE, "data/cmu_phn.vocab")}
+
+
+def cli_config(root):
+    """config/semi-multi-spkr-paired-data.yaml at its widths over the
+    synthetic corpus: its hparas but CLI_STEPS steps validated every
+    CLI_VALID, an unpaired text weight of 1 beside its speech weight of 10
+    (so that all three step kinds run) and a fixed learning rate of 1e-3
+    (the Noam warm-up's first steps would move the dev losses by noise
+    alone, and the checkpoint policy writes on an improvement)."""
+    config = flagship_config()
+    config["data"]["corpus"] = write_cli_corpus(root)
+    config["hparas"] = {"valid_step": CLI_VALID, "max_step": CLI_STEPS, "asr_weight": 1.0,
+                        "tts_weight": 1.0, "unpair_text_start_step": 0, "unpair_text_weight": 1.0,
+                        "unpair_speech_start_step": 0, "unpair_speech_weight": 10.0,
+                        "optimizer": "Adam", "lr": 0.001, "lr_scheduler": "fixed",
+                        "freq_loss_type": "mse", "differential_loss": True,
+                        "emphasize_linear_low": True, "tf_start": 1.0, "tf_end": 1.0,
+                        "tf_step": 50000}
+    return config
+
+
+def cli_paras(root, **kw):
+    """The CLI's flags as `semi_tts_tpu_torch.__main__` gives them to a solver."""
+    import argparse
+
+    from semi_tts_tpu_torch.__main__ import parser
+
+    paras = parser().parse_args(["--config", os.path.join(root, "cli.yaml"), "--name", "cli",
+                                 "--logdir", os.path.join(root, "log"),
+                                 "--ckpdir", os.path.join(root, "ckpt"), "--no-msg"])
+    paras.gpu, paras.pin_memory, paras.verbose = True, False, False
+    return argparse.Namespace(**{**vars(paras), **kw})
+
+
+def state_of(solver):
+    """Copies of a solver's parameters, buffers and optimizer state."""
+    opt = solver.optimizer
+    return ([t.detach().clone() for t in list(solver.model.parameters())
+             + list(solver.model.buffers())]
+            + [t.clone() for t in (opt.mu, opt.nu, opt.count, opt.schedule_count,
+                                   opt.notfinite_count, opt.total_notfinite, opt.last_finite)])
+
+
+def phase_cli(bare_walls):
+    """The CLI's solvers at flagship width on a synthetic corpus, through
+    `load_data -> set_model -> exec`: `VqvaeSolver` trains CLI_STEPS steps
+    (paired, text-first, speech-first, text-first) validating every
+    CLI_VALID, with the loader's batches (finite losses; the checkpoints
+    are the ones the policy names for the logged dev metrics, at least one
+    tts_* or asr_*); a second solver resumes from the checkpoint of step 2
+    (its parameters, BN statistics, optimizer state and step equal the
+    first's at that step, bit for bit) and repeats the step that followed,
+    on the same batches, bit for bit (loss and parameters); then
+    `SpecgramGenerator` with --gen-wav on the test split (every file, finite,
+    of the expected shape). The kernel launches of the training and of the
+    generation; the solver's step wall (the loader's next batch and the
+    step) beside the bare steps' of phases 6 and 7; the generation's wall
+    per utterance; peak memory."""
+    import tempfile
+
+    from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.data import wavio
+    from semi_tts_tpu_torch.models import vqvae as V
+    from semi_tts_tpu_torch.train.gen_specgram import SpecgramGenerator
+    from semi_tts_tpu_torch.train.train_vqvae import VqvaeSolver
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as root:
+        config = cli_config(root)
+        solver = VqvaeSolver(config, cli_paras(root), "train")
+        solver.load_data()
+        solver.set_model()
+        trainer, walls, logged, saved, at = solver.trainer, [], [], [], {}
+        run_step, pairs, save, log = trainer._train_step, trainer.pair_iter, trainer.save, trainer.log
+
+        def timed_batches():
+            while True:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = next(pairs)
+                walls.append([time.perf_counter() - t0])
+                yield batch
+
+        def train_step(batch, unpaired=None):
+            if trainer.step == 2:
+                at.update(args=(batch, unpaired), state=state_of(solver))
+                if not any(n.endswith("_2.pth") for n in os.listdir(solver.ckpdir)):
+                    solver.save("resume_2.pth", float("nan"))
+            t0 = time.perf_counter()
+            mets = run_step(batch, unpaired)
+            torch.cuda.synchronize()
+            walls[-1].append(time.perf_counter() - t0)
+            if trainer.step == 2:
+                at.update(loss=mets["total_loss"].clone(), after=state_of(solver))
+            return mets
+
+        trainer.pair_iter, trainer._train_step = timed_batches(), train_step
+        trainer.save = lambda name, score: (saved.append(name), save(name, score))
+        trainer.log = lambda step, name, value: (logged.append((step, name, value)),
+                                                 log(step, name, value))
+        kernels.reset_launches()
+        solver.exec()
+        launches = {"train": kernels.launch_counts()}
+        values = [v for _, _, v in logged]
+        if trainer.step != CLI_STEPS or not np.isfinite(values).all():
+            raise SystemExit(f"chip_smoke: the CLI's training failed: step {trainer.step}, {logged}")
+        dev_metrics = {(st, n): v for st, n, v in logged if n in ("speech_loss/dev", "per/dev")}
+        want, best_tts, best_per = [], 100.0, 2.0
+        for st in sorted({st for st, _ in dev_metrics}):
+            if dev_metrics[st, "speech_loss/dev"] < best_tts:
+                best_tts = dev_metrics[st, "speech_loss/dev"]
+                want += [f"tts_{st}.pth"] if st > 1 else []
+            if dev_metrics[st, "per/dev"] < best_per:
+                best_per = dev_metrics[st, "per/dev"]
+                want += [f"asr_{st}.pth"] if st > 1 else []
+        written = sorted(n for n in os.listdir(solver.ckpdir) if n != "resume_2.pth")
+        if saved != want or written != sorted(want) or not want:
+            raise SystemExit(f"chip_smoke: the CLI wrote {written} (saved {saved}), the policy "
+                             f"names {want}")
+        ckpt = next(os.path.join(solver.ckpdir, n) for n in sorted(os.listdir(solver.ckpdir))
+                    if n.endswith("_2.pth"))
+
+        resumed = VqvaeSolver(config, cli_paras(root, name="cli_resumed", load=ckpt), "train")
+        resumed.load_data()
+        resumed.set_model()
+        loaded_same = resumed.trainer.step == 2 and all(
+            torch.equal(a, b) for a, b in zip(state_of(resumed), at["state"]))
+        mets = resumed.trainer._train_step(*at["args"])
+        repeated = torch.equal(mets["total_loss"], at["loss"]) and all(
+            torch.equal(a, b) for a, b in zip(state_of(resumed), at["after"]))
+        if not (loaded_same and repeated):
+            raise SystemExit(f"chip_smoke: the resume from {os.path.basename(ckpt)} is not bit for "
+                             f"bit: loaded {loaded_same}, next step {repeated}")
+        for s in (solver, resumed):
+            if s.log is not None:
+                s.log.close()
+        del resumed, solver, trainer, run_step, at
+        gc.collect()
+
+        gen = SpecgramGenerator(config, cli_paras(root, load=ckpt, gen_specgram=True,
+                                                  gen_wav=True), "test")
+        gen.load_data()
+        gen.set_model()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.exec()
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t0
+        launches["gen_specgram"] = kernels.launch_counts()
+        out_dir = gen.logdir + "_0k"
+        r, audio = gen.model_cfg.n_frames_per_step, gen.featurizer.cfg
+        texts = {fid: sum(1 for v in gen.tokenizer.file_to_seq(fid) if v != 0)
+                 for fid in (f.split("-")[0] for f in os.listdir(out_dir))}
+        for fid, n_tok in texts.items():
+            mel, spec, align = (np.load(os.path.join(out_dir, f"{fid}-{k}.npy"))
+                                for k in ("mel", "spec", "align"))
+            wav, sr = wavio.read(os.path.join(out_dir, f"{fid}-pred.wav"))
+            dec = int(n_tok * V.FRAME_PHN_RATIO) // r
+            ok = (mel.shape[1] == audio.num_mels and spec.shape == (mel.shape[0], audio.num_freq)
+                  and mel.shape[0] % r == 0 and align.shape == (min(dec, mel.shape[0] // r), n_tok)
+                  and wav.shape == (1, audio.hop_length * (mel.shape[0] - 1))
+                  and sr == audio.sample_rate
+                  and all(np.isfinite(a).all() for a in (mel, spec, align, wav)))
+            if not ok:
+                raise SystemExit(f"chip_smoke: gen_specgram wrote bad files for {fid}: mel "
+                                 f"{mel.shape}, spec {spec.shape}, align {align.shape}, wav {wav.shape}")
+        if len(texts) != dict(CLI_SPLITS)["test"]:
+            raise SystemExit(f"chip_smoke: gen_specgram wrote {len(texts)} utterances")
+    for path, names in (("train", CLI_TRAIN_KERNELS + VALIDATION_KERNELS),
+                        ("gen_specgram", CLI_GEN_KERNELS)):
+        idle = [n for n in names if launches[path][n] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels not launched on the CLI's {path} path: {idle}")
+    steps = [sum(w) for w in walls if len(w) == 2]
+    return dict(corpus={k: v for k, v in CLI_SPLITS}, batch=TRAIN_B, steps=CLI_STEPS,
+                valid_step=CLI_VALID, step_wall_s=float(np.median(steps)), step_walls_s=steps,
+                loader_s=[w[0] for w in walls], bare_step_wall_s=bare_walls,
+                checkpoints=want, resumed_from=os.path.basename(ckpt), resume_bit_for_bit=True,
+                dev=[[st, n, v] for (st, n), v in sorted(dev_metrics.items())],
+                gen_utterances=len(texts), gen_wall_s=gen_wall,
+                gen_wall_per_utterance_s=gen_wall / len(texts),
+                peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches)
+
+
 def main():
     phase_device()
     from semi_tts_tpu_torch import kernels, use_fp32
@@ -2053,11 +2325,14 @@ def main():
     training = phase_training(dev)
     paired = phase_paired(dev)
     cycles = phase_cycles(dev)
+    cli = phase_cli({"paired": paired["wall_s"], **cycles["wall_s"]})
     time_seen_shapes(table, dev, seen_shapes)
     launches = {"serving request": serving["launches"], "ASR train step": training["launches"],
                 "paired train step": paired["launches"],
                 "speech-first step": cycles["launches"][SPEECH_FIRST],
-                "text-first step": cycles["launches"][TEXT_FIRST]}
+                "text-first step": cycles["launches"][TEXT_FIRST],
+                "CLI training": cli["launches"]["train"],
+                "CLI gen_specgram": cli["launches"]["gen_specgram"]}
     for row in table:
         per = ("serving request" if row["name"] in SERVING_KERNELS else
                "ASR train step" if row["name"] in TRAINING_KERNELS else
@@ -2070,6 +2345,7 @@ def main():
     print(json.dumps({"training": training}))
     print(json.dumps({"paired": paired}))
     print(json.dumps({"cycles": cycles}))
+    print(json.dumps({"cli": cli}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

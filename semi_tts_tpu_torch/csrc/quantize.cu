@@ -44,7 +44,17 @@
 //   time order and divided by the count, as `segment_sum` then the
 //   division; rows past the kept count are zero.
 // The backward is a gather: d_latent[b, t] = d_trimmed[b, slot[t]] /
-// count[t] on kept frames, 0 elsewhere; one thread per element, no atomics.
+// count[t] on kept frames, 0 elsewhere, no atomics. It moves ~0.55 MB at
+// the flagship step (~0.17 us of HBM time) and takes little more than its
+// launch, so the design keeps the work a row needs off the chain: a grid of
+// (row groups, B), so a frame's (b, t) needs no division; a group of
+// `lanes` lanes a frame (two frames a warp at D=64), whose first lane reads
+// the frame's slot and count once and hands them to the others by shuffle;
+// float4 loads and stores where D % 4 == 0 and the rows are 16-byte
+// aligned, scalar ones otherwise; each element divided by the count, as
+// the plain version does, so the result is the same bit for bit; and a
+// programmatic dependent launch (griddepcontrol.wait before the first
+// load), so the launch overlaps the kernel before it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,7 +63,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // trim_merge_bwd
+constexpr int kBwdThreads = 256;    // trim_merge_bwd
 constexpr int kMaxThreads = 1024;   // trim_merge
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
 constexpr int kHeader = 16 * 32;    // 3 mbarriers (32 bytes), two warp arrays of 32 ints
@@ -326,16 +336,48 @@ trim_merge_kernel(const float* __restrict__ p_code, const int* __restrict__ toke
   }
 }
 
+// A CTA of blockDim.x threads takes blockDim.x / lanes consecutive frames
+// of batch row blockIdx.y; V floats a load (4 or 1).
+template <int V>
 __global__ void trim_merge_bwd_kernel(const float* __restrict__ d_out,
                                       const int* __restrict__ slot,
                                       const float* __restrict__ count,
-                                      float* __restrict__ d_latent, int T, int D, size_t n) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const size_t bt = i / D;
-    const int d = (int)(i - bt * D);
-    const int s = slot[bt];
-    d_latent[i] = s >= 0 ? d_out[(bt - bt % T + s) * D + d] / count[bt] : 0.0f;
+                                      float* __restrict__ d_latent, int T, int D, int lanes_log2) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int lane = threadIdx.x & 31, lanes = 1 << lanes_log2;
+  const int l = lane & (lanes - 1), leader = lane & ~(lanes - 1);
+  const int t = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> lanes_log2);
+  const size_t row = (size_t)blockIdx.y * T + (t < T ? t : 0);
+  int s = -1;
+  float c = 1.0f;
+  if (l == 0 && t < T) {
+    s = slot[row];
+    c = count[row];
+  }
+  s = __shfl_sync(0xffffffffu, s, leader);
+  c = __shfl_sync(0xffffffffu, c, leader);
+  if (t >= T) return;
+  const int n = D / V;
+  if (V == 4) {
+    float4* dst = reinterpret_cast<float4*>(d_latent + row * D);
+    if (s < 0) {
+      for (int k = l; k < n; k += lanes) dst[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      return;
+    }
+    const float4* src = reinterpret_cast<const float4*>(d_out + ((size_t)blockIdx.y * T + s) * D);
+    for (int k = l; k < n; k += lanes) {
+      const float4 g = src[k];
+      dst[k] = make_float4(__fdiv_rn(g.x, c), __fdiv_rn(g.y, c), __fdiv_rn(g.z, c),
+                           __fdiv_rn(g.w, c));
+    }
+  } else {
+    float* dst = d_latent + row * D;
+    if (s < 0) {
+      for (int k = l; k < n; k += lanes) dst[k] = 0.0f;
+      return;
+    }
+    const float* src = d_out + ((size_t)blockIdx.y * T + s) * D;
+    for (int k = l; k < n; k += lanes) dst[k] = __fdiv_rn(src[k], c);
   }
 }
 
@@ -368,13 +410,41 @@ extern "C" int trim_merge_f32(const float* p_code, const int* tokens, const floa
   return (int)cudaGetLastError();
 }
 
-// d_latent (B, T, D) from d_trimmed (B, T, D) and the forward's slot and count.
+// Lanes a frame of `trim_merge_bwd`: the D / vec loads of a row rounded up
+// to a power of two, at most 32 (`trim_merge_bwd_plan` in kernels/quantize.py).
+__host__ __device__ constexpr int bwd_lanes(int D, int vec) {
+  int n = (D + vec - 1) / vec, lanes = 1;
+  while (lanes < n && lanes < 32) lanes *= 2;
+  return lanes;
+}
+
+// d_latent (B, T, D) from d_trimmed (B, T, D) and the forward's slot and
+// count. The plan: `vec` 4 (D % 4 == 0, 16-byte aligned rows) or 1 and
+// `lanes` a frame, as `bwd_lanes` gives them.
 extern "C" int trim_merge_bwd_f32(const float* d_out, const int* slot, const float* count,
-                                  float* d_latent, int B, int T, int D, void* stream) {
-  if (B < 1 || T < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  const size_t n = (size_t)B * T * D;
-  const int blocks = (int)((n + kThreads - 1) / kThreads < 4096 ? (n + kThreads - 1) / kThreads : 4096);
-  trim_merge_bwd_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(d_out, slot, count,
-                                                                     d_latent, T, D, n);
-  return (int)cudaGetLastError();
+                                  float* d_latent, int B, int T, int D, int vec, int lanes,
+                                  void* stream) {
+  if (B < 1 || B > 65535 || T < 1 || D < 1 || (vec != 1 && vec != 4) ||
+      lanes != bwd_lanes(D, vec) || (long long)B * T * D > 0x7fffffffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (vec == 4 && (D % 4 != 0 || (((uintptr_t)d_out | (uintptr_t)d_latent) & 15) != 0))
+    return (int)cudaErrorInvalidValue;
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < lanes) ++lanes_log2;
+  const int frames = kBwdThreads / lanes;  // a CTA's
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((T + frames - 1) / frames), (unsigned)B);
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      vec == 4 ? cudaLaunchKernelEx(&cfg, trim_merge_bwd_kernel<4>, d_out, slot, count, d_latent,
+                                    T, D, lanes_log2)
+               : cudaLaunchKernelEx(&cfg, trim_merge_bwd_kernel<1>, d_out, slot, count, d_latent,
+                                    T, D, lanes_log2);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

@@ -9,7 +9,9 @@ cuts the frames into segments where the token changes or a run grows past
 ``max_frames_per_phn`` frames, drops the blank (token 0) segments and
 writes each kept segment's mean latent, compacted left and zero-filled to
 T. It also returns each frame's output slot (-1 where dropped) and its
-segment's frame count, from which `trim_merge_bwd` gathers the gradient.
+segment's frame count, from which `trim_merge_bwd` gathers the gradient
+(`trim_merge_bwd_plan`: a group of lanes a frame, float4 where the rows
+allow, a programmatic dependent launch).
 The wrappers launch the kernels for CUDA tensors and run their plain
 PyTorch versions only for CPU tensors.
 """
@@ -63,6 +65,24 @@ def trim_merge_plan(T: int, C: int, D: int, *, tokens: bool = False) -> dict:
     stage = _trim_smem(T, C, D, chunk, depth, True) <= limit
     return dict(threads=TRIM_THREADS, chunk=chunk, depth=depth, stage_latent=stage,
                 smem_bytes=_trim_smem(T, C, D, chunk, depth, stage))
+
+
+BWD_THREADS = 256
+
+
+def trim_merge_bwd_plan(B: int, T: int, D: int, aligned: bool = True) -> dict:
+    """`trim_merge_bwd`'s launch plan: ``vec`` floats a load (4 where D % 4
+    == 0 and the rows are 16-byte aligned, else 1), ``lanes`` a frame (its
+    D / vec loads rounded up to a power of two, at most 32), ``frames`` a
+    CTA of `BWD_THREADS` threads and the ``grid`` (frame groups, B). The C
+    dispatch checks it."""
+    vec = 4 if D % 4 == 0 and aligned else 1
+    lanes = 1
+    while lanes < -(-D // vec) and lanes < 32:
+        lanes *= 2
+    frames = BWD_THREADS // lanes
+    return dict(vec=vec, lanes=lanes, frames=frames, threads=BWD_THREADS,
+                grid=(-(-T // frames), B))
 
 
 def _tokens(p_code, tokens):
@@ -142,9 +162,10 @@ def trim_merge_bwd(d_out, slot, count):
     build.require(count, (B, T), "trim_merge_bwd count")
     d_latent = torch.empty_like(d_out)
     if d_out.numel():
-        fn = build.bind("quantize", "trim_merge_bwd_f32", 4, 3)
+        plan = trim_merge_bwd_plan(B, T, D, (d_out.data_ptr() | d_latent.data_ptr()) % 16 == 0)
+        fn = build.bind("quantize", "trim_merge_bwd_f32", 4, 5)
         build.check(fn(d_out.data_ptr(), slot.data_ptr(), count.data_ptr(), d_latent.data_ptr(),
-                       B, T, D, build.stream()), "trim_merge_bwd")
+                       B, T, D, plan["vec"], plan["lanes"], build.stream()), "trim_merge_bwd")
         trim_merge_bwd.launches += 1
     return d_latent
 

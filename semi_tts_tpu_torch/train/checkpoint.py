@@ -2,7 +2,15 @@
 one ``np.savez`` archive behind a ``.pth`` name, holding flattened
 ``path -> array`` entries for the model / state / optimizer trees plus the
 step. Trees are nested dicts and lists of numpy arrays (see `bridge`), so
-either package reads the other's checkpoints."""
+either package reads the other's checkpoints.
+
+The optimizer tree is the JAX package's optax state of `Optimizer`'s chain
+(`optimizer_tree`): ``ApplyIfFiniteState(notfinite_count, last_finite,
+total_notfinite, (EmptyState() of the clip, ScaleByAdamState(count, mu,
+nu), ScaleByScheduleState(count)))``, ``mu`` and ``nu`` trees of the
+parameters' shape. A sequence is saved with its class name cut to 16
+characters, as the JAX package saves it; the JAX package reads the state
+back by leaf order, so the same key set is all it needs."""
 
 from __future__ import annotations
 
@@ -10,6 +18,26 @@ import json
 import os
 
 import numpy as np
+import torch
+
+from ..bridge import _flatten as _leaves
+from ..bridge import _unflatten as _tree
+
+
+class ApplyIfFiniteState(tuple):
+    """The optax state classes, by name only: `_flatten` saves the name."""
+
+
+class EmptyState(tuple):
+    pass
+
+
+class ScaleByAdamState(tuple):
+    pass
+
+
+class ScaleByScheduleState(tuple):
+    pass
 
 
 def _flatten(tree, prefix=""):
@@ -79,3 +107,68 @@ def load_checkpoint(path):
     out["global_step"] = step
     out["extra"] = extra
     return out
+
+
+def load_subtree(path, subtree_key, _ckpt=None):
+    """One module's params from a checkpoint, e.g. 'asr', 'codebook',
+    'tts/decoder'."""
+    ckpt = _ckpt if _ckpt is not None else load_checkpoint(path)
+    node = ckpt["model"]
+    for part in subtree_key.split("/"):
+        if part not in node:
+            raise KeyError(f"Missing pretrained module {subtree_key!r} in {path}")
+        node = node[part]
+    return node
+
+
+def _param_paths(model):
+    return [name.replace(".", "/") for name, _ in model.named_parameters()]
+
+
+def optimizer_tree(optimizer, model):
+    """`Optimizer`'s state as the JAX package's optax tree (numpy leaves);
+    ``optimizer`` holds ``model.parameters()`` in order."""
+    def host(t):
+        return t.detach().cpu().numpy().copy()
+
+    def moments(flat):
+        return _tree(dict(zip(_param_paths(model), (host(v) for v in optimizer.views(flat)))))
+
+    adam = ScaleByAdamState((host(optimizer.count), moments(optimizer.mu),
+                             moments(optimizer.nu)))
+    inner = (EmptyState(), adam, ScaleByScheduleState((host(optimizer.schedule_count),)))
+    return ApplyIfFiniteState((host(optimizer.notfinite_count), host(optimizer.last_finite),
+                               host(optimizer.total_notfinite), inner))
+
+
+def load_optimizer_tree(optimizer, model, tree):
+    """Set `Optimizer`'s state from an optax tree as `load_checkpoint`
+    returns it (`optimizer_tree`'s layout); raises on a missing, extra or
+    mis-shaped moment."""
+    notfinite, last_finite, total, inner = tree
+    _, (count, mu, nu), (schedule_count,) = inner
+    dev = optimizer.mu.device
+
+    def scalar(v, dtype):
+        return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev).reshape(())
+
+    def flat(moment_tree):
+        leaves = _leaves(moment_tree)
+        paths = _param_paths(model)
+        if set(leaves) != set(paths):
+            raise KeyError(f"optimizer moments: {sorted(set(leaves) ^ set(paths))[:5]} differ "
+                           "from the model's parameters")
+        parts = []
+        for path, p in zip(paths, optimizer.params):
+            if tuple(leaves[path].shape) != tuple(p.shape):
+                raise ValueError(f"optimizer moment {path!r}: shape {leaves[path].shape}, "
+                                 f"parameter {tuple(p.shape)}")
+            parts.append(torch.from_numpy(np.asarray(leaves[path], np.float32)).reshape(-1))
+        return torch.cat(parts).to(dev)
+
+    optimizer.mu, optimizer.nu = flat(mu), flat(nu)
+    optimizer.count = scalar(count, torch.int32)
+    optimizer.schedule_count = scalar(schedule_count, torch.int32)
+    optimizer.notfinite_count = scalar(notfinite, torch.int32)
+    optimizer.total_notfinite = scalar(total, torch.int32)
+    optimizer.last_finite = scalar(last_finite, torch.bool)

@@ -102,3 +102,12 @@ class Optimizer:
         self.total_notfinite = self.total_notfinite + (~finite).to(torch.int32)
         self.last_finite = finite
         return gnorm
+
+
+def advance_lr_schedule(optimizer, step: int) -> None:
+    """Fast-forward the schedule count of a fresh `Optimizer` to ``step``,
+    for a checkpoint that carries no optimizer state (an imported one):
+    the moments start at zero, so the Adam count stays 0 (it bias-corrects
+    them), but the learning rate continues from ``step`` instead of
+    restarting its warm-up."""
+    optimizer.schedule_count = torch.full_like(optimizer.schedule_count, int(step))

@@ -351,20 +351,22 @@ class StepBuilder:
 
     def make_eval_step(self):
         """The dev-set step: clean features -> ``speech_to_text(train=False)``
-        for PER, and a free-running decode of ``mel.shape[1] // r`` steps
-        (``tf_rate`` 0, no teacher) for the TTS loss ->
-        dict(mel, linear, p_code, post_prob, enc_len, mel_pred, lin_pred,
-        align, tts_loss). ``generator`` draws the prenet's dropout."""
+        for PER, and a free-running decode of ``(mel.shape[1] +
+        margin_frames) // r`` steps (``tf_rate`` 0, no teacher) for the TTS
+        loss -> dict(mel, linear, p_code, post_prob, enc_len, mel_pred,
+        lin_pred, align, tts_loss). ``generator`` draws the prenet's
+        dropout; ``margin_frames`` lets inference decode past the teacher's
+        length."""
 
         @torch.no_grad()
-        def step(model, waves, wave_len, text, sid, generator=None):
+        def step(model, waves, wave_len, text, sid, generator=None, *, margin_frames=0):
             cfg = self.cfg
             mel, linear, _, flen, _ = self._features(waves, wave_len, need_aug=False)
             p_code, _, post_prob = V.speech_to_text(model, cfg, self.phn_attr, mel,
                                                     paired_bs=mel.shape[0], train=False)
             lat = V.embed_text(model, cfg, self.phn_attr, text)
             mel_pred, lin_pred, align, _ = V.text_to_speech(
-                model, cfg, lat, sid, decode_steps=mel.shape[1] // self.r,
+                model, cfg, lat, sid, decode_steps=(mel.shape[1] + margin_frames) // self.r,
                 latent_lengths=(text != 0).sum(-1) + 1, generator=generator)
             T = mel.shape[1]
             tts_loss = self.floss(mel_pred[:, :T], mel)

@@ -11,6 +11,10 @@ and the featurizer live: the card, unless they were built with
 turns TF32 off (`use_fp32`), so the card computes in the fp32 the CPU path
 does, and asks cuDNN for deterministic algorithms (`use_deterministic`), so
 a step repeats bit for bit.
+
+`AsrSolver` is the CLI's ``--asr-only`` solver: `VqvaeSolver`'s data,
+model and checkpoints around `AsrTrainer`'s loop, which saves
+``best_per.pth`` when the dev PER improves.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from ..device import use_deterministic, use_fp32
 from ..models import vqvae as V
 from ..utils.metrics import cal_per
 from .steps import step_generator
-from .train_vqvae import PAIRED, VqvaeTrainer
+from .train_vqvae import PAIRED, VqvaeSolver, VqvaeTrainer
 
 
 def asr_loss_and_grads(builder, model, waves, wave_len, text, generator, *, augment=None):
@@ -88,13 +92,22 @@ class AsrTrainer(VqvaeTrainer):
         return self.validate_asr()
 
     def validate_asr(self) -> float:
-        """Mean phone error rate over the dev set; keeps the best."""
+        """Mean phone error rate over the dev set; keeps the best, and saves
+        ``best_per`` when it improves."""
         pers = []
         for i, (waves, wave_len, text, sid) in enumerate(self.dev_set):
             out = self._eval(i, waves, wave_len, text, sid)
             pers.append(cal_per(out["p_code"].cpu().numpy(), np.asarray(text.cpu()),
                                 pred_lens=out["enc_len"].cpu().numpy()))
         dev_per = sum(pers) / max(len(pers), 1)
-        self.best_per = min(self.best_per, dev_per)
+        if dev_per < self.best_per:
+            self.best_per = dev_per
+            self.save("best_per.pth", dev_per)
         self.log(self.step, "per/dev", dev_per)
         return dev_per
+
+
+class AsrSolver(VqvaeSolver):
+    """The ``--asr-only`` solver: supervised ASR steps on the paired split."""
+
+    trainer_class = AsrTrainer

@@ -11,11 +11,16 @@ progress step, with the logged metrics, into JAX's counters: ``ctc_nan``
 (text cycles whose unpaired CTC was not finite, and a non-finite total at
 the progress step), ``unp_sph`` (speech cycles that kept every row),
 ``unp_txt`` (text cycles), and the token usage of the kept speech cycles
-over the true encoder lengths. Left out for the solvers and utilities
-(ROADMAP A8, A10): the YAML solver around the trainer, TensorBoard (the
-alignment figures and the token-usage histogram), Griffin-Lim audio of dev
-predictions, checkpoint saving, the ``--profile`` window and resuming an
-imported checkpoint's schedule.
+over the true encoder lengths. `validate` keeps the best dev TTS loss and
+PER and, given a ``save`` callback, writes the checkpoints of the JAX
+trainer's policy.
+
+`VqvaeSolver` is the CLI's solver around the loop (counterpart of the JAX
+`VqvaeTrainer` solver): ``load_data`` (the corpus's loaders, their batches
+moved to the device), ``set_model`` (the YAML config, the model, the
+optimizer, the step builder, ``--load``) and ``exec``. Left out (ROADMAP
+A9, A10): the ``pretrained_*`` grafts, TensorBoard figures, audio and the
+codebook projector, and the ``--profile`` window.
 """
 
 from __future__ import annotations
@@ -23,9 +28,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.metrics import cal_per
-from .optim import tf_rate_schedule
-from .steps import step_generator
+from ..bridge import load_jax_params
+from ..data import load_dataset
+from ..data.loader import infinite
+from ..models import vqvae as V
+from ..utils.metrics import cal_per, human_format
+from .checkpoint import load_checkpoint, load_optimizer_tree
+from .optim import Optimizer, advance_lr_schedule, tf_rate_schedule
+from .solver import BaseSolver, DeviceBatches, TrainLog, to_device
+from .steps import StepBuilder, Weights, step_generator
+
+CKPT_STEP = 10000
 
 # (logged name, metric) after the first step and every progress step
 LOGGED = (("txt_loss/pair", "asr_loss"), ("speech_loss/pair", "tts_loss"),
@@ -45,11 +58,13 @@ class VqvaeTrainer:
     such batches) after the first step and every ``valid_step`` steps.
     ``tf_rate``: the teacher-forcing schedule (a function of the step;
     default 1.0). ``log`` receives (step, name, value). The loss weights and
-    start steps are the builder's."""
+    start steps are the builder's. ``save`` receives (file name, score) for
+    each checkpoint `validate` writes; ``store_best_per`` keeps only the
+    best-PER checkpoints, as ``--store-best-per``."""
 
     def __init__(self, model, builder, optimizer, *, pair_iter, dev_set, max_step: int,
                  valid_step: int, unpair_iter=None, progress_step: int = 20, seed: int = 0,
-                 tf_rate=None, log=None):
+                 tf_rate=None, log=None, save=None, store_best_per: bool = False):
         self.model = model
         self.builder = builder
         self.optimizer = optimizer
@@ -65,6 +80,8 @@ class VqvaeTrainer:
         self.best_tts_loss = 100.0
         self.best_per = 2.0
         self.log = log or (lambda step, name, value: None)
+        self.save = save or (lambda name, score: None)
+        self.store_best_per = store_best_per
         self.counters = dict.fromkeys(COUNTERS, 0)
         self.token_usage = np.zeros(0, np.int64)  # predicted tokens of the kept speech cycles
         self.text_usage = np.zeros(0, np.int64)   # their unpaired texts' tokens
@@ -169,7 +186,8 @@ class VqvaeTrainer:
 
     def validate(self):
         """Mean TTS loss and phone error rate over the dev set; keeps the
-        best of each. Returns (dev_tts_loss, dev_per)."""
+        best of each and writes the checkpoints of `keep_best`. Returns
+        (dev_tts_loss, dev_per)."""
         tts, pers, post_pers = [], [], []
         for i, (waves, wave_len, text, sid) in enumerate(self.dev_set):
             out = self._eval(i, waves, wave_len, text, sid)
@@ -180,12 +198,36 @@ class VqvaeTrainer:
             tts.append(float(out["tts_loss"]))
         dev_tts = sum(tts) / max(len(tts), 1)
         dev_per = sum(pers) / max(len(pers), 1)
-        self.best_tts_loss = min(self.best_tts_loss, dev_tts)
-        self.best_per = min([self.best_per, dev_per] + ([sum(post_pers) / len(post_pers)]
-                                                        if post_pers else []))
+        self.keep_best(dev_tts, dev_per, sum(post_pers) / len(post_pers) if post_pers else None)
         self.log(self.step, "speech_loss/dev", dev_tts)
         self.log(self.step, "per/dev", dev_per)
         return dev_tts, dev_per
+
+    def keep_best(self, dev_tts, dev_per, dev_post_per=None):
+        """The JAX trainer's checkpoint policy. By default: ``tts_{step}``
+        when the dev TTS loss improves, ``asr_{step}`` when the PER does
+        (neither at step 1), ``best_post_per`` when the ASR postnet's PER
+        beats the best PER; with ``store_best_per`` only ``best_per`` and
+        ``best_post_per``; and ``step_{step}`` every `CKPT_STEP` steps
+        unless ``store_best_per``."""
+        if self.store_best_per:
+            if dev_per < self.best_per:
+                self.best_per = dev_per
+                self.save("best_per.pth", dev_per)
+        else:
+            if dev_tts < self.best_tts_loss:
+                self.best_tts_loss = dev_tts
+                if self.step > 1:
+                    self.save(f"tts_{self.step}.pth", dev_tts)
+            if dev_per < self.best_per:
+                self.best_per = dev_per
+                if self.step > 1:
+                    self.save(f"asr_{self.step}.pth", dev_per)
+        if dev_post_per is not None and dev_post_per < self.best_per:
+            self.best_per = dev_post_per
+            self.save("best_post_per.pth", dev_post_per)
+        if self.step > 1 and self.step % CKPT_STEP == 0 and not self.store_best_per:
+            self.save(f"step_{self.step}.pth", dev_tts)
 
 
 def _add_counts(counts, tokens):
@@ -193,3 +235,88 @@ def _add_counts(counts, tokens):
     new = np.bincount(np.asarray(tokens, np.int64))
     n = max(len(counts), len(new))
     return np.pad(counts, (0, n - len(counts))) + np.pad(new, (0, n - len(new)))
+
+
+class VqvaeSolver(BaseSolver):
+    """The semi-supervised VQVAE trainer behind the CLI's default mode:
+    the corpus's loaders, the model and optimizer of the YAML config, and
+    `VqvaeTrainer`'s loop with the JAX trainer's checkpoint policy. The
+    model is initialized from a generator seeded with ``--seed`` and the
+    steps draw from generators of (seed, step); ``--load`` resumes a
+    checkpoint of either package: params, BatchNorm statistics, the
+    optimizer state (or, where a checkpoint has none, the schedule advanced
+    to its step), the step and the best-metric watermarks."""
+
+    trainer_class = VqvaeTrainer
+
+    def __init__(self, config, paras, mode):
+        super().__init__(config, paras, mode)
+        h = config["hparas"]
+        self.weights = Weights(h["asr_weight"], h["tts_weight"], h["unpair_text_weight"],
+                               h["unpair_speech_weight"], h["unpair_text_start_step"],
+                               h["unpair_speech_start_step"])
+
+    def load_data(self):
+        self.verbose(["Loading data... large corpus may took a while."])
+        (self.unpair_set, self.pair_set, self.dev_set, self.test_set,
+         self.featurizer, self.tokenizer, data_msg) = load_dataset(
+            self.paras.njobs, not self.paras.cpu, self.paras.pin_memory, seed=self.paras.seed,
+            device=self.device, **self.config["data"])
+        self.data_dims()
+        self.verbose(data_msg)
+
+    def set_model(self):
+        h = self.config["hparas"]
+        self.model_cfg, self.phn_attr = self.model_config()
+        g = torch.Generator().manual_seed(self.paras.seed)
+        self.model = V.VQVAE(self.model_cfg, generator=g).to(self.device)
+        self.optimizer = Optimizer(self.model.parameters(), h["optimizer"], h["lr"],
+                                   h["lr_scheduler"])
+        self.builder = StepBuilder(self.model_cfg, self.featurizer, self.phn_attr,
+                                   weights=self.weights, freq_loss_kwargs=self.freq_loss_kwargs(),
+                                   actual_len=getattr(self.paras, "actual_len", False))
+        w = self.weights
+        self.verbose(["Optim.spec.| Algo. = {}\t| Lr/sampling scheduler = {}/{}".format(
+            h["optimizer"], h["lr_scheduler"], h.get("tf_end", 1.0) != 1),
+            f"           | ASR weight = {w.asr}\t| TTS weight = {w.tts}",
+            f"           | Txt weight = {w.unpair_text}\t| start step = {w.unpair_text_start}",
+            f"           | Sph weight = {w.unpair_speech}\t| start step = {w.unpair_speech_start}"])
+        self.trainer = self.trainer_class(
+            self.model, self.builder, self.optimizer,
+            pair_iter=(to_device(b, self.device) for b in infinite(self.pair_set)),
+            unpair_iter=(to_device(b, self.device) for b in infinite(self.unpair_set)),
+            dev_set=DeviceBatches(self.dev_set, self.device), max_step=self.max_step,
+            valid_step=self.valid_step, progress_step=self._PROGRESS_STEP, seed=self.paras.seed,
+            tf_rate=tf_rate_schedule(h.get("tf_start", 1.0), h.get("tf_end", 1.0),
+                                     h.get("tf_step", 1)),
+            log=TrainLog(self), save=self.save,
+            store_best_per=getattr(self.paras, "store_best_per", False))
+        if self.paras.load:
+            self.load(self.paras.load)
+
+    def load(self, path):
+        """Resume from the checkpoint at ``path``."""
+        ckpt = load_checkpoint(path)
+        load_jax_params(self.model, ckpt["model"], ckpt["state"])
+        if ckpt["optimizer"] is None:
+            advance_lr_schedule(self.optimizer, ckpt["global_step"])
+        else:
+            load_optimizer_tree(self.optimizer, self.model, ckpt["optimizer"])
+        self.step = self.trainer.step = ckpt["global_step"]
+        extra = ckpt.get("extra") or {}
+        self.trainer.best_tts_loss = extra.get("best_tts_loss", self.trainer.best_tts_loss)
+        self.trainer.best_per = extra.get("best_per", self.trainer.best_per)
+        self.verbose(f"Load ckpt from {path}, restarting at step {self.step}")
+
+    def save(self, f_name, score):
+        """A checkpoint of the trainer's model and optimizer, with the
+        best-metric watermarks in its ``extra``."""
+        self.step = self.trainer.step
+        self.save_checkpoint_triple(
+            f_name, score, model=self.model, optimizer=self.optimizer,
+            extra={"best_tts_loss": float(self.trainer.best_tts_loss),
+                   "best_per": float(self.trainer.best_per)})
+
+    def exec(self):
+        self.verbose(f"Total training steps {human_format(self.max_step)}.")
+        self.trainer.exec()

@@ -68,3 +68,12 @@ def cal_per(pred, truth, ignore=IGNORE_INDICES, pred_lens=None) -> float:
         t = [v for v in t.tolist() if v not in ignore]
         ers.append(edit_distance(p, t) / len(t))
     return sum(ers) / len(ers)
+
+
+def human_format(num):
+    """``num`` with a K/M/G/T/P suffix, as the progress lines print steps."""
+    magnitude = 0
+    while num >= 1000:
+        magnitude += 1
+        num /= 1000.0
+    return "{:3}{}".format(num, [" ", "K", "M", "G", "T", "P"][magnitude])

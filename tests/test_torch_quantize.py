@@ -270,3 +270,60 @@ def test_trim_merge_replay_matches_plain_and_jax(case, max_f):
     j_out, j_len, _ = j_trim_merge(jnp.asarray(p), jnp.asarray(latent), max_frames_per_phn=max_f)
     np.testing.assert_array_equal(got[1], np.asarray(j_len))
     np.testing.assert_allclose(got[0], np.asarray(j_out), rtol=0, atol=ATOL)
+
+
+# ---------------- B6 trim_merge_bwd: its launch plan and a replay of its gather ----------------
+
+@pytest.mark.parametrize("D,aligned,vec,lanes", [(64, True, 4, 16), (64, False, 1, 32),
+                                                 (12, True, 4, 4), (3, True, 1, 4),
+                                                 (256, True, 4, 32), (1, True, 1, 1)])
+def test_trim_merge_bwd_plan(D, aligned, vec, lanes):
+    """float4 loads only where D % 4 == 0 and the rows are aligned; the
+    lanes a frame cover its loads (a power of two, at most 32); a CTA of
+    256 threads; a grid of (frame groups, B): two frames a warp at D=64."""
+    plan = B6.trim_merge_bwd_plan(8, 133, D, aligned)
+    assert (plan["vec"], plan["lanes"]) == (vec, lanes)
+    assert plan["frames"] * plan["lanes"] == plan["threads"] == 256
+    assert plan["grid"] == (-(-133 // plan["frames"]), 8)
+
+
+def _b6_bwd_replay(d_out, slot, count, plan):
+    """`trim_merge_bwd_kernel` in numpy: a CTA a group of ``frames`` frames
+    of one batch row, a group of ``lanes`` lanes a frame whose first lane
+    reads the slot and count, ``vec`` floats a load at lane-strided
+    offsets, each element divided by the count."""
+    B, T, D = d_out.shape
+    out = np.full((B, T, D), np.nan, np.float32)
+    gx, gy = plan["grid"]
+    for b in range(gy):
+        for cta in range(gx):
+            for f in range(plan["frames"]):
+                t = cta * plan["frames"] + f
+                if t >= T:
+                    continue
+                s, c = slot[b, t], count[b, t]   # the group's first lane, by shuffle
+                for lane in range(plan["lanes"]):
+                    for k in range(lane, D // plan["vec"], plan["lanes"]):
+                        cols = slice(k * plan["vec"], (k + 1) * plan["vec"])
+                        out[b, t, cols] = (d_out[b, s, cols] / c if s >= 0
+                                           else np.float32(0.0))
+    return out
+
+
+@pytest.mark.parametrize("B,T,D,aligned", [(8, 133, 64, True), (1, 40, 64, False),
+                                           (3, 50, 12, True), (2, 17, 3, True)])
+def test_trim_merge_bwd_replay_matches_plain(B, T, D, aligned):
+    """The replayed gather writes every element once and equals the plain
+    version bit for bit, on slots and counts of the forward on long runs
+    (some frames dropped, segments of 1 to 4 frames)."""
+    rng = np.random.RandomState(B * T + D)
+    p = np.full((B, T, 5), 0.01, np.float32)
+    p[np.arange(B)[:, None], np.arange(T)[None, :], (np.arange(T)[None, :] // 5
+                                                      + np.arange(B)[:, None]) % 5] = 1.0
+    latent = rng.randn(B, T, D).astype(np.float32)
+    _, _, slot, count = B6.trim_merge_plain(torch.from_numpy(p), torch.from_numpy(latent), 3)
+    assert (slot < 0).any() and (slot >= 0).any()
+    d_out = rng.randn(B, T, D).astype(np.float32)
+    want = B6.trim_merge_bwd_plain(torch.from_numpy(d_out), slot, count).numpy()
+    got = _b6_bwd_replay(d_out, slot.numpy(), count.numpy(), B6.trim_merge_bwd_plan(B, T, D, aligned))
+    np.testing.assert_array_equal(got, want)

@@ -136,6 +136,40 @@ def test_synthesize_full_matches_jax(served):
     np.testing.assert_array_equal(again, got["wav"])  # same key, same request result
 
 
+def test_serving_adversarial_inputs(served):
+    """The twin of the JAX package's `tests/test_serve.py`
+    `test_serving_adversarial_inputs` (its mesh case left out: the port
+    runs on one device): all-pad text, U=1 and B=1 give finite audio of
+    JAX's shape; the decode budget lands on a step-bucket multiple, at least
+    the raw need, and equals JAX's for U = 1..63; decode_steps 0 and -1
+    raise ValueError on both servers."""
+    *_, jserver, pserver = served
+    pad_text, sid = np.zeros((2, 9), np.int32), np.zeros(2, np.int32)
+    steps = pserver.decode_steps_for(pad_text)
+    assert steps >= 1 and steps % pserver.step_bucket == 0
+    assert steps == jserver.decode_steps_for(pad_text)
+    one = np.full((1, 1), 5, np.int32)
+    for text, s in ((pad_text, sid), (one, sid[:1])):
+        want = jserver.synthesize(text, s, jax.random.PRNGKey(0), decode_steps=4)
+        got = pserver.synthesize(text, s, key=0, decode_steps=4)
+        assert got.shape == want.shape and got.shape[0] == text.shape[0]
+        assert np.isfinite(got).all() and np.abs(got).max() <= 1.0
+
+    r, b = pserver.cfg.n_frames_per_step, pserver.step_bucket
+    for U in range(1, 64):
+        need = (int((U + 1) * PV.FRAME_PHN_RATIO) + 40 + r - 1) // r
+        t = np.full((1, U), 5, np.int32)
+        got = pserver.decode_steps_for(t)
+        assert got % b == 0 and got >= need and got == jserver.decode_steps_for(t)
+
+    text, s = _requests()
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="decode_steps"):
+            pserver.synthesize(text, s, decode_steps=bad)
+        with pytest.raises(ValueError, match="decode_steps"):
+            jserver.synthesize(text, s, decode_steps=bad)
+
+
 def test_bridge_round_trip_is_exact(served):
     _, _, params, state, _, pserver = served
     model = PV.VQVAE(pserver.cfg, generator=torch.Generator())  # the serving model
@@ -285,4 +319,6 @@ def test_port_imports_no_jax_pandas_or_module_level_yaml():
         for name, funcs in _imports(tree):
             assert name not in FORBIDDEN, f"{path} imports {name}"
             if name == "yaml":
-                assert funcs == ["from_checkpoint"], f"{path} imports yaml outside from_checkpoint"
+                # read where a YAML config is: the server's checkpoint loader, the CLI's main
+                where = ["main"] if path.endswith("__main__.py") else ["from_checkpoint"]
+                assert funcs == where, f"{path} imports yaml outside {where[0]}"
