@@ -86,7 +86,19 @@ Phases, each fatal on failure:
    repeats step 3 bit for bit; `SpecgramGenerator` with --gen-wav writes
    the test split's mel, linear, alignment and Griffin-Lim wave files. The
    kernels of both paths must launch; the solver's step wall is reported
-   beside the bare steps' of phases 6 and 7.
+   beside the bare steps' of phases 6 and 7;
+9. LM pretraining at the same width on that corpus (`phase_pretrain`):
+   ``--pretrain-text`` and ``--pretrain-speech`` through `TextLmSolver` and
+   `AudioLmSolver`, 4 steps each validated every 2, each writing its
+   checkpoint; the launches of one step of each (the text LM: K1 with cell
+   states and K7 once each, one direction; the audio LM: K5, K2 and K8 and
+   no K3 or K9), their walls, peak memory and a profiled step; one step of
+   each on the card against the CPU plain path (every dropout 0); then both
+   checkpoints and phase 8's checkpoint (as ``pretrained_asr``) grafted
+   into a `VqvaeSolver`: every grafted leaf and the postnet's BatchNorm
+   statistics equal the files' bit for bit, the TTS text encoder a cold
+   solver's; two fine-tune steps. RNNLM at its default 512 units must raise
+   its plan's ValueError at its first launch (LSTM and GRU).
 
 Every card-vs-CPU check holds the gradients in all and leaf by leaf in L2;
 a leaf behind a ReLU or max-pool (``KINKED_LEAVES``) to max(1e-3, KINK_K x
@@ -102,13 +114,18 @@ phase 3 at their step's shapes and at ragged ones; K3 also at the memory
 lengths 1 and 2 of an all-pad or one-token request. A row's ``launches`` counts one serving
 request (K1-K4), one ASR train step (K5-K7, K1 with cell states), one
 paired train step (K8, K9) or one speech-first step (B6), as its
-``launches_per`` says; ``launches_by_path`` has all five paths.
+``launches_per`` says; ``launches_by_path`` has every path, the two LM
+steps' included. K1 with cell states and K7 are also held and timed at the
+text LM's one-direction shape, K2 and K8 at one direction and H=128
+(``ms_by_shape``, beside cuDNN's unidirectional LSTM and GRU in
+``library_ms_by_shape``).
 
 Prints a ``{"ptxas": ...}`` line (registers and spills of the recurrence
 and attention kernels), an ``{"asr_shape": ...}`` line, a ``{"featurizer": ...}`` line, a
 ``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, a
 ``{"training": ...}`` line, a ``{"paired": ...}`` line, a ``{"cycles": ...}``
-line, a ``{"cli": ...}`` line and, last,
+line, a ``{"cli": ...}`` line, a ``{"pretrain": ...}`` line (with the
+card's name and power limit) and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -117,13 +134,16 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -169,6 +189,11 @@ PAIRED_KERNELS = ("bigru_rec_bwd", "attention_step_bwd")
 PAIRED_STEP_KERNELS = TRAINING_KERNELS + ("bigru_rec", "attention_step") + PAIRED_KERNELS
 VALIDATION_KERNELS = ("stft_frames", "spec_db", "bilstm_rec", "bigru_rec", "attention_step")
 PAIRED_T = 243                  # clean mel frames of a 3.0 s utterance, padded to r = 3
+# the text LM's LSTM (one direction): U=32 tokens -> T=31 inputs, B=8, 256 units over
+# the codebook table's 48 (64 - 16) learnable dims; RNNLM-GRU's one direction at K2's
+# largest width
+TEXTLM_T, TEXTLM_H, TEXTLM_D = 31, 256, 48
+GRU_LM_T, GRU_LM_H = 31, 128
 HOP = int(FLAGSHIP_AUDIO["frame_shift_ms"] / 1000 * FLAGSHIP_AUDIO["sample_rate"])
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 FP32_FLOP_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
@@ -179,7 +204,9 @@ def phase_device():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    return card
 
 
 def time_ms(fn, iters):
@@ -314,6 +341,9 @@ def _case_gru(randn, unif, dev):
     checks += [(lambda r=r: k12.gru_rec(r, w_hh[0], b_hh[0], x_proj[0]),
                 lambda r=r: k12.gru_rec_plain(r, w_hh[0], b_hh[0], x_proj[0]))
                for r in (False, True)]
+    one, gru1, x1 = _gru_one_dir(randn, unif, GRU_LM_T, TRAIN_B, GRU_LM_H, dev)
+    key = shape_key(GRU_LM_T, TRAIN_B, GRU_LM_H, 1)
+    cost1 = _gru_cost(GRU_LM_T, TRAIN_B, GRU_LM_H, 1)
     return dict(
         name="bigru_rec", replaces="semi_tts_tpu/ops/rnn.py:225 (_gru_rec_fwd), both directions",
         source="semi_tts_tpu_torch/csrc/rnn.cu",
@@ -321,9 +351,58 @@ def _case_gru(randn, unif, dev):
         kernel=lambda: k12.bigru_rec(*args), plain=lambda: k12.bigru_rec_plain(*args),
         checks=checks,
         library=lambda: gru(x_in),
-        library_note="cuDNN nn.GRU(bidirectional=True), includes the input GEMM; graph-timed",
-        tol=1e-4, nbytes=2 * 4 * (T * B * 3 * H + 3 * H * H + 3 * H + T * B * H),
-        flops=2 * 2 * T * B * 3 * H * H, iters=10)
+        library_note="cuDNN nn.GRU(bidirectional=True), includes the input GEMM; graph-timed; "
+        "by shape: nn.GRU() one direction",
+        tol=1e-4, nbytes=_gru_cost(T, B, H)[0], flops=_gru_cost(T, B, H)[1], iters=10,
+        timed={key: lambda: k12.bigru_rec(*one)}, timed_plain={key: lambda: k12.bigru_rec_plain(*one)},
+        timed_library={key: lambda: gru1(x1)},
+        extra={"bound_ms_by_shape": {key: bound(*cost1)[0]},
+               "plans_by_shape": {key: k12.gru_plan(TRAIN_B, GRU_LM_H, 1)}})
+
+
+def _gru_cost(T, B_, H, ndir=2):
+    """(bytes moved, FLOPs) of one K2 call: x_proj in, hs out, W_hh and b_hh
+    per direction; the step products."""
+    return ndir * 4 * (T * B_ * 3 * H + 3 * H * H + 3 * H + T * B_ * H), ndir * 2 * T * B_ * 3 * H * H
+
+
+def _lstm_one_dir(randn, unif, T, B_, H, D, dev):
+    """K1 with cell states at ndir=1 (the text LM's layer): its arguments,
+    a unidirectional cuDNN LSTM on the layer's input, and that input."""
+    w_ih, bias, w_hh = unif(4 * H, D, a=H ** -0.5), unif(4 * H, a=H ** -0.5), unif(4 * H, H, a=H ** -0.5)
+    x_in = randn(T, B_, D)
+    lstm = torch.nn.LSTM(D, H).to(dev)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(w_ih)
+        lstm.weight_hh_l0.copy_(w_hh)
+        lstm.bias_ih_l0.copy_(bias)
+        lstm.bias_hh_l0.zero_()
+    return (w_hh, None, (x_in @ w_ih.T + bias).contiguous(), None), lstm, x_in
+
+
+def _gru_one_dir(randn, unif, T, B_, H, dev):
+    """K2 at ndir=1 (RNNLM-GRU's layer): its arguments, a unidirectional
+    cuDNN GRU on the layer's input (D = H), and that input."""
+    w_ih, b_ih = unif(3 * H, H, a=H ** -0.5), unif(3 * H, a=H ** -0.5)
+    w_hh, b_hh = unif(3 * H, H, a=H ** -0.5), unif(3 * H, a=H ** -0.5)
+    x_in = randn(T, B_, H)
+    gru = torch.nn.GRU(H, H).to(dev)
+    with torch.no_grad():
+        for n, t in (("weight_ih_l0", w_ih), ("weight_hh_l0", w_hh), ("bias_ih_l0", b_ih),
+                     ("bias_hh_l0", b_hh)):
+            getattr(gru, n).copy_(t)
+    return (w_hh, None, b_hh, None, (x_in @ w_ih.T + b_ih).contiguous(), None), gru, x_in
+
+
+def _library_backward(module, x_in, randn):
+    """The backward of a cuDNN RNN ``module`` on ``x_in``: data and weight
+    gradients, for eager timing."""
+    x = x_in.clone().requires_grad_(True)
+    with torch.enable_grad():
+        y, _ = module(x)
+    gy = randn(*y.shape)
+    leaves = [x] + list(module.parameters())
+    return lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True)
 
 
 def ptxas_report(log):
@@ -788,10 +867,10 @@ def _lstm_bwd_cost(T, B_, H, ndir=2):
             2 * ndir * T * B_ * 4 * H * H)
 
 
-def _gru_bwd_cost(T, B_, H):
-    """(bytes moved, FLOPs) of one K8 call (both directions): z, coef_h,
-    g_hs and dh2, W_hh per direction; the step products."""
-    return 4 * (T * B_ * H * 12 + 2 * 3 * H * H), 2 * 2 * T * B_ * 3 * H * H
+def _gru_bwd_cost(T, B_, H, ndir=2):
+    """(bytes moved, FLOPs) of one K8 call: z, coef_h, g_hs and dh2, W_hh per
+    direction; the step products."""
+    return ndir * 4 * (T * B_ * H * 6 + 3 * H * H), ndir * 2 * T * B_ * 3 * H * H
 
 
 def shape_key(T, B_, H, ndir=2):
@@ -810,10 +889,13 @@ def _timed_by_shape(shapes, inputs, kernel, plain, cost, key=shape_key):
 
 # (T, B, H, ndir) of K7 in the train steps: the ASR BiLSTM (T=133) on 8
 # (ASR and paired steps) or 16 rows (cycles), the TTS encoder's (T=32 tokens)
-# on 8 or 16 rows; the run adds any other shape the steps give the wrappers
-K7_SHAPES = ((133, 8, 256, 2), (133, 16, 256, 2), (32, 8, 256, 2), (32, 16, 256, 2))
-# (T, B, H) of K8, the CBHG BiGRU over the paired (8) or paired + unpaired (16) rows
-K8_SHAPES = ((PAIRED_T, 8, 80), (PAIRED_T, 16, 80))
+# on 8 or 16 rows; the text LM's one direction; the run adds any other shape the steps
+# give the wrappers
+K7_SHAPES = ((133, 8, 256, 2), (133, 16, 256, 2), (32, 8, 256, 2), (32, 16, 256, 2),
+             (TEXTLM_T, 8, TEXTLM_H, 1))
+# (T, B, H, ndir) of K8, the CBHG BiGRU over the paired (8) or paired + unpaired (16)
+# rows, and RNNLM-GRU's one direction at H=128
+K8_SHAPES = ((PAIRED_T, 8, 80, 2), (PAIRED_T, 16, 80, 2), (GRU_LM_T, 8, GRU_LM_H, 1))
 
 
 def _case_lstm_bwd(randn, unif, dev):
@@ -840,6 +922,7 @@ def _case_lstm_bwd(randn, unif, dev):
         y, _ = lstm(x)
     gy = randn(*y.shape)
     leaves = [x] + list(lstm.parameters())
+    _, lstm1, x1 = _lstm_one_dir(randn, unif, TEXTLM_T, TRAIN_B, TEXTLM_H, TEXTLM_D, dev)
     return dict(
         name="bilstm_rec_bwd", replaces="semi_tts_tpu/ops/rnn.py:114 (_lstm_rec_bwd, the "
         "backward scan of the custom VJP of _lstm_rec), both directions",
@@ -850,9 +933,11 @@ def _case_lstm_bwd(randn, unif, dev):
         library=lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True),
         library_timing="eager",
         library_note="the backward of cuDNN nn.LSTM(bidirectional=True): also the input "
-        "GEMM's data and weight gradients and dW_hh (CUDA events, eager)", tol=1e-4,
+        "GEMM's data and weight gradients and dW_hh (CUDA events, eager); by shape: "
+        "nn.LSTM() one direction", tol=1e-4,
         nbytes=_lstm_bwd_cost(T, TRAIN_B, H)[0], flops=_lstm_bwd_cost(T, TRAIN_B, H)[1], iters=10,
         timed=timed, timed_plain=timed_plain,
+        timed_library={shape_key(TEXTLM_T, TRAIN_B, TEXTLM_H, 1): _library_backward(lstm1, x1, randn)},
         extra={"plan": k17.lstm_bwd_plan(TRAIN_B, H, 2, k17.max_clusters(H, "lstm_rec_bwd")),
                "bound_ms_by_shape": bounds})
 
@@ -871,6 +956,9 @@ def _case_lstm_cs(randn, unif, dev):
     checks.append((lambda: k17.bilstm_rec_cs(one[0], None, one[2], None),
                    lambda: k17.bilstm_rec_cs_plain(one[0], None, one[2], None)))
     lstm, x_in = torch.nn.LSTM(D, H, bidirectional=True).to(dev), randn(T, TRAIN_B, D)
+    lm_args, lstm1, x1 = _lstm_one_dir(randn, unif, TEXTLM_T, TRAIN_B, TEXTLM_H, TEXTLM_D, dev)
+    key = shape_key(TEXTLM_T, TRAIN_B, TEXTLM_H, 1)
+    cost1 = _lstm_cs_cost(TEXTLM_T, TRAIN_B, TEXTLM_H, 1)
     return dict(
         name="bilstm_rec_cs", replaces="tools/proto_pallas_rnn.py:33 (pallas_lstm_rec); "
         "semi_tts_tpu/ops/rnn.py:95 (_lstm_rec_fwd, which keeps cs for the backward)",
@@ -879,32 +967,50 @@ def _case_lstm_cs(randn, unif, dev):
         kernel=lambda: k17.bilstm_rec_cs(*args), plain=lambda: k17.bilstm_rec_cs_plain(*args),
         checks=checks, library=lambda: lstm(x_in),
         library_note="cuDNN nn.LSTM(bidirectional=True) forward, includes the input GEMM; "
-        "graph-timed", tol=1e-4,
-        nbytes=2 * 4 * (T * TRAIN_B * 4 * H + 4 * H * H + 2 * T * TRAIN_B * H),
-        flops=2 * 2 * T * TRAIN_B * 4 * H * H, iters=10)
+        "graph-timed; by shape: nn.LSTM() one direction", tol=1e-4,
+        nbytes=_lstm_cs_cost(T, TRAIN_B, H)[0], flops=_lstm_cs_cost(T, TRAIN_B, H)[1], iters=10,
+        timed={key: lambda: k17.bilstm_rec_cs(*lm_args)},
+        timed_plain={key: lambda: k17.bilstm_rec_cs_plain(*lm_args)},
+        timed_library={key: lambda: lstm1(x1)},
+        extra={"bound_ms_by_shape": {key: bound(*cost1)[0]},
+               "plans_by_shape": {key: k17.lstm_plan(TRAIN_B, TEXTLM_H, 1,
+                                                     k17.max_clusters(TEXTLM_H))}})
 
 
-def _gru_bwd_inputs(randn, unif, T, B_, H):
-    """Both directions' W_hh, update gates z (T, B, H), coefficients coef_h
-    (T, B, 3H), and the gradient of hs (T, B, 2H)."""
-    w = [unif(3 * H, H, a=H ** -0.5) for _ in range(2)]
-    z = [torch.sigmoid(randn(T, B_, H)) for _ in range(2)]
-    return w + z + [randn(T, B_, 3 * H, scale=0.3) for _ in range(2)] + [randn(T, B_, 2 * H)]
+def _lstm_cs_cost(T, B_, H, ndir=2):
+    """(bytes moved, FLOPs) of one K1 call with cell states: x_proj in, hs
+    and cs out, W_hh per direction; the step products."""
+    return ndir * 4 * (T * B_ * 4 * H + 4 * H * H + 2 * T * B_ * H), ndir * 2 * T * B_ * 4 * H * H
+
+
+def _gru_bwd_inputs(randn, unif, T, B_, H, ndir=2):
+    """Each direction's W_hh, update gates z (T, B, H) and coefficients
+    coef_h (T, B, 3H), the second direction's None for one, and the gradient
+    of hs (T, B, ndir*H)."""
+    w = [unif(3 * H, H, a=H ** -0.5) for _ in range(ndir)]
+    z = [torch.sigmoid(randn(T, B_, H)) for _ in range(ndir)]
+    c = [randn(T, B_, 3 * H, scale=0.3) for _ in range(ndir)]
+    if ndir == 1:
+        w, z, c = w + [None], z + [None], c + [None]
+    return w + z + c + [randn(T, B_, ndir * H)]
 
 
 def _case_gru_bwd(randn, unif, dev):
     """K8 at the CBHG BiGRU's paired-step shape (T=243, B=8, H=80, both
-    directions in one launch); also at T=37, B=3, H=50, at T=1, and at
-    H=128, the largest K2 takes. Timed at every shape of `K8_SHAPES`."""
+    directions in one launch); also at T=37, B=3, H=50, at T=1, at H=128,
+    the largest K2 takes, and one direction. Timed at every shape of
+    `K8_SHAPES`, the one-direction shape beside cuDNN's unidirectional GRU
+    backward (``library_ms_by_shape``)."""
     from semi_tts_tpu_torch.kernels import rnn as k8
 
     T, H = PAIRED_T, 80
     args = _gru_bwd_inputs(randn, unif, T, TRAIN_B, H)
     timed, timed_plain, bounds = _timed_by_shape(
-        K8_SHAPES, lambda T_, B_, H_: _gru_bwd_inputs(randn, unif, T_, B_, H_),
+        K8_SHAPES, lambda T_, B_, H_, n: _gru_bwd_inputs(randn, unif, T_, B_, H_, n),
         k8.bigru_rec_bwd, k8.bigru_rec_bwd_plain, _gru_bwd_cost)
     others = [_gru_bwd_inputs(randn, unif, 37, 3, 50), _gru_bwd_inputs(randn, unif, 1, 3, H),
-              _gru_bwd_inputs(randn, unif, 20, 5, 128)]
+              _gru_bwd_inputs(randn, unif, 20, 5, 128), _gru_bwd_inputs(randn, unif, 37, 3, H, 1)]
+    _, gru1, x1 = _gru_one_dir(randn, unif, GRU_LM_T, TRAIN_B, GRU_LM_H, dev)
     gru = torch.nn.GRU(H, H, bidirectional=True).to(dev)
     x = randn(T, TRAIN_B, H).requires_grad_(True)
     with torch.enable_grad():
@@ -922,7 +1028,9 @@ def _case_gru_bwd(randn, unif, dev):
         library=lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True),
         library_timing="eager",
         library_note="the backward of cuDNN nn.GRU(bidirectional=True): also the input GEMM's "
-        "data and weight gradients and dW_hh (CUDA events, eager)", tol=1e-4,
+        "data and weight gradients and dW_hh (CUDA events, eager); by shape: nn.GRU() one "
+        "direction", tol=1e-4,
+        timed_library={shape_key(GRU_LM_T, TRAIN_B, GRU_LM_H, 1): _library_backward(gru1, x1, randn)},
         nbytes=_gru_bwd_cost(T, TRAIN_B, H)[0], flops=_gru_bwd_cost(T, TRAIN_B, H)[1], iters=10,
         timed=timed, timed_plain=timed_plain, extra={"plan": k8.gru_bwd_plan(TRAIN_B, H, 2),
                                                      "bound_ms_by_shape": bounds})
@@ -1176,7 +1284,8 @@ def record_recurrence_shapes():
 
     wrap(ops_rnn, "bilstm_rec_bwd", lambda w_f, w_b, g_f, g_b, *_: (
         *g_f.shape[:2], w_f.shape[1], 1 if g_b is None else 2))
-    wrap(ops_rnn, "bigru_rec_bwd", lambda w_f, w_b, z_f, *_: (*z_f.shape[:2], w_f.shape[1]))
+    wrap(ops_rnn, "bigru_rec_bwd", lambda w_f, w_b, z_f, *_: (
+        *z_f.shape[:2], w_f.shape[1], 1 if w_b is None else 2))
     for name in ("ctc_alpha", "ctc_beta_grad"):
         wrap(ops_ctc, name, lambda lp, tg, *_: (*lp.shape, 2 * tg.shape[1] + 1))
     return seen
@@ -1280,6 +1389,9 @@ def phase_kernels(dev):
             if "timed_plain" in c:
                 row["plain_ms_by_shape"] = {k: device_ms(f, max(2, c["iters"] // 40))
                                             for k, f in c["timed_plain"].items()}
+            if "timed_library" in c:
+                row["library_ms_by_shape"] = {k: lib_time(f, c["iters"])
+                                              for k, f in c["timed_library"].items()}
             if "tiles" in c:
                 row["ms_by_tile"] = {n: device_ms(lambda n=n: c["tiles"](n), c["iters"])
                                      for n in c["tile_options"]}
@@ -2162,7 +2274,7 @@ def state_of(solver):
                                    opt.notfinite_count, opt.total_notfinite, opt.last_finite)])
 
 
-def phase_cli(bare_walls):
+def phase_cli(bare_walls, keep):
     """The CLI's solvers at flagship width on a synthetic corpus, through
     `load_data -> set_model -> exec`: `VqvaeSolver` trains CLI_STEPS steps
     (paired, text-first, speech-first, text-first) validating every
@@ -2176,7 +2288,8 @@ def phase_cli(bare_walls):
     of the expected shape). The kernel launches of the training and of the
     generation; the solver's step wall (the loader's next batch and the
     step) beside the bare steps' of phases 6 and 7; the generation's wall
-    per utterance; peak memory."""
+    per utterance; peak memory. Copies the checkpoint it resumed from to
+    ``keep``."""
     import tempfile
 
     from semi_tts_tpu_torch import kernels
@@ -2241,6 +2354,7 @@ def phase_cli(bare_walls):
                              f"names {want}")
         ckpt = next(os.path.join(solver.ckpdir, n) for n in sorted(os.listdir(solver.ckpdir))
                     if n.endswith("_2.pth"))
+        shutil.copy(ckpt, keep)
 
         resumed = VqvaeSolver(config, cli_paras(root, name="cli_resumed", load=ckpt), "train")
         resumed.load_data()
@@ -2305,8 +2419,229 @@ def phase_cli(bare_walls):
                 peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches)
 
 
+PRETRAIN_STEPS, PRETRAIN_VALID = 4, 2   # 1 warm-up and 3 timed steps of each LM
+LM_KERNELS = {"text": ("bilstm_rec_cs", "bilstm_rec_bwd"),
+              "speech": ("stft_frames", "spec_db", "bigru_rec", "bigru_rec_bwd")}
+LM_ABSENT = {"text": (), "speech": ("attention_step", "attention_step_bwd")}
+# the audio LM's leaves behind a ReLU or max-pool (`KINKED_LEAVES` without the tts prefix)
+LM_KINKED = re.compile(r"^(postnet\.cbhg\.(banks|projs|pre_highway|highways)\."
+                       r"|decoder\.(prenet|pseudo_std)\.)")
+NDIR_WRAPPERS = ("bilstm_rec_cs", "bilstm_rec_bwd", "bigru_rec", "bigru_rec_bwd")
+
+
+@contextlib.contextmanager
+def directions_launched():
+    """Yields a list that collects (wrapper, number of directions) for every
+    call of the recurrences' wrappers through ``ops/rnn.py`` on the card."""
+    from semi_tts_tpu_torch.ops import rnn as ops_rnn
+
+    calls, saved = [], {n: getattr(ops_rnn, n) for n in NDIR_WRAPPERS}
+
+    def wrap(name, fn):
+        def recorded(*a):  # a[0], a[1]: the forward and reversed direction's W_hh
+            if a[0].is_cuda:
+                calls.append((name, 1 if a[1] is None else 2))
+            return fn(*a)
+        return recorded
+
+    for n, fn in saved.items():
+        setattr(ops_rnn, n, wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(ops_rnn, n, fn)
+
+
+def lm_reference(solver, batch, mode):
+    """One LM step's loss and gradients through the card's kernels and
+    through the plain path on the CPU: the same weights and BN statistics,
+    every dropout 0, the same batch (the speech LM's first 2 rows) and
+    coins; held as `paired_reference` holds the paired step."""
+    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
+    from semi_tts_tpu_torch.train.losses import freq_loss
+    from semi_tts_tpu_torch.train.train_lm import audiolm_loss_and_grads, textlm_loss_and_grads
+
+    model = copy.deepcopy(solver.model)
+    if mode == "speech":
+        model.cfg = dataclasses.replace(model.cfg, prenet_dropout=0.0, query_dropout=0.0,
+                                        dec_dropout=0.0)
+    cpu_model = copy.deepcopy(model).cpu()
+    waves, wave_len, text, _ = batch
+    floss = functools.partial(freq_loss, **solver.freq_loss_kwargs())
+
+    def run(m, device):
+        if mode == "text":
+            t = text.to(device).long()
+            loss, grads = textlm_loss_and_grads(m, t, (t != 0).sum(-1))
+        else:  # coins of 0: the teacher's frame at every step (tf_rate 1)
+            feat = AudioFeaturizer(solver.featurizer.cfg, device)
+            steps = waves.shape[1] // feat.cfg.hop_length + 1
+            loss, grads = audiolm_loss_and_grads(
+                m, feat, floss, waves[:2].to(device), wave_len[:2].to(device), None,
+                coins=torch.zeros(steps, 2))
+        return float(loss), [None if g is None else g.cpu() for g in grads]
+
+    (loss_g, grads_g), (loss_c, grads_c) = run(model, solver.device), run(cpu_model, "cpu")
+    kinked = LM_KINKED if mode == "speech" else None
+    spread, by_leaf = card_spread(model, lambda m: run(m, solver.device)[1], grads_g, kinked)
+    return checked({"loss_card": loss_g, "loss_cpu": loss_c,
+                    "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c), "loss_tol_rel": 1e-4,
+                    **compare_grads(model, grads_g, grads_c, kinked=kinked, spread=by_leaf),
+                    "card_spread": spread}, f"{mode} LM steps")
+
+
+def pretrain_lm(root, config, mode):
+    """``--pretrain-<mode>`` through its solver: PRETRAIN_STEPS steps
+    validated every PRETRAIN_VALID, the launches and directions of step 1,
+    the walls of steps 1.., peak memory, one profiled step, the card-vs-CPU
+    step. Returns (line, checkpoint path)."""
+    from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.train.train_lm import AudioLmSolver, TextLmSolver
+
+    cls = TextLmSolver if mode == "text" else AudioLmSolver
+    solver = cls(config, cli_paras(root, name=f"lm_{mode}"), "train")
+    solver.load_data()
+    solver.set_model()
+    run_step, walls, seen, losses = solver.train_step, [], {}, []
+
+    def train_step(batch):
+        if solver.step == 1:
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            seen["batch"] = batch
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with directions_launched() as dirs:
+            mets = run_step(batch)
+            torch.cuda.synchronize()
+        if solver.step >= 1:
+            walls.append(time.perf_counter() - t0)
+        if solver.step == 1:
+            seen.update(launches=kernels.launch_counts(), dirs=dirs)
+        losses.append(mets["total_loss"])
+        return mets
+
+    solver.train_step = train_step
+    solver.exec()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    ckpt = os.path.join(solver.ckpdir, "best_mel.pth" if mode == "speech" else "best_acc.pth")
+    if solver.step != PRETRAIN_STEPS or not np.isfinite(losses).all() or not os.path.exists(ckpt):
+        raise SystemExit(f"chip_smoke: {mode} LM pretraining failed: step {solver.step}, "
+                         f"losses {losses}, checkpoint {os.path.exists(ckpt)}")
+    launches, dirs = seen["launches"], seen["dirs"]
+    idle = [n for n in LM_KERNELS[mode] if launches[n] == 0]
+    present = [n for n in LM_ABSENT[mode] if launches[n]]
+    if mode == "text":
+        bad = (launches["bilstm_rec_cs"] != 1 or launches["bilstm_rec_bwd"] != 1
+               or sorted(dirs) != [("bilstm_rec_bwd", 1), ("bilstm_rec_cs", 1)])
+    else:
+        bad = any(n != 2 for w, n in dirs if w.startswith("bigru"))
+    if idle or present or bad:
+        raise SystemExit(f"chip_smoke: the {mode} LM step launched {launches} (directions {dirs}): "
+                         f"idle {idle}, present {present}")
+    wall = float(np.median(walls))
+    batch = seen["batch"]
+    profile = profiled_step(lambda: run_step(batch), wall)
+    ref = lm_reference(solver, batch, mode)
+    line = dict(steps=PRETRAIN_STEPS, valid_step=PRETRAIN_VALID, batch=int(batch[0].shape[0]),
+                shape=list(batch[2 if mode == "text" else 0].shape),
+                params=sum(p.numel() for p in solver.model.parameters()), wall_s=wall,
+                walls_s=walls, busy_s=profile["device_busy_s"], idle_share=profile["idle_share"],
+                losses=losses, best_dev=solver.best_dev, peak_mem_bytes=peak,
+                launches=launches, directions=dirs, profile=profile, reference=ref)
+    if solver.log is not None:
+        solver.log.close()
+    return line, ckpt
+
+
+def rnnlm_limit(dev):
+    """RNNLM at its default width (512 units), which no solver builds, is
+    past K1's and K2's plans: its first launch on the card raises the
+    plan's ValueError, for each cell type."""
+    from semi_tts_tpu_torch.models.lm import RNNLM, rnnlm_apply
+
+    out, text = {}, torch.ones((2, 5), dtype=torch.long, device=dev)
+    for cell in ("lstm", "gru"):
+        m = RNNLM(43, 48, module=cell, generator=torch.Generator().manual_seed(0)).to(dev)
+        try:
+            with torch.no_grad():
+                rnnlm_apply(m, text)
+        except ValueError as e:
+            out[cell] = str(e)
+        else:
+            raise SystemExit(f"chip_smoke: RNNLM-{cell} at 512 units ran past its kernel's plan")
+    return out
+
+
+def phase_pretrain(card, asr_ckpt):
+    """LM pretraining at flagship width on the synthetic CLI corpus:
+    ``--pretrain-text`` (the text LM over the codebook table, one LSTM
+    direction of 256 units: K1 with cell states and K7, one launch each,
+    ndir=1) and ``--pretrain-speech`` (the decoder in pretrain mode at 1024
+    units, the CBHG and the 1,025-bin head: K5, K2 and K8, and no attention
+    kernel), each through its solver (`pretrain_lm`); then their
+    checkpoints and the CLI phase's ``asr_ckpt`` grafted into a
+    `VqvaeSolver` (every grafted leaf and the postnet's BN statistics equal
+    to the files' bit for bit, the TTS text encoder equal to a cold
+    solver's), which trains 2 steps. First, `rnnlm_limit`."""
+    from semi_tts_tpu_torch.bridge import _flatten, to_jax_params
+    from semi_tts_tpu_torch.train.checkpoint import load_checkpoint
+    from semi_tts_tpu_torch.train.train_vqvae import VqvaeSolver
+
+    out = {"card": card, "rnnlm_limit": rnnlm_limit(torch.device("cuda"))}
+    with tempfile.TemporaryDirectory() as root:
+        config = cli_config(root)
+        config["hparas"].update(max_step=PRETRAIN_STEPS, valid_step=PRETRAIN_VALID)
+        ckpts = {}
+        for mode in ("text", "speech"):
+            out[mode], ckpts[mode] = pretrain_lm(root, config, mode)
+            gc.collect()
+        config["hparas"].update(max_step=2, valid_step=10 ** 9)
+        cold = VqvaeSolver(config, cli_paras(root, name="cold"), "train")
+        cold.load_data()
+        cold.set_model()
+        cold_p, cold_s = to_jax_params(cold.model)
+        del cold
+        grafted = copy.deepcopy(config)
+        grafted["model"].update(pretrained_emb=ckpts["text"], pretrained_tts=ckpts["speech"],
+                                pretrained_asr=asr_ckpt)
+        warm = VqvaeSolver(grafted, cli_paras(root, name="warm"), "train")
+        warm.load_data()
+        warm.set_model()
+        got_p, got_s = to_jax_params(warm.model)
+        emb, tts, asr = (load_checkpoint(ckpts["text"]), load_checkpoint(ckpts["speech"]),
+                         load_checkpoint(asr_ckpt))
+        pairs = [("codebook/learnable_table", got_p["codebook"]["learnable_table"],
+                  emb["model"]["codebook"]["learnable_table"]),
+                 ("tts/decoder", got_p["tts"]["decoder"], tts["model"]["tts"]["decoder"]),
+                 ("tts/postnet", got_p["tts"]["postnet"], tts["model"]["tts"]["postnet"]),
+                 ("state tts/postnet", got_s["tts"]["postnet"], tts["state"]["tts"]["postnet"]),
+                 ("asr", got_p["asr"], asr["model"]["asr"]),
+                 ("state asr", got_s["asr"], asr["state"]["asr"]),
+                 ("cold tts/encoder", got_p["tts"]["encoder"], cold_p["tts"]["encoder"]),
+                 ("cold state tts/encoder", got_s["tts"]["encoder"], cold_s["tts"]["encoder"])]
+        graft = {}
+        for name, a, b in pairs:
+            fa, fb = _flatten(a), _flatten(b)
+            graft[name] = len(fa)
+            if sorted(fa) != sorted(fb) or not all(np.array_equal(fa[k], fb[k]) for k in fa):
+                raise SystemExit(f"chip_smoke: the graft of {name} is not bit for bit")
+        warm.exec()
+        finite = all(torch.isfinite(p).all() for p in warm.model.parameters())
+        if warm.trainer.step != 2 or not finite:
+            raise SystemExit(f"chip_smoke: the fine-tune after the graft failed: step "
+                             f"{warm.trainer.step}, finite {finite}")
+        out["graft"] = dict(leaves=graft, fine_tune_steps=warm.trainer.step)
+        if warm.log is not None:
+            warm.log.close()
+    return out
+
+
 def main():
-    phase_device()
+    card = phase_device()
     from semi_tts_tpu_torch import kernels, use_fp32
     from semi_tts_tpu_torch.kernels.build import BUILD_DIR, LOGS
 
@@ -2325,14 +2660,19 @@ def main():
     training = phase_training(dev)
     paired = phase_paired(dev)
     cycles = phase_cycles(dev)
-    cli = phase_cli({"paired": paired["wall_s"], **cycles["wall_s"]})
+    with tempfile.TemporaryDirectory() as keep:
+        asr_ckpt = os.path.join(keep, "cli_vqvae.pth")
+        cli = phase_cli({"paired": paired["wall_s"], **cycles["wall_s"]}, asr_ckpt)
+        pretrain = phase_pretrain(card, asr_ckpt)
     time_seen_shapes(table, dev, seen_shapes)
     launches = {"serving request": serving["launches"], "ASR train step": training["launches"],
                 "paired train step": paired["launches"],
                 "speech-first step": cycles["launches"][SPEECH_FIRST],
                 "text-first step": cycles["launches"][TEXT_FIRST],
                 "CLI training": cli["launches"]["train"],
-                "CLI gen_specgram": cli["launches"]["gen_specgram"]}
+                "CLI gen_specgram": cli["launches"]["gen_specgram"],
+                "text LM step": pretrain["text"]["launches"],
+                "speech LM step": pretrain["speech"]["launches"]}
     for row in table:
         per = ("serving request" if row["name"] in SERVING_KERNELS else
                "ASR train step" if row["name"] in TRAINING_KERNELS else
@@ -2346,6 +2686,7 @@ def main():
     print(json.dumps({"paired": paired}))
     print(json.dumps({"cycles": cycles}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

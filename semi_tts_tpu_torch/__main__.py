@@ -5,11 +5,12 @@
 A YAML config and flags pick a solver, which then runs ``load_data ->
 set_model -> exec``: the semi-supervised trainer by default,
 ``--asr-only``, ``--gen-specgram`` (with ``--gen-wav``),
-``--gen-gt-specgram`` or ``--asr-decode``. It runs on the card unless
+``--gen-gt-specgram``, ``--asr-decode``, or the language-model
+pretraining of ``--pretrain-speech`` (``best_mel.pth``) and
+``--pretrain-text`` (``best_acc.pth``). It runs on the card unless
 ``--cpu`` is given. Reading the YAML needs PyYAML. Flags whose feature is
-not ported stop with the ROADMAP item that brings it: ``--pretrain-speech``
-and ``--pretrain-text`` (A9), a non-empty ``--mesh`` (A11) and
-``--profile`` (A10).
+not ported stop with the ROADMAP item that brings it: a non-empty
+``--mesh`` (A11) and ``--profile`` (A10).
 """
 
 from __future__ import annotations
@@ -20,11 +21,7 @@ import sys
 
 import numpy as np
 
-REFUSED = (("pretrain_speech", "--pretrain-speech: the language-model pretraining solvers "
-            "are not ported yet (ROADMAP A9)"),
-           ("pretrain_text", "--pretrain-text: the language-model pretraining solvers are "
-            "not ported yet (ROADMAP A9)"),
-           ("mesh", "--mesh: the port runs on one device; meshes are not ported yet "
+REFUSED = (("mesh", "--mesh: the port runs on one device; meshes are not ported yet "
             "(ROADMAP A11)"),
            ("profile", "--profile: the profiler window is not ported yet (ROADMAP A10)"))
 
@@ -62,9 +59,9 @@ def parser():
     p.add_argument("--gen-wav", action="store_true",
                    help="Also vocode generated spectrograms with Griffin-Lim.")
     p.add_argument("--pretrain-speech", action="store_true",
-                   help="Not ported (ROADMAP A9): stops with an error.")
+                   help="Pretrain the audio LM (TTS decoder + postnet) -> best_mel.pth.")
     p.add_argument("--pretrain-text", action="store_true",
-                   help="Not ported (ROADMAP A9): stops with an error.")
+                   help="Pretrain the text LM (codebook table) -> best_acc.pth.")
     p.add_argument("--profile", action="store_true",
                    help="Not ported (ROADMAP A10): stops with an error.")
     p.add_argument("--mesh", default="", type=str,
@@ -92,6 +89,12 @@ def solver_class(paras):
     if paras.asr_only:
         from .train.train_asr import AsrSolver
         return AsrSolver, "train"
+    if paras.pretrain_speech:
+        from .train.train_lm import AudioLmSolver
+        return AudioLmSolver, "train"
+    if paras.pretrain_text:
+        from .train.train_lm import TextLmSolver
+        return TextLmSolver, "train"
     from .train.train_vqvae import VqvaeSolver
     return VqvaeSolver, "train"
 

@@ -5,8 +5,11 @@ The JAX side is a pair of nested dicts/lists of numpy arrays: the
 ``load_checkpoint(...)["model"]`` / ``["state"]``. Port parameter paths are
 the JAX params paths (``tts.encoder.convs.0.w`` <-> ``tts/encoder/convs/0/w``).
 BatchNorm buffers map to the JAX state tree, which drops the ``cbhg`` level
-and the ``bn`` leaf of the postnet (``tts.postnet.cbhg.banks.0.bn.mean`` <->
-``tts/postnet/banks/0/mean``).
+and the ``bn`` leaf of a postnet (``tts.postnet.cbhg.banks.0.bn.mean`` <->
+``tts/postnet/banks/0/mean``; the audio LM's ``postnet.cbhg...`` likewise).
+The same holds for every module of the port: the VQVAE, the language
+models of `models.lm` and the speaker encoder. Optimizer states cross in
+`train.checkpoint` (`optimizer_tree`, `load_optimizer_tree`).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ def _flatten(tree, prefix=""):
 def _state_path(buffer_name: str) -> str:
     path = buffer_name.replace(".cbhg.", ".")
     head, leaf = path.rsplit(".", 1)
-    if head.endswith(".bn") and ".postnet." in head:
+    if head.endswith(".bn") and ".postnet." in "." + head:
         head = head[: -len(".bn")]
     return f"{head}.{leaf}".replace(".", "/")
 

@@ -4,14 +4,16 @@ recurrences, in the JAX layout (x_proj (T, B, G*H), W_hh (G*H, H)).
 
 `lstm_rec`/`gru_rec` run one direction, as `semi_tts_tpu.ops.rnn._lstm_rec`
 and `_gru_rec` do; `bilstm_rec`/`bigru_rec` run a forward and a reversed
-direction in one launch and return (T, B, 2H), forward first.
+direction in one launch and return (T, B, 2H), forward first (`bigru_rec`
+also the forward one alone).
 `bilstm_rec_cs` is K1 for training: it also returns the cell states
 (T, B, nH) that the backward needs, for one or two directions.
 `bilstm_rec_bwd` is K7, the backward recurrence of `_lstm_rec_bwd`: from the
 recomputed gate pre-activations, the cell states and the incoming gradient
 of hs it returns the gate gradients (T, B, 4H) of each direction. `bigru_rec_bwd` is K8, the backward recurrence of
 `_gru_rec_bwd`: from the update gates, the hidden-side coefficients and the
-incoming gradient of hs it returns dh2 (T, B, H) of each direction. Each
+incoming gradient of hs it returns dh2 (T, B, H) of each direction (of
+one or two, as K7). Each
 wrapper launches `csrc/rnn.cu` for CUDA tensors and runs its plain PyTorch
 version only for CPU tensors. `lstm_plan`, `lstm_bwd_plan`, `gru_plan` and
 `gru_bwd_plan` compute the launch plans and name the hidden sizes each
@@ -330,8 +332,8 @@ def gru_rec_plain(reverse: bool, w_hh, b_hh, x_proj):
 
 
 def bigru_rec_plain(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b):
-    return torch.cat([gru_rec_plain(False, w_hh_f, b_hh_f, x_proj_f),
-                      gru_rec_plain(True, w_hh_b, b_hh_b, x_proj_b)], dim=-1)
+    return torch.cat([gru_rec_plain(*d) for d in _dirs(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f,
+                                                        x_proj_b)], dim=-1)
 
 
 def _launch_gru(wrapper, dirs):
@@ -364,11 +366,12 @@ def gru_rec(reverse: bool, w_hh, b_hh, x_proj):
 
 
 def bigru_rec(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b):
-    """Both directions of a BiGRU in one launch: (T, B, 2H), forward first."""
+    """Both directions of a BiGRU in one launch: (T, B, 2H), forward first;
+    ``w_hh_b``, ``b_hh_b`` and ``x_proj_b`` None run the forward direction
+    alone, (T, B, H)."""
     if not x_proj_f.is_cuda:
         return bigru_rec_plain(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b)
-    return _launch_gru(bigru_rec, [(False, w_hh_f, b_hh_f, x_proj_f),
-                                   (True, w_hh_b, b_hh_b, x_proj_b)])
+    return _launch_gru(bigru_rec, _dirs(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b))
 
 
 gru_rec.launches = 0
@@ -392,33 +395,37 @@ def gru_rec_bwd_plain(reverse: bool, w_hh, z, coef_h, g_hs):
 
 def bigru_rec_bwd_plain(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs):
     H = w_hh_f.shape[1]
-    return (gru_rec_bwd_plain(False, w_hh_f, z_f, coef_f, g_hs[..., :H]),
-            gru_rec_bwd_plain(True, w_hh_b, z_b, coef_b, g_hs[..., H:]))
+    out = [gru_rec_bwd_plain(r, w, z, c, g_hs[..., k * H:(k + 1) * H])
+           for k, (r, w, z, c) in enumerate(_dirs(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b))]
+    return out[0], (out[1] if len(out) > 1 else None)
 
 
 def bigru_rec_bwd(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs):
-    """K8: the GRU backward recurrence of both directions in one launch.
-    ``z_*`` (T, B, H) and ``coef_*`` (T, B, 3H) are the update gates and the
-    hidden-side coefficients ``[cr, cz, dn_c * r]`` that `_gru_rec_bwd`
-    recomputes; ``g_hs`` (T, B, 2H) holds the directions side by side,
-    forward first. Returns (dh2_f, dh2_b), each (T, B, H)."""
+    """K8: the GRU backward recurrence of one or both directions in one
+    launch. ``z_*`` (T, B, H) and ``coef_*`` (T, B, 3H) are the update gates
+    and the hidden-side coefficients ``[cr, cz, dn_c * r]`` that
+    `_gru_rec_bwd` recomputes; ``g_hs`` (T, B, nH) holds the directions side
+    by side, forward first; ``w_hh_b``, ``z_b`` and ``coef_b`` None run the
+    forward direction alone. Returns (dh2_f, dh2_b or None), each (T, B, H)."""
     if not z_f.is_cuda:
         return bigru_rec_bwd_plain(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs)
+    dirs = _dirs(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b)
     T, B, H = z_f.shape
-    for w_hh, z, coef in ((w_hh_f, z_f, coef_f), (w_hh_b, z_b, coef_b)):
+    for _, w_hh, z, coef in dirs:
         build.require(z, (T, B, H), "gru_rec_bwd z")
         build.require(coef, (T, B, 3 * H), "gru_rec_bwd coef_h")
         build.require(w_hh, (3 * H, H), "gru_rec_bwd w_hh")
-    build.require(g_hs, (T, B, 2 * H), "gru_rec_bwd g_hs")
-    gru_bwd_plan(B, H, 2)
-    dh = [torch.empty_like(z_f), torch.empty_like(z_b)]
+    build.require(g_hs, (T, B, len(dirs) * H), "gru_rec_bwd g_hs")
+    gru_bwd_plan(B, H, len(dirs))
+    dh = [torch.empty_like(z_f) for _ in dirs]
     if T and B:
+        (r0, w0, z0, c0), (r1, w1, z1, c1) = dirs[0], dirs[-1]
         fn = build.bind("rnn", "gru_rec_bwd_f32", 9, 6)
-        build.check(fn(z_f.data_ptr(), z_b.data_ptr(), coef_f.data_ptr(), coef_b.data_ptr(),
-                       w_hh_f.data_ptr(), w_hh_b.data_ptr(), g_hs.data_ptr(), dh[0].data_ptr(),
-                       dh[1].data_ptr(), T, B, H, 2, 0, 1, build.stream()), "gru_rec_bwd")
+        build.check(fn(z0.data_ptr(), z1.data_ptr(), c0.data_ptr(), c1.data_ptr(), w0.data_ptr(),
+                       w1.data_ptr(), g_hs.data_ptr(), dh[0].data_ptr(), dh[-1].data_ptr(), T, B,
+                       H, len(dirs), int(r0), int(r1), build.stream()), "gru_rec_bwd")
         bigru_rec_bwd.launches += 1
-    return dh[0], dh[1]
+    return dh[0], (dh[1] if len(dh) > 1 else None)
 
 
 bigru_rec_bwd.launches = 0

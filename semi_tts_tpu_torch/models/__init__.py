@@ -1,2 +1,3 @@
 """Model modules of the port: codebook, ASR encoder, TTS encoder,
-attention, decoder, CBHG, TTS and the VQVAE composite."""
+attention, decoder, CBHG, TTS, the VQVAE composite, the pretraining
+language models and the speaker encoder."""

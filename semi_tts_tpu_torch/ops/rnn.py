@@ -9,10 +9,12 @@ When autograd records, an LSTM layer's recurrence is `lstm_rec_fn`, a
 K1 with the cell states kept, its backward recomputes the gate
 pre-activations with one GEMM per direction, runs the K7 backward
 recurrence and forms ``dW_hh = sum_t dgates_t^T h_prev_t`` as one GEMM.
-A BiGRU's recurrence is `gru_rec_fn`, the counterpart of `_gru_rec`'s
+A GRU layer's recurrence is `gru_rec_fn`, the counterpart of `_gru_rec`'s
 custom VJP: K2 forward; backward from the recomputed gates (one GEMM per
 direction), the K8 backward recurrence, and dW_hh, db_hh and dx_proj as
-one product or sum each.
+one product or sum each. Both run one direction or two: `lstm_layer` and
+`gru_layer` are the one-direction layers of the language models, the
+counterparts of `_lstm_scan` and `_gru_scan`.
 
 Parameters are `LSTMParams`/`GRUParams` modules named as the JAX pytree
 leaves (``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``).
@@ -31,8 +33,8 @@ from .dropout import dropout as drop
 from .init import uniform
 
 __all__ = ["GRUParams", "LSTMParams", "bigru", "bigru_rec", "bilstm_rec", "gru_bwd_coefficients",
-           "gru_rec", "gru_rec_fn", "lstm_cell", "lstm_rec", "lstm_rec_fn", "multi_lstm",
-           "multi_lstm_init"]
+           "gru_layer", "gru_rec", "gru_rec_fn", "lstm_cell", "lstm_layer", "lstm_rec",
+           "lstm_rec_fn", "multi_lstm", "multi_lstm_init"]
 
 
 class _RNNParams(nn.Module):
@@ -178,8 +180,8 @@ def gru_bwd_coefficients(reverse: bool, w_hh, b_hh, x_proj, hs):
 
 
 class _GRURec(torch.autograd.Function):
-    """The recurrence of both GRU directions (the reversed one second):
-    x_proj (T, B, 3H) each -> hs (T, B, 2H)."""
+    """The recurrence of one or two GRU directions (the reversed one second,
+    or None): x_proj (T, B, 3H) each -> hs (T, B, nH)."""
 
     @staticmethod
     def forward(ctx, w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b):
@@ -191,23 +193,27 @@ class _GRURec(torch.autograd.Function):
     def backward(ctx, g_hs):
         w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b, hs = ctx.saved_tensors
         H = w_hh_f.shape[1]
-        dirs = ((False, w_hh_f, b_hh_f, x_proj_f), (True, w_hh_b, b_hh_b, x_proj_b))
+        dirs = [(False, w_hh_f, b_hh_f, x_proj_f)]
+        if w_hh_b is not None:
+            dirs.append((True, w_hh_b, b_hh_b, x_proj_b))
         co = [gru_bwd_coefficients(r, w, b, x, hs[..., k * H:(k + 1) * H])
               for k, (r, w, b, x) in enumerate(dirs)]
-        dh2 = bigru_rec_bwd(w_hh_f, w_hh_b, co[0][1], co[1][1], co[0][2], co[1][2],
-                            g_hs.contiguous())
+        one = len(co) == 1
+        dh2 = bigru_rec_bwd(w_hh_f, w_hh_b, co[0][1], None if one else co[1][1], co[0][2],
+                            None if one else co[1][2], g_hs.contiguous())
         out = []
         for (h_prev, _, coef_h, coef_x), d in zip(co, dh2):
             d3 = d.repeat(1, 1, 3)
             dhp = coef_h * d3
             out.append((dhp.reshape(-1, 3 * H).T @ h_prev.reshape(-1, H), dhp.sum((0, 1)),
                         coef_x * d3))
-        (dw_f, db_f, dx_f), (dw_b, db_b, dx_b) = out
+        (dw_f, db_f, dx_f), (dw_b, db_b, dx_b) = out[0], out[1] if not one else (None,) * 3
         return dw_f, dw_b, db_f, db_b, dx_f, dx_b
 
 
 def gru_rec_fn(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b):
-    """Differentiable BiGRU recurrence (K2 forward, K8 backward)."""
+    """Differentiable GRU recurrence (K2 forward, K8 backward) of the
+    forward direction and, unless ``w_hh_b`` is None, the reversed one."""
     return _GRURec.apply(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b)
 
 
@@ -215,4 +221,22 @@ def bigru(p: nn.ModuleDict, xs):
     f, b = p["fwd"], p["bwd"]
     args = (f.w_hh, b.w_hh, f.b_hh, b.b_hh, _gru_proj(f, xs), _gru_proj(b, xs))
     hs = gru_rec_fn(*args) if _records(*args) else bigru_rec(*args)
+    return hs.transpose(0, 1)
+
+
+def lstm_layer(p: LSTMParams, xs):
+    """One forward LSTM direction over xs (B, T, D) -> (B, T, H), the
+    counterpart of `_lstm_scan`: under autograd K1 with cell states and K7
+    (`lstm_rec_fn` with no reversed direction), else K1 alone."""
+    x = _lstm_proj(p, xs)
+    hs = lstm_rec_fn(p.w_hh, None, x, None) if _records(x, p.w_hh) else lstm_rec(False, p.w_hh, x)
+    return hs.transpose(0, 1)
+
+
+def gru_layer(p: GRUParams, xs):
+    """One forward GRU direction over xs (B, T, D) -> (B, T, H), the
+    counterpart of `_gru_scan`: under autograd K2 and K8 run one direction
+    (`gru_rec_fn` with no reversed direction), else K2 alone."""
+    args = (p.w_hh, None, p.b_hh, None, _gru_proj(p, xs), None)
+    hs = gru_rec_fn(*args) if _records(p.w_hh, p.b_hh, args[4]) else bigru_rec(*args)
     return hs.transpose(0, 1)

@@ -6,9 +6,12 @@ either package reads the other's checkpoints.
 
 The optimizer tree is the JAX package's optax state of `Optimizer`'s chain
 (`optimizer_tree`): ``ApplyIfFiniteState(notfinite_count, last_finite,
-total_notfinite, (EmptyState() of the clip, ScaleByAdamState(count, mu,
-nu), ScaleByScheduleState(count)))``, ``mu`` and ``nu`` trees of the
-parameters' shape. A sequence is saved with its class name cut to 16
+total_notfinite, (EmptyState() of the clip, the scaling's state,
+[EmptyState() of AdamW's weight decay,] ScaleByScheduleState(count)))``;
+the scaling's state is ``ScaleByAdamState(count, mu, nu)`` (Adam, AdamW),
+``ScaleByRmsState(nu)``, ``EmptyState()`` (SGD) or
+``ScaleByAdaDeltaState(e_g, e_x)``, each moment a tree of the parameters'
+shape. A sequence is saved with its class name cut to 16
 characters, as the JAX package saves it; the JAX package reads the state
 back by leaf order, so the same key set is all it needs."""
 
@@ -22,6 +25,7 @@ import torch
 
 from ..bridge import _flatten as _leaves
 from ..bridge import _unflatten as _tree
+from ..bridge import load_jax_params, to_jax_params
 
 
 class ApplyIfFiniteState(tuple):
@@ -36,8 +40,22 @@ class ScaleByAdamState(tuple):
     pass
 
 
+class ScaleByRmsState(tuple):
+    pass
+
+
+class ScaleByAdaDeltaState(tuple):
+    pass
+
+
 class ScaleByScheduleState(tuple):
     pass
+
+
+# each optimizer's optax state class and whether it leads with a count
+SCALE_STATE = {"adam": (ScaleByAdamState, True), "adamw": (ScaleByAdamState, True),
+               "rmsprop": (ScaleByRmsState, False), "sgd": (EmptyState, False),
+               "adadelta": (ScaleByAdaDeltaState, False)}
 
 
 def _flatten(tree, prefix=""):
@@ -121,6 +139,64 @@ def load_subtree(path, subtree_key, _ckpt=None):
     return node
 
 
+def _walk(tree, parts):
+    """Descend ``parts`` in a nested dict; returns (parent, leaf_key), or
+    None where a segment is missing."""
+    node = tree
+    for p in parts[:-1]:
+        if not isinstance(node, dict) or p not in node:
+            return None
+        node = node[p]
+    if not isinstance(node, dict) or parts[-1] not in node:
+        return None
+    return node, parts[-1]
+
+
+def _graft(dst_tree, parts, sub, what):
+    """Put ``sub`` at ``parts`` of ``dst_tree`` after checking that it has
+    the same leaves, of the same shapes, as what it replaces."""
+    parent, key = _walk(dst_tree, parts)
+    have, got = _leaves(parent[key]), _leaves(sub)
+    if set(have) != set(got):
+        raise KeyError(f"pretrained {what} {'/'.join(parts)!r}: leaves "
+                       f"{sorted(set(have) ^ set(got))[:5]} differ from the model's")
+    for k, v in have.items():
+        if np.shape(v) != np.shape(got[k]):
+            raise ValueError(f"pretrained {what} {'/'.join(parts)}/{k}: shape "
+                             f"{np.shape(got[k])}, model {np.shape(v)}")
+    parent[key] = sub
+
+
+def apply_pretrained(model, pretrained: dict, state: bool = True):
+    """Graft pretrained subtrees into ``model`` in place (the counterpart of
+    the JAX package's ``apply_pretrained``); returns the model.
+
+    ``pretrained``: subtree key (``asr``, ``codebook/learnable_table``,
+    ``tts/decoder``, ...) -> checkpoint path of either package; empty or
+    None paths are skipped. Each file is loaded once, however many keys
+    graft from it. Every leaf must match the model's in path and shape.
+    With ``state``, the BatchNorm running statistics under the same key
+    are grafted too wherever the checkpoint's state tree has that path, as
+    torch's ``load_state_dict`` carries them with the parameters."""
+    keys = {k: v for k, v in (pretrained or {}).items() if v}
+    if not keys:
+        return model
+    params, st = to_jax_params(model)
+    loaded = {}
+    for key, path in keys.items():
+        if path not in loaded:
+            loaded[path] = load_checkpoint(path)
+        parts = key.split("/")
+        if _walk(params, parts) is None:
+            raise KeyError(f"the model has no module {key!r} to graft into")
+        _graft(params, parts, load_subtree(path, key, _ckpt=loaded[path]), "module")
+        if state:
+            src = _walk(loaded[path].get("state") or {}, parts)
+            if src is not None and _walk(st, parts) is not None:
+                _graft(st, parts, src[0][src[1]], "state")
+    return load_jax_params(model, params, st)
+
+
 def _param_paths(model):
     return [name.replace(".", "/") for name, _ in model.named_parameters()]
 
@@ -134,9 +210,11 @@ def optimizer_tree(optimizer, model):
     def moments(flat):
         return _tree(dict(zip(_param_paths(model), (host(v) for v in optimizer.views(flat)))))
 
-    adam = ScaleByAdamState((host(optimizer.count), moments(optimizer.mu),
-                             moments(optimizer.nu)))
-    inner = (EmptyState(), adam, ScaleByScheduleState((host(optimizer.schedule_count),)))
+    cls, counted = SCALE_STATE[optimizer.kind]
+    scale = cls(((host(optimizer.count),) if counted else ())
+                + tuple(moments(getattr(optimizer, n)) for n in optimizer.moment_names))
+    decay = (EmptyState(),) if optimizer.weight_decay else ()
+    inner = (EmptyState(), scale) + decay + (ScaleByScheduleState((host(optimizer.schedule_count),)),)
     return ApplyIfFiniteState((host(optimizer.notfinite_count), host(optimizer.last_finite),
                                host(optimizer.total_notfinite), inner))
 
@@ -144,13 +222,20 @@ def optimizer_tree(optimizer, model):
 def load_optimizer_tree(optimizer, model, tree):
     """Set `Optimizer`'s state from an optax tree as `load_checkpoint`
     returns it (`optimizer_tree`'s layout); raises on a missing, extra or
-    mis-shaped moment."""
+    mis-shaped moment, or a tree of another optimizer."""
     notfinite, last_finite, total, inner = tree
-    _, (count, mu, nu), (schedule_count,) = inner
-    dev = optimizer.mu.device
+    _, counted = SCALE_STATE[optimizer.kind]
+    want = 3 + bool(optimizer.weight_decay)
+    names = optimizer.moment_names
+    scale = inner[1] if len(inner) == want else None
+    if scale is None or len(scale) != counted + len(names):
+        raise ValueError(f"optimizer state of {len(inner)} transforms does not fit "
+                         f"{optimizer.kind} (weight decay {optimizer.weight_decay})")
+    (schedule_count,) = inner[-1]
+    dev = optimizer.count.device
 
     def scalar(v, dtype):
-        return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev).reshape(())
+        return torch.as_tensor(np.array(v), dtype=dtype, device=dev).reshape(())
 
     def flat(moment_tree):
         leaves = _leaves(moment_tree)
@@ -166,8 +251,10 @@ def load_optimizer_tree(optimizer, model, tree):
             parts.append(torch.from_numpy(np.asarray(leaves[path], np.float32)).reshape(-1))
         return torch.cat(parts).to(dev)
 
-    optimizer.mu, optimizer.nu = flat(mu), flat(nu)
-    optimizer.count = scalar(count, torch.int32)
+    if counted:
+        optimizer.count = scalar(scale[0], torch.int32)
+    for name, moment in zip(names, scale[counted:]):
+        setattr(optimizer, name, flat(moment))
     optimizer.schedule_count = scalar(schedule_count, torch.int32)
     optimizer.notfinite_count = scalar(notfinite, torch.int32)
     optimizer.total_notfinite = scalar(total, torch.int32)

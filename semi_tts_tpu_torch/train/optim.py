@@ -1,13 +1,15 @@
 """Optimizer and schedules (counterpart of `semi_tts_tpu/train/optim.py`).
 
-The JAX package chains optax transformations: clip to global norm 5, Adam
-(b1 0.9, b2 0.999, eps 1e-8, eps_root 0), the learning-rate schedule, and a
-wrapper that skips a step whose gradients are not all finite, keeping the
-moments and counts. `Optimizer` is that chain written out as tensor code,
-with the state on the parameters' device and no host round trip: the
-finite test, the clip and the skip are selects, not branches. As in optax,
-the schedule reads its count before incrementing it, and the Adam count is
-incremented before the bias correction.
+The JAX package chains optax transformations: clip to global norm 5, the
+optimizer's scaling (Adam: b1 0.9, b2 0.999, eps 1e-8, eps_root 0; AdamW:
+Adam, then the decayed weights added; RMSprop: decay 0.9, eps 1e-8 inside
+the root; SGD: the identity; Adadelta: rho 0.9, eps 1e-6), the
+learning-rate schedule, and a wrapper that skips a step whose gradients are
+not all finite, keeping the moments and counts. `Optimizer` is that chain
+written out as tensor code, with the state on the parameters' device and no
+host round trip: the finite test, the clip and the skip are selects, not
+branches. As in optax, the schedule reads its count before incrementing it,
+and the Adam count is incremented before the bias correction.
 """
 
 from __future__ import annotations
@@ -42,23 +44,37 @@ def tf_rate_schedule(tf_start=1.0, tf_end=1.0, tf_step=1):
     return lambda step: max(tf_end, tf_start - (tf_start - tf_end) * step / tf_step)
 
 
+# optax's state fields of each optimizer's scaling, in its order: the count
+# (Adam's only) and the moments, one flat vector each
+MOMENTS = {"adam": ("mu", "nu"), "adamw": ("mu", "nu"), "rmsprop": ("nu",), "sgd": (),
+           "adadelta": ("e_g", "e_x")}
+RMS_DECAY, RMS_EPS = 0.9, 1e-8            # optax.scale_by_rms defaults
+ADADELTA_RHO, ADADELTA_EPS = 0.9, 1e-6    # optax.scale_by_adadelta defaults
+
+
 class Optimizer:
-    """Clip -> Adam -> scheduled learning rate -> skip non-finite steps, over
-    a list of float32 parameters on one device, updated in place.
-    ``step(grads)`` takes one gradient per parameter (None counts as zeros)
-    and returns the global norm of the raw gradients.
+    """Clip -> the optimizer's scaling -> scheduled learning rate -> skip
+    non-finite steps, over a list of float32 parameters on one device,
+    updated in place. ``optimizer``: Adam, AdamW (``weight_decay`` added to
+    the scaled update, as ``optax.add_decayed_weights`` after Adam), RMSprop,
+    SGD or Adadelta, any case. ``step(grads)`` takes one gradient per
+    parameter (None counts as zeros) and returns the global norm of the raw
+    gradients.
 
     The gradients, moments and parameters are handled as one flat vector
     each, so a step is a few dozen kernel launches whatever the number of
     parameter tensors; the arithmetic is optax's, element for element.
-    State (tensors on the parameters' device): ``count`` (Adam),
-    ``schedule_count``, ``mu``, ``nu`` (flat; `views` splits them per
-    parameter), ``notfinite_count``, ``total_notfinite``, ``last_finite``."""
+    State (tensors on the parameters' device): ``count`` (Adam's and
+    AdamW's), ``schedule_count``, the moments named in `MOMENTS` (flat;
+    `views` splits them per parameter), ``notfinite_count``,
+    ``total_notfinite``, ``last_finite``."""
 
     def __init__(self, params, optimizer: str = "Adam", lr: float = 1e-3,
-                 lr_scheduler: str = "decay"):
-        if optimizer.lower() != "adam":
-            raise NotImplementedError(f"optimizer {optimizer}: the port has Adam only")
+                 lr_scheduler: str = "decay", weight_decay: float = 0.0):
+        self.kind = optimizer.lower()
+        if self.kind not in MOMENTS:
+            raise NotImplementedError(f"optimizer {optimizer}")
+        self.weight_decay = weight_decay if self.kind == "adamw" else 0.0
         self.params = list(params)
         dev = self.params[0].device
         if any(p.dtype != torch.float32 or p.device != dev for p in self.params):
@@ -69,33 +85,56 @@ class Optimizer:
         self.count, self.schedule_count = i32(), i32()
         self.notfinite_count, self.total_notfinite = i32(), i32()
         self.last_finite = torch.ones((), dtype=torch.bool, device=dev)
-        self.mu = torch.zeros(sum(self.sizes), device=dev)
-        self.nu = torch.zeros(sum(self.sizes), device=dev)
+        for name in self.moment_names:
+            setattr(self, name, torch.zeros(sum(self.sizes), device=dev))
+
+    @property
+    def moment_names(self):
+        return MOMENTS[self.kind]
 
     def views(self, flat):
         """A flat state vector split into one view per parameter."""
         return [v.view_as(p) for v, p in zip(flat.split(self.sizes), self.params)]
 
+    def _scale(self, g, flat):
+        """The optimizer's update direction of the clipped gradient ``g`` and
+        its new moments and count, before the learning rate."""
+        f32 = lambda x: x.to(torch.float32)
+        if self.kind in ("adam", "adamw"):
+            count = self.count + 1
+            mu = (1.0 - B1) * g + B1 * self.mu
+            nu = (1.0 - B2) * (g * g) + B2 * self.nu
+            mu_hat = mu / (1.0 - B1 ** f32(count))
+            nu_hat = nu / (1.0 - B2 ** f32(count))
+            u = mu_hat / (torch.sqrt(nu_hat) + EPS)
+            if self.weight_decay:
+                u = u + self.weight_decay * flat
+            return u, {"mu": mu, "nu": nu}, count
+        if self.kind == "rmsprop":
+            nu = (1.0 - RMS_DECAY) * (g * g) + RMS_DECAY * self.nu
+            return torch.rsqrt(nu + RMS_EPS) * g, {"nu": nu}, self.count
+        if self.kind == "adadelta":
+            e_g = (1.0 - ADADELTA_RHO) * (g * g) + ADADELTA_RHO * self.e_g
+            u = torch.sqrt(self.e_x + ADADELTA_EPS) / torch.sqrt(e_g + ADADELTA_EPS) * g
+            e_x = (1.0 - ADADELTA_RHO) * (u * u) + ADADELTA_RHO * self.e_x
+            return u, {"e_g": e_g, "e_x": e_x}, self.count
+        return g, {}, self.count  # sgd
+
     @torch.no_grad()
     def step(self, grads):
-        g = torch.zeros_like(self.mu)
+        g = torch.zeros(sum(self.sizes), device=self.count.device)
         pairs = [(v, gr) for v, gr in zip(self.views(g), grads) if gr is not None]
         if pairs:
             torch._foreach_copy_([v for v, _ in pairs], [gr for _, gr in pairs])
         gnorm = torch.sqrt((g * g).sum())
         finite = torch.isfinite(g).all()
         g = torch.where(gnorm < GRAD_CLIP, g, g / gnorm * GRAD_CLIP)
-        count = self.count + 1
-        f32 = lambda x: x.to(torch.float32)
-        mu = (1.0 - B1) * g + B1 * self.mu
-        nu = (1.0 - B2) * (g * g) + B2 * self.nu
-        mu_hat = mu / (1.0 - B1 ** f32(count))
-        nu_hat = nu / (1.0 - B2 ** f32(count))
-        update = -self.schedule(f32(self.schedule_count)) * (mu_hat / (torch.sqrt(nu_hat) + EPS))
         flat = torch.cat([p.reshape(-1) for p in self.params])
+        u, moments, count = self._scale(g, flat)
+        update = -self.schedule(self.schedule_count.to(torch.float32)) * u
         torch._foreach_copy_(self.params, self.views(flat + torch.where(finite, update, 0.0)))
-        self.mu = torch.where(finite, mu, self.mu)
-        self.nu = torch.where(finite, nu, self.nu)
+        for name, new in moments.items():
+            setattr(self, name, torch.where(finite, new, getattr(self, name)))
         self.count = torch.where(finite, count, self.count)
         self.schedule_count = torch.where(finite, self.schedule_count + 1, self.schedule_count)
         self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1).to(torch.int32)

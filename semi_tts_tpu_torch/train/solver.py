@@ -99,13 +99,12 @@ class BaseSolver:
 
     def model_config(self):
         """The VQVAEConfig of the YAML ``model`` block and the phonological
-        attribute table on the device (None without one). A ``pretrained_*``
-        graft raises: it is not ported (ROADMAP A9)."""
+        attribute table on the device (None without one). The block's
+        ``pretrained_*`` paths are not part of it (`VqvaeSolver` grafts
+        them)."""
         model_cfg = dict(self.config["model"])
         for k in PRETRAINED:
-            if model_cfg.pop(k, None):
-                raise NotImplementedError(
-                    f"model.{k}: pretrained grafts are not ported yet (ROADMAP A9)")
+            model_cfg.pop(k, None)
         phn_attr_pth = model_cfg["codebook"].get("phn_attr_pth") or ""
         phn_attr = read_phn_attr(phn_attr_pth) if phn_attr_pth else None
         cfg = V.config_from_yaml(model_cfg, n_mels=self.n_mels, linear_dim=self.linear_dim,

@@ -17,9 +17,9 @@ trainer's policy.
 
 `VqvaeSolver` is the CLI's solver around the loop (counterpart of the JAX
 `VqvaeTrainer` solver): ``load_data`` (the corpus's loaders, their batches
-moved to the device), ``set_model`` (the YAML config, the model, the
-optimizer, the step builder, ``--load``) and ``exec``. Left out (ROADMAP
-A9, A10): the ``pretrained_*`` grafts, TensorBoard figures, audio and the
+moved to the device), ``set_model`` (the YAML config, the model with the
+``pretrained_*`` grafts, the optimizer, the step builder, ``--load``) and
+``exec``. Left out (ROADMAP A10): TensorBoard figures, audio and the
 codebook projector, and the ``--profile`` window.
 """
 
@@ -33,7 +33,7 @@ from ..data import load_dataset
 from ..data.loader import infinite
 from ..models import vqvae as V
 from ..utils.metrics import cal_per, human_format
-from .checkpoint import load_checkpoint, load_optimizer_tree
+from .checkpoint import apply_pretrained, load_checkpoint, load_optimizer_tree
 from .optim import Optimizer, advance_lr_schedule, tf_rate_schedule
 from .solver import BaseSolver, DeviceBatches, TrainLog, to_device
 from .steps import StepBuilder, Weights, step_generator
@@ -230,6 +230,19 @@ class VqvaeTrainer:
             self.save(f"step_{self.step}.pth", dev_tts)
 
 
+def pretrained_grafts(model_cfg: dict, linear_dim) -> dict:
+    """{subtree key: checkpoint path} of the YAML ``model`` block's
+    ``pretrained_*`` paths, as the JAX trainer grafts them: the whole ASR
+    from ``pretrained_asr``, the codebook table alone from
+    ``pretrained_emb``, the TTS decoder and (with a linear output) its
+    postnet from ``pretrained_tts``; never the TTS text encoder."""
+    tts = model_cfg.get("pretrained_tts")
+    grafts = {"asr": model_cfg.get("pretrained_asr"),
+              "codebook/learnable_table": model_cfg.get("pretrained_emb"),
+              "tts/decoder": tts, "tts/postnet": tts if linear_dim else None}
+    return {k: v for k, v in grafts.items() if v}
+
+
 def _add_counts(counts, tokens):
     """``counts`` (a bincount) plus the occurrences of ``tokens``."""
     new = np.bincount(np.asarray(tokens, np.int64))
@@ -241,8 +254,10 @@ class VqvaeSolver(BaseSolver):
     """The semi-supervised VQVAE trainer behind the CLI's default mode:
     the corpus's loaders, the model and optimizer of the YAML config, and
     `VqvaeTrainer`'s loop with the JAX trainer's checkpoint policy. The
-    model is initialized from a generator seeded with ``--seed`` and the
-    steps draw from generators of (seed, step); ``--load`` resumes a
+    model is initialized from a generator seeded with ``--seed``, then the
+    config's ``pretrained_*`` checkpoints (of either package) are grafted
+    into it with their BatchNorm statistics (`pretrained_grafts`),
+    and the steps draw from generators of (seed, step); ``--load`` resumes a
     checkpoint of either package: params, BatchNorm statistics, the
     optimizer state (or, where a checkpoint has none, the schedule advanced
     to its step), the step and the best-metric watermarks."""
@@ -270,6 +285,10 @@ class VqvaeSolver(BaseSolver):
         self.model_cfg, self.phn_attr = self.model_config()
         g = torch.Generator().manual_seed(self.paras.seed)
         self.model = V.VQVAE(self.model_cfg, generator=g).to(self.device)
+        grafts = pretrained_grafts(self.config["model"], self.linear_dim)
+        if grafts:
+            apply_pretrained(self.model, grafts)
+            self.verbose(f"Grafted {', '.join(grafts)} from {', '.join(sorted(set(grafts.values())))}")
         self.optimizer = Optimizer(self.model.parameters(), h["optimizer"], h["lr"],
                                    h["lr_scheduler"])
         self.builder = StepBuilder(self.model_cfg, self.featurizer, self.phn_attr,

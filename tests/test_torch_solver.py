@@ -382,13 +382,27 @@ def test_cli_trains_one_step_in_a_subprocess(world, tmp_path):
     assert os.path.isdir(tmp_path / "ckpt" / "cli-sd0") and os.listdir(tmp_path / "log" / "cli-sd0")
 
 
-@pytest.mark.parametrize("flags,item", [(["--pretrain-speech"], "A9"), (["--pretrain-text"], "A9"),
-                                        (["--mesh", "2x1"], "A11"), (["--profile"], "A10")])
+@pytest.mark.parametrize("flags,item", [(["--mesh", "2x1"], "A11"), (["--profile"], "A10")])
 def test_cli_refuses_unported_flags(world, tmp_path, capsys, flags, item):
     cfg = _write_yaml(str(tmp_path), world["config"])
     with pytest.raises(SystemExit) as e:
         cli.main(["--cpu", "--config", cfg] + flags)
     assert e.value.code != 0 and f"ROADMAP {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,fname", [("--pretrain-speech", "best_mel.pth"),
+                                        ("--pretrain-text", "best_acc.pth")])
+def test_cli_pretrain_flags_run_one_step(world, tmp_path, flag, fname):
+    """``--pretrain-speech`` and ``--pretrain-text`` (refused until the
+    language models were ported) train one step on the CPU and write their
+    checkpoint."""
+    config = copy.deepcopy(world["config"])
+    config["hparas"].update(max_step=1, valid_step=1)
+    cfg = _write_yaml(str(tmp_path), config)
+    assert cli.main(["--cpu", "--no-msg", "--config", cfg, "--logdir", str(tmp_path / "log"),
+                     "--ckpdir", str(tmp_path / "ckpt"), flag]) == 0
+    assert _files(tmp_path / "ckpt" / "cli-sd0") == [fname]
+    assert PCK.load_checkpoint(str(tmp_path / "ckpt" / "cli-sd0" / fname))["global_step"] == 1
 
 
 def test_cli_refused_flag_exits_nonzero_in_a_subprocess(tmp_path):
@@ -431,11 +445,16 @@ def test_cli_without_pyyaml_says_so(world, tmp_path, capsys, monkeypatch):
 
 
 def test_pretrained_grafts_and_figures_are_refused(world, tmp_path):
+    """A ``pretrained_asr`` graft (refused until the grafts were ported)
+    now takes the checkpoint's whole ASR, parameters and BatchNorm
+    statistics, and nothing else; figures are still refused (A10)."""
+    params, state, _ = world["jax"]
     config = copy.deepcopy(world["config"])
-    config["model"]["pretrained_asr"] = "asr.pth"
-    s = VqvaeSolver(config, _paras(str(tmp_path), "graft"), "train")
-    s.load_data()
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        s.set_model()
+    config["model"]["pretrained_asr"] = world["jax_ckpt"]
+    s = _run(VqvaeSolver, config, _paras(str(tmp_path), "graft"))
+    got_p, got_s = to_jax_params(s.model)
+    _assert_same_leaves(got_p["asr"], params["asr"])
+    _assert_same_leaves(got_s["asr"], state["asr"])
+    assert not np.array_equal(got_p["spkr_embed"], params["spkr_embed"])
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         s.write_log("pair_align0", (np.zeros((2, 2)), "HW"))
