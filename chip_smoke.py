@@ -27,6 +27,8 @@ Phases, each fatal on failure:
    bound at the flagship and 15.28 s shapes (``ms_by_shape``, ...) and
    their launch plans (``plans``), for K5 also its time by frames per CTA
    (``ms_by_tile``) and a check on 49 rows of 15.28 s (66,591 frame rows);
+   K6, K7 and K8 also beside cuDNN's LSTM and GRU backward and F.ctc_loss
+   at each timed shape (``library_ms_by_shape``);
    rows without a library yardstick say why in ``library``;
 4. serving at the flagship width of ``config/semi-multi-spkr-paired-data.yaml``:
    a seeded random model written with the port's ``save_checkpoint``, loaded with
@@ -34,26 +36,33 @@ Phases, each fatal on failure:
    requests of B=16 utterances of U=32 tokens (100 decode steps, 300 frames, 82225
    samples each; the median wall time is reported), with every kernel's launch
    counter reset before the first and read after it; the wall time of each stage;
-   one request under torch.profiler for the device's busy time and idle share; and
-   a small request against the same checkpoint served by the plain path on the CPU;
+   one request under torch.profiler for the device's busy time and idle share, whose
+   replayed graphs must run every serving kernel (by name); the same requests run
+   eagerly (no graph), timed and profiled beside them; graphed `synthesize` and
+   `synthesize_full` against eager, bit for bit, at B=16 x U=32 and B=4 x U=20,
+   two keys each, and a server of ``program_cache_size`` 1 alternating the two
+   buckets with the same waveforms; the same comparison with cuDNN's
+   non-deterministic algorithms allowed, reported only (`loose_cudnn`); and a
+   small request against the same checkpoint served by the plain path on the
+   CPU;
 5. ASR training at the same width: a seeded random model driven by ``AsrTrainer``
    for one warm-up step and five timed ``asr_step``s of B=8 utterances of 3.0 s
    (66150 samples) and U=32 tokens (median wall, peak memory, the loss and
    gradient norm of every step, all finite), with ``validate_asr`` after the
-   first (finite PER); the kernel launches of one step and of the validation;
+   first (finite PER); the kernel launches of the run and of the validation;
    one more step under torch.profiler for the device's busy time and idle
    share, and K6's own device time (``picked_ms``); and one step's loss and
    gradients on the card against the CPU plain path on the same weights,
-   dropout 0 and the same SNRs, stretch rate and noise. The featurizer is
-   also timed against ``torch.stft`` + ``abs`` + the mel GEMM at equal row
-   lengths;
+   dropout 0 and the same SNRs, stretch rate and noise; then `graph_check`.
+   The featurizer is also timed against ``torch.stft`` + ``abs`` + the mel
+   GEMM at equal row lengths;
 6. paired training at the same width: ``VqvaeTrainer`` with the unpaired loss
    weights 0 runs one warm-up paired step (ASR on augmented features, CTC,
    the TTS teacher-forced over 81 decode steps on the clean mel, CBHG postnet,
    mel and linear losses, backward, Adam) and five timed ones of B=8 x 3.0 s
    x U=32 (median wall, peak memory, the ASR, mel and linear losses and the
    gradient norm of every step, all finite), then ``validate`` (dev TTS loss
-   and PER); the kernel launches of one step (K1 with cell states, K7, K2,
+   and PER); the kernel launches of the run (K1 with cell states, K7, K2,
    K8, K3, K9, K5, K6: each must launch) and of a validation; one profiled
    step; and one step's loss and gradients on the card against the CPU plain
    path (B=2, every dropout 0, tf_rate 1, the same augmentation), the
@@ -61,20 +70,23 @@ Phases, each fatal on failure:
    back from the loss (``KINKED_LEAVES``), leaf by leaf (``compare_grads``),
    beside how far the card's own gradients move in a rerun and on weights
    an ulp off (``card_spread``; the ASR step's check reports both too);
+   then `graph_check`;
 7. the unpaired cycles at the same width: ``VqvaeTrainer`` with the
    flagship's unpaired speech weight (10) and an unpaired text weight of 1
    runs step 0 paired, then the text-first cycle on odd steps and the
    speech-first cycle (with B6 trim/merge) on even ones, B=8 x 3.0 s x U=32
    paired and unpaired batches: three warm-up steps and three timed steps
    of each kind (median wall, peak memory, every step's losses and the
-   trainer's counters, all finite); the kernel launches of one step of each
-   kind (K1 with cell states, K7, K2, K8, K3, K9, K5, K6 and, speech-first,
-   B6: each must launch; K6 twice in the text-first step); one profiled
-   step of each kind; one step of each kind on the card against the CPU
+   trainer's counters, all finite); the kernel launches of the run (K1 with
+   cell states, K7, K2, K8, K3, K9, K5, K6 and B6: each must launch); one
+   profiled step of each kind (K6 twice in the text-first step's); one step of each kind on the card against the CPU
    plain path (B = 2 + 2, every dropout 0, tf_rate 1, the same
-   augmentation; the CPU follows the card's unpaired argmax tokens); and a
-   speech-first step whose unpaired utterance is 15.28 s long, so that K3
-   and K9 run at L ~ 680;
+   augmentation; the CPU follows the card's unpaired argmax tokens);
+   `graph_check` of each cycle; a speech-first step whose unpaired
+   utterance is 15.28 s long, through its CUDA graph, so that K3 and K9 run
+   at L ~ 680; and the speech-first step at the flagship partition table's
+   most frequent batch shapes (`corpus_shapes`): eager, capture and replay
+   times and the card's memory after each capture;
 8. the CLI's solvers at the same width (`phase_cli`), on a synthetic
    corpus written here from a seeded numpy generator (16 paired, 16
    unpaired, 8 dev and 8 test utterances of 2-4 s, a partition table and a
@@ -85,8 +97,11 @@ Phases, each fatal on failure:
    solver resumes from step 2's checkpoint (state equal bit for bit) and
    repeats step 3 bit for bit; `SpecgramGenerator` with --gen-wav writes
    the test split's mel, linear, alignment and Griffin-Lim wave files. The
-   kernels of both paths must launch; the solver's step wall is reported
-   beside the bare steps' of phases 6 and 7;
+   kernels of both paths must launch, and one profiled replay of each step
+   kind's graph must run every training kernel; the solver's step wall is
+   reported beside the bare steps' of phases 6 and 7, for the 4 steps (each
+   shape's first call runs eagerly, its second captures) and for the last
+   CLI_STEADY_TIMED of CLI_STEADY more steps of the same run (steady state);
 9. LM pretraining at the same width on that corpus (`phase_pretrain`):
    ``--pretrain-text`` and ``--pretrain-speech`` through `TextLmSolver` and
    `AudioLmSolver`, 4 steps each validated every 2, each writing its
@@ -100,6 +115,24 @@ Phases, each fatal on failure:
    solver's; two fine-tune steps. RNNLM at its default 512 units must raise
    its plan's ValueError at its first launch (LSTM and GRU).
 
+The server and the train steps run as CUDA graphs (`semi_tts_tpu_torch.graphs`):
+each path's line gives the graphed and eager walls (``wall_s``,
+``eager_wall_s``), busy time and idle share of a profiled graph replay,
+the device events of a call, the graphs' capture times and host launches a
+call (``graphs``), and peak allocated and reserved memory with the graphs
+alive. A path's kernels are shown to run by their names in a profiled
+replay (`KERNEL_NAMES`): a wrapper's counter moves where it launches its
+kernel, on an eager call or once at a capture, and a replay moves none. So
+each graphed path resets the counters before its run (its capture
+included), reads them after (``wrapper_launches``; every kernel of the
+path must have launched) and reports as ``launches`` the kernels of each
+name in one profiled replay. The bare-step phases capture a shape at its
+first call (`capture_first`); the CLI runs the default, the second.
+`graph_check` holds each train step's graph to the same step run eagerly
+from one copy of the state: GRAPH_STEPS steps of each, every metric,
+parameter, BatchNorm statistic and optimizer moment and count equal bit
+for bit, and a rerun of a graphed step repeats bit for bit.
+
 Every card-vs-CPU check holds the gradients in all and leaf by leaf in L2;
 a leaf behind a ReLU or max-pool (``KINKED_LEAVES``) to max(1e-3, KINK_K x
 its own ulp spread on the card); and the card's rerun of the same step must
@@ -111,11 +144,13 @@ The training kernels (K5 ``stft_frames``/``spec_db``, K6 ``ctc_alpha``/
 ``bigru_rec_bwd``, K9 ``attention_step_bwd``, up to L = 1,187) and the speech-first step's B6 (``trim_merge``,
 ``trim_merge_bwd``, bit for bit) are held to their plain versions in
 phase 3 at their step's shapes and at ragged ones; K3 also at the memory
-lengths 1 and 2 of an all-pad or one-token request. A row's ``launches`` counts one serving
-request (K1-K4), one ASR train step (K5-K7, K1 with cell states), one
-paired train step (K8, K9) or one speech-first step (B6), as its
-``launches_per`` says; ``launches_by_path`` has every path, the two LM
-steps' included. K1 with cell states and K7 are also held and timed at the
+lengths 1 and 2 of an all-pad or one-token request. A row's ``launches`` counts the
+kernel's runs in one profiled replay of a serving request (K1-K4), an ASR
+train step (K5-K7, K1 with cell states), a paired train step (K8, K9) or
+a speech-first step (B6), as its ``launches_per`` says;
+``launches_by_path`` has every path: the CLI's training as one replay of
+each step kind, and its eager paths (gen_specgram, the two LM steps) by the
+wrappers' counters over one call. K1 with cell states and K7 are also held and timed at the
 text LM's one-direction shape, K2 and K8 at one direction and H=128
 (``ms_by_shape``, beside cuDNN's unidirectional LSTM and GRU in
 ``library_ms_by_shape``).
@@ -178,7 +213,7 @@ FLAGSHIP_AUDIO = {"num_freq": 1025, "num_mels": 80, "frame_length_ms": 50,
                   "use_linear": True, "snr_range": [10, 100], "time_stretch_range": [0.9, 1.1]}
 
 B, U = 16, 32                   # serving batch and padded text length
-REQUESTS = 5                    # timed requests; the kernel launches are counted in the first
+REQUESTS = 5                    # timed requests after the one that captures
 TRAIN_B, TRAIN_S = 8, 66150     # ASR training batch: 3.0 s utterances
 TRAIN_STEPS = 5                 # timed train steps after one warm-up
 SERVING_KERNELS = ("bilstm_rec", "bigru_rec", "attention_step", "gl_project", "gl_ola_frame")
@@ -403,6 +438,13 @@ def _library_backward(module, x_in, randn):
     gy = randn(*y.shape)
     leaves = [x] + list(module.parameters())
     return lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True)
+
+
+def _rnn_library_backward(cls, randn, dev, T, B_, H, ndir, D):
+    """The backward of a cuDNN ``cls`` (nn.LSTM or nn.GRU) of ``H`` units
+    over ``ndir`` directions on a (T, B, D) input: `_library_backward`."""
+    module = cls(D, H, bidirectional=ndir == 2).to(dev)
+    return _library_backward(module, randn(T, B_, D), randn)
 
 
 def ptxas_report(log):
@@ -804,6 +846,8 @@ def _case_ctc_alpha(randn, unif, dev):
         library_note="F.ctc_loss forward, reduction mean, on the card (CUDA events, eager: "
         "its lengths go through the host)", tol=1e-4, nbytes=nbytes, flops=flops, iters=50,
         steps=T, timed=timed, timed_plain=timed_plain,
+        timed_library={ctc_shape_key(*sh): _ctc_library(*_ctc_shape_inputs(randn, dev, *sh),
+                                                        backward=False) for sh in K6_SHAPES},
         extra={"bound_ms_by_shape": bounds, "plans": _ctc_plans()})
 
 
@@ -847,6 +891,8 @@ def _case_ctc_beta_grad(randn, unif, dev):
         library_note="F.ctc_loss forward + backward, reduction mean, on the card (CUDA events, "
         "eager; includes the forward)", tol=1e-4, nbytes=nbytes, flops=flops, iters=50,
         steps=T, timed=timed, timed_plain=timed_plain,
+        timed_library={ctc_shape_key(*sh): _ctc_library(*_ctc_shape_inputs(randn, dev, *sh),
+                                                        backward=True) for sh in K6_SHAPES},
         extra={"bound_ms_by_shape": bounds, "plans": _ctc_plans()})
 
 
@@ -937,7 +983,9 @@ def _case_lstm_bwd(randn, unif, dev):
         "nn.LSTM() one direction", tol=1e-4,
         nbytes=_lstm_bwd_cost(T, TRAIN_B, H)[0], flops=_lstm_bwd_cost(T, TRAIN_B, H)[1], iters=10,
         timed=timed, timed_plain=timed_plain,
-        timed_library={shape_key(TEXTLM_T, TRAIN_B, TEXTLM_H, 1): _library_backward(lstm1, x1, randn)},
+        timed_library={**{shape_key(*sh): _rnn_library_backward(torch.nn.LSTM, randn, dev, *sh, D)
+                          for sh in K7_SHAPES if sh[3] == 2},
+                       shape_key(TEXTLM_T, TRAIN_B, TEXTLM_H, 1): _library_backward(lstm1, x1, randn)},
         extra={"plan": k17.lstm_bwd_plan(TRAIN_B, H, 2, k17.max_clusters(H, "lstm_rec_bwd")),
                "bound_ms_by_shape": bounds})
 
@@ -1030,7 +1078,9 @@ def _case_gru_bwd(randn, unif, dev):
         library_note="the backward of cuDNN nn.GRU(bidirectional=True): also the input GEMM's "
         "data and weight gradients and dW_hh (CUDA events, eager); by shape: nn.GRU() one "
         "direction", tol=1e-4,
-        timed_library={shape_key(GRU_LM_T, TRAIN_B, GRU_LM_H, 1): _library_backward(gru1, x1, randn)},
+        timed_library={**{shape_key(*sh): _rnn_library_backward(torch.nn.GRU, randn, dev, *sh, H)
+                          for sh in K8_SHAPES if sh[3] == 2},
+                       shape_key(GRU_LM_T, TRAIN_B, GRU_LM_H, 1): _library_backward(gru1, x1, randn)},
         nbytes=_gru_bwd_cost(T, TRAIN_B, H)[0], flops=_gru_bwd_cost(T, TRAIN_B, H)[1], iters=10,
         timed=timed, timed_plain=timed_plain, extra={"plan": k8.gru_bwd_plan(TRAIN_B, H, 2),
                                                      "bound_ms_by_shape": bounds})
@@ -1446,9 +1496,13 @@ def write_checkpoint(path, config):
 
 
 def phase_serving(build_dir):
-    """The serving phase; ``peak_mem_bytes`` is torch.cuda.max_memory_allocated
-    over the timed requests, ``mem_baseline_bytes`` what was allocated when
-    its count started (model, caches of earlier phases)."""
+    """The serving phase through the server's bounded program LRU and CUDA
+    graphs; ``peak_mem_bytes`` is torch.cuda.max_memory_allocated over the
+    timed requests with the graphs alive, ``reserved_bytes`` what the
+    allocator holds then (the graphs' pool included), ``mem_baseline_bytes``
+    what was allocated when its count started (model, caches of earlier
+    phases). The eager requests (`eager_request`, the stages run without a
+    graph) are timed and profiled beside the graphed ones."""
     from semi_tts_tpu_torch import kernels
     from semi_tts_tpu_torch.serve import TTSServer
 
@@ -1458,85 +1512,193 @@ def phase_serving(build_dir):
         server = TTSServer.from_checkpoint(flagship_config(), ckpt)
         text, sid = serving_inputs(B, U)
         steps = server.decode_steps_for(text)
-        server.synthesize(text, sid, key=1)  # warm-up: cuBLAS/cuDNN handles, bases
+        kernels.reset_launches()
+        server.synthesize(text, sid, key=1)  # warm-up: captures the stages' graphs
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        kernels.reset_launches()
         walls = []
         for i in range(REQUESTS):
             t0 = time.perf_counter()
             out = server.synthesize(text, sid, key=2 + i)  # returns on the host: synchronised
             walls.append(time.perf_counter() - t0)
             if i == 0:
-                launches, wav = kernels.launch_counts(), out
+                wav = out
+        wrapper_launches = kernels.launch_counts()  # at the capture; a replay moves none
         S = HOP * (steps * 3 - 1)
         if wav.shape != (B, S) or not np.isfinite(wav).all():
             raise SystemExit(f"chip_smoke: bad waveforms {wav.shape}, finite={np.isfinite(wav).all()}")
         if np.abs(wav).max() == 0.0:
             raise SystemExit("chip_smoke: all-zero waveforms")
-        peak = torch.cuda.max_memory_allocated()
+        peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
         wall = float(np.median(walls))
-        idle = [n for n in SERVING_KERNELS if launches[n] == 0]
+        idle = [n for n in SERVING_KERNELS if wrapper_launches[n] == 0]
         if idle:
             raise SystemExit(f"chip_smoke: kernels not launched on the main path: {idle}")
+        eager_walls = []
+        for i in range(REQUESTS):
+            t0 = time.perf_counter()
+            eager_request(server, text, sid, 2 + i, steps)[-1].cpu()
+            eager_walls.append(time.perf_counter() - t0)
+        eager_wall = float(np.median(eager_walls))
         stage_s = stage_times(server, text, sid, steps)
-        profile = profiled_request(server, text, sid, wall)
+        profile = profiled_step(lambda: server.synthesize(text, sid, key=99), wall)
+        require_seen(profile["kernels_seen"], SERVING_KERNELS, "serving request")
+        eager_profile = profiled_step(
+            lambda: eager_request(server, text, sid, 99, steps)[-1].cpu(), eager_wall)
+        synth, vocode = server.stages(steps, B, U)
+        graphs = {"synth": graph_stats(synth), "vocode": graph_stats(vocode)}
+        checks = serving_graph_checks(server, (text, sid))
+        graphs["full"] = graph_stats(server._full_stage(steps, B, U))
         ref = reference_check(ckpt)
     finally:
         if os.path.exists(ckpt):
             os.remove(ckpt)
     return dict(batch=B, text_len=U, decode_steps=steps, frames=steps * 3, samples=S,
-                params=n_params, asr_params=n_asr, wall_s=wall, walls_s=walls, utt_per_s=B / wall, peak_mem_bytes=peak,
-                mem_baseline_bytes=base,
-                stage_s=stage_s, profile=profile, launches=launches, reference=ref)
+                params=n_params, asr_params=n_asr, wall_s=wall, walls_s=walls, utt_per_s=B / wall,
+                eager_wall_s=eager_wall, eager_walls_s=eager_walls,
+                busy_s=profile["device_busy_s"], idle_share=profile["idle_share"],
+                eager_busy_s=eager_profile["device_busy_s"],
+                eager_idle_share=eager_profile["idle_share"],
+                device_events=profile["kernel_launches"],
+                eager_device_events=eager_profile["kernel_launches"],
+                # text and sid in, each graph's copies, replay and clones, the wave out
+                host_launches=3 + graphs["synth"]["host_launches"]
+                + graphs["vocode"]["host_launches"],
+                graphs=graphs, peak_mem_bytes=peak, reserved_bytes=reserved,
+                mem_baseline_bytes=base, stage_s=stage_s, profile=profile,
+                eager_profile={k: eager_profile[k] for k in ("device_busy_s", "idle_share",
+                                                             "kernel_launches")},
+                launches=profile["kernels_seen"], wrapper_launches=wrapper_launches,
+                graph_checks=checks, reference=ref)
 
 
-def profiled_request(server, text, sid, wall):
-    """One more request under torch.profiler: device busy time (the sum of
-    the durations of device-side events: kernels and copies, on one stream),
-    the idle share against the unprofiled median wall time, and the device
-    time of the 16 busiest kernel names, largest first."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def graph_stats(prog):
+    """A graphed program's capture time (its warm-up included) and host
+    launches a call (input copies, the replay, output clones)."""
+    return {"capture_s": getattr(prog, "capture_s", None),
+            "host_launches": getattr(prog, "host_launches", None)}
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        server.synthesize(text, sid, key=99)
-        profiled_wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    busy = sum(us for _, us in by_name.values()) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:16]
-    return {"profiled_wall_s": profiled_wall, "device_busy_s": busy,
-            "idle_share": 1.0 - busy / wall,
-            "top_device_ms": [[name[:70], n, us / 1e3] for name, (n, us) in top]}
+
+def eager_request(server, text, sid, key, steps, full=False):
+    """One request through the serving stages run eagerly (no graph), its
+    generator seeded with ``key`` as the server seeds its own: the waveform
+    (B, S) on the device, after (mel, linear, align) with ``full``."""
+    from semi_tts_tpu_torch.serve import full_stage, serving_stages
+
+    t, s = server._place(text, sid)
+    g = torch.Generator(device=server.device).manual_seed(int(key))
+    synth, vocode = serving_stages(server.cfg, server.audio, server.phn_attr, steps)
+    if full:
+        mel, lin, align, amp = full_stage(server.cfg, server.phn_attr, steps)(server.model, t, s, g)
+        return mel, lin, align, vocode(amp, g)
+    return (vocode(synth(server.model, t, s, g), g),)
+
+
+SERVING_KEYS = (7, 8)
+
+
+def serving_graph_checks(server, flagship):
+    """Graphed against eager on the card, bit for bit: `synthesize` and
+    `synthesize_full` at the flagship bucket and at B=4 x U=20, two keys
+    each; then a server of `program_cache_size` 1 alternating the two
+    buckets (each request evicts the other's graphs and captures its own)
+    gives the same waveforms."""
+    from semi_tts_tpu_torch.models import vqvae as V
+    from semi_tts_tpu_torch.serve import TTSServer
+
+    buckets = {"B=16 U=32": flagship, "B=4 U=20": serving_inputs(4, 20, seed=1)}
+    r, out, wavs = server.cfg.n_frames_per_step, {}, {}
+    for name, (text, sid) in buckets.items():
+        steps = server.decode_steps_for(text)
+        enc = np.sum(text != 0, -1)
+        for key in SERVING_KEYS:
+            wav = server.synthesize(text, sid, key=key)
+            want = eager_request(server, text, sid, key, steps)[0].cpu().numpy()
+            full = server.synthesize_full(text, sid, key=key)
+            mel, lin, align, fwav = (t.cpu().numpy() for t in
+                                     eager_request(server, text, sid, key, steps, full=True))
+            crop = [align[i][: int(enc[i] * V.FRAME_PHN_RATIO) // r, : enc[i]]
+                    for i in range(len(enc))]
+            same = {"synthesize": bool(np.array_equal(wav, want)),
+                    "full_wav": bool(np.array_equal(full["wav"], fwav)),
+                    "full_mel": bool(np.array_equal(full["mel"], mel)),
+                    "full_linear": bool(np.array_equal(full["linear"], lin)),
+                    "full_align": all(np.array_equal(a, b) for a, b in zip(full["align"], crop))}
+            out[f"{name} key {key}"] = dict(decode_steps=steps, **same,
+                                            max_abs_err=float(np.abs(wav - want).max()))
+            wavs[name, key] = wav
+            if not all(same.values()):
+                raise SystemExit(f"chip_smoke: graphed and eager serving differ at {name}, key "
+                                 f"{key}: {out}")
+    small = TTSServer(server.cfg, server.audio, server.phn_attr.cpu(), server.model,
+                      device=server.device, program_cache_size=1)
+    alternating = []
+    for key in SERVING_KEYS:
+        for name, (text, sid) in buckets.items():
+            alternating.append(bool(np.array_equal(small.synthesize(text, sid, key=key),
+                                                   wavs[name, key])))
+            if len(small._cache._programs) != 1:
+                raise SystemExit("chip_smoke: a server of program_cache_size 1 kept "
+                                 f"{len(small._cache._programs)} programs")
+    if not all(alternating):
+        raise SystemExit(f"chip_smoke: program_cache_size 1 changed the waveforms: {alternating}")
+    out["program_cache_size_1"] = alternating
+    out["cudnn_nondeterministic"] = loose_cudnn(server, buckets)
+    return out
+
+
+def loose_cudnn(server, buckets):
+    """Graphed against eager with cuDNN free to pick non-deterministic
+    algorithms (what `TTSServer` turns off with `use_deterministic`): a
+    fresh server, the first key at each bucket, the synthesis's amplitude
+    and the waveform. Reported, not a gate."""
+    from semi_tts_tpu_torch.device import use_deterministic
+    from semi_tts_tpu_torch.serve import TTSServer, serving_stages
+
+    srv = TTSServer(server.cfg, server.audio, server.phn_attr.cpu(), server.model,
+                    device=server.device, program_cache_size=2)
+    key, out = SERVING_KEYS[0], {}
+    try:
+        torch.backends.cudnn.deterministic = False
+        for name, (text, sid) in buckets.items():
+            steps = srv.decode_steps_for(text)
+            wav = srv.synthesize(text, sid, key=key)
+            want = eager_request(srv, text, sid, key, steps)[0].cpu().numpy()
+            t, s_ = srv._place(text, sid)
+            amp = srv.stages(steps, *t.shape)[0](t, s_, seed=key).cpu().numpy()
+            g = torch.Generator(device=srv.device).manual_seed(key)
+            eager_amp = serving_stages(srv.cfg, srv.audio, srv.phn_attr, steps)[0](
+                srv.model, t, s_, g).cpu().numpy()
+            out[name] = {"amp_same": bool(np.array_equal(amp, eager_amp)),
+                         "wav_same": bool(np.array_equal(wav, want)),
+                         "wav_max_abs_err": float(np.abs(wav - want).max())}
+    finally:
+        use_deterministic()
+    return out
 
 
 def stage_times(server, text, sid, steps):
-    """Wall seconds of the synthesis and vocoder stages of one more request,
+    """Wall seconds of the synthesis and vocoder graphs of one more request,
     each ended by a synchronise."""
-    synth, vocode = server.stages(steps)
     t, s = server._place(text, sid)
-    g = server.generator(3)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    amp = synth(server.model, t, s, g)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    vocode(amp, g)
-    torch.cuda.synchronize()
+    synth, vocode = server.stages(steps, *t.shape)
+    with server._run:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        amp = synth(t, s, seed=3)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vocode(amp)
+        torch.cuda.synchronize()
     return {"synth": t1 - t0, "vocode": time.perf_counter() - t1}
 
 
 def reference_check(ckpt):
     """A small request through the card's kernels and through the plain path
     on the CPU, on the same checkpoint, prenet dropout 0 and the same phases."""
-    from semi_tts_tpu_torch.serve import TTSServer
+    from semi_tts_tpu_torch.serve import TTSServer, serving_stages
 
     config = flagship_config(prenet_dropout=0.0)
     gpu = TTSServer.from_checkpoint(config, ckpt)
@@ -1545,13 +1707,13 @@ def reference_check(ckpt):
     steps = 4
     out = {}
     amps = []
+    stages = {srv: serving_stages(srv.cfg, srv.audio, srv.phn_attr, steps) for srv in (gpu, cpu)}
     for srv in (gpu, cpu):
-        synth, _ = srv.stages(steps)
         t, s = srv._place(text, sid)
-        amps.append(synth(srv.model, t, s).cpu())
+        amps.append(stages[srv][0](srv.model, t, s).cpu())
     rel = float(((amps[0] - amps[1]).abs() / amps[1].abs().clamp_min(1e-3)).max())
     phases = (torch.rand(amps[1].shape, generator=torch.Generator().manual_seed(4)) * 2 - 1) * math.pi
-    wavs = [srv.stages(steps)[1](a.to(srv.device), phases=phases.to(srv.device)).cpu()
+    wavs = [stages[srv][1](a.to(srv.device), phases=phases.to(srv.device)).cpu()
             for srv, a in ((gpu, amps[1]), (cpu, amps[1]))]
     out["amp_max_rel_err"] = rel
     out["amp_tol_rel"] = 1e-3
@@ -1618,7 +1780,7 @@ def phase_training(dev):
     from semi_tts_tpu_torch.ops.features import AudioFeaturizer
     from semi_tts_tpu_torch.train.optim import Optimizer
     from semi_tts_tpu_torch.train.steps import StepBuilder
-    from semi_tts_tpu_torch.train.train_asr import AsrTrainer
+    from semi_tts_tpu_torch.train.train_asr import AsrTrainer, make_asr_step
     from semi_tts_tpu_torch.utils.metrics import read_phn_attr
 
     config = flagship_config()
@@ -1639,18 +1801,18 @@ def phase_training(dev):
                 mem["base"] = torch.cuda.memory_allocated()
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
-            if i == 2:
-                launches["step"] = kernels.launch_counts()
-            kernels.reset_launches()
             yield batch
 
     trainer = AsrTrainer(model, builder, opt, pair_iter=batches(), dev_set=[dev_batch],
                          max_step=1 + TRAIN_STEPS, valid_step=10 ** 9, progress_step=1,
                          log=lambda *a: logged.append(a))
+    capture_first(trainer)
+    kernels.reset_launches()
     trainer.exec()
+    launches["run"] = kernels.launch_counts()
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
-    peak = torch.cuda.max_memory_allocated()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
     walls = [b - a for a, b in zip(marks[1:], marks[2:])]
     losses = [v for _, n, v in logged if n == "txt_loss/pair"]
     gnorms = [v for _, n, v in logged if n == "grad_norm"]
@@ -1660,24 +1822,56 @@ def phase_training(dev):
     launches["validate"] = kernels.launch_counts()
     if len(losses) != 1 + TRAIN_STEPS or not np.isfinite(losses + gnorms + per_first + [per]).all():
         raise SystemExit(f"chip_smoke: training went non-finite: {losses} {gnorms} {per}")
-    for path, names in (("step", TRAINING_KERNELS), ("validate", VALIDATION_KERNELS)):
+    for path, names in (("run", TRAINING_KERNELS), ("validate", VALIDATION_KERNELS)):
         idle = [n for n in names if launches[path][n] == 0]
         if idle:
             raise SystemExit(f"chip_smoke: kernels not launched on the {path} path: {idle}")
     profile = profiled_step(lambda: trainer._train_step(batch), float(np.median(walls)),
                             picked=K6_KERNELS)
+    require_seen(profile["kernels_seen"], TRAINING_KERNELS, "ASR train step")
     ref = training_reference(model, cfg, phn_attr, dev)
+    graph = graph_check(model, opt, lambda o: make_asr_step(builder, o),
+                        lambda fn, m, n: fn(m, n, *batch), 100)
     return dict(batch=TRAIN_B, samples=TRAIN_S, text_len=32, steps=1 + TRAIN_STEPS,
                 params=sum(p.numel() for p in model.parameters()),
                 asr_params=sum(p.numel() for p in model.asr.parameters()),
-                wall_s=float(np.median(walls)), walls_s=walls, peak_mem_bytes=peak,
-                mem_baseline_bytes=mem["base"],
+                wall_s=float(np.median(walls)), walls_s=walls, eager_wall_s=graph["eager_wall_s"],
+                busy_s=profile["device_busy_s"], idle_share=profile["idle_share"],
+                peak_mem_bytes=peak, reserved_bytes=reserved, mem_baseline_bytes=mem["base"],
+                graphs=step_graphs(trainer._step_fn),
                 losses=losses, grad_norms=gnorms, dev_per=per, dev_per_after_step1=per_first[0],
-                launches=launches["step"], launches_validate=launches["validate"],
-                profile=profile, reference=ref)
+                launches=profile["kernels_seen"], wrapper_launches=launches["run"],
+                launches_validate=launches["validate"], profile=profile, graph_check=graph,
+                reference=ref)
 
 
 K6_KERNELS = ("ctc_alpha", "ctc_beta")  # K6's kernels in a profile, by name
+
+# Each wrapper's device kernel, by its demangled name in a profile: the
+# evidence that a path's graph replays a kernel (a wrapper's Python counter
+# moves when its kernel is captured, and a graph credits it on each replay).
+KERNEL_NAMES = {"bilstm_rec": r"lstm_rec_kernel<[^>]*false>",
+                "bilstm_rec_cs": r"lstm_rec_kernel<[^>]*true>",
+                "bilstm_rec_bwd": r"lstm_bwd_kernel", "bigru_rec": r"gru_rec_kernel",
+                "bigru_rec_bwd": r"gru_bwd_kernel", "attention_step": r"attention_step_kernel",
+                "attention_step_bwd": r"attention_bwd_kernel", "gl_project": r"gl_project_kernel",
+                "gl_ola_frame": r"gl_ola_frame_kernel", "stft_frames": r"stft_frames_kernel",
+                "spec_db": r"spec_db_kernel", "ctc_alpha": r"ctc_alpha_kernel",
+                "ctc_beta_grad": r"ctc_beta_grad_kernel", "trim_merge": r"trim_merge_kernel",
+                "trim_merge_bwd": r"trim_merge_bwd_kernel"}
+
+
+def kernels_seen(by_name):
+    """{wrapper: device kernels of its name} in a profile's ``by_name``."""
+    return {w: sum(n for k, (n, _) in by_name.items() if re.search(pat, k))
+            for w, pat in KERNEL_NAMES.items()}
+
+
+def require_seen(seen, names, what):
+    """Raise unless every kernel of ``names`` ran in a profiled replay."""
+    idle = [n for n in names if not seen[n]]
+    if idle:
+        raise SystemExit(f"chip_smoke: kernels not seen in a profiled replay of the {what}: {idle}")
 
 
 def profiled_step(run_step, wall, picked=()):
@@ -1703,10 +1897,115 @@ def profiled_step(run_step, wall, picked=()):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:16]
     return {"profiled_wall_s": profiled_wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
             "kernel_launches": sum(n for n, _ in by_name.values()),
+            "kernels_seen": kernels_seen(by_name),
             "top_device_ms": [[name[:70], n, us / 1e3] for name, (n, us) in top],
             "picked_ms": {p: [sum(n for k, (n, _) in by_name.items() if p in k),
                               sum(us for k, (_, us) in by_name.items() if p in k) / 1e3]
                           for p in picked}}
+
+
+def memory_now():
+    """What the allocator holds and what the whole card has in use (graphs'
+    executables and library workspaces included), in bytes."""
+    free, total = torch.cuda.mem_get_info()
+    return {"allocated_bytes": torch.cuda.memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved(), "device_used_bytes": total - free}
+
+
+def capture_first(trainer):
+    """A trainer's steps capture a shape's graph at its first call (the
+    default is its second), so that the timed steps after the warm-up are
+    replays; the CLI phase runs the default."""
+    for step in [trainer._step_fn, *trainer._cycle_fns.values()]:
+        step.capture_at = 1
+
+
+GRAPH_STEPS = 3  # graphed and eager steps from one copied state (one would miss stale state)
+
+
+def model_state(model, opt):
+    """(name, tensor) of every parameter, BatchNorm statistic and optimizer
+    state tensor."""
+    names = ([n for n, _ in model.named_parameters()]
+             + [f"buffer {n}" for n, _ in model.named_buffers()]
+             + [f"optimizer {n}" for n in ("count", "schedule_count", *opt.moment_names,
+                                          "notfinite_count", "total_notfinite", "last_finite")])
+    return list(zip(names, list(model.parameters()) + list(model.buffers())
+                    + opt.state_tensors()))
+
+
+def _rel(a, b, scale):
+    return float(torch.linalg.vector_norm((a - b).double())) / max(
+        float(torch.linalg.vector_norm(scale.double())), 1e-30)
+
+
+def graph_check(model, opt, make, call, step0):
+    """A train step's CUDA graph against the same step run eagerly, from
+    one copy of ``model``'s and ``opt``'s state: GRAPH_STEPS steps of each
+    (step numbers ``step0``...; ``make(optimizer)`` gives the step program,
+    whose first call captures its graph, ``call(fn, model, step_no)`` runs
+    ``fn``, the program or its ``eager``). Every metric, parameter,
+    BatchNorm statistic and optimizer moment and count must be equal bit for
+    bit; where one is not, each differing leaf is named and held to the
+    card-vs-CPU gates (a loss to 1e-4 of itself, a state leaf in L2 to 1e-3
+    of its change over the steps; counts exactly). The last graphed step is
+    rerun from a copy of its state and must repeat bit for bit. Returns the
+    eager walls (median), an eager step's profile, the graph's capture time
+    and host launches a call."""
+    (mg, og), (me, oe) = copy.deepcopy((model, opt)), copy.deepcopy((model, opt))
+    start = [t.detach().clone() for _, t in model_state(me, oe)]
+    sg, se = make(og), make(oe)
+    sg.capture_at = 1  # every graphed step from the graph, the first included
+    mets_g, mets_e, eager_walls = [], [], []
+    for i in range(GRAPH_STEPS):
+        if i == GRAPH_STEPS - 1:
+            before = [t.detach().clone() for _, t in model_state(mg, og)]
+        mets_g.append(call(sg, mg, step0 + i))
+    after = [t.detach().clone() for _, t in model_state(mg, og)]
+    with torch.no_grad():
+        for (_, t), b in zip(model_state(mg, og), before):
+            t.copy_(b)
+    again = call(sg, mg, step0 + GRAPH_STEPS - 1)
+    rerun = all(torch.equal(t, a) for (_, t), a in zip(model_state(mg, og), after)) and all(
+        torch.equal(again[k], mets_g[-1][k]) for k in again)
+    for i in range(GRAPH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mets_e.append(call(se.eager, me, step0 + i))
+        torch.cuda.synchronize()
+        eager_walls.append(time.perf_counter() - t0)
+    differing, held = [], True
+    for i, (g, e) in enumerate(zip(mets_g, mets_e)):
+        for k in g:
+            if not torch.equal(g[k], e[k]):
+                scalar = k.endswith("_loss") or k == "grad_norm"
+                err = _rel(g[k].float(), e[k].float(), e[k].float()) if scalar else None
+                differing.append([f"step {i} {k}", err])
+                held = held and scalar and err <= 1e-4
+    for (name, g), (_, e), s0 in zip(model_state(mg, og), model_state(me, oe), start):
+        if not torch.equal(g, e):
+            exact = not g.is_floating_point()
+            err = None if exact else _rel(g, e, e - s0)
+            differing.append([name, err])
+            held = held and not exact and err <= 1e-3
+    prog = sg.programs()[0]
+    eager_wall = float(np.median(eager_walls))
+    eager_prof = profiled_step(lambda: call(se.eager, me, step0 + GRAPH_STEPS), eager_wall)
+    out = dict(steps=GRAPH_STEPS, bit_for_bit=not differing, rerun_bit_for_bit=rerun,
+               differing=differing[:20], held_to_gates=held, eager_wall_s=eager_wall,
+               eager_walls_s=eager_walls, eager_busy_s=eager_prof["device_busy_s"],
+               eager_idle_share=eager_prof["idle_share"],
+               eager_device_events=eager_prof["kernel_launches"], **graph_stats(prog))
+    del mg, og, me, oe, sg, se, prog
+    gc.collect()
+    if not rerun or not held:
+        raise SystemExit(f"chip_smoke: a graphed step and its eager twin disagree: {out}")
+    return out
+
+
+def step_graphs(step):
+    """Capture time and host launches of each graph a step program holds."""
+    return [graph_stats(p) for p in step.programs()]
 
 
 def training_reference(model, cfg, phn_attr, dev):
@@ -1898,18 +2197,18 @@ def phase_paired(dev):
                 mem["base"] = torch.cuda.memory_allocated()
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
-            if i == 2:
-                launches["step"] = kernels.launch_counts()
-            kernels.reset_launches()
             yield batch
 
     trainer = VqvaeTrainer(model, builder, opt, pair_iter=batches(), dev_set=[dev_batch],
                            max_step=1 + TRAIN_STEPS, valid_step=10 ** 9, progress_step=1,
                            log=lambda *a: logged.append(a))
+    capture_first(trainer)
+    kernels.reset_launches()
     trainer.exec()
+    launches["run"] = kernels.launch_counts()
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
-    peak = torch.cuda.max_memory_allocated()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
     walls = [b - a for a, b in zip(marks[1:], marks[2:])]
     per_step = {k: [v for _, n, v in logged if n == name]
                 for k, name in (("asr_loss", "txt_loss/pair"), ("mel_loss", "speech_loss/mel"),
@@ -1920,19 +2219,25 @@ def phase_paired(dev):
     values = sum(per_step.values(), []) + [dev_tts, dev_per]
     if any(len(v) != 1 + TRAIN_STEPS for v in per_step.values()) or not np.isfinite(values).all():
         raise SystemExit(f"chip_smoke: paired training went non-finite: {per_step} {dev_tts} {dev_per}")
-    for path, names in (("step", PAIRED_STEP_KERNELS), ("validate", VALIDATION_KERNELS)):
+    for path, names in (("run", PAIRED_STEP_KERNELS), ("validate", VALIDATION_KERNELS)):
         idle = [n for n in names if launches[path][n] == 0]
         if idle:
             raise SystemExit(f"chip_smoke: kernels not launched on the paired {path} path: {idle}")
     profile = profiled_step(lambda: trainer._train_step(batch), float(np.median(walls)))
+    require_seen(profile["kernels_seen"], PAIRED_STEP_KERNELS, "paired train step")
     ref = paired_reference(model, cfg, phn_attr, dev)
+    graph = graph_check(model, opt, builder.make_paired_step,
+                        lambda fn, m, n: fn(m, n, 1.0, *batch), 100)
     return dict(batch=TRAIN_B, samples=TRAIN_S, text_len=32, decode_steps=PAIRED_T // 3,
                 steps=1 + TRAIN_STEPS, params=sum(p.numel() for p in model.parameters()),
-                wall_s=float(np.median(walls)), walls_s=walls, peak_mem_bytes=peak,
-                mem_baseline_bytes=mem["base"], **per_step, dev_tts_loss=dev_tts,
+                wall_s=float(np.median(walls)), walls_s=walls, eager_wall_s=graph["eager_wall_s"],
+                busy_s=profile["device_busy_s"], idle_share=profile["idle_share"],
+                peak_mem_bytes=peak, reserved_bytes=reserved, mem_baseline_bytes=mem["base"],
+                graphs=step_graphs(trainer._step_fn), **per_step, dev_tts_loss=dev_tts,
                 dev_per=dev_per, best_tts_loss=trainer.best_tts_loss, best_per=trainer.best_per,
-                launches=launches["step"], launches_validate=launches["validate"],
-                profile=profile, reference=ref)
+                launches=profile["kernels_seen"], wrapper_launches=launches["run"],
+                launches_validate=launches["validate"], profile=profile, graph_check=graph,
+                reference=ref)
 
 
 def no_dropout(cfg):
@@ -2035,20 +2340,20 @@ def phase_cycles(dev):
                 mem["base"] = torch.cuda.memory_allocated()
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
-            if i in (4, 5):  # the launches of step 3 (text-first) and step 4 (speech-first)
-                launches[kinds[-1]] = kernels.launch_counts()
             kinds.append(trainer.step_kind())
-            kernels.reset_launches()
             yield batch
 
     trainer = VqvaeTrainer(model, builder, opt, pair_iter=batches(),
                            unpair_iter=iter([u_batch] * CYCLE_STEPS),
                            dev_set=[training_batch(1, dev, lengths=RAGGED)], max_step=CYCLE_STEPS,
                            valid_step=10 ** 9, progress_step=1, log=lambda *a: logged.append(a))
+    capture_first(trainer)
+    kernels.reset_launches()
     trainer.exec()
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
-    peak = torch.cuda.max_memory_allocated()
+    run_launches = kernels.launch_counts()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
     want = ["paired"] + [TEXT_FIRST if i % 2 else SPEECH_FIRST for i in range(1, CYCLE_STEPS)]
     if kinds != want:
         raise SystemExit(f"chip_smoke: the trainer ran {kinds}, not {want}")
@@ -2062,12 +2367,9 @@ def phase_cycles(dev):
         raise SystemExit(f"chip_smoke: the cycles went non-finite: {per_step}")
     if len(per_step["txt_loss/unpair"]) != 4 or len(per_step["speech_loss/unpair"]) != 4:
         raise SystemExit(f"chip_smoke: the cycles' losses were not logged: {per_step}")
-    for kind, names in STEP_KERNELS.items():
-        idle = [n for n in names if launches[kind][n] == 0]
-        if idle:
-            raise SystemExit(f"chip_smoke: kernels not launched in the {kind} step: {idle}")
-    if min(launches[TEXT_FIRST]["ctc_alpha"], launches[TEXT_FIRST]["ctc_beta_grad"]) < 2:
-        raise SystemExit(f"chip_smoke: the text-first step ran K6 once: {launches[TEXT_FIRST]}")
+    idle = [n for n in CYCLE_KERNELS + PAIRED_STEP_KERNELS if run_launches[n] == 0]
+    if idle:
+        raise SystemExit(f"chip_smoke: kernels not launched in the cycles' run: {idle}")
     wall = {k: float(np.median(v)) for k, v in timed.items()}
     profile = {}
     for kind, steps in ((SPEECH_FIRST, (10, 10, 12)), (TEXT_FIRST, (11, 11, 13))):
@@ -2078,13 +2380,28 @@ def phase_cycles(dev):
                                       picked=OWN_KERNELS))
         profile[kind] = dict(runs[0], launches_by_step=[[s, r["kernel_launches"]]
                                                         for s, r in zip(steps, runs)])
+        require_seen(profile[kind]["kernels_seen"], STEP_KERNELS[kind], f"{kind} step")
+        launches[kind] = profile[kind]["kernels_seen"]
+    if min(launches[TEXT_FIRST]["ctc_alpha"], launches[TEXT_FIRST]["ctc_beta_grad"]) < 2:
+        raise SystemExit(f"chip_smoke: the text-first step's replay ran K6 once: "
+                         f"{launches[TEXT_FIRST]}")
     ref = cycles_reference(model, cfg, phn_attr, dev)
-    long = long_memory_step(model, builder, dev)
+    graph = {kind: graph_check(model, opt, make,
+                               lambda fn, m, n: fn(m, n, 1.0, *batch, *u_batch), 100)
+             for kind, make in ((SPEECH_FIRST, builder.make_speech_first_step),
+                                (TEXT_FIRST, builder.make_text_first_step))}
+    graphs = {kind: step_graphs(trainer._cycle_fns[kind]) for kind in (SPEECH_FIRST, TEXT_FIRST)}
+    long = long_memory_step(trainer, dev)
+    shapes = corpus_shapes(trainer, dev)
     return dict(batch=TRAIN_B, unpaired_batch=TRAIN_B, samples=TRAIN_S, text_len=32,
                 steps=CYCLE_STEPS, kinds=kinds, weights=CYCLE_WEIGHTS, wall_s=wall,
-                walls_s=walls, peak_mem_bytes=peak, mem_baseline_bytes=mem["base"],
-                per_step=per_step, token_usage=trainer.token_usage.tolist(), launches=launches,
-                profile=profile, reference=ref, long_memory=long)
+                walls_s=walls, eager_wall_s={k: v["eager_wall_s"] for k, v in graph.items()},
+                busy_s={k: v["device_busy_s"] for k, v in profile.items()},
+                idle_share={k: v["idle_share"] for k, v in profile.items()},
+                peak_mem_bytes=peak, reserved_bytes=reserved, mem_baseline_bytes=mem["base"],
+                graphs=graphs, per_step=per_step, token_usage=trainer.token_usage.tolist(),
+                launches=launches, wrapper_launches=run_launches, profile=profile,
+                graph_check=graph, reference=ref, long_memory=long, corpus_shapes=shapes)
 
 
 def cycles_reference(model, cfg, phn_attr, dev):
@@ -2150,47 +2467,98 @@ def cycles_reference(model, cfg, phn_attr, dev):
     return out
 
 
-def long_memory_step(model, builder, dev):
-    """One speech-first step's loss and gradients with B = 1 + 1 rows: a
-    3.0 s paired utterance and a 15.28 s unpaired one, whose trimmed latents
-    (padded to the ASR encoder's length) are the attention memory: K3 and K9
-    at L ~ 680 (K9 in spans of 12 positions). Its losses and gradients must be
-    finite, and K3 and K9 must launch."""
+def long_memory_step(trainer, dev):
+    """One speech-first train step through its CUDA graph with B = 1 + 1
+    rows: a 3.0 s paired utterance and a 15.28 s unpaired one, whose
+    trimmed latents (padded to the ASR encoder's length) are the attention
+    memory: K3 and K9 at L ~ 680 (K9 in spans of 12 positions), 409 decode
+    steps. The first call captures the graph (``first_s``, ``capture_s``);
+    a second replays it under the profiler (``wall_s``, its kernels by
+    name: K3, K9 and B6 must run). Its losses, gradient norm and the
+    parameters after must be finite."""
     from semi_tts_tpu_torch import kernels
     from semi_tts_tpu_torch.kernels.attention import attention_bwd_plan
-    from semi_tts_tpu_torch.train.steps import step_generator
 
+    step = trainer._cycle_fns[SPEECH_FIRST]
     pair = training_batch(7, dev, lengths=(TRAIN_S,))
     unpair = training_batch(8, dev, lengths=(LONG_S,))
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    loss, mets, grads = builder.speech_first_loss_and_grads(
-        model, 2, 1.0, pair, unpair, step_generator(0, 2, dev))
+    step(trainer.model, 2, 1.0, *pair, *unpair)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
-    d = builder.cfg.tts.decoder
+    first = time.perf_counter() - t0
+    launches = kernels.launch_counts()  # the capture's
+    res = {}
+    prof = profiled_step(lambda: res.update(step(trainer.model, 4, 1.0, *pair, *unpair)), first)
+    mets = res
+    d = trainer.builder.cfg.tts.decoder
     L = mets["unpair_pred"].shape[1]
     losses = {k: float(v) for k, v in mets.items() if k.endswith("_loss")}
-    finite = np.isfinite(list(losses.values()) + [float(loss)]).all() and all(
-        g is None or bool(torch.isfinite(g).all()) for g in grads)
+    finite = np.isfinite(list(losses.values()) + [float(mets["grad_norm"])]).all() and all(
+        bool(torch.isfinite(p).all()) for p in trainer.model.parameters())
     plan = attention_bwd_plan(2, L, d.attn_dim, d.enc_embed_dim, 2, d.n_location_filters,
                               d.location_kernel_size)
+    prog = step.programs()[-1]  # the most recently used: this step's graph
     out = dict(samples=[TRAIN_S, LONG_S], memory_len=L,
                k9_span=plan["span"], decode_steps=mets["pair_align"].shape[1], losses=losses,
-               total_loss=float(loss), unpair_ok=bool(mets["unpair_ok"]),
-               unpair_len=int(mets["unpair_pred_len"][0]), wall_s=wall,
-               launches={k: launches[k] for k in ("attention_step", "attention_step_bwd",
-                                                  "trim_merge", "trim_merge_bwd")})
-    if not (finite and launches["attention_step_bwd"] and launches["attention_step"]):
+               grad_norm=float(mets["grad_norm"]), unpair_ok=bool(mets["unpair_ok"]),
+               unpair_len=int(mets["unpair_pred_len"][0]), first_s=first,
+               wall_s=prof["profiled_wall_s"], busy_s=prof["device_busy_s"],
+               device_events=prof["kernel_launches"], **graph_stats(prog),
+               kernels_seen={k: prof["kernels_seen"][k] for k in LONG_KERNELS},
+               wrapper_launches={k: launches[k] for k in LONG_KERNELS})
+    if not finite:
         raise SystemExit(f"chip_smoke: the long-memory speech-first step failed: {out}")
+    require_seen(prof["kernels_seen"], LONG_KERNELS, "15.28 s speech-first step")
     return out
+
+
+LONG_KERNELS = ("attention_step", "attention_step_bwd", "trim_merge", "trim_merge_bwd")
+CORPUS_TABLE = "data/partition_tables/semi-multi-spkr-sd0.csv"  # the flagship's
+CORPUS_SHAPES = 4  # its most frequent speech-first shapes, timed and captured
+
+
+def corpus_shapes(trainer, dev):
+    """The speech-first step at the CORPUS_SHAPES shapes that the flagship's
+    partition table gives most often (`data/step_shapes.py` over 20,000
+    steps: (wave, text) of the paired and the unpaired batch), through a
+    fresh step program with the default policy that shares the trainer's
+    graph pool: each shape's first call (eager), second (capture and
+    replay) and third (replay), timed, and the memory after each shape's
+    capture (the first row: before any). The losses must be finite."""
+    from collections import Counter
+
+    from semi_tts_tpu_torch.data.step_shapes import step_keys
+
+    keys = step_keys(os.path.join(HERE, CORPUS_TABLE), 20_000)
+    count = Counter(k for kind, k in keys if kind == SPEECH_FIRST)
+    step = trainer.builder.make_speech_first_step(trainer.optimizer, seed=1)
+    rows = [memory_now()]
+    for n, (((pw, pt), (uw, ut)), times_seen) in enumerate(count.most_common(CORPUS_SHAPES)):
+        pair = training_batch(30 + n, dev, lengths=(pw,) * TRAIN_B, U_=pt)
+        unpair = training_batch(40 + n, dev, lengths=(uw,) * TRAIN_B, U_=ut)
+        walls = []
+        for call in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mets = step(trainer.model, 2 + 2 * call, 1.0, *pair, *unpair)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if not all(bool(torch.isfinite(v)) for k, v in mets.items() if k.endswith("_loss")):
+                raise SystemExit(f"chip_smoke: a corpus-shape step went non-finite: {mets}")
+        rows.append(dict(memory_now(), shape=[[pw, pt], [uw, ut]],
+                         share_of_steps=times_seen / sum(count.values()), eager_s=walls[0],
+                         capture_call_s=walls[1], capture_s=graph_stats(step.programs()[-1])["capture_s"],
+                         replay_s=walls[2], graphs=len(step.programs())))
+    return rows
 
 
 # phase 8, the CLI's solvers: a corpus of CLI_SPLITS utterances of 2-4 s
 CLI_SPLITS = (("paired", 16), ("unpaired", 16), ("dev", 8), ("test", 8))
 CLI_STEPS, CLI_VALID = 4, 2
+CLI_STEADY = 40                 # steps the same run goes on for, without validation
+CLI_STEADY_TIMED = 12           # the last of them: the steady state
 CLI_SPEAKERS = ("p225", "p226", "p227", "p228", "p229", "p230", "p231", "p232")
 CLI_GEN_KERNELS = SERVING_KERNELS + ("stft_frames", "spec_db")
 CLI_TRAIN_KERNELS = PAIRED_STEP_KERNELS + CYCLE_KERNELS
@@ -2305,7 +2673,7 @@ def phase_cli(bare_walls, keep):
         solver = VqvaeSolver(config, cli_paras(root), "train")
         solver.load_data()
         solver.set_model()
-        trainer, walls, logged, saved, at = solver.trainer, [], [], [], {}
+        trainer, walls, logged, saved, at, kinds = solver.trainer, [], [], [], {}, {}
         run_step, pairs, save, log = trainer._train_step, trainer.pair_iter, trainer.save, trainer.log
 
         def timed_batches():
@@ -2316,15 +2684,19 @@ def phase_cli(bare_walls, keep):
                 walls.append([time.perf_counter() - t0])
                 yield batch
 
+        def programs():
+            return sum(len(f.programs()) for f in [trainer._step_fn, *trainer._cycle_fns.values()])
+
         def train_step(batch, unpaired=None):
+            kinds[trainer.step_kind()] = (trainer.step, batch, unpaired)
             if trainer.step == 2:
                 at.update(args=(batch, unpaired), state=state_of(solver))
                 if not any(n.endswith("_2.pth") for n in os.listdir(solver.ckpdir)):
                     solver.save("resume_2.pth", float("nan"))
-            t0 = time.perf_counter()
+            n, t0 = programs(), time.perf_counter()
             mets = run_step(batch, unpaired)
             torch.cuda.synchronize()
-            walls[-1].append(time.perf_counter() - t0)
+            walls[-1] += [time.perf_counter() - t0, trainer.step_kind(), programs() > n]
             if trainer.step == 2:
                 at.update(loss=mets["total_loss"].clone(), after=state_of(solver))
             return mets
@@ -2335,7 +2707,7 @@ def phase_cli(bare_walls, keep):
                                                  log(step, name, value))
         kernels.reset_launches()
         solver.exec()
-        launches = {"train": kernels.launch_counts()}
+        wrapper_launches = {"train": kernels.launch_counts()}  # eager first calls and captures
         values = [v for _, _, v in logged]
         if trainer.step != CLI_STEPS or not np.isfinite(values).all():
             raise SystemExit(f"chip_smoke: the CLI's training failed: step {trainer.step}, {logged}")
@@ -2359,6 +2731,7 @@ def phase_cli(bare_walls, keep):
         resumed = VqvaeSolver(config, cli_paras(root, name="cli_resumed", load=ckpt), "train")
         resumed.load_data()
         resumed.set_model()
+        capture_first(resumed.trainer)  # the repeat runs a graph, step 2 ran eagerly (first call)
         loaded_same = resumed.trainer.step == 2 and all(
             torch.equal(a, b) for a, b in zip(state_of(resumed), at["state"]))
         mets = resumed.trainer._train_step(*at["args"])
@@ -2367,6 +2740,20 @@ def phase_cli(bare_walls, keep):
         if not (loaded_same and repeated):
             raise SystemExit(f"chip_smoke: the resume from {os.path.basename(ckpt)} is not bit for "
                              f"bit: loaded {loaded_same}, next step {repeated}")
+        # the same run goes on to steady state: CLI_STEADY more steps, no validation
+        trainer.max_step, trainer.valid_step = CLI_STEPS + CLI_STEADY, 10 ** 9
+        trainer.exec()
+        steady = [w[0] + w[1] for w in walls[-CLI_STEADY_TIMED:]]
+        mem = dict(memory_now(), graphs=programs())
+        replays = {}  # one replay of each step kind's graph, profiled
+        for kind, (st, batch, unpaired) in sorted(kinds.items()):
+            trainer.step = st
+            run_step(batch, unpaired)  # a shape seen once captures here, not under the profiler
+            replays[kind] = profiled_step(lambda: run_step(batch, unpaired), float(np.median(steady)))
+        seen = {n: sum(r["kernels_seen"][n] for r in replays.values()) for n in KERNEL_NAMES}
+        require_seen(seen, CLI_TRAIN_KERNELS, "CLI's train steps")
+        graphs = {k: step_graphs(f) for k, f in [("paired", trainer._step_fn),
+                                                 *trainer._cycle_fns.items()]}
         for s in (solver, resumed):
             if s.log is not None:
                 s.log.close()
@@ -2383,7 +2770,7 @@ def phase_cli(bare_walls, keep):
         gen.exec()
         torch.cuda.synchronize()
         gen_wall = time.perf_counter() - t0
-        launches["gen_specgram"] = kernels.launch_counts()
+        wrapper_launches["gen_specgram"] = kernels.launch_counts()  # eager: each a run
         out_dir = gen.logdir + "_0k"
         r, audio = gen.model_cfg.n_frames_per_step, gen.featurizer.cfg
         texts = {fid: sum(1 for v in gen.tokenizer.file_to_seq(fid) if v != 0)
@@ -2405,18 +2792,27 @@ def phase_cli(bare_walls, keep):
             raise SystemExit(f"chip_smoke: gen_specgram wrote {len(texts)} utterances")
     for path, names in (("train", CLI_TRAIN_KERNELS + VALIDATION_KERNELS),
                         ("gen_specgram", CLI_GEN_KERNELS)):
-        idle = [n for n in names if launches[path][n] == 0]
+        idle = [n for n in names if wrapper_launches[path][n] == 0]
         if idle:
             raise SystemExit(f"chip_smoke: kernels not launched on the CLI's {path} path: {idle}")
-    steps = [sum(w) for w in walls if len(w) == 2]
+    steps = [w[0] + w[1] for w in walls[:CLI_STEPS]]
     return dict(corpus={k: v for k, v in CLI_SPLITS}, batch=TRAIN_B, steps=CLI_STEPS,
                 valid_step=CLI_VALID, step_wall_s=float(np.median(steps)), step_walls_s=steps,
+                steady_steps=CLI_STEADY, steady_step_wall_s=float(np.median(steady)),
+                steady_step_mean_s=float(np.mean(steady)), steady_step_walls_s=steady,
+                steady_memory=mem,
+                step_log=[[round(w[0] + w[1], 6), w[2], w[3]] for w in walls],
                 loader_s=[w[0] for w in walls], bare_step_wall_s=bare_walls,
                 checkpoints=want, resumed_from=os.path.basename(ckpt), resume_bit_for_bit=True,
+                graphs=graphs, replays={k: {n: r[n] for n in ("profiled_wall_s", "device_busy_s",
+                                                              "kernel_launches")}
+                                        for k, r in replays.items()},
                 dev=[[st, n, v] for (st, n), v in sorted(dev_metrics.items())],
                 gen_utterances=len(texts), gen_wall_s=gen_wall,
                 gen_wall_per_utterance_s=gen_wall / len(texts),
-                peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches)
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                launches={"train": seen, "gen_specgram": wrapper_launches["gen_specgram"]},
+                wrapper_launches=wrapper_launches)
 
 
 PRETRAIN_STEPS, PRETRAIN_VALID = 4, 2   # 1 warm-up and 3 timed steps of each LM

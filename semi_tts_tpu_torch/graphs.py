@@ -1,0 +1,331 @@
+"""Compiled programs of the port: CUDA graphs behind the callables that the
+server and the trainers call (counterpart of `jax.jit`'s per-shape cache and
+of `semi_tts_tpu/serve.py`'s `_Once` and bounded program LRU).
+
+The JAX package runs every hot path as compiled programs: the serving
+stages of each decode bucket and each train step, "ONE fused jit program"
+with the step number and teacher-forcing rate traced. On the card the
+counterpart of such a program is a CUDA graph: the launches of one call,
+captured once per input shape and replayed with one host call.
+
+- `ProgramCache`: an LRU of `_Once` build cells, exactly the JAX server's
+  (`_cached_program`, `_evict_completed_locked`): only completed cells are
+  evicted and no lock is held across a build. The server's is bounded, a
+  step's is not.
+- `Graphed`: one function at one set of input shapes. Its first call copies
+  the inputs into static buffers, warms the function up on a side stream
+  (lazy tables, library handles and workspaces are made there, outside the
+  graph; the state it changes, ``state``, and its generator's state are
+  put back after), captures it under `torch.cuda.graph` with its generator
+  registered, then replays.
+  Every call copies the inputs in, reseeds the generator, replays and
+  returns clones of the outputs, so that an output outlives the next
+  replay. The first replay is followed by a synchronise, since a launch
+  that fails inside a graph shows only at replay. A failed capture or
+  replay raises; nothing falls back to running eagerly.
+- `Eager`: the same call without a graph. On a CPU device the cache holds
+  these, as JAX's cache holds a jitted callable on any backend, so the CPU
+  tests drive the same cache; on the card it is the yardstick a graph is
+  held to (`StepProgram.eager`).
+- `StepProgram`: a train step behind an unbounded `ProgramCache` (as
+  `jax.jit` keeps a program for every shape it saw), keyed by the model
+  and every input's shape and dtype; ``step_no`` and every Python number
+  among the inputs (``tf_rate``, a stretch rate) become device scalars fed
+  on each call, as JAX traces them, and the generator is reseeded from
+  (seed, step_no). A shape is captured at its ``capture_at``-th call (the
+  second by default) and runs eagerly before that: a corpus's long tail of
+  batch shapes seen once costs an eager step each, not a capture
+  (`data/step_shapes.py` counts the shapes of a partition table).
+
+Graphs of one owner (a server, a step builder) share one memory pool and
+one capture stream: they never replay at once, and since every input is
+copied into a buffer allocated outside the pool and every output is cloned
+out of it, nothing in the pool lives from one replay to the next.
+
+A kernel wrapper's launch counter (`kernels.launch_counts`) moves where the
+wrapper launches its kernel: on an eager call, and once at a capture. A
+replay launches the whole graph with one host call and moves no counter;
+what a replay ran is read from a profile.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import Counter, OrderedDict
+
+import torch
+from torch.utils import _pytree as pytree
+
+
+class _Once:
+    """Build-once cell: the first ``result()`` runs the build, concurrent
+    callers for the SAME key wait on this cell's lock (not the cache's lock,
+    so other keys keep serving), later callers get the memoized value. A
+    failed build leaves the cell retryable."""
+
+    def __init__(self, build):
+        self._build = build
+        self._lock = threading.Lock()
+        self._value = None
+        self._done = False
+
+    def result(self):
+        with self._lock:
+            if not self._done:
+                self._value = self._build()
+                self._done = True
+                self._build = None
+            return self._value
+
+
+class ProgramCache:
+    """Bounded LRU over built programs, keyed by any hashable key.
+
+    Thread-safe: dict bookkeeping (hit/move/insert/evict) happens under the
+    cache lock; the build runs under the entry's own `_Once` lock, so a slow
+    build never blocks hits on other keys. Only COMPLETED cells are
+    eviction victims: evicting a mid-build cell would let a re-request of
+    the same key start a duplicate build. So the bound holds at rest, and
+    during concurrent builds the dict may transiently hold ``size``
+    completed cells plus one mid-build cell per distinct key in flight.
+    Eviction drops the cache's reference only: a program already handed to
+    a caller stays valid. ``size=None``: no bound (a step's cache, as
+    `jax.jit`'s)."""
+
+    def __init__(self, size: int | None = 8):
+        self.size = None if size is None else max(1, int(size))  # None: unbounded
+        self._programs: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key, build):
+        with self._lock:
+            entry = self._programs.get(key)
+            if entry is None:
+                entry = _Once(build)
+                self._programs[key] = entry
+            else:
+                self._programs.move_to_end(key)
+            self._evict_completed_locked()
+        value = entry.result()
+        with self._lock:  # this build may have pushed the at-rest count over
+            self._evict_completed_locked()
+        return value
+
+    def _evict_completed_locked(self):
+        """Drop oldest COMPLETED cells until within bound (caller holds
+        ``self._lock``). ``_done`` is read without the cell's own lock: a
+        stale False only postpones eviction to the post-build trim."""
+        if self.size is None:
+            return
+        excess = len(self._programs) - self.size
+        if excess > 0:
+            for k in [k for k, v in self._programs.items() if v._done][:excess]:
+                del self._programs[k]
+
+
+# ---- pytrees of tensors -----------------------------------------------------
+
+def signature(tree):
+    """(leaves, spec, key) of ``tree`` (tuples, lists and dicts are walked):
+    the key holds the structure, every tensor leaf's shape and dtype and
+    every other leaf itself."""
+    leaves, spec = pytree.tree_flatten(tree)
+    key = (str(spec), tuple((tuple(t.shape), t.dtype) if isinstance(t, torch.Tensor) else t
+                            for t in leaves))
+    return leaves, spec, key
+
+
+def to_device_scalars(tree, device):
+    """``tree`` with every Python float a float32 and every int an int64 0-d
+    tensor on ``device`` (bools and None stay)."""
+    def scalar(x):
+        if isinstance(x, float):
+            return torch.tensor(x, dtype=torch.float32, device=device)
+        if isinstance(x, int) and not isinstance(x, bool):
+            return torch.tensor(x, dtype=torch.int64, device=device)
+        return x
+    return pytree.tree_map(scalar, tree)
+
+
+# ---- programs ---------------------------------------------------------------
+
+class GraphOwner:
+    """What the graphs of one owner share on the card: a memory pool and
+    the side stream that warms them up and captures them."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.device(self.device):
+            self.stream = torch.cuda.Stream()
+
+
+class Eager:
+    """``fn(*args)`` with ``generator`` reseeded to ``seed`` first (when
+    both are given): the program a CPU cache holds, and a graph's
+    yardstick on the card."""
+
+    def __init__(self, fn, generator=None):
+        self.fn = fn
+        self.generator = generator
+
+    def __call__(self, *args, seed=None):
+        if seed is not None and self.generator is not None:
+            self.generator.manual_seed(int(seed))
+        return self.fn(*args)
+
+
+class Graphed:
+    """``fn`` as one CUDA graph, captured at its first call's input shapes
+    (see the module's docstring). ``state()``: the tensors that ``fn``
+    changes in place (parameters, running statistics, optimizer state),
+    restored after the warm-up; ``generator``: the generator ``fn`` draws
+    from, registered with the graph. Attributes after the first call:
+    ``capture_s`` (warm-up and capture, seconds), ``host_launches`` (input
+    copies + replay + output clones a call). Not thread-safe: its owner
+    runs one call at a time (the server's run lock, a trainer's loop)."""
+
+    def __init__(self, fn, owner: GraphOwner, *, generator=None, state=lambda: ()):
+        self.fn = fn
+        self.owner = owner
+        self.generator = generator
+        self.state = state
+        self.graph = None
+        self.capture_s = None
+        self.host_launches = None
+        self._checked = False
+
+    def _inputs(self):
+        """The captured call's arguments: its static buffers in the tensor
+        leaves' places."""
+        static = iter(self._static)
+        return pytree.tree_unflatten([next(static) if isinstance(t, torch.Tensor) else t
+                                      for t in self._in_leaves], self._in_spec)
+
+    def _capture(self, args, seed):
+        t0 = time.perf_counter()
+        self._in_leaves, self._in_spec, self._in_key = signature(args)
+        self._static = [t.detach().clone() for t in self._in_leaves if isinstance(t, torch.Tensor)]
+        live = list(self.state())
+        saved = [t.detach().clone() for t in live]
+        # a call without a seed goes on drawing from the generator: the
+        # warm-up's draws must not move where its replay starts
+        gen_state = None if self.generator is None else self.generator.get_state()
+        stream = self.owner.stream
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            if self.generator is not None and seed is not None:
+                self.generator.manual_seed(int(seed))
+            self.fn(*self._inputs())
+        torch.cuda.current_stream().wait_stream(stream)
+        with torch.no_grad():
+            for t, s in zip(live, saved):
+                t.copy_(s)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        with torch.cuda.graph(graph, pool=self.owner.pool, stream=stream):
+            out = self.fn(*self._inputs())
+        if gen_state is not None:
+            self.generator.set_state(gen_state)
+        self._out, self._out_spec = pytree.tree_flatten(out)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+        self.host_launches = (len(self._static) + 1
+                              + sum(isinstance(t, torch.Tensor) for t in self._out))
+
+    def __call__(self, *args, seed=None):
+        if self.graph is None:
+            self._capture(args, seed)
+        leaves, _, key = signature(args)
+        if key != self._in_key:
+            raise ValueError(f"a graph captured at {self._in_key} called with {key}")
+        for s, t in zip(self._static, (t for t in leaves if isinstance(t, torch.Tensor))):
+            s.copy_(t)
+        if seed is not None and self.generator is not None:
+            self.generator.manual_seed(int(seed))
+        self.graph.replay()
+        if not self._checked:  # a launch that fails inside a graph raises here
+            torch.cuda.synchronize()
+            self._checked = True
+        return pytree.tree_unflatten([t.clone() if isinstance(t, torch.Tensor) else t
+                                      for t in self._out], self._out_spec)
+
+
+def program(fn, device, owner, *, generator=None, state=lambda: ()):
+    """`Graphed` on the card (``owner``: its `GraphOwner`), `Eager` on the
+    CPU."""
+    if torch.device(device).type == "cuda":
+        return Graphed(fn, owner, generator=generator, state=state)
+    return Eager(fn, generator)
+
+
+def step_seed(seed: int, step_no: int) -> int:
+    """A 64-bit mix of (seed, step_no): the seed of one step's generator."""
+    return (int(seed) * 0x9E3779B97F4A7C15 + int(step_no) * 0xBF58476D1CE4E5B9) % (1 << 63)
+
+
+class StepProgram:
+    """A train step ``step(model, step_no, *args, **kw)`` behind an
+    unbounded `ProgramCache` of programs, one for each model and set of
+    input shapes and dtypes (which keyword inputs are given included). A
+    set of shapes runs eagerly until its ``capture_at``-th call, which
+    builds its program (on the card: captures its graph).
+    ``body(model, step_no, *args, generator, **kw)`` is the step; it
+    updates the model and ``optimizer`` in place and returns its metrics.
+    ``step_no`` reaches it as an int64 device scalar and every Python number
+    of ``args``/``kw`` as a device scalar (`to_device_scalars`); its
+    generator is reseeded from `step_seed` (seed, step_no) on each call.
+    ``owner``: a callable giving the `GraphOwner` of a device, shared by
+    the steps of one trainer. ``eager(...)``: the same step run eagerly,
+    with the same inputs and seeding."""
+
+    def __init__(self, body, optimizer, seed: int, owner):
+        self.body = body
+        self.optimizer = optimizer
+        self.seed = seed
+        self.owner = owner
+        self.cache = ProgramCache(None)
+        self.capture_at = 2
+        self.calls = Counter()
+        self.generator = None
+
+    def _inputs(self, model, step_no, args, kw):
+        dev = next(model.parameters()).device
+        if self.generator is None:
+            self.generator = torch.Generator(device=dev)
+        inputs = to_device_scalars((step_no, args, kw), dev)
+        return dev, inputs, step_seed(self.seed, step_no)
+
+    def _fn(self, model):
+        def run(step_no, args, kw):
+            return self.body(model, step_no, *args, generator=self.generator, **kw)
+        return run
+
+    def __call__(self, model, step_no, *args, **kw):
+        dev, inputs, seed = self._inputs(model, step_no, args, kw)
+        key = (id(model), signature(inputs[1:])[2])
+        self.calls[key] += 1
+        if self.calls[key] < self.capture_at:
+            return Eager(self._fn(model), self.generator)(*inputs, seed=seed)
+
+        def build():
+            state = lambda: (list(model.parameters()) + list(model.buffers())
+                             + self.optimizer.state_tensors())
+            owner = self.owner(dev) if dev.type == "cuda" else None
+            prog = program(self._fn(model), dev, owner, generator=self.generator, state=state)
+            prog.model = model  # holds the model, so that its id is not reused
+            return prog
+
+        return self.cache.get(key, build)(*inputs, seed=seed)
+
+    def eager(self, model, step_no, *args, **kw):
+        _, inputs, seed = self._inputs(model, step_no, args, kw)
+        return Eager(self._fn(model), self.generator)(*inputs, seed=seed)
+
+    def programs(self):
+        """The cached programs, oldest first."""
+        with self.cache._lock:
+            return [cell._value for cell in self.cache._programs.values() if cell._done]

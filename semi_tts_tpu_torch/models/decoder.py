@@ -132,10 +132,13 @@ def decoder_apply(dec: Decoder, memory, spkr_embed, *, cfg: DecoderConfig, decod
     for all steps at once (one dropout mask); step t then feeds teacher frame
     min(t, T_t - 1), or the teacher prenet's mean over time when the step's
     second coin is below ``cfg.drop_dec_in``, or the step's own output when
-    its first coin is above ``tf_rate``. ``teacher_rows`` (B,) bool: rows
-    without a teacher always feed their own output. ``coins`` (steps, 2):
-    the coins to use instead of drawing them (one pair a step, shared across
-    the batch, as JAX draws them).
+    its first coin is above ``tf_rate`` (a float or a 0-d tensor).
+    ``teacher_rows`` (B,) bool: rows without a teacher always feed their own
+    output. ``coins`` (steps, 2): the coins to use instead of drawing them
+    (one pair a step, shared across the batch, as JAX draws them). As in
+    JAX, every step computes its own output's prenet (drawing its dropout)
+    and chooses on the device with the coins: no host transfer, no branch
+    on a drawn value.
 
     Returns (mel (B, steps*r, M), align (B, steps, L), stop (B, steps*r)),
     and with ``wgrad_probes`` (from `wgrad_probes`) also ``aux``, the
@@ -169,9 +172,10 @@ def decoder_apply(dec: Decoder, memory, spkr_embed, *, cfg: DecoderConfig, decod
                              generator)                                  # (B, T_t, P)
         teacher_mean = teacher_pre.mean(1)
         t_rows = None if teacher_rows is None else teacher_rows[:, None].to(memory.dtype)
-        if coins is None:  # one host transfer for all steps' coins
+        if coins is None:
             coins = torch.rand((decode_steps, 2), generator=generator, device=memory.device)
-        coins = torch.as_tensor(coins).tolist()
+        else:
+            coins = torch.as_tensor(coins, dtype=memory.dtype, device=memory.device)
     dec_in = prenet(dec.prenet, zeros((B, r * M)), cfg.prenet_dropout, generator)
     q_h, q_c = zeros((B, cfg.query_rnn_dim)), zeros((B, cfg.query_rnn_dim))
     d_h, d_c = zeros((B, cfg.dec_rnn_dim)), zeros((B, cfg.dec_rnn_dim))
@@ -209,15 +213,15 @@ def decoder_apply(dec: Decoder, memory, spkr_embed, *, cfg: DecoderConfig, decod
         stops.append(linear(dec.gate, hc).repeat_interleave(r, dim=1))  # (B, r)
         mels.append(mel_out)
         aligns.append(w)
-        teach = None  # scheduled sampling: the teacher's frame when the first coin allows
-        if teacher is not None and coins[t][0] <= tf_rate:
-            teach = teacher_mean if coins[t][1] < cfg.drop_dec_in else teacher_pre[:, min(t, T_t - 1)]
-        if teach is None or t_rows is not None:  # some row feeds its own output
-            own = prenet(dec.prenet, mel_out.reshape(B, r * M), cfg.prenet_dropout, generator)
-        if teach is None:
+        own = prenet(dec.prenet, mel_out.reshape(B, r * M), cfg.prenet_dropout, generator)
+        if teacher is None:
             dec_in = own
-        else:
-            dec_in = teach if t_rows is None else t_rows * teach + (1.0 - t_rows) * own
+        else:  # scheduled sampling: the teacher's frame when the first coin allows
+            teach = torch.where(coins[t, 1] < cfg.drop_dec_in, teacher_mean,
+                                teacher_pre[:, min(t, T_t - 1)])
+            if t_rows is not None:  # rows without a teacher feed their own output
+                teach = t_rows * teach + (1.0 - t_rows) * own
+            dec_in = torch.where(coins[t, 0] > tf_rate, own, teach)
     mel = torch.stack(mels, dim=1).reshape(B, decode_steps * r, M)
     align = torch.stack(aligns, dim=1)
     stop = torch.stack(stops, dim=1).reshape(B, decode_steps * r)

@@ -68,6 +68,15 @@ def _power_matrix(coeff: float, n: int, device):
     return torch.from_numpy(p.astype(np.float32)).to(device)
 
 
+@lru_cache(maxsize=16)
+def _decay(coeff: float, n: int, device):
+    """(n,) coeff**(i + 1), float64 then cast: made once, so that a step
+    body copies no table from the host."""
+    return torch.from_numpy(
+        np.power(float(coeff), np.arange(1, n + 1, dtype=np.float64)).astype(np.float32)
+    ).to(device)
+
+
 def _linear_recurrence(x, coeff: float):
     """y[n] = x[n] + coeff * y[n-1] along the last axis of a 2-D (R, S) x.
 
@@ -83,9 +92,7 @@ def _linear_recurrence(x, coeff: float):
     local = xb @ _power_matrix(coeff, n, x.device).T                  # (R, nb, n)
     if nb > 1:
         ends = _linear_recurrence(local[:, :, -1].contiguous(), coeff ** n)  # (R, nb)
-        decay = torch.from_numpy(
-            np.power(float(coeff), np.arange(1, n + 1, dtype=np.float64)).astype(np.float32)
-        ).to(x.device)
+        decay = _decay(coeff, n, x.device)
         carry = torch.nn.functional.pad(ends[:, :-1], (1, 0))          # block k gets end of k-1
         local = local + carry[:, :, None] * decay
     return local.reshape(R, nb * n)[:, :S]
@@ -193,7 +200,9 @@ class AudioFeaturizer:
     def stretch_geometry(self, rate, device=None):
         """int32 ``[hop, win]`` of a stretch rate (a float or 0-d tensor), on
         the rate's device: both int-truncated from the stretched sample rate,
-        in float32 as the JAX package computes them."""
+        in float32 as the JAX package computes them. A train step gives a
+        device tensor (`graphs.StepProgram` makes a float one), so that its
+        body copies nothing from the host."""
         c = self.cfg
         rate = torch.as_tensor(rate, dtype=torch.float32, device=device)
         stretch_sr = torch.floor(c.sample_rate * rate).to(torch.int32).to(torch.float32)

@@ -8,12 +8,17 @@ pre-emphasis, as two stages,
   synthesis: text ids -> linear-amplitude spectrogram
   vocoder:   linear-amplitude spectrogram -> waveform
 
-run eagerly on the card. The decode budget follows the frames-per-phoneme
-rule (``FRAME_PHN_RATIO`` mel frames per token plus a 40-frame margin),
-rounded up to a step bucket.
+plus the ``full`` stage of `synthesize_full`, which keeps the mel, linear
+and alignment too. The decode budget follows the frames-per-phoneme rule
+(``FRAME_PHN_RATIO`` mel frames per token plus a 40-frame margin), rounded
+up to a step bucket. On the card each stage of each (decode bucket, batch,
+text length) is one CUDA graph (`graphs.Graphed`), kept in a bounded LRU of
+build-once cells as the JAX server keeps its jitted stage programs; on the
+CPU the same LRU holds the eager stages.
 
 Randomness: a request draws its prenet dropout masks and its Griffin-Lim
-phases from one `torch.Generator` on the serving device, seeded from the
+phases from the server's one `torch.Generator` on the serving device,
+registered with every graph and reseeded before each request from the
 request's ``key`` (an int) or, without one, from a counter under a lock.
 """
 
@@ -26,7 +31,8 @@ import numpy as np
 import torch
 
 from .bridge import load_jax_params
-from .device import resolve_device, use_fp32
+from .device import resolve_device, use_deterministic, use_fp32
+from .graphs import GraphOwner, ProgramCache, program
 from .models import vqvae as V
 from .ops.features import AudioConfig, linear_to_amp
 from .ops.griffin_lim import specgram_to_waveform
@@ -36,7 +42,7 @@ INFERENCE_MARGIN_FRAMES = 40
 
 def serving_stages(cfg: V.VQVAEConfig, audio: AudioConfig, phn_attr, decode_steps: int, *,
                    mask_text_padding=True):
-    """The (synth, vocode) stages for one decode length.
+    """The eager (synth, vocode) stages for one decode length.
 
     ``synth(model, text, sid, generator) -> linear amplitude (B, T, F)``
     ``vocode(amp, generator, phases=None) -> waveform (B, S)``
@@ -64,6 +70,22 @@ def serving_stages(cfg: V.VQVAEConfig, audio: AudioConfig, phn_attr, decode_step
     return synth, vocode
 
 
+def full_stage(cfg: V.VQVAEConfig, phn_attr, decode_steps: int):
+    """The eager ``full(model, text, sid, generator) -> (mel, linear,
+    align, amp)`` of `synthesize_full`: `serving_stages`'s synthesis keeping
+    the offline solver's artifacts."""
+
+    @torch.inference_mode()
+    def full(model, text, sid, generator=None):
+        lat = V.embed_text(model, cfg, phn_attr, text)
+        mel, lin, align, _ = V.text_to_speech(
+            model, cfg, lat, sid, decode_steps=decode_steps,
+            latent_lengths=(text != 0).sum(-1) + 1, generator=generator)
+        return mel, lin, align, linear_to_amp(lin)
+
+    return full
+
+
 class TTSServer:
     """A loaded VQVAE (text->speech half) wrapped as a synthesis endpoint.
 
@@ -72,26 +94,53 @@ class TTSServer:
     >>> wav = server.synthesize(text_ids, speaker_ids)   # (B, S) float32
 
     ``device`` defaults to the card and raises on a host without one; pass
-    ``device="cpu"`` for the plain PyTorch path. ``synthesize`` may be called
-    from several threads; the key counter is lock-protected and each request
-    draws from its own generator.
+    ``device="cpu"`` for the plain PyTorch path.
+
+    Stage programs are built once per (kind, decode bucket, batch, text
+    length) and kept in a bounded per-instance LRU of ``program_cache_size``
+    entries (`graphs.ProgramCache`, the JAX server's policy: decode lengths
+    are bucketed to multiples of ``step_bucket`` macro-steps, so a handful
+    of entries covers real traffic, and an endpoint fed adversarial lengths
+    evicts the least-recently-used program instead of keeping graphs
+    without limit). On the card a program is a CUDA graph captured at its
+    first request; the graphs of a server share one memory pool.
+
+    Thread safety: ``synthesize``/``synthesize_full`` may be called from
+    many threads. The LRU and the key counter are lock-protected and a cache
+    miss builds under a per-key cell (`graphs._Once`); the requests
+    themselves, a capture included, run one at a time under the server's
+    run lock, since they reseed one generator and replay graphs that share
+    one pool (and a capture must not run while another thread replays).
+    Eviction is safe during use: a program already handed to a caller stays
+    valid.
+
+    The JAX server's ``compile_cache`` has no counterpart (a graph is
+    captured in the process that replays it), and its ``mesh`` waits for
+    the port's multi-card work.
     """
 
     def __init__(self, cfg: V.VQVAEConfig, audio: AudioConfig, phn_attr, model, *,
-                 device=None, step_bucket=25):
+                 device=None, step_bucket=25, program_cache_size=8):
         self.device = resolve_device(device)
         use_fp32()
+        use_deterministic()
         self.cfg = cfg
         self.audio = audio
         self.phn_attr = (None if phn_attr is None else
                          torch.as_tensor(np.asarray(phn_attr, np.float32), device=self.device))
         self.model = model.to(self.device).eval()
         self.step_bucket = int(step_bucket)
+        self.program_cache_size = max(1, int(program_cache_size))
+        self._cache = ProgramCache(self.program_cache_size)
+        self._owner = GraphOwner(self.device) if self.device.type == "cuda" else None
+        self._gen = torch.Generator(device=self.device)
         self._counter = 0
         self._lock = threading.Lock()  # guards _counter
+        self._run = threading.Lock()   # one request (capture or replay) at a time
 
     @classmethod
-    def from_checkpoint(cls, config, ckpt_path, *, device=None, step_bucket=25):
+    def from_checkpoint(cls, config, ckpt_path, *, device=None, step_bucket=25,
+                        program_cache_size=8):
         """Build from a training config (YAML path or loaded dict) and a
         checkpoint in the JAX package's format: audio settings from
         ``data.audio``, topology from ``model``, weights from the checkpoint."""
@@ -129,7 +178,8 @@ class TTSServer:
         ckpt = load_checkpoint(ckpt_path)
         model = load_jax_params(V.VQVAE(cfg, generator=torch.Generator()),
                                 ckpt["model"], ckpt["state"])
-        server = cls(cfg, audio, phn_attr, model, device=device, step_bucket=step_bucket)
+        server = cls(cfg, audio, phn_attr, model, device=device, step_bucket=step_bucket,
+                     program_cache_size=program_cache_size)
         server.tokenizer = tokenizer
         return server
 
@@ -151,22 +201,45 @@ class TTSServer:
                 "decode_steps must be >= 1 (got %r); omit it to use the "
                 "frames-per-phoneme policy (decode_steps_for)" % (decode_steps,))
 
-    def stages(self, decode_steps: int):
-        """(synth, vocode) for one decode length."""
-        return serving_stages(self.cfg, self.audio, self.phn_attr, decode_steps)
+    def _cached_program(self, kind, decode_steps, batch, text_len, build):
+        """The LRU's program of (kind, decode_steps, batch, text_len)."""
+        return self._cache.get((kind, int(decode_steps), int(batch), int(text_len)), build)
+
+    def _program(self, fn):
+        """``fn(*tensors)``, which draws from the server's generator, as a
+        program ``(*tensors, seed=None)``: a graph on the card."""
+        return program(fn, self.device, self._owner, generator=self._gen)
+
+    def stages(self, decode_steps: int, batch: int, text_len: int):
+        """The (synth, vocode) programs of one decode length and request
+        shape (LRU-cached): ``synth(text, sid, seed=key) -> amp`` reseeds the
+        generator, ``vocode(amp) -> wav`` goes on drawing from it."""
+        def build():
+            synth, vocode = serving_stages(self.cfg, self.audio, self.phn_attr, decode_steps)
+            return (self._program(lambda text, sid: synth(self.model, text, sid, self._gen)),
+                    self._program(lambda amp: vocode(amp, self._gen)))
+
+        return self._cached_program("stages", decode_steps, batch, text_len, build)
+
+    def _full_stage(self, decode_steps: int, batch: int, text_len: int):
+        """The program of `full_stage` (LRU-cached): ``full(text, sid,
+        seed=key) -> (mel, linear, align, amp)``."""
+        def build():
+            full = full_stage(self.cfg, self.phn_attr, decode_steps)
+            return self._program(lambda text, sid: full(self.model, text, sid, self._gen))
+
+        return self._cached_program("full", decode_steps, batch, text_len, build)
 
     # ---- request paths -----------------------------------------------------
 
-    def generator(self, key=None) -> torch.Generator:
-        """The request's generator: seeded from ``key``, or from the next
-        value of the server's counter."""
+    def _key(self, key=None) -> int:
+        """The request's seed: ``key``, or the next value of the server's
+        counter."""
         if key is None:
             with self._lock:
                 key = self._counter
                 self._counter += 1
-        g = torch.Generator(device=self.device)
-        g.manual_seed(int(key))
-        return g
+        return int(key)
 
     def _place(self, text, sid):
         text = torch.as_tensor(np.asarray(text), dtype=torch.long, device=self.device)
@@ -178,9 +251,10 @@ class TTSServer:
         self._check_decode_steps(decode_steps)
         steps = decode_steps or self.decode_steps_for(text)
         text, sid = self._place(text, sid)
-        synth, vocode = self.stages(steps)
-        g = self.generator(key)
-        wav = vocode(synth(self.model, text, sid, g), g)
+        synth, vocode = self.stages(steps, *text.shape)
+        seed = self._key(key)
+        with self._run:
+            wav = vocode(synth(text, sid, seed=seed))
         return wav.cpu().numpy()
 
     def synthesize_full(self, text, sid, key=None, *, decode_steps=None):
@@ -191,15 +265,12 @@ class TTSServer:
         steps = decode_steps or self.decode_steps_for(text)
         enc = np.sum(np.asarray(text) != 0, -1)
         text, sid = self._place(text, sid)
-        g = self.generator(key)
-        with torch.inference_mode():
-            lat = V.embed_text(self.model, self.cfg, self.phn_attr, text)
-            mel, lin, align, _ = V.text_to_speech(
-                self.model, self.cfg, lat, sid, decode_steps=steps,
-                latent_lengths=(text != 0).sum(-1) + 1, generator=g)
-            amp = linear_to_amp(lin)
-        _, vocode = self.stages(steps)
-        wav = vocode(amp, g)
+        full = self._full_stage(steps, *text.shape)
+        _, vocode = self.stages(steps, *text.shape)
+        seed = self._key(key)
+        with self._run:
+            mel, lin, align, amp = full(text, sid, seed=seed)
+            wav = vocode(amp)
         r = self.cfg.n_frames_per_step
         align = align.cpu().numpy()
         out_align = [align[i][: int(enc[i] * V.FRAME_PHN_RATIO) // r, : enc[i]]

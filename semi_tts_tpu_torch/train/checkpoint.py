@@ -251,11 +251,12 @@ def load_optimizer_tree(optimizer, model, tree):
             parts.append(torch.from_numpy(np.asarray(leaves[path], np.float32)).reshape(-1))
         return torch.cat(parts).to(dev)
 
+    # in place, so that a CUDA graph captured before the restore reads it
     if counted:
-        optimizer.count = scalar(scale[0], torch.int32)
+        optimizer.count.copy_(scalar(scale[0], torch.int32))
     for name, moment in zip(names, scale[counted:]):
-        setattr(optimizer, name, flat(moment))
-    optimizer.schedule_count = scalar(schedule_count, torch.int32)
-    optimizer.notfinite_count = scalar(notfinite, torch.int32)
-    optimizer.total_notfinite = scalar(total, torch.int32)
-    optimizer.last_finite = scalar(last_finite, torch.bool)
+        getattr(optimizer, name).copy_(flat(moment))
+    optimizer.schedule_count.copy_(scalar(schedule_count, torch.int32))
+    optimizer.notfinite_count.copy_(scalar(notfinite, torch.int32))
+    optimizer.total_notfinite.copy_(scalar(total, torch.int32))
+    optimizer.last_finite.copy_(scalar(last_finite, torch.bool))

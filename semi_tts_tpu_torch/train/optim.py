@@ -67,7 +67,10 @@ class Optimizer:
     State (tensors on the parameters' device): ``count`` (Adam's and
     AdamW's), ``schedule_count``, the moments named in `MOMENTS` (flat;
     `views` splits them per parameter), ``notfinite_count``,
-    ``total_notfinite``, ``last_finite``."""
+    ``total_notfinite``, ``last_finite`` (`state_tensors`). Each is
+    allocated once and written in place (``copy_``), by a step and by a
+    restore, so that a CUDA graph captured once reads and writes the live
+    state on every replay."""
 
     def __init__(self, params, optimizer: str = "Adam", lr: float = 1e-3,
                  lr_scheduler: str = "decay", weight_decay: float = 0.0):
@@ -91,6 +94,11 @@ class Optimizer:
     @property
     def moment_names(self):
         return MOMENTS[self.kind]
+
+    def state_tensors(self):
+        """Every state tensor, in a fixed order."""
+        return ([self.count, self.schedule_count] + [getattr(self, n) for n in self.moment_names]
+                + [self.notfinite_count, self.total_notfinite, self.last_finite])
 
     def views(self, flat):
         """A flat state vector split into one view per parameter."""
@@ -134,12 +142,13 @@ class Optimizer:
         update = -self.schedule(self.schedule_count.to(torch.float32)) * u
         torch._foreach_copy_(self.params, self.views(flat + torch.where(finite, update, 0.0)))
         for name, new in moments.items():
-            setattr(self, name, torch.where(finite, new, getattr(self, name)))
-        self.count = torch.where(finite, count, self.count)
-        self.schedule_count = torch.where(finite, self.schedule_count + 1, self.schedule_count)
-        self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1).to(torch.int32)
-        self.total_notfinite = self.total_notfinite + (~finite).to(torch.int32)
-        self.last_finite = finite
+            old = getattr(self, name)
+            old.copy_(torch.where(finite, new, old))
+        self.count.copy_(torch.where(finite, count, self.count))
+        self.schedule_count.copy_(torch.where(finite, self.schedule_count + 1, self.schedule_count))
+        self.notfinite_count.copy_(torch.where(finite, 0, self.notfinite_count + 1))
+        self.total_notfinite.add_((~finite).to(torch.int32))
+        self.last_finite.copy_(finite)
         return gnorm
 
 
@@ -149,4 +158,4 @@ def advance_lr_schedule(optimizer, step: int) -> None:
     the moments start at zero, so the Adam count stays 0 (it bias-corrects
     them), but the learning rate continues from ``step`` instead of
     restarting its warm-up."""
-    optimizer.schedule_count = torch.full_like(optimizer.schedule_count, int(step))
+    optimizer.schedule_count.fill_(int(step))

@@ -7,7 +7,12 @@ steps, the text-first step on odd ones) and the evaluation step.
 A step draws its augmentation (SNRs, stretch rate, noise), its dropout and
 prenet masks and its scheduled-sampling coins from one `torch.Generator` on
 the model's device, seeded from (seed, step number) as the JAX step folds
-the step number into its key. Building a step turns TF32 off (`use_fp32`),
+the step number into its key. Each train step is a `graphs.StepProgram`: on
+the card one CUDA graph a model and set of batch shapes (the JAX step's one
+jit program), its step number and teacher-forcing rate device scalars, its
+generator registered with the graphs and reseeded before each replay; the
+graphs of one builder share a memory pool. On the CPU the same cache holds
+the eager step. Building a step turns TF32 off (`use_fp32`),
 so the card computes in the fp32 the CPU path does, and asks cuDNN for
 deterministic algorithms (`use_deterministic`), so a step repeats bit for
 bit. A cycle's escapes stay on the device: the speech-first step gates its
@@ -25,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import use_deterministic, use_fp32
+from ..graphs import GraphOwner, StepProgram, step_seed
 from ..models import vqvae as V
 from ..models.decoder import merge_wgrads, wgrad_probes
 from ..ops.ctc import ctc_loss
@@ -66,9 +72,8 @@ def _grads(model, total, probes, aux):
 
 
 def step_generator(seed: int, step_no: int, device) -> torch.Generator:
-    """The generator of one step: a 64-bit mix of (seed, step_no)."""
-    mixed = (int(seed) * 0x9E3779B97F4A7C15 + int(step_no) * 0xBF58476D1CE4E5B9) % (1 << 63)
-    return torch.Generator(device=device).manual_seed(mixed)
+    """The generator of one step: seeded with `step_seed` (seed, step_no)."""
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step_no))
 
 
 class StepBuilder:
@@ -92,6 +97,15 @@ class StepBuilder:
         self.floss = partial(freq_loss, **{**floss, **(freq_loss_kwargs or {})})
         self.actual_len = actual_len
         self.r = cfg.n_frames_per_step
+        self._owner = None
+
+    def graph_owner(self, device) -> GraphOwner:
+        """The memory pool and capture stream that the graphs of this
+        builder's steps share (on the featurizer's card): they never
+        replay at once."""
+        if self._owner is None:
+            self._owner = GraphOwner(device)
+        return self._owner
 
     def _features(self, waves, wave_len, generator=None, *, need_clean=True, need_aug=True,
                   augment=None):
@@ -218,7 +232,7 @@ class StepBuilder:
         lin_loss = self.floss(lin_pred[:Bp, :Tp], linear)
         u_sph_loss = (self.floss(mel_pred[Bp:, :Tu], u_mel)
                       + self.floss(lin_pred[Bp:, :Tu], u_linear))
-        gate = ok.to(mel.dtype) * float(step_no > self.w.unpair_speech_start)
+        gate = ok.to(mel.dtype) * (step_no > self.w.unpair_speech_start)  # an int or a tensor
         total = (self.w.asr * asr_loss + self.w.tts * (mel_loss + lin_loss)
                  + self.w.unpair_speech * gate * u_sph_loss)
         p_det = p_code.detach()
@@ -296,18 +310,18 @@ class StepBuilder:
         augment=None)`` -> metrics (losses, grad_norm,
         pair_align, pair_pred, pair_pred_len); the parameters and the
         BatchNorm running statistics are updated in place. ``optimizer``
-        holds ``model.parameters()`` in order."""
+        holds ``model.parameters()`` in order. A `graphs.StepProgram`."""
         use_fp32()
         use_deterministic()
 
-        def paired_step(model, step_no, tf_rate, waves, wave_len, text, sid, *, augment=None):
-            g = step_generator(seed, step_no, waves.device)
+        def paired_step(model, step_no, tf_rate, waves, wave_len, text, sid, *, generator,
+                        augment=None):
             total, mets, grads = self.paired_loss_and_grads(model, waves, wave_len, text, sid,
-                                                            tf_rate, g, augment=augment)
+                                                            tf_rate, generator, augment=augment)
             mets.update(total_loss=total, grad_norm=optimizer.step(grads))
             return mets
 
-        return paired_step
+        return StepProgram(paired_step, optimizer, seed, self.graph_owner)
 
     def make_speech_first_step(self, optimizer, *, seed: int = 0):
         """``speech_first_step(model, step_no, tf_rate, waves, wave_len, text,
@@ -318,17 +332,16 @@ class StepBuilder:
         use_deterministic()
 
         def speech_first_step(model, step_no, tf_rate, waves, wave_len, text, sid, u_waves,
-                              u_wave_len, u_text, u_sid, *, augment=None, u_augment=None,
-                              tokens=None):
-            g = step_generator(seed, step_no, waves.device)
+                              u_wave_len, u_text, u_sid, *, generator, augment=None,
+                              u_augment=None, tokens=None):
             total, mets, grads = self.speech_first_loss_and_grads(
                 model, step_no, tf_rate, (waves, wave_len, text, sid),
-                (u_waves, u_wave_len, u_text, u_sid), g, augment=augment, u_augment=u_augment,
-                tokens=tokens)
+                (u_waves, u_wave_len, u_text, u_sid), generator, augment=augment,
+                u_augment=u_augment, tokens=tokens)
             mets.update(total_loss=total, grad_norm=optimizer.step(grads))
             return mets
 
-        return speech_first_step
+        return StepProgram(speech_first_step, optimizer, seed, self.graph_owner)
 
     def make_text_first_step(self, optimizer, *, seed: int = 0):
         """``text_first_step(model, step_no, tf_rate, waves, wave_len, text,
@@ -339,15 +352,14 @@ class StepBuilder:
         use_deterministic()
 
         def text_first_step(model, step_no, tf_rate, waves, wave_len, text, sid, u_waves,
-                            u_wave_len, u_text, u_sid, *, augment=None):
-            g = step_generator(seed, step_no, waves.device)
+                            u_wave_len, u_text, u_sid, *, generator, augment=None):
             total, mets, grads = self.text_first_loss_and_grads(
                 model, tf_rate, (waves, wave_len, text, sid), (u_waves, u_wave_len, u_text, u_sid),
-                g, augment=augment)
+                generator, augment=augment)
             mets.update(total_loss=total, grad_norm=optimizer.step(grads))
             return mets
 
-        return text_first_step
+        return StepProgram(text_first_step, optimizer, seed, self.graph_owner)
 
     def make_eval_step(self):
         """The dev-set step: clean features -> ``speech_to_text(train=False)``

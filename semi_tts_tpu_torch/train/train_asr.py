@@ -3,7 +3,8 @@
 codebook -> paired CTC -> backward -> clip/Adam/schedule update.
 
 A step draws its augmentation (SNRs, stretch rate, noise) and its dropout
-masks from one `torch.Generator` on the model's device (`step_generator`).
+masks from one `torch.Generator` on the model's device, seeded from (seed,
+step number); on the card the step is a CUDA graph (`graphs.StepProgram`).
 The step does not compute the clean features, which it would not use; the
 clean path runs in `AsrTrainer.validate_asr`. The step runs where the model
 and the featurizer live: the card, unless they were built with
@@ -23,9 +24,9 @@ import numpy as np
 import torch
 
 from ..device import use_deterministic, use_fp32
+from ..graphs import StepProgram
 from ..models import vqvae as V
 from ..utils.metrics import cal_per
-from .steps import step_generator
 from .train_vqvae import PAIRED, VqvaeSolver, VqvaeTrainer
 
 
@@ -58,18 +59,18 @@ def make_asr_step(builder, optimizer, *, seed: int = 0):
     """``asr_step(model, step_no, waves, wave_len, text, sid, augment=None)``
     -> dict(total_loss, asr_loss, grad_norm, pair_pred, pair_pred_len); the
     parameters and the BN running statistics are updated in place.
-    ``optimizer`` holds ``model.parameters()`` in order."""
+    ``optimizer`` holds ``model.parameters()`` in order. A
+    `graphs.StepProgram`, sharing ``builder``'s graph memory pool."""
     use_fp32()
     use_deterministic()
 
-    def asr_step(model, step_no, waves, wave_len, text, sid, *, augment=None):
-        g = step_generator(seed, step_no, waves.device)
-        total, mets, grads = asr_loss_and_grads(builder, model, waves, wave_len, text, g,
+    def asr_step(model, step_no, waves, wave_len, text, sid, *, generator, augment=None):
+        total, mets, grads = asr_loss_and_grads(builder, model, waves, wave_len, text, generator,
                                                 augment=augment)
         mets.update(total_loss=total, grad_norm=optimizer.step(grads))
         return mets
 
-    return asr_step
+    return StepProgram(asr_step, optimizer, seed, builder.graph_owner)
 
 
 class AsrTrainer(VqvaeTrainer):

@@ -162,3 +162,33 @@ def test_loader_raises_the_decoders_errors(tmp_path):
     tok = load_text_encoder("phoneme", corpus["vocab_file"], corpus["map_table"])
     with pytest.raises(ValueError, match="RIFF"):
         list(PLoader(ds, tok))
+
+
+def test_step_shapes_follow_the_loader():
+    """`data/step_shapes.py` pads as the loader does (each wave bucket is
+    `TTSLoader._bucket_len` of the batch's longest wave, each text a
+    multiple of the quantum), and its cache counts add up: every step is a
+    first call, a capture or a replay, one capture a shape seen twice."""
+    from semi_tts_tpu_torch.data import step_shapes as S
+
+    table = join(REPO, "data/partition_tables/semi-multi-spkr-sd0.csv")
+    durs = [r["duration"] for r in PC.read_partition(table, "paired")]
+    loader = PLoader.__new__(PLoader)
+    loader.bucket_samples = sorted(int(b * 22050) for b in S.DEFAULT_BUCKETS_SEC)
+    rng = np.random.RandomState(0)
+    order = np.arange(len(durs))
+    rng.shuffle(order)
+    keys = S.batch_keys(durs, 40)
+    for i, (wave, text) in enumerate(keys):
+        longest = max(durs[j] for j in order[8 * i: 8 * i + 8])
+        assert wave == loader._bucket_len(int(round(longest * 22050)))
+        assert text % S.TEXT_QUANTUM == 0 and text > 0
+    steps = S.step_keys(table, 300)
+    assert [k for k, _ in steps[:3]] == ["paired", "paired", "speech_first"]
+    for kind in ("paired", "speech_first"):
+        ks = [key for k, key in steps if k == kind]
+        c = S.cache_counts(ks, lru=8)
+        assert c["first_calls"] + c["captures"] + c["replays"] == c["steps"] == len(ks)
+        assert c["first_calls"] == c["shapes"] == len(set(ks))
+        assert c["captures"] == sum(ks.count(k) >= 2 for k in set(ks))
+        assert c["shapes"] <= c["lru8_captures"] <= c["steps"]

@@ -319,6 +319,48 @@ def test_decoder_training_matches_jax(tf_rate, rows, drop_dec_in):
     _close(g_spk, gspk)
 
 
+def _flips(coins, tf_rate):
+    """(teacher -> own, own -> teacher) transitions of the first coins."""
+    own = coins[:, 0] > tf_rate
+    return bool((~own[:-1] & own[1:]).any()), bool((own[:-1] & ~own[1:]).any())
+
+
+def test_decoder_coins_flipping_both_ways_match_jax():
+    """Scheduled sampling chosen on the device: coins that switch from the
+    teacher's frame to the step's own output and back, rows with and
+    without a teacher, ``tf_rate`` a 0-d tensor (as a captured step feeds
+    it) and JAX's coins as ``coins=``: outputs and every gradient against
+    JAX `decoder_apply` at 1e-5."""
+    jcfg, pcfg, params, dec, a, steps = _train_decoder(drop_dec_in=0.3)
+    tf_rate, t_rows = 0.5, np.asarray((0, 1, 1), bool)
+    key = next(k for k in (jax.random.PRNGKey(s) for s in range(64))
+               if _flips(_jax_coins(k, steps), tf_rate) == (True, True))
+    coins = _jax_coins(key, steps)
+
+    def f(p, probes, memory, spk):
+        mel, align, stop, aux = JD.decoder_apply(
+            p, key, memory, spk, cfg=jcfg, decode_steps=steps, train=True,
+            teacher=jnp.asarray(a["teacher"]), teacher_rows=jnp.asarray(t_rows),
+            tf_rate=tf_rate, wgrad_probes=probes)
+        loss = jnp.sum(mel * a["gm"]) + jnp.sum(align * a["ga"]) + jnp.sum(stop * a["gs"])
+        return loss, ((mel, align, stop), aux)
+
+    probes = JD.wgrad_probes(jcfg, steps, 3)
+    (_, (want_out, aux)), (gp, gpr, gmem, gspk) = jax.value_and_grad(
+        f, argnums=(0, 1, 2, 3), has_aux=True)(params, probes, jnp.asarray(a["memory"]),
+                                               jnp.asarray(a["spk"]))
+    want = _flatten(JD.merge_wgrads(jax.tree_util.tree_map(np.asarray, gp), aux, gpr))
+    out, grads, g_mem, g_spk = _port_decoder_grads(
+        dec, pcfg, a, steps, probes=True, coins=torch.from_numpy(coins),
+        tf_rate=torch.tensor(tf_rate), teacher_rows=torch.from_numpy(t_rows))
+    for g, w in zip(out, want_out):
+        _close(g, w, atol=1e-5)
+    for name, g in grads.items():
+        _close(g, want[name.replace(".", "/")], atol=1e-5)
+    _close(g_mem, gmem, atol=1e-5)
+    _close(g_spk, gspk, atol=1e-5)
+
+
 def test_decoder_probes_match_plain_autograd():
     """The two routes to the cells' weight gradients agree: the probes with
     `merge_wgrads`, and autograd through the undetached weights (outputs

@@ -98,12 +98,13 @@ def test_serving_stages_match_jax(served):
     k1, k2 = jax.random.split(jax.random.PRNGKey(5))
     amp_j = jsynth(jserver.params, jserver.state, jnp.asarray(text), jnp.asarray(sid), k1)
     wav_j = np.asarray(jvocode(amp_j, k2))
-    psynth, pvocode = pserver.stages(steps)
+    psynth, _ = pserver.stages(steps, *text.shape)
     t, s = pserver._place(text, sid)
-    amp_p = psynth(pserver.model, t, s, pserver.generator(0))
+    amp_p = psynth(t, s, seed=0)
     assert tuple(amp_p.shape) == (2, steps * 3, 257)
     np.testing.assert_allclose(amp_p.numpy(), np.asarray(amp_j), rtol=0, atol=1e-4)
     phases = np.array(jax.random.uniform(k2, amp_j.shape, minval=-jnp.pi, maxval=jnp.pi))
+    _, pvocode = PS.serving_stages(pserver.cfg, pserver.audio, pserver.phn_attr, steps)
     wav_p = pvocode(amp_p, phases=torch.from_numpy(phases)).numpy()
     assert wav_p.shape == wav_j.shape == (2, 220 * (steps * 3 - 1))
     np.testing.assert_allclose(wav_p, wav_j, rtol=0, atol=1e-3)
@@ -252,7 +253,7 @@ def test_key_counter_thread_safety(served):
 
     def worker():
         barrier.wait()
-        got = [pserver.generator().initial_seed() for _ in range(50)]
+        got = [pserver._key() for _ in range(50)]
         with lock:
             seeds.extend(got)
 
