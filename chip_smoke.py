@@ -101,7 +101,18 @@ Phases, each fatal on failure:
    kind's graph must run every training kernel; the solver's step wall is
    reported beside the bare steps' of phases 6 and 7, for the 4 steps (each
    shape's first call runs eagerly, its second captures) and for the last
-   CLI_STEADY_TIMED of CLI_STEADY more steps of the same run (steady state);
+   CLI_STEADY_TIMED of CLI_STEADY more steps of the same run (steady state).
+   The solver logs to a recording writer, so the JAX trainer's media logs
+   run whatever is installed: step 1 must log the paired alignments and
+   PER, every validation the middle dev batch's hypotheses, spectrograms,
+   alignments, Griffin-Lim audio (K4 must launch) and the codebook, step
+   1's also the ground truth's; the first dev wave batch is held to the
+   plain Griffin-Lim on the CPU with the same phases (1e-3 of the largest
+   sample); one validation is timed with and without the writer. Then
+   ``--profile``: 8 paired steps on one batch whose window (steps 4-7)
+   covers graph replays; the trace in the log directory must name K3 and
+   K9. The native decoder reads the corpus bit for bit as `wavio` does,
+   timed beside it (the ``host_decoder`` line);
 9. LM pretraining at the same width on that corpus (`phase_pretrain`):
    ``--pretrain-text`` and ``--pretrain-speech`` through `TextLmSolver` and
    `AudioLmSolver`, 4 steps each validated every 2, each writing its
@@ -113,7 +124,14 @@ Phases, each fatal on failure:
    into a `VqvaeSolver`: every grafted leaf and the postnet's BatchNorm
    statistics equal the files' bit for bit, the TTS text encoder a cold
    solver's; two fine-tune steps. RNNLM at its default 512 units must raise
-   its plan's ValueError at its first launch (LSTM and GRU).
+   its plan's ValueError at its first launch (LSTM and GRU);
+10. the tools (`phase_tools`): a seeded flagship model written as an
+   upstream-layout ``.pth`` goes through ``util_cli.import_reference_ckpt``
+   and is served (B=16 x U=32) bit for bit as the same weights loaded
+   directly, K1-K4 launched; ``util_cli.gen_wav_from_specgram`` vocodes
+   phase 8's spectrograms, one batch's K4 outputs held to their plain
+   versions at every Griffin-Lim round (1e-4), the whole batch's distance
+   to the plain Griffin-Lim on the card and on the CPU reported.
 
 The server and the train steps run as CUDA graphs (`semi_tts_tpu_torch.graphs`):
 each path's line gives the graphed and eager walls (``wall_s``,
@@ -159,8 +177,10 @@ Prints a ``{"ptxas": ...}`` line (registers and spills of the recurrence
 and attention kernels), an ``{"asr_shape": ...}`` line, a ``{"featurizer": ...}`` line, a
 ``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, a
 ``{"training": ...}`` line, a ``{"paired": ...}`` line, a ``{"cycles": ...}``
-line, a ``{"cli": ...}`` line, a ``{"pretrain": ...}`` line (with the
-card's name and power limit) and, last,
+line, a ``{"host_decoder": ...}`` line (with the card's name and power
+limit and the CLI's steady step wall), a ``{"cli": ...}`` line, a
+``{"pretrain": ...}`` line (with the card's name and power limit), a
+``{"tools": ...}`` line and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -171,6 +191,8 @@ import copy
 import dataclasses
 import functools
 import gc
+import glob
+import itertools
 import json
 import math
 import os
@@ -180,6 +202,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -1341,10 +1364,30 @@ def record_recurrence_shapes():
     return seen
 
 
+def _seen_library(name, sh, randn, unif, dev):
+    """The PyTorch library call beside a K7, K8 or K6 shape the steps gave
+    (the yardsticks of phase 3's ``library_ms_by_shape``): cuDNN's LSTM
+    (input 512 both ways, the text LM's 48 one way) or GRU (input H)
+    backward, or ``F.ctc_loss`` forward (K6 alpha) or forward and backward
+    (K6 beta)."""
+    if name == "bilstm_rec_bwd":
+        T, B_, H, ndir = sh
+        if ndir == 2:
+            return _rnn_library_backward(torch.nn.LSTM, randn, dev, T, B_, H, 2, 512)
+        return _library_backward(*_lstm_one_dir(randn, unif, T, B_, H, TEXTLM_D, dev)[1:], randn)
+    if name == "bigru_rec_bwd":
+        T, B_, H, ndir = sh
+        if ndir == 2:
+            return _rnn_library_backward(torch.nn.GRU, randn, dev, T, B_, H, 2, H)
+        return _library_backward(*_gru_one_dir(randn, unif, T, B_, H, dev)[1:], randn)
+    return _ctc_library(*_ctc_shape_inputs(randn, dev, *sh), backward=name == "ctc_beta_grad")
+
+
 def time_seen_shapes(table, dev, seen_shapes):
     """K7, K8 and K6 at each shape the train steps gave them that phase 3
     did not time: held to the plain version and timed as phase 3 times its
-    shapes; ``shapes_seen`` lists every shape the steps gave them."""
+    shapes, beside the library call of `_seen_library` (eager, CUDA events);
+    ``shapes_seen`` lists every shape the steps gave them."""
     from semi_tts_tpu_torch.kernels import rnn as k
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1385,6 +1428,8 @@ def time_seen_shapes(table, dev, seen_shapes):
                 row["ms_by_shape"][key] = device_ms(lambda: kernel(*a), 10)
                 row["plain_ms_by_shape"][key] = device_ms(lambda: plain(*a), 2)
                 row["bound_ms_by_shape"][key] = bound(*cost(*sh))[0]
+                lib = _seen_library(row["name"], sh, randn, unif, dev)
+                row.setdefault("library_ms_by_shape", {})[key] = time_ms(lib, 10)
 
 
 def kernel_cases(dev):
@@ -2633,6 +2678,220 @@ def cli_paras(root, **kw):
     return argparse.Namespace(**{**vars(paras), **kw})
 
 
+LISTEN = 6  # train_vqvae.LISTEN_N_EXAMPLES: the rows whose figures and audio are logged
+# the tags the JAX trainer logs at step 1 (progress) and at every validation, and
+# only at step 1's validation (the ground truth)
+STEP1_TAGS = {f"pair_align{i}" for i in range(LISTEN)} | {"per"}
+VALID_TAGS = ({f"{k}{i}" for k in ("hyp_text", "mel_spec", "linear_spec", "dv_align",
+                                   "mel_wave", "linear_wave") for i in range(LISTEN)}
+              | {"codebook", "speech_loss", "per"})
+GT_TAGS = ({f"truth_text{i}" for i in range(LISTEN)}
+           | {f"{k}{i}_gt" for k in ("mel_spec", "linear_spec", "mel_wave", "linear_wave")
+              for i in range(LISTEN)})
+PROFILE_STEPS = 8  # profile_window(0, 8): steps 4..7, replays of one batch's graph
+
+
+class RecordingWriter:
+    """Stands in for tensorboardX's SummaryWriter on the card: keeps each
+    call's (method, tag, step, shape of what was logged), and the first
+    wave logged under each tag."""
+
+    def __init__(self):
+        self.calls, self.waves = [], {}
+
+    def _keep(self, method, tag, step, value):
+        shape = list(np.shape(value)) if not isinstance(value, (str, dict)) else len(value)
+        self.calls.append((method, tag, step, shape))
+
+    def add_image(self, tag, img, global_step=None, dataformats="CHW"):
+        if not np.isfinite(img).all() or dataformats != "HWC":
+            raise SystemExit(f"chip_smoke: image {tag} is not a finite HWC array")
+        self._keep("add_image", tag, global_step, img)
+
+    def add_embedding(self, mat, metadata=None, tag="default", global_step=None, **kw):
+        if len(metadata) != len(mat) or not np.isfinite(mat).all():
+            raise SystemExit(f"chip_smoke: embedding {tag}: {np.shape(mat)}, {len(metadata)} labels")
+        self._keep("add_embedding", tag, global_step, mat)
+
+    def add_audio(self, tag, snd, global_step=None, sample_rate=44100):
+        self.waves.setdefault(tag, np.asarray(snd).reshape(-1))
+        self._keep("add_audio", tag, global_step, snd)
+
+    def add_text(self, tag, text, global_step=None):
+        self._keep("add_text", tag, global_step, text)
+
+    def add_scalars(self, tag, values, global_step=None):
+        self._keep("add_scalars", tag, global_step, values)
+
+    def close(self):
+        pass
+
+    def tags(self, step):
+        return {tag for _, tag, st, _ in self.calls if st == step}
+
+
+@contextlib.contextmanager
+def media_stand_ins(figure_inputs):
+    """What the card's machine may lack for the trainer's media logs:
+    without ``soundfile`` (which tensorboardX's audio needs) an empty module
+    stands in, so that `write_log` hands the audio to the recording writer;
+    without matplotlib the figures are drawn as blank images. Either way
+    every array handed to `feat_to_fig` (and every count vector handed to
+    `data_to_bar`) is recorded into ``figure_inputs`` and must be finite."""
+    from semi_tts_tpu_torch.utils import viz
+
+    saved = sys.modules.get("soundfile")
+    try:
+        import soundfile  # noqa: F401
+    except ImportError:
+        sys.modules["soundfile"] = types.ModuleType("soundfile")
+    try:
+        import matplotlib  # noqa: F401
+        drawn = True
+    except ImportError:
+        drawn = False
+        print("cli: matplotlib is not installed: the figures' inputs are checked, blank "
+              "images are logged", flush=True)
+    feat_to_fig, data_to_bar = viz.feat_to_fig, viz.data_to_bar
+
+    def fig(feat):
+        a = np.asarray(feat)
+        figure_inputs.append(["feat_to_fig", list(a.shape), bool(np.isfinite(a).all())])
+        return feat_to_fig(feat) if drawn else (np.zeros((1000, 1600, 3)), "HWC")
+
+    def bar(counts, gt_counts, tok_size, tick, **kw):
+        figure_inputs.append(["data_to_bar", int(np.sum(counts)), int(np.sum(gt_counts))])
+        if drawn or int(np.sum(gt_counts)) == 0:
+            return data_to_bar(counts, gt_counts, tok_size, tick, **kw)
+        return np.zeros((1000, 1600, 3)), "HWC"
+
+    viz.feat_to_fig, viz.data_to_bar = fig, bar
+    try:
+        yield drawn
+    finally:
+        viz.feat_to_fig, viz.data_to_bar = feat_to_fig, data_to_bar
+        if saved is None:
+            sys.modules.pop("soundfile", None)
+
+
+def check_media(writer, validations, figure_inputs, steps):
+    """Raise unless step 1 and every validation logged the JAX trainer's
+    tags and K4 launched in each validation; returns the missing tags (none)."""
+    missing = {}
+    for st in steps:
+        want = VALID_TAGS | ((STEP1_TAGS | GT_TAGS) if st == 1 else set())
+        lost = sorted(want - writer.tags(st))
+        if lost:
+            missing[st] = lost
+    if missing:
+        raise SystemExit(f"chip_smoke: the CLI's run did not log {missing}")
+    idle = [v for v in validations if not (v["gl_project"] and v["gl_ola_frame"])]
+    if idle or not validations:
+        raise SystemExit(f"chip_smoke: K4 did not launch in a validation: {validations}")
+    bad = [f for f in figure_inputs if f[0] == "feat_to_fig" and not f[2]]
+    if bad:
+        raise SystemExit(f"chip_smoke: non-finite figure inputs: {bad[:4]}")
+
+
+def dev_audio_check(rec):
+    """The first dev wave batch the trainer vocoded on the card against the
+    plain Griffin-Lim on the CPU, same amplitudes and phases: the largest
+    difference over the largest sample (the serving gate: 1e-3)."""
+    from semi_tts_tpu_torch.ops.griffin_lim import specgram_to_waveform
+
+    want = specgram_to_waveform(rec["amp"].cpu(), phases=rec["phases"].cpu(), **rec["kw"])
+    got = rec["out"].cpu()
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err <= 1e-3:
+        raise SystemExit(f"chip_smoke: dev audio differs from the plain Griffin-Lim: {err}")
+    return {"rows": int(got.shape[0]), "samples": int(got.shape[1]), "rel_err": err}
+
+
+def profile_run(root, config):
+    """``--profile`` through `VqvaeSolver`: PROFILE_STEPS paired steps on one
+    batch (step 0 eager, 1 captures, the rest replay; the window is
+    `profile_window`'s), no writer. The trace in the run's log directory
+    must name K3 and K9 among its device kernels; the step walls inside the
+    window against the replays before it."""
+    from semi_tts_tpu_torch.train.train_vqvae import VqvaeSolver
+    from semi_tts_tpu_torch.utils.timer import profile_window
+
+    config = copy.deepcopy(config)
+    config["hparas"].update(max_step=PROFILE_STEPS, valid_step=10 ** 9,
+                            unpair_speech_weight=0.0, unpair_text_weight=0.0)
+    solver = VqvaeSolver(config, cli_paras(root, name="cli_profile", profile=True), "train")
+    solver.log = None
+    solver.load_data()
+    solver.set_model()
+    trainer, walls = solver.trainer, []
+    trainer.pair_iter = itertools.repeat(next(trainer.pair_iter))
+    run_step = trainer._train_step
+
+    def step(batch, unpaired=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mets = run_step(batch, unpaired)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return mets
+
+    trainer._train_step = step
+    t0 = time.perf_counter()
+    solver.exec()
+    exec_wall = time.perf_counter() - t0
+    traces = glob.glob(os.path.join(solver.logdir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise SystemExit(f"chip_smoke: --profile wrote {traces} into {solver.logdir}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            n, us = by_name.get(e["name"], (0, 0.0))
+            by_name[e["name"]] = (n + 1, us + float(e.get("dur", 0.0)))
+    seen = kernels_seen(by_name)
+    require_seen(seen, ("attention_step", "attention_step_bwd"), "--profile trace")
+    first, end = profile_window(0, PROFILE_STEPS)
+    replays, profiled = walls[2:first], walls[first:end]
+    graphs = trainer._step_fn.programs()
+    if len(graphs) != 1:
+        raise SystemExit(f"chip_smoke: the --profile run made {len(graphs)} graphs, not 1")
+    return dict(steps=PROFILE_STEPS, window=[first, end], trace_bytes=os.path.getsize(traces[0]),
+                device_kernels=sum(n for n, _ in by_name.values()),
+                kernels_seen={k: seen[k] for k in ("attention_step", "attention_step_bwd")},
+                step_walls_s=walls, replay_wall_s=float(np.median(replays)),
+                profiled_wall_s=float(np.median(profiled)),
+                overhead_s=float(np.median(profiled) - np.median(replays)),
+                exec_wall_s=exec_wall, trace_export_s=exec_wall - sum(walls))
+
+
+def native_decode_check(root, capacity):
+    """The native decoder over the synthetic corpus's files in batches of
+    TRAIN_B, bit for bit against `wavio`, and each batch's decode time
+    beside `wavio`'s (host only)."""
+    from semi_tts_tpu_torch import native
+    from semi_tts_tpu_torch.data import wavio
+
+    paths = sorted(glob.glob(os.path.join(root, "wavs", "*", "*.wav")))
+    nat, py = [], []
+    native.wav_read_batch(paths[:1], capacity)  # builds and loads the library
+    for i in range(0, len(paths), TRAIN_B):
+        batch = paths[i:i + TRAIN_B]
+        t0 = time.perf_counter()
+        arr, lens, srs = native.wav_read_batch(batch, capacity, channel=0, n_threads=4)
+        nat.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ref = [wavio.read(p) for p in batch]
+        py.append(time.perf_counter() - t0)
+        for j, (w, sr) in enumerate(ref):
+            if not (lens[j] == w.shape[1] and srs[j] == sr
+                    and np.array_equal(arr[j, :lens[j]], w[0])):
+                raise SystemExit(f"chip_smoke: the native decoder differs from wavio on {batch[j]}")
+    return dict(files=len(paths), batch=TRAIN_B, capacity=capacity,
+                native_ms_per_batch=1e3 * float(np.median(nat)),
+                wavio_ms_per_batch=1e3 * float(np.median(py)), bit_for_bit=True)
+
+
 def state_of(solver):
     """Copies of a solver's parameters, buffers and optimizer state."""
     opt = solver.optimizer
@@ -2642,7 +2901,7 @@ def state_of(solver):
                                    opt.notfinite_count, opt.total_notfinite, opt.last_finite)])
 
 
-def phase_cli(bare_walls, keep):
+def phase_cli(bare_walls, keep, keep_specs):
     """The CLI's solvers at flagship width on a synthetic corpus, through
     `load_data -> set_model -> exec`: `VqvaeSolver` trains CLI_STEPS steps
     (paired, text-first, speech-first, text-first) validating every
@@ -2657,24 +2916,74 @@ def phase_cli(bare_walls, keep):
     generation; the solver's step wall (the loader's next batch and the
     step) beside the bare steps' of phases 6 and 7; the generation's wall
     per utterance; peak memory. Copies the checkpoint it resumed from to
-    ``keep``."""
+    ``keep`` and the generated spectrograms into ``keep_specs``.
+
+    The training solver logs to a `RecordingWriter` (with `media_stand_ins`),
+    so the JAX trainer's figures, dev audio and projector run on the card
+    whatever is installed: step 1 and every validation must log their tags
+    (`check_media`), K4 must launch in each validation, and the first dev
+    wave batch must match the plain Griffin-Lim on the CPU (`dev_audio_check`).
+    After the steady steps, one validation with and one without the writer
+    are timed (no checkpoint written), then ``--profile`` (`profile_run`) and
+    the native decoder (`native_decode_check`)."""
     import tempfile
 
     from semi_tts_tpu_torch import kernels
     from semi_tts_tpu_torch.data import wavio
     from semi_tts_tpu_torch.models import vqvae as V
+    from semi_tts_tpu_torch.train import train_vqvae as PTV
     from semi_tts_tpu_torch.train.gen_specgram import SpecgramGenerator
     from semi_tts_tpu_torch.train.train_vqvae import VqvaeSolver
 
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory() as root:
+    figure_inputs, wave_rec = [], []
+    with tempfile.TemporaryDirectory() as root, media_stand_ins(figure_inputs) as drawn:
         config = cli_config(root)
         solver = VqvaeSolver(config, cli_paras(root), "train")
+        writer = solver.log = RecordingWriter()
         solver.load_data()
         solver.set_model()
         trainer, walls, logged, saved, at, kinds = solver.trainer, [], [], [], {}, {}
         run_step, pairs, save, log = trainer._train_step, trainer.pair_iter, trainer.save, trainer.log
+        run_validate, log_waves, vocoder = trainer.validate, trainer._log_waves, \
+            PTV.specgram_to_waveform
+        validations, audio = [], {"s": 0.0, "launches": {}}
+
+        def validate():
+            before = kernels.launch_counts()
+            audio.update(s=0.0, launches=dict.fromkeys(before, 0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_validate()
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            validations.append(dict(step=trainer.step, media=trainer.media,
+                                    wall_s=time.perf_counter() - t0, dev_audio_s=audio["s"],
+                                    gl_project=after["gl_project"] - before["gl_project"],
+                                    gl_ola_frame=after["gl_ola_frame"] - before["gl_ola_frame"],
+                                    audio_launches=dict(audio["launches"])))
+            return out
+
+        def timed_log_waves(*a, **k):
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            log_waves(*a, **k)
+            torch.cuda.synchronize()
+            audio["s"] += time.perf_counter() - t0
+            for n, v in kernels.launch_counts().items():
+                audio["launches"][n] += v - before[n]
+
+        def recorded_vocoder(amp, **kw):
+            out = vocoder(amp, **kw)
+            if not wave_rec:
+                wave_rec.append(dict(amp=amp.clone(), phases=kw.pop("phases").clone(), kw=kw,
+                                     out=out.clone(), step=trainer.step))
+            return out
+
+        trainer.validate, trainer._log_waves = validate, timed_log_waves
+        PTV.specgram_to_waveform = recorded_vocoder
 
         def timed_batches():
             while True:
@@ -2706,9 +3015,18 @@ def phase_cli(bare_walls, keep):
         trainer.log = lambda step, name, value: (logged.append((step, name, value)),
                                                  log(step, name, value))
         kernels.reset_launches()
-        solver.exec()
+        try:
+            solver.exec()
+        finally:
+            PTV.specgram_to_waveform = vocoder
         wrapper_launches = {"train": kernels.launch_counts()}  # eager first calls and captures
-        values = [v for _, _, v in logged]
+        check_media(writer, validations, figure_inputs,
+                    sorted({v["step"] for v in validations}))
+        dev_audio = dict(dev_audio_check(wave_rec[0]), step=wave_rec[0]["step"])
+        logged_wave = writer.waves["mel_wave0"]
+        if not np.array_equal(logged_wave, wave_rec[0]["out"][0].cpu().numpy()):
+            raise SystemExit("chip_smoke: the logged dev wave is not the vocoded one")
+        values = [v for _, _, v in logged if isinstance(v, (int, float))]
         if trainer.step != CLI_STEPS or not np.isfinite(values).all():
             raise SystemExit(f"chip_smoke: the CLI's training failed: step {trainer.step}, {logged}")
         dev_metrics = {(st, n): v for st, n, v in logged if n in ("speech_loss/dev", "per/dev")}
@@ -2745,6 +3063,17 @@ def phase_cli(bare_walls, keep):
         trainer.exec()
         steady = [w[0] + w[1] for w in walls[-CLI_STEADY_TIMED:]]
         mem = dict(memory_now(), graphs=programs())
+        trainer.save = lambda name, score: None  # the timed validations write no checkpoint
+        for media in (True, False, True, False):
+            trainer.media = media
+            trainer.validate()
+        trainer.media = True
+        timed_valid = {k: float(np.median([v["wall_s"] for v in validations[-4:]
+                                           if v["media"] == m]))
+                       for k, m in (("writer_s", True), ("no_writer_s", False))}
+        timed_valid["dev_audio_s"] = float(np.median([v["dev_audio_s"] for v in validations[-4:]
+                                                      if v["media"]]))
+        dev_audio_launches = validations[-2]["audio_launches"]
         replays = {}  # one replay of each step kind's graph, profiled
         for kind, (st, batch, unpaired) in sorted(kinds.items()):
             trainer.step = st
@@ -2757,8 +3086,12 @@ def phase_cli(bare_walls, keep):
         for s in (solver, resumed):
             if s.log is not None:
                 s.log.close()
+        capacity = solver.pair_set.bucket_samples[-1]
         del resumed, solver, trainer, run_step, at
         gc.collect()
+        profile = profile_run(root, config)
+        gc.collect()
+        decoder = native_decode_check(root, capacity)
 
         gen = SpecgramGenerator(config, cli_paras(root, load=ckpt, gen_specgram=True,
                                                   gen_wav=True), "test")
@@ -2790,6 +3123,9 @@ def phase_cli(bare_walls, keep):
                                  f"{mel.shape}, spec {spec.shape}, align {align.shape}, wav {wav.shape}")
         if len(texts) != dict(CLI_SPLITS)["test"]:
             raise SystemExit(f"chip_smoke: gen_specgram wrote {len(texts)} utterances")
+        os.makedirs(keep_specs, exist_ok=True)
+        for f in glob.glob(os.path.join(out_dir, "*-spec.npy")):
+            shutil.copy(f, keep_specs)
     for path, names in (("train", CLI_TRAIN_KERNELS + VALIDATION_KERNELS),
                         ("gen_specgram", CLI_GEN_KERNELS)):
         idle = [n for n in names if wrapper_launches[path][n] == 0]
@@ -2811,8 +3147,15 @@ def phase_cli(bare_walls, keep):
                 gen_utterances=len(texts), gen_wall_s=gen_wall,
                 gen_wall_per_utterance_s=gen_wall / len(texts),
                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
-                launches={"train": seen, "gen_specgram": wrapper_launches["gen_specgram"]},
-                wrapper_launches=wrapper_launches)
+                launches={"train": seen, "gen_specgram": wrapper_launches["gen_specgram"],
+                          "dev_audio": dev_audio_launches},
+                wrapper_launches=wrapper_launches,
+                media={"figures_drawn": drawn, "calls": len(writer.calls),
+                       "tags_by_step": {st: len(writer.tags(st))
+                                        for st in sorted({c[2] for c in writer.calls})},
+                       "figure_inputs": len(figure_inputs), "dev_audio": dev_audio},
+                validations=validations, validate_wall_s=timed_valid, profile=profile,
+                native_decoder=decoder)
 
 
 PRETRAIN_STEPS, PRETRAIN_VALID = 4, 2   # 1 warm-up and 3 timed steps of each LM
@@ -3036,6 +3379,166 @@ def phase_pretrain(card, asr_ckpt):
     return out
 
 
+def gl_rounds_check(amp, phases, acfg):
+    """K4 at every round of one Griffin-Lim of ``amp`` (B, T, F) on the card
+    from ``phases``: each round's `gl_project` and `gl_ola_frame` outputs
+    against their plain versions on the same inputs -> {kernel: the largest
+    max abs error over the rounds}."""
+    from semi_tts_tpu_torch.kernels import griffin_lim as k4
+    from semi_tts_tpu_torch.ops.features import GFL_ITER
+    from semi_tts_tpu_torch.ops.stft import dft_basis, inv_dft_basis
+
+    geo = dict(n_fft=acfg.n_fft, hop=acfg.hop_length, win_length=acfg.win_length)
+    mag, dev = amp.abs(), amp.device
+    fwd = torch.cat(dft_basis(acfg.n_fft, acfg.win_length, dev), dim=1)
+    inv = torch.cat(inv_dft_basis(acfg.n_fft, acfg.win_length, dev), dim=0)
+    inv_f = torch.cat([mag * torch.cos(phases), mag * torch.sin(phases)], dim=-1) @ inv
+    errs = dict.fromkeys(("gl_project", "gl_ola_frame"), 0.0)
+    for i in range(GFL_ITER + 1):
+        last = i == GFL_ITER
+        frames = k4.gl_ola_frame(inv_f, emit_signal=last, **geo)
+        errs["gl_ola_frame"] = max(errs["gl_ola_frame"], max_err(
+            frames, k4.gl_ola_frame_plain(inv_f, emit_signal=last, **geo)))
+        if last:
+            return errs
+        reim = frames @ fwd
+        proj = k4.gl_project(reim, mag)
+        errs["gl_project"] = max(errs["gl_project"], max_err(proj, k4.gl_project_plain(reim, mag)))
+        inv_f = proj @ inv
+
+
+@contextlib.contextmanager
+def plain_griffin_lim():
+    """Griffin-Lim with K4's plain versions in place of the kernels (the
+    same GEMMs on the same device): the reference a vocoded batch on the
+    card is held to where the CPU's different summation order would grow
+    through the rounds."""
+    from semi_tts_tpu_torch.kernels import griffin_lim as k4
+    from semi_tts_tpu_torch.ops import griffin_lim as gl
+
+    saved = gl.gl_project, gl.gl_ola_frame
+    gl.gl_project, gl.gl_ola_frame = k4.gl_project_plain, k4.gl_ola_frame_plain
+    try:
+        yield
+    finally:
+        gl.gl_project, gl.gl_ola_frame = saved
+
+
+TOOLS_SEED, TOOLS_STEP = 14, 1234
+
+
+def phase_tools(specs_dir, dev):
+    """The tools around the CLI on the card. An upstream-layout ``.pth``
+    of a seeded flagship model (the inverse of `torch_import.name_table`,
+    BatchNorm statistics moved off their initial values) goes through
+    ``util_cli.import_reference_ckpt``; `TTSServer.from_checkpoint` on the
+    result serves B x U, bit for bit the waves of the same weights written
+    directly, with K1-K4 launched. ``util_cli.gen_wav_from_specgram`` vocodes
+    phase 8's spectrograms (one wav each, at the sample rate), and one batch
+    of 16 is checked round by round (`gl_rounds_check`: at every round K4's
+    outputs against their plain versions on the same inputs, 1e-4 as in
+    phase 3). The whole vocoded batch's distance to the plain Griffin-Lim on
+    the card (``rel_err_plain``) and on the CPU (``rel_err_cpu``) is
+    reported, not gated: on these spectrograms of a barely trained model
+    (about half the bins at the dB floor) the 30 rounds amplify a 1-ulp
+    difference ~10^4-fold (6e-7 at the first round, 1e-2 at the last
+    against the CPU), so only a bit-identical implementation would agree
+    to 1e-3."""
+    from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.bridge import to_jax_params
+    from semi_tts_tpu_torch.data import wavio
+    from semi_tts_tpu_torch.models import vqvae as V
+    from semi_tts_tpu_torch.ops.features import linear_to_amp
+    from semi_tts_tpu_torch.ops.griffin_lim import specgram_to_waveform
+    from semi_tts_tpu_torch.serve import TTSServer
+    from semi_tts_tpu_torch.train import torch_import as TI
+    from semi_tts_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from semi_tts_tpu_torch.util_cli import gen_wav_from_specgram as GW
+    from semi_tts_tpu_torch.util_cli import import_reference_ckpt as IR
+
+    config = flagship_config()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        cfg, phn_attr = IR.model_config(config)
+        model = V.VQVAE(cfg, generator=torch.Generator().manual_seed(TOOLS_SEED))
+        g = torch.Generator().manual_seed(TOOLS_SEED)
+        with torch.no_grad():
+            for name, b in model.named_buffers():
+                if name.endswith(".mean") or name.endswith(".var"):
+                    b.uniform_(0.5, 1.5, generator=g)
+        direct, upstream, imported = (os.path.join(root, n) for n in
+                                      ("direct.pth", "upstream.pth", "imported.pth"))
+        params, state = to_jax_params(model)
+        save_checkpoint(direct, params=params, state=state, opt_state=None, step=TOOLS_STEP)
+        sd = TI.inverse_state_dict(model.state_dict(), cfg, phn_attr)
+        torch.save({"model": sd, "optimizer": {}, "global_step": TOOLS_STEP}, upstream)
+        del model
+        t0 = time.perf_counter()
+        IR.convert(config, upstream, imported)
+        import_s = time.perf_counter() - t0
+        if load_checkpoint(imported)["global_step"] != TOOLS_STEP:
+            raise SystemExit("chip_smoke: the imported checkpoint lost its step")
+        text, sid = serving_inputs(B, U, seed=3)
+        server = TTSServer.from_checkpoint(config, direct, device=dev)
+        want = server.synthesize(text, sid, key=5)
+        del server
+        gc.collect()
+        kernels.reset_launches()
+        server = TTSServer.from_checkpoint(config, imported, device=dev)
+        got = server.synthesize(text, sid, key=5)
+        served = kernels.launch_counts()
+        del server
+        gc.collect()
+        idle = [n for n in SERVING_KERNELS if served[n] == 0]
+        if idle or not np.array_equal(got, want):
+            raise SystemExit(f"chip_smoke: imported-checkpoint serving: kernels idle {idle}, "
+                             f"bit for bit {np.array_equal(got, want)}")
+        out["import"] = dict(upstream_tensors=len(sd), import_s=import_s, served=list(got.shape),
+                             bit_for_bit=True, launches=served)
+
+        acfg = GW.audio_config(config)
+        wav_dir = os.path.join(root, "wavs")
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = GW.vocode_dir(acfg, specs_dir, wav_dir, batch=16, device=dev, verbose=False)
+        tool_wall = time.perf_counter() - t0
+        tool_launches = kernels.launch_counts()
+        specs = sorted(os.path.basename(f).replace("-spec.npy", ".wav")
+                       for f in glob.glob(os.path.join(specs_dir, "*-spec.npy")))
+        if sorted(os.listdir(wav_dir)) != specs or len(written) != len(specs) or not specs:
+            raise SystemExit(f"chip_smoke: gen_wav_from_specgram wrote {sorted(os.listdir(wav_dir))}"
+                             f" for {specs}")
+        for f in written:
+            w, sr = wavio.read(f)
+            if sr != acfg.sample_rate or not np.isfinite(w).all():
+                raise SystemExit(f"chip_smoke: gen_wav_from_specgram wrote a bad {f}")
+        paths, batch = GW.batches(specs_dir, 16)[0]
+        kernels.reset_launches()
+        wavs, phases = GW.vocode(batch, acfg, torch.Generator(device=dev).manual_seed(0), dev)
+        per_batch = kernels.launch_counts()
+        geo = dict(n_fft=acfg.n_fft, hop=acfg.hop_length, win_length=acfg.win_length,
+                   preemphasis_coeff=acfg.preemphasis_coeff)
+        amp = linear_to_amp(torch.from_numpy(batch))
+        rounds = gl_rounds_check(amp.to(dev), phases, acfg)
+        with plain_griffin_lim():
+            plain = specgram_to_waveform(amp.to(dev), phases=phases, **geo).cpu()
+        cpu = specgram_to_waveform(amp, phases=phases.cpu(), **geo)
+        worst = max(rounds.values())
+        if not worst <= 1e-4 or not (per_batch["gl_project"] and per_batch["gl_ola_frame"]):
+            raise SystemExit(f"chip_smoke: gen_wav_from_specgram's batch: K4 against its plain "
+                             f"versions round by round {rounds}, launches {per_batch}")
+        out["gen_wav"] = dict(files=len(written), batches=len(GW.batches(specs_dir, 16)),
+                              wall_s=tool_wall, checked_batch=list(batch.shape),
+                              max_abs_err_by_round=rounds,
+                              rel_err_plain=float((wavs.cpu() - plain).abs().max()
+                                                  / plain.abs().max()),
+                              rel_err_cpu=float((wavs.cpu() - cpu).abs().max() / cpu.abs().max()),
+                              floor_share=float((batch <= 0).mean()),
+                              launches=tool_launches, launches_per_batch=per_batch)
+    return out
+
+
 def main():
     card = phase_device()
     from semi_tts_tpu_torch import kernels, use_fp32
@@ -3057,9 +3560,13 @@ def main():
     paired = phase_paired(dev)
     cycles = phase_cycles(dev)
     with tempfile.TemporaryDirectory() as keep:
-        asr_ckpt = os.path.join(keep, "cli_vqvae.pth")
-        cli = phase_cli({"paired": paired["wall_s"], **cycles["wall_s"]}, asr_ckpt)
+        asr_ckpt, specs = os.path.join(keep, "cli_vqvae.pth"), os.path.join(keep, "specs")
+        cli = phase_cli({"paired": paired["wall_s"], **cycles["wall_s"]}, asr_ckpt, specs)
+        print(json.dumps({"host_decoder": dict(cli["native_decoder"], card=card,
+                                               steady_step_wall_s=cli["steady_step_wall_s"])}),
+              flush=True)
         pretrain = phase_pretrain(card, asr_ckpt)
+        tools = phase_tools(specs, dev)
     time_seen_shapes(table, dev, seen_shapes)
     launches = {"serving request": serving["launches"], "ASR train step": training["launches"],
                 "paired train step": paired["launches"],
@@ -3068,7 +3575,10 @@ def main():
                 "CLI training": cli["launches"]["train"],
                 "CLI gen_specgram": cli["launches"]["gen_specgram"],
                 "text LM step": pretrain["text"]["launches"],
-                "speech LM step": pretrain["speech"]["launches"]}
+                "speech LM step": pretrain["speech"]["launches"],
+                "dev_audio": cli["launches"]["dev_audio"],
+                "imported-checkpoint serving": tools["import"]["launches"],
+                "gen_wav": tools["gen_wav"]["launches_per_batch"]}
     for row in table:
         per = ("serving request" if row["name"] in SERVING_KERNELS else
                "ASR train step" if row["name"] in TRAINING_KERNELS else
@@ -3083,6 +3593,7 @@ def main():
     print(json.dumps({"cycles": cycles}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"pretrain": pretrain}))
+    print(json.dumps({"tools": dict(tools, card=card)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

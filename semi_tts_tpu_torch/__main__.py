@@ -8,9 +8,10 @@ set_model -> exec``: the semi-supervised trainer by default,
 ``--gen-gt-specgram``, ``--asr-decode``, or the language-model
 pretraining of ``--pretrain-speech`` (``best_mel.pth``) and
 ``--pretrain-text`` (``best_acc.pth``). It runs on the card unless
-``--cpu`` is given. Reading the YAML needs PyYAML. Flags whose feature is
-not ported stop with the ROADMAP item that brings it: a non-empty
-``--mesh`` (A11) and ``--profile`` (A10).
+``--cpu`` is given. Reading the YAML needs PyYAML. ``--profile`` traces a
+window of training steps with `torch.profiler` into the run's log
+directory (``<logdir>/<name>/*.pt.trace.json``). A non-empty ``--mesh``
+stops with an error: meshes are not ported (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -22,8 +23,7 @@ import sys
 import numpy as np
 
 REFUSED = (("mesh", "--mesh: the port runs on one device; meshes are not ported yet "
-            "(ROADMAP A11)"),
-           ("profile", "--profile: the profiler window is not ported yet (ROADMAP A10)"))
+            "(ROADMAP A11)"),)
 
 
 def parser():
@@ -63,7 +63,8 @@ def parser():
     p.add_argument("--pretrain-text", action="store_true",
                    help="Pretrain the text LM (codebook table) -> best_acc.pth.")
     p.add_argument("--profile", action="store_true",
-                   help="Not ported (ROADMAP A10): stops with an error.")
+                   help="Trace a window of training steps with torch.profiler into the "
+                        "run's log directory.")
     p.add_argument("--mesh", default="", type=str,
                    help="Not ported (ROADMAP A11): a non-empty value stops with an error.")
     p.add_argument("--compile-cache", default="", type=str,

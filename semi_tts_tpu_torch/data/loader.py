@@ -6,8 +6,9 @@ device inside the train step. Waveform lengths are padded up to a small
 bucket grid and text lengths to a quantum, so a step sees few shapes. A
 background thread prefetches the next batches so host decoding overlaps
 the device. Batches stay numpy arrays on the host; the solver moves them
-to its device. Decoding uses `wavio` (the JAX package's native decoder
-pool is not ported).
+to its device. A batch is decoded by the native decoder's thread pool
+(`semi_tts_tpu_torch.native`); a file in a format it does not read goes
+through `wavio`.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from os.path import basename
 
 import numpy as np
 
+from .. import native
 from . import wavio
 
 SPEC_PAD_VALUE = 0.0
@@ -87,15 +89,30 @@ class TTSLoader:
                 return b
         return _round_up(n, self.bucket_samples[-1])
 
-    def _decode(self, path):
-        w, sr = wavio.read(path)
+    def _check_sr(self, path, sr):
         if sr != self.sr:
             raise ValueError(f"{path}: sample rate {sr}, expected {self.sr}")
-        return w[0]  # channel 0
+
+    def _decode_batch(self, fpaths):
+        """Channel 0 of each file, decoded by the native pool into rows of
+        the largest bucket's length; a row it could not decode (length -1)
+        is read with `wavio`."""
+        arr, lengths, srs = native.wav_read_batch(list(fpaths), self.bucket_samples[-1],
+                                                  channel=0, n_threads=4)
+        waves = []
+        for i, f in enumerate(fpaths):
+            if lengths[i] < 0:
+                w, sr = wavio.read(f)
+                self._check_sr(f, sr)
+                waves.append(w[0])
+            else:
+                self._check_sr(f, srs[i])
+                waves.append(arr[i, : lengths[i]])
+        return waves
 
     def _collate(self, items):
         fpaths, sids = zip(*items)
-        waves = [self._decode(f) for f in fpaths]
+        waves = self._decode_batch(fpaths)
         lens = [len(w) for w in waves]
         order = np.argsort(-np.asarray(lens), kind="stable")  # by length, descending
         waves = [waves[i] for i in order]

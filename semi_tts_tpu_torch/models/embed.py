@@ -89,6 +89,17 @@ def _full_table(cb: Codebook, cfg: CodebookConfig, phn_attr, *, detach=False):
     return table.detach() if detach else table
 
 
+def full_codebook_table(cb: Codebook, cfg: CodebookConfig, phn_attr=None):
+    """The whole embedding table (V, latent_dim), the learnable part and
+    the projected attributes, as the TensorBoard projector shows it."""
+    if cfg.bone == "l2":
+        return _full_table(cb, cfg, phn_attr)
+    emb = cb.embedding
+    if cfg.use_phn_attr:
+        emb = torch.cat([emb, linear(cb.proj_attr, phn_attr)], dim=-1)
+    return emb
+
+
 def codebook_forward(cb: Codebook, cfg: CodebookConfig, enc_embs, *, phn_attr=None,
                      first_n_real_mel: int = 0, train: bool = False, generator=None):
     """Encoder latents (B, S, D) -> (p_code (B, S, V), quantized (B, S, D)).

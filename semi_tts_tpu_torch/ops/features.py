@@ -22,7 +22,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import features as K5
-from .mel import mel_filterbank
+from .mel import mel_filterbank, mel_pinv
 from .stft import support_dft_basis, window_support
 
 GFL_ITER = 30  # Griffin-Lim iterations
@@ -173,8 +173,16 @@ class AudioFeaturizer:
         self.device = resolve_device(device)
         fb = mel_filterbank(c.sample_rate, c.n_fft, n_mels=c.num_mels)          # (M, F)
         self.mel_fb_t = torch.from_numpy(np.ascontiguousarray(fb.T)).to(self.device)  # (F, M)
+        self.mel_fb_pinv_t = torch.from_numpy(np.ascontiguousarray(mel_pinv(fb).T)).to(
+            self.device)  # (M, F)
         self._clean_geom = torch.tensor([c.hop_length, c.win_length], dtype=torch.int32,
                                         device=self.device)
+
+    def mel_to_linear_amp(self, mel_norm):
+        """Normalized mel (..., T, M) -> linear amplitude (..., T, F): back to
+        dB and to amplitude, then the mel filterbank's pseudo-inverse."""
+        amp = db_to_amp(denormalize_db(mel_norm) + REF_LEVEL_DB)
+        return amp @ self.mel_fb_pinv_t
 
     def _spectra(self, frames, frame_lengths, support, *, linear: bool):
         """Windowed frames -> (normalized mel, normalized linear or None)."""

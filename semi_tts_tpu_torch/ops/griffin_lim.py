@@ -19,6 +19,12 @@ from .features import GFL_ITER, inv_preemphasis
 from .stft import dft_basis, inv_dft_basis
 
 
+def random_phases(shape, generator=None, device=None):
+    """Initial phases U(-pi, pi) of ``shape``, drawn from ``generator``."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u * (2.0 * math.pi) - math.pi
+
+
 def griffin_lim(magnitude, generator=None, *, n_fft: int, hop: int, win_length: int,
                 n_iter: int = GFL_ITER, phases=None):
     """Reconstruct waveforms from amplitude spectrograms ``(..., T, F)``.
@@ -30,8 +36,7 @@ def griffin_lim(magnitude, generator=None, *, n_fft: int, hop: int, win_length: 
     """
     magnitude = magnitude.abs()
     if phases is None:
-        u = torch.rand(magnitude.shape, generator=generator, device=magnitude.device)
-        phases = u * (2.0 * math.pi) - math.pi
+        phases = random_phases(magnitude.shape, generator, magnitude.device)
     lead, (T, F_) = magnitude.shape[:-2], magnitude.shape[-2:]
     mag = magnitude.reshape(-1, T, F_).contiguous()
     ph = phases.reshape(-1, T, F_)

@@ -14,14 +14,15 @@ import json
 import math
 import os
 import sys
-import time
 
+import numpy as np
 import torch
 
 from ..bridge import to_jax_params
 from ..device import resolve_device
 from ..models import vqvae as V
 from ..utils.metrics import human_format, read_phn_attr
+from ..utils.timer import Timer
 from .checkpoint import optimizer_tree, save_checkpoint
 
 TB_FLUSH_FREQ = 180
@@ -73,6 +74,7 @@ class BaseSolver:
                 SummaryWriter = None
             if SummaryWriter is not None:
                 self.log = SummaryWriter(self.logdir, flush_secs=TB_FLUSH_FREQ)
+            self.timer = Timer()
             self.valid_step = config["hparas"]["valid_step"]
             self.max_step = config["hparas"]["max_step"]
 
@@ -134,19 +136,35 @@ class BaseSolver:
         sys.stdout.write("\033[K")
 
     def write_log(self, log_name, log_value):
-        """TensorBoard: names holding 'text' or 'hyp' log text, others a
-        dict of scalars (NaN and None dropped). Figures, audio and the
-        codebook projector (names holding align, spec, hist, code or wave)
-        are not ported (ROADMAP A10)."""
-        if any(k in log_name for k in ("align", "spec", "hist", "code", "wave")):
-            raise NotImplementedError(f"write_log({log_name!r}): figures, audio and the "
-                                      "projector are not ported yet (ROADMAP A10)")
+        """TensorBoard, routed by the name as the JAX solver routes it:
+        names holding align, spec or hist log an (image, data format) pair
+        as an image; code an (embedding matrix, labels) pair to the
+        projector; wave a (signal, sample rate) pair as audio (skipped
+        without the ``soundfile`` package, which tensorboardX's audio
+        needs); text or hyp a string; any other name a dict of scalars (NaN
+        and None dropped). Nothing is written without a writer."""
         if isinstance(log_value, dict):
             log_value = {k: float(v) for k, v in log_value.items()
                          if v is not None and not math.isnan(float(v))}
-        if self.log is None or log_value is None or len(log_value) == 0:
+        if self.log is None or log_value is None:
             return
-        if "text" in log_name or "hyp" in log_name:
+        if hasattr(log_value, "__len__") and len(log_value) == 0:
+            return
+        if "align" in log_name or "spec" in log_name or "hist" in log_name:
+            img, form = log_value
+            self.log.add_image(log_name, np.asarray(img), global_step=self.step, dataformats=form)
+        elif "code" in log_name:
+            self.log.add_embedding(np.asarray(log_value[0]), metadata=log_value[1],
+                                   tag=log_name, global_step=self.step)
+        elif "wave" in log_name:
+            try:
+                import soundfile  # noqa: F401
+            except ImportError:
+                return
+            signal, sr = log_value
+            self.log.add_audio(log_name, np.asarray(signal, np.float32).reshape(-1, 1),
+                               self.step, sr)
+        elif "text" in log_name or "hyp" in log_name:
             self.log.add_text(log_name, log_value, self.step)
         else:
             self.log.add_scalars(log_name, log_value, self.step)
@@ -164,24 +182,28 @@ class BaseSolver:
 
 
 class TrainLog:
-    """The trainers' ``log(step, name, value)`` into a solver: "group/key"
-    names go to ``write_log(group, {key: value})``, others to
-    ``write_log(name, {name: value})``; after a progress step's last
-    counter, one progress line with the step's logged values and the
-    seconds a step since the last one."""
+    """The trainers' ``log(step, name, value)`` into a solver. A number
+    logged as "group/key" goes to ``write_log(group, {key: value})``, under
+    another name to ``write_log(name, {name: value})``; any other value
+    (a dict of scalars, a figure, a wave, a text, the projector's table) to
+    ``write_log(name, value)``. After a progress step's last counter, one
+    progress line with the step's logged numbers and the solver's
+    ``timer.show()``."""
 
     def __init__(self, solver, last="counter/unp_txt"):
         self.solver, self.last = solver, last
-        self.values, self.mark = {}, (0, time.perf_counter())
+        self.values = {}
 
     def __call__(self, step, name, value):
         s = self.solver
         s.step = step
+        if not isinstance(value, (int, float, np.number)):
+            s.write_log(name, value)
+            return
         group, _, key = name.partition("/")
         s.write_log(group, {key or name: value})
         self.values[name] = value
         if name == self.last:
-            steps, t = step - self.mark[0], time.perf_counter()
             shown = " | ".join(f"{k} {v:.4g}" for k, v in self.values.items())
-            s.progress(f"Tr stat | {shown} | {(t - self.mark[1]) / max(steps, 1):.3f} sec/step")
-            self.values, self.mark = {}, (step, t)
+            s.progress(f"Tr stat | {shown} | {s.timer.show()}")
+            self.values = {}

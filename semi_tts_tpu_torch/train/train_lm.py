@@ -182,15 +182,21 @@ class LmSolver(VqvaeSolver):
 
     def exec(self):
         self.verbose(f"Total pretraining steps {human_format(self.max_step)} ({self.lm_mode} LM).")
+        self.timer.set()
         while self.step < self.max_step:
-            mets = self.train_step(next(self.train_iter))
+            batch = next(self.train_iter)
+            self.timer.cnt("rd")
+            mets = self.train_step(batch)
             self.step += 1
+            self.timer.cnt("fw")
+            self.timer.cnt("bw")
             if self.step == 1 or self.step % self._PROGRESS_STEP == 0:
                 loss = float(mets["total_loss"])
-                self.progress(f"LM({self.lm_mode}) | Loss - {loss:.3f}")
+                self.progress(f"LM({self.lm_mode}) | Loss - {loss:.3f} | {self.timer.show()}")
                 self.write_log("lm_loss", {"train": loss})
             if self.step == 1 or self.step % self.valid_step == 0:
                 self.validate()
+            self.timer.set()
         if self._last_valid_step != self.step:
             self.validate()  # the last step's: a checkpoint always exists
 

@@ -15,15 +15,27 @@ over the true encoder lengths. `validate` keeps the best dev TTS loss and
 PER and, given a ``save`` callback, writes the checkpoints of the JAX
 trainer's policy.
 
+With ``media`` (a TensorBoard writer exists) the loop also logs what the
+JAX trainer logs for a person to look at: at step 1 and every
+`ATTENTION_PLOT_STEP` steps the paired and unpaired PER, the token-usage
+bar chart and the attention alignments of `LISTEN_N_EXAMPLES` rows; at
+each validation the middle dev batch's hypotheses, predicted spectrograms
+and alignments, their Griffin-Lim audio on the device (K4) unless
+``store_best_per``, at step 1 the ground truth's too, and the codebook for
+the projector. A `Timer` splits each step's host wall into reading the
+batch and the step, without synchronising the card; ``profile_dir`` opens a
+`profile_trace` over the window of `profile_window`.
+
 `VqvaeSolver` is the CLI's solver around the loop (counterpart of the JAX
 `VqvaeTrainer` solver): ``load_data`` (the corpus's loaders, their batches
 moved to the device), ``set_model`` (the YAML config, the model with the
 ``pretrained_*`` grafts, the optimizer, the step builder, ``--load``) and
-``exec``. Left out (ROADMAP A10): TensorBoard figures, audio and the
-codebook projector, and the ``--profile`` window.
+``exec``; ``--profile`` traces into the run's log directory.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -32,13 +44,20 @@ from ..bridge import load_jax_params
 from ..data import load_dataset
 from ..data.loader import infinite
 from ..models import vqvae as V
+from ..models.embed import full_codebook_table
+from ..ops.features import linear_to_amp
+from ..ops.griffin_lim import random_phases, specgram_to_waveform
+from ..utils import viz
 from ..utils.metrics import cal_per, human_format
+from ..utils.timer import Timer, profile_trace, profile_window
 from .checkpoint import apply_pretrained, load_checkpoint, load_optimizer_tree
 from .optim import Optimizer, advance_lr_schedule, tf_rate_schedule
 from .solver import BaseSolver, DeviceBatches, TrainLog, to_device
 from .steps import StepBuilder, Weights, step_generator
 
 CKPT_STEP = 10000
+LISTEN_N_EXAMPLES = 6    # rows whose figures and audio are logged
+ATTENTION_PLOT_STEP = 500
 
 # (logged name, metric) after the first step and every progress step
 LOGGED = (("txt_loss/pair", "asr_loss"), ("speech_loss/pair", "tts_loss"),
@@ -60,11 +79,15 @@ class VqvaeTrainer:
     default 1.0). ``log`` receives (step, name, value). The loss weights and
     start steps are the builder's. ``save`` receives (file name, score) for
     each checkpoint `validate` writes; ``store_best_per`` keeps only the
-    best-PER checkpoints, as ``--store-best-per``."""
+    best-PER checkpoints, as ``--store-best-per``. ``media``: also log the
+    figures, samples and projector (see the module's docstring; needs
+    ``tokenizer``). ``timer``: the `Timer` of the progress line (a new one
+    by default). ``profile_dir``: trace `profile_window`'s steps there."""
 
     def __init__(self, model, builder, optimizer, *, pair_iter, dev_set, max_step: int,
                  valid_step: int, unpair_iter=None, progress_step: int = 20, seed: int = 0,
-                 tf_rate=None, log=None, save=None, store_best_per: bool = False):
+                 tf_rate=None, log=None, save=None, store_best_per: bool = False,
+                 media: bool = False, tokenizer=None, timer=None, profile_dir=None):
         self.model = model
         self.builder = builder
         self.optimizer = optimizer
@@ -82,10 +105,16 @@ class VqvaeTrainer:
         self.log = log or (lambda step, name, value: None)
         self.save = save or (lambda name, score: None)
         self.store_best_per = store_best_per
+        self.media, self.tokenizer = media, tokenizer
+        self.timer = timer or Timer()
+        self.profile_dir = profile_dir
         self.counters = dict.fromkeys(COUNTERS, 0)
-        self.token_usage = np.zeros(0, np.int64)  # predicted tokens of the kept speech cycles
-        self.text_usage = np.zeros(0, np.int64)   # their unpaired texts' tokens
+        # predicted tokens of the kept speech cycles and their unpaired texts' tokens,
+        # counted since the last token-usage chart
+        self.token_usage = np.zeros(0, np.int64)
+        self.text_usage = np.zeros(0, np.int64)
         self._pending = []  # per step: (kind, device tensors to read at the progress step)
+        self._unpair_align = None  # the last speech-first step's unpaired alignments
         self._step_fn = self._make_step()
         self._cycle_fns = self._make_cycles()
         self._eval_step = builder.make_eval_step()
@@ -123,30 +152,55 @@ class VqvaeTrainer:
         return self._cycle_fns[kind](*args, *unpaired)
 
     def exec(self):
+        prof = contextlib.ExitStack()
+        prof_start, prof_end = profile_window(self.step, self.max_step)
+        self.timer.set()
         while self.step < self.max_step:
+            if self.profile_dir is not None:
+                if self.step == prof_start:
+                    prof.enter_context(profile_trace(self.profile_dir))
+                elif self.step == prof_end:
+                    prof.close()
             batch = next(self.pair_iter)
             kind = self.step_kind()
             unpaired = None if kind == PAIRED else next(self.unpair_iter)
+            self.timer.cnt("rd")
             mets = self._train_step(batch, unpaired)
             if kind == SPEECH_FIRST:
                 self._pending.append((kind, (mets["unpair_ok"], mets["unpair_pred"],
                                              mets["unpair_pred_len"], unpaired[2])))
+                self._unpair_align = mets["unpair_align"]
             elif kind == TEXT_FIRST:
                 self._pending.append((kind, (mets["ctc_nan"],)))
             self.step += 1
+            self.timer.cnt("fw")
+            self.timer.cnt("bw")
             if self.step == 1 or self.step % self.progress_step == 0:
-                self._progress(mets)
+                self._progress(mets, batch)
             if self.step == 1 or self.step % self.valid_step == 0:
                 self.validate()
+            self.timer.set()
+        prof.close()  # a window still open at max_step
 
-    def _progress(self, mets):
+    def _progress(self, mets, batch):
         """One transfer of the buffered flags and the logged metrics to the
-        host; updates and logs the counters, then resets them."""
+        host (with `media`, at step 1 and every `ATTENTION_PLOT_STEP` steps,
+        also what the plots need); updates and logs the counters, then
+        resets them."""
         logged = [(name, key) for name, key in LOGGED if key in mets]
+        plot = (self.media and "pair_align" in mets
+                and (self.step == 1 or self.step % ATTENTION_PLOT_STEP == 0))
         tensors = [mets[key] for _, key in logged] + [mets["total_loss"]]
         tensors += [t for _, flags in self._pending for t in flags]
+        n_flags = len(tensors)
+        if plot:
+            tensors += [mets["pair_pred"], mets["pair_pred_len"], batch[2], mets["pair_align"]]
+            if self._unpair_align is not None:
+                tensors.append(self._unpair_align)
         host = self._read(tensors)
-        values, total, flags = host[:len(logged)], host[len(logged)], host[len(logged) + 1:]
+        values, total = host[:len(logged)], host[len(logged)]
+        flags, plotted = host[len(logged) + 1:n_flags], host[n_flags:]
+        last_unpaired = None
         for kind, entry in self._pending:
             n = len(entry)
             got, flags = flags[:n], flags[n:]
@@ -159,6 +213,8 @@ class VqvaeTrainer:
                 kept = np.concatenate([pred[b, :int(plen[b])] for b in range(pred.shape[0])])
                 self.token_usage = _add_counts(self.token_usage, kept)
                 self.text_usage = _add_counts(self.text_usage, utext.reshape(-1))
+            if kind == SPEECH_FIRST:
+                last_unpaired = got
         self._pending = []
         if not np.isfinite(total.item()):
             self.counters["ctc_nan"] += 1  # a non-finite step (its update was skipped)
@@ -167,6 +223,31 @@ class VqvaeTrainer:
         for k in COUNTERS:
             self.log(self.step, "counter/" + k, self.counters[k])
             self.counters[k] = 0
+        if plot:
+            self._plots(mets, plotted, last_unpaired)
+
+    def _plots(self, mets, host, last_unpaired):
+        """The JAX trainer's logs of an attention-plot step: the paired and
+        (after a speech-first step with counted tokens) unpaired PER, the
+        token-usage chart since the last one, and the alignments."""
+        pred, plen, text, align = host[:4]
+        unp_per = None
+        if self.token_usage.sum() > 0 and "unpair_pred" in mets and last_unpaired is not None:
+            _, u_pred, u_plen, u_text = last_unpaired
+            unp_per = cal_per(u_pred, u_text, pred_lens=u_plen)
+        self.log(self.step, "per", {"pair": cal_per(pred, text, pred_lens=plen),
+                                    "unpair": unp_per})
+        bar = viz.data_to_bar(self.token_usage, self.text_usage, self.tokenizer.vocab_size,
+                              self.tokenizer._vocab_list)
+        if bar is not None:
+            self.log(self.step, "unpair_hist", bar)
+        u_align = host[4] if len(host) > 4 else None
+        for i in range(min(LISTEN_N_EXAMPLES, align.shape[0])):
+            self.log(self.step, f"pair_align{i}", viz.feat_to_fig(align[i]))
+            if u_align is not None and i < u_align.shape[0]:
+                self.log(self.step, f"unpair_align{i}", viz.feat_to_fig(u_align[i]))
+        self.token_usage = np.zeros(0, np.int64)
+        self.text_usage = np.zeros(0, np.int64)
 
     @staticmethod
     def _read(tensors):
@@ -186,9 +267,12 @@ class VqvaeTrainer:
 
     def validate(self):
         """Mean TTS loss and phone error rate over the dev set; keeps the
-        best of each and writes the checkpoints of `keep_best`. Returns
-        (dev_tts_loss, dev_per)."""
+        best of each and writes the checkpoints of `keep_best`; with
+        `media`, logs the middle dev batch's samples (`_log_samples`).
+        Returns (dev_tts_loss, dev_per)."""
         tts, pers, post_pers = [], [], []
+        sample = None
+        n_batches = len(self.dev_set)
         for i, (waves, wave_len, text, sid) in enumerate(self.dev_set):
             out = self._eval(i, waves, wave_len, text, sid)
             truth, lens = np.asarray(text.cpu()), out["enc_len"].cpu().numpy()
@@ -196,12 +280,74 @@ class VqvaeTrainer:
             if out["post_prob"] is not None:
                 post_pers.append(cal_per(out["post_prob"].cpu().numpy(), truth, pred_lens=lens))
             tts.append(float(out["tts_loss"]))
+            if i == n_batches // 2:
+                sample = (out, truth)
         dev_tts = sum(tts) / max(len(tts), 1)
         dev_per = sum(pers) / max(len(pers), 1)
-        self.keep_best(dev_tts, dev_per, sum(post_pers) / len(post_pers) if post_pers else None)
+        dev_post = sum(post_pers) / len(post_pers) if post_pers else None
+        self.keep_best(dev_tts, dev_per, dev_post)
+        if self.media and sample is not None:
+            self._log_samples(*sample)
         self.log(self.step, "speech_loss/dev", dev_tts)
         self.log(self.step, "per/dev", dev_per)
+        if dev_post is not None:
+            self.log(self.step, "per/dev_post", dev_post)
+        if self.media:
+            table = full_codebook_table(self.model.codebook, self.builder.cfg.codebook,
+                                        self.builder.phn_attr)
+            self.log(self.step, "codebook", (table.detach().cpu().numpy(),
+                                             self.tokenizer._vocab_list))
         return dev_tts, dev_per
+
+    def _log_samples(self, out, truth):
+        """The first `LISTEN_N_EXAMPLES` rows of a dev batch's eval step:
+        hypotheses, predicted mel and linear spectrograms and alignments;
+        unless ``store_best_per``, their Griffin-Lim audio, and at step 1
+        the true texts, spectrograms and audio."""
+        n = LISTEN_N_EXAMPLES
+        mel_d, lin_d = out["mel_pred"][:n], out["lin_pred"]
+        lin_d = None if lin_d is None else lin_d[:n]
+        mel_p, align_p = mel_d.cpu().numpy(), out["align"][:n].cpu().numpy()
+        lin_p = None if lin_d is None else lin_d.cpu().numpy()
+        hyp = out["p_code"][:n].argmax(-1).cpu().numpy()
+        for i in range(len(mel_p)):
+            self.log(self.step, f"hyp_text{i}", self.tokenizer.decode(hyp[i].tolist()))
+            self.log(self.step, f"mel_spec{i}", viz.feat_to_fig(mel_p[i]))
+            if lin_p is not None:
+                self.log(self.step, f"linear_spec{i}", viz.feat_to_fig(lin_p[i]))
+            self.log(self.step, f"dv_align{i}", viz.feat_to_fig(align_p[i]))
+        if self.store_best_per:
+            return
+        g = step_generator(self.seed + 2, self.step, mel_d.device)
+        self._log_waves("mel_wave", mel_d, g, is_mel=True)
+        if lin_d is not None:
+            self._log_waves("linear_wave", lin_d, g, is_mel=False)
+        if self.step == 1:
+            mel_t, lin_t = out["mel"][:n], out["linear"]
+            for i, txt in enumerate(truth[:n]):
+                self.log(self.step, f"truth_text{i}", self.tokenizer.decode(txt.tolist()))
+                self.log(self.step, f"mel_spec{i}_gt", viz.feat_to_fig(mel_t[i].cpu().numpy()))
+                if lin_t is not None:
+                    self.log(self.step, f"linear_spec{i}_gt",
+                             viz.feat_to_fig(lin_t[i].cpu().numpy()))
+            self._log_waves("mel_wave", mel_t, g, is_mel=True, suffix="_gt")
+            if lin_t is not None:
+                self._log_waves("linear_wave", lin_t[:n], g, is_mel=False, suffix="_gt")
+
+    def _log_waves(self, name, feats, generator, *, is_mel, suffix=""):
+        """Batched Griffin-Lim on the device of normalized mel or linear
+        spectrograms (B, T, D), its initial phases drawn from
+        ``generator``; logs each row's wave as ``{name}{i}{suffix}``."""
+        feat = self.builder.feat
+        a = feat.cfg
+        amp = feat.mel_to_linear_amp(feats) if is_mel else linear_to_amp(feats)
+        phases = random_phases(amp.shape, generator, amp.device)
+        wavs = specgram_to_waveform(amp, n_fft=a.n_fft, hop=a.hop_length,
+                                    win_length=a.win_length,
+                                    preemphasis_coeff=a.preemphasis_coeff,
+                                    phases=phases).cpu().numpy()
+        for i, w in enumerate(wavs):
+            self.log(self.step, f"{name}{i}{suffix}", (w, a.sample_rate))
 
     def keep_best(self, dev_tts, dev_per, dev_post_per=None):
         """The JAX trainer's checkpoint policy. By default: ``tts_{step}``
@@ -309,7 +455,9 @@ class VqvaeSolver(BaseSolver):
             tf_rate=tf_rate_schedule(h.get("tf_start", 1.0), h.get("tf_end", 1.0),
                                      h.get("tf_step", 1)),
             log=TrainLog(self), save=self.save,
-            store_best_per=getattr(self.paras, "store_best_per", False))
+            store_best_per=getattr(self.paras, "store_best_per", False),
+            media=self.log is not None, tokenizer=self.tokenizer, timer=self.timer,
+            profile_dir=self.logdir if getattr(self.paras, "profile", False) else None)
         if self.paras.load:
             self.load(self.paras.load)
 
@@ -338,4 +486,7 @@ class VqvaeSolver(BaseSolver):
 
     def exec(self):
         self.verbose(f"Total training steps {human_format(self.max_step)}.")
+        if self.trainer.profile_dir is not None:
+            first, end = profile_window(self.trainer.step, self.max_step)
+            self.verbose(f"Profiling steps {first}..{end} -> {self.logdir}")
         self.trainer.exec()

@@ -1,6 +1,7 @@
 """Phonological attribute table reader and the phone error rate
 (counterpart of `semi_tts_tpu/utils/metrics.py` `read_phn_attr`, `cal_per`
-and its edit distance); the table is read with the `csv` module."""
+and its edit distance, which runs in the port's native code); the table is
+read with the `csv` module."""
 
 from __future__ import annotations
 
@@ -29,23 +30,11 @@ IGNORE_INDICES = (0, 1, 2, 42)  # pad, space, eos and the last token: not scored
 
 
 def edit_distance(a, b) -> int:
-    """Levenshtein distance of two sequences (numpy dynamic programme)."""
-    a, b = list(a), list(b)
-    if len(a) < len(b):
-        a, b = b, a
-    if not b:
-        return len(a)
-    prev = np.arange(len(b) + 1)
-    for i, ca in enumerate(a, 1):
-        cur = np.empty(len(b) + 1, np.int64)
-        cur[0] = i
-        sub = prev[:-1] + (np.asarray(b) != ca)
-        np.minimum(sub, prev[1:] + 1, out=cur[1:])
-        for j in range(1, len(b) + 1):  # carry insertions left to right
-            if cur[j - 1] + 1 < cur[j]:
-                cur[j] = cur[j - 1] + 1
-        prev = cur
-    return int(prev[-1])
+    """Levenshtein distance of two token sequences (the native
+    `stt_edit_distance`)."""
+    from .. import native
+
+    return native.edit_distance(list(a), list(b))
 
 
 def cal_per(pred, truth, ignore=IGNORE_INDICES, pred_lens=None) -> float:

@@ -320,6 +320,8 @@ def test_port_imports_no_jax_pandas_or_module_level_yaml():
         for name, funcs in _imports(tree):
             assert name not in FORBIDDEN, f"{path} imports {name}"
             if name == "yaml":
-                # read where a YAML config is: the server's checkpoint loader, the CLI's main
-                where = ["main"] if path.endswith("__main__.py") else ["from_checkpoint"]
+                # read where a YAML config is: the server's checkpoint loader, the CLI's
+                # and the command-line tools' main
+                where = (["main"] if path.endswith("__main__.py") or "util_cli" in path
+                         else ["from_checkpoint"])
                 assert funcs == where, f"{path} imports yaml outside {where[0]}"
