@@ -85,8 +85,11 @@ Phases, each fatal on failure:
    `graph_check` of each cycle; a speech-first step whose unpaired
    utterance is 15.28 s long, through its CUDA graph, so that K3 and K9 run
    at L ~ 680; and the speech-first step at the flagship partition table's
-   most frequent batch shapes (`corpus_shapes`): eager, capture and replay
-   times and the card's memory after each capture;
+   CORPUS_SHAPES most frequent batch shapes (`corpus_shapes`): eager, capture
+   and replay times, what each capture cost the card (the allocator's pool
+   and the card outside it) and its memory after each capture; under a
+   budget of BUDGET_GRAPHS graphs the next shape runs eagerly, bit for bit
+   its eager twin, and nothing is evicted;
 8. the CLI's solvers at the same width (`phase_cli`), on a synthetic
    corpus written here from a seeded numpy generator (16 paired, 16
    unpaired, 8 dev and 8 test utterances of 2-4 s, a partition table and a
@@ -112,14 +115,23 @@ Phases, each fatal on failure:
    ``--profile``: 8 paired steps on one batch whose window (steps 4-7)
    covers graph replays; the trace in the log directory must name K3 and
    K9. The native decoder reads the corpus bit for bit as `wavio` does,
-   timed beside it (the ``host_decoder`` line);
+   timed beside it (the ``host_decoder`` line). The eval step and the dev
+   audio are programs of the trainer's graph owner: the third validation
+   must replay them (no wrapper launches), a profiled one must run their
+   kernels by name, and the eval step (two dev batch shapes) and the
+   featurizer are held to their eager twins bit for bit (`program_check`);
+   gen_specgram's second and third passes (capture, replay) write the
+   first's files byte for byte;
 9. LM pretraining at the same width on that corpus (`phase_pretrain`):
    ``--pretrain-text`` and ``--pretrain-speech`` through `TextLmSolver` and
    `AudioLmSolver`, 4 steps each validated every 2, each writing its
-   checkpoint; the launches of one step of each (the text LM: K1 with cell
-   states and K7 once each, one direction; the audio LM: K5, K2 and K8 and
-   no K3 or K9), their walls, peak memory and a profiled step; one step of
-   each on the card against the CPU plain path (every dropout 0); then both
+   checkpoint; the launches of the first step of each (eager; the text LM:
+   K1 with cell states and K7 once each, one direction; the audio LM: K5,
+   K2 and K8 and no K3 or K9); `lm_programs`: each step program held to
+   its eager twin (`graph_check`), its replay's wall and a profiled replay
+   (the same kernels by name), the dev loss's program held to its eager
+   twin, the graphs' bytes; one step of each on the card against the CPU
+   plain path (every dropout 0); then both
    checkpoints and phase 8's checkpoint (as ``pretrained_asr``) grafted
    into a `VqvaeSolver`: every grafted leaf and the postnet's BatchNorm
    statistics equal the files' bit for bit, the TTS text encoder a cold
@@ -129,9 +141,11 @@ Phases, each fatal on failure:
    upstream-layout ``.pth`` goes through ``util_cli.import_reference_ckpt``
    and is served (B=16 x U=32) bit for bit as the same weights loaded
    directly, K1-K4 launched; ``util_cli.gen_wav_from_specgram`` vocodes
-   phase 8's spectrograms, one batch's K4 outputs held to their plain
-   versions at every Griffin-Lim round (1e-4), the whole batch's distance
-   to the plain Griffin-Lim on the card and on the CPU reported.
+   phase 8's spectrograms through the Griffin-Lim program, which is held
+   to its eager twin at two batch shapes (`program_check`), one batch's K4
+   outputs held to their plain versions at every Griffin-Lim round (1e-4),
+   the whole batch's distance to the plain Griffin-Lim on the card and on
+   the CPU reported.
 
 The server and the train steps run as CUDA graphs (`semi_tts_tpu_torch.graphs`):
 each path's line gives the graphed and eager walls (``wall_s``,
@@ -166,9 +180,11 @@ lengths 1 and 2 of an all-pad or one-token request. A row's ``launches`` counts 
 kernel's runs in one profiled replay of a serving request (K1-K4), an ASR
 train step (K5-K7, K1 with cell states), a paired train step (K8, K9) or
 a speech-first step (B6), as its ``launches_per`` says;
-``launches_by_path`` has every path: the CLI's training as one replay of
-each step kind, and its eager paths (gen_specgram, the two LM steps) by the
-wrappers' counters over one call. K1 with cell states and K7 are also held and timed at the
+``launches_by_path`` has every path, each counted by name in one profiled
+replay: the CLI's training as one replay of each step kind, its
+validation, a gen_specgram pass, the eval step, the featurizer,
+Griffin-Lim, the two LM steps and their dev losses; the offline vocoder's
+batch by the wrappers' counters over its first (eager) call. K1 with cell states and K7 are also held and timed at the
 text LM's one-direction shape, K2 and K8 at one direction and H=128
 (``ms_by_shape``, beside cuDNN's unidirectional LSTM and GRU in
 ``library_ms_by_shape``).
@@ -189,6 +205,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import filecmp
 import functools
 import gc
 import glob
@@ -1912,11 +1929,31 @@ def kernels_seen(by_name):
             for w, pat in KERNEL_NAMES.items()}
 
 
+UNSEEN = []  # kernels a profiled replay did not show, by path: fatal at the end of the run
+
+
 def require_seen(seen, names, what):
-    """Raise unless every kernel of ``names`` ran in a profiled replay."""
+    """Record every kernel of ``names`` that did not run in a profiled
+    replay; `main` fails the run at its end if any did not, after every
+    phase has run and printed what it saw."""
     idle = [n for n in names if not seen[n]]
     if idle:
-        raise SystemExit(f"chip_smoke: kernels not seen in a profiled replay of the {what}: {idle}")
+        print(f"chip_smoke: kernels not seen in a profiled replay of the {what}: {idle}",
+              flush=True)
+        UNSEEN.append([what, idle])
+
+
+PROFILE_LEAD = 256  # spin kernels launched in a profile before the profiled call
+
+
+def _lead_in():
+    """PROFILE_LEAD short spin kernels, synchronised: the device records a
+    profile drops first (seen on the card: a replay's first kernels, and all
+    of a short replay's, went missing after earlier profiles) are these,
+    and `profiled_step` leaves them out by name."""
+    for _ in range(PROFILE_LEAD):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
 
 
 def profiled_step(run_step, wall, picked=()):
@@ -1929,20 +1966,23 @@ def profiled_step(run_step, wall, picked=()):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _lead_in()
         t0 = time.perf_counter()
         run_step()
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
-    by_name = {}
+    by_name, lead = {}, 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name:
+            lead += 1
+        elif e.device_type == DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:16]
     return {"profiled_wall_s": profiled_wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
             "kernel_launches": sum(n for n, _ in by_name.values()),
-            "kernels_seen": kernels_seen(by_name),
+            "lead_in_recorded": lead, "kernels_seen": kernels_seen(by_name),
             "top_device_ms": [[name[:70], n, us / 1e3] for name, (n, us) in top],
             "picked_ms": {p: [sum(n for k, (n, _) in by_name.items() if p in k),
                               sum(us for k, (_, us) in by_name.items() if p in k) / 1e3]
@@ -2051,6 +2091,93 @@ def graph_check(model, opt, make, call, step0):
 def step_graphs(step):
     """Capture time and host launches of each graph a step program holds."""
     return [graph_stats(p) for p in step.programs()]
+
+
+def tree_equal(a, b):
+    """Equal pytrees of tensors, bit for bit (None where both are None)."""
+    from torch.utils import _pytree as pytree
+
+    la, sa = pytree.tree_flatten(a)
+    lb, sb = pytree.tree_flatten(b)
+    return sa == sb and all((x is None and y is None) or torch.equal(x, y)
+                            for x, y in zip(la, lb))
+
+
+def shapes_of(args):
+    return [list(t.shape) for t in args if isinstance(t, torch.Tensor)]
+
+
+def timed_wall(fn, reps):
+    """Median host wall of ``reps`` synchronised calls of ``fn``."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls))
+
+
+PROGRAM_REPS = 5  # timed replays of a no-grad program (3 eager calls beside them)
+
+
+def other_inputs(args):
+    """Inputs of the same shapes and dtypes with other values: every tensor's
+    rows in reverse order, floating tensors also scaled by 0.9."""
+    def other(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        t = t.flip(0)
+        return t * 0.9 if t.is_floating_point() else t
+    return tuple(other(t) for t in args)
+
+
+def program_check(prog, calls, what, kernels, seed=11):
+    """A `graphs.NoGradProgram`'s CUDA graph against its eager twin: at each
+    of ``calls`` (``(args, static)`` pairs, one batch shape each) the graph,
+    captured at its first call, and ``prog.eager`` on the same inputs and
+    seed give outputs equal bit for bit, on the captured inputs and then on
+    others of the same shapes (`other_inputs`: a replay must read its new
+    inputs), and a replay on the first inputs repeats its outputs; the
+    capture's bytes (`GraphOwner.graph_bytes`: the allocator's pool and the
+    card outside it) and time. At the first call's shape: the replay's and
+    the eager call's walls, a profiled replay (busy, idle, device events;
+    ``kernels`` must run in it, by name) and a profiled eager call."""
+    prog.capture_at = 1
+    owner = prog.owner(next(t.device for t in calls[0][0] if isinstance(t, torch.Tensor)))
+    rows = []
+    for args, static in calls:
+        n = len(owner.graph_bytes)
+        got = prog(*args, seed=seed, **static)
+        want = prog.eager(*args, seed=seed, **static)
+        args_b = other_inputs(args)
+        got_b = prog(*args_b, seed=seed + 1, **static)
+        want_b = prog.eager(*args_b, seed=seed + 1, **static)
+        again = prog(*args, seed=seed, **static)
+        same = tree_equal(got, want) and tree_equal(got_b, want_b)
+        repeat = tree_equal(got, again)
+        rows.append(dict(shapes=shapes_of(args), static={k: v for k, v in static.items()
+                                                         if isinstance(v, (int, float))},
+                         bit_for_bit=same, rerun_bit_for_bit=repeat,
+                         other_inputs_differ=not tree_equal(got, got_b),
+                         graph_bytes=owner.graph_bytes[n] if len(owner.graph_bytes) > n else None,
+                         **graph_stats(prog.programs()[-1])))
+        if not (same and repeat):
+            raise SystemExit(f"chip_smoke: the {what} program's graph and its eager twin "
+                             f"disagree: {rows}")
+    args, static = calls[0]
+    graphed = lambda: prog(*args, seed=seed, **static)
+    eager = lambda: prog.eager(*args, seed=seed, **static)
+    wall, eager_wall = timed_wall(graphed, PROGRAM_REPS), timed_wall(eager, 3)
+    replay, eager_prof = profiled_step(graphed, wall), profiled_step(eager, eager_wall)
+    require_seen(replay["kernels_seen"], kernels, f"{what} program")
+    return dict(calls=rows, wall_s=wall, eager_wall_s=eager_wall,
+                busy_s=replay["device_busy_s"], idle_share=replay["idle_share"],
+                device_events=replay["kernel_launches"],
+                eager_busy_s=eager_prof["device_busy_s"], eager_idle_share=eager_prof["idle_share"],
+                eager_device_events=eager_prof["kernel_launches"],
+                launches=replay["kernels_seen"], top_device_ms=replay["top_device_ms"])
 
 
 def training_reference(model, cfg, phn_attr, dev):
@@ -2561,42 +2688,82 @@ def long_memory_step(trainer, dev):
 
 LONG_KERNELS = ("attention_step", "attention_step_bwd", "trim_merge", "trim_merge_bwd")
 CORPUS_TABLE = "data/partition_tables/semi-multi-spkr-sd0.csv"  # the flagship's
-CORPUS_SHAPES = 4  # its most frequent speech-first shapes, timed and captured
+CORPUS_SHAPES = 8  # its most frequent speech-first shapes, captured, their bytes a graph read
+BUDGET_GRAPHS = 2  # the budget of the demonstration: the next shape must run eagerly
 
 
 def corpus_shapes(trainer, dev):
     """The speech-first step at the CORPUS_SHAPES shapes that the flagship's
     partition table gives most often (`data/step_shapes.py` over 20,000
     steps: (wave, text) of the paired and the unpaired batch), through a
-    fresh step program with the default policy that shares the trainer's
-    graph pool: each shape's first call (eager), second (capture and
-    replay) and third (replay), timed, and the memory after each shape's
-    capture (the first row: before any). The losses must be finite."""
+    fresh step program of the default policy on a `GraphOwner` of its own:
+    each shape's first call (eager), second (capture and replay) and third
+    (replay), timed, with what each capture cost the card (``graph_bytes``:
+    the allocator's pool and the card outside it) and the memory after it
+    (the first row: before any). The budget: once BUDGET_GRAPHS shapes are
+    captured, the owner's budget is set to what they cost, and the next
+    shape's second call must run eagerly (``over_budget_calls``), equal bit
+    for bit (metrics and state) to its eager twin from a copy of the state,
+    with nothing evicted; then the budget is lifted and its third call
+    captures. The losses must be finite."""
     from collections import Counter
 
     from semi_tts_tpu_torch.data.step_shapes import step_keys
+    from semi_tts_tpu_torch.graphs import GraphOwner
 
     keys = step_keys(os.path.join(HERE, CORPUS_TABLE), 20_000)
     count = Counter(k for kind, k in keys if kind == SPEECH_FIRST)
-    step = trainer.builder.make_speech_first_step(trainer.optimizer, seed=1)
-    rows = [memory_now()]
+    owner = GraphOwner(dev)
+    default_budget = owner.budget_bytes
+    builder, model = trainer.builder, trainer.model
+    step = builder.make_speech_first_step(trainer.optimizer, seed=1)
+    step.owner = lambda device: owner
+    rows, budget = [memory_now()], None
+
+    def timed(call, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mets = step(model, 2 + 2 * call, 1.0, *args)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(v)) for k, v in mets.items() if k.endswith("_loss")):
+            raise SystemExit(f"chip_smoke: a corpus-shape step went non-finite: {mets}")
+        return mets, time.perf_counter() - t0
+
     for n, (((pw, pt), (uw, ut)), times_seen) in enumerate(count.most_common(CORPUS_SHAPES)):
-        pair = training_batch(30 + n, dev, lengths=(pw,) * TRAIN_B, U_=pt)
-        unpair = training_batch(40 + n, dev, lengths=(uw,) * TRAIN_B, U_=ut)
-        walls = []
-        for call in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mets = step(trainer.model, 2 + 2 * call, 1.0, *pair, *unpair)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            if not all(bool(torch.isfinite(v)) for k, v in mets.items() if k.endswith("_loss")):
-                raise SystemExit(f"chip_smoke: a corpus-shape step went non-finite: {mets}")
+        args = (*training_batch(30 + n, dev, lengths=(pw,) * TRAIN_B, U_=pt),
+                *training_batch(40 + n, dev, lengths=(uw,) * TRAIN_B, U_=ut))
+        walls = [timed(0, *args)[1]]
+        if n == BUDGET_GRAPHS:
+            owner.budget_bytes = owner.spent()
+            before, graphs = list(step.programs()), len(owner.graph_bytes)
+            twin_model, twin_opt = copy.deepcopy((model, trainer.optimizer))
+            twin = builder.make_speech_first_step(twin_opt, seed=1)
+            got, wall = timed(1, *args)
+            want = twin.eager(twin_model, 4, 1.0, *args)
+            equal = tree_equal(got, want) and all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(model_state(model, trainer.optimizer),
+                                                            model_state(twin_model, twin_opt)))
+            budget = dict(budget_bytes=owner.budget_bytes, over_budget_calls=owner.over_budget_calls,
+                          eager_wall_s=wall, bit_for_bit=equal,
+                          evicted=[p for p in before if p not in step.programs()],
+                          captured=len(owner.graph_bytes) - graphs)
+            del twin_model, twin_opt, twin, want
+            if not (equal and owner.over_budget_calls == 1 and not budget["evicted"]
+                    and not budget["captured"] and len(step.programs()) == BUDGET_GRAPHS):
+                raise SystemExit(f"chip_smoke: past the budget, the shape {n} did not run "
+                                 f"eagerly as its twin: {budget}")
+            owner.budget_bytes = default_budget
+        walls += [timed(call, *args)[1] for call in (1, 2)]
         rows.append(dict(memory_now(), shape=[[pw, pt], [uw, ut]],
                          share_of_steps=times_seen / sum(count.values()), eager_s=walls[0],
                          capture_call_s=walls[1], capture_s=graph_stats(step.programs()[-1])["capture_s"],
-                         replay_s=walls[2], graphs=len(step.programs())))
-    return rows
+                         replay_s=walls[2], graph_bytes=owner.graph_bytes[-1],
+                         graphs=len(step.programs())))
+    per_graph = [r["graph_bytes"] for r in rows[1:]]
+    return dict(shapes=rows, budget=budget, default_budget_bytes=default_budget,
+                graph_bytes_total=owner.spent(),
+                pool_bytes_median=float(np.median([b["pool"] for b in per_graph])),
+                outside_bytes_median=float(np.median([b["outside"] for b in per_graph])))
 
 
 # phase 8, the CLI's solvers: a corpus of CLI_SPLITS utterances of 2-4 s
@@ -2776,7 +2943,9 @@ def media_stand_ins(figure_inputs):
 
 def check_media(writer, validations, figure_inputs, steps):
     """Raise unless step 1 and every validation logged the JAX trainer's
-    tags and K4 launched in each validation; returns the missing tags (none)."""
+    tags and K4 launched in each validation whose Griffin-Lim program held
+    no graph before it (one that did replays K4); returns the missing tags
+    (none)."""
     missing = {}
     for st in steps:
         want = VALID_TAGS | ((STEP1_TAGS | GT_TAGS) if st == 1 else set())
@@ -2785,7 +2954,8 @@ def check_media(writer, validations, figure_inputs, steps):
             missing[st] = lost
     if missing:
         raise SystemExit(f"chip_smoke: the CLI's run did not log {missing}")
-    idle = [v for v in validations if not (v["gl_project"] and v["gl_ola_frame"])]
+    idle = [v for v in validations if not (v["gl_project"] and v["gl_ola_frame"])
+            and v["graphs_before"][1] < 1]
     if idle or not validations:
         raise SystemExit(f"chip_smoke: K4 did not launch in a validation: {validations}")
     bad = [f for f in figure_inputs if f[0] == "feat_to_fig" and not f[2]]
@@ -2795,11 +2965,15 @@ def check_media(writer, validations, figure_inputs, steps):
 
 def dev_audio_check(rec):
     """The first dev wave batch the trainer vocoded on the card against the
-    plain Griffin-Lim on the CPU, same amplitudes and phases: the largest
-    difference over the largest sample (the serving gate: 1e-3)."""
-    from semi_tts_tpu_torch.ops.griffin_lim import specgram_to_waveform
+    plain Griffin-Lim on the CPU, same amplitudes and phases (those the
+    program drew from its generator reseeded with the call's seed): the
+    largest difference over the largest sample (the serving gate: 1e-3)."""
+    from semi_tts_tpu_torch.ops.griffin_lim import random_phases, specgram_to_waveform
 
-    want = specgram_to_waveform(rec["amp"].cpu(), phases=rec["phases"].cpu(), **rec["kw"])
+    amp = rec["amp"]
+    phases = random_phases(amp.shape, torch.Generator(device=amp.device).manual_seed(rec["seed"]),
+                           amp.device)
+    want = specgram_to_waveform(amp.cpu(), phases=phases.cpu(), **rec["kw"])
     got = rec["out"].cpu()
     err = float((got - want).abs().max() / want.abs().max())
     if not err <= 1e-3:
@@ -2921,17 +3095,26 @@ def phase_cli(bare_walls, keep, keep_specs):
     The training solver logs to a `RecordingWriter` (with `media_stand_ins`),
     so the JAX trainer's figures, dev audio and projector run on the card
     whatever is installed: step 1 and every validation must log their tags
-    (`check_media`), K4 must launch in each validation, and the first dev
-    wave batch must match the plain Griffin-Lim on the CPU (`dev_audio_check`).
-    After the steady steps, one validation with and one without the writer
-    are timed (no checkpoint written), then ``--profile`` (`profile_run`) and
-    the native decoder (`native_decode_check`)."""
+    (`check_media`), K4 must launch in each validation that does not replay
+    graphs, and the first dev wave batch must match the plain Griffin-Lim on
+    the CPU (`dev_audio_check`). The eval step and the dev audio are programs
+    of the trainer's `GraphOwner`: the first validation runs them eagerly,
+    the second captures the eval step, the third (step CLI_STEPS) must run
+    no kernel wrapper (all replays). After the steady steps, one validation
+    with and one without the writer are timed (no checkpoint written), one
+    is profiled (the eval and Griffin-Lim kernels by name), the eval step
+    at two dev batch shapes and the featurizer are held to their eager
+    twins (`program_check`), then ``--profile`` (`profile_run`) and the
+    native decoder (`native_decode_check`). `SpecgramGenerator` runs three
+    passes over the test split: the first eager, the second captures, the
+    third replays (no wrapper launches) and is profiled; every file of the
+    later passes equals the first's byte for byte."""
     import tempfile
 
     from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.ops.features import featurize_program
     from semi_tts_tpu_torch.data import wavio
     from semi_tts_tpu_torch.models import vqvae as V
-    from semi_tts_tpu_torch.train import train_vqvae as PTV
     from semi_tts_tpu_torch.train.gen_specgram import SpecgramGenerator
     from semi_tts_tpu_torch.train.train_vqvae import VqvaeSolver
 
@@ -2946,12 +3129,12 @@ def phase_cli(bare_walls, keep, keep_specs):
         solver.set_model()
         trainer, walls, logged, saved, at, kinds = solver.trainer, [], [], [], {}, {}
         run_step, pairs, save, log = trainer._train_step, trainer.pair_iter, trainer.save, trainer.log
-        run_validate, log_waves, vocoder = trainer.validate, trainer._log_waves, \
-            PTV.specgram_to_waveform
+        run_validate, log_waves, vocoder = trainer.validate, trainer._log_waves, trainer._vocoder
         validations, audio = [], {"s": 0.0, "launches": {}}
 
         def validate():
             before = kernels.launch_counts()
+            graphs_before = (len(trainer._eval_step.programs()), len(vocoder.programs()))
             audio.update(s=0.0, launches=dict.fromkeys(before, 0))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2962,6 +3145,12 @@ def phase_cli(bare_walls, keep, keep_specs):
                                     wall_s=time.perf_counter() - t0, dev_audio_s=audio["s"],
                                     gl_project=after["gl_project"] - before["gl_project"],
                                     gl_ola_frame=after["gl_ola_frame"] - before["gl_ola_frame"],
+                                    launched=sum(after.values()) - sum(before.values()),
+                                    launches={k: after[k] - before[k] for k in after
+                                              if after[k] != before[k]},
+                                    graphs_before=graphs_before,
+                                    graphs_after=(len(trainer._eval_step.programs()),
+                                                  len(vocoder.programs())),
                                     audio_launches=dict(audio["launches"])))
             return out
 
@@ -2975,15 +3164,15 @@ def phase_cli(bare_walls, keep, keep_specs):
             for n, v in kernels.launch_counts().items():
                 audio["launches"][n] += v - before[n]
 
-        def recorded_vocoder(amp, **kw):
-            out = vocoder(amp, **kw)
+        def recorded_vocoder(amp, seed=None, **kw):
+            out = vocoder(amp, seed=seed, **kw)
             if not wave_rec:
-                wave_rec.append(dict(amp=amp.clone(), phases=kw.pop("phases").clone(), kw=kw,
-                                     out=out.clone(), step=trainer.step))
+                wave_rec.append(dict(amp=amp.clone(), seed=seed, kw=kw, out=out.clone(),
+                                     step=trainer.step))
             return out
 
         trainer.validate, trainer._log_waves = validate, timed_log_waves
-        PTV.specgram_to_waveform = recorded_vocoder
+        trainer._vocoder = recorded_vocoder
 
         def timed_batches():
             while True:
@@ -3015,10 +3204,7 @@ def phase_cli(bare_walls, keep, keep_specs):
         trainer.log = lambda step, name, value: (logged.append((step, name, value)),
                                                  log(step, name, value))
         kernels.reset_launches()
-        try:
-            solver.exec()
-        finally:
-            PTV.specgram_to_waveform = vocoder
+        solver.exec()
         wrapper_launches = {"train": kernels.launch_counts()}  # eager first calls and captures
         check_media(writer, validations, figure_inputs,
                     sorted({v["step"] for v in validations}))
@@ -3073,7 +3259,29 @@ def phase_cli(bare_walls, keep, keep_specs):
                        for k, m in (("writer_s", True), ("no_writer_s", False))}
         timed_valid["dev_audio_s"] = float(np.median([v["dev_audio_s"] for v in validations[-4:]
                                                       if v["media"]]))
-        dev_audio_launches = validations[-2]["audio_launches"]
+        replayed = [v for v in validations if v["step"] == CLI_STEPS][0]  # the third validation
+        if replayed["launched"] or min(replayed["graphs_before"]) < 1:
+            raise SystemExit(f"chip_smoke: the CLI's validation at step {CLI_STEPS} did not "
+                             f"replay the eval and Griffin-Lim graphs: {replayed}")
+        valid_profile = profiled_step(trainer.validate, timed_valid["writer_s"])
+        require_seen(valid_profile["kernels_seen"], VALIDATION_KERNELS + ("gl_project", "gl_ola_frame"),
+                     "CLI's validation")
+        builder = solver.builder
+        dev_batch = next(iter(trainer.dev_set))
+        half = tuple(t[:TRAIN_B // 2] for t in dev_batch)
+        programs_checked = {
+            "eval": program_check(builder.make_eval_step(),
+                                  [((trainer.model, *dev_batch), {}), ((trainer.model, *half), {})],
+                                  "eval step", VALIDATION_KERNELS),
+            "featurize": program_check(featurize_program(builder.feat, builder.graph_owner),
+                                       [(dev_batch[:2], {}), (half[:2], {})], "featurize",
+                                       ("stft_frames", "spec_db"))}
+        owner = builder.graph_owner(solver.device)
+        trainer_graphs = dict(graph_bytes=owner.graph_bytes, spent_bytes=owner.spent(),
+                              budget_bytes=owner.budget_bytes,
+                              over_budget_calls=owner.over_budget_calls,
+                              eval=step_graphs(trainer._eval_step),
+                              dev_audio=step_graphs(vocoder))
         replays = {}  # one replay of each step kind's graph, profiled
         for kind, (st, batch, unpaired) in sorted(kinds.items()):
             trainer.step = st
@@ -3105,6 +3313,26 @@ def phase_cli(bare_walls, keep, keep_specs):
         gen_wall = time.perf_counter() - t0
         wrapper_launches["gen_specgram"] = kernels.launch_counts()  # eager: each a run
         out_dir = gen.logdir + "_0k"
+        gen_passes = []
+        for k in (2, 3):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen.gen_specgram("test", f"{out_dir}_pass{k}")
+            torch.cuda.synchronize()
+            gen_passes.append(dict(wall_s=time.perf_counter() - t0,
+                                   launched=sum(kernels.launch_counts().values())))
+        gen_profile = profiled_step(lambda: gen.gen_specgram("test", f"{out_dir}_pass4"),
+                                    gen_passes[-1]["wall_s"])
+        require_seen(gen_profile["kernels_seen"], CLI_GEN_KERNELS, "gen_specgram pass")
+        differ = [f for k in (2, 3, 4) for f in sorted(os.listdir(out_dir))
+                  if not filecmp.cmp(os.path.join(out_dir, f),
+                                     os.path.join(f"{out_dir}_pass{k}", f), shallow=False)]
+        gen_graphs = dict(eval=step_graphs(gen._eval_step), vocoder=step_graphs(gen._vocoder),
+                          graph_bytes=gen.builder.graph_owner(gen.device).graph_bytes)
+        if differ or gen_passes[-1]["launched"] or not (gen_graphs["eval"] and gen_graphs["vocoder"]):
+            raise SystemExit(f"chip_smoke: gen_specgram's graphed passes: files differing "
+                             f"{differ[:4]}, {gen_passes}, graphs {gen_graphs}")
         r, audio = gen.model_cfg.n_frames_per_step, gen.featurizer.cfg
         texts = {fid: sum(1 for v in gen.tokenizer.file_to_seq(fid) if v != 0)
                  for fid in (f.split("-")[0] for f in os.listdir(out_dir))}
@@ -3146,9 +3374,18 @@ def phase_cli(bare_walls, keep, keep_specs):
                 dev=[[st, n, v] for (st, n), v in sorted(dev_metrics.items())],
                 gen_utterances=len(texts), gen_wall_s=gen_wall,
                 gen_wall_per_utterance_s=gen_wall / len(texts),
+                gen_graphed={"passes": gen_passes, "graphs": gen_graphs,
+                             "wall_per_utterance_s": gen_passes[-1]["wall_s"] / len(texts),
+                             "busy_s": gen_profile["device_busy_s"],
+                             "idle_share": gen_profile["idle_share"],
+                             "device_events": gen_profile["kernel_launches"]},
                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
-                launches={"train": seen, "gen_specgram": wrapper_launches["gen_specgram"],
-                          "dev_audio": dev_audio_launches},
+                launches={"train": seen, "gen_specgram": gen_profile["kernels_seen"],
+                          "validation": valid_profile["kernels_seen"]},
+                validation_replay={k: valid_profile[k] for k in
+                                   ("profiled_wall_s", "device_busy_s", "idle_share",
+                                    "kernel_launches", "top_device_ms")},
+                programs=programs_checked, trainer_graphs=trainer_graphs,
                 wrapper_launches=wrapper_launches,
                 media={"figures_drawn": drawn, "calls": len(writer.calls),
                        "tags_by_step": {st: len(writer.tags(st))
@@ -3162,6 +3399,7 @@ PRETRAIN_STEPS, PRETRAIN_VALID = 4, 2   # 1 warm-up and 3 timed steps of each LM
 LM_KERNELS = {"text": ("bilstm_rec_cs", "bilstm_rec_bwd"),
               "speech": ("stft_frames", "spec_db", "bigru_rec", "bigru_rec_bwd")}
 LM_ABSENT = {"text": (), "speech": ("attention_step", "attention_step_bwd")}
+LM_DEV_KERNELS = {"text": ("bilstm_rec",), "speech": ("stft_frames", "spec_db", "bigru_rec")}
 # the audio LM's leaves behind a ReLU or max-pool (`KINKED_LEAVES` without the tts prefix)
 LM_KINKED = re.compile(r"^(postnet\.cbhg\.(banks|projs|pre_highway|highways)\."
                        r"|decoder\.(prenet|pseudo_std)\.)")
@@ -3232,9 +3470,10 @@ def lm_reference(solver, batch, mode):
 
 def pretrain_lm(root, config, mode):
     """``--pretrain-<mode>`` through its solver: PRETRAIN_STEPS steps
-    validated every PRETRAIN_VALID, the launches and directions of step 1,
-    the walls of steps 1.., peak memory, one profiled step, the card-vs-CPU
-    step. Returns (line, checkpoint path)."""
+    validated every PRETRAIN_VALID, the launches and directions of step 0
+    (its shape's first call, eager), the walls of steps 1.., peak memory,
+    the card-vs-CPU step. The step and the dev loss are programs of the
+    solver's `GraphOwner` (`lm_programs`). Returns (line, checkpoint path)."""
     from semi_tts_tpu_torch import kernels
     from semi_tts_tpu_torch.train.train_lm import AudioLmSolver, TextLmSolver
 
@@ -3248,7 +3487,6 @@ def pretrain_lm(root, config, mode):
         if solver.step == 1:
             gc.collect()
             torch.cuda.reset_peak_memory_stats()
-            seen["batch"] = batch
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -3257,8 +3495,8 @@ def pretrain_lm(root, config, mode):
             torch.cuda.synchronize()
         if solver.step >= 1:
             walls.append(time.perf_counter() - t0)
-        if solver.step == 1:
-            seen.update(launches=kernels.launch_counts(), dirs=dirs)
+        if solver.step == 0:
+            seen.update(launches=kernels.launch_counts(), dirs=dirs, batch=batch)
         losses.append(mets["total_loss"])
         return mets
 
@@ -3281,19 +3519,64 @@ def pretrain_lm(root, config, mode):
     if idle or present or bad:
         raise SystemExit(f"chip_smoke: the {mode} LM step launched {launches} (directions {dirs}): "
                          f"idle {idle}, present {present}")
-    wall = float(np.median(walls))
     batch = seen["batch"]
-    profile = profiled_step(lambda: run_step(batch), wall)
+    solver.train_step = run_step
+    programs = lm_programs(solver, batch, mode)
     ref = lm_reference(solver, batch, mode)
     line = dict(steps=PRETRAIN_STEPS, valid_step=PRETRAIN_VALID, batch=int(batch[0].shape[0]),
                 shape=list(batch[2 if mode == "text" else 0].shape),
-                params=sum(p.numel() for p in solver.model.parameters()), wall_s=wall,
-                walls_s=walls, busy_s=profile["device_busy_s"], idle_share=profile["idle_share"],
-                losses=losses, best_dev=solver.best_dev, peak_mem_bytes=peak,
-                launches=launches, directions=dirs, profile=profile, reference=ref)
+                params=sum(p.numel() for p in solver.model.parameters()),
+                run_walls_s=walls, losses=losses, best_dev=solver.best_dev, peak_mem_bytes=peak,
+                eager_launches=launches, directions=dirs, reference=ref, **programs)
     if solver.log is not None:
         solver.log.close()
     return line, ckpt
+
+
+def lm_programs(solver, batch, mode):
+    """An LM solver's programs on the card, on ``batch``: `graph_check` of
+    its step (3 graphed against 3 eager steps from one copied state, and a
+    rerun); the solver's own step program replayed on the batch (the wall,
+    a median of TRAIN_STEPS replays, and a profiled replay that must run
+    the LM's kernels, by name, and not the absent ones); the dev loss's
+    program held to its eager twin (`program_check`); the owner's graph
+    bytes."""
+    from semi_tts_tpu_torch.graphs import NoGradProgram
+    from semi_tts_tpu_torch.train.train_lm import make_audiolm_step, make_textlm_step
+
+    def owner(device):
+        return solver.graph_owner
+
+    def make(opt):
+        if mode == "speech":
+            return make_audiolm_step(solver.featurizer, opt, solver.floss, owner,
+                                     seed=solver.paras.seed)
+        return make_textlm_step(opt, owner)
+
+    args = solver._args(batch)
+    check = graph_check(solver.model, solver.optimizer, make,
+                        lambda fn, m, n: fn(m, n, *args), 100)
+    step = solver._step
+    for n in range(2):  # past the shape's first call (eager) and its capture
+        step(solver.model, 200 + n, *args)
+    wall = timed_wall(lambda: step(solver.model, 210, *args), TRAIN_STEPS)
+    profile = profiled_step(lambda: step(solver.model, 211, *args), wall)
+    seen = profile["kernels_seen"]
+    require_seen(seen, LM_KERNELS[mode], f"{mode} LM step")
+    if any(seen[n] for n in LM_ABSENT[mode]):
+        raise SystemExit(f"chip_smoke: the {mode} LM step's replay ran {LM_ABSENT[mode]}: {seen}")
+    dev_batch = next(iter(solver.dev_set))
+    dev_args = solver._args(tuple(torch.from_numpy(dev_batch[k]).to(solver.device)
+                                  for k in ("waves", "wave_len", "text", "sid")))
+    dev = program_check(NoGradProgram(solver._dev.body, owner), [((solver.model, *dev_args), {})],
+                        f"{mode} LM dev loss", LM_DEV_KERNELS[mode])
+    return dict(wall_s=wall, eager_wall_s=check["eager_wall_s"], busy_s=profile["device_busy_s"],
+                idle_share=profile["idle_share"], device_events=profile["kernel_launches"],
+                eager_busy_s=check["eager_busy_s"], eager_idle_share=check["eager_idle_share"],
+                eager_device_events=check["eager_device_events"], launches=seen,
+                profile=profile, graph_check=check, graphs=step_graphs(step), dev=dev,
+                graph_bytes=solver.graph_owner.graph_bytes,
+                over_budget_calls=solver.graph_owner.over_budget_calls)
 
 
 def rnnlm_limit(dev):
@@ -3434,7 +3717,9 @@ def phase_tools(specs_dir, dev):
     ``util_cli.import_reference_ckpt``; `TTSServer.from_checkpoint` on the
     result serves B x U, bit for bit the waves of the same weights written
     directly, with K1-K4 launched. ``util_cli.gen_wav_from_specgram`` vocodes
-    phase 8's spectrograms (one wav each, at the sample rate), and one batch
+    phase 8's spectrograms (one wav each, at the sample rate); the
+    Griffin-Lim program is held to its eager twin at the first batch's shape
+    and at half its rows (`program_check`); and one batch
     of 16 is checked round by round (`gl_rounds_check`: at every round K4's
     outputs against their plain versions on the same inputs, 1e-4 as in
     phase 3). The whole vocoded batch's distance to the plain Griffin-Lim on
@@ -3449,7 +3734,8 @@ def phase_tools(specs_dir, dev):
     from semi_tts_tpu_torch.data import wavio
     from semi_tts_tpu_torch.models import vqvae as V
     from semi_tts_tpu_torch.ops.features import linear_to_amp
-    from semi_tts_tpu_torch.ops.griffin_lim import specgram_to_waveform
+    from semi_tts_tpu_torch.ops.griffin_lim import (griffin_lim_program, random_phases,
+                                                    specgram_to_waveform)
     from semi_tts_tpu_torch.serve import TTSServer
     from semi_tts_tpu_torch.train import torch_import as TI
     from semi_tts_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
@@ -3515,11 +3801,15 @@ def phase_tools(specs_dir, dev):
                 raise SystemExit(f"chip_smoke: gen_wav_from_specgram wrote a bad {f}")
         paths, batch = GW.batches(specs_dir, 16)[0]
         kernels.reset_launches()
-        wavs, phases = GW.vocode(batch, acfg, torch.Generator(device=dev).manual_seed(0), dev)
+        wavs = GW.vocode(batch, acfg, griffin_lim_program(), dev, seed=0)
         per_batch = kernels.launch_counts()
+        phases = random_phases(batch.shape, torch.Generator(device=dev).manual_seed(0), dev)
         geo = dict(n_fft=acfg.n_fft, hop=acfg.hop_length, win_length=acfg.win_length,
                    preemphasis_coeff=acfg.preemphasis_coeff)
         amp = linear_to_amp(torch.from_numpy(batch))
+        out["griffin_lim"] = program_check(
+            griffin_lim_program(), [((amp.to(dev),), geo), ((amp[: len(amp) // 2].to(dev),), geo)],
+            "Griffin-Lim", ("gl_project", "gl_ola_frame"))
         rounds = gl_rounds_check(amp.to(dev), phases, acfg)
         with plain_griffin_lim():
             plain = specgram_to_waveform(amp.to(dev), phases=phases, **geo).cpu()
@@ -3573,10 +3863,15 @@ def main():
                 "speech-first step": cycles["launches"][SPEECH_FIRST],
                 "text-first step": cycles["launches"][TEXT_FIRST],
                 "CLI training": cli["launches"]["train"],
+                "CLI validation": cli["launches"]["validation"],
                 "CLI gen_specgram": cli["launches"]["gen_specgram"],
+                "eval step": cli["programs"]["eval"]["launches"],
+                "featurize": cli["programs"]["featurize"]["launches"],
                 "text LM step": pretrain["text"]["launches"],
                 "speech LM step": pretrain["speech"]["launches"],
-                "dev_audio": cli["launches"]["dev_audio"],
+                "text LM dev loss": pretrain["text"]["dev"]["launches"],
+                "speech LM dev loss": pretrain["speech"]["dev"]["launches"],
+                "Griffin-Lim": tools["griffin_lim"]["launches"],
                 "imported-checkpoint serving": tools["import"]["launches"],
                 "gen_wav": tools["gen_wav"]["launches_per_batch"]}
     for row in table:
@@ -3594,6 +3889,8 @@ def main():
     print(json.dumps({"cli": cli}))
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"tools": dict(tools, card=card)}))
+    if UNSEEN:
+        raise SystemExit(f"chip_smoke: kernels not seen in profiled replays: {UNSEEN}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

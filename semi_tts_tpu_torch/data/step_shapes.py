@@ -12,7 +12,16 @@ speech-first on the other even steps; text-first on odd steps with
 ``--text-first``) and counts, for each step kind: the distinct shapes, the
 first calls (run eagerly), the captures and the replays under the
 capture-on-repeat policy with an unbounded cache, and the captures that a
-bounded LRU of ``--lru`` graphs capturing at first sight would make.
+bounded LRU of ``--lru`` graphs capturing at first sight would make. It
+counts the same for the LM pretraining steps over the same number of
+steps (the audio LM keyed by its wave bucket, the text LM by its text
+bucket, both on the unpaired split, or the paired one when that is empty)
+and the shapes of one pass over the dev split (unshuffled, longest first,
+the last batch short), which the eval step and the LMs' dev losses see at
+every validation (``programs``: the distinct shapes of each kind, the
+graphs a run would hold without a budget), and the share of the train
+steps that replay a graph when a budget admits only so many
+(``replayed_share_by_graphs``).
 
 The tables hold durations, not transcripts, so a text's length is modelled
 from its duration at the decode budget's rate (``FRAME_PHN_RATIO`` mel
@@ -30,34 +39,62 @@ from collections import Counter, OrderedDict
 
 import numpy as np
 
-from .corpus import read_partition
+from .corpus import _descending, read_partition
 from .loader import DEFAULT_BUCKETS_SEC, TEXT_QUANTUM, _round_up
 
 FRAME_PHN_RATIO = 6.0  # mel frames a phoneme (models/vqvae.py)
+GRAPH_COUNTS = (8, 16, 32, 64, 128, 256)  # graph budgets to give the replayed share under
 
 
-def batch_keys(durations, n_batches, *, batch_size=8, seed=0, sample_rate=22050, hop=275,
-               text=True):
-    """The (wave bucket, text bucket) of ``n_batches`` batches that
-    `loader.TTSLoader` (shuffled, ``drop_last``) draws from rows of these
-    durations, over as many epochs as it takes."""
+def _key_of(durations, *, sample_rate=22050, hop=275, text=True):
+    """The (wave bucket, text bucket) of a batch of rows, a function of
+    their indices."""
     d = np.asarray(durations, np.float64)
     samples = np.round(d * sample_rate).astype(np.int64)
     tokens = np.ceil(d * sample_rate / hop / FRAME_PHN_RATIO).astype(np.int64)
     buckets = sorted(int(b * sample_rate) for b in DEFAULT_BUCKETS_SEC)
+
+    def key(idx):
+        n = int(samples[idx].max())
+        wave = next((b for b in buckets if n <= b), _round_up(n, buckets[-1]))
+        return wave, _round_up(int(tokens[idx].max()), TEXT_QUANTUM) if text else 0
+    return key
+
+
+def batch_keys(durations, n_batches, *, batch_size=8, seed=0, text=True, **kw):
+    """The (wave bucket, text bucket) of ``n_batches`` batches that
+    `loader.TTSLoader` (shuffled, ``drop_last``) draws from rows of these
+    durations, over as many epochs as it takes."""
+    key = _key_of(durations, text=text, **kw)
     rng = np.random.RandomState(seed)
     keys = []
     while len(keys) < n_batches:
-        order = np.arange(len(d))
+        order = np.arange(len(durations))
         rng.shuffle(order)
-        for s in range(0, len(d) - batch_size + 1, batch_size):
-            idx = order[s: s + batch_size]
-            n = int(samples[idx].max())
-            wave = next((b for b in buckets if n <= b), _round_up(n, buckets[-1]))
-            keys.append((wave, _round_up(int(tokens[idx].max()), TEXT_QUANTUM) if text else 0))
+        for s in range(0, len(durations) - batch_size + 1, batch_size):
+            keys.append(key(order[s: s + batch_size]))
             if len(keys) == n_batches:
                 break
     return keys
+
+
+def dev_keys(durations, *, batch_size=8, text=True, **kw):
+    """The (wave bucket, text bucket) of one pass of an evaluation loader
+    over rows of these durations: longest first, unshuffled, the last batch
+    short."""
+    key = _key_of(durations, text=text, **kw)
+    order = _descending(durations)
+    return [key(order[s: s + batch_size]) for s in range(0, len(order), batch_size)]
+
+
+def lm_keys(table, steps, *, seed=0, text=True):
+    """{"audio_lm": [(wave bucket,)], "text_lm": [(text bucket,)]} of
+    ``steps`` LM pretraining steps on ``table``'s unpaired split (the
+    paired one when that is empty)."""
+    durs = [r["duration"] for r in read_partition(table, "unpaired")]
+    durs = durs or [r["duration"] for r in read_partition(table, "paired")]
+    keys = batch_keys(durs, steps, seed=seed, text=text)
+    return {"audio_lm": [(w,) for w, _ in keys], "text_lm": [(t,) for _, t in keys]}
 
 
 def step_keys(table, steps, *, text_first=False, seed=0, text=True):
@@ -109,6 +146,21 @@ def cache_counts(keys, lru):
                 **{f"lru{lru}_captures": lru_captures})
 
 
+def budgeted_replays(keys, graphs):
+    """The share of ``keys`` (one trainer's steps of every kind, in order)
+    that replay a graph when at most ``graphs`` are captured, each at its
+    shape's second call, and past that a new shape runs eagerly, as under
+    `graphs.GraphOwner`'s budget (nothing is evicted)."""
+    seen, captured, replays = Counter(), set(), 0
+    for k in keys:
+        seen[k] += 1
+        if k in captured:
+            replays += 1
+        elif seen[k] >= 2 and len(captured) < graphs:
+            captured.add(k)
+    return replays / len(keys)
+
+
 def mean_step_s(keys, eager, capture, replay):
     """{steps: mean seconds a step over the first ``steps``} for one step
     kind's keys under capture-on-repeat: a first call is eager, a second
@@ -133,14 +185,24 @@ def main(argv=None):
     p.add_argument("--times", help="EAGER,CAPTURE,REPLAY seconds (for mean_step_s)")
     a = p.parse_args(argv)
     keys = step_keys(a.table, a.steps, text_first=a.text_first, seed=a.seed, text=not a.no_text)
+    by_kind = {kind: [key for k, key in keys if k == kind]
+               for kind in dict.fromkeys(k for k, _ in keys)}
+    by_kind.update(lm_keys(a.table, a.steps, seed=a.seed, text=not a.no_text))
     out = {}
-    for kind in dict.fromkeys(k for k, _ in keys):
-        ks = [key for k, key in keys if k == kind]
+    for kind, ks in by_kind.items():
         out[kind] = cache_counts(ks, a.lru)
         out[kind]["shapes_by_step"] = {n: len(set(ks[:n])) for n in (100, 1_000, 10_000)
                                        if n <= len(ks)}
         if a.times:
             out[kind]["mean_step_s"] = mean_step_s(ks, *map(float, a.times.split(",")))
+    dev = dev_keys([r["duration"] for r in read_partition(a.table, "dev")], text=not a.no_text)
+    out["dev"] = {"batches": len(dev), "eval_shapes": len(set(dev)),
+                  "audio_lm_shapes": len({w for w, _ in dev}),
+                  "text_lm_shapes": len({t for _, t in dev})}
+    out["replayed_share_by_graphs"] = {n: budgeted_replays(keys, n) for n in GRAPH_COUNTS}
+    out["programs"] = dict({k: out[k]["shapes"] for k in by_kind}, eval=out["dev"]["eval_shapes"],
+                           audio_lm_dev=out["dev"]["audio_lm_shapes"],
+                           text_lm_dev=out["dev"]["text_lm_shapes"])
     print(json.dumps(out))
     return out
 

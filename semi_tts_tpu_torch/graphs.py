@@ -36,11 +36,21 @@ captured once per input shape and replayed with one host call.
   second by default) and runs eagerly before that: a corpus's long tail of
   batch shapes seen once costs an eager step each, not a capture
   (`data/step_shapes.py` counts the shapes of a partition table).
+- `NoGradProgram`: a function run without autograd (the eval step,
+  Griffin-Lim, the featurizer, an LM's dev loss) under the same cache
+  policy, with no optimizer and no state; its keyword arguments are static
+  (part of the key, passed as they are) and its generator is reseeded from
+  the seed a caller gives, or goes on drawing without one.
 
-Graphs of one owner (a server, a step builder) share one memory pool and
-one capture stream: they never replay at once, and since every input is
-copied into a buffer allocated outside the pool and every output is cloned
-out of it, nothing in the pool lives from one replay to the next.
+Graphs of one owner (a server, a step builder, a solver) share one memory
+pool and one capture stream: they never replay at once, and since every
+input is copied into a buffer allocated outside the pool and every output
+is cloned out of it, nothing in the pool lives from one replay to the next.
+An owner also keeps a byte budget over the programs of `StepProgram` and
+`NoGradProgram`: each capture records what it cost the card (`GraphOwner`),
+and once the next capture would pass the budget a new shape runs eagerly on
+every call (``over_budget_calls``). Nothing is evicted, so nothing is
+captured twice.
 
 A kernel wrapper's launch counter (`kernels.launch_counts`) moves where the
 wrapper launches its kernel: on an eager call, and once at a capture. A
@@ -50,6 +60,8 @@ what a replay ran is read from a profile.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
 from collections import Counter, OrderedDict
@@ -150,15 +162,82 @@ def to_device_scalars(tree, device):
 
 # ---- programs ---------------------------------------------------------------
 
-class GraphOwner:
-    """What the graphs of one owner share on the card: a memory pool and
-    the side stream that warms them up and captures them."""
+BUDGET_SHARE = 0.25  # of the card's memory that an owner's graphs may hold (PERF.md §5)
 
-    def __init__(self, device):
+
+class GraphOwner:
+    """What the graphs of one owner share on the card: a memory pool, the
+    side stream that warms them up and captures them, and a byte budget.
+
+    ``budget_bytes``: what the owner's captured programs may cost the card
+    in all; by default `BUDGET_SHARE` of the card's memory, and no bound on
+    the CPU, where the programs are `Eager` and cost nothing. ``meter()``
+    -> (bytes of the owner's memory pool, bytes the allocator reserves,
+    bytes in use on the device), read around each capture (by default the
+    allocator's segments of the pool, `torch.cuda.memory_reserved` and
+    `torch.cuda.mem_get_info`; none on the CPU). ``graph_bytes``: for each
+    capture, its ``pool`` bytes (the growth of the owner's pool) and
+    ``outside`` bytes (the device's growth beyond what the allocator
+    reserves: the graph's executable, library workspaces; a capture first
+    empties the allocator's cache, which the difference takes out).
+    ``over_budget_calls``: calls that ran eagerly because a capture would
+    have passed the budget; ``notify`` gets one line when that first
+    happens."""
+
+    def __init__(self, device, budget_bytes=None, *, meter=None, notify=print):
         self.device = torch.device(device)
-        self.pool = torch.cuda.graph_pool_handle()
-        with torch.cuda.device(self.device):
-            self.stream = torch.cuda.Stream()
+        self.graph_bytes = []
+        self.over_budget_calls = 0
+        self.notify = notify
+        self.meter = meter
+        self.budget_bytes = budget_bytes
+        if self.device.type == "cuda":
+            self.pool = torch.cuda.graph_pool_handle()
+            with torch.cuda.device(self.device):
+                self.stream = torch.cuda.Stream()
+            if budget_bytes is None:
+                self.budget_bytes = int(BUDGET_SHARE * torch.cuda.mem_get_info(self.device)[1])
+            if meter is None:
+                self.meter = self._card_bytes
+
+    def _card_bytes(self):
+        torch.cuda.synchronize(self.device)
+        free, total = torch.cuda.mem_get_info(self.device)
+        pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(self.pool))
+        return pool, torch.cuda.memory_reserved(self.device), total - free
+
+    def spent(self) -> int:
+        """What the captures so far cost, in bytes."""
+        return sum(b["pool"] + b["outside"] for b in self.graph_bytes)
+
+    def admit(self) -> bool:
+        """Whether one more capture stays within the budget, taking it to
+        cost the mean of the captures so far (the first capture grows the
+        shared pool to a step's working set; later ones mostly reuse it)."""
+        if self.budget_bytes is None or not self.graph_bytes:
+            return True
+        spent = self.spent()
+        return spent + spent / len(self.graph_bytes) <= self.budget_bytes
+
+    def refuse(self):
+        """Counts a call that runs eagerly past the budget."""
+        if not self.over_budget_calls:
+            self.notify(f"graphs: {len(self.graph_bytes)} captured, {self.spent() / 1e9:.3f} of "
+                        f"a {self.budget_bytes / 1e9:.3f} GB budget; new shapes run eagerly")
+        self.over_budget_calls += 1
+
+    @contextlib.contextmanager
+    def metered(self):
+        """Records in ``graph_bytes`` what the work inside cost the device."""
+        if self.meter is None:
+            yield
+            return
+        pool0, reserved0, used0 = self.meter()
+        yield
+        pool1, reserved1, used1 = self.meter()
+        self.graph_bytes.append({"pool": max(pool1 - pool0, 0),
+                                 "outside": max((used1 - used0) - (reserved1 - reserved0), 0)})
 
 
 class Eager:
@@ -226,8 +305,15 @@ class Graphed:
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, pool=self.owner.pool, stream=stream):
-            out = self.fn(*self._inputs())
+        # a dead program's graph destroyed by the garbage collector during a
+        # capture would invalidate it: collect before, none during
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.owner.pool, stream=stream):
+                out = self.fn(*self._inputs())
+        finally:
+            gc.enable()
         if gen_state is not None:
             self.generator.set_state(gen_state)
         self._out, self._out_spec = pytree.tree_flatten(out)
@@ -267,14 +353,71 @@ def step_seed(seed: int, step_no: int) -> int:
     return (int(seed) * 0x9E3779B97F4A7C15 + int(step_no) * 0xBF58476D1CE4E5B9) % (1 << 63)
 
 
-class StepProgram:
+class _Programs:
+    """The cache policy of `StepProgram` and `NoGradProgram`: an unbounded
+    `ProgramCache` of programs by key; a key runs eagerly until its
+    ``capture_at``-th call, which builds its program (on the card:
+    captures its graph) if the owner's budget admits it, else runs eagerly,
+    as every later call of that key does; one generator, made on the first
+    call's device and registered with every graph. ``owner``: a callable
+    giving the `GraphOwner` of a device (None: one of the program's own)."""
+
+    def __init__(self, owner=None):
+        self.owner = owner or self._own_owner
+        self._owner = None
+        self.cache = ProgramCache(None)
+        self.capture_at = 2
+        self.calls = Counter()
+        self.generator = None
+
+    def _own_owner(self, device):
+        if self._owner is None:
+            self._owner = GraphOwner(device)
+        return self._owner
+
+    def _generator(self, device):
+        if self.generator is None:
+            self.generator = torch.Generator(device=device)
+        return self.generator
+
+    def _call(self, key, dev, fn, inputs, seed, state=lambda: (), keep=None):
+        """``fn(*inputs)`` through the program of ``key`` (``keep``: an
+        object the program holds, so that an id in the key is not reused)."""
+        self.calls[key] += 1
+        eager = Eager(fn, self.generator)
+        if self.calls[key] < self.capture_at:
+            return eager(*inputs, seed=seed)
+        with self.cache._lock:
+            cell = self.cache._programs.get(key)
+        if cell is not None:
+            return self.cache.get(key, None)(*inputs, seed=seed)
+        owner = self.owner(dev)
+        if not owner.admit():
+            owner.refuse()
+            return eager(*inputs, seed=seed)
+
+        def build():
+            prog = program(fn, dev, owner, generator=self.generator, state=state)
+            prog.keep = keep
+            return prog
+
+        with owner.metered():  # on the card: the capture and the first replay
+            return self.cache.get(key, build)(*inputs, seed=seed)
+
+    def programs(self):
+        """The cached programs, oldest first."""
+        with self.cache._lock:
+            return [cell._value for cell in self.cache._programs.values() if cell._done]
+
+
+class StepProgram(_Programs):
     """A train step ``step(model, step_no, *args, **kw)`` behind an
     unbounded `ProgramCache` of programs, one for each model and set of
     input shapes and dtypes (which keyword inputs are given included). A
     set of shapes runs eagerly until its ``capture_at``-th call, which
-    builds its program (on the card: captures its graph).
-    ``body(model, step_no, *args, generator, **kw)`` is the step; it
-    updates the model and ``optimizer`` in place and returns its metrics.
+    builds its program (on the card: captures its graph, within the owner's
+    budget). ``body(model, step_no, *args, generator, **kw)`` is the step;
+    it updates the model and ``optimizer`` in place and returns its metrics.
     ``step_no`` reaches it as an int64 device scalar and every Python number
     of ``args``/``kw`` as a device scalar (`to_device_scalars`); its
     generator is reseeded from `step_seed` (seed, step_no) on each call.
@@ -283,19 +426,14 @@ class StepProgram:
     with the same inputs and seeding."""
 
     def __init__(self, body, optimizer, seed: int, owner):
+        super().__init__(owner)
         self.body = body
         self.optimizer = optimizer
         self.seed = seed
-        self.owner = owner
-        self.cache = ProgramCache(None)
-        self.capture_at = 2
-        self.calls = Counter()
-        self.generator = None
 
     def _inputs(self, model, step_no, args, kw):
         dev = next(model.parameters()).device
-        if self.generator is None:
-            self.generator = torch.Generator(device=dev)
+        self._generator(dev)
         inputs = to_device_scalars((step_no, args, kw), dev)
         return dev, inputs, step_seed(self.seed, step_no)
 
@@ -306,26 +444,46 @@ class StepProgram:
 
     def __call__(self, model, step_no, *args, **kw):
         dev, inputs, seed = self._inputs(model, step_no, args, kw)
-        key = (id(model), signature(inputs[1:])[2])
-        self.calls[key] += 1
-        if self.calls[key] < self.capture_at:
-            return Eager(self._fn(model), self.generator)(*inputs, seed=seed)
-
-        def build():
-            state = lambda: (list(model.parameters()) + list(model.buffers())
-                             + self.optimizer.state_tensors())
-            owner = self.owner(dev) if dev.type == "cuda" else None
-            prog = program(self._fn(model), dev, owner, generator=self.generator, state=state)
-            prog.model = model  # holds the model, so that its id is not reused
-            return prog
-
-        return self.cache.get(key, build)(*inputs, seed=seed)
+        state = lambda: (list(model.parameters()) + list(model.buffers())
+                         + self.optimizer.state_tensors())
+        return self._call((id(model), signature(inputs[1:])[2]), dev, self._fn(model), inputs,
+                          seed, state, keep=model)
 
     def eager(self, model, step_no, *args, **kw):
         _, inputs, seed = self._inputs(model, step_no, args, kw)
         return Eager(self._fn(model), self.generator)(*inputs, seed=seed)
 
-    def programs(self):
-        """The cached programs, oldest first."""
-        with self.cache._lock:
-            return [cell._value for cell in self.cache._programs.values() if cell._done]
+
+class NoGradProgram(_Programs):
+    """``body(*args, generator, **static)`` run without autograd behind the
+    cache policy of `StepProgram`, keyed by ``args``' shapes and dtypes
+    (a module among them by its identity) and ``static``'s values. Python
+    numbers of ``args`` reach ``body`` as device scalars, ``static`` as it
+    is. It changes nothing in place (no state to put back after a
+    capture's warm-up). ``prog(*args, seed=None, **static)``: ``seed``
+    reseeds the generator; without one the draws go on from where the last
+    call left it. ``eager(...)``: the same call without a graph."""
+
+    def __init__(self, body, owner=None):
+        super().__init__(owner)
+        self.body = body
+
+    def _fn(self, static):
+        @torch.no_grad()
+        def run(*args):
+            return self.body(*args, generator=self.generator, **static)
+        return run
+
+    def _inputs(self, args):
+        dev = next(t.device for t in pytree.tree_leaves(args) if isinstance(t, torch.Tensor))
+        self._generator(dev)
+        return dev, to_device_scalars(args, dev)
+
+    def __call__(self, *args, seed=None, **static):
+        dev, inputs = self._inputs(args)
+        key = (signature(inputs)[2], tuple(sorted(static.items())))
+        return self._call(key, dev, self._fn(static), inputs, seed)
+
+    def eager(self, *args, seed=None, **static):
+        _, inputs = self._inputs(args)
+        return Eager(self._fn(static), self.generator)(*inputs, seed=seed)

@@ -9,7 +9,8 @@ second GEMM the mel projection. The clean path frames at the static hop
 and window; the augmented path mixes in noise at a per-row SNR and frames
 at the hop and window of one stretch rate per batch, computed on the device.
 The window is multiplied in `stft_frames` on both paths (the basis is
-unwindowed).
+unwindowed). `featurize_program` runs ``featurize`` as a compiled program
+for the callers that featurize outside a train or eval step.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..graphs import NoGradProgram
 from ..kernels import features as K5
 from .mel import mel_filterbank, mel_pinv
 from .stft import support_dft_basis, window_support
@@ -253,3 +255,12 @@ class AudioFeaturizer:
         rate = rlo + (rhi - rlo) * torch.rand((), generator=generator, device=dev)
         noise = torch.randn((B, S), generator=generator, device=dev) if c.use_noise else None
         return self.featurize_augmented_at(waves, lengths, snrs, rate, noise)
+
+
+def featurize_program(feat: AudioFeaturizer, owner=None):
+    """``feat.featurize`` as a `graphs.NoGradProgram` (the counterpart of
+    the JAX featurizer's jitted ``featurize``): ``prog(waves, lengths)`` ->
+    (mel, linear, frame_lengths), one program a batch shape. ``owner``: the
+    caller's `GraphOwner` of a device (by default the program's own)."""
+    return NoGradProgram(lambda waves, lengths, *, generator: feat.featurize(waves, lengths),
+                         owner)

@@ -6,6 +6,10 @@ Each round is: forward GEMM with the windowed DFT basis packed as
 inverse basis packed as [A; B] (2F, span), then the K4 overlap-add +
 framing pass that hands the next round its frames. The signal itself is
 only materialised after the last round. fp32 throughout.
+
+`griffin_lim_program` runs `specgram_to_waveform` as a compiled program (a
+CUDA graph a magnitude shape and geometry on the card), as the JAX package
+jits it; serving's vocode stage is graphed inside `TTSServer` instead.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import math
 
 import torch
 
+from ..graphs import NoGradProgram
 from ..kernels.griffin_lim import gl_ola_frame, gl_project
 from .features import GFL_ITER, inv_preemphasis
 from .stft import dft_basis, inv_dft_basis
@@ -66,3 +71,15 @@ def specgram_to_waveform(magnitude, generator=None, *, n_fft: int, hop: int, win
     if apply_inv_preemphasis:
         wav = inv_preemphasis(wav, preemphasis_coeff)
     return torch.clamp(wav, -1.0, 1.0)
+
+
+def griffin_lim_program(owner=None):
+    """`specgram_to_waveform` as a `graphs.NoGradProgram` (the counterpart
+    of the JAX package's jitted `specgram_to_waveform`): one program a
+    (magnitude shape, n_fft, hop, win_length, n_iter, preemphasis_coeff),
+    ``gl(magnitude, seed=None, n_fft=..., hop=..., win_length=...,
+    preemphasis_coeff=...)``. The initial phases are drawn inside from the
+    program's generator, reseeded with ``seed`` or, without one, drawing on
+    from the last call. ``owner``: the caller's `GraphOwner` of a device
+    (by default the program's own)."""
+    return NoGradProgram(specgram_to_waveform, owner)

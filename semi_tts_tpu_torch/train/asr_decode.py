@@ -1,7 +1,8 @@
 """Greedy CTC decoding of the test split (counterpart of
 `semi_tts_tpu/train/asr_decode.py` `VqvaeDecoder`): the ASR on each
-utterance's clean features, repeats merged and the special tokens
-dropped, written with the split's PER to ``{logdir}_decode/hyp.tsv``."""
+utterance's clean features (the featurizer as a program, a CUDA graph a
+batch shape on the card), repeats merged and the special tokens dropped,
+written with the split's PER to ``{logdir}_decode/hyp.tsv``."""
 
 from __future__ import annotations
 
@@ -11,12 +12,18 @@ from os.path import join
 import torch
 
 from ..models import vqvae as V
+from ..ops.features import featurize_program
 from ..utils.metrics import IGNORE_INDICES, cal_per
 from .gen_specgram import SpecgramGenerator as _Base
 from .solver import to_device
+from .steps import _pad_frames
 
 
 class VqvaeDecoder(_Base):
+    def set_model(self):
+        super().set_model()
+        self._featurize = featurize_program(self.featurizer, self.builder.graph_owner)
+
     @torch.no_grad()
     def exec(self):
         output_dir = self.logdir + "_decode"
@@ -24,7 +31,8 @@ class VqvaeDecoder(_Base):
         rows, pers = [], []
         for batch in self.test_set:
             waves, wave_len, _, _ = to_device(batch, self.device)
-            mel, _, _, flen, _ = self.builder._features(waves, wave_len, need_aug=False)
+            mel, _, flen = self._featurize(waves, wave_len)
+            mel = _pad_frames(mel, self.model_cfg.n_frames_per_step)
             p_code, _, _ = V.speech_to_text(self.model, self.model_cfg, self.phn_attr, mel,
                                             paired_bs=mel.shape[0], train=False)
             pred = p_code.argmax(-1).cpu().numpy()

@@ -2,8 +2,10 @@
 `semi_tts_tpu/train/gen_gt_specgram.py`): each utterance's clean mel and
 linear features, cut to its frames, as ``{id}-mel.npy`` and
 ``{id}-spec.npy``; with ``--gen-wav`` also ``{id}-pred.wav``, Griffin-Lim
-of the linear features with phases from a generator of (seed, batch). No
-model is loaded."""
+of the linear features with phases from a generator seeded from (seed,
+batch). No model is loaded. The featurizer and Griffin-Lim run as programs
+of one `graphs.GraphOwner` (CUDA graphs from a batch shape's second
+batch on)."""
 
 from __future__ import annotations
 
@@ -13,16 +15,19 @@ from os.path import join
 import numpy as np
 
 from ..data import wavio
-from ..ops.features import linear_to_amp
-from ..ops.griffin_lim import specgram_to_waveform
+from ..graphs import GraphOwner, step_seed
+from ..ops.features import featurize_program, linear_to_amp
+from ..ops.griffin_lim import griffin_lim_program
 from .gen_specgram import SpecgramGenerator as _Base
 from .solver import to_device
-from .steps import step_generator
 
 
 class SpecgramGenerator(_Base):
     def set_model(self):
         self.step = 0  # ground-truth features only: no model
+        owner = GraphOwner(self.device, notify=self.verbose)
+        self._featurize = featurize_program(self.featurizer, lambda device: owner)
+        self._vocoder = griffin_lim_program(lambda device: owner)
 
     def exec(self):
         self.gen_specgram("test", self.logdir + "_gt")
@@ -34,11 +39,11 @@ class SpecgramGenerator(_Base):
         cnt = 0
         for bi, batch in enumerate(getattr(self, split + "_set")):
             waves, wave_len, _, _ = to_device(batch, self.device)
-            mel, linear, flen = self.featurizer.featurize(waves, wave_len)
+            mel, linear, flen = self._featurize(waves, wave_len)
             wavs = None
             if self.paras.gen_wav:
-                wavs = specgram_to_waveform(
-                    linear_to_amp(linear), step_generator(self.paras.seed, bi, self.device),
+                wavs = self._vocoder(
+                    linear_to_amp(linear), seed=step_seed(self.paras.seed, bi),
                     n_fft=acfg.n_fft, hop=acfg.hop_length, win_length=acfg.win_length,
                     preemphasis_coeff=acfg.preemphasis_coeff).cpu().numpy()
             mel, linear, flen = mel.cpu().numpy(), linear.cpu().numpy(), flen.cpu().numpy()

@@ -7,8 +7,10 @@ frames plus `INFERENCE_MARGIN_FRAMES`, and saves per utterance
 cut to ``|text| * FRAME_PHN_RATIO / r`` decode steps and ``|text|``
 memory positions); with ``--gen-wav`` also ``{id}-pred.wav``, Griffin-Lim
 of the linear prediction (K4). The prenet's dropout (on at inference, as
-in the JAX package) is drawn from a generator of (seed, batch), the
-Griffin-Lim phases from one of (seed + 1, batch).
+in the JAX package) is drawn from a generator seeded from (seed, batch),
+the Griffin-Lim phases from one seeded from (seed + 1, batch). Both run as
+programs sharing one `graphs.GraphOwner`: the eval step (a CUDA graph a
+batch shape on the card, from a shape's second batch on) and Griffin-Lim.
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ from ..bridge import load_jax_params
 from ..data import load_dataset, wavio
 from ..models import vqvae as V
 from ..ops.features import linear_to_amp
-from ..ops.griffin_lim import specgram_to_waveform
+from ..graphs import step_seed
+from ..ops.griffin_lim import griffin_lim_program
 from .checkpoint import load_checkpoint
 from .solver import BaseSolver, to_device
-from .steps import StepBuilder, step_generator
+from .steps import StepBuilder
 
 INFERENCE_MARGIN_FRAMES = 40
 
@@ -50,7 +53,9 @@ class SpecgramGenerator(BaseSolver):
         self.verbose("Load ckpt from {}, restarting at step {}".format(self.paras.load, self.step))
         self.builder = StepBuilder(self.model_cfg, self.featurizer, self.phn_attr,
                                    freq_loss_kwargs=self.freq_loss_kwargs())
+        self.builder.graph_owner(self.device).notify = self.verbose
         self._eval_step = self.builder.make_eval_step()
+        self._vocoder = griffin_lim_program(self.builder.graph_owner)
 
     def exec(self):
         self.gen_specgram("test", self.logdir + "_%dk" % (self.step // 1000))
@@ -66,13 +71,12 @@ class SpecgramGenerator(BaseSolver):
             self.progress("Generating spectrogram for {} - {}/{}".format(split, i + 1, len(loader)))
             waves, wave_len, text, sid = to_device(batch, self.device)
             out = self._eval_step(self.model, waves, wave_len, text, sid,
-                                  step_generator(self.paras.seed, i, self.device),
+                                  seed=step_seed(self.paras.seed, i),
                                   margin_frames=INFERENCE_MARGIN_FRAMES)
             wavs = None
             if self.paras.gen_wav:
-                wavs = specgram_to_waveform(
-                    linear_to_amp(out["lin_pred"]), step_generator(self.paras.seed + 1, i,
-                                                                   self.device),
+                wavs = self._vocoder(
+                    linear_to_amp(out["lin_pred"]), seed=step_seed(self.paras.seed + 1, i),
                     n_fft=acfg.n_fft, hop=acfg.hop_length, win_length=acfg.win_length,
                     preemphasis_coeff=acfg.preemphasis_coeff).cpu().numpy()
             mel_pred = out["mel_pred"].cpu().numpy()

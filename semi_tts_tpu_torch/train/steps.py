@@ -11,11 +11,12 @@ the step number into its key. Each train step is a `graphs.StepProgram`: on
 the card one CUDA graph a model and set of batch shapes (the JAX step's one
 jit program), its step number and teacher-forcing rate device scalars, its
 generator registered with the graphs and reseeded before each replay; the
-graphs of one builder share a memory pool. On the CPU the same cache holds
-the eager step. Building a step turns TF32 off (`use_fp32`),
-so the card computes in the fp32 the CPU path does, and asks cuDNN for
-deterministic algorithms (`use_deterministic`), so a step repeats bit for
-bit. A cycle's escapes stay on the device: the speech-first step gates its
+evaluation step is a `graphs.NoGradProgram` of the same kind. The graphs
+of one builder share a memory pool and a byte budget (`graphs.GraphOwner`).
+On the CPU the same caches hold the eager steps. Building a step turns TF32
+off (`use_fp32`), so the card computes in the fp32 the CPU path does, and
+asks cuDNN for deterministic algorithms (`use_deterministic`), so a step
+repeats bit for bit. A cycle's escapes stay on the device: the speech-first step gates its
 unpaired loss with the all-blank flag of trim/merge, and the text-first
 step zeroes a non-finite unpaired CTC loss, each a multiplier or a select,
 never a host branch.
@@ -30,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import use_deterministic, use_fp32
-from ..graphs import GraphOwner, StepProgram, step_seed
+from ..graphs import GraphOwner, NoGradProgram, StepProgram
 from ..models import vqvae as V
 from ..models.decoder import merge_wgrads, wgrad_probes
 from ..ops.ctc import ctc_loss
@@ -71,11 +72,6 @@ def _grads(model, total, probes, aux):
     return [grads[p] for p in params]
 
 
-def step_generator(seed: int, step_no: int, device) -> torch.Generator:
-    """The generator of one step: seeded with `step_seed` (seed, step_no)."""
-    return torch.Generator(device=device).manual_seed(step_seed(seed, step_no))
-
-
 class StepBuilder:
     """What the step functions share: model and audio configuration, the
     featurizer, the phonological attribute table, the loss weights, the
@@ -100,9 +96,9 @@ class StepBuilder:
         self._owner = None
 
     def graph_owner(self, device) -> GraphOwner:
-        """The memory pool and capture stream that the graphs of this
-        builder's steps share (on the featurizer's card): they never
-        replay at once."""
+        """The memory pool, capture stream and byte budget that the graphs
+        of this builder's steps share (on the featurizer's card): they
+        never replay at once."""
         if self._owner is None:
             self._owner = GraphOwner(device)
         return self._owner
@@ -366,12 +362,14 @@ class StepBuilder:
         for PER, and a free-running decode of ``(mel.shape[1] +
         margin_frames) // r`` steps (``tf_rate`` 0, no teacher) for the TTS
         loss -> dict(mel, linear, p_code, post_prob, enc_len, mel_pred,
-        lin_pred, align, tts_loss). ``generator`` draws the prenet's
-        dropout; ``margin_frames`` lets inference decode past the teacher's
-        length."""
+        lin_pred, align, tts_loss). A `graphs.NoGradProgram` sharing the
+        train steps' `GraphOwner`: ``eval_step(model, waves, wave_len,
+        text, sid, seed=None, margin_frames=0)``, one program a model,
+        batch shape and ``margin_frames``; ``seed`` reseeds the generator
+        that draws the prenet's dropout; ``margin_frames`` lets inference
+        decode past the teacher's length."""
 
-        @torch.no_grad()
-        def step(model, waves, wave_len, text, sid, generator=None, *, margin_frames=0):
+        def step(model, waves, wave_len, text, sid, *, generator, margin_frames=0):
             cfg = self.cfg
             mel, linear, _, flen, _ = self._features(waves, wave_len, need_aug=False)
             p_code, _, post_prob = V.speech_to_text(model, cfg, self.phn_attr, mel,
@@ -388,4 +386,4 @@ class StepBuilder:
                         enc_len=self._enc_len(flen, p_code.shape[1]), mel_pred=mel_pred,
                         lin_pred=lin_pred, align=align, tts_loss=tts_loss)
 
-        return step
+        return NoGradProgram(step, self.graph_owner)

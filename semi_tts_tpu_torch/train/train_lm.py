@@ -20,8 +20,12 @@ best so far; and resume a pretraining checkpoint of either package with
 ``--load``. Checkpoints hold the JAX layout and the optax state
 (`checkpoint.optimizer_tree`). A speech-LM step draws the prenet dropout,
 the decoder cells' dropout and the scheduled-sampling coins from a
-generator of (seed, step), as the paired step does
-(`audiolm_loss_and_grads` also takes the coins, ``coins=``).
+generator seeded from (seed, step), as the paired step does
+(`audiolm_loss_and_grads` also takes the coins, ``coins=``). Each LM step
+is a `graphs.StepProgram` and each dev loss a `graphs.NoGradProgram` (on the
+card a CUDA graph a batch shape, from a shape's second call on), the
+counterparts of the JAX trainer's jitted ``step`` and ``dev_step``; a
+solver's programs share one `graphs.GraphOwner` and its byte budget.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 from ..bridge import load_jax_params, to_jax_params
 from ..data.loader import infinite
 from ..device import use_deterministic, use_fp32
+from ..graphs import GraphOwner, NoGradProgram, StepProgram, step_seed
 from ..models.decoder import merge_wgrads, wgrad_probes
 from ..models.lm import AudioLM, TextLM, audiolm_apply, textlm_loss
 from ..utils.metrics import human_format
@@ -42,7 +47,7 @@ from .checkpoint import load_checkpoint, load_optimizer_tree, optimizer_tree, sa
 from .losses import freq_loss
 from .optim import Optimizer, advance_lr_schedule
 from .solver import to_device
-from .steps import _pad_frames, step_generator
+from .steps import _pad_frames
 from .train_vqvae import VqvaeSolver
 
 
@@ -86,31 +91,50 @@ def textlm_loss_and_grads(model: TextLM, text, text_len):
     return total.detach(), list(torch.autograd.grad(total, list(model.parameters())))
 
 
-def make_audiolm_step(model: AudioLM, feat, optimizer, floss, *, seed: int = 0):
-    """``step(step_no, waves, wave_len)`` -> dict(total_loss, grad_norm): one
-    speech-LM step, the parameters and BatchNorm statistics updated in
-    place. ``optimizer`` holds ``model.parameters()`` in order."""
+def make_audiolm_step(feat, optimizer, floss, owner, *, seed: int = 0):
+    """``step(model, step_no, waves, wave_len)`` -> dict(total_loss,
+    grad_norm): one speech-LM step of an `AudioLM`, the parameters and
+    BatchNorm statistics updated in place; a `graphs.StepProgram` whose
+    generator is reseeded from (seed, step_no). ``optimizer`` holds
+    ``model.parameters()`` in order; ``owner``: the `GraphOwner` of a
+    device."""
     use_fp32()
     use_deterministic()
 
-    def step(step_no, waves, wave_len):
-        g = step_generator(seed, step_no, waves.device)
-        total, grads = audiolm_loss_and_grads(model, feat, floss, waves, wave_len, g)
+    def step(model, step_no, waves, wave_len, *, generator):
+        total, grads = audiolm_loss_and_grads(model, feat, floss, waves, wave_len, generator)
         return dict(total_loss=total, grad_norm=optimizer.step(grads))
 
-    return step
+    return StepProgram(step, optimizer, seed, owner)
 
 
-def make_textlm_step(model: TextLM, optimizer):
-    """``step(step_no, text, text_len)`` -> dict(total_loss, grad_norm)."""
+def make_textlm_step(optimizer, owner):
+    """``step(model, step_no, text)`` -> dict(total_loss, grad_norm): one
+    text-LM step of a `TextLM` on int ``text`` (B, U) padded with 0; a
+    `graphs.StepProgram`."""
     use_fp32()
     use_deterministic()
 
-    def step(step_no, text, text_len):
-        total, grads = textlm_loss_and_grads(model, text, text_len)
+    def step(model, step_no, text, *, generator):
+        text = text.long()
+        total, grads = textlm_loss_and_grads(model, text, (text != 0).sum(-1))
         return dict(total_loss=total, grad_norm=optimizer.step(grads))
 
-    return step
+    return StepProgram(step, optimizer, 0, owner)
+
+
+def audiolm_dev_loss(model: AudioLM, waves, wave_len, *, generator, feat, floss):
+    """The speech LM's dev loss of one batch: clean features, the decode in
+    eval mode (its prenet dropout drawn from ``generator``), ``floss`` on
+    mel plus linear."""
+    mel, linear = _clean_features(feat, waves, wave_len, model.cfg.n_frames_per_step)
+    return _audiolm_total(model, floss, mel, linear, train=False, generator=generator)[0]
+
+
+def textlm_dev_loss(model: TextLM, text, *, generator):
+    """The text LM's dev loss of one batch of int ``text`` padded with 0."""
+    text = text.long()
+    return textlm_loss(model, text, (text != 0).sum(-1))
 
 
 class LmSolver(VqvaeSolver):
@@ -146,12 +170,17 @@ class LmSolver(VqvaeSolver):
                          f"{self.model_cfg.codebook.learn_dim})")
         self.optimizer = Optimizer(self.model.parameters(), h["optimizer"], h["lr"],
                                    h["lr_scheduler"])
+        self.graph_owner = GraphOwner(self.device, notify=self.verbose)
+        owner = lambda device: self.graph_owner  # the step and dev programs share it
         if self.lm_mode == "speech":
             self.floss = partial(freq_loss, **self.freq_loss_kwargs())
-            self._step = make_audiolm_step(self.model, self.featurizer, self.optimizer,
-                                           self.floss, seed=self.paras.seed)
+            self._step = make_audiolm_step(self.featurizer, self.optimizer, self.floss, owner,
+                                           seed=self.paras.seed)
+            self._dev = NoGradProgram(partial(audiolm_dev_loss, feat=self.featurizer,
+                                              floss=self.floss), owner)
         else:
-            self._step = make_textlm_step(self.model, self.optimizer)
+            self._step = make_textlm_step(self.optimizer, owner)
+            self._dev = NoGradProgram(textlm_dev_loss, owner)
         if self.paras.load:
             self.load(self.paras.load)
 
@@ -171,14 +200,11 @@ class LmSolver(VqvaeSolver):
     def _args(self, batch):
         """A device batch -> the step's arguments after ``step_no``."""
         waves, wave_len, text, _ = batch
-        if self.lm_mode == "speech":
-            return waves, wave_len
-        text = text.long()
-        return text, (text != 0).sum(-1)
+        return (waves, wave_len) if self.lm_mode == "speech" else (text,)
 
     def train_step(self, batch):
         """One step on ``batch`` at ``self.step`` -> its metrics."""
-        return self._step(self.step, *self._args(batch))
+        return self._step(self.model, self.step, *self._args(batch))
 
     def exec(self):
         self.verbose(f"Total pretraining steps {human_format(self.max_step)} ({self.lm_mode} LM).")
@@ -200,23 +226,19 @@ class LmSolver(VqvaeSolver):
         if self._last_valid_step != self.step:
             self.validate()  # the last step's: a checkpoint always exists
 
-    @torch.no_grad()
     def dev_loss(self, i, batch):
-        """The loss of dev batch ``i``: the speech LM decodes in eval mode,
-        its prenet dropout drawn from a generator of (seed, step, i)."""
-        args = self._args(batch)
-        if self.lm_mode == "text":
-            return float(textlm_loss(self.model, *args))
-        g = step_generator(self.paras.seed + 1, self.step * 100003 + i, self.device)
-        mel, linear = _clean_features(self.featurizer, *args, self.model.cfg.n_frames_per_step)
-        return float(_audiolm_total(self.model, self.floss, mel, linear, train=False,
-                                    generator=g)[0])
+        """The loss tensor of dev batch ``i`` through the dev program: the
+        speech LM decodes in eval mode, its prenet dropout drawn from a
+        generator seeded from (seed, step, i)."""
+        return self._dev(self.model, *self._args(batch),
+                         seed=step_seed(self.paras.seed + 1, self.step * 100003 + i))
 
     def validate(self):
         """Mean dev loss; saves the checkpoint when it is no worse than the
         best so far. Returns it."""
         self._last_valid_step = self.step
         losses = [self.dev_loss(i, to_device(b, self.device)) for i, b in enumerate(self.dev_set)]
+        losses = [float(v) for v in losses]  # read after the replays
         dev = sum(losses) / max(len(losses), 1)
         self.write_log("lm_loss", {"dev": dev})
         if dev <= self.best_dev:

@@ -46,14 +46,15 @@ from ..data.loader import infinite
 from ..models import vqvae as V
 from ..models.embed import full_codebook_table
 from ..ops.features import linear_to_amp
-from ..ops.griffin_lim import random_phases, specgram_to_waveform
+from ..graphs import step_seed
+from ..ops.griffin_lim import griffin_lim_program
 from ..utils import viz
 from ..utils.metrics import cal_per, human_format
 from ..utils.timer import Timer, profile_trace, profile_window
 from .checkpoint import apply_pretrained, load_checkpoint, load_optimizer_tree
 from .optim import Optimizer, advance_lr_schedule, tf_rate_schedule
 from .solver import BaseSolver, DeviceBatches, TrainLog, to_device
-from .steps import StepBuilder, Weights, step_generator
+from .steps import StepBuilder, Weights
 
 CKPT_STEP = 10000
 LISTEN_N_EXAMPLES = 6    # rows whose figures and audio are logged
@@ -118,6 +119,7 @@ class VqvaeTrainer:
         self._step_fn = self._make_step()
         self._cycle_fns = self._make_cycles()
         self._eval_step = builder.make_eval_step()
+        self._vocoder = griffin_lim_program(builder.graph_owner)
 
     def _make_step(self):
         """The paired train step."""
@@ -260,10 +262,10 @@ class VqvaeTrainer:
         return out
 
     def _eval(self, i, waves, wave_len, text, sid):
-        """The eval step on dev batch ``i``, its prenet dropout drawn from a
-        generator of (seed, step, i)."""
-        g = step_generator(self.seed + 1, self.step * 100003 + i, waves.device)
-        return self._eval_step(self.model, waves, wave_len, text, sid, g)
+        """The eval step's program on dev batch ``i``, its prenet dropout
+        drawn from a generator seeded from (seed, step, i)."""
+        return self._eval_step(self.model, waves, wave_len, text, sid,
+                               seed=step_seed(self.seed + 1, self.step * 100003 + i))
 
     def validate(self):
         """Mean TTS loss and phone error rate over the dev set; keeps the
@@ -318,10 +320,9 @@ class VqvaeTrainer:
             self.log(self.step, f"dv_align{i}", viz.feat_to_fig(align_p[i]))
         if self.store_best_per:
             return
-        g = step_generator(self.seed + 2, self.step, mel_d.device)
-        self._log_waves("mel_wave", mel_d, g, is_mel=True)
+        self._log_waves("mel_wave", mel_d, step_seed(self.seed + 2, self.step), is_mel=True)
         if lin_d is not None:
-            self._log_waves("linear_wave", lin_d, g, is_mel=False)
+            self._log_waves("linear_wave", lin_d, None, is_mel=False)
         if self.step == 1:
             mel_t, lin_t = out["mel"][:n], out["linear"]
             for i, txt in enumerate(truth[:n]):
@@ -330,22 +331,21 @@ class VqvaeTrainer:
                 if lin_t is not None:
                     self.log(self.step, f"linear_spec{i}_gt",
                              viz.feat_to_fig(lin_t[i].cpu().numpy()))
-            self._log_waves("mel_wave", mel_t, g, is_mel=True, suffix="_gt")
+            self._log_waves("mel_wave", mel_t, None, is_mel=True, suffix="_gt")
             if lin_t is not None:
-                self._log_waves("linear_wave", lin_t[:n], g, is_mel=False, suffix="_gt")
+                self._log_waves("linear_wave", lin_t[:n], None, is_mel=False, suffix="_gt")
 
-    def _log_waves(self, name, feats, generator, *, is_mel, suffix=""):
-        """Batched Griffin-Lim on the device of normalized mel or linear
-        spectrograms (B, T, D), its initial phases drawn from
-        ``generator``; logs each row's wave as ``{name}{i}{suffix}``."""
+    def _log_waves(self, name, feats, seed, *, is_mel, suffix=""):
+        """Batched Griffin-Lim program on the device of normalized mel or
+        linear spectrograms (B, T, D), its initial phases drawn from its
+        generator reseeded with ``seed`` (None: drawing on from the last
+        call); logs each row's wave as ``{name}{i}{suffix}``."""
         feat = self.builder.feat
         a = feat.cfg
         amp = feat.mel_to_linear_amp(feats) if is_mel else linear_to_amp(feats)
-        phases = random_phases(amp.shape, generator, amp.device)
-        wavs = specgram_to_waveform(amp, n_fft=a.n_fft, hop=a.hop_length,
-                                    win_length=a.win_length,
-                                    preemphasis_coeff=a.preemphasis_coeff,
-                                    phases=phases).cpu().numpy()
+        wavs = self._vocoder(amp, seed=seed, n_fft=a.n_fft, hop=a.hop_length,
+                             win_length=a.win_length,
+                             preemphasis_coeff=a.preemphasis_coeff).cpu().numpy()
         for i, w in enumerate(wavs):
             self.log(self.step, f"{name}{i}{suffix}", (w, a.sample_rate))
 
@@ -440,6 +440,7 @@ class VqvaeSolver(BaseSolver):
         self.builder = StepBuilder(self.model_cfg, self.featurizer, self.phn_attr,
                                    weights=self.weights, freq_loss_kwargs=self.freq_loss_kwargs(),
                                    actual_len=getattr(self.paras, "actual_len", False))
+        self.builder.graph_owner(self.device).notify = self.verbose
         w = self.weights
         self.verbose(["Optim.spec.| Algo. = {}\t| Lr/sampling scheduler = {}/{}".format(
             h["optimizer"], h["lr_scheduler"], h.get("tf_end", 1.0) != 1),

@@ -6,9 +6,10 @@ writes) -> Griffin-Lim wavs, on the card unless ``--cpu``:
         --specgram-dir ckpt/<name>_<step>k --output-dir wavs/ [--sample] [--batch 16]
 
 Files are grouped by frame count and vocoded a batch of ``--batch`` at a
-time (`ops.griffin_lim.specgram_to_waveform`, kernels K4 on the card), the
-initial phases of every batch drawn in turn from one generator seeded 0, so
-a run repeats. Wavs are written 16-bit with `data.wavio`.
+time (`ops.griffin_lim.griffin_lim_program`: kernels K4 on the card, a CUDA
+graph a batch shape from the shape's second batch on), the initial phases
+of every batch drawn in turn from the program's generator seeded 0, so a
+run repeats. Wavs are written 16-bit with `data.wavio`.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from ..data import wavio
 from ..device import resolve_device, use_fp32
 from ..ops.features import AudioConfig, linear_to_amp
-from ..ops.griffin_lim import random_phases, specgram_to_waveform
+from ..ops.griffin_lim import griffin_lim_program
 
 SAMPLE_LIST = [  # the utterances --sample keeps
     "LJ010-0057", "LJ027-0067", "LJ009-0213", "LJ034-0190", "LJ005-0281",
@@ -64,15 +65,13 @@ def batches(specgram_dir, batch: int, sample: bool = False):
     return out
 
 
-def vocode(specs, acfg: AudioConfig, generator, device):
-    """Normalized linear spectrograms (B, T, F) -> (waves (B, hop*(T-1)),
-    the initial phases drawn from ``generator``)."""
+def vocode(specs, acfg: AudioConfig, gl, device, seed=None):
+    """Normalized linear spectrograms (B, T, F) -> waves (B, hop*(T-1))
+    through ``gl`` (a `griffin_lim_program`), its phases drawn from its
+    generator reseeded with ``seed`` (None: drawing on)."""
     amp = linear_to_amp(torch.from_numpy(specs).to(device))
-    phases = random_phases(amp.shape, generator, device)
-    wavs = specgram_to_waveform(amp, n_fft=acfg.n_fft, hop=acfg.hop_length,
-                                win_length=acfg.win_length,
-                                preemphasis_coeff=acfg.preemphasis_coeff, phases=phases)
-    return wavs, phases
+    return gl(amp, seed=seed, n_fft=acfg.n_fft, hop=acfg.hop_length, win_length=acfg.win_length,
+              preemphasis_coeff=acfg.preemphasis_coeff)
 
 
 def vocode_dir(acfg: AudioConfig, specgram_dir, output_dir, *, batch: int = 16,
@@ -84,10 +83,10 @@ def vocode_dir(acfg: AudioConfig, specgram_dir, output_dir, *, batch: int = 16,
     os.makedirs(output_dir, exist_ok=True)
     todo = batches(specgram_dir, batch, sample)
     total = sum(len(paths) for paths, _ in todo)
-    g = torch.Generator(device=device).manual_seed(0)
+    gl = griffin_lim_program()
     written = []
-    for paths, specs in todo:
-        wavs, _ = vocode(specs, acfg, g, device)
+    for i, (paths, specs) in enumerate(todo):
+        wavs = vocode(specs, acfg, gl, device, seed=0 if i == 0 else None)
         for f, wav in zip(paths, wavs.cpu().numpy()):
             out = join(output_dir, basename(f).replace("-spec.npy", ".wav"))
             wavio.write(out, wav, acfg.sample_rate)

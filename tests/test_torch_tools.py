@@ -31,6 +31,7 @@ from semi_tts_tpu_torch.data import wavio
 from semi_tts_tpu_torch.data.loader import TTSLoader
 from semi_tts_tpu_torch.data.text import load_text_encoder
 from semi_tts_tpu_torch.models import vqvae as V
+from semi_tts_tpu_torch.ops import griffin_lim as PGL
 from semi_tts_tpu_torch.train import torch_import as TI
 from semi_tts_tpu_torch.train.checkpoint import load_checkpoint
 from semi_tts_tpu_torch.util_cli import gen_wav_from_specgram as PGW
@@ -242,7 +243,7 @@ def test_gen_wav_tool_matches_the_jax_tool(tmp_path, monkeypatch):
     np.save(spec_dir / "d-spec.npy", np.load(spec_dir / "b-spec.npy")[::-1])
     todo = PGW.batches(str(spec_dir), 2)
     chain = iter(_jax_phase_chain([s.shape for _, s in todo]))
-    monkeypatch.setattr(PGW, "random_phases", lambda *a: torch.from_numpy(next(chain)))
+    monkeypatch.setattr(PGL, "random_phases", lambda *a: torch.from_numpy(next(chain)))
     flags = ["--config", str(cfg_path), "--specgram-dir", str(spec_dir), "--batch", "2", "--cpu"]
     assert PGW.main(flags + ["--output-dir", str(tmp_path / "p")]) == 4
     JGW.run(JGW_parser().parse_args(flags + ["--output-dir", str(tmp_path / "j")]))
