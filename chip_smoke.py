@@ -145,7 +145,28 @@ Phases, each fatal on failure:
    to its eager twin at two batch shapes (`program_check`), one batch's K4
    outputs held to their plain versions at every Griffin-Lim round (1e-4),
    the whole batch's distance to the plain Griffin-Lim on the card and on
-   the CPU reported.
+   the CPU reported;
+11. meshes (`phase_mesh`, `semi_tts_tpu_torch.parallel`): (a) one rank
+   over NCCL (``--mesh 1x1``): the graphed paired and speech-first steps
+   (B=8 x 3.0 s, 8 + 8 rows) through the mesh code, the gradient's
+   all-reduce captured in the graph, against the mesh-less graphed steps
+   from one copied state (bit for bit where the sums are the same, else the
+   step gates), their walls side by side and the all-reduce's device time
+   in a profiled replay; (b) two ranks on the one card over gloo (``--mesh
+   2x1``, eager steps: a graph cannot capture gloo): each step on 4 + 4
+   rows a rank against the one-process step on the 8 rows (the loss 1e-4
+   relative, the gradients by the card-vs-CPU gates, the one-process
+   unpaired argmax equal to the ranks' on every frame), `TTSServer(mesh=)`
+   (its stages graphs) at B=16 x U=32 (8 + 8 rows) and B=3 (whole on each
+   rank) against the single server on the same weights (their digests
+   equal; 1e-3), every kernel of each path launched on each rank; (c)
+   ``python -m semi_tts_tpu_torch --mesh 2x1`` in two processes on phase
+   8's corpus, 4 steps: the ranks' train batches disjoint and together the
+   unsharded loader's, dev unsharded, checkpoints written by rank 0 alone,
+   one loaded by a single-process solver. Each spawned world is joined
+   with a deadline (MESH_DEADLINE_S) past which its ranks are killed and
+   the run fails. ``python3 chip_smoke.py --mesh-study`` runs the build
+   and this phase alone, with the spread study of (b) (`spread_study`).
 
 The server and the train steps run as CUDA graphs (`semi_tts_tpu_torch.graphs`):
 each path's line gives the graphed and eager walls (``wall_s``,
@@ -196,7 +217,8 @@ and attention kernels), an ``{"asr_shape": ...}`` line, a ``{"featurizer": ...}`
 line, a ``{"host_decoder": ...}`` line (with the card's name and power
 limit and the CLI's steady step wall), a ``{"cli": ...}`` line, a
 ``{"pretrain": ...}`` line (with the card's name and power limit), a
-``{"tools": ...}`` line and, last,
+``{"tools": ...}`` line, a ``{"mesh": ...}`` line (with the card's name
+and power limit) and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1637,7 +1659,7 @@ def phase_serving(build_dir):
 
 
 def graph_stats(prog):
-    """A graphed program's capture time (its warm-up included) and host
+    """A graphed program's capture time (its capturing call's eager run included) and host
     launches a call (input copies, the replay, output clones)."""
     return {"capture_s": getattr(prog, "capture_s", None),
             "host_launches": getattr(prog, "host_launches", None)}
@@ -1675,6 +1697,10 @@ def serving_graph_checks(server, flagship):
     for name, (text, sid) in buckets.items():
         steps = server.decode_steps_for(text)
         enc = np.sum(text != 0, -1)
+        # a program's capturing call runs eagerly: capture first, so that
+        # every compared request replays
+        server.synthesize(text, sid, key=SERVING_KEYS[0])
+        server.synthesize_full(text, sid, key=SERVING_KEYS[0])
         for key in SERVING_KEYS:
             wav = server.synthesize(text, sid, key=key)
             want = eager_request(server, text, sid, key, steps)[0].cpu().numpy()
@@ -1726,6 +1752,7 @@ def loose_cudnn(server, buckets):
         torch.backends.cudnn.deterministic = False
         for name, (text, sid) in buckets.items():
             steps = srv.decode_steps_for(text)
+            srv.synthesize(text, sid, key=key)  # the capture; the next request replays
             wav = srv.synthesize(text, sid, key=key)
             want = eager_request(srv, text, sid, key, steps)[0].cpu().numpy()
             t, s_ = srv._place(text, sid)
@@ -2040,7 +2067,7 @@ def graph_check(model, opt, make, call, step0):
     (mg, og), (me, oe) = copy.deepcopy((model, opt)), copy.deepcopy((model, opt))
     start = [t.detach().clone() for _, t in model_state(me, oe)]
     sg, se = make(og), make(oe)
-    sg.capture_at = 1  # every graphed step from the graph, the first included
+    sg.capture_at = 1  # the first step runs eagerly and captures; the others replay
     mets_g, mets_e, eager_walls = [], [], []
     for i in range(GRAPH_STEPS):
         if i == GRAPH_STEPS - 1:
@@ -2291,23 +2318,25 @@ def compare_grads(model, grads_g, grads_c, tol=1e-3, kinked=None, spread=None):
 SPREAD_DRAWS = 4
 
 
-def card_spread(model, grads_fn, grads_g, kinked=None, draws=SPREAD_DRAWS):
+def card_spread(model, grads_fn, grads_g, kinked=None, draws=SPREAD_DRAWS, seed=0, at=()):
     """How far the card's own gradients move, leaf by leaf, in a second run
     on the same inputs (``rerun``, which must repeat bit for bit:
     ``rerun_identical``) and in ``draws`` runs on weights moved by one ulp
     each, up or down at random (``ulp``: kinks that the rounding crosses,
-    which any two fp32 implementations meet). The worst leaf by each
-    measure of `compare_grads`, and in L2 the worst of the leaves not
-    ``kinked``. Returns (report, {leaf: largest L2 ulp spread})."""
+    which any two fp32 implementations meet; draw ``s`` from the generator
+    seeded ``1000 * seed + s``). The worst leaf by each measure of
+    `compare_grads`, and in L2 the worst of the leaves not ``kinked``.
+    Returns (report, {leaf: largest L2 ulp spread}); with ``at`` (draw
+    counts), the report's ``by_draws`` holds that dict after each."""
     names = [n for n, _ in model.named_parameters()]
     again = grads_fn(model)
     out = {"rerun": worst_leaves(leaf_errors(names, again, grads_g)),
            "rerun_identical": all(a is None and b is None or torch.equal(a, b)
                                   for a, b in zip(again, grads_g))}
-    worst = {}
+    worst, out["by_draws"] = {}, {}
     for s in range(draws):
         moved = copy.deepcopy(model)
-        gen = torch.Generator().manual_seed(s)
+        gen = torch.Generator().manual_seed(1000 * seed + s)
         with torch.no_grad():
             for p in moved.parameters():
                 up = (torch.rand(p.shape, generator=gen) < 0.5).to(p.device)
@@ -2316,6 +2345,8 @@ def card_spread(model, grads_fn, grads_g, kinked=None, draws=SPREAD_DRAWS):
         for n, (l2, mx) in leaf_errors(names, grads_fn(moved), grads_g).items():
             a, b = worst.get(n, (0.0, 0.0))
             worst[n] = (max(a, l2), max(b, mx))
+        if s + 1 in at:
+            out["by_draws"][s + 1] = {n: v[0] for n, v in worst.items()}
         del moved
     held = [n for n in worst if kinked is None or not kinked.match(n)]
     held_worst = max(held, key=lambda n: worst[n][0])
@@ -2464,7 +2495,7 @@ def paired_reference(model, cfg, phn_attr, dev):
 CYCLE_WEIGHTS = dict(unpair_speech=10.0, unpair_text=1.0)
 CYCLE_STEPS = 9   # 0 paired, 1 text-first, 2 speech-first (warm-ups); 3-8 timed, three of each
 LONG_S = 336924   # 15.28 s, the longest utterance of data/partition_tables/*.csv
-SPEECH_FIRST, TEXT_FIRST = "speech_first", "text_first"
+PAIRED, SPEECH_FIRST, TEXT_FIRST = "paired", "speech_first", "text_first"
 CYCLE_KERNELS = ("trim_merge", "trim_merge_bwd")
 # K1 with cell states, K7, K2, K8, K3, K9, K5, K6 and, in the speech-first step, B6
 STEP_KERNELS = {SPEECH_FIRST: PAIRED_STEP_KERNELS + CYCLE_KERNELS, TEXT_FIRST: PAIRED_STEP_KERNELS}
@@ -3829,7 +3860,559 @@ def phase_tools(specs_dir, dev):
     return out
 
 
-def main():
+# ---- phase 11: meshes (`semi_tts_tpu_torch.parallel`) ------------------------
+
+MESH_TIMEOUT_S = 300       # every process group's timeout
+MESH_DEADLINE_S = 420      # a spawned world's: its ranks killed and the run failed past it
+MESH_REPS = 3              # timed replays of each captured step, mesh and mesh-less alike
+MESH_STEPS = {PAIRED: (1, 3, 5), SPEECH_FIRST: (2, 4, 6)}  # GRAPH_STEPS step numbers of each
+MESH_SERVE = ((B, U), (3, 20))  # split over two ranks; whole on each (3 rows)
+# ulp draws of the one-process step's own spread, which bounds the kinked
+# leaves of the mesh check (a mesh changes every reduction order at once:
+# BatchNorm's statistics, the gradient's row sums). ``--mesh-study`` reads
+# the spread after each of MESH_STUDY_DRAWS draws on each of
+# MESH_STUDY_SEEDS: a leaf's spread reads ~4e-5 until a draw crosses one of
+# its kinks and 1.6-2.2e-3 after; at 4 draws one seed of three crossed none
+# and failed the check, at 8 and at 16 every seed held it (PERF.md §6)
+MESH_SPREAD_DRAWS = 8
+MESH_STUDY_DRAWS = (4, 8, 16)
+MESH_STUDY_SEEDS = (0, 1, 2)
+
+
+def state_digest(model):
+    """sha256 of the bytes of every parameter and buffer of ``model``, in
+    order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in list(model.parameters()) + list(model.buffers()):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_model(dev):
+    """(cfg, phn_attr on ``dev``, the flagship model from seed 0 on ``dev``)."""
+    from semi_tts_tpu_torch.models import vqvae as V
+    from semi_tts_tpu_torch.utils.metrics import read_phn_attr
+
+    config = flagship_config()
+    cfg = flagship_vqvae_config(config)
+    phn_attr = torch.from_numpy(read_phn_attr(config["model"]["codebook"]["phn_attr_pth"]))
+    model = V.VQVAE(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    return cfg, phn_attr.to(dev), model
+
+
+def _mesh_builder(cfg, phn_attr, dev, mesh):
+    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
+    from semi_tts_tpu_torch.train.steps import StepBuilder, Weights
+
+    return StepBuilder(cfg, AudioFeaturizer(audio_config(), dev), phn_attr,
+                       weights=Weights(**CYCLE_WEIGHTS), freq_loss_kwargs=FLAGSHIP_FREQ_LOSS,
+                       mesh=mesh)
+
+
+def _mesh_batches(kind, dev):
+    """The global batch of a kind's step: B=8 x 3.0 s paired, and for the
+    speech-first step 8 unpaired rows more."""
+    pair = training_batch(0, dev)
+    return pair if kind == PAIRED else pair + training_batch(2, dev)
+
+
+def _make(builder, kind, opt):
+    return (builder.make_paired_step if kind == PAIRED else builder.make_speech_first_step)(opt)
+
+
+def mesh_captured(dev):
+    """(a) One rank over NCCL (``--mesh 1x1``): the graphed paired and
+    speech-first steps through the mesh code (the gradient's all-reduce and
+    the losses' mean captured in the graph) against the mesh-less graphed
+    steps from one copy of the state: GRAPH_STEPS steps of each, every
+    metric, parameter, BN statistic and optimizer tensor compared; then
+    MESH_REPS more replays of each, timed in turn, the kernels launched on
+    the mesh path (the wrappers' counters over its capture), the
+    collectives the mesh steps issued (``all_reduce_calls``, counted at the
+    Python call: the capture's are in the graph), and one profiled mesh
+    replay: its kernels by name and the launches and device time of NCCL's
+    kernels (``nccl``: none on an H100, a one-rank all-reduce in place
+    launching no kernel)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.parallel.mesh import make_mesh
+    from semi_tts_tpu_torch.train.optim import Optimizer
+
+    if not dist.is_nccl_available():
+        raise SystemExit("chip_smoke: torch.distributed has no NCCL on this machine")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            mesh = make_mesh(1)
+            cfg, phn_attr, model = _mesh_model(dev)
+            all_reduce = dist.all_reduce
+            calls = []
+
+            def counted(*a, **k):
+                calls.append(1)
+                return all_reduce(*a, **k)
+
+            for kind in (PAIRED, SPEECH_FIRST):
+                batch = _mesh_batches(kind, dev)
+                runs = {}
+                for name, m in (("mesh", mesh), ("plain", None)):
+                    mm = copy.deepcopy(model)
+                    opt = Optimizer(mm.parameters(), lr=1e-3, lr_scheduler="decay", mesh=m)
+                    step = _make(_mesh_builder(cfg, phn_attr, dev, m), kind, opt)
+                    step.capture_at = 1
+                    start = [t.detach().clone() for _, t in model_state(mm, opt)]
+                    kernels.reset_launches()
+                    calls.clear()
+                    dist.all_reduce = counted
+                    try:
+                        mets = [step(mm, n, 1.0, *batch) for n in MESH_STEPS[kind]]
+                    finally:
+                        dist.all_reduce = all_reduce
+                    runs[name] = dict(model=mm, opt=opt, step=step, mets=mets, start=start,
+                                      launches=kernels.launch_counts(), calls=len(calls))
+                differing, held = [], True
+                for i, (g, e) in enumerate(zip(runs["mesh"]["mets"], runs["plain"]["mets"])):
+                    for k in g:
+                        if not torch.equal(g[k], e[k]):
+                            scalar = k.endswith("_loss") or k == "grad_norm"
+                            err = _rel(g[k].float(), e[k].float(), e[k].float()) if scalar else None
+                            differing.append([f"step {i} {k}", err])
+                            held = held and scalar and err <= 1e-4
+                mesh_state = model_state(runs["mesh"]["model"], runs["mesh"]["opt"])
+                for (name, g), (_, e), s0 in zip(mesh_state, model_state(runs["plain"]["model"],
+                                                                         runs["plain"]["opt"]),
+                                                 runs["plain"]["start"]):
+                    if not torch.equal(g, e):
+                        err = None if not g.is_floating_point() else _rel(g, e, e - s0)
+                        differing.append([name, err])
+                        held = held and err is not None and err <= 1e-3
+                walls = {"mesh": [], "plain": []}
+                n0 = MESH_STEPS[kind][-1] + 2
+                for r in range(MESH_REPS):
+                    for name in ("mesh", "plain"):
+                        run = runs[name]
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        run["step"](run["model"], n0 + 2 * r, 1.0, *batch)
+                        torch.cuda.synchronize()
+                        walls[name].append(time.perf_counter() - t0)
+                wall = float(np.median(walls["mesh"]))
+                run = runs["mesh"]
+                prof = profiled_step(lambda: run["step"](run["model"], n0 + 2 * MESH_REPS, 1.0,
+                                                         *batch), wall,
+                                     picked=("nccl",))
+                names = PAIRED_STEP_KERNELS + (CYCLE_KERNELS if kind == SPEECH_FIRST else ())
+                idle = [n for n in names if run["launches"][n] == 0]
+                if idle:
+                    raise SystemExit(f"chip_smoke: kernels not launched on the 1x1 mesh {kind} "
+                                     f"step: {idle}")
+                require_seen(prof["kernels_seen"], names, f"1x1 mesh {kind} step")
+                res = dict(steps=len(MESH_STEPS[kind]), bit_for_bit=not differing,
+                           differing=differing[:20], held_to_gates=held,
+                           wall_s=wall, walls_s=walls["mesh"],
+                           plain_wall_s=float(np.median(walls["plain"])),
+                           plain_walls_s=walls["plain"], busy_s=prof["device_busy_s"],
+                           idle_share=prof["idle_share"],
+                           all_reduce_calls=run["calls"],
+                           plain_all_reduce_calls=runs["plain"]["calls"],
+                           nccl=dict(zip(("launches", "device_ms"), prof["picked_ms"]["nccl"])),
+                           top_device_ms=prof["top_device_ms"][:8],
+                           launches=prof["kernels_seen"], wrapper_launches=run["launches"],
+                           graphs=step_graphs(run["step"]),
+                           total_loss=[float(m["total_loss"]) for m in run["mets"]])
+                if not held:
+                    raise SystemExit(f"chip_smoke: the 1x1 mesh {kind} step and the mesh-less "
+                                     f"one disagree: {res}")
+                if not run["calls"] or runs["plain"]["calls"]:
+                    raise SystemExit(f"chip_smoke: the 1x1 mesh {kind} step issued "
+                                     f"{run['calls']} all-reduces, the mesh-less one "
+                                     f"{runs['plain']['calls']}")
+                out[kind] = res
+                del runs, run
+                gc.collect()
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def _mesh_world(n, target, args, what):
+    """``target(rank, n, store, out, *args)`` in ``n`` spawned processes
+    (``spawn``: this one holds a CUDA context), joined with MESH_DEADLINE_S;
+    a rank still running then is killed and the run fails, as does a rank
+    that fails. Returns the ranks' pickled results."""
+    import multiprocessing as mp
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(n)]
+        procs = [ctx.Process(target=target, args=(r, n, os.path.join(tmp, "store"), outs[r])
+                             + tuple(args)) for r in range(n)]
+        for p in procs:
+            p.start()
+        end = time.monotonic() + MESH_DEADLINE_S
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if alive:
+            raise SystemExit(f"chip_smoke: {what}: ranks {alive} ran past {MESH_DEADLINE_S} s, "
+                             "killed")
+        results = []
+        for r, p in enumerate(procs):
+            if p.exitcode != 0 or not os.path.exists(outs[r]):
+                raise SystemExit(f"chip_smoke: {what}: rank {r} failed (exit code {p.exitcode})")
+            with open(outs[r], "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
+def _rank_done(out, result):
+    import pickle
+
+    import torch.distributed as dist
+
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _gloo_rank(rank, n, store, out):
+    """(b) on one rank of two over gloo on the one card: the paired and the
+    speech-first step (eager) on this rank's rows, then `TTSServer(mesh=)`
+    at MESH_SERVE; the wrappers' launches of each path."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from semi_tts_tpu_torch import kernels, use_fp32
+    from semi_tts_tpu_torch.ops.features import AudioConfig
+    from semi_tts_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from semi_tts_tpu_torch.serve import TTSServer
+    from semi_tts_tpu_torch.train.optim import Optimizer
+
+    class Recording(Optimizer):
+        def reduce(self, g):
+            g = super().reduce(g)
+            self.g = g.detach().clone()
+            return g
+
+    from semi_tts_tpu_torch.device import resolve_device
+
+    torch.cuda.set_device(0)
+    use_fp32()
+    dev = resolve_device(None)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=n, rank=rank,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    kernels.build_all()  # loads the libraries the parent built
+    mesh = make_mesh(n)
+    res = {"mesh": dict(mesh.shape), "backend": mesh.backend}
+    for kind in (PAIRED, SPEECH_FIRST):
+        cfg, phn_attr, model = _mesh_model(dev)
+        opt = Recording(model.parameters(), lr=1e-3, lr_scheduler="decay", mesh=mesh)
+        step = _make(_mesh_builder(cfg, phn_attr, dev, mesh), kind, opt)
+        rows = shard_batch(_mesh_batches(kind, dev), mesh)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mets = step(model, MESH_STEPS[kind][0], 1.0, *rows)
+        torch.cuda.synchronize()
+        r = dict(wall_s=time.perf_counter() - t0, launches=kernels.launch_counts(),
+                 rows=[list(t.shape) for t in rows], graphs=len(step.programs()),
+                 mets={k: float(v) for k, v in mets.items() if v.ndim == 0})
+        if kind == SPEECH_FIRST:
+            r["unpair_pred"] = mets["unpair_pred"].cpu().numpy()
+        if rank == 0:
+            r["grads"] = opt.g.cpu().numpy()
+        res[kind] = r
+        del model, opt, step
+    cfg, phn_attr, model = _mesh_model(dev)
+    server = TTSServer(cfg, audio_config(), phn_attr.cpu().numpy(), model, mesh=mesh)
+    res["serving"] = {"state_digest": state_digest(server.model)}
+    for b, u in MESH_SERVE:
+        text, sid = serving_inputs(b, u, seed=b)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        first = server.synthesize(text, sid, key=21)  # eager, then the capture
+        t1 = time.perf_counter()
+        wav = server.synthesize(text, sid, key=21)  # a replay
+        wall = time.perf_counter() - t1
+        counted = kernels.launch_counts()
+        # one more replay on every rank (a split request gathers), profiled on rank 0
+        again = lambda: server.synthesize(text, sid, key=21)
+        seen = profiled_step(again, wall)["kernels_seen"] if rank == 0 else again()
+        res["serving"][f"B{b}"] = dict(wav=wav if rank == 0 else wav.shape,
+                                       first_wall_s=t1 - t0, wall_s=wall,
+                                       repeat_bit_for_bit=bool(np.array_equal(first, wav)),
+                                       wrapper_launches=counted,
+                                       launches=seen if rank == 0 else None)
+    _rank_done(out, res)
+
+
+def spread_study(model, grads_fn, grads_c, grads_g):
+    """The ulp spread that bounds the kinked leaves (`card_spread`) after
+    each of MESH_STUDY_DRAWS draws, on each of MESH_STUDY_SEEDS: the
+    largest kinked spread and its leaf, and `compare_grads` of the mesh's
+    gradients ``grads_g`` under that spread (the leaf nearest its bound,
+    its error and bound, whether the check holds)."""
+    rows = []
+    for seed in MESH_STUDY_SEEDS:
+        rep, _ = card_spread(model, grads_fn, grads_c, KINKED_LEAVES,
+                             draws=max(MESH_STUDY_DRAWS), seed=seed, at=MESH_STUDY_DRAWS)
+        for draws, by_leaf in rep["by_draws"].items():
+            top = max((n for n in by_leaf if KINKED_LEAVES.match(n)), key=by_leaf.get)
+            c = compare_grads(model, grads_g, grads_c, kinked=KINKED_LEAVES, spread=by_leaf)
+            rows.append(dict(seed=seed, draws=draws, top_kinked_leaf=top,
+                             top_kinked_spread=by_leaf[top],
+                             held_worst_spread=max(v for n, v in by_leaf.items()
+                                                   if not KINKED_LEAVES.match(n)),
+                             nearest_leaf=c["kinked_nearest_leaf"],
+                             nearest_l2_rel_err=c["kinked_nearest_l2_rel_err"],
+                             nearest_bound=c["kinked_nearest_bound"], grads_ok=c["grads_ok"]))
+    return rows
+
+
+def mesh_gloo(dev, study=False):
+    """(b) Two ranks on the one card over gloo (``--mesh 2x1``, eager
+    steps): each step on 4 + 4 rows a rank against the one-process step on
+    the 8 rows (the loss within 1e-4 relative; the gradients by
+    `compare_grads`' gates beside the card's own spread of
+    MESH_SPREAD_DRAWS draws; the speech-first step's one-process twin
+    follows the ranks' unpaired argmax, ``tokens=``, and its own argmax
+    must agree with theirs on every frame, ``flipped_frames`` 0), and
+    `TTSServer(mesh=)` (graphed stages) against the single server on a
+    fresh copy of the weights, whose parameters and buffers must equal
+    the ranks' bit for bit: a rank's first request (its eager run and
+    capture) and a replay equal bit for bit, the replay within 1e-3 of the
+    single server for the split request and bit for bit for the B=3 one,
+    run whole, beside which the error of a single server on the weights
+    that the reference gradient runs left (their BatchNorm statistics
+    moved) is reported. ``study``: `spread_study` too."""
+    from semi_tts_tpu_torch.graphs import step_seed
+    from semi_tts_tpu_torch.serve import TTSServer
+
+    ranks = _mesh_world(2, _gloo_rank, (), "the 2x1 gloo mesh")
+    out = {"mesh": ranks[0]["mesh"], "backend": ranks[0]["backend"]}
+    cfg, phn_attr, model = _mesh_model(dev)
+    builder = _mesh_builder(cfg, phn_attr, dev, None)
+    for kind in (PAIRED, SPEECH_FIRST):
+        names = PAIRED_STEP_KERNELS + (CYCLE_KERNELS if kind == SPEECH_FIRST else ())
+        for r, res in enumerate(ranks):
+            idle = [k for k in names if res[kind]["launches"][k] == 0]
+            if idle:
+                raise SystemExit(f"chip_smoke: rank {r} of the 2x1 mesh launched no {idle} in "
+                                 f"its {kind} step")
+        batch = _mesh_batches(kind, dev)
+        step_no = MESH_STEPS[kind][0]
+        tokens = (None if kind == PAIRED else torch.from_numpy(np.concatenate(
+            [res[kind]["unpair_pred"] for res in ranks])).to(dev))
+        flipped = {}
+
+        def grads_fn(m, tokens=tokens):
+            gen = torch.Generator(device=dev).manual_seed(step_seed(0, step_no))
+            if kind == PAIRED:
+                loss, mets, grads = builder.paired_loss_and_grads(m, *batch, 1.0, gen)
+            else:
+                loss, mets, grads = builder.speech_first_loss_and_grads(
+                    m, step_no, 1.0, batch[:4], batch[4:], gen, tokens=tokens)
+                flipped["frames"] = int((mets["unpair_pred"] != tokens).sum())
+            return loss, grads
+
+        loss, grads_c = grads_fn(model)
+        spread, by_leaf = card_spread(model, lambda m: grads_fn(m)[1], grads_c, KINKED_LEAVES,
+                                      draws=MESH_SPREAD_DRAWS)
+        g = torch.from_numpy(ranks[0][kind]["grads"]).to(dev)
+        grads_g = [None if c is None else v.view_as(c) for v, c in
+                   zip(g.split([p.numel() for p in model.parameters()]), grads_c)]
+        got = ranks[0][kind]["mets"]["total_loss"]
+        res = {"rows_a_rank": ranks[0][kind]["rows"][0][0], "loss_mesh": got,
+               "loss_one_process": float(loss),
+               "loss_rel_err": abs(got - float(loss)) / abs(float(loss)), "loss_tol_rel": 1e-4,
+               "losses_by_rank": [x[kind]["mets"] for x in ranks],
+               **compare_grads(model, grads_g, grads_c, kinked=KINKED_LEAVES, spread=by_leaf),
+               "card_spread": spread, "wall_s": [x[kind]["wall_s"] for x in ranks],
+               "graphs": ranks[0][kind]["graphs"],
+               "launches": ranks[0][kind]["launches"]}
+        if kind == SPEECH_FIRST:
+            res["flipped_frames"] = flipped["frames"]
+            if flipped["frames"]:
+                raise SystemExit(f"chip_smoke: the one-process speech-first step's unpaired "
+                                 f"argmax differs from the 2x1 ranks' at {flipped['frames']} "
+                                 "frames")
+        res["kinked_spread_top"] = sorted(((n, v) for n, v in by_leaf.items()
+                                           if KINKED_LEAVES.match(n)), key=lambda kv: -kv[1])[:5]
+        if study:
+            res["spread_study"] = spread_study(model, lambda m: grads_fn(m)[1], grads_c, grads_g)
+        out[kind] = checked(res, f"2x1 mesh and one-process {kind}")
+    _, _, fresh = _mesh_model(dev)
+    digests = [x["serving"]["state_digest"] for x in ranks]
+    if digests != [state_digest(fresh)] * len(ranks):
+        raise SystemExit("chip_smoke: the 2x1 server's weights differ from the single server's")
+    single = TTSServer(cfg, audio_config(), phn_attr.cpu().numpy(), fresh)
+    moved = TTSServer(cfg, audio_config(), phn_attr.cpu().numpy(), model)
+    out["serving"] = {"state_digests_equal": True,
+                      "moved_bn_state_equal": state_digest(model) == digests[0]}
+    for b, u in MESH_SERVE:
+        text, sid = serving_inputs(b, u, seed=b)
+        want = single.synthesize(text, sid, key=21)
+        got = ranks[0]["serving"][f"B{b}"]
+        err = float(np.abs(got["wav"] - want).max())
+        idle = [k for k in SERVING_KERNELS for x in ranks
+                if x["serving"][f"B{b}"]["wrapper_launches"][k] == 0]
+        require_seen(got["launches"], SERVING_KERNELS, f"2x1 mesh B={b} request, rank 0")
+        res = dict(batch=b, text_len=u, split=b % 2 == 0, wav_max_abs_err=err, wav_tol=1e-3,
+                   bit_for_bit=bool(np.array_equal(got["wav"], want)),
+                   shapes=[list(np.shape(got["wav"])), list(ranks[1]["serving"][f"B{b}"]["wav"])],
+                   wall_s=[x["serving"][f"B{b}"]["wall_s"] for x in ranks],
+                   first_wall_s=[x["serving"][f"B{b}"]["first_wall_s"] for x in ranks],
+                   repeat_bit_for_bit=[x["serving"][f"B{b}"]["repeat_bit_for_bit"] for x in ranks],
+                   launches=got["launches"], wrapper_launches=got["wrapper_launches"])
+        if b % 2:
+            res["moved_bn_wav_max_abs_err"] = float(np.abs(
+                got["wav"] - moved.synthesize(text, sid, key=21)).max())
+        if (err > 1e-3 or idle or got["wav"].shape != want.shape
+                or not all(res["repeat_bit_for_bit"]) or (b % 2 and not res["bit_for_bit"])):
+            raise SystemExit(f"chip_smoke: the 2x1 server and the single one disagree: {res} "
+                             f"(kernels not launched: {idle})")
+        out["serving"][f"B{b}"] = res
+    return out
+
+
+def _cli_rank(rank, n, store, out, argv, config):
+    """(c) one rank of ``python -m semi_tts_tpu_torch --mesh 2x1`` (its
+    `parse` and `run`, the YAML's dict given) in a gloo world made here
+    first (the CLI's `init_distributed` then joins nothing: NCCL would
+    refuse two ranks on one card), recording the train loaders' item
+    batches and the checkpoints it writes."""
+    import datetime
+    from os.path import basename
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=n, rank=rank,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    from semi_tts_tpu_torch import __main__ as cli
+    from semi_tts_tpu_torch.data.loader import TTSLoader
+    from semi_tts_tpu_torch.train import solver
+
+    batches, saved = [], []
+    sharded, save = TTSLoader._sharded_batches, solver.save_checkpoint
+
+    def record_batches(self):
+        for items in sharded(self):
+            batches.append((self.num_shards, self.shard_id,
+                            [basename(str(p)).split(".")[0] for p, _ in items]))
+            yield items
+
+    def record_save(path, **kw):
+        saved.append(basename(path))
+        return save(path, **kw)
+
+    TTSLoader._sharded_batches, solver.save_checkpoint = record_batches, record_save
+    t0 = time.perf_counter()
+    code = cli.run(cli.parse(argv), config)
+    _rank_done(out, dict(code=code, batches=batches, saved=saved,
+                         wall_s=time.perf_counter() - t0))
+
+
+def _stream(loader, n):
+    """The first ``n`` item batches (file ids) of ``loader``'s passes."""
+    from os.path import basename
+
+    def passes():
+        while True:
+            for items in loader._sharded_batches():
+                yield [basename(str(p)).split(".")[0] for p, _ in items]
+    return list(itertools.islice(passes(), n))
+
+
+def mesh_cli():
+    """(c) ``python -m semi_tts_tpu_torch --mesh 2x1`` on phase 8's
+    synthetic corpus in two processes over gloo on the one card: CLI_STEPS
+    steps validated every CLI_VALID; the ranks' train batches disjoint and
+    together the unsharded loader's, dev the same on both; only rank 0
+    writes checkpoints, one of which a single-process `VqvaeSolver` loads."""
+    from semi_tts_tpu_torch.data import load_dataset
+    from semi_tts_tpu_torch.train.checkpoint import load_checkpoint
+    from semi_tts_tpu_torch.train.train_vqvae import VqvaeSolver
+
+    with tempfile.TemporaryDirectory() as root:
+        config = cli_config(root)
+        argv = ["--config", os.path.join(root, "cli.yaml"), "--name", "mesh", "--logdir",
+                os.path.join(root, "log"), "--ckpdir", os.path.join(root, "ckpt"), "--no-msg",
+                "--mesh", "2x1"]
+        ranks = _mesh_world(2, _cli_rank, (argv, config), "the 2x1 CLI")
+        out = {"codes": [r["code"] for r in ranks], "wall_s": [r["wall_s"] for r in ranks],
+               "saved_by_rank": [sorted(set(r["saved"])) for r in ranks]}
+        corpus = config["data"]["corpus"]
+        whole = load_dataset(0, True, False, corpus, config["data"]["audio"], seed=0,
+                             device="cpu", shard_id=0, num_shards=1)
+        split_of = {}
+        with open(corpus["partition_table"]) as f:
+            for line in f.read().splitlines()[1:]:
+                fid, _, split, _ = line.split(",")
+                split_of[fid] = split
+        ok = out["codes"] == [0, 0] and bool(ranks[0]["saved"]) and not ranks[1]["saved"]
+        for k, split in ((0, "unpaired"), (1, "paired")):
+            got = [[b for m, s, b in r["batches"] if m == 2 and split_of[b[0]] == split]
+                   for r in ranks]
+            m = min(map(len, got))
+            full = _stream(whole[k], 2 * m)
+            merged = [b for pair in zip(got[0][:m], got[1][:m]) for b in pair]
+            out[split] = dict(batches_by_rank=[len(g) for g in got], compared=2 * m,
+                              union_is_unsharded=merged == full,
+                              disjoint=all(not set(a) & set(b) for a, b in zip(got[0], got[1])))
+            ok = ok and m > 0 and merged == full and out[split]["disjoint"]
+        dev_batches = [[b for m, _, b in r["batches"] if m == 1] for r in ranks]
+        out["dev_unsharded"] = bool(dev_batches[0]) and dev_batches[0] == dev_batches[1]
+        ckpt = os.path.join(root, "ckpt", "mesh", sorted(set(ranks[0]["saved"]))[0]
+                            if ranks[0]["saved"] else "none")
+        solver = VqvaeSolver(config, cli_paras(root, load=ckpt), "train")
+        solver.load_data()
+        solver.set_model()
+        out["loaded"] = dict(file=os.path.basename(ckpt), step=solver.step,
+                             ckpt_step=load_checkpoint(ckpt)["global_step"])
+        ok = ok and out["dev_unsharded"] and solver.step == out["loaded"]["ckpt_step"]
+        if solver.log is not None:
+            solver.log.close()
+        if not ok:
+            raise SystemExit(f"chip_smoke: the 2x1 CLI run failed its checks: {out}")
+        del solver
+        gc.collect()
+    return out
+
+
+def phase_mesh(card, dev, study=False):
+    """Phase 11: meshes. (a) `mesh_captured`, (b) `mesh_gloo` (``study``:
+    with `spread_study`), (c) `mesh_cli`."""
+    t0 = time.perf_counter()
+    captured = mesh_captured(dev)
+    t1 = time.perf_counter()
+    gloo = mesh_gloo(dev, study)
+    t2 = time.perf_counter()
+    cli = mesh_cli()
+    return dict(card=card, captured_1x1=captured, gloo_2x1=gloo, cli_2x1=cli,
+                phase_s={"captured": t1 - t0, "gloo": t2 - t1, "cli": time.perf_counter() - t2})
+
+
+def main(argv=None):
+    """Every phase; ``--mesh-study``: the kernels' build and phase 11 alone,
+    with `spread_study`."""
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--mesh-study"]):
+        raise SystemExit("usage: chip_smoke.py [--mesh-study]")
     card = phase_device()
     from semi_tts_tpu_torch import kernels, use_fp32
     from semi_tts_tpu_torch.kernels.build import BUILD_DIR, LOGS
@@ -3839,6 +4422,9 @@ def main():
     t0 = time.perf_counter()
     kernels.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, {BUILD_DIR})", flush=True)
+    if argv:
+        print(json.dumps({"mesh": phase_mesh(card, dev, study=True)}))
+        return 0
     print(json.dumps({"ptxas": ptxas_report(LOGS.get("rnn", "") + LOGS.get("attention", ""))}),
           flush=True)
     seen_shapes = record_recurrence_shapes()
@@ -3857,6 +4443,7 @@ def main():
               flush=True)
         pretrain = phase_pretrain(card, asr_ckpt)
         tools = phase_tools(specs, dev)
+    mesh = phase_mesh(card, dev)
     time_seen_shapes(table, dev, seen_shapes)
     launches = {"serving request": serving["launches"], "ASR train step": training["launches"],
                 "paired train step": paired["launches"],
@@ -3873,7 +4460,12 @@ def main():
                 "speech LM dev loss": pretrain["speech"]["dev"]["launches"],
                 "Griffin-Lim": tools["griffin_lim"]["launches"],
                 "imported-checkpoint serving": tools["import"]["launches"],
-                "gen_wav": tools["gen_wav"]["launches_per_batch"]}
+                "gen_wav": tools["gen_wav"]["launches_per_batch"],
+                "mesh 1x1 paired step": mesh["captured_1x1"][PAIRED]["launches"],
+                "mesh 1x1 speech-first step": mesh["captured_1x1"][SPEECH_FIRST]["launches"],
+                "mesh 2x1 paired step, a rank": mesh["gloo_2x1"][PAIRED]["launches"],
+                "mesh 2x1 speech-first step, a rank": mesh["gloo_2x1"][SPEECH_FIRST]["launches"],
+                "mesh 2x1 serving request, a rank": mesh["gloo_2x1"]["serving"]["B16"]["launches"]}
     for row in table:
         per = ("serving request" if row["name"] in SERVING_KERNELS else
                "ASR train step" if row["name"] in TRAINING_KERNELS else
@@ -3889,6 +4481,7 @@ def main():
     print(json.dumps({"cli": cli}))
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"tools": dict(tools, card=card)}))
+    print(json.dumps({"mesh": mesh}))
     if UNSEEN:
         raise SystemExit(f"chip_smoke: kernels not seen in profiled replays: {UNSEEN}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,8 +10,16 @@ pretraining of ``--pretrain-speech`` (``best_mel.pth``) and
 ``--pretrain-text`` (``best_acc.pth``). It runs on the card unless
 ``--cpu`` is given. Reading the YAML needs PyYAML. ``--profile`` traces a
 window of training steps with `torch.profiler` into the run's log
-directory (``<logdir>/<name>/*.pt.trace.json``). A non-empty ``--mesh``
-stops with an error: meshes are not ported (ROADMAP A11).
+directory (``<logdir>/<name>/*.pt.trace.json``).
+
+``--mesh DxM`` runs the solver as one rank of a world of ``D*M``
+processes over `torch.distributed` (`semi_tts_tpu_torch.parallel`): the
+batch split over D data ranks, the wide weights' optimizer state split
+over M model ranks. Start the processes with ``torchrun --nproc-per-node
+N -m semi_tts_tpu_torch --mesh DxM ...``, or set ``SEMI_TTS_NUM_PROCESSES``,
+``SEMI_TTS_PROCESS_ID`` and ``SEMI_TTS_COORDINATOR`` in each; the world
+is joined before the first device query (NCCL on the cards, gloo with
+``--cpu``).
 """
 
 from __future__ import annotations
@@ -21,9 +29,6 @@ import random
 import sys
 
 import numpy as np
-
-REFUSED = (("mesh", "--mesh: the port runs on one device; meshes are not ported yet "
-            "(ROADMAP A11)"),)
 
 
 def parser():
@@ -66,7 +71,10 @@ def parser():
                    help="Trace a window of training steps with torch.profiler into the "
                         "run's log directory.")
     p.add_argument("--mesh", default="", type=str,
-                   help="Not ported (ROADMAP A11): a non-empty value stops with an error.")
+                   help="Run over a DATAxMODEL mesh of processes, e.g. 4x2 (data-parallel x "
+                        "model-split optimizer state); applies to training and the inference "
+                        "solvers. Needs DATA*MODEL processes (torchrun, or SEMI_TTS_NUM_"
+                        "PROCESSES). Default: one process.")
     p.add_argument("--compile-cache", default="", type=str,
                    help="Accepted for the JAX CLI's sake; means nothing here (no XLA cache).")
     p.add_argument("--matmul-precision", default="default",
@@ -100,15 +108,44 @@ def solver_class(paras):
     return VqvaeSolver, "train"
 
 
-def main(argv=None):
-    p = parser()
+def parse(argv=None, p=None):
+    """The flags of ``argv`` with the fields the solvers read (``gpu``,
+    ``pin_memory``, ``verbose``), after joining this process's world
+    (`init_distributed`, before any device query) and checking ``--mesh``
+    against it; a bad flag exits through ``p.error``."""
+    p = p or parser()
     paras = p.parse_args(argv)
-    for flag, why in REFUSED:
-        if getattr(paras, flag):
-            p.error(why)
+    # join the world before the first device query (each rank's card is pinned here)
+    from .parallel.mesh import init_distributed, mesh_shape
+
+    init_distributed(cpu=paras.cpu)
+    if paras.mesh:
+        try:
+            mesh_shape(paras.mesh)
+        except SystemExit as e:
+            p.error(str(e))
     paras.gpu = not paras.cpu
     paras.pin_memory = not paras.no_pin
     paras.verbose = not paras.no_msg
+    return paras
+
+
+def run(paras, config):
+    """The solver of the flags on ``config`` (the YAML's dict): ``load_data
+    -> set_model -> exec``."""
+    random.seed(paras.seed)
+    np.random.seed(paras.seed)
+    cls, mode = solver_class(paras)
+    solver = cls(config, paras, mode)
+    solver.load_data()
+    solver.set_model()
+    solver.exec()
+    return 0
+
+
+def main(argv=None):
+    p = parser()
+    paras = parse(argv, p)
     if not paras.config:
         p.error("--config is required (path to an experiment YAML, e.g. config/supervised.yaml)")
     try:
@@ -120,14 +157,7 @@ def main(argv=None):
             config = yaml.load(f, Loader=yaml.FullLoader)
     except FileNotFoundError:
         p.error(f"config file not found: {paras.config}")
-    random.seed(paras.seed)
-    np.random.seed(paras.seed)
-    cls, mode = solver_class(paras)
-    solver = cls(config, paras, mode)
-    solver.load_data()
-    solver.set_model()
-    solver.exec()
-    return 0
+    return run(paras, config)
 
 
 if __name__ == "__main__":

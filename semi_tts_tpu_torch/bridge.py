@@ -8,7 +8,10 @@ BatchNorm buffers map to the JAX state tree, which drops the ``cbhg`` level
 and the ``bn`` leaf of a postnet (``tts.postnet.cbhg.banks.0.bn.mean`` <->
 ``tts/postnet/banks/0/mean``; the audio LM's ``postnet.cbhg...`` likewise).
 The same holds for every module of the port: the VQVAE, the language
-models of `models.lm` and the speaker encoder. Optimizer states cross in
+models of `models.lm`, the speaker encoder and `models.common`'s `MLP` (the
+JAX ``mlp_init`` list, ``0/w`` <-> ``0.w``) and conv-stack `Postnet` (the
+``postnet_init`` pair: ``convs``/``bn`` params, the ``bn`` list of
+statistics as state). Optimizer states cross in
 `train.checkpoint` (`optimizer_tree`, `load_optimizer_tree`).
 """
 

@@ -5,14 +5,26 @@ from __future__ import annotations
 
 
 def load_dataset(n_jobs, use_gpu, pin_memory, corpus, audio, inference_stage=False, seed=0,
-                 device=None):
+                 device=None, shard_id=None, num_shards=None):
     """Loaders, featurizer and tokenizer for a solver: ``(unpair_set,
     pair_set, dev_set, test_set, featurizer, tokenizer, data_msg)``. The
     featurizer's tables live on ``device`` (the card unless it is "cpu");
     the loaders carry raw padded waveforms on the host. ``n_jobs``,
     ``use_gpu`` and ``pin_memory`` are accepted for the CLI's sake (one
-    prefetch thread a loader does the decoding). One process reads every
-    batch: no sharding across processes."""
+    prefetch thread a loader does the decoding).
+
+    Several processes: ``shard_id``/``num_shards`` default to this
+    process's rank and the world size of `torch.distributed` (one process:
+    0 and 1), so each process's TRAIN loaders iterate an interleaved slice
+    of the identically seeded batch stream; the solvers pass their mesh's
+    data coordinate instead. Dev and test loaders stay unsharded: every
+    process walks the whole split, so evaluation is the same everywhere."""
+    if num_shards is None:
+        from ..parallel.mesh import world
+
+        shard_id, num_shards = world()
+    elif shard_id is None:
+        shard_id = 0
     from ..ops.features import AudioConfig, AudioFeaturizer
     from .corpus import create_dataset
     from .loader import TTSLoader
@@ -45,7 +57,8 @@ def load_dataset(n_jobs, use_gpu, pin_memory, corpus, audio, inference_stage=Fal
             return None
         train = train and not inference_stage
         return TTSLoader(ds, tokenizer, shuffle=train, drop_last=train, seed=seed,
-                         sample_rate=acfg.sample_rate)
+                         sample_rate=acfg.sample_rate, shard_id=shard_id if train else 0,
+                         num_shards=num_shards if train else 1)
 
     unpair_set = mk(unpair_ds, True)
     pair_set = mk(pair_ds, True)

@@ -45,13 +45,17 @@ class TTSLoader:
     U) int32, text_len (B,), fids (list of file ids); each batch sorted by
     length, descending. Items come in a seeded shuffle (a
     ``np.random.RandomState(seed)`` reshuffled each epoch) when ``shuffle``
-    is set; with ``drop_last`` a short last batch is dropped."""
+    is set; with ``drop_last`` a short last batch is dropped.
+    ``shard_id``/``num_shards``: data parallelism over processes, each
+    iterating every ``num_shards``-th batch of the (identically seeded)
+    stream from its ``shard_id``-th (`_sharded_batches`)."""
 
     def __init__(self, dataset, tokenizer, *, batch_size=None, shuffle=True,
                  drop_last=True, seed=0, sample_rate=22050,
-                 buckets_sec=DEFAULT_BUCKETS_SEC, prefetch=2):
+                 buckets_sec=DEFAULT_BUCKETS_SEC, prefetch=2, shard_id=0, num_shards=1):
         self.ds = dataset
         self.tok = tokenizer
+        self.shard_id, self.num_shards = shard_id, num_shards
         self.batch_size = batch_size or dataset.bs_for_collate
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -139,8 +143,13 @@ class TTSLoader:
             fids=[basename(str(f)).split(".")[0] for f in fpaths],
         )
 
+    def _sharded_batches(self):
+        for i, items in enumerate(self._item_batches()):
+            if i % self.num_shards == self.shard_id:
+                yield items
+
     def __iter__(self):
-        gen = (self._collate(items) for items in self._item_batches())
+        gen = (self._collate(items) for items in self._sharded_batches())
         if self.prefetch <= 0:
             yield from gen
             return

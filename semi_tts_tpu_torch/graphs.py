@@ -12,17 +12,22 @@ captured once per input shape and replayed with one host call.
   (`_cached_program`, `_evict_completed_locked`): only completed cells are
   evicted and no lock is held across a build. The server's is bounded, a
   step's is not.
-- `Graphed`: one function at one set of input shapes. Its first call copies
-  the inputs into static buffers, warms the function up on a side stream
-  (lazy tables, library handles and workspaces are made there, outside the
-  graph; the state it changes, ``state``, and its generator's state are
-  put back after), captures it under `torch.cuda.graph` with its generator
-  registered, then replays.
-  Every call copies the inputs in, reseeds the generator, replays and
-  returns clones of the outputs, so that an output outlives the next
-  replay. The first replay is followed by a synchronise, since a launch
-  that fails inside a graph shows only at replay. A failed capture or
-  replay raises; nothing falls back to running eagerly.
+- `Graphed`: one function at one set of input shapes. Its first call
+  copies the inputs into static buffers and runs the function eagerly on a
+  side stream: that run is the call's own (its outputs are returned, its
+  changes to the parameters, statistics and optimizer state kept), and it
+  makes lazy tables, library handles and workspaces outside the graph. It
+  then captures the function under `torch.cuda.graph` with its generator
+  registered; a capture launches nothing, and the generator is put back
+  where the eager run left it. Every later call copies the inputs in,
+  reseeds the generator, replays and returns clones of the outputs, so
+  that an output outlives the next replay. So every call, the capturing
+  one included, runs the function's work once, and a collective inside it
+  is issued once a call whichever calls capture: ranks that capture their
+  own shapes at different steps still pair their collectives step by
+  step. The first replay is followed by a synchronise, since a launch that
+  fails inside a graph shows only at replay. A failed capture or replay
+  raises; nothing falls back to running eagerly.
 - `Eager`: the same call without a graph. On a CPU device the cache holds
   these, as JAX's cache holds a jitted callable on any backend, so the CPU
   tests drive the same cache; on the card it is the yardstick a graph is
@@ -41,6 +46,13 @@ captured once per input shape and replayed with one host call.
   policy, with no optimizer and no state; its keyword arguments are static
   (part of the key, passed as they are) and its generator is reseeded from
   the seed a caller gives, or goes on drawing without one.
+
+While a gloo process group is initialised (`parallel.mesh`), the programs
+of `StepProgram` and `NoGradProgram` stay `Eager` on the card too
+(`capturable`): their functions may run collectives, and a CUDA graph
+captures NCCL's, not gloo's, which run on the host. A server's stages run
+no collective (`serve.py` gathers a split request's outputs outside them)
+and stay graphs under any group.
 
 Graphs of one owner (a server, a step builder, a solver) share one memory
 pool and one capture stream: they never replay at once, and since every
@@ -67,6 +79,7 @@ import time
 from collections import Counter, OrderedDict
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 
@@ -257,19 +270,18 @@ class Eager:
 
 class Graphed:
     """``fn`` as one CUDA graph, captured at its first call's input shapes
-    (see the module's docstring). ``state()``: the tensors that ``fn``
-    changes in place (parameters, running statistics, optimizer state),
-    restored after the warm-up; ``generator``: the generator ``fn`` draws
+    (see the module's docstring). ``generator``: the generator ``fn`` draws
     from, registered with the graph. Attributes after the first call:
-    ``capture_s`` (warm-up and capture, seconds), ``host_launches`` (input
-    copies + replay + output clones a call). Not thread-safe: its owner
-    runs one call at a time (the server's run lock, a trainer's loop)."""
+    ``capture_s`` (the eager run and the capture, seconds),
+    ``host_launches`` (input copies + replay + output clones a call). The
+    card's part is in `_side`, `_record` and `_replay`. Not thread-safe:
+    its owner runs one call at a time (the server's run lock, a trainer's
+    loop)."""
 
-    def __init__(self, fn, owner: GraphOwner, *, generator=None, state=lambda: ()):
+    def __init__(self, fn, owner: GraphOwner, *, generator=None):
         self.fn = fn
         self.owner = owner
         self.generator = generator
-        self.state = state
         self.graph = None
         self.capture_s = None
         self.host_launches = None
@@ -282,26 +294,20 @@ class Graphed:
         return pytree.tree_unflatten([next(static) if isinstance(t, torch.Tensor) else t
                                       for t in self._in_leaves], self._in_spec)
 
-    def _capture(self, args, seed):
-        t0 = time.perf_counter()
-        self._in_leaves, self._in_spec, self._in_key = signature(args)
-        self._static = [t.detach().clone() for t in self._in_leaves if isinstance(t, torch.Tensor)]
-        live = list(self.state())
-        saved = [t.detach().clone() for t in live]
-        # a call without a seed goes on drawing from the generator: the
-        # warm-up's draws must not move where its replay starts
-        gen_state = None if self.generator is None else self.generator.get_state()
+    @contextlib.contextmanager
+    def _side(self):
+        """Work inside runs on the owner's capture stream, after the
+        caller's work so far and before the caller's next."""
         stream = self.owner.stream
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            if self.generator is not None and seed is not None:
-                self.generator.manual_seed(int(seed))
-            self.fn(*self._inputs())
+            yield
         torch.cuda.current_stream().wait_stream(stream)
-        with torch.no_grad():
-            for t, s in zip(live, saved):
-                t.copy_(s)
-        del saved
+
+    def _record(self):
+        """Captures ``fn`` on the static inputs into ``self.graph`` (a
+        capture launches nothing); returns its outputs, which every replay
+        rewrites."""
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
@@ -310,21 +316,43 @@ class Graphed:
         gc.collect()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.owner.pool, stream=stream):
+            with torch.cuda.graph(graph, pool=self.owner.pool, stream=self.owner.stream):
                 out = self.fn(*self._inputs())
         finally:
             gc.enable()
+        self.graph = graph
+        return out
+
+    def _replay(self):
+        self.graph.replay()
+        if not self._checked:  # a launch that fails inside a graph raises here
+            torch.cuda.synchronize()
+            self._checked = True
+
+    def _capture(self, args, seed):
+        """The first call: ``fn`` run eagerly (the call's result), then
+        captured."""
+        t0 = time.perf_counter()
+        self._in_leaves, self._in_spec, self._in_key = signature(args)
+        self._static = [t.detach().clone() for t in self._in_leaves if isinstance(t, torch.Tensor)]
+        if self.generator is not None and seed is not None:
+            self.generator.manual_seed(int(seed))
+        with self._side():
+            out = self.fn(*self._inputs())
+        out = pytree.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, out)
+        # the capture must not move the generator from where this call left it
+        gen_state = None if self.generator is None else self.generator.get_state()
+        self._out, self._out_spec = pytree.tree_flatten(self._record())
         if gen_state is not None:
             self.generator.set_state(gen_state)
-        self._out, self._out_spec = pytree.tree_flatten(out)
-        self.graph = graph
         self.capture_s = time.perf_counter() - t0
         self.host_launches = (len(self._static) + 1
                               + sum(isinstance(t, torch.Tensor) for t in self._out))
+        return out
 
     def __call__(self, *args, seed=None):
         if self.graph is None:
-            self._capture(args, seed)
+            return self._capture(args, seed)
         leaves, _, key = signature(args)
         if key != self._in_key:
             raise ValueError(f"a graph captured at {self._in_key} called with {key}")
@@ -332,20 +360,23 @@ class Graphed:
             s.copy_(t)
         if seed is not None and self.generator is not None:
             self.generator.manual_seed(int(seed))
-        self.graph.replay()
-        if not self._checked:  # a launch that fails inside a graph raises here
-            torch.cuda.synchronize()
-            self._checked = True
+        self._replay()
         return pytree.tree_unflatten([t.clone() if isinstance(t, torch.Tensor) else t
                                       for t in self._out], self._out_spec)
 
 
-def program(fn, device, owner, *, generator=None, state=lambda: ()):
+def program(fn, device, owner, *, generator=None):
     """`Graphed` on the card (``owner``: its `GraphOwner`), `Eager` on the
     CPU."""
     if torch.device(device).type == "cuda":
-        return Graphed(fn, owner, generator=generator, state=state)
+        return Graphed(fn, owner, generator=generator)
     return Eager(fn, generator)
+
+
+def capturable() -> bool:
+    """Whether a CUDA graph can capture this process's collectives: no
+    process group, or an NCCL one (gloo's collectives run on the host)."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_backend() == "nccl"
 
 
 def step_seed(seed: int, step_no: int) -> int:
@@ -360,7 +391,9 @@ class _Programs:
     captures its graph) if the owner's budget admits it, else runs eagerly,
     as every later call of that key does; one generator, made on the first
     call's device and registered with every graph. ``owner``: a callable
-    giving the `GraphOwner` of a device (None: one of the program's own)."""
+    giving the `GraphOwner` of a device (None: one of the program's own).
+    Every program is `Eager` while a gloo group is initialised
+    (`capturable`)."""
 
     def __init__(self, owner=None):
         self.owner = owner or self._own_owner
@@ -380,7 +413,7 @@ class _Programs:
             self.generator = torch.Generator(device=device)
         return self.generator
 
-    def _call(self, key, dev, fn, inputs, seed, state=lambda: (), keep=None):
+    def _call(self, key, dev, fn, inputs, seed, keep=None):
         """``fn(*inputs)`` through the program of ``key`` (``keep``: an
         object the program holds, so that an id in the key is not reused)."""
         self.calls[key] += 1
@@ -392,16 +425,18 @@ class _Programs:
         if cell is not None:
             return self.cache.get(key, None)(*inputs, seed=seed)
         owner = self.owner(dev)
-        if not owner.admit():
+        graphs = capturable()
+        if graphs and not owner.admit():
             owner.refuse()
             return eager(*inputs, seed=seed)
 
         def build():
-            prog = program(fn, dev, owner, generator=self.generator, state=state)
+            prog = program(fn, dev, owner, generator=self.generator) if graphs else eager
             prog.keep = keep
             return prog
 
-        with owner.metered():  # on the card: the capture and the first replay
+        # on the card: the call's eager run and the capture
+        with owner.metered() if graphs else contextlib.nullcontext():
             return self.cache.get(key, build)(*inputs, seed=seed)
 
     def programs(self):
@@ -444,10 +479,8 @@ class StepProgram(_Programs):
 
     def __call__(self, model, step_no, *args, **kw):
         dev, inputs, seed = self._inputs(model, step_no, args, kw)
-        state = lambda: (list(model.parameters()) + list(model.buffers())
-                         + self.optimizer.state_tensors())
         return self._call((id(model), signature(inputs[1:])[2]), dev, self._fn(model), inputs,
-                          seed, state, keep=model)
+                          seed, keep=model)
 
     def eager(self, model, step_no, *args, **kw):
         _, inputs, seed = self._inputs(model, step_no, args, kw)
@@ -459,10 +492,9 @@ class NoGradProgram(_Programs):
     cache policy of `StepProgram`, keyed by ``args``' shapes and dtypes
     (a module among them by its identity) and ``static``'s values. Python
     numbers of ``args`` reach ``body`` as device scalars, ``static`` as it
-    is. It changes nothing in place (no state to put back after a
-    capture's warm-up). ``prog(*args, seed=None, **static)``: ``seed``
-    reseeds the generator; without one the draws go on from where the last
-    call left it. ``eager(...)``: the same call without a graph."""
+    is. ``prog(*args, seed=None, **static)``: ``seed`` reseeds the
+    generator; without one the draws go on from where the last call left
+    it. ``eager(...)``: the same call without a graph."""
 
     def __init__(self, body, owner=None):
         super().__init__(owner)

@@ -6,18 +6,24 @@ functions take the module where JAX takes its params dict. Layout is the
 JAX one: activations (B, T, C), linear weights (out, in), conv weights
 (out, in, k). BatchNorm running statistics are buffers, kept apart from the
 parameters.
+
+`MLP`/`mlp`, the conv-stack `Postnet`/`postnet_apply` and
+`sinusoid_encoding_table` are the JAX package's blocks that no live model
+uses (defined but unused upstream, kept for parity).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dropout import dropout
 from ..ops.init import uniform
+from ..parallel.mesh import batch_group, sync_moments
 
 GAINS = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0, "sigmoid": 1.0}
 
@@ -97,16 +103,25 @@ def batchnorm(p: BatchNorm, x, *, train: bool):
     """torch BatchNorm1d semantics on (B, T, C): biased variance to
     normalize, unbiased for the running update, which follows the JAX
     convention ``(1 - m) * old + m * batch`` and is written into the
-    module's buffers in place."""
+    module's buffers in place. Within `parallel.mesh.split_rows` the
+    statistics are those of the whole batch, over every rank of the data
+    group (`sync_moments`: the count, the sums and the deviations from the
+    global mean), and the running update uses the global count."""
     if train:
         axes = tuple(range(x.ndim - 1))
         mean = x.mean(dim=axes)
         var = x.var(dim=axes, unbiased=False)
         n = x.numel() // x.shape[-1]
+        group = batch_group()
+        if group is not None:
+            mean, var, n = sync_moments(mean, var, n, group)
+            unbias = n / torch.clamp(n - 1, min=1)
+        else:
+            unbias = n / max(n - 1, 1)
         with torch.no_grad():
             m = p.momentum
             p.mean.copy_((1 - m) * p.mean + m * mean)
-            p.var.copy_((1 - m) * p.var + m * var * (n / max(n - 1, 1)))
+            p.var.copy_((1 - m) * p.var + m * var * unbias)
     else:
         mean, var = p.mean, p.var
     return (x - mean) * torch.rsqrt(var + p.eps) * p.scale + p.bias
@@ -143,3 +158,68 @@ def highway(p: Highway, x):
     h = F.relu(linear(p.H, x))
     t = torch.sigmoid(linear(p.T, x))
     return h * t + x * (1.0 - t)
+
+
+# ---------------- MLP ----------------
+
+class MLP(nn.ModuleList):
+    """Linear layers of ``in_dim -> dims[0] -> ... -> dims[-1]`` with torch's
+    default init (the JAX ``mlp_init`` list)."""
+
+    def __init__(self, in_dim, dims, generator=None):
+        sizes = [in_dim] + list(dims)
+        super().__init__(Linear(a, b, init="torch", generator=generator)
+                         for a, b in zip(sizes[:-1], sizes[1:]))
+
+
+def mlp(layers: MLP, x, *, relu=True, drop_rate=0.0, train=True, generator=None):
+    """Each layer, a ReLU unless ``relu`` is False, and dropout at
+    ``drop_rate`` in train mode."""
+    for layer in layers:
+        x = linear(layer, x)
+        if relu:
+            x = F.relu(x)
+        x = dropout(x, drop_rate, enabled=train, generator=generator)
+    return x
+
+
+# ---------------- conv-stack Postnet ----------------
+
+class Postnet(nn.Module):
+    """``n_conv`` convolutions (``n_mels -> embed_dim -> ... -> n_mels``,
+    kernel ``kernel_size``; xavier gains tanh, the last linear), each with a
+    BatchNorm (the JAX ``postnet_init`` pair of trees)."""
+
+    def __init__(self, n_mels, embed_dim, kernel_size, n_conv, generator=None):
+        super().__init__()
+        ins = [n_mels] + [embed_dim] * (n_conv - 1)
+        outs = [embed_dim] * (n_conv - 1) + [n_mels]
+        gains = ["tanh"] * (n_conv - 1) + ["linear"]
+        self.convs = nn.ModuleList(Conv1d(a, b, kernel_size, w_init_gain=g, generator=generator)
+                                   for a, b, g in zip(ins, outs, gains))
+        self.bn = nn.ModuleList(BatchNorm(b) for b in outs)
+
+
+def postnet_apply(p: Postnet, x, *, drop_rate, train, generator=None):
+    """x (B, T, n_mels): each conv, its BatchNorm (batch statistics and the
+    running update in train mode), tanh on all but the last, dropout."""
+    n = len(p.convs)
+    for i, (conv, bn) in enumerate(zip(p.convs, p.bn)):
+        x = batchnorm(bn, conv1d(conv, x), train=train)
+        if i < n - 1:
+            x = torch.tanh(x)
+        x = dropout(x, drop_rate, enabled=train, generator=generator)
+    return x
+
+
+def sinusoid_encoding_table(n_position, d_hid, padding_idx=None):
+    """Sinusoid position encoding (n_position, d_hid), float32: sin on the
+    even dimensions, cos on the odd, of ``pos / 10000^(2 (dim // 2) /
+    d_hid)`` (computed in float64); the ``padding_idx`` row zero."""
+    pos = np.arange(n_position)[:, None].astype(np.float64)
+    dim = np.arange(d_hid)[None, :].astype(np.float64)
+    angle = pos / np.power(10000.0, 2.0 * (dim // 2) / d_hid)
+    table = np.where(dim % 2 == 0, np.sin(angle), np.cos(angle))
+    if padding_idx is not None:
+        table[padding_idx] = 0.0
+    return torch.from_numpy(table.astype(np.float32))

@@ -5,15 +5,17 @@ The per-utterance negative log likelihood is a `torch.autograd.Function`
 whose forward is kernel K6 `ctc_alpha` (alphas kept for the backward) and
 whose backward is K6 `ctc_beta_grad`: the alpha-beta occupancies give the
 gradient directly, as the JAX package's custom VJP does.
+`ctc_loss_autodiff` is the plain alpha recursion differentiated by
+autograd, with neither K6 kernel: the independent check of K6's gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.ctc import NEG_INF, ctc_alpha, ctc_beta_grad
+from ..kernels.ctc import NEG_INF, ctc_alpha, ctc_alpha_plain, ctc_beta_grad
 
-__all__ = ["NEG_INF", "ctc_loss"]
+__all__ = ["NEG_INF", "ctc_loss", "ctc_loss_autodiff"]
 
 
 class _CTCNll(torch.autograd.Function):
@@ -40,10 +42,25 @@ def ctc_loss(log_probs, targets, input_lengths, target_lengths, *, blank: int = 
     i32 = lambda x: torch.as_tensor(x, device=log_probs.device).to(torch.int32).contiguous()
     tl = i32(target_lengths)
     nll = _CTCNll.apply(log_probs.contiguous(), i32(targets), i32(input_lengths), tl, blank)
+    return _reduce(nll, tl, reduction)
+
+
+def ctc_loss_autodiff(log_probs, targets, input_lengths, target_lengths, *, blank: int = 0,
+                      reduction: str = "mean"):
+    """`ctc_loss` as the alpha recursion (K6's plain version, in torch ops
+    on any device) that autograd differentiates step by step; a test's
+    reference, far slower than `ctc_loss`."""
+    i64 = lambda x: torch.as_tensor(x, device=log_probs.device).to(torch.int64)
+    tl = i64(target_lengths)
+    _, nll = ctc_alpha_plain(log_probs, i64(targets), i64(input_lengths), tl, blank)
+    return _reduce(nll, tl, reduction)
+
+
+def _reduce(nll, target_lengths, reduction: str):
     if reduction == "none":
         return nll
     if reduction == "sum":
         return nll.sum()
     if reduction == "mean":
-        return (nll / torch.clamp(tl, min=1).to(nll.dtype)).mean()
+        return (nll / torch.clamp(target_lengths, min=1).to(nll.dtype)).mean()
     raise ValueError(reduction)

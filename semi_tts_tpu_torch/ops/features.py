@@ -11,6 +11,10 @@ at the hop and window of one stretch rate per batch, computed on the device.
 The window is multiplied in `stft_frames` on both paths (the basis is
 unwindowed). `featurize_program` runs ``featurize`` as a compiled program
 for the callers that featurize outside a train or eval step.
+
+`AudioFeaturizer.mfcc`, `cmvn`, `segment_features` and `compute_len_ratio`
+are the JAX package's MFCC and segment utilities, a path no trainer runs
+(dormant upstream).
 """
 
 from __future__ import annotations
@@ -24,12 +28,14 @@ import torch
 from ..device import resolve_device
 from ..graphs import NoGradProgram
 from ..kernels import features as K5
-from .mel import mel_filterbank, mel_pinv
+from ..parallel.mesh import draw_rows
+from .mel import dct_matrix, mel_filterbank, mel_pinv
 from .stft import support_dft_basis, window_support
 
 GFL_ITER = 30  # Griffin-Lim iterations
 MIN_LEVEL_DB = -100  # dB floor of the normalized range
 REF_LEVEL_DB = 20    # reference level subtracted before normalizing
+N_MFCC_NO_DELTA = 13  # cepstra before the deltas
 
 
 def preemphasis(x, coeff: float):
@@ -179,6 +185,8 @@ class AudioFeaturizer:
             self.device)  # (M, F)
         self._clean_geom = torch.tensor([c.hop_length, c.win_length], dtype=torch.int32,
                                         device=self.device)
+        self.dct_t = torch.from_numpy(np.ascontiguousarray(
+            dct_matrix(N_MFCC_NO_DELTA, c.num_mels).T)).to(self.device)  # (M, 13)
 
     def mel_to_linear_amp(self, mel_norm):
         """Normalized mel (..., T, M) -> linear amplitude (..., T, F): back to
@@ -245,16 +253,68 @@ class AudioFeaturizer:
         mel, _ = self._spectra(frames, frame_lengths, support, linear=False)
         return mel, frame_lengths
 
+    def mfcc(self, mel_norm):
+        """13 MFCC, their deltas and delta-deltas of a normalized log-mel
+        ``(..., T, M)`` -> ``(..., T, 39)``: the ortho DCT-II as one GEMM,
+        then regression deltas of window 2 (the edge frames repeated,
+        divided by 2 * (1 + 4))."""
+        mf = mel_norm @ self.dct_t
+
+        def delta(x):
+            xp = torch.cat([x[..., :1, :]] * 2 + [x] + [x[..., -1:, :]] * 2, dim=-2)
+            T = x.shape[-2]
+            return sum(n * (xp[..., 2 + n:2 + n + T, :] - xp[..., 2 - n:2 - n + T, :])
+                       for n in (1, 2)) / 10.0
+
+        d1 = delta(mf)
+        return torch.cat([mf, d1, delta(d1)], dim=-1)
+
     def featurize_augmented(self, waves, lengths, generator=None):
         c = self.cfg
         B, S = waves.shape
         dev = waves.device
         lo, hi = c.snr_range if c.use_noise else (0.0, 0.0)
-        snrs = lo + (hi - lo) * torch.rand((B,), generator=generator, device=dev)
+        snrs = lo + (hi - lo) * draw_rows(
+            lambda s: torch.rand(s, generator=generator, device=dev), (B,))
         rlo, rhi = c.time_stretch_range
         rate = rlo + (rhi - rlo) * torch.rand((), generator=generator, device=dev)
-        noise = torch.randn((B, S), generator=generator, device=dev) if c.use_noise else None
+        noise = (draw_rows(lambda s: torch.randn(s, generator=generator, device=dev), (B, S))
+                 if c.use_noise else None)
         return self.featurize_augmented_at(waves, lengths, snrs, rate, noise)
+
+
+def cmvn(x, axis: int = -2, eps: float = 1e-10):
+    """Global cepstral mean and variance normalization over the time axis
+    (the standard deviation unbiased)."""
+    mean = x.mean(dim=axis, keepdim=True)
+    n = x.shape[axis]
+    var = x.var(dim=axis, unbiased=False, keepdim=True) * (n / max(n - 1, 1))
+    return (x - mean) / (eps + torch.sqrt(var))
+
+
+def segment_features(feat, boundary_ratios, min_segment_len: int = 2):
+    """A (T, D) feature cut into per-phone segments (S, T_seg_max, D),
+    zero-padded, at the boundary ratios; a segment shorter than
+    ``min_segment_len`` frames joins the next one. Host numpy."""
+    feat = np.asarray(feat)
+    T, D = feat.shape
+    points, prev, max_len = [], 0, 0
+    for b in boundary_ratios:
+        sp = round(b * T)
+        if sp - prev >= min_segment_len:
+            points.append((prev, sp))
+            max_len = max(max_len, sp - prev)
+            prev = sp
+    out = np.zeros((len(points), max_len, D), feat.dtype)
+    for i, (lo, hi) in enumerate(points):
+        out[i, : hi - lo] = feat[lo:hi]
+    return out
+
+
+def compute_len_ratio(v: str):
+    """A '12_34_56' boundary string -> its values over the last one."""
+    vals = list(map(float, v.split("_")))
+    return [t / vals[-1] for t in vals]
 
 
 def featurize_program(feat: AudioFeaturizer, owner=None):

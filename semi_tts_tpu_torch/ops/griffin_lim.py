@@ -20,13 +20,16 @@ import torch
 
 from ..graphs import NoGradProgram
 from ..kernels.griffin_lim import gl_ola_frame, gl_project
+from ..parallel.mesh import draw_rows
 from .features import GFL_ITER, inv_preemphasis
 from .stft import dft_basis, inv_dft_basis
 
 
 def random_phases(shape, generator=None, device=None):
-    """Initial phases U(-pi, pi) of ``shape``, drawn from ``generator``."""
-    u = torch.rand(shape, generator=generator, device=device)
+    """Initial phases U(-pi, pi) of ``shape``, drawn from ``generator`` (rows
+    first: within `parallel.mesh.split_rows` this rank's rows of the
+    whole batch's draw)."""
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=device), tuple(shape))
     return u * (2.0 * math.pi) - math.pi
 
 

@@ -16,6 +16,11 @@ kernel K5 (`kernels/features.py`) is built on these three.
 GEMM, which with K5's ``spec_db`` takes the place of the JAX package's
 ``magnitude_dft``/``stft_magnitude``. Bases and envelopes are built in
 float64 with numpy and cast to float32.
+
+Reference forms, which no hot path runs and the tests hold the GEMM forms
+to: `hann_window`, `stft_complex` (framing by gathering elements, then
+``torch.fft.rfft``), `istft` (``torch.fft.irfft``, then `overlap_add`) and
+`nola_check` (numpy).
 """
 
 from __future__ import annotations
@@ -97,12 +102,15 @@ def inv_dft_basis(n_fft: int, win_length: int, device) -> tuple:
 
 
 @lru_cache(maxsize=16)
-def trimmed_envelope(n_fft: int, hop: int, win_length: int, num_frames: int, device):
+def trimmed_envelope(n_fft: int, hop: int, win_length: int, num_frames: int, device,
+                     length: int | None = None):
     """The envelope over the trimmed signal, float32, floored at 1e-11:
-    the divisor of `overlap_add`, shape (hop * (num_frames - 1),)."""
+    the divisor of `overlap_add`, shape (hop * (num_frames - 1),), or the
+    ``length`` samples past the first ``n_fft // 2``."""
     env = _static_ola_envelope(n_fft, hop, win_length, num_frames).astype(np.float32)
     half = n_fft // 2
-    env = np.maximum(env[half : len(env) - half], np.float32(1e-11))
+    end = len(env) - half if length is None else half + length
+    env = np.maximum(env[half:end], np.float32(1e-11))
     return torch.from_numpy(env).to(device)
 
 
@@ -121,10 +129,11 @@ def frame_reflect(x, *, n_fft: int, hop: int, win_length: int):
     return frames.reshape(lead + (T, span))
 
 
-def overlap_add(frames, *, n_fft: int, hop: int, win_length: int):
+def overlap_add(frames, *, n_fft: int, hop: int, win_length: int, length: int | None = None):
     """Overlap-add windowed frames ``(..., T, span)`` (support-cut), divide
     by the squared-window envelope and trim ``n_fft // 2`` per side ->
-    ``(..., hop * (T - 1))``. Frames are summed in the order of the JAX
+    ``(..., hop * (T - 1))``; with ``length``, the ``length`` samples past
+    the first ``n_fft // 2``. Frames are summed in the order of the JAX
     package's shifted-chunk adds."""
     T = frames.shape[-2]
     off, span = window_support(n_fft, win_length)
@@ -142,8 +151,9 @@ def overlap_add(frames, *, n_fft: int, hop: int, win_length: int):
             continue
         acc[:, k : k + T, lo - k * hop : hi - k * hop] += flat[:, :, lo - off : hi - off]
     half = n_fft // 2
-    sig = acc.reshape(B, rows * hop)[:, half : expected - half]
-    sig = sig / trimmed_envelope(n_fft, hop, win_length, T, frames.device)
+    end = expected - half if length is None else half + length
+    sig = acc.reshape(B, rows * hop)[:, half:end]
+    sig = sig / trimmed_envelope(n_fft, hop, win_length, T, frames.device, length)
     return sig.reshape(lead + (sig.shape[-1],))
 
 
@@ -159,6 +169,54 @@ def istft_reim(re, im, *, n_fft: int, hop: int, win_length: int):
     A, B = inv_dft_basis(n_fft, win_length, re.device)
     frames = re @ A + im @ B
     return overlap_add(frames, n_fft=n_fft, hop=hop, win_length=win_length)
+
+
+# ---------------- reference forms ----------------
+
+def hann_window(win_length: int, dtype=torch.float32, device=None):
+    """Periodic Hann window (``torch.hann_window``'s default)."""
+    n = torch.arange(win_length, dtype=dtype, device=device)
+    return 0.5 - 0.5 * torch.cos(2.0 * math.pi * n / win_length)
+
+
+def stft_complex(x, *, n_fft: int, hop: int, win_length: int):
+    """Complex STFT of ``(..., S)`` with whole-array reflect padding ->
+    ``(..., 1 + S // hop, n_fft // 2 + 1)``: frames gathered element by
+    element from the padded signal, windowed, then ``torch.fft.rfft``."""
+    pad = n_fft // 2
+    S = x.shape[-1]
+    lead = x.shape[:-1]
+    xp = F.pad(x.reshape(-1, 1, S), (pad, pad), mode="reflect")[:, 0]
+    num_frames = 1 + S // hop
+    t = torch.arange(num_frames, device=x.device)[:, None]
+    i = torch.arange(n_fft, device=x.device)[None, :]
+    frames = xp[:, t * hop + i]                                      # (B, T, n_fft)
+    frames = frames * dynamic_hann_window(n_fft, win_length, x.device)
+    y = torch.fft.rfft(frames, n=n_fft, dim=-1)
+    return y.reshape(lead + y.shape[1:])
+
+
+def istft(y, *, n_fft: int, hop: int, win_length: int, length: int | None = None):
+    """Inverse STFT of complex ``(..., T, n_fft // 2 + 1)`` by windowed
+    overlap-add (`overlap_add`) -> ``(..., hop * (T - 1))``, or ``(...,
+    length)``; the envelope floored at 1e-11."""
+    frames = torch.fft.irfft(y, n=n_fft, dim=-1) * dynamic_hann_window(n_fft, win_length, y.device)
+    off, span = window_support(n_fft, win_length)
+    return overlap_add(frames[..., off:off + span], n_fft=n_fft, hop=hop, win_length=win_length,
+                       length=length)
+
+
+def nola_check(n_fft: int, hop: int, win_length: int, num_frames: int = 16) -> float:
+    """Minimum of the squared-window overlap-add envelope over the trimmed
+    region (the reference asserts it exceeds 1e-11): the float32 window's
+    squares summed in float64."""
+    window = dynamic_hann_window(n_fft, win_length).numpy()
+    expected = n_fft + hop * (num_frames - 1)
+    env = np.zeros(expected)
+    for t in range(num_frames):
+        env[t * hop: t * hop + n_fft] += window ** 2
+    half = n_fft // 2
+    return float(np.abs(env[half: len(env) - half]).min())
 
 
 # ---------------- featurizer pieces (ragged rows, runtime hop) ----------------

@@ -20,6 +20,15 @@ Randomness: a request draws its prenet dropout masks and its Griffin-Lim
 phases from the server's one `torch.Generator` on the serving device,
 registered with every graph and reseeded before each request from the
 request's ``key`` (an int) or, without one, from a counter under a lock.
+
+On a mesh (``TTSServer(mesh=...)``, `parallel.mesh`) every rank calls
+``synthesize`` with the same request, as the JAX server runs SPMD: a rank
+decodes its rows of a batch that the data axis divides (within
+`split_rows`, so its draws are its rows of the whole batch's), and the
+outputs are all-gathered, so every rank returns the whole batch; a batch
+the data axis does not divide runs whole on every rank. The program LRU and
+its build cells stay per rank. The stages run no collective (the gather
+is outside them), so they stay CUDA graphs under any process group.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from .graphs import GraphOwner, ProgramCache, program
 from .models import vqvae as V
 from .ops.features import AudioConfig, linear_to_amp
 from .ops.griffin_lim import specgram_to_waveform
+from .parallel.mesh import all_gather_rows, replicate, shard_batch, split_rows
 
 INFERENCE_MARGIN_FRAMES = 40
 
@@ -114,13 +124,14 @@ class TTSServer:
     Eviction is safe during use: a program already handed to a caller stays
     valid.
 
-    The JAX server's ``compile_cache`` has no counterpart (a graph is
-    captured in the process that replays it), and its ``mesh`` waits for
-    the port's multi-card work.
+    ``mesh``: a `parallel.mesh.Mesh` to serve on (see the module's
+    docstring; every rank's weights are made rank 0's). The JAX server's
+    ``compile_cache`` has no counterpart (a graph is captured in the
+    process that replays it).
     """
 
     def __init__(self, cfg: V.VQVAEConfig, audio: AudioConfig, phn_attr, model, *,
-                 device=None, step_bucket=25, program_cache_size=8):
+                 device=None, step_bucket=25, program_cache_size=8, mesh=None):
         self.device = resolve_device(device)
         use_fp32()
         use_deterministic()
@@ -129,6 +140,9 @@ class TTSServer:
         self.phn_attr = (None if phn_attr is None else
                          torch.as_tensor(np.asarray(phn_attr, np.float32), device=self.device))
         self.model = model.to(self.device).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            replicate(list(self.model.parameters()) + list(self.model.buffers()), mesh)
         self.step_bucket = int(step_bucket)
         self.program_cache_size = max(1, int(program_cache_size))
         self._cache = ProgramCache(self.program_cache_size)
@@ -140,7 +154,7 @@ class TTSServer:
 
     @classmethod
     def from_checkpoint(cls, config, ckpt_path, *, device=None, step_bucket=25,
-                        program_cache_size=8):
+                        program_cache_size=8, mesh=None):
         """Build from a training config (YAML path or loaded dict) and a
         checkpoint in the JAX package's format: audio settings from
         ``data.audio``, topology from ``model``, weights from the checkpoint."""
@@ -179,7 +193,7 @@ class TTSServer:
         model = load_jax_params(V.VQVAE(cfg, generator=torch.Generator()),
                                 ckpt["model"], ckpt["state"])
         server = cls(cfg, audio, phn_attr, model, device=device, step_bucket=step_bucket,
-                     program_cache_size=program_cache_size)
+                     program_cache_size=program_cache_size, mesh=mesh)
         server.tokenizer = tokenizer
         return server
 
@@ -205,30 +219,42 @@ class TTSServer:
         """The LRU's program of (kind, decode_steps, batch, text_len)."""
         return self._cache.get((kind, int(decode_steps), int(batch), int(text_len)), build)
 
-    def _program(self, fn):
+    def _program(self, fn, rows=0):
         """``fn(*tensors)``, which draws from the server's generator, as a
-        program ``(*tensors, seed=None)``: a graph on the card."""
-        return program(fn, self.device, self._owner, generator=self._gen)
+        program ``(*tensors, seed=None)``: a graph on the card, under any
+        process group (a stage runs no collective). ``rows``: the program's batch is
+        this rank's ``rows`` of a split one (`split_rows`); 0: whole."""
+        def run(*tensors):
+            with split_rows(self.mesh if rows else None, rows):
+                return fn(*tensors)
 
-    def stages(self, decode_steps: int, batch: int, text_len: int):
+        return program(run, self.device, self._owner, generator=self._gen)
+
+    def stages(self, decode_steps: int, batch: int, text_len: int, *, split=False):
         """The (synth, vocode) programs of one decode length and request
         shape (LRU-cached): ``synth(text, sid, seed=key) -> amp`` reseeds the
-        generator, ``vocode(amp) -> wav`` goes on drawing from it."""
+        generator, ``vocode(amp) -> wav`` goes on drawing from it. ``split``:
+        ``batch`` is this rank's rows of a batch split over the mesh."""
+        rows = batch if split else 0
+
         def build():
             synth, vocode = serving_stages(self.cfg, self.audio, self.phn_attr, decode_steps)
-            return (self._program(lambda text, sid: synth(self.model, text, sid, self._gen)),
-                    self._program(lambda amp: vocode(amp, self._gen)))
+            return (self._program(lambda text, sid: synth(self.model, text, sid, self._gen), rows),
+                    self._program(lambda amp: vocode(amp, self._gen), rows))
 
-        return self._cached_program("stages", decode_steps, batch, text_len, build)
+        kind = "stages/rows" if split else "stages"
+        return self._cached_program(kind, decode_steps, batch, text_len, build)
 
-    def _full_stage(self, decode_steps: int, batch: int, text_len: int):
+    def _full_stage(self, decode_steps: int, batch: int, text_len: int, *, split=False):
         """The program of `full_stage` (LRU-cached): ``full(text, sid,
-        seed=key) -> (mel, linear, align, amp)``."""
+        seed=key) -> (mel, linear, align, amp)``; ``split`` as `stages`'."""
         def build():
             full = full_stage(self.cfg, self.phn_attr, decode_steps)
-            return self._program(lambda text, sid: full(self.model, text, sid, self._gen))
+            return self._program(lambda text, sid: full(self.model, text, sid, self._gen),
+                                 batch if split else 0)
 
-        return self._cached_program("full", decode_steps, batch, text_len, build)
+        kind = "full/rows" if split else "full"
+        return self._cached_program(kind, decode_steps, batch, text_len, build)
 
     # ---- request paths -----------------------------------------------------
 
@@ -246,15 +272,30 @@ class TTSServer:
         sid = torch.as_tensor(np.asarray(sid), dtype=torch.long, device=self.device)
         return text, sid
 
+    def _place_rows(self, text, sid):
+        """The request on the device -> (text, sid, split): on a mesh whose
+        data axis divides the batch, this rank's rows and True."""
+        text, sid = self._place(text, sid)
+        mesh = self.mesh
+        split = (mesh is not None and mesh.shape["data"] > 1
+                 and text.shape[0] % mesh.shape["data"] == 0)
+        if split:
+            text, sid = shard_batch((text, sid), mesh)
+        return text, sid, split
+
+    def _whole(self, t, split):
+        """A split request's output gathered over the data group."""
+        return all_gather_rows(t, self.mesh.data_group) if split else t
+
     def synthesize(self, text, sid, key=None, *, decode_steps=None):
         """Text ids (B, U) + speaker ids (B,) -> waveforms (B, S) float32."""
         self._check_decode_steps(decode_steps)
         steps = decode_steps or self.decode_steps_for(text)
-        text, sid = self._place(text, sid)
-        synth, vocode = self.stages(steps, *text.shape)
+        text, sid, split = self._place_rows(text, sid)
+        synth, vocode = self.stages(steps, *text.shape, split=split)
         seed = self._key(key)
         with self._run:
-            wav = vocode(synth(text, sid, seed=seed))
+            wav = self._whole(vocode(synth(text, sid, seed=seed)), split)
         return wav.cpu().numpy()
 
     def synthesize_full(self, text, sid, key=None, *, decode_steps=None):
@@ -264,13 +305,13 @@ class TTSServer:
         self._check_decode_steps(decode_steps)
         steps = decode_steps or self.decode_steps_for(text)
         enc = np.sum(np.asarray(text) != 0, -1)
-        text, sid = self._place(text, sid)
-        full = self._full_stage(steps, *text.shape)
-        _, vocode = self.stages(steps, *text.shape)
+        text, sid, split = self._place_rows(text, sid)
+        full = self._full_stage(steps, *text.shape, split=split)
+        _, vocode = self.stages(steps, *text.shape, split=split)
         seed = self._key(key)
         with self._run:
             mel, lin, align, amp = full(text, sid, seed=seed)
-            wav = vocode(amp)
+            mel, lin, align, wav = (self._whole(t, split) for t in (mel, lin, align, vocode(amp)))
         r = self.cfg.n_frames_per_step
         align = align.cpu().numpy()
         out_align = [align[i][: int(enc[i] * V.FRAME_PHN_RATIO) // r, : enc[i]]

@@ -44,6 +44,8 @@ class VqvaeDecoder(_Base):
                      if (j == 0 or v != p[j - 1]) and v not in IGNORE_INDICES]
                 rows.append((fid, self.tokenizer.decode(p)))
         self.per = sum(pers) / max(len(pers), 1)
+        if not self.is_first:  # with --mesh every rank decodes the split; rank 0 writes
+            return
         with open(join(output_dir, "hyp.tsv"), "w") as f:
             f.write("id\thyp\n")
             for fid, hyp in rows:

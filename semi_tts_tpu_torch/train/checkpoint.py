@@ -203,16 +203,18 @@ def _param_paths(model):
 
 def optimizer_tree(optimizer, model):
     """`Optimizer`'s state as the JAX package's optax tree (numpy leaves);
-    ``optimizer`` holds ``model.parameters()`` in order."""
+    ``optimizer`` holds ``model.parameters()`` in order. The moments of
+    leaves split over a mesh's model axis are gathered whole
+    (`Optimizer.full_moment`, a collective of the model group)."""
     def host(t):
         return t.detach().cpu().numpy().copy()
 
     def moments(flat):
-        return _tree(dict(zip(_param_paths(model), (host(v) for v in optimizer.views(flat)))))
+        return _tree(dict(zip(_param_paths(model), (host(v) for v in optimizer.full_views(flat)))))
 
     cls, counted = SCALE_STATE[optimizer.kind]
     scale = cls(((host(optimizer.count),) if counted else ())
-                + tuple(moments(getattr(optimizer, n)) for n in optimizer.moment_names))
+                + tuple(moments(optimizer.full_moment(n)) for n in optimizer.moment_names))
     decay = (EmptyState(),) if optimizer.weight_decay else ()
     inner = (EmptyState(), scale) + decay + (ScaleByScheduleState((host(optimizer.schedule_count),)),)
     return ApplyIfFiniteState((host(optimizer.notfinite_count), host(optimizer.last_finite),
@@ -222,7 +224,8 @@ def optimizer_tree(optimizer, model):
 def load_optimizer_tree(optimizer, model, tree):
     """Set `Optimizer`'s state from an optax tree as `load_checkpoint`
     returns it (`optimizer_tree`'s layout); raises on a missing, extra or
-    mis-shaped moment, or a tree of another optimizer."""
+    mis-shaped moment, or a tree of another optimizer. On a mesh each rank
+    keeps its rows of the split leaves' moments (`Optimizer.own_flat`)."""
     notfinite, last_finite, total, inner = tree
     _, counted = SCALE_STATE[optimizer.kind]
     want = 3 + bool(optimizer.weight_decay)
@@ -255,7 +258,7 @@ def load_optimizer_tree(optimizer, model, tree):
     if counted:
         optimizer.count.copy_(scalar(scale[0], torch.int32))
     for name, moment in zip(names, scale[counted:]):
-        getattr(optimizer, name).copy_(flat(moment))
+        getattr(optimizer, name).copy_(optimizer.own_flat(flat(moment)))
     optimizer.schedule_count.copy_(scalar(schedule_count, torch.int32))
     optimizer.notfinite_count.copy_(scalar(notfinite, torch.int32))
     optimizer.total_notfinite.copy_(scalar(total, torch.int32))

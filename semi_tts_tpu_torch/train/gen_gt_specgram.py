@@ -38,6 +38,8 @@ class SpecgramGenerator(_Base):
         acfg = self.featurizer.cfg
         cnt = 0
         for bi, batch in enumerate(getattr(self, split + "_set")):
+            if not self.is_first:  # with --mesh rank 0 alone writes the features
+                continue
             waves, wave_len, _, _ = to_device(batch, self.device)
             mel, linear, flen = self._featurize(waves, wave_len)
             wavs = None

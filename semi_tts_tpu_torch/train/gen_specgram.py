@@ -11,6 +11,10 @@ in the JAX package) is drawn from a generator seeded from (seed, batch),
 the Griffin-Lim phases from one seeded from (seed + 1, batch). Both run as
 programs sharing one `graphs.GraphOwner`: the eval step (a CUDA graph a
 batch shape on the card, from a shape's second batch on) and Griffin-Lim.
+
+With ``--mesh`` the evaluation step runs this rank's rows of each test
+batch and gathers the outputs (`StepBuilder.on_rows`); rank 0 vocodes and
+writes them.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..models import vqvae as V
 from ..ops.features import linear_to_amp
 from ..graphs import step_seed
 from ..ops.griffin_lim import griffin_lim_program
+from ..parallel.mesh import replicate
 from .checkpoint import load_checkpoint
 from .solver import BaseSolver, to_device
 from .steps import StepBuilder
@@ -39,7 +44,7 @@ class SpecgramGenerator(BaseSolver):
         (self.unpair_set, self.pair_set, self.dev_set, self.test_set,
          self.featurizer, self.tokenizer, _) = load_dataset(
             self.paras.njobs, not self.paras.cpu, self.paras.pin_memory, inference_stage=True,
-            seed=self.paras.seed, device=self.device, **self.config["data"])
+            seed=self.paras.seed, device=self.device, **self.load_kwargs(), **self.config["data"])
         self.data_dims()
 
     def set_model(self):
@@ -51,8 +56,10 @@ class SpecgramGenerator(BaseSolver):
                                      ckpt["model"], ckpt["state"]).to(self.device)
         self.step = ckpt["global_step"]
         self.verbose("Load ckpt from {}, restarting at step {}".format(self.paras.load, self.step))
+        if self.mesh is not None:
+            replicate(list(self.model.parameters()) + list(self.model.buffers()), self.mesh)
         self.builder = StepBuilder(self.model_cfg, self.featurizer, self.phn_attr,
-                                   freq_loss_kwargs=self.freq_loss_kwargs())
+                                   freq_loss_kwargs=self.freq_loss_kwargs(), mesh=self.mesh)
         self.builder.graph_owner(self.device).notify = self.verbose
         self._eval_step = self.builder.make_eval_step()
         self._vocoder = griffin_lim_program(self.builder.graph_owner)
@@ -73,6 +80,8 @@ class SpecgramGenerator(BaseSolver):
             out = self._eval_step(self.model, waves, wave_len, text, sid,
                                   seed=step_seed(self.paras.seed, i),
                                   margin_frames=INFERENCE_MARGIN_FRAMES)
+            if not self.is_first:
+                continue
             wavs = None
             if self.paras.gen_wav:
                 wavs = self._vocoder(

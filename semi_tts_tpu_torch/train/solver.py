@@ -6,6 +6,15 @@ exec`` lifecycle that `semi_tts_tpu_torch.__main__` drives.
 The solver runs on one device: the card, or the CPU with ``paras.cpu``
 (`resolve_device`). Loaders yield numpy batches on the host; `to_device`
 moves one to the solver's device as the trainers take it.
+
+``--mesh DxM`` (counterpart of the JAX solver's ``_make_mesh``): the
+solver runs as one rank of a world of ``D*M`` processes that
+`parallel.mesh.init_distributed` joined before (`mesh_from_spec` raises
+SystemExit with the JAX solver's message when the world has another size);
+its train loaders are sharded over the data axis (`load_kwargs`), so a
+batch they give is this rank's rows, and only rank 0 prints, writes
+TensorBoard logs and writes checkpoints, which hold the whole state
+(`save_checkpoint_triple` gathers what the model axis splits).
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import torch
 from ..bridge import to_jax_params
 from ..device import resolve_device
 from ..models import vqvae as V
+from ..parallel.mesh import mesh_from_spec, replicate, world
 from ..utils.metrics import human_format, read_phn_attr
 from ..utils.timer import Timer
 from .checkpoint import optimizer_tree, save_checkpoint
@@ -55,6 +65,11 @@ class BaseSolver:
         self.paras = paras
         self.mode = mode
         self.device = resolve_device("cpu" if paras.cpu else None)
+        self.mesh = mesh_from_spec(getattr(paras, "mesh", "") or "")
+        n_world = world()[1]
+        if self.mesh is None and n_world > 1:
+            raise SystemExit(f"a world of {n_world} processes needs --mesh DxM (D*M = {n_world})")
+        self.is_first = self.mesh is None or self.mesh.is_first
 
         self.exp_name = paras.name
         if self.exp_name is None:
@@ -72,7 +87,7 @@ class BaseSolver:
                 from tensorboardX import SummaryWriter
             except ImportError:  # no TensorBoard logs without tensorboardX
                 SummaryWriter = None
-            if SummaryWriter is not None:
+            if SummaryWriter is not None and self.is_first:
                 self.log = SummaryWriter(self.logdir, flush_secs=TB_FLUSH_FREQ)
             self.timer = Timer()
             self.valid_step = config["hparas"]["valid_step"]
@@ -87,6 +102,22 @@ class BaseSolver:
 
     def exec(self):
         raise NotImplementedError
+
+    # ------------- the mesh -------------
+    def load_kwargs(self):
+        """`load_dataset`'s sharding of the train loaders: this rank's data
+        coordinate of the mesh's data axis (ranks of one model group read
+        the same batches); unsharded without a mesh."""
+        if self.mesh is None:
+            return dict(shard_id=0, num_shards=1)
+        return dict(shard_id=self.mesh.data_rank, num_shards=self.mesh.shape["data"])
+
+    def has_writer(self) -> bool:
+        """Whether rank 0 has a TensorBoard writer (without a mesh, this
+        process): on a mesh every rank makes the media logs or none does,
+        since making them runs collectives."""
+        flag = torch.tensor([float(self.log is not None)], device=self.device)
+        return bool(replicate([flag], self.mesh)[0].item())
 
     # ------------- shared set-up -------------
     def data_dims(self):
@@ -122,13 +153,13 @@ class BaseSolver:
 
     # ------------- default methods -------------
     def verbose(self, msg):
-        if self.paras.verbose:
+        if self.paras.verbose and self.is_first:
             self._clean_line()
             for m in [msg] if isinstance(msg, str) else msg:
                 print("[INFO]", m)
 
     def progress(self, msg):
-        if self.paras.verbose:
+        if self.paras.verbose and self.is_first:
             self._clean_line()
             print("[{}] {}".format(human_format(self.step), msg), end="\r")
 
@@ -171,10 +202,14 @@ class BaseSolver:
 
     def save_checkpoint_triple(self, f_name, score, *, model, optimizer, extra=None):
         """``model``'s params and state and ``optimizer``'s state in the JAX
-        package's checkpoint layout, at ``ckpdir/f_name``."""
+        package's checkpoint layout, at ``ckpdir/f_name``. On a mesh every
+        rank calls it (the optimizer's split moments are gathered) and rank
+        0 writes."""
         path = os.path.join(self.ckpdir, f_name)
         params, state = to_jax_params(model)
         opt_state = None if optimizer is None else optimizer_tree(optimizer, model)
+        if not self.is_first:
+            return
         save_checkpoint(path, params=params, state=state, opt_state=opt_state, step=self.step,
                         extra=extra)
         self.verbose("Saved checkpoint (step = {}, score = {:.2f}) and status @ {}".format(

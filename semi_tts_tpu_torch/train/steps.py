@@ -20,6 +20,18 @@ repeats bit for bit. A cycle's escapes stay on the device: the speech-first step
 unpaired loss with the all-blank flag of trim/merge, and the text-first
 step zeroes a non-finite unpaired CTC loss, each a multiplier or a select,
 never a host branch.
+
+On a mesh (``StepBuilder(mesh=...)``, `parallel.mesh`) a train step takes
+this rank's rows of the paired and the unpaired batch (`shard_batch`, or a
+sharded loader's batch) and runs them within `split_rows`: BatchNorm sums
+its statistics over the data group and every draw keeps the global
+batch's shape. The flags that gate a loss (``unpair_ok``, ``ctc_nan``) are
+reduced over the data group before they gate it, the optimizer reduces the
+gradient, and the losses among the metrics are averaged over the data
+group; the row-indexed metrics stay this rank's (the trainers gather
+them). The evaluation step takes the whole batch, runs this rank's rows
+when the data axis divides them and all-gathers its outputs. The steps are
+CUDA graphs under NCCL and run eagerly under gloo (`graphs.capturable`).
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from functools import partial
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..device import use_deterministic, use_fp32
@@ -36,6 +49,7 @@ from ..models import vqvae as V
 from ..models.decoder import merge_wgrads, wgrad_probes
 from ..ops.ctc import ctc_loss
 from ..ops.quantize import padded_concat, trim_merge_segments
+from ..parallel.mesh import all_gather_rows, all_reduce_, mean_over, shard_batch, split_rows
 from .losses import freq_loss
 
 EPS = 1e-10
@@ -79,10 +93,12 @@ class StepBuilder:
     ``sample_rate`` and ``n_mels`` default to the featurizer's and the
     model's, the rest to `freq_loss`'s defaults, the YAML ``hparas``
     defaults) and the CTC length rule. ``actual_len``: CTC input lengths
-    from the non-pad frames instead of the full encoder length."""
+    from the non-pad frames instead of the full encoder length. ``mesh``: a
+    `parallel.mesh.Mesh` to run the steps on (see the module's
+    docstring)."""
 
     def __init__(self, cfg: V.VQVAEConfig, feat, phn_attr, *, weights: Weights = Weights(),
-                 freq_loss_kwargs: dict | None = None, actual_len: bool = False):
+                 freq_loss_kwargs: dict | None = None, actual_len: bool = False, mesh=None):
         self.cfg = cfg
         self.feat = feat
         self.phn_attr = phn_attr
@@ -93,7 +109,38 @@ class StepBuilder:
         self.floss = partial(freq_loss, **{**floss, **(freq_loss_kwargs or {})})
         self.actual_len = actual_len
         self.r = cfg.n_frames_per_step
+        self.mesh = mesh
         self._owner = None
+
+    # ---- the mesh ----
+    @property
+    def data_group(self):
+        return None if self.mesh is None else self.mesh.data_group
+
+    def rows(self, *segments):
+        """The context of a train step's rows (`split_rows`)."""
+        return split_rows(self.mesh, *segments)
+
+    def flag_any(self, flag):
+        """A bool flag true on some rank of the data group, on every rank."""
+        if self.data_group is None:
+            return flag
+        return all_reduce_(flag.to(torch.int32), self.data_group, dist.ReduceOp.MAX).bool()
+
+    def flag_all(self, flag):
+        """A bool flag true on every rank of the data group, on every rank."""
+        if self.data_group is None:
+            return flag
+        return all_reduce_(flag.to(torch.int32), self.data_group, dist.ReduceOp.MIN).bool()
+
+    def mean_losses(self, mets):
+        """``mets`` with every 0-d ``*_loss`` averaged over the data group, in
+        one all-reduce (the rows of the ranks are equal in number)."""
+        keys = [k for k, v in mets.items() if k.endswith("_loss") and v.ndim == 0]
+        if self.data_group is None or not keys:
+            return mets
+        means = mean_over(torch.stack([mets[k].to(torch.float32) for k in keys]), self.data_group)
+        return {**mets, **dict(zip(keys, means.unbind(0)))}
 
     def graph_owner(self, device) -> GraphOwner:
         """The memory pool, capture stream and byte budget that the graphs
@@ -216,6 +263,7 @@ class StepBuilder:
         u_latent, u_lens, ok = trim_merge_segments(p_code[Bp:], q[Bp:],
                                                    max_frames_per_phn=cfg.max_frames_per_phn,
                                                    tokens=tokens)
+        ok = self.flag_all(ok)
         asr_loss = self._paired_ctc(aug, pair_prob, text)
         pair_lat = V.embed_text(model, cfg, self.phn_attr, text)
         lat_len = torch.cat([(text != 0).sum(-1) + 1, u_lens.to(torch.int64)])
@@ -290,7 +338,7 @@ class StepBuilder:
         else:
             ctc_len = torch.full((Bu,), u_prob.shape[1], dtype=torch.int32, device=mel.device)
         u_txt_loss = ctc_loss(torch.log(u_prob + EPS), u_text, ctc_len, u_tlen)
-        ctc_nan = ~torch.isfinite(u_txt_loss)
+        ctc_nan = self.flag_any(~torch.isfinite(u_txt_loss))
         u_txt_loss = torch.where(ctc_nan, 0.0, u_txt_loss)
         total = (self.w.asr * asr_loss + self.w.tts * (mel_loss + lin_loss)
                  + self.w.unpair_text * u_txt_loss)
@@ -312,10 +360,11 @@ class StepBuilder:
 
         def paired_step(model, step_no, tf_rate, waves, wave_len, text, sid, *, generator,
                         augment=None):
-            total, mets, grads = self.paired_loss_and_grads(model, waves, wave_len, text, sid,
-                                                            tf_rate, generator, augment=augment)
+            with self.rows(waves.shape[0]):
+                total, mets, grads = self.paired_loss_and_grads(
+                    model, waves, wave_len, text, sid, tf_rate, generator, augment=augment)
             mets.update(total_loss=total, grad_norm=optimizer.step(grads))
-            return mets
+            return self.mean_losses(mets)
 
         return StepProgram(paired_step, optimizer, seed, self.graph_owner)
 
@@ -330,12 +379,13 @@ class StepBuilder:
         def speech_first_step(model, step_no, tf_rate, waves, wave_len, text, sid, u_waves,
                               u_wave_len, u_text, u_sid, *, generator, augment=None,
                               u_augment=None, tokens=None):
-            total, mets, grads = self.speech_first_loss_and_grads(
-                model, step_no, tf_rate, (waves, wave_len, text, sid),
-                (u_waves, u_wave_len, u_text, u_sid), generator, augment=augment,
-                u_augment=u_augment, tokens=tokens)
+            with self.rows(waves.shape[0], u_waves.shape[0]):
+                total, mets, grads = self.speech_first_loss_and_grads(
+                    model, step_no, tf_rate, (waves, wave_len, text, sid),
+                    (u_waves, u_wave_len, u_text, u_sid), generator, augment=augment,
+                    u_augment=u_augment, tokens=tokens)
             mets.update(total_loss=total, grad_norm=optimizer.step(grads))
-            return mets
+            return self.mean_losses(mets)
 
         return StepProgram(speech_first_step, optimizer, seed, self.graph_owner)
 
@@ -349,11 +399,12 @@ class StepBuilder:
 
         def text_first_step(model, step_no, tf_rate, waves, wave_len, text, sid, u_waves,
                             u_wave_len, u_text, u_sid, *, generator, augment=None):
-            total, mets, grads = self.text_first_loss_and_grads(
-                model, tf_rate, (waves, wave_len, text, sid), (u_waves, u_wave_len, u_text, u_sid),
-                generator, augment=augment)
+            with self.rows(waves.shape[0], u_text.shape[0]):
+                total, mets, grads = self.text_first_loss_and_grads(
+                    model, tf_rate, (waves, wave_len, text, sid),
+                    (u_waves, u_wave_len, u_text, u_sid), generator, augment=augment)
             mets.update(total_loss=total, grad_norm=optimizer.step(grads))
-            return mets
+            return self.mean_losses(mets)
 
         return StepProgram(text_first_step, optimizer, seed, self.graph_owner)
 
@@ -370,6 +421,10 @@ class StepBuilder:
         decode past the teacher's length."""
 
         def step(model, waves, wave_len, text, sid, *, generator, margin_frames=0):
+            return self.on_rows(body, (model, waves, wave_len, text, sid),
+                                generator=generator, margin_frames=margin_frames)
+
+        def body(model, waves, wave_len, text, sid, *, generator, margin_frames=0):
             cfg = self.cfg
             mel, linear, _, flen, _ = self._features(waves, wave_len, need_aug=False)
             p_code, _, post_prob = V.speech_to_text(model, cfg, self.phn_attr, mel,
@@ -387,3 +442,28 @@ class StepBuilder:
                         lin_pred=lin_pred, align=align, tts_loss=tts_loss)
 
         return NoGradProgram(step, self.graph_owner)
+
+    def on_rows(self, fn, args, **kw):
+        """``fn(*args, **kw)`` for a whole batch (``args``: a module, then
+        tensors with the batch's rows first). On a mesh whose data axis
+        divides the rows, ``fn`` runs this rank's rows (`split_rows`) and
+        every output is all-gathered over the data group (a 0-d one
+        averaged); otherwise the whole batch runs on every rank."""
+        mesh = self.mesh
+        B = args[1].shape[0]
+        if mesh is None or mesh.shape["data"] == 1 or B % mesh.shape["data"]:
+            return fn(*args, **kw)
+        rows = shard_batch(args[1:], mesh)
+        with split_rows(mesh, rows[0].shape[0]):
+            out = fn(args[0], *rows, **kw)
+
+        def gather(v):
+            if not isinstance(v, torch.Tensor):
+                return v
+            if v.ndim == 0:
+                return mean_over(v, mesh.data_group)
+            return all_gather_rows(v, mesh.data_group)
+
+        if isinstance(out, dict):
+            return {k: gather(v) for k, v in out.items()}
+        return type(out)(gather(v) for v in out) if isinstance(out, tuple) else gather(out)

@@ -60,15 +60,17 @@ def make_asr_step(builder, optimizer, *, seed: int = 0):
     -> dict(total_loss, asr_loss, grad_norm, pair_pred, pair_pred_len); the
     parameters and the BN running statistics are updated in place.
     ``optimizer`` holds ``model.parameters()`` in order. A
-    `graphs.StepProgram`, sharing ``builder``'s graph memory pool."""
+    `graphs.StepProgram`, sharing ``builder``'s graph memory pool. On the
+    builder's mesh it takes this rank's rows, as the builder's steps do."""
     use_fp32()
     use_deterministic()
 
     def asr_step(model, step_no, waves, wave_len, text, sid, *, generator, augment=None):
-        total, mets, grads = asr_loss_and_grads(builder, model, waves, wave_len, text, generator,
-                                                augment=augment)
+        with builder.rows(waves.shape[0]):
+            total, mets, grads = asr_loss_and_grads(builder, model, waves, wave_len, text,
+                                                    generator, augment=augment)
         mets.update(total_loss=total, grad_norm=optimizer.step(grads))
-        return mets
+        return builder.mean_losses(mets)
 
     return StepProgram(asr_step, optimizer, seed, builder.graph_owner)
 

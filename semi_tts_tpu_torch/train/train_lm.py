@@ -26,6 +26,13 @@ is a `graphs.StepProgram` and each dev loss a `graphs.NoGradProgram` (on the
 card a CUDA graph a batch shape, from a shape's second call on), the
 counterparts of the JAX trainer's jitted ``step`` and ``dev_step``; a
 solver's programs share one `graphs.GraphOwner` and its byte budget.
+
+``--mesh DxM`` is pure data parallelism here, as in the JAX trainer (the
+LMs are small; every leaf whole): a step runs this rank's rows within
+`parallel.mesh.split_rows`, the optimizer averages the gradient over the
+data group, and the text LM's loss, a mean over the batch's real tokens,
+is divided by the count of the whole batch's tokens. The dev loss runs
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import os
 from functools import partial
 
 import torch
+import torch.distributed as dist
 
 from ..bridge import load_jax_params, to_jax_params
 from ..data.loader import infinite
@@ -42,6 +50,8 @@ from ..device import use_deterministic, use_fp32
 from ..graphs import GraphOwner, NoGradProgram, StepProgram, step_seed
 from ..models.decoder import merge_wgrads, wgrad_probes
 from ..models.lm import AudioLM, TextLM, audiolm_apply, textlm_loss
+from ..parallel.mesh import all_reduce_, mean_over, shard_params, split_rows
+from ..parallel.sharding import replicated_specs
 from ..utils.metrics import human_format
 from .checkpoint import load_checkpoint, load_optimizer_tree, optimizer_tree, save_checkpoint
 from .losses import freq_loss
@@ -84,41 +94,57 @@ def audiolm_loss_and_grads(model: AudioLM, feat, floss, waves, wave_len, generat
     return total.detach(), [grads[p] for p in params]
 
 
-def textlm_loss_and_grads(model: TextLM, text, text_len):
+def textlm_loss_and_grads(model: TextLM, text, text_len, *, group=None):
     """One text-LM step's loss and its gradients with respect to
-    ``model.parameters()``. Returns (loss, grads)."""
+    ``model.parameters()``. Returns (loss, grads). ``group``: the data
+    group whose ranks hold the other rows of the batch; the loss is then
+    this rank's share of the whole batch's mean over its real tokens,
+    scaled so that the mean over the group is that mean."""
     total = textlm_loss(model, text, text_len)
+    if group is not None:
+        count = torch.clamp(text_len - 1, min=0).sum().to(total.dtype)
+        whole = torch.clamp(all_reduce_(count.clone(), group), min=1.0)
+        total = total * (torch.clamp(count, min=1.0) * dist.get_world_size(group) / whole)
     return total.detach(), list(torch.autograd.grad(total, list(model.parameters())))
 
 
-def make_audiolm_step(feat, optimizer, floss, owner, *, seed: int = 0):
+def _data_group(mesh):
+    return None if mesh is None else mesh.data_group
+
+
+def make_audiolm_step(feat, optimizer, floss, owner, *, seed: int = 0, mesh=None):
     """``step(model, step_no, waves, wave_len)`` -> dict(total_loss,
     grad_norm): one speech-LM step of an `AudioLM`, the parameters and
     BatchNorm statistics updated in place; a `graphs.StepProgram` whose
     generator is reseeded from (seed, step_no). ``optimizer`` holds
     ``model.parameters()`` in order; ``owner``: the `GraphOwner` of a
-    device."""
+    device. ``mesh``: the step takes this rank's rows (see the module's
+    docstring)."""
     use_fp32()
     use_deterministic()
 
     def step(model, step_no, waves, wave_len, *, generator):
-        total, grads = audiolm_loss_and_grads(model, feat, floss, waves, wave_len, generator)
-        return dict(total_loss=total, grad_norm=optimizer.step(grads))
+        with split_rows(mesh, waves.shape[0]):
+            total, grads = audiolm_loss_and_grads(model, feat, floss, waves, wave_len, generator)
+        return dict(total_loss=mean_over(total, _data_group(mesh)),
+                    grad_norm=optimizer.step(grads))
 
     return StepProgram(step, optimizer, seed, owner)
 
 
-def make_textlm_step(optimizer, owner):
+def make_textlm_step(optimizer, owner, *, mesh=None):
     """``step(model, step_no, text)`` -> dict(total_loss, grad_norm): one
     text-LM step of a `TextLM` on int ``text`` (B, U) padded with 0; a
-    `graphs.StepProgram`."""
+    `graphs.StepProgram`. ``mesh``: as `make_audiolm_step`'s."""
     use_fp32()
     use_deterministic()
 
     def step(model, step_no, text, *, generator):
         text = text.long()
-        total, grads = textlm_loss_and_grads(model, text, (text != 0).sum(-1))
-        return dict(total_loss=total, grad_norm=optimizer.step(grads))
+        group = _data_group(mesh)
+        with split_rows(mesh, text.shape[0]):
+            total, grads = textlm_loss_and_grads(model, text, (text != 0).sum(-1), group=group)
+        return dict(total_loss=mean_over(total, group), grad_norm=optimizer.step(grads))
 
     return StepProgram(step, optimizer, 0, owner)
 
@@ -168,18 +194,21 @@ class LmSolver(VqvaeSolver):
                                 generator=g).to(self.device)
             self.verbose(f"TextLM pretraining: codebook table ({self.vocab_size} x "
                          f"{self.model_cfg.codebook.learn_dim})")
+        if self.mesh is not None:  # data parallelism only: every leaf whole
+            shard_params(self.model, self.mesh, replicated_specs(self.model))
         self.optimizer = Optimizer(self.model.parameters(), h["optimizer"], h["lr"],
-                                   h["lr_scheduler"])
+                                   h["lr_scheduler"], mesh=self.mesh)
         self.graph_owner = GraphOwner(self.device, notify=self.verbose)
         owner = lambda device: self.graph_owner  # the step and dev programs share it
+        mesh = self.mesh
         if self.lm_mode == "speech":
             self.floss = partial(freq_loss, **self.freq_loss_kwargs())
             self._step = make_audiolm_step(self.featurizer, self.optimizer, self.floss, owner,
-                                           seed=self.paras.seed)
+                                           seed=self.paras.seed, mesh=mesh)
             self._dev = NoGradProgram(partial(audiolm_dev_loss, feat=self.featurizer,
                                               floss=self.floss), owner)
         else:
-            self._step = make_textlm_step(self.optimizer, owner)
+            self._step = make_textlm_step(self.optimizer, owner, mesh=mesh)
             self._dev = NoGradProgram(textlm_dev_loss, owner)
         if self.paras.load:
             self.load(self.paras.load)
@@ -256,8 +285,10 @@ class LmSolver(VqvaeSolver):
             model = {"codebook": {"learnable_table": params["learnable_table"]}, "textlm": params}
             fname = "best_acc.pth"
         path = os.path.join(self.ckpdir, fname)
-        save_checkpoint(path, params=model, state=state,
-                        opt_state=optimizer_tree(self.optimizer, self.model), step=self.step)
+        opt_state = optimizer_tree(self.optimizer, self.model)
+        if not self.is_first:
+            return
+        save_checkpoint(path, params=model, state=state, opt_state=opt_state, step=self.step)
         self.verbose("Saved {} LM checkpoint (step = {}, dev = {:.3f}) @ {}".format(
             self.lm_mode, human_format(self.step), score, path))
 

@@ -26,11 +26,19 @@ the projector. A `Timer` splits each step's host wall into reading the
 batch and the step, without synchronising the card; ``profile_dir`` opens a
 `profile_trace` over the window of `profile_window`.
 
+On the builder's mesh each step runs this rank's rows and returns losses
+and flags of the whole batch (`steps`); what `_progress` reads of the rows
+(the predictions and texts of the token usage, the plots' tensors) is
+gathered over the data group first, so every rank logs what one process
+would, and validation's evaluation step gathers its outputs.
+
 `VqvaeSolver` is the CLI's solver around the loop (counterpart of the JAX
 `VqvaeTrainer` solver): ``load_data`` (the corpus's loaders, their batches
-moved to the device), ``set_model`` (the YAML config, the model with the
-``pretrained_*`` grafts, the optimizer, the step builder, ``--load``) and
-``exec``; ``--profile`` traces into the run's log directory.
+moved to the device, the train loaders sharded over a mesh's data axis),
+``set_model`` (the YAML config, the model with the ``pretrained_*``
+grafts, on a mesh made rank 0's and placed by `parallel.sharding`, the
+optimizer, the step builder, ``--load`` on every rank) and ``exec``;
+``--profile`` traces into the run's log directory.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from ..models.embed import full_codebook_table
 from ..ops.features import linear_to_amp
 from ..graphs import step_seed
 from ..ops.griffin_lim import griffin_lim_program
+from ..parallel.mesh import gather_rows, shard_params
 from ..utils import viz
 from ..utils.metrics import cal_per, human_format
 from ..utils.timer import Timer, profile_trace, profile_window
@@ -199,6 +208,9 @@ class VqvaeTrainer:
             tensors += [mets["pair_pred"], mets["pair_pred_len"], batch[2], mets["pair_align"]]
             if self._unpair_align is not None:
                 tensors.append(self._unpair_align)
+        group = self.builder.data_group
+        if group is not None:  # the rows of every rank (the 0-d values are the batch's)
+            tensors = [t if t.ndim == 0 else gather_rows(t, group) for t in tensors]
         host = self._read(tensors)
         values, total = host[:len(logged)], host[len(logged)]
         flags, plotted = host[len(logged) + 1:n_flags], host[n_flags:]
@@ -422,7 +434,7 @@ class VqvaeSolver(BaseSolver):
         (self.unpair_set, self.pair_set, self.dev_set, self.test_set,
          self.featurizer, self.tokenizer, data_msg) = load_dataset(
             self.paras.njobs, not self.paras.cpu, self.paras.pin_memory, seed=self.paras.seed,
-            device=self.device, **self.config["data"])
+            device=self.device, **self.load_kwargs(), **self.config["data"])
         self.data_dims()
         self.verbose(data_msg)
 
@@ -435,11 +447,19 @@ class VqvaeSolver(BaseSolver):
         if grafts:
             apply_pretrained(self.model, grafts)
             self.verbose(f"Grafted {', '.join(grafts)} from {', '.join(sorted(set(grafts.values())))}")
+        specs = None
+        if self.mesh is not None:
+            specs = list(shard_params(self.model, self.mesh).values())
+            d, m = self.mesh.shape["data"], self.mesh.shape["model"]
+            self.verbose(f"Device mesh: data={d} x model={m} over {d * m} processes "
+                         f"({self.mesh.backend}); {sum(bool(s) for s in specs)} leaves split "
+                         "over model")
         self.optimizer = Optimizer(self.model.parameters(), h["optimizer"], h["lr"],
-                                   h["lr_scheduler"])
+                                   h["lr_scheduler"], mesh=self.mesh, specs=specs)
         self.builder = StepBuilder(self.model_cfg, self.featurizer, self.phn_attr,
                                    weights=self.weights, freq_loss_kwargs=self.freq_loss_kwargs(),
-                                   actual_len=getattr(self.paras, "actual_len", False))
+                                   actual_len=getattr(self.paras, "actual_len", False),
+                                   mesh=self.mesh)
         self.builder.graph_owner(self.device).notify = self.verbose
         w = self.weights
         self.verbose(["Optim.spec.| Algo. = {}\t| Lr/sampling scheduler = {}/{}".format(
@@ -457,7 +477,7 @@ class VqvaeSolver(BaseSolver):
                                      h.get("tf_step", 1)),
             log=TrainLog(self), save=self.save,
             store_best_per=getattr(self.paras, "store_best_per", False),
-            media=self.log is not None, tokenizer=self.tokenizer, timer=self.timer,
+            media=self.has_writer(), tokenizer=self.tokenizer, timer=self.timer,
             profile_dir=self.logdir if getattr(self.paras, "profile", False) else None)
         if self.paras.load:
             self.load(self.paras.load)

@@ -1,7 +1,8 @@
-"""Phonological attribute table reader and the phone error rate
-(counterpart of `semi_tts_tpu/utils/metrics.py` `read_phn_attr`, `cal_per`
-and its edit distance, which runs in the port's native code); the table is
-read with the `csv` module."""
+"""Phonological attribute table reader, the phone error rate, the codebook
+perplexity and the mel-cepstral distortion (counterpart of
+`semi_tts_tpu/utils/metrics.py` `read_phn_attr`, `cal_per` and its edit
+distance, which runs in the port's native code, `cal_ppx` and `mcd`); the
+table is read with the `csv` module, the rest is numpy."""
 
 from __future__ import annotations
 
@@ -66,3 +67,31 @@ def human_format(num):
         magnitude += 1
         num /= 1000.0
     return "{:3}{}".format(num, [" ", "K", "M", "G", "T", "P"][magnitude])
+
+
+def cal_ppx(prob) -> float:
+    """Codebook perplexity ``2^H`` of (B, T, V) posteriors, the entropy
+    averaged over each row's frames that are not all zero, then over rows."""
+    prob = np.asarray(prob)
+    prob_len = np.sum(prob.sum(-1) != 0, axis=-1, keepdims=True).astype(np.float64)
+    entropy = -np.sum(prob * np.log2(prob + 1e-10), axis=-1)
+    entropy = np.mean(entropy.sum(-1) / np.maximum(prob_len[:, 0], 1))
+    return float(2.0 ** entropy)
+
+
+def mcd(mel_a, mel_b, n_cep: int = 13, skip_c0: bool = True) -> float:
+    """Mel-cepstral distortion in dB between two aligned (T, M) normalized
+    log-mel spectrograms: the cepstra of ``100 * mel`` (normalized features
+    are dB / 100) by the ortho DCT-II, then ``(10 / ln 10) * sqrt(2 * sum
+    (c_a - c_b)^2)`` over the cepstra past c0 (unless ``skip_c0`` is
+    False), averaged over frames. Float64."""
+    from ..ops.mel import dct_matrix
+
+    mel_a = np.asarray(mel_a, np.float64) * 100.0
+    mel_b = np.asarray(mel_b, np.float64) * 100.0
+    dct = dct_matrix(n_cep, mel_a.shape[-1]).astype(np.float64)
+    ca = mel_a @ dct.T
+    cb = mel_b @ dct.T
+    s = 1 if skip_c0 else 0
+    diff = ca[..., s:] - cb[..., s:]
+    return float(np.mean((10.0 / np.log(10.0)) * np.sqrt(2.0 * np.sum(diff ** 2, axis=-1))))
