@@ -135,8 +135,7 @@ Phases, each fatal on failure:
    checkpoints and phase 8's checkpoint (as ``pretrained_asr``) grafted
    into a `VqvaeSolver`: every grafted leaf and the postnet's BatchNorm
    statistics equal the files' bit for bit, the TTS text encoder a cold
-   solver's; two fine-tune steps. RNNLM at its default 512 units must raise
-   its plan's ValueError at its first launch (LSTM and GRU);
+   solver's; two fine-tune steps;
 10. the tools (`phase_tools`): a seeded flagship model written as an
    upstream-layout ``.pth`` goes through ``util_cli.import_reference_ckpt``
    and is served (B=16 x U=32) bit for bit as the same weights loaded
@@ -166,7 +165,23 @@ Phases, each fatal on failure:
    one loaded by a single-process solver. Each spawned world is joined
    with a deadline (MESH_DEADLINE_S) past which its ranks are killed and
    the run fails. ``python3 chip_smoke.py --mesh-study`` runs the build
-   and this phase alone, with the spread study of (b) (`spread_study`).
+   and this phase alone, with the spread study of (b) (`spread_study`);
+12. the wide routes of the recurrences (`phase_wide`): K1w, K7w, K2w and
+   K8w, which the wrappers launch past the narrow plans
+   (`kernels.rnn.lstm_route`/`gru_route`), each held to its plain version
+   at 1e-4 and timed (graph-replayed, beside its plain version, its
+   bound and cuDNN's LSTM or GRU, forward or backward) at every shape of
+   `WIDE_LSTM_SHAPES`/`WIDE_GRU_SHAPES` (``ms_by_shape``, ...,
+   ``plans_by_shape``); then (a) `RNNLM` LSTM and (b) `RNNLM` GRU at their
+   default width, 512 units and 2 layers, trained at B=8 x 47 inputs
+   through `rnnlm_step` (a `StepProgram`, Adam with the Noam schedule),
+   and (c) the ASR step at ``model.encoder.rnn_dim`` 512 (`phase_training`
+   with that one override: the flagship's B=8 x 3.0 s x U=32, T=133):
+   each a graphed step's wall, busy time, idle share, device events and
+   peak memory, its wide kernels run exactly twice a step (a launch a
+   layer) in a profiled replay and no narrow recurrence, the card against
+   the CPU plain path by the step gates, and `graph_check`. ``python3
+   chip_smoke.py --wide`` runs the build and this phase alone.
 
 The server and the train steps run as CUDA graphs (`semi_tts_tpu_torch.graphs`):
 each path's line gives the graphed and eager walls (``wall_s``,
@@ -208,7 +223,10 @@ Griffin-Lim, the two LM steps and their dev losses; the offline vocoder's
 batch by the wrappers' counters over its first (eager) call. K1 with cell states and K7 are also held and timed at the
 text LM's one-direction shape, K2 and K8 at one direction and H=128
 (``ms_by_shape``, beside cuDNN's unidirectional LSTM and GRU in
-``library_ms_by_shape``).
+``library_ms_by_shape``). The wide routes' rows count their launches in
+a step of (a) (K1w, K7w) or (b) (K2w, K8w). Every row's ``bound_ms``
+takes its FLOPs from `utils.flops.matmul_flops` of the kernel's call: the
+dot FLOPs of the JAX function it replaces, as its wrapper reports them.
 
 Prints a ``{"ptxas": ...}`` line (registers and spills of the recurrence
 and attention kernels), an ``{"asr_shape": ...}`` line, a ``{"featurizer": ...}`` line, a
@@ -218,7 +236,11 @@ line, a ``{"host_decoder": ...}`` line (with the card's name and power
 limit and the CLI's steady step wall), a ``{"cli": ...}`` line, a
 ``{"pretrain": ...}`` line (with the card's name and power limit), a
 ``{"tools": ...}`` line, a ``{"mesh": ...}`` line (with the card's name
-and power limit) and, last,
+and power limit), a ``{"wide": ...}`` line (steps (a), (b) and (c), with
+the card's name and power limit), a ``{"flops": ...}`` line (each timed
+path's matrix-product FLOPs from one eager call, `utils.flops`, over its
+graphed wall and over the card's 67 TFLOP/s fp32 peak: ``mfu_fp32``;
+with the card) and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -355,7 +377,16 @@ def max_err(got, want):
     return float((got - want).abs().max())
 
 
-def bound(nbytes, flops):
+def bound(nbytes, call):
+    """The least time the card could take for ``call()``, a kernel wrapper's
+    call, and what bounds it: ``nbytes`` over HBM_BYTES_PER_S or its FLOPs
+    over FP32_FLOP_PER_S, whichever is larger. The FLOPs come from
+    `utils.flops.matmul_flops` of the call, the one source of every row's
+    count: the dot FLOPs of the JAX function the kernel replaces, as its
+    wrapper reports them."""
+    from semi_tts_tpu_torch.utils.flops import matmul_flops
+
+    flops = matmul_flops(call)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -407,8 +438,7 @@ def _case_lstm(randn, unif, dev):
         checks=checks, rows=lambda r: k12.bilstm_rec(*args, rows=r), row_options=k12.LSTM_ROWS,
         library=lambda: lstm(x_in),
         library_note="cuDNN nn.LSTM(bidirectional=True), includes the input GEMM; graph-timed",
-        tol=1e-4, nbytes=2 * 4 * (T * B * 4 * H + 4 * H * H + T * B * H),
-        flops=2 * 2 * T * B * 4 * H * H, iters=20)
+        tol=1e-4, nbytes=2 * 4 * (T * B * 4 * H + 4 * H * H + T * B * H), iters=20)
 
 
 def _case_gru(randn, unif, dev):
@@ -450,17 +480,17 @@ def _case_gru(randn, unif, dev):
         library=lambda: gru(x_in),
         library_note="cuDNN nn.GRU(bidirectional=True), includes the input GEMM; graph-timed; "
         "by shape: nn.GRU() one direction",
-        tol=1e-4, nbytes=_gru_cost(T, B, H)[0], flops=_gru_cost(T, B, H)[1], iters=10,
+        tol=1e-4, nbytes=_gru_cost(T, B, H), iters=10,
         timed={key: lambda: k12.bigru_rec(*one)}, timed_plain={key: lambda: k12.bigru_rec_plain(*one)},
         timed_library={key: lambda: gru1(x1)},
-        extra={"bound_ms_by_shape": {key: bound(*cost1)[0]},
+        extra={"bound_ms_by_shape": {key: bound(cost1, lambda: k12.bigru_rec(*one))[0]},
                "plans_by_shape": {key: k12.gru_plan(TRAIN_B, GRU_LM_H, 1)}})
 
 
 def _gru_cost(T, B_, H, ndir=2):
-    """(bytes moved, FLOPs) of one K2 call: x_proj in, hs out, W_hh and b_hh
-    per direction; the step products."""
-    return ndir * 4 * (T * B_ * 3 * H + 3 * H * H + 3 * H + T * B_ * H), ndir * 2 * T * B_ * 3 * H * H
+    """Bytes moved by one K2 call: x_proj in, hs out, W_hh and b_hh per
+    direction."""
+    return ndir * 4 * (T * B_ * 3 * H + 3 * H * H + 3 * H + T * B_ * H)
 
 
 def _lstm_one_dir(randn, unif, T, B_, H, D, dev):
@@ -511,13 +541,15 @@ def _rnn_library_backward(cls, randn, dev, T, B_, H, ndir, D):
 
 def ptxas_report(log):
     """Registers, spills and static shared memory of each instantiation of
-    the recurrence kernels (K1 with its cell-state flag, K2, K7, K8) and of
+    the recurrence kernels (K1 with its cell-state flag, K2, K7, K8, and the
+    wide routes: `rec_wide_kernel<4>` K1w, `<3>` K2w, K7w, K8w) and of
     the attention kernels (K3; K9 by span and loc_lin staging, and its sums
     kernel), from nvcc's ``-Xptxas -v`` output."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"(lstm_rec|gru_rec|lstm_bwd|gru_bwd|attention_bwd_sum|attention_bwd|"
-                      r"attention_step)_kernel(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?)?", line)
+        m = re.search(r"(lstm_rec|gru_rec|lstm_bwd|gru_bwd|rec_wide|lstm_wide_bwd|gru_wide_bwd|"
+                      r"attention_bwd_sum|attention_bwd|attention_step)_kernel"
+                      r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?)?", line)
         if "Compiling entry function" in line:
             args = ",".join(a for a in m.groups()[1:] if a) if m else ""
             name = f"{m.group(1)}_kernel" + (f"<{args}>" if args else "") if m else None
@@ -594,7 +626,7 @@ def _case_attention(randn, unif, dev):
         extra={"cluster": k3.attention_plan(B, L, A, D, C, F_, K)["cluster"]},
         library=None, library_note=NO_LIBRARY, tol=1e-4,
         nbytes=4 * (B * A + B * L * A + B * L * D + B * C * L + F_ * C * K + A * F_ + A + B * D + B * L),
-        flops=2 * B * L * (F_ * C * K + A * F_ + 2 * A + D), iters=200)
+        iters=200)
 
 
 def _case_gl_project(randn, unif, dev):
@@ -610,8 +642,7 @@ def _case_gl_project(randn, unif, dev):
         "phase projection)", source="semi_tts_tpu_torch/csrc/griffin_lim.cu",
         shapes=f"reim ({B},{T},{2 * F_}) mag ({B},{T},{F_})",
         kernel=lambda: k4.gl_project(reim, mag), plain=lambda: k4.gl_project_plain(reim, mag),
-        library=None, library_note=NO_LIBRARY, tol=1e-4, nbytes=4 * B * T * 5 * F_,
-        flops=6 * B * T * F_, iters=50)
+        library=None, library_note=NO_LIBRARY, tol=1e-4, nbytes=4 * B * T * 5 * F_, iters=50)
 
 
 def _case_gl_ola_frame(randn, unif, dev):
@@ -645,7 +676,7 @@ def _case_gl_ola_frame(randn, unif, dev):
         checks=checks, tiles=lambda n: k4.gl_ola_frame(frames, emit_signal=False, tile=n, **geo),
         tile_options=(4, 8, 12, 16, 32), extra={"tile": k4.OLA_TILE},
         library=None, library_note=NO_LIBRARY, tol=1e-4, nbytes=4 * (2 * B * T * span + S),
-        flops=B * T * span * (-(-span // geo["hop"]) + 1), iters=50)
+        iters=50)
 
 
 def audio_config():
@@ -685,7 +716,7 @@ def _k5_call(k5, feat, audio, randn, dev, B_, S, path, lengths=None, rate=1.0, s
              tile=None):
     """`stft_frames` on B_ seeded rows of S samples, the augmented path at
     ``rate`` with noise mixed in or the clean path: {"kernel", "plain",
-    "plain_timed" (calls), "cost" (bytes, FLOPs), "key", "plan"
+    "plain_timed" (calls), "cost" (bytes moved), "key", "plan"
     (`frames_plan`)}. "plain_timed" frames the clean path at the tensor hop
     (``clamp=True``), which a CUDA graph can capture (the static hop reads
     it to the host) and which gives the same frames, as its check holds."""
@@ -712,7 +743,7 @@ def _k5_call(k5, feat, audio, randn, dev, B_, S, path, lengths=None, rate=1.0, s
                 plain=lambda: k5.stft_frames_plain(waves, lengths, geom, **kw),
                 plain_timed=lambda: k5.stft_frames_plain(waves, lengths, geom,
                                                          **dict(kw, clamp=True)),
-                cost=(4 * (B_ * T * span + (2 if aug else 1) * B_ * S), 6 * B_ * T * span),
+                cost=4 * (B_ * T * span + (2 if aug else 1) * B_ * S),
                 key=f"{path} B={B_} T={T} span={span}",
                 plan=k5.frames_plan(B_, T, span, max_hop, noise=aug, sms=sms, tile=tile))
 
@@ -754,12 +785,13 @@ def _case_stft_frames(randn, unif, dev):
         + [(c["plain_timed"], c["plain"]) for c in by_shape.values()],
         library=None, library_note="none per kernel: the featurizer line sets the whole "
         "featurizer beside torch.stft + abs + the mel GEMM", tol=1e-4,
-        nbytes=main["cost"][0], flops=main["cost"][1], iters=50,
+        nbytes=main["cost"], iters=50,
         timed={k: c["kernel"] for k, c in by_shape.items()},
         timed_plain={k: c["plain_timed"] for k, c in by_shape.items()},
         tiles=lambda G: tiled[G](), tile_options=tuple(k5.FRAMES_TILES),
         extra={"hop_win": feat.stretch_geometry(1.0, dev).tolist(), "tile": main["plan"]["tile"],
-               "bound_ms_by_shape": {k: bound(*c["cost"])[0] for k, c in by_shape.items()},
+               "bound_ms_by_shape": {k: bound(c["cost"], c["kernel"])[0]
+                                     for k, c in by_shape.items()},
                "plans": {k: c["plan"] for k, c in by_shape.items()},
                "wide_check": f"{wide['key']}: {wide['plan']['grid']} CTAs"})
 
@@ -790,7 +822,7 @@ def _case_spec_db(randn, unif, dev):
         kernel=lambda: k5.spec_db(reim, flen, reim=True, db=False, **lv)[0],
         plain=lambda: k5.spec_db_plain(reim, flen, reim=True, db=False, **lv)[0], checks=checks,
         library=None, library_note="none per kernel: see the featurizer line", tol=1e-4,
-        nbytes=4 * TRAIN_B * T * 3 * F_, flops=3 * TRAIN_B * T * F_, iters=50)
+        nbytes=4 * TRAIN_B * T * 3 * F_, iters=50)
 
 
 def _ctc_inputs(randn, dev, B_=8, T=133, C=43, U=32, seed=0, tl=(32, 30, 28, 24, 32, 20, 16, 31),
@@ -852,15 +884,15 @@ def _ctc_beta_args(a):
 
 
 def _ctc_alpha_cost(B_, T, C, S):
-    """(bytes moved, FLOPs) of one ctc_alpha call: log_probs read once, the
-    alphas written, targets and lengths; ~12 FLOPs a state a step."""
-    return 4 * (B_ * T * C + T * B_ * S + B_ * (4 + (S - 1) // 2)), 12 * T * B_ * S
+    """Bytes moved by one ctc_alpha call: log_probs read once, the alphas
+    written, targets and lengths."""
+    return 4 * (B_ * T * C + T * B_ * S + B_ * (4 + (S - 1) // 2))
 
 
 def _ctc_beta_cost(B_, T, C, S):
-    """(bytes moved, FLOPs) of one ctc_beta_grad call: log_probs read and
-    the gradient written, the alphas read, targets, lengths, nll and g."""
-    return 4 * (2 * B_ * T * C + T * B_ * S + 3 * B_), 16 * T * B_ * S + T * B_ * C
+    """Bytes moved by one ctc_beta_grad call: log_probs read and the
+    gradient written, the alphas read, targets, lengths, nll and g."""
+    return 4 * (2 * B_ * T * C + T * B_ * S + 3 * B_)
 
 
 # (B, T, C, S) of K6 in the train steps: the ASR, paired and speech-first
@@ -898,7 +930,7 @@ def _case_ctc_alpha(randn, unif, dev):
     timed, timed_plain, bounds = _timed_by_shape(
         K6_SHAPES, lambda *sh: _ctc_shape_inputs(randn, dev, *sh), k6.ctc_alpha, k6.ctc_alpha_plain,
         _ctc_alpha_cost, ctc_shape_key)
-    nbytes, flops = _ctc_alpha_cost(B_, T, C, S)
+    nbytes = _ctc_alpha_cost(B_, T, C, S)
     return dict(
         name="ctc_alpha", replaces="semi_tts_tpu/ops/ctc.py:63 (_alpha_pass, with "
         "_logaddexp3 :34; forward of the custom VJP _ctc_nll_fwd :114)",
@@ -906,7 +938,7 @@ def _case_ctc_alpha(randn, unif, dev):
         kernel=lambda: k6.ctc_alpha(*args), plain=lambda: k6.ctc_alpha_plain(*args),
         checks=checks, library=_ctc_library(*args, backward=False), library_timing="eager",
         library_note="F.ctc_loss forward, reduction mean, on the card (CUDA events, eager: "
-        "its lengths go through the host)", tol=1e-4, nbytes=nbytes, flops=flops, iters=50,
+        "its lengths go through the host)", tol=1e-4, nbytes=nbytes, iters=50,
         steps=T, timed=timed, timed_plain=timed_plain,
         timed_library={ctc_shape_key(*sh): _ctc_library(*_ctc_shape_inputs(randn, dev, *sh),
                                                         backward=False) for sh in K6_SHAPES},
@@ -943,7 +975,7 @@ def _case_ctc_beta_grad(randn, unif, dev):
     timed, timed_plain, bounds = _timed_by_shape(
         K6_SHAPES, lambda *sh: _ctc_beta_args(_ctc_shape_inputs(randn, dev, *sh)),
         k6.ctc_beta_grad, k6.ctc_beta_grad_plain, _ctc_beta_cost, ctc_shape_key)
-    nbytes, flops = _ctc_beta_cost(B_, T, C, S)
+    nbytes = _ctc_beta_cost(B_, T, C, S)
     return dict(
         name="ctc_beta_grad", replaces="semi_tts_tpu/ops/ctc.py:123 (_ctc_nll_bwd: beta "
         "recursion, occupancies, one-hot gradient einsum)",
@@ -951,7 +983,7 @@ def _case_ctc_beta_grad(randn, unif, dev):
         kernel=lambda: k6.ctc_beta_grad(*args), plain=lambda: k6.ctc_beta_grad_plain(*args),
         checks=checks, library=_ctc_library(*args[:4], backward=True), library_timing="eager",
         library_note="F.ctc_loss forward + backward, reduction mean, on the card (CUDA events, "
-        "eager; includes the forward)", tol=1e-4, nbytes=nbytes, flops=flops, iters=50,
+        "eager; includes the forward)", tol=1e-4, nbytes=nbytes, iters=50,
         steps=T, timed=timed, timed_plain=timed_plain,
         timed_library={ctc_shape_key(*sh): _ctc_library(*_ctc_shape_inputs(randn, dev, *sh),
                                                         backward=True) for sh in K6_SHAPES},
@@ -969,16 +1001,15 @@ def _lstm_bwd_inputs(randn, unif, T, B_, H, ndir=2):
 
 
 def _lstm_bwd_cost(T, B_, H, ndir=2):
-    """(bytes moved, FLOPs) of one K7 call: gates in and dgates out per
-    direction, cs and g_hs, W_hh per direction; the step products."""
-    return (4 * (2 * ndir * T * B_ * 4 * H + 2 * T * B_ * ndir * H + ndir * 4 * H * H),
-            2 * ndir * T * B_ * 4 * H * H)
+    """Bytes moved by one K7 call: gates in and dgates out per direction, cs
+    and g_hs, W_hh per direction."""
+    return 4 * (2 * ndir * T * B_ * 4 * H + 2 * T * B_ * ndir * H + ndir * 4 * H * H)
 
 
 def _gru_bwd_cost(T, B_, H, ndir=2):
-    """(bytes moved, FLOPs) of one K8 call: z, coef_h, g_hs and dh2, W_hh per
-    direction; the step products."""
-    return ndir * 4 * (T * B_ * H * 6 + 3 * H * H), ndir * 2 * T * B_ * 3 * H * H
+    """Bytes moved by one K8 call: z, coef_h, g_hs and dh2, W_hh per
+    direction."""
+    return ndir * 4 * (T * B_ * H * 6 + 3 * H * H)
 
 
 def shape_key(T, B_, H, ndir=2):
@@ -992,7 +1023,7 @@ def _timed_by_shape(shapes, inputs, kernel, plain, cost, key=shape_key):
     args = {key(*sh): inputs(*sh) for sh in shapes}
     return ({k: lambda a=a: kernel(*a) for k, a in args.items()},
             {k: lambda a=a: plain(*a) for k, a in args.items()},
-            {key(*sh): bound(*cost(*sh))[0] for sh in shapes})
+            {key(*sh): bound(cost(*sh), lambda a=args[key(*sh)]: kernel(*a))[0] for sh in shapes})
 
 
 # (T, B, H, ndir) of K7 in the train steps: the ASR BiLSTM (T=133) on 8
@@ -1043,7 +1074,7 @@ def _case_lstm_bwd(randn, unif, dev):
         library_note="the backward of cuDNN nn.LSTM(bidirectional=True): also the input "
         "GEMM's data and weight gradients and dW_hh (CUDA events, eager); by shape: "
         "nn.LSTM() one direction", tol=1e-4,
-        nbytes=_lstm_bwd_cost(T, TRAIN_B, H)[0], flops=_lstm_bwd_cost(T, TRAIN_B, H)[1], iters=10,
+        nbytes=_lstm_bwd_cost(T, TRAIN_B, H), iters=10,
         timed=timed, timed_plain=timed_plain,
         timed_library={**{shape_key(*sh): _rnn_library_backward(torch.nn.LSTM, randn, dev, *sh, D)
                           for sh in K7_SHAPES if sh[3] == 2},
@@ -1078,19 +1109,19 @@ def _case_lstm_cs(randn, unif, dev):
         checks=checks, library=lambda: lstm(x_in),
         library_note="cuDNN nn.LSTM(bidirectional=True) forward, includes the input GEMM; "
         "graph-timed; by shape: nn.LSTM() one direction", tol=1e-4,
-        nbytes=_lstm_cs_cost(T, TRAIN_B, H)[0], flops=_lstm_cs_cost(T, TRAIN_B, H)[1], iters=10,
+        nbytes=_lstm_cs_cost(T, TRAIN_B, H), iters=10,
         timed={key: lambda: k17.bilstm_rec_cs(*lm_args)},
         timed_plain={key: lambda: k17.bilstm_rec_cs_plain(*lm_args)},
         timed_library={key: lambda: lstm1(x1)},
-        extra={"bound_ms_by_shape": {key: bound(*cost1)[0]},
+        extra={"bound_ms_by_shape": {key: bound(cost1, lambda: k17.bilstm_rec_cs(*lm_args))[0]},
                "plans_by_shape": {key: k17.lstm_plan(TRAIN_B, TEXTLM_H, 1,
                                                      k17.max_clusters(TEXTLM_H))}})
 
 
 def _lstm_cs_cost(T, B_, H, ndir=2):
-    """(bytes moved, FLOPs) of one K1 call with cell states: x_proj in, hs
-    and cs out, W_hh per direction; the step products."""
-    return ndir * 4 * (T * B_ * 4 * H + 4 * H * H + 2 * T * B_ * H), ndir * 2 * T * B_ * 4 * H * H
+    """Bytes moved by one K1 call with cell states: x_proj in, hs and cs
+    out, W_hh per direction."""
+    return ndir * 4 * (T * B_ * 4 * H + 4 * H * H + 2 * T * B_ * H)
 
 
 def _gru_bwd_inputs(randn, unif, T, B_, H, ndir=2):
@@ -1143,7 +1174,7 @@ def _case_gru_bwd(randn, unif, dev):
         timed_library={**{shape_key(*sh): _rnn_library_backward(torch.nn.GRU, randn, dev, *sh, H)
                           for sh in K8_SHAPES if sh[3] == 2},
                        shape_key(GRU_LM_T, TRAIN_B, GRU_LM_H, 1): _library_backward(gru1, x1, randn)},
-        nbytes=_gru_bwd_cost(T, TRAIN_B, H)[0], flops=_gru_bwd_cost(T, TRAIN_B, H)[1], iters=10,
+        nbytes=_gru_bwd_cost(T, TRAIN_B, H), iters=10,
         timed=timed, timed_plain=timed_plain, extra={"plan": k8.gru_bwd_plan(TRAIN_B, H, 2),
                                                      "bound_ms_by_shape": bounds})
 
@@ -1216,10 +1247,9 @@ def _case_attention_bwd(randn, unif, dev):
     checks += [(lambda P=P, a=a: at_span(P, a), lambda a=a: k9.attention_step_bwd_plain(*a))
                for P in k9.SPANS for a in (masked, cycle)]
 
-    def cost(B_, L):  # (bytes moved, FLOPs) of one call
-        nbytes = 4 * (2 * (B_ * A + B_ * L * A + B_ * L * D + B_ * C * L + F_ * C * K + A * F_ + A)
-                      + 2 * B_ * L + B_ * D)
-        return nbytes, 2 * B_ * L * (3 * F_ * C * K + 3 * A * F_ + D) + B_ * L * D + 5 * B_ * L * A
+    def cost(B_, L):  # bytes moved by one call
+        return 4 * (2 * (B_ * A + B_ * L * A + B_ * L * D + B_ * C * L + F_ * C * K + A * F_ + A)
+                    + 2 * B_ * L + B_ * D)
 
     by_shape = {f"B={a[0].shape[0]} L={a[1].shape[1]}": a
                 for a in (args, text_first, cycle, long, longest)}
@@ -1239,10 +1269,9 @@ def _case_attention_bwd(randn, unif, dev):
         timed_plain=timed_plain,
         extra={"plans": {n: {k: p[k] for k in ("span", "spans", "grid", "smem_bytes")}
                          for n, p in plans.items()},
-               "bound_ms_by_shape": {n: bound(*cost(a[0].shape[0], a[1].shape[1]))[0]
-                                     for n, a in by_shape.items()}},
-        library=None, library_note=NO_LIBRARY, tol=1e-4, nbytes=cost(B_, L)[0],
-        flops=cost(B_, L)[1], iters=200)
+               "bound_ms_by_shape": {n: bound(cost(a[0].shape[0], a[1].shape[1]), f)[0]
+                                     for (n, a), f in zip(by_shape.items(), timed.values())}},
+        library=None, library_note=NO_LIBRARY, tol=1e-4, nbytes=cost(B_, L), iters=200)
 
 
 def _trim_merge_inputs(randn, dev, B_, T, C=43, D=64, blank_row=False, long_runs=False,
@@ -1302,11 +1331,13 @@ def _case_trim_merge(randn, unif, dev):
         kernel=lambda: b6.trim_merge(p, lat, 3), plain=lambda: b6.trim_merge_plain(p, lat, 3),
         checks=[pair(*c) for c in [(p, lat)] + cases],
         library=None, library_note=NO_LIBRARY, tol=1e-6,
-        nbytes=_trim_merge_cost(B_, T, C, D_)[0], flops=_trim_merge_cost(B_, T, C, D_)[1],
-        iters=200, timed={k: lambda a=a: b6.trim_merge(*a, 3) for k, a in by_shape.items()},
+        nbytes=_trim_merge_cost(B_, T, C, D_), iters=200,
+        timed={k: lambda a=a: b6.trim_merge(*a, 3) for k, a in by_shape.items()},
         timed_plain={k: lambda a=a: b6.trim_merge_plain(*a, 3) for k, a in by_shape.items()},
-        extra={"bound_ms_by_shape": {f"B={b} T={t}": bound(*_trim_merge_cost(b, t, C, D_))[0]
-                                     for b, t in B6_SHAPES},
+        extra={"bound_ms_by_shape": {
+                   f"B={b} T={t}": bound(_trim_merge_cost(b, t, C, D_),
+                                         lambda a=by_shape[f"B={b} T={t}"]: b6.trim_merge(*a, 3))[0]
+                   for b, t in B6_SHAPES},
                "plans": {f"B={b} T={t}": b6.trim_merge_plan(t, C, D_) for b, t in B6_SHAPES}})
 
 
@@ -1316,8 +1347,8 @@ B6_SHAPES = ((TRAIN_B, 133), (1, 680))
 
 
 def _trim_merge_cost(B_, T, C, D_):
-    """B6's bytes (p_code, latent and trimmed, lengths, slots and counts) and FLOPs."""
-    return 4 * (B_ * T * C + 2 * B_ * T * D_ + B_ + 2 * B_ * T), B_ * T * (C + D_)
+    """B6's bytes: p_code, latent and trimmed, lengths, slots and counts."""
+    return 4 * (B_ * T * C + 2 * B_ * T * D_ + B_ + 2 * B_ * T)
 
 
 # (B, T) of B6's backward timed by shape: the flagship speech-first step's
@@ -1326,8 +1357,8 @@ B6_BWD_SHAPES = ((TRAIN_B, 133), (2 * TRAIN_B, 133), (1, 680))
 
 
 def _trim_merge_bwd_cost(B_, T, D_):
-    """B6 backward's bytes (d_trimmed in, d_latent out, slots and counts) and FLOPs."""
-    return 4 * (2 * B_ * T * D_ + 2 * B_ * T), B_ * T * D_
+    """B6 backward's bytes: d_trimmed in, d_latent out, slots and counts."""
+    return 4 * (2 * B_ * T * D_ + 2 * B_ * T)
 
 
 def _case_trim_merge_bwd(randn, unif, dev):
@@ -1365,11 +1396,13 @@ def _case_trim_merge_bwd(randn, unif, dev):
         checks=[(lambda a=a: b6.trim_merge_bwd(*a), lambda a=a: b6.trim_merge_bwd_plain(*a))
                 for a in cases],
         library=None, library_note=NO_LIBRARY, tol=0.0,
-        nbytes=_trim_merge_bwd_cost(B_, T, D_)[0], flops=_trim_merge_bwd_cost(B_, T, D_)[1],
-        iters=200, timed={k: lambda a=a: b6.trim_merge_bwd(*a) for k, a in by_shape.items()},
+        nbytes=_trim_merge_bwd_cost(B_, T, D_), iters=200,
+        timed={k: lambda a=a: b6.trim_merge_bwd(*a) for k, a in by_shape.items()},
         timed_plain={k: lambda a=a: b6.trim_merge_bwd_plain(*a) for k, a in by_shape.items()},
-        extra={"bound_ms_by_shape": {f"B={b} T={t}": bound(*_trim_merge_bwd_cost(b, t, D_))[0]
-                                     for b, t in B6_BWD_SHAPES},
+        extra={"bound_ms_by_shape": {f"B={b} T={t}": bound(
+                   _trim_merge_bwd_cost(b, t, D_),
+                   lambda a=by_shape[f"B={b} T={t}"]: b6.trim_merge_bwd(*a))[0]
+                   for b, t in B6_BWD_SHAPES},
                "plans": {f"B={b} T={t}": b6.trim_merge_bwd_plan(b, t, D_)
                          for b, t in B6_BWD_SHAPES}})
 
@@ -1466,7 +1499,7 @@ def time_seen_shapes(table, dev, seen_shapes):
                                      f"version at {key}: {err}")
                 row["ms_by_shape"][key] = device_ms(lambda: kernel(*a), 10)
                 row["plain_ms_by_shape"][key] = device_ms(lambda: plain(*a), 2)
-                row["bound_ms_by_shape"][key] = bound(*cost(*sh))[0]
+                row["bound_ms_by_shape"][key] = bound(cost(*sh), lambda: kernel(*a))[0]
                 lib = _seen_library(row["name"], sh, randn, unif, dev)
                 row.setdefault("library_ms_by_shape", {})[key] = time_ms(lib, 10)
 
@@ -1504,7 +1537,7 @@ def phase_kernels(dev):
             plain_ms = device_ms(c["plain"], max(2, c["iters"] // 10))
             lib_time = time_ms if c.get("library_timing") == "eager" else device_ms
             lib_ms = lib_time(c["library"], c["iters"]) if c["library"] else None
-            bound_ms, bound_by = bound(c["nbytes"], c["flops"])
+            bound_ms, bound_by = bound(c["nbytes"], c["kernel"])
             row = {"name": c["name"], "route": "cuda", "source": c["source"],
                    "replaces": c["replaces"], "shapes": c["shapes"],
                    "launches": None, "max_abs_err": err, "max_err": err, "tol": c["tol"],
@@ -1586,9 +1619,11 @@ def phase_serving(build_dir):
     allocator holds then (the graphs' pool included), ``mem_baseline_bytes``
     what was allocated when its count started (model, caches of earlier
     phases). The eager requests (`eager_request`, the stages run without a
-    graph) are timed and profiled beside the graphed ones."""
+    graph) are timed and profiled beside the graphed ones; ``flops`` are the
+    matrix-product FLOPs of one eager request (`utils.flops.matmul_flops`)."""
     from semi_tts_tpu_torch import kernels
     from semi_tts_tpu_torch.serve import TTSServer
+    from semi_tts_tpu_torch.utils.flops import matmul_flops
 
     ckpt = os.path.join(build_dir, "chip_smoke_ckpt.pth")
     try:
@@ -1631,6 +1666,7 @@ def phase_serving(build_dir):
         require_seen(profile["kernels_seen"], SERVING_KERNELS, "serving request")
         eager_profile = profiled_step(
             lambda: eager_request(server, text, sid, 99, steps)[-1].cpu(), eager_wall)
+        flops = matmul_flops(eager_request, server, text, sid, 99, steps)
         synth, vocode = server.stages(steps, B, U)
         graphs = {"synth": graph_stats(synth), "vocode": graph_stats(vocode)}
         checks = serving_graph_checks(server, (text, sid))
@@ -1655,7 +1691,7 @@ def phase_serving(build_dir):
                 eager_profile={k: eager_profile[k] for k in ("device_busy_s", "idle_share",
                                                              "kernel_launches")},
                 launches=profile["kernels_seen"], wrapper_launches=wrapper_launches,
-                graph_checks=checks, reference=ref)
+                graph_checks=checks, reference=ref, flops=flops)
 
 
 def graph_stats(prog):
@@ -1860,11 +1896,23 @@ def training_batch(seed, dev, lengths=(TRAIN_S,) * TRAIN_B, U_=32):
             torch.from_numpy(text).to(dev), torch.from_numpy(rng.randint(0, 109, len(lengths))).to(dev))
 
 
-def phase_training(dev):
+def _lstm_names(names, wide):
+    """``names`` with the LSTM recurrences' wrappers replaced by the wide
+    routes' (K1 with or without cell states -> K1w, K7 -> K7w) where
+    ``wide``."""
+    to = {"bilstm_rec": "lstm_rec_wide", "bilstm_rec_cs": "lstm_rec_wide",
+          "bilstm_rec_bwd": "lstm_rec_bwd_wide"}
+    return tuple(dict.fromkeys(to.get(n, n) if wide else n for n in names))
+
+
+def phase_training(dev, rnn_dim=None):
     """AsrTrainer at flagship width: a warm-up step (then validate_asr), five
     timed steps, the launches of one step and of the validation, one
-    profiled step, and one step on the card against the CPU plain path."""
+    profiled step, and one step on the card against the CPU plain path.
+    ``rnn_dim`` overrides the encoder's ``model.encoder.rnn_dim``: at 512
+    its BiLSTM takes the wide routes, K1w and K7w, once a layer each."""
     from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.kernels.rnn import lstm_route
     from semi_tts_tpu_torch.models import vqvae as V
     from semi_tts_tpu_torch.ops.features import AudioFeaturizer
     from semi_tts_tpu_torch.train.optim import Optimizer
@@ -1873,7 +1921,12 @@ def phase_training(dev):
     from semi_tts_tpu_torch.utils.metrics import read_phn_attr
 
     config = flagship_config()
+    if rnn_dim is not None:
+        config["model"]["encoder"]["rnn_dim"] = rnn_dim
     cfg = flagship_vqvae_config(config)
+    wide = lstm_route(cfg.encoder.rnn_dim) == "wide"
+    train_kernels, valid_kernels = (_lstm_names(TRAINING_KERNELS, wide),
+                                    _lstm_names(VALIDATION_KERNELS, wide))
     phn_attr = torch.from_numpy(read_phn_attr(config["model"]["codebook"]["phn_attr_pth"])).to(dev)
     model = V.VQVAE(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
     builder = StepBuilder(cfg, AudioFeaturizer(audio_config(), dev), phn_attr)
@@ -1911,13 +1964,18 @@ def phase_training(dev):
     launches["validate"] = kernels.launch_counts()
     if len(losses) != 1 + TRAIN_STEPS or not np.isfinite(losses + gnorms + per_first + [per]).all():
         raise SystemExit(f"chip_smoke: training went non-finite: {losses} {gnorms} {per}")
-    for path, names in (("run", TRAINING_KERNELS), ("validate", VALIDATION_KERNELS)):
+    for path, names in (("run", train_kernels), ("validate", valid_kernels)):
         idle = [n for n in names if launches[path][n] == 0]
         if idle:
             raise SystemExit(f"chip_smoke: kernels not launched on the {path} path: {idle}")
     profile = profiled_step(lambda: trainer._train_step(batch), float(np.median(walls)),
                             picked=K6_KERNELS)
-    require_seen(profile["kernels_seen"], TRAINING_KERNELS, "ASR train step")
+    seen = profile["kernels_seen"]
+    require_seen(seen, train_kernels, "ASR train step")
+    if wide and not (seen["lstm_rec_wide"] == seen["lstm_rec_bwd_wide"] == 2
+                     and not any(seen[n] for n in NARROW_RECURRENCES)):
+        raise SystemExit(f"chip_smoke: the ASR step at rnn_dim {rnn_dim} did not run K1w and "
+                         f"K7w once a layer, and no narrow recurrence: {seen}")
     ref = training_reference(model, cfg, phn_attr, dev)
     graph = graph_check(model, opt, lambda o: make_asr_step(builder, o),
                         lambda fn, m, n: fn(m, n, *batch), 100)
@@ -1947,7 +2005,9 @@ KERNEL_NAMES = {"bilstm_rec": r"lstm_rec_kernel<[^>]*false>",
                 "gl_ola_frame": r"gl_ola_frame_kernel", "stft_frames": r"stft_frames_kernel",
                 "spec_db": r"spec_db_kernel", "ctc_alpha": r"ctc_alpha_kernel",
                 "ctc_beta_grad": r"ctc_beta_grad_kernel", "trim_merge": r"trim_merge_kernel",
-                "trim_merge_bwd": r"trim_merge_bwd_kernel"}
+                "trim_merge_bwd": r"trim_merge_bwd_kernel", "lstm_rec_wide": r"rec_wide_kernel<4>",
+                "lstm_rec_bwd_wide": r"lstm_wide_bwd_kernel", "gru_rec_wide": r"rec_wide_kernel<3>",
+                "gru_rec_bwd_wide": r"gru_wide_bwd_kernel"}
 
 
 def kernels_seen(by_name):
@@ -2062,8 +2122,11 @@ def graph_check(model, opt, make, call, step0):
     card-vs-CPU gates (a loss to 1e-4 of itself, a state leaf in L2 to 1e-3
     of its change over the steps; counts exactly). The last graphed step is
     rerun from a copy of its state and must repeat bit for bit. Returns the
-    eager walls (median), an eager step's profile, the graph's capture time
-    and host launches a call."""
+    eager walls (median), an eager step's profile, the matrix-product FLOPs
+    of one more eager step (``flops``, `utils.flops.matmul_flops`), the
+    graph's capture time and host launches a call."""
+    from semi_tts_tpu_torch.utils.flops import matmul_flops
+
     (mg, og), (me, oe) = copy.deepcopy((model, opt)), copy.deepcopy((model, opt))
     start = [t.detach().clone() for _, t in model_state(me, oe)]
     sg, se = make(og), make(oe)
@@ -2103,11 +2166,12 @@ def graph_check(model, opt, make, call, step0):
     prog = sg.programs()[0]
     eager_wall = float(np.median(eager_walls))
     eager_prof = profiled_step(lambda: call(se.eager, me, step0 + GRAPH_STEPS), eager_wall)
+    flops = matmul_flops(call, se.eager, me, step0 + GRAPH_STEPS + 1)
     out = dict(steps=GRAPH_STEPS, bit_for_bit=not differing, rerun_bit_for_bit=rerun,
                differing=differing[:20], held_to_gates=held, eager_wall_s=eager_wall,
                eager_walls_s=eager_walls, eager_busy_s=eager_prof["device_busy_s"],
                eager_idle_share=eager_prof["idle_share"],
-               eager_device_events=eager_prof["kernel_launches"], **graph_stats(prog))
+               eager_device_events=eager_prof["kernel_launches"], flops=flops, **graph_stats(prog))
     del mg, og, me, oe, sg, se, prog
     gc.collect()
     if not rerun or not held:
@@ -2170,7 +2234,10 @@ def program_check(prog, calls, what, kernels, seed=11):
     capture's bytes (`GraphOwner.graph_bytes`: the allocator's pool and the
     card outside it) and time. At the first call's shape: the replay's and
     the eager call's walls, a profiled replay (busy, idle, device events;
-    ``kernels`` must run in it, by name) and a profiled eager call."""
+    ``kernels`` must run in it, by name), a profiled eager call and the
+    eager call's matrix-product FLOPs (``flops``, `utils.flops.matmul_flops`)."""
+    from semi_tts_tpu_torch.utils.flops import matmul_flops
+
     prog.capture_at = 1
     owner = prog.owner(next(t.device for t in calls[0][0] if isinstance(t, torch.Tensor)))
     rows = []
@@ -2199,7 +2266,7 @@ def program_check(prog, calls, what, kernels, seed=11):
     wall, eager_wall = timed_wall(graphed, PROGRAM_REPS), timed_wall(eager, 3)
     replay, eager_prof = profiled_step(graphed, wall), profiled_step(eager, eager_wall)
     require_seen(replay["kernels_seen"], kernels, f"{what} program")
-    return dict(calls=rows, wall_s=wall, eager_wall_s=eager_wall,
+    return dict(calls=rows, wall_s=wall, eager_wall_s=eager_wall, flops=matmul_flops(eager),
                 busy_s=replay["device_busy_s"], idle_share=replay["idle_share"],
                 device_events=replay["kernel_launches"],
                 eager_busy_s=eager_prof["device_busy_s"], eager_idle_share=eager_prof["idle_share"],
@@ -3610,25 +3677,6 @@ def lm_programs(solver, batch, mode):
                 over_budget_calls=solver.graph_owner.over_budget_calls)
 
 
-def rnnlm_limit(dev):
-    """RNNLM at its default width (512 units), which no solver builds, is
-    past K1's and K2's plans: its first launch on the card raises the
-    plan's ValueError, for each cell type."""
-    from semi_tts_tpu_torch.models.lm import RNNLM, rnnlm_apply
-
-    out, text = {}, torch.ones((2, 5), dtype=torch.long, device=dev)
-    for cell in ("lstm", "gru"):
-        m = RNNLM(43, 48, module=cell, generator=torch.Generator().manual_seed(0)).to(dev)
-        try:
-            with torch.no_grad():
-                rnnlm_apply(m, text)
-        except ValueError as e:
-            out[cell] = str(e)
-        else:
-            raise SystemExit(f"chip_smoke: RNNLM-{cell} at 512 units ran past its kernel's plan")
-    return out
-
-
 def phase_pretrain(card, asr_ckpt):
     """LM pretraining at flagship width on the synthetic CLI corpus:
     ``--pretrain-text`` (the text LM over the codebook table, one LSTM
@@ -3639,12 +3687,12 @@ def phase_pretrain(card, asr_ckpt):
     checkpoints and the CLI phase's ``asr_ckpt`` grafted into a
     `VqvaeSolver` (every grafted leaf and the postnet's BN statistics equal
     to the files' bit for bit, the TTS text encoder equal to a cold
-    solver's), which trains 2 steps. First, `rnnlm_limit`."""
+    solver's), which trains 2 steps."""
     from semi_tts_tpu_torch.bridge import _flatten, to_jax_params
     from semi_tts_tpu_torch.train.checkpoint import load_checkpoint
     from semi_tts_tpu_torch.train.train_vqvae import VqvaeSolver
 
-    out = {"card": card, "rnnlm_limit": rnnlm_limit(torch.device("cuda"))}
+    out = {"card": card}
     with tempfile.TemporaryDirectory() as root:
         config = cli_config(root)
         config["hparas"].update(max_step=PRETRAIN_STEPS, valid_step=PRETRAIN_VALID)
@@ -3691,6 +3739,265 @@ def phase_pretrain(card, asr_ckpt):
         if warm.log is not None:
             warm.log.close()
     return out
+
+
+# The wide routes of the recurrences (K1w, K7w, K2w, K8w), each held to its
+# plain version and timed at these (T, B, H, ndir): RNNLM's layer (B=8 x 47
+# inputs, one direction of 512 units), the ASR BiLSTM at rnn_dim 512 (T=133,
+# both directions), 1,024 units, and just past the narrow plans (292 units,
+# and 258, not a multiple of 4; the GRU's 129). The first is the row's own.
+WIDE_LSTM_SHAPES = ((47, 8, 512, 1), (133, 8, 512, 2), (32, 8, 1024, 1), (40, 5, 292, 2),
+                    (40, 5, 258, 2))
+WIDE_GRU_SHAPES = ((47, 8, 512, 1), (32, 8, 1024, 1), (40, 5, 129, 2))
+WIDE_KERNELS = ("lstm_rec_wide", "lstm_rec_bwd_wide", "gru_rec_wide", "gru_rec_bwd_wide")
+NARROW_RECURRENCES = ("bilstm_rec", "bilstm_rec_cs", "bilstm_rec_bwd", "bigru_rec",
+                      "bigru_rec_bwd")
+RNNLM_B, RNNLM_U = 8, 48   # the CLI corpus's longest text: 48 tokens, 47 inputs
+ASR_WIDE_RNN_DIM = 512     # model.encoder.rnn_dim of the ASR step (c)
+
+
+def _wide_specs(randn, unif, dev):
+    """The wide routes' rows: inputs at a (T, B, H, ndir), the wrapper that
+    routes there, its plain version, bytes moved, the library yardstick."""
+    from semi_tts_tpu_torch.kernels import rnn as k
+
+    def one_dir(a, per_dir):  # keep the forward direction's tensors alone
+        return [t if i % 2 == 0 else None for i, t in enumerate(a[:2 * per_dir])] + a[2 * per_dir:]
+
+    def lstm_in(T, B_, H, n):
+        a = _lstm_inputs(randn, unif, T, B_, H)
+        return a if n == 2 else one_dir(a, 2)
+
+    def gru_in(T, B_, H, n):
+        a = _gru_inputs(randn, unif, T, B_, H)
+        return a if n == 2 else one_dir(a, 3)
+
+    def forward(cls):
+        def make(T, B_, H, n):
+            module, x = cls(H, H, bidirectional=n == 2).to(dev), randn(T, B_, H)
+            return lambda: module(x)
+        return make
+
+    def backward(cls):
+        return lambda T, B_, H, n: _rnn_library_backward(cls, randn, dev, T, B_, H, n, H)
+
+    note = ("cuDNN nn.{}(H, H), bidirectional where ndir=2, at each shape; the input GEMM "
+            "included; {}")
+    return [
+        dict(name="lstm_rec_wide", kernel=k.bilstm_rec_cs, plain=k.bilstm_rec_cs_plain,
+             inputs=lstm_in, cost=_lstm_cs_cost, shapes=WIDE_LSTM_SHAPES, plan="lstm",
+             library=forward(torch.nn.LSTM), timing=device_ms,
+             note=note.format("LSTM", "forward, graph-timed"),
+             replaces="tools/proto_pallas_rnn.py:33 (pallas_lstm_rec, pallas_call at :61); "
+             "semi_tts_tpu/ops/rnn.py:95 (_lstm_rec_fwd), past K1's plans (H > 288 or "
+             "H % 4 != 0)"),
+        dict(name="lstm_rec_bwd_wide", kernel=k.bilstm_rec_bwd, plain=k.bilstm_rec_bwd_plain,
+             inputs=lambda *sh: _lstm_bwd_inputs(randn, unif, *sh), cost=_lstm_bwd_cost,
+             shapes=WIDE_LSTM_SHAPES, plan="lstm_bwd", library=backward(torch.nn.LSTM),
+             timing=time_ms,
+             note=note.format("LSTM", "backward: data and weight gradients (CUDA events, eager)"),
+             replaces="semi_tts_tpu/ops/rnn.py:114 (_lstm_rec_bwd, the backward scan), past "
+             "K7's plans"),
+        dict(name="gru_rec_wide", kernel=k.bigru_rec, plain=k.bigru_rec_plain, inputs=gru_in,
+             cost=_gru_cost, shapes=WIDE_GRU_SHAPES, plan="gru", library=forward(torch.nn.GRU),
+             timing=device_ms,
+             note=note.format("GRU", "forward, graph-timed"),
+             replaces="semi_tts_tpu/ops/rnn.py:225 (_gru_rec_fwd), past K2's plan (H > 128)"),
+        dict(name="gru_rec_bwd_wide", kernel=k.bigru_rec_bwd, plain=k.bigru_rec_bwd_plain,
+             inputs=lambda *sh: _gru_bwd_inputs(randn, unif, *sh), cost=_gru_bwd_cost,
+             shapes=WIDE_GRU_SHAPES, plan="gru_bwd", library=backward(torch.nn.GRU),
+             timing=time_ms,
+             note=note.format("GRU", "backward: data and weight gradients (CUDA events, eager)"),
+             replaces="semi_tts_tpu/ops/rnn.py:244 (_gru_rec_bwd, the backward scan), past "
+             "K8's plan")]
+
+
+def wide_kernel_rows(dev):
+    """The kernels line's rows of the wide routes: each held to its plain
+    version at 1e-4 at every shape of its list, timed there (graph-replayed),
+    beside its plain version, its bound and the cuDNN yardstick; the row's
+    own numbers at its first shape. Also K1w without cell states (both
+    wrappers) and K2w through `gru_rec`, one direction reversed."""
+    from semi_tts_tpu_torch.kernels import rnn as k
+
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def unif(*shape, a):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * a
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    with torch.no_grad():
+        w, _, x, _ = _lstm_inputs(randn, unif, 40, 5, 258)
+        bi = _lstm_inputs(randn, unif, 40, 5, 292)
+        wg, _, bg, _, xg, _ = _gru_inputs(randn, unif, 40, 5, 129)
+        extra = {"lstm_rec reversed T=40 B=5 H=258": max_err(k.lstm_rec(True, w, x),
+                                                             k.lstm_rec_plain(True, w, x)),
+                 "bilstm_rec T=40 B=5 H=292": max_err(k.bilstm_rec(*bi), k.bilstm_rec_plain(*bi)),
+                 "gru_rec reversed T=40 B=5 H=129": max_err(k.gru_rec(True, wg, bg, xg),
+                                                            k.gru_rec_plain(True, wg, bg, xg))}
+        for spec in _wide_specs(randn, unif, dev):
+            by = {n: {} for n in ("err", "ms", "plain", "bound", "library", "plan")}
+            for sh in spec["shapes"]:
+                key, a = shape_key(*sh), spec["inputs"](*sh)
+                run = lambda a=a: spec["kernel"](*a)
+                by["err"][key] = max_err(run(), spec["plain"](*a))
+                if not by["err"][key] <= 1e-4:
+                    raise SystemExit(f"chip_smoke: {spec['name']} disagrees with its plain "
+                                     f"version at {key}: {by['err'][key]}")
+                by["ms"][key] = device_ms(run, 10)
+                by["plain"][key] = device_ms(lambda a=a: spec["plain"](*a), 2)
+                by["bound"][key] = bound(spec["cost"](*sh), run)
+                by["library"][key] = spec["timing"](spec["library"](*sh), 10)
+                by["plan"][key] = k.wide_plan(spec["plan"], sh[1], sh[2], sh[3], sms)
+            main = shape_key(*spec["shapes"][0])
+            print(f"kernel {spec['name']}: max_abs_err {max(by['err'].values()):.3e} (tol 1e-4)",
+                  flush=True)
+            rows.append({"name": spec["name"], "route": "cuda",
+                         "source": "semi_tts_tpu_torch/csrc/rnn_wide.cu",
+                         "replaces": spec["replaces"], "shapes": main, "launches": None,
+                         "max_abs_err": max(by["err"].values()), "tol": 1e-4,
+                         "ms": by["ms"][main], "plain_ms": by["plain"][main],
+                         "bound_ms": by["bound"][main][0], "bound_by": by["bound"][main][1],
+                         "library_ms": by["library"][main], "library": spec["note"],
+                         "us_per_step": 1e3 * by["ms"][main] / spec["shapes"][0][0],
+                         "ms_by_shape": by["ms"], "plain_ms_by_shape": by["plain"],
+                         "bound_ms_by_shape": {n: b[0] for n, b in by["bound"].items()},
+                         "library_ms_by_shape": by["library"],
+                         "max_abs_err_by_shape": by["err"], "plans_by_shape": by["plan"]})
+    if not max(extra.values()) <= 1e-4:
+        raise SystemExit(f"chip_smoke: a wide route disagrees with its plain version: {extra}")
+    rows[0]["checks"] = extra
+    return rows
+
+
+def rnnlm_step(opt, owner):
+    """A train step of `RNNLM` (no solver builds one) as `make_textlm_step`
+    makes the text LM's: ``step(model, step_no, text)`` -> dict(total_loss,
+    grad_norm), `rnnlm_loss` on int text (B, U) padded with 0, its
+    gradients and ``opt``'s update; a `graphs.StepProgram`."""
+    from semi_tts_tpu_torch.graphs import StepProgram
+    from semi_tts_tpu_torch.models.lm import rnnlm_loss
+
+    def step(model, step_no, text, *, generator):
+        text = text.long()
+        loss = rnnlm_loss(model, text, (text != 0).sum(-1))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return dict(total_loss=loss.detach(), grad_norm=opt.step(grads))
+
+    return StepProgram(step, opt, 0, owner)
+
+
+def rnnlm_text(vocab, seed=0):
+    """RNNLM_B texts of 40..RNNLM_U tokens in 3..vocab-1, the first of
+    RNNLM_U, padded with 0 (int32)."""
+    rng = np.random.RandomState(seed)
+    text = np.zeros((RNNLM_B, RNNLM_U), np.int32)
+    for b in range(RNNLM_B):
+        n = RNNLM_U if b == 0 else rng.randint(40, RNNLM_U + 1)
+        text[b, :n] = rng.randint(3, vocab, size=n)
+    return torch.from_numpy(text)
+
+
+def rnnlm_reference(model, text, dev, cell):
+    """One RNNLM step's loss and gradients through the card's kernels and
+    through the plain path on the CPU on the same weights and text, held as
+    `lm_reference` holds the LM steps."""
+    from semi_tts_tpu_torch.models.lm import rnnlm_loss
+
+    def run(m, device):
+        t = text.to(device).long()
+        loss = rnnlm_loss(m, t, (t != 0).sum(-1))
+        return float(loss), [g.cpu() for g in torch.autograd.grad(loss, list(m.parameters()))]
+
+    (loss_g, grads_g), (loss_c, grads_c) = run(model, dev), run(copy.deepcopy(model).cpu(), "cpu")
+    spread, _ = card_spread(model, lambda m: run(m, dev)[1], grads_g)
+    return checked({"loss_card": loss_g, "loss_cpu": loss_c,
+                    "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c), "loss_tol_rel": 1e-4,
+                    **compare_grads(model, grads_g, grads_c), "card_spread": spread},
+                   f"RNNLM-{cell} steps")
+
+
+def rnnlm_phase(dev, cell):
+    """Step (a) (``cell`` "lstm") or (b) ("gru"): `RNNLM` at its default
+    width (512 units, 2 layers; the phone table's vocabulary, the codebook's
+    64 latent dims) trained on B=8 x 48 tokens (T=47) through `rnnlm_step`
+    with Adam and the Noam schedule ("warmup"): its shape captured at the
+    first call, a replay's wall (median of TRAIN_STEPS), a profiled replay
+    whose wide kernels must each run exactly twice (a launch a layer) and
+    no narrow recurrence, peak memory, the card against the CPU plain path,
+    and `graph_check`."""
+    from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.data.text import load_text_encoder
+    from semi_tts_tpu_torch.graphs import GraphOwner
+    from semi_tts_tpu_torch.models.lm import RNNLM
+    from semi_tts_tpu_torch.train.optim import Optimizer
+
+    vocab = load_text_encoder("phoneme", os.path.join(HERE, "data/cmu_phn.vocab")).vocab_size
+    model = RNNLM(vocab, 64, module=cell, generator=torch.Generator().manual_seed(0)).to(dev)
+    text = rnnlm_text(vocab).to(dev)
+    graph_owner = GraphOwner(dev)
+    owner = lambda device: graph_owner  # noqa: E731
+    opt = Optimizer(model.parameters(), "Adam", 1e-3, "warmup")
+    step = rnnlm_step(opt, owner)
+    step.capture_at = 1
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses = [float(step(model, 0, text)["total_loss"])]
+    wrapper = kernels.launch_counts()
+    losses += [float(step(model, n, text)["total_loss"]) for n in (1, 2)]
+    wall = timed_wall(lambda: step(model, 3, text), TRAIN_STEPS)
+    profile = profiled_step(lambda: step(model, 4, text), wall)
+    peak = torch.cuda.max_memory_allocated()
+    seen = profile["kernels_seen"]
+    want = ("lstm_rec_wide", "lstm_rec_bwd_wide") if cell == "lstm" else ("gru_rec_wide",
+                                                                          "gru_rec_bwd_wide")
+    require_seen(seen, want, f"RNNLM-{cell} step")
+    if any(seen[n] != 2 for n in want) or any(seen[n] or wrapper[n] for n in NARROW_RECURRENCES):
+        raise SystemExit(f"chip_smoke: the RNNLM-{cell} step ran {seen} (wrappers {wrapper})")
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"chip_smoke: the RNNLM-{cell} step went non-finite: {losses}")
+    ref = rnnlm_reference(model, text, dev, cell)
+    check = graph_check(model, opt, lambda o: rnnlm_step(o, owner),
+                        lambda fn, m, n: fn(m, n, text), 100)
+    return dict(vocab=vocab, dim=512, layers=2, batch=RNNLM_B, inputs=RNNLM_U - 1,
+                params=sum(p.numel() for p in model.parameters()), losses=losses, wall_s=wall,
+                eager_wall_s=check["eager_wall_s"], busy_s=profile["device_busy_s"],
+                idle_share=profile["idle_share"], device_events=profile["kernel_launches"],
+                peak_mem_bytes=peak, launches=seen, wrapper_launches=wrapper, profile=profile,
+                graphs=step_graphs(step), graph_check=check, reference=ref)
+
+
+def phase_wide(card, dev):
+    """Phase 12, the wide routes: `wide_kernel_rows`, then steps (a)
+    RNNLM-LSTM and (b) RNNLM-GRU (`rnnlm_phase`) and (c) the ASR step at
+    rnn_dim 512 (`phase_training`). Returns (rows, the wide line)."""
+    from semi_tts_tpu_torch.device import use_deterministic
+
+    use_deterministic()
+    rows = wide_kernel_rows(dev)
+    line = {"card": card, "rnnlm_lstm": rnnlm_phase(dev, "lstm")}
+    gc.collect()
+    line["rnnlm_gru"] = rnnlm_phase(dev, "gru")
+    gc.collect()
+    line["asr_512"] = phase_training(dev, rnn_dim=ASR_WIDE_RNN_DIM)
+    gc.collect()
+    return rows, line
+
+
+def flops_line(card, paths):
+    """{path: (FLOPs of one eager call, graphed wall)} -> the ``flops``
+    line: each path's matrix-product FLOPs (`utils.flops.matmul_flops`),
+    its rate over the graphed wall and that rate over FP32_FLOP_PER_S
+    (``mfu_fp32``; the port runs fp32 outside the tensor cores)."""
+    return dict(card=card, peak_flop_per_s=FP32_FLOP_PER_S,
+                paths={n: {"flops": f, "wall_s": w, "flop_per_s": f / w,
+                           "mfu_fp32": f / w / FP32_FLOP_PER_S} for n, (f, w) in paths.items()})
 
 
 def gl_rounds_check(amp, phases, acfg):
@@ -4409,10 +4716,10 @@ def phase_mesh(card, dev, study=False):
 
 def main(argv=None):
     """Every phase; ``--mesh-study``: the kernels' build and phase 11 alone,
-    with `spread_study`."""
+    with `spread_study`; ``--wide``: the build and phase 12 alone."""
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--mesh-study"]):
-        raise SystemExit("usage: chip_smoke.py [--mesh-study]")
+    if argv not in ([], ["--mesh-study"], ["--wide"]):
+        raise SystemExit("usage: chip_smoke.py [--mesh-study | --wide]")
     card = phase_device()
     from semi_tts_tpu_torch import kernels, use_fp32
     from semi_tts_tpu_torch.kernels.build import BUILD_DIR, LOGS
@@ -4422,11 +4729,16 @@ def main(argv=None):
     t0 = time.perf_counter()
     kernels.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, {BUILD_DIR})", flush=True)
-    if argv:
+    if argv == ["--mesh-study"]:
         print(json.dumps({"mesh": phase_mesh(card, dev, study=True)}))
         return 0
-    print(json.dumps({"ptxas": ptxas_report(LOGS.get("rnn", "") + LOGS.get("attention", ""))}),
-          flush=True)
+    if argv == ["--wide"]:
+        rows, wide = phase_wide(card, dev)
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"wide": wide}))
+        return 0
+    print(json.dumps({"ptxas": ptxas_report(LOGS.get("rnn", "") + LOGS.get("rnn_wide", "")
+                                            + LOGS.get("attention", ""))}), flush=True)
     seen_shapes = record_recurrence_shapes()
     table = phase_kernels(dev)
     print(json.dumps({"asr_shape": asr_lstm_check(dev)}), flush=True)
@@ -4445,6 +4757,8 @@ def main(argv=None):
         tools = phase_tools(specs, dev)
     mesh = phase_mesh(card, dev)
     time_seen_shapes(table, dev, seen_shapes)
+    wide_rows, wide = phase_wide(card, dev)
+    table += wide_rows
     launches = {"serving request": serving["launches"], "ASR train step": training["launches"],
                 "paired train step": paired["launches"],
                 "speech-first step": cycles["launches"][SPEECH_FIRST],
@@ -4465,11 +4779,16 @@ def main(argv=None):
                 "mesh 1x1 speech-first step": mesh["captured_1x1"][SPEECH_FIRST]["launches"],
                 "mesh 2x1 paired step, a rank": mesh["gloo_2x1"][PAIRED]["launches"],
                 "mesh 2x1 speech-first step, a rank": mesh["gloo_2x1"][SPEECH_FIRST]["launches"],
-                "mesh 2x1 serving request, a rank": mesh["gloo_2x1"]["serving"]["B16"]["launches"]}
+                "mesh 2x1 serving request, a rank": mesh["gloo_2x1"]["serving"]["B16"]["launches"],
+                "RNNLM-LSTM step": wide["rnnlm_lstm"]["launches"],
+                "RNNLM-GRU step": wide["rnnlm_gru"]["launches"],
+                "ASR train step at rnn_dim 512": wide["asr_512"]["launches"]}
     for row in table:
         per = ("serving request" if row["name"] in SERVING_KERNELS else
                "ASR train step" if row["name"] in TRAINING_KERNELS else
-               "speech-first step" if row["name"] in CYCLE_KERNELS else "paired train step")
+               "speech-first step" if row["name"] in CYCLE_KERNELS else
+               "RNNLM-LSTM step" if row["name"].startswith("lstm_rec") else
+               "RNNLM-GRU step" if row["name"].startswith("gru_rec") else "paired train step")
         row["launches"] = launches[per][row["name"]]
         row["launches_per"] = per
         row["launches_by_path"] = {k: v[row["name"]] for k, v in launches.items()}
@@ -4482,6 +4801,22 @@ def main(argv=None):
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"tools": dict(tools, card=card)}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"wide": wide}))
+    print(json.dumps({"flops": flops_line(card, {
+        "serving request": (serving["flops"], serving["wall_s"]),
+        "ASR train step": (training["graph_check"]["flops"], training["wall_s"]),
+        "paired train step": (paired["graph_check"]["flops"], paired["wall_s"]),
+        **{f"{k} step": (cycles["graph_check"][k]["flops"], cycles["wall_s"][k])
+           for k in (SPEECH_FIRST, TEXT_FIRST)},
+        "eval step": (cli["programs"]["eval"]["flops"], cli["programs"]["eval"]["wall_s"]),
+        **{f"{k} LM step": (pretrain[k]["graph_check"]["flops"], pretrain[k]["wall_s"])
+           for k in ("text", "speech")},
+        "(a) RNNLM-LSTM step": (wide["rnnlm_lstm"]["graph_check"]["flops"],
+                                wide["rnnlm_lstm"]["wall_s"]),
+        "(b) RNNLM-GRU step": (wide["rnnlm_gru"]["graph_check"]["flops"],
+                               wide["rnnlm_gru"]["wall_s"]),
+        "(c) ASR train step at rnn_dim 512": (wide["asr_512"]["graph_check"]["flops"],
+                                              wide["asr_512"]["wall_s"])})}))
     if UNSEEN:
         raise SystemExit(f"chip_smoke: kernels not seen in profiled replays: {UNSEEN}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

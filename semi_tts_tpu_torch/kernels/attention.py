@@ -16,6 +16,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..utils.flops import counted
 from . import build
 
 CLUSTER = 8                 # CTAs per batch row (kCluster in csrc/attention.cu)
@@ -79,6 +80,19 @@ def attention_step_plain(pq, processed_memory, memory, attn_hist, loc_w, loc_lin
     return context, weights
 
 
+def _step_flops(pq, processed_memory, memory, attn_hist, loc_w, *_, **__):
+    """The dot and convolution FLOPs of `semi_tts_tpu.models.attention.
+    attention_step` after its query projection: the location conv and its
+    linear layer, the energy's product with v and the context."""
+    B, L, A = processed_memory.shape
+    per = A + memory.shape[2]
+    if loc_w is not None:
+        n_filt, C, K = loc_w.shape
+        per += n_filt * C * K + n_filt * A
+    return 2 * B * L * per
+
+
+@counted(_step_flops)
 def attention_step(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, mask=None):
     """Counterpart of `semi_tts_tpu.models.attention.attention_step` after its
     query projection; one launch per call on the card."""
@@ -201,6 +215,7 @@ def attention_step_bwd_plain(pq, processed_memory, memory, attn_hist, loc_w, loc
             torch.einsum("bla,bfl->af", dpre, loc), d_v)
 
 
+@counted(lambda *args: 2 * _step_flops(*args))  # the autodiff: both operands' cotangents
 def attention_step_bwd(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, weights,
                        context, d_context, d_weights):
     """K9: the backward of one attention step (`attention_step_bwd_plain`'s

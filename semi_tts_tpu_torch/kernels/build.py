@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("rnn", "attention", "griffin_lim", "features", "ctc", "quantize")
+SOURCES = ("rnn", "rnn_wide", "attention", "griffin_lim", "features", "ctc", "quantize")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SMEM_PER_BLOCK = 232_448    # H100: dynamic shared memory a block may use

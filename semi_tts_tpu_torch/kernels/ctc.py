@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.flops import counted, no_dots
 from . import build
 
 NEG_INF = -1e30
@@ -180,6 +181,7 @@ def _check(log_probs, targets, input_lengths, target_lengths, what):
     return B, T, C, S, ctc_plan(B, T, S)
 
 
+@counted(no_dots)
 def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank: int = 0):
     """Forward recursion: (alphas (T, B, S), nll (B,)). ``targets`` (B, U)
     and the lengths are int32 (pad == blank)."""
@@ -198,6 +200,14 @@ def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank: int = 0)
     return alphas, nll
 
 
+def _occupancy_flops(log_probs, targets, *_, **__):
+    """The one-hot product of `_ctc_nll_bwd` (``semi_tts_tpu/ops/ctc.py:167``):
+    occupancies (T, B, S) against the labels' one-hots (B, S, C)."""
+    B, T, C = log_probs.shape
+    return 2 * B * T * (2 * targets.shape[1] + 1) * C
+
+
+@counted(_occupancy_flops)
 def ctc_beta_grad(log_probs, targets, input_lengths, target_lengths, alphas, nll, g,
                   blank: int = 0):
     """Backward recursion and gradient: d(sum_b g[b] nll[b]) / d log_probs,

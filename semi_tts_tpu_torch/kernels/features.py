@@ -27,6 +27,7 @@ import functools
 import torch
 
 from ..ops.stft import dynamic_hann_window, frame_signal, reflect_pad_ragged
+from ..utils.flops import counted, no_dots
 from . import build
 
 FRAMES_TILES = range(2, 9)  # frames a CTA of stft_frames that its plan picks from
@@ -96,6 +97,7 @@ def stft_frames_plain(waves, lengths, geom, *, n_fft: int, support: tuple, num_f
     return torch.where(keep[:, :, None], frames, 0.0)
 
 
+@counted(no_dots)
 def stft_frames(waves, lengths, geom, *, n_fft: int, support: tuple, num_frames: int,
                 clamp: bool, coeff: float, noise=None, mix=None, max_hop: int | None = None,
                 tile: int | None = None):
@@ -161,6 +163,7 @@ def spec_db_plain(x, frame_lengths, *, reim: bool, db: bool = True, min_db: floa
     return (amp if reim else None), torch.where(keep, out, 0.0)
 
 
+@counted(no_dots)
 def spec_db(x, frame_lengths, *, reim: bool, db: bool = True, min_db: float, ref_db: float):
     """The spectrogram epilogue over ``(B, T, *)``: returns (magnitude, dB).
 

@@ -16,6 +16,7 @@ import functools
 import torch
 
 from ..ops.stft import frame_reflect, overlap_add, trimmed_envelope, window_support
+from ..utils.flops import counted, no_dots
 from . import build
 
 OLA_TILE = 8                # gl_ola_frame: output frames per CTA (chip_smoke ms_by_tile)
@@ -74,6 +75,7 @@ def gl_project_plain(reim, mag):
     return torch.cat([y_re, y_im], dim=-1)
 
 
+@counted(no_dots)
 def gl_project(reim, mag):
     """Phase projection of one Griffin-Lim round; one launch on the card."""
     if not reim.is_cuda:
@@ -104,6 +106,7 @@ def gl_ola_frame_plain(frames, *, n_fft: int, hop: int, win_length: int, emit_si
     return frame_reflect(sig, n_fft=n_fft, hop=hop, win_length=win_length)
 
 
+@counted(no_dots)
 def gl_ola_frame(frames, *, n_fft: int, hop: int, win_length: int, emit_signal: bool,
                  tile: int | None = None):
     """istft tail + next stft head in one pass; one launch on the card.

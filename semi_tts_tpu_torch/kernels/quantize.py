@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.flops import counted, no_dots
 from . import build
 
 MAX_FRAMES = 14_528     # T a CTA takes (README's launch-plan limit)
@@ -122,6 +123,7 @@ def trim_merge_bwd_plain(d_out, slot, count):
     return torch.where(slot[..., None] >= 0, g / count[..., None], 0.0)
 
 
+@counted(no_dots)
 def trim_merge(p_code, latent, max_frames_per_phn: int, tokens=None):
     """`trim_merge_plain`'s outputs; one launch per call on the card."""
     if not latent.is_cuda:
@@ -152,6 +154,7 @@ def trim_merge(p_code, latent, max_frames_per_phn: int, tokens=None):
     return out, lengths, slot, count
 
 
+@counted(no_dots)
 def trim_merge_bwd(d_out, slot, count):
     """`trim_merge_bwd_plain`; one launch per call on the card."""
     if not d_out.is_cuda:

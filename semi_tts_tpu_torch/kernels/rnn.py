@@ -16,8 +16,16 @@ incoming gradient of hs it returns dh2 (T, B, H) of each direction (of
 one or two, as K7). Each
 wrapper launches `csrc/rnn.cu` for CUDA tensors and runs its plain PyTorch
 version only for CPU tensors. `lstm_plan`, `lstm_bwd_plan`, `gru_plan` and
-`gru_bwd_plan` compute the launch plans and name the hidden sizes each
-kernel takes (K7 takes K1's, K8 K2's).
+`gru_bwd_plan` compute the narrow kernels' launch plans and name the hidden
+sizes each takes (K7 takes K1's, K8 K2's).
+
+Past those sizes the wrappers launch the wide routes of `csrc/rnn_wide.cu`
+(K1w, K7w, K2w, K8w), which take any H >= 1: `lstm_route` and `gru_route`
+pick the route, `wide_plan` plans a wide launch, and each wide launch is
+counted on its own wrapper (`lstm_rec_wide`, `lstm_rec_bwd_wide`,
+`gru_rec_wide`, `gru_rec_bwd_wide`), not on the narrow one. Every public
+wrapper reports the dot FLOPs of the JAX scan it replaces to
+`utils.flops.matmul_flops`, whatever route ran.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import math
 
 import torch
 
+from ..utils.flops import counted
 from . import build
 
 CLUSTER = 8                 # K1 CTAs per thread-block cluster
@@ -37,6 +46,9 @@ LSTM_ROWS = (1, 2, 4, 8)    # K1: batch rows per cluster
 AHEAD = 4                   # x_proj steps staged in shared memory
 GRU_MAX_H = 128             # K2: 8 lanes per hidden unit, at most 1024 threads
 SMEM_PER_BLOCK = build.SMEM_PER_BLOCK
+WIDE_THREADS = 256          # K1w, K7w, K2w, K8w: threads of a CTA
+WIDE_CHUNK = 8              # batch rows of a staged vector chunk, at most
+WIDE_ROWS = 4               # rows of W a warp accumulates at once
 
 
 def _round_up(x: int, m: int) -> int:
@@ -46,6 +58,70 @@ def _round_up(x: int, m: int) -> int:
 def _check_lstm_h(H: int) -> None:
     if H % 4 or not 4 <= H <= LSTM_MAX_H:
         raise ValueError(f"lstm_rec kernel takes 4 <= H <= {LSTM_MAX_H} with H % 4 == 0, got H={H}")
+
+
+def lstm_route(H: int) -> str:
+    """The LSTM recurrences' route at hidden size H: "narrow" (K1, K7) where
+    their plans fit, 4 <= H <= 288 with H % 4 == 0 (at any batch and either
+    number of directions), else "wide" (K1w, K7w)."""
+    return "narrow" if H % 4 == 0 and 4 <= H <= LSTM_MAX_H else "wide"
+
+
+def gru_route(H: int) -> str:
+    """The GRU recurrences' route: "narrow" (K2, K8) at 1 <= H <= 128, else
+    "wide" (K2w, K8w)."""
+    return "narrow" if 1 <= H <= GRU_MAX_H else "wide"
+
+
+WIDE_GATES = {"lstm": 4, "lstm_bwd": 4, "gru": 3, "gru_bwd": 3}
+
+
+def wide_plan(kernel: str, B: int, H: int, ndir: int, sms: int) -> dict:
+    """The launch plan of a wide route (``kernel`` "lstm" K1w, "lstm_bwd"
+    K7w, "gru" K2w, "gru_bwd" K8w) for B >= 1 rows, hidden size H >= 1 and
+    ``ndir`` directions on a card of ``sms`` SMs: one cooperative launch of
+    ``grid`` = (CTAs a direction, ndir), at most one CTA an SM, CTA p owning
+    the units [p*U, p*U + U). A forward CTA's rows are its G*U gate rows of
+    W_hh (``k`` = H values each), a backward CTA's its U columns of W_hh
+    (``k`` = G*H); ``rows_smem`` of them sit in shared memory beside the
+    partial sums, the forward's gate pre-activations and a chunk of
+    ``chunk`` staged batch rows, and the rest are read from L2. Raises
+    ValueError at H < 1 and where not even one staged row of ``k`` values
+    fits (k past ~58,000: the LSTM's backward past H ~ 14,500)."""
+    if H < 1:
+        raise ValueError(f"{kernel} wide route takes H >= 1, got H={H}")
+    G, fwd = WIDE_GATES[kernel], not kernel.endswith("_bwd")
+    units = math.ceil(H / max(1, min(sms // ndir, H)))
+    ctas = math.ceil(H / units)
+    rows = G * units if fwd else units
+    k = H if fwd else G * H
+    red = max(WIDE_THREADS // 32, math.ceil(rows / WIDE_ROWS)) * 32
+    room = SMEM_PER_BLOCK // 4 - red
+    chunk = min(WIDE_CHUNK, B, room // (k + (rows if fwd else 0)))
+    if chunk < 1:
+        raise ValueError(f"{kernel} wide route: a staged row of {k} values does not fit "
+                         f"shared memory (H={H})")
+    fixed = red + chunk * (k + (rows if fwd else 0))
+    rows_smem = min(rows, (SMEM_PER_BLOCK // 4 - fixed) // k)
+    return dict(grid=(ctas, ndir), ctas=ctas * ndir, threads=WIDE_THREADS, units_per_cta=units,
+                rows=rows, k=k, chunk=chunk, rows_smem=rows_smem,
+                smem_bytes=4 * (fixed + rows_smem * k))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _wide_ints(kernel: str, B: int, H: int, ndir: int, device) -> tuple:
+    """The three ints of `wide_plan` a wide launch on ``device``'s card takes."""
+    plan = wide_plan(kernel, B, H, ndir, _sms(device.index))
+    return plan["units_per_cta"], plan["chunk"], plan["rows_smem"]
+
+
+def _barrier(device):
+    """The wide kernels' grid barrier: one counter, zeroed for each launch."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
 
 
 def lstm_plan(B: int, H: int, ndir: int, max_clusters: int, rows: int | None = None) -> dict:
@@ -183,9 +259,10 @@ def _launch_lstm(wrapper, dirs, rows, with_cs=False):
     for _, w_hh, x_proj in dirs:
         build.require(x_proj, (T, B, 4 * H), "lstm_rec x_proj")
         build.require(w_hh, (4 * H, H), "lstm_rec w_hh")
-        if w_hh.data_ptr() % 16 or x_proj.data_ptr() % 16:
-            raise ValueError("lstm_rec: expected 16-byte aligned w_hh and x_proj")
-    _check_lstm_h(H)
+    if lstm_route(H) == "wide":
+        return lstm_rec_wide(dirs, with_cs)
+    if any(w.data_ptr() % 16 or x.data_ptr() % 16 for _, w, x in dirs):
+        raise ValueError("lstm_rec: expected 16-byte aligned w_hh and x_proj")
     plan = lstm_plan(B, H, len(dirs), max_clusters(H), rows)
     hs = torch.empty((T, B, len(dirs) * H), device=dirs[0][2].device, dtype=torch.float32)
     cs = torch.empty_like(hs) if with_cs else None
@@ -199,6 +276,33 @@ def _launch_lstm(wrapper, dirs, rows, with_cs=False):
     return (hs, cs) if with_cs else hs
 
 
+def lstm_rec_wide(dirs, with_cs=False):
+    """K1w: one launch over ``dirs`` = [(reverse, w_hh, x_proj)] (1 or 2,
+    checked by the caller) at any H; returns hs, or (hs, cs) ``with_cs``."""
+    T, B, H4 = dirs[0][2].shape
+    H, n, dev = H4 // 4, len(dirs), dirs[0][2].device
+    hs = torch.empty((T, B, n * H), device=dev, dtype=torch.float32)
+    cs = torch.empty_like(hs) if with_cs else None
+    if T and B:
+        ints = _wide_ints("lstm", B, H, n, dev)
+        state, bar = torch.empty((n, B, H), device=dev, dtype=torch.float32), _barrier(dev)
+        (r0, w0, x0), (r1, w1, x1) = dirs[0], dirs[-1]
+        fn = build.bind("rnn_wide", "lstm_rec_wide_f32", 8, 9)
+        build.check(fn(x0.data_ptr(), x1.data_ptr(), w0.data_ptr(), w1.data_ptr(), hs.data_ptr(),
+                       0 if cs is None else cs.data_ptr(), state.data_ptr(), bar.data_ptr(), T, B,
+                       H, n, int(r0), int(r1), *ints, build.stream()), "lstm_rec_wide")
+        lstm_rec_wide.launches += 1
+    return (hs, cs) if with_cs else hs
+
+
+def _scan_flops(w_f, w_b, xs):
+    """The dot FLOPs of the JAX scans a recurrence wrapper replaces: one
+    (B, H) x (H, G*H) product a step and direction, over xs (T, B, ...)."""
+    T, B = xs.shape[:2]
+    return 2 * T * B * w_f.numel() * (1 if w_b is None else 2)
+
+
+@counted(lambda reverse, w_hh, x_proj: _scan_flops(w_hh, None, x_proj))
 def lstm_rec(reverse: bool, w_hh, x_proj):
     """Forward of `semi_tts_tpu.ops.rnn._lstm_rec`: one launch per call."""
     if not x_proj.is_cuda:
@@ -206,10 +310,13 @@ def lstm_rec(reverse: bool, w_hh, x_proj):
     return _launch_lstm(lstm_rec, [(reverse, w_hh, x_proj)], None)
 
 
+@counted(lambda w_hh_f, w_hh_b, x_proj_f, x_proj_b, rows=None:
+         _scan_flops(w_hh_f, w_hh_b, x_proj_f))
 def bilstm_rec(w_hh_f, w_hh_b, x_proj_f, x_proj_b, rows: int | None = None):
     """Both directions of a BiLSTM layer in one launch: (T, B, 2H), the
     forward direction in [..., :H] and the reversed one in [..., H:].
-    ``rows`` overrides the plan's batch rows per cluster (for measuring)."""
+    ``rows`` overrides the narrow plan's batch rows per cluster (for
+    measuring)."""
     if not x_proj_f.is_cuda:
         return bilstm_rec_plain(w_hh_f, w_hh_b, x_proj_f, x_proj_b)
     return _launch_lstm(bilstm_rec, [(False, w_hh_f, x_proj_f), (True, w_hh_b, x_proj_b)], rows)
@@ -227,6 +334,7 @@ def bilstm_rec_cs_plain(w_hh_f, w_hh_b, x_proj_f, x_proj_b):
     return torch.cat([o[0] for o in outs], -1), torch.cat([o[1] for o in outs], -1)
 
 
+@counted(lambda w_hh_f, w_hh_b, x_proj_f, x_proj_b: _scan_flops(w_hh_f, w_hh_b, x_proj_f))
 def bilstm_rec_cs(w_hh_f, w_hh_b, x_proj_f, x_proj_b):
     """K1 for training: (hs, cs), each (T, B, nH), forward direction first;
     ``w_hh_b``/``x_proj_b`` None runs the forward direction alone."""
@@ -239,6 +347,7 @@ def bilstm_rec_cs(w_hh_f, w_hh_b, x_proj_f, x_proj_b):
 lstm_rec.launches = 0
 bilstm_rec.launches = 0
 bilstm_rec_cs.launches = 0
+lstm_rec_wide.launches = 0
 
 
 def shift_prev(ys, reverse: bool):
@@ -281,6 +390,29 @@ def bilstm_rec_bwd_plain(w_hh_f, w_hh_b, gates_f, gates_b, cs, g_hs):
     return out[0], (out[1] if len(out) > 1 else None)
 
 
+def lstm_rec_bwd_wide(dirs, cs, g_hs):
+    """K7w: one launch over ``dirs`` = [(reverse, w_hh, gates)] (checked by
+    the caller) at any H; returns (dgates_f, dgates_b or None). The kernel
+    reads the columns of W_hh as rows of W_hh^T, transposed here."""
+    T, B, H4 = dirs[0][2].shape
+    H, n, dev = H4 // 4, len(dirs), dirs[0][2].device
+    dg = [torch.empty_like(dirs[0][2]) for _ in dirs]
+    if T and B:
+        ints = _wide_ints("lstm_bwd", B, H, n, dev)
+        wt = [w.t().contiguous() for _, w, _ in dirs]
+        dh, dc = (torch.empty((n, B, H), device=dev, dtype=torch.float32) for _ in range(2))
+        bar = _barrier(dev)
+        (r0, _, g0), (r1, _, g1) = dirs[0], dirs[-1]
+        fn = build.bind("rnn_wide", "lstm_rec_bwd_wide_f32", 11, 9)
+        build.check(fn(g0.data_ptr(), g1.data_ptr(), wt[0].data_ptr(), wt[-1].data_ptr(),
+                       cs.data_ptr(), g_hs.data_ptr(), dg[0].data_ptr(), dg[-1].data_ptr(),
+                       dh.data_ptr(), dc.data_ptr(), bar.data_ptr(), T, B, H, n, int(r0), int(r1),
+                       *ints, build.stream()), "lstm_rec_bwd_wide")
+        lstm_rec_bwd_wide.launches += 1
+    return dg[0], (dg[1] if n > 1 else None)
+
+
+@counted(lambda w_hh_f, w_hh_b, gates_f, gates_b, cs, g_hs: _scan_flops(w_hh_f, w_hh_b, gates_f))
 def bilstm_rec_bwd(w_hh_f, w_hh_b, gates_f, gates_b, cs, g_hs):
     """K7: the LSTM backward recurrence of one or both directions in one
     launch. ``gates_*`` (T, B, 4H) are the gate pre-activations ``x_proj +
@@ -294,10 +426,12 @@ def bilstm_rec_bwd(w_hh_f, w_hh_b, gates_f, gates_b, cs, g_hs):
     for _, w_hh, gates in dirs:
         build.require(gates, (T, B, 4 * H), "lstm_rec_bwd gates")
         build.require(w_hh, (4 * H, H), "lstm_rec_bwd w_hh")
-        if w_hh.data_ptr() % 16:
-            raise ValueError("lstm_rec_bwd: expected a 16-byte aligned w_hh")
     build.require(cs, (T, B, len(dirs) * H), "lstm_rec_bwd cs")
     build.require(g_hs, (T, B, len(dirs) * H), "lstm_rec_bwd g_hs")
+    if lstm_route(H) == "wide":
+        return lstm_rec_bwd_wide(dirs, cs, g_hs)
+    if any(w.data_ptr() % 16 for _, w, _ in dirs):
+        raise ValueError("lstm_rec_bwd: expected a 16-byte aligned w_hh")
     plan = lstm_bwd_plan(B, H, len(dirs), max_clusters(H, "lstm_rec_bwd"))
     dg = [torch.empty_like(gates_f) for _ in dirs]
     if T and B:
@@ -311,6 +445,7 @@ def bilstm_rec_bwd(w_hh_f, w_hh_b, gates_f, gates_b, cs, g_hs):
 
 
 bilstm_rec_bwd.launches = 0
+lstm_rec_bwd_wide.launches = 0
 
 
 def gru_rec_plain(reverse: bool, w_hh, b_hh, x_proj):
@@ -345,6 +480,8 @@ def _launch_gru(wrapper, dirs):
         build.require(x_proj, (T, B, 3 * H), "gru_rec x_proj")
         build.require(w_hh, (3 * H, H), "gru_rec w_hh")
         build.require(b_hh, (3 * H,), "gru_rec b_hh")
+    if gru_route(H) == "wide":
+        return gru_rec_wide(dirs)
     gru_plan(B, H, len(dirs))
     hs = torch.empty((T, B, len(dirs) * H), device=dirs[0][3].device, dtype=torch.float32)
     if T == 0 or B == 0:
@@ -358,6 +495,25 @@ def _launch_gru(wrapper, dirs):
     return hs
 
 
+def gru_rec_wide(dirs):
+    """K2w: one launch over ``dirs`` = [(reverse, w_hh, b_hh, x_proj)]
+    (checked by the caller) at any H; returns hs (T, B, nH)."""
+    T, B, H3 = dirs[0][3].shape
+    H, n, dev = H3 // 3, len(dirs), dirs[0][3].device
+    hs = torch.empty((T, B, n * H), device=dev, dtype=torch.float32)
+    if T and B:
+        ints = _wide_ints("gru", B, H, n, dev)
+        bar = _barrier(dev)
+        (r0, w0, b0, x0), (r1, w1, b1, x1) = dirs[0], dirs[-1]
+        fn = build.bind("rnn_wide", "gru_rec_wide_f32", 8, 9)
+        build.check(fn(x0.data_ptr(), x1.data_ptr(), w0.data_ptr(), w1.data_ptr(), b0.data_ptr(),
+                       b1.data_ptr(), hs.data_ptr(), bar.data_ptr(), T, B, H, n, int(r0), int(r1),
+                       *ints, build.stream()), "gru_rec_wide")
+        gru_rec_wide.launches += 1
+    return hs
+
+
+@counted(lambda reverse, w_hh, b_hh, x_proj: _scan_flops(w_hh, None, x_proj))
 def gru_rec(reverse: bool, w_hh, b_hh, x_proj):
     """Forward of `semi_tts_tpu.ops.rnn._gru_rec`: one launch per call."""
     if not x_proj.is_cuda:
@@ -365,6 +521,8 @@ def gru_rec(reverse: bool, w_hh, b_hh, x_proj):
     return _launch_gru(gru_rec, [(reverse, w_hh, b_hh, x_proj)])
 
 
+@counted(lambda w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b:
+         _scan_flops(w_hh_f, w_hh_b, x_proj_f))
 def bigru_rec(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b):
     """Both directions of a BiGRU in one launch: (T, B, 2H), forward first;
     ``w_hh_b``, ``b_hh_b`` and ``x_proj_b`` None run the forward direction
@@ -376,6 +534,7 @@ def bigru_rec(w_hh_f, w_hh_b, b_hh_f, b_hh_b, x_proj_f, x_proj_b):
 
 gru_rec.launches = 0
 bigru_rec.launches = 0
+gru_rec_wide.launches = 0
 
 
 def gru_rec_bwd_plain(reverse: bool, w_hh, z, coef_h, g_hs):
@@ -400,6 +559,30 @@ def bigru_rec_bwd_plain(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs):
     return out[0], (out[1] if len(out) > 1 else None)
 
 
+def gru_rec_bwd_wide(dirs, g_hs):
+    """K8w: one launch over ``dirs`` = [(reverse, w_hh, z, coef_h)] (checked
+    by the caller) at any H; returns (dh2_f, dh2_b or None). W_hh^T as for
+    K7w."""
+    T, B, H = dirs[0][2].shape
+    n, dev = len(dirs), dirs[0][2].device
+    dh2 = [torch.empty_like(dirs[0][2]) for _ in dirs]
+    if T and B:
+        ints = _wide_ints("gru_bwd", B, H, n, dev)
+        wt = [w.t().contiguous() for _, w, _, _ in dirs]
+        dh = torch.empty((n, B, H), device=dev, dtype=torch.float32)
+        v = torch.empty((2, n, B, 3 * H), device=dev, dtype=torch.float32)
+        bar = _barrier(dev)
+        (r0, _, z0, c0), (r1, _, z1, c1) = dirs[0], dirs[-1]
+        fn = build.bind("rnn_wide", "gru_rec_bwd_wide_f32", 12, 9)
+        build.check(fn(z0.data_ptr(), z1.data_ptr(), c0.data_ptr(), c1.data_ptr(),
+                       wt[0].data_ptr(), wt[-1].data_ptr(), g_hs.data_ptr(), dh2[0].data_ptr(),
+                       dh2[-1].data_ptr(), dh.data_ptr(), v.data_ptr(), bar.data_ptr(), T, B, H, n,
+                       int(r0), int(r1), *ints, build.stream()), "gru_rec_bwd_wide")
+        gru_rec_bwd_wide.launches += 1
+    return dh2[0], (dh2[1] if n > 1 else None)
+
+
+@counted(lambda w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs: _scan_flops(w_hh_f, w_hh_b, z_f))
 def bigru_rec_bwd(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs):
     """K8: the GRU backward recurrence of one or both directions in one
     launch. ``z_*`` (T, B, H) and ``coef_*`` (T, B, 3H) are the update gates
@@ -416,6 +599,8 @@ def bigru_rec_bwd(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs):
         build.require(coef, (T, B, 3 * H), "gru_rec_bwd coef_h")
         build.require(w_hh, (3 * H, H), "gru_rec_bwd w_hh")
     build.require(g_hs, (T, B, len(dirs) * H), "gru_rec_bwd g_hs")
+    if gru_route(H) == "wide":
+        return gru_rec_bwd_wide(dirs, g_hs)
     gru_bwd_plan(B, H, len(dirs))
     dh = [torch.empty_like(z_f) for _ in dirs]
     if T and B:
@@ -429,3 +614,4 @@ def bigru_rec_bwd(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs):
 
 
 bigru_rec_bwd.launches = 0
+gru_rec_bwd_wide.launches = 0

@@ -2,16 +2,18 @@
 `semi_tts_tpu/ops/rnn.py`): LSTM gates i, f, g, o; GRU gates r, z, n with
 b_hn inside r. The input projection of a whole sequence is one GEMM outside
 the recurrence; the recurrence itself runs in the K1/K2 kernels, both
-directions of a bidirectional layer in one launch.
+directions of a bidirectional layer in one launch (past their plans, at
+any H, in the wide routes K1w/K2w: the wrappers route, `kernels.rnn`).
 
 When autograd records, an LSTM layer's recurrence is `lstm_rec_fn`, a
 `torch.autograd.Function` as `_lstm_rec`'s custom VJP is: its forward runs
 K1 with the cell states kept, its backward recomputes the gate
 pre-activations with one GEMM per direction, runs the K7 backward
-recurrence and forms ``dW_hh = sum_t dgates_t^T h_prev_t`` as one GEMM.
+recurrence (K7w past its plan) and forms ``dW_hh = sum_t dgates_t^T
+h_prev_t`` as one GEMM.
 A GRU layer's recurrence is `gru_rec_fn`, the counterpart of `_gru_rec`'s
 custom VJP: K2 forward; backward from the recomputed gates (one GEMM per
-direction), the K8 backward recurrence, and dW_hh, db_hh and dx_proj as
+direction), the K8 (or K8w) backward recurrence, and dW_hh, db_hh and dx_proj as
 one product or sum each. Both run one direction or two: `lstm_layer` and
 `gru_layer` are the one-direction layers of the language models, the
 counterparts of `_lstm_scan` and `_gru_scan`.

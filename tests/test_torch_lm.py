@@ -88,7 +88,8 @@ def test_rnnlm_matches_jax(cell):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_rnnlm_default_width_is_past_the_kernels_plans(cell):
     """RNNLM's default 512 units are past K1/K7's 288 and K2/K8's 128: the
-    plan its first launch on the card asks for raises (no fallback)."""
+    narrow plans raise, and the route its launches take on the card is the
+    wide one (K1w/K7w, K2w/K8w), whose plan keeps W_hh on chip."""
     H = PL.RNNLM(V, 6, module=cell).rnn[0].w_hh.shape[1]
     assert H == 512
     with pytest.raises(ValueError, match="H=512"):
@@ -96,6 +97,11 @@ def test_rnnlm_default_width_is_past_the_kernels_plans(cell):
             KR.lstm_plan(8, H, 1, max_clusters=15)
         else:
             KR.gru_plan(8, H, 1)
+    route = KR.lstm_route(H) if cell == "lstm" else KR.gru_route(H)
+    assert route == "wide"
+    for kernel in (cell, f"{cell}_bwd"):
+        plan = KR.wide_plan(kernel, 8, H, 1, 132)
+        assert plan["rows_smem"] == plan["rows"] and plan["ctas"] <= 132
 
 
 def test_textlm_matches_jax():

@@ -1,0 +1,193 @@
+"""The recurrences past the narrow kernels' plans (`semi_tts_tpu_torch/kernels/rnn.py`
+`lstm_route`/`gru_route`, `wide_plan`; the wide routes K1w, K7w, K2w, K8w of
+`csrc/rnn_wide.cu`) against `semi_tts_tpu.ops.rnn` and `semi_tts_tpu.models.lm`.
+
+On the CPU the wrappers run their plain versions, so these hold the plain
+recurrences and the autograd functions around them at widths the narrow
+kernels do not take (H=258, not a multiple of 4; H=300 and RNNLM's 512,
+past 288) to the JAX package: forward and VJP at 1e-5 (fp32 on both sides,
+only the summation order of the step products differs), RNNLM's loss and
+gradients at 1e-4 (the tolerances of tests/test_torch_lm.py)."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from semi_tts_tpu.models import lm as JL
+from semi_tts_tpu.ops import rnn as J
+from semi_tts_tpu_torch import kernels
+from semi_tts_tpu_torch.bridge import _flatten, to_jax_params
+from semi_tts_tpu_torch.kernels import rnn as K
+from semi_tts_tpu_torch.models import lm as PL
+from semi_tts_tpu_torch.ops import rnn as P
+
+ATOL = 1e-5
+LM_RTOL, LM_ATOL = 1e-4, 1e-6
+H100_SMS = 132
+# the JAX recurrences, jitted (a compile is cheaper than their eager scans)
+LSTM_FWD, LSTM_BWD, GRU_FWD, GRU_BWD = (jax.jit(f, static_argnums=0) for f in (
+    J._lstm_rec_fwd, J._lstm_rec_bwd, J._gru_rec_fwd, J._gru_rec_bwd))
+
+
+@pytest.mark.parametrize("H,route", [(4, "narrow"), (256, "narrow"), (258, "wide"),
+                                     (288, "narrow"), (292, "wide"), (512, "wide"),
+                                     (1024, "wide")])
+def test_lstm_route(H, route):
+    """K1/K7 where their plans fit (4 <= H <= 288, H % 4 == 0), else K1w/K7w."""
+    assert K.lstm_route(H) == route
+    if route == "narrow":
+        K.lstm_plan(8, H, 2, 15)
+        K.lstm_bwd_plan(8, H, 2, 15)
+    else:
+        with pytest.raises(ValueError):
+            K.lstm_plan(8, H, 2, 15)
+
+
+@pytest.mark.parametrize("H,route", [(80, "narrow"), (128, "narrow"), (129, "wide"),
+                                     (512, "wide")])
+def test_gru_route(H, route):
+    """K2/K8 at H <= 128, else K2w/K8w."""
+    assert K.gru_route(H) == route
+    if route == "wide":
+        with pytest.raises(ValueError):
+            K.gru_plan(8, H, 2)
+
+
+@pytest.mark.parametrize("kernel", sorted(K.WIDE_GATES))
+def test_wide_plans_fit_the_card(kernel):
+    """Every wide plan at widths from 1 to 4,096 units, 1 to 64 rows and
+    either number of directions fits an H100: at most one CTA an SM, the
+    shared memory a block may use, its threads; its CTAs own every unit;
+    the staged chunk and the rows kept in shared memory within their
+    bounds. RNNLM's and the ASR's shapes keep all of W_hh on chip; H=0 and
+    a staged row past shared memory raise."""
+    fwd = not kernel.endswith("_bwd")
+    G = K.WIDE_GATES[kernel]
+    for H in (1, 7, 129, 258, 292, 300, 512, 1000, 1024, 2048, 4096):
+        for B in (1, 5, 8, 64):
+            for ndir in (1, 2):
+                p = K.wide_plan(kernel, B, H, ndir, H100_SMS)
+                assert p["ctas"] == p["grid"][0] * ndir <= H100_SMS
+                U = p["units_per_cta"]
+                assert p["grid"][0] * U >= H > (p["grid"][0] - 1) * U
+                assert p["smem_bytes"] <= K.SMEM_PER_BLOCK and p["threads"] <= 1024
+                assert 1 <= p["chunk"] <= min(K.WIDE_CHUNK, B)
+                assert 0 <= p["rows_smem"] <= p["rows"]
+                assert p["rows"] == (G if fwd else 1) * p["units_per_cta"]
+                assert p["k"] == (H if fwd else G * H)
+    for H, ndir in ((512, 1), (512, 2)):
+        p = K.wide_plan(kernel, 8, H, ndir, H100_SMS)
+        assert p["rows_smem"] == p["rows"] and p["chunk"] == 8
+    for H in (0, 60000):  # no unit; a staged row of 60,000 values or more
+        with pytest.raises(ValueError):
+            K.wide_plan(kernel, 8, H, 1, H100_SMS)
+
+
+def _np(t):
+    return np.asarray(t.detach() if torch.is_tensor(t) else t)
+
+
+def _lstm_case(rng, T, B, H):
+    x = [(0.5 * rng.randn(T, B, 4 * H)).astype(np.float32) for _ in range(2)]
+    w = [(rng.randn(4 * H, H) / np.sqrt(H)).astype(np.float32) for _ in range(2)]
+    return w, x
+
+
+@pytest.mark.parametrize("H", [258, 300])
+def test_lstm_plain_matches_jax_fwd_and_bwd(H):
+    """Both directions (the second reversed) through `_LSTMRec` on the CPU
+    (K1's and K7's plain versions) against `_lstm_rec_fwd` and
+    `_lstm_rec_bwd`: hs, cs, and dW_hh and dx_proj of a seeded cotangent."""
+    rng = np.random.RandomState(H)
+    T, B = 5, 2
+    w, x = _lstm_case(rng, T, B, H)
+    g = rng.randn(T, B, 2 * H).astype(np.float32)
+    tw = [torch.from_numpy(a).requires_grad_(True) for a in w]
+    tx = [torch.from_numpy(a).requires_grad_(True) for a in x]
+    hs = P.lstm_rec_fn(tw[0], tw[1], tx[0], tx[1])
+    grads = torch.autograd.grad(hs, tw + tx, torch.from_numpy(g))
+    hs_c, cs_c = K.bilstm_rec_cs_plain(*[t.detach() for t in tw + tx])
+    for k, reverse in enumerate((False, True)):
+        want_hs, res = LSTM_FWD(reverse, jnp.asarray(w[k]), jnp.asarray(x[k]))
+        sl = slice(k * H, (k + 1) * H)
+        np.testing.assert_allclose(_np(hs[..., sl]), want_hs, rtol=0, atol=ATOL)
+        np.testing.assert_allclose(_np(hs_c[..., sl]), want_hs, rtol=0, atol=ATOL)
+        np.testing.assert_allclose(_np(cs_c[..., sl]), res[3], rtol=0, atol=ATOL)
+        dw, dx = LSTM_BWD(reverse, res, jnp.asarray(g[..., sl]))
+        np.testing.assert_allclose(_np(grads[k]), dw, rtol=0, atol=ATOL)
+        np.testing.assert_allclose(_np(grads[2 + k]), dx, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("H", [258, 300])
+def test_gru_plain_matches_jax_fwd_and_bwd(H):
+    """Both directions through `_GRURec` on the CPU (K2's and K8's plain
+    versions) against `_gru_rec_fwd` and `_gru_rec_bwd`: hs, and dW_hh,
+    db_hh and dx_proj of a seeded cotangent."""
+    rng = np.random.RandomState(H + 1)
+    T, B = 5, 2
+    x = [(0.5 * rng.randn(T, B, 3 * H)).astype(np.float32) for _ in range(2)]
+    w = [(rng.randn(3 * H, H) / np.sqrt(H)).astype(np.float32) for _ in range(2)]
+    b = [(0.1 * rng.randn(3 * H)).astype(np.float32) for _ in range(2)]
+    g = rng.randn(T, B, 2 * H).astype(np.float32)
+    tw, tb, tx = ([torch.from_numpy(a).requires_grad_(True) for a in arrs] for arrs in (w, b, x))
+    hs = P.gru_rec_fn(tw[0], tw[1], tb[0], tb[1], tx[0], tx[1])
+    grads = torch.autograd.grad(hs, tw + tb + tx, torch.from_numpy(g))
+    for k, reverse in enumerate((False, True)):
+        want_hs, res = GRU_FWD(reverse, *map(jnp.asarray, (w[k], b[k], x[k])))
+        sl = slice(k * H, (k + 1) * H)
+        np.testing.assert_allclose(_np(hs[..., sl]), want_hs, rtol=0, atol=ATOL)
+        dw, db, dx = GRU_BWD(reverse, res, jnp.asarray(g[..., sl]))
+        for got, want in ((grads[k], dw), (grads[2 + k], db), (grads[4 + k], dx)):
+            np.testing.assert_allclose(_np(got), want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnnlm_default_width_matches_jax(cell):
+    """RNNLM at its default width (512 units, 2 layers), the width past
+    the narrow kernels that the wide routes exist for: the masked
+    next-token NLL and every gradient against JAX's `rnnlm_loss` on the same
+    weights (vocab 12, T=6, B=2)."""
+    V = 12
+    m = PL.RNNLM(V, 6, module=cell, generator=torch.Generator().manual_seed(3))
+    assert m.rnn[0].w_hh.shape[1] == 512
+    params, _ = to_jax_params(m)
+    rng = np.random.RandomState(4)
+    text = rng.randint(3, V, size=(2, 7)).astype(np.int64)
+    text[1, 5:] = 0
+    tlen = (text != 0).sum(-1)
+    args = (torch.from_numpy(text), torch.from_numpy(tlen))
+    names, ps = zip(*m.named_parameters())
+    loss = PL.rnnlm_loss(m, *args)
+    got = torch.autograd.grad(loss, ps)
+    jargs = (jnp.asarray(text), jnp.asarray(tlen))
+    want_loss, want = jax.jit(jax.value_and_grad(
+        lambda p: JL.rnnlm_loss(p, None, *jargs, module=cell)))(params)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=LM_RTOL)
+    want = _flatten(jax.tree_util.tree_map(np.asarray, want))
+    for n, gr in zip(names, got):
+        w = want[n.replace(".", "/")]
+        np.testing.assert_allclose(_np(gr), w, rtol=LM_RTOL, atol=LM_ATOL, err_msg=n)
+
+
+def test_wide_wrappers_count_no_launch_on_cpu():
+    """At wide widths the wrappers take their plain versions on CPU tensors
+    and count no launch, narrow or wide."""
+    before = kernels.launch_counts()
+    T, B, H = 3, 2, 258
+    w, x = (torch.zeros(4 * H, H), torch.zeros(4 * H, H)), (torch.zeros(T, B, 4 * H),) * 2
+    K.lstm_rec(False, w[0], x[0])
+    K.bilstm_rec(*w, *x)
+    K.bilstm_rec_cs(w[0], None, x[0], None)
+    K.bilstm_rec_bwd(*w, *x, torch.zeros(T, B, 2 * H), torch.zeros(T, B, 2 * H))
+    Hg = 129
+    wg, bg = torch.zeros(3 * Hg, Hg), torch.zeros(3 * Hg)
+    xg = torch.zeros(T, B, 3 * Hg)
+    K.gru_rec(True, wg, bg, xg)
+    K.bigru_rec(wg, wg, bg, bg, xg, xg)
+    K.bigru_rec_bwd(wg, None, torch.zeros(T, B, Hg), None, xg, None, torch.zeros(T, B, Hg))
+    assert kernels.launch_counts() == before
+    assert all(w.launches == 0 for w in kernels.WIDE)
