@@ -643,7 +643,7 @@ CUTS = {
         # a cut waits for the bulk copies still in flight before it returns,
         # so that none lands in shared memory the CTA has left
         "bulk copies at entry, ballot scans": [
-            ("launch", [ret("  const int n_chunks = tokens != nullptr ? 0 : (T + chunk - 1) / chunk;\n")]),
+            ("launch", [ret("  const int n_chunks = tokens != nullptr || depth == 0 ? 0 : (T + chunk - 1) / chunk;\n")]),
             ("copies landed", [after(
                 "  __syncthreads();  // the copies' ends (and the given tokens) are in\n",
                 "  for (int k = 0; k < min(depth, n_chunks); ++k) mbar_wait(bar0 + 8 * k, 0);\n"
@@ -790,7 +790,7 @@ def pick_design(text, src, name, designs):
 
 # (B, L) of every K9 call in the train steps: the paired step (8, 32), the
 # text-first step (16, 32), the speech-first step (16, 133), the 15.28 s
-# speech-first step (2, 679; timed at 700) and the longest K3 takes (2, 1187)
+# speech-first step (2, 679; timed at 700) and the longest one K3 cluster holds (2, 1187)
 K9_SHAPES = ((8, 32), (16, 32), (16, 133), (2, 700), (2, 1187))
 
 

@@ -181,7 +181,30 @@ Phases, each fatal on failure:
    peak memory, its wide kernels run exactly twice a step (a launch a
    layer) in a profiled replay and no narrow recurrence, the card against
    the CPU plain path by the step gates, and `graph_check`. ``python3
-   chip_smoke.py --wide`` runs the build and this phase alone.
+   chip_smoke.py --wide`` runs the build and this phase alone;
+13. long lengths (`phase_long`), the routes past the shared-memory plans:
+   the split K3 (a cluster a chunk of positions and a combine kernel) and
+   K9 at every shape of `SPLIT_SHAPES` (L from 1,188 to 8,000, the 30 s
+   step's, ragged and masked with a wholly masked chunk, F = 0, A=1024
+   F=64), K3 at B=16 L=32 (still one cluster a row, its time beside the
+   recorded one), K6 at S = 1,025 and 2,049 (4 and 8 states a lane) and 4,097 and
+   8,193 (the device-memory lattice) beside F.ctc_loss, B6 and its
+   backward at T = 14,529 and 20,000 (C=43) and T=14,528 C=8,000 (the
+   argmax from device memory): each held to its plain version (1e-4; B6
+   1e-6 on the means and exact elsewhere) and timed beside it and its
+   bound; then (a) `TTSServer.from_checkpoint` on two texts, 1,500 and 40
+   tokens, at 50 decode steps (graphed equal to eager bit for bit, the
+   split K3 seen by name, within 1e-3 of the CPU plain path) and at the
+   default decode policy (its first call, a replay, capture time, peak
+   memory, a finite waveform); (b) the speech-first step with a 3.0 s
+   paired and a 30.0 s unpaired row through its CUDA graph (memory_len
+   past 1,187; the replay equal to the eager step bit for bit from one
+   state; K3 split, K9, B6 and its backward by name; finite); (c)
+   `AsrTrainer` at B=2 x 15.28 s and U=600 (K6 at 4 states a lane; one
+   step against the CPU plain path by phase 5's gates) and graphed steps
+   at U=1,100 over 30 s (8 states a lane) and U=2,100 over 60 s (the
+   device-memory lattice), each route by name. ``python3 chip_smoke.py
+   --long`` runs the build and this phase alone.
 
 The server and the train steps run as CUDA graphs (`semi_tts_tpu_torch.graphs`):
 each path's line gives the graphed and eager walls (``wall_s``,
@@ -209,7 +232,7 @@ repeat bit for bit (the train steps ask cuDNN for deterministic algorithms).
 The training kernels (K5 ``stft_frames``/``spec_db``, K6 ``ctc_alpha``/
 ``ctc_beta_grad``, K7 ``bilstm_rec_bwd`` and K1 with cell states,
 ``bilstm_rec_cs``) and the paired step's backward kernels (K8
-``bigru_rec_bwd``, K9 ``attention_step_bwd``, up to L = 1,187) and the speech-first step's B6 (``trim_merge``,
+``bigru_rec_bwd``, K9 ``attention_step_bwd``, in phase 3 up to L = 1,187; phase 13 past it) and the speech-first step's B6 (``trim_merge``,
 ``trim_merge_bwd``, bit for bit) are held to their plain versions in
 phase 3 at their step's shapes and at ragged ones; K3 also at the memory
 lengths 1 and 2 of an all-pad or one-token request. A row's ``launches`` counts the
@@ -228,8 +251,8 @@ a step of (a) (K1w, K7w) or (b) (K2w, K8w). Every row's ``bound_ms``
 takes its FLOPs from `utils.flops.matmul_flops` of the kernel's call: the
 dot FLOPs of the JAX function it replaces, as its wrapper reports them.
 
-Prints a ``{"ptxas": ...}`` line (registers and spills of the recurrence
-and attention kernels), an ``{"asr_shape": ...}`` line, a ``{"featurizer": ...}`` line, a
+Prints a ``{"ptxas": ...}`` line (registers and spills of the recurrence,
+attention, CTC and trim/merge kernels), an ``{"asr_shape": ...}`` line, a ``{"featurizer": ...}`` line, a
 ``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, a
 ``{"training": ...}`` line, a ``{"paired": ...}`` line, a ``{"cycles": ...}``
 line, a ``{"host_decoder": ...}`` line (with the card's name and power
@@ -237,7 +260,8 @@ limit and the CLI's steady step wall), a ``{"cli": ...}`` line, a
 ``{"pretrain": ...}`` line (with the card's name and power limit), a
 ``{"tools": ...}`` line, a ``{"mesh": ...}`` line (with the card's name
 and power limit), a ``{"wide": ...}`` line (steps (a), (b) and (c), with
-the card's name and power limit), a ``{"flops": ...}`` line (each timed
+the card's name and power limit), a ``{"long": ...}`` line (phase 13's
+paths, with the card's name and power limit), a ``{"flops": ...}`` line (each timed
 path's matrix-product FLOPs from one eager call, `utils.flops`, over its
 graphed wall and over the card's 67 TFLOP/s fp32 peak: ``mfu_fp32``;
 with the card) and, last,
@@ -375,6 +399,18 @@ def max_err(got, want):
         return max(max_err(g, w) for g, w in zip(got, want) if g is not None)
     torch.cuda.synchronize()
     return float((got - want).abs().max())
+
+
+def rel_err(got, want):
+    """The largest of each output's max|got - want| / max|want|: every output
+    held on its own scale (outputs that shrink as 1/L, such as attention
+    weights, or as 1/U, such as a mean-reduced CTC gradient)."""
+    if isinstance(got, tuple):
+        if [g is None for g in got] != [w is None for w in want]:
+            raise SystemExit("chip_smoke: a kernel and its plain version return different outputs")
+        return max(rel_err(g, w) for g, w in zip(got, want) if g is not None)
+    torch.cuda.synchronize()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
 def bound(nbytes, call):
@@ -542,14 +578,18 @@ def _rnn_library_backward(cls, randn, dev, T, B_, H, ndir, D):
 def ptxas_report(log):
     """Registers, spills and static shared memory of each instantiation of
     the recurrence kernels (K1 with its cell-state flag, K2, K7, K8, and the
-    wide routes: `rec_wide_kernel<4>` K1w, `<3>` K2w, K7w, K8w) and of
-    the attention kernels (K3; K9 by span and loc_lin staging, and its sums
-    kernel), from nvcc's ``-Xptxas -v`` output."""
+    wide routes: `rec_wide_kernel<4>` K1w, `<3>` K2w, K7w, K8w), of the
+    attention kernels (K3 by its split flag and the combine; K9 by span and
+    loc_lin staging, and its sums kernel), of K6 (by states a lane, and the
+    device-memory route's three) and of B6, from nvcc's ``-Xptxas -v``
+    output."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(lstm_rec|gru_rec|lstm_bwd|gru_bwd|rec_wide|lstm_wide_bwd|gru_wide_bwd|"
-                      r"attention_bwd_sum|attention_bwd|attention_step)_kernel"
-                      r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?)?", line)
+                      r"attention_bwd_sum|attention_bwd|attention_step|attention_combine|"
+                      r"ctc_alpha_long|ctc_beta_long|ctc_grad_long|ctc_alpha|ctc_beta_grad|"
+                      r"trim_argmax|trim_merge_bwd|trim_merge)_kernel"
+                      r"(?:I(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?E)?", line)
         if "Compiling entry function" in line:
             args = ",".join(a for a in m.groups()[1:] if a) if m else ""
             name = f"{m.group(1)}_kernel" + (f"<{args}>" if args else "") if m else None
@@ -1202,7 +1242,7 @@ def _case_attention_bwd(randn, unif, dev):
     the 31-wide location conv reaches the padding), with a padding mask, at
     L=280, at L=1 and without location features; at the text-first step's
     shape (B=16, L=32), the speech-first step's (B=16, L=133), at L=700 (a
-    15 s unpaired utterance's memory) and at L=1,187 (the longest K3 takes
+    15 s unpaired utterance's memory) and at L=1,187 (the longest one K3 cluster holds
     at these widths); with every span of `SPANS` in place of the plan's (at
     L=45 masked and at B=16 L=133); and at A=1024 F=64, where loc_lin does
     not fit in shared memory. Timed at every shape a step gives it, beside
@@ -1820,16 +1860,18 @@ def stage_times(server, text, sid, steps):
     return {"synth": t1 - t0, "vocode": time.perf_counter() - t1}
 
 
-def reference_check(ckpt):
-    """A small request through the card's kernels and through the plain path
-    on the CPU, on the same checkpoint, prenet dropout 0 and the same phases."""
+def reference_check(ckpt, text=None, sid=None, steps=4):
+    """A request (a small one, unless ``text`` and ``sid`` are given) of
+    ``steps`` decode steps through the card's kernels and through the plain
+    path on the CPU, on the same checkpoint, prenet dropout 0 and the same
+    phases."""
     from semi_tts_tpu_torch.serve import TTSServer, serving_stages
 
     config = flagship_config(prenet_dropout=0.0)
     gpu = TTSServer.from_checkpoint(config, ckpt)
     cpu = TTSServer.from_checkpoint(config, ckpt, device="cpu")
-    text, sid = serving_inputs(2, 10, seed=3)
-    steps = 4
+    if text is None:
+        text, sid = serving_inputs(2, 10, seed=3)
     out = {}
     amps = []
     stages = {srv: serving_stages(srv.cfg, srv.audio, srv.phn_attr, steps) for srv in (gpu, cpu)}
@@ -2007,7 +2049,14 @@ KERNEL_NAMES = {"bilstm_rec": r"lstm_rec_kernel<[^>]*false>",
                 "ctc_beta_grad": r"ctc_beta_grad_kernel", "trim_merge": r"trim_merge_kernel",
                 "trim_merge_bwd": r"trim_merge_bwd_kernel", "lstm_rec_wide": r"rec_wide_kernel<4>",
                 "lstm_rec_bwd_wide": r"lstm_wide_bwd_kernel", "gru_rec_wide": r"rec_wide_kernel<3>",
-                "gru_rec_bwd_wide": r"gru_wide_bwd_kernel"}
+                "gru_rec_bwd_wide": r"gru_wide_bwd_kernel",
+                # the long-length routes (phase 13)
+                "attention_step_split": r"attention_step_kernel<true>",
+                "attention_combine": r"attention_combine_kernel",
+                "ctc_alpha_k4": r"ctc_alpha_kernel<4>", "ctc_beta_grad_k4": r"ctc_beta_grad_kernel<4>",
+                "ctc_alpha_k8": r"ctc_alpha_kernel<8>", "ctc_beta_grad_k8": r"ctc_beta_grad_kernel<8>",
+                "ctc_alpha_long": r"ctc_alpha_long_kernel", "ctc_beta_long": r"ctc_beta_long_kernel",
+                "ctc_grad_long": r"ctc_grad_long_kernel"}
 
 
 def kernels_seen(by_name):
@@ -2274,36 +2323,45 @@ def program_check(prog, calls, what, kernels, seed=11):
                 launches=replay["kernels_seen"], top_device_ms=replay["top_device_ms"])
 
 
-def training_reference(model, cfg, phn_attr, dev):
+def _reference_batch(device):
+    """`training_reference`'s default batch: B=2 rows of 3.0 s and 2.5 s."""
+    return training_batch(3, device, lengths=(TRAIN_S, TRAIN_S - 11025))
+
+
+def training_reference(model, cfg, phn_attr, dev, batch=_reference_batch, seed=11,
+                       what="ASR training steps"):
     """One step's loss and gradients through the card's kernels and through
     the plain path on the CPU: the same weights and BN statistics, dropout
-    0, B=2 rows of 3.0 s and 2.5 s, and the same SNRs, stretch rate and
-    noise (numpy draws) given to both."""
+    0, the rows ``batch(device)`` gives (two), and the same SNRs, stretch
+    rate and noise (numpy draws from ``seed``) given to both; each side's
+    wall (``card_s``, ``cpu_s``)."""
     from semi_tts_tpu_torch.ops.features import AudioFeaturizer
     from semi_tts_tpu_torch.train.steps import StepBuilder
     from semi_tts_tpu_torch.train.train_asr import asr_loss_and_grads
 
     cfg0 = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, dropout=0.0))
     cpu_model = copy.deepcopy(model).cpu()
-    rng = np.random.RandomState(11)
-    lengths = (TRAIN_S, TRAIN_S - 11025)
+    rng = np.random.RandomState(seed)
     snrs = rng.uniform(10, 100, size=2).astype(np.float32)
-    noise = rng.randn(2, TRAIN_S).astype(np.float32)
+    noise = rng.randn(2, batch(torch.device("cpu"))[0].shape[1]).astype(np.float32)
     rate = float(np.float32(rng.uniform(0.9, 1.1)))
 
     def run(m, device):
         builder = StepBuilder(cfg0, AudioFeaturizer(audio_config(), device), phn_attr.to(device))
-        waves, wave_len, text, _ = training_batch(3, device, lengths=lengths)
+        waves, wave_len, text, _ = batch(device)
         aug = (torch.from_numpy(snrs).to(device), rate, torch.from_numpy(noise).to(device))
+        t0 = time.perf_counter()
         loss, _, grads = asr_loss_and_grads(builder, m, waves, wave_len, text, None, augment=aug)
-        return float(loss), [None if g is None else g.cpu() for g in grads]
+        loss = float(loss)
+        return loss, [None if g is None else g.cpu() for g in grads], time.perf_counter() - t0
 
-    (loss_g, grads_g), (loss_c, grads_c) = run(model, dev), run(cpu_model, torch.device("cpu"))
+    (loss_g, grads_g, s_g), (loss_c, grads_c, s_c) = run(model, dev), run(cpu_model,
+                                                                          torch.device("cpu"))
     spread, _ = card_spread(model, lambda m: run(m, dev)[1], grads_g)
     return checked({"loss_card": loss_g, "loss_cpu": loss_c,
                     "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c), "loss_tol_rel": 1e-4,
-                    **compare_grads(model, grads_g, grads_c), "card_spread": spread},
-                   "ASR training steps")
+                    **compare_grads(model, grads_g, grads_c), "card_spread": spread,
+                    "card_s": s_g, "cpu_s": s_c}, what)
 
 
 # Conv biases in front of a train-mode BatchNorm: BN's mean subtraction
@@ -2585,20 +2643,10 @@ def phase_cycles(dev):
     card against the CPU plain path, and a speech-first step whose unpaired
     row is 15.28 s long (K3 and K9 at L ~ 680)."""
     from semi_tts_tpu_torch import kernels
-    from semi_tts_tpu_torch.models import vqvae as V
-    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
-    from semi_tts_tpu_torch.train.optim import Optimizer
-    from semi_tts_tpu_torch.train.steps import StepBuilder, Weights
     from semi_tts_tpu_torch.train.train_vqvae import VqvaeTrainer
-    from semi_tts_tpu_torch.utils.metrics import read_phn_attr
 
-    config = flagship_config()
-    cfg = flagship_vqvae_config(config)
-    phn_attr = torch.from_numpy(read_phn_attr(config["model"]["codebook"]["phn_attr_pth"])).to(dev)
-    model = V.VQVAE(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
-    builder = StepBuilder(cfg, AudioFeaturizer(audio_config(), dev), phn_attr,
-                          weights=Weights(**CYCLE_WEIGHTS), freq_loss_kwargs=FLAGSHIP_FREQ_LOSS)
-    opt = Optimizer(model.parameters(), lr=1e-3, lr_scheduler="decay")
+    model, builder, opt = cycle_setup(dev)
+    cfg, phn_attr = builder.cfg, builder.phn_attr
     batch, u_batch = training_batch(0, dev), training_batch(2, dev)
     marks, kinds, launches, logged, mem = [], [], {}, [], {}
 
@@ -4714,12 +4762,525 @@ def phase_mesh(card, dev, study=False):
                 phase_s={"captured": t1 - t0, "gloo": t2 - t1, "cli": time.perf_counter() - t2})
 
 
+# ------------------------------------------------------------------ phase 13: long lengths
+
+LONG_TEXT_U = 1500              # the long request's text, and the short one beside it
+LONG_TEXT_SHORT = 40
+LONG_TEXT_STEPS = 50            # decode steps of the requests held to eager and the CPU
+LONG_UNPAIRED_S = 661500        # 30.0 s: the speech-first step's unpaired row
+ASR_LONG_S, ASR_LONG_U = LONG_S, 600   # (c): B=2 x 15.28 s, U=600 (S=1,201: 4 states a lane)
+# (c'): graphed ASR steps whose CTC takes 8 states a lane (U=1,100 over 30 s: S=2,201) and
+# the device-memory lattice (U=2,100 over 60 s: S=4,201)
+ASR_ROUTE_STEPS = ((LONG_UNPAIRED_S, 1100, "k8"), (2 * LONG_UNPAIRED_S, 2100, "long"))
+# (B, L, widths, masked) of the split K3 and K9 rows; "L30" is the 30 s step's memory
+SPLIT_SHAPES = (("B=1 L=1188", 1, 1188, {}, False), ("B=1 L=1501", 1, 1501, {}, False),
+                ("B=2 L30", 2, None, {}, False), ("B=16 L=1500 masked", 16, 1500, {}, True),
+                ("B=1 L=8000", 1, 8000, {}, False), ("F=0 B=1 L=2000", 1, 2000, dict(F_=0, K=1), False),
+                ("A=1024 F=64 B=1 L=1500", 1, 1500, dict(A=1024, F_=64), False))
+K3_SHORT = "B=16 L=32"          # the serving shape: the single-cluster kernel, its time kept
+K3_SHORT_MS = 0.0086958         # its recorded time (PERF.md section 6), H100 80GB HBM3, 700 W
+K6_LONG_S = (1025, 2049, 4097, 8193)  # K6 at 4 and 8 states a lane, then the device lattice
+B6_LONG = ((14529, 43), (20000, 43), (14528, 8000))  # (T, C) of B6 past 14,528 frames or the ring
+PHASE13_KERNELS = {"a": ("attention_step_split", "attention_combine") + SERVING_KERNELS,
+                "b": ("attention_step_split", "attention_combine", "attention_step_bwd",
+                      "trim_merge", "trim_merge_bwd"),
+                "c": ("ctc_alpha_k4", "ctc_beta_grad_k4"),
+                "k8": ("ctc_alpha_k8", "ctc_beta_grad_k8"),
+                "long": ("ctc_alpha_long", "ctc_beta_long", "ctc_grad_long")}
+
+
+def _split_inputs(randn, unif, dev, B_, L, widths, masked):
+    """K3's inputs at a split shape (flagship widths unless ``widths``):
+    ``masked``: ragged lengths, row 1 of 700 positions (its second chunk
+    wholly masked at B=16 L=1,500), row 0 whole; K9's cotangents."""
+    w = {**dict(A=256, D=512, C=2, F_=32, K=31), **widths}
+    A, D, C, F_, K = w["A"], w["D"], w["C"], w["F_"], w["K"]
+    pq, pm, mem = randn(B_, A), randn(B_, L, A, scale=0.5), randn(B_, L, D)
+    h = torch.softmax(randn(B_, L), -1)
+    hist = torch.stack([h, h + torch.softmax(randn(B_, L), -1)], 1).contiguous()
+    lw, ll = (unif(F_, C, K, a=0.3), unif(A, F_, a=0.3)) if F_ else (None, None)
+    mask = None
+    if masked:
+        lengths = 1 + (torch.arange(B_, device=dev) * 397) % L
+        lengths[0], lengths[1] = L, 700
+        mask = torch.arange(L, device=dev)[None, :] >= lengths[:, None]
+    return (pq, pm, mem, hist, lw, ll, unif(A, a=0.1)), mask, (randn(B_, D), randn(B_, L)), w
+
+
+def _split_cost(B_, L, w, bwd=False):
+    """Bytes of one K3 (K9: ``bwd``) call: each input read once, each output
+    written once, as `_case_attention` and `_case_attention_bwd` count them."""
+    A, D, C, F_, K = w["A"], w["D"], w["C"], w["F_"], w["K"]
+    ins = B_ * A + B_ * L * A + B_ * L * D + B_ * C * L + F_ * C * K + A * F_ + A
+    return 4 * (2 * ins + 2 * B_ * L + B_ * D) if bwd else 4 * (ins + B_ * D + B_ * L)
+
+
+def _long_row(name, source, replaces, by, main, tol, library, extra=None):
+    """A kernels-line row from per-shape numbers ``by`` (err, ms, plain,
+    bound, library, and rel where the check is held per output on its own
+    scale, `rel_err`, at ``tol``), the row's own numbers at shape ``main``."""
+    err = max(by["err"].values())
+    rel = max(by["rel"].values()) if by.get("rel") else None
+    row = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "shapes": main,
+           "launches": None, "max_abs_err": err, "tol": tol, "ms": by["ms"][main],
+           "plain_ms": by["plain"][main], "bound_ms": by["bound"][main][0],
+           "bound_by": by["bound"][main][1], "library_ms": by["library"].get(main),
+           "library": library, "ms_by_shape": by["ms"], "plain_ms_by_shape": by["plain"],
+           "bound_ms_by_shape": {k: b[0] for k, b in by["bound"].items()},
+           "library_ms_by_shape": by["library"] or None, "max_abs_err_by_shape": by["err"]}
+    if rel is not None:
+        row.update(max_rel_err=rel, max_rel_err_by_shape=by["rel"], tol_is="rel")
+    row.update(extra or {})
+    held = f", max_rel_err {rel:.3e}" if rel is not None else ""
+    print(f"kernel {name}: max_abs_err {err:.3e}{held} (tol {tol:.0e})", flush=True)
+    return row
+
+
+def _fatal_unless(ok, what, detail):
+    if not ok:
+        raise SystemExit(f"chip_smoke: {what}: {detail}")
+
+
+def long_attention_rows(randn, unif, dev, L30):
+    """The split K3 (its chunks' kernel and the combine kernel) and K9 at
+    every shape of `SPLIT_SHAPES` (``L30``: the 30 s step's memory): each
+    output held to its plain version's on its own scale (`rel_err` at
+    1e-4: the weights and K9's per-position gradients are ~1/L) and K3
+    rerun bit for bit, timed (graph-replayed) beside its plain version and
+    bound; K3 at B=16 L=32 must keep the single-cluster plan, and its time
+    is reported beside the recorded one, `K3_SHORT_MS` (``within_3pct``:
+    reported, not gated, since a shared host's timing noise and a card's
+    power limit move it)."""
+    from semi_tts_tpu_torch.kernels import attention as k3
+
+    by3 = {n: {} for n in ("err", "rel", "ms", "plain", "bound", "library", "plan")}
+    by9 = {n: {} for n in ("err", "rel", "ms", "plain", "bound", "library", "plan")}
+    short, _, _, w = _split_inputs(randn, unif, dev, B, U, {}, False)
+    plan = k3.attention_plan(B, U, 256, 512, 2, 32, 31)
+    _fatal_unless(plan["chunks"] == 0, "K3 at B=16 L=32 left the single-cluster plan", plan)
+    short_ms = device_ms(lambda: k3.attention_step(*short), 200)
+    for key, B_, L, widths, masked in SPLIT_SHAPES:
+        L = L30 if L is None else L
+        key = key.replace("L30", f"L={L}")
+        a, mask, cot, w = _split_inputs(randn, unif, dev, B_, L, widths, masked)
+        plan = k3.attention_plan(B_, L, w["A"], w["D"], w["C"], w["F_"], w["K"])
+        _fatal_unless(plan["chunks"] >= 2, f"K3 at {key} did not split", plan)
+        fwd = lambda a=a, m=mask: k3.attention_step(*a, m)
+        got, again = fwd(), fwd()
+        want = k3.attention_step_plain(*a, mask)
+        by3["err"][key], by3["rel"][key] = max_err(got, want), rel_err(got, want)
+        _fatal_unless(by3["rel"][key] <= 1e-4 and all(torch.equal(x, y) for x, y in zip(got, again)),
+                      f"the split K3 disagrees with its plain version or itself at {key}",
+                      [by3["err"][key], by3["rel"][key]])
+        by3["ms"][key] = device_ms(fwd, 20)
+        by3["plain"][key] = device_ms(lambda a=a, m=mask: k3.attention_step_plain(*a, m), 2)
+        by3["bound"][key] = bound(_split_cost(B_, L, w), fwd)
+        by3["plan"][key] = {k: plan[k] for k in ("chunk", "chunks", "grid", "smem_bytes",
+                                                  "stage_memory")}
+        ctx, wts = got
+        bargs = a + (wts, ctx) + cot
+        bwd = lambda b=bargs: k3.attention_step_bwd(*b)
+        got9, want9 = bwd(), k3.attention_step_bwd_plain(*bargs)
+        by9["err"][key], by9["rel"][key] = max_err(got9, want9), rel_err(got9, want9)
+        _fatal_unless(by9["rel"][key] <= 1e-4, f"K9 disagrees with its plain version at {key}",
+                      [by9["err"][key], by9["rel"][key]])
+        by9["ms"][key] = device_ms(bwd, 10)
+        by9["plain"][key] = device_ms(lambda b=bargs: k3.attention_step_bwd_plain(*b), 2)
+        by9["bound"][key] = bound(_split_cost(B_, L, w, bwd=True), bwd)
+        p9 = k3.attention_bwd_plan(B_, L, w["A"], w["D"], w["C"], w["F_"], w["K"])
+        by9["plan"][key] = {k: p9[k] for k in ("span", "spans", "grid", "smem_bytes", "stage_lin")}
+    main = f"B=2 L={L30}"
+    note = ("none: no single PyTorch call computes this function (scaled_dot_product_attention "
+            "has no location features, tanh energies or history)")
+    k3_row = _long_row("attention_step split", "semi_tts_tpu_torch/csrc/attention.cu",
+                       "semi_tts_tpu/models/attention.py:39 (attention_step, in the decoder_apply "
+                       "step body, models/decoder.py:227), past L = 1,187 at flagship widths",
+                       by3, main, 1e-4, note,
+                       {"plans": by3["plan"], "kernels": ["attention_step_kernel<true>",
+                                                          "attention_combine_kernel"],
+                        "short_route": {"shape": K3_SHORT, "ms": short_ms, "recorded_ms": K3_SHORT_MS,
+                                        "ratio": short_ms / K3_SHORT_MS,
+                                        "within_3pct": abs(short_ms / K3_SHORT_MS - 1) <= 0.03}})
+    k9_row = _long_row("attention_step_bwd long", "semi_tts_tpu_torch/csrc/attention.cu",
+                       "semi_tts_tpu/models/attention.py:39 (autodiff of attention_step in the "
+                       "decoder's training scan, models/decoder.py:227), past L = 1,187",
+                       by9, main, 1e-4, NO_LIBRARY, {"plans": by9["plan"]})
+    return [k3_row, k9_row]
+
+
+def _k6_long_inputs(randn, dev, S, B_=2):
+    """K6's inputs at S states: labels in 3..42 (repeats possible), row 0 of
+    U labels and T = U + U/8 + 32 steps (enough for U labels and their
+    repeats), row 1 of U - U/5 labels and input length T - U/8 (ragged)."""
+    U = (S - 1) // 2
+    T = U + U // 8 + 32
+    return _ctc_inputs(randn, dev, B_, T, 43, U, seed=S, tl=(U, U - U // 5),
+                       il=(T, T - U // 8))
+
+
+def long_ctc_rows(randn, dev):
+    """K6 at every S of `K6_LONG_S`: ``ctc_alpha`` held to its plain version
+    at 1e-4 (log-domain alphas and NLL, which grow with T), ``ctc_beta_grad``
+    at 1e-4 of its largest value (`rel_err`: the 'mean' reduction's g makes
+    it ~1/U) and its rerun bit for bit,
+    timed (graph-replayed; the plain versions eagerly, a host loop of T
+    steps) beside F.ctc_loss (forward; forward + backward), rows by route:
+    the shared-memory lattice at 4 and 8 states a lane, the device-memory
+    lattice."""
+    from semi_tts_tpu_torch.kernels import ctc as k6
+
+    routes = {"shared": {}, "device": {}}
+    for S in K6_LONG_S:
+        a = _k6_long_inputs(randn, dev, S)
+        B_, T, C = a[0].shape
+        key = ctc_shape_key(B_, T, C, S)
+        plan = k6.ctc_plan(B_, T, S)
+        by = routes[plan["lattice"]].setdefault("alpha", {n: {} for n in (
+            "err", "ms", "plain", "bound", "library", "plan")})
+        bb = routes[plan["lattice"]].setdefault("beta", {n: {} for n in (
+            "err", "rel", "ms", "plain", "bound", "library", "plan")})
+        alphas, nll = k6.ctc_alpha(*a)
+        want_a, want_nll = k6.ctc_alpha_plain(*a)
+        by["err"][key] = max(max_err(alphas, want_a), max_err(nll, want_nll))
+        ba = _ctc_beta_args(a)
+        g1, g2, want_g = k6.ctc_beta_grad(*ba), k6.ctc_beta_grad(*ba), k6.ctc_beta_grad_plain(*ba)
+        bb["err"][key], bb["rel"][key] = max_err(g1, want_g), rel_err(g1, want_g)
+        _fatal_unless(by["err"][key] <= 1e-4 and bb["rel"][key] <= 1e-4 and torch.equal(g1, g2),
+                      f"K6 disagrees with its plain version or its rerun at {key}",
+                      [by["err"][key], bb["err"][key], bb["rel"][key]])
+        for d, kern, plain, cost, backward in ((by, k6.ctc_alpha, k6.ctc_alpha_plain,
+                                                _ctc_alpha_cost, False),
+                                               (bb, k6.ctc_beta_grad, k6.ctc_beta_grad_plain,
+                                                _ctc_beta_cost, True)):
+            args = a if d is by else ba
+            d["ms"][key] = device_ms(lambda f=kern, x=args: f(*x), 3)
+            d["plain"][key] = time_ms(lambda f=plain, x=args: f(*x), 1)
+            d["bound"][key] = bound(cost(B_, T, C, S), lambda f=kern, x=args: f(*x))
+            d["library"][key] = time_ms(_ctc_library(*a, backward=backward), 3)
+            d["plan"][key] = plan
+    rows = []
+    for lattice, what in (("shared", "K = 4, 8"), ("device", "device-memory lattice")):
+        for part, name, replaces, lib in (
+                ("alpha", "ctc_alpha", "semi_tts_tpu/ops/ctc.py:63 (_alpha_pass)",
+                 "F.ctc_loss forward, reduction mean (CUDA events, eager)"),
+                ("beta", "ctc_beta_grad", "semi_tts_tpu/ops/ctc.py:123 (_ctc_nll_bwd)",
+                 "F.ctc_loss forward + backward, reduction mean (CUDA events, eager)")):
+            by = routes[lattice][part]
+            main = next(iter(by["ms"]))
+            rows.append(_long_row(f"{name} {what}", "semi_tts_tpu_torch/csrc/ctc.cu",
+                                  f"{replaces}, past 1,024 lattice states", by, main, 1e-4, lib,
+                                  {"plans": by["plan"]}))
+    return rows
+
+
+def long_trim_rows(randn, dev):
+    """B6 and its backward at every (T, C) of `B6_LONG` (B=2, D=64): the
+    means within 1e-6 of the plain version, the lengths, slots and counts
+    and the backward equal; timed (graph-replayed) beside the plain
+    version and the bound."""
+    from semi_tts_tpu_torch.kernels import quantize as b6
+
+    by, bb = ({n: {} for n in ("err", "ms", "plain", "bound", "library", "plan")} for _ in range(2))
+    for T, C in B6_LONG:
+        key = f"B=2 T={T} C={C}"
+        p, lat = _trim_merge_inputs(randn, dev, 2, T, C=C)
+        got, want = b6.trim_merge(p, lat, 3), b6.trim_merge_plain(p, lat, 3)
+        exact = all(torch.equal(x.to(y.dtype), y) for x, y in zip(got[1:], want[1:]))
+        by["err"][key] = max_err(got[0], want[0])
+        d = randn(2, T, 64)
+        bwd = (d, got[2], got[3])
+        bb["err"][key] = max_err(b6.trim_merge_bwd(*bwd), b6.trim_merge_bwd_plain(*bwd))
+        _fatal_unless(exact and by["err"][key] <= 1e-6 and bb["err"][key] == 0.0,
+                      f"B6 disagrees with its plain version at {key}",
+                      [exact, by["err"][key], bb["err"][key]])
+        for dd, kern, plain, args, cost in (
+                (by, b6.trim_merge, b6.trim_merge_plain, (p, lat, 3), _trim_merge_cost(2, T, C, 64)),
+                (bb, b6.trim_merge_bwd, b6.trim_merge_bwd_plain, bwd, _trim_merge_bwd_cost(2, T, 64))):
+            dd["ms"][key] = device_ms(lambda f=kern, x=args: f(*x), 5)
+            dd["plain"][key] = device_ms(lambda f=plain, x=args: f(*x), 2)
+            dd["bound"][key] = bound(cost, lambda f=kern, x=args: f(*x))
+        by["plan"][key] = b6.trim_merge_plan(T, C, 64)
+        bb["plan"][key] = b6.trim_merge_bwd_plan(2, T, 64)
+    main = f"B=2 T={B6_LONG[1][0]} C={B6_LONG[1][1]}"
+    return [_long_row("trim_merge long", "semi_tts_tpu_torch/csrc/quantize.cu",
+                      "semi_tts_tpu/ops/quantize.py:26 (trim_merge_segments), past T = 14,528 "
+                      "or the ring", by, main, 1e-6, NO_LIBRARY, {"plans": by["plan"]}),
+            _long_row("trim_merge_bwd long", "semi_tts_tpu_torch/csrc/quantize.cu",
+                      "semi_tts_tpu/ops/quantize.py:26 (the autodiff of trim_merge_segments)",
+                      bb, main, 0.0, NO_LIBRARY, {"plans": bb["plan"]})]
+
+
+def long_text_inputs():
+    """Two texts of LONG_TEXT_U tokens: one whole (in 3..42), one of
+    LONG_TEXT_SHORT tokens padded with 0."""
+    rng = np.random.RandomState(21)
+    text = np.zeros((2, LONG_TEXT_U), np.int32)
+    text[0] = rng.randint(3, 43, size=LONG_TEXT_U)
+    text[1, :LONG_TEXT_SHORT] = rng.randint(3, 43, size=LONG_TEXT_SHORT)
+    return text, np.array([3, 77], np.int32)
+
+
+def long_serving(build_dir):
+    """(a) A request of a 1,500-token and a 40-token text at flagship width
+    through `TTSServer.from_checkpoint`: at LONG_TEXT_STEPS decode steps
+    graphed against eager bit for bit, the split K3 and its combine seen by
+    name in a profiled replay, the synthesis and waveform within 1e-3 of
+    the CPU plain path on the same checkpoint (`reference_check`); then one
+    request at the default decode policy, graphed: its first call (the
+    capture), a replay, the capture time, peak memory, a finite waveform."""
+    from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.serve import TTSServer
+
+    ckpt = os.path.join(build_dir, "chip_smoke_long_ckpt.pth")
+    text, sid = long_text_inputs()
+    try:
+        write_checkpoint(ckpt, flagship_config())
+        server = TTSServer.from_checkpoint(flagship_config(), ckpt)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        server.synthesize(text, sid, key=7, decode_steps=LONG_TEXT_STEPS)  # captures
+        first = time.perf_counter() - t0
+        wrapper = kernels.launch_counts()
+        t0 = time.perf_counter()
+        wav = server.synthesize(text, sid, key=8, decode_steps=LONG_TEXT_STEPS)
+        wall = time.perf_counter() - t0
+        want = eager_request(server, text, sid, 8, LONG_TEXT_STEPS)[0].cpu().numpy()
+        same = bool(np.array_equal(wav, want))
+        _fatal_unless(same and np.isfinite(wav).all(), "the long-text request's graph and its "
+                      "eager twin differ", float(np.abs(wav - want).max()))
+        prof = profiled_step(lambda: server.synthesize(text, sid, key=9,
+                                                       decode_steps=LONG_TEXT_STEPS), wall)
+        require_seen(prof["kernels_seen"], PHASE13_KERNELS["a"], "long-text request")
+        ref = reference_check(ckpt, text, sid, LONG_TEXT_STEPS)
+        steps = server.decode_steps_for(text)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        server.synthesize(text, sid, key=10)
+        full_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full = server.synthesize(text, sid, key=11)
+        full_wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        _fatal_unless(np.isfinite(full).all() and np.abs(full).max() > 0,
+                      "the default-policy long-text request's waveform", full.shape)
+        synth, vocode = server.stages(steps, *text.shape)
+        out = dict(text_len=[LONG_TEXT_U, LONG_TEXT_SHORT], decode_steps=LONG_TEXT_STEPS,
+                   first_s=first, wall_s=wall, graphed_equals_eager=same,
+                   busy_s=prof["device_busy_s"], idle_share=prof["idle_share"],
+                   device_events=prof["kernel_launches"],
+                   kernels_seen={k: prof["kernels_seen"][k] for k in PHASE13_KERNELS["a"]},
+                   wrapper_launches={k: wrapper[k] for k in SERVING_KERNELS}, reference=ref,
+                   default_policy={"decode_steps": steps, "samples": int(full.shape[1]),
+                                   "first_s": full_first, "wall_s": full_wall,
+                                   "capture_s": {"synth": graph_stats(synth)["capture_s"],
+                                                 "vocode": graph_stats(vocode)["capture_s"]},
+                                   "peak_mem_bytes": peak})
+    finally:
+        if os.path.exists(ckpt):
+            os.remove(ckpt)
+    return out
+
+
+def cycle_setup(dev, cycles=True):
+    """A flagship model, its StepBuilder and an optimizer, as `phase_cycles`
+    builds them (the cycles' loss weights and frequency loss), or with the
+    builder's default weights where not ``cycles`` (the ASR steps)."""
+    from semi_tts_tpu_torch.models import vqvae as V
+    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
+    from semi_tts_tpu_torch.train.optim import Optimizer
+    from semi_tts_tpu_torch.train.steps import StepBuilder, Weights
+    from semi_tts_tpu_torch.utils.metrics import read_phn_attr
+
+    config = flagship_config()
+    cfg = flagship_vqvae_config(config)
+    phn_attr = torch.from_numpy(read_phn_attr(config["model"]["codebook"]["phn_attr_pth"])).to(dev)
+    model = V.VQVAE(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    kw = dict(weights=Weights(**CYCLE_WEIGHTS), freq_loss_kwargs=FLAGSHIP_FREQ_LOSS) if cycles else {}
+    builder = StepBuilder(cfg, AudioFeaturizer(audio_config(), dev), phn_attr, **kw)
+    return model, builder, Optimizer(model.parameters(), lr=1e-3, lr_scheduler="decay")
+
+
+def long_speech_first(dev):
+    """(b) The speech-first step with B = 1 + 1 rows, a 3.0 s paired and a
+    30.0 s unpaired one, through its CUDA graph: the trimmed latents padded
+    to the ASR encoder's length are the attention memory (``memory_len``
+    past 1,187: the split K3, and K9 at that L). From one copied state, the
+    graph's replay (after its capturing call, the state put back) against
+    the same step run eagerly, every metric and state tensor bit for bit;
+    a profiled replay (K3 split, K9, B6 and its backward by name); the
+    losses, gradient norm and parameters finite."""
+    model, builder, opt = cycle_setup(dev)
+    pair = training_batch(7, dev, lengths=(TRAIN_S,))
+    unpair = training_batch(8, dev, lengths=(LONG_UNPAIRED_S,))
+    (mg, og), (me, oe) = copy.deepcopy((model, opt)), copy.deepcopy((model, opt))
+    start = [t.detach().clone() for _, t in model_state(mg, og)]
+    sg = builder.make_speech_first_step(og)
+    sg.capture_at = 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sg(mg, 2, 1.0, *pair, *unpair)  # runs the step eagerly, then captures it
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    with torch.no_grad():
+        for (_, t), s0 in zip(model_state(mg, og), start):
+            t.copy_(s0)
+    t0 = time.perf_counter()
+    got = sg(mg, 2, 1.0, *pair, *unpair)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    se = builder.make_speech_first_step(oe)
+    t0 = time.perf_counter()
+    want = se.eager(me, 2, 1.0, *pair, *unpair)
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    differing = [k for k in got if not torch.equal(got[k], want[k])] + [
+        n for (n, a), (_, b) in zip(model_state(mg, og), model_state(me, oe)) if not torch.equal(a, b)]
+    prof = profiled_step(lambda: sg(mg, 4, 1.0, *pair, *unpair), wall)
+    L = got["unpair_pred"].shape[1]
+    losses = {k: float(v) for k, v in got.items() if k.endswith("_loss")}
+    finite = np.isfinite(list(losses.values()) + [float(got["grad_norm"])]).all() and all(
+        bool(torch.isfinite(p).all()) for p in mg.parameters())
+    out = dict(samples=[TRAIN_S, LONG_UNPAIRED_S], memory_len=L,
+               decode_steps=got["pair_align"].shape[1], losses=losses,
+               grad_norm=float(got["grad_norm"]), unpair_ok=bool(got["unpair_ok"]),
+               unpair_len=int(got["unpair_pred_len"][0]), first_s=first, wall_s=wall,
+               eager_wall_s=eager_wall, busy_s=prof["device_busy_s"],
+               idle_share=prof["idle_share"], device_events=prof["kernel_launches"],
+               peak_mem_bytes=peak, graphed_equals_eager=not differing, differing=differing[:20],
+               **graph_stats(sg.programs()[-1]),
+               kernels_seen={k: prof["kernels_seen"][k] for k in PHASE13_KERNELS["b"]})
+    _fatal_unless(finite and L > 1187 and not differing, "the 30 s speech-first step", out)
+    require_seen(prof["kernels_seen"], PHASE13_KERNELS["b"], "30 s speech-first step")
+    del mg, og, me, oe, sg, se, model, opt
+    gc.collect()
+    return out
+
+
+def long_asr_batch(dev, seconds, U_, rows):
+    """(waves, wave_len, text, sid): ``rows`` utterances of ``seconds``
+    samples (the last a fifth shorter where rows > 1), texts of U_ labels
+    in 3..42 with no label twice in a row (so T need only hold U_), the
+    last row's a fifth shorter."""
+    rng = np.random.RandomState(U_)
+    lengths = [seconds] * rows
+    text = np.zeros((rows, U_), np.int64)
+    for b in range(rows):
+        n = U_ if b == 0 else U_ - U_ // 5
+        text[b, :n] = 3 + np.cumsum(rng.randint(1, 40, size=n)) % 40
+        if b:
+            lengths[b] = seconds - seconds // 5
+    waves = numpy_waves(lengths, seconds, U_)
+    return (torch.from_numpy(waves).to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev),
+            torch.from_numpy(text).to(dev),
+            torch.from_numpy(rng.randint(0, 109, rows)).to(dev))
+
+
+def long_asr(dev):
+    """(c) `AsrTrainer` at B=2 x 15.28 s and U=600 (S=1,201, CTC T=680: K6 at
+    4 states a lane): one capturing and two replayed steps (losses and
+    gradient norms finite), a profiled replay (K6's K=4 kernels by name),
+    and one step on the card against the CPU plain path on the same
+    weights (dropout 0, the same augmentation), held to phase 5's gates;
+    then graphed steps whose CTC takes 8 states a lane (B=1 x 30 s, U=1,100)
+    and the device-memory lattice (B=1 x 60 s, U=2,100), each K6 route seen
+    by name in a profiled replay, losses finite."""
+    from semi_tts_tpu_torch.train.train_asr import AsrTrainer
+
+    model, builder, opt = cycle_setup(dev, cycles=False)
+    out = {}
+    for name, seconds, U_, rows in (("c", ASR_LONG_S, ASR_LONG_U, 2),
+                                    *((r, s, u, 1) for s, u, r in ASR_ROUTE_STEPS)):
+        batch = long_asr_batch(dev, seconds, U_, rows)
+        logged, marks = [], []
+
+        def batches(batch=batch, marks=marks):
+            for _ in range(3):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                yield batch
+
+        trainer = AsrTrainer(model, builder, opt, pair_iter=batches(), dev_set=[batch],
+                             max_step=3, valid_step=10 ** 9, progress_step=1,
+                             log=lambda *a, logged=logged: logged.append(a))
+        capture_first(trainer)
+        trainer.exec()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        walls = [b - a for a, b in zip(marks, marks[1:])]
+        losses = [v for _, n, v in logged if n in ("txt_loss/pair", "grad_norm")]
+        _fatal_unless(len(losses) == 6 and np.isfinite(losses).all(),
+                      f"the long ASR step ({name}) went non-finite", losses)
+        prof = profiled_step(lambda t=trainer, b=batch: t._train_step(b), float(np.median(walls[1:])),
+                             picked=K6_KERNELS)
+        require_seen(prof["kernels_seen"], PHASE13_KERNELS[name], f"long ASR step ({name})")
+        out[name] = dict(samples=seconds, rows=rows, text_len=U_, S=2 * U_ + 1,
+                         first_s=walls[0], wall_s=float(np.median(walls[1:])), losses=losses,
+                         busy_s=prof["device_busy_s"], idle_share=prof["idle_share"],
+                         device_events=prof["kernel_launches"], k6_ms=prof["picked_ms"],
+                         kernels_seen={k: prof["kernels_seen"][k] for k in PHASE13_KERNELS[name]},
+                         graphs=step_graphs(trainer._step_fn))
+        del trainer
+    out["c"]["reference"] = training_reference(
+        model, builder.cfg, builder.phn_attr, dev, seed=12, what="long ASR steps",
+        batch=lambda device: long_asr_batch(device, ASR_LONG_S, ASR_LONG_U, 2))
+    return out
+
+
+def phase_long(card, dev):
+    """Phase 13: the attention step, CTC and trim/merge at lengths past
+    their shared-memory plans. (b) first (its memory length sets a K3/K9
+    shape), then (a) and (c), then the kernels' rows. Returns (rows, line)."""
+    from semi_tts_tpu_torch.kernels.build import BUILD_DIR
+
+    t0 = time.perf_counter()
+    speech = long_speech_first(dev)
+    serving = long_serving(str(BUILD_DIR))
+    asr = long_asr(dev)
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def unif(*shape, a):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * a
+
+    with torch.no_grad():
+        rows = (long_attention_rows(randn, unif, dev, speech["memory_len"])
+                + long_ctc_rows(randn, dev) + long_trim_rows(randn, dev))
+    seen = {"attention_step split": serving["kernels_seen"]["attention_step_split"],
+            "attention_step_bwd long": speech["kernels_seen"]["attention_step_bwd"],
+            "ctc_alpha K = 4, 8": asr["c"]["kernels_seen"]["ctc_alpha_k4"]
+            + asr["k8"]["kernels_seen"]["ctc_alpha_k8"],
+            "ctc_beta_grad K = 4, 8": asr["c"]["kernels_seen"]["ctc_beta_grad_k4"]
+            + asr["k8"]["kernels_seen"]["ctc_beta_grad_k8"],
+            "ctc_alpha device-memory lattice": asr["long"]["kernels_seen"]["ctc_alpha_long"],
+            "ctc_beta_grad device-memory lattice": asr["long"]["kernels_seen"]["ctc_grad_long"]}
+    per = {"attention_step split": "long-text request (a), 50 decode steps",
+           "attention_step_bwd long": "30 s speech-first step (b)",
+           "ctc_alpha K = 4, 8": "ASR steps (c) U=600 and (c') U=1,100",
+           "ctc_beta_grad K = 4, 8": "ASR steps (c) U=600 and (c') U=1,100",
+           "ctc_alpha device-memory lattice": "ASR step (c') U=2,100",
+           "ctc_beta_grad device-memory lattice": "ASR step (c') U=2,100"}
+    for row in rows:
+        row["launches"] = seen.get(row["name"], 0)
+        row["launches_per"] = per.get(row["name"], "no driven path: T past 14,528 frames is "
+                                      "~328 s of audio; checked and timed at its shapes")
+    line = dict(card=card, wall_s=time.perf_counter() - t0, serving=serving,
+                speech_first=speech, asr=asr)
+    return rows, line
+
+
 def main(argv=None):
     """Every phase; ``--mesh-study``: the kernels' build and phase 11 alone,
-    with `spread_study`; ``--wide``: the build and phase 12 alone."""
+    with `spread_study`; ``--wide``: the build and phase 12 alone;
+    ``--long``: the build and phase 13 alone."""
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--mesh-study"], ["--wide"]):
-        raise SystemExit("usage: chip_smoke.py [--mesh-study | --wide]")
+    if argv not in ([], ["--mesh-study"], ["--wide"], ["--long"]):
+        raise SystemExit("usage: chip_smoke.py [--mesh-study | --wide | --long]")
     card = phase_device()
     from semi_tts_tpu_torch import kernels, use_fp32
     from semi_tts_tpu_torch.kernels.build import BUILD_DIR, LOGS
@@ -4737,8 +5298,18 @@ def main(argv=None):
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"wide": wide}))
         return 0
-    print(json.dumps({"ptxas": ptxas_report(LOGS.get("rnn", "") + LOGS.get("rnn_wide", "")
-                                            + LOGS.get("attention", ""))}), flush=True)
+    if argv == ["--long"]:
+        rows, long = phase_long(card, dev)
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"long": long}))
+        if UNSEEN:
+            raise SystemExit(f"chip_smoke: kernels not seen in profiled replays: {UNSEEN}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    print(json.dumps({"ptxas": ptxas_report("".join(LOGS.get(n, "") for n in (
+        "rnn", "rnn_wide", "attention", "ctc", "quantize")))}), flush=True)
     seen_shapes = record_recurrence_shapes()
     table = phase_kernels(dev)
     print(json.dumps({"asr_shape": asr_lstm_check(dev)}), flush=True)
@@ -4792,6 +5363,8 @@ def main(argv=None):
         row["launches"] = launches[per][row["name"]]
         row["launches_per"] = per
         row["launches_by_path"] = {k: v[row["name"]] for k, v in launches.items()}
+    long_rows, long = phase_long(card, dev)
+    table += long_rows
     print(json.dumps({"kernels": table}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
@@ -4802,6 +5375,7 @@ def main(argv=None):
     print(json.dumps({"tools": dict(tools, card=card)}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"wide": wide}))
+    print(json.dumps({"long": long}))
     print(json.dumps({"flops": flops_line(card, {
         "serving request": (serving["flops"], serving["wall_s"]),
         "ASR train step": (training["graph_check"]["flops"], training["wall_s"]),

@@ -51,6 +51,21 @@
 // The launch plan (cluster, grid, shared memory, loc_tile, whether memory
 // is staged) is computed by `kernels/attention.py` `attention_plan`; this
 // file lays out shared memory the same way.
+//
+// The split route, past the L one cluster holds (1,187 at flagship widths:
+// the regions above take 44 floats a position): the grid is (chunk of at
+// most `chunk` positions, batch row), each chunk one cluster running the
+// body above over its positions, its location conv reading the history
+// with its (K-1)/2 halo on either side. In place of the normalised outputs
+// a chunk writes its raw masked energies into `weights`, its maximum m_c
+// and s_c = sum exp(e - m_c) (0 where every position is masked, so that a
+// masked chunk adds 0 and no NaN), and its unnormalised context
+// sum exp(e - m_c) memory into a scratch buffer. A second kernel, a CTA a
+// row launched as a programmatic dependent launch, combines them in chunk
+// order: m = max m_c, s = sum s_c exp(m_c - m), weights = exp(e - m) / s,
+// context = sum exp(m_c - m) ctx_c / s. Fixed order, no atomics: a rerun
+// repeats bit for bit; a row masked everywhere gives NaN, as one cluster
+// does.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -153,23 +168,35 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// kSplit: cluster blockIdx.x / kCluster takes the chunk of positions
+// [chunk * Lc, chunk * Lc + Lc) of row blockIdx.y and writes the partials
+// `stats` (B, chunks, 2) and `ctx_part` (B, chunks, D) that
+// `attention_combine_kernel` turns into the outputs; else cluster
+// blockIdx.x / kCluster takes row b whole (Lc = L).
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm,
                       const float* __restrict__ memory, const float* __restrict__ hist,
                       const float* __restrict__ loc_w, const float* __restrict__ loc_lin,
                       const float* __restrict__ v, const unsigned char* __restrict__ mask,
                       float* __restrict__ context, float* __restrict__ weights,
-                      int L, int A, int D, int C, int F, int K, int tile, int stage_mem,
+                      float* __restrict__ stats, float* __restrict__ ctx_part,
+                      int Lrow, int Lc, int A, int D, int C, int F, int K, int tile, int stage_mem,
                       int vec) {
   cg::cluster_group cluster = cg::this_cluster();
   // Peers write into this CTA's `part` only after every CTA of the cluster
   // has started: arrive now, wait just before the first remote store.
   cluster_arrive_relaxed();
+  // the combine kernel may be scheduled now: it waits for this grid's end
+  if (kSplit) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   extern __shared__ __align__(16) float smem[];
   const int r = (int)cluster.block_rank();
-  const int b = blockIdx.x / kCluster;
+  const int chunk = kSplit ? (int)blockIdx.x / kCluster : 0;
+  const int b = kSplit ? (int)blockIdx.y : (int)blockIdx.x / kCluster;
+  const int l_base = kSplit ? chunk * Lc : 0;
+  const int L = kSplit ? min(Lc, Lrow - l_base) : Lrow;  // this cluster's positions
   const int Ac = A / kCluster, Dc = D / kCluster;
-  const Layout lay(L, Ac, Dc, C, F, K, tile, stage_mem);
+  const Layout lay(kSplit ? Lc : Lrow, Ac, Dc, C, F, K, tile, stage_mem);
   float* pm_s = smem + lay.pm;
   float* mem_s = smem + lay.mem;
   float* part = smem + lay.part;   // (kCluster, Lr) partial energies, slot = sender
@@ -188,8 +215,8 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
   // the location features and energies need, then the memory slices
   const int pad = (K - 1) / 2, Lp = L + K - 1 + kConvL - 1, CK = C * K, FS = feature_stride(F);
   for (int i = tid; i < C * Lp; i += blockDim.x) {
-    const int c = i / Lp, x = i - c * Lp - pad;
-    if (x >= 0 && x < L) cp_async4(hist_s + i, hist + ((size_t)b * C + c) * L + x);
+    const int c = i / Lp, x = l_base + i - c * Lp - pad;
+    if (x >= 0 && x < Lrow) cp_async4(hist_s + i, hist + ((size_t)b * C + c) * Lrow + x);
     else hist_s[i] = 0.0f;
   }
   for (int i = tid; i < F * CK; i += blockDim.x) cp_async4(wloc + i + i / CK, loc_w + i);
@@ -203,11 +230,12 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
     cp_async4(v_s + i, v + r * Ac + i);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  stage_slice(pm_s, Ac, pm + ((size_t)b * L) * A + r * Ac, A, L, Ac, vec);
-  const float* mem_b = memory + ((size_t)b * L) * D + r * Dc;
+  stage_slice(pm_s, Ac, pm + ((size_t)b * Lrow + l_base) * A + r * Ac, A, L, Ac, vec);
+  const float* mem_b = memory + ((size_t)b * Lrow + l_base) * D + r * Dc;
   if (stage_mem) stage_slice(mem_s, Dc, mem_b, D, L, Dc, vec);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  for (int l = tid; l < L; l += blockDim.x) e[l] = mask != nullptr && mask[(size_t)b * L + l];
+  for (int l = tid; l < L; l += blockDim.x)
+    e[l] = mask != nullptr && mask[(size_t)b * Lrow + l_base + l];
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // the first group has landed
   __syncthreads();
   cluster_wait();
@@ -307,15 +335,35 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
   float m = -INFINITY;
   for (int l = lane; l < L; l += 32) m = fmaxf(m, e[l]);
   m = warp_max(m);
-  float sum = 0.0f;
-  for (int l = lane; l < L; l += 32) sum += __expf(e[l] - m);
-  sum = warp_sum(sum);
-  for (int l = tid; l < L; l += blockDim.x) {
-    const float wl = __expf(e[l] - m) / sum;
-    w[l] = wl;
-    if (r == 0) weights[(size_t)b * L + l] = wl;
+  if (kSplit) {
+    // the chunk's partials: raw energies, m_c and s_c, exp(e - m_c) as the
+    // weights of the context below; every position masked: all 0
+    const bool dead = m == -INFINITY;
+    float sum = 0.0f;
+    for (int l = lane; l < L; l += 32) sum += dead ? 0.0f : __expf(e[l] - m);
+    sum = warp_sum(sum);
+    for (int l = tid; l < L; l += blockDim.x) {
+      w[l] = dead ? 0.0f : __expf(e[l] - m);
+      if (r == 0) weights[(size_t)b * Lrow + l_base + l] = e[l];
+    }
+    if (r == 0 && tid == 0) {
+      float* st = stats + 2 * ((size_t)b * (gridDim.x / kCluster) + chunk);
+      st[0] = m;
+      st[1] = sum;
+    }
+  } else {
+    float sum = 0.0f;
+    for (int l = lane; l < L; l += 32) sum += __expf(e[l] - m);
+    sum = warp_sum(sum);
+    for (int l = tid; l < L; l += blockDim.x) {
+      const float wl = __expf(e[l] - m) / sum;
+      w[l] = wl;
+      if (r == 0) weights[(size_t)b * L + l] = wl;
+    }
   }
   __syncthreads();
+  float* ctx_out = kSplit ? ctx_part + ((size_t)b * (gridDim.x / kCluster) + chunk) * D
+                          : context + (size_t)b * D;
 
   // context[d] = sum_l w[l] * memory[l, d] over this CTA's columns; G groups
   // of positions when the columns leave threads idle, summed in group order
@@ -328,7 +376,7 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
     } else {
       for (int l = g; l < L; l += G) acc = fmaf(w[l], mem_b[(size_t)l * D + d], acc);
     }
-    if (G == 1) context[(size_t)b * D + r * Dc + d] = acc;
+    if (G == 1) ctx_out[r * Dc + d] = acc;
     else red[i] = acc;
   }
   if (G > 1) {
@@ -336,8 +384,35 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
     for (int d = tid; d < Dc; d += blockDim.x) {
       float acc = 0.0f;
       for (int g = 0; g < G; ++g) acc += red[g * Dc + d];
-      context[(size_t)b * D + r * Dc + d] = acc;
+      ctx_out[r * Dc + d] = acc;
     }
+  }
+}
+
+// The split route's combine, a CTA a row, after every chunk's cluster (a
+// programmatic dependent launch): the chunks' statistics in chunk order,
+// then each weight from its raw energy and the context from the chunks'
+// unnormalised ones. A chunk with every position masked has m_c = -inf
+// and s_c = 0 and adds 0; a row masked everywhere has m = -inf and gives
+// NaN, as the single-cluster kernel does.
+__global__ void __launch_bounds__(kThreads)
+attention_combine_kernel(const float* __restrict__ stats, const float* __restrict__ ctx_part,
+                         float* __restrict__ context, float* __restrict__ weights, int L, int D,
+                         int chunks) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // every chunk's partials are written
+  const int b = blockIdx.x;
+  const float* st = stats + (size_t)b * chunks * 2;
+  float m = -INFINITY;
+  for (int c = 0; c < chunks; ++c) m = fmaxf(m, st[2 * c]);
+  float s = 0.0f;
+  for (int c = 0; c < chunks; ++c) s += st[2 * c + 1] * __expf(st[2 * c] - m);
+  float* w = weights + (size_t)b * L;
+  for (int l = threadIdx.x; l < L; l += blockDim.x) w[l] = __expf(w[l] - m) / s;
+  const float* cp = ctx_part + (size_t)b * chunks * D;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float acc = 0.0f;
+    for (int c = 0; c < chunks; ++c) acc = fmaf(__expf(st[2 * c] - m), cp[(size_t)c * D + d], acc);
+    context[(size_t)b * D + d] = acc / s;
   }
 }
 
@@ -925,23 +1000,31 @@ extern "C" int attention_step_bwd_f32(const float* pq, const float* pm, const fl
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// `tile` (location-feature rows per tile, 0 when F = 0) and `stage_mem`
-// come from attention.py `attention_plan`; `vec` = 1 when A/kCluster and
-// D/kCluster are multiples of 4 and processed_memory and memory are 16-byte
-// aligned.
+// `tile` (location-feature rows per tile, 0 when F = 0), `stage_mem`, and
+// the split route's `chunk` (positions a cluster) and `chunks` (0: one
+// cluster a row, no split) come from attention.py `attention_plan`; `vec`
+// = 1 when A/kCluster and D/kCluster are multiples of 4 and
+// processed_memory and memory are 16-byte aligned. `scratch` (split route
+// only): B * chunks * (2 + D) floats, the chunks' statistics then their
+// contexts.
 extern "C" int attention_step_f32(const float* pq, const float* pm, const float* memory,
                                   const float* hist, const float* loc_w, const float* loc_lin,
                                   const float* v, const unsigned char* mask,
-                                  float* context, float* weights,
+                                  float* context, float* weights, float* scratch,
                                   int B, int L, int A, int D, int C, int F, int K,
-                                  int tile, int stage_mem, int vec, void* stream) {
+                                  int tile, int stage_mem, int vec, int chunk, int chunks,
+                                  void* stream) {
   if (A % kCluster || D % kCluster || L < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const Layout lay(L, A / kCluster, D / kCluster, C, F, K, tile, stage_mem);
+  const bool split = chunks > 0;
+  if (split && (chunk < 1 || (long long)chunk * chunks < L || (long long)chunk * (chunks - 1) >= L ||
+                scratch == nullptr || B > 65535))
+    return (int)cudaErrorInvalidValue;
+  const Layout lay(split ? chunk : L, A / kCluster, D / kCluster, C, F, K, tile, stage_mem);
   const size_t smem = (size_t)lay.total * sizeof(float);
+  const auto kernel = split ? attention_step_kernel<true> : attention_step_kernel<false>;
   cudaError_t err;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(attention_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   cudaLaunchAttribute attr[1];
@@ -950,13 +1033,30 @@ extern "C" int attention_step_f32(const float* pq, const float* pm, const float*
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * B);
+  cfg.gridDim = split ? dim3(kCluster * chunks, B) : dim3(kCluster * B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, attention_step_kernel, pq, pm, memory, hist, loc_w, loc_lin, v,
-                           mask, context, weights, L, A, D, C, F, K, tile, stage_mem, vec);
+  float* stats = split ? scratch : nullptr;
+  float* ctx_part = split ? scratch + (size_t)B * chunks * 2 : nullptr;
+  err = cudaLaunchKernelEx(&cfg, kernel, pq, pm, memory, hist, loc_w, loc_lin, v, mask, context,
+                           weights, stats, ctx_part, L, split ? chunk : L, A, D, C, F, K, tile,
+                           stage_mem, vec);
+  if (err != cudaSuccess || !split) return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  // a programmatic dependent launch: the combine is scheduled while the
+  // chunks run and waits for their end (griddepcontrol.wait)
+  cudaLaunchAttribute dep[1];
+  dep[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  dep[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cc = {};
+  cc.gridDim = dim3(B);
+  cc.blockDim = dim3(kThreads);
+  cc.stream = (cudaStream_t)stream;
+  cc.attrs = dep;
+  cc.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cc, attention_combine_kernel, (const float*)stats,
+                           (const float*)ctx_part, context, weights, L, D, chunks);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

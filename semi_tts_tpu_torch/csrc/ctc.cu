@@ -59,6 +59,23 @@
 //   No thread's serial sum grows with S (the blank class holds half the
 //   states); the rest of the row is zero. No (T, B, S) scratch, no second
 //   launch, no atomics: a rerun is bit for bit.
+// - K states a lane, K in {1, 2, 4, 8}: up to 32 * 8 * 16 = 4,096 states. A
+//   forward chunk holds min(8, 16 / K) steps, a backward one 8 / K, so that
+//   a thread's chunks stay at 16 values; past 2 states a lane the sort's
+//   keys can outgrow a chunk's segment sums and their region grows to hold
+//   them (~197 KB at K = 8 in 16 warps).
+//
+// Past 4,096 states, the device-memory route (`ctc_alpha_long_f32`,
+// `ctc_beta_grad_long_f32`): a CTA of 1,024 threads a row, a thread a
+// state at a time in a strided loop. The forward reads step t - 1's alphas
+// back from the (T, B, S) output it writes, one __syncthreads a step. The
+// backward first sorts the row's valid states by (class, s) (one warp, a
+// stable counting sort by __match_any_sync ballots), then runs the beta
+// chain the same way over a (T, B, S) scratch; a second kernel, a CTA a
+// (step, row), sums the occupancies exp(min(alpha + beta + nll, 0)) of each
+// class's sorted run (a warp a class, lanes strided over the run, then
+// shuffles in a fixed order) into grad[b, t, class]. The same arithmetic
+// as the shared-memory route, no atomics: a rerun is bit for bit.
 
 #include <climits>
 
@@ -67,7 +84,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kChunk = 8;            // steps a register chunk holds; backward kChunk / K (CHUNK)
+constexpr int kChunk = 8;            // values a register chunk holds a state; backward kChunk / K (CHUNK)
 constexpr int kMaxChainWarps = 16;   // warps that carry a row's chain (MAX_CHAIN_WARPS)
 constexpr int kConsumerWarps = 8;    // ctc_beta_grad's class-sum warps (CONSUMER_WARPS)
 constexpr int kConsumers = 32 * kConsumerWarps;
@@ -77,6 +94,11 @@ constexpr int kSeg = 8;              // sorted states a class-sum segment adds a
 // kHead where the segment starts
 constexpr int kHead = 1 << 30;
 constexpr int kSmemLimit = 232448;   // H100: dynamic shared memory a block may use
+constexpr int kLongThreads = 1024;   // the device-memory route's CTA (LONG_THREADS)
+constexpr int kGradThreads = 256;    // its class sums' CTA, a (step, row)
+
+// Steps a forward register chunk holds at K states a lane (CHUNK at K <= 2).
+__host__ __device__ constexpr int fwd_chunk(int K) { return K <= 2 ? kChunk : 16 / K; }
 
 // Shared bytes at K states a lane and W chain warps; kernels/ctc.py
 // `_alpha_smem`/`_beta_smem` are the same formulas. Both hold the lattice of
@@ -84,6 +106,15 @@ constexpr int kSmemLimit = 232448;   // H100: dynamic shared memory a block may 
 // forward, above the last state backward).
 __host__ __device__ constexpr int lattice_floats(int K, int W) { return 2 * (32 * K * W + 4); }
 constexpr size_t alpha_smem(int K, int W) { return 4 * (size_t)lattice_floats(K, W); }
+__host__ __device__ constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+
+// The segment sums' region in floats: a chunk's sums (32 K W, kChunk / K),
+// or the sort's keys of 8 bytes, 32 K W rounded up to a power of two, where
+// those are more (K = 4, 8).
+__host__ __device__ constexpr int part_floats(int K, int W) {
+  return 32 * W * kChunk > 2 * pow2_at_least(32 * K * W) ? 32 * W * kChunk
+                                                         : 2 * pow2_at_least(32 * K * W);
+}
 constexpr size_t beta_smem(int K, int W) {
   // the occupancy ring's full and empty mbarriers and the count of class
   // runs; the lattice; the occupancy ring (kDepth, kChunk / K,
@@ -91,8 +122,8 @@ constexpr size_t beta_smem(int K, int W) {
   // sorted positions, runs' first segments); the segments' sums of a chunk
   // (32 K W, kChunk / K), which first hold the sort's keys
   return 16 * kDepth + 16 +
-         4 * ((size_t)lattice_floats(K, W) + (size_t)32 * W * (kDepth + 1) * kChunk +
-              (size_t)4 * 32 * K * W);
+         4 * ((size_t)lattice_floats(K, W) + (size_t)32 * W * kDepth * kChunk +
+              (size_t)part_floats(K, W) + (size_t)4 * 32 * K * W);
 }
 
 // p ? x : y. The kernels' selects go through this call: written inline as
@@ -176,7 +207,7 @@ __global__ void __launch_bounds__(32 * kMaxChainWarps)
                      const int* __restrict__ input_lengths, const int* __restrict__ target_lengths,
                      float* __restrict__ alphas, float* __restrict__ nll, int B, int T, int C, int U,
                      int blank) {
-  constexpr int CH = kChunk;  // steps a chunk
+  constexpr int CH = fwd_chunk(K);  // steps a chunk
   extern __shared__ __align__(16) float lat[];
   const int nl = blockDim.x, L = threadIdx.x, ls = 32 * K * (nl >> 5) + 4;  // a step's row
   const int S = 2 * U + 1;
@@ -554,7 +585,160 @@ cudaError_t launch_beta_grad(const float* log_probs, const int* targets, const i
 
 // `ctc_plan`'s (states a lane, chain warps) hold S states.
 bool plan_ok(int S, int K, int W) {
-  return (K == 1 || K == 2) && W >= 1 && W <= kMaxChainWarps && S <= 32 * K * W;
+  return (K == 1 || K == 2 || K == 4 || K == 8) && W >= 1 && W <= kMaxChainWarps &&
+         S <= 32 * K * W;
+}
+
+// ------------------------------------------ the device-memory route --
+
+__device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
+
+// Forward, a CTA a row: alphas[t] from alphas[t - 1] in device memory (read
+// past L1: written by other threads of the CTA before the step's barrier).
+__global__ void __launch_bounds__(kLongThreads)
+    ctc_alpha_long_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
+                          const int* __restrict__ input_lengths,
+                          const int* __restrict__ target_lengths, float* alphas,
+                          float* __restrict__ nll, int B, int T, int C, int U, int blank) {
+  const int S = 2 * U + 1, b = blockIdx.x;
+  const int* tgt = targets + (size_t)b * U;
+  const int tl = min(target_lengths[b], U), n_valid = 2 * tl + 1;
+  const int Tc = max(1, min(input_lengths[b], T));
+  const float* lp = log_probs + (size_t)b * T * C;
+  const size_t ts = (size_t)B * S;
+  float* row = alphas + (size_t)b * S;
+  for (int t = 0; t < Tc; ++t) {
+    const float* prev = row + (size_t)max(t - 1, 0) * ts;
+    const float* e = lp + (size_t)t * C;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      const int z = label(tgt, s, blank);
+      float a;
+      if (t == 0) {
+        a = sel(s < n_valid && s <= 1, e[z], kNegInf);
+      } else {
+        const bool skip = (s & 1) && s >= 2 && z != label(tgt, s - 2, blank);
+        const float a1 = s >= 1 ? ld_cg(prev + s - 1) : kNegInf;
+        const float a2 = skip ? ld_cg(prev + s - 2) : kNegInf;
+        a = sel(s < n_valid, logaddexp3(ld_cg(prev + s), a1, a2) + e[z], kNegInf);
+      }
+      row[(size_t)t * ts + s] = a;
+    }
+    __syncthreads();  // step t is written
+  }
+  const float* fin = row + (size_t)(Tc - 1) * ts;
+  for (int t = Tc; t < T; ++t)  // the row's input has ended: frozen
+    for (int s = threadIdx.x; s < S; s += blockDim.x) row[(size_t)t * ts + s] = ld_cg(fin + s);
+  if (threadIdx.x == 0) {
+    const float a_end = ld_cg(fin + 2 * tl);
+    const float a_last = tl > 0 ? ld_cg(fin + 2 * tl - 1) : kNegInf;
+    const float m = fmaxf(a_end, a_last);
+    nll[b] = -(m + log1pf(expf(-fabsf(a_end - a_last))));
+  }
+}
+
+// Backward chain, a CTA a row: first warp 0 sorts the valid states by
+// (class, s) into order (B, S) and the classes' run starts into cstart (B,
+// C + 1) (a stable counting sort: a class's lanes found by
+// __match_any_sync, ranked by the lanes below; `fill` (B, C) the running
+// ends), then betas (T, B, S) from t = Tc - 1 down, beta_t from step t + 1's
+// in device memory, one __syncthreads a step.
+__global__ void __launch_bounds__(kLongThreads)
+    ctc_beta_long_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
+                         const int* __restrict__ input_lengths,
+                         const int* __restrict__ target_lengths, const float* __restrict__ nll,
+                         float* betas, int* __restrict__ order, int* __restrict__ cstart,
+                         int* __restrict__ fill, int B, int T, int C, int U, int blank) {
+  const int S = 2 * U + 1, b = blockIdx.x;
+  const int* tgt = targets + (size_t)b * U;
+  const int tl = min(target_lengths[b], U), n_valid = 2 * tl + 1;
+  const int Tc = min(input_lengths[b], T);
+  if (Tc <= 0 || !(nll[b] < -kNegInf / 2)) return;  // the gradient kernel writes zeros
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int* start = cstart + (size_t)b * (C + 1);
+    int* at = fill + (size_t)b * C;
+    int* ord = order + (size_t)b * S;
+    for (int c = lane; c < C; c += 32) at[c] = 0;
+    __syncwarp();
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int s0 = 0; s0 < n_valid; s0 += 32) {
+        const int s = s0 + lane;
+        const int z = s < n_valid ? label(tgt, s, blank) : -1;
+        const unsigned peers = __match_any_sync(0xffffffffu, z);
+        const int rank = __popc(peers & ((1u << lane) - 1u));
+        const int base = z >= 0 ? at[z] : 0;
+        __syncwarp();
+        if (z >= 0) {
+          if (pass == 1) ord[base + rank] = s;
+          if (rank == 0) at[z] = base + __popc(peers);
+        }
+        __syncwarp();
+      }
+      if (pass == 0 && lane == 0) {  // counts -> run starts; the running ends start there
+        int acc = 0;
+        for (int c = 0; c < C; ++c) {
+          const int n = at[c];
+          start[c] = at[c] = acc;
+          acc += n;
+        }
+        start[C] = acc;
+      }
+      __syncwarp();
+    }
+  }
+  const float* lp = log_probs + (size_t)b * T * C;
+  const size_t ts = (size_t)B * S;
+  float* row = betas + (size_t)b * S;
+  for (int s = threadIdx.x; s < S; s += blockDim.x)
+    row[(size_t)(Tc - 1) * ts + s] = sel(s < n_valid && (s == 2 * tl || (s == 2 * tl - 1 && tl > 0)),
+                                 0.0f, kNegInf);
+  __syncthreads();
+  for (int t = Tc - 2; t >= 0; --t) {
+    const float* nxt = row + (size_t)(t + 1) * ts;
+    const float* e = lp + (size_t)(t + 1) * C;
+    // x = beta + emission of step t + 1, -inf past the valid states
+    auto x = [&](int q) {
+      return q < n_valid ? ld_cg(nxt + q) + e[label(tgt, q, blank)] : kNegInf;
+    };
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      const bool skip_from = (s & 1) && s + 2 < S && label(tgt, s + 2, blank) != label(tgt, s, blank);
+      const float x2 = skip_from ? x(s + 2) : kNegInf;
+      row[(size_t)t * ts + s] = logaddexp3(x(s), s + 1 < S ? x(s + 1) : kNegInf, x2);
+    }
+    __syncthreads();  // step t is written
+  }
+}
+
+// grad[b, t, c], a CTA a (step, row): warp w sums the occupancies of class
+// c's sorted run (c = w, w + 8, ...), lanes strided over the run, then by
+// xor shuffles; zero past the input length and for an impossible row.
+__global__ void __launch_bounds__(kGradThreads)
+    ctc_grad_long_kernel(const int* __restrict__ input_lengths, const float* __restrict__ alphas,
+                         const float* __restrict__ betas, const float* __restrict__ nll,
+                         const float* __restrict__ g, const int* __restrict__ order,
+                         const int* __restrict__ cstart, float* __restrict__ grad, int B, int T,
+                         int C, int U) {
+  const int t = blockIdx.x, b = blockIdx.y, S = 2 * U + 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  float* out = grad + ((size_t)b * T + t) * C;
+  const float nb = nll[b];
+  if (t >= min(input_lengths[b], T) || !(nb < -kNegInf / 2)) {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) out[c] = 0.0f;
+    return;
+  }
+  const size_t at = ((size_t)t * B + b) * S;
+  const int* ord = order + (size_t)b * S;
+  const int* start = cstart + (size_t)b * (C + 1);
+  const float gb = g[b];
+  for (int c = warp; c < C; c += nwarps) {
+    float acc = 0.0f;
+    for (int r = start[c] + lane; r < start[c + 1]; r += 32) {
+      const int s = ord[r];
+      acc += expf(fminf(alphas[at + s] + betas[at + s] + nb, 0.0f));
+    }
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) out[c] = -acc * gb;
+  }
 }
 
 bool args_ok(int B, int T, int C, int U, int blank) {
@@ -563,17 +747,19 @@ bool args_ok(int B, int T, int C, int U, int blank) {
 
 }  // namespace
 
-// K and W come from kernels/ctc.py `ctc_plan`: K states a lane (1 or 2) in
-// W chain warps, 32 K W >= S = 2U + 1.
+// K and W come from kernels/ctc.py `ctc_plan`: K states a lane (1, 2, 4 or
+// 8) in W chain warps, 32 K W >= S = 2U + 1.
 extern "C" int ctc_alpha_f32(const float* log_probs, const int* targets, const int* input_lengths,
                              const int* target_lengths, float* alphas, float* nll, int B, int T,
                              int C, int U, int blank, int K, int W, void* stream) {
   if (!args_ok(B, T, C, U, blank) || !plan_ok(2 * U + 1, K, W))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(K == 1 ? launch_alpha<1> : launch_alpha<2>)(log_probs, targets, input_lengths,
-                                                           target_lengths, alphas, nll, B, T, C,
-                                                           U, blank, W, st);
+  return (int)(K == 1   ? launch_alpha<1>
+               : K == 2 ? launch_alpha<2>
+               : K == 4 ? launch_alpha<4>
+                        : launch_alpha<8>)(log_probs, targets, input_lengths, target_lengths,
+                                           alphas, nll, B, T, C, U, blank, W, st);
 }
 
 extern "C" int ctc_beta_grad_f32(const float* log_probs, const int* targets,
@@ -585,7 +771,45 @@ extern "C" int ctc_beta_grad_f32(const float* log_probs, const int* targets,
       beta_smem(K, W) > (size_t)kSmemLimit)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(K == 1 ? launch_beta_grad<1> : launch_beta_grad<2>)(
-      log_probs, targets, input_lengths, target_lengths, alphas, nll, g, grad, B, T, C, U, blank,
-      W, st);
+  return (int)(K == 1   ? launch_beta_grad<1>
+               : K == 2 ? launch_beta_grad<2>
+               : K == 4 ? launch_beta_grad<4>
+                        : launch_beta_grad<8>)(log_probs, targets, input_lengths, target_lengths,
+                                               alphas, nll, g, grad, B, T, C, U, blank, W, st);
+}
+
+// The device-memory route (any S): alphas (T, B, S) and nll (B,).
+extern "C" int ctc_alpha_long_f32(const float* log_probs, const int* targets,
+                                  const int* input_lengths, const int* target_lengths,
+                                  float* alphas, float* nll, int B, int T, int C, int U, int blank,
+                                  void* stream) {
+  if (!args_ok(B, T, C, U, blank)) return (int)cudaErrorInvalidValue;
+  ctc_alpha_long_kernel<<<B, kLongThreads, 0, (cudaStream_t)stream>>>(
+      log_probs, targets, input_lengths, target_lengths, alphas, nll, B, T, C, U, blank);
+  return (int)cudaGetLastError();
+}
+
+// The device-memory route's gradient: `betas` (T, B, S) floats and `ints`
+// (B, S + 2C + 1) ints of scratch: the sorted states, the run starts and
+// the sort's running ends.
+extern "C" int ctc_beta_grad_long_f32(const float* log_probs, const int* targets,
+                                      const int* input_lengths, const int* target_lengths,
+                                      const float* alphas, const float* nll, const float* g,
+                                      float* grad, float* betas, int* ints, int B, int T, int C,
+                                      int U, int blank, void* stream) {
+  if (!args_ok(B, T, C, U, blank) || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int S = 2 * U + 1;
+  int* order = ints;
+  int* cstart = order + (size_t)B * S;
+  int* fill = cstart + (size_t)B * (C + 1);
+  const cudaStream_t st = (cudaStream_t)stream;
+  ctc_beta_long_kernel<<<B, kLongThreads, 0, st>>>(log_probs, targets, input_lengths,
+                                                   target_lengths, nll, betas, order, cstart, fill,
+                                                   B, T, C, U, blank);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ctc_grad_long_kernel<<<dim3(T, B), kGradThreads, 0, st>>>(input_lengths, alphas, betas, nll, g,
+                                                            order, cstart, grad, B, T, C, U);
+  return (int)cudaGetLastError();
 }

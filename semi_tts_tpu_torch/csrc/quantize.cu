@@ -43,6 +43,16 @@
 //   segment's start and frame count kept by the scans, its rows summed in
 //   time order and divided by the count, as `segment_sum` then the
 //   division; rows past the kept count are zero.
+// - Long rows: where the three per-frame int arrays (tokens, slot starts,
+//   slot counts) do not fit in shared memory (T past ~19,300), they live in
+//   a (B, 3, round4(T)) scratch in device memory that the wrapper
+//   allocates, and the phases read and write them there; where not one
+//   frame of p_code fits the ring (C past ~7,192 at T = 14,528), a first
+//   kernel takes the argmax over the whole card, a warp a frame, lanes
+//   strided over the classes and combined by shuffles (the first maximum,
+//   NaN the largest, as above), into a (B, T) scratch of tokens that the
+//   main kernel reads as given tokens (one CTA a row would read the ~465
+//   MB of a row's p_code at one SM's rate).
 // The backward is a gather: d_latent[b, t] = d_trimmed[b, slot[t]] /
 // count[t] on kept frames, 0 elsewhere, no atomics. It moves ~0.55 MB at
 // the flagship step (~0.17 us of HBM time) and takes little more than its
@@ -71,12 +81,13 @@ constexpr int kHeader = 16 * 32;    // 3 mbarriers (32 bytes), two warp arrays o
 __host__ __device__ constexpr long long round4(long long n) { return (n + 3) & ~3LL; }
 
 // The plan's shared memory in bytes: the header, tokens, slot starts and
-// slot frame counts (T ints each), the p_code ring (`depth` slots of
-// `chunk` frames of C floats, 8 floats of slack each for the alignment
-// shift) and the staged latent.
+// slot frame counts (T ints each, unless `ints_global`), the p_code ring
+// (`depth` slots of `chunk` frames of C floats, 8 floats of slack each for
+// the alignment shift) and the staged latent.
 __host__ __device__ constexpr long long trim_smem_bytes(int T, int C, int D, int chunk, int depth,
-                                                        int stage_latent) {
-  return kHeader + 4 * (3 * round4(T) + depth * round4((long long)chunk * C + 8) +
+                                                        int stage_latent, int ints_global) {
+  return kHeader + 4 * ((ints_global ? 0 : 3 * round4(T)) +
+                        depth * round4((long long)chunk * C + 8) +
                         (stage_latent ? round4((long long)T * D + 8) : 0));
 }
 
@@ -162,6 +173,12 @@ __device__ __forceinline__ int segment_end(const int* tok, int s, int t, int T, 
   return e;
 }
 
+// (x, i) comes before (y, j) in the argmax's order: the larger value (NaN
+// the largest), the smaller index on a tie.
+__device__ __forceinline__ bool first_max(float x, int i, float y, int j) {
+  return beats(x, y) || (!beats(y, x) && i < j);
+}
+
 // Sum over the warp of v, lanes below `upto` only; every lane gets it.
 __device__ __forceinline__ int warp_sum_below(int v, int lane, int upto) {
   v = lane < upto ? v : 0;
@@ -205,22 +222,29 @@ __device__ __forceinline__ void mean_row(const float* x, float* o, const int* ss
   }
 }
 
+// kGlobalInts: the per-frame ints in `ints` (B, 3, round4(T)) in device
+// memory, else in shared memory (a template argument, so that the shared
+// route keeps shared-memory addressing).
+template <bool kGlobalInts>
 __global__ void __launch_bounds__(kMaxThreads)
 trim_merge_kernel(const float* __restrict__ p_code, const int* __restrict__ tokens,
                   const float* __restrict__ latent, float* __restrict__ out,
                   int* __restrict__ lengths, int* __restrict__ slot, float* __restrict__ count,
-                  int T, int C, int D, int max_frames, int chunk, int depth, int stage_latent) {
+                  int* ints, int T, int C, int D, int max_frames, int chunk, int depth,
+                  int stage_latent) {
   extern __shared__ __align__(16) unsigned char smem[];
   const unsigned bar0 = smem_addr(smem);             // p_code ring slots 0, 1; the latent: 2
   int* wlast = reinterpret_cast<int*>(smem + 32);     // (32) a warp's last change point
   int* wkept = wlast + 32;                            // (32) a warp's kept segment starts
-  int* tok = reinterpret_cast<int*>(smem + kHeader);  // (T) the frame's token
-  int* sstart = tok + round4(T);                      // (T) the start frame of each kept slot
-  int* scnt = sstart + round4(T);                     // (T) ... and its frame count
-  float* ring = reinterpret_cast<float*>(scnt + round4(T));
+  const int b = blockIdx.x, T4 = (int)round4(T);
+  int* tok = kGlobalInts ? ints + (size_t)b * 3 * T4  // (T) the frame's token
+                         : reinterpret_cast<int*>(smem + kHeader);
+  int* sstart = tok + T4;                             // (T) the start frame of each kept slot
+  int* scnt = sstart + T4;                            // (T) ... and its frame count
+  float* ring = reinterpret_cast<float*>(kGlobalInts ? reinterpret_cast<int*>(smem + kHeader)
+                                                     : scnt + T4);
   const int ring_slot = (int)round4((long long)chunk * C + 8);
   float* lat_s = ring + depth * ring_slot;            // (T * D + 8) the staged latent
-  const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nt = blockDim.x;
   const int nwarps = nt >> 5, m1 = max_frames + 1;
   const float* p_row = p_code + (size_t)b * T * C;
@@ -336,6 +360,37 @@ trim_merge_kernel(const float* __restrict__ p_code, const int* __restrict__ toke
   }
 }
 
+// The argmax of p_code (n frames of C classes) into tokens, a warp a frame:
+// lane j keeps the first maximum of classes j, j + 32, ..., then xor
+// shuffles keep the one first in the argmax's order.
+__global__ void __launch_bounds__(kBwdThreads)
+trim_argmax_kernel(const float* __restrict__ p_code, int* __restrict__ tokens, long long n,
+                   int C) {
+  const long long f = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (f >= n) return;  // whole warps leave together
+  const float* p = p_code + f * C;
+  float best = 0.0f;
+  int bi = -1;
+#pragma unroll 4
+  for (int c = lane; c < C; c += 32) {
+    const float x = __ldg(p + c);
+    if (bi < 0 || beats(x, best)) {
+      best = x;
+      bi = c;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, best, o);
+    const int j = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (j >= 0 && (bi < 0 || !first_max(best, bi, y, j))) {
+      best = y;
+      bi = j;
+    }
+  }
+  if (lane == 0) tokens[f] = bi;
+}
+
 // A CTA of blockDim.x threads takes blockDim.x / lanes consecutive frames
 // of batch row blockIdx.y; V floats a load (4 or 1).
 template <int V>
@@ -386,26 +441,41 @@ __global__ void trim_merge_bwd_kernel(const float* __restrict__ d_out,
 // trimmed (B, T, D), lengths (B), slot (B, T), count (B, T); `tokens` null
 // to take the argmax of `p_code`, else `p_code` is not read. The plan
 // (`trim_merge_plan` in kernels/quantize.py): `threads`, the p_code ring's
-// `chunk` frames and `depth` slots (0 with tokens), `stage_latent`, and
-// `smem_bytes` as `trim_smem_bytes` gives them.
+// `chunk` frames and `depth` slots (0 with tokens, and for the argmax
+// pass), `stage_latent`, `smem_bytes` as `trim_smem_bytes` gives them;
+// `ints`: null, or B * 3 * round4(T) ints of scratch (the per-frame ints in
+// device memory); `argmax`: null, or B * T ints of scratch for the tokens
+// of `trim_argmax_kernel`, launched first (with depth 0, no tokens).
 extern "C" int trim_merge_f32(const float* p_code, const int* tokens, const float* latent,
-                              float* out, int* lengths, int* slot, float* count, int B, int T,
-                              int C, int D, int max_frames, int threads, int chunk, int depth,
-                              int stage_latent, int smem_bytes, void* stream) {
+                              float* out, int* lengths, int* slot, float* count, int* ints,
+                              int* argmax, int B, int T, int C, int D, int max_frames, int threads,
+                              int chunk, int depth, int stage_latent, int smem_bytes,
+                              void* stream) {
   if (B < 1 || T < 1 || C < 1 || D < 1 || max_frames < 0 || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 || depth < 0 || depth > 2 ||
-      (tokens == nullptr) != (depth > 0) || (depth > 0 && chunk < 1) ||
+      (tokens != nullptr && (depth > 0 || argmax != nullptr)) ||
+      (tokens == nullptr && (depth > 0) == (argmax != nullptr)) || (depth > 0 && chunk < 1) ||
       (depth == 1 && chunk < T) || (long long)T * (C > D ? C : D) > 0x3fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const long long smem = trim_smem_bytes(T, C, D, depth > 0 ? chunk : 0, depth, stage_latent);
+  if (argmax != nullptr) {  // the tokens first, over the whole card
+    const long long n = (long long)B * T;
+    trim_argmax_kernel<<<(unsigned)((n + kBwdThreads / 32 - 1) / (kBwdThreads / 32)), kBwdThreads, 0,
+                         (cudaStream_t)stream>>>(p_code, argmax, n, C);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    tokens = argmax;
+  }
+  const long long smem =
+      trim_smem_bytes(T, C, D, depth > 0 ? chunk : 0, depth, stage_latent, ints != nullptr);
   if (smem != smem_bytes || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const auto kernel = ints != nullptr ? trim_merge_kernel<true> : trim_merge_kernel<false>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        trim_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  trim_merge_kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
-      p_code, tokens, latent, out, lengths, slot, count, T, C, D, max_frames,
+  kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
+      p_code, tokens, latent, out, lengths, slot, count, ints, T, C, D, max_frames,
       depth > 0 ? chunk : 1, depth, stage_latent);
   return (int)cudaGetLastError();
 }

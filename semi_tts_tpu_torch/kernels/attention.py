@@ -5,8 +5,10 @@ one location-sensitive attention step, given the projected query; K9
 The wrappers launch `csrc/attention.cu` for CUDA tensors and run their plain
 PyTorch versions only for CPU tensors. `attention_plan` and
 `attention_bwd_plan` compute the launch plans (K3: one thread-block cluster
-per batch row; K9: a CTA per span of positions and batch row) and name the
-shapes the kernels take.
+per batch row where the row fits its shared memory, else a cluster per
+chunk of positions and a combine kernel, the split route; K9: a CTA per
+span of positions and batch row) and name the shapes the kernels take:
+any memory length L at widths whose smallest chunk fits.
 """
 
 from __future__ import annotations
@@ -39,28 +41,71 @@ def _smem_floats(L, Ac, Dc, C, F_, K, tile, stage_memory) -> int:
     return sum(_round4(n) for n in regions)
 
 
+# 8-CTA clusters an H100 SXM holds at once: the figure `rnn.max_clusters` reads
+# from the occupancy API for K1, kept a constant so that the plan stays a pure
+# function of the shapes (the CPU tests compute it)
+SPLIT_CLUSTERS = 15
+SPLIT_CHUNK = 192           # positions a split cluster takes at most (three location tiles)
+
+
+def _cta_smem(n, Ac, Dc, C, F_, K, stage) -> int:
+    """Bytes of shared memory a K3 CTA needs for n positions."""
+    return 4 * _smem_floats(n, Ac, Dc, C, F_, K, min(n, LOC_TILE) if F_ else 0, stage)
+
+
+def _most_positions(Ac, Dc, C, F_, K, stage) -> int:
+    """The most positions one cluster holds (0 if not one)."""
+    lo, hi = 0, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if _cta_smem(mid, Ac, Dc, C, F_, K, stage) <= build.SMEM_PER_BLOCK:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
 @functools.lru_cache(maxsize=64)
 def attention_plan(B: int, L: int, A: int, D: int, C: int, F_: int, K: int) -> dict:
-    """K3's launch plan: B clusters of CLUSTER CTAs, CTA r owning A/CLUSTER
-    attention columns and D/CLUSTER context columns. ``memory`` is staged in
-    shared memory when it fits and read from L2 otherwise. F_ = 0 is the
-    location-free attention. Raises ValueError when A or D is not divisible
-    by CLUSTER or the shared memory needed exceeds what a block may use.
-    Cached: the wrapper asks for it on every call; do not mutate it."""
+    """K3's launch plan: CTA r of a cluster of CLUSTER CTAs owns A/CLUSTER
+    attention columns and D/CLUSTER context columns. Where one CTA's shared
+    memory holds the row's L positions, B clusters, one a row (``chunks``
+    0); else the split route: ``chunks`` clusters a row, each over
+    ``chunk`` positions, and a combine kernel (``scratch_floats`` of
+    partials). A split chunk takes at most SPLIT_CHUNK positions and what
+    one cluster holds, and a row at least SPLIT_CLUSTERS // B chunks of at
+    least LOC_TILE positions, so that a short batch still fills the card: a
+    CTA's work grows with its chunk (the location conv of every position).
+    The cap is not tuned for every shape: chunks of at most 192 positions
+    took a third of the time of chunks of 750 at B=16 L=1,500 on an H100,
+    yet the split route is still slower than the plain version there and
+    at B=1 L=8,000, where fewer, longer chunks may be faster (PERF.md §6,
+    §7). ``memory`` is staged in shared memory when it fits and read from
+    L2 otherwise. F_ = 0 is the location-free attention. Raises ValueError when A or D is not divisible by CLUSTER, L
+    < 1, or not one position fits a block's shared memory. Cached: the
+    wrapper asks for it on every call; do not mutate it."""
     if A % CLUSTER or D % CLUSTER:
         raise ValueError(f"attention_step kernel needs A and D divisible by {CLUSTER}, "
                          f"got A={A}, D={D}")
     if L < 1:
         raise ValueError(f"attention_step kernel needs L >= 1, got L={L}")
     Ac, Dc = A // CLUSTER, D // CLUSTER
-    tile = min(L, LOC_TILE) if F_ else 0
-    stage = 4 * _smem_floats(L, Ac, Dc, C, F_, K, tile, True) <= build.SMEM_PER_BLOCK
-    smem = 4 * _smem_floats(L, Ac, Dc, C, F_, K, tile, stage)
-    if smem > build.SMEM_PER_BLOCK:
-        raise ValueError(f"attention_step kernel: L={L} needs {smem} bytes of shared memory "
-                         f"at A={A}, D={D}, F={F_}; a block may use {build.SMEM_PER_BLOCK}")
-    return dict(cluster=CLUSTER, grid=(CLUSTER * B,), threads=THREADS, smem_bytes=smem,
-                a_per_cta=Ac, d_per_cta=Dc, loc_tile=tile, stage_memory=stage)
+    chunk, chunks = L, 0
+    if _cta_smem(L, Ac, Dc, C, F_, K, False) > build.SMEM_PER_BLOCK:
+        most = _most_positions(Ac, Dc, C, F_, K, False)
+        if most < 1:
+            raise ValueError(f"attention_step kernel: one position needs "
+                             f"{_cta_smem(1, Ac, Dc, C, F_, K, False)} bytes of shared memory "
+                             f"at A={A}, D={D}, F={F_}; a block may use {build.SMEM_PER_BLOCK}")
+        chunks = max(-(-L // min(most, SPLIT_CHUNK)), min(SPLIT_CLUSTERS // B, -(-L // LOC_TILE)))
+        chunk = -(-L // chunks)
+        chunks = -(-L // chunk)
+    tile = min(chunk, LOC_TILE) if F_ else 0
+    stage = _cta_smem(chunk, Ac, Dc, C, F_, K, True) <= build.SMEM_PER_BLOCK
+    return dict(cluster=CLUSTER, grid=(CLUSTER * chunks, B) if chunks else (CLUSTER * B,),
+                threads=THREADS, smem_bytes=_cta_smem(chunk, Ac, Dc, C, F_, K, stage),
+                a_per_cta=Ac, d_per_cta=Dc, loc_tile=tile, stage_memory=stage, chunk=chunk,
+                chunks=chunks, scratch_floats=B * chunks * (2 + D))
 
 
 def attention_step_plain(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, mask=None):
@@ -95,7 +140,8 @@ def _step_flops(pq, processed_memory, memory, attn_hist, loc_w, *_, **__):
 @counted(_step_flops)
 def attention_step(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, mask=None):
     """Counterpart of `semi_tts_tpu.models.attention.attention_step` after its
-    query projection; one launch per call on the card."""
+    query projection; one launch per call on the card (on the split route,
+    the chunks' kernel and the combine kernel)."""
     if not pq.is_cuda:
         return attention_step_plain(pq, processed_memory, memory, attn_hist,
                                     loc_w, loc_lin, v, mask)
@@ -128,12 +174,15 @@ def attention_step(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, m
     vec = (plan["a_per_cta"] % 4 == 0 and plan["d_per_cta"] % 4 == 0
            and processed_memory.data_ptr() % 16 == 0 and memory.data_ptr() % 16 == 0
            and (loc_lin is None or loc_lin.data_ptr() % 16 == 0))
-    fn = build.bind("attention", "attention_step_f32", 10, 10)
+    scratch = (torch.empty((plan["scratch_floats"],), device=pq.device, dtype=torch.float32)
+               if plan["chunks"] else None)
+    fn = build.bind("attention", "attention_step_f32", 11, 12)
     build.check(fn(pq.data_ptr(), processed_memory.data_ptr(), memory.data_ptr(),
                    attn_hist.data_ptr(), loc_ptr, lin_ptr, v.data_ptr(), mask_ptr,
                    context.data_ptr(), weights.data_ptr(),
+                   None if scratch is None else scratch.data_ptr(),
                    B, L, A, D, C, n_filt, K, plan["loc_tile"], int(plan["stage_memory"]),
-                   int(vec), build.stream()), "attention_step")
+                   int(vec), plan["chunk"], plan["chunks"], build.stream()), "attention_step")
     attention_step.launches += 1
     return context, weights
 
@@ -169,10 +218,14 @@ def attention_bwd_plan(B: int, L: int, A: int, D: int, C: int, F_: int, K: int) 
     a tie, among those whose shared memory fits; where none does, span 4
     with loc_lin read from L2 (``stage_lin`` False). ``part_floats``: the
     buffer of per-(row, span) partials the wrapper allocates for the second
-    kernel, which sums them. K9 takes the shapes K3 takes
-    (`attention_plan`; L up to 1,187 at flagship widths) and raises
-    ValueError where it does."""
-    attention_plan(B, L, A, D, C, F_, K)
+    kernel, which sums them. Its shared memory does not grow with L, so it
+    takes any L >= 1; raises ValueError where A or D is not divisible by
+    CLUSTER (K3's constraint, whose outputs it takes) or L < 1."""
+    if A % CLUSTER or D % CLUSTER:
+        raise ValueError(f"attention_step_bwd kernel needs A and D divisible by {CLUSTER}, "
+                         f"got A={A}, D={D}")
+    if L < 1:
+        raise ValueError(f"attention_step_bwd kernel needs L >= 1, got L={L}")
     cost = lambda P: (-(-B * -(-L // P) // SMS) * (P + SPAN_COST), P)
     choices = [(P, True) for P in sorted(SPANS, key=cost)] if F_ else []
     for P, stage_lin in choices + [(SPANS[0], False)]:

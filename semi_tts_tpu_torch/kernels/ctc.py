@@ -28,7 +28,12 @@ gradient: a warp a block of 32 of the valid states sorted by (class, s), a
 lane a state, sums each segment of at most `SEG` states of one class by
 shuffles in a fixed order at each of the chunk's steps; then a thread a
 class and a step adds its segments' sums in order of s (no scratch in
-device memory, no second launch, no atomics).
+device memory, no second launch, no atomics). K states a lane, K in
+`STATES_PER_LANE`, take up to 4,096 states; past that, the device-memory
+route (``lattice`` "device" in `ctc_plan`): a CTA of `LONG_THREADS` threads
+a row, each step read back from device memory (the forward's alphas, the
+backward's betas in a scratch), then the gradient summed by class over the
+states sorted by (class, s), a CTA a (step, row). Any S >= 1.
 """
 
 from __future__ import annotations
@@ -39,10 +44,12 @@ from ..utils.flops import counted, no_dots
 from . import build
 
 NEG_INF = -1e30
-MAX_STATES = 1024     # S = 2U + 1 states a row
-STATES_PER_LANE = (1, 2)  # the kernels' instantiations
+STATES_PER_LANE = (1, 2, 4, 8)  # the kernels' instantiations
 MAX_CHAIN_WARPS = 16  # warps that carry a row's chain
-CHUNK = 8             # steps a register chunk holds; backward CHUNK // K (csrc/ctc.cu kChunk)
+MAX_STATES = 32 * STATES_PER_LANE[-1] * MAX_CHAIN_WARPS  # 4,096: the shared-memory lattice's
+LONG_THREADS = 1024   # the device-memory route's CTA (csrc/ctc.cu kLongThreads)
+CHUNK = 8             # values a register chunk holds a state: min(CHUNK, 16 // K) steps
+                      # forward, CHUNK // K backward (csrc/ctc.cu kChunk)
 DEPTH = 4             # occupancy ring slots, chunks (csrc/ctc.cu kDepth)
 SEG = 8               # sorted states a class-sum segment adds at most (csrc/ctc.cu kSeg)
 CONSUMER_WARPS = 8    # ctc_beta_grad's class-sum warps beside the chain's
@@ -61,27 +68,38 @@ def _alpha_smem(K: int, W: int) -> int:
 def _beta_smem(K: int, W: int) -> int:
     """ctc_beta_grad's shared bytes: the occupancy ring slots' mbarriers and
     the count of class runs, the lattice, the occupancy ring, the class
-    sums' four lists and a chunk's segment sums (first the sort's keys)."""
-    return 16 * DEPTH + 16 + 4 * (_lattice_floats(K, W) + 32 * W * (DEPTH + 1) * CHUNK
+    sums' four lists and a chunk's segment sums (first the sort's keys, 8
+    bytes each, 32 K W rounded up to a power of two: more than the sums at
+    K = 4 and 8)."""
+    part = max(32 * W * CHUNK, 2 * (1 << (32 * K * W - 1).bit_length()))
+    return 16 * DEPTH + 16 + 4 * (_lattice_floats(K, W) + 32 * W * DEPTH * CHUNK + part
                                   + 4 * 32 * K * W)
 
 
 def ctc_plan(B: int, T: int, S: int) -> dict:
-    """K6's launch plan for B rows of T steps and S lattice states: a CTA a
-    row, whose ``chain_warps`` warps carry the chain with
-    ``states_per_lane`` states a lane (one up to 512 states, two past that)
-    and, in ctc_beta_grad, `CONSUMER_WARPS` more sum the gradient from a
-    ring of `DEPTH` chunks. A register chunk holds ``chunk`` = `CHUNK`
+    """K6's launch plan for B rows of T steps and S lattice states. Up to
+    `MAX_STATES` (``lattice`` "shared"): a CTA a row, whose ``chain_warps``
+    warps carry the chain with ``states_per_lane`` states a lane (the
+    fewest of `STATES_PER_LANE` that hold S in `MAX_CHAIN_WARPS` warps: one
+    up to 512 states, two to 1,024, four to 2,048, eight to 4,096) and, in
+    ctc_beta_grad, `CONSUMER_WARPS` more sum the gradient from a ring of
+    `DEPTH` chunks. A register chunk holds ``chunk`` = min(`CHUNK`, 16 // K)
     steps, backward ``beta_chunk`` = `CHUNK` // K (a ring chunk too).
-    Nothing depends on T or C.
-    Raises ValueError past `MAX_STATES` states."""
-    if not 1 <= S <= MAX_STATES:
-        raise ValueError(f"ctc kernels: {S} lattice states, they take 1 to {MAX_STATES}")
-    K = 1 if S <= 32 * MAX_CHAIN_WARPS else 2
+    Nothing depends on T or C. Past it (``lattice`` "device"): a CTA of
+    `LONG_THREADS` threads a row, its lattice in device memory, and a
+    gradient kernel of (T, B) CTAs. Raises ValueError only for S < 1."""
+    if S < 1:
+        raise ValueError(f"ctc kernels: {S} lattice states, they take S >= 1")
+    if S > MAX_STATES:
+        return dict(lattice="device", grid=(B,), alpha_threads=LONG_THREADS,
+                    beta_threads=LONG_THREADS, grad_grid=(T, B), alpha_smem_bytes=0,
+                    beta_smem_bytes=0)
+    K = next(k for k in STATES_PER_LANE if S <= 32 * k * MAX_CHAIN_WARPS)
     W = -(-S // (32 * K))
-    return dict(states_per_lane=K, chain_warps=W, chunk=CHUNK, beta_chunk=CHUNK // K, grid=(B,),
-                alpha_threads=32 * W, beta_threads=32 * (W + CONSUMER_WARPS),
-                alpha_smem_bytes=_alpha_smem(K, W), beta_smem_bytes=_beta_smem(K, W))
+    return dict(lattice="shared", states_per_lane=K, chain_warps=W, chunk=min(CHUNK, 16 // K),
+                beta_chunk=CHUNK // K, grid=(B,), alpha_threads=32 * W,
+                beta_threads=32 * (W + CONSUMER_WARPS), alpha_smem_bytes=_alpha_smem(K, W),
+                beta_smem_bytes=_beta_smem(K, W))
 
 
 def _logaddexp3(a, b, c):
@@ -191,11 +209,15 @@ def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank: int = 0)
     alphas = torch.empty((T, B, S), device=log_probs.device, dtype=torch.float32)
     nll = torch.empty((B,), device=log_probs.device, dtype=torch.float32)
     if B and T:
-        fn = build.bind("ctc", "ctc_alpha_f32", 6, 7)
-        build.check(fn(log_probs.data_ptr(), targets.data_ptr(), input_lengths.data_ptr(),
-                       target_lengths.data_ptr(), alphas.data_ptr(), nll.data_ptr(),
-                       B, T, C, targets.shape[1], blank, plan["states_per_lane"],
-                       plan["chain_warps"], build.stream()), "ctc_alpha")
+        ptrs = (log_probs.data_ptr(), targets.data_ptr(), input_lengths.data_ptr(),
+                target_lengths.data_ptr(), alphas.data_ptr(), nll.data_ptr(),
+                B, T, C, targets.shape[1], blank)
+        if plan["lattice"] == "device":
+            err = build.bind("ctc", "ctc_alpha_long_f32", 6, 5)(*ptrs, build.stream())
+        else:
+            err = build.bind("ctc", "ctc_alpha_f32", 6, 7)(
+                *ptrs, plan["states_per_lane"], plan["chain_warps"], build.stream())
+        build.check(err, "ctc_alpha")
         ctc_alpha.launches += 1
     return alphas, nll
 
@@ -222,12 +244,21 @@ def ctc_beta_grad(log_probs, targets, input_lengths, target_lengths, alphas, nll
     build.require(g, (B,), "ctc_beta_grad g")
     grad = torch.empty((B, T, C), device=log_probs.device, dtype=torch.float32)
     if B and T:
-        fn = build.bind("ctc", "ctc_beta_grad_f32", 8, 7)
-        build.check(fn(log_probs.data_ptr(), targets.data_ptr(), input_lengths.data_ptr(),
-                       target_lengths.data_ptr(), alphas.data_ptr(), nll.data_ptr(),
-                       g.data_ptr(), grad.data_ptr(), B, T, C, targets.shape[1], blank,
-                       plan["states_per_lane"], plan["chain_warps"], build.stream()),
-                    "ctc_beta_grad")
+        ptrs = (log_probs.data_ptr(), targets.data_ptr(), input_lengths.data_ptr(),
+                target_lengths.data_ptr(), alphas.data_ptr(), nll.data_ptr(), g.data_ptr(),
+                grad.data_ptr())
+        ints = (B, T, C, targets.shape[1], blank)
+        if plan["lattice"] == "device":
+            # scratch: the betas (T, B, S); the sorted states, class run
+            # starts and the sort's running ends (B, S + 2C + 1)
+            betas = torch.empty((T, B, S), device=log_probs.device, dtype=torch.float32)
+            sort = torch.empty((B * (S + 2 * C + 1),), device=log_probs.device, dtype=torch.int32)
+            err = build.bind("ctc", "ctc_beta_grad_long_f32", 10, 5)(
+                *ptrs, betas.data_ptr(), sort.data_ptr(), *ints, build.stream())
+        else:
+            err = build.bind("ctc", "ctc_beta_grad_f32", 8, 7)(
+                *ptrs, *ints, plan["states_per_lane"], plan["chain_warps"], build.stream())
+        build.check(err, "ctc_beta_grad")
         ctc_beta_grad.launches += 1
     return grad
 

@@ -2,7 +2,10 @@
 speech cycle's segment trim/merge (`semi_tts_tpu/ops/quantize.py`
 `trim_merge_segments`) and its backward, one CTA per batch row
 (`trim_merge_plan`: the row's p_code and latent bulk-copied into shared
-memory at entry, warp-ballot scans carried across warps and chunks).
+memory at entry, warp-ballot scans carried across warps and chunks; on
+rows too long for shared memory the per-frame ints in a device-memory
+scratch and, where not one frame of p_code fits, the argmax taken first
+by a kernel over the whole card: any T and C).
 
 `trim_merge` takes each frame's argmax token (or the ``tokens`` given),
 cuts the frames into segments where the token changes or a run grows past
@@ -23,7 +26,6 @@ import torch
 from ..utils.flops import counted, no_dots
 from . import build
 
-MAX_FRAMES = 14_528     # T a CTA takes (README's launch-plan limit)
 TRIM_THREADS = 1024
 _HEADER = 512           # bytes: 3 mbarriers, two warp arrays of 32 ints
 
@@ -32,40 +34,47 @@ def _round4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def _trim_smem(T: int, C: int, D: int, chunk: int, depth: int, stage_latent: bool) -> int:
-    return _HEADER + 4 * (3 * _round4(T) + depth * _round4(chunk * C + 8)
+def _trim_smem(T: int, C: int, D: int, chunk: int, depth: int, stage_latent: bool,
+               ints_global: bool = False) -> int:
+    return _HEADER + 4 * ((0 if ints_global else 3 * _round4(T)) + depth * _round4(chunk * C + 8)
                           + (_round4(T * D + 8) if stage_latent else 0))
 
 
 def trim_merge_plan(T: int, C: int, D: int, *, tokens: bool = False) -> dict:
     """`trim_merge`'s launch plan for rows of T frames, C classes and D
-    latent channels: ``threads`` a CTA (one CTA a row); the row's p_code in
-    shared memory as one slot of T frames (``depth`` 1) where it fits, else
-    a ring of two slots of ``chunk`` frames (``depth`` 2; ``depth`` 0 when
-    the tokens are given); ``stage_latent``: the row's latent in shared
-    memory too where it fits beside them, else read from L2; and
-    ``smem_bytes``: the header, tokens, slot starts and slot frame counts
-    (T ints each), the ring and the latent. The C dispatch recomputes it.
-    Raises ValueError past `MAX_FRAMES` frames, or where not one frame of
-    p_code fits."""
-    if not 1 <= T <= MAX_FRAMES:
-        raise ValueError(f"trim_merge kernel: T={T} frames, it takes 1 to {MAX_FRAMES}")
+    latent channels: ``threads`` a CTA (one CTA a row); ``ints_global``:
+    the tokens, slot starts and slot frame counts (T ints each) in a
+    device-memory scratch of ``scratch_ints`` a row where they do not fit
+    in shared memory; the row's p_code in shared memory as one slot of T
+    frames (``depth`` 1) where it fits, else a ring of two slots of
+    ``chunk`` frames (``depth`` 2), else, where not one frame fits,
+    ``argmax_pass``: a first kernel takes the tokens, a warp a frame over
+    the whole card, and the row's kernel reads them as given tokens
+    (``depth`` 0, as when the tokens are given); ``stage_latent``: the
+    row's latent in shared memory too where it fits beside them, else read
+    from L2; and ``smem_bytes``: the header, the ints, the ring and the
+    latent. The C dispatch recomputes it. Raises ValueError only for T <
+    1."""
+    if T < 1:
+        raise ValueError(f"trim_merge kernel: T={T} frames, it takes T >= 1")
     limit = build.SMEM_PER_BLOCK
+    ints_global = _trim_smem(T, C, D, 0, 0, False) > limit
+    smem = lambda chunk, depth, stage=False: _trim_smem(T, C, D, chunk, depth, stage, ints_global)
+    chunk, depth = 0, 0
     if tokens:
-        chunk, depth = 0, 0
-    elif _trim_smem(T, C, D, T, 1, False) <= limit:
+        pass
+    elif smem(T, 1) <= limit:
         chunk, depth = T, 1
     else:
-        free = limit - _trim_smem(T, C, D, 0, 0, False)
-        chunk, depth = (free // 8 - 8) // C, 2
-        while chunk > 0 and _trim_smem(T, C, D, chunk, 2, False) > limit:
+        chunk = ((limit - smem(0, 0)) // 8 - 8) // C
+        while chunk > 0 and smem(chunk, 2) > limit:
             chunk -= 1
-        if chunk < 1:
-            raise ValueError(f"trim_merge kernel: T={T} frames of C={C} classes: not one frame "
-                             f"of p_code fits in shared memory")
-    stage = _trim_smem(T, C, D, chunk, depth, True) <= limit
+        depth = 2 if chunk > 0 else 0
+        chunk = max(chunk, 0)
+    stage = smem(chunk, depth, True) <= limit
     return dict(threads=TRIM_THREADS, chunk=chunk, depth=depth, stage_latent=stage,
-                smem_bytes=_trim_smem(T, C, D, chunk, depth, stage))
+                ints_global=ints_global, scratch_ints=3 * _round4(T) if ints_global else 0,
+                argmax_pass=not tokens and depth == 0, smem_bytes=smem(chunk, depth, stage))
 
 
 BWD_THREADS = 256
@@ -145,11 +154,17 @@ def trim_merge(p_code, latent, max_frames_per_phn: int, tokens=None):
     slot = torch.empty((B, T), device=dev, dtype=torch.int32)
     count = torch.empty((B, T), device=dev, dtype=torch.float32)
     if B:
-        fn = build.bind("quantize", "trim_merge_f32", 7, 10)
+        # scratch: the per-frame ints in device memory; the argmax pass's tokens
+        ints, toks = (torch.empty((n,), device=dev, dtype=torch.int32) if on else None
+                      for n, on in ((B * plan["scratch_ints"], plan["ints_global"]),
+                                    (B * T, plan["argmax_pass"])))
+        ptr = lambda t: None if t is None else t.data_ptr()
+        fn = build.bind("quantize", "trim_merge_f32", 9, 10)
         build.check(fn(p_ptr, tok_ptr, latent.data_ptr(), out.data_ptr(), lengths.data_ptr(),
-                       slot.data_ptr(), count.data_ptr(), B, T, C, D, max_frames_per_phn,
-                       plan["threads"], plan["chunk"], plan["depth"], int(plan["stage_latent"]),
-                       plan["smem_bytes"], build.stream()), "trim_merge")
+                       slot.data_ptr(), count.data_ptr(), ptr(ints), ptr(toks), B, T, C, D,
+                       max_frames_per_phn, plan["threads"], plan["chunk"], plan["depth"],
+                       int(plan["stage_latent"]), plan["smem_bytes"], build.stream()),
+                    "trim_merge")
         trim_merge.launches += 1
     return out, lengths, slot, count
 

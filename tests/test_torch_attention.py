@@ -115,12 +115,58 @@ def test_attention_plan_fits_up_to_1024_positions(L):
     assert plan["stage_memory"] == (L <= 299)
 
 
-@pytest.mark.parametrize("change", [dict(A=260), dict(D=516), dict(A=4), dict(L=4096), dict(L=0)])
+@pytest.mark.parametrize("change", [dict(A=260), dict(D=516), dict(A=4), dict(A=16_000),
+                                    dict(L=0), dict(L=4096)])
 def test_attention_plan_raises_outside_its_shapes(change):
+    """A and D not divisible by the cluster, L < 1 and widths where not one
+    position fits a CTA's shared memory (A=16,000: 2,000 attention columns a
+    CTA) raise; a long memory (L=4,096) does not: it takes the split route."""
     from semi_tts_tpu_torch.kernels import attention as k3
 
+    if change.get("L") == 4096:
+        plan = k3.attention_plan(**{**FLAGSHIP, **change})
+        assert plan["chunks"] == 22 and plan["chunk"] == 187 and plan["grid"] == (176, 16)
+        return
     with pytest.raises(ValueError):
         k3.attention_plan(**{**FLAGSHIP, **change})
+
+
+# (B, L, widths) of the split route: past the 1,187 positions one cluster
+# holds at flagship widths; the 30 s speech-first step's memory (B=2); a
+# ragged serving batch; location-free; loc_lin of A=1024, F=64
+SPLIT = [(1, 1188, {}), (1, 1501, {}), (2, 1400, {}), (16, 1500, {}), (1, 8000, {}),
+         (1, 2000, dict(F_=0, K=1)), (1, 1500, dict(A=1024, F_=64)), (3, 100_000, {})]
+
+
+@pytest.mark.parametrize("B,L,widths", SPLIT)
+def test_attention_plan_splits_past_one_cluster(B, L, widths):
+    """Past the single-cluster fit, the plan splits a row into chunks of at
+    most SPLIT_CHUNK positions and what one cluster holds, at least
+    SPLIT_CLUSTERS // B of them (of at least LOC_TILE positions) so that
+    B=1 fills the card; every chunk's
+    shared memory fits; the wrapper's scratch holds the chunks' statistics
+    and contexts; the plan one cluster a row takes is unchanged below. K9
+    plans the same lengths within a block's shared memory."""
+    from semi_tts_tpu_torch.kernels import attention as k3, build
+
+    shape = {**FLAGSHIP, **widths, "B": B, "L": L}
+    plan = k3.attention_plan(**shape)
+    chunk, chunks = plan["chunk"], plan["chunks"]
+    assert chunks >= 2 and chunk * (chunks - 1) < L <= chunk * chunks
+    assert plan["grid"] == (8 * chunks, B) and plan["smem_bytes"] <= build.SMEM_PER_BLOCK
+    assert plan["threads"] <= 1024
+    bwd = k3.attention_bwd_plan(**shape)   # K9 at the same length
+    assert bwd["smem_bytes"] <= build.SMEM_PER_BLOCK and bwd["threads"] <= 1024
+    assert chunks >= min(k3.SPLIT_CLUSTERS // B, -(-L // k3.LOC_TILE))
+    assert plan["scratch_floats"] == B * chunks * (2 + shape["D"])
+    assert plan["loc_tile"] == (min(chunk, k3.LOC_TILE) if shape["F_"] else 0)
+    Ac, Dc = shape["A"] // 8, shape["D"] // 8
+    most = k3._most_positions(Ac, Dc, shape["C"], shape["F_"], shape["K"], False)
+    assert chunk <= min(most, k3.SPLIT_CHUNK)
+    assert chunks == max(-(-L // min(most, k3.SPLIT_CHUNK)),
+                         min(k3.SPLIT_CLUSTERS // B, -(-L // k3.LOC_TILE)))
+    one = k3.attention_plan(**{**shape, "L": most})
+    assert one["chunks"] == 0 and one["grid"] == (8 * B,) and one["chunk"] == most
 
 
 def test_attention_plan_location_free():
@@ -223,10 +269,11 @@ def test_attention_bwd_plan_flagship():
         assert plan["part_floats"] == B_ * spans * (1984 + 32 * 256 + 256 + 256 + window)
     free = k3.attention_bwd_plan(**{**shapes, "F_": 0, "K": 1})
     assert not free["stage_lin"] and free["span"] == 4 and free["part_floats"] == 8 * 8 * 512
-    first_refused = dict(L=1188)
-    with pytest.raises(ValueError):
-        k3.attention_plan(**{**shapes, **first_refused})
-    for change in (dict(A=260), dict(D=516), dict(L=0), first_refused):
+    # past the single cluster K3 splits, and K9 takes the same lengths
+    first_split = dict(L=1188)
+    assert k3.attention_plan(**{**shapes, **first_split})["chunks"] == 7
+    assert k3.attention_bwd_plan(**{**shapes, **first_split})["span"] == 28
+    for change in (dict(A=260), dict(D=516), dict(L=0)):
         with pytest.raises(ValueError):
             k3.attention_bwd_plan(**{**shapes, **change})
 
@@ -248,17 +295,19 @@ def _longest(plan, widths):
                                          (32, 64, 2, 64, 31), (1024, 512, 1, 0, 1),
                                          (4096, 8, 2, 64, 31), (2048, 4096, 2, 8, 7)])
 def test_attention_bwd_plan_takes_every_length_k3_takes(A, D, C, F_, K):
-    """K9 takes every memory length K3 takes and no other, at the flagship's
-    widths, the tests' and others down to one attention column a CTA: its
-    shared memory does not grow with L (a span of positions, the row's
-    weights read from L2), and where loc_lin does not fit it is read from
-    L2 too."""
+    """K9 takes every memory length K3 takes, at the flagship's widths, the
+    tests' and others down to one attention column a CTA: both take every
+    L up to the search's top (2^15; K3 splitting a row into chunks past one
+    cluster), with shared memory that fits a block at the top; K9's does
+    not grow with L (a span of positions, the row's weights read from L2),
+    and where loc_lin does not fit it is read from L2 too."""
     from semi_tts_tpu_torch.kernels import attention as k3
 
     widths = (A, D, C, F_, K)
     k3_max = _longest(k3.attention_plan, widths)
-    assert k3_max > 0 and _longest(k3.attention_bwd_plan, widths) == k3_max
+    assert k3_max == 1 << 15 and _longest(k3.attention_bwd_plan, widths) == k3_max
     assert k3.attention_bwd_plan(1, k3_max, *widths)["smem_bytes"] <= k3.build.SMEM_PER_BLOCK
+    assert k3.attention_plan(1, k3_max, *widths)["smem_bytes"] <= k3.build.SMEM_PER_BLOCK
 
 
 def _k9_replay(pq, pm, memory, hist, loc_w, loc_lin, v, weights, context, d_context, d_weights,
@@ -308,11 +357,17 @@ def _k9_replay(pq, pm, memory, hist, loc_w, loc_lin, v, weights, context, d_cont
     return d_pq, d_pm[:, :L], d_memory, d_hist, sums["lw"], sums["ll"], sums["v"]
 
 
-@pytest.mark.parametrize("span", [None, 20])  # None: the plan's (4 at these shapes)
-@pytest.mark.parametrize("L,masked", [(1, False), (5, False), (45, True), (133, False)])
+# (L, masked, span): span None is the plan's (4 at these shapes); L=1,300 is
+# past what one K3 cluster holds at flagship widths
+K9_REPLAYS = ([(L, m, span) for span in (None, 20)
+               for L, m in ((1, False), (5, False), (45, True), (133, False))]
+              + [(1300, True, 20), (1300, True, 32)])
+
+
+@pytest.mark.parametrize("L,masked,span", K9_REPLAYS)
 def test_attention_bwd_decomposition_matches_plain_and_jax_grad(L, masked, span, monkeypatch):
     """The per-span decomposition K9 computes (`_k9_replay`, at the plan's
-    span and at 20) against `attention_step_bwd_plain` and, through
+    span and at 20; at L=1,300 at 20 and 32) against `attention_step_bwd_plain` and, through
     `_AttentionStep` in place of the wrapper, against ``jax.grad`` of the JAX
     `attention_step`: every input and weight gradient within ATOL (fp32 on
     all sides; s = sum w d_weights + context . d_context differs from
@@ -357,6 +412,87 @@ def test_attention_bwd_decomposition_matches_plain_and_jax_grad(L, masked, span,
     for g, n in zip(got[4:], names):
         np.testing.assert_allclose(g.numpy(), np.asarray(want[0][n]["w"]), rtol=0, atol=ATOL,
                                    err_msg=n)
+
+
+def _k3_split_replay(pq, pm, memory, hist, loc_w, loc_lin, v, mask, chunk):
+    """K3's split route in torch, as csrc/attention.cu computes it: each
+    chunk of ``chunk`` positions its energies from its own positions (the
+    location conv over its history window, (K-1)/2 halo on either side,
+    zero past the row), its maximum m_c, s_c = sum exp(e - m_c) and its
+    unnormalised context (all 0 where every position is masked), then the
+    combine in chunk order. Returns (context, weights, stats (B, chunks, 2))."""
+    B, L, _ = pm.shape
+    stats, ctxs, energies = [], [], []
+    pad = (loc_w.shape[2] - 1) // 2 if loc_w is not None else 0
+    for l0 in range(0, L, chunk):
+        n = min(chunk, L - l0)
+        energy_in = pq[:, None, :]
+        if loc_w is not None:
+            x0, x1 = l0 - pad, l0 + n + pad
+            win = torch.nn.functional.pad(hist[:, :, max(x0, 0):min(x1, L)],
+                                          (max(-x0, 0), max(x1 - L, 0)))
+            loc = torch.nn.functional.conv1d(win, loc_w)                 # (B, F, n)
+            energy_in = energy_in + loc.transpose(1, 2) @ loc_lin.T
+        e = torch.tanh(energy_in + pm[:, l0:l0 + n]) @ v
+        if mask is not None:
+            e = e.masked_fill(mask[:, l0:l0 + n], float("-inf"))
+        m = e.max(1).values
+        dead = m == float("-inf")
+        p = torch.where(dead[:, None], 0.0, torch.exp(e - m[:, None]))
+        stats.append(torch.stack([m, p.sum(1)], 1))
+        ctxs.append(torch.einsum("bl,bld->bd", p, memory[:, l0:l0 + n]))
+        energies.append(e)
+    stats = torch.stack(stats, 1)
+    m = stats[:, :, 0].max(1).values
+    scale = torch.exp(stats[:, :, 0] - m[:, None])    # 0 for a masked chunk; NaN: a masked row
+    s = (stats[:, :, 1] * scale).sum(1)
+    weights = torch.exp(torch.cat(energies, 1) - m[:, None]) / s[:, None]
+    context = (scale[:, :, None] * torch.stack(ctxs, 1)).sum(1) / s[:, None]
+    return context, weights, stats
+
+
+@pytest.mark.parametrize("chunk", [186, 101])  # the plan's at B=3 L=1,300; ragged
+@pytest.mark.parametrize("loc_aware", [True, False])
+def test_attention_split_replay_matches_plain_and_jax(loc_aware, chunk):
+    """The split route's chunk partials and combine (`_k3_split_replay`) at
+    L=1,300 against K3's plain version and the JAX `attention_step`: rows
+    of length 1,300, 700 (the chunks past it wholly masked: they add 0) and
+    1 (one position left in the first chunk), and a row masked everywhere,
+    which gives NaN as the plain version does (JAX is held on the others);
+    with and without location features."""
+    from semi_tts_tpu_torch.kernels import attention as k3
+
+    L = 1300
+    params, attn, query, memory, hist, _ = _setup(loc_aware=loc_aware, seed=6, L=L, D=16, A=16)
+    rng = np.random.RandomState(10)
+    query, memory = (np.concatenate([a, rng.randn(1, *a.shape[1:]).astype(np.float32)])
+                     for a in (query, memory))
+    hist = np.concatenate([hist, np.abs(rng.rand(1, *hist.shape[1:])).astype(np.float32)])
+    mask = np.arange(L)[None, :] >= np.array([L, 700, 1, 0])[:, None]
+    assert k3.attention_plan(3, L, **{k: FLAGSHIP[k] for k in ("A", "D", "C", "F_", "K")}) \
+        ["chunk"] == 186
+    with torch.no_grad():
+        mem_t = torch.from_numpy(memory)
+        pm = P.process_memory(attn, mem_t)
+        pq = torch.from_numpy(query) @ attn.query_layer.w.T
+        args = (pq, pm, mem_t, torch.from_numpy(hist),
+                attn.loc_conv.w if loc_aware else None, attn.loc_linear.w if loc_aware else None,
+                attn.v.w.reshape(-1), torch.from_numpy(mask))
+        ctx, w, stats = _k3_split_replay(*args, chunk)
+        want_ctx, want_w = k3.attention_step_plain(*args)
+    n_chunks = -(-L // chunk)
+    assert stats.shape == (4, n_chunks, 2)
+    assert torch.isinf(stats[1, 700 // chunk + 1:, 0]).all() and (stats[1, 700 // chunk + 1:, 1] == 0).all()
+    assert torch.isnan(ctx[3]).all() and torch.isnan(w[3]).all()
+    assert torch.isnan(want_ctx[3]).all() and torch.isnan(want_w[3]).all()
+    np.testing.assert_allclose(w[:3].numpy(), want_w[:3].numpy(), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(ctx[:3].numpy(), want_ctx[:3].numpy(), rtol=0, atol=ATOL)
+    assert np.all(w[:3].numpy()[mask[:3]] == 0.0)
+    ctx_j, w_j = J.attention_step(params, jnp.asarray(query[:3]), jnp.asarray(memory[:3]),
+                                  jnp.asarray(pm[:3].numpy()), jnp.asarray(hist[:3]),
+                                  mask=jnp.asarray(mask[:3]))
+    np.testing.assert_allclose(w[:3].numpy(), np.asarray(w_j), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(ctx[:3].numpy(), np.asarray(ctx_j), rtol=0, atol=ATOL)
 
 
 def test_attention_step_saves_k3_context_not_a_copy():

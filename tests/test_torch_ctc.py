@@ -6,6 +6,8 @@ repeated labels and an impossible alignment."""
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -161,8 +163,37 @@ def test_ctc_plan_fits_every_state_count(lo):
 
 
 def test_ctc_plan_raises_past_its_states():
+    """Past 1,024 states the plan takes four states a lane, past 2,048
+    eight, and past 4,096 (`MAX_STATES`) the device-memory lattice; it
+    raises only for S < 1."""
+    assert K6.ctc_plan(8, 133, 1025)["states_per_lane"] == 4
+    assert K6.ctc_plan(8, 133, 2049)["states_per_lane"] == 8
+    assert K6.ctc_plan(8, 133, 4096)["lattice"] == "shared"
+    assert K6.ctc_plan(8, 133, 4097)["lattice"] == "device"
     with pytest.raises(ValueError):
-        K6.ctc_plan(8, 133, 1025)
+        K6.ctc_plan(8, 133, 0)
+
+
+@pytest.mark.parametrize("lo", range(1025, 8194, 1024))
+def test_ctc_plan_takes_every_state_count_past_1024(lo):
+    """Every S from 1,025 to 8,193: up to 4,096 states the fewest states a
+    lane (4 to 2,048, then 8) in at most 16 chain warps, the lattice, the
+    ring and the sort's keys within a block's shared memory (~197 KB at 8
+    states a lane in 16 warps) and at most 1,024 threads; past it the
+    device-memory route, a CTA of 1,024 threads a row and a (T, B) grid of
+    class sums, no shared memory."""
+    for S in range(lo, min(lo + 1024, 8194)):
+        plan = K6.ctc_plan(2, 700, S)
+        if S > K6.MAX_STATES:
+            assert plan["lattice"] == "device" and plan["grid"] == (2,)
+            assert plan["grad_grid"] == (700, 2) and plan["alpha_threads"] == 1024
+            continue
+        K, W = plan["states_per_lane"], plan["chain_warps"]
+        assert K == (4 if S <= 2048 else 8) and W == -(-S // (32 * K)) <= K6.MAX_CHAIN_WARPS
+        assert plan["chunk"] == 16 // K and plan["beta_chunk"] == 8 // K
+        assert plan["beta_threads"] <= 1024 and plan["alpha_threads"] <= 512
+        assert max(plan["alpha_smem_bytes"], plan["beta_smem_bytes"]) <= 232_448
+    assert K6.ctc_plan(2, 700, 4095)["beta_smem_bytes"] == 196_720
 
 
 @pytest.mark.parametrize("S", [3, 65, 129, 513, 1023, 1024])
@@ -260,6 +291,7 @@ def _k6_replay(lp, targets, ilen, tlen, blank=0):
         xlat = torch.full((2, n + 4), K6.NEG_INF)
         ring = torch.zeros((D, CH, n))
         order = sorted(range(2 * tl + 1), key=lambda q: (int(zf[b, q]), q))
+        rank = {q: r for r, q in enumerate(order)}
         classes = sorted({int(zf[b, q]) for q in order})
         runs = [[q for q in order if int(zf[b, q]) == c] for c in classes]
         for k in range(-(-Tc // CH)):
@@ -285,7 +317,7 @@ def _k6_replay(lp, targets, ilen, tlen, blank=0):
             for run in runs:
                 acc = part = torch.zeros(m)
                 for i, q in enumerate(run):
-                    if i > 0 and order.index(q) % K6.SEG == 0:   # a new segment
+                    if i > 0 and rank[q] % K6.SEG == 0:   # a new segment
                         acc, part = acc + part, torch.zeros(m)
                     part = part + ring[k % D, :m, q]
                 grad[b, steps, int(zf[b, run[0]])] = -(acc + part)
@@ -296,8 +328,18 @@ def _k6_replay(lp, targets, ilen, tlen, blank=0):
 
 def _k6_case(name):
     """(lp, targets, ilen, tlen) of each edge the kernels keep; at 1, 2 and 3
-    chain warps (U = 4, 20, 40), at 2 states a lane in 10 warps (U=300) and
-    at T=300 (the ring's chunks many times over)."""
+    chain warps (U = 4, 20, 40), at 2 states a lane in 10 warps (U=300), at
+    T=300 (the ring's chunks many times over) and at 4 states a lane in 9
+    warps (S=1,025 over a short T=300: a row of 280 labels, none repeated,
+    561 valid states, and a row of all 512, which T cannot align: its
+    alphas over every state, its gradient zero)."""
+    if name == "S=1025":
+        lp, targets, ilen, tlen = _inputs(B=2, T=300, C=9, U=512, seed=14)
+        rng = np.random.RandomState(15)
+        targets[:] = 1 + (np.cumsum(rng.randint(1, 8, size=(2, 512)), 1) % 8)  # no repeats
+        targets[0, 280:] = 0
+        tlen[:], ilen[:] = [280, 512], [300, 300]
+        return lp, targets, ilen, tlen
     if name == "T=300":
         lp, targets, ilen, tlen = _inputs(B=3, T=300, C=9, U=24, seed=11)
         ilen[:] = [300, 217, 41]
@@ -328,12 +370,37 @@ def _k6_case(name):
     return lp, targets, ilen, tlen
 
 
+@pytest.fixture
+def one_thread():
+    """The replays run thousands of small torch ops, which intra-op threads
+    only slow down (several times over on a shared host)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case(name):
+    """JAX's NLLs and gradient of sum(nll) on `_k6_case(name)` (one trace of
+    both), computed once a process for both replays."""
+    lp, targets, ilen, tlen = _k6_case(name)
+
+    def total(x):
+        nll = JC.ctc_loss(x, jnp.asarray(targets), jnp.asarray(ilen), jnp.asarray(tlen),
+                          reduction="none")
+        return jnp.sum(nll), nll
+
+    (_, nll), grad = jax.value_and_grad(total, has_aux=True)(jnp.asarray(lp))
+    return np.asarray(nll), np.asarray(grad)
+
+
 K6_CASES = ["U=4", "U=20", "U=40", "U=300", "input lengths below T", "target length 0", "T=1",
-            "repeated labels", "impossible alignment", "T=300"]
+            "repeated labels", "impossible alignment", "T=300", "S=1025"]
 
 
 @pytest.mark.parametrize("name", K6_CASES)
-def test_k6_replay_matches_plain_and_jax(name):
+def test_k6_replay_matches_plain_and_jax(name, one_thread):
     """The kernels' decomposition gives the plain versions' alphas, NLL and
     gradient, and JAX's custom VJP's NLL and gradient."""
     lp, targets, ilen, tlen = _k6_case(name)
@@ -348,9 +415,109 @@ def test_k6_replay_matches_plain_and_jax(name):
     # against JAX's own exp and log: at T=300 the alphas reach ~770, where an
     # fp32 ulp is 6e-5, and the occupancies' exponent carries that rounding
     # (the plain version is 1.9e-5 from JAX there), so the card check's 1e-4
-    jax_nll, jax_g = _jax(lp, targets, ilen, tlen, reduction="none")
+    jax_nll, jax_g = _jax_case(name)
     np.testing.assert_allclose(nll.numpy(), jax_nll, rtol=1e-6)
     atol = ATOL if lp.shape[1] < 100 else 1e-4
     np.testing.assert_allclose(grad.numpy(), jax_g, rtol=0, atol=atol)
     if name == "impossible alignment":
         assert nll[0] > 1e29 and np.all(grad[0].numpy() == 0)
+    if name == "S=1025":
+        assert nll[1] > 1e29 and np.all(grad[1].numpy() == 0) and nll[0] < 1e4
+        assert torch.isfinite(alphas[-1, 1]).all() and (alphas[-1, 1] > K6.NEG_INF).sum() > 512
+
+
+def _k6_device_replay(lp, targets, ilen, tlen, blank=0):
+    """K6's device-memory route (`csrc/ctc.cu` `ctc_alpha_long_kernel`,
+    `ctc_beta_long_kernel`, `ctc_grad_long_kernel`) in torch, row by row:
+    each step's alphas (betas) from the last step's, read back from the
+    (T, B, S) array; the row's valid states stably sorted by class into
+    `order` with run starts `cstart` (a counting sort, 32 states at a time);
+    then each (step, class) as a warp sums it: lane j over the run's
+    sorted positions j, j + 32, ... in order, then xor shuffles over 16, 8,
+    4, 2, 1, lane 0's sum. Returns (alphas, nll, the gradient of sum(nll))."""
+    B, T, C = lp.shape
+    U = targets.shape[1]
+    S = 2 * U + 1
+    NEG = torch.tensor(K6.NEG_INF)
+    alphas = torch.empty((T, B, S))
+    nll = torch.empty(B)
+    grad = torch.zeros((B, T, C))
+    s = torch.arange(S)
+    for b in range(B):
+        z = torch.full((S,), blank, dtype=torch.long)
+        z[1::2] = targets[b].long()
+        tl = int(tlen[b])
+        valid = s < 2 * tl + 1
+        skip = (s % 2 == 1) & (s >= 2) & (z != torch.roll(z, 2))
+        skip_from = (s % 2 == 1) & (s + 2 < S) & (torch.roll(z, -2) != z)
+        Tc = max(1, min(int(ilen[b]), T))
+        for t in range(Tc):
+            if t == 0:
+                a = torch.where(valid & (s <= 1), lp[b, 0][z], NEG)
+            else:
+                prev = alphas[t - 1, b]
+                a1 = torch.cat([NEG[None], prev[:-1]])
+                a2 = torch.where(skip, torch.cat([NEG[None], NEG[None], prev[:-2]])[:S], NEG)
+                a = torch.where(valid, K6._logaddexp3(prev, a1, a2) + lp[b, t][z], NEG)
+            alphas[t, b] = a
+        alphas[Tc:, b] = alphas[Tc - 1, b]
+        fin = alphas[Tc - 1, b]
+        nll[b] = -K6._logaddexp(fin[2 * tl], fin[2 * tl - 1] if tl > 0 else NEG)
+
+        Tc = min(int(ilen[b]), T)
+        if Tc <= 0 or not nll[b] < -K6.NEG_INF / 2:
+            continue
+        n_valid = 2 * tl + 1
+        at = [0] * C
+        for q in range(n_valid):                       # pass 0: the counts
+            at[int(z[q])] += 1
+        cstart, acc = [], 0
+        for c in range(C):
+            cstart.append(acc)
+            acc, at[c] = acc + at[c], acc
+        cstart.append(acc)
+        order = [0] * n_valid
+        for q in range(n_valid):                       # pass 1: stable placement
+            order[at[int(z[q])]] = q
+            at[int(z[q])] += 1
+        term = valid & ((s == 2 * tl) | ((s == 2 * tl - 1) & (tl > 0)))
+        betas = torch.empty((Tc, S))
+        betas[Tc - 1] = torch.where(term, 0.0, NEG)
+        for t in range(Tc - 2, -1, -1):
+            x = torch.where(valid, betas[t + 1] + lp[b, t + 1][z], NEG)
+            x1 = torch.cat([x[1:], NEG[None]])
+            x2 = torch.where(skip_from, torch.cat([x[2:], NEG[None], NEG[None]])[:S], NEG)
+            betas[t] = K6._logaddexp3(x, x1, x2)
+        occ = torch.exp(torch.clamp(alphas[:Tc, b] + betas + nll[b], max=0.0))   # (Tc, S)
+        lanes = torch.arange(32)
+        for c in range(C):
+            run = torch.tensor(order[cstart[c]:cstart[c + 1]], dtype=torch.long)
+            part = torch.zeros((32, Tc))
+            for j in range(0, len(run), 32):           # lane j's strided, in order
+                idx = run[j:j + 32]
+                part[:len(idx)] = part[:len(idx)] + occ[:, idx].T
+            for o in (16, 8, 4, 2, 1):
+                part = part + part[lanes ^ o]
+            grad[b, :Tc, c] = -part[0]
+    return alphas, nll, grad
+
+
+@pytest.mark.parametrize("name", K6_CASES)
+def test_k6_device_route_replay_matches_plain_and_jax(name, one_thread):
+    """The device-memory route's decomposition (`_k6_device_replay`; the
+    plan takes it past 4,096 states, and its arithmetic does not depend on
+    S) gives the plain versions' alphas bit for bit, their NLL and
+    gradient, and JAX's custom VJP's NLL and gradient, at every edge."""
+    lp, targets, ilen, tlen = _k6_case(name)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    alphas, nll, grad = _k6_device_replay(t(lp), t(targets), t(ilen), t(tlen))
+    want_a, want_nll = K6.ctc_alpha_plain(t(lp), t(targets), t(ilen), t(tlen))
+    np.testing.assert_array_equal(alphas.numpy(), want_a.numpy())
+    np.testing.assert_array_equal(nll.numpy(), want_nll.numpy())
+    want_g = K6.ctc_beta_grad_plain(t(lp), t(targets), t(ilen), t(tlen), want_a, want_nll,
+                                    torch.ones(lp.shape[0]))
+    np.testing.assert_allclose(grad.numpy(), want_g.numpy(), rtol=0, atol=ATOL)
+    jax_nll, jax_g = _jax_case(name)
+    np.testing.assert_allclose(nll.numpy(), jax_nll, rtol=1e-6)
+    atol = ATOL if lp.shape[1] < 100 else 1e-4
+    np.testing.assert_allclose(grad.numpy(), jax_g, rtol=0, atol=atol)

@@ -140,14 +140,15 @@ def test_padded_concat_matches_jax(shapes):
 
 # ---------------- B6 trim_merge: its launch plan and a replay of its scans ----------------
 
-@pytest.mark.parametrize("T", [1, 133, 680, 1000, 5000, 14_528])
+@pytest.mark.parametrize("T", [1, 133, 680, 1000, 5000, 14_528, 14_529, 20_000])
 @pytest.mark.parametrize("tokens", [False, True])
 def test_trim_merge_plan_fits(T, tokens):
-    """Every T the kernel takes (up to `MAX_FRAMES`, as the first design's)
-    plans within the card's shared memory at the flagship's C=43 and D=64:
-    the row's p_code in one slot where it fits, else a ring of two."""
+    """Every T plans within the card's shared memory at the flagship's C=43
+    and D=64: the row's p_code in one slot where it fits, else a ring of
+    two; past 19,328 frames the per-frame ints in device memory."""
     plan = B6.trim_merge_plan(T, 43, 64, tokens=tokens)
     assert plan["smem_bytes"] <= 232_448 and plan["threads"] == 1024
+    assert plan["ints_global"] == (T > 19_328)
     if tokens:
         assert plan["depth"] == 0
     elif plan["depth"] == 1:
@@ -158,20 +159,72 @@ def test_trim_merge_plan_fits(T, tokens):
 
 
 def test_trim_merge_plan_limits():
+    """The plan raises only for T < 1: T=14,529 takes the ring beside the
+    ints in shared memory; T=20,000 the
+    ints in a (B, 3, T) device-memory scratch beside the ring; C=20,000 at
+    T=14,528, where not one frame fits the ring, the argmax in a first
+    kernel over the whole card (depth 0, the tokens then given)."""
     assert B6.trim_merge_plan(133, 43, 64)["depth"] == 1
     assert B6.trim_merge_plan(14_528, 43, 64)["chunk"] == 167
-    with pytest.raises(ValueError, match="1 to 14528"):
-        B6.trim_merge_plan(14_529, 43, 64)
-    with pytest.raises(ValueError, match="not one frame"):
-        B6.trim_merge_plan(14_528, 20_000, 64)
+    long = B6.trim_merge_plan(14_529, 43, 64)
+    assert (long["depth"], long["chunk"], long["ints_global"]) == (2, 167, False)
+    longer = B6.trim_merge_plan(20_000, 43, 64)
+    assert (longer["depth"], longer["chunk"], longer["ints_global"]) == (2, 674, True)
+    assert longer["scratch_ints"] == 60_000
+    wide = B6.trim_merge_plan(14_528, 20_000, 64)
+    assert (wide["depth"], wide["chunk"], wide["ints_global"]) == (0, 0, False)
+    assert wide["argmax_pass"] and not long["argmax_pass"]
+    assert not B6.trim_merge_plan(14_528, 20_000, 64, tokens=True)["argmax_pass"]
+    with pytest.raises(ValueError, match="T >= 1"):
+        B6.trim_merge_plan(0, 43, 64)
+
+
+@pytest.mark.parametrize("T,C", [(14_529, 43), (20_000, 43), (14_528, 8000), (20_000, 8000),
+                                 (100_000, 43), (14_528, 7192)])
+def test_trim_merge_plan_takes_long_rows(T, C):
+    """No T or C >= 1 raises; every plan fits a block's shared memory and
+    1,024 threads; the ring (depth 2) holds at least one frame, else a
+    first kernel takes the argmax (depth 0, ``argmax_pass``)."""
+    plan = B6.trim_merge_plan(T, C, 64)
+    assert plan["smem_bytes"] <= 232_448 and plan["threads"] == 1024
+    assert (plan["depth"] == 2 and plan["chunk"] >= 1 and not plan["argmax_pass"]) or (
+        (plan["depth"], plan["chunk"], plan["argmax_pass"]) == (0, 0, True))
+    assert plan["ints_global"] == (B6._trim_smem(T, C, 64, 0, 0, False) > 232_448)
+    assert plan["scratch_ints"] == (3 * -(-T // 4) * 4 if plan["ints_global"] else 0)
+
+
+def _warp_argmax(p):
+    """The argmax pass of `trim_merge` (`trim_argmax_kernel`, taken first
+    where not one frame of p_code fits the ring), a warp a frame: lane j
+    keeps the first maximum of classes j, j + 32, ... (NaN the largest),
+    then xor shuffles over 16, 8, 4, 2, 1 keep the one first in the
+    argmax's order (the larger, NaN the largest; the smaller class on a
+    tie). p (T, C) -> tokens (T,)."""
+    T, C = p.shape
+    beats = lambda x, y: (np.isnan(x) & ~np.isnan(y)) | (x > y)
+    vals, idx = np.zeros((32, T), np.float32), np.full((32, T), -1)
+    for lane in range(min(32, C)):
+        v, i = p[:, lane].copy(), np.full(T, lane)
+        for c in range(lane + 32, C, 32):
+            take = beats(p[:, c], v)
+            v, i = np.where(take, p[:, c], v), np.where(take, c, i)
+        vals[lane], idx[lane] = v, i
+    for o in (16, 8, 4, 2, 1):
+        pv, pi = vals[np.arange(32) ^ o], idx[np.arange(32) ^ o]
+        first = beats(vals, pv) | (~beats(pv, vals) & (idx < pi))
+        take = (pi >= 0) & ((idx < 0) | ~first)
+        vals, idx = np.where(take, pv, vals), np.where(take, pi, idx)
+    return idx[0]
 
 
 def _b6_replay(p_code, latent, max_f, *, threads, chunk):
     """`trim_merge_kernel` in numpy: the argmax a chunk of `chunk` frames at a
-    time; the scans a chunk of `threads` frames at a time, each warp's run
-    starts and kept counts from its ballots, carried across warps and
-    chunks; the segment ends by walking the tokens; the means in time
-    order. Returns (trimmed, lengths, slot, count)."""
+    time (chunk 0: the argmax pass, `_warp_argmax`); the scans a chunk of
+    `threads` frames at a time, each warp's run starts and kept counts from
+    its ballots, carried across warps and chunks; the segment ends by
+    walking the tokens; the means in time order. Where the plan puts the
+    per-frame ints in device memory the arithmetic is the same. Returns
+    (trimmed, lengths, slot, count)."""
     B, T, D = latent.shape
     m1 = max_f + 1
     out = np.zeros_like(latent)
@@ -180,8 +233,11 @@ def _b6_replay(p_code, latent, max_f, *, threads, chunk):
     count = np.zeros((B, T), np.float32)
     for b in range(B):
         tok = np.zeros(T, np.int64)
-        for f0 in range(0, T, chunk):
-            tok[f0:f0 + chunk] = p_code[b, f0:f0 + chunk].argmax(-1)
+        if chunk == 0:
+            tok[:] = _warp_argmax(p_code[b])
+        for f0 in range(0, T, chunk or T):
+            if chunk:
+                tok[f0:f0 + chunk] = p_code[b, f0:f0 + chunk].argmax(-1)
         sstart, scnt = [0] * T, [0] * T
         run_carry = kept_carry = 0
         for c0 in range(0, T, threads):
@@ -327,3 +383,70 @@ def test_trim_merge_bwd_replay_matches_plain(B, T, D, aligned):
     want = B6.trim_merge_bwd_plain(torch.from_numpy(d_out), slot, count).numpy()
     got = _b6_bwd_replay(d_out, slot.numpy(), count.numpy(), B6.trim_merge_bwd_plan(B, T, D, aligned))
     np.testing.assert_array_equal(got, want)
+
+
+def _long_rows(T, C=5, D=3, seed=0):
+    """Two rows of T frames: runs of 1 to 9 frames of random tokens (the
+    blank among them), and a seeded latent of D channels."""
+    rng = np.random.RandomState(seed)
+    p = np.full((2, T, C), 0.01, np.float32)
+    for b in range(2):
+        t = 0
+        while t < T:
+            n = rng.randint(1, 10)
+            p[b, t:t + n, rng.randint(C)] = 1.0
+            t += n
+    return p, rng.randn(2, T, D).astype(np.float32)
+
+
+@pytest.mark.parametrize("T", [14_529, 20_000])
+def test_trim_merge_long_replay_matches_plain_and_jax(T):
+    """Past 14,528 frames (the ring beside the ints in
+    shared memory at 14,529; the ints in device memory at 20,000, whose
+    arithmetic is the same): the replay at 1,024 threads and the plan's
+    chunk equals the plain version bit for bit and JAX to 1e-6, at C=5,
+    D=3."""
+    p, latent = _long_rows(T, seed=T)
+    plan = B6.trim_merge_plan(T, 5, 3)
+    assert plan["depth"] == 2 and plan["ints_global"] == (T > 19_328)
+    got = _b6_replay(p, latent, 3, threads=1024, chunk=plan["chunk"])
+    want = [x.numpy() for x in B6.trim_merge_plain(torch.from_numpy(p), torch.from_numpy(latent),
+                                                    3)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    j_out, j_len, _ = j_trim_merge(jnp.asarray(p), jnp.asarray(latent), max_frames_per_phn=3)
+    np.testing.assert_array_equal(got[1], np.asarray(j_len))
+    np.testing.assert_allclose(got[0], np.asarray(j_out), rtol=0, atol=ATOL)
+
+
+def _nan_ties(C=70):
+    """Rows whose maximum lies in classes a lane apart (3 and 35, 67), tied
+    exactly, with the blank, and NaN in places (the first NaN wins)."""
+    rng = np.random.RandomState(4)
+    p = rng.rand(2, 40, C).astype(np.float32)
+    p[0, :10, [3, 35, 67]] = 2.0
+    p[0, 10:20, [0, 64]] = 2.0
+    p[1, :8, [40, 8]] = np.nan
+    p[1, 8:16, [69, 37, 5]] = 3.0
+    p[1, 16:20, 66] = np.nan
+    return p, rng.randn(2, 40, 4).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["nan_ties", "ties", "long_runs"])
+def test_trim_merge_device_argmax_replay_matches_plain_and_jax(case):
+    """The argmax pass (depth 0: where not one frame of p_code
+    fits the ring) replayed lane by lane (`_warp_argmax`) gives the first
+    maximum, NaN the largest, as the plain version and `jnp.argmax`; the
+    whole replay equals the plain version bit for bit and JAX to 1e-6."""
+    p, latent = _nan_ties() if case == "nan_ties" else CASES[case]()
+    tokens = np.stack([_warp_argmax(row) for row in p])
+    np.testing.assert_array_equal(tokens, torch.from_numpy(p).argmax(-1).numpy())
+    np.testing.assert_array_equal(tokens, np.asarray(jnp.argmax(jnp.asarray(p), -1)))
+    got = _b6_replay(p, latent, 3, threads=64, chunk=0)
+    want = [x.numpy() for x in B6.trim_merge_plain(torch.from_numpy(p), torch.from_numpy(latent),
+                                                    3)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    j_out, j_len, _ = j_trim_merge(jnp.asarray(p), jnp.asarray(latent), max_frames_per_phn=3)
+    np.testing.assert_array_equal(got[1], np.asarray(j_len))
+    np.testing.assert_allclose(got[0], np.asarray(j_out), rtol=0, atol=ATOL)

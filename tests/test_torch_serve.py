@@ -110,6 +110,27 @@ def test_serving_stages_match_jax(served):
     np.testing.assert_allclose(wav_p, wav_j, rtol=0, atol=1e-3)
 
 
+def test_long_text_synthesis_matches_jax(served):
+    """A 1,300-token text, a memory longer than the 1,187 positions one K3
+    cluster holds at flagship widths (the card takes the split route),
+    beside a short one, through both servers' synthesis stage at
+    decode_steps=5: the amplitude agrees at 1e-4, as at short texts."""
+    _, _, _, _, jserver, pserver = served
+    rng = np.random.RandomState(3)
+    text = np.zeros((2, 1300), np.int32)
+    text[0] = rng.randint(3, 43, size=1300)
+    text[1, :40] = rng.randint(3, 43, size=40)
+    sid = np.array([1, 2], np.int32)
+    jsynth, _ = jserver.stages(5)
+    amp_j = jsynth(jserver.params, jserver.state, jnp.asarray(text), jnp.asarray(sid),
+                   jax.random.PRNGKey(5))
+    psynth, _ = pserver.stages(5, *text.shape)
+    t, s = pserver._place(text, sid)
+    amp_p = psynth(t, s, seed=0)
+    assert tuple(amp_p.shape) == (2, 15, 257)
+    np.testing.assert_allclose(amp_p.numpy(), np.asarray(amp_j), rtol=0, atol=1e-4)
+
+
 def test_decode_steps_for_matches_jax(served):
     *_, jserver, pserver = served
     for U in (1, 5, 9, 31, 64):
