@@ -9,6 +9,7 @@ card; and the ASR, paired or speech-first train step's time in a given tree.
     python3 chip_ablate.py --paired-busy TREE
     python3 chip_ablate.py --speech-first-busy TREE
     python3 chip_ablate.py --kernel-mem TREE
+    python3 chip_ablate.py --ctc-long [--src TREE]
     python3 chip_ablate.py --sanitize k7|k6|b6|b6_bwd --plan T=..,B=..[,...] [--variant unit_lanes]
     python3 chip_ablate.py --sanitize-all
 
@@ -126,8 +127,6 @@ K6_ALPHA_W = ("  const int nl = blockDim.x, L = threadIdx.x, ls = 32 * K * (nl >
               "// a step's row\n")
 K6_BETA_W = ("  const int W = (blockDim.x >> 5) - kConsumerWarps, nl = 32 * W, "
              "ls = 32 * K * W + 4;\n")
-K6_ALPHA_STORE = ("        next[j] = a[j];\n        st_if((on >> j) & 1, out + j, a[j]);\n",
-                  "        next[j] = a[j];\n")
 K6_BAR = 'asm volatile("bar.sync 1, %0;\\n" ::"r"(nl) : "memory");\n'
 K6_ALPHA_BAR = ("      " + K6_BAR + "    }\n    cur = nxt;\n", "    }\n    cur = nxt;\n")
 K6_BETA_BAR = ("          " + K6_BAR + "          if (i > 0)", "          if (i > 0)")
@@ -135,7 +134,8 @@ K6_EMPTY_WAIT = ("      if (k >= kDepth) mbar_wait(empty0 + 8 * slot, ((k / kDep
                  "// slot consumed\n", "")
 K6_OCC = ("      for (int j = 0; j < K; ++j) ok[(size_t)(i * K + j) * nl] = a_cur.v[i][j] + beta[j] + "
           "nll_b;\n")
-K6_NO_SUMS = ("  const float gb = g[b];\n", "  return;\n  const float gb = g[b];\n")
+K6_SUMS = "  const float gb = g[b];\n  for (int k = 0; k < n_chunks; ++k) {\n"
+K6_NO_SUMS = (K6_SUMS, "  return;\n" + K6_SUMS)
 K6_SEG_SUMS = ('    asm volatile("bar.sync 2, %0;\\n" ::"r"(kConsumers) : "memory");  '
                "// the segment sums are in\n")
 # the class sums with runs not cut into segments: a thread a (run, step)
@@ -452,6 +452,38 @@ K6_FAST_MATH = [("  const float s = expf(a - ms) + expf(b - ms) + expf(c - ms);\
                  "  const float s = __expf(a - ms) + __expf(b - ms) + __expf(c - ms);\n"),
                 ("ms + logf(fmaxf(s, 1e-37f))", "ms + __logf(fmaxf(s, 1e-37f))")]
 
+
+def k6_alpha_chain_cuts(store, up):
+    """ctc_alpha's cuts of the chain-warp design, whose alpha store is
+    ``store`` and whose s-1, s-2 declaration begins with ``up`` (both lines
+    changed where the chain was templated on a cluster's slice)."""
+    alpha_store = (f"        next[j] = a[j];\n        {store}((on >> j) & 1, out + j, a[j]);\n",
+                   "        next[j] = a[j];\n")
+    return [
+        ("launch", [after(K6_ALPHA_W, "  return;\n")]),
+        ("the chain, no alpha stores", [alpha_store]),
+        # not cuts: the chain's log-adds alone (each thread's state from its
+        # own, no barrier, no stores), the whole kernel without its barrier a
+        # step (its results are wrong), and with the fast, inexact
+        # __expf/__logf in the log-add
+        ("whole kernel, the log-add alone", [
+            alpha_store, K6_ALPHA_BAR,
+            (f"        {up} = prev[-1], up2 = prev[-2];\n",
+             "        float up1 = a[0], up2 = a[K - 1];\n")]),
+        ("whole kernel, no barrier", [K6_ALPHA_BAR]),
+        ("whole kernel, __expf and __logf", K6_FAST_MATH),
+        # designs not kept, whole kernels in its place (their results are
+        # checked too: `err`)
+        ("whole kernel, one warp a row, shuffles, a cp.async ring", [
+            (K6_ALPHA_LAUNCH, K6_ONE_WARP + K6_ALPHA_LAUNCH),
+            (K6_ALPHA_SMEM, f"  return launch_alpha_warp({K6_ALPHA_ARGS}, st);\n" + K6_ALPHA_SMEM)]),
+        ("whole kernel, chain warps, a tagged hand-off and no barrier", [
+            (K6_ALPHA_LAUNCH, K6_TAGGED + K6_ALPHA_LAUNCH),
+            (K6_ALPHA_SMEM, f"  return launch_alpha_tagged<K>({K6_ALPHA_ARGS}, W, st);\n"
+                            + K6_ALPHA_SMEM)]),
+    ]
+
+
 # source -> [(kernel case in chip_smoke.py, {design: [(cut name, [(old, new), ...])]})]
 CUTS = {
     "attention": [("attention_step", {"cluster per batch row (PR 3)": [
@@ -513,30 +545,12 @@ CUTS = {
     ]})],
     "ctc": [
         ("ctc_alpha", {
-            "chain warps, the lattice and a named barrier, register chunks": [
-                ("launch", [after(K6_ALPHA_W, "  return;\n")]),
-                ("the chain, no alpha stores", [K6_ALPHA_STORE]),
-                # not cuts: the chain's log-adds alone (each thread's state
-                # from its own, no barrier, no stores), the whole kernel
-                # without its barrier a step (its results are wrong), and
-                # with the fast, inexact __expf/__logf in the log-add
-                ("whole kernel, the log-add alone", [
-                    K6_ALPHA_STORE, K6_ALPHA_BAR,
-                    ("        const float up1 = prev[-1], up2 = prev[-2];\n",
-                     "        const float up1 = a[0], up2 = a[K - 1];\n")]),
-                ("whole kernel, no barrier", [K6_ALPHA_BAR]),
-                ("whole kernel, __expf and __logf", K6_FAST_MATH),
-                # designs not kept, whole kernels in its place (their results
-                # are checked too: `err`)
-                ("whole kernel, one warp a row, shuffles, a cp.async ring", [
-                    (K6_ALPHA_LAUNCH, K6_ONE_WARP + K6_ALPHA_LAUNCH),
-                    (K6_ALPHA_SMEM, f"  return launch_alpha_warp({K6_ALPHA_ARGS}, st);\n"
-                                    + K6_ALPHA_SMEM)]),
-                ("whole kernel, chain warps, a tagged hand-off and no barrier", [
-                    (K6_ALPHA_LAUNCH, K6_TAGGED + K6_ALPHA_LAUNCH),
-                    (K6_ALPHA_SMEM, f"  return launch_alpha_tagged<K>({K6_ALPHA_ARGS}, W, st);\n"
-                                    + K6_ALPHA_SMEM)]),
-            ],
+            # the chain's text templated on a cluster's slice, then its text before
+            **{design: k6_alpha_chain_cuts(store, up) for design, store, up in (
+                ("chain warps, the lattice and a named barrier, register chunks, on a slice",
+                 "st_if<Split>", "float up1"),
+                ("chain warps, the lattice and a named barrier, register chunks",
+                 "st_if", "const float up1"))},
             "a CTA a row, the lattice in shared memory": [
                 ("launch", [ret(K6_ALPHA_START)]),
                 ("the recursion, no alpha stores",
@@ -1081,6 +1095,233 @@ PICKED = {"asr": ("ctc_alpha", "ctc_beta", "ctc_grad"), "paired": ("attention_bw
           "speech_first": ("attention_bwd", "stft_frames_kernel", "trim_merge_kernel")}
 
 
+# K6 past the shared-memory lattice (``--ctc-long``): (B, S) of the rows
+# timed, with `chip_smoke._k6_long_inputs` (T = U + U/8 + 32); S=2,049 is
+# timed only with the cluster route forced beside the shared route's K=8
+CTC_LONG_S = (4097, 8193)
+CTC_FORCED_S = 2049
+# the cluster route's plans timed beside `ctc_plan`'s: {S: [(K, W), ...]}
+CTC_LONG_PLANS = {4097: [(2, 8), (2, 12), (4, 5)], 8193: [(2, 12), (4, 8)]}
+# the cluster route's edge hand-off, as the first design sent it: a plain
+# remote store and a remote arrival with release semantics, the slot handed
+# back by another; the mbarriers take one arrival a phase and no bytes
+CTC_EDGE_SEND = ("      if (r > 0) mbar_expect_tx(empty(i), 4);  // round r's acknowledgement\n"
+                 "      st_async2(map_rank(slot(i), to), lo, hi, map_rank(full(i), to));\n")
+CTC_EDGE_RECV = ("      mbar_expect_tx(full(i), 8);\n"
+                 "      st_async1(map_rank(ack(i), from), v.x, map_rank(empty(i), from));\n")
+CTC_EDGE_ARM = ("    for (int i = 0; i < kEdgeRing; ++i) {\n      mbar_expect_tx(full(i), 8);\n"
+                "      mbar_expect_tx(empty(i), 4);\n    }\n")
+CTC_RELEASE_ARRIVE = ('      asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\\n" '
+                      '::"r"(map_rank({bar}, {peer})) : "memory");\n')
+CTC_RELEASE = [
+    (CTC_EDGE_SEND, '      asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\\n" ::"r"(map_rank('
+                    'slot(i), to)), "f"(lo), "f"(hi) : "memory");\n'
+                    + CTC_RELEASE_ARRIVE.format(bar="full(i)", peer="to")),
+    (CTC_EDGE_RECV, CTC_RELEASE_ARRIVE.format(bar="empty(i)", peer="from")),
+    (CTC_EDGE_ARM, "")]
+# no hand-off at all: a send returns, a receive gives -inf
+CTC_NO_EDGE = [
+    ("    const int i = e % kEdgeRing, r = e / kEdgeRing;\n",
+     "    return;\n    const int i = e % kEdgeRing, r = e / kEdgeRing;\n"),
+    ("    const int i = e % kEdgeRing;\n    mbar_wait<true>",
+     "    return make_float2(kNegInf, kNegInf);\n    const int i = e % kEdgeRing;\n    mbar_wait<true>")]
+CTC_ALPHA_STORE = "        st_if<Split>((on >> j) & 1, out + j, a[j]);\n"
+# what the edge costs: a ring of 16 slots (the sender waits less often);
+# the hand-offs made with neither side waiting (wrong results: the
+# instructions alone); the waits at CTA scope (the acquire's cost alone)
+CTC_EDGE_16 = [("constexpr int kEdgeRing = 8;", "constexpr int kEdgeRing = 16;")]
+CTC_EDGE_NO_WAIT = [
+    ("    if (r > 0) mbar_wait<true>(empty(i), (r - 1) & 1);  // what round r - 1 sent was read\n", ""),
+    ("    mbar_wait<true>(full(i), (e / kEdgeRing) & 1);\n", ""),
+    # nor arm a phase (a second arrival in one phase is undefined)
+    ("      if (r > 0) mbar_expect_tx(empty(i), 4);  // round r's acknowledgement\n", ""),
+    ("      mbar_expect_tx(full(i), 8);\n      st_async1", "      st_async1")]
+CTC_EDGE_CTA = [("mbar_wait<true>(empty(i)", "mbar_wait<false>(empty(i)"),
+                ("mbar_wait<true>(full(i)", "mbar_wait<false>(full(i)")]
+# the edge's waits by try_wait, which may suspend the warp (the second
+# design), with a suspend-time hint or without
+CTC_TEST_WAIT = " mbarrier.test_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\\n"
+CTC_EDGE_SUSPEND = [(CTC_TEST_WAIT, CTC_TEST_WAIT.replace("test_wait", "try_wait").replace(
+    "%2;", "%2, 1000000;"))]
+CTC_EDGE_NO_HINT = [(CTC_TEST_WAIT, CTC_TEST_WAIT.replace("test_wait", "try_wait"))]
+# the class-sum warps leave once their lists are built, through the
+# cluster's last barrier (a CTA that left before it would hang its peers)
+CTC_NO_SUMS = (K6_SUMS, "  if constexpr (Split) cluster_grad(g, grow, partials, b, P, rank, T, C);\n"
+                        "  return;\n" + K6_SUMS)
+# kernel ("alpha" or "beta") -> {design: [(cut, [(old, new), ...])]}; the
+# first design whose every marker is in ctc.cu once is taken
+CTC_LONG_CUTS = {
+    "alpha": {
+        "a cluster a row, DSMEM edge hand-offs": [
+            ("the chain, no alpha stores", [(CTC_ALPHA_STORE, "")]),
+            ("whole kernel, no edge hand-off", CTC_NO_EDGE),
+            ("whole kernel, a release hand-off (the first design)", CTC_RELEASE),
+            ("whole kernel, an edge ring of 16", CTC_EDGE_16),
+            ("whole kernel, hand-offs with no waits", CTC_EDGE_NO_WAIT),
+            ("whole kernel, edge waits at CTA scope", CTC_EDGE_CTA),
+            ("whole kernel, edge waits by try_wait (the second design)", CTC_EDGE_SUSPEND),
+            ("whole kernel, edge waits by try_wait, no suspend hint", CTC_EDGE_NO_HINT),
+            ("whole kernel, plain alpha stores", [(CTC_ALPHA_STORE, CTC_ALPHA_STORE.replace(
+                "st_if<Split>", "st_if<false>"))]),
+        ],
+        "a CTA a row, the lattice in device memory": [],
+    },
+    "beta": {
+        "a cluster a row, DSMEM edge hand-offs": [
+            ("the chain alone, no log occupancies or class sums", [
+                K6_EMPTY_WAIT,
+                (K6_OCC, "      for (int j = 0; j < K; ++j) ok[(size_t)(i * K + j) * nl] = beta[j];\n"),
+                CTC_NO_SUMS]),
+            ("whole kernel, no edge hand-off", CTC_NO_EDGE),
+            # the chain's log-add and edges gone: a step is its barrier and
+            # stores, so the class sums set the pace
+            ("the gradient alone, no log-add and no edges", CTC_NO_EDGE + [
+                ("            beta[j] = logaddexp3(x[j], x1, x2);\n", "            beta[j] = x[j];\n")]),
+            ("whole kernel, a release hand-off (the first design)", CTC_RELEASE),
+            ("whole kernel, an edge ring of 16", CTC_EDGE_16),
+            ("whole kernel, hand-offs with no waits", CTC_EDGE_NO_WAIT),
+            ("whole kernel, edge waits at CTA scope", CTC_EDGE_CTA),
+            ("whole kernel, edge waits by try_wait (the second design)", CTC_EDGE_SUSPEND),
+            ("whole kernel, edge waits by try_wait, no suspend hint", CTC_EDGE_NO_HINT),
+        ],
+        "a CTA a row, the lattice in device memory": [
+            # the chain kernel returns after its sort: the class sums alone
+            ("ctc_grad_long_kernel alone", [(
+                "  const float* lp = log_probs + (size_t)b * T * C;\n  const size_t ts = (size_t)B * S;\n"
+                "  float* row = betas + (size_t)b * S;\n",
+                "  return;\n  const float* lp = log_probs + (size_t)b * T * C;\n"
+                "  const size_t ts = (size_t)B * S;\n  float* row = betas + (size_t)b * S;\n")]),
+            ("the beta chain alone, no ctc_grad_long_kernel", [(
+                "  ctc_grad_long_kernel<<<dim3(T, B), kGradThreads, 0, st>>>(",
+                "  if (false) ctc_grad_long_kernel<<<dim3(T, B), kGradThreads, 0, st>>>(")]),
+        ],
+    },
+}
+
+
+def ctc_long(src_tree=None):
+    """K6 past 4,096 states in the checkout at ``src_tree`` (default: this
+    one): ``ctc_alpha`` and ``ctc_beta_grad`` whole and in each cut of the
+    design `CTC_LONG_CUTS` finds in its ctc.cu, at every S of
+    `CTC_LONG_S`, device time from replayed graphs; in a tree with the
+    cluster route also its plan against `CTC_LONG_PLANS`, the shared and
+    cluster routes at `CTC_FORCED_S` (the cluster route forced by lowering
+    the module's ``MAX_STATES`` to 2,048, a substitution here and no knob
+    of the package), each time a step (``us_per_step``) and each whole
+    variant's largest difference from the plain version; beside
+    ``F.ctc_loss``. First the shared-memory route whole at `K6_SHAPES`
+    (``shared_route_ms``), which the chain's slice template must leave as fast
+    as its parent's. Prints the card, then one JSON line ``{"ctc_long": ...}``."""
+    if src_tree is not None:
+        src_tree = enter_tree(src_tree)
+    import chip_smoke as cs
+    from semi_tts_tpu_torch import use_fp32
+    from semi_tts_tpu_torch.kernels import build, ctc as k6
+
+    card = cs.phase_device()
+    use_fp32()
+    build.load("ctc")
+    text = open(os.path.join(build.CSRC, "ctc.cu")).read()
+    out_dir = build.BUILD_DIR / "ablate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    copies, designs = {"whole": text}, {}
+    cluster = hasattr(k6, "MAX_CLUSTER_WARPS")
+    for kern, by_design in CTC_LONG_CUTS.items():
+        designs[kern], cuts = pick_design(text, "ctc", f"ctc long {kern}", by_design)
+        if cluster != designs[kern].startswith("a cluster"):
+            raise SystemExit(f"chip_ablate: the cluster route's cuts of {kern} miss ctc.cu")
+        for i, (cut, edits) in enumerate(cuts):
+            cut_text = text
+            for old, new in edits:
+                cut_text = cut_text.replace(old, new)
+            copies[f"{kern} {cut}"] = cut_text
+    stems = {name: f"ctc_long_{i}" for i, name in enumerate(copies)}
+    procs = {}
+    for name, cut_text in copies.items():
+        cu = out_dir / f"{stems[name]}.cu"
+        cu.write_text(cut_text)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    ptxas = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"chip_ablate: nvcc failed for {name}:\n{log}")
+        ptxas[name] = {k: v for k, v in cs.ptxas_report(log).items() if "cluster" in k or "long" in k}
+        if name == "whole":
+            ptxas["whole, raw"] = [l.strip()[:160] for l in log.splitlines()
+                                   if "Function properties" in l or "spill" in l or "Used" in l]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    mine = build.load("ctc")
+
+    def load(name):
+        build._libs["ctc"] = ctypes.CDLL(str(out_dir / f"{stems[name]}.so"))
+        build.bind.cache_clear()
+
+    real_plan, real_max = k6.ctc_plan, k6.MAX_STATES
+    result = {"card": card, "tree": str(build.CSRC), "designs": designs, "ptxas": ptxas,
+              "shapes": {}, "max_cluster": k6.max_cluster() if cluster else None}
+    with torch.no_grad():
+        result["shared_route_ms"] = {
+            name: {key: cs.device_ms(f, 200) for key, (f, _) in calls.items()}
+            for name, calls in k6_calls(k6, dev).items()}
+        for S in CTC_LONG_S + ((CTC_FORCED_S,) if cluster else ()):
+            a = cs._k6_long_inputs(randn, dev, S)
+            ba = cs._ctc_beta_args(a)
+            B_, T, C = a[0].shape
+            calls = {"alpha": (lambda: k6.ctc_alpha(*a), lambda: k6.ctc_alpha_plain(*a)),
+                     "beta": (lambda: k6.ctc_beta_grad(*ba), lambda: k6.ctc_beta_grad_plain(*ba))}
+            want = {k: p() for k, (_, p) in calls.items()}
+            row = {"B": B_, "T": T, "C": C, "ms": {}, "max_abs_err": {},
+                   "library_ms": {"alpha": cs.time_ms(cs._ctc_library(*a, backward=False), 3),
+                                  "beta": cs.time_ms(cs._ctc_library(*a, backward=True), 3)}}
+            forced = S == CTC_FORCED_S
+            if forced:
+                row["ms"] = {f"{k} shared route": cs.device_ms(f, 3) for k, (f, _) in calls.items()}
+                k6.MAX_STATES = S - 1
+            row["plan"] = k6.ctc_plan(B_, T, S, k6.max_cluster()) if cluster else k6.ctc_plan(B_, T, S)
+            for name in copies:
+                kern = name.split(" ")[0]
+                if forced and name != "whole":
+                    continue
+                load(name)
+                for k, (f, _) in calls.items():
+                    if name == "whole" or k == kern:
+                        label = k if name == "whole" else name
+                        row["ms"][label] = cs.device_ms(f, 3)
+                        if name == "whole" or " whole " in f" {name} ":
+                            row["max_abs_err"][label] = cs.max_err(f(), want[k])
+            build._libs["ctc"] = mine
+            build.bind.cache_clear()
+            for k, (f, _) in calls.items():
+                row["ms"][f"{k} again"] = cs.device_ms(f, 3)
+            for K, W in CTC_LONG_PLANS.get(S, []) if cluster else []:
+                def plan(B_, T, S_, max_cluster=16, K=K, W=W):
+                    p = real_plan(B_, T, S_, max_cluster)
+                    if p["lattice"] != "cluster":
+                        return p
+                    P = -(-S_ // (32 * K * W))
+                    return dict(p, states_per_lane=K, chain_warps=W, cluster=P, grid=(B_ * P,),
+                                chunk=min(k6.CHUNK, 16 // K), beta_chunk=k6.CHUNK // K)
+                k6.ctc_plan = plan
+                for k, (f, _) in calls.items():
+                    label = f"{k} K={K} W={W} P={-(-S // (32 * K * W))}"
+                    row["ms"][label] = cs.device_ms(f, 3)
+                    row["max_abs_err"][label] = cs.max_err(f(), want[k])
+                k6.ctc_plan = real_plan
+            k6.MAX_STATES = real_max
+            row["us_per_step"] = {k: 1e3 * v / T for k, v in row["ms"].items()}
+            result["shapes"][f"B={B_} T={T} S={S}"] = row
+            print(json.dumps({S: row}), flush=True)
+    print(json.dumps({"ctc_long": result}))
+
+
 def step_busy(tree, kind):
     """The flagship ``kind`` step ("asr", "paired" or "speech_first") of the
     checkout at ``tree``: six steps, then steps 10 to 12 profiled."""
@@ -1422,6 +1663,8 @@ if __name__ == "__main__":
         sys.exit(sanitize_all())
     if sys.argv[1:2] == ["--kernel-mem"]:
         sys.exit(kernel_mem(sys.argv[2]))
+    if sys.argv[1:2] == ["--ctc-long"]:
+        sys.exit(ctc_long(sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None))
     if sys.argv[1:2] == ["--asr-busy"]:
         sys.exit(step_busy(sys.argv[2], "asr"))
     if sys.argv[1:2] == ["--paired-busy"]:

@@ -187,8 +187,9 @@ Phases, each fatal on failure:
    K9 at every shape of `SPLIT_SHAPES` (L from 1,188 to 8,000, the 30 s
    step's, ragged and masked with a wholly masked chunk, F = 0, A=1024
    F=64), K3 at B=16 L=32 (still one cluster a row, its time beside the
-   recorded one), K6 at S = 1,025 and 2,049 (4 and 8 states a lane) and 4,097 and
-   8,193 (the device-memory lattice) beside F.ctc_loss, B6 and its
+   recorded one), K6 at S = 1,025 and 2,049 (4 and 8 states a lane), 4,097 and
+   8,193 (a cluster of CTAs a row, ``us_per_step`` and its P, K, W) and
+   24,577 (the device-memory lattice past a cluster) beside F.ctc_loss, B6 and its
    backward at T = 14,529 and 20,000 (C=43) and T=14,528 C=8,000 (the
    argmax from device memory): each held to its plain version (1e-4; B6
    1e-6 on the means and exact elsewhere) and timed beside it and its
@@ -203,7 +204,7 @@ Phases, each fatal on failure:
    `AsrTrainer` at B=2 x 15.28 s and U=600 (K6 at 4 states a lane; one
    step against the CPU plain path by phase 5's gates) and graphed steps
    at U=1,100 over 30 s (8 states a lane) and U=2,100 over 60 s (the
-   device-memory lattice), each route by name. ``python3 chip_smoke.py
+   cluster lattice), each route by name. ``python3 chip_smoke.py
    --long`` runs the build and this phase alone.
 
 The server and the train steps run as CUDA graphs (`semi_tts_tpu_torch.graphs`):
@@ -580,14 +581,16 @@ def ptxas_report(log):
     the recurrence kernels (K1 with its cell-state flag, K2, K7, K8, and the
     wide routes: `rec_wide_kernel<4>` K1w, `<3>` K2w, K7w, K8w), of the
     attention kernels (K3 by its split flag and the combine; K9 by span and
-    loc_lin staging, and its sums kernel), of K6 (by states a lane, and the
-    device-memory route's three) and of B6, from nvcc's ``-Xptxas -v``
+    loc_lin staging, and its sums kernel), of K6 (by states a lane, the
+    cluster route's two by theirs, the device-memory route's three) and of
+    B6, from nvcc's ``-Xptxas -v``
     output."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(lstm_rec|gru_rec|lstm_bwd|gru_bwd|rec_wide|lstm_wide_bwd|gru_wide_bwd|"
                       r"attention_bwd_sum|attention_bwd|attention_step|attention_combine|"
-                      r"ctc_alpha_long|ctc_beta_long|ctc_grad_long|ctc_alpha|ctc_beta_grad|"
+                      r"ctc_alpha_cluster|ctc_beta_grad_cluster|ctc_alpha_long|ctc_beta_long|"
+                      r"ctc_grad_long|ctc_alpha|ctc_beta_grad|"
                       r"trim_argmax|trim_merge_bwd|trim_merge)_kernel"
                       r"(?:I(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?E)?", line)
         if "Compiling entry function" in line:
@@ -2055,6 +2058,8 @@ KERNEL_NAMES = {"bilstm_rec": r"lstm_rec_kernel<[^>]*false>",
                 "attention_combine": r"attention_combine_kernel",
                 "ctc_alpha_k4": r"ctc_alpha_kernel<4>", "ctc_beta_grad_k4": r"ctc_beta_grad_kernel<4>",
                 "ctc_alpha_k8": r"ctc_alpha_kernel<8>", "ctc_beta_grad_k8": r"ctc_beta_grad_kernel<8>",
+                "ctc_alpha_cluster": r"ctc_alpha_cluster_kernel",
+                "ctc_beta_grad_cluster": r"ctc_beta_grad_cluster_kernel",
                 "ctc_alpha_long": r"ctc_alpha_long_kernel", "ctc_beta_long": r"ctc_beta_long_kernel",
                 "ctc_grad_long": r"ctc_grad_long_kernel"}
 
@@ -4770,7 +4775,7 @@ LONG_TEXT_STEPS = 50            # decode steps of the requests held to eager and
 LONG_UNPAIRED_S = 661500        # 30.0 s: the speech-first step's unpaired row
 ASR_LONG_S, ASR_LONG_U = LONG_S, 600   # (c): B=2 x 15.28 s, U=600 (S=1,201: 4 states a lane)
 # (c'): graphed ASR steps whose CTC takes 8 states a lane (U=1,100 over 30 s: S=2,201) and
-# the device-memory lattice (U=2,100 over 60 s: S=4,201)
+# the cluster lattice (U=2,100 over 60 s: S=4,201)
 ASR_ROUTE_STEPS = ((LONG_UNPAIRED_S, 1100, "k8"), (2 * LONG_UNPAIRED_S, 2100, "long"))
 # (B, L, widths, masked) of the split K3 and K9 rows; "L30" is the 30 s step's memory
 SPLIT_SHAPES = (("B=1 L=1188", 1, 1188, {}, False), ("B=1 L=1501", 1, 1501, {}, False),
@@ -4779,14 +4784,17 @@ SPLIT_SHAPES = (("B=1 L=1188", 1, 1188, {}, False), ("B=1 L=1501", 1, 1501, {}, 
                 ("A=1024 F=64 B=1 L=1500", 1, 1500, dict(A=1024, F_=64), False))
 K3_SHORT = "B=16 L=32"          # the serving shape: the single-cluster kernel, its time kept
 K3_SHORT_MS = 0.0086958         # its recorded time (PERF.md section 6), H100 80GB HBM3, 700 W
-K6_LONG_S = (1025, 2049, 4097, 8193)  # K6 at 4 and 8 states a lane, then the device lattice
+K6_LONG_S = (1025, 2049, 4097, 8193)  # K6 at 4 and 8 states a lane, then a cluster a row
+# (S, T, target lengths, input lengths) of K6 past a cluster's 24,576 states (the device-memory
+# lattice): U = 12,288 labels, rows of 600 and 500 over T = 700
+K6_PAST_CLUSTER = (24577, 700, (600, 500), (700, 650))
 B6_LONG = ((14529, 43), (20000, 43), (14528, 8000))  # (T, C) of B6 past 14,528 frames or the ring
 PHASE13_KERNELS = {"a": ("attention_step_split", "attention_combine") + SERVING_KERNELS,
                 "b": ("attention_step_split", "attention_combine", "attention_step_bwd",
                       "trim_merge", "trim_merge_bwd"),
                 "c": ("ctc_alpha_k4", "ctc_beta_grad_k4"),
                 "k8": ("ctc_alpha_k8", "ctc_beta_grad_k8"),
-                "long": ("ctc_alpha_long", "ctc_beta_long", "ctc_grad_long")}
+                "long": ("ctc_alpha_cluster", "ctc_beta_grad_cluster")}
 
 
 def _split_inputs(randn, unif, dev, B_, L, widths, masked):
@@ -4919,22 +4927,25 @@ def _k6_long_inputs(randn, dev, S, B_=2):
 
 
 def long_ctc_rows(randn, dev):
-    """K6 at every S of `K6_LONG_S`: ``ctc_alpha`` held to its plain version
-    at 1e-4 (log-domain alphas and NLL, which grow with T), ``ctc_beta_grad``
-    at 1e-4 of its largest value (`rel_err`: the 'mean' reduction's g makes
-    it ~1/U) and its rerun bit for bit,
-    timed (graph-replayed; the plain versions eagerly, a host loop of T
-    steps) beside F.ctc_loss (forward; forward + backward), rows by route:
-    the shared-memory lattice at 4 and 8 states a lane, the device-memory
-    lattice."""
+    """K6 at every S of `K6_LONG_S` and at `K6_PAST_CLUSTER`: ``ctc_alpha``
+    held to its plain version at 1e-4 (log-domain alphas and NLL, which grow
+    with T), ``ctc_beta_grad`` at 1e-4 of its largest value (`rel_err`: the
+    'mean' reduction's g makes it ~1/U) and its rerun bit for bit, timed
+    (graph-replayed; the plain versions eagerly, a host loop of T steps)
+    beside F.ctc_loss (forward; forward + backward), rows by route: the
+    shared-memory lattice at 4 and 8 states a lane, the cluster lattice
+    (with its time a step and its plan's P, K and W at each shape) and the
+    device-memory lattice past a cluster's states."""
     from semi_tts_tpu_torch.kernels import ctc as k6
 
-    routes = {"shared": {}, "device": {}}
-    for S in K6_LONG_S:
-        a = _k6_long_inputs(randn, dev, S)
+    S_, T_, tl_, il_ = K6_PAST_CLUSTER
+    shapes = [(S, _k6_long_inputs(randn, dev, S)) for S in K6_LONG_S]
+    shapes.append((S_, _ctc_inputs(randn, dev, 2, T_, 43, (S_ - 1) // 2, seed=S_, tl=tl_, il=il_)))
+    routes = {"shared": {}, "cluster": {}, "device": {}}
+    for S, a in shapes:
         B_, T, C = a[0].shape
         key = ctc_shape_key(B_, T, C, S)
-        plan = k6.ctc_plan(B_, T, S)
+        plan = k6.ctc_plan(B_, T, S, k6.max_cluster())
         by = routes[plan["lattice"]].setdefault("alpha", {n: {} for n in (
             "err", "ms", "plain", "bound", "library", "plan")})
         bb = routes[plan["lattice"]].setdefault("beta", {n: {} for n in (
@@ -4958,8 +4969,10 @@ def long_ctc_rows(randn, dev):
             d["bound"][key] = bound(cost(B_, T, C, S), lambda f=kern, x=args: f(*x))
             d["library"][key] = time_ms(_ctc_library(*a, backward=backward), 3)
             d["plan"][key] = plan
+            d.setdefault("T", {})[key] = T
     rows = []
-    for lattice, what in (("shared", "K = 4, 8"), ("device", "device-memory lattice")):
+    for lattice, what in (("shared", "K = 4, 8"), ("cluster", "cluster lattice"),
+                          ("device", "device-memory lattice")):
         for part, name, replaces, lib in (
                 ("alpha", "ctc_alpha", "semi_tts_tpu/ops/ctc.py:63 (_alpha_pass)",
                  "F.ctc_loss forward, reduction mean (CUDA events, eager)"),
@@ -4967,9 +4980,18 @@ def long_ctc_rows(randn, dev):
                  "F.ctc_loss forward + backward, reduction mean (CUDA events, eager)")):
             by = routes[lattice][part]
             main = next(iter(by["ms"]))
+            past = {"shared": "1,024", "cluster": "4,096", "device": "24,576"}[lattice]
+            extra = {"plans": by["plan"]}
+            if lattice != "shared":
+                steps = {k: 1e3 * v / by["T"][k] for k, v in by["ms"].items()}
+                extra.update(us_per_step=steps[main], us_per_step_by_shape=steps)
+            if lattice == "cluster":
+                pkw = {k: {"P": p["cluster"], "K": p["states_per_lane"], "W": p["chain_warps"]}
+                       for k, p in by["plan"].items()}
+                extra.update(cluster_plan=pkw[main], cluster_plan_by_shape=pkw)
             rows.append(_long_row(f"{name} {what}", "semi_tts_tpu_torch/csrc/ctc.cu",
-                                  f"{replaces}, past 1,024 lattice states", by, main, 1e-4, lib,
-                                  {"plans": by["plan"]}))
+                                  f"{replaces}, past {past} lattice states", by, main, 1e-4, lib,
+                                  extra))
     return rows
 
 
@@ -5186,7 +5208,7 @@ def long_asr(dev):
     and one step on the card against the CPU plain path on the same
     weights (dropout 0, the same augmentation), held to phase 5's gates;
     then graphed steps whose CTC takes 8 states a lane (B=1 x 30 s, U=1,100)
-    and the device-memory lattice (B=1 x 60 s, U=2,100), each K6 route seen
+    and the cluster lattice (B=1 x 60 s, U=2,100), each K6 route seen
     by name in a profiled replay, losses finite."""
     from semi_tts_tpu_torch.train.train_asr import AsrTrainer
 
@@ -5257,14 +5279,19 @@ def phase_long(card, dev):
             + asr["k8"]["kernels_seen"]["ctc_alpha_k8"],
             "ctc_beta_grad K = 4, 8": asr["c"]["kernels_seen"]["ctc_beta_grad_k4"]
             + asr["k8"]["kernels_seen"]["ctc_beta_grad_k8"],
-            "ctc_alpha device-memory lattice": asr["long"]["kernels_seen"]["ctc_alpha_long"],
-            "ctc_beta_grad device-memory lattice": asr["long"]["kernels_seen"]["ctc_grad_long"]}
+            "ctc_alpha cluster lattice": asr["long"]["kernels_seen"]["ctc_alpha_cluster"],
+            "ctc_beta_grad cluster lattice": asr["long"]["kernels_seen"]["ctc_beta_grad_cluster"]}
     per = {"attention_step split": "long-text request (a), 50 decode steps",
            "attention_step_bwd long": "30 s speech-first step (b)",
            "ctc_alpha K = 4, 8": "ASR steps (c) U=600 and (c') U=1,100",
            "ctc_beta_grad K = 4, 8": "ASR steps (c) U=600 and (c') U=1,100",
-           "ctc_alpha device-memory lattice": "ASR step (c') U=2,100",
-           "ctc_beta_grad device-memory lattice": "ASR step (c') U=2,100"}
+           "ctc_alpha cluster lattice": "ASR step (c') U=2,100",
+           "ctc_beta_grad cluster lattice": "ASR step (c') U=2,100",
+           "ctc_alpha device-memory lattice": "no driven path: S past 24,576 is a row of more "
+                                              "than 12,287 labels; checked and timed at its shape",
+           "ctc_beta_grad device-memory lattice": "no driven path: S past 24,576 is a row of "
+                                                  "more than 12,287 labels; checked and timed at "
+                                                  "its shape"}
     for row in rows:
         row["launches"] = seen.get(row["name"], 0)
         row["launches_per"] = per.get(row["name"], "no driven path: T past 14,528 frames is "

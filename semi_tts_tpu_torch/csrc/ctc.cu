@@ -1,4 +1,5 @@
-// K6: CTC over the log-semiring lattice, a CTA of chain warps a row.
+// K6: CTC over the log-semiring lattice, a CTA of chain warps a row (past
+// 4,096 states, a cluster of them).
 //
 // Replaces: B5, `semi_tts_tpu/ops/ctc.py`: `_alpha_pass` (`:63`, the
 // forward recursion and the NLL), `_ctc_nll_bwd` (`:123`, the backward
@@ -65,17 +66,42 @@
 //   keys can outgrow a chunk's segment sums and their region grows to hold
 //   them (~197 KB at K = 8 in 16 warps).
 //
-// Past 4,096 states, the device-memory route (`ctc_alpha_long_f32`,
-// `ctc_beta_grad_long_f32`): a CTA of 1,024 threads a row, a thread a
-// state at a time in a strided loop. The forward reads step t - 1's alphas
-// back from the (T, B, S) output it writes, one __syncthreads a step. The
-// backward first sorts the row's valid states by (class, s) (one warp, a
-// stable counting sort by __match_any_sync ballots), then runs the beta
-// chain the same way over a (T, B, S) scratch; a second kernel, a CTA a
-// (step, row), sums the occupancies exp(min(alpha + beta + nll, 0)) of each
-// class's sorted run (a warp a class, lanes strided over the run, then
-// shuffles in a fixed order) into grad[b, t, class]. The same arithmetic
-// as the shared-memory route, no atomics: a rerun is bit for bit.
+// Past 4,096 states, the cluster route (`ctc_alpha_cluster_f32`,
+// `ctc_beta_grad_cluster_f32`): a thread-block cluster of P CTAs a row
+// (up to 16, non-portable past 8), CTA p holding the slice of 32 K W states
+// from p * 32 K W, K = 2 or 4 states a lane in up to 12 warps. Each CTA
+// runs the chain above on its slice (the same code, `alpha_chain`/
+// `beta_grad` with Split): its lanes' states stay in registers, their
+// neighbours come from its lattice under the named barrier. Only a slice's
+// edge crosses CTAs: forward, its top two states of each step go into CTA
+// p + 1's shared memory (backward, the bottom two x go down to CTA p - 1),
+// by an `st.async` whose bytes complete that slot's mbarrier, through a
+// ring of kEdgeRing slots that the receiver hands back with an `st.async`
+// onto the sender's "empty" mbarrier of the slot. Only the warp at the
+// edge waits, and no step waits on a cluster barrier: information flows
+// one way, so CTA p - 1 runs up to kEdgeRing steps ahead of CTA p and a
+// hand-off's latency is paid once over the row, not once a step. No
+// hand-off fences: a release (a remote `mbarrier.arrive.release.cluster`
+// after a plain remote store, the first design) waits for the thread's
+// stores of alphas to device memory, and cost ~0.33 us a step of ~0.8
+// (`chip_ablate.py --ctc-long`).
+// Each CTA's class-sum warps sum the occupancies of its slice as above into
+// a (B, P, T, C) scratch of partial sums; after the one cluster barrier at
+// the end, grad[b, t, c] = -g[b] times their sum in rank order. No
+// (T, B, S) scratch, no atomics: a rerun is bit for bit.
+//
+// Past a cluster's 16 x 32 x 4 x 12 = 24,576 states, the device-memory
+// route (`ctc_alpha_long_f32`, `ctc_beta_grad_long_f32`): a CTA of 1,024
+// threads a row, a thread a state at a time in a strided loop. The forward
+// reads step t - 1's alphas back from the (T, B, S) output it writes, one
+// __syncthreads a step. The backward first sorts the row's valid states by
+// (class, s) (one warp, a stable counting sort by __match_any_sync
+// ballots), then runs the beta chain the same way over a (T, B, S)
+// scratch; a second kernel, a CTA a (step, row), sums the occupancies
+// exp(min(alpha + beta + nll, 0)) of each class's sorted run (a warp a
+// class, lanes strided over the run, then shuffles in a fixed order) into
+// grad[b, t, class]. The same arithmetic as the shared-memory route, no
+// atomics: a rerun is bit for bit.
 
 #include <climits>
 
@@ -96,6 +122,13 @@ constexpr int kHead = 1 << 30;
 constexpr int kSmemLimit = 232448;   // H100: dynamic shared memory a block may use
 constexpr int kLongThreads = 1024;   // the device-memory route's CTA (LONG_THREADS)
 constexpr int kGradThreads = 256;    // its class sums' CTA, a (step, row)
+constexpr int kMaxCluster = 16;      // the cluster route's CTAs a row (MAX_CLUSTER)
+constexpr int kPortableCluster = 8;  // past this, a non-portable cluster (PORTABLE_CLUSTER)
+constexpr int kMaxClusterWarps = 12; // its chain warps at most (MAX_CLUSTER_WARPS)
+constexpr int kEdgeRing = 8;         // edge slots between neighbouring CTAs (EDGE_RING)
+// the edge's full and empty mbarriers, its slots of two floats and their
+// acknowledgements' words (EDGE_BYTES)
+constexpr size_t kEdgeBytes = 28 * kEdgeRing;
 
 // Steps a forward register chunk holds at K states a lane (CHUNK at K <= 2).
 __host__ __device__ constexpr int fwd_chunk(int K) { return K <= 2 ? kChunk : 16 / K; }
@@ -130,10 +163,17 @@ constexpr size_t beta_smem(int K, int W) {
 // conditional expressions they compiled to a slower chain.
 __device__ __forceinline__ float sel(bool p, float x, float y) { return p ? x : y; }
 
-// *g = v where p, without a branch.
+// *g = v where p, without a branch; EvictFirst: a streaming store (`.cs`),
+// for outputs that no later step of the kernel reads.
+template <bool EvictFirst = false>
 __device__ __forceinline__ void st_if(bool p, float* g, float v) {
-  asm volatile("{\n .reg .pred q;\n setp.ne.s32 q, %2, 0;\n @q st.global.f32 [%0], %1;\n}\n" ::"l"(g),
-               "f"(v), "r"((int)p));
+  if constexpr (EvictFirst)
+    asm volatile("{\n .reg .pred q;\n setp.ne.s32 q, %2, 0;\n @q st.global.cs.f32 [%0], %1;\n}\n" ::"l"(
+                     g),
+                 "f"(v), "r"((int)p));
+  else
+    asm volatile("{\n .reg .pred q;\n setp.ne.s32 q, %2, 0;\n @q st.global.f32 [%0], %1;\n}\n" ::"l"(g),
+                 "f"(v), "r"((int)p));
 }
 
 __device__ __forceinline__ float logaddexp3(float a, float b, float c) {
@@ -161,15 +201,30 @@ __device__ __forceinline__ void mbar_arrive(unsigned bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+// Cluster: acquire at cluster scope, for phases that peers' asynchronous
+// stores complete (what they stored is then visible), and polled by
+// test_wait, which never suspends the warp: on the cluster route's edge,
+// where a warp waits every step, a suspending try_wait cost 6-7% of the
+// forward's step (`chip_ablate.py --ctc-long`).
+template <bool Cluster = false>
 __device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
   unsigned done;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, 1000000;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
+  if constexpr (Cluster)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.test_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  else
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, 1000000;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   return done != 0;
 }
 
@@ -182,12 +237,127 @@ __device__ __forceinline__ unsigned long long global_ns() {
 // Wait until the phase of parity `parity` of the mbarrier has completed. A
 // wait of more than 2 s traps, so a lost hand-off fails the launch instead
 // of hanging the card.
+template <bool Cluster = false>
 __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  if (mbar_try_wait(bar, parity)) return;
+  if (mbar_try_wait<Cluster>(bar, parity)) return;
   const unsigned long long t0 = global_ns();
-  while (!mbar_try_wait(bar, parity))
+  while (!mbar_try_wait<Cluster>(bar, parity))
     if (global_ns() - t0 > 2000000000ull) __trap();
 }
+
+// ------------------------------------------------ a cluster's edge hand-off --
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return (int)n;
+}
+
+// Every thread of the cluster: what it wrote before (shared or global
+// memory) is visible to every thread of the cluster after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address in CTA `rank` of the cluster of this CTA's shared address a.
+__device__ __forceinline__ unsigned map_rank(unsigned a, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(a), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// An asynchronous store of two floats (one: st_async1) into a peer's shared
+// memory, `dst` in the cluster's window, whose bytes complete the peer's
+// mbarrier `bar` (in the window). It fences nothing: it does not wait for
+// this thread's earlier stores to device memory, as a release would.
+__device__ __forceinline__ void st_async2(unsigned dst, float lo, float hi, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          dst),
+      "f"(lo), "f"(hi), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async1(unsigned dst, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
+                   dst),
+               "f"(v), "r"(bar)
+               : "memory");
+}
+
+// A CTA's two ends of the chain of a row's CTAs. It receives the edge of
+// CTA `from` (two floats a step) into the slots of its own ring and sends
+// its own edge into the ring of CTA `to` (-1: none), each by `st.async`. At
+// `base` in its shared memory: kEdgeRing "full" mbarriers (a slot's two
+// floats have landed), kEdgeRing "empty" ones (the receiver has read what
+// this CTA last sent into that slot), the slots, and a word a slot that
+// the receiver's acknowledgement lands in. Step e uses slot e % kEdgeRing;
+// the sender runs up to kEdgeRing steps ahead of the receiver and waits
+// only when it is that far. Each mbarrier takes one arrival a phase, its
+// owner's, with the bytes it expects (`mbar_expect_tx`), armed for a phase
+// once the last has completed.
+struct Edge {
+  unsigned base;
+  int to, from;
+
+  __device__ unsigned full(int i) const { return base + 8 * i; }
+  __device__ unsigned empty(int i) const { return base + 8 * (kEdgeRing + i); }
+  __device__ unsigned slot(int i) const { return base + 8 * (2 * kEdgeRing + i); }
+  __device__ unsigned ack(int i) const { return base + 24 * kEdgeRing + 4 * i; }
+
+  // One thread: the mbarriers, armed for their first phase and visible to
+  // the cluster (a cluster_sync must follow before any hand-off).
+  __device__ void init() const {
+    for (int i = 0; i < kEdgeRing; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < kEdgeRing; ++i) {
+      mbar_expect_tx(full(i), 8);
+      mbar_expect_tx(empty(i), 4);
+    }
+  }
+
+  // Step e's edge (lo, hi) into CTA `to`'s slot. A whole warp calls (the
+  // warp waits for the slot, ROADMAP C6); lane `src` holds the values.
+  __device__ void send(int e, int src, float lo, float hi) const {
+    const int i = e % kEdgeRing, r = e / kEdgeRing;
+    if (r > 0) mbar_wait<true>(empty(i), (r - 1) & 1);  // what round r - 1 sent was read
+    if ((threadIdx.x & 31) == src) {
+      if (r > 0) mbar_expect_tx(empty(i), 4);  // round r's acknowledgement
+      st_async2(map_rank(slot(i), to), lo, hi, map_rank(full(i), to));
+    }
+  }
+
+  // Step e's edge from CTA `from`: a whole warp waits for it; lane `dst`
+  // reads it (the other lanes get -inf), arms the slot for its next round
+  // and acknowledges it. The acknowledgement's word is a value just read,
+  // so it cannot leave before the read.
+  __device__ float2 recv(int e, int dst) const {
+    const int i = e % kEdgeRing;
+    mbar_wait<true>(full(i), (e / kEdgeRing) & 1);
+    float2 v = make_float2(kNegInf, kNegInf);
+    if ((threadIdx.x & 31) == dst) {
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(slot(i))
+                   : "memory");
+      mbar_expect_tx(full(i), 8);
+      st_async1(map_rank(ack(i), from), v.x, map_rank(empty(i), from));
+    }
+    return v;
+  }
+};
 
 // A chunk of CH steps of this thread's emissions (and, backward, alphas),
 // loaded into registers a chunk ahead of the chain: no step waits on a
@@ -197,33 +367,46 @@ struct Chunk {
   float v[CH][K];
 };
 
-// A CTA a row: lane L = threadIdx.x of its W = blockDim.x / 32 chain warps
-// holds states L*K .. L*K+K-1. Shared memory: the lattice of the last two
-// steps, (2, 32 K W + 4) floats, state s of step t at (t & 1, 2 + s) with
-// -inf at 0 and 1 (below state 0).
-template <int K>
-__global__ void __launch_bounds__(32 * kMaxChainWarps)
-    ctc_alpha_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
-                     const int* __restrict__ input_lengths, const int* __restrict__ target_lengths,
-                     float* __restrict__ alphas, float* __restrict__ nll, int B, int T, int C, int U,
-                     int blank) {
+// The forward chain over a slice of a row: the whole row in a CTA (Split
+// false, the shared-memory route), or in the cluster route the slice of CTA
+// `rank` of the row's cluster of P, states s0 = rank * 32 K W on. Lane L =
+// threadIdx.x of its W = blockDim.x / 32 chain warps holds states s0 + L*K ..
+// s0 + L*K+K-1. Shared memory: the lattice of the last two steps, (2, 32 K W
+// + 4) floats, state s0 + s of step t at (t & 1, 2 + s) with -inf at 0 and 1
+// (below the slice); in a cluster, then its `Edge`: each step's top two
+// states of the slice go up to CTA rank + 1, whose lane 0 takes them as its
+// s - 1 and s - 2 in place of those guards.
+template <int K, bool Split>
+__device__ __forceinline__ void alpha_chain(const float* __restrict__ log_probs,
+                                            const int* __restrict__ targets,
+                                            const int* __restrict__ input_lengths,
+                                            const int* __restrict__ target_lengths,
+                                            float* __restrict__ alphas, float* __restrict__ nll,
+                                            int B, int T, int C, int U, int blank) {
+  static_assert(!Split || K >= 2, "a slice's edge is its top lane's two top states");
   constexpr int CH = fwd_chunk(K);  // steps a chunk
   extern __shared__ __align__(16) float lat[];
   const int nl = blockDim.x, L = threadIdx.x, ls = 32 * K * (nl >> 5) + 4;  // a step's row
   const int S = 2 * U + 1;
-  const int b = blockIdx.x;
+  const int P = Split ? cluster_size() : 1, rank = Split ? cluster_rank() : 0;
+  const int b = blockIdx.x / P, s0 = rank * (ls - 4);
   const int* tgt = targets + (size_t)b * U;
   const int tl = min(target_lengths[b], U);
   // steps computed; from Tc on the row is frozen (step 0 always is computed)
   const int Tc = max(1, min(input_lengths[b], T));
   const float* lp = log_probs + (size_t)b * T * C;
   if (L < 2) lat[L] = lat[ls + L] = kNegInf;
+  const Edge ed{smem_addr(lat + 2 * ls), rank + 1 < P ? rank + 1 : -1, rank - 1};
+  if constexpr (Split) {
+    if (L == 0) ed.init();
+    cluster_sync();  // every peer's mbarriers are set before any hand-off
+  }
 
   int z[K];
-  unsigned on = 0, valid = 0, skip = 0;  // bit j: state L*K + j
+  unsigned on = 0, valid = 0, skip = 0;  // bit j: state s0 + L*K + j
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    const int s = L * K + j;
+    const int s = s0 + L * K + j;
     z[j] = s < S ? label(tgt, s, blank) : blank;
     if (s < S) on |= 1u << j;
     if (s < 2 * tl + 1) valid |= 1u << j;
@@ -243,7 +426,7 @@ __global__ void __launch_bounds__(32 * kMaxChainWarps)
   if (n_chunks > 1) fetch(nxt, 1);
 
   const size_t t_stride = (size_t)B * S;
-  float* out = alphas + (size_t)b * S + L * K;
+  float* out = alphas + (size_t)b * S + s0 + L * K;
   float a[K];
   for (int k = 0; k < n_chunks; ++k) {
 #pragma unroll
@@ -253,12 +436,16 @@ __global__ void __launch_bounds__(32 * kMaxChainWarps)
       if (t == 0) {
 #pragma unroll
         for (int j = 0; j < K; ++j)
-          a[j] = sel(((valid >> j) & 1) && L * K + j <= 1, cur.v[0][j], kNegInf);
+          a[j] = sel(((valid >> j) & 1) && s0 + L * K + j <= 1, cur.v[0][j], kNegInf);
       } else {
         // alpha[s-1] and alpha[s-2] below this thread's first state, from the
         // lattice of step t - 1
         const float* prev = lat + ((t - 1) & 1) * ls + 2 + L * K;
-        const float up1 = prev[-1], up2 = prev[-2];
+        float up1 = prev[-1], up2 = prev[-2];
+        if (Split && rank > 0 && L < 32) {  // warp 0: CTA rank - 1's top two of step t - 1
+          const float2 e = ed.recv(t - 1, 0);
+          if (L == 0) up1 = e.y, up2 = e.x;
+        }
         float nw[K];
 #pragma unroll
         for (int j = 0; j < K; ++j) {
@@ -274,8 +461,10 @@ __global__ void __launch_bounds__(32 * kMaxChainWarps)
 #pragma unroll
       for (int j = 0; j < K; ++j) {
         next[j] = a[j];
-        st_if((on >> j) & 1, out + j, a[j]);
+        st_if<Split>((on >> j) & 1, out + j, a[j]);
       }
+      // the top warp: the slice's top two states of step t up to CTA rank + 1
+      if (Split && rank + 1 < P && L >= nl - 32) ed.send(t, 31, a[K >= 2 ? K - 2 : 0], a[K - 1]);
       out += t_stride;
       // the chain warps' barrier: step t's lattice is complete; the buffer
       // of step t - 1 is free for step t + 1
@@ -286,50 +475,114 @@ __global__ void __launch_bounds__(32 * kMaxChainWarps)
   }
   for (int t = Tc; t < T; ++t, out += t_stride) {  // the row's input has ended: frozen
 #pragma unroll
-    for (int j = 0; j < K; ++j) st_if((on >> j) & 1, out + j, a[j]);
+    for (int j = 0; j < K; ++j) st_if<Split>((on >> j) & 1, out + j, a[j]);
   }
-  if (L == 0) {
-    const float* fin = lat + ((Tc - 1) & 1) * ls + 2;
+  // The NLL, in the CTA that holds state 2 tl. Where that is the slice's
+  // first state, state 2 tl - 1 is the top state of CTA rank - 1 at step
+  // Tc - 1: its last edge.
+  const bool ends = 2 * tl >= s0 && 2 * tl < s0 + ls - 4;
+  float below = kNegInf;
+  if (Split && ends && tl > 0 && 2 * tl == s0 && L < 32) below = ed.recv(Tc - 1, 0).y;
+  if (L == 0 && ends) {
+    const float* fin = lat + ((Tc - 1) & 1) * ls + 2 - s0;  // by state
     const float a_end = fin[2 * tl];
-    const float a_last = tl > 0 ? fin[2 * tl - 1] : kNegInf;
+    const float a_last = tl > 0 ? (2 * tl > s0 ? fin[2 * tl - 1] : below) : kNegInf;
     const float m = fmaxf(a_end, a_last);
     nll[b] = -(m + log1pf(expf(-fabsf(a_end - a_last))));
   }
+  if constexpr (Split) cluster_sync();  // no CTA leaves while a peer may address it
 }
 
-// A CTA a row: W = blockDim.x / 32 - kConsumerWarps chain warps (lane L =
-// threadIdx.x holds states L*K .. L*K+K-1), then the class-sum warps.
-// Shared memory: the full and empty mbarriers of the occupancy ring's slots;
-// the chain's values x = beta + emission of the last two steps, (2, 32 K W +
-// 4) floats, state s of step n at (n & 1, s) with -inf above the last
-// state; the occupancy ring, (kDepth, CH, K, 32 W) floats (CH = kChunk /
-// K steps a chunk), entry (i, j, L) at step n = k*CH + i of the chain (t =
-// Tc - 1 - n) and state L*K + j; the class sums' lists, 32 K W ints each,
-// and a chunk's segment sums.
 template <int K>
-__global__ void __launch_bounds__(32 * (kMaxChainWarps + kConsumerWarps))
-    ctc_beta_grad_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
-                         const int* __restrict__ input_lengths,
-                         const int* __restrict__ target_lengths, const float* __restrict__ alphas,
-                         const float* __restrict__ nll, const float* __restrict__ g,
-                         float* __restrict__ grad, int B, int T, int C, int U, int blank) {
+__global__ void __launch_bounds__(32 * kMaxChainWarps)
+    ctc_alpha_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
+                     const int* __restrict__ input_lengths, const int* __restrict__ target_lengths,
+                     float* __restrict__ alphas, float* __restrict__ nll, int B, int T, int C, int U,
+                     int blank) {
+  alpha_chain<K, false>(log_probs, targets, input_lengths, target_lengths, alphas, nll, B, T, C, U,
+                        blank);
+}
+
+// The cluster route's forward: a cluster of P CTAs a row (grid B P).
+template <int K>
+__global__ void __launch_bounds__(32 * kMaxClusterWarps)
+    ctc_alpha_cluster_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
+                             const int* __restrict__ input_lengths,
+                             const int* __restrict__ target_lengths, float* __restrict__ alphas,
+                             float* __restrict__ nll, int B, int T, int C, int U, int blank) {
+  alpha_chain<K, true>(log_probs, targets, input_lengths, target_lengths, alphas, nll, B, T, C, U,
+                       blank);
+}
+
+// Row b of a cluster's gradient, once every CTA of its cluster (all of
+// its threads call this) has its class sums in `partials` (B, P, T, C):
+// grad[b] = -g[b] times their sum in rank order, each CTA a share of the
+// (step, class) entries.
+__device__ __forceinline__ void cluster_grad(const float* __restrict__ g, float* __restrict__ grow,
+                                             const float* __restrict__ partials, int b, int P,
+                                             int rank, int T, int C) {
+  cluster_sync();
+  const float* ps = partials + (size_t)b * P * T * C;
+  for (size_t i = threadIdx.x + (size_t)rank * blockDim.x; i < (size_t)T * C;
+       i += (size_t)P * blockDim.x) {
+    float acc = 0.0f;
+    for (int p = 0; p < P; ++p) acc += __ldcg(ps + (size_t)p * T * C + i);
+    grow[i] = -acc * g[b];
+  }
+}
+
+// The backward chain and class sums over a slice of a row, as alpha_chain
+// slices it: W = blockDim.x / 32 - kConsumerWarps chain warps (lane L =
+// threadIdx.x holds states s0 + L*K .. s0 + L*K+K-1), then the class-sum
+// warps. Shared memory: the full and empty mbarriers of the occupancy
+// ring's slots; the chain's values x = beta + emission of the last two
+// steps, (2, 32 K W + 4) floats, state s0 + s of step n at (n & 1, s) with
+// -inf above the slice; the occupancy ring, (kDepth, CH, K, 32 W) floats
+// (CH = kChunk / K steps a chunk), entry (i, j, L) at step n = k*CH + i of
+// the chain (t = Tc - 1 - n) and state s0 + L*K + j; the class sums' lists,
+// 32 K W ints each, and a chunk's segment sums; in a cluster, all of it
+// after its `Edge`: each step's bottom two x of the slice go down to CTA
+// rank - 1, whose top lane takes them as its x[s+1] and x[s+2] in place of
+// the guards. A cluster's CTAs store their class sums into `partials` (B,
+// P, T, C), and `cluster_grad` adds them up.
+template <int K, bool Split>
+__device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
+                                          const int* __restrict__ targets,
+                                          const int* __restrict__ input_lengths,
+                                          const int* __restrict__ target_lengths,
+                                          const float* __restrict__ alphas,
+                                          const float* __restrict__ nll,
+                                          const float* __restrict__ g, float* __restrict__ grad,
+                                          float* __restrict__ partials, int B, int T, int C, int U,
+                                          int blank) {
+  static_assert(!Split || K >= 2, "a slice's edge is its bottom lane's two bottom states");
   constexpr int CH = kChunk / K;  // steps a chunk: kChunk values a thread
   extern __shared__ __align__(16) unsigned char smem[];
   const int W = (blockDim.x >> 5) - kConsumerWarps, nl = 32 * W, ls = 32 * K * W + 4;
   const int S = 2 * U + 1;
-  const int b = blockIdx.x;
+  const int P = Split ? cluster_size() : 1, rank = Split ? cluster_rank() : 0;
+  const int b = blockIdx.x / P, s0 = rank * (ls - 4);
   const int* tgt = targets + (size_t)b * U;
   const int tl = min(target_lengths[b], U), n_valid = 2 * tl + 1;
   const int Tc = min(input_lengths[b], T);  // steps with a gradient
   const float nll_b = nll[b];
   float* grow = grad + (size_t)b * T * C;
   if (Tc <= 0 || !(nll_b < -kNegInf / 2)) {  // no input, or an impossible alignment: zero
-    for (size_t i = threadIdx.x; i < (size_t)T * C; i += blockDim.x) grow[i] = 0.0f;
+    for (size_t i = threadIdx.x + (size_t)rank * blockDim.x; i < (size_t)T * C;
+         i += (size_t)P * blockDim.x)
+      grow[i] = 0.0f;
     return;
   }
-  const unsigned full0 = smem_addr(smem), empty0 = full0 + 8 * kDepth;
-  int* n_runs = reinterpret_cast<int*>(smem + 16 * kDepth);
-  float* lat = reinterpret_cast<float*>(smem + 16 * kDepth + 16);
+  // the slice's valid states (the row's itself in a CTA a row: computed,
+  // it slowed the shared route's backward by 7% at one state a lane), and
+  // where its class sums go: the row's gradient, or in a cluster the CTA's
+  // partial sums
+  const int nv = Split ? min(max(n_valid - s0, 0), ls - 4) : n_valid;
+  float* gsum = Split ? partials + ((size_t)b * P + rank) * T * C : grow;
+  unsigned char* base = smem + (Split ? kEdgeBytes : 0);
+  const unsigned full0 = smem_addr(base), empty0 = full0 + 8 * kDepth;
+  int* n_runs = reinterpret_cast<int*>(base + 16 * kDepth);
+  float* lat = reinterpret_cast<float*>(base + 16 * kDepth + 16);
   float* o_ring = lat + lattice_floats(K, W);
   int* zs = reinterpret_cast<int*>(o_ring + (size_t)kDepth * CH * K * nl);
   int* sz = zs + K * nl;
@@ -342,17 +595,23 @@ __global__ void __launch_bounds__(32 * (kMaxChainWarps + kConsumerWarps))
       mbar_init(empty0 + 8 * i, kConsumers);
     }
   if (threadIdx.x < 4) lat[ls - 4 + threadIdx.x] = lat[2 * ls - 4 + threadIdx.x] = kNegInf;
-  __syncthreads();
+  const Edge ed{smem_addr(smem), rank - 1, rank + 1 < P ? rank + 1 : -1};
+  if constexpr (Split) {
+    if (threadIdx.x == 0) ed.init();
+    cluster_sync();  // every peer's mbarriers are set before any hand-off
+  } else {
+    __syncthreads();
+  }
   const int n_chunks = (Tc + CH - 1) / CH;
 
   if (threadIdx.x < nl) {  // the backward chain
     const int L = threadIdx.x;
     const float* lp = log_probs + (size_t)b * T * C;
     int z[K];
-    unsigned on = 0, valid = 0, skip_from = 0, term = 0;  // bit j: state L*K + j
+    unsigned on = 0, valid = 0, skip_from = 0, term = 0;  // bit j: state s0 + L*K + j
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      const int s = L * K + j;
+      const int s = s0 + L * K + j;
       z[j] = s < S ? label(tgt, s, blank) : blank;
       if (s < S) on |= 1u << j;
       if (s < n_valid) valid |= 1u << j;
@@ -371,7 +630,7 @@ __global__ void __launch_bounds__(32 * (kMaxChainWarps + kConsumerWarps))
 #pragma unroll
         for (int j = 0; j < K; ++j) {
           e.v[i][j] = __ldg(erow + z[j]);
-          al.v[i][j] = __ldg(arow + ((on >> j) & 1 ? L * K + j : 0));
+          al.v[i][j] = __ldg(arow + ((on >> j) & 1 ? s0 + L * K + j : 0));
         }
       }
     };
@@ -407,11 +666,17 @@ __global__ void __launch_bounds__(32 * (kMaxChainWarps + kConsumerWarps))
             x[j] = sel((valid >> j) & 1, beta[j] + e_cur.v[i][j], kNegInf);
             xs[j] = x[j];
           }
+          // warp 0: the slice's bottom two x of step n down to CTA rank - 1
+          if (Split && rank > 0 && L < 32) ed.send(n - 1, 0, x[0], x[K >= 2 ? 1 : 0]);
           // the chain warps' barrier: step n's x is complete; the buffer of
           // step n - 1 is free for step n + 1
           asm volatile("bar.sync 1, %0;\n" ::"r"(nl) : "memory");
           if (i > 0) put_occ(ok, i - 1);
-          const float dn1 = xs[K], dn2 = xs[K + 1];  // x[s+1] and x[s+2] above this thread's states
+          float dn1 = xs[K], dn2 = xs[K + 1];  // x[s+1] and x[s+2] above this thread's states
+          if (Split && rank + 1 < P && L >= nl - 32) {  // the top warp: from CTA rank + 1
+            const float2 e = ed.recv(n - 1, 31);
+            if (L == nl - 1) dn1 = e.x, dn2 = e.y;
+          }
 #pragma unroll
           for (int j = 0; j < K; ++j) {
             const float x1 = j + 1 < K ? x[j + 1 < K ? j + 1 : 0] : dn1;
@@ -428,21 +693,23 @@ __global__ void __launch_bounds__(32 * (kMaxChainWarps + kConsumerWarps))
       a_cur = a_nxt;
       if (k + 2 < n_chunks) fetch(e_nxt, a_nxt, k + 2);
     }
+    if constexpr (Split) cluster_grad(g, grow, partials, b, P, rank, T, C);
     return;
   }
 
-  // The class sums. The row is zero but at the classes of the valid states
-  // below the input length, which the chunks' sums overwrite.
+  // The class sums of the slice. The row (a cluster's: the CTA's partial
+  // sums) is zero but at the classes of the valid states below the input
+  // length, which the chunks' sums overwrite.
   const int ct = threadIdx.x - nl;
-  for (size_t i = ct; i < (size_t)T * C; i += kConsumers) grow[i] = 0.0f;
+  for (size_t i = ct; i < (size_t)T * C; i += kConsumers) gsum[i] = 0.0f;
   // the valid states sorted by (class, s): a bitonic sort of the keys
   // class << 32 | s in `part` (free until the first chunk's sums), padded
   // to a power of two; then their classes and ring positions
   long long* key = reinterpret_cast<long long*>(part);
   int n_pow = 1;
-  while (n_pow < n_valid) n_pow <<= 1;
+  while (n_pow < nv) n_pow <<= 1;
   for (int i = ct; i < n_pow; i += kConsumers)
-    key[i] = i < n_valid ? (long long)label(tgt, i, blank) << 32 | i : LLONG_MAX;
+    key[i] = i < nv ? (long long)label(tgt, s0 + i, blank) << 32 | i : LLONG_MAX;
   for (int k = 2; k <= n_pow; k <<= 1)
     for (int j = k >> 1; j > 0; j >>= 1) {
       asm volatile("bar.sync 2, %0;\n" ::"r"(kConsumers) : "memory");
@@ -453,7 +720,7 @@ __global__ void __launch_bounds__(32 * (kMaxChainWarps + kConsumerWarps))
       }
     }
   asm volatile("bar.sync 2, %0;\n" ::"r"(kConsumers) : "memory");
-  for (int r = ct; r < n_valid; r += kConsumers) {
+  for (int r = ct; r < nv; r += kConsumers) {
     const int s = (int)(key[r] & 0xffffffff);
     sz[r] = (int)(key[r] >> 32);
     spos[r] = (s % K) * nl + s / K;
@@ -469,8 +736,8 @@ __global__ void __launch_bounds__(32 * (kMaxChainWarps + kConsumerWarps))
     const int rs = r == 0 || sz[r] != sz[r - 1];
     return rs << 16 | (rs | (r % kSeg == 0));
   };
-  const int per = (n_valid + kConsumers - 1) / kConsumers;
-  const int r0 = min(ct * per, n_valid), r1 = min(r0 + per, n_valid);
+  const int per = (nv + kConsumers - 1) / kConsumers;
+  const int r0 = min(ct * per, nv), r1 = min(r0 + per, nv);
   int count = 0;
   for (int r = r0; r < r1; ++r) count += starts(r);
   int* wsum = reinterpret_cast<int*>(part);  // the keys are read
@@ -495,12 +762,12 @@ __global__ void __launch_bounds__(32 * (kMaxChainWarps + kConsumerWarps))
     spos[r] |= (ns - 1) << 16;
   }
   if (ct == kConsumers - 1) {
-    seg[ns] = n_valid;
+    seg[ns] = nv;
     run_seg[nr] = ns;
     *n_runs = nr;
   }
   asm volatile("bar.sync 2, %0;\n" ::"r"(kConsumers) : "memory");  // and the zeros are written
-  const int runs = *n_runs, n_blocks = (n_valid + 31) >> 5, cw = ct >> 5;
+  const int runs = *n_runs, n_blocks = (nv + 31) >> 5, cw = ct >> 5;
   const float gb = g[b];
   for (int k = 0; k < n_chunks; ++k) {
     const int slot = k % kDepth;
@@ -513,7 +780,7 @@ __global__ void __launch_bounds__(32 * (kMaxChainWarps + kConsumerWarps))
     // part
     for (int blk = cw; blk < n_blocks; blk += kConsumerWarps) {
       const int r = blk * 32 + lane;
-      const bool in = r < n_valid;
+      const bool in = r < nv;
       const int sp = in ? spos[r] : kHead;  // past the states: a head, summed into none
       const unsigned heads = __ballot_sync(0xffffffffu, sp & kHead);
       const float* o = ok + (sp & 0xffff);
@@ -546,10 +813,40 @@ __global__ void __launch_bounds__(32 * (kMaxChainWarps + kConsumerWarps))
       float acc = 0.0f;
 #pragma unroll 8
       for (int j = run_seg[q]; j < run_seg[q + 1]; ++j) acc += part[j * CH + i];
-      grow[(size_t)(t0 - i) * C + sz[seg[run_seg[q]]]] = -acc * gb;
+      gsum[(size_t)(t0 - i) * C + sz[seg[run_seg[q]]]] = Split ? acc : -acc * gb;
     }
     asm volatile("bar.sync 2, %0;\n" ::"r"(kConsumers) : "memory");  // part is free again
   }
+  if constexpr (Split) cluster_grad(g, grow, partials, b, P, rank, T, C);
+}
+
+
+template <int K>
+__global__ void __launch_bounds__(32 * (kMaxChainWarps + kConsumerWarps))
+    ctc_beta_grad_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
+                         const int* __restrict__ input_lengths,
+                         const int* __restrict__ target_lengths, const float* __restrict__ alphas,
+                         const float* __restrict__ nll, const float* __restrict__ g,
+                         float* __restrict__ grad, int B, int T, int C, int U, int blank) {
+  beta_grad<K, false>(log_probs, targets, input_lengths, target_lengths, alphas, nll, g, grad,
+                      nullptr, B, T, C, U, blank);
+}
+
+// The cluster route's backward: a cluster of P CTAs a row (grid B P),
+// `partials` (B, P, T, C) floats of scratch. At most 12 chain warps: 20
+// warps leave a thread 96 registers, and at 24 the chain spilled.
+template <int K>
+__global__ void __launch_bounds__(32 * (kMaxClusterWarps + kConsumerWarps))
+    ctc_beta_grad_cluster_kernel(const float* __restrict__ log_probs,
+                                 const int* __restrict__ targets,
+                                 const int* __restrict__ input_lengths,
+                                 const int* __restrict__ target_lengths,
+                                 const float* __restrict__ alphas, const float* __restrict__ nll,
+                                 const float* __restrict__ g, float* __restrict__ grad,
+                                 float* __restrict__ partials, int B, int T, int C, int U,
+                                 int blank) {
+  beta_grad<K, true>(log_probs, targets, input_lengths, target_lengths, alphas, nll, g, grad,
+                     partials, B, T, C, U, blank);
 }
 
 template <int K>
@@ -587,6 +884,70 @@ cudaError_t launch_beta_grad(const float* log_probs, const int* targets, const i
 bool plan_ok(int S, int K, int W) {
   return (K == 1 || K == 2 || K == 4 || K == 8) && W >= 1 && W <= kMaxChainWarps &&
          S <= 32 * K * W;
+}
+
+// ------------------------------------------------------ the cluster route --
+
+// Launches a cluster-route kernel, a cluster of P CTAs a row (its dynamic
+// shared memory allowed up to `max_smem`, the most any plan of its K asks,
+// so that a graph captured at another plan still launches), or
+// (max_clusters != nullptr) asks how many of its clusters fit on the card at
+// once.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int B, int P, int threads, size_t smem,
+                           size_t max_smem, cudaStream_t st, int* max_clusters, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_smem);
+  if (err == cudaSuccess && P > kPortableCluster)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * P);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr)
+    return cudaOccupancyMaxActiveClusters(max_clusters, (const void*)kernel, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_alpha_cluster(const float* log_probs, const int* targets,
+                                 const int* input_lengths, const int* target_lengths,
+                                 float* alphas, float* nll, int B, int T, int C, int U, int blank,
+                                 int W, int P, cudaStream_t st, int* max_clusters) {
+  return launch_cluster(ctc_alpha_cluster_kernel<K>, B, P, 32 * W, alpha_smem(K, W) + kEdgeBytes,
+                        alpha_smem(K, kMaxClusterWarps) + kEdgeBytes, st, max_clusters, log_probs,
+                        targets, input_lengths, target_lengths, alphas, nll, B, T, C, U, blank);
+}
+
+template <int K>
+cudaError_t launch_beta_grad_cluster(const float* log_probs, const int* targets,
+                                     const int* input_lengths, const int* target_lengths,
+                                     const float* alphas, const float* nll, const float* g,
+                                     float* grad, float* partials, int B, int T, int C, int U,
+                                     int blank, int W, int P, cudaStream_t st,
+                                     int* max_clusters) {
+  return launch_cluster(ctc_beta_grad_cluster_kernel<K>, B, P, 32 * (W + kConsumerWarps),
+                        beta_smem(K, W) + kEdgeBytes, beta_smem(K, kMaxClusterWarps) + kEdgeBytes,
+                        st, max_clusters, log_probs, targets, input_lengths, target_lengths,
+                        alphas, nll, g, grad, partials, B, T, C, U, blank);
+}
+
+// `ctc_plan`'s cluster route: K states a lane (2 or 4) in W chain warps, P
+// CTAs a row, every slice holding some of the S states.
+bool cluster_plan_ok(int S, int K, int W, int P) {
+  const long long n = 32LL * K * W;
+  return (K == 2 || K == 4) && W >= 1 && W <= kMaxClusterWarps && P >= 2 && P <= kMaxCluster &&
+         (P - 1) * n < S && S <= P * n;
 }
 
 // ------------------------------------------ the device-memory route --
@@ -778,7 +1139,51 @@ extern "C" int ctc_beta_grad_f32(const float* log_probs, const int* targets,
                                                alphas, nll, g, grad, B, T, C, U, blank, W, st);
 }
 
-// The device-memory route (any S): alphas (T, B, S) and nll (B,).
+// The cluster route: as ctc_alpha_f32 with K (2 or 4) and W from
+// kernels/ctc.py `ctc_plan` and P CTAs a row, P * 32 K W >= S = 2U + 1.
+extern "C" int ctc_alpha_cluster_f32(const float* log_probs, const int* targets,
+                                     const int* input_lengths, const int* target_lengths,
+                                     float* alphas, float* nll, int B, int T, int C, int U,
+                                     int blank, int K, int W, int P, void* stream) {
+  if (!args_ok(B, T, C, U, blank) || !cluster_plan_ok(2 * U + 1, K, W, P))
+    return (int)cudaErrorInvalidValue;
+  return (int)(K == 2 ? launch_alpha_cluster<2> : launch_alpha_cluster<4>)(
+      log_probs, targets, input_lengths, target_lengths, alphas, nll, B, T, C, U, blank, W, P,
+      (cudaStream_t)stream, nullptr);
+}
+
+// The cluster route's gradient: `partials` (B, P, T, C) floats of scratch,
+// each CTA's class sums.
+extern "C" int ctc_beta_grad_cluster_f32(const float* log_probs, const int* targets,
+                                         const int* input_lengths, const int* target_lengths,
+                                         const float* alphas, const float* nll, const float* g,
+                                         float* grad, float* partials, int B, int T, int C, int U,
+                                         int blank, int K, int W, int P, void* stream) {
+  if (!args_ok(B, T, C, U, blank) || !cluster_plan_ok(2 * U + 1, K, W, P))
+    return (int)cudaErrorInvalidValue;
+  return (int)(K == 2 ? launch_beta_grad_cluster<2> : launch_beta_grad_cluster<4>)(
+      log_probs, targets, input_lengths, target_lengths, alphas, nll, g, grad, partials, B, T, C,
+      U, blank, W, P, (cudaStream_t)stream, nullptr);
+}
+
+// How many clusters of P CTAs of the cluster route's forward (backward: 1)
+// at K states a lane in W chain warps fit on the card at once, or minus a
+// cudaError_t.
+extern "C" int ctc_cluster_max_clusters(int K, int W, int P, int backward) {
+  if ((K != 2 && K != 4) || W < 1 || W > kMaxClusterWarps || P < 1 || P > kMaxCluster)
+    return -(int)cudaErrorInvalidValue;
+  int n = 0;
+  const cudaError_t err =
+      backward ? (K == 2 ? launch_beta_grad_cluster<2> : launch_beta_grad_cluster<4>)(
+                     nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, 1, 1, 1, 1, 0, W, P, nullptr, &n)
+               : (K == 2 ? launch_alpha_cluster<2> : launch_alpha_cluster<4>)(
+                     nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 1, 1, 0, W, P,
+                     nullptr, &n);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// The device-memory route (S past a cluster's): alphas (T, B, S) and nll (B,).
 extern "C" int ctc_alpha_long_f32(const float* log_probs, const int* targets,
                                   const int* input_lengths, const int* target_lengths,
                                   float* alphas, float* nll, int B, int T, int C, int U, int blank,

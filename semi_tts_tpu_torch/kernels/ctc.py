@@ -29,14 +29,23 @@ lane a state, sums each segment of at most `SEG` states of one class by
 shuffles in a fixed order at each of the chunk's steps; then a thread a
 class and a step adds its segments' sums in order of s (no scratch in
 device memory, no second launch, no atomics). K states a lane, K in
-`STATES_PER_LANE`, take up to 4,096 states; past that, the device-memory
-route (``lattice`` "device" in `ctc_plan`): a CTA of `LONG_THREADS` threads
-a row, each step read back from device memory (the forward's alphas, the
-backward's betas in a scratch), then the gradient summed by class over the
-states sorted by (class, s), a CTA a (step, row). Any S >= 1.
+`STATES_PER_LANE`, take up to 4,096 states; past that, the cluster route
+(``lattice`` "cluster" in `ctc_plan`): a thread-block cluster of
+``cluster`` CTAs a row, each running the same chain on its slice of the
+row's states, the slices' edge states handed between neighbouring CTAs
+through a ring of `EDGE_RING` slots in shared memory (no cluster barrier a
+step), each CTA's class sums added in rank order into the gradient at the
+end. Past a cluster's states, the device-memory route (``lattice``
+"device"): a CTA of `LONG_THREADS` threads a row, each step read back from
+device memory (the forward's alphas, the backward's betas in a scratch),
+then the gradient summed by class over the states sorted by (class, s), a
+CTA a (step, row). Any S >= 1.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -53,6 +62,12 @@ CHUNK = 8             # values a register chunk holds a state: min(CHUNK, 16 // 
 DEPTH = 4             # occupancy ring slots, chunks (csrc/ctc.cu kDepth)
 SEG = 8               # sorted states a class-sum segment adds at most (csrc/ctc.cu kSeg)
 CONSUMER_WARPS = 8    # ctc_beta_grad's class-sum warps beside the chain's
+CLUSTER_STATES_PER_LANE = (2, 4)  # the cluster route's instantiations
+MAX_CLUSTER = 16      # its CTAs a row at most (csrc/ctc.cu kMaxCluster)
+MAX_CLUSTER_WARPS = 12  # its chain warps a CTA at most (kMaxClusterWarps)
+PORTABLE_CLUSTER = 8  # past this, a non-portable cluster (kPortableCluster)
+EDGE_RING = 8         # edge slots between neighbouring CTAs (kEdgeRing)
+EDGE_BYTES = 28 * EDGE_RING  # their mbarriers, slots and acknowledgements (kEdgeBytes)
 
 
 def _lattice_floats(K: int, W: int) -> int:
@@ -76,7 +91,7 @@ def _beta_smem(K: int, W: int) -> int:
                                   + 4 * 32 * K * W)
 
 
-def ctc_plan(B: int, T: int, S: int) -> dict:
+def ctc_plan(B: int, T: int, S: int, max_cluster: int = MAX_CLUSTER) -> dict:
     """K6's launch plan for B rows of T steps and S lattice states. Up to
     `MAX_STATES` (``lattice`` "shared"): a CTA a row, whose ``chain_warps``
     warps carry the chain with ``states_per_lane`` states a lane (the
@@ -85,21 +100,53 @@ def ctc_plan(B: int, T: int, S: int) -> dict:
     ctc_beta_grad, `CONSUMER_WARPS` more sum the gradient from a ring of
     `DEPTH` chunks. A register chunk holds ``chunk`` = min(`CHUNK`, 16 // K)
     steps, backward ``beta_chunk`` = `CHUNK` // K (a ring chunk too).
-    Nothing depends on T or C. Past it (``lattice`` "device"): a CTA of
-    `LONG_THREADS` threads a row, its lattice in device memory, and a
-    gradient kernel of (T, B) CTAs. Raises ValueError only for S < 1."""
+    Nothing depends on T or C. Past it (``lattice`` "cluster"): the same
+    CTAs, a ``cluster`` of P of them a row (``grid`` B P), each holding a
+    slice of 32 K W states, with the fewest warps (at most
+    `MAX_CLUSTER_WARPS`) that keep P within ``max_cluster`` (the most CTAs
+    the card fits in a cluster, `max_cluster` on the card; past
+    `PORTABLE_CLUSTER` ``non_portable``) at two states a lane, else four;
+    P is the fewest slices that hold S, so none is empty. Past
+    ``max_cluster`` x 1,536 states (24,576 at 16 CTAs, a row of more than
+    12,287 labels) the device-memory route (``lattice`` "device"): a
+    CTA of `LONG_THREADS` threads a row, its lattice in device memory, and
+    a gradient kernel of (T, B) CTAs. Raises ValueError only for S < 1."""
     if S < 1:
         raise ValueError(f"ctc kernels: {S} lattice states, they take S >= 1")
-    if S > MAX_STATES:
-        return dict(lattice="device", grid=(B,), alpha_threads=LONG_THREADS,
-                    beta_threads=LONG_THREADS, grad_grid=(T, B), alpha_smem_bytes=0,
-                    beta_smem_bytes=0)
-    K = next(k for k in STATES_PER_LANE if S <= 32 * k * MAX_CHAIN_WARPS)
-    W = -(-S // (32 * K))
-    return dict(lattice="shared", states_per_lane=K, chain_warps=W, chunk=min(CHUNK, 16 // K),
-                beta_chunk=CHUNK // K, grid=(B,), alpha_threads=32 * W,
-                beta_threads=32 * (W + CONSUMER_WARPS), alpha_smem_bytes=_alpha_smem(K, W),
-                beta_smem_bytes=_beta_smem(K, W))
+    if S <= MAX_STATES:
+        K = next(k for k in STATES_PER_LANE if S <= 32 * k * MAX_CHAIN_WARPS)
+        W = -(-S // (32 * K))
+        return dict(lattice="shared", states_per_lane=K, chain_warps=W, chunk=min(CHUNK, 16 // K),
+                    beta_chunk=CHUNK // K, grid=(B,), alpha_threads=32 * W,
+                    beta_threads=32 * (W + CONSUMER_WARPS), alpha_smem_bytes=_alpha_smem(K, W),
+                    beta_smem_bytes=_beta_smem(K, W))
+    for K in CLUSTER_STATES_PER_LANE:
+        W = -(-S // (max_cluster * 32 * K))
+        if W <= MAX_CLUSTER_WARPS:
+            P = -(-S // (32 * K * W))
+            return dict(lattice="cluster", states_per_lane=K, chain_warps=W, cluster=P,
+                        non_portable=P > PORTABLE_CLUSTER, chunk=min(CHUNK, 16 // K),
+                        beta_chunk=CHUNK // K, grid=(B * P,), alpha_threads=32 * W,
+                        beta_threads=32 * (W + CONSUMER_WARPS),
+                        alpha_smem_bytes=_alpha_smem(K, W) + EDGE_BYTES,
+                        beta_smem_bytes=_beta_smem(K, W) + EDGE_BYTES)
+    return dict(lattice="device", grid=(B,), alpha_threads=LONG_THREADS,
+                beta_threads=LONG_THREADS, grad_grid=(T, B), alpha_smem_bytes=0,
+                beta_smem_bytes=0)
+
+
+@functools.lru_cache(maxsize=None)
+def max_cluster() -> int:
+    """The most CTAs a row's cluster may take on the current card:
+    `MAX_CLUSTER` where ``cudaOccupancyMaxActiveClusters`` fits one cluster
+    of that many of the cluster route's largest CTAs (four states a lane in
+    `MAX_CLUSTER_WARPS` warps), forward and backward, else `PORTABLE_CLUSTER`."""
+    fn = build.load("ctc").ctc_cluster_max_clusters
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    K = CLUSTER_STATES_PER_LANE[-1]
+    fits = all(fn(K, MAX_CLUSTER_WARPS, MAX_CLUSTER, bwd) >= 1 for bwd in (0, 1))
+    return MAX_CLUSTER if fits else PORTABLE_CLUSTER
 
 
 def _logaddexp3(a, b, c):
@@ -196,7 +243,7 @@ def _check(log_probs, targets, input_lengths, target_lengths, what):
     build.require_int(input_lengths, (B,), f"{what} input_lengths")
     build.require_int(target_lengths, (B,), f"{what} target_lengths")
     S = 2 * targets.shape[1] + 1
-    return B, T, C, S, ctc_plan(B, T, S)
+    return B, T, C, S, ctc_plan(B, T, S, max_cluster())
 
 
 @counted(no_dots)
@@ -214,6 +261,10 @@ def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank: int = 0)
                 B, T, C, targets.shape[1], blank)
         if plan["lattice"] == "device":
             err = build.bind("ctc", "ctc_alpha_long_f32", 6, 5)(*ptrs, build.stream())
+        elif plan["lattice"] == "cluster":
+            err = build.bind("ctc", "ctc_alpha_cluster_f32", 6, 8)(
+                *ptrs, plan["states_per_lane"], plan["chain_warps"], plan["cluster"],
+                build.stream())
         else:
             err = build.bind("ctc", "ctc_alpha_f32", 6, 7)(
                 *ptrs, plan["states_per_lane"], plan["chain_warps"], build.stream())
@@ -255,6 +306,13 @@ def ctc_beta_grad(log_probs, targets, input_lengths, target_lengths, alphas, nll
             sort = torch.empty((B * (S + 2 * C + 1),), device=log_probs.device, dtype=torch.int32)
             err = build.bind("ctc", "ctc_beta_grad_long_f32", 10, 5)(
                 *ptrs, betas.data_ptr(), sort.data_ptr(), *ints, build.stream())
+        elif plan["lattice"] == "cluster":
+            # scratch: each CTA's class sums (B, P, T, C)
+            partials = torch.empty((B * plan["cluster"] * T * C,), device=log_probs.device,
+                                   dtype=torch.float32)
+            err = build.bind("ctc", "ctc_beta_grad_cluster_f32", 9, 8)(
+                *ptrs, partials.data_ptr(), *ints, plan["states_per_lane"], plan["chain_warps"],
+                plan["cluster"], build.stream())
         else:
             err = build.bind("ctc", "ctc_beta_grad_f32", 8, 7)(
                 *ptrs, *ints, plan["states_per_lane"], plan["chain_warps"], build.stream())
