@@ -10,6 +10,7 @@ card; and the ASR, paired or speech-first train step's time in a given tree.
     python3 chip_ablate.py --speech-first-busy TREE
     python3 chip_ablate.py --kernel-mem TREE
     python3 chip_ablate.py --ctc-long [--src TREE]
+    python3 chip_ablate.py --k3-split [--src TREE]
     python3 chip_ablate.py --sanitize k7|k6|b6|b6_bwd --plan T=..,B=..[,...] [--variant unit_lanes]
     python3 chip_ablate.py --sanitize-all
 
@@ -453,24 +454,26 @@ K6_FAST_MATH = [("  const float s = expf(a - ms) + expf(b - ms) + expf(c - ms);\
                 ("ms + logf(fmaxf(s, 1e-37f))", "ms + __logf(fmaxf(s, 1e-37f))")]
 
 
-def k6_alpha_chain_cuts(store, up):
+def k6_alpha_chain_cuts(store, up, ind="", start=K6_ALPHA_W, bar=K6_ALPHA_BAR):
     """ctc_alpha's cuts of the chain-warp design, whose alpha store is
     ``store`` and whose s-1, s-2 declaration begins with ``up`` (both lines
-    changed where the chain was templated on a cluster's slice)."""
-    alpha_store = (f"        next[j] = a[j];\n        {store}((on >> j) & 1, out + j, a[j]);\n",
-                   "        next[j] = a[j];\n")
+    changed where the chain was templated on a cluster's slice), its step's
+    lines indented by ``ind`` more (the chain in a branch beside the copy
+    warp's), its first line after ``start`` and its barrier ``bar``."""
+    alpha_store = (f"{ind}        next[j] = a[j];\n{ind}        {store}((on >> j) & 1, out + j, a[j]);\n",
+                   f"{ind}        next[j] = a[j];\n")
     return [
-        ("launch", [after(K6_ALPHA_W, "  return;\n")]),
+        ("launch", [after(start, "  return;\n")]),
         ("the chain, no alpha stores", [alpha_store]),
         # not cuts: the chain's log-adds alone (each thread's state from its
         # own, no barrier, no stores), the whole kernel without its barrier a
         # step (its results are wrong), and with the fast, inexact
         # __expf/__logf in the log-add
         ("whole kernel, the log-add alone", [
-            alpha_store, K6_ALPHA_BAR,
-            (f"        {up} = prev[-1], up2 = prev[-2];\n",
-             "        float up1 = a[0], up2 = a[K - 1];\n")]),
-        ("whole kernel, no barrier", [K6_ALPHA_BAR]),
+            alpha_store, bar,
+            (f"{ind}        {up} = prev[-1], up2 = prev[-2];\n",
+             f"{ind}        float up1 = a[0], up2 = a[K - 1];\n")]),
+        ("whole kernel, no barrier", [bar]),
         ("whole kernel, __expf and __logf", K6_FAST_MATH),
         # designs not kept, whole kernels in its place (their results are
         # checked too: `err`)
@@ -545,7 +548,14 @@ CUTS = {
     ]})],
     "ctc": [
         ("ctc_alpha", {
-            # the chain's text templated on a cluster's slice, then its text before
+            # the chain's text beside the cluster route's copy warp, then
+            # templated on a cluster's slice, then its text before
+            "chain warps, the lattice and a named barrier, register chunks, on a slice, "
+            "beside a copy warp": k6_alpha_chain_cuts(
+                "if constexpr (!kCopy) st_if<Split>", "float up1", "  ",
+                "  const int L = threadIdx.x, ls = 32 * K * (nl >> 5) + 4;  // a step's row\n",
+                ("        " + K6_BAR.replace('"r"(nl)', '"r"(nb)') + "      }\n      cur = nxt;\n",
+                 "      }\n      cur = nxt;\n")),
             **{design: k6_alpha_chain_cuts(store, up) for design, store, up in (
                 ("chain warps, the lattice and a named barrier, register chunks, on a slice",
                  "st_if<Split>", "float up1"),
@@ -1102,6 +1112,17 @@ CTC_LONG_S = (4097, 8193)
 CTC_FORCED_S = 2049
 # the cluster route's plans timed beside `ctc_plan`'s: {S: [(K, W), ...]}
 CTC_LONG_PLANS = {4097: [(2, 8), (2, 12), (4, 5)], 8193: [(2, 12), (4, 8)]}
+# `ctc_plan`'s boundary between the shared and the cluster lattice: both
+# routes forced at each B and S (T = U + U/8 + 32, as `_k6_rows` makes them)
+CTC_ROUTE_S = (513, 1025, 1537, 2049, 3073, 4096)
+CTC_ROUTE_B = (2, 8, 16)
+# past 24,576 states: (S, T, target lengths, input lengths) of the cluster
+# route at 8 states a lane (phase 13's row of chip_smoke.py and the route's
+# last S) and of the device-memory route at its floor, each beside
+# F.ctc_loss with these targets and with targets of the full U labels (the
+# same lattice of 2U + 1 states)
+CTC_WIDE = ((24577, 700, (600, 500), (700, 650)), (49152, 700, (600, 500), (700, 650)),
+            (49153, 700, (600, 500), (700, 650)))
 # the cluster route's edge hand-off, as the first design sent it: a plain
 # remote store and a remote arrival with release semantics, the slot handed
 # back by another; the mbarriers take one arrival a phase and no bytes
@@ -1126,6 +1147,9 @@ CTC_NO_EDGE = [
     ("    const int i = e % kEdgeRing;\n    mbar_wait<true>",
      "    return make_float2(kNegInf, kNegInf);\n    const int i = e % kEdgeRing;\n    mbar_wait<true>")]
 CTC_ALPHA_STORE = "        st_if<Split>((on >> j) & 1, out + j, a[j]);\n"
+# since the copy warp: the chain's own alpha stores (two and four states a
+# lane), inside its branch
+CTC_ALPHA_STORE_COPY = "          if constexpr (!kCopy) st_if<Split>((on >> j) & 1, out + j, a[j]);\n"
 # what the edge costs: a ring of 16 slots (the sender waits less often);
 # the hand-offs made with neither side waiting (wrong results: the
 # instructions alone); the waits at CTA scope (the acquire's cost alone)
@@ -1150,20 +1174,27 @@ CTC_NO_SUMS = (K6_SUMS, "  if constexpr (Split) cluster_grad(g, grow, partials, 
                         "  return;\n" + K6_SUMS)
 # kernel ("alpha" or "beta") -> {design: [(cut, [(old, new), ...])]}; the
 # first design whose every marker is in ctc.cu once is taken
+def ctc_long_alpha_cuts(store):
+    """ctc_alpha's cuts on the cluster route, whose chain stores its alphas
+    by the line ``store``."""
+    return [
+        ("the chain, no alpha stores", [(store, "")]),
+        ("whole kernel, no edge hand-off", CTC_NO_EDGE),
+        ("whole kernel, a release hand-off (the first design)", CTC_RELEASE),
+        ("whole kernel, an edge ring of 16", CTC_EDGE_16),
+        ("whole kernel, hand-offs with no waits", CTC_EDGE_NO_WAIT),
+        ("whole kernel, edge waits at CTA scope", CTC_EDGE_CTA),
+        ("whole kernel, edge waits by try_wait (the second design)", CTC_EDGE_SUSPEND),
+        ("whole kernel, edge waits by try_wait, no suspend hint", CTC_EDGE_NO_HINT),
+        ("whole kernel, plain alpha stores", [(store, store.replace("st_if<Split>", "st_if<false>"))]),
+    ]
+
+
 CTC_LONG_CUTS = {
     "alpha": {
-        "a cluster a row, DSMEM edge hand-offs": [
-            ("the chain, no alpha stores", [(CTC_ALPHA_STORE, "")]),
-            ("whole kernel, no edge hand-off", CTC_NO_EDGE),
-            ("whole kernel, a release hand-off (the first design)", CTC_RELEASE),
-            ("whole kernel, an edge ring of 16", CTC_EDGE_16),
-            ("whole kernel, hand-offs with no waits", CTC_EDGE_NO_WAIT),
-            ("whole kernel, edge waits at CTA scope", CTC_EDGE_CTA),
-            ("whole kernel, edge waits by try_wait (the second design)", CTC_EDGE_SUSPEND),
-            ("whole kernel, edge waits by try_wait, no suspend hint", CTC_EDGE_NO_HINT),
-            ("whole kernel, plain alpha stores", [(CTC_ALPHA_STORE, CTC_ALPHA_STORE.replace(
-                "st_if<Split>", "st_if<false>"))]),
-        ],
+        "a cluster a row, DSMEM edge hand-offs, a copy warp at 4 and 8 states a lane":
+            ctc_long_alpha_cuts(CTC_ALPHA_STORE_COPY),
+        "a cluster a row, DSMEM edge hand-offs": ctc_long_alpha_cuts(CTC_ALPHA_STORE),
         "a CTA a row, the lattice in device memory": [],
     },
     "beta": {
@@ -1199,6 +1230,106 @@ CTC_LONG_CUTS = {
 }
 
 
+def _k6_rows(cs, randn, dev, B_, S):
+    """K6's inputs at B_ rows of S states: `chip_smoke._k6_long_inputs`' two
+    rows in turn (U labels over T = U + U/8 + 32 steps; U - U/5 over T -
+    U/8)."""
+    U = (S - 1) // 2
+    T = U + U // 8 + 32
+    return cs._ctc_inputs(randn, dev, B_, T, 43, U, seed=S,
+                          tl=[U - (b % 2) * (U // 5) for b in range(B_)],
+                          il=[T - (b % 2) * (U // 8) for b in range(B_)])
+
+
+def _route_plans(k6):
+    """{route: a `ctc_plan` that takes that route} in this tree's
+    kernels/ctc.py ("plan": its own choice; in a tree without
+    `_cluster_plan`, the cluster route by its MAX_STATES lowered)."""
+    real = k6.ctc_plan
+    device = lambda B_, T, S, mc=16: real(B_, T, S, 1)
+    if hasattr(k6, "_cluster_plan"):
+        return {"plan": real, "shared": lambda B_, T, S, mc=16: k6._shared_plan(B_, S),
+                "cluster": lambda B_, T, S, mc=16: k6._cluster_plan(B_, S, mc), "device": device}
+
+    def cluster(B_, T, S, mc=16):
+        saved, k6.MAX_STATES = k6.MAX_STATES, 0
+        try:
+            return real(B_, T, S, mc)
+        finally:
+            k6.MAX_STATES = saved
+    return {"plan": real, "shared": real, "cluster": cluster, "device": device}
+
+
+def ctc_routes(cs, k6, randn, dev):
+    """The routes' sweep (`CTC_ROUTE_S` x `CTC_ROUTE_B`: the cluster lattice
+    and, where the tree's holds S, the shared lattice forced, each
+    ``ctc_alpha`` and ``ctc_beta_grad`` in ms, the cluster route's alphas
+    equal to the shared route's and its gradient's largest difference on
+    its own scale) and the rows past
+    24,576 states (`CTC_WIDE`: the plan's route, and where the plan takes
+    the cluster the device route forced, each held to the plain version;
+    ``F.ctc_loss`` forward and forward + backward with the rows' targets and
+    with targets of U labels). Returns (sweep, wide)."""
+    plans = _route_plans(k6)
+    real = k6.ctc_plan
+    mc = k6.max_cluster() if hasattr(k6, "max_cluster") else 16
+
+    def timed(route, a, ba):
+        k6.ctc_plan = plans[route]
+        try:
+            out = {"alpha": cs.device_ms(lambda: k6.ctc_alpha(*a), 3),
+                   "beta": cs.device_ms(lambda: k6.ctc_beta_grad(*ba), 3)}
+            got = (k6.ctc_alpha(*a), k6.ctc_beta_grad(*ba))
+            plan = k6.ctc_plan(a[0].shape[0], a[0].shape[1], 2 * a[1].shape[1] + 1, mc)
+        finally:
+            k6.ctc_plan = real
+        out["plan"] = {k: plan.get(k) for k in ("lattice", "states_per_lane", "chain_warps",
+                                                 "cluster")}
+        return out, got
+
+    sweep = {}
+    for B_ in CTC_ROUTE_B:
+        for S in CTC_ROUTE_S:
+            a = _k6_rows(cs, randn, dev, B_, S)
+            ba = cs._ctc_beta_args(a)
+            row = {"T": a[0].shape[1], "shared": None}
+            row["cluster"], got = timed("cluster", a, ba)
+            if S <= k6.MAX_STATES:  # the tree's shared-memory lattice holds S
+                row["shared"], want = timed("shared", a, ba)
+                row["alphas_equal"] = bool(torch.equal(got[0][0], want[0][0]))
+                row["grad_rel_err"] = cs.rel_err(got[1], want[1])
+            row["plan"] = k6.ctc_plan(B_, a[0].shape[1], S, mc)["lattice"]
+            sweep[f"B={B_} S={S}"] = row
+            print(json.dumps({"route sweep": {f"B={B_} S={S}": row}}), flush=True)
+    wide = {}
+    for S, T, tl, il in CTC_WIDE:
+        U = (S - 1) // 2
+        a = cs._ctc_inputs(randn, dev, 2, T, 43, U, seed=S, tl=tl, il=il)
+        ba = cs._ctc_beta_args(a)
+        # targets of U labels in 3..42, the rows' log-probabilities and lengths
+        full = (a[0], torch.randint(3, 43, a[1].shape, device=dev, dtype=torch.int32,
+                                    generator=torch.Generator(device=dev).manual_seed(S)),
+                a[2], torch.full_like(a[3], U))
+        row = {"T": T, "target_lengths": list(tl), "library_ms": {
+            "alpha": cs.time_ms(cs._ctc_library(*a, backward=False), 3),
+            "beta": cs.time_ms(cs._ctc_library(*a, backward=True), 3),
+            "alpha, targets of U labels": cs.time_ms(cs._ctc_library(*full, backward=False), 3),
+            "beta, targets of U labels": cs.time_ms(cs._ctc_library(*full, backward=True), 3)}}
+        want = (k6.ctc_alpha_plain(*a), k6.ctc_beta_grad_plain(*ba))
+        for route in ("plan", "device"):
+            if route == "device" and real(2, T, S, mc)["lattice"] == "device":
+                continue
+            row[route], got = timed(route, a, ba)
+            row[route].update(
+                alpha_max_abs_err=max(cs.max_err(got[0][0], want[0][0]), cs.max_err(got[0][1], want[0][1])),
+                alphas_equal=bool(torch.equal(got[0][0], want[0][0])),
+                grad_rel_err=cs.rel_err(got[1], want[1]),
+                us_per_step={k: 1e3 * row[route][k] / T for k in ("alpha", "beta")})
+        wide[f"B=2 T={T} S={S}"] = row
+        print(json.dumps({"wide": {f"B=2 T={T} S={S}": row}}), flush=True)
+    return sweep, wide
+
+
 def ctc_long(src_tree=None):
     """K6 past 4,096 states in the checkout at ``src_tree`` (default: this
     one): ``ctc_alpha`` and ``ctc_beta_grad`` whole and in each cut of the
@@ -1211,7 +1342,8 @@ def ctc_long(src_tree=None):
     variant's largest difference from the plain version; beside
     ``F.ctc_loss``. First the shared-memory route whole at `K6_SHAPES`
     (``shared_route_ms``), which the chain's slice template must leave as fast
-    as its parent's. Prints the card, then one JSON line ``{"ctc_long": ...}``."""
+    as its parent's; last `ctc_routes` (``routes``, ``wide``). Prints the
+    card, then one JSON line ``{"ctc_long": ...}``."""
     if src_tree is not None:
         src_tree = enter_tree(src_tree)
     import chip_smoke as cs
@@ -1319,7 +1451,135 @@ def ctc_long(src_tree=None):
             row["us_per_step"] = {k: 1e3 * v / T for k, v in row["ms"].items()}
             result["shapes"][f"B={B_} T={T} S={S}"] = row
             print(json.dumps({S: row}), flush=True)
+        result["routes"], result["wide"] = ctc_routes(cs, k6, randn, dev)
     print(json.dumps({"ctc_long": result}))
+
+
+# The split K3 (``--k3-split``) at phase 13's shapes (`chip_smoke.SPLIT_SHAPES`,
+# the 30 s step's memory at L = K3_L30), and its chunk plan swept: the
+# positions a CTA takes (SPLIT_SPAN) and the clusters a row's chunks fill at
+# least (SPLIT_CLUSTERS); in the first design's tree, the positions a cluster
+# takes (SPLIT_CHUNK) and SPLIT_CLUSTERS
+K3_SPANS = (8, 12, 16, 20, 24, 32, 48)
+K3_CHUNKS = (96, 192, 384, 768)
+K3_CLUSTERS = (8, 15, 30)
+K3_L30 = 1334
+# the position split's phases: each cut ends every CTA after one (all at the
+# same point, so that no cluster barrier waits for a CTA that has left)
+K3_SPLIT_CUTS = [
+    ("launch", [("  // prologue: what the location features need,",
+                 "  return;\n  // prologue: what the location features need,")]),
+    ("prologue", [("  // locf[l, f] = sum_c sum_k", "  return;\n  // locf[l, f] = sum_c sum_k")]),
+    ("location features, memory rows", [("  // energies: a warp ", "  return;\n  // energies: a warp ")]),
+    ("energies", [("  // m_r and s_r, computed by every warp",
+                   "  return;\n  // m_r and s_r, computed by every warp")]),
+    ("its context", [("  cluster.sync();  // every CTA's m_r", "  return;\n  cluster.sync();  // every CTA's m_r")]),
+    ("the chunk's partials", [("  __syncthreads();  // this CTA's partials are written\n",
+                               "  cluster.sync();\n  return;\n")]),
+    ("the tickets, no combine", [("  if (stat[3] == 0.0f) return;\n", "  return;\n")]),
+]
+
+
+def k3_split(src_tree=None):
+    """The split K3 of the checkout at ``src_tree`` (default: this one) at
+    every shape of phase 13, graph-replayed: its time, its plan, its plain
+    version's time and its largest difference from it (each output on its
+    own scale), the short route's time at B=16 L=32; its chunk plan swept
+    (one cap on a CTA's positions, `K3_SPANS`, at every batch size, or in
+    the first design's tree `K3_CHUNKS` on a cluster's, by `K3_CLUSTERS`);
+    and, in a tree with the position split, `K3_SPLIT_CUTS`.
+    Prints the card, then one JSON line ``{"k3_split": ...}``."""
+    if src_tree is not None:
+        src_tree = enter_tree(src_tree)
+    import chip_smoke as cs
+    from semi_tts_tpu_torch import use_fp32
+    from semi_tts_tpu_torch.kernels import attention as k3, build
+
+    card = cs.phase_device()
+    use_fp32()
+    mine = build.load("attention")
+    text = open(os.path.join(build.CSRC, "attention.cu")).read()
+    split = hasattr(k3, "SPLIT_SPAN")
+    out_dir = build.BUILD_DIR / "ablate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, edits) in enumerate(K3_SPLIT_CUTS if split else []):
+        cut_text = text
+        for old, new in edits:
+            if cut_text.count(old) != 1:
+                raise SystemExit(f"chip_ablate: the split K3's cut {name!r} misses attention.cu")
+            cut_text = cut_text.replace(old, new)
+        cu = out_dir / f"k3_split_{i}.cu"
+        cu.write_text(cut_text)
+        procs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o",
+                                         str(cu.with_suffix(".so")), str(cu)],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), cu.with_suffix(".so"))
+    for name, (proc, _) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"chip_ablate: nvcc failed for {name}:\n{log}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def unif(*shape, a):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * a
+
+    shapes = {}
+    for key, B_, L, widths, masked in cs.SPLIT_SHAPES:
+        L = K3_L30 if L is None else L
+        a, mask, _, w = cs._split_inputs(randn, unif, dev, B_, L, widths, masked)
+        shapes[key.replace("L30", f"L={L}")] = (a, mask, (B_, L, w["A"], w["D"], w["C"], w["F_"], w["K"]))
+
+    def times():
+        return {k: cs.device_ms(lambda a=a, m=m: k3.attention_step(*a, m), 20)
+                for k, (a, m, _) in shapes.items()}
+
+    def plans():
+        return {k: {n: p[n] for n in ("chunk", "chunks", "span", "smem_bytes", "stage_memory",
+                                      "lin_rows") if n in p}
+                for k, p in ((k, k3.attention_plan(*sh)) for k, (_, _, sh) in shapes.items())}
+
+    short = cs._split_inputs(randn, unif, dev, 16, 32, {}, False)[0]
+    result = {"card": card, "tree": str(build.CSRC), "design": (
+        "positions over the cluster, the combine folded in" if split else
+        "a cluster a chunk, its conv in every CTA, a combine kernel")}
+    with torch.no_grad():
+        result["short_route_ms"] = cs.device_ms(lambda: k3.attention_step(*short), 200)
+        result["ms"], result["plans"] = times(), plans()
+        result["plain_ms"] = {k: cs.device_ms(lambda a=a, m=m: k3.attention_step_plain(*a, m), 2)
+                              for k, (a, m, _) in shapes.items()}
+        result["max_rel_err"] = {k: cs.rel_err(k3.attention_step(*a, m),
+                                               k3.attention_step_plain(*a, m))
+                                 for k, (a, m, _) in shapes.items()}
+        print(json.dumps({"k3_split": result}), flush=True)
+        # one cap on the positions a CTA (or a cluster) at every batch size
+        knobs, values = (("SPLIT_SPAN", "SPLIT_SPAN_WAVES"), K3_SPANS) if split else (
+            ("SPLIT_CHUNK",), K3_CHUNKS)
+        saved = {k: getattr(k3, k) for k in knobs + ("SPLIT_CLUSTERS",)}
+        result["sweep"] = {}
+        for v in values:
+            for c in K3_CLUSTERS:
+                for k in knobs:
+                    setattr(k3, k, v)
+                k3.SPLIT_CLUSTERS = c
+                k3.attention_plan.cache_clear()
+                result["sweep"][f"{knobs[0]}={v} SPLIT_CLUSTERS={c}"] = times()
+        for k, v in saved.items():
+            setattr(k3, k, v)
+        k3.attention_plan.cache_clear()
+        result["cuts"] = {}
+        for name, (_, so) in procs.items():
+            build._libs["attention"] = ctypes.CDLL(str(so))
+            build.bind.cache_clear()
+            result["cuts"]["to " + name] = times()
+        build._libs["attention"] = mine
+        build.bind.cache_clear()
+        result["ms again"] = times()
+    print(json.dumps({"k3_split": result}))
 
 
 def step_busy(tree, kind):
@@ -1663,6 +1923,8 @@ if __name__ == "__main__":
         sys.exit(sanitize_all())
     if sys.argv[1:2] == ["--kernel-mem"]:
         sys.exit(kernel_mem(sys.argv[2]))
+    if sys.argv[1:2] == ["--k3-split"]:
+        sys.exit(k3_split(sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None))
     if sys.argv[1:2] == ["--ctc-long"]:
         sys.exit(ctc_long(sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None))
     if sys.argv[1:2] == ["--asr-busy"]:

@@ -183,13 +183,14 @@ Phases, each fatal on failure:
    the CPU plain path by the step gates, and `graph_check`. ``python3
    chip_smoke.py --wide`` runs the build and this phase alone;
 13. long lengths (`phase_long`), the routes past the shared-memory plans:
-   the split K3 (a cluster a chunk of positions and a combine kernel) and
-   K9 at every shape of `SPLIT_SHAPES` (L from 1,188 to 8,000, the 30 s
-   step's, ragged and masked with a wholly masked chunk, F = 0, A=1024
-   F=64), K3 at B=16 L=32 (still one cluster a row, its time beside the
-   recorded one), K6 at S = 1,025 and 2,049 (4 and 8 states a lane), 4,097 and
-   8,193 (a cluster of CTAs a row, ``us_per_step`` and its P, K, W) and
-   24,577 (the device-memory lattice past a cluster) beside F.ctc_loss, B6 and its
+   the split K3 (a cluster a chunk of positions, the positions over its
+   CTAs, the cluster of a row's last CTA combining the chunks) and K9 at
+   every shape of `SPLIT_SHAPES` (L from 1,188 to 8,000, the 30 s step's,
+   ragged and masked with a wholly masked chunk, F = 0, A=1024 F=64), K3
+   at B=16 L=32 (still one cluster a row, its time beside the recorded
+   one), K6 at S = 1,025 to 8,193 and 24,577 (a cluster of CTAs a row at 2
+   and 8 states a lane, ``us_per_step`` and its P, K, W) and 49,153 (the
+   device-memory lattice past a cluster) beside F.ctc_loss, B6 and its
    backward at T = 14,529 and 20,000 (C=43) and T=14,528 C=8,000 (the
    argmax from device memory): each held to its plain version (1e-4; B6
    1e-6 on the means and exact elsewhere) and timed beside it and its
@@ -580,7 +581,7 @@ def ptxas_report(log):
     """Registers, spills and static shared memory of each instantiation of
     the recurrence kernels (K1 with its cell-state flag, K2, K7, K8, and the
     wide routes: `rec_wide_kernel<4>` K1w, `<3>` K2w, K7w, K8w), of the
-    attention kernels (K3 by its split flag and the combine; K9 by span and
+    attention kernels (K3 and its split route's kernel; K9 by span and
     loc_lin staging, and its sums kernel), of K6 (by states a lane, the
     cluster route's two by theirs, the device-memory route's three) and of
     B6, from nvcc's ``-Xptxas -v``
@@ -588,7 +589,7 @@ def ptxas_report(log):
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(lstm_rec|gru_rec|lstm_bwd|gru_bwd|rec_wide|lstm_wide_bwd|gru_wide_bwd|"
-                      r"attention_bwd_sum|attention_bwd|attention_step|attention_combine|"
+                      r"attention_bwd_sum|attention_bwd|attention_step|attention_split|"
                       r"ctc_alpha_cluster|ctc_beta_grad_cluster|ctc_alpha_long|ctc_beta_long|"
                       r"ctc_grad_long|ctc_alpha|ctc_beta_grad|"
                       r"trim_argmax|trim_merge_bwd|trim_merge)_kernel"
@@ -2045,7 +2046,8 @@ K6_KERNELS = ("ctc_alpha", "ctc_beta")  # K6's kernels in a profile, by name
 KERNEL_NAMES = {"bilstm_rec": r"lstm_rec_kernel<[^>]*false>",
                 "bilstm_rec_cs": r"lstm_rec_kernel<[^>]*true>",
                 "bilstm_rec_bwd": r"lstm_bwd_kernel", "bigru_rec": r"gru_rec_kernel",
-                "bigru_rec_bwd": r"gru_bwd_kernel", "attention_step": r"attention_step_kernel",
+                "bigru_rec_bwd": r"gru_bwd_kernel",
+                "attention_step": r"attention_step_kernel|attention_split_kernel",
                 "attention_step_bwd": r"attention_bwd_kernel", "gl_project": r"gl_project_kernel",
                 "gl_ola_frame": r"gl_ola_frame_kernel", "stft_frames": r"stft_frames_kernel",
                 "spec_db": r"spec_db_kernel", "ctc_alpha": r"ctc_alpha_kernel",
@@ -2054,10 +2056,8 @@ KERNEL_NAMES = {"bilstm_rec": r"lstm_rec_kernel<[^>]*false>",
                 "lstm_rec_bwd_wide": r"lstm_wide_bwd_kernel", "gru_rec_wide": r"rec_wide_kernel<3>",
                 "gru_rec_bwd_wide": r"gru_wide_bwd_kernel",
                 # the long-length routes (phase 13)
-                "attention_step_split": r"attention_step_kernel<true>",
-                "attention_combine": r"attention_combine_kernel",
-                "ctc_alpha_k4": r"ctc_alpha_kernel<4>", "ctc_beta_grad_k4": r"ctc_beta_grad_kernel<4>",
-                "ctc_alpha_k8": r"ctc_alpha_kernel<8>", "ctc_beta_grad_k8": r"ctc_beta_grad_kernel<8>",
+                "attention_step_split": r"attention_split_kernel",
+                "ctc_alpha_shared": r"ctc_alpha_kernel<", "ctc_beta_grad_shared": r"ctc_beta_grad_kernel<",
                 "ctc_alpha_cluster": r"ctc_alpha_cluster_kernel",
                 "ctc_beta_grad_cluster": r"ctc_beta_grad_cluster_kernel",
                 "ctc_alpha_long": r"ctc_alpha_long_kernel", "ctc_beta_long": r"ctc_beta_long_kernel",
@@ -4773,10 +4773,9 @@ LONG_TEXT_U = 1500              # the long request's text, and the short one bes
 LONG_TEXT_SHORT = 40
 LONG_TEXT_STEPS = 50            # decode steps of the requests held to eager and the CPU
 LONG_UNPAIRED_S = 661500        # 30.0 s: the speech-first step's unpaired row
-ASR_LONG_S, ASR_LONG_U = LONG_S, 600   # (c): B=2 x 15.28 s, U=600 (S=1,201: 4 states a lane)
-# (c'): graphed ASR steps whose CTC takes 8 states a lane (U=1,100 over 30 s: S=2,201) and
-# the cluster lattice (U=2,100 over 60 s: S=4,201)
-ASR_ROUTE_STEPS = ((LONG_UNPAIRED_S, 1100, "k8"), (2 * LONG_UNPAIRED_S, 2100, "long"))
+ASR_LONG_S, ASR_LONG_U = LONG_S, 600   # (c): B=2 x 15.28 s, U=600 (S=1,201: a cluster a row)
+# (c'): graphed ASR steps at U=1,100 over 30 s (S=2,201) and U=2,100 over 60 s (S=4,201)
+ASR_ROUTE_STEPS = ((LONG_UNPAIRED_S, 1100, "u1100"), (2 * LONG_UNPAIRED_S, 2100, "u2100"))
 # (B, L, widths, masked) of the split K3 and K9 rows; "L30" is the 30 s step's memory
 SPLIT_SHAPES = (("B=1 L=1188", 1, 1188, {}, False), ("B=1 L=1501", 1, 1501, {}, False),
                 ("B=2 L30", 2, None, {}, False), ("B=16 L=1500 masked", 16, 1500, {}, True),
@@ -4784,17 +4783,25 @@ SPLIT_SHAPES = (("B=1 L=1188", 1, 1188, {}, False), ("B=1 L=1501", 1, 1501, {}, 
                 ("A=1024 F=64 B=1 L=1500", 1, 1500, dict(A=1024, F_=64), False))
 K3_SHORT = "B=16 L=32"          # the serving shape: the single-cluster kernel, its time kept
 K3_SHORT_MS = 0.0086958         # its recorded time (PERF.md section 6), H100 80GB HBM3, 700 W
-K6_LONG_S = (1025, 2049, 4097, 8193)  # K6 at 4 and 8 states a lane, then a cluster a row
-# (S, T, target lengths, input lengths) of K6 past a cluster's 24,576 states (the device-memory
-# lattice): U = 12,288 labels, rows of 600 and 500 over T = 700
-K6_PAST_CLUSTER = (24577, 700, (600, 500), (700, 650))
+K6_LONG_S = (1025, 2049, 4097, 8193)  # K6 past the flagship's S, on the plan's routes
+# (S, T, target lengths, input lengths) of K6 past 24,576 states: U = 12,288 labels, rows of
+# 600 and 500 over T = 700 (the cluster lattice at 8 states a lane); and past the cluster's
+# 49,152, where the device-memory lattice takes the row (T short: a step there is ~36 us)
+K6_PAST_CLUSTER = ((24577, 700, (600, 500), (700, 650)), (49153, 120, (100, 80), (120, 110)))
 B6_LONG = ((14529, 43), (20000, 43), (14528, 8000))  # (T, C) of B6 past 14,528 frames or the ring
-PHASE13_KERNELS = {"a": ("attention_step_split", "attention_combine") + SERVING_KERNELS,
-                "b": ("attention_step_split", "attention_combine", "attention_step_bwd",
-                      "trim_merge", "trim_merge_bwd"),
-                "c": ("ctc_alpha_k4", "ctc_beta_grad_k4"),
-                "k8": ("ctc_alpha_k8", "ctc_beta_grad_k8"),
-                "long": ("ctc_alpha_cluster", "ctc_beta_grad_cluster")}
+PHASE13_KERNELS = {"a": ("attention_step_split",) + SERVING_KERNELS,
+                   "b": ("attention_step_split", "attention_step_bwd", "trim_merge", "trim_merge_bwd")}
+# K6's kernels on each of `ctc_plan`'s routes, by `KERNEL_NAMES`
+K6_ROUTE_KERNELS = {"shared": ("ctc_alpha_shared", "ctc_beta_grad_shared"),
+                    "cluster": ("ctc_alpha_cluster", "ctc_beta_grad_cluster"),
+                    "device": ("ctc_alpha_long", "ctc_beta_long", "ctc_grad_long")}
+
+
+def k6_route(B_, S):
+    """The route (`ctc_plan`'s ``lattice``) K6 takes at B_ rows of S states."""
+    from semi_tts_tpu_torch.kernels import ctc as k6
+
+    return k6.ctc_plan(B_, 1, S, k6.max_cluster())["lattice"]
 
 
 def _split_inputs(randn, unif, dev, B_, L, widths, masked):
@@ -4850,9 +4857,10 @@ def _fatal_unless(ok, what, detail):
 
 
 def long_attention_rows(randn, unif, dev, L30):
-    """The split K3 (its chunks' kernel and the combine kernel) and K9 at
-    every shape of `SPLIT_SHAPES` (``L30``: the 30 s step's memory): each
-    output held to its plain version's on its own scale (`rel_err` at
+    """The split K3 (positions over a cluster's CTAs, the cluster of a row's
+    last CTA combining the chunks) and K9 at every shape of `SPLIT_SHAPES`
+    (``L30``: the 30 s step's memory): each output held to its plain
+    version's on its own scale (`rel_err` at
     1e-4: the weights and K9's per-position gradients are ~1/L) and K3
     rerun bit for bit, timed (graph-replayed) beside its plain version and
     bound; K3 at B=16 L=32 must keep the single-cluster plan, and its time
@@ -4883,8 +4891,8 @@ def long_attention_rows(randn, unif, dev, L30):
         by3["ms"][key] = device_ms(fwd, 20)
         by3["plain"][key] = device_ms(lambda a=a, m=mask: k3.attention_step_plain(*a, m), 2)
         by3["bound"][key] = bound(_split_cost(B_, L, w), fwd)
-        by3["plan"][key] = {k: plan[k] for k in ("chunk", "chunks", "grid", "smem_bytes",
-                                                  "stage_memory")}
+        by3["plan"][key] = {k: plan[k] for k in ("chunk", "chunks", "span", "grid", "smem_bytes",
+                                                  "stage_memory", "lin_rows")}
         ctx, wts = got
         bargs = a + (wts, ctx) + cot
         bwd = lambda b=bargs: k3.attention_step_bwd(*b)
@@ -4904,8 +4912,7 @@ def long_attention_rows(randn, unif, dev, L30):
                        "semi_tts_tpu/models/attention.py:39 (attention_step, in the decoder_apply "
                        "step body, models/decoder.py:227), past L = 1,187 at flagship widths",
                        by3, main, 1e-4, note,
-                       {"plans": by3["plan"], "kernels": ["attention_step_kernel<true>",
-                                                          "attention_combine_kernel"],
+                       {"plans": by3["plan"], "kernels": ["attention_split_kernel"],
                         "short_route": {"shape": K3_SHORT, "ms": short_ms, "recorded_ms": K3_SHORT_MS,
                                         "ratio": short_ms / K3_SHORT_MS,
                                         "within_3pct": abs(short_ms / K3_SHORT_MS - 1) <= 0.03}})
@@ -4927,38 +4934,49 @@ def _k6_long_inputs(randn, dev, S, B_=2):
 
 
 def long_ctc_rows(randn, dev):
-    """K6 at every S of `K6_LONG_S` and at `K6_PAST_CLUSTER`: ``ctc_alpha``
+    """K6 at every S of `K6_LONG_S` and of `K6_PAST_CLUSTER`: ``ctc_alpha``
     held to its plain version at 1e-4 (log-domain alphas and NLL, which grow
-    with T), ``ctc_beta_grad`` at 1e-4 of its largest value (`rel_err`: the
-    'mean' reduction's g makes it ~1/U) and its rerun bit for bit, timed
+    with T) on the shared-memory lattice and bit for bit on the cluster and
+    device-memory lattices (the same operations in the same order),
+    ``ctc_beta_grad`` at 1e-4 of its largest value (`rel_err`: the 'mean'
+    reduction's g makes it ~1/U) and its rerun bit for bit, timed
     (graph-replayed; the plain versions eagerly, a host loop of T steps)
-    beside F.ctc_loss (forward; forward + backward), rows by route: the
-    shared-memory lattice at 4 and 8 states a lane, the cluster lattice
-    (with its time a step and its plan's P, K and W at each shape) and the
-    device-memory lattice past a cluster's states."""
+    beside F.ctc_loss (forward; forward + backward) with the rows' targets
+    and with targets of all U labels (``library_ms_full_targets_by_shape``:
+    the lattice of 2U + 1 states that K6 runs, where the rows' targets give
+    F.ctc_loss 2 max(targets) + 1), rows by route: the shared-memory
+    lattice, the cluster lattice (with its time a step and its plan's P, K
+    and W at each shape) and the device-memory lattice."""
     from semi_tts_tpu_torch.kernels import ctc as k6
 
-    S_, T_, tl_, il_ = K6_PAST_CLUSTER
     shapes = [(S, _k6_long_inputs(randn, dev, S)) for S in K6_LONG_S]
-    shapes.append((S_, _ctc_inputs(randn, dev, 2, T_, 43, (S_ - 1) // 2, seed=S_, tl=tl_, il=il_)))
+    shapes += [(S_, _ctc_inputs(randn, dev, 2, T_, 43, (S_ - 1) // 2, seed=S_, tl=tl_, il=il_))
+               for S_, T_, tl_, il_ in K6_PAST_CLUSTER]
     routes = {"shared": {}, "cluster": {}, "device": {}}
     for S, a in shapes:
         B_, T, C = a[0].shape
         key = ctc_shape_key(B_, T, C, S)
         plan = k6.ctc_plan(B_, T, S, k6.max_cluster())
         by = routes[plan["lattice"]].setdefault("alpha", {n: {} for n in (
-            "err", "ms", "plain", "bound", "library", "plan")})
+            "err", "ms", "plain", "bound", "library", "full", "plan")})
         bb = routes[plan["lattice"]].setdefault("beta", {n: {} for n in (
-            "err", "rel", "ms", "plain", "bound", "library", "plan")})
+            "err", "rel", "ms", "plain", "bound", "library", "full", "plan")})
         alphas, nll = k6.ctc_alpha(*a)
         want_a, want_nll = k6.ctc_alpha_plain(*a)
         by["err"][key] = max(max_err(alphas, want_a), max_err(nll, want_nll))
+        exact = plan["lattice"] == "shared" or (torch.equal(alphas, want_a)
+                                                and torch.equal(nll, want_nll))
         ba = _ctc_beta_args(a)
         g1, g2, want_g = k6.ctc_beta_grad(*ba), k6.ctc_beta_grad(*ba), k6.ctc_beta_grad_plain(*ba)
         bb["err"][key], bb["rel"][key] = max_err(g1, want_g), rel_err(g1, want_g)
-        _fatal_unless(by["err"][key] <= 1e-4 and bb["rel"][key] <= 1e-4 and torch.equal(g1, g2),
+        _fatal_unless(by["err"][key] <= 1e-4 and exact and bb["rel"][key] <= 1e-4
+                      and torch.equal(g1, g2),
                       f"K6 disagrees with its plain version or its rerun at {key}",
-                      [by["err"][key], bb["err"][key], bb["rel"][key]])
+                      [by["err"][key], exact, bb["err"][key], bb["rel"][key]])
+        U = a[1].shape[1]
+        full = (a[0], torch.randint(3, C, a[1].shape, device=dev, dtype=torch.int32,
+                                    generator=torch.Generator(device=dev).manual_seed(S)),
+                a[2], torch.full_like(a[3], U))
         for d, kern, plain, cost, backward in ((by, k6.ctc_alpha, k6.ctc_alpha_plain,
                                                 _ctc_alpha_cost, False),
                                                (bb, k6.ctc_beta_grad, k6.ctc_beta_grad_plain,
@@ -4968,20 +4986,23 @@ def long_ctc_rows(randn, dev):
             d["plain"][key] = time_ms(lambda f=plain, x=args: f(*x), 1)
             d["bound"][key] = bound(cost(B_, T, C, S), lambda f=kern, x=args: f(*x))
             d["library"][key] = time_ms(_ctc_library(*a, backward=backward), 3)
+            d["full"][key] = time_ms(_ctc_library(*full, backward=backward), 3)
             d["plan"][key] = plan
             d.setdefault("T", {})[key] = T
     rows = []
-    for lattice, what in (("shared", "K = 4, 8"), ("cluster", "cluster lattice"),
+    for lattice, what in (("shared", "shared lattice"), ("cluster", "cluster lattice"),
                           ("device", "device-memory lattice")):
         for part, name, replaces, lib in (
                 ("alpha", "ctc_alpha", "semi_tts_tpu/ops/ctc.py:63 (_alpha_pass)",
                  "F.ctc_loss forward, reduction mean (CUDA events, eager)"),
                 ("beta", "ctc_beta_grad", "semi_tts_tpu/ops/ctc.py:123 (_ctc_nll_bwd)",
                  "F.ctc_loss forward + backward, reduction mean (CUDA events, eager)")):
-            by = routes[lattice][part]
+            by = routes[lattice].get(part)
+            if by is None:  # no shape of this phase takes the route
+                continue
             main = next(iter(by["ms"]))
-            past = {"shared": "1,024", "cluster": "4,096", "device": "24,576"}[lattice]
-            extra = {"plans": by["plan"]}
+            extra = {"plans": by["plan"], "library_ms_full_targets_by_shape": by["full"],
+                     "tol_alphas": 1e-4 if lattice == "shared" else 0.0}
             if lattice != "shared":
                 steps = {k: 1e3 * v / by["T"][k] for k, v in by["ms"].items()}
                 extra.update(us_per_step=steps[main], us_per_step_by_shape=steps)
@@ -4990,8 +5011,8 @@ def long_ctc_rows(randn, dev):
                        for k, p in by["plan"].items()}
                 extra.update(cluster_plan=pkw[main], cluster_plan_by_shape=pkw)
             rows.append(_long_row(f"{name} {what}", "semi_tts_tpu_torch/csrc/ctc.cu",
-                                  f"{replaces}, past {past} lattice states", by, main, 1e-4, lib,
-                                  extra))
+                                  f"{replaces}, past the flagship's 65 lattice states", by, main,
+                                  1e-4, lib, extra))
     return rows
 
 
@@ -5202,14 +5223,14 @@ def long_asr_batch(dev, seconds, U_, rows):
 
 
 def long_asr(dev):
-    """(c) `AsrTrainer` at B=2 x 15.28 s and U=600 (S=1,201, CTC T=680: K6 at
-    4 states a lane): one capturing and two replayed steps (losses and
-    gradient norms finite), a profiled replay (K6's K=4 kernels by name),
-    and one step on the card against the CPU plain path on the same
-    weights (dropout 0, the same augmentation), held to phase 5's gates;
-    then graphed steps whose CTC takes 8 states a lane (B=1 x 30 s, U=1,100)
-    and the cluster lattice (B=1 x 60 s, U=2,100), each K6 route seen
-    by name in a profiled replay, losses finite."""
+    """(c) `AsrTrainer` at B=2 x 15.28 s and U=600 (S=1,201, CTC T=680): one
+    capturing and two replayed steps (losses and gradient norms finite), a
+    profiled replay (the kernels of K6's route at that S, by name), and one
+    step on the card against the CPU plain path on the same weights
+    (dropout 0, the same augmentation), held to phase 5's gates; then
+    graphed steps at B=1 x 30 s, U=1,100 (S=2,201) and B=1 x 60 s, U=2,100
+    (S=4,201), each K6 route seen by name in a profiled replay, losses
+    finite."""
     from semi_tts_tpu_torch.train.train_asr import AsrTrainer
 
     model, builder, opt = cycle_setup(dev, cycles=False)
@@ -5238,12 +5259,13 @@ def long_asr(dev):
                       f"the long ASR step ({name}) went non-finite", losses)
         prof = profiled_step(lambda t=trainer, b=batch: t._train_step(b), float(np.median(walls[1:])),
                              picked=K6_KERNELS)
-        require_seen(prof["kernels_seen"], PHASE13_KERNELS[name], f"long ASR step ({name})")
-        out[name] = dict(samples=seconds, rows=rows, text_len=U_, S=2 * U_ + 1,
+        route = k6_route(rows, 2 * U_ + 1)
+        require_seen(prof["kernels_seen"], K6_ROUTE_KERNELS[route], f"long ASR step ({name})")
+        out[name] = dict(samples=seconds, rows=rows, text_len=U_, S=2 * U_ + 1, k6_route=route,
                          first_s=walls[0], wall_s=float(np.median(walls[1:])), losses=losses,
                          busy_s=prof["device_busy_s"], idle_share=prof["idle_share"],
                          device_events=prof["kernel_launches"], k6_ms=prof["picked_ms"],
-                         kernels_seen={k: prof["kernels_seen"][k] for k in PHASE13_KERNELS[name]},
+                         kernels_seen={k: prof["kernels_seen"][k] for k in K6_ROUTE_KERNELS[route]},
                          graphs=step_graphs(trainer._step_fn))
         del trainer
     out["c"]["reference"] = training_reference(
@@ -5274,24 +5296,22 @@ def phase_long(card, dev):
         rows = (long_attention_rows(randn, unif, dev, speech["memory_len"])
                 + long_ctc_rows(randn, dev) + long_trim_rows(randn, dev))
     seen = {"attention_step split": serving["kernels_seen"]["attention_step_split"],
-            "attention_step_bwd long": speech["kernels_seen"]["attention_step_bwd"],
-            "ctc_alpha K = 4, 8": asr["c"]["kernels_seen"]["ctc_alpha_k4"]
-            + asr["k8"]["kernels_seen"]["ctc_alpha_k8"],
-            "ctc_beta_grad K = 4, 8": asr["c"]["kernels_seen"]["ctc_beta_grad_k4"]
-            + asr["k8"]["kernels_seen"]["ctc_beta_grad_k8"],
-            "ctc_alpha cluster lattice": asr["long"]["kernels_seen"]["ctc_alpha_cluster"],
-            "ctc_beta_grad cluster lattice": asr["long"]["kernels_seen"]["ctc_beta_grad_cluster"]}
+            "attention_step_bwd long": speech["kernels_seen"]["attention_step_bwd"]}
     per = {"attention_step split": "long-text request (a), 50 decode steps",
-           "attention_step_bwd long": "30 s speech-first step (b)",
-           "ctc_alpha K = 4, 8": "ASR steps (c) U=600 and (c') U=1,100",
-           "ctc_beta_grad K = 4, 8": "ASR steps (c) U=600 and (c') U=1,100",
-           "ctc_alpha cluster lattice": "ASR step (c') U=2,100",
-           "ctc_beta_grad cluster lattice": "ASR step (c') U=2,100",
-           "ctc_alpha device-memory lattice": "no driven path: S past 24,576 is a row of more "
-                                              "than 12,287 labels; checked and timed at its shape",
-           "ctc_beta_grad device-memory lattice": "no driven path: S past 24,576 is a row of "
-                                                  "more than 12,287 labels; checked and timed at "
-                                                  "its shape"}
+           "attention_step_bwd long": "30 s speech-first step (b)"}
+    lattice = {"shared": "shared lattice", "cluster": "cluster lattice",
+               "device": "device-memory lattice"}
+    for step, a in asr.items():  # K6's launches in the ASR steps, by route
+        alpha, beta = K6_ROUTE_KERNELS[a["k6_route"]][:2]
+        for name, k in (("ctc_alpha", alpha), ("ctc_beta_grad", beta)):
+            row = f"{name} {lattice[a['k6_route']]}"
+            seen[row] = seen.get(row, 0) + a["kernels_seen"][k]
+            at = f"({step}) U={a['text_len']:,}"
+            per[row] = f"{per[row]}, {at}" if row in per else f"ASR steps {at}"
+    for route in lattice.values():
+        for name in ("ctc_alpha", "ctc_beta_grad"):
+            per.setdefault(f"{name} {route}", "no driven path: a row of more than 24,575 labels; "
+                                              "checked and timed at its shape")
     for row in rows:
         row["launches"] = seen.get(row["name"], 0)
         row["launches_per"] = per.get(row["name"], "no driven path: T past 14,528 frames is "

@@ -52,20 +52,24 @@
 // is staged) is computed by `kernels/attention.py` `attention_plan`; this
 // file lays out shared memory the same way.
 //
-// The split route, past the L one cluster holds (1,187 at flagship widths:
-// the regions above take 44 floats a position): the grid is (chunk of at
-// most `chunk` positions, batch row), each chunk one cluster running the
-// body above over its positions, its location conv reading the history
-// with its (K-1)/2 halo on either side. In place of the normalised outputs
-// a chunk writes its raw masked energies into `weights`, its maximum m_c
-// and s_c = sum exp(e - m_c) (0 where every position is masked, so that a
-// masked chunk adds 0 and no NaN), and its unnormalised context
-// sum exp(e - m_c) memory into a scratch buffer. A second kernel, a CTA a
-// row launched as a programmatic dependent launch, combines them in chunk
-// order: m = max m_c, s = sum s_c exp(m_c - m), weights = exp(e - m) / s,
-// context = sum exp(m_c - m) ctx_c / s. Fixed order, no atomics: a rerun
-// repeats bit for bit; a row masked everywhere gives NaN, as one cluster
-// does.
+// The split route (`attention_split_kernel`), past the L one cluster holds
+// (1,187 at flagship widths: the regions above take 44 floats a position):
+// the grid is (chunk of kCluster * span positions, batch row), a cluster a
+// chunk, and the chunk's positions split over its CTAs, `span` each. So the
+// location conv of a position is computed once (the first design, a
+// cluster a chunk running the body above, computed the chunk's whole conv
+// in each of its 8 CTAs), and no energy crosses CTAs: each CTA stages
+// loc_lin (whole, or in tiles of rows where it does not fit, as at A=1024
+// F=64) and its positions' processed memory and memory rows. A CTA's raw
+// masked energies go into `weights`; its maximum, its sum of exp and its
+// unnormalised context are combined over the cluster through distributed
+// shared memory in rank order into the chunk's (m_c, s_c) and context, and
+// the cluster of the last CTA of a row to finish (a ticket a row, an atomic
+// after a fence) combines the chunks: m = max m_c, s = sum s_c exp(m_c - m)
+// (fixed orders), weights = exp(e - m) / s, context = sum exp(m_c - m) ctx_c
+// / s in chunk order, in place of the first design's second kernel.
+// Whichever CTA finishes last, a rerun repeats bit for bit; a masked chunk
+// adds 0; a row masked everywhere gives NaN, as one cluster does.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -79,6 +83,10 @@ constexpr int kCluster = 8;   // CTAs per batch row (attention.py CLUSTER)
 constexpr int kThreads = 256;
 constexpr int kRows = 4;      // energy positions a warp computes together
 constexpr int kConvL = 4;     // location-feature positions a thread computes together
+constexpr int kSplitRows = 6; // the split route's energy positions a warp computes together
+// floats of a split-route CTA's statistics: its m_r, s_r, the chunk's m_c,
+// its ticket; the peers' scales and scaled sums; a block reduction's
+constexpr int kSplitStat = 4 + 2 * kCluster + kThreads / 32;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -168,35 +176,24 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// kSplit: cluster blockIdx.x / kCluster takes the chunk of positions
-// [chunk * Lc, chunk * Lc + Lc) of row blockIdx.y and writes the partials
-// `stats` (B, chunks, 2) and `ctx_part` (B, chunks, D) that
-// `attention_combine_kernel` turns into the outputs; else cluster
-// blockIdx.x / kCluster takes row b whole (Lc = L).
-template <bool kSplit>
+// Cluster blockIdx.x / kCluster takes row b whole.
 __global__ void __launch_bounds__(kThreads)
 attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm,
                       const float* __restrict__ memory, const float* __restrict__ hist,
                       const float* __restrict__ loc_w, const float* __restrict__ loc_lin,
                       const float* __restrict__ v, const unsigned char* __restrict__ mask,
                       float* __restrict__ context, float* __restrict__ weights,
-                      float* __restrict__ stats, float* __restrict__ ctx_part,
-                      int Lrow, int Lc, int A, int D, int C, int F, int K, int tile, int stage_mem,
+                      int L, int A, int D, int C, int F, int K, int tile, int stage_mem,
                       int vec) {
   cg::cluster_group cluster = cg::this_cluster();
   // Peers write into this CTA's `part` only after every CTA of the cluster
   // has started: arrive now, wait just before the first remote store.
   cluster_arrive_relaxed();
-  // the combine kernel may be scheduled now: it waits for this grid's end
-  if (kSplit) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   extern __shared__ __align__(16) float smem[];
   const int r = (int)cluster.block_rank();
-  const int chunk = kSplit ? (int)blockIdx.x / kCluster : 0;
-  const int b = kSplit ? (int)blockIdx.y : (int)blockIdx.x / kCluster;
-  const int l_base = kSplit ? chunk * Lc : 0;
-  const int L = kSplit ? min(Lc, Lrow - l_base) : Lrow;  // this cluster's positions
+  const int b = (int)blockIdx.x / kCluster;
   const int Ac = A / kCluster, Dc = D / kCluster;
-  const Layout lay(kSplit ? Lc : Lrow, Ac, Dc, C, F, K, tile, stage_mem);
+  const Layout lay(L, Ac, Dc, C, F, K, tile, stage_mem);
   float* pm_s = smem + lay.pm;
   float* mem_s = smem + lay.mem;
   float* part = smem + lay.part;   // (kCluster, Lr) partial energies, slot = sender
@@ -215,8 +212,8 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
   // the location features and energies need, then the memory slices
   const int pad = (K - 1) / 2, Lp = L + K - 1 + kConvL - 1, CK = C * K, FS = feature_stride(F);
   for (int i = tid; i < C * Lp; i += blockDim.x) {
-    const int c = i / Lp, x = l_base + i - c * Lp - pad;
-    if (x >= 0 && x < Lrow) cp_async4(hist_s + i, hist + ((size_t)b * C + c) * Lrow + x);
+    const int c = i / Lp, x = i - c * Lp - pad;
+    if (x >= 0 && x < L) cp_async4(hist_s + i, hist + ((size_t)b * C + c) * L + x);
     else hist_s[i] = 0.0f;
   }
   for (int i = tid; i < F * CK; i += blockDim.x) cp_async4(wloc + i + i / CK, loc_w + i);
@@ -230,12 +227,12 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
     cp_async4(v_s + i, v + r * Ac + i);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  stage_slice(pm_s, Ac, pm + ((size_t)b * Lrow + l_base) * A + r * Ac, A, L, Ac, vec);
-  const float* mem_b = memory + ((size_t)b * Lrow + l_base) * D + r * Dc;
+  stage_slice(pm_s, Ac, pm + (size_t)b * L * A + r * Ac, A, L, Ac, vec);
+  const float* mem_b = memory + (size_t)b * L * D + r * Dc;
   if (stage_mem) stage_slice(mem_s, Dc, mem_b, D, L, Dc, vec);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   for (int l = tid; l < L; l += blockDim.x)
-    e[l] = mask != nullptr && mask[(size_t)b * Lrow + l_base + l];
+    e[l] = mask != nullptr && mask[(size_t)b * L + l];
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // the first group has landed
   __syncthreads();
   cluster_wait();
@@ -335,35 +332,16 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
   float m = -INFINITY;
   for (int l = lane; l < L; l += 32) m = fmaxf(m, e[l]);
   m = warp_max(m);
-  if (kSplit) {
-    // the chunk's partials: raw energies, m_c and s_c, exp(e - m_c) as the
-    // weights of the context below; every position masked: all 0
-    const bool dead = m == -INFINITY;
-    float sum = 0.0f;
-    for (int l = lane; l < L; l += 32) sum += dead ? 0.0f : __expf(e[l] - m);
-    sum = warp_sum(sum);
-    for (int l = tid; l < L; l += blockDim.x) {
-      w[l] = dead ? 0.0f : __expf(e[l] - m);
-      if (r == 0) weights[(size_t)b * Lrow + l_base + l] = e[l];
-    }
-    if (r == 0 && tid == 0) {
-      float* st = stats + 2 * ((size_t)b * (gridDim.x / kCluster) + chunk);
-      st[0] = m;
-      st[1] = sum;
-    }
-  } else {
-    float sum = 0.0f;
-    for (int l = lane; l < L; l += 32) sum += __expf(e[l] - m);
-    sum = warp_sum(sum);
-    for (int l = tid; l < L; l += blockDim.x) {
-      const float wl = __expf(e[l] - m) / sum;
-      w[l] = wl;
-      if (r == 0) weights[(size_t)b * L + l] = wl;
-    }
+  float sum = 0.0f;
+  for (int l = lane; l < L; l += 32) sum += __expf(e[l] - m);
+  sum = warp_sum(sum);
+  for (int l = tid; l < L; l += blockDim.x) {
+    const float wl = __expf(e[l] - m) / sum;
+    w[l] = wl;
+    if (r == 0) weights[(size_t)b * L + l] = wl;
   }
   __syncthreads();
-  float* ctx_out = kSplit ? ctx_part + ((size_t)b * (gridDim.x / kCluster) + chunk) * D
-                          : context + (size_t)b * D;
+  float* ctx_out = context + (size_t)b * D;
 
   // context[d] = sum_l w[l] * memory[l, d] over this CTA's columns; G groups
   // of positions when the columns leave threads idle, summed in group order
@@ -389,30 +367,351 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
   }
 }
 
-// The split route's combine, a CTA a row, after every chunk's cluster (a
-// programmatic dependent launch): the chunks' statistics in chunk order,
-// then each weight from its raw energy and the context from the chunks'
-// unnormalised ones. A chunk with every position masked has m_c = -inf
-// and s_c = 0 and adds 0; a row masked everywhere has m = -inf and gives
-// NaN, as the single-cluster kernel does.
+// The split route. Shared-memory layout of a CTA of `span` positions, in
+// floats, each region a multiple of 4 floats (attention.py `_split_smem`
+// adds up the same regions): its processed memory (span, A) and memory
+// (span, D) when staged, `lin_rows` rows of loc_lin (A where they fit),
+// its history window, location features (span, FS), loc_w, pq, v, its
+// energies and weights (span each), the energies' partials by column part
+// (kThreads / 32, span), its context (D), the row's context by group of
+// chunks (kThreads) and its statistics.
+struct SplitLayout {
+  int pm, mem, lin, hist, locf, wloc, pq, v, e, w, red, ctx, comb, stat, total;
+  __host__ __device__ SplitLayout(int span, int A, int D, int C, int F, int K, int stage_mem,
+                                  int lin_rows) {
+    const int sr = round4(span), FS = feature_stride(F);
+    int at = 0;
+    pm = at;   at += round4(span * A);
+    mem = at;  at += stage_mem ? round4(span * D) : 0;
+    lin = at;  at += F > 0 ? lin_rows * FS : 0;
+    hist = at; at += round4(C * (span + K - 1 + kConvL - 1));
+    locf = at; at += F > 0 ? span * FS : 0;
+    wloc = at; at += round4(F * (C * K + 1));
+    pq = at;   at += round4(A);
+    v = at;    at += round4(A);
+    e = at;    at += sr;
+    w = at;    at += sr;
+    red = at;  at += (kThreads / 32) * sr;
+    ctx = at;  at += round4(D);
+    comb = at; at += kThreads;
+    stat = at; at += kSplitStat;
+    total = at;
+  }
+};
+
+// A row's CTAs that have finished, for the launch in flight: the last one
+// sets its entry back to 0, so that every launch (and every replay of a
+// CUDA graph) finds zeros. One set of entries per card: two split launches
+// must not run at once (the port issues them on one stream).
+__device__ unsigned g_split_tickets[65536];
+
+// The sum (max) over a CTA of one value a thread, in a fixed order; every
+// thread gets it. `tmp`: kThreads / 32 floats of shared memory.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float x, float* tmp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = kMax ? warp_max(x) : warp_sum(x);
+  __syncthreads();  // tmp is free
+  if (lane == 0) tmp[warp] = x;
+  __syncthreads();
+  x = kMax ? -INFINITY : 0.0f;
+  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) x = kMax ? fmaxf(x, tmp[i]) : x + tmp[i];
+  return x;
+}
+
+// Cluster blockIdx.x / kCluster takes the chunk of kCluster * span positions
+// [chunk * kCluster * span, ...) of row blockIdx.y, CTA r of it the `span`
+// positions from (chunk * kCluster + r) * span (none past the row). Each CTA
+// computes its positions' location features, energies over all A columns
+// (loc_lin in tiles of `lin_rows` rows where it does not fit whole), its
+// maximum m_r, s_r = sum exp(e - m_r) and its unnormalised context
+// sum exp(e - m_r) memory (all 0 where every position is masked), and
+// writes its raw masked energies into `weights`; after a cluster barrier
+// every CTA reads the cluster's (m_r, s_r) in rank order from distributed
+// shared memory (the chunk's m_c = max m_r, s_c = sum s_r exp(m_r - m_c)),
+// and CTA r sums column slice r of the cluster's contexts, scaled by
+// exp(m_r - m_c), in rank order into `ctx_part` (B, chunks, D); rank 0
+// writes (m_c, s_c) into `stats` (B, chunks, 2). Then each CTA takes a
+// ticket of its row, and after a last cluster barrier the cluster of the
+// CTA that took the row's last finishes the row from the chunks' partials:
+// m = max m_c, s = sum s_c exp(m_c - m) (each in a fixed order), weights =
+// exp(e - m) / s, context = sum exp(m_c - m) ctx_c / s in chunk order.
 __global__ void __launch_bounds__(kThreads)
-attention_combine_kernel(const float* __restrict__ stats, const float* __restrict__ ctx_part,
-                         float* __restrict__ context, float* __restrict__ weights, int L, int D,
-                         int chunks) {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // every chunk's partials are written
-  const int b = blockIdx.x;
-  const float* st = stats + (size_t)b * chunks * 2;
+attention_split_kernel(const float* __restrict__ pq, const float* __restrict__ pm,
+                       const float* __restrict__ memory, const float* __restrict__ hist,
+                       const float* __restrict__ loc_w, const float* __restrict__ loc_lin,
+                       const float* __restrict__ v, const unsigned char* __restrict__ mask,
+                       float* __restrict__ context, float* __restrict__ weights,
+                       float* __restrict__ stats, float* __restrict__ ctx_part, int L, int span,
+                       int A, int D, int C, int F, int K, int stage_mem, int lin_rows, int vec) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const int r = (int)cluster.block_rank();
+  const int chunk = (int)blockIdx.x / kCluster, chunks = (int)gridDim.x / kCluster;
+  const int b = (int)blockIdx.y;
+  const int l0 = (chunk * kCluster + r) * span;   // this CTA's first position
+  const int n = max(0, min(span, L - l0));        // and its number of positions
+  const SplitLayout lay(span, A, D, C, F, K, stage_mem, lin_rows);
+  float* pm_s = smem + lay.pm;     // (n, A)
+  float* mem_s = smem + lay.mem;   // (n, D)
+  float* lin_s = smem + lay.lin;   // (lin_rows, FS) rows of loc_lin, zero past F
+  float* hist_s = smem + lay.hist; // (C, Lp): attn_hist from l0 - (K-1)/2, zero outside the row
+  float* locf = smem + lay.locf;   // (span, FS) location features, zero past F
+  float* wloc = smem + lay.wloc;   // (F, C*K + 1): loc_w, rows padded by one
+  float* pq_s = smem + lay.pq;
+  float* v_s = smem + lay.v;
+  float* e = smem + lay.e;         // (n) the mask as 0/1, then energies
+  float* w = smem + lay.w;         // (n) exp(e - m_r)
+  float* red = smem + lay.red;     // (H, sr) energies by column part
+  float* ctx = smem + lay.ctx;     // (D) this CTA's unnormalised context, read by peers
+  float* comb = smem + lay.comb;   // (kThreads) the row's context by group of chunks
+  float* stat = smem + lay.stat;   // m_r, s_r, m_c, the ticket; the peers' scales and sums; tmp
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int sr = round4(span);
+
+  // prologue: what the location features need, then what the energies
+  // need, then the memory rows, each group of copies in flight at once
+  const int pad = (K - 1) / 2, Lp = span + K - 1 + kConvL - 1, CK = C * K, FS = feature_stride(F);
+  const bool lvec = vec && F % 4 == 0;
+  for (int i = tid; i < C * Lp; i += blockDim.x) {
+    const int c = i / Lp, x = l0 + i - c * Lp - pad;
+    if (x >= 0 && x < L) cp_async4(hist_s + i, hist + ((size_t)b * C + c) * L + x);
+    else hist_s[i] = 0.0f;
+  }
+  for (int i = tid; i < F * CK; i += blockDim.x) cp_async4(wloc + i + i / CK, loc_w + i);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if (F > 0) {
+    stage_slice(lin_s, FS, loc_lin, F, min(lin_rows, A), F, lvec);
+    zero_tail(lin_s, FS, lin_rows, F);
+    zero_tail(locf, FS, span, F);
+  }
+  for (int i = tid; i < A; i += blockDim.x) {
+    cp_async4(pq_s + i, pq + (size_t)b * A + i);
+    cp_async4(v_s + i, v + i);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  const float* mem_b = memory + ((size_t)b * L + l0) * D;
+  if (n > 0) {
+    stage_slice(pm_s, A, pm + ((size_t)b * L + l0) * A, A, n, A, vec);
+    if (stage_mem) stage_slice(mem_s, D, mem_b, D, n, D, vec);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int l = tid; l < n; l += blockDim.x) e[l] = mask != nullptr && mask[(size_t)b * L + l0 + l];
+  asm volatile("cp.async.wait_group 2;\n" ::: "memory");  // the history and loc_w have landed
+  __syncthreads();
+
+  // locf[l, f] = sum_c sum_k loc_w[f, c, k] * hist[c, l0 + l + k - pad]: a
+  // thread kConvL neighbouring positions of one filter, a window of the
+  // history sliding through registers
+  if (F > 0) {
+    const int groups = (n + kConvL - 1) / kConvL;
+    for (int i = tid; i < groups * F; i += blockDim.x) {
+      const int lb = (i / F) * kConvL, f = i - (i / F) * F;
+      float acc[kConvL] = {};
+      for (int c = 0; c < C; ++c) {
+        const float* wk = wloc + f * (CK + 1) + c * K;
+        const float* h = hist_s + c * Lp + lb;
+        float win[kConvL];
+#pragma unroll
+        for (int q = 0; q < kConvL - 1; ++q) win[q + 1] = h[q];
+#pragma unroll 4
+        for (int k = 0; k < K; ++k) {
+#pragma unroll
+          for (int q = 0; q < kConvL - 1; ++q) win[q] = win[q + 1];
+          win[kConvL - 1] = h[k + kConvL - 1];
+          const float wv = wk[k];
+#pragma unroll
+          for (int q = 0; q < kConvL; ++q) acc[q] = fmaf(wv, win[q], acc[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kConvL; ++q)
+        if (lb + q < n) locf[(lb + q) * FS + f] = acc[q];
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // loc_lin, pq, v, pm and memory
+  __syncthreads();
+
+  // energies: a warp kSplitRows positions and every H-th block of 32 columns (H
+  // column parts, a pair of blocks a part at A = 64 H, so that every warp
+  // works), a lane two columns 32 H apart at a time, over loc_lin's tiles of
+  // lin_rows rows, each tile's sums added in tile order
+  const int G = (n + kSplitRows - 1) / kSplitRows;
+  const int H = max(1, min(nwarps, A / 64));
+  const int tiles = F > 0 ? (A + lin_rows - 1) / lin_rows : 1;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int a0 = F > 0 ? tile * lin_rows : 0, a1 = F > 0 ? min(A, a0 + lin_rows) : A;
+    if (tile > 0) {
+      __syncthreads();  // every warp is done with the last tile
+      stage_slice(lin_s, FS, loc_lin + (size_t)a0 * F, F, a1 - a0, F, lvec);
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+    }
+    for (int item = warp; item < G * H; item += nwarps) {
+      const int g = item / H, h = item - g * H, lb = g * kSplitRows;
+      int lq[kSplitRows];
+#pragma unroll
+      for (int q = 0; q < kSplitRows; ++q) lq[q] = min(lb + q, n - 1);
+      float acc[kSplitRows] = {};
+      for (int a = a0 + h * 32 + lane; a < a1; a += 64 * H) {
+        const int a2 = a + 32 * H;
+        const bool two = a2 < a1;
+        float loc[kSplitRows] = {}, loc2[kSplitRows] = {};
+        const float* la = lin_s + (a - a0) * FS;
+        const float* la2 = lin_s + ((two ? a2 : a) - a0) * FS;
+#pragma unroll 4
+        for (int f = 0; f < F; f += 4) {
+          const float4 lv = *reinterpret_cast<const float4*>(la + f);
+          const float4 lv2 = *reinterpret_cast<const float4*>(la2 + f);
+#pragma unroll
+          for (int q = 0; q < kSplitRows; ++q) {
+            const float4 lf = *reinterpret_cast<const float4*>(locf + lq[q] * FS + f);
+            loc[q] = fmaf(lf.x, lv.x, loc[q]);
+            loc[q] = fmaf(lf.y, lv.y, loc[q]);
+            loc[q] = fmaf(lf.z, lv.z, loc[q]);
+            loc[q] = fmaf(lf.w, lv.w, loc[q]);
+            loc2[q] = fmaf(lf.x, lv2.x, loc2[q]);
+            loc2[q] = fmaf(lf.y, lv2.y, loc2[q]);
+            loc2[q] = fmaf(lf.z, lv2.z, loc2[q]);
+            loc2[q] = fmaf(lf.w, lv2.w, loc2[q]);
+          }
+        }
+        const float pa = pq_s[a], va = v_s[a];
+#pragma unroll
+        for (int q = 0; q < kSplitRows; ++q)
+          acc[q] = fmaf(tanh_((pa + loc[q]) + pm_s[lq[q] * A + a]), va, acc[q]);
+        if (two) {
+          const float pa2 = pq_s[a2], va2 = v_s[a2];
+#pragma unroll
+          for (int q = 0; q < kSplitRows; ++q)
+            acc[q] = fmaf(tanh_((pa2 + loc2[q]) + pm_s[lq[q] * A + a2]), va2, acc[q]);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int q = 0; q < kSplitRows; ++q) acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], o);
+      if (lane == 0) {
+#pragma unroll
+        for (int q = 0; q < kSplitRows; ++q)
+          if (lb + q < n) red[h * sr + lb + q] = tile > 0 ? red[h * sr + lb + q] + acc[q] : acc[q];
+      }
+    }
+  }
+  __syncthreads();
+  for (int l = tid; l < n; l += blockDim.x) {
+    float s = 0.0f;
+    for (int h = 0; h < H; ++h) s += red[h * sr + l];
+    e[l] = e[l] != 0.0f ? -INFINITY : s;
+    weights[(size_t)b * L + l0 + l] = e[l];   // raw: the row's last CTA normalises it
+  }
+  __syncthreads();
+  // m_r and s_r, computed by every warp for itself (same order, same result);
+  // every position masked (or none): m_r = -inf, s_r = 0, weights 0
   float m = -INFINITY;
-  for (int c = 0; c < chunks; ++c) m = fmaxf(m, st[2 * c]);
-  float s = 0.0f;
-  for (int c = 0; c < chunks; ++c) s += st[2 * c + 1] * __expf(st[2 * c] - m);
-  float* w = weights + (size_t)b * L;
-  for (int l = threadIdx.x; l < L; l += blockDim.x) w[l] = __expf(w[l] - m) / s;
-  const float* cp = ctx_part + (size_t)b * chunks * D;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+  for (int l = lane; l < n; l += 32) m = fmaxf(m, e[l]);
+  m = warp_max(m);
+  const bool dead = m == -INFINITY;
+  float sum = 0.0f;
+  for (int l = lane; l < n; l += 32) sum += dead ? 0.0f : __expf(e[l] - m);
+  sum = warp_sum(sum);
+  for (int l = tid; l < n; l += blockDim.x) w[l] = dead ? 0.0f : __expf(e[l] - m);
+  if (tid == 0) stat[0] = m, stat[1] = sum, stat[3] = 0.0f;  // not (yet) the row's last
+  __syncthreads();
+  // this CTA's context over every column: sum_l w[l] memory[l, d]
+  for (int d = tid; d < D; d += blockDim.x) {
     float acc = 0.0f;
-    for (int c = 0; c < chunks; ++c) acc = fmaf(__expf(st[2 * c] - m), cp[(size_t)c * D + d], acc);
-    context[(size_t)b * D + d] = acc / s;
+    if (stage_mem) {
+      for (int l = 0; l < n; ++l) acc = fmaf(w[l], mem_s[l * D + d], acc);
+    } else {
+      for (int l = 0; l < n; ++l) acc = fmaf(w[l], mem_b[(size_t)l * D + d], acc);
+    }
+    ctx[d] = acc;
+  }
+  cluster.sync();  // every CTA's m_r, s_r and context are in its shared memory
+
+  // the chunk's statistics: the peers' (m_r, s_r) in rank order; the scale
+  // exp(m_r - m_c) of each peer's sums (0 for a CTA whose positions are all
+  // masked, and for every CTA of a chunk whose positions all are)
+  float* scale = stat + 4;               // (kCluster) the peers' scales
+  float* scaled = scale + kCluster;      // (kCluster) s_r times its scale
+  float* tmp = scaled + kCluster;        // (kThreads / 32) block reductions
+  if (warp == 0) {
+    const float* peer = lane < kCluster ? cluster.map_shared_rank(stat, lane) : nullptr;
+    const float mr = lane < kCluster ? peer[0] : -INFINITY;
+    const float mc = warp_max(mr);
+    if (lane < kCluster) {
+      const float sc = mr == -INFINITY ? 0.0f : __expf(mr - mc);
+      scale[lane] = sc;
+      scaled[lane] = sc * peer[1];
+    }
+    if (lane == 0) stat[2] = mc;
+  }
+  __syncthreads();
+  const int Dc = D / kCluster;
+  const size_t part = (size_t)b * chunks + chunk;
+  for (int d = r * Dc + tid; d < (r + 1) * Dc; d += blockDim.x) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) acc = fmaf(scale[q], cluster.map_shared_rank(ctx, q)[d], acc);
+    ctx_part[part * D + d] = acc;
+  }
+  if (r == 0 && tid == 0) {
+    float s = 0.0f;
+    for (int q = 0; q < kCluster; ++q) s += scaled[q];
+    stats[2 * part] = stat[2];
+    stats[2 * part + 1] = s;
+  }
+  __syncthreads();  // this CTA's partials are written
+  if (tid == 0) {
+    __threadfence();  // they (seen through the barrier) before the ticket, cumulatively
+    if (atomicAdd(&g_split_tickets[b], 1u) == (unsigned)(kCluster * chunks) - 1) {
+      g_split_tickets[b] = 0u;  // every CTA of the row has taken its ticket
+      __threadfence();          // the others' partials before the reads below
+      for (int q = 0; q < kCluster; ++q) *cluster.map_shared_rank(stat + 3, q) = 1.0f;
+    }
+  }
+  cluster.sync();  // every CTA of the cluster knows whether it finishes the row; no remote access after
+  if (stat[3] == 0.0f) return;
+
+  // the cluster of the row's last CTA finishes the row: the chunks'
+  // statistics (a thread every blockDim-th chunk, then a fixed tree, the
+  // same in every CTA), the weights (CTA r every kCluster-th block of
+  // blockDim positions) and the context (CTA r its column slice, G groups of
+  // threads over the chunks where the slice leaves threads idle, summed in
+  // group order). A chunk with every position masked has m_c = -inf and
+  // s_c = 0 and adds 0; a row masked everywhere has m = -inf and gives NaN,
+  // as the single-cluster kernel does.
+  const float* st = stats + (size_t)b * chunks * 2;
+  float mrow = -INFINITY;
+  for (int c = tid; c < chunks; c += blockDim.x) mrow = fmaxf(mrow, __ldcg(st + 2 * c));
+  mrow = block_reduce<true>(mrow, tmp);
+  float srow = 0.0f;
+  for (int c = tid; c < chunks; c += blockDim.x)
+    srow += __ldcg(st + 2 * c + 1) * __expf(__ldcg(st + 2 * c) - mrow);
+  srow = block_reduce<false>(srow, tmp);
+  float* wrow = weights + (size_t)b * L;
+#pragma unroll 4
+  for (int l = r * blockDim.x + tid; l < L; l += kCluster * blockDim.x)
+    wrow[l] = __expf(__ldcg(wrow + l) - mrow) / srow;
+  const float* cp = ctx_part + (size_t)b * chunks * D;
+  const int Gc = Dc >= (int)blockDim.x ? 1 : (int)blockDim.x / Dc;
+  for (int i = tid; i < Gc * Dc; i += blockDim.x) {
+    const int g = i / Dc, d = r * Dc + i - g * Dc;
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int c = g; c < chunks; c += Gc)
+      acc = fmaf(__expf(__ldcg(st + 2 * c) - mrow), __ldcg(cp + (size_t)c * D + d), acc);
+    if (Gc == 1) context[(size_t)b * D + d] = acc / srow;
+    else comb[i] = acc;
+  }
+  if (Gc > 1) {
+    __syncthreads();
+    for (int j = tid; j < Dc; j += blockDim.x) {
+      float acc = 0.0f;
+      for (int g = 0; g < Gc; ++g) acc += comb[g * Dc + j];
+      context[(size_t)b * D + r * Dc + j] = acc / srow;
+    }
   }
 }
 
@@ -1001,27 +1300,33 @@ extern "C" int attention_step_bwd_f32(const float* pq, const float* pm, const fl
 }
 
 // `tile` (location-feature rows per tile, 0 when F = 0), `stage_mem`, and
-// the split route's `chunk` (positions a cluster) and `chunks` (0: one
-// cluster a row, no split) come from attention.py `attention_plan`; `vec`
+// the split route's `chunk` (positions a cluster, kCluster times a CTA's
+// span), `chunks` (0: one cluster a row, no split) and `lin_rows` (rows of
+// loc_lin a CTA stages at once: A where they fit, 0 when F = 0) come from
+// attention.py `attention_plan`; `vec`
 // = 1 when A/kCluster and D/kCluster are multiples of 4 and
-// processed_memory and memory are 16-byte aligned. `scratch` (split route
-// only): B * chunks * (2 + D) floats, the chunks' statistics then their
-// contexts.
+// processed_memory, memory and loc_lin are 16-byte aligned. `scratch`
+// (split route only): B * chunks * (2 + D) floats, the chunks' statistics
+// then their contexts.
 extern "C" int attention_step_f32(const float* pq, const float* pm, const float* memory,
                                   const float* hist, const float* loc_w, const float* loc_lin,
                                   const float* v, const unsigned char* mask,
                                   float* context, float* weights, float* scratch,
                                   int B, int L, int A, int D, int C, int F, int K,
                                   int tile, int stage_mem, int vec, int chunk, int chunks,
-                                  void* stream) {
+                                  int lin_rows, void* stream) {
   if (A % kCluster || D % kCluster || L < 1 || B < 1) return (int)cudaErrorInvalidValue;
   const bool split = chunks > 0;
-  if (split && (chunk < 1 || (long long)chunk * chunks < L || (long long)chunk * (chunks - 1) >= L ||
-                scratch == nullptr || B > 65535))
+  if (split && (chunk < kCluster || chunk % kCluster || (long long)chunk * chunks < L ||
+                (long long)chunk * (chunks - 1) >= L || scratch == nullptr || B > 65535 ||
+                (F > 0 && (lin_rows < 1 || lin_rows > A))))
     return (int)cudaErrorInvalidValue;
-  const Layout lay(split ? chunk : L, A / kCluster, D / kCluster, C, F, K, tile, stage_mem);
-  const size_t smem = (size_t)lay.total * sizeof(float);
-  const auto kernel = split ? attention_step_kernel<true> : attention_step_kernel<false>;
+  const int span = chunk / kCluster;
+  const size_t smem =
+      (size_t)(split ? SplitLayout(span, A, D, C, F, K, stage_mem, lin_rows).total
+                     : Layout(L, A / kCluster, D / kCluster, C, F, K, tile, stage_mem).total) *
+      sizeof(float);
+  const void* kernel = split ? (const void*)attention_split_kernel : (const void*)attention_step_kernel;
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1039,24 +1344,12 @@ extern "C" int attention_step_f32(const float* pq, const float* pm, const float*
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  float* stats = split ? scratch : nullptr;
-  float* ctx_part = split ? scratch + (size_t)B * chunks * 2 : nullptr;
-  err = cudaLaunchKernelEx(&cfg, kernel, pq, pm, memory, hist, loc_w, loc_lin, v, mask, context,
-                           weights, stats, ctx_part, L, split ? chunk : L, A, D, C, F, K, tile,
-                           stage_mem, vec);
-  if (err != cudaSuccess || !split) return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
-  // a programmatic dependent launch: the combine is scheduled while the
-  // chunks run and waits for their end (griddepcontrol.wait)
-  cudaLaunchAttribute dep[1];
-  dep[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  dep[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cc = {};
-  cc.gridDim = dim3(B);
-  cc.blockDim = dim3(kThreads);
-  cc.stream = (cudaStream_t)stream;
-  cc.attrs = dep;
-  cc.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cc, attention_combine_kernel, (const float*)stats,
-                           (const float*)ctx_part, context, weights, L, D, chunks);
+  if (split)
+    err = cudaLaunchKernelEx(&cfg, attention_split_kernel, pq, pm, memory, hist, loc_w, loc_lin, v,
+                             mask, context, weights, scratch, scratch + (size_t)B * chunks * 2, L,
+                             span, A, D, C, F, K, stage_mem, lin_rows, vec);
+  else
+    err = cudaLaunchKernelEx(&cfg, attention_step_kernel, pq, pm, memory, hist, loc_w, loc_lin, v,
+                             mask, context, weights, L, A, D, C, F, K, tile, stage_mem, vec);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

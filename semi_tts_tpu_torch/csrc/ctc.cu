@@ -1,5 +1,5 @@
 // K6: CTC over the log-semiring lattice, a CTA of chain warps a row (past
-// 4,096 states, a cluster of them).
+// 1,024 states, a cluster of them).
 //
 // Replaces: B5, `semi_tts_tpu/ops/ctc.py`: `_alpha_pass` (`:63`, the
 // forward recursion and the NLL), `_ctc_nll_bwd` (`:123`, the backward
@@ -60,16 +60,19 @@
 //   No thread's serial sum grows with S (the blank class holds half the
 //   states); the rest of the row is zero. No (T, B, S) scratch, no second
 //   launch, no atomics: a rerun is bit for bit.
-// - K states a lane, K in {1, 2, 4, 8}: up to 32 * 8 * 16 = 4,096 states. A
+// - K states a lane, K in {1, 2}: up to 32 * 2 * 16 = 1,024 states. A
 //   forward chunk holds min(8, 16 / K) steps, a backward one 8 / K, so that
-//   a thread's chunks stay at 16 values; past 2 states a lane the sort's
-//   keys can outgrow a chunk's segment sums and their region grows to hold
-//   them (~197 KB at K = 8 in 16 warps).
+//   a thread's chunks stay at 16 values; past 2 states a lane (the cluster
+//   route's slices) the sort's keys can outgrow a chunk's segment sums and
+//   their region grows to hold them.
 //
-// Past 4,096 states, the cluster route (`ctc_alpha_cluster_f32`,
-// `ctc_beta_grad_cluster_f32`): a thread-block cluster of P CTAs a row
-// (up to 16, non-portable past 8), CTA p holding the slice of 32 K W states
-// from p * 32 K W, K = 2 or 4 states a lane in up to 12 warps. Each CTA
+// Past 1,024 states, the cluster route (`ctc_alpha_cluster_f32`,
+// `ctc_beta_grad_cluster_f32`), which `chip_ablate.py --ctc-long` times
+// faster there than this route at 4 and 8 states a lane (those are gone) at
+// every row count it sweeps: a thread-block cluster of P CTAs a row (up to
+// 16, non-portable past 8), CTA p holding the slice of 32 K W states from p
+// * 32 K W, K = 2, 4 or 8 states a lane in up to 12 warps: 49,152 states at
+// 16 CTAs. Each CTA
 // runs the chain above on its slice (the same code, `alpha_chain`/
 // `beta_grad` with Split): its lanes' states stay in registers, their
 // neighbours come from its lattice under the named barrier. Only a slice's
@@ -85,12 +88,23 @@
 // after a plain remote store, the first design) waits for the thread's
 // stores of alphas to device memory, and cost ~0.33 us a step of ~0.8
 // (`chip_ablate.py --ctc-long`).
+// A chain thread's own K neighbouring states, stored by it, spread a warp's
+// store of a step over 4K sectors (32 at K = 8): at 4 and 8 states a lane a
+// copy warp beside the chain warps stores each step's lattice instead, a
+// coalesced row, after the step's barrier (which it joins: the lattice of
+// step t is kept until the barrier of step t + 1). The backward's alphas,
+// which only the occupancies need, come into a ring beside the occupancy
+// ring by 4-byte asynchronous copies, a coalesced row a step, whose
+// completion arrives on the slot's "full" mbarrier: no chain registers hold
+// them (at 8 states a lane, 16 of them spilled the chain at the 96
+// registers that 20 warps leave), and the class-sum warps add alpha + beta +
+// nll in the plain version's order.
 // Each CTA's class-sum warps sum the occupancies of its slice as above into
 // a (B, P, T, C) scratch of partial sums; after the one cluster barrier at
 // the end, grad[b, t, c] = -g[b] times their sum in rank order. No
 // (T, B, S) scratch, no atomics: a rerun is bit for bit.
 //
-// Past a cluster's 16 x 32 x 4 x 12 = 24,576 states, the device-memory
+// Past a cluster's 16 x 32 x 8 x 12 = 49,152 states, the device-memory
 // route (`ctc_alpha_long_f32`, `ctc_beta_grad_long_f32`): a CTA of 1,024
 // threads a row, a thread a state at a time in a strided loop. The forward
 // reads step t - 1's alphas back from the (T, B, S) output it writes, one
@@ -126,6 +140,11 @@ constexpr int kMaxCluster = 16;      // the cluster route's CTAs a row (MAX_CLUS
 constexpr int kPortableCluster = 8;  // past this, a non-portable cluster (PORTABLE_CLUSTER)
 constexpr int kMaxClusterWarps = 12; // its chain warps at most (MAX_CLUSTER_WARPS)
 constexpr int kEdgeRing = 8;         // edge slots between neighbouring CTAs (EDGE_RING)
+// The cluster route's forward at K >= 4 states a lane has a copy warp beside
+// its chain warps, which stores each step's alphas from the lattice, a
+// coalesced row (a chain thread's own K neighbouring states, stored by it,
+// spread a warp's stores over 4K sectors each)
+__host__ __device__ constexpr bool copy_warp(int K, bool Split) { return Split && K >= 4; }
 // the edge's full and empty mbarriers, its slots of two floats and their
 // acknowledgements' words (EDGE_BYTES)
 constexpr size_t kEdgeBytes = 28 * kEdgeRing;
@@ -148,6 +167,8 @@ __host__ __device__ constexpr int part_floats(int K, int W) {
   return 32 * W * kChunk > 2 * pow2_at_least(32 * K * W) ? 32 * W * kChunk
                                                          : 2 * pow2_at_least(32 * K * W);
 }
+// A ring of kDepth chunks of a value a state a step (CH K = kChunk).
+__host__ __device__ constexpr int ring_floats(int W) { return 32 * W * kDepth * kChunk; }
 constexpr size_t beta_smem(int K, int W) {
   // the occupancy ring's full and empty mbarriers and the count of class
   // runs; the lattice; the occupancy ring (kDepth, kChunk / K,
@@ -199,6 +220,17 @@ __device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
 
 __device__ __forceinline__ void mbar_arrive(unsigned bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// An asynchronous copy of 4 bytes from device memory to shared address dst.
+__device__ __forceinline__ void cp_async4(unsigned dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// An arrival on the mbarrier `bar`, one of its expected ones, made once this
+// thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // Cluster: acquire at cluster scope, for phases that peers' asynchronous
@@ -385,8 +417,11 @@ __device__ __forceinline__ void alpha_chain(const float* __restrict__ log_probs,
                                             int B, int T, int C, int U, int blank) {
   static_assert(!Split || K >= 2, "a slice's edge is its top lane's two top states");
   constexpr int CH = fwd_chunk(K);  // steps a chunk
+  constexpr bool kCopy = copy_warp(K, Split);
   extern __shared__ __align__(16) float lat[];
-  const int nl = blockDim.x, L = threadIdx.x, ls = 32 * K * (nl >> 5) + 4;  // a step's row
+  // the chain's threads (the copy warp is the CTA's last), its barrier's
+  const int nl = blockDim.x - (kCopy ? 32 : 0), nb = blockDim.x;
+  const int L = threadIdx.x, ls = 32 * K * (nl >> 5) + 4;  // a step's row
   const int S = 2 * U + 1;
   const int P = Split ? cluster_size() : 1, rank = Split ? cluster_rank() : 0;
   const int b = blockIdx.x / P, s0 = rank * (ls - 4);
@@ -402,80 +437,101 @@ __device__ __forceinline__ void alpha_chain(const float* __restrict__ log_probs,
     cluster_sync();  // every peer's mbarriers are set before any hand-off
   }
 
-  int z[K];
-  unsigned on = 0, valid = 0, skip = 0;  // bit j: state s0 + L*K + j
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int s = s0 + L * K + j;
-    z[j] = s < S ? label(tgt, s, blank) : blank;
-    if (s < S) on |= 1u << j;
-    if (s < 2 * tl + 1) valid |= 1u << j;
-    if ((s & 1) && s >= 2 && s < S && z[j] != label(tgt, s - 2, blank)) skip |= 1u << j;
-  }
-  auto fetch = [&](Chunk<CH, K>& c, int k) {  // chunk k's emissions, this thread's states
-#pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      const float* row = lp + (size_t)min(k * CH + i, Tc - 1) * C;
-#pragma unroll
-      for (int j = 0; j < K; ++j) c.v[i][j] = __ldg(row + z[j]);
-    }
-  };
-  const int n_chunks = (Tc + CH - 1) / CH;
-  Chunk<CH, K> cur, nxt;
-  fetch(cur, 0);
-  if (n_chunks > 1) fetch(nxt, 1);
-
   const size_t t_stride = (size_t)B * S;
-  float* out = alphas + (size_t)b * S + s0 + L * K;
-  float a[K];
-  for (int k = 0; k < n_chunks; ++k) {
+  // the slice's states of the row, and their alphas' row at step 0
+  const int n_row = min(ls - 4, S - s0);
+  float* row0 = alphas + (size_t)b * S + s0;
+  if (kCopy && L >= nl) {
+    // the copy warp: after the barrier of step t, the lattice of step t
+    // (complete, and kept until the barrier of step t + 1, which waits for
+    // this warp) to alphas[t], a coalesced row
+    for (int t = 0; t < Tc; ++t) {
+      asm volatile("bar.sync 1, %0;\n" ::"r"(nb) : "memory");
+      const float* src = lat + (t & 1) * ls + 2;
+      float* dst = row0 + (size_t)t * t_stride;
+      for (int i = L - nl; i < n_row; i += 32) st_if<true>(true, dst + i, src[i]);
+    }
+  } else {
+    int z[K];
+    unsigned on = 0, valid = 0, skip = 0;  // bit j: state s0 + L*K + j
 #pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      const int t = k * CH + i;
-      if (t >= Tc) break;
-      if (t == 0) {
+    for (int j = 0; j < K; ++j) {
+      const int s = s0 + L * K + j;
+      z[j] = s < S ? label(tgt, s, blank) : blank;
+      if (s < S) on |= 1u << j;
+      if (s < 2 * tl + 1) valid |= 1u << j;
+      if ((s & 1) && s >= 2 && s < S && z[j] != label(tgt, s - 2, blank)) skip |= 1u << j;
+    }
+    auto fetch = [&](Chunk<CH, K>& c, int k) {  // chunk k's emissions, this thread's states
 #pragma unroll
-        for (int j = 0; j < K; ++j)
-          a[j] = sel(((valid >> j) & 1) && s0 + L * K + j <= 1, cur.v[0][j], kNegInf);
-      } else {
-        // alpha[s-1] and alpha[s-2] below this thread's first state, from the
-        // lattice of step t - 1
-        const float* prev = lat + ((t - 1) & 1) * ls + 2 + L * K;
-        float up1 = prev[-1], up2 = prev[-2];
-        if (Split && rank > 0 && L < 32) {  // warp 0: CTA rank - 1's top two of step t - 1
-          const float2 e = ed.recv(t - 1, 0);
-          if (L == 0) up1 = e.y, up2 = e.x;
+      for (int i = 0; i < CH; ++i) {
+        const float* row = lp + (size_t)min(k * CH + i, Tc - 1) * C;
+#pragma unroll
+        for (int j = 0; j < K; ++j) c.v[i][j] = __ldg(row + z[j]);
+      }
+    };
+    const int n_chunks = (Tc + CH - 1) / CH;
+    Chunk<CH, K> cur, nxt;
+    fetch(cur, 0);
+    if (n_chunks > 1) fetch(nxt, 1);
+
+    float* out = row0 + L * K;
+    float a[K];
+    for (int k = 0; k < n_chunks; ++k) {
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        const int t = k * CH + i;
+        if (t >= Tc) break;
+        if (t == 0) {
+#pragma unroll
+          for (int j = 0; j < K; ++j)
+            a[j] = sel(((valid >> j) & 1) && s0 + L * K + j <= 1, cur.v[0][j], kNegInf);
+        } else {
+          // alpha[s-1] and alpha[s-2] below this thread's first state, from the
+          // lattice of step t - 1
+          const float* prev = lat + ((t - 1) & 1) * ls + 2 + L * K;
+          float up1 = prev[-1], up2 = prev[-2];
+          if (Split && rank > 0 && L < 32) {  // warp 0: CTA rank - 1's top two of step t - 1
+            const float2 e = ed.recv(t - 1, 0);
+            if (L == 0) up1 = e.y, up2 = e.x;
+          }
+          float nw[K];
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            const float a1 = j >= 1 ? a[j >= 1 ? j - 1 : 0] : up1;
+            const float a2 = sel((skip >> j) & 1, j >= 2 ? a[j >= 2 ? j - 2 : 0] : j == 1 ? up1 : up2,
+                                 kNegInf);
+            nw[j] = sel((valid >> j) & 1, logaddexp3(a[j], a1, a2) + cur.v[i][j], kNegInf);
+          }
+#pragma unroll
+          for (int j = 0; j < K; ++j) a[j] = nw[j];
         }
-        float nw[K];
+        float* next = lat + (t & 1) * ls + 2 + L * K;
 #pragma unroll
         for (int j = 0; j < K; ++j) {
-          const float a1 = j >= 1 ? a[j >= 1 ? j - 1 : 0] : up1;
-          const float a2 = sel((skip >> j) & 1, j >= 2 ? a[j >= 2 ? j - 2 : 0] : j == 1 ? up1 : up2,
-                               kNegInf);
-          nw[j] = sel((valid >> j) & 1, logaddexp3(a[j], a1, a2) + cur.v[i][j], kNegInf);
+          next[j] = a[j];
+          if constexpr (!kCopy) st_if<Split>((on >> j) & 1, out + j, a[j]);
         }
-#pragma unroll
-        for (int j = 0; j < K; ++j) a[j] = nw[j];
+        // the top warp: the slice's top two states of step t up to CTA rank + 1
+        if (Split && rank + 1 < P && L >= nl - 32) ed.send(t, 31, a[K >= 2 ? K - 2 : 0], a[K - 1]);
+        out += t_stride;
+        // the chain warps' barrier (and the copy warp's): step t's lattice
+        // is complete; the buffer of step t - 1 is free for step t + 1
+        asm volatile("bar.sync 1, %0;\n" ::"r"(nb) : "memory");
       }
-      float* next = lat + (t & 1) * ls + 2 + L * K;
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        next[j] = a[j];
-        st_if<Split>((on >> j) & 1, out + j, a[j]);
-      }
-      // the top warp: the slice's top two states of step t up to CTA rank + 1
-      if (Split && rank + 1 < P && L >= nl - 32) ed.send(t, 31, a[K >= 2 ? K - 2 : 0], a[K - 1]);
-      out += t_stride;
-      // the chain warps' barrier: step t's lattice is complete; the buffer
-      // of step t - 1 is free for step t + 1
-      asm volatile("bar.sync 1, %0;\n" ::"r"(nl) : "memory");
+      cur = nxt;
+      if (k + 2 < n_chunks) fetch(nxt, k + 2);
     }
-    cur = nxt;
-    if (k + 2 < n_chunks) fetch(nxt, k + 2);
-  }
-  for (int t = Tc; t < T; ++t, out += t_stride) {  // the row's input has ended: frozen
+    if constexpr (!kCopy)
+      for (int t = Tc; t < T; ++t, out += t_stride) {  // the row's input has ended: frozen
 #pragma unroll
-    for (int j = 0; j < K; ++j) st_if<Split>((on >> j) & 1, out + j, a[j]);
+        for (int j = 0; j < K; ++j) st_if<Split>((on >> j) & 1, out + j, a[j]);
+      }
+  }
+  if constexpr (kCopy) {  // frozen past the input: every thread, rows of step Tc - 1's lattice
+    const float* fin = lat + ((Tc - 1) & 1) * ls + 2;
+    for (int t = Tc; t < T; ++t)
+      for (int i = L; i < n_row; i += nb) st_if<true>(true, row0 + (size_t)t * t_stride + i, fin[i]);
   }
   // The NLL, in the CTA that holds state 2 tl. Where that is the slice's
   // first state, state 2 tl - 1 is the top state of CTA rank - 1 at step
@@ -505,7 +561,7 @@ __global__ void __launch_bounds__(32 * kMaxChainWarps)
 
 // The cluster route's forward: a cluster of P CTAs a row (grid B P).
 template <int K>
-__global__ void __launch_bounds__(32 * kMaxClusterWarps)
+__global__ void __launch_bounds__(32 * (kMaxClusterWarps + copy_warp(K, true)))
     ctc_alpha_cluster_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
                              const int* __restrict__ input_lengths,
                              const int* __restrict__ target_lengths, float* __restrict__ alphas,
@@ -584,14 +640,15 @@ __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
   int* n_runs = reinterpret_cast<int*>(base + 16 * kDepth);
   float* lat = reinterpret_cast<float*>(base + 16 * kDepth + 16);
   float* o_ring = lat + lattice_floats(K, W);
-  int* zs = reinterpret_cast<int*>(o_ring + (size_t)kDepth * CH * K * nl);
+  float* a_ring = o_ring + ring_floats(W);  // the cluster route's alphas, as o_ring
+  int* zs = reinterpret_cast<int*>(Split ? a_ring + ring_floats(W) : a_ring);
   int* sz = zs + K * nl;
   int* spos = sz + K * nl;
   int* run_seg = spos + K * nl;
   float* part = reinterpret_cast<float*>(run_seg + K * nl);
   if (threadIdx.x == 0)
     for (int i = 0; i < kDepth; ++i) {
-      mbar_init(full0 + 8 * i, nl);
+      mbar_init(full0 + 8 * i, Split ? 2 * nl : nl);  // and the copies' arrivals
       mbar_init(empty0 + 8 * i, kConsumers);
     }
   if (threadIdx.x < 4) lat[ls - 4 + threadIdx.x] = lat[2 * ls - 4 + threadIdx.x] = kNegInf;
@@ -619,8 +676,8 @@ __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
       if ((s & 1) && s + 2 < S && label(tgt, s + 2, blank) != z[j]) skip_from |= 1u << j;
       if (s < n_valid && (s == 2 * tl || (s == 2 * tl - 1 && tl > 0))) term |= 1u << j;
     }
-    // chunk k's next-step emissions and alphas, this thread's states (states
-    // past S read state 0's: they are masked)
+    // chunk k's next-step emissions and (on the shared route) alphas, this
+    // thread's states (states past S read state 0's: they are masked)
     auto fetch = [&](Chunk<CH, K>& e, Chunk<CH, K>& al, int k) {
 #pragma unroll
       for (int i = 0; i < CH; ++i) {
@@ -630,7 +687,7 @@ __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
 #pragma unroll
         for (int j = 0; j < K; ++j) {
           e.v[i][j] = __ldg(erow + z[j]);
-          al.v[i][j] = __ldg(arow + ((on >> j) & 1 ? s0 + L * K + j : 0));
+          if constexpr (!Split) al.v[i][j] = __ldg(arow + ((on >> j) & 1 ? s0 + L * K + j : 0));
         }
       }
     };
@@ -640,9 +697,15 @@ __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
 
     float beta[K];
     // step i's log occupancies alpha + beta + nll into the chunk's slot
-    // (the class-sum warps take their exp): stored a step late, after the
-    // next step's barrier, so that the chain does not wait for them
+    // (the class-sum warps take their exp; on the cluster route its betas,
+    // to which they add the alphas of the slot's ring): stored a step late,
+    // after the next step's barrier, so that the chain does not wait for them
     auto put_occ = [&](float* ok, int i) {
+      if constexpr (Split) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) ok[(size_t)(i * K + j) * nl] = beta[j];
+        return;
+      }
 #pragma unroll
       for (int j = 0; j < K; ++j) ok[(size_t)(i * K + j) * nl] = a_cur.v[i][j] + beta[j] + nll_b;
     };
@@ -651,6 +714,22 @@ __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
       if (k >= kDepth) mbar_wait(empty0 + 8 * slot, ((k / kDepth) - 1) & 1);  // slot consumed
       float* ok = o_ring + (size_t)slot * CH * K * nl + L;
       const int i_end = min(CH, Tc - k * CH);
+      if constexpr (Split) {
+        // the chunk's alphas of the slice's valid states into the slot of
+        // the alpha ring, in the occupancy ring's order: a coalesced row a
+        // step (lane L states L, L + nl, ...), no registers; their arrival
+        // on the slot's full mbarrier once they have landed
+        const unsigned ak = smem_addr(a_ring + (size_t)slot * CH * K * nl);
+        for (int i = 0; i < i_end; ++i) {
+          const float* arow = alphas + ((size_t)(Tc - 1 - (k * CH + i)) * B + b) * S + s0;
+#pragma unroll
+          for (int m = 0; m < K; ++m) {
+            const int x = L + m * nl;
+            if (x < nv) cp_async4(ak + 4 * ((i * K + x % K) * nl + x / K), arow + x);
+          }
+        }
+        cp_async_arrive(full0 + 8 * slot);
+      }
 #pragma unroll
       for (int i = 0; i < CH; ++i) {
         const int n = k * CH + i;
@@ -773,6 +852,7 @@ __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
     const int slot = k % kDepth;
     mbar_wait(full0 + 8 * slot, (k / kDepth) & 1);
     const float* ok = o_ring + (size_t)slot * CH * K * nl;
+    const float* ak = a_ring + (size_t)slot * CH * K * nl;
     const int i_end = min(CH, Tc - k * CH), t0 = Tc - 1 - k * CH;
     // a warp a block of 32 sorted states, a lane a state: its occupancies
     // exp(min(alpha + beta + nll, 0)) at the chunk's steps; then each
@@ -784,9 +864,14 @@ __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
       const int sp = in ? spos[r] : kHead;  // past the states: a head, summed into none
       const unsigned heads = __ballot_sync(0xffffffffu, sp & kHead);
       const float* o = ok + (sp & 0xffff);
+      const float* al = ak + (sp & 0xffff);
       float v[CH];
 #pragma unroll
-      for (int i = 0; i < CH; ++i) v[i] = in && i < i_end ? expf(fminf(o[(size_t)i * K * nl], 0.0f)) : 0.0f;
+      for (int i = 0; i < CH; ++i) {
+        const size_t at = (size_t)i * K * nl;
+        const float occ = Split ? al[at] + o[at] + nll_b : o[at];  // alpha + beta + nll
+        v[i] = in && i < i_end ? expf(fminf(occ, 0.0f)) : 0.0f;
+      }
 #pragma unroll
       for (int d = 1; d < kSeg; d <<= 1) {
         // lanes lane + 1 .. lane + d are in this segment
@@ -882,7 +967,7 @@ cudaError_t launch_beta_grad(const float* log_probs, const int* targets, const i
 
 // `ctc_plan`'s (states a lane, chain warps) hold S states.
 bool plan_ok(int S, int K, int W) {
-  return (K == 1 || K == 2 || K == 4 || K == 8) && W >= 1 && W <= kMaxChainWarps &&
+  return (K == 1 || K == 2) && W >= 1 && W <= kMaxChainWarps &&
          S <= 32 * K * W;
 }
 
@@ -924,9 +1009,15 @@ cudaError_t launch_alpha_cluster(const float* log_probs, const int* targets,
                                  const int* input_lengths, const int* target_lengths,
                                  float* alphas, float* nll, int B, int T, int C, int U, int blank,
                                  int W, int P, cudaStream_t st, int* max_clusters) {
-  return launch_cluster(ctc_alpha_cluster_kernel<K>, B, P, 32 * W, alpha_smem(K, W) + kEdgeBytes,
+  return launch_cluster(ctc_alpha_cluster_kernel<K>, B, P, 32 * (W + copy_warp(K, true)),
+                        alpha_smem(K, W) + kEdgeBytes,
                         alpha_smem(K, kMaxClusterWarps) + kEdgeBytes, st, max_clusters, log_probs,
                         targets, input_lengths, target_lengths, alphas, nll, B, T, C, U, blank);
+}
+
+// The cluster route's backward: beta_smem, the ring of alphas, the edge.
+constexpr size_t beta_smem_cluster(int K, int W) {
+  return beta_smem(K, W) + 4 * (size_t)ring_floats(W) + kEdgeBytes;
 }
 
 template <int K>
@@ -937,16 +1028,17 @@ cudaError_t launch_beta_grad_cluster(const float* log_probs, const int* targets,
                                      int blank, int W, int P, cudaStream_t st,
                                      int* max_clusters) {
   return launch_cluster(ctc_beta_grad_cluster_kernel<K>, B, P, 32 * (W + kConsumerWarps),
-                        beta_smem(K, W) + kEdgeBytes, beta_smem(K, kMaxClusterWarps) + kEdgeBytes,
+                        beta_smem_cluster(K, W), beta_smem_cluster(K, kMaxClusterWarps),
                         st, max_clusters, log_probs, targets, input_lengths, target_lengths,
                         alphas, nll, g, grad, partials, B, T, C, U, blank);
 }
 
-// `ctc_plan`'s cluster route: K states a lane (2 or 4) in W chain warps, P
-// CTAs a row, every slice holding some of the S states.
+// `ctc_plan`'s cluster route: K states a lane (2, 4 or 8) in W chain warps,
+// P CTAs a row, every slice holding some of the S states.
 bool cluster_plan_ok(int S, int K, int W, int P) {
   const long long n = 32LL * K * W;
-  return (K == 2 || K == 4) && W >= 1 && W <= kMaxClusterWarps && P >= 2 && P <= kMaxCluster &&
+  return (K == 2 || K == 4 || K == 8) && W >= 1 && W <= kMaxClusterWarps && P >= 2 &&
+         P <= kMaxCluster &&
          (P - 1) * n < S && S <= P * n;
 }
 
@@ -1108,19 +1200,16 @@ bool args_ok(int B, int T, int C, int U, int blank) {
 
 }  // namespace
 
-// K and W come from kernels/ctc.py `ctc_plan`: K states a lane (1, 2, 4 or
-// 8) in W chain warps, 32 K W >= S = 2U + 1.
+// K and W come from kernels/ctc.py `ctc_plan`: K states a lane (1 or 2) in
+// W chain warps, 32 K W >= S = 2U + 1.
 extern "C" int ctc_alpha_f32(const float* log_probs, const int* targets, const int* input_lengths,
                              const int* target_lengths, float* alphas, float* nll, int B, int T,
                              int C, int U, int blank, int K, int W, void* stream) {
   if (!args_ok(B, T, C, U, blank) || !plan_ok(2 * U + 1, K, W))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(K == 1   ? launch_alpha<1>
-               : K == 2 ? launch_alpha<2>
-               : K == 4 ? launch_alpha<4>
-                        : launch_alpha<8>)(log_probs, targets, input_lengths, target_lengths,
-                                           alphas, nll, B, T, C, U, blank, W, st);
+  return (int)(K == 1 ? launch_alpha<1> : launch_alpha<2>)(
+      log_probs, targets, input_lengths, target_lengths, alphas, nll, B, T, C, U, blank, W, st);
 }
 
 extern "C" int ctc_beta_grad_f32(const float* log_probs, const int* targets,
@@ -1132,14 +1221,12 @@ extern "C" int ctc_beta_grad_f32(const float* log_probs, const int* targets,
       beta_smem(K, W) > (size_t)kSmemLimit)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(K == 1   ? launch_beta_grad<1>
-               : K == 2 ? launch_beta_grad<2>
-               : K == 4 ? launch_beta_grad<4>
-                        : launch_beta_grad<8>)(log_probs, targets, input_lengths, target_lengths,
-                                               alphas, nll, g, grad, B, T, C, U, blank, W, st);
+  return (int)(K == 1 ? launch_beta_grad<1> : launch_beta_grad<2>)(
+      log_probs, targets, input_lengths, target_lengths, alphas, nll, g, grad, B, T, C, U, blank,
+      W, st);
 }
 
-// The cluster route: as ctc_alpha_f32 with K (2 or 4) and W from
+// The cluster route: as ctc_alpha_f32 with K (2, 4 or 8) and W from
 // kernels/ctc.py `ctc_plan` and P CTAs a row, P * 32 K W >= S = 2U + 1.
 extern "C" int ctc_alpha_cluster_f32(const float* log_probs, const int* targets,
                                      const int* input_lengths, const int* target_lengths,
@@ -1147,9 +1234,11 @@ extern "C" int ctc_alpha_cluster_f32(const float* log_probs, const int* targets,
                                      int blank, int K, int W, int P, void* stream) {
   if (!args_ok(B, T, C, U, blank) || !cluster_plan_ok(2 * U + 1, K, W, P))
     return (int)cudaErrorInvalidValue;
-  return (int)(K == 2 ? launch_alpha_cluster<2> : launch_alpha_cluster<4>)(
-      log_probs, targets, input_lengths, target_lengths, alphas, nll, B, T, C, U, blank, W, P,
-      (cudaStream_t)stream, nullptr);
+  return (int)(K == 2   ? launch_alpha_cluster<2>
+               : K == 4 ? launch_alpha_cluster<4>
+                        : launch_alpha_cluster<8>)(log_probs, targets, input_lengths,
+                                                   target_lengths, alphas, nll, B, T, C, U, blank,
+                                                   W, P, (cudaStream_t)stream, nullptr);
 }
 
 // The cluster route's gradient: `partials` (B, P, T, C) floats of scratch,
@@ -1161,25 +1250,33 @@ extern "C" int ctc_beta_grad_cluster_f32(const float* log_probs, const int* targ
                                          int blank, int K, int W, int P, void* stream) {
   if (!args_ok(B, T, C, U, blank) || !cluster_plan_ok(2 * U + 1, K, W, P))
     return (int)cudaErrorInvalidValue;
-  return (int)(K == 2 ? launch_beta_grad_cluster<2> : launch_beta_grad_cluster<4>)(
-      log_probs, targets, input_lengths, target_lengths, alphas, nll, g, grad, partials, B, T, C,
-      U, blank, W, P, (cudaStream_t)stream, nullptr);
+  return (int)(K == 2   ? launch_beta_grad_cluster<2>
+               : K == 4 ? launch_beta_grad_cluster<4>
+                        : launch_beta_grad_cluster<8>)(log_probs, targets, input_lengths,
+                                                       target_lengths, alphas, nll, g, grad,
+                                                       partials, B, T, C, U, blank, W, P,
+                                                       (cudaStream_t)stream, nullptr);
 }
 
 // How many clusters of P CTAs of the cluster route's forward (backward: 1)
 // at K states a lane in W chain warps fit on the card at once, or minus a
 // cudaError_t.
 extern "C" int ctc_cluster_max_clusters(int K, int W, int P, int backward) {
-  if ((K != 2 && K != 4) || W < 1 || W > kMaxClusterWarps || P < 1 || P > kMaxCluster)
+  if ((K != 2 && K != 4 && K != 8) || W < 1 || W > kMaxClusterWarps || P < 1 ||
+      P > kMaxCluster)
     return -(int)cudaErrorInvalidValue;
   int n = 0;
   const cudaError_t err =
-      backward ? (K == 2 ? launch_beta_grad_cluster<2> : launch_beta_grad_cluster<4>)(
-                     nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, 1, 1, 1, 1, 0, W, P, nullptr, &n)
-               : (K == 2 ? launch_alpha_cluster<2> : launch_alpha_cluster<4>)(
-                     nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 1, 1, 0, W, P,
-                     nullptr, &n);
+      backward ? (K == 2   ? launch_beta_grad_cluster<2>
+                  : K == 4 ? launch_beta_grad_cluster<4>
+                           : launch_beta_grad_cluster<8>)(nullptr, nullptr, nullptr, nullptr,
+                                                          nullptr, nullptr, nullptr, nullptr,
+                                                          nullptr, 1, 1, 1, 1, 0, W, P, nullptr,
+                                                          &n)
+               : (K == 2   ? launch_alpha_cluster<2>
+                  : K == 4 ? launch_alpha_cluster<4>
+                           : launch_alpha_cluster<8>)(nullptr, nullptr, nullptr, nullptr, nullptr,
+                                                      nullptr, 1, 1, 1, 1, 0, W, P, nullptr, &n);
   return err == cudaSuccess ? n : -(int)err;
 }
 

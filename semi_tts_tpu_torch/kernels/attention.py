@@ -6,7 +6,8 @@ The wrappers launch `csrc/attention.cu` for CUDA tensors and run their plain
 PyTorch versions only for CPU tensors. `attention_plan` and
 `attention_bwd_plan` compute the launch plans (K3: one thread-block cluster
 per batch row where the row fits its shared memory, else a cluster per
-chunk of positions and a combine kernel, the split route; K9: a CTA per
+chunk of positions, its positions split over the cluster's CTAs, the last
+cluster of a row combining the chunks: the split route; K9: a CTA per
 span of positions and batch row) and name the shapes the kernels take:
 any memory length L at widths whose smallest chunk fits.
 """
@@ -41,11 +42,21 @@ def _smem_floats(L, Ac, Dc, C, F_, K, tile, stage_memory) -> int:
     return sum(_round4(n) for n in regions)
 
 
-# 8-CTA clusters an H100 SXM holds at once: the figure `rnn.max_clusters` reads
-# from the occupancy API for K1, kept a constant so that the plan stays a pure
-# function of the shapes (the CPU tests compute it)
+# The split route's chunks: a cluster of CLUSTER CTAs a chunk, CTA r of it
+# ``span`` of the chunk's positions, at most SPLIT_SPAN where the batch's
+# chunks then fit in SPLIT_CLUSTERS clusters (one wave of a CTA an SM), else
+# at most SPLIT_SPAN_WAVES (whose CTAs fit two an SM: 102,656 bytes of shared
+# memory at flagship widths), and what one CTA holds; a row at least
+# SPLIT_CLUSTERS // B chunks of at least SPLIT_MIN_SPAN positions a CTA, so
+# that a short batch still fills the card. From chip_ablate.py --k3-split's
+# sweep at phase 13's shapes (NVIDIA H100 80GB HBM3, 700 W): span 24 took
+# 18.40 us at B=2 L=1,334 (16 and 20: 19.05, 21.18), span 16 105.94 us at
+# B=16 L=1,500 masked (24: 139.57, the plain version 135.74) and 46.57 at
+# B=1 L=8,000 (24: 49.22); 8 or 30 clusters were slower than 15 at B=1.
+SPLIT_SPAN = 24
+SPLIT_SPAN_WAVES = 16
 SPLIT_CLUSTERS = 15
-SPLIT_CHUNK = 192           # positions a split cluster takes at most (three location tiles)
+SPLIT_MIN_SPAN = 4
 
 
 def _cta_smem(n, Ac, Dc, C, F_, K, stage) -> int:
@@ -53,58 +64,87 @@ def _cta_smem(n, Ac, Dc, C, F_, K, stage) -> int:
     return 4 * _smem_floats(n, Ac, Dc, C, F_, K, min(n, LOC_TILE) if F_ else 0, stage)
 
 
-def _most_positions(Ac, Dc, C, F_, K, stage) -> int:
-    """The most positions one cluster holds (0 if not one)."""
+def _split_smem(span, A, D, C, F_, K, stage_mem, lin_rows) -> int:
+    """Bytes of shared memory a split-route CTA of ``span`` positions needs
+    with ``lin_rows`` rows of loc_lin, region by region as `SplitLayout` in
+    csrc/attention.cu lays them out."""
+    fs = _round4(F_) + (4 if _round4(F_) % 8 == 0 else 0)
+    sr = _round4(span)
+    regions = (span * A, span * D if stage_mem else 0, lin_rows * fs if F_ else 0,
+               C * (span + K - 1 + CONV_L - 1), span * fs if F_ else 0, F_ * (C * K + 1), A, A,
+               sr, sr, (THREADS // 32) * sr, D, THREADS, 4 + 2 * CLUSTER + THREADS // 32)
+    return 4 * sum(_round4(n) for n in regions)
+
+
+def _most(fits) -> int:
+    """The largest n in [0, 2**20] with fits(n), which holds up to some n."""
     lo, hi = 0, 1 << 20
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if _cta_smem(mid, Ac, Dc, C, F_, K, stage) <= build.SMEM_PER_BLOCK:
+        if fits(mid):
             lo = mid
         else:
             hi = mid - 1
     return lo
 
 
+def _most_positions(Ac, Dc, C, F_, K, stage) -> int:
+    """The most positions one cluster holds (0 if not one)."""
+    return _most(lambda n: _cta_smem(n, Ac, Dc, C, F_, K, stage) <= build.SMEM_PER_BLOCK)
+
+
 @functools.lru_cache(maxsize=64)
 def attention_plan(B: int, L: int, A: int, D: int, C: int, F_: int, K: int) -> dict:
-    """K3's launch plan: CTA r of a cluster of CLUSTER CTAs owns A/CLUSTER
-    attention columns and D/CLUSTER context columns. Where one CTA's shared
-    memory holds the row's L positions, B clusters, one a row (``chunks``
-    0); else the split route: ``chunks`` clusters a row, each over
-    ``chunk`` positions, and a combine kernel (``scratch_floats`` of
-    partials). A split chunk takes at most SPLIT_CHUNK positions and what
-    one cluster holds, and a row at least SPLIT_CLUSTERS // B chunks of at
-    least LOC_TILE positions, so that a short batch still fills the card: a
-    CTA's work grows with its chunk (the location conv of every position).
-    The cap is not tuned for every shape: chunks of at most 192 positions
-    took a third of the time of chunks of 750 at B=16 L=1,500 on an H100,
-    yet the split route is still slower than the plain version there and
-    at B=1 L=8,000, where fewer, longer chunks may be faster (PERF.md §6,
-    §7). ``memory`` is staged in shared memory when it fits and read from
-    L2 otherwise. F_ = 0 is the location-free attention. Raises ValueError when A or D is not divisible by CLUSTER, L
-    < 1, or not one position fits a block's shared memory. Cached: the
-    wrapper asks for it on every call; do not mutate it."""
+    """K3's launch plan. Where one CTA's shared memory holds the row's L
+    positions, B clusters of CLUSTER CTAs, one a row (``chunks`` 0): CTA r
+    owns A/CLUSTER attention columns and D/CLUSTER context columns. Else the
+    split route: ``chunks`` clusters a row, each over ``chunk`` = CLUSTER x
+    ``span`` positions, CTA r of it ``span`` of them over every column;
+    ``scratch_floats`` of the chunks' partials, which the cluster of the
+    last CTA of a row to finish combines. A CTA takes at most SPLIT_SPAN
+    positions where the batch's chunks then fit SPLIT_CLUSTERS clusters,
+    else at most SPLIT_SPAN_WAVES, and what its shared memory holds; a row
+    at least SPLIT_CLUSTERS // B chunks of at least SPLIT_MIN_SPAN positions
+    a CTA (the constants' sweep: above). ``memory`` is staged in shared memory when it fits and read
+    from L2 otherwise; on the split route each CTA stages loc_lin, whole
+    where it fits and else in tiles of ``lin_rows`` rows (0 where F_ = 0).
+    F_ = 0 is the location-free attention.
+    Raises ValueError when A or D is not divisible by CLUSTER, L < 1, or not
+    one position fits a block's shared memory. Cached: the wrapper asks for
+    it on every call; do not mutate it."""
     if A % CLUSTER or D % CLUSTER:
         raise ValueError(f"attention_step kernel needs A and D divisible by {CLUSTER}, "
                          f"got A={A}, D={D}")
     if L < 1:
         raise ValueError(f"attention_step kernel needs L >= 1, got L={L}")
     Ac, Dc = A // CLUSTER, D // CLUSTER
-    chunk, chunks = L, 0
-    if _cta_smem(L, Ac, Dc, C, F_, K, False) > build.SMEM_PER_BLOCK:
-        most = _most_positions(Ac, Dc, C, F_, K, False)
-        if most < 1:
-            raise ValueError(f"attention_step kernel: one position needs "
-                             f"{_cta_smem(1, Ac, Dc, C, F_, K, False)} bytes of shared memory "
-                             f"at A={A}, D={D}, F={F_}; a block may use {build.SMEM_PER_BLOCK}")
-        chunks = max(-(-L // min(most, SPLIT_CHUNK)), min(SPLIT_CLUSTERS // B, -(-L // LOC_TILE)))
-        chunk = -(-L // chunks)
-        chunks = -(-L // chunk)
-    tile = min(chunk, LOC_TILE) if F_ else 0
-    stage = _cta_smem(chunk, Ac, Dc, C, F_, K, True) <= build.SMEM_PER_BLOCK
-    return dict(cluster=CLUSTER, grid=(CLUSTER * chunks, B) if chunks else (CLUSTER * B,),
-                threads=THREADS, smem_bytes=_cta_smem(chunk, Ac, Dc, C, F_, K, stage),
-                a_per_cta=Ac, d_per_cta=Dc, loc_tile=tile, stage_memory=stage, chunk=chunk,
+    common = dict(cluster=CLUSTER, threads=THREADS, a_per_cta=Ac, d_per_cta=Dc)
+    if _cta_smem(L, Ac, Dc, C, F_, K, False) <= build.SMEM_PER_BLOCK:
+        stage = _cta_smem(L, Ac, Dc, C, F_, K, True) <= build.SMEM_PER_BLOCK
+        return dict(common, grid=(CLUSTER * B,), smem_bytes=_cta_smem(L, Ac, Dc, C, F_, K, stage),
+                    loc_tile=min(L, LOC_TILE) if F_ else 0, stage_memory=stage, lin_rows=0,
+                    chunk=L, span=L, chunks=0, scratch_floats=0)
+    fits = lambda n, mem, rows: _split_smem(n, A, D, C, F_, K, mem, rows) <= build.SMEM_PER_BLOCK
+    most = _most(lambda n: fits(n, False, A if fits(1, False, A) else min(A, 32)))
+    if most < 1:
+        raise ValueError(f"attention_step kernel: one position needs "
+                         f"{_split_smem(1, A, D, C, F_, K, False, False)} bytes of shared memory "
+                         f"at A={A}, D={D}, F={F_}; a block may use {build.SMEM_PER_BLOCK}")
+    top = min(most, SPLIT_SPAN)
+    if B * -(-L // (CLUSTER * top)) > SPLIT_CLUSTERS:  # past one wave: two CTAs an SM
+        top = min(most, SPLIT_SPAN_WAVES)
+    chunks = max(-(-L // (CLUSTER * top)),
+                 min(SPLIT_CLUSTERS // B, -(-L // (CLUSTER * SPLIT_MIN_SPAN))))
+    span = -(-L // (CLUSTER * chunks))
+    chunks = -(-L // (CLUSTER * span))
+    # loc_lin whole where it fits beside the span's positions, else in tiles
+    # of as many rows (a multiple of 32) as fit
+    rows = 0 if not F_ else A if fits(span, False, A) else 32 * _most(
+        lambda m: 32 * m <= A and fits(span, False, 32 * m))
+    stage = fits(span, True, rows)
+    return dict(common, grid=(CLUSTER * chunks, B),
+                smem_bytes=_split_smem(span, A, D, C, F_, K, stage, rows), loc_tile=0,
+                stage_memory=stage, lin_rows=rows, chunk=CLUSTER * span, span=span,
                 chunks=chunks, scratch_floats=B * chunks * (2 + D))
 
 
@@ -140,8 +180,7 @@ def _step_flops(pq, processed_memory, memory, attn_hist, loc_w, *_, **__):
 @counted(_step_flops)
 def attention_step(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, mask=None):
     """Counterpart of `semi_tts_tpu.models.attention.attention_step` after its
-    query projection; one launch per call on the card (on the split route,
-    the chunks' kernel and the combine kernel)."""
+    query projection; one launch per call on the card."""
     if not pq.is_cuda:
         return attention_step_plain(pq, processed_memory, memory, attn_hist,
                                     loc_w, loc_lin, v, mask)
@@ -176,13 +215,14 @@ def attention_step(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, m
            and (loc_lin is None or loc_lin.data_ptr() % 16 == 0))
     scratch = (torch.empty((plan["scratch_floats"],), device=pq.device, dtype=torch.float32)
                if plan["chunks"] else None)
-    fn = build.bind("attention", "attention_step_f32", 11, 12)
+    fn = build.bind("attention", "attention_step_f32", 11, 13)
     build.check(fn(pq.data_ptr(), processed_memory.data_ptr(), memory.data_ptr(),
                    attn_hist.data_ptr(), loc_ptr, lin_ptr, v.data_ptr(), mask_ptr,
                    context.data_ptr(), weights.data_ptr(),
                    None if scratch is None else scratch.data_ptr(),
                    B, L, A, D, C, n_filt, K, plan["loc_tile"], int(plan["stage_memory"]),
-                   int(vec), plan["chunk"], plan["chunks"], build.stream()), "attention_step")
+                   int(vec), plan["chunk"], plan["chunks"], plan["lin_rows"],
+                   build.stream()), "attention_step")
     attention_step.launches += 1
     return context, weights
 

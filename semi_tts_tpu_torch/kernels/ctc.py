@@ -29,17 +29,20 @@ lane a state, sums each segment of at most `SEG` states of one class by
 shuffles in a fixed order at each of the chunk's steps; then a thread a
 class and a step adds its segments' sums in order of s (no scratch in
 device memory, no second launch, no atomics). K states a lane, K in
-`STATES_PER_LANE`, take up to 4,096 states; past that, the cluster route
-(``lattice`` "cluster" in `ctc_plan`): a thread-block cluster of
-``cluster`` CTAs a row, each running the same chain on its slice of the
-row's states, the slices' edge states handed between neighbouring CTAs
-through a ring of `EDGE_RING` slots in shared memory (no cluster barrier a
-step), each CTA's class sums added in rank order into the gradient at the
-end. Past a cluster's states, the device-memory route (``lattice``
-"device"): a CTA of `LONG_THREADS` threads a row, each step read back from
-device memory (the forward's alphas, the backward's betas in a scratch),
-then the gradient summed by class over the states sorted by (class, s), a
-CTA a (step, row). Any S >= 1.
+`STATES_PER_LANE`, take up to 1,024 states; past that, the cluster route
+(``lattice`` "cluster" in `ctc_plan`): a
+thread-block cluster of ``cluster`` CTAs a row, each running the same chain
+on its slice of the row's states at 2, 4 or 8 states a lane
+(`CLUSTER_STATES_PER_LANE`), the slices' edge states handed between
+neighbouring CTAs through a ring of `EDGE_RING` slots in shared memory (no
+cluster barrier a step), the forward's alphas stored by a copy warp from the
+lattice at 4 and 8 states a lane, the backward's alphas brought into a ring
+beside the occupancies by asynchronous copies, each CTA's class sums added
+in rank order into the gradient at the end. Past a cluster's states, the
+device-memory route (``lattice`` "device"): a CTA of `LONG_THREADS` threads
+a row, each step read back from device memory (the forward's alphas, the
+backward's betas in a scratch), then the gradient summed by class over the
+states sorted by (class, s), a CTA a (step, row). Any S >= 1.
 """
 
 from __future__ import annotations
@@ -53,16 +56,21 @@ from ..utils.flops import counted, no_dots
 from . import build
 
 NEG_INF = -1e30
-STATES_PER_LANE = (1, 2, 4, 8)  # the kernels' instantiations
+STATES_PER_LANE = (1, 2)  # the shared-memory lattice's instantiations
 MAX_CHAIN_WARPS = 16  # warps that carry a row's chain
-MAX_STATES = 32 * STATES_PER_LANE[-1] * MAX_CHAIN_WARPS  # 4,096: the shared-memory lattice's
+# 1,024: the shared-memory lattice's states; past them the cluster route, which
+# beats this route at 4 and 8 states a lane (retired) over their whole band,
+# 1,025-4,096 states, at B = 2, 8 and 16 (chip_ablate.py --ctc-long's sweep,
+# NVIDIA H100 80GB HBM3, 700 W: at B=16 S=1,025 0.2425 against 0.4645 ms
+# forward, 0.33 against 0.7116 backward; at S=513 this route is faster)
+MAX_STATES = 32 * STATES_PER_LANE[-1] * MAX_CHAIN_WARPS
 LONG_THREADS = 1024   # the device-memory route's CTA (csrc/ctc.cu kLongThreads)
 CHUNK = 8             # values a register chunk holds a state: min(CHUNK, 16 // K) steps
                       # forward, CHUNK // K backward (csrc/ctc.cu kChunk)
 DEPTH = 4             # occupancy ring slots, chunks (csrc/ctc.cu kDepth)
 SEG = 8               # sorted states a class-sum segment adds at most (csrc/ctc.cu kSeg)
 CONSUMER_WARPS = 8    # ctc_beta_grad's class-sum warps beside the chain's
-CLUSTER_STATES_PER_LANE = (2, 4)  # the cluster route's instantiations
+CLUSTER_STATES_PER_LANE = (2, 4, 8)  # the cluster route's instantiations
 MAX_CLUSTER = 16      # its CTAs a row at most (csrc/ctc.cu kMaxCluster)
 MAX_CLUSTER_WARPS = 12  # its chain warps a CTA at most (kMaxClusterWarps)
 PORTABLE_CLUSTER = 8  # past this, a non-portable cluster (kPortableCluster)
@@ -73,6 +81,12 @@ EDGE_BYTES = 28 * EDGE_RING  # their mbarriers, slots and acknowledgements (kEdg
 def _lattice_floats(K: int, W: int) -> int:
     """Floats of the lattice of the last two steps, with four guard cells each."""
     return 2 * (32 * K * W + 4)
+
+
+def _ring_floats(W: int) -> int:
+    """Floats of a ring of `DEPTH` chunks of a value a state a step: the
+    occupancies' (and, on the cluster route, the alphas')."""
+    return 32 * W * DEPTH * CHUNK
 
 
 def _alpha_smem(K: int, W: int) -> int:
@@ -91,45 +105,61 @@ def _beta_smem(K: int, W: int) -> int:
                                   + 4 * 32 * K * W)
 
 
-def ctc_plan(B: int, T: int, S: int, max_cluster: int = MAX_CLUSTER) -> dict:
-    """K6's launch plan for B rows of T steps and S lattice states. Up to
-    `MAX_STATES` (``lattice`` "shared"): a CTA a row, whose ``chain_warps``
-    warps carry the chain with ``states_per_lane`` states a lane (the
-    fewest of `STATES_PER_LANE` that hold S in `MAX_CHAIN_WARPS` warps: one
-    up to 512 states, two to 1,024, four to 2,048, eight to 4,096) and, in
-    ctc_beta_grad, `CONSUMER_WARPS` more sum the gradient from a ring of
-    `DEPTH` chunks. A register chunk holds ``chunk`` = min(`CHUNK`, 16 // K)
-    steps, backward ``beta_chunk`` = `CHUNK` // K (a ring chunk too).
-    Nothing depends on T or C. Past it (``lattice`` "cluster"): the same
-    CTAs, a ``cluster`` of P of them a row (``grid`` B P), each holding a
-    slice of 32 K W states, with the fewest warps (at most
-    `MAX_CLUSTER_WARPS`) that keep P within ``max_cluster`` (the most CTAs
-    the card fits in a cluster, `max_cluster` on the card; past
-    `PORTABLE_CLUSTER` ``non_portable``) at two states a lane, else four;
-    P is the fewest slices that hold S, so none is empty. Past
-    ``max_cluster`` x 1,536 states (24,576 at 16 CTAs, a row of more than
-    12,287 labels) the device-memory route (``lattice`` "device"): a
-    CTA of `LONG_THREADS` threads a row, its lattice in device memory, and
-    a gradient kernel of (T, B) CTAs. Raises ValueError only for S < 1."""
-    if S < 1:
-        raise ValueError(f"ctc kernels: {S} lattice states, they take S >= 1")
-    if S <= MAX_STATES:
-        K = next(k for k in STATES_PER_LANE if S <= 32 * k * MAX_CHAIN_WARPS)
-        W = -(-S // (32 * K))
-        return dict(lattice="shared", states_per_lane=K, chain_warps=W, chunk=min(CHUNK, 16 // K),
-                    beta_chunk=CHUNK // K, grid=(B,), alpha_threads=32 * W,
-                    beta_threads=32 * (W + CONSUMER_WARPS), alpha_smem_bytes=_alpha_smem(K, W),
-                    beta_smem_bytes=_beta_smem(K, W))
+def _shared_plan(B: int, S: int) -> dict:
+    """The shared-memory lattice's plan, S <= `MAX_STATES`."""
+    K = next(k for k in STATES_PER_LANE if S <= 32 * k * MAX_CHAIN_WARPS)
+    W = -(-S // (32 * K))
+    return dict(lattice="shared", states_per_lane=K, chain_warps=W, chunk=min(CHUNK, 16 // K),
+                beta_chunk=CHUNK // K, grid=(B,), alpha_threads=32 * W,
+                beta_threads=32 * (W + CONSUMER_WARPS), alpha_smem_bytes=_alpha_smem(K, W),
+                beta_smem_bytes=_beta_smem(K, W))
+
+
+def _cluster_plan(B: int, S: int, max_cluster: int) -> dict | None:
+    """The cluster lattice's plan (None past its states): the fewest states
+    a lane of `CLUSTER_STATES_PER_LANE` whose `MAX_CLUSTER_WARPS` warps hold
+    S in ``max_cluster`` CTAs, the fewest warps that do, the fewest CTAs."""
     for K in CLUSTER_STATES_PER_LANE:
         W = -(-S // (max_cluster * 32 * K))
         if W <= MAX_CLUSTER_WARPS:
             P = -(-S // (32 * K * W))
             return dict(lattice="cluster", states_per_lane=K, chain_warps=W, cluster=P,
                         non_portable=P > PORTABLE_CLUSTER, chunk=min(CHUNK, 16 // K),
-                        beta_chunk=CHUNK // K, grid=(B * P,), alpha_threads=32 * W,
+                        beta_chunk=CHUNK // K, grid=(B * P,),
+                        alpha_threads=32 * (W + (K >= 4)),  # a copy warp at 4 and 8
                         beta_threads=32 * (W + CONSUMER_WARPS),
                         alpha_smem_bytes=_alpha_smem(K, W) + EDGE_BYTES,
-                        beta_smem_bytes=_beta_smem(K, W) + EDGE_BYTES)
+                        beta_smem_bytes=_beta_smem(K, W) + 4 * _ring_floats(W) + EDGE_BYTES)
+    return None
+
+
+def ctc_plan(B: int, T: int, S: int, max_cluster: int = MAX_CLUSTER) -> dict:
+    """K6's launch plan for B rows of T steps and S lattice states. Up to
+    `MAX_STATES` (``lattice`` "shared"): a CTA a row, whose
+    ``chain_warps`` warps carry the chain with ``states_per_lane`` states a
+    lane (the fewest of `STATES_PER_LANE` that hold S in `MAX_CHAIN_WARPS`
+    warps: one up to 512 states, two to 1,024) and, in ctc_beta_grad,
+    `CONSUMER_WARPS` more sum the gradient from a ring of `DEPTH` chunks. A
+    register chunk holds ``chunk`` = min(`CHUNK`, 16 // K) steps, backward
+    ``beta_chunk`` = `CHUNK` // K (a ring chunk too). Nothing depends on T or
+    C. Past it (``lattice`` "cluster"): the same CTAs, a ``cluster`` of P
+    of them a row (``grid`` B P), each holding a slice of 32 K W states, K
+    the fewest of `CLUSTER_STATES_PER_LANE` (2, then 4, then 8 states a
+    lane) whose `MAX_CLUSTER_WARPS` warps hold S in ``max_cluster`` CTAs
+    (the most the card fits in a cluster, `max_cluster` on the card; past
+    `PORTABLE_CLUSTER` ``non_portable``), the fewest warps that do, and P
+    the fewest slices that hold S, so none is empty. Past ``max_cluster`` x
+    3,072 states (49,152 at 16 CTAs, a row of more than 24,575 labels) the
+    device-memory route (``lattice`` "device"): a CTA of `LONG_THREADS`
+    threads a row, its lattice in device memory, and a gradient kernel of
+    (T, B) CTAs. Raises ValueError only for S < 1."""
+    if S < 1:
+        raise ValueError(f"ctc kernels: {S} lattice states, they take S >= 1")
+    if S <= MAX_STATES:
+        return _shared_plan(B, S)
+    plan = _cluster_plan(B, S, max_cluster)
+    if plan is not None:
+        return plan
     return dict(lattice="device", grid=(B,), alpha_threads=LONG_THREADS,
                 beta_threads=LONG_THREADS, grad_grid=(T, B), alpha_smem_bytes=0,
                 beta_smem_bytes=0)
@@ -139,13 +169,14 @@ def ctc_plan(B: int, T: int, S: int, max_cluster: int = MAX_CLUSTER) -> dict:
 def max_cluster() -> int:
     """The most CTAs a row's cluster may take on the current card:
     `MAX_CLUSTER` where ``cudaOccupancyMaxActiveClusters`` fits one cluster
-    of that many of the cluster route's largest CTAs (four states a lane in
-    `MAX_CLUSTER_WARPS` warps), forward and backward, else `PORTABLE_CLUSTER`."""
+    of that many of the cluster route's largest CTAs (`MAX_CLUSTER_WARPS`
+    warps at each of `CLUSTER_STATES_PER_LANE`), forward and backward, else
+    `PORTABLE_CLUSTER`."""
     fn = build.load("ctc").ctc_cluster_max_clusters
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
-    K = CLUSTER_STATES_PER_LANE[-1]
-    fits = all(fn(K, MAX_CLUSTER_WARPS, MAX_CLUSTER, bwd) >= 1 for bwd in (0, 1))
+    fits = all(fn(K, MAX_CLUSTER_WARPS, MAX_CLUSTER, bwd) >= 1
+               for K in CLUSTER_STATES_PER_LANE for bwd in (0, 1))
     return MAX_CLUSTER if fits else PORTABLE_CLUSTER
 
 

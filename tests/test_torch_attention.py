@@ -115,17 +115,20 @@ def test_attention_plan_fits_up_to_1024_positions(L):
     assert plan["stage_memory"] == (L <= 299)
 
 
-@pytest.mark.parametrize("change", [dict(A=260), dict(D=516), dict(A=4), dict(A=16_000),
+@pytest.mark.parametrize("change", [dict(A=260), dict(D=516), dict(A=4), dict(A=32_000),
                                     dict(L=0), dict(L=4096)])
 def test_attention_plan_raises_outside_its_shapes(change):
     """A and D not divisible by the cluster, L < 1 and widths where not one
-    position fits a CTA's shared memory (A=16,000: 2,000 attention columns a
-    CTA) raise; a long memory (L=4,096) does not: it takes the split route."""
+    position fits a CTA's shared memory (A=32,000: a split CTA's pq, v and one
+    position's processed memory alone are 384 KB) raise; a long memory
+    (L=4,096) does not: it takes the split route."""
     from semi_tts_tpu_torch.kernels import attention as k3
 
     if change.get("L") == 4096:
         plan = k3.attention_plan(**{**FLAGSHIP, **change})
-        assert plan["chunks"] == 22 and plan["chunk"] == 187 and plan["grid"] == (176, 16)
+        span = min(k3.SPLIT_SPAN, plan["span"])
+        assert plan["span"] == span and plan["chunk"] == 8 * span
+        assert plan["chunks"] == -(-4096 // (8 * span)) and plan["grid"] == (8 * plan["chunks"], 16)
         return
     with pytest.raises(ValueError):
         k3.attention_plan(**{**FLAGSHIP, **change})
@@ -140,10 +143,12 @@ SPLIT = [(1, 1188, {}), (1, 1501, {}), (2, 1400, {}), (16, 1500, {}), (1, 8000, 
 
 @pytest.mark.parametrize("B,L,widths", SPLIT)
 def test_attention_plan_splits_past_one_cluster(B, L, widths):
-    """Past the single-cluster fit, the plan splits a row into chunks of at
-    most SPLIT_CHUNK positions and what one cluster holds, at least
-    SPLIT_CLUSTERS // B of them (of at least LOC_TILE positions) so that
-    B=1 fills the card; every chunk's
+    """Past the single-cluster fit, the plan splits a row into chunks of
+    CLUSTER x ``span`` positions, a CTA ``span`` of them: at most SPLIT_SPAN
+    where the batch's chunks then fit SPLIT_CLUSTERS clusters, else at most
+    SPLIT_SPAN_WAVES, and what one CTA holds (loc_lin whole where it fits,
+    else in tiles of ``lin_rows``), at least SPLIT_CLUSTERS // B chunks (of at least
+    SPLIT_MIN_SPAN positions a CTA) so that B=1 fills the card; every CTA's
     shared memory fits; the wrapper's scratch holds the chunks' statistics
     and contexts; the plan one cluster a row takes is unchanged below. K9
     plans the same lengths within a block's shared memory."""
@@ -151,22 +156,31 @@ def test_attention_plan_splits_past_one_cluster(B, L, widths):
 
     shape = {**FLAGSHIP, **widths, "B": B, "L": L}
     plan = k3.attention_plan(**shape)
-    chunk, chunks = plan["chunk"], plan["chunks"]
-    assert chunks >= 2 and chunk * (chunks - 1) < L <= chunk * chunks
+    span, chunks = plan["span"], plan["chunks"]
+    assert plan["chunk"] == 8 * span and chunks >= 2 and 8 * span * (chunks - 1) < L <= 8 * span * chunks
     assert plan["grid"] == (8 * chunks, B) and plan["smem_bytes"] <= build.SMEM_PER_BLOCK
     assert plan["threads"] <= 1024
     bwd = k3.attention_bwd_plan(**shape)   # K9 at the same length
     assert bwd["smem_bytes"] <= build.SMEM_PER_BLOCK and bwd["threads"] <= 1024
-    assert chunks >= min(k3.SPLIT_CLUSTERS // B, -(-L // k3.LOC_TILE))
     assert plan["scratch_floats"] == B * chunks * (2 + shape["D"])
-    assert plan["loc_tile"] == (min(chunk, k3.LOC_TILE) if shape["F_"] else 0)
-    Ac, Dc = shape["A"] // 8, shape["D"] // 8
-    most = k3._most_positions(Ac, Dc, shape["C"], shape["F_"], shape["K"], False)
-    assert chunk <= min(most, k3.SPLIT_CHUNK)
-    assert chunks == max(-(-L // min(most, k3.SPLIT_CHUNK)),
-                         min(k3.SPLIT_CLUSTERS // B, -(-L // k3.LOC_TILE)))
-    one = k3.attention_plan(**{**shape, "L": most})
-    assert one["chunks"] == 0 and one["grid"] == (8 * B,) and one["chunk"] == most
+    A, F_ = shape["A"], shape["F_"]
+    rows = plan["lin_rows"]
+    assert (rows == 0) if not F_ else (rows == A or (rows % 32 == 0 and 32 <= rows < A))
+    assert plan["smem_bytes"] == k3._split_smem(span, A, shape["D"], shape["C"], F_, shape["K"],
+                                                plan["stage_memory"], rows)
+    fits = lambda n, r: k3._split_smem(n, A, shape["D"], shape["C"], F_, shape["K"], False,
+                                       r) <= build.SMEM_PER_BLOCK
+    most = k3._most(lambda n: fits(n, A if fits(1, A) else min(A, 32)))
+    one_wave = B * -(-L // (8 * min(most, k3.SPLIT_SPAN))) <= k3.SPLIT_CLUSTERS
+    top = min(most, k3.SPLIT_SPAN if one_wave else k3.SPLIT_SPAN_WAVES)
+    assert span <= top
+    assert chunks == -(-L // (8 * -(-L // (8 * max(-(-L // (8 * top)),
+                                                  min(k3.SPLIT_CLUSTERS // B,
+                                                      -(-L // (8 * k3.SPLIT_MIN_SPAN))))))))
+    Ac, Dc = A // 8, shape["D"] // 8
+    one_cluster = k3._most_positions(Ac, Dc, shape["C"], F_, shape["K"], False)
+    one = k3.attention_plan(**{**shape, "L": one_cluster})
+    assert one["chunks"] == 0 and one["grid"] == (8 * B,) and one["chunk"] == one_cluster
 
 
 def test_attention_plan_location_free():
@@ -271,7 +285,7 @@ def test_attention_bwd_plan_flagship():
     assert not free["stage_lin"] and free["span"] == 4 and free["part_floats"] == 8 * 8 * 512
     # past the single cluster K3 splits, and K9 takes the same lengths
     first_split = dict(L=1188)
-    assert k3.attention_plan(**{**shapes, **first_split})["chunks"] == 7
+    assert k3.attention_plan(**{**shapes, **first_split})["chunks"] == 10  # spans of 16 past a wave
     assert k3.attention_bwd_plan(**{**shapes, **first_split})["span"] == 28
     for change in (dict(A=260), dict(D=516), dict(L=0)):
         with pytest.raises(ValueError):
@@ -414,34 +428,55 @@ def test_attention_bwd_decomposition_matches_plain_and_jax_grad(L, masked, span,
                                    err_msg=n)
 
 
-def _k3_split_replay(pq, pm, memory, hist, loc_w, loc_lin, v, mask, chunk):
-    """K3's split route in torch, as csrc/attention.cu computes it: each
-    chunk of ``chunk`` positions its energies from its own positions (the
-    location conv over its history window, (K-1)/2 halo on either side,
-    zero past the row), its maximum m_c, s_c = sum exp(e - m_c) and its
-    unnormalised context (all 0 where every position is masked), then the
-    combine in chunk order. Returns (context, weights, stats (B, chunks, 2))."""
+def _k3_split_replay(pq, pm, memory, hist, loc_w, loc_lin, v, mask, span):
+    """K3's split route in torch, as csrc/attention.cu `attention_split_kernel`
+    computes it: the row in chunks of CLUSTER x ``span`` positions, CTA r of
+    a chunk the ``span`` positions from (chunk x CLUSTER + r) x span (none
+    past the row). Each CTA takes the energies of its own positions (the
+    location conv over its history window, (K-1)/2 halo on either side, zero
+    past the row), its maximum m_r, s_r = sum exp(e - m_r) and its
+    unnormalised context (0 where every position is masked or there is
+    none); the chunk's m_c = max m_r, s_c and context the CTAs' in rank
+    order, each scaled by exp(m_r - m_c) (0 for a CTA whose positions are
+    all masked); then the row's m = max m_c, s = sum s_c exp(m_c - m),
+    weights = exp(e - m) / s and context = sum exp(m_c - m) ctx_c / s in
+    chunk order. Returns (context, weights, stats (B, chunks, 2))."""
+    from semi_tts_tpu_torch.kernels.attention import CLUSTER
+
     B, L, _ = pm.shape
-    stats, ctxs, energies = [], [], []
+    D = memory.shape[2]
     pad = (loc_w.shape[2] - 1) // 2 if loc_w is not None else 0
-    for l0 in range(0, L, chunk):
-        n = min(chunk, L - l0)
-        energy_in = pq[:, None, :]
-        if loc_w is not None:
-            x0, x1 = l0 - pad, l0 + n + pad
-            win = torch.nn.functional.pad(hist[:, :, max(x0, 0):min(x1, L)],
-                                          (max(-x0, 0), max(x1 - L, 0)))
-            loc = torch.nn.functional.conv1d(win, loc_w)                 # (B, F, n)
-            energy_in = energy_in + loc.transpose(1, 2) @ loc_lin.T
-        e = torch.tanh(energy_in + pm[:, l0:l0 + n]) @ v
-        if mask is not None:
-            e = e.masked_fill(mask[:, l0:l0 + n], float("-inf"))
-        m = e.max(1).values
-        dead = m == float("-inf")
-        p = torch.where(dead[:, None], 0.0, torch.exp(e - m[:, None]))
-        stats.append(torch.stack([m, p.sum(1)], 1))
-        ctxs.append(torch.einsum("bl,bld->bd", p, memory[:, l0:l0 + n]))
-        energies.append(e)
+    ninf = torch.full((B,), float("-inf"))
+    energies, stats, ctxs = [], [], []
+    for c0 in range(0, L, CLUSTER * span):
+        ms, ss, cs = [], [], []
+        for r in range(CLUSTER):
+            l0 = c0 + r * span
+            n = max(0, min(span, L - l0))
+            if n == 0:
+                ms.append(ninf), ss.append(torch.zeros(B)), cs.append(torch.zeros(B, D))
+                continue
+            energy_in = pq[:, None, :]
+            if loc_w is not None:
+                x0, x1 = l0 - pad, l0 + n + pad
+                win = torch.nn.functional.pad(hist[:, :, max(x0, 0):min(x1, L)],
+                                              (max(-x0, 0), max(x1 - L, 0)))
+                loc = torch.nn.functional.conv1d(win, loc_w)             # (B, F, n)
+                energy_in = energy_in + loc.transpose(1, 2) @ loc_lin.T
+            e = torch.tanh(energy_in + pm[:, l0:l0 + n]) @ v
+            if mask is not None:
+                e = e.masked_fill(mask[:, l0:l0 + n], float("-inf"))
+            m = e.max(1).values
+            p = torch.where((m == float("-inf"))[:, None], 0.0, torch.exp(e - m[:, None]))
+            ms.append(m), ss.append(p.sum(1)), cs.append(torch.einsum("bl,bld->bd", p, memory[:, l0:l0 + n]))
+            energies.append(e)
+        m_c = torch.stack(ms, 1).max(1).values
+        s_c, ctx_c = torch.zeros(B), torch.zeros(B, D)
+        for m, s, ctx in zip(ms, ss, cs):                  # rank order
+            scale = torch.where(m == float("-inf"), 0.0, torch.exp(m - m_c))
+            s_c, ctx_c = s_c + scale * s, ctx_c + scale[:, None] * ctx
+        stats.append(torch.stack([m_c, s_c], 1))
+        ctxs.append(ctx_c)
     stats = torch.stack(stats, 1)
     m = stats[:, :, 0].max(1).values
     scale = torch.exp(stats[:, :, 0] - m[:, None])    # 0 for a masked chunk; NaN: a masked row
@@ -451,15 +486,19 @@ def _k3_split_replay(pq, pm, memory, hist, loc_w, loc_lin, v, mask, chunk):
     return context, weights, stats
 
 
-@pytest.mark.parametrize("chunk", [186, 101])  # the plan's at B=3 L=1,300; ragged
+@pytest.mark.parametrize("chunk", [186, 101])  # positions a CTA: the plan's span at B=4 L=1,300; ragged
 @pytest.mark.parametrize("loc_aware", [True, False])
 def test_attention_split_replay_matches_plain_and_jax(loc_aware, chunk):
-    """The split route's chunk partials and combine (`_k3_split_replay`) at
-    L=1,300 against K3's plain version and the JAX `attention_step`: rows
-    of length 1,300, 700 (the chunks past it wholly masked: they add 0) and
-    1 (one position left in the first chunk), and a row masked everywhere,
-    which gives NaN as the plain version does (JAX is held on the others);
-    with and without location features."""
+    """The split route's decomposition (`_k3_split_replay`: positions over a
+    chunk's CTAs, the chunk's partials over the cluster in rank order, the
+    row's in chunk order) at L=1,300 against K3's plain version and the JAX
+    `attention_step` (fp32 on all sides: only summation orders differ, so
+    ATOL): rows of length 1,300, 700 (its chunks past 700 wholly masked:
+    they add 0) and 1 (one position left in the first CTA), and a row
+    masked everywhere, which gives NaN as the plain version does (JAX is
+    held on the others); with and without location features (F=0). Each
+    parametrised ``chunk`` is a CTA's span here: the plan's at B=4 L=1,300
+    (``chunk`` 186 stands for it), and 13, a ragged one (``chunk`` 101)."""
     from semi_tts_tpu_torch.kernels import attention as k3
 
     L = 1300
@@ -469,8 +508,8 @@ def test_attention_split_replay_matches_plain_and_jax(loc_aware, chunk):
                      for a in (query, memory))
     hist = np.concatenate([hist, np.abs(rng.rand(1, *hist.shape[1:])).astype(np.float32)])
     mask = np.arange(L)[None, :] >= np.array([L, 700, 1, 0])[:, None]
-    assert k3.attention_plan(3, L, **{k: FLAGSHIP[k] for k in ("A", "D", "C", "F_", "K")}) \
-        ["chunk"] == 186
+    plan = k3.attention_plan(4, L, **{k: FLAGSHIP[k] for k in ("A", "D", "C", "F_", "K")})
+    span = plan["span"] if chunk == 186 else 13
     with torch.no_grad():
         mem_t = torch.from_numpy(memory)
         pm = P.process_memory(attn, mem_t)
@@ -478,11 +517,12 @@ def test_attention_split_replay_matches_plain_and_jax(loc_aware, chunk):
         args = (pq, pm, mem_t, torch.from_numpy(hist),
                 attn.loc_conv.w if loc_aware else None, attn.loc_linear.w if loc_aware else None,
                 attn.v.w.reshape(-1), torch.from_numpy(mask))
-        ctx, w, stats = _k3_split_replay(*args, chunk)
+        ctx, w, stats = _k3_split_replay(*args, span)
         want_ctx, want_w = k3.attention_step_plain(*args)
-    n_chunks = -(-L // chunk)
+    n_chunks = -(-L // (8 * span))
     assert stats.shape == (4, n_chunks, 2)
-    assert torch.isinf(stats[1, 700 // chunk + 1:, 0]).all() and (stats[1, 700 // chunk + 1:, 1] == 0).all()
+    dead = 700 // (8 * span) + 1                       # row 1's first chunk wholly past 700
+    assert torch.isinf(stats[1, dead:, 0]).all() and (stats[1, dead:, 1] == 0).all()
     assert torch.isnan(ctx[3]).all() and torch.isnan(w[3]).all()
     assert torch.isnan(want_ctx[3]).all() and torch.isnan(want_w[3]).all()
     np.testing.assert_allclose(w[:3].numpy(), want_w[:3].numpy(), rtol=0, atol=ATOL)

@@ -163,19 +163,20 @@ def test_ctc_plan_fits_every_state_count(lo):
 
 
 def test_ctc_plan_raises_past_its_states():
-    """Past 1,024 states the plan takes four states a lane, past 2,048
-    eight, past 4,096 (`MAX_STATES`) a cluster of CTAs a row (two, then
-    four states a lane), past a cluster's states (24,576 at 16 CTAs, 12,288
-    at 8) the device-memory lattice; it raises only for S < 1."""
-    assert K6.ctc_plan(8, 133, 1025)["states_per_lane"] == 4
-    assert K6.ctc_plan(8, 133, 2049)["states_per_lane"] == 8
-    assert K6.ctc_plan(8, 133, 4096)["lattice"] == "shared"
-    assert K6.ctc_plan(8, 133, 4097)["lattice"] == "cluster"
+    """Past 512 states the plan takes two states a lane, past 1,024
+    (`MAX_STATES`) a cluster of CTAs a row (two, then four, then eight
+    states a lane), past a cluster's states (49,152 at 16 CTAs, 24,576 at
+    8) the device-memory lattice; it raises only for S < 1."""
+    assert K6.ctc_plan(8, 133, 513)["states_per_lane"] == 2
+    assert K6.ctc_plan(8, 133, 1024)["lattice"] == "shared"
+    assert K6.ctc_plan(8, 133, 1025)["lattice"] == "cluster"
+    assert K6.ctc_plan(8, 133, 4097)["states_per_lane"] == 2
     assert K6.ctc_plan(8, 133, 12289)["states_per_lane"] == 4
-    assert K6.ctc_plan(8, 133, 24576)["lattice"] == "cluster"
-    assert K6.ctc_plan(8, 133, 24577)["lattice"] == "device"
-    assert K6.ctc_plan(8, 133, 12288, max_cluster=8)["lattice"] == "cluster"
-    assert K6.ctc_plan(8, 133, 12289, max_cluster=8)["lattice"] == "device"
+    assert K6.ctc_plan(8, 133, 24577)["states_per_lane"] == 8
+    assert K6.ctc_plan(8, 133, 49152)["lattice"] == "cluster"
+    assert K6.ctc_plan(8, 133, 49153)["lattice"] == "device"
+    assert K6.ctc_plan(8, 133, 24576, max_cluster=8)["lattice"] == "cluster"
+    assert K6.ctc_plan(8, 133, 24577, max_cluster=8)["lattice"] == "device"
     with pytest.raises(ValueError):
         K6.ctc_plan(8, 133, 0)
 
@@ -183,53 +184,50 @@ def test_ctc_plan_raises_past_its_states():
 def _cluster_plan_fits(plan, S, max_cluster):
     """A cluster plan holds S in P slices of 32 K W states, none empty,
     within a cluster the card takes and a block's threads and shared
-    memory."""
+    memory (at 4 and 8 states a lane the forward's copy warp beside the
+    chain's; the backward's ring of alphas beside its occupancies)."""
     K, W, P = plan["states_per_lane"], plan["chain_warps"], plan["cluster"]
     n = 32 * K * W
     assert K in K6.CLUSTER_STATES_PER_LANE and 1 <= W <= K6.MAX_CLUSTER_WARPS
     assert 2 <= P <= max_cluster <= K6.MAX_CLUSTER and P * n >= S > (P - 1) * n
     assert plan["non_portable"] == (P > K6.PORTABLE_CLUSTER)
     assert plan["grid"][0] == P * 2 and plan["chunk"] == min(K6.CHUNK, 16 // K)
+    assert plan["alpha_threads"] == 32 * (W + (K >= 4)) <= 416
     assert plan["beta_threads"] == 32 * (W + K6.CONSUMER_WARPS) <= 640
+    assert plan["beta_smem_bytes"] == (K6._beta_smem(K, W) + 4 * 32 * W * K6.DEPTH * K6.CHUNK
+                                       + K6.EDGE_BYTES)
     assert max(plan["alpha_smem_bytes"], plan["beta_smem_bytes"]) <= 232_448
 
 
 @pytest.mark.parametrize("lo", range(1025, 8194, 1024))
 def test_ctc_plan_takes_every_state_count_past_1024(lo):
-    """Every S from 1,025 to 8,193: up to 4,096 states the fewest states a
-    lane (4 to 2,048, then 8) in at most 16 chain warps, the lattice, the
-    ring and the sort's keys within a block's shared memory (~197 KB at 8
-    states a lane in 16 warps) and at most 1,024 threads; past it a cluster
-    of P CTAs a row, each a slice of 32 K W states at two states a lane in
-    the fewest warps that keep P within 16, no slice empty, P > 8 only
-    non-portable."""
+    """Every S from 1,025 to 8,193 (the shared-memory lattice's four and
+    eight states a lane are gone: the cluster route beats them there) takes
+    a cluster of P CTAs a row, each a slice of 32 K W states at two states a
+    lane in the fewest warps that keep P within 16, no slice empty, P > 8
+    only non-portable, its shared memory (the lattice, the rings, the sort's
+    keys, the edge) within a block's."""
     for S in range(lo, min(lo + 1024, 8194)):
         plan = K6.ctc_plan(2, 700, S)
-        if S > K6.MAX_STATES:
-            assert plan["lattice"] == "cluster" and plan["states_per_lane"] == 2
-            assert plan["chain_warps"] == -(-S // (16 * 64))
-            _cluster_plan_fits(plan, S, 16)
-            continue
-        K, W = plan["states_per_lane"], plan["chain_warps"]
-        assert K == (4 if S <= 2048 else 8) and W == -(-S // (32 * K)) <= K6.MAX_CHAIN_WARPS
-        assert plan["chunk"] == 16 // K and plan["beta_chunk"] == 8 // K
-        assert plan["beta_threads"] <= 1024 and plan["alpha_threads"] <= 512
-        assert max(plan["alpha_smem_bytes"], plan["beta_smem_bytes"]) <= 232_448
-    assert K6.ctc_plan(2, 700, 4095)["beta_smem_bytes"] == 196_720
+        assert plan["lattice"] == "cluster" and plan["states_per_lane"] == 2
+        assert plan["chain_warps"] == -(-S // (16 * 64))
+        _cluster_plan_fits(plan, S, 16)
+    assert K6.ctc_plan(2, 700, 4095)["beta_smem_bytes"] == 43_344
 
 
 @pytest.mark.parametrize("max_cluster", [16, 8])
 def test_ctc_cluster_plan_holds_every_state_count(max_cluster):
     """Every S the cluster route takes, at a card's 16 CTAs a cluster and at
     the portable 8: a plan that holds S with no empty slice, K growing from
-    two states a lane to four where 12 warps of two no longer hold S in
-    ``max_cluster`` CTAs; then the device-memory route."""
-    for S in range(K6.MAX_STATES + 1, max_cluster * 1536 + 2):
+    two states a lane to four, then eight, where 12 warps no longer hold S
+    in ``max_cluster`` CTAs; then the device-memory route."""
+    for S in range(K6.MAX_STATES + 1, max_cluster * 3072 + 2):
         plan = K6.ctc_plan(2, 700, S, max_cluster)
-        if S > max_cluster * 1536:
+        if S > max_cluster * 3072:
             assert plan["lattice"] == "device"
             continue
-        assert plan["states_per_lane"] == (2 if S <= max_cluster * 768 else 4)
+        assert plan["states_per_lane"] == (2 if S <= max_cluster * 768 else
+                                           4 if S <= max_cluster * 1536 else 8)
         _cluster_plan_fits(plan, S, max_cluster)
 
 
@@ -262,6 +260,9 @@ def _k6_replay(lp, targets, ilen, tlen, blank=0):
     U = targets.shape[1]
     S = 2 * U + 1
     plan = K6.ctc_plan(B, T, S)
+    if plan["lattice"] == "cluster":  # past MAX_STATES: the cluster route, at its plan's slices
+        return _k6_device_replay(lp, targets, ilen, tlen, plan["states_per_lane"],
+                                 32 * plan["chain_warps"], blank)
     K, W, D = plan["states_per_lane"], plan["chain_warps"], K6.DEPTH
     n = 32 * K * W
     NEG = torch.tensor(K6.NEG_INF)
@@ -366,10 +367,11 @@ def _k6_replay(lp, targets, ilen, tlen, blank=0):
 def _k6_case(name):
     """(lp, targets, ilen, tlen) of each edge the kernels keep; at 1, 2 and 3
     chain warps (U = 4, 20, 40), at 2 states a lane in 10 warps (U=300), at
-    T=300 (the ring's chunks many times over) and at 4 states a lane in 9
-    warps (S=1,025 over a short T=300: a row of 280 labels, none repeated,
-    561 valid states, and a row of all 512, which T cannot align: its
-    alphas over every state, its gradient zero)."""
+    T=300 (the ring's chunks many times over) and past the shared-memory
+    lattice (S=1,025 over a short T=300, the cluster route's 9 CTAs of two
+    warps at 2 states a lane: a row of 280 labels, none repeated, 561 valid
+    states, and a row of all 512, which T cannot align: its alphas over
+    every state, its gradient zero)."""
     if name == "S=1025":
         lp, targets, ilen, tlen = _inputs(B=2, T=300, C=9, U=512, seed=14)
         rng = np.random.RandomState(15)
@@ -626,6 +628,42 @@ def test_k6_device_route_replay_matches_plain_and_jax(name, one_thread):
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
     K, lanes = CLUSTER_SLICES.get(name, (2, 3))
     alphas, nll, grad = _k6_device_replay(t(lp), t(targets), t(ilen), t(tlen), K, lanes)
+    want_a, want_nll = K6.ctc_alpha_plain(t(lp), t(targets), t(ilen), t(tlen))
+    np.testing.assert_array_equal(alphas.numpy(), want_a.numpy())
+    np.testing.assert_array_equal(nll.numpy(), want_nll.numpy())
+    want_g = K6.ctc_beta_grad_plain(t(lp), t(targets), t(ilen), t(tlen), want_a, want_nll,
+                                    torch.ones(lp.shape[0]))
+    np.testing.assert_allclose(grad.numpy(), want_g.numpy(), rtol=0, atol=ATOL)
+    jax_nll, jax_g = _jax_case(name)
+    np.testing.assert_allclose(nll.numpy(), jax_nll, rtol=1e-6)
+    atol = ATOL if lp.shape[1] < 100 else 1e-4
+    np.testing.assert_allclose(grad.numpy(), jax_g, rtol=0, atol=atol)
+
+
+# the cluster route's replay at 8 states a lane: every edge, and the widest
+# case (the longer ones' arithmetic is the replays' above); (lanes a CTA)
+# few, so that each row is cut into several slices (U=4: S=9 in two slices
+# of 8; S=1,025 in five of 256)
+K6_CASES_8 = ["U=4", "input lengths below T", "target length 0", "T=1", "repeated labels",
+              "impossible alignment", "S=1025"]
+CLUSTER_SLICES_8 = {"S=1025": 32}
+
+
+@pytest.mark.parametrize("name", K6_CASES_8)
+def test_k6_cluster_route_at_8_states_a_lane_replay_matches_plain_and_jax(name, one_thread):
+    """The cluster route at 8 states a lane, which `ctc_plan` takes past
+    ``max_cluster`` x 1,536 states (from S = 3,073 with ``max_cluster``
+    lowered to 2), replayed at every edge (`_k6_device_replay`, whose
+    arithmetic does not depend on S, with a few lanes a CTA so that small
+    rows take several slices): the plain versions' alphas and NLL bit for
+    bit and their gradient, and JAX's custom VJP's NLL and gradient."""
+    plan = K6.ctc_plan(2, 700, 3073, max_cluster=2)
+    assert (plan["lattice"], plan["states_per_lane"], plan["chain_warps"], plan["cluster"]) == (
+        "cluster", 8, 7, 2)
+    lp, targets, ilen, tlen = _k6_case(name)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    alphas, nll, grad = _k6_device_replay(t(lp), t(targets), t(ilen), t(tlen), 8,
+                                          CLUSTER_SLICES_8.get(name, 1))
     want_a, want_nll = K6.ctc_alpha_plain(t(lp), t(targets), t(ilen), t(tlen))
     np.testing.assert_array_equal(alphas.numpy(), want_a.numpy())
     np.testing.assert_array_equal(nll.numpy(), want_nll.numpy())
