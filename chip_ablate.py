@@ -9,8 +9,9 @@ card; and the ASR, paired or speech-first train step's time in a given tree.
     python3 chip_ablate.py --paired-busy TREE
     python3 chip_ablate.py --speech-first-busy TREE
     python3 chip_ablate.py --kernel-mem TREE
-    python3 chip_ablate.py --ctc-long [--src TREE]
+    python3 chip_ablate.py --ctc-long [--wide] [--src TREE]
     python3 chip_ablate.py --k3-split [--src TREE]
+    python3 chip_ablate.py --k7w [--src TREE]
     python3 chip_ablate.py --sanitize k7|k6|b6|b6_bwd --plan T=..,B=..[,...] [--variant unit_lanes]
     python3 chip_ablate.py --sanitize-all
 
@@ -126,8 +127,10 @@ K6_GRAD_START = " " * 32 + "float* __restrict__ grad, int B, int T, int C, int U
 # and its log occupancies; the class-sum warps after their lists
 K6_ALPHA_W = ("  const int nl = blockDim.x, L = threadIdx.x, ls = 32 * K * (nl >> 5) + 4;  "
               "// a step's row\n")
-K6_BETA_W = ("  const int W = (blockDim.x >> 5) - kConsumerWarps, nl = 32 * W, "
+K6_BETA_W = ("  const int W = (blockDim.x >> 5) - kConsumerWarps - (Chain ? 1 : 0), nl = 32 * W, "
              "ls = 32 * K * W + 4;\n")
+K6_BETA_W_20 = ("  const int W = (blockDim.x >> 5) - kConsumerWarps, nl = 32 * W, "
+                "ls = 32 * K * W + 4;\n")
 K6_BAR = 'asm volatile("bar.sync 1, %0;\\n" ::"r"(nl) : "memory");\n'
 K6_ALPHA_BAR = ("      " + K6_BAR + "    }\n    cur = nxt;\n", "    }\n    cur = nxt;\n")
 K6_BETA_BAR = ("          " + K6_BAR + "          if (i > 0)", "          if (i > 0)")
@@ -488,6 +491,37 @@ def k6_alpha_chain_cuts(store, up, ind="", start=K6_ALPHA_W, bar=K6_ALPHA_BAR):
 
 
 # source -> [(kernel case in chip_smoke.py, {design: [(cut name, [(old, new), ...])]})]
+# ctc_beta_grad's cuts past its launch, in both trees (with and without the
+# chained route, whose link warp changed the line that counts the chain warps)
+K6_BETA_CUTS = [
+    # the chain's warps return once their first chunks are asked
+    # for; the class-sum warps once the rows past the input are
+    # zero and their lists are built
+    ("prologue: zero rows, class lists, first loads", [
+        after("    if (n_chunks > 1) fetch(e_nxt, a_nxt, 1);\n", "    return;\n"),
+        K6_NO_SUMS]),
+    # the chain keeps its betas in the occupancy ring
+    ("the chain, no log occupancies or class sums", [
+        K6_EMPTY_WAIT,
+        (K6_OCC, "      for (int j = 0; j < K; ++j) ok[(size_t)(i * K + j) * nl] = beta[j];\n"),
+        K6_NO_SUMS]),
+    ("and the log occupancies", [K6_EMPTY_WAIT, K6_NO_SUMS]),
+    # the class sums' first pass: the segments' sums, no runs' sums
+    ("and the segment sums", [after(K6_SEG_SUMS, "    continue;\n")]),
+    ("whole kernel, no barrier", [K6_BETA_BAR]),
+    ("whole kernel, a ring of 2 chunks", [("constexpr int kDepth = 4;",
+                                           "constexpr int kDepth = 2;")]),
+    ("whole kernel, a thread a (run, step), no segments", K6_RUN_SUMS),
+    # with 3 or 5 class-sum warps in place of 8
+    ("whole kernel, 3 class-sum warps", [("constexpr int kConsumerWarps = 8;",
+                                          "constexpr int kConsumerWarps = 3;")]),
+    ("whole kernel, 5 class-sum warps", [K6_WARPS_5]),
+    # segments of up to a warp's 32 states (fewer partials a run)
+    ("whole kernel, segments of 32", [K6_SEG_32]),
+    ("whole kernel, __expf and __logf", K6_FAST_MATH),
+]
+
+
 CUTS = {
     "attention": [("attention_step", {"cluster per batch row (PR 3)": [
         ("launch", [ret("                      int vec) {\n"
@@ -568,34 +602,11 @@ CUTS = {
             ],
         }),
         ("ctc_beta_grad", {
-            "one kernel: chain warps, an occupancy ring, class-sum warps": [
-                ("launch", [after(K6_BETA_W, "  return;\n")]),
-                # the chain's warps return once their first chunks are asked
-                # for; the class-sum warps once the rows past the input are
-                # zero and their lists are built
-                ("prologue: zero rows, class lists, first loads", [
-                    after("    if (n_chunks > 1) fetch(e_nxt, a_nxt, 1);\n", "    return;\n"),
-                    K6_NO_SUMS]),
-                # the chain keeps its betas in the occupancy ring
-                ("the chain, no log occupancies or class sums", [
-                    K6_EMPTY_WAIT,
-                    (K6_OCC, "      for (int j = 0; j < K; ++j) ok[(size_t)(i * K + j) * nl] = beta[j];\n"),
-                    K6_NO_SUMS]),
-                ("and the log occupancies", [K6_EMPTY_WAIT, K6_NO_SUMS]),
-                # the class sums' first pass: the segments' sums, no runs' sums
-                ("and the segment sums", [after(K6_SEG_SUMS, "    continue;\n")]),
-                ("whole kernel, no barrier", [K6_BETA_BAR]),
-                ("whole kernel, a ring of 2 chunks", [("constexpr int kDepth = 4;",
-                                                       "constexpr int kDepth = 2;")]),
-                ("whole kernel, a thread a (run, step), no segments", K6_RUN_SUMS),
-                # with 3 or 5 class-sum warps in place of 8
-                ("whole kernel, 3 class-sum warps", [("constexpr int kConsumerWarps = 8;",
-                                                      "constexpr int kConsumerWarps = 3;")]),
-                ("whole kernel, 5 class-sum warps", [K6_WARPS_5]),
-                # segments of up to a warp's 32 states (fewer partials a run)
-                ("whole kernel, segments of 32", [K6_SEG_32]),
-                ("whole kernel, __expf and __logf", K6_FAST_MATH),
-            ],
+            **{design: [("launch", [after(w, "  return;\n")])] + K6_BETA_CUTS
+               for design, w in (
+                   ("one kernel: chain warps, an occupancy ring, class-sum warps", K6_BETA_W),
+                   ("one kernel: chain warps, an occupancy ring, class-sum warps (no chained "
+                    "route)", K6_BETA_W_20))},
             "the recursion, an occupancy scratch, a sums kernel": [
                 ("launch", [ret(K6_BETA_START), ret(K6_GRAD_START)]),
                 ("the recursion, no occupancy stores", [
@@ -1118,7 +1129,7 @@ CTC_ROUTE_S = (513, 1025, 1537, 2049, 3073, 4096)
 CTC_ROUTE_B = (2, 8, 16)
 # past 24,576 states: (S, T, target lengths, input lengths) of the cluster
 # route at 8 states a lane (phase 13's row of chip_smoke.py and the route's
-# last S) and of the device-memory route at its floor, each beside
+# last S) and of the route past a cluster's states at its floor, each beside
 # F.ctc_loss with these targets and with targets of the full U labels (the
 # same lattice of 2U + 1 states)
 CTC_WIDE = ((24577, 700, (600, 500), (700, 650)), (49152, 700, (600, 500), (700, 650)),
@@ -1243,13 +1254,16 @@ def _k6_rows(cs, randn, dev, B_, S):
 
 def _route_plans(k6):
     """{route: a `ctc_plan` that takes that route} in this tree's
-    kernels/ctc.py ("plan": its own choice; in a tree without
-    `_cluster_plan`, the cluster route by its MAX_STATES lowered)."""
+    kernels/ctc.py ("plan": its own choice; "past": the route past a
+    cluster's states, the chained route where the tree has it, else the
+    device-memory route; in a tree without `_cluster_plan`, the cluster
+    route by its MAX_STATES lowered)."""
     real = k6.ctc_plan
-    device = lambda B_, T, S, mc=16: real(B_, T, S, 1)
+    past = (lambda B_, T, S, mc=16, *_: k6._chain_plan(B_, S, mc)) if hasattr(
+        k6, "_chain_plan") else (lambda B_, T, S, mc=16, *_: real(B_, T, S, 1))
     if hasattr(k6, "_cluster_plan"):
-        return {"plan": real, "shared": lambda B_, T, S, mc=16: k6._shared_plan(B_, S),
-                "cluster": lambda B_, T, S, mc=16: k6._cluster_plan(B_, S, mc), "device": device}
+        return {"plan": real, "shared": lambda B_, T, S, mc=16, *_: k6._shared_plan(B_, S),
+                "cluster": lambda B_, T, S, mc=16, *_: k6._cluster_plan(B_, S, mc), "past": past}
 
     def cluster(B_, T, S, mc=16):
         saved, k6.MAX_STATES = k6.MAX_STATES, 0
@@ -1257,7 +1271,7 @@ def _route_plans(k6):
             return real(B_, T, S, mc)
         finally:
             k6.MAX_STATES = saved
-    return {"plan": real, "shared": real, "cluster": cluster, "device": device}
+    return {"plan": real, "shared": real, "cluster": cluster, "past": past}
 
 
 def ctc_routes(cs, k6, randn, dev):
@@ -1267,7 +1281,7 @@ def ctc_routes(cs, k6, randn, dev):
     equal to the shared route's and its gradient's largest difference on
     its own scale) and the rows past
     24,576 states (`CTC_WIDE`: the plan's route, and where the plan takes
-    the cluster the device route forced, each held to the plain version;
+    the cluster the route past a cluster forced, each held to the plain version;
     ``F.ctc_loss`` forward and forward + backward with the rows' targets and
     with targets of U labels). Returns (sweep, wide)."""
     plans = _route_plans(k6)
@@ -1316,8 +1330,8 @@ def ctc_routes(cs, k6, randn, dev):
             "alpha, targets of U labels": cs.time_ms(cs._ctc_library(*full, backward=False), 3),
             "beta, targets of U labels": cs.time_ms(cs._ctc_library(*full, backward=True), 3)}}
         want = (k6.ctc_alpha_plain(*a), k6.ctc_beta_grad_plain(*ba))
-        for route in ("plan", "device"):
-            if route == "device" and real(2, T, S, mc)["lattice"] == "device":
+        for route in ("plan", "past"):
+            if route == "past" and real(2, T, S, mc)["lattice"] in ("device", "chain"):
                 continue
             row[route], got = timed(route, a, ba)
             row[route].update(
@@ -1328,6 +1342,97 @@ def ctc_routes(cs, k6, randn, dev):
         wide[f"B=2 T={T} S={S}"] = row
         print(json.dumps({"wide": {f"B=2 T={T} S={S}": row}}), flush=True)
     return sweep, wide
+
+
+# the chained route past a cluster's states and the band below it (where one
+# cluster at 8 states a lane takes the row): (S) at T=700 with rows' targets
+# of 600 and 500 (input lengths 700 and 650) and of all U labels, at each B
+CTC_CHAIN_S = (24577, 49152, 49153)
+CTC_CHAIN_B = (2, 8, 16)
+
+
+def ctc_chain_sweep(cs, k6, randn, dev):
+    """K6 past 24,576 states at every S of `CTC_CHAIN_S` and B of
+    `CTC_CHAIN_B`, T=700, with the rows' targets (600 and 500 labels) and
+    with targets of all U labels: ``ctc_alpha`` and ``ctc_beta_grad`` on the
+    plan's route, on the cluster route where it holds S, and in a tree with
+    the chained route on it forced (its P, Q, W and waves), device time
+    from replayed graphs; at B=2 each held
+    to the plain version (alphas bit for bit, the gradient on its own
+    scale); beside F.ctc_loss forward and forward + backward (eager, CUDA
+    events). Returns {"B=.. S=.. <targets>": row}."""
+    real = k6.ctc_plan
+    chain = hasattr(k6, "_chain_plan")
+    mc = k6.max_cluster() if hasattr(k6, "max_cluster") else 16
+    out = {}
+    for B_ in CTC_CHAIN_B:
+        for S in CTC_CHAIN_S:
+            U, T = (S - 1) // 2, 700
+            a = cs._ctc_inputs(randn, dev, B_, T, 43, U, seed=S + B_,
+                               tl=[600 if b % 2 == 0 else 500 for b in range(B_)],
+                               il=[700 if b % 2 == 0 else 650 for b in range(B_)])
+            full = (a[0], torch.randint(3, 43, a[1].shape, device=dev, dtype=torch.int32,
+                                        generator=torch.Generator(device=dev).manual_seed(S)),
+                    a[2], torch.full_like(a[3], U))
+            for tname, x in (("targets 600/500", a), ("all U labels", full)):
+                bx = cs._ctc_beta_args(x)
+                row = {"library_ms": {"alpha": cs.time_ms(cs._ctc_library(*x, backward=False), 3),
+                                      "beta": cs.time_ms(cs._ctc_library(*x, backward=True), 3)}}
+                plans = {"plan": None}
+                if hasattr(k6, "_cluster_plan") and k6._cluster_plan(B_, S, mc) is not None:
+                    plans["cluster"] = lambda B__, T_, S_, m=16, *_: k6._cluster_plan(B__, S_, m)
+                if chain:
+                    plans["chain"] = lambda B__, T_, S_, m=16, *_: k6._chain_plan(B__, S_, m)
+                want = (bx[4], bx[5], k6.ctc_beta_grad_plain(*bx)) if B_ == 2 else None
+                for name, plan in plans.items():
+                    if plan is not None:
+                        k6.ctc_plan = plan
+                    try:
+                        p = k6.ctc_plan(B_, T, S, mc)
+                        r = {"lattice": p["lattice"],
+                             "plan": {k: p.get(k) for k in ("states_per_lane", "chain_warps",
+                                                            "cluster", "clusters")},
+                             "alpha": cs.device_ms(lambda: k6.ctc_alpha(*x), 2),
+                             "beta": cs.device_ms(lambda: k6.ctc_beta_grad(*bx), 2)}
+                        if want is not None:
+                            al, nll = k6.ctc_alpha(*x)
+                            r["alphas_equal"] = bool(torch.equal(al, want[0]) and torch.equal(nll, want[1]))
+                            r["grad_rel_err"] = cs.rel_err(k6.ctc_beta_grad(*bx), want[2])
+                        r["alpha_plus_beta"] = r["alpha"] + r["beta"]
+                        if p["lattice"] == "chain":
+                            r["plan"]["waves"] = -(-B_ * p["clusters"] // k6.chain_fits(
+                                p["chain_warps"], p["cluster"]))
+                    finally:
+                        k6.ctc_plan = real
+                    row[name] = r
+                key = f"B={B_} S={S} {tname}"
+                out[key] = row
+                print(json.dumps({"chain sweep": {key: row}}), flush=True)
+    return out
+
+
+def ctc_wide(src_tree=None):
+    """``--ctc-long --wide``: `ctc_chain_sweep` alone in the checkout at
+    ``src_tree`` (default: this one), no cuts and no sweep of the shorter
+    routes. Prints the card, then one JSON line ``{"ctc_wide": ...}``."""
+    if src_tree is not None:
+        src_tree = enter_tree(src_tree)
+    import chip_smoke as cs
+    from semi_tts_tpu_torch import use_fp32
+    from semi_tts_tpu_torch.kernels import build, ctc as k6
+
+    card = cs.phase_device()
+    use_fp32()
+    build.load("ctc")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    with torch.no_grad():
+        sweep = ctc_chain_sweep(cs, k6, randn, dev)
+    print(json.dumps({"ctc_wide": {"card": card, "tree": str(build.CSRC), "sweep": sweep}}))
 
 
 def ctc_long(src_tree=None):
@@ -1582,6 +1687,162 @@ def k3_split(src_tree=None):
     print(json.dumps({"k3_split": result}))
 
 
+# K7w (``--k7w``) at every shape of chip_smoke.py's K7w row
+# (`WIDE_LSTM_SHAPES` and `K7W_MORE_SHAPES`: T, B, H, ndir). The first design's phases, each cut
+# ending every step after one (so no step waits on data that never comes):
+# the launch alone (and W_hh's staging); phase A (the gate gradients of the
+# CTA's units); the grid barrier; the staging of the step's whole B x 4H
+# gate gradients into every CTA; the whole kernel is the dot (dh_rec).
+K7W_STEP = ("    if (threadIdx.x < B * uv) load(s + 1, threadIdx.x, first);\n"
+            "    grid_sync(p.bar, (unsigned)(s + 1) * nblocks);\n"
+            "    for (int c0 = 0; c0 < B; c0 += p.chunk) {\n"
+            "      const int nb = min(p.chunk, B - c0);\n"
+            "      stage_vec(vec, p.dg[dir]")
+K7W_TOP = "  const int dir = blockIdx.y, H = p.H, B = p.B, T = p.T, U = p.U, K = 4 * H;\n"
+K7W_DOT = ("      dot_rows(vec, K, U, nb, row, red, [&](int r, int b, float v) {\n"
+           "        if (r < uv) p.dh[")
+# The cluster design's phases (csrc/rnn_wide.cu `lstm_wide_bwd_cluster_kernel`):
+# phase A; the partial product over the CTA's own gate rows (B1); the
+# cluster barrier; the cluster's sums over DSMEM and their flag (B2); the
+# whole kernel adds the flag waits and the L2 reads (C)
+K7W_CL_TOP = "  const int N = gridDim.x, M = N / kCl, cta = blockIdx.x, r = cl_rank(), c = cta / kCl;\n"
+K7W_CL_A = "    __syncthreads();  // the gate gradients are in dgs\n"
+K7W_CL_B1 = "      cl_sync();  // every CTA of the cluster has its partials of the chunk in\n"
+K7W_CL_B2 = "    // phase C: once every cluster's CTAs whose slices hold this CTA's units\n"
+K7W_CL_C0 = "    __syncthreads();  // this CTA's slice is written\n"
+CONTINUE = "    if (p.T > 0) continue;\n"
+CHUNK_CONTINUE = "      if (p.T > 0) continue;\n"  # the next chunk of batch rows
+# design -> (its `wide_bwd_plan` ``design`` in a tree that has several,
+# [(cut, [(old, new), ...])]); every design whose markers are all in the
+# tree's rnn_wide.cu once is cut
+K7W_CUTS = {
+    "a grid barrier a step, the step's gate gradients staged into every CTA": ("grid", [
+        ("launch", [(K7W_TOP, "  if (p.T > 0) return;\n" + K7W_TOP)]),
+        ("phase A", [(K7W_STEP, K7W_STEP.replace("    grid_sync(", CONTINUE + "    grid_sync("))]),
+        ("the grid barrier", [(K7W_STEP, K7W_STEP.replace("    for (int c0", CONTINUE
+                                                          + "    for (int c0"))]),
+        ("the staging", [(K7W_DOT, "      if (p.T > 0) continue;\n" + K7W_DOT)]),
+    ]),
+    "clusters of 8, the CTA's own gate rows, a reduce-scatter over DSMEM and L2": ("cluster", [
+        ("launch", [(K7W_CL_TOP, "  if (p.T > 0) return;\n" + K7W_CL_TOP)]),
+        ("phase A", [(K7W_CL_A, K7W_CL_A + CONTINUE)]),
+        ("the partial product", [(K7W_CL_B1, CHUNK_CONTINUE + K7W_CL_B1),
+                                 (K7W_CL_C0, CONTINUE + K7W_CL_C0)]),
+        ("the cluster barrier", [(K7W_CL_B1, K7W_CL_B1 + CHUNK_CONTINUE),
+                                 (K7W_CL_C0, CONTINUE + K7W_CL_C0)]),
+        ("the cluster's sums and their flag", [(K7W_CL_B2, CONTINUE + K7W_CL_B2)]),
+    ]),
+}
+
+
+def k7w(src_tree=None):
+    """K7w (`lstm_rec_bwd_wide`, through `bilstm_rec_bwd`) of the checkout at
+    ``src_tree`` (default: this one) at every shape of `chip_smoke.
+    WIDE_LSTM_SHAPES` and `K7W_MORE_SHAPES` (where the tree has them),
+    graph-replayed: whole (held to its plain version),
+    the cuts of each design of `K7W_CUTS` that finds its markers in the
+    tree's rnn_wide.cu, with that design forced (``<design>: to <phase>``:
+    the kernel up to and including that phase), in a tree with
+    `wide_bwd_plan` each design forced by replacing the plan
+    (``design <name>``: time, largest difference from the plain version,
+    reruns), and the whole kernel again; the plan at each shape. Prints
+    the card, then one JSON line ``{"k7w": ...}``."""
+    if src_tree is not None:
+        src_tree = enter_tree(src_tree)
+    import chip_smoke as cs
+    from semi_tts_tpu_torch import use_fp32
+    from semi_tts_tpu_torch.kernels import build, rnn as k
+
+    card = cs.phase_device()
+    use_fp32()
+    mine = build.load("rnn_wide")
+    text = open(os.path.join(build.CSRC, "rnn_wide.cu")).read()
+    out_dir = build.BUILD_DIR / "ablate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    designs = {d: v for d, v in K7W_CUTS.items()
+               if all(text.count(old) == 1 for _, edits in v[1] for old, _ in edits)}
+    procs = {}
+    for d, (force, cuts) in designs.items():
+        for i, (name, edits) in enumerate(cuts):
+            cut_text = text
+            for old, new in edits:
+                cut_text = cut_text.replace(old, new)
+            cu = out_dir / f"k7w_{force}_{i}.cu"
+            cu.write_text(cut_text)
+            procs[(force, name)] = (subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), cu.with_suffix(".so"))
+    for name, (proc, _) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"chip_ablate: nvcc failed for {name}:\n{log}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def unif(*shape, a):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * a
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = {cs.shape_key(*sh): (sh, cs._lstm_bwd_inputs(randn, unif, *sh))
+              for sh in cs.WIDE_LSTM_SHAPES + getattr(cs, "K7W_MORE_SHAPES", ())}
+
+    def times():
+        return {key: cs.device_ms(lambda a=a: k.bilstm_rec_bwd(*a), 10)
+                for key, (_, a) in shapes.items()}
+
+    def errs():
+        return {key: cs.max_err(k.bilstm_rec_bwd(*a), k.bilstm_rec_bwd_plain(*a))
+                for key, (_, a) in shapes.items()}
+
+    def reruns():  # the kernel twice on the same inputs, bit for bit
+        out = {}
+        for key, (_, a) in shapes.items():
+            x, y = k.bilstm_rec_bwd(*a), k.bilstm_rec_bwd(*a)
+            out[key] = all(torch.equal(p, q) for p, q in zip(x, y) if p is not None)
+        return out
+
+    result = {"card": card, "tree": str(build.CSRC), "designs_cut": list(designs)}
+    real = getattr(k, "wide_bwd_plan", None)
+    # each design's plan (the cluster design where it fits: the plan's own
+    # choice at these shapes); None where the tree has one design
+    forced = {} if real is None else {
+        "cluster": real,
+        "grid": lambda B_, H, n, s_, fit: dict(k.wide_plan("lstm_bwd", B_, H, n, s_), design="grid")}
+    with torch.no_grad():
+        result["ms"], result["max_abs_err"], result["rerun_equal"] = times(), errs(), reruns()
+        result["plans"] = {key: k.wide_plan("lstm_bwd", sh[1], sh[2], sh[3], sms)
+                           for key, (sh, _) in shapes.items()} if not hasattr(
+            k, "wide_bwd_plan") else {key: k.wide_bwd_plan(sh[1], sh[2], sh[3], sms, k._cluster_fit)
+                                      for key, (sh, _) in shapes.items()}
+        result["us_per_step"] = {key: 1e3 * v / shapes[key][0][0] for key, v in result["ms"].items()}
+        print(json.dumps({"k7w": result}), flush=True)
+        for name, plan in forced.items():
+            k.wide_bwd_plan = plan
+            try:
+                result[f"design {name}"] = {"ms": times(), "max_abs_err": errs(),
+                                            "rerun_equal": reruns()}
+            finally:
+                k.wide_bwd_plan = real
+        result["cuts"] = {}
+        for (force, name), (_, so) in procs.items():
+            build._libs["rnn_wide"] = ctypes.CDLL(str(so))
+            build.bind.cache_clear()
+            if forced:
+                k.wide_bwd_plan = forced[force]
+            try:
+                result["cuts"][f"{force}: to {name}"] = times()
+            finally:
+                if forced:
+                    k.wide_bwd_plan = real
+        build._libs["rnn_wide"] = mine
+        build.bind.cache_clear()
+        result["ms again"] = times()
+    print(json.dumps({"k7w": result}))
+
+
 def step_busy(tree, kind):
     """The flagship ``kind`` step ("asr", "paired" or "speech_first") of the
     checkout at ``tree``: six steps, then steps 10 to 12 profiled."""
@@ -1750,16 +2011,17 @@ SANITIZE_BUDGET_S = 1500   # --sanitize-all starts no run past this
 
 
 def sanitize_lib(src, variant):
-    """The library of a copy of ``csrc/<src>.cu`` with `SLOW_TRAP` (and the
-    variant's edits), built once into the ablation directory."""
+    """The library of a copy of ``csrc/<src>.cu`` with `SLOW_TRAP` at every
+    wait (and the variant's edits), built once into the ablation directory."""
     from semi_tts_tpu_torch.kernels import build
 
     text = open(os.path.join(build.CSRC, f"{src}.cu")).read()
     edits = ([SLOW_TRAP] + (K7_UNIT_LANES if variant.startswith("unit_lanes") else [])
              + (K7_TRACE if variant.endswith("trace") else []))
     for old, new in edits:
-        if text.count(old) != 1:
-            raise SystemExit(f"chip_ablate: csrc/{src}.cu has {text.count(old)} of {old!r}")
+        n = text.count(old)  # every wait's trap; each other edit's marker once
+        if n == 0 or (n > 1 and (old, new) != SLOW_TRAP):
+            raise SystemExit(f"chip_ablate: csrc/{src}.cu has {n} of {old!r}")
         text = text.replace(old, new)
     out_dir = build.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1925,8 +2187,11 @@ if __name__ == "__main__":
         sys.exit(kernel_mem(sys.argv[2]))
     if sys.argv[1:2] == ["--k3-split"]:
         sys.exit(k3_split(sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None))
+    if sys.argv[1:2] == ["--k7w"]:
+        sys.exit(k7w(sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None))
     if sys.argv[1:2] == ["--ctc-long"]:
-        sys.exit(ctc_long(sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None))
+        tree = sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None
+        sys.exit(ctc_wide(tree) if "--wide" in sys.argv else ctc_long(tree))
     if sys.argv[1:2] == ["--asr-busy"]:
         sys.exit(step_busy(sys.argv[2], "asr"))
     if sys.argv[1:2] == ["--paired-busy"]:

@@ -172,7 +172,9 @@ Phases, each fatal on failure:
    at 1e-4 and timed (graph-replayed, beside its plain version, its
    bound and cuDNN's LSTM or GRU, forward or backward) at every shape of
    `WIDE_LSTM_SHAPES`/`WIDE_GRU_SHAPES` (``ms_by_shape``, ...,
-   ``plans_by_shape``); then (a) `RNNLM` LSTM and (b) `RNNLM` GRU at their
+   ``plans_by_shape``; K7w also at `K7W_MORE_SHAPES`, each shape's plan
+   held to its design in `K7W_DESIGNS`: both designs, and the cluster
+   design's partials in chunks of batch rows); then (a) `RNNLM` LSTM and (b) `RNNLM` GRU at their
    default width, 512 units and 2 layers, trained at B=8 x 47 inputs
    through `rnnlm_step` (a `StepProgram`, Adam with the Noam schedule),
    and (c) the ASR step at ``model.encoder.rnn_dim`` 512 (`phase_training`
@@ -189,8 +191,11 @@ Phases, each fatal on failure:
    ragged and masked with a wholly masked chunk, F = 0, A=1024 F=64), K3
    at B=16 L=32 (still one cluster a row, its time beside the recorded
    one), K6 at S = 1,025 to 8,193 and 24,577 (a cluster of CTAs a row at 2
-   and 8 states a lane, ``us_per_step`` and its P, K, W) and 49,153 (the
-   device-memory lattice past a cluster) beside F.ctc_loss, B6 and its
+   and 8 states a lane, ``us_per_step`` and its P, K, W) and 49,153 and
+   98,305 (a chain of clusters a row past a cluster's states: rows of 100
+   and 80 labels at T=120, rows of 5,200 and 10,400 at T=11,000 over two
+   and three live clusters, and at B=16 in waves; with targets of all U
+   labels too and two graph replays bit for bit) beside F.ctc_loss, B6 and its
    backward at T = 14,529 and 20,000 (C=43) and T=14,528 C=8,000 (the
    argmax from device memory): each held to its plain version (1e-4; B6
    1e-6 on the means and exact elsewhere) and timed beside it and its
@@ -583,15 +588,16 @@ def ptxas_report(log):
     wide routes: `rec_wide_kernel<4>` K1w, `<3>` K2w, K7w, K8w), of the
     attention kernels (K3 and its split route's kernel; K9 by span and
     loc_lin staging, and its sums kernel), of K6 (by states a lane, the
-    cluster route's two by theirs, the device-memory route's three) and of
+    cluster route's two by theirs, the chained route's two by theirs) and of
     B6, from nvcc's ``-Xptxas -v``
     output."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"(lstm_rec|gru_rec|lstm_bwd|gru_bwd|rec_wide|lstm_wide_bwd|gru_wide_bwd|"
+        m = re.search(r"(lstm_rec|gru_rec|lstm_bwd|gru_bwd|rec_wide|lstm_wide_bwd_cluster|"
+                      r"lstm_wide_bwd|gru_wide_bwd|"
                       r"attention_bwd_sum|attention_bwd|attention_step|attention_split|"
-                      r"ctc_alpha_cluster|ctc_beta_grad_cluster|ctc_alpha_long|ctc_beta_long|"
-                      r"ctc_grad_long|ctc_alpha|ctc_beta_grad|"
+                      r"ctc_alpha_cluster|ctc_beta_grad_cluster|ctc_alpha_chain|ctc_beta_grad_chain|"
+                      r"ctc_alpha|ctc_beta_grad|"
                       r"trim_argmax|trim_merge_bwd|trim_merge)_kernel"
                       r"(?:I(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?E)?", line)
         if "Compiling entry function" in line:
@@ -2053,15 +2059,16 @@ KERNEL_NAMES = {"bilstm_rec": r"lstm_rec_kernel<[^>]*false>",
                 "spec_db": r"spec_db_kernel", "ctc_alpha": r"ctc_alpha_kernel",
                 "ctc_beta_grad": r"ctc_beta_grad_kernel", "trim_merge": r"trim_merge_kernel",
                 "trim_merge_bwd": r"trim_merge_bwd_kernel", "lstm_rec_wide": r"rec_wide_kernel<4>",
-                "lstm_rec_bwd_wide": r"lstm_wide_bwd_kernel", "gru_rec_wide": r"rec_wide_kernel<3>",
+                "lstm_rec_bwd_wide": r"lstm_wide_bwd_kernel|lstm_wide_bwd_cluster_kernel",
+                "gru_rec_wide": r"rec_wide_kernel<3>",
                 "gru_rec_bwd_wide": r"gru_wide_bwd_kernel",
                 # the long-length routes (phase 13)
                 "attention_step_split": r"attention_split_kernel",
                 "ctc_alpha_shared": r"ctc_alpha_kernel<", "ctc_beta_grad_shared": r"ctc_beta_grad_kernel<",
                 "ctc_alpha_cluster": r"ctc_alpha_cluster_kernel",
                 "ctc_beta_grad_cluster": r"ctc_beta_grad_cluster_kernel",
-                "ctc_alpha_long": r"ctc_alpha_long_kernel", "ctc_beta_long": r"ctc_beta_long_kernel",
-                "ctc_grad_long": r"ctc_grad_long_kernel"}
+                "ctc_alpha_chain": r"ctc_alpha_chain_kernel",
+                "ctc_beta_grad_chain": r"ctc_beta_grad_chain_kernel"}
 
 
 def kernels_seen(by_name):
@@ -3802,6 +3809,13 @@ def phase_pretrain(card, asr_ckpt):
 WIDE_LSTM_SHAPES = ((47, 8, 512, 1), (133, 8, 512, 2), (32, 8, 1024, 1), (40, 5, 292, 2),
                     (40, 5, 258, 2))
 WIDE_GRU_SHAPES = ((47, 8, 512, 1), (32, 8, 1024, 1), (40, 5, 129, 2))
+# K7w's design at each shape it is held at (`wide_bwd_plan` on an H100): the cluster
+# design at `WIDE_LSTM_SHAPES` and at B=64 (its partials (2, B, H) past shared memory:
+# 32 batch rows at a time), the first (grid) design where the cluster design's shared
+# memory cannot hold a CTA's 4U rows of W_hh (1,024 units in both directions)
+K7W_MORE_SHAPES = ((40, 64, 512, 2), (32, 8, 1024, 2))
+K7W_DESIGNS = {**{sh: "cluster" for sh in WIDE_LSTM_SHAPES},
+               (40, 64, 512, 2): "cluster", (32, 8, 1024, 2): "grid"}
 WIDE_KERNELS = ("lstm_rec_wide", "lstm_rec_bwd_wide", "gru_rec_wide", "gru_rec_bwd_wide")
 NARROW_RECURRENCES = ("bilstm_rec", "bilstm_rec_cs", "bilstm_rec_bwd", "bigru_rec",
                       "bigru_rec_bwd")
@@ -3846,7 +3860,8 @@ def _wide_specs(randn, unif, dev):
              "H % 4 != 0)"),
         dict(name="lstm_rec_bwd_wide", kernel=k.bilstm_rec_bwd, plain=k.bilstm_rec_bwd_plain,
              inputs=lambda *sh: _lstm_bwd_inputs(randn, unif, *sh), cost=_lstm_bwd_cost,
-             shapes=WIDE_LSTM_SHAPES, plan="lstm_bwd", library=backward(torch.nn.LSTM),
+             shapes=WIDE_LSTM_SHAPES + K7W_MORE_SHAPES, plan="lstm_bwd",
+             library=backward(torch.nn.LSTM),
              timing=time_ms,
              note=note.format("LSTM", "backward: data and weight gradients (CUDA events, eager)"),
              replaces="semi_tts_tpu/ops/rnn.py:114 (_lstm_rec_bwd, the backward scan), past "
@@ -3869,8 +3884,10 @@ def wide_kernel_rows(dev):
     """The kernels line's rows of the wide routes: each held to its plain
     version at 1e-4 at every shape of its list, timed there (graph-replayed),
     beside its plain version, its bound and the cuDNN yardstick; the row's
-    own numbers at its first shape. Also K1w without cell states (both
-    wrappers) and K2w through `gru_rec`, one direction reversed."""
+    own numbers at its first shape; K7w's plan at each shape must take the
+    design of `K7W_DESIGNS`, so that both designs are held. Also K1w without
+    cell states (both wrappers) and K2w through `gru_rec`, one direction
+    reversed."""
     from semi_tts_tpu_torch.kernels import rnn as k
 
     g = torch.Generator(device=dev).manual_seed(17)
@@ -3893,19 +3910,32 @@ def wide_kernel_rows(dev):
                  "gru_rec reversed T=40 B=5 H=129": max_err(k.gru_rec(True, wg, bg, xg),
                                                             k.gru_rec_plain(True, wg, bg, xg))}
         for spec in _wide_specs(randn, unif, dev):
-            by = {n: {} for n in ("err", "ms", "plain", "bound", "library", "plan")}
+            by = {n: {} for n in ("err", "ms", "plain", "bound", "library", "plan", "rerun")}
             for sh in spec["shapes"]:
                 key, a = shape_key(*sh), spec["inputs"](*sh)
                 run = lambda a=a: spec["kernel"](*a)
-                by["err"][key] = max_err(run(), spec["plain"](*a))
-                if not by["err"][key] <= 1e-4:
+                first = run()
+                by["err"][key] = max_err(first, spec["plain"](*a))
+                # a rerun bit for bit (fixed summation orders, no atomics on values)
+                again = run()
+                by["rerun"][key] = all(torch.equal(x, y) for x, y in zip(
+                    first if isinstance(first, tuple) else (first,),
+                    again if isinstance(again, tuple) else (again,)) if x is not None)
+                if not (by["err"][key] <= 1e-4 and by["rerun"][key]):
                     raise SystemExit(f"chip_smoke: {spec['name']} disagrees with its plain "
-                                     f"version at {key}: {by['err'][key]}")
+                                     f"version or its rerun at {key}: {by['err'][key]}, "
+                                     f"rerun equal {by['rerun'][key]}")
                 by["ms"][key] = device_ms(run, 10)
                 by["plain"][key] = device_ms(lambda a=a: spec["plain"](*a), 2)
                 by["bound"][key] = bound(spec["cost"](*sh), run)
                 by["library"][key] = spec["timing"](spec["library"](*sh), 10)
-                by["plan"][key] = k.wide_plan(spec["plan"], sh[1], sh[2], sh[3], sms)
+                by["plan"][key] = (k.wide_bwd_plan(sh[1], sh[2], sh[3], sms, k._cluster_fit)
+                                   if spec["plan"] == "lstm_bwd" else
+                                   k.wide_plan(spec["plan"], sh[1], sh[2], sh[3], sms))
+                if spec["plan"] == "lstm_bwd" and by["plan"][key]["design"] != K7W_DESIGNS[sh]:
+                    raise SystemExit(f"chip_smoke: K7w's plan at {key} took the "
+                                     f"{by['plan'][key]['design']} design, not "
+                                     f"{K7W_DESIGNS[sh]}: {by['plan'][key]}")
             main = shape_key(*spec["shapes"][0])
             print(f"kernel {spec['name']}: max_abs_err {max(by['err'].values()):.3e} (tol 1e-4)",
                   flush=True)
@@ -3920,7 +3950,8 @@ def wide_kernel_rows(dev):
                          "ms_by_shape": by["ms"], "plain_ms_by_shape": by["plain"],
                          "bound_ms_by_shape": {n: b[0] for n, b in by["bound"].items()},
                          "library_ms_by_shape": by["library"],
-                         "max_abs_err_by_shape": by["err"], "plans_by_shape": by["plan"]})
+                         "max_abs_err_by_shape": by["err"], "plans_by_shape": by["plan"],
+                         "rerun_equal_by_shape": by["rerun"]})
     if not max(extra.values()) <= 1e-4:
         raise SystemExit(f"chip_smoke: a wide route disagrees with its plain version: {extra}")
     rows[0]["checks"] = extra
@@ -4786,15 +4817,21 @@ K3_SHORT_MS = 0.0086958         # its recorded time (PERF.md section 6), H100 80
 K6_LONG_S = (1025, 2049, 4097, 8193)  # K6 past the flagship's S, on the plan's routes
 # (S, T, target lengths, input lengths) of K6 past 24,576 states: U = 12,288 labels, rows of
 # 600 and 500 over T = 700 (the cluster lattice at 8 states a lane); and past the cluster's
-# 49,152, where the device-memory lattice takes the row (T short: a step there is ~36 us)
-K6_PAST_CLUSTER = ((24577, 700, (600, 500), (700, 650)), (49153, 120, (100, 80), (120, 110)))
+# 49,152, where a chain of clusters takes the row: rows of 100 and 80 labels (one live
+# cluster a row), and rows of 5,200 and 10,400 over T = 11,000 whose valid states span two
+# and three clusters (9,984 states each), so that both links carry alignable values and the
+# row's last cluster adds several clusters' class sums; and (B, S, T) of the chain at B=16,
+# past one wave of clusters (rows of all 49,152 labels, which T cannot align, and of 20 to 35)
+K6_PAST_CLUSTER = ((24577, 700, (600, 500), (700, 650)), (49153, 120, (100, 80), (120, 110)),
+                   (49153, 11000, (5200, 10400), (9000, 11000)))
+K6_WAVES = (16, 98305, 64)
 B6_LONG = ((14529, 43), (20000, 43), (14528, 8000))  # (T, C) of B6 past 14,528 frames or the ring
 PHASE13_KERNELS = {"a": ("attention_step_split",) + SERVING_KERNELS,
                    "b": ("attention_step_split", "attention_step_bwd", "trim_merge", "trim_merge_bwd")}
 # K6's kernels on each of `ctc_plan`'s routes, by `KERNEL_NAMES`
 K6_ROUTE_KERNELS = {"shared": ("ctc_alpha_shared", "ctc_beta_grad_shared"),
                     "cluster": ("ctc_alpha_cluster", "ctc_beta_grad_cluster"),
-                    "device": ("ctc_alpha_long", "ctc_beta_long", "ctc_grad_long")}
+                    "chain": ("ctc_alpha_chain", "ctc_beta_grad_chain")}
 
 
 def k6_route(B_, S):
@@ -4934,10 +4971,10 @@ def _k6_long_inputs(randn, dev, S, B_=2):
 
 
 def long_ctc_rows(randn, dev):
-    """K6 at every S of `K6_LONG_S` and of `K6_PAST_CLUSTER`: ``ctc_alpha``
+    """K6 at every S of `K6_LONG_S`, of `K6_PAST_CLUSTER` and `K6_WAVES`: ``ctc_alpha``
     held to its plain version at 1e-4 (log-domain alphas and NLL, which grow
     with T) on the shared-memory lattice and bit for bit on the cluster and
-    device-memory lattices (the same operations in the same order),
+    chained lattices (the same operations in the same order),
     ``ctc_beta_grad`` at 1e-4 of its largest value (`rel_err`: the 'mean'
     reduction's g makes it ~1/U) and its rerun bit for bit, timed
     (graph-replayed; the plain versions eagerly, a host loop of T steps)
@@ -4946,17 +4983,33 @@ def long_ctc_rows(randn, dev):
     the lattice of 2U + 1 states that K6 runs, where the rows' targets give
     F.ctc_loss 2 max(targets) + 1), rows by route: the shared-memory
     lattice, the cluster lattice (with its time a step and its plan's P, K
-    and W at each shape) and the device-memory lattice."""
+    and W at each shape) and the chained lattice (also its clusters Q, its
+    waves on the card and each row's live clusters; with targets of all U
+    labels held to the plain version too, and two graph replays of both
+    kernels bit for bit and equal to the eager calls: the tickets, row
+    counts and link flags zeroed for each launch). Fatal unless some
+    chained shape has alignable rows (finite NLL) over three live clusters
+    (a middle cluster both reads and writes a link, forward and backward)
+    and some runs in several waves."""
     from semi_tts_tpu_torch.kernels import ctc as k6
 
     shapes = [(S, _k6_long_inputs(randn, dev, S)) for S in K6_LONG_S]
     shapes += [(S_, _ctc_inputs(randn, dev, 2, T_, 43, (S_ - 1) // 2, seed=S_, tl=tl_, il=il_))
                for S_, T_, tl_, il_ in K6_PAST_CLUSTER]
-    routes = {"shared": {}, "cluster": {}, "device": {}}
+    B16, S16, T16 = K6_WAVES
+    U16 = (S16 - 1) // 2
+    shapes.append((S16, _ctc_inputs(randn, dev, B16, T16, 43, U16, seed=S16,
+                                    tl=[U16 if b % 2 == 0 else 20 + b for b in range(B16)],
+                                    il=[T16 - b % 3 for b in range(B16)])))
+    routes = {"shared": {}, "cluster": {}, "chain": {}}
     for S, a in shapes:
         B_, T, C = a[0].shape
         key = ctc_shape_key(B_, T, C, S)
         plan = k6.ctc_plan(B_, T, S, k6.max_cluster())
+        if plan["lattice"] == "chain":  # its waves on this card, each row's live clusters
+            plan = dict(plan, waves=-(-B_ * plan["clusters"] // k6.chain_fits(
+                plan["chain_warps"], plan["cluster"])), live=[k6.chain_live(t, plan)
+                                                             for t in a[3].tolist()])
         by = routes[plan["lattice"]].setdefault("alpha", {n: {} for n in (
             "err", "ms", "plain", "bound", "library", "full", "plan")})
         bb = routes[plan["lattice"]].setdefault("beta", {n: {} for n in (
@@ -4966,6 +5019,9 @@ def long_ctc_rows(randn, dev):
         by["err"][key] = max(max_err(alphas, want_a), max_err(nll, want_nll))
         exact = plan["lattice"] == "shared" or (torch.equal(alphas, want_a)
                                                 and torch.equal(nll, want_nll))
+        del alphas, want_a
+        if plan["lattice"] == "chain":  # each row's NLL finite: an alignment exists
+            plan["aligned"] = [bool(x < 1e29) for x in nll.tolist()]
         ba = _ctc_beta_args(a)
         g1, g2, want_g = k6.ctc_beta_grad(*ba), k6.ctc_beta_grad(*ba), k6.ctc_beta_grad_plain(*ba)
         bb["err"][key], bb["rel"][key] = max_err(g1, want_g), rel_err(g1, want_g)
@@ -4977,6 +5033,8 @@ def long_ctc_rows(randn, dev):
         full = (a[0], torch.randint(3, C, a[1].shape, device=dev, dtype=torch.int32,
                                     generator=torch.Generator(device=dev).manual_seed(S)),
                 a[2], torch.full_like(a[3], U))
+        if plan["lattice"] == "chain":
+            by.setdefault("checks", {})[key] = _k6_chain_checks(k6, a, full, ba, key)
         for d, kern, plain, cost, backward in ((by, k6.ctc_alpha, k6.ctc_alpha_plain,
                                                 _ctc_alpha_cost, False),
                                                (bb, k6.ctc_beta_grad, k6.ctc_beta_grad_plain,
@@ -4991,7 +5049,7 @@ def long_ctc_rows(randn, dev):
             d.setdefault("T", {})[key] = T
     rows = []
     for lattice, what in (("shared", "shared lattice"), ("cluster", "cluster lattice"),
-                          ("device", "device-memory lattice")):
+                          ("chain", "chained lattice")):
         for part, name, replaces, lib in (
                 ("alpha", "ctc_alpha", "semi_tts_tpu/ops/ctc.py:63 (_alpha_pass)",
                  "F.ctc_loss forward, reduction mean (CUDA events, eager)"),
@@ -5006,14 +5064,63 @@ def long_ctc_rows(randn, dev):
             if lattice != "shared":
                 steps = {k: 1e3 * v / by["T"][k] for k, v in by["ms"].items()}
                 extra.update(us_per_step=steps[main], us_per_step_by_shape=steps)
-            if lattice == "cluster":
-                pkw = {k: {"P": p["cluster"], "K": p["states_per_lane"], "W": p["chain_warps"]}
-                       for k, p in by["plan"].items()}
+            if lattice != "shared":
+                pkw = {k: {"P": p["cluster"], "K": p["states_per_lane"], "W": p["chain_warps"],
+                           **({"Q": p["clusters"], "waves": p["waves"], "live": p["live"]}
+                              if lattice == "chain" else {})} for k, p in by["plan"].items()}
                 extra.update(cluster_plan=pkw[main], cluster_plan_by_shape=pkw)
+            if lattice == "chain":
+                extra.update(checks_by_shape=routes["chain"]["alpha"]["checks"])
+                _fatal_unless(any(max(p["live"]) >= 3 and all(p["aligned"])
+                                  for p in by["plan"].values())
+                              and max(p["waves"] for p in by["plan"].values()) >= 2,
+                              "K6's chained shapes left out alignable rows over three live "
+                              "clusters or a grid of several waves",
+                              {k: dict(v, aligned=by["plan"][k]["aligned"]) for k, v in pkw.items()})
             rows.append(_long_row(f"{name} {what}", "semi_tts_tpu_torch/csrc/ctc.cu",
                                   f"{replaces}, past the flagship's 65 lattice states", by, main,
                                   1e-4, lib, extra))
     return rows
+
+
+def _k6_chain_checks(k6, a, full, ba, key):
+    """The chained route at one shape beyond the rows' own targets: with
+    targets of all U labels, its alphas and NLL bit for bit and its gradient
+    at 1e-4 of its largest value against the plain versions; and one CUDA
+    graph of ``ctc_alpha`` then ``ctc_beta_grad`` replayed twice, each
+    replay equal bit for bit to the other and to the eager calls (the
+    memsets that zero a launch's ticket counter, row counts and link flags
+    replayed with it: a counter not zeroed would hang or change the next).
+    Fatal unless all hold."""
+    alphas, nll = k6.ctc_alpha(*full)
+    want_a, want_nll = k6.ctc_alpha_plain(*full)
+    out = {"full_targets_alphas_equal": bool(torch.equal(alphas, want_a) and torch.equal(nll, want_nll))}
+    del alphas, want_a  # (T, B, S) each: 4.3 GB at T = 11,000, B=2, S = 49,153
+    bf = _ctc_beta_args(full)
+    out["full_targets_grad_rel_err"] = rel_err(k6.ctc_beta_grad(*bf), k6.ctc_beta_grad_plain(*bf))
+    del bf
+    eager = k6.ctc_alpha(*a) + (k6.ctc_beta_grad(*ba),)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k6.ctc_alpha(*a)
+        k6.ctc_beta_grad(*ba)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = k6.ctc_alpha(*a) + (k6.ctc_beta_grad(*ba),)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([o.clone() for o in outs])
+    del graph
+    out["replays_equal"] = all(torch.equal(x, y) and torch.equal(x, e)
+                               for x, y, e in zip(replays[0], replays[1], eager))
+    _fatal_unless(out["full_targets_alphas_equal"] and out["full_targets_grad_rel_err"] <= 1e-4
+                  and out["replays_equal"], f"K6's chained route at {key}", out)
+    print(f"K6 chained {key}: {out}", flush=True)
+    return out
 
 
 def long_trim_rows(randn, dev):
@@ -5274,6 +5381,83 @@ def long_asr(dev):
     return out
 
 
+# widths a JAX config may give that the cluster's 8 does not divide: the
+# decoder's attention (attn_dim) and memory (enc_embed_dim) widths; K3 and K9
+# at the paired step's shape, the speech-first step's and a split-route one
+ODD_WIDTHS = {"attn_dim": 100, "enc_embed_dim": 36}
+ODD_SHAPES = (("B=8 L=32", 8, 32), ("B=16 L=133 masked", 16, 133), ("B=2 L=5000 split", 2, 5000))
+
+
+def phase_widths(dev):
+    """K3 and K9 at the widths of `ODD_WIDTHS` (CTA r of a row's cluster
+    ceil(A/8) and ceil(D/8) columns, cut at A and D) at every shape of
+    `ODD_SHAPES`, held to their plain versions (each output at 1e-4 of its
+    largest value) and timed; then one paired step of a flagship model with
+    those widths on the card against the CPU plain path (phase 3's gates,
+    `paired_reference`), with the K3 and K9 launches of one card step: one
+    each a decode step, as at the flagship's widths (no pad or slice around
+    them). Returns the ``widths`` line."""
+    from semi_tts_tpu_torch import kernels
+    from semi_tts_tpu_torch.device import use_deterministic
+    from semi_tts_tpu_torch.kernels import attention as k3
+    from semi_tts_tpu_torch.models import vqvae as V
+    from semi_tts_tpu_torch.ops.features import AudioFeaturizer
+    from semi_tts_tpu_torch.train.steps import StepBuilder
+    from semi_tts_tpu_torch.utils.metrics import read_phn_attr
+
+    use_deterministic()  # as the step makers do: the card's rerun must repeat bit for bit
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def unif(*shape, a):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * a
+
+    A, D = ODD_WIDTHS["attn_dim"], ODD_WIDTHS["enc_embed_dim"]
+    out = {"A": A, "D": D, "kernels": {}}
+    with torch.no_grad():
+        for name, B_, L in ODD_SHAPES:
+            a, mask, (gc, gw), _ = _split_inputs(randn, unif, dev, B_, L, dict(A=A, D=D), B_ == 16)
+            ctx, w = k3.attention_step(*a, mask)
+            ba = a + (w, ctx, gc, gw)
+            wd = dict(A=A, D=D, C=2, F_=32, K=31)
+            b3 = bound(_split_cost(B_, L, wd), lambda: k3.attention_step(*a, mask))
+            b9 = bound(_split_cost(B_, L, wd, bwd=True), lambda: k3.attention_step_bwd(*ba))
+            row = {"k3_rel_err": rel_err((ctx, w), k3.attention_step_plain(*a, mask)),
+                   "k9_rel_err": rel_err(k3.attention_step_bwd(*ba), k3.attention_step_bwd_plain(*ba)),
+                   "k3_ms": device_ms(lambda: k3.attention_step(*a, mask), 20),
+                   "k9_ms": device_ms(lambda: k3.attention_step_bwd(*ba), 20),
+                   "k3_plain_ms": device_ms(lambda: k3.attention_step_plain(*a, mask), 5),
+                   "k9_plain_ms": device_ms(lambda: k3.attention_step_bwd_plain(*ba), 5),
+                   "k3_bound_ms": b3[0], "k3_bound_by": b3[1], "k9_bound_ms": b9[0],
+                   "k9_bound_by": b9[1],
+                   "k3_plan": {k: v for k, v in k3.attention_plan(B_, L, A, D, 2, 32, 31).items()
+                               if k in ("a_per_cta", "d_per_cta", "chunks", "span", "grid")}}
+            _fatal_unless(row["k3_rel_err"] <= 1e-4 and row["k9_rel_err"] <= 1e-4,
+                          f"K3/K9 at A={A} D={D} {name} disagree with their plain versions", row)
+            out["kernels"][name] = row
+            print(f"kernels at A={A} D={D} {name}: {row}", flush=True)
+    config = flagship_config()
+    config["model"]["decoder"]["decoder"]["attn_dim"] = A
+    config["model"]["decoder"]["encoder"]["enc_embed_dim"] = D
+    cfg = flagship_vqvae_config(config)
+    phn_attr = torch.from_numpy(read_phn_attr(config["model"]["codebook"]["phn_attr_pth"])).to(dev)
+    model = V.VQVAE(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    builder = StepBuilder(no_dropout(cfg), AudioFeaturizer(audio_config(), dev), phn_attr,
+                          freq_loss_kwargs=FLAGSHIP_FREQ_LOSS)
+    kernels.reset_launches()
+    builder.paired_loss_and_grads(model, *training_batch(0, dev), 1.0,
+                                  torch.Generator(device=dev).manual_seed(5))
+    seen = kernels.launch_counts()
+    out["launches_one_step"] = {k: seen[k] for k in ("attention_step", "attention_step_bwd")}
+    _fatal_unless(seen["attention_step"] == seen["attention_step_bwd"] == PAIRED_T // 3,
+                  f"the paired step at A={A} D={D} launches K3/K9 other than once a decode step",
+                  out["launches_one_step"])
+    out["paired_reference"] = paired_reference(model, cfg, phn_attr, dev)
+    return out
+
+
 def phase_long(card, dev):
     """Phase 13: the attention step, CTC and trim/merge at lengths past
     their shared-memory plans. (b) first (its memory length sets a K3/K9
@@ -5300,7 +5484,7 @@ def phase_long(card, dev):
     per = {"attention_step split": "long-text request (a), 50 decode steps",
            "attention_step_bwd long": "30 s speech-first step (b)"}
     lattice = {"shared": "shared lattice", "cluster": "cluster lattice",
-               "device": "device-memory lattice"}
+               "chain": "chained lattice"}
     for step, a in asr.items():  # K6's launches in the ASR steps, by route
         alpha, beta = K6_ROUTE_KERNELS[a["k6_route"]][:2]
         for name, k in (("ctc_alpha", alpha), ("ctc_beta_grad", beta)):
@@ -5346,8 +5530,10 @@ def main(argv=None):
         print(json.dumps({"wide": wide}))
         return 0
     if argv == ["--long"]:
+        widths = phase_widths(dev)
         rows, long = phase_long(card, dev)
         print(json.dumps({"kernels": rows}))
+        print(json.dumps({"widths": widths}))
         print(json.dumps({"long": long}))
         if UNSEEN:
             raise SystemExit(f"chip_smoke: kernels not seen in profiled replays: {UNSEEN}")
@@ -5410,6 +5596,12 @@ def main(argv=None):
         row["launches"] = launches[per][row["name"]]
         row["launches_per"] = per
         row["launches_by_path"] = {k: v[row["name"]] for k, v in launches.items()}
+    widths = phase_widths(dev)
+    for row in table:  # K3's and K9's rows carry the widths' checks
+        if row["name"] in ("attention_step", "attention_step_bwd"):
+            pre = "k3" if row["name"] == "attention_step" else "k9"
+            row["odd_widths"] = {k: {n: v for n, v in r.items() if n.startswith(pre)}
+                                 for k, r in widths["kernels"].items()}
     long_rows, long = phase_long(card, dev)
     table += long_rows
     print(json.dumps({"kernels": table}))
@@ -5422,6 +5614,7 @@ def main(argv=None):
     print(json.dumps({"tools": dict(tools, card=card)}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"wide": wide}))
+    print(json.dumps({"widths": widths}))
     print(json.dumps({"long": long}))
     print(json.dumps({"flops": flops_line(card, {
         "serving request": (serving["flops"], serving["wall_s"]),

@@ -23,8 +23,10 @@
 //
 // Design: one thread-block cluster of kCluster CTAs per batch row, so that
 // B=16 fills 128 of the 132 SMs and every phase runs on 8 SMs at once.
-// - CTA r owns the attention columns [r*A/n, (r+1)*A/n) and the context
-//   columns [r*D/n, (r+1)*D/n). Its prologue issues every load it needs at
+// - CTA r owns the attention columns [r*Ac, r*Ac + Ac) and the context
+//   columns [r*Dc, r*Dc + Dc), Ac = ceil(A/n), Dc = ceil(D/n), cut at A and
+//   D (uneven slices: any A, D >= 1, the last CTAs' slices shorter or empty,
+//   their loops guarded; no padding launched around the kernel). Its prologue issues every load it needs at
 //   once with cp.async, in two groups: first what the location features
 //   and energies need (attn_hist zero-padded for the conv, loc_w, its rows
 //   of loc_lin, its slices of pq and v), then its slices of
@@ -192,7 +194,9 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
   extern __shared__ __align__(16) float smem[];
   const int r = (int)cluster.block_rank();
   const int b = (int)blockIdx.x / kCluster;
-  const int Ac = A / kCluster, Dc = D / kCluster;
+  // this CTA's slices: Ac (Dc) columns from r * Ac (r * Dc), cut at A (D)
+  const int Ac = (A + kCluster - 1) / kCluster, Dc = (D + kCluster - 1) / kCluster;
+  const int na = max(0, min(Ac, A - r * Ac)), nd = max(0, min(Dc, D - r * Dc));
   const Layout lay(L, Ac, Dc, C, F, K, tile, stage_mem);
   float* pm_s = smem + lay.pm;
   float* mem_s = smem + lay.mem;
@@ -218,18 +222,18 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
   }
   for (int i = tid; i < F * CK; i += blockDim.x) cp_async4(wloc + i + i / CK, loc_w + i);
   if (F > 0) {
-    stage_slice(lin_s, FS, loc_lin + (size_t)r * Ac * F, F, Ac, F, vec && F % 4 == 0);
+    stage_slice(lin_s, FS, loc_lin + (size_t)r * Ac * F, F, na, F, vec && F % 4 == 0);
     zero_tail(lin_s, FS, Ac, F);
     zero_tail(locf, FS, tile, F);
   }
-  for (int i = tid; i < Ac; i += blockDim.x) {
+  for (int i = tid; i < na; i += blockDim.x) {
     cp_async4(pq_s + i, pq + (size_t)b * A + r * Ac + i);
     cp_async4(v_s + i, v + r * Ac + i);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  stage_slice(pm_s, Ac, pm + (size_t)b * L * A + r * Ac, A, L, Ac, vec);
+  stage_slice(pm_s, Ac, pm + (size_t)b * L * A + r * Ac, A, L, na, vec);
   const float* mem_b = memory + (size_t)b * L * D + r * Dc;
-  if (stage_mem) stage_slice(mem_s, Dc, mem_b, D, L, Dc, vec);
+  if (stage_mem) stage_slice(mem_s, Dc, mem_b, D, L, nd, vec);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   for (int l = tid; l < L; l += blockDim.x)
     e[l] = mask != nullptr && mask[(size_t)b * L + l];
@@ -281,7 +285,7 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
 #pragma unroll
       for (int q = 0; q < kRows; ++q) lq[q] = min(lb + q, rows - 1);
       float acc[kRows] = {};
-      for (int a = lane; a < Ac; a += 32) {
+      for (int a = lane; a < na; a += 32) {
         float loc[kRows] = {};
         const float* la = lin_s + a * FS;
 #pragma unroll 2
@@ -345,9 +349,9 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
 
   // context[d] = sum_l w[l] * memory[l, d] over this CTA's columns; G groups
   // of positions when the columns leave threads idle, summed in group order
-  const int G = Dc >= (int)blockDim.x ? 1 : (int)blockDim.x / Dc;
-  for (int i = tid; i < G * Dc; i += blockDim.x) {
-    const int g = i / Dc, d = i - g * Dc;
+  const int G = nd >= (int)blockDim.x ? 1 : (int)blockDim.x / max(nd, 1);
+  for (int i = tid; i < G * nd; i += blockDim.x) {
+    const int g = i / nd, d = i - g * nd;
     float acc = 0.0f;
     if (stage_mem) {
       for (int l = g; l < L; l += G) acc = fmaf(w[l], mem_s[l * Dc + d], acc);
@@ -359,9 +363,9 @@ attention_step_kernel(const float* __restrict__ pq, const float* __restrict__ pm
   }
   if (G > 1) {
     __syncthreads();
-    for (int d = tid; d < Dc; d += blockDim.x) {
+    for (int d = tid; d < nd; d += blockDim.x) {
       float acc = 0.0f;
-      for (int g = 0; g < G; ++g) acc += red[g * Dc + d];
+      for (int g = 0; g < G; ++g) acc += red[g * nd + d];
       ctx_out[r * Dc + d] = acc;
     }
   }
@@ -648,9 +652,10 @@ attention_split_kernel(const float* __restrict__ pq, const float* __restrict__ p
     if (lane == 0) stat[2] = mc;
   }
   __syncthreads();
-  const int Dc = D / kCluster;
+  // CTA r's column slice: Dc columns from r * Dc, cut at D
+  const int Dc = (D + kCluster - 1) / kCluster, nd = max(0, min(Dc, D - r * Dc));
   const size_t part = (size_t)b * chunks + chunk;
-  for (int d = r * Dc + tid; d < (r + 1) * Dc; d += blockDim.x) {
+  for (int d = r * Dc + tid; d < r * Dc + nd; d += blockDim.x) {
     float acc = 0.0f;
 #pragma unroll
     for (int q = 0; q < kCluster; ++q) acc = fmaf(scale[q], cluster.map_shared_rank(ctx, q)[d], acc);
@@ -695,9 +700,9 @@ attention_split_kernel(const float* __restrict__ pq, const float* __restrict__ p
   for (int l = r * blockDim.x + tid; l < L; l += kCluster * blockDim.x)
     wrow[l] = __expf(__ldcg(wrow + l) - mrow) / srow;
   const float* cp = ctx_part + (size_t)b * chunks * D;
-  const int Gc = Dc >= (int)blockDim.x ? 1 : (int)blockDim.x / Dc;
-  for (int i = tid; i < Gc * Dc; i += blockDim.x) {
-    const int g = i / Dc, d = r * Dc + i - g * Dc;
+  const int Gc = nd >= (int)blockDim.x ? 1 : (int)blockDim.x / max(nd, 1);
+  for (int i = tid; i < Gc * nd; i += blockDim.x) {
+    const int g = i / nd, d = r * Dc + i - g * nd;
     float acc = 0.0f;
 #pragma unroll 4
     for (int c = g; c < chunks; c += Gc)
@@ -707,9 +712,9 @@ attention_split_kernel(const float* __restrict__ pq, const float* __restrict__ p
   }
   if (Gc > 1) {
     __syncthreads();
-    for (int j = tid; j < Dc; j += blockDim.x) {
+    for (int j = tid; j < nd; j += blockDim.x) {
       float acc = 0.0f;
-      for (int g = 0; g < Gc; ++g) acc += comb[g * Dc + j];
+      for (int g = 0; g < Gc; ++g) acc += comb[g * nd + j];
       context[(size_t)b * D + r * Dc + j] = acc / srow;
     }
   }
@@ -1304,8 +1309,8 @@ extern "C" int attention_step_bwd_f32(const float* pq, const float* pm, const fl
 // span), `chunks` (0: one cluster a row, no split) and `lin_rows` (rows of
 // loc_lin a CTA stages at once: A where they fit, 0 when F = 0) come from
 // attention.py `attention_plan`; `vec`
-// = 1 when A/kCluster and D/kCluster are multiples of 4 and
-// processed_memory, memory and loc_lin are 16-byte aligned. `scratch`
+// = 1 when A, D, ceil(A/kCluster) and ceil(D/kCluster) are multiples of 4
+// and processed_memory, memory and loc_lin are 16-byte aligned. Any A, D >= 1. `scratch`
 // (split route only): B * chunks * (2 + D) floats, the chunks' statistics
 // then their contexts.
 extern "C" int attention_step_f32(const float* pq, const float* pm, const float* memory,
@@ -1315,7 +1320,7 @@ extern "C" int attention_step_f32(const float* pq, const float* pm, const float*
                                   int B, int L, int A, int D, int C, int F, int K,
                                   int tile, int stage_mem, int vec, int chunk, int chunks,
                                   int lin_rows, void* stream) {
-  if (A % kCluster || D % kCluster || L < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  if (A < 1 || D < 1 || L < 1 || B < 1) return (int)cudaErrorInvalidValue;
   const bool split = chunks > 0;
   if (split && (chunk < kCluster || chunk % kCluster || (long long)chunk * chunks < L ||
                 (long long)chunk * (chunks - 1) >= L || scratch == nullptr || B > 65535 ||
@@ -1324,7 +1329,8 @@ extern "C" int attention_step_f32(const float* pq, const float* pm, const float*
   const int span = chunk / kCluster;
   const size_t smem =
       (size_t)(split ? SplitLayout(span, A, D, C, F, K, stage_mem, lin_rows).total
-                     : Layout(L, A / kCluster, D / kCluster, C, F, K, tile, stage_mem).total) *
+                     : Layout(L, (A + kCluster - 1) / kCluster, (D + kCluster - 1) / kCluster, C,
+                              F, K, tile, stage_mem).total) *
       sizeof(float);
   const void* kernel = split ? (const void*)attention_split_kernel : (const void*)attention_step_kernel;
   cudaError_t err;

@@ -1,5 +1,5 @@
 // K6: CTC over the log-semiring lattice, a CTA of chain warps a row (past
-// 1,024 states, a cluster of them).
+// 1,024 states, a cluster of them; past 49,152, a chain of clusters).
 //
 // Replaces: B5, `semi_tts_tpu/ops/ctc.py`: `_alpha_pass` (`:63`, the
 // forward recursion and the NLL), `_ctc_nll_bwd` (`:123`, the backward
@@ -104,18 +104,33 @@
 // the end, grad[b, t, c] = -g[b] times their sum in rank order. No
 // (T, B, S) scratch, no atomics: a rerun is bit for bit.
 //
-// Past a cluster's 16 x 32 x 8 x 12 = 49,152 states, the device-memory
-// route (`ctc_alpha_long_f32`, `ctc_beta_grad_long_f32`): a CTA of 1,024
-// threads a row, a thread a state at a time in a strided loop. The forward
-// reads step t - 1's alphas back from the (T, B, S) output it writes, one
-// __syncthreads a step. The backward first sorts the row's valid states by
-// (class, s) (one warp, a stable counting sort by __match_any_sync
-// ballots), then runs the beta chain the same way over a (T, B, S)
-// scratch; a second kernel, a CTA a (step, row), sums the occupancies
-// exp(min(alpha + beta + nll, 0)) of each class's sorted run (a warp a
-// class, lanes strided over the run, then shuffles in a fixed order) into
-// grad[b, t, class]. The same arithmetic as the shared-memory route, no
-// atomics: a rerun is bit for bit.
+// Past a cluster's 16 x 32 x 8 x 12 = 49,152 states, the chained route
+// (`ctc_alpha_chain_f32`, `ctc_beta_grad_chain_f32`; it replaced a CTA a row
+// whose lattice went through device memory each step, ~36 us a step): Q
+// clusters of P CTAs a row, each running the cluster route's CTA body on
+// its slices (`alpha_chain`/`beta_grad` with Chain) at 2 states a lane,
+// any S. (`chip_ablate.py --ctc-long --wide` swept 2, 4 and 8 states a lane
+// at B = 2, 8, 16: 2 was fastest, or within 18% of the fastest where every
+// cluster ran its chain, and 4 and 8 lost up to 3x with the rows' targets.)
+// A cluster takes a ticket from an atomic counter as it starts; ticket i is
+// cluster i / B of row i % B forward (backward: the clusters in reverse
+// order), so a cluster waits only on one that holds a lower ticket, which
+// runs or has run: nothing need be resident at once, and B x Q clusters past
+// the card run in waves. Consecutive clusters of a row hand on their edge
+// (forward: the top two alphas of a step; backward: the bottom two x)
+// through a (T) array in device memory written once a step (no ring: its
+// writer never waits), its flag released at gpu scope every 8 steps; a link
+// warp of the receiving CTA acquires the flag and copies the steps into a
+// second edge ring of its shared memory, so that the chain warp at the end
+// reads the link as it reads an edge. A cluster wholly past the row's 2 tl +
+// 1 valid states writes -inf alphas and runs no chain (backward: does
+// nothing), so a row pays for the lattice its targets reach, as F.ctc_loss
+// does. Each CTA's class sums go into a (B, Q P, T, C) scratch; the row's
+// last cluster (a per-row counter) adds them in slice order. The ticket
+// counter, the per-row counts and the links' flags are a launch's own
+// scratch, zeroed by its caller for each launch (and each graph replay), so
+// that two launches share nothing. No atomics on values: a rerun is bit for
+// bit.
 
 #include <climits>
 
@@ -134,8 +149,6 @@ constexpr int kSeg = 8;              // sorted states a class-sum segment adds a
 // kHead where the segment starts
 constexpr int kHead = 1 << 30;
 constexpr int kSmemLimit = 232448;   // H100: dynamic shared memory a block may use
-constexpr int kLongThreads = 1024;   // the device-memory route's CTA (LONG_THREADS)
-constexpr int kGradThreads = 256;    // its class sums' CTA, a (step, row)
 constexpr int kMaxCluster = 16;      // the cluster route's CTAs a row (MAX_CLUSTER)
 constexpr int kPortableCluster = 8;  // past this, a non-portable cluster (PORTABLE_CLUSTER)
 constexpr int kMaxClusterWarps = 12; // its chain warps at most (MAX_CLUSTER_WARPS)
@@ -148,6 +161,12 @@ __host__ __device__ constexpr bool copy_warp(int K, bool Split) { return Split &
 // the edge's full and empty mbarriers, its slots of two floats and their
 // acknowledgements' words (EDGE_BYTES)
 constexpr size_t kEdgeBytes = 28 * kEdgeRing;
+// The chained route (past a cluster's states): a link warp beside the rest
+// copies the link from the cluster below into a second edge ring (LINK_BYTES:
+// the ring and the cluster's ticket); the link's flag is published every
+// kLinkEvery steps (LINK_EVERY) and at its last step
+constexpr size_t kLinkBytes = kEdgeBytes + 16;
+constexpr int kLinkEvery = 8;
 
 // Steps a forward register chunk holds at K states a lane (CHUNK at K <= 2).
 __host__ __device__ constexpr int fwd_chunk(int K) { return K <= 2 ? kChunk : 16 / K; }
@@ -328,6 +347,66 @@ __device__ __forceinline__ void st_async1(unsigned dst, float v, unsigned bar) {
                : "memory");
 }
 
+// ------------------------------------------------ the chained route's links --
+
+// The chained route's counters, a launch's own `sync` scratch of 1 + B Q
+// words that its caller zeroes for each launch (kernels/ctc.py; a memset
+// node in a CUDA graph): the clusters' ticket counter, then the per-row count
+// of clusters whose class sums are in (backward), then each link's flag, the
+// step count published so far ((B, Q - 1) of them). Nothing is reset by the
+// kernel, so launches on different streams share nothing.
+__device__ __forceinline__ unsigned* chain_rows(unsigned* sync) { return sync + 1; }
+__device__ __forceinline__ unsigned* chain_flags(unsigned* sync, int B, int b, int Q) {
+  return sync + 1 + B + (size_t)b * (Q - 1);
+}
+
+__device__ __forceinline__ void st_release_gpu(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A 32-bit word in the shared memory of CTA `rank` of the cluster.
+__device__ __forceinline__ unsigned ld_cluster_u32(unsigned a, int rank) {
+  unsigned v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(map_rank(a, rank)) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_cluster_u32(unsigned a, int rank, unsigned v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(map_rank(a, rank)), "r"(v) : "memory");
+}
+
+// The chained route's start, every thread of the cluster: CTA 0's thread 0
+// takes the cluster's ticket (the counter `tickets`, 0 at the launch) into
+// `tk`, a word of its shared memory; after the cluster barrier (which also
+// publishes the edges' mbarriers, set before it) every CTA reads it, and a
+// second barrier keeps CTA 0 until they have.
+__device__ __forceinline__ unsigned chain_ticket(unsigned* tickets, unsigned tk) {
+  if (threadIdx.x == 0 && cluster_rank() == 0) {
+    const unsigned t = atomicAdd(tickets, 1u);
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(tk), "r"(t) : "memory");
+  }
+  cluster_sync();
+  const unsigned t = ld_cluster_u32(tk, 0);
+  cluster_sync();
+  return t;
+}
+
+// The link between the row's clusters q and q + 1 at its writer's end: step
+// e's two floats into the (T) array `row` (a plain store), the flag released
+// at gpu scope every kLinkEvery steps and at the last (`last`), so that the
+// reader that acquires it sees the floats. One thread; nothing waits.
+__device__ __forceinline__ void link_put(float2* row, unsigned* flag, int e, float lo, float hi,
+                                         bool last) {
+  row[e] = make_float2(lo, hi);
+  if (last || (e + 1) % kLinkEvery == 0) st_release_gpu(flag, (unsigned)e + 1);
+}
+
 // A CTA's two ends of the chain of a row's CTAs. It receives the edge of
 // CTA `from` (two floats a step) into the slots of its own ring and sends
 // its own edge into the ring of CTA `to` (-1: none), each by `st.async`. At
@@ -391,6 +470,32 @@ struct Edge {
   }
 };
 
+// The link warp of the chained route's CTA at a cluster's lower end
+// (backward: upper): steps 0 .. n - 1 of the (T) link array `row`, each
+// once its flag says the writer has published it (acquired at gpu scope,
+// polled by lane 0; a wait of more than 2 s traps), sent into this CTA's own
+// ring `lk` as a peer's edge would be, so that the chain warp at the end
+// reads the link as it reads an edge.
+__device__ __forceinline__ void link_get(const Edge& lk, const float2* row, unsigned* flag, int n) {
+  const int lane = threadIdx.x & 31;
+  unsigned seen = 0;
+  for (int e = 0; e < n; ++e) {
+    if (seen < (unsigned)e + 1) {
+      unsigned long long t0 = 0;
+      for (;;) {
+        unsigned v = lane == 0 ? ld_acquire_gpu(flag) : 0u;
+        seen = __shfl_sync(0xffffffffu, v, 0);
+        if (seen >= (unsigned)e + 1) break;
+        if (t0 == 0) t0 = global_ns();
+        else if (global_ns() - t0 > 2000000000ull) __trap();
+      }
+    }
+    float2 v = make_float2(kNegInf, kNegInf);
+    if (lane == 0) v = __ldcg(row + e);
+    lk.send(e, 0, v.x, v.y);
+  }
+}
+
 // A chunk of CH steps of this thread's emissions (and, backward, alphas),
 // loaded into registers a chunk ahead of the chain: no step waits on a
 // global load.
@@ -408,40 +513,78 @@ struct Chunk {
 // (below the slice); in a cluster, then its `Edge`: each step's top two
 // states of the slice go up to CTA rank + 1, whose lane 0 takes them as its
 // s - 1 and s - 2 in place of those guards.
-template <int K, bool Split>
+//
+// Chained (Chain true, past a cluster's states): the row's states over Q
+// clusters of P CTAs, the cluster that takes ticket i (`chain_ticket`, in the
+// order clusters start) cluster q = i / B of row b = i % B, its CTA `rank`
+// the slice from (q P + rank) 32 K W. Between clusters q and q + 1 of a row
+// the link (`link` (B, Q - 1, T) float2, its flag in `sync`): CTA P - 1 of cluster q writes its
+// top two states of each step there (`link_put`), and the link warp (the
+// CTA's last) of CTA 0 of cluster q + 1 copies them into a second ring
+// (`link_get`), from which its warp 0 reads them as an edge. A cluster waits
+// only on one with a lower ticket, which runs or has run: clusters past the
+// card's run in waves. A cluster wholly past the row's 2 tl + 1 valid states
+// writes -inf alphas and runs no chain; the cluster below it then writes no
+// link.
+template <int K, bool Split, bool Chain = false>
 __device__ __forceinline__ void alpha_chain(const float* __restrict__ log_probs,
                                             const int* __restrict__ targets,
                                             const int* __restrict__ input_lengths,
                                             const int* __restrict__ target_lengths,
                                             float* __restrict__ alphas, float* __restrict__ nll,
-                                            int B, int T, int C, int U, int blank) {
+                                            int B, int T, int C, int U, int blank,
+                                            float2* __restrict__ link = nullptr,
+                                            unsigned* sync = nullptr, int Q = 1) {
   static_assert(!Split || K >= 2, "a slice's edge is its top lane's two top states");
+  static_assert(Split || !Chain, "the chained route runs the cluster route's CTAs");
   constexpr int CH = fwd_chunk(K);  // steps a chunk
   constexpr bool kCopy = copy_warp(K, Split);
   extern __shared__ __align__(16) float lat[];
-  // the chain's threads (the copy warp is the CTA's last), its barrier's
-  const int nl = blockDim.x - (kCopy ? 32 : 0), nb = blockDim.x;
+  // the chain's threads (then the copy warp, then the link warp), its barrier's
+  const int nl = blockDim.x - (kCopy ? 32 : 0) - (Chain ? 32 : 0), nb = nl + (kCopy ? 32 : 0);
   const int L = threadIdx.x, ls = 32 * K * (nl >> 5) + 4;  // a step's row
   const int S = 2 * U + 1;
   const int P = Split ? cluster_size() : 1, rank = Split ? cluster_rank() : 0;
-  const int b = blockIdx.x / P, s0 = rank * (ls - 4);
+  if (L < 2) lat[L] = lat[ls + L] = kNegInf;
+  const Edge ed{smem_addr(lat + 2 * ls), rank + 1 < P ? rank + 1 : -1, rank - 1};
+  const Edge lk{ed.base + (unsigned)kEdgeBytes, rank, rank};  // the link's ring, filled by this CTA
+  int b = blockIdx.x / P, q = 0;
+  if constexpr (Chain) {
+    if (L == 0) {
+      ed.init();
+      lk.init();
+    }
+    const unsigned t = chain_ticket(sync, lk.base + (unsigned)kEdgeBytes);
+    q = (int)(t / B), b = (int)(t % B);
+  } else if constexpr (Split) {
+    if (L == 0) ed.init();
+    cluster_sync();  // every peer's mbarriers are set before any hand-off
+  }
+  const int s0 = (q * P + rank) * (ls - 4);
   const int* tgt = targets + (size_t)b * U;
   const int tl = min(target_lengths[b], U);
   // steps computed; from Tc on the row is frozen (step 0 always is computed)
   const int Tc = max(1, min(input_lengths[b], T));
   const float* lp = log_probs + (size_t)b * T * C;
-  if (L < 2) lat[L] = lat[ls + L] = kNegInf;
-  const Edge ed{smem_addr(lat + 2 * ls), rank + 1 < P ? rank + 1 : -1, rank - 1};
-  if constexpr (Split) {
-    if (L == 0) ed.init();
-    cluster_sync();  // every peer's mbarriers are set before any hand-off
-  }
 
   const size_t t_stride = (size_t)B * S;
   // the slice's states of the row, and their alphas' row at step 0
   const int n_row = min(ls - 4, S - s0);
   float* row0 = alphas + (size_t)b * S + s0;
-  if (kCopy && L >= nl) {
+  // the chained route's clusters of the row that hold valid states, and
+  // whether this CTA reads a link (CTA 0 of a cluster past the first) or
+  // writes one (CTA P - 1 of a cluster below the row's last)
+  const int live = Chain ? (2 * tl + 1 + P * (ls - 4) - 1) / (P * (ls - 4)) : 1;
+  const bool link_in = Chain && rank == 0 && q > 0, link_out = Chain && rank == P - 1 && q + 1 < live;
+  unsigned* flags = Chain ? chain_flags(sync, B, b, Q) : nullptr;
+  if (Chain && q >= live) {  // wholly past the valid states: -inf at every step
+    for (int t = 0; t < T; ++t)
+      for (int i = L; i < n_row; i += blockDim.x) st_if<true>(true, row0 + (size_t)t * t_stride + i, kNegInf);
+    return;  // no peer addresses this CTA after chain_ticket
+  }
+  if (Chain && L >= nb) {  // the link warp
+    if (link_in) link_get(lk, link + ((size_t)b * (Q - 1) + q - 1) * T, flags + q - 1, Tc);
+  } else if (kCopy && L >= nl) {
     // the copy warp: after the barrier of step t, the lattice of step t
     // (complete, and kept until the barrier of step t + 1, which waits for
     // this warp) to alphas[t], a coalesced row
@@ -491,8 +634,10 @@ __device__ __forceinline__ void alpha_chain(const float* __restrict__ log_probs,
           // lattice of step t - 1
           const float* prev = lat + ((t - 1) & 1) * ls + 2 + L * K;
           float up1 = prev[-1], up2 = prev[-2];
-          if (Split && rank > 0 && L < 32) {  // warp 0: CTA rank - 1's top two of step t - 1
-            const float2 e = ed.recv(t - 1, 0);
+          // warp 0: CTA rank - 1's top two of step t - 1 (CTA 0 of a chained
+          // cluster: the link's, from its own ring)
+          if (Split && (rank > 0 || link_in) && L < 32) {
+            const float2 e = (rank > 0 ? ed : lk).recv(t - 1, 0);
             if (L == 0) up1 = e.y, up2 = e.x;
           }
           float nw[K];
@@ -513,7 +658,11 @@ __device__ __forceinline__ void alpha_chain(const float* __restrict__ log_probs,
           if constexpr (!kCopy) st_if<Split>((on >> j) & 1, out + j, a[j]);
         }
         // the top warp: the slice's top two states of step t up to CTA rank + 1
+        // (the top CTA of a chained cluster: into the link, its top lane)
         if (Split && rank + 1 < P && L >= nl - 32) ed.send(t, 31, a[K >= 2 ? K - 2 : 0], a[K - 1]);
+        if (link_out && L == nl - 1)
+          link_put(link + ((size_t)b * (Q - 1) + q) * T, flags + q, t, a[K >= 2 ? K - 2 : 0], a[K - 1],
+                   t == Tc - 1);
         out += t_stride;
         // the chain warps' barrier (and the copy warp's): step t's lattice
         // is complete; the buffer of step t - 1 is free for step t + 1
@@ -528,17 +677,19 @@ __device__ __forceinline__ void alpha_chain(const float* __restrict__ log_probs,
         for (int j = 0; j < K; ++j) st_if<Split>((on >> j) & 1, out + j, a[j]);
       }
   }
-  if constexpr (kCopy) {  // frozen past the input: every thread, rows of step Tc - 1's lattice
+  // frozen past the input: rows of step Tc - 1's lattice, by every thread
+  // that passed its barrier (not the link warp, which may be here first)
+  if (kCopy && L < nb) {
     const float* fin = lat + ((Tc - 1) & 1) * ls + 2;
     for (int t = Tc; t < T; ++t)
       for (int i = L; i < n_row; i += nb) st_if<true>(true, row0 + (size_t)t * t_stride + i, fin[i]);
   }
   // The NLL, in the CTA that holds state 2 tl. Where that is the slice's
   // first state, state 2 tl - 1 is the top state of CTA rank - 1 at step
-  // Tc - 1: its last edge.
+  // Tc - 1: its last edge (or the link's).
   const bool ends = 2 * tl >= s0 && 2 * tl < s0 + ls - 4;
   float below = kNegInf;
-  if (Split && ends && tl > 0 && 2 * tl == s0 && L < 32) below = ed.recv(Tc - 1, 0).y;
+  if (Split && ends && tl > 0 && 2 * tl == s0 && L < 32) below = (rank > 0 ? ed : lk).recv(Tc - 1, 0).y;
   if (L == 0 && ends) {
     const float* fin = lat + ((Tc - 1) & 1) * ls + 2 - s0;  // by state
     const float a_end = fin[2 * tl];
@@ -570,6 +721,20 @@ __global__ void __launch_bounds__(32 * (kMaxClusterWarps + copy_warp(K, true)))
                        blank);
 }
 
+// The chained route's forward: Q clusters of P CTAs a row (grid B Q P),
+// `link` (B, Q - 1, T) float2 and `sync` 1 + B Q zeroed words of scratch.
+template <int K>
+__global__ void __launch_bounds__(32 * (kMaxClusterWarps + copy_warp(K, true) + 1))
+    ctc_alpha_chain_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
+                           const int* __restrict__ input_lengths,
+                           const int* __restrict__ target_lengths, float* __restrict__ alphas,
+                           float* __restrict__ nll, float2* __restrict__ link,
+                           unsigned* sync, int B, int T, int C, int U, int blank,
+                           int Q) {
+  alpha_chain<K, true, true>(log_probs, targets, input_lengths, target_lengths, alphas, nll, B, T,
+                             C, U, blank, link, sync, Q);
+}
+
 // Row b of a cluster's gradient, once every CTA of its cluster (all of
 // its threads call this) has its class sums in `partials` (B, P, T, C):
 // grad[b] = -g[b] times their sum in rank order, each CTA a share of the
@@ -587,6 +752,38 @@ __device__ __forceinline__ void cluster_grad(const float* __restrict__ g, float*
   }
 }
 
+// Row b of the chained route's gradient, all threads of each CTA: once the
+// cluster's CTAs have their class sums in `partials` (B, Q P, T, C), its CTA
+// 0 counts the cluster in (`rows`, the launch's per-row counts, after a
+// fence: the sums before the count, cumulatively) and tells its peers
+// through their word `tk` whether it was the row's last of the `live`
+// clusters that hold valid states. The last cluster adds the row's sums in
+// slice order (q P + rank), each CTA a share of the (step, class) entries:
+// grad[b] = -g[b] times their sum. A fixed order, whichever cluster is last.
+__device__ __forceinline__ void chain_grad(const float* __restrict__ g, float* __restrict__ grow,
+                                           const float* __restrict__ partials, unsigned* rows,
+                                           int b, int Q, int P, int rank, int T, int C, int live,
+                                           unsigned tk) {
+  cluster_sync();
+  if (threadIdx.x == 0 && rank == 0) {
+    __threadfence();
+    const bool last = atomicAdd(&rows[b], 1u) == (unsigned)live - 1;
+    if (last) __threadfence();  // the other clusters' sums before the reads below
+    for (int p = 0; p < P; ++p) st_cluster_u32(tk, p, last ? 1u : 0u);
+  }
+  cluster_sync();  // no remote access after this
+  unsigned last;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(last) : "r"(tk) : "memory");
+  if (!last) return;
+  const float* ps = partials + (size_t)b * Q * P * T * C;
+  for (size_t i = threadIdx.x + (size_t)rank * blockDim.x; i < (size_t)T * C;
+       i += (size_t)P * blockDim.x) {
+    float acc = 0.0f;
+    for (int p = 0; p < live * P; ++p) acc += __ldcg(ps + (size_t)p * T * C + i);
+    grow[i] = -acc * g[b];
+  }
+}
+
 // The backward chain and class sums over a slice of a row, as alpha_chain
 // slices it: W = blockDim.x / 32 - kConsumerWarps chain warps (lane L =
 // threadIdx.x holds states s0 + L*K .. s0 + L*K+K-1), then the class-sum
@@ -600,8 +797,14 @@ __device__ __forceinline__ void cluster_grad(const float* __restrict__ g, float*
 // after its `Edge`: each step's bottom two x of the slice go down to CTA
 // rank - 1, whose top lane takes them as its x[s+1] and x[s+2] in place of
 // the guards. A cluster's CTAs store their class sums into `partials` (B,
-// P, T, C), and `cluster_grad` adds them up.
-template <int K, bool Split>
+// P, T, C), and `cluster_grad` adds them up. Chained (as alpha_chain, past
+// a cluster's states): ticket i takes cluster q = Q - 1 - i / B of row b =
+// i % B (the clusters in reverse order), the link between clusters q - 1
+// and q carries CTA 0 of cluster q's bottom two x down to CTA P - 1 of
+// cluster q - 1, whose link warp (the CTA's last, after the class-sum
+// warps) reads it; clusters wholly past the valid states do nothing; the
+// class sums go into `partials` (B, Q P, T, C) and `chain_grad` adds them.
+template <int K, bool Split, bool Chain = false>
 __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
                                           const int* __restrict__ targets,
                                           const int* __restrict__ input_lengths,
@@ -610,32 +813,54 @@ __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
                                           const float* __restrict__ nll,
                                           const float* __restrict__ g, float* __restrict__ grad,
                                           float* __restrict__ partials, int B, int T, int C, int U,
-                                          int blank) {
+                                          int blank, float2* __restrict__ link = nullptr,
+                                          unsigned* sync = nullptr, int Q = 1) {
   static_assert(!Split || K >= 2, "a slice's edge is its bottom lane's two bottom states");
+  static_assert(Split || !Chain, "the chained route runs the cluster route's CTAs");
   constexpr int CH = kChunk / K;  // steps a chunk: kChunk values a thread
   extern __shared__ __align__(16) unsigned char smem[];
-  const int W = (blockDim.x >> 5) - kConsumerWarps, nl = 32 * W, ls = 32 * K * W + 4;
+  const int W = (blockDim.x >> 5) - kConsumerWarps - (Chain ? 1 : 0), nl = 32 * W, ls = 32 * K * W + 4;
   const int S = 2 * U + 1;
   const int P = Split ? cluster_size() : 1, rank = Split ? cluster_rank() : 0;
-  const int b = blockIdx.x / P, s0 = rank * (ls - 4);
+  const Edge ed{smem_addr(smem), rank - 1, rank + 1 < P ? rank + 1 : -1};
+  const Edge lk{ed.base + (unsigned)kEdgeBytes, rank, rank};  // the link's ring (chained)
+  const unsigned tk = lk.base + (unsigned)kEdgeBytes;           // the ticket's word (chained)
+  int b = blockIdx.x / P, q = 0;
+  if constexpr (Chain) {
+    if (threadIdx.x == 0) {
+      ed.init();
+      lk.init();
+    }
+    const unsigned t = chain_ticket(sync, tk);
+    q = Q - 1 - (int)(t / B), b = (int)(t % B);
+  }
+  const int s0 = (q * P + rank) * (ls - 4);
   const int* tgt = targets + (size_t)b * U;
   const int tl = min(target_lengths[b], U), n_valid = 2 * tl + 1;
   const int Tc = min(input_lengths[b], T);  // steps with a gradient
   const float nll_b = nll[b];
   float* grow = grad + (size_t)b * T * C;
+  // the chained route's clusters of the row that hold valid states
+  const int live = Chain ? (n_valid + P * (ls - 4) - 1) / (P * (ls - 4)) : 1;
+  if (Chain && q >= live) return;  // no peer addresses this CTA after chain_ticket
   if (Tc <= 0 || !(nll_b < -kNegInf / 2)) {  // no input, or an impossible alignment: zero
-    for (size_t i = threadIdx.x + (size_t)rank * blockDim.x; i < (size_t)T * C;
-         i += (size_t)P * blockDim.x)
+    for (size_t i = threadIdx.x + (size_t)(q * P + rank) * blockDim.x; i < (size_t)T * C;
+         i += (size_t)live * P * blockDim.x)
       grow[i] = 0.0f;
     return;
   }
+  // a chained CTA reads the link from the cluster above (CTA P - 1 below the
+  // row's last live cluster) or writes it to the cluster below (CTA 0 past
+  // the first)
+  const bool link_in = Chain && rank == P - 1 && q + 1 < live, link_out = Chain && rank == 0 && q > 0;
+  unsigned* flags = Chain ? chain_flags(sync, B, b, Q) : nullptr;
   // the slice's valid states (the row's itself in a CTA a row: computed,
   // it slowed the shared route's backward by 7% at one state a lane), and
   // where its class sums go: the row's gradient, or in a cluster the CTA's
   // partial sums
   const int nv = Split ? min(max(n_valid - s0, 0), ls - 4) : n_valid;
-  float* gsum = Split ? partials + ((size_t)b * P + rank) * T * C : grow;
-  unsigned char* base = smem + (Split ? kEdgeBytes : 0);
+  float* gsum = Split ? partials + (((size_t)b * Q + q) * P + rank) * T * C : grow;
+  unsigned char* base = smem + (Chain ? kEdgeBytes + kLinkBytes : Split ? kEdgeBytes : 0);
   const unsigned full0 = smem_addr(base), empty0 = full0 + 8 * kDepth;
   int* n_runs = reinterpret_cast<int*>(base + 16 * kDepth);
   float* lat = reinterpret_cast<float*>(base + 16 * kDepth + 16);
@@ -652,12 +877,11 @@ __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
       mbar_init(empty0 + 8 * i, kConsumers);
     }
   if (threadIdx.x < 4) lat[ls - 4 + threadIdx.x] = lat[2 * ls - 4 + threadIdx.x] = kNegInf;
-  const Edge ed{smem_addr(smem), rank - 1, rank + 1 < P ? rank + 1 : -1};
-  if constexpr (Split) {
+  if constexpr (Split && !Chain) {
     if (threadIdx.x == 0) ed.init();
     cluster_sync();  // every peer's mbarriers are set before any hand-off
   } else {
-    __syncthreads();
+    __syncthreads();  // (chained: the edges' were set before chain_ticket's barriers)
   }
   const int n_chunks = (Tc + CH - 1) / CH;
 
@@ -746,14 +970,19 @@ __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
             xs[j] = x[j];
           }
           // warp 0: the slice's bottom two x of step n down to CTA rank - 1
+          // (CTA 0 of a chained cluster: into the link, its lane 0)
           if (Split && rank > 0 && L < 32) ed.send(n - 1, 0, x[0], x[K >= 2 ? 1 : 0]);
+          if (link_out && L == 0)
+            link_put(link + ((size_t)b * (Q - 1) + q - 1) * T, flags + q - 1, n - 1, x[0],
+                     x[K >= 2 ? 1 : 0], n == Tc - 1);
           // the chain warps' barrier: step n's x is complete; the buffer of
           // step n - 1 is free for step n + 1
           asm volatile("bar.sync 1, %0;\n" ::"r"(nl) : "memory");
           if (i > 0) put_occ(ok, i - 1);
           float dn1 = xs[K], dn2 = xs[K + 1];  // x[s+1] and x[s+2] above this thread's states
-          if (Split && rank + 1 < P && L >= nl - 32) {  // the top warp: from CTA rank + 1
-            const float2 e = ed.recv(n - 1, 31);
+          // the top warp: from CTA rank + 1 (or the link's, from its own ring)
+          if (Split && (rank + 1 < P || link_in) && L >= nl - 32) {
+            const float2 e = (rank + 1 < P ? ed : lk).recv(n - 1, 31);
             if (L == nl - 1) dn1 = e.x, dn2 = e.y;
           }
 #pragma unroll
@@ -772,7 +1001,13 @@ __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
       a_cur = a_nxt;
       if (k + 2 < n_chunks) fetch(e_nxt, a_nxt, k + 2);
     }
-    if constexpr (Split) cluster_grad(g, grow, partials, b, P, rank, T, C);
+    if constexpr (Chain) chain_grad(g, grow, partials, chain_rows(sync), b, Q, P, rank, T, C, live, tk);
+    else if constexpr (Split) cluster_grad(g, grow, partials, b, P, rank, T, C);
+    return;
+  }
+  if (Chain && threadIdx.x >= nl + kConsumers) {  // the link warp
+    if (link_in) link_get(lk, link + ((size_t)b * (Q - 1) + q) * T, flags + q, Tc - 1);
+    chain_grad(g, grow, partials, chain_rows(sync), b, Q, P, rank, T, C, live, tk);
     return;
   }
 
@@ -902,7 +1137,8 @@ __device__ __forceinline__ void beta_grad(const float* __restrict__ log_probs,
     }
     asm volatile("bar.sync 2, %0;\n" ::"r"(kConsumers) : "memory");  // part is free again
   }
-  if constexpr (Split) cluster_grad(g, grow, partials, b, P, rank, T, C);
+  if constexpr (Chain) chain_grad(g, grow, partials, chain_rows(sync), b, Q, P, rank, T, C, live, tk);
+  else if constexpr (Split) cluster_grad(g, grow, partials, b, P, rank, T, C);
 }
 
 
@@ -932,6 +1168,25 @@ __global__ void __launch_bounds__(32 * (kMaxClusterWarps + kConsumerWarps))
                                  int blank) {
   beta_grad<K, true>(log_probs, targets, input_lengths, target_lengths, alphas, nll, g, grad,
                      partials, B, T, C, U, blank);
+}
+
+// The chained route's backward: Q clusters of P CTAs a row (grid B Q P),
+// `partials` (B, Q P, T, C) floats, `link` (B, Q - 1, T) float2 and `sync`
+// 1 + B Q zeroed words of scratch; a link warp beside the cluster route's warps (still 96 registers
+// a thread at 12 chain warps).
+template <int K>
+__global__ void __launch_bounds__(32 * (kMaxClusterWarps + kConsumerWarps + 1))
+    ctc_beta_grad_chain_kernel(const float* __restrict__ log_probs,
+                               const int* __restrict__ targets,
+                               const int* __restrict__ input_lengths,
+                               const int* __restrict__ target_lengths,
+                               const float* __restrict__ alphas, const float* __restrict__ nll,
+                               const float* __restrict__ g, float* __restrict__ grad,
+                               float* __restrict__ partials, float2* __restrict__ link,
+                               unsigned* sync, int B, int T, int C, int U, int blank,
+                               int Q) {
+  beta_grad<K, true, true>(log_probs, targets, input_lengths, target_lengths, alphas, nll, g, grad,
+                           partials, B, T, C, U, blank, link, sync, Q);
 }
 
 template <int K>
@@ -1042,156 +1297,44 @@ bool cluster_plan_ok(int S, int K, int W, int P) {
          (P - 1) * n < S && S <= P * n;
 }
 
-// ------------------------------------------ the device-memory route --
+// ------------------------------------------------------ the chained route --
 
-__device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
+// The chained route runs at kChainK states a lane (CHAIN_K).
+constexpr int kChainK = 2;
 
-// Forward, a CTA a row: alphas[t] from alphas[t - 1] in device memory (read
-// past L1: written by other threads of the CTA before the step's barrier).
-__global__ void __launch_bounds__(kLongThreads)
-    ctc_alpha_long_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
-                          const int* __restrict__ input_lengths,
-                          const int* __restrict__ target_lengths, float* alphas,
-                          float* __restrict__ nll, int B, int T, int C, int U, int blank) {
-  const int S = 2 * U + 1, b = blockIdx.x;
-  const int* tgt = targets + (size_t)b * U;
-  const int tl = min(target_lengths[b], U), n_valid = 2 * tl + 1;
-  const int Tc = max(1, min(input_lengths[b], T));
-  const float* lp = log_probs + (size_t)b * T * C;
-  const size_t ts = (size_t)B * S;
-  float* row = alphas + (size_t)b * S;
-  for (int t = 0; t < Tc; ++t) {
-    const float* prev = row + (size_t)max(t - 1, 0) * ts;
-    const float* e = lp + (size_t)t * C;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      const int z = label(tgt, s, blank);
-      float a;
-      if (t == 0) {
-        a = sel(s < n_valid && s <= 1, e[z], kNegInf);
-      } else {
-        const bool skip = (s & 1) && s >= 2 && z != label(tgt, s - 2, blank);
-        const float a1 = s >= 1 ? ld_cg(prev + s - 1) : kNegInf;
-        const float a2 = skip ? ld_cg(prev + s - 2) : kNegInf;
-        a = sel(s < n_valid, logaddexp3(ld_cg(prev + s), a1, a2) + e[z], kNegInf);
-      }
-      row[(size_t)t * ts + s] = a;
-    }
-    __syncthreads();  // step t is written
-  }
-  const float* fin = row + (size_t)(Tc - 1) * ts;
-  for (int t = Tc; t < T; ++t)  // the row's input has ended: frozen
-    for (int s = threadIdx.x; s < S; s += blockDim.x) row[(size_t)t * ts + s] = ld_cg(fin + s);
-  if (threadIdx.x == 0) {
-    const float a_end = ld_cg(fin + 2 * tl);
-    const float a_last = tl > 0 ? ld_cg(fin + 2 * tl - 1) : kNegInf;
-    const float m = fmaxf(a_end, a_last);
-    nll[b] = -(m + log1pf(expf(-fabsf(a_end - a_last))));
-  }
+cudaError_t launch_alpha_chain(const float* log_probs, const int* targets,
+                               const int* input_lengths, const int* target_lengths, float* alphas,
+                               float* nll, float2* link, unsigned* sync, int B, int T, int C,
+                               int U, int blank, int W, int P, int Q, cudaStream_t st,
+                               int* max_clusters) {
+  constexpr int K = kChainK;
+  return launch_cluster(ctc_alpha_chain_kernel<K>, B * Q, P, 32 * (W + copy_warp(K, true) + 1),
+                        alpha_smem(K, W) + kEdgeBytes + kLinkBytes,
+                        alpha_smem(K, kMaxClusterWarps) + kEdgeBytes + kLinkBytes, st,
+                        max_clusters, log_probs, targets, input_lengths, target_lengths, alphas,
+                        nll, link, sync, B, T, C, U, blank, Q);
 }
 
-// Backward chain, a CTA a row: first warp 0 sorts the valid states by
-// (class, s) into order (B, S) and the classes' run starts into cstart (B,
-// C + 1) (a stable counting sort: a class's lanes found by
-// __match_any_sync, ranked by the lanes below; `fill` (B, C) the running
-// ends), then betas (T, B, S) from t = Tc - 1 down, beta_t from step t + 1's
-// in device memory, one __syncthreads a step.
-__global__ void __launch_bounds__(kLongThreads)
-    ctc_beta_long_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
-                         const int* __restrict__ input_lengths,
-                         const int* __restrict__ target_lengths, const float* __restrict__ nll,
-                         float* betas, int* __restrict__ order, int* __restrict__ cstart,
-                         int* __restrict__ fill, int B, int T, int C, int U, int blank) {
-  const int S = 2 * U + 1, b = blockIdx.x;
-  const int* tgt = targets + (size_t)b * U;
-  const int tl = min(target_lengths[b], U), n_valid = 2 * tl + 1;
-  const int Tc = min(input_lengths[b], T);
-  if (Tc <= 0 || !(nll[b] < -kNegInf / 2)) return;  // the gradient kernel writes zeros
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int* start = cstart + (size_t)b * (C + 1);
-    int* at = fill + (size_t)b * C;
-    int* ord = order + (size_t)b * S;
-    for (int c = lane; c < C; c += 32) at[c] = 0;
-    __syncwarp();
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int s0 = 0; s0 < n_valid; s0 += 32) {
-        const int s = s0 + lane;
-        const int z = s < n_valid ? label(tgt, s, blank) : -1;
-        const unsigned peers = __match_any_sync(0xffffffffu, z);
-        const int rank = __popc(peers & ((1u << lane) - 1u));
-        const int base = z >= 0 ? at[z] : 0;
-        __syncwarp();
-        if (z >= 0) {
-          if (pass == 1) ord[base + rank] = s;
-          if (rank == 0) at[z] = base + __popc(peers);
-        }
-        __syncwarp();
-      }
-      if (pass == 0 && lane == 0) {  // counts -> run starts; the running ends start there
-        int acc = 0;
-        for (int c = 0; c < C; ++c) {
-          const int n = at[c];
-          start[c] = at[c] = acc;
-          acc += n;
-        }
-        start[C] = acc;
-      }
-      __syncwarp();
-    }
-  }
-  const float* lp = log_probs + (size_t)b * T * C;
-  const size_t ts = (size_t)B * S;
-  float* row = betas + (size_t)b * S;
-  for (int s = threadIdx.x; s < S; s += blockDim.x)
-    row[(size_t)(Tc - 1) * ts + s] = sel(s < n_valid && (s == 2 * tl || (s == 2 * tl - 1 && tl > 0)),
-                                 0.0f, kNegInf);
-  __syncthreads();
-  for (int t = Tc - 2; t >= 0; --t) {
-    const float* nxt = row + (size_t)(t + 1) * ts;
-    const float* e = lp + (size_t)(t + 1) * C;
-    // x = beta + emission of step t + 1, -inf past the valid states
-    auto x = [&](int q) {
-      return q < n_valid ? ld_cg(nxt + q) + e[label(tgt, q, blank)] : kNegInf;
-    };
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      const bool skip_from = (s & 1) && s + 2 < S && label(tgt, s + 2, blank) != label(tgt, s, blank);
-      const float x2 = skip_from ? x(s + 2) : kNegInf;
-      row[(size_t)t * ts + s] = logaddexp3(x(s), s + 1 < S ? x(s + 1) : kNegInf, x2);
-    }
-    __syncthreads();  // step t is written
-  }
+cudaError_t launch_beta_grad_chain(const float* log_probs, const int* targets,
+                                   const int* input_lengths, const int* target_lengths,
+                                   const float* alphas, const float* nll, const float* g,
+                                   float* grad, float* partials, float2* link, unsigned* sync,
+                                   int B, int T, int C, int U, int blank, int W, int P, int Q,
+                                   cudaStream_t st, int* max_clusters) {
+  constexpr int K = kChainK;
+  return launch_cluster(ctc_beta_grad_chain_kernel<K>, B * Q, P, 32 * (W + kConsumerWarps + 1),
+                        beta_smem_cluster(K, W) + kLinkBytes,
+                        beta_smem_cluster(K, kMaxClusterWarps) + kLinkBytes, st, max_clusters,
+                        log_probs, targets, input_lengths, target_lengths, alphas, nll, g, grad,
+                        partials, link, sync, B, T, C, U, blank, Q);
 }
 
-// grad[b, t, c], a CTA a (step, row): warp w sums the occupancies of class
-// c's sorted run (c = w, w + 8, ...), lanes strided over the run, then by
-// xor shuffles; zero past the input length and for an impossible row.
-__global__ void __launch_bounds__(kGradThreads)
-    ctc_grad_long_kernel(const int* __restrict__ input_lengths, const float* __restrict__ alphas,
-                         const float* __restrict__ betas, const float* __restrict__ nll,
-                         const float* __restrict__ g, const int* __restrict__ order,
-                         const int* __restrict__ cstart, float* __restrict__ grad, int B, int T,
-                         int C, int U) {
-  const int t = blockIdx.x, b = blockIdx.y, S = 2 * U + 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  float* out = grad + ((size_t)b * T + t) * C;
-  const float nb = nll[b];
-  if (t >= min(input_lengths[b], T) || !(nb < -kNegInf / 2)) {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) out[c] = 0.0f;
-    return;
-  }
-  const size_t at = ((size_t)t * B + b) * S;
-  const int* ord = order + (size_t)b * S;
-  const int* start = cstart + (size_t)b * (C + 1);
-  const float gb = g[b];
-  for (int c = warp; c < C; c += nwarps) {
-    float acc = 0.0f;
-    for (int r = start[c] + lane; r < start[c + 1]; r += 32) {
-      const int s = ord[r];
-      acc += expf(fminf(alphas[at + s] + betas[at + s] + nb, 0.0f));
-    }
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) out[c] = -acc * gb;
-  }
+// `ctc_plan`'s chained route: Q clusters of P CTAs a row, each CTA a slice of
+// 32 K W of the S states.
+bool chain_plan_ok(int S, int K, int W, int P, int Q) {
+  const long long n = 32LL * K * W;
+  return K == kChainK && W >= 1 && W <= kMaxClusterWarps && P >= 2 && P <= kMaxCluster &&
+         Q >= 1 && (long long)Q * P * n >= S;
 }
 
 bool args_ok(int B, int T, int C, int U, int blank) {
@@ -1280,38 +1423,52 @@ extern "C" int ctc_cluster_max_clusters(int K, int W, int P, int backward) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// The device-memory route (S past a cluster's): alphas (T, B, S) and nll (B,).
-extern "C" int ctc_alpha_long_f32(const float* log_probs, const int* targets,
-                                  const int* input_lengths, const int* target_lengths,
-                                  float* alphas, float* nll, int B, int T, int C, int U, int blank,
-                                  void* stream) {
-  if (!args_ok(B, T, C, U, blank)) return (int)cudaErrorInvalidValue;
-  ctc_alpha_long_kernel<<<B, kLongThreads, 0, (cudaStream_t)stream>>>(
-      log_probs, targets, input_lengths, target_lengths, alphas, nll, B, T, C, U, blank);
-  return (int)cudaGetLastError();
+// The chained route: as ctc_alpha_cluster_f32 with Q clusters of P CTAs a
+// row at 2 states a lane (kernels/ctc.py `ctc_plan`, Q P 32 K W >= S);
+// `link` (B, Q - 1, T) float2 (null when Q = 1) and `sync` 1 + B Q words,
+// zero, of scratch.
+extern "C" int ctc_alpha_chain_f32(const float* log_probs, const int* targets,
+                                   const int* input_lengths, const int* target_lengths,
+                                   float* alphas, float* nll, float* link, unsigned* sync, int B,
+                                   int T, int C, int U, int blank, int K, int W, int P, int Q,
+                                   void* stream) {
+  if (!args_ok(B, T, C, U, blank) || !chain_plan_ok(2 * U + 1, K, W, P, Q) ||
+      (Q > 1 && link == nullptr) || sync == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_alpha_chain(log_probs, targets, input_lengths, target_lengths, alphas, nll,
+                                 reinterpret_cast<float2*>(link), sync, B, T, C, U, blank, W, P,
+                                 Q, (cudaStream_t)stream, nullptr);
 }
 
-// The device-memory route's gradient: `betas` (T, B, S) floats and `ints`
-// (B, S + 2C + 1) ints of scratch: the sorted states, the run starts and
-// the sort's running ends.
-extern "C" int ctc_beta_grad_long_f32(const float* log_probs, const int* targets,
-                                      const int* input_lengths, const int* target_lengths,
-                                      const float* alphas, const float* nll, const float* g,
-                                      float* grad, float* betas, int* ints, int B, int T, int C,
-                                      int U, int blank, void* stream) {
-  if (!args_ok(B, T, C, U, blank) || B > 65535)
+// The chained route's gradient: `partials` (B, Q P, T, C) floats, `link`
+// (B, Q - 1, T) float2 and `sync` 1 + B Q words, zero, of scratch.
+extern "C" int ctc_beta_grad_chain_f32(const float* log_probs, const int* targets,
+                                       const int* input_lengths, const int* target_lengths,
+                                       const float* alphas, const float* nll, const float* g,
+                                       float* grad, float* partials, float* link, unsigned* sync,
+                                       int B, int T, int C, int U, int blank, int K, int W, int P,
+                                       int Q, void* stream) {
+  if (!args_ok(B, T, C, U, blank) || !chain_plan_ok(2 * U + 1, K, W, P, Q) ||
+      (Q > 1 && link == nullptr) || sync == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int S = 2 * U + 1;
-  int* order = ints;
-  int* cstart = order + (size_t)B * S;
-  int* fill = cstart + (size_t)B * (C + 1);
-  const cudaStream_t st = (cudaStream_t)stream;
-  ctc_beta_long_kernel<<<B, kLongThreads, 0, st>>>(log_probs, targets, input_lengths,
-                                                   target_lengths, nll, betas, order, cstart, fill,
-                                                   B, T, C, U, blank);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ctc_grad_long_kernel<<<dim3(T, B), kGradThreads, 0, st>>>(input_lengths, alphas, betas, nll, g,
-                                                            order, cstart, grad, B, T, C, U);
-  return (int)cudaGetLastError();
+  return (int)launch_beta_grad_chain(log_probs, targets, input_lengths, target_lengths, alphas,
+                                     nll, g, grad, partials, reinterpret_cast<float2*>(link),
+                                     sync, B, T, C, U, blank, W, P, Q, (cudaStream_t)stream,
+                                     nullptr);
+}
+
+// How many clusters of P CTAs of the chained route's forward (backward: 1)
+// at K (2) states a lane in W chain warps fit on the card at once, or minus
+// a cudaError_t.
+extern "C" int ctc_chain_max_clusters(int K, int W, int P, int backward) {
+  if (K != kChainK || W < 1 || W > kMaxClusterWarps || P < 1 || P > kMaxCluster)
+    return -(int)cudaErrorInvalidValue;
+  int n = 0;
+  const cudaError_t err =
+      backward ? launch_beta_grad_chain(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                        nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 1, 1, 0,
+                                        W, P, 1, nullptr, &n)
+               : launch_alpha_chain(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                    nullptr, 1, 1, 1, 1, 0, W, P, 1, nullptr, &n);
+  return err == cudaSuccess ? n : -(int)err;
 }

@@ -394,6 +394,278 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_wide_bwd_kernel(LstmBwd p) {
   }
 }
 
+// ---------------------------------------- K7w, the second design: clusters --
+//
+// What held the first design back (chip_ablate.py --k7w's cuts, PERF.md): a
+// grid barrier a step over every CTA, then each CTA staging the step's whole
+// B x 4H gate gradients from L2 (64 KiB a CTA at B=8, H=512). Here CTA p
+// keeps the 4U gate rows of W_hh (G*H x H, not transposed) of its own units,
+// the same bytes K1w's forward keeps, and multiplies its own gate gradients
+// (B x 4U, in shared memory: they never go through L2 to be read back) by
+// them into a partial dh_rec over all H units (phase B1). The partials meet
+// in a reduce-scatter: within a thread-block cluster of kCl CTAs over
+// distributed shared memory, CTA r summing, in rank order, the cluster's
+// partials of column slice r (cw = ceil(H/32)*4 columns from r*cw, float4
+// reads where the rows allow) and publishing them to `pub` in L2 with a
+// step-stamped flag (released at gpu scope, phase B2); then each CTA reads,
+// once the flags of the clusters' CTAs whose slices hold its units say so
+// (acquired), the M clusters' sums of its units and adds them in cluster
+// order (phase C): its dh_rec, kept in shared memory with its carried dc.
+// One cluster barrier and a few flag waits a step instead of a grid
+// barrier; M x B x U floats read from L2 a CTA instead of B x 4H. Every CTA
+// waits on others, so the whole grid must be resident at once: the launch
+// is cooperative (a grid too large fails it), sized by the plan with
+// cudaOccupancyMaxActiveClusters (`lstm_bwd_cluster_max_clusters`), at one
+// CTA an SM (shared memory padded to kOneCtaSmem: two CTAs of a cluster on
+// one SM would halve its step's FMA rate). Fixed summation orders
+// throughout: a rerun is bit for bit. Partials and published sums are
+// double-buffered by step parity (a CTA writes a buffer again only two
+// steps later, after the barrier and flags that its readers passed).
+constexpr int kCl = 8;                    // CTAs a cluster (WIDE_CLUSTER)
+constexpr size_t kOneCtaSmem = 116 * 1024;  // past half an SM's shared memory (WIDE_ONE_CTA_SMEM)
+
+struct LstmBwdCl {
+  const float* gates[2];  // gate pre-activations (T, B, 4H)
+  const float* w[2];      // W_hh (4H, H)
+  float* dg[2];           // gate gradients (T, B, 4H)
+  int rev[2];
+  const float* cs;        // (T, B, ndir*H)
+  const float* g_hs;      // (T, B, ndir*H)
+  float* pub;             // (2, ndir, M, B, H): each cluster's sums of the partials
+  unsigned* flags;        // (ndir, M, kCl), zeroed: the steps each CTA has published
+  int T, B, H, ndir, U;
+  int rows;               // batch rows of a chunk of the partials: B, or a multiple of kChunk
+};
+
+__device__ __forceinline__ void cl_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" :::
+                   "memory");
+}
+
+__device__ __forceinline__ int cl_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// The float (float4) at shared address a of CTA `rank` of the cluster.
+__device__ __forceinline__ unsigned peer_addr(unsigned a, int rank) {
+  unsigned m;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(m) : "r"(a), "r"(rank));
+  return m;
+}
+
+__device__ __forceinline__ float ld_peer(unsigned a, int rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(peer_addr(a, rank)) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_peer4(unsigned a, int rank) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(peer_addr(a, rank))
+               : "memory");
+  return v;
+}
+
+// A cluster rank's slice of the H columns: cw = ceil(H / 32) * 4 from r * cw.
+__host__ __device__ inline int slice_cols(int H) { return (H + 4 * kCl - 1) / (4 * kCl) * 4; }
+
+// Shared-memory bytes of a cluster-design CTA (kernels/rnn.py `_cluster_smem`):
+// its gate gradients (ceil(B/8), 4U, 8: a gate row's 8 batch rows are two
+// float4 broadcasts), its dh_rec and dc (B, U each, each from a 16-byte
+// boundary), its 4U rows of W_hh, the partials of `rows` batch rows at a
+// time (2, rows, H); at least kOneCtaSmem.
+__host__ __device__ inline size_t bu_floats(int B, int U) { return ((size_t)B * U + 3) / 4 * 4; }
+__host__ __device__ inline size_t cluster_smem_bytes(int B, int H, int U, int rows) {
+  const size_t f = (size_t)(B + kChunk - 1) / kChunk * kChunk * 4 * U + 2 * bu_floats(B, U) +
+                   (size_t)4 * U * H + 2 * (size_t)rows * H;
+  return 4 * f > kOneCtaSmem ? 4 * f : kOneCtaSmem;
+}
+
+// K7w, the cluster design: grid (N, ndir), clusters of kCl CTAs along x;
+// kKpt columns of dh_rec a thread accumulates at once (1, 2 or 4: the
+// fewest passes over H).
+template <int kKpt>
+__global__ void __launch_bounds__(kThreads, 1) lstm_wide_bwd_cluster_kernel(LstmBwdCl p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int dir = blockIdx.y, H = p.H, B = p.B, T = p.T, U = p.U, G4 = 4 * U;
+  const int N = gridDim.x, M = N / kCl, cta = blockIdx.x, r = cl_rank(), c = cta / kCl;
+  const int u0 = cta * U, uv = max(0, min(U, H - u0)), ld = p.ndir * H, col = dir * H;
+  const int nbc = (B + kChunk - 1) / kChunk;      // chunks of 8 batch rows
+  float* dgs = smem;                              // (nbc, 4U, 8) this step's gate gradients
+  float* dhs = dgs + (size_t)nbc * G4 * kChunk;   // (B, U) dh_rec of the units
+  float* dcs = dhs + bu_floats(B, U);             // (B, U) carried dc
+  float* ws = dcs + bu_floats(B, U);              // (4U, H): row g*U + u
+  float* part = ws + (size_t)G4 * H;              // (2, rows, H) partial dh_rec, read by peers
+  const float* W = p.w[dir];
+  // gate row g*U + u of W_hh: row g*H + u0 + u (a CTA past the units keeps a
+  // real row; its gate gradients are 0)
+  for (int i = threadIdx.x; i < nbc * G4 * kChunk; i += kThreads) dgs[i] = 0.0f;
+  stage_rows(ws, H, G4, [&](int rr) {
+    const int g = rr / U, u = rr - g * U;
+    return W + (size_t)(g * H + min(u0 + u, H - 1)) * H;
+  });
+  const int rev = p.rev[dir];
+  auto load = [&](int s, int i, float(&in)[7]) {
+    const int t = rev ? s : T - 1 - s, tc = rev ? t + 1 : t - 1;
+    const int b = i / uv, j = u0 + (i - b * uv);
+    const float* gr = p.gates[dir] + ((size_t)t * B + b) * 4 * H;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) in[g] = gr[g * H + j];
+    const size_t o = ((size_t)t * B + b) * ld + col + j;
+    in[4] = p.cs[o];
+    in[5] = tc >= 0 && tc < T ? p.cs[((size_t)tc * B + b) * ld + col + j] : 0.0f;
+    in[6] = p.g_hs[o];
+  };
+  auto cell = [&](int s, int i, const float(&in)[7]) {
+    const int t = rev ? s : T - 1 - s;
+    const int b = i / uv, u = i - b * uv, j = u0 + u;
+    const float ia = sigmoid(in[0]), fa = sigmoid(in[1]), ga = tanh_(in[2]), oa = sigmoid(in[3]);
+    const float tc_ = tanh_(in[4]);
+    const float dh = in[6] + (s > 0 ? dhs[b * U + u] : 0.0f);
+    const float dc = (s > 0 ? dcs[b * U + u] : 0.0f) + dh * oa * (1.0f - tc_ * tc_);
+    const float d0 = dc * ga * ia * (1.0f - ia), d1 = dc * in[5] * fa * (1.0f - fa);
+    const float d2 = dc * ia * (1.0f - ga * ga), d3 = dh * tc_ * oa * (1.0f - oa);
+    float* d = p.dg[dir] + ((size_t)t * B + b) * 4 * H;
+    d[j] = d0;
+    d[H + j] = d1;
+    d[2 * H + j] = d2;
+    d[3 * H + j] = d3;
+    float* e = dgs + ((size_t)(b / kChunk) * G4 + u) * kChunk + b % kChunk;
+    e[0] = d0;
+    e[U * kChunk] = d1;
+    e[2 * U * kChunk] = d2;
+    e[3 * U * kChunk] = d3;
+    dcs[b * U + u] = dc * fa;
+  };
+  unsigned* flags = p.flags + (size_t)dir * M * kCl;
+  const int cw = slice_cols(H), k_lo = r * cw, k_hi = min(H, k_lo + cw);  // this rank's slice
+  // the nr ranks from r_lo whose slices hold this CTA's units (none past them)
+  const int r_lo = uv > 0 ? u0 / cw : 0, nr = uv > 0 ? (u0 + uv - 1) / cw - r_lo + 1 : 0;
+  const bool vec = H % 4 == 0;  // partial rows and slices in whole float4s
+  const int lane = threadIdx.x & 31;
+  float first[7];  // the inputs of the thread's first unit, loaded a step ahead
+  if (threadIdx.x < B * uv) load(0, threadIdx.x, first);
+  for (int s = 0; s < T; ++s) {
+    const int buf = s & 1;
+    // phase A: the gate gradients of the CTA's units
+    if (threadIdx.x < B * uv) cell(s, threadIdx.x, first);
+    for (int i = threadIdx.x + kThreads; i < B * uv; i += kThreads) {
+      float in[7];
+      load(s, i, in);
+      cell(s, i, in);
+    }
+    if (s + 1 == T) break;
+    if (threadIdx.x < B * uv) load(s + 1, threadIdx.x, first);
+    __syncthreads();  // the gate gradients are in dgs
+    // phases B1 and B2 a chunk of `rows` batch rows at a time (one chunk
+    // where the partials of all B rows fit), the partials double-buffered by
+    // the chunks' running count: a CTA writes a buffer again only after the
+    // cluster barrier of the next chunk, which its peers pass once they have
+    // read it
+    float* pub = p.pub + (((size_t)buf * p.ndir + dir) * M + c) * (size_t)B * H;
+    const int rows = p.rows, nch = (B + rows - 1) / rows;
+    for (int ci = 0; ci < nch; ++ci) {
+      const int c0 = ci * rows, c1 = min(B, c0 + rows);
+      // phase B1: part[b][k] = sum over the 4U rows (in order) of dgs[b][row] W[row][k]
+      float* pb = part + (size_t)((s * nch + ci) & 1) * rows * H;
+      for (int b0 = c0; b0 < c1; b0 += kChunk) {
+        const int nb = min(kChunk, c1 - b0);
+        const float4* dp =
+            reinterpret_cast<const float4*>(dgs + (size_t)(b0 / kChunk) * G4 * kChunk);
+        for (int k0 = threadIdx.x; k0 < H; k0 += kThreads * kKpt) {
+          float acc[kKpt][kChunk];
+#pragma unroll
+          for (int j = 0; j < kKpt; ++j)
+#pragma unroll
+            for (int bb = 0; bb < kChunk; ++bb) acc[j][bb] = 0.0f;
+          const float* wc = ws + k0;
+#pragma unroll 4
+          for (int rr = 0; rr < G4; ++rr, wc += H) {
+            const float4 x = dp[2 * rr], y = dp[2 * rr + 1];  // batch rows past B hold 0
+            const float dv[kChunk] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+#pragma unroll
+            for (int j = 0; j < kKpt; ++j) {
+              const float w = k0 + j * kThreads < H ? wc[j * kThreads] : 0.0f;
+#pragma unroll
+              for (int bb = 0; bb < kChunk; ++bb) acc[j][bb] = fmaf(dv[bb], w, acc[j][bb]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kKpt; ++j) {
+            const int k = k0 + j * kThreads;
+#pragma unroll
+            for (int bb = 0; bb < kChunk; ++bb)
+              if (k < H && bb < nb) pb[(size_t)(b0 - c0 + bb) * H + k] = acc[j][bb];
+          }
+        }
+      }
+      cl_sync();  // every CTA of the cluster has its partials of the chunk in
+      // phase B2: the cluster's sums of this rank's column slice, the peers'
+      // partials in rank order, published
+      const unsigned pa = (unsigned)__cvta_generic_to_shared(pb);
+      const int nrow = c1 - c0;
+      if (vec) {
+        const int c4 = (k_hi - k_lo + 3) / 4;
+        for (int i = threadIdx.x; i < nrow * c4; i += kThreads) {
+          const int b = i / c4, k = k_lo + 4 * (i - b * c4);
+          const unsigned at = pa + 4u * (unsigned)(b * H + k);
+          float4 acc = ld_peer4(at, 0);
+#pragma unroll
+          for (int q = 1; q < kCl; ++q) {
+            const float4 v = ld_peer4(at, q);
+            acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+          }
+          *reinterpret_cast<float4*>(pub + (size_t)(c0 + b) * H + k) = acc;
+        }
+      } else {
+        for (int i = threadIdx.x; i < nrow * (k_hi - k_lo); i += kThreads) {
+          const int b = i / (k_hi - k_lo), k = k_lo + i - b * (k_hi - k_lo);
+          const unsigned at = pa + 4u * (unsigned)(b * H + k);
+          float acc = ld_peer(at, 0);
+#pragma unroll
+          for (int q = 1; q < kCl; ++q) acc += ld_peer(at, q);
+          pub[(size_t)(c0 + b) * H + k] = acc;
+        }
+      }
+    }
+    __syncthreads();  // this CTA's slice is written
+    if (threadIdx.x == 0)
+      asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(flags + c * kCl + r), "r"((unsigned)s + 1)
+                   : "memory");
+    // phase C: once every cluster's CTAs whose slices hold this CTA's units
+    // have published this step, its dh_rec: the clusters' sums in cluster order
+    if (threadIdx.x < 32) {
+      for (int f = lane; f < M * nr; f += 32) {
+        const unsigned* fl = flags + (f / nr) * kCl + r_lo + f % nr;
+        unsigned long long t0 = 0;
+        for (;;) {
+          unsigned v;
+          asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(fl) : "memory");
+          if (v >= (unsigned)s + 1) break;
+          if (t0 == 0) t0 = global_ns();
+          else if (global_ns() - t0 > 2000000000ull) __trap();
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    const float* pr = p.pub + ((size_t)buf * p.ndir + dir) * M * (size_t)B * H + u0;
+    for (int i = threadIdx.x; i < B * uv; i += kThreads) {
+      const int b = i / uv, u = i - b * uv;
+      float acc = 0.0f;
+      for (int m = 0; m < M; ++m) acc += __ldcg(pr + ((size_t)m * B + b) * H + u);
+      dhs[b * U + u] = acc;
+    }
+    __syncthreads();  // dh_rec is in dhs for the next step's phase A
+  }
+  cl_sync();  // no CTA leaves while a peer may still read its partials
+}
+
 struct GruBwd {
   const float* z[2];     // update gates (T, B, H)
   const float* coef[2];  // hidden-side coefficients (T, B, 3H)
@@ -495,6 +767,43 @@ cudaError_t launch(K kernel, const P& p, bool fwd, int G, cudaStream_t stream) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// One launch of the cluster design over (N, ndir) CTAs in clusters of kCl
+// (max_clusters != nullptr: how many of its clusters fit on the card at once).
+template <int kKpt>
+cudaError_t launch_cluster_bwd(const LstmBwdCl& p, int N, cudaStream_t stream, int* max_clusters) {
+  if (p.H < 1 || p.B < 1 || p.T < 1 || p.U < 1 || N < kCl || N % kCl || (long long)N * p.U < p.H ||
+      p.ndir < 1 || p.ndir > 2)
+    return cudaErrorInvalidValue;
+  if (p.rows < 1 || (p.rows < p.B && p.rows % kChunk)) return cudaErrorInvalidValue;
+  const size_t smem = cluster_smem_bytes(p.B, p.H, p.U, p.rows);
+  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(lstm_wide_bwd_cluster_kernel<kKpt>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // clusters, and cooperative: a grid that cannot be resident at once fails
+  // the launch (cudaErrorCooperativeLaunchTooLarge) instead of waiting forever
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N, p.ndir);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr)
+    return cudaOccupancyMaxActiveClusters(max_clusters,
+                                          (const void*)lstm_wide_bwd_cluster_kernel<kKpt>, &cfg);
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, lstm_wide_bwd_cluster_kernel<kKpt>, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 // K1w: hs (T, B, ndir*H), direction k (x_proj_k, w_hh_k, reverse_k) in
@@ -546,4 +855,35 @@ extern "C" int gru_rec_bwd_wide_f32(const float* z0, const float* z1, const floa
   GruBwd p = {{z0, z1}, {c0, c1}, {wt0, wt1}, {dh0, dh1}, {rev0, rev1}, g_hs, dh, v, bar,
               T, B, H, ndir, units, chunk, rows_smem};
   return (int)launch(gru_wide_bwd_kernel, p, false, 3, (cudaStream_t)stream);
+}
+
+// K7w, the cluster design: as lstm_rec_bwd_wide_f32 from W_hh_k (4H, H) itself;
+// `pub` (2, ndir, ctas / 8, B, H) floats and `flags` (ndir, ctas) zeroed
+// words of scratch; `ctas` CTAs a direction (a multiple of 8, all resident
+// at once: kernels/rnn.py `wide_bwd_plan` asks
+// lstm_bwd_cluster_max_clusters), `units` units a CTA, its 4 units gate
+// rows of W_hh in shared memory, the partials `rows` batch rows at a time.
+extern "C" int lstm_rec_bwd_wide_cluster_f32(const float* g0, const float* g1, const float* w0,
+                                             const float* w1, const float* cs, const float* g_hs,
+                                             float* dg0, float* dg1, float* pub, unsigned* flags,
+                                             int T, int B, int H, int ndir, int rev0, int rev1,
+                                             int units, int ctas, int rows, void* stream) {
+  LstmBwdCl p = {{g0, g1}, {w0, w1}, {dg0, dg1}, {rev0, rev1}, cs, g_hs, pub, flags,
+                 T, B, H, ndir, units, rows};
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(H <= 256   ? launch_cluster_bwd<1>(p, ctas, st, nullptr)
+               : H <= 512 ? launch_cluster_bwd<2>(p, ctas, st, nullptr)
+                          : launch_cluster_bwd<4>(p, ctas, st, nullptr));
+}
+
+// How many clusters of the cluster design, at B rows, H units, `units` a
+// CTA and partials of `rows` batch rows, fit on the card at once (or minus a
+// cudaError_t).
+extern "C" int lstm_bwd_cluster_max_clusters(int B, int H, int units, int rows) {
+  LstmBwdCl p = {{nullptr, nullptr}, {nullptr, nullptr}, {nullptr, nullptr}, {0, 0}, nullptr,
+                 nullptr, nullptr, nullptr, 1, B, H, 1, units, rows};
+  int n = 0;
+  const int ctas = ((H + units - 1) / units + kCl - 1) / kCl * kCl;
+  const cudaError_t err = launch_cluster_bwd<1>(p, ctas, nullptr, &n);
+  return err == cudaSuccess ? n : -(int)err;
 }

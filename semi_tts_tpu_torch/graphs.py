@@ -115,8 +115,10 @@ class ProgramCache:
     during concurrent builds the dict may transiently hold ``size``
     completed cells plus one mid-build cell per distinct key in flight.
     Eviction drops the cache's reference only: a program already handed to
-    a caller stays valid. ``size=None``: no bound (a step's cache, as
-    `jax.jit`'s)."""
+    a caller stays valid. A cell whose build raises is dropped from the
+    dict under the lock (it would never complete, so never be evicted); a
+    retry of its key inserts a new cell. ``size=None``: no bound (a step's
+    cache, as `jax.jit`'s)."""
 
     def __init__(self, size: int | None = 8):
         self.size = None if size is None else max(1, int(size))  # None: unbounded
@@ -132,7 +134,13 @@ class ProgramCache:
             else:
                 self._programs.move_to_end(key)
             self._evict_completed_locked()
-        value = entry.result()
+        try:
+            value = entry.result()
+        except BaseException:
+            with self._lock:  # a failed build's cell goes; a retry inserts a new one
+                if self._programs.get(key) is entry:
+                    del self._programs[key]
+            raise
         with self._lock:  # this build may have pushed the at-rest count over
             self._evict_completed_locked()
         return value

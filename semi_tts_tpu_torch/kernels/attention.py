@@ -9,7 +9,7 @@ per batch row where the row fits its shared memory, else a cluster per
 chunk of positions, its positions split over the cluster's CTAs, the last
 cluster of a row combining the chunks: the split route; K9: a CTA per
 span of positions and batch row) and name the shapes the kernels take:
-any memory length L at widths whose smallest chunk fits.
+any memory length L, any widths A, D >= 1 whose smallest chunk fits.
 """
 
 from __future__ import annotations
@@ -97,7 +97,12 @@ def _most_positions(Ac, Dc, C, F_, K, stage) -> int:
 def attention_plan(B: int, L: int, A: int, D: int, C: int, F_: int, K: int) -> dict:
     """K3's launch plan. Where one CTA's shared memory holds the row's L
     positions, B clusters of CLUSTER CTAs, one a row (``chunks`` 0): CTA r
-    owns A/CLUSTER attention columns and D/CLUSTER context columns. Else the
+    owns the ``a_per_cta`` = ceil(A/CLUSTER) attention columns and the
+    ``d_per_cta`` = ceil(D/CLUSTER) context columns from r times those, cut
+    at A and D. Any A, D >= 1 is taken by these uneven slices inside the
+    kernel (its loops guarded; the last CTAs' slices short or empty), not by
+    padding: a pad or slice around the kernel would add launches to every
+    decode step, whose launches already bound the decoder. Else the
     split route: ``chunks`` clusters a row, each over ``chunk`` = CLUSTER x
     ``span`` positions, CTA r of it ``span`` of them over every column;
     ``scratch_floats`` of the chunks' partials, which the cluster of the
@@ -109,15 +114,14 @@ def attention_plan(B: int, L: int, A: int, D: int, C: int, F_: int, K: int) -> d
     from L2 otherwise; on the split route each CTA stages loc_lin, whole
     where it fits and else in tiles of ``lin_rows`` rows (0 where F_ = 0).
     F_ = 0 is the location-free attention.
-    Raises ValueError when A or D is not divisible by CLUSTER, L < 1, or not
-    one position fits a block's shared memory. Cached: the wrapper asks for
-    it on every call; do not mutate it."""
-    if A % CLUSTER or D % CLUSTER:
-        raise ValueError(f"attention_step kernel needs A and D divisible by {CLUSTER}, "
-                         f"got A={A}, D={D}")
+    Raises ValueError when A < 1, D < 1, L < 1, or not one position fits a
+    block's shared memory. Cached: the wrapper asks for it on every call; do
+    not mutate it."""
+    if A < 1 or D < 1:
+        raise ValueError(f"attention_step kernel needs A, D >= 1, got A={A}, D={D}")
     if L < 1:
         raise ValueError(f"attention_step kernel needs L >= 1, got L={L}")
-    Ac, Dc = A // CLUSTER, D // CLUSTER
+    Ac, Dc = -(-A // CLUSTER), -(-D // CLUSTER)
     common = dict(cluster=CLUSTER, threads=THREADS, a_per_cta=Ac, d_per_cta=Dc)
     if _cta_smem(L, Ac, Dc, C, F_, K, False) <= build.SMEM_PER_BLOCK:
         stage = _cta_smem(L, Ac, Dc, C, F_, K, True) <= build.SMEM_PER_BLOCK
@@ -210,7 +214,7 @@ def attention_step(pq, processed_memory, memory, attn_hist, loc_w, loc_lin, v, m
     weights = torch.empty((B, L), device=pq.device, dtype=torch.float32)
     if B == 0:
         return context, weights
-    vec = (plan["a_per_cta"] % 4 == 0 and plan["d_per_cta"] % 4 == 0
+    vec = (A % 4 == 0 and D % 4 == 0 and plan["a_per_cta"] % 4 == 0 and plan["d_per_cta"] % 4 == 0
            and processed_memory.data_ptr() % 16 == 0 and memory.data_ptr() % 16 == 0
            and (loc_lin is None or loc_lin.data_ptr() % 16 == 0))
     scratch = (torch.empty((plan["scratch_floats"],), device=pq.device, dtype=torch.float32)
@@ -259,11 +263,10 @@ def attention_bwd_plan(B: int, L: int, A: int, D: int, C: int, F_: int, K: int) 
     with loc_lin read from L2 (``stage_lin`` False). ``part_floats``: the
     buffer of per-(row, span) partials the wrapper allocates for the second
     kernel, which sums them. Its shared memory does not grow with L, so it
-    takes any L >= 1; raises ValueError where A or D is not divisible by
-    CLUSTER (K3's constraint, whose outputs it takes) or L < 1."""
-    if A % CLUSTER or D % CLUSTER:
-        raise ValueError(f"attention_step_bwd kernel needs A and D divisible by {CLUSTER}, "
-                         f"got A={A}, D={D}")
+    takes any L >= 1 and any A, D >= 1 (a thread a column, guarded, as K3's
+    uneven slices); raises ValueError where A < 1, D < 1 or L < 1."""
+    if A < 1 or D < 1:
+        raise ValueError(f"attention_step_bwd kernel needs A, D >= 1, got A={A}, D={D}")
     if L < 1:
         raise ValueError(f"attention_step_bwd kernel needs L >= 1, got L={L}")
     cost = lambda P: (-(-B * -(-L // P) // SMS) * (P + SPAN_COST), P)

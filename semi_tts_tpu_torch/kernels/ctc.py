@@ -1,5 +1,6 @@
 """K6: CTC over the log-semiring lattice (`csrc/ctc.cu`), a CTA of chain
-warps for each utterance.
+warps for each utterance (past 1,024 states a cluster of them, past a
+cluster's a chain of clusters).
 
 `ctc_alpha` is the forward recursion: alphas (T, B, S) and the negative log
 likelihood (B,), S = 2U + 1. `ctc_beta_grad` runs the backward recursion and
@@ -39,10 +40,18 @@ cluster barrier a step), the forward's alphas stored by a copy warp from the
 lattice at 4 and 8 states a lane, the backward's alphas brought into a ring
 beside the occupancies by asynchronous copies, each CTA's class sums added
 in rank order into the gradient at the end. Past a cluster's states, the
-device-memory route (``lattice`` "device"): a CTA of `LONG_THREADS` threads
-a row, each step read back from device memory (the forward's alphas, the
-backward's betas in a scratch), then the gradient summed by class over the
-states sorted by (class, s), a CTA a (step, row). Any S >= 1.
+chained route (``lattice`` "chain"): ``clusters`` Q clusters of P CTAs a
+row at `CHAIN_K` states a lane, each the cluster route's CTAs on its
+slices, taken in the order of tickets the clusters draw as they start
+(`chain_ticket`: forward the clusters of every row's first slice first,
+backward the last first), so that a cluster waits only on one that runs or
+has run and the grid may run in waves; consecutive clusters of a row hand
+on their edge through device memory a step (a link with a flag released
+every `LINK_EVERY` steps), a link warp of the receiving CTA copying it into
+an edge ring; a cluster wholly past the row's valid states (`chain_live`)
+runs no chain; the row's last cluster adds the CTAs' class sums in slice
+order. Its ticket counter, per-row counts and links' flags are each call's
+own scratch, zeroed by the wrapper. Any S >= 1.
 """
 
 from __future__ import annotations
@@ -64,7 +73,6 @@ MAX_CHAIN_WARPS = 16  # warps that carry a row's chain
 # NVIDIA H100 80GB HBM3, 700 W: at B=16 S=1,025 0.2425 against 0.4645 ms
 # forward, 0.33 against 0.7116 backward; at S=513 this route is faster)
 MAX_STATES = 32 * STATES_PER_LANE[-1] * MAX_CHAIN_WARPS
-LONG_THREADS = 1024   # the device-memory route's CTA (csrc/ctc.cu kLongThreads)
 CHUNK = 8             # values a register chunk holds a state: min(CHUNK, 16 // K) steps
                       # forward, CHUNK // K backward (csrc/ctc.cu kChunk)
 DEPTH = 4             # occupancy ring slots, chunks (csrc/ctc.cu kDepth)
@@ -76,6 +84,14 @@ MAX_CLUSTER_WARPS = 12  # its chain warps a CTA at most (kMaxClusterWarps)
 PORTABLE_CLUSTER = 8  # past this, a non-portable cluster (kPortableCluster)
 EDGE_RING = 8         # edge slots between neighbouring CTAs (kEdgeRing)
 EDGE_BYTES = 28 * EDGE_RING  # their mbarriers, slots and acknowledgements (kEdgeBytes)
+LINK_BYTES = EDGE_BYTES + 16  # the chained route's link ring and ticket word (kLinkBytes)
+LINK_EVERY = 8        # steps between the link's flag releases (kLinkEvery)
+# the chained route's states a lane (kChainK): chip_ablate.py --ctc-long
+# --wide's sweep at S = 49,153, T = 700, B = 2, 8, 16 (NVIDIA H100 80GB HBM3,
+# 700 W) found 2 fastest, or within 18% of the fastest (8, at B = 16 with
+# targets of all U labels: every cluster live), and 4 and 8 up to 3x slower
+# with the rows' targets (B=2: 2.84 ms forward + backward at 8 against 0.92)
+CHAIN_K = 2
 
 
 def _lattice_floats(K: int, W: int) -> int:
@@ -133,6 +149,49 @@ def _cluster_plan(B: int, S: int, max_cluster: int) -> dict | None:
     return None
 
 
+def _chain_plan(B: int, S: int, max_cluster: int) -> dict:
+    """The chained route's plan at `CHAIN_K` states a lane: the fewest
+    slices of at most `MAX_CLUSTER_WARPS` warps that hold S, in the fewest
+    ``clusters`` Q of at most ``max_cluster`` CTAs, P = ceil(slices / Q)
+    CTAs a cluster and the fewest warps W that hold S in Q P slices. Every
+    cluster holds some of the S states; the last cluster's top CTAs may hold
+    none (they run as the CTAs past a row's valid states do). Scratch: the
+    links (``link_floats``), each CTA's class sums (``partial_floats``
+    rows of (T, C)) and the ticket counter, per-row counts and link flags
+    (``sync_ints``)."""
+    K = CHAIN_K
+    slices = -(-S // (32 * K * MAX_CLUSTER_WARPS))
+    Q = -(-slices // max_cluster)
+    P = -(-slices // Q)
+    W = -(-S // (Q * P * 32 * K))
+    return dict(lattice="chain", states_per_lane=K, chain_warps=W, cluster=P, clusters=Q,
+                slice_states=32 * K * W, non_portable=P > PORTABLE_CLUSTER,
+                chunk=min(CHUNK, 16 // K), beta_chunk=CHUNK // K, grid=(B * Q * P,),
+                alpha_threads=32 * (W + 1),  # a link warp beside the chain's
+                beta_threads=32 * (W + CONSUMER_WARPS + 1),
+                alpha_smem_bytes=_alpha_smem(K, W) + EDGE_BYTES + LINK_BYTES,
+                beta_smem_bytes=(_beta_smem(K, W) + 4 * _ring_floats(W) + EDGE_BYTES
+                                 + LINK_BYTES),
+                link_floats=2 * B * (Q - 1), partial_floats=B * Q * P, sync_ints=1 + B * Q)
+
+
+def chain_ticket(i: int, B: int, Q: int, backward: bool = False) -> tuple:
+    """(cluster q of its row, row b) that the chained route's cluster with
+    ticket i runs (csrc/ctc.cu `alpha_chain`, `beta_grad`): forward every
+    row's cluster 0 first, then their clusters 1, ...; backward the clusters
+    in reverse order. A cluster waits only on its row's cluster below
+    (forward; backward: above), which holds a lower ticket."""
+    q, b = divmod(i, B)
+    return (Q - 1 - q if backward else q), b
+
+
+def chain_live(target_length: int, plan: dict) -> int:
+    """The chained route's clusters of a row that hold some of its 2 tl + 1
+    valid states; the rest run no chain (forward: write -inf alphas)."""
+    per = plan["cluster"] * plan["slice_states"]
+    return -(-(2 * target_length + 1) // per)
+
+
 def ctc_plan(B: int, T: int, S: int, max_cluster: int = MAX_CLUSTER) -> dict:
     """K6's launch plan for B rows of T steps and S lattice states. Up to
     `MAX_STATES` (``lattice`` "shared"): a CTA a row, whose
@@ -150,9 +209,9 @@ def ctc_plan(B: int, T: int, S: int, max_cluster: int = MAX_CLUSTER) -> dict:
     `PORTABLE_CLUSTER` ``non_portable``), the fewest warps that do, and P
     the fewest slices that hold S, so none is empty. Past ``max_cluster`` x
     3,072 states (49,152 at 16 CTAs, a row of more than 24,575 labels) the
-    device-memory route (``lattice`` "device"): a CTA of `LONG_THREADS`
-    threads a row, its lattice in device memory, and a gradient kernel of
-    (T, B) CTAs. Raises ValueError only for S < 1."""
+    chained route (``lattice`` "chain", `_chain_plan`): ``clusters`` Q
+    clusters of P CTAs a row at `CHAIN_K` states a lane, with no upper
+    limit on S. Raises ValueError for S < 1."""
     if S < 1:
         raise ValueError(f"ctc kernels: {S} lattice states, they take S >= 1")
     if S <= MAX_STATES:
@@ -160,9 +219,7 @@ def ctc_plan(B: int, T: int, S: int, max_cluster: int = MAX_CLUSTER) -> dict:
     plan = _cluster_plan(B, S, max_cluster)
     if plan is not None:
         return plan
-    return dict(lattice="device", grid=(B,), alpha_threads=LONG_THREADS,
-                beta_threads=LONG_THREADS, grad_grid=(T, B), alpha_smem_bytes=0,
-                beta_smem_bytes=0)
+    return _chain_plan(B, S, max_cluster)
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,14 +227,33 @@ def max_cluster() -> int:
     """The most CTAs a row's cluster may take on the current card:
     `MAX_CLUSTER` where ``cudaOccupancyMaxActiveClusters`` fits one cluster
     of that many of the cluster route's largest CTAs (`MAX_CLUSTER_WARPS`
-    warps at each of `CLUSTER_STATES_PER_LANE`), forward and backward, else
+    warps at each of `CLUSTER_STATES_PER_LANE`; the chained route's, with
+    its link warp, at `CHAIN_K`), forward and backward, else
     `PORTABLE_CLUSTER`."""
-    fn = build.load("ctc").ctc_cluster_max_clusters
+    lib = build.load("ctc")
+    fits = True
+    for name, ks in (("ctc_cluster_max_clusters", CLUSTER_STATES_PER_LANE),
+                     ("ctc_chain_max_clusters", (CHAIN_K,))):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_int
+        fits = fits and all(fn(K, MAX_CLUSTER_WARPS, MAX_CLUSTER, bwd) >= 1
+                            for K in ks for bwd in (0, 1))
+    return MAX_CLUSTER if fits else PORTABLE_CLUSTER
+
+
+@functools.lru_cache(maxsize=None)
+def chain_fits(W: int, P: int) -> int:
+    """How many clusters of the chained route at W chain warps and P CTAs,
+    forward and backward alike, the current card runs at once (the route
+    needs none at once: its B Q clusters run in ceil(B Q / this) waves)."""
+    fn = build.load("ctc").ctc_chain_max_clusters
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
-    fits = all(fn(K, MAX_CLUSTER_WARPS, MAX_CLUSTER, bwd) >= 1
-               for K in CLUSTER_STATES_PER_LANE for bwd in (0, 1))
-    return MAX_CLUSTER if fits else PORTABLE_CLUSTER
+    n = min(fn(CHAIN_K, W, P, 0), fn(CHAIN_K, W, P, 1))
+    if n < 1:
+        raise RuntimeError(f"ctc_chain_max_clusters({CHAIN_K}, {W}, {P}): {n}")
+    return n
 
 
 def _logaddexp3(a, b, c):
@@ -290,8 +366,15 @@ def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank: int = 0)
         ptrs = (log_probs.data_ptr(), targets.data_ptr(), input_lengths.data_ptr(),
                 target_lengths.data_ptr(), alphas.data_ptr(), nll.data_ptr(),
                 B, T, C, targets.shape[1], blank)
-        if plan["lattice"] == "device":
-            err = build.bind("ctc", "ctc_alpha_long_f32", 6, 5)(*ptrs, build.stream())
+        if plan["lattice"] == "chain":
+            # scratch: the links between a row's clusters (B, Q - 1, T) float2;
+            # the ticket counter, row counts and link flags, zero
+            link = torch.empty((max(1, plan["link_floats"] * T),), device=log_probs.device,
+                               dtype=torch.float32)
+            sync = torch.zeros((plan["sync_ints"],), device=log_probs.device, dtype=torch.int32)
+            err = build.bind("ctc", "ctc_alpha_chain_f32", 8, 9)(
+                *ptrs[:6], link.data_ptr(), sync.data_ptr(), *ptrs[6:], plan["states_per_lane"],
+                plan["chain_warps"], plan["cluster"], plan["clusters"], build.stream())
         elif plan["lattice"] == "cluster":
             err = build.bind("ctc", "ctc_alpha_cluster_f32", 6, 8)(
                 *ptrs, plan["states_per_lane"], plan["chain_warps"], plan["cluster"],
@@ -330,13 +413,18 @@ def ctc_beta_grad(log_probs, targets, input_lengths, target_lengths, alphas, nll
                 target_lengths.data_ptr(), alphas.data_ptr(), nll.data_ptr(), g.data_ptr(),
                 grad.data_ptr())
         ints = (B, T, C, targets.shape[1], blank)
-        if plan["lattice"] == "device":
-            # scratch: the betas (T, B, S); the sorted states, class run
-            # starts and the sort's running ends (B, S + 2C + 1)
-            betas = torch.empty((T, B, S), device=log_probs.device, dtype=torch.float32)
-            sort = torch.empty((B * (S + 2 * C + 1),), device=log_probs.device, dtype=torch.int32)
-            err = build.bind("ctc", "ctc_beta_grad_long_f32", 10, 5)(
-                *ptrs, betas.data_ptr(), sort.data_ptr(), *ints, build.stream())
+        if plan["lattice"] == "chain":
+            # scratch: each CTA's class sums (B, Q P, T, C); the links (B, Q - 1, T)
+            # float2; the ticket counter, row counts and link flags, zero
+            partials = torch.empty((plan["partial_floats"] * T * C,), device=log_probs.device,
+                                   dtype=torch.float32)
+            link = torch.empty((max(1, plan["link_floats"] * T),), device=log_probs.device,
+                               dtype=torch.float32)
+            sync = torch.zeros((plan["sync_ints"],), device=log_probs.device, dtype=torch.int32)
+            err = build.bind("ctc", "ctc_beta_grad_chain_f32", 11, 9)(
+                *ptrs, partials.data_ptr(), link.data_ptr(), sync.data_ptr(), *ints,
+                plan["states_per_lane"],
+                plan["chain_warps"], plan["cluster"], plan["clusters"], build.stream())
         elif plan["lattice"] == "cluster":
             # scratch: each CTA's class sums (B, P, T, C)
             partials = torch.empty((B * plan["cluster"] * T * C,), device=log_probs.device,

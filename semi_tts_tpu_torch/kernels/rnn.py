@@ -49,6 +49,8 @@ SMEM_PER_BLOCK = build.SMEM_PER_BLOCK
 WIDE_THREADS = 256          # K1w, K7w, K2w, K8w: threads of a CTA
 WIDE_CHUNK = 8              # batch rows of a staged vector chunk, at most
 WIDE_ROWS = 4               # rows of W a warp accumulates at once
+WIDE_CLUSTER = 8            # K7w's cluster design: CTAs a thread-block cluster (kCl)
+WIDE_ONE_CTA_SMEM = 116 * 1024  # its shared memory at least: one CTA an SM (kOneCtaSmem)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -106,6 +108,70 @@ def wide_plan(kernel: str, B: int, H: int, ndir: int, sms: int) -> dict:
     return dict(grid=(ctas, ndir), ctas=ctas * ndir, threads=WIDE_THREADS, units_per_cta=units,
                 rows=rows, k=k, chunk=chunk, rows_smem=rows_smem,
                 smem_bytes=4 * (fixed + rows_smem * k))
+
+
+def _cluster_smem(B: int, H: int, U: int, rows: int) -> int:
+    """Bytes of shared memory of a cluster-design K7w CTA (csrc/rnn_wide.cu
+    `cluster_smem_bytes`): its gate gradients (ceil(B / 8), 4U, 8), its
+    dh_rec and dc (B, U each, each rounded up to 4 floats), its 4U rows of
+    W_hh, the partials of ``rows`` batch rows at a time (2, rows, H); at
+    least `WIDE_ONE_CTA_SMEM`, so that one CTA takes an SM."""
+    return max(4 * (_cluster_fixed(B, H, U) + 2 * rows * H), WIDE_ONE_CTA_SMEM)
+
+
+def _cluster_fixed(B: int, H: int, U: int) -> int:
+    """Floats of a cluster-design K7w CTA's shared memory but its partials."""
+    return -(-B // WIDE_CHUNK) * WIDE_CHUNK * 4 * U + 2 * _round_up(B * U, 4) + 4 * U * H
+
+
+def wide_bwd_plan(B: int, H: int, ndir: int, sms: int, max_clusters) -> dict:
+    """K7w's launch plan: the cluster design (``design`` "cluster": each
+    CTA's gate gradients times its own gate rows of W_hh, a reduce-scatter
+    over the cluster and the L2) where its CTAs hold all of their 4U gate
+    rows and the partials of at least `WIDE_CHUNK` batch rows in shared
+    memory and its grid fits the card at once, else the first design
+    (`wide_plan` "lstm_bwd", ``design`` "grid": a grid barrier a step, the
+    step's gate gradients staged into every CTA, W_hh's rows that do not
+    fit read from L2), which `chip_ablate.py --k7w` found slower at every
+    shape both take (NVIDIA H100 80GB HBM3, 700 W). The cluster design:
+    ``grid`` (N, ndir), N CTAs a direction a multiple of `WIDE_CLUSTER`: the
+    most up to ``sms`` / ndir whose clusters ``max_clusters(B, H, U,
+    rows)`` (the card's count of co-resident clusters at that plan) takes,
+    U = ceil(H / N) units a CTA and N the fewest multiple of 8 CTAs that
+    hold H; the partials (2, B, H) ``batch_rows`` rows at a time: all B
+    where they fit, else the most multiple of `WIDE_CHUNK` that do."""
+    grid = dict(wide_plan("lstm_bwd", B, H, ndir, sms), design="grid")
+    cluster = None
+    for n in range(WIDE_CLUSTER * (sms // (WIDE_CLUSTER * ndir)), 0, -WIDE_CLUSTER):
+        U = math.ceil(H / n)
+        ctas = WIDE_CLUSTER * math.ceil(math.ceil(H / U) / WIDE_CLUSTER)
+        room = (SMEM_PER_BLOCK // 4 - _cluster_fixed(B, H, U)) // (2 * H)  # partial rows
+        if room < min(B, WIDE_CHUNK):
+            break
+        rows = B if room >= B else room // WIDE_CHUNK * WIDE_CHUNK
+        if ndir * ctas // WIDE_CLUSTER <= max_clusters(B, H, U, rows):
+            cluster = dict(design="cluster", grid=(ctas, ndir), ctas=ctas * ndir,
+                           threads=WIDE_THREADS, units_per_cta=U, rows=4 * U, k=H,
+                           rows_smem=4 * U, batch_rows=rows,
+                           smem_bytes=_cluster_smem(B, H, U, rows), cluster=WIDE_CLUSTER,
+                           clusters=ctas // WIDE_CLUSTER,
+                           pub_floats=2 * ndir * (ctas // WIDE_CLUSTER) * B * H,
+                           flags=ndir * ctas)
+            break
+    return grid if cluster is None else cluster
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_fit(B: int, H: int, U: int, rows: int) -> int:
+    """The card's co-resident clusters of K7w's cluster design at that plan."""
+    fn = build.load("rnn_wide").lstm_bwd_cluster_max_clusters
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    n = fn(B, H, U, rows)
+    if n < 0:
+        raise RuntimeError(f"lstm_bwd_cluster_max_clusters({B}, {H}, {U}, {rows}): "
+                           f"cudaError {-n}")
+    return n
 
 
 @functools.lru_cache(maxsize=None)
@@ -392,13 +458,26 @@ def bilstm_rec_bwd_plain(w_hh_f, w_hh_b, gates_f, gates_b, cs, g_hs):
 
 def lstm_rec_bwd_wide(dirs, cs, g_hs):
     """K7w: one launch over ``dirs`` = [(reverse, w_hh, gates)] (checked by
-    the caller) at any H; returns (dgates_f, dgates_b or None). The kernel
-    reads the columns of W_hh as rows of W_hh^T, transposed here."""
+    the caller) at any H; returns (dgates_f, dgates_b or None). The cluster
+    design (`wide_bwd_plan`) reads W_hh's gate rows as they are; the first
+    design reads its columns as rows of W_hh^T, transposed here."""
     T, B, H4 = dirs[0][2].shape
     H, n, dev = H4 // 4, len(dirs), dirs[0][2].device
     dg = [torch.empty_like(dirs[0][2]) for _ in dirs]
-    if T and B:
-        ints = _wide_ints("lstm_bwd", B, H, n, dev)
+    plan = wide_bwd_plan(B, H, n, _sms(dev.index), _cluster_fit) if T and B else None
+    if plan is not None and plan["design"] == "cluster":
+        # scratch: the clusters' published sums; their step flags, zeroed
+        pub = torch.empty((plan["pub_floats"],), device=dev, dtype=torch.float32)
+        flags = torch.zeros((plan["flags"],), device=dev, dtype=torch.int32)
+        (r0, w0, g0), (r1, w1, g1) = dirs[0], dirs[-1]
+        fn = build.bind("rnn_wide", "lstm_rec_bwd_wide_cluster_f32", 10, 9)
+        build.check(fn(g0.data_ptr(), g1.data_ptr(), w0.data_ptr(), w1.data_ptr(), cs.data_ptr(),
+                       g_hs.data_ptr(), dg[0].data_ptr(), dg[-1].data_ptr(), pub.data_ptr(),
+                       flags.data_ptr(), T, B, H, n, int(r0), int(r1), plan["units_per_cta"],
+                       plan["grid"][0], plan["batch_rows"], build.stream()), "lstm_rec_bwd_wide")
+        lstm_rec_bwd_wide.launches += 1
+    elif plan is not None:
+        ints = plan["units_per_cta"], plan["chunk"], plan["rows_smem"]
         wt = [w.t().contiguous() for _, w, _ in dirs]
         dh, dc = (torch.empty((n, B, H), device=dev, dtype=torch.float32) for _ in range(2))
         bar = _barrier(dev)

@@ -125,13 +125,15 @@ class TTSServer:
     valid.
 
     ``mesh``: a `parallel.mesh.Mesh` to serve on (see the module's
-    docstring; every rank's weights are made rank 0's). The JAX server's
-    ``compile_cache`` has no counterpart (a graph is captured in the
-    process that replays it).
+    docstring; every rank's weights are made rank 0's). ``compile_cache``
+    is taken, as the JAX server takes it, and ignored: a CUDA graph is
+    captured in the process that replays it, so there is nothing to keep
+    across processes.
     """
 
     def __init__(self, cfg: V.VQVAEConfig, audio: AudioConfig, phn_attr, model, *,
-                 device=None, step_bucket=25, program_cache_size=8, mesh=None):
+                 device=None, step_bucket=25, program_cache_size=8, mesh=None,
+                 compile_cache=None):
         self.device = resolve_device(device)
         use_fp32()
         use_deterministic()
@@ -154,10 +156,11 @@ class TTSServer:
 
     @classmethod
     def from_checkpoint(cls, config, ckpt_path, *, device=None, step_bucket=25,
-                        program_cache_size=8, mesh=None):
+                        program_cache_size=8, mesh=None, compile_cache=None):
         """Build from a training config (YAML path or loaded dict) and a
         checkpoint in the JAX package's format: audio settings from
-        ``data.audio``, topology from ``model``, weights from the checkpoint."""
+        ``data.audio``, topology from ``model``, weights from the checkpoint.
+        ``compile_cache`` is ignored, as in the constructor."""
         from .data.text import load_text_encoder
         from .train.checkpoint import load_checkpoint
         from .utils.metrics import read_phn_attr

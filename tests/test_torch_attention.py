@@ -118,12 +118,19 @@ def test_attention_plan_fits_up_to_1024_positions(L):
 @pytest.mark.parametrize("change", [dict(A=260), dict(D=516), dict(A=4), dict(A=32_000),
                                     dict(L=0), dict(L=4096)])
 def test_attention_plan_raises_outside_its_shapes(change):
-    """A and D not divisible by the cluster, L < 1 and widths where not one
-    position fits a CTA's shared memory (A=32,000: a split CTA's pq, v and one
-    position's processed memory alone are 384 KB) raise; a long memory
-    (L=4,096) does not: it takes the split route."""
+    """L < 1 and widths where not one position fits a CTA's shared memory
+    (A=32,000: a split CTA's pq, v and one position's processed memory alone
+    are 384 KB) raise; A and D not divisible by the cluster (A=260, D=516,
+    A=4) do not: CTA r takes ceil(A/8) and ceil(D/8) columns, cut at A and
+    D; nor does a long memory (L=4,096): it takes the split route."""
     from semi_tts_tpu_torch.kernels import attention as k3
 
+    if change.get("A") in (260, 4) or "D" in change:
+        plan = k3.attention_plan(**{**FLAGSHIP, **change})
+        A, D = change.get("A", FLAGSHIP["A"]), change.get("D", FLAGSHIP["D"])
+        assert (plan["a_per_cta"], plan["d_per_cta"]) == (-(-A // 8), -(-D // 8))
+        assert plan["chunks"] == 0 and plan["grid"] == (128,)
+        return
     if change.get("L") == 4096:
         plan = k3.attention_plan(**{**FLAGSHIP, **change})
         span = min(k3.SPLIT_SPAN, plan["span"])
@@ -287,7 +294,9 @@ def test_attention_bwd_plan_flagship():
     first_split = dict(L=1188)
     assert k3.attention_plan(**{**shapes, **first_split})["chunks"] == 10  # spans of 16 past a wave
     assert k3.attention_bwd_plan(**{**shapes, **first_split})["span"] == 28
-    for change in (dict(A=260), dict(D=516), dict(L=0)):
+    for change in (dict(A=260), dict(D=516)):  # any width: a thread a column, guarded
+        assert k3.attention_bwd_plan(**{**shapes, **change})["span"] == 4
+    for change in (dict(L=0), dict(A=0), dict(D=0)):
         with pytest.raises(ValueError):
             k3.attention_bwd_plan(**{**shapes, **change})
 
@@ -388,7 +397,7 @@ def test_attention_bwd_decomposition_matches_plain_and_jax_grad(L, masked, span,
     sum w dw only in rounding)."""
     from semi_tts_tpu_torch.kernels import attention as k3
 
-    A, D = 16, 16  # K3 and K9 take A and D divisible by 8
+    A, D = 16, 16  # the widths off the cluster's multiples: test_attention_step_at_odd_widths_*
     params, attn, query, memory, hist, mask = _setup(seed=4, L=L, D=D, A=A)
     B = memory.shape[0]
     span = span or k3.attention_bwd_plan(B, L, A, D, 2, 4, 7)["span"]
@@ -546,3 +555,131 @@ def test_attention_step_saves_k3_context_not_a_copy():
     saved = ctx.grad_fn.saved_tensors
     assert saved[-2].data_ptr() == w.data_ptr() and saved[-1].data_ptr() == ctx.data_ptr()
     assert saved[-1].shape == ctx.shape == (3, 10)
+
+
+# widths off the cluster's multiples, as a JAX config may give them
+ODD_WIDTHS = [(100, 36), (1, 3)]
+
+
+@pytest.mark.parametrize("L", [32, 5000])  # one cluster a row; the split route
+@pytest.mark.parametrize("A,D", ODD_WIDTHS)
+def test_attention_plans_take_widths_off_the_cluster(A, D, L):
+    """K3 and K9 plan attention widths A and memory widths D that the
+    cluster's 8 does not divide, on the single-cluster route (CTA r the
+    ceil(A/8) and ceil(D/8) columns from r times those, cut at A and D: at
+    A=1 seven CTAs own no attention column) and on the split route, every
+    CTA's shared memory within a block's."""
+    from semi_tts_tpu_torch.kernels import attention as k3, build
+
+    shape = dict(B=4, L=L, A=A, D=D, C=2, F_=32, K=31)
+    plan = k3.attention_plan(**shape)
+    assert (plan["a_per_cta"], plan["d_per_cta"]) == (-(-A // 8), -(-D // 8))
+    assert (plan["chunks"] > 0) == (L == 5000) and plan["smem_bytes"] <= build.SMEM_PER_BLOCK
+    if plan["chunks"]:
+        assert plan["scratch_floats"] == 4 * plan["chunks"] * (2 + D)
+    bwd = k3.attention_bwd_plan(**shape)
+    assert bwd["smem_bytes"] <= build.SMEM_PER_BLOCK and bwd["spans"] == -(-L // bwd["span"])
+
+
+def _k3_replay(pq, pm, memory, hist, loc_w, loc_lin, v, mask):
+    """K3's single-cluster route in torch, as csrc/attention.cu
+    `attention_step_kernel` cuts the columns: CTA r of the row's cluster the
+    ceil(A/8) attention and ceil(D/8) context columns from r times those, cut
+    at A and D (none for a CTA past them). Each CTA's partial energies over
+    its attention columns (0 where it owns none), summed in rank order in
+    every CTA; the softmax; each CTA's context columns. Returns (context,
+    weights, the CTAs' numbers of attention and context columns)."""
+    from semi_tts_tpu_torch.kernels.attention import CLUSTER
+
+    B, L, A = pm.shape
+    D = memory.shape[2]
+    Ac, Dc = -(-A // CLUSTER), -(-D // CLUSTER)
+    energy_in = pq[:, None, :] + pm
+    if loc_w is not None:
+        loc = torch.nn.functional.conv1d(hist, loc_w, padding=(loc_w.shape[2] - 1) // 2)
+        energy_in = energy_in + loc.transpose(1, 2) @ loc_lin.T
+    e, ctx, owned = torch.zeros(B, L), [], []
+    for r in range(CLUSTER):
+        a0, a1 = min(A, r * Ac), min(A, r * Ac + Ac)
+        e = e + torch.tanh(energy_in[:, :, a0:a1]) @ v[a0:a1]     # rank order
+        owned.append((a1 - a0, min(D, r * Dc + Dc) - min(D, r * Dc)))
+    if mask is not None:
+        e = e.masked_fill(mask, float("-inf"))
+    w = torch.softmax(e, 1)
+    for r in range(CLUSTER):
+        d0, d1 = min(D, r * Dc), min(D, r * Dc + Dc)
+        ctx.append(torch.einsum("bl,bld->bd", w, memory[:, :, d0:d1]))
+    return torch.cat(ctx, 1), w, owned
+
+
+@pytest.mark.parametrize("A,D", ODD_WIDTHS)
+def test_attention_step_at_odd_widths_replay_matches_plain_and_jax(A, D):
+    """At widths the cluster does not divide, K3's uneven column slices
+    (`_k3_replay`: at A=100, D=36 seven CTAs of 13 attention and 5 context
+    columns and one of 9 and 1; at A=1, D=3 one CTA owns the attention
+    column and three the context's) and the split route's decomposition
+    (`_k3_split_replay`, its combine cut into the same context slices) give
+    K3's plain version and JAX's `attention_step` on the same numpy-seeded
+    inputs, within ATOL."""
+    from semi_tts_tpu_torch.kernels import attention as k3
+
+    params, attn, query, memory, hist, mask = _setup(seed=11, L=45, D=D, A=A)
+    with torch.no_grad():
+        mem_t = torch.from_numpy(memory)
+        pm = P.process_memory(attn, mem_t)
+        pq = torch.from_numpy(query) @ attn.query_layer.w.T
+        args = (pq, pm, mem_t, torch.from_numpy(hist), attn.loc_conv.w, attn.loc_linear.w,
+                attn.v.w.reshape(-1), torch.from_numpy(mask))
+        ctx, w, owned = _k3_replay(*args)
+        sctx, sw, _ = _k3_split_replay(*args, 4)
+        want_ctx, want_w = k3.attention_step_plain(*args)
+    Ac, Dc = -(-A // 8), -(-D // 8)
+    assert [n for n, _ in owned] == [max(0, min(Ac, A - r * Ac)) for r in range(8)]
+    assert sum(n for n, _ in owned) == A and sum(d for _, d in owned) == D
+    ctx_j, w_j = J.attention_step(params, jnp.asarray(query), jnp.asarray(memory),
+                                  jnp.asarray(pm.numpy()), jnp.asarray(hist),
+                                  mask=jnp.asarray(mask))
+    for c, wt in ((ctx, w), (sctx, sw)):
+        np.testing.assert_allclose(wt.numpy(), want_w.numpy(), rtol=0, atol=ATOL)
+        np.testing.assert_allclose(c.numpy(), want_ctx.numpy(), rtol=0, atol=ATOL)
+        np.testing.assert_allclose(wt.numpy(), np.asarray(w_j), rtol=0, atol=ATOL)
+        np.testing.assert_allclose(c.numpy(), np.asarray(ctx_j), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("A,D", ODD_WIDTHS)
+def test_attention_step_at_odd_widths_gradient_matches_jax(A, D):
+    """The attention step at widths the cluster does not divide, under
+    autograd through `_AttentionStep` (K9's per-span decomposition,
+    `_k9_replay`, in place of the wrapper): every input and weight gradient
+    against ``jax.grad`` of JAX's `attention_step` on the same numpy-seeded
+    inputs, within ATOL."""
+    from semi_tts_tpu_torch.kernels import attention as k3
+
+    params, attn, query, memory, hist, mask = _setup(seed=12, L=45, D=D, A=A)
+    rng = np.random.RandomState(13)
+    pm = rng.randn(*memory.shape[:2], A).astype(np.float32)
+    gc = rng.randn(memory.shape[0], D).astype(np.float32)
+    gw = rng.randn(*memory.shape[:2]).astype(np.float32)
+
+    def f(p, q, mem, pm_, h):
+        c, wts = J.attention_step(p, q, mem, pm_, h, mask=jnp.asarray(mask))
+        return jnp.sum(c * gc) + jnp.sum(wts * gw)
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3, 4))(params, *map(jnp.asarray, (query, memory, pm, hist)))
+    span = k3.attention_bwd_plan(memory.shape[0], 45, A, D, 2, 4, 7)["span"]
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (query, memory, pm, hist)]
+    names = ["query_layer", "v", "loc_conv", "loc_linear"]
+    real = k3.attention_step_bwd
+    k3.attention_step_bwd = lambda *a: _k9_replay(*a, span)
+    try:
+        c, wts = P.attention_step(attn, *leaves, mask=torch.from_numpy(mask))
+        got = torch.autograd.grad((c * torch.from_numpy(gc)).sum()
+                                  + (wts * torch.from_numpy(gw)).sum(),
+                                  leaves + [getattr(attn, n).w for n in names])
+    finally:
+        k3.attention_step_bwd = real
+    for g, wt, what in zip(got, want[1:], ("query", "memory", "processed_memory", "hist")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wt), rtol=0, atol=ATOL, err_msg=what)
+    for g, n in zip(got[4:], names):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[0][n]["w"]), rtol=0, atol=ATOL,
+                                   err_msg=n)

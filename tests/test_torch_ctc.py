@@ -166,7 +166,8 @@ def test_ctc_plan_raises_past_its_states():
     """Past 512 states the plan takes two states a lane, past 1,024
     (`MAX_STATES`) a cluster of CTAs a row (two, then four, then eight
     states a lane), past a cluster's states (49,152 at 16 CTAs, 24,576 at
-    8) the device-memory lattice; it raises only for S < 1."""
+    8) a chain of clusters a row at 2 states a lane, at any row count; it
+    raises only for S < 1."""
     assert K6.ctc_plan(8, 133, 513)["states_per_lane"] == 2
     assert K6.ctc_plan(8, 133, 1024)["lattice"] == "shared"
     assert K6.ctc_plan(8, 133, 1025)["lattice"] == "cluster"
@@ -174,11 +175,12 @@ def test_ctc_plan_raises_past_its_states():
     assert K6.ctc_plan(8, 133, 12289)["states_per_lane"] == 4
     assert K6.ctc_plan(8, 133, 24577)["states_per_lane"] == 8
     assert K6.ctc_plan(8, 133, 49152)["lattice"] == "cluster"
-    assert K6.ctc_plan(8, 133, 49153)["lattice"] == "device"
+    assert K6.ctc_plan(8, 133, 49153)["lattice"] == "chain"
     assert K6.ctc_plan(8, 133, 24576, max_cluster=8)["lattice"] == "cluster"
-    assert K6.ctc_plan(8, 133, 24577, max_cluster=8)["lattice"] == "device"
+    assert K6.ctc_plan(8, 133, 24577, max_cluster=8)["lattice"] == "chain"
     with pytest.raises(ValueError):
         K6.ctc_plan(8, 133, 0)
+    assert K6.ctc_plan(1 << 17, 133, 49153)["sync_ints"] == 1 + (1 << 17) * 5
 
 
 def _cluster_plan_fits(plan, S, max_cluster):
@@ -220,11 +222,11 @@ def test_ctc_cluster_plan_holds_every_state_count(max_cluster):
     """Every S the cluster route takes, at a card's 16 CTAs a cluster and at
     the portable 8: a plan that holds S with no empty slice, K growing from
     two states a lane to four, then eight, where 12 warps no longer hold S
-    in ``max_cluster`` CTAs; then the device-memory route."""
+    in ``max_cluster`` CTAs; then the chained route."""
     for S in range(K6.MAX_STATES + 1, max_cluster * 3072 + 2):
         plan = K6.ctc_plan(2, 700, S, max_cluster)
         if S > max_cluster * 3072:
-            assert plan["lattice"] == "device"
+            assert plan["lattice"] == "chain"
             continue
         assert plan["states_per_lane"] == (2 if S <= max_cluster * 768 else
                                            4 if S <= max_cluster * 1536 else 8)
@@ -676,93 +678,190 @@ def test_k6_cluster_route_at_8_states_a_lane_replay_matches_plain_and_jax(name, 
     np.testing.assert_allclose(grad.numpy(), jax_g, rtol=0, atol=atol)
 
 
-def _k6_global_replay(lp, targets, ilen, tlen, blank=0):
-    """K6's device-memory route past a cluster's states (`csrc/ctc.cu`
-    `ctc_alpha_long_kernel`, `ctc_beta_long_kernel`, `ctc_grad_long_kernel`)
-    in torch, row by row:
-    each step's alphas (betas) from the last step's, read back from the
-    (T, B, S) array; the row's valid states stably sorted by class into
-    `order` with run starts `cstart` (a counting sort, 32 states at a time);
-    then each (step, class) as a warp sums it: lane j over the run's
-    sorted positions j, j + 32, ... in order, then xor shuffles over 16, 8,
-    4, 2, 1, lane 0's sum. Returns (alphas, nll, the gradient of sum(nll))."""
+# (states a lane, lanes a CTA, CTAs a cluster) of the chained route's replay
+# at each case: on the card 32 W lanes and up to 16 CTAs; here few, so that
+# each row takes several clusters (U=4: S=9 in three clusters of two slices
+# of two states, state 2 tl beginning a cluster in a row of 4 labels, so
+# its NLL takes state 2 tl - 1 from the link's last step; S=1,025: five
+# clusters of two slices of 128, the last holding one state)
+CHAIN_SLICES = {"U=20": (2, 3, 2), "U=40": (2, 4, 3), "U=300": (2, 32, 3), "S=1025": (2, 64, 2),
+                "T=300": (2, 4, 2)}
+
+
+def _slice_class_sums(occ, zs, C):
+    """A CTA's class sums over its ``occ`` (steps, nv) of its valid states
+    of classes ``zs`` (nv), as `beta_grad`'s class-sum warps add them: the
+    states sorted by (class, s), each class's run cut at every multiple of
+    `SEG` sorted states into segments (each summed in order of s here, by
+    shuffles in a fixed order on the card), a run's segments in order.
+    Returns (steps, C)."""
+    out = torch.zeros((occ.shape[0], C))
+    order = sorted(range(len(zs)), key=lambda r: (int(zs[r]), r))
+    r = 0
+    while r < len(order):
+        c, acc = int(zs[order[r]]), torch.zeros(occ.shape[0])
+        while r < len(order) and int(zs[order[r]]) == c:
+            seg = torch.zeros(occ.shape[0])
+            while True:
+                seg = seg + occ[:, order[r]]
+                r += 1
+                if r == len(order) or r % K6.SEG == 0 or int(zs[order[r]]) != c:
+                    break
+            acc = acc + seg
+        out[:, c] = acc
+    return out
+
+
+def _k6_chain_replay(lp, targets, ilen, tlen, K=2, lanes=3, P=2, blank=0):
+    """K6's chained route (`csrc/ctc.cu` `alpha_chain` and `beta_grad` with
+    Chain, ``lattice`` "chain" in `ctc_plan`) in torch: Q = ceil(S / (P n))
+    clusters of P CTAs a row, n = ``lanes`` K states a CTA, run one at a time
+    in the order of their tickets (`chain_ticket`: forward every row's
+    cluster 0 first, backward the last first), each over all of its row's
+    steps before the next starts, so that a cluster reads only what a lower
+    ticket wrote. Within a cluster the edges go through its CTAs' rings as
+    in `_k6_device_replay`; between clusters q and q + 1 of a row through a
+    link (B, Q - 1, T, 2), NaN until written: forward CTA P - 1 of cluster q
+    writes its top lane's top two alphas of each step, CTA 0 of cluster q + 1
+    reads them as its s - 1 and s - 2 (and its NLL's state 2 tl - 1 where 2
+    tl begins the cluster); backward CTA 0 of cluster q + 1 writes its
+    bottom two x, CTA P - 1 of cluster q reads them. A cluster past the row's
+    valid states (`chain_live`) writes -inf alphas and runs no backward. Each
+    CTA's class sums go into partials (B, Q P, T, C); the row's last cluster
+    to finish adds them in slice order. Returns (alphas (T, B, S), nll (B,),
+    the gradient of sum(nll) (B, T, C), the order the clusters ran in)."""
     B, T, C = lp.shape
     U = targets.shape[1]
     S = 2 * U + 1
+    n = lanes * K
+    Q = -(-S // (P * n))
+    plan = {"cluster": P, "slice_states": n}
+    R = K6.EDGE_RING
     NEG = torch.tensor(K6.NEG_INF)
-    alphas = torch.empty((T, B, S))
-    nll = torch.empty(B)
-    grad = torch.zeros((B, T, C))
-    s = torch.arange(S)
-    for b in range(B):
-        z = torch.full((S,), blank, dtype=torch.long)
-        z[1::2] = targets[b].long()
-        tl = int(tlen[b])
-        valid = s < 2 * tl + 1
-        skip = (s % 2 == 1) & (s >= 2) & (z != torch.roll(z, 2))
-        skip_from = (s % 2 == 1) & (s + 2 < S) & (torch.roll(z, -2) != z)
-        Tc = max(1, min(int(ilen[b]), T))
-        for t in range(Tc):
-            if t == 0:
-                a = torch.where(valid & (s <= 1), lp[b, 0][z], NEG)
-            else:
-                prev = alphas[t - 1, b]
-                a1 = torch.cat([NEG[None], prev[:-1]])
-                a2 = torch.where(skip, torch.cat([NEG[None], NEG[None], prev[:-2]])[:S], NEG)
-                a = torch.where(valid, K6._logaddexp3(prev, a1, a2) + lp[b, t][z], NEG)
-            alphas[t, b] = a
-        alphas[Tc:, b] = alphas[Tc - 1, b]
-        fin = alphas[Tc - 1, b]
-        nll[b] = -K6._logaddexp(fin[2 * tl], fin[2 * tl - 1] if tl > 0 else NEG)
-
-        Tc = min(int(ilen[b]), T)
-        if Tc <= 0 or not nll[b] < -K6.NEG_INF / 2:
+    s = torch.arange(Q * P * n).view(Q, P, lanes, K)  # (cluster, CTA, lane, j) -> state
+    first = 2 + torch.arange(lanes) * K               # a lane's first state in its lattice row
+    last = torch.arange(lanes) * K + K - 1             # its last
+    zf = torch.full((B, Q * P * n + 2), blank, dtype=torch.long)
+    zf[:, 1:2 * U:2] = targets.long()
+    alphas = torch.full((T, B, S), float("nan"))
+    nll = torch.full((B,), float("nan"))
+    link = torch.full((B, max(Q - 1, 1), T, 2), float("nan"))
+    ran = []
+    for i in range(B * Q):                             # forward, in ticket order
+        q, b = K6.chain_ticket(i, B, Q)
+        tl, lo, hi = int(tlen[b]), q * P * n, min(S, (q + 1) * P * n)
+        if q >= K6.chain_live(tl, plan):               # past the valid states
+            alphas[:, b, lo:hi] = K6.NEG_INF
             continue
-        n_valid = 2 * tl + 1
-        at = [0] * C
-        for q in range(n_valid):                       # pass 0: the counts
-            at[int(z[q])] += 1
-        cstart, acc = [], 0
-        for c in range(C):
-            cstart.append(acc)
-            acc, at[c] = acc + at[c], acc
-        cstart.append(acc)
-        order = [0] * n_valid
-        for q in range(n_valid):                       # pass 1: stable placement
-            order[at[int(z[q])]] = q
-            at[int(z[q])] += 1
-        term = valid & ((s == 2 * tl) | ((s == 2 * tl - 1) & (tl > 0)))
-        betas = torch.empty((Tc, S))
-        betas[Tc - 1] = torch.where(term, 0.0, NEG)
-        for t in range(Tc - 2, -1, -1):
-            x = torch.where(valid, betas[t + 1] + lp[b, t + 1][z], NEG)
-            x1 = torch.cat([x[1:], NEG[None]])
-            x2 = torch.where(skip_from, torch.cat([x[2:], NEG[None], NEG[None]])[:S], NEG)
-            betas[t] = K6._logaddexp3(x, x1, x2)
-        occ = torch.exp(torch.clamp(alphas[:Tc, b] + betas + nll[b], max=0.0))   # (Tc, S)
-        lanes = torch.arange(32)
-        for c in range(C):
-            run = torch.tensor(order[cstart[c]:cstart[c + 1]], dtype=torch.long)
-            part = torch.zeros((32, Tc))
-            for j in range(0, len(run), 32):           # lane j's strided, in order
-                idx = run[j:j + 32]
-                part[:len(idx)] = part[:len(idx)] + occ[:, idx].T
-            for o in (16, 8, 4, 2, 1):
-                part = part + part[lanes ^ o]
-            grad[b, :Tc, c] = -part[0]
-    return alphas, nll, grad
+        ran.append(("fwd", q, b))
+        sq = s[q]
+        z = zf[b][sq]
+        valid = sq < 2 * tl + 1
+        skip = (sq % 2 == 1) & (sq >= 2) & (sq < S) & (z != zf[b][(sq - 2).clamp(min=0)])
+        out_link = q + 1 < K6.chain_live(tl, plan)
+        Tc = max(1, min(int(ilen[b]), T))
+        lat = torch.full((P, 2, 2 + n), K6.NEG_INF)
+        ring = torch.full((P, R, 2), float("nan"))
+        out = torch.empty((T, P, lanes, K))
+        for t in range(Tc):
+            e = lp[b, t][z]
+            if t == 0:
+                a = torch.where(valid & (sq <= 1), e, NEG)
+            else:
+                prev = lat[:, (t - 1) & 1]
+                up1, up2 = prev[:, first - 1], prev[:, first - 2]      # (P, lanes)
+                up1[1:, 0], up2[1:, 0] = ring[1:, (t - 1) % R, 1], ring[1:, (t - 1) % R, 0]
+                if q > 0:
+                    up1[0, 0], up2[0, 0] = link[b, q - 1, t - 1, 1], link[b, q - 1, t - 1, 0]
+                a1 = torch.cat([up1[..., None], a[..., :K - 1]], -1)
+                a2 = torch.where(skip, torch.cat([up2[..., None], up1[..., None], a[..., :K - 2]], -1),
+                                 NEG)
+                a = torch.where(valid, K6._logaddexp3(a, a1, a2) + e, NEG)
+            lat[:, t & 1, 2:] = a.reshape(P, n)
+            ring[1:, t % R] = a[:-1, -1, K - 2:]
+            if out_link:
+                link[b, q, t] = a[-1, -1, K - 2:]
+            out[t] = a
+        out[Tc:] = a
+        alphas[:, b, lo:hi] = out.reshape(T, P * n)[:, :hi - lo]
+        p = 2 * tl // n - q * P                         # the CTA that holds state 2 tl
+        if 0 <= p < P:
+            s0 = (q * P + p) * n
+            fin = lat[p, (Tc - 1) & 1, 2:]
+            a_last = (NEG if tl == 0 else fin[2 * tl - 1 - s0] if 2 * tl > s0
+                      else ring[p, (Tc - 1) % R, 1] if p > 0 else link[b, q - 1, Tc - 1, 1])
+            nll[b] = -K6._logaddexp(fin[2 * tl - s0], a_last)
+
+    grad = torch.zeros((B, T, C))
+    partials = torch.full((B, Q * P, T, C), float("nan"))
+    blink = torch.full((B, max(Q - 1, 1), T, 2), float("nan"))
+    done = [0] * B
+    for i in range(B * Q):                             # backward, in ticket order
+        q, b = K6.chain_ticket(i, B, Q, backward=True)
+        tl = int(tlen[b])
+        live = K6.chain_live(tl, plan)
+        Tc = min(int(ilen[b]), T)
+        if q >= live or Tc <= 0 or not nll[b] < -K6.NEG_INF / 2:
+            continue
+        ran.append(("bwd", q, b))
+        sq = s[q]
+        z = zf[b][sq]
+        valid = sq < 2 * tl + 1
+        skip_from = (sq % 2 == 1) & (sq + 2 < S) & (zf[b][(sq + 2).clamp(max=Q * P * n + 1)] != z)
+        term = valid & ((sq == 2 * tl) | ((sq == 2 * tl - 1) & (tl > 0)))
+        row_a = torch.full((T, Q * P * n), K6.NEG_INF)
+        row_a[:, :S] = alphas[:, b]
+        al = row_a[:, sq]                              # (T, P, lanes, K)
+        xlat = torch.full((P, 2, n + 4), K6.NEG_INF)
+        ring = torch.full((P, R, 2), float("nan"))
+        occ = torch.empty((Tc, P, lanes, K))
+        for m in range(Tc):
+            t = Tc - 1 - m
+            if m == 0:
+                beta = torch.where(term, 0.0, NEG)
+            else:
+                x = torch.where(valid, beta + lp[b, t + 1][z], NEG)
+                xlat[:, m & 1, :n] = x.reshape(P, n)
+                ring[:-1, (m - 1) % R] = x[1:, 0, :2]
+                if q > 0:
+                    blink[b, q - 1, m - 1] = x[0, 0, :2]
+                row = xlat[:, m & 1]
+                dn1, dn2 = row[:, last + 1], row[:, last + 2]            # (P, lanes)
+                dn1[:-1, -1], dn2[:-1, -1] = ring[:-1, (m - 1) % R, 0], ring[:-1, (m - 1) % R, 1]
+                if q + 1 < live:
+                    dn1[-1, -1], dn2[-1, -1] = blink[b, q, m - 1, 0], blink[b, q, m - 1, 1]
+                x1 = torch.cat([x[..., 1:], dn1[..., None]], -1)
+                x2 = torch.cat([x[..., 2:], dn1[..., None], dn2[..., None]], -1)[..., :K]
+                beta = K6._logaddexp3(x, x1, torch.where(skip_from, x2, NEG))
+            occ[m] = torch.exp(torch.clamp(al[t] + beta + nll[b], max=0.0))
+        occ = occ.flip(0).reshape(Tc, P, n)            # by step t
+        for p in range(P):
+            s0 = (q * P + p) * n
+            nv = min(max(2 * tl + 1 - s0, 0), n)
+            partials[b, q * P + p] = 0.0
+            partials[b, q * P + p, :Tc] = _slice_class_sums(occ[:, p, :nv], zf[b, s0:s0 + nv], C)
+        done[b] += 1
+        if done[b] == live:                            # the row's last cluster: slice order
+            total = torch.zeros((T, C))
+            for j in range(live * P):
+                total = total + partials[b, j]
+            grad[b] = -total
+    return alphas, nll, grad, ran
 
 
 @pytest.mark.parametrize("name", K6_CASES)
-def test_k6_global_route_replay_matches_plain_and_jax(name, one_thread):
-    """The device-memory route's decomposition (`_k6_global_replay`; the
-    plan takes it past a cluster's 24,576 states, and its arithmetic does
-    not depend on S) gives the plain versions' alphas bit for bit, their
-    NLL and gradient, and JAX's custom VJP's NLL and gradient, at every
-    edge."""
+def test_k6_chain_route_replay_matches_plain_and_jax(name, one_thread):
+    """The chained route's decomposition (`_k6_chain_replay`; the plan
+    takes it past a cluster's 49,152 states, and its arithmetic does not
+    depend on S, so the cases cut their rows into clusters of a few CTAs of
+    a few lanes, `CHAIN_SLICES`) gives the plain versions' alphas and NLL
+    bit for bit and their gradient, and JAX's custom VJP's NLL and
+    gradient, at every edge; no cluster reads a link its writer has not
+    written (NaN until then), and no cluster past a row's valid states runs."""
     lp, targets, ilen, tlen = _k6_case(name)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
-    alphas, nll, grad = _k6_global_replay(t(lp), t(targets), t(ilen), t(tlen))
+    K, lanes, P = CHAIN_SLICES.get(name, (2, 1, 2))
+    alphas, nll, grad, ran = _k6_chain_replay(t(lp), t(targets), t(ilen), t(tlen), K, lanes, P)
     want_a, want_nll = K6.ctc_alpha_plain(t(lp), t(targets), t(ilen), t(tlen))
     np.testing.assert_array_equal(alphas.numpy(), want_a.numpy())
     np.testing.assert_array_equal(nll.numpy(), want_nll.numpy())
@@ -773,3 +872,51 @@ def test_k6_global_route_replay_matches_plain_and_jax(name, one_thread):
     np.testing.assert_allclose(nll.numpy(), jax_nll, rtol=1e-6)
     atol = ATOL if lp.shape[1] < 100 else 1e-4
     np.testing.assert_allclose(grad.numpy(), jax_g, rtol=0, atol=atol)
+    plan = {"cluster": P, "slice_states": lanes * K}
+    S = 2 * targets.shape[1] + 1
+    assert -(-S // (P * lanes * K)) >= 2                # every case takes several clusters
+    for kind, q, b in ran:
+        assert q < K6.chain_live(int(tlen[b]), plan)
+
+
+# (S, B, max_cluster, (K, W, P, Q) of the plan)
+CHAIN_PLANS = [
+    (49153, 2, 16, (2, 12, 13, 5)), (49153, 16, 8, (2, 11, 8, 9)),
+    (98305, 16, 16, (2, 12, 15, 9)), (98305, 2, 8, (2, 12, 8, 17)),
+    (6145, 3, 2, (2, 10, 2, 5)), (200001, 4, 16, (2, 12, 16, 17))]
+
+
+@pytest.mark.parametrize("S,B,max_cluster,want", CHAIN_PLANS)
+def test_ctc_chain_plan(S, B, max_cluster, want):
+    """Past a cluster's states the plan chains clusters at `CHAIN_K` = 2
+    states a lane (the fastest in chip_ablate.py's sweep, or within 18% of
+    it): the fewest slices of at most 12 warps that hold S, in the fewest Q
+    clusters of at most ``max_cluster`` CTAs, P = ceil(slices / Q) CTAs a
+    cluster, the fewest warps W that hold S; every cluster holds states; a
+    link warp beside the chain's; the scratch's sizes (the ticket counter,
+    the rows' counts and the links' flags zeroed a call: 1 + B Q words). The
+    tickets run every row's first cluster first forward (each cluster after
+    its row's cluster below) and the last first backward, and a row's
+    clusters past its valid states are skipped."""
+    plan = K6.ctc_plan(B, 700, S, max_cluster)
+    K, W, P, Q = plan["states_per_lane"], plan["chain_warps"], plan["cluster"], plan["clusters"]
+    assert (plan["lattice"], K, W, P, Q) == ("chain",) + want
+    n = 32 * K * W
+    assert plan["slice_states"] == n and Q * P * n >= S > (Q - 1) * P * n
+    assert 2 <= P <= max_cluster and plan["non_portable"] == (P > K6.PORTABLE_CLUSTER)
+    assert plan["grid"] == (B * Q * P,) and plan["alpha_threads"] == 32 * (W + 1)
+    assert plan["beta_threads"] == 32 * (W + K6.CONSUMER_WARPS + 1) <= 672
+    assert plan["link_floats"] == 2 * B * (Q - 1) and plan["partial_floats"] == B * Q * P
+    assert plan["sync_ints"] == 1 + B * Q
+    assert max(plan["alpha_smem_bytes"], plan["beta_smem_bytes"]) <= 232_448
+    assert plan["beta_smem_bytes"] == (K6._beta_smem(K, W) + 4 * K6._ring_floats(W) + K6.EDGE_BYTES
+                                       + K6.LINK_BYTES)
+    fwd = [K6.chain_ticket(i, B, Q) for i in range(B * Q)]
+    bwd = [K6.chain_ticket(i, B, Q, backward=True) for i in range(B * Q)]
+    assert sorted(fwd) == sorted(bwd) == [(q, b) for q in range(Q) for b in range(B)]
+    for order, below in ((fwd, -1), (bwd, 1)):
+        for i, (q, b) in enumerate(order):
+            if 0 <= q + below < Q:
+                assert order.index((q + below, b)) < i
+    assert K6.chain_live(0, plan) == 1 and K6.chain_live((S - 1) // 2, plan) == Q
+    assert K6.chain_live((P * n - 1) // 2, plan) == 1 and K6.chain_live(P * n // 2, plan) == 2

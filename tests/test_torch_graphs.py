@@ -218,6 +218,25 @@ def test_step_program_cache_is_unbounded():
     assert list(cache._programs) == [3, 4]
 
 
+def test_failed_builds_leave_the_cache_within_its_bound():
+    """A build that raises drops its cell, so builds failing on more
+    distinct keys than the bound never grow the dict past it; a later good
+    build of one of those keys succeeds and is kept."""
+    cache = graphs.ProgramCache(2)
+
+    def bad():
+        raise RuntimeError("build failed")
+
+    for k in range(7):
+        with pytest.raises(RuntimeError, match="build failed"):
+            cache.get(k, bad)
+        assert len(cache._programs) <= 2
+    assert len(cache._programs) == 0
+    assert cache.get(3, lambda: "ok") == "ok"
+    assert cache.get(3, bad) == "ok"  # memoized: the build is not run again
+    assert list(cache._programs) == [3]
+
+
 def test_signature_keys_shapes_dtypes_and_constants():
     """A program's key holds every tensor's shape and dtype and every other
     leaf's value: a change to any of them is another program."""

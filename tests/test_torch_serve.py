@@ -192,6 +192,22 @@ def test_serving_adversarial_inputs(served):
             jserver.synthesize(text, s, decode_steps=bad)
 
 
+def test_server_takes_compile_cache_and_ignores_it(served, tmp_path):
+    """``compile_cache`` is taken by the constructor and `from_checkpoint`,
+    as the JAX server takes it, and ignored (a CUDA graph is captured in the
+    process that replays it): the server serves as one built without it."""
+    config, ckpt, *_, pserver = served
+    cache = str(tmp_path / "cache")
+    direct = PS.TTSServer(pserver.cfg, pserver.audio, None, pserver.model, device="cpu",
+                          compile_cache=cache)
+    loaded = PS.TTSServer.from_checkpoint(config, ckpt, device="cpu", compile_cache=cache)
+    assert not os.path.exists(cache)
+    text, s = _requests()
+    want = pserver.synthesize(text, s, key=3, decode_steps=4)
+    np.testing.assert_array_equal(loaded.synthesize(text, s, key=3, decode_steps=4), want)
+    assert direct.program_cache_size == pserver.program_cache_size
+
+
 def test_bridge_round_trip_is_exact(served):
     _, _, params, state, _, pserver = served
     model = PV.VQVAE(pserver.cfg, generator=torch.Generator())  # the serving model

@@ -191,3 +191,114 @@ def test_wide_wrappers_count_no_launch_on_cpu():
     K.bigru_rec_bwd(wg, None, torch.zeros(T, B, Hg), None, xg, None, torch.zeros(T, B, Hg))
     assert kernels.launch_counts() == before
     assert all(w.launches == 0 for w in kernels.WIDE)
+
+
+# (B, H, ndir, the card's co-resident clusters of 8 at the plan, the design,
+# the plan's CTAs a direction and its partials' batch rows at a time):
+# RNNLM's and the ASR's shapes, H=1024, B=5 at H=292 and 258, a tiny H; B=64
+# and 256, whose partials (2, B, H) take several chunks; W_hh's 4U rows past
+# shared memory (1,024 units in both directions) and no cluster co-resident
+# take the first design
+WIDE_BWD_PLANS = [(8, 512, 1, 15, "cluster", 104, 8), (8, 512, 2, 15, "cluster", 56, 8),
+                  (8, 1024, 1, 15, "cluster", 120, 8), (5, 292, 2, 16, "cluster", 64, 5),
+                  (5, 258, 2, 15, "cluster", 56, 5), (1, 6, 2, 15, "cluster", 8, 1),
+                  (64, 512, 2, 15, "cluster", 56, 32), (256, 512, 2, 15, "cluster", 56, 16),
+                  (8, 1024, 2, 15, "grid", 64, None), (8, 512, 2, 0, "grid", 64, None)]
+
+
+@pytest.mark.parametrize("B,H,ndir,fit,design,ctas,rows", WIDE_BWD_PLANS)
+def test_wide_bwd_plan_takes_the_cluster_design_where_it_fits(B, H, ndir, fit, design, ctas,
+                                                              rows):
+    """K7w's plan: the cluster design where its CTAs hold their 4U gate rows
+    of W_hh and the partials of at least 8 batch rows (2, rows, H) in shared
+    memory and its clusters of 8 fit the card at once (the most CTAs up to
+    the SMs a direction, U = ceil(H / N), the fewest multiple of 8 CTAs that
+    hold H; all B rows at a time where they fit, else the most multiple of
+    8 that do); else the first design's plan, unchanged."""
+    plan = K.wide_bwd_plan(B, H, ndir, H100_SMS, lambda *a: fit)
+    assert plan["design"] == design and plan["grid"] == (ctas, ndir)
+    assert plan.get("batch_rows") == rows
+    U = plan["units_per_cta"]
+    assert ctas * U >= H and plan["threads"] == 256 and plan["smem_bytes"] <= K.SMEM_PER_BLOCK
+    if design == "grid":
+        assert plan == dict(K.wide_plan("lstm_bwd", B, H, ndir, H100_SMS), design="grid")
+        return
+    assert ctas % K.WIDE_CLUSTER == 0 and ctas - K.WIDE_CLUSTER < -(-H // U) <= ctas
+    assert ndir * ctas // 8 <= fit and ctas * ndir <= H100_SMS
+    assert plan["rows_smem"] == plan["rows"] == 4 * U
+    assert plan["smem_bytes"] == K._cluster_smem(B, H, U, rows) >= K.WIDE_ONE_CTA_SMEM
+    assert rows == B or (rows % K.WIDE_CHUNK == 0 and K._cluster_smem(
+        B, H, U, rows + K.WIDE_CHUNK) > K.SMEM_PER_BLOCK)
+    assert plan["pub_floats"] == 2 * ndir * (ctas // 8) * B * H
+    assert plan["flags"] == ndir * ctas
+
+
+def _k7w_cluster_replay(reverse, w_hh, gates, cs, g_hs, ctas, U):
+    """K7w's cluster design (`csrc/rnn_wide.cu` `lstm_wide_bwd_cluster_kernel`)
+    in torch, one direction: at each step phase A (the gate gradients of
+    every unit, as the plain version), then each CTA p's partial dh_rec over
+    all H units from its own 4U gate rows of W_hh in order (g, u) (rows of
+    units past H add 0), then each cluster's sums of its 8 CTAs' partials in
+    rank order, then dh_rec the clusters' sums in cluster order. Returns the
+    gate gradients (T, B, 4H)."""
+    T, B, H4 = gates.shape
+    H = H4 // 4
+    ia, fa, ga, oa = gates.split(H, dim=-1)
+    ia, fa, ga, oa = torch.sigmoid(ia), torch.sigmoid(fa), torch.tanh(ga), torch.sigmoid(oa)
+    tc = torch.tanh(cs)
+    c_prev = K.shift_prev(cs, reverse)
+    dh_rec, dc_rec = gates.new_zeros((B, H)), gates.new_zeros((B, H))
+    out = gates.new_empty((T, B, H4))
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        i, f, g, o = ia[t], fa[t], ga[t], oa[t]
+        dh = g_hs[t] + dh_rec
+        dc = dc_rec + dh * o * (1.0 - tc[t] * tc[t])
+        dg = torch.cat([dc * g * i * (1.0 - i), dc * c_prev[t] * f * (1.0 - f),
+                        dc * i * (1.0 - g * g), dh * tc[t] * o * (1.0 - o)], dim=-1)
+        out[t] = dg
+        parts = []
+        for p in range(ctas):
+            acc = gates.new_zeros((B, H))
+            for gate in range(4):
+                for u in range(max(0, min(U, H - p * U))):
+                    r = gate * H + p * U + u
+                    acc = acc + dg[:, r, None] * w_hh[r]
+            parts.append(acc)
+        sums = []
+        for c in range(ctas // K.WIDE_CLUSTER):
+            acc = gates.new_zeros((B, H))
+            for q in range(K.WIDE_CLUSTER):
+                acc = acc + parts[c * K.WIDE_CLUSTER + q]
+            sums.append(acc)
+        dh_rec = gates.new_zeros((B, H))
+        for s in sums:
+            dh_rec = dh_rec + s
+        dc_rec = dc * f
+    return out
+
+
+@pytest.mark.parametrize("H,reverse", [(258, False), (300, True)])
+def test_k7w_cluster_replay_matches_plain_and_jax(H, reverse):
+    """The cluster design's reduction order (`_k7w_cluster_replay`, at the
+    plan's CTAs and units for B=2 on a card that fits 2 clusters: 16 CTAs
+    in two clusters, the last CTA holding fewer units) gives the gate
+    gradients of K7's plain version and of JAX's `_lstm_rec_bwd` within
+    ATOL."""
+    rng = np.random.RandomState(H + 7)
+    T, B = 5, 2
+    w, x = _lstm_case(rng, T, B, H)
+    plan = K.wide_bwd_plan(B, H, 1, 16, lambda *a: 2)
+    assert plan["design"] == "cluster" and plan["grid"] == (16, 1)
+    ctas, U = plan["grid"][0], plan["units_per_cta"]
+    assert (ctas - 1) * U < H < ctas * U
+    _, res = LSTM_FWD(reverse, jnp.asarray(w[0]), jnp.asarray(x[0]))
+    g = rng.randn(T, B, H).astype(np.float32)
+    _, want_dx = LSTM_BWD(reverse, res, jnp.asarray(g))
+    t = torch.from_numpy
+    hs, cs = t(np.asarray(res[2])), t(np.asarray(res[3]))
+    gates = t(x[0]) + K.shift_prev(hs, reverse) @ t(w[0]).T  # the recomputed pre-activations
+    with torch.no_grad():
+        got = _k7w_cluster_replay(reverse, t(w[0]), gates, cs, t(g), ctas, U)
+        plain = K.lstm_rec_bwd_plain(reverse, t(w[0]), gates, cs, t(g))
+    np.testing.assert_allclose(_np(got), _np(plain), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(_np(got), want_dx, rtol=0, atol=ATOL)
