@@ -11,7 +11,7 @@ card; and the ASR, paired or speech-first train step's time in a given tree.
     python3 chip_ablate.py --kernel-mem TREE
     python3 chip_ablate.py --ctc-long [--wide] [--src TREE]
     python3 chip_ablate.py --k3-split [--src TREE]
-    python3 chip_ablate.py --k7w [--src TREE]
+    python3 chip_ablate.py --k1w|--k7w|--k8w [--src TREE]
     python3 chip_ablate.py --sanitize k7|k6|b6|b6_bwd --plan T=..,B=..[,...] [--variant unit_lanes]
     python3 chip_ablate.py --sanitize-all
 
@@ -33,7 +33,11 @@ kernel has a cut list per design, and the copy takes the list whose every
 marker is a line of the source: an edit that moves a marker fails loudly.
 ``--src TREE`` times the checkout at TREE the same way, with that tree's
 sources, wrappers and `chip_smoke.py`, which times an earlier design beside
-this one. ``--only ctc,rnn`` times the cuts of those sources alone. Prints
+this one. ``--k1w``, ``--k7w`` and ``--k8w`` cut the wide recurrences the
+same way at every shape of their `chip_smoke.py` rows (`wide_ablate`):
+each design forced whole and cut after each of its phases (`WIDE_CUTS`),
+with ``--src TREE`` a parent's kernels at the same shapes. ``--only
+ctc,rnn`` times the cuts of those sources alone. Prints
 the card's name and power limit, then one JSON line ``{"ablation": ...}``.
 
 The other three run the flagship ASR step (K6 at T=133), the paired step,
@@ -1687,12 +1691,20 @@ def k3_split(src_tree=None):
     print(json.dumps({"k3_split": result}))
 
 
-# K7w (``--k7w``) at every shape of chip_smoke.py's K7w row
-# (`WIDE_LSTM_SHAPES` and `K7W_MORE_SHAPES`: T, B, H, ndir). The first design's phases, each cut
-# ending every step after one (so no step waits on data that never comes):
-# the launch alone (and W_hh's staging); phase A (the gate gradients of the
-# CTA's units); the grid barrier; the staging of the step's whole B x 4H
-# gate gradients into every CTA; the whole kernel is the dot (dh_rec).
+# The wide recurrences (``--k1w``, ``--k7w``, ``--k8w``) at every shape of
+# chip_smoke.py's row of the kernel (its `WIDE_LSTM_SHAPES` or `WIDE_GRU_SHAPES`
+# and `WIDE_MORE_SHAPES`: B=64, and 1,024 units in both directions, where only
+# the first design fits), kept here so that a parent tree is timed at the
+# same shapes.
+WIDE_LSTM = ((47, 8, 512, 1), (133, 8, 512, 2), (32, 8, 1024, 1), (40, 5, 292, 2),
+             (40, 5, 258, 2))
+WIDE_GRU = ((47, 8, 512, 1), (32, 8, 1024, 1), (40, 5, 129, 2))
+WIDE_MORE = ((40, 64, 512, 2), (32, 8, 1024, 2))
+# Each design's phases, each cut ending every step after one (and dropping
+# the waits on the phases cut away, so that no step waits on data that
+# never comes). K7w's first design: the launch alone; phase A (the gate
+# gradients of the CTA's units); the grid barrier; the staging of the step's
+# whole B x 4H gate gradients into every CTA; the whole kernel is the dot.
 K7W_STEP = ("    if (threadIdx.x < B * uv) load(s + 1, threadIdx.x, first);\n"
             "    grid_sync(p.bar, (unsigned)(s + 1) * nblocks);\n"
             "    for (int c0 = 0; c0 < B; c0 += p.chunk) {\n"
@@ -1701,10 +1713,10 @@ K7W_STEP = ("    if (threadIdx.x < B * uv) load(s + 1, threadIdx.x, first);\n"
 K7W_TOP = "  const int dir = blockIdx.y, H = p.H, B = p.B, T = p.T, U = p.U, K = 4 * H;\n"
 K7W_DOT = ("      dot_rows(vec, K, U, nb, row, red, [&](int r, int b, float v) {\n"
            "        if (r < uv) p.dh[")
-# The cluster design's phases (csrc/rnn_wide.cu `lstm_wide_bwd_cluster_kernel`):
-# phase A; the partial product over the CTA's own gate rows (B1); the
-# cluster barrier; the cluster's sums over DSMEM and their flag (B2); the
-# whole kernel adds the flag waits and the L2 reads (C)
+# The cluster design of the backwards (csrc/rnn_wide.cu `bwd_cluster`, K7w
+# and K8w): phase A; the partial product over the CTA's own gate rows (B1);
+# the cluster barrier; the cluster's sums over DSMEM and their flag (B2);
+# the whole kernel adds the flag waits and the L2 reads (C)
 K7W_CL_TOP = "  const int N = gridDim.x, M = N / kCl, cta = blockIdx.x, r = cl_rank(), c = cta / kCl;\n"
 K7W_CL_A = "    __syncthreads();  // the gate gradients are in dgs\n"
 K7W_CL_B1 = "      cl_sync();  // every CTA of the cluster has its partials of the chunk in\n"
@@ -1712,62 +1724,164 @@ K7W_CL_B2 = "    // phase C: once every cluster's CTAs whose slices hold this CT
 K7W_CL_C0 = "    __syncthreads();  // this CTA's slice is written\n"
 CONTINUE = "    if (p.T > 0) continue;\n"
 CHUNK_CONTINUE = "      if (p.T > 0) continue;\n"  # the next chunk of batch rows
-# design -> (its `wide_bwd_plan` ``design`` in a tree that has several,
-# [(cut, [(old, new), ...])]); every design whose markers are all in the
-# tree's rnn_wide.cu once is cut
-K7W_CUTS = {
-    "a grid barrier a step, the step's gate gradients staged into every CTA": ("grid", [
-        ("launch", [(K7W_TOP, "  if (p.T > 0) return;\n" + K7W_TOP)]),
-        ("phase A", [(K7W_STEP, K7W_STEP.replace("    grid_sync(", CONTINUE + "    grid_sync("))]),
-        ("the grid barrier", [(K7W_STEP, K7W_STEP.replace("    for (int c0", CONTINUE
-                                                          + "    for (int c0"))]),
-        ("the staging", [(K7W_DOT, "      if (p.T > 0) continue;\n" + K7W_DOT)]),
-    ]),
-    "clusters of 8, the CTA's own gate rows, a reduce-scatter over DSMEM and L2": ("cluster", [
-        ("launch", [(K7W_CL_TOP, "  if (p.T > 0) return;\n" + K7W_CL_TOP)]),
-        ("phase A", [(K7W_CL_A, K7W_CL_A + CONTINUE)]),
-        ("the partial product", [(K7W_CL_B1, CHUNK_CONTINUE + K7W_CL_B1),
-                                 (K7W_CL_C0, CONTINUE + K7W_CL_C0)]),
-        ("the cluster barrier", [(K7W_CL_B1, K7W_CL_B1 + CHUNK_CONTINUE),
-                                 (K7W_CL_C0, CONTINUE + K7W_CL_C0)]),
-        ("the cluster's sums and their flag", [(K7W_CL_B2, CONTINUE + K7W_CL_B2)]),
-    ]),
+BWD_CLUSTER = "clusters of 8, the CTA's own gate rows, a reduce-scatter over DSMEM and L2"
+BWD_CLUSTER_CUTS = ("cluster", [
+    ("launch", [(K7W_CL_TOP, "  if (p.T > 0) return;\n" + K7W_CL_TOP)]),
+    ("phase A", [(K7W_CL_A, K7W_CL_A + CONTINUE)]),
+    ("the partial product", [(K7W_CL_B1, CHUNK_CONTINUE + K7W_CL_B1),
+                             (K7W_CL_C0, CONTINUE + K7W_CL_C0)]),
+    ("the cluster barrier", [(K7W_CL_B1, K7W_CL_B1 + CHUNK_CONTINUE),
+                             (K7W_CL_C0, CONTINUE + K7W_CL_C0)]),
+    ("the cluster's sums and their flag", [(K7W_CL_B2, CONTINUE + K7W_CL_B2)]),
+])
+# K8w's first design (`gru_wide_bwd_kernel`): the launch alone; phase A (dh2
+# and the hidden-side gate gradients of the CTA's units, published); the grid
+# barrier; the staging of the step's whole B x 3H vector into every CTA; the
+# whole kernel is the dot
+K8W_TOP = "  const int dir = blockIdx.y, H = p.H, B = p.B, T = p.T, U = p.U, K = 3 * H;\n"
+K8W_STEP = ("    grid_sync(p.bar, (unsigned)(s + 1) * nblocks);\n"
+            "    const float* v = p.v")
+K8W_DOT = "      dot_rows(vec, K, U, nb, row, red, [&](int r, int b, float sum) {\n"
+# K1w's first design (`rec_wide_kernel<4>`, which K2w shares): the launch and
+# W_hh's staging; the cell update (x_proj and the cell state from global
+# memory, hs and cs written); the grid barrier; the staging of the whole
+# B x H of h into every CTA; the whole kernel is the dot
+K1W_START = "  int c0_ = 0;  // the chunk's first batch row\n"
+K1W_PRODUCT = ("      if (s > 0) {\n"
+               "        __syncthreads();  // the last chunk's cell updates have read vec and acc\n")
+K1W_SYNC = "    if (s + 1 < T) grid_sync(p.bar, (unsigned)(s + 1) * nblocks);\n"
+K1W_DOT = ("        dot_rows(vec, H, rows, nb, row, red,\n"
+           "                 [&](int r, int b, float v) { acc[b * rows + r] = v; });\n")
+NO_PRODUCT = "      if (s > 0 && p.T < 0) {\n"
+# K1w's cluster design (`lstm_wide_fwd_cluster_kernel`): the launch (W_hh's
+# staging, the first prefetch); the cell update with the all-gather (st.async
+# into the cluster's CTAs, the words in L2) and the wait on the cluster's
+# mbarrier; the product on the own cluster's columns and the slices' sums;
+# the polls of the other clusters' words and their staging; the whole kernel
+# adds their product
+K1W_CL_LOOP = ("  for (int s = 0; s < T; ++s) {\n"
+               "    const int t = rev ? T - 1 - s : s, tp = rev ? t + 1 : t - 1;\n")
+K1W_CL_PRODUCT = "      if (s > 0) {\n        float a[4][kChunk];\n"
+K1W_CL_OTHERS = ("        if (ko > 0) {\n"
+                 "          __syncthreads();  // vec's last readers are done\n")
+K1W_CL_FMA = ("          if (ts < S) fma_cols(vec, ws + (size_t)kc * R, R, tg, ko * ts / S, "
+              "ko * (ts + 1) / S, a);\n")
+# design -> (its plan's ``design`` in a tree that has several, [(cut,
+# [(old, new), ...])]); every design whose markers are all in the tree's
+# rnn_wide.cu once is cut
+WIDE_CUTS = {
+    "k7w": {
+        "a grid barrier a step, the step's gate gradients staged into every CTA": ("grid", [
+            ("launch", [(K7W_TOP, "  if (p.T > 0) return;\n" + K7W_TOP)]),
+            ("phase A", [(K7W_STEP, K7W_STEP.replace("    grid_sync(",
+                                                     CONTINUE + "    grid_sync("))]),
+            ("the grid barrier", [(K7W_STEP, K7W_STEP.replace("    for (int c0", CONTINUE
+                                                              + "    for (int c0"))]),
+            ("the staging", [(K7W_DOT, CHUNK_CONTINUE + K7W_DOT)]),
+        ]),
+        BWD_CLUSTER: BWD_CLUSTER_CUTS,
+    },
+    "k8w": {
+        "a grid barrier a step, the step's B x 3H vector staged into every CTA": ("grid", [
+            ("launch", [(K8W_TOP, "  if (p.T > 0) return;\n" + K8W_TOP)]),
+            ("phase A", [(K8W_STEP, CONTINUE + K8W_STEP)]),
+            ("the grid barrier", [(K8W_STEP, K8W_STEP.replace("    const float* v",
+                                                              CONTINUE + "    const float* v"))]),
+            ("the staging", [(K8W_DOT, CHUNK_CONTINUE + K8W_DOT)]),
+        ]),
+        BWD_CLUSTER: BWD_CLUSTER_CUTS,
+    },
+    "k1w": {
+        "a grid barrier a step, the whole h staged into every CTA": ("grid", [
+            ("launch", [(K1W_START, "  if (p.T > 0) return;\n" + K1W_START)]),
+            ("the cell update", [(K1W_PRODUCT, NO_PRODUCT), (K1W_SYNC, "")]),
+            ("the grid barrier", [(K1W_PRODUCT, NO_PRODUCT)]),
+            ("the staging", [(K1W_DOT, "")]),
+        ]),
+        "clusters of 8, h all-gathered over DSMEM and through L2 as words of h and its step": (
+            "cluster", [
+                ("launch", [(K1W_CL_LOOP, "  if (p.T > 0) return;\n" + K1W_CL_LOOP)]),
+                ("the cell update, the all-gather and the mbarrier wait", [
+                    (K1W_CL_PRODUCT, K1W_CL_PRODUCT.replace("(s > 0)", "(s > 0 && p.T < 0)"))]),
+                ("the own columns' product", [(K1W_CL_OTHERS, K1W_CL_OTHERS.replace(
+                    "(ko > 0)", "(ko > 0 && p.T < 0)"))]),
+                ("the words' polls and the staging", [(K1W_CL_FMA, "")]),
+            ]),
+    },
 }
 
 
-def k7w(src_tree=None):
-    """K7w (`lstm_rec_bwd_wide`, through `bilstm_rec_bwd`) of the checkout at
-    ``src_tree`` (default: this one) at every shape of `chip_smoke.
-    WIDE_LSTM_SHAPES` and `K7W_MORE_SHAPES` (where the tree has them),
-    graph-replayed: whole (held to its plain version),
-    the cuts of each design of `K7W_CUTS` that finds its markers in the
-    tree's rnn_wide.cu, with that design forced (``<design>: to <phase>``:
-    the kernel up to and including that phase), in a tree with
-    `wide_bwd_plan` each design forced by replacing the plan
-    (``design <name>``: time, largest difference from the plain version,
-    reruns), and the whole kernel again; the plan at each shape. Prints
-    the card, then one JSON line ``{"k7w": ...}``."""
+def _one_dir(a, per_dir):
+    """A two-direction argument list with the second direction's tensors None."""
+    return [t if i % 2 == 0 else None for i, t in enumerate(a[:2 * per_dir])] + a[2 * per_dir:]
+
+
+# kind -> (wrapper, its plain version, the `wide_design_plan` kernel, shapes,
+# inputs(chip_smoke, randn, unif, T, B, H, ndir))
+WIDE_ABLATIONS = {
+    "k1w": ("bilstm_rec_cs", "bilstm_rec_cs_plain", "lstm", WIDE_LSTM + WIDE_MORE,
+            lambda cs, randn, unif, T, B_, H, n: (
+                lambda a: a if n == 2 else _one_dir(a, 2))(cs._lstm_inputs(randn, unif, T, B_, H))),
+    "k7w": ("bilstm_rec_bwd", "bilstm_rec_bwd_plain", "lstm_bwd", WIDE_LSTM + WIDE_MORE,
+            lambda cs, randn, unif, *sh: cs._lstm_bwd_inputs(randn, unif, *sh)),
+    "k8w": ("bigru_rec_bwd", "bigru_rec_bwd_plain", "gru_bwd", WIDE_GRU + WIDE_MORE,
+            lambda cs, randn, unif, *sh: cs._gru_bwd_inputs(randn, unif, *sh)),
+}
+
+
+def wide_ablate(kind, src_tree=None):
+    """K1w (``kind`` "k1w": `bilstm_rec_cs`), K7w ("k7w": `bilstm_rec_bwd`)
+    or K8w ("k8w": `bigru_rec_bwd`) of the checkout at ``src_tree``
+    (default: this one) at every shape of `WIDE_ABLATIONS`, graph-replayed:
+    whole (held to its plain version), the cuts of each design of
+    `WIDE_CUTS` that finds its markers in the tree's rnn_wide.cu, with that
+    design forced (``<design>: to <phase>``: the kernel up to and including
+    that phase), in a tree with several designs each forced whole by
+    replacing the plan (``design <name>``: time, largest difference from
+    the plain version, reruns), and the whole kernel again; the plan at
+    each shape. Prints the card, then one JSON line ``{kind: ...}``."""
     if src_tree is not None:
         src_tree = enter_tree(src_tree)
     import chip_smoke as cs
     from semi_tts_tpu_torch import use_fp32
     from semi_tts_tpu_torch.kernels import build, rnn as k
 
+    wrapper, plain_name, kernel, shape_list, make = WIDE_ABLATIONS[kind]
     card = cs.phase_device()
     use_fp32()
     mine = build.load("rnn_wide")
     text = open(os.path.join(build.CSRC, "rnn_wide.cu")).read()
     out_dir = build.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
-    designs = {d: v for d, v in K7W_CUTS.items()
-               if all(text.count(old) == 1 for _, edits in v[1] for old, _ in edits)}
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the name of the plan the wrapper asks (a tree with several designs), its
+    # forced designs (the cluster design where it fits: the plan's own choice
+    # at these shapes) and the plan at a shape
+    if hasattr(k, "wide_design_plan"):
+        attr, real = "wide_design_plan", k.wide_design_plan
+        forced = {"cluster": real, "grid": lambda kern, B_, H, n, d: dict(
+            k.wide_plan(kern, B_, H, n, sms), design="grid")}
+        plan_at = lambda sh: real(kernel, sh[1], sh[2], sh[3], dev)  # noqa: E731
+    elif kind == "k7w" and hasattr(k, "wide_bwd_plan"):
+        attr, real = "wide_bwd_plan", k.wide_bwd_plan
+        forced = {"cluster": real, "grid": lambda B_, H, n, s_, fit: dict(
+            k.wide_plan("lstm_bwd", B_, H, n, s_), design="grid")}
+        plan_at = lambda sh: real(sh[1], sh[2], sh[3], sms, k._cluster_fit)  # noqa: E731
+    else:
+        attr, real, forced = None, None, {}
+        plan_at = lambda sh: k.wide_plan(kernel, sh[1], sh[2], sh[3], sms)  # noqa: E731
+    # a tree of one design is cut as that design (its first)
+    designs = {d: v for d, v in WIDE_CUTS[kind].items()
+               if all(text.count(old) == 1 for _, edits in v[1] for old, _ in edits)
+               and (forced or v[0] == "grid")}
     procs = {}
     for d, (force, cuts) in designs.items():
         for i, (name, edits) in enumerate(cuts):
             cut_text = text
             for old, new in edits:
                 cut_text = cut_text.replace(old, new)
-            cu = out_dir / f"k7w_{force}_{i}.cu"
+            cu = out_dir / f"{kind}_{force}_{i}.cu"
             cu.write_text(cut_text)
             procs[(force, name)] = (subprocess.Popen(
                 [build._nvcc(), *build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
@@ -1776,7 +1890,6 @@ def k7w(src_tree=None):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"chip_ablate: nvcc failed for {name}:\n{log}")
-    dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(29)
 
     def randn(*shape, scale=1.0):
@@ -1785,62 +1898,51 @@ def k7w(src_tree=None):
     def unif(*shape, a):
         return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * a
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    shapes = {cs.shape_key(*sh): (sh, cs._lstm_bwd_inputs(randn, unif, *sh))
-              for sh in cs.WIDE_LSTM_SHAPES + getattr(cs, "K7W_MORE_SHAPES", ())}
+    run, plain = getattr(k, wrapper), getattr(k, plain_name)
+    shapes = {cs.shape_key(*sh): (sh, make(cs, randn, unif, *sh)) for sh in shape_list}
+
+    def outs(x):
+        return [t for t in (x if isinstance(x, tuple) else (x,)) if t is not None]
 
     def times():
-        return {key: cs.device_ms(lambda a=a: k.bilstm_rec_bwd(*a), 10)
-                for key, (_, a) in shapes.items()}
+        return {key: cs.device_ms(lambda a=a: run(*a), 10) for key, (_, a) in shapes.items()}
 
     def errs():
-        return {key: cs.max_err(k.bilstm_rec_bwd(*a), k.bilstm_rec_bwd_plain(*a))
-                for key, (_, a) in shapes.items()}
+        return {key: cs.max_err(run(*a), plain(*a)) for key, (_, a) in shapes.items()}
 
     def reruns():  # the kernel twice on the same inputs, bit for bit
-        out = {}
-        for key, (_, a) in shapes.items():
-            x, y = k.bilstm_rec_bwd(*a), k.bilstm_rec_bwd(*a)
-            out[key] = all(torch.equal(p, q) for p, q in zip(x, y) if p is not None)
-        return out
+        return {key: all(torch.equal(p, q) for p, q in zip(outs(run(*a)), outs(run(*a))))
+                for key, (_, a) in shapes.items()}
 
     result = {"card": card, "tree": str(build.CSRC), "designs_cut": list(designs)}
-    real = getattr(k, "wide_bwd_plan", None)
-    # each design's plan (the cluster design where it fits: the plan's own
-    # choice at these shapes); None where the tree has one design
-    forced = {} if real is None else {
-        "cluster": real,
-        "grid": lambda B_, H, n, s_, fit: dict(k.wide_plan("lstm_bwd", B_, H, n, s_), design="grid")}
     with torch.no_grad():
         result["ms"], result["max_abs_err"], result["rerun_equal"] = times(), errs(), reruns()
-        result["plans"] = {key: k.wide_plan("lstm_bwd", sh[1], sh[2], sh[3], sms)
-                           for key, (sh, _) in shapes.items()} if not hasattr(
-            k, "wide_bwd_plan") else {key: k.wide_bwd_plan(sh[1], sh[2], sh[3], sms, k._cluster_fit)
-                                      for key, (sh, _) in shapes.items()}
+        result["plans"] = {key: plan_at(sh) for key, (sh, _) in shapes.items()}
         result["us_per_step"] = {key: 1e3 * v / shapes[key][0][0] for key, v in result["ms"].items()}
-        print(json.dumps({"k7w": result}), flush=True)
+        print(json.dumps({kind: result}), flush=True)
         for name, plan in forced.items():
-            k.wide_bwd_plan = plan
+            setattr(k, attr, plan)
             try:
                 result[f"design {name}"] = {"ms": times(), "max_abs_err": errs(),
                                             "rerun_equal": reruns()}
             finally:
-                k.wide_bwd_plan = real
+                setattr(k, attr, real)
         result["cuts"] = {}
         for (force, name), (_, so) in procs.items():
+            print(f"{kind} cut {force}: to {name}", flush=True)
             build._libs["rnn_wide"] = ctypes.CDLL(str(so))
             build.bind.cache_clear()
             if forced:
-                k.wide_bwd_plan = forced[force]
+                setattr(k, attr, forced[force])
             try:
                 result["cuts"][f"{force}: to {name}"] = times()
             finally:
                 if forced:
-                    k.wide_bwd_plan = real
+                    setattr(k, attr, real)
         build._libs["rnn_wide"] = mine
         build.bind.cache_clear()
         result["ms again"] = times()
-    print(json.dumps({"k7w": result}))
+    print(json.dumps({kind: result}))
 
 
 def step_busy(tree, kind):
@@ -2187,8 +2289,9 @@ if __name__ == "__main__":
         sys.exit(kernel_mem(sys.argv[2]))
     if sys.argv[1:2] == ["--k3-split"]:
         sys.exit(k3_split(sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None))
-    if sys.argv[1:2] == ["--k7w"]:
-        sys.exit(k7w(sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None))
+    if sys.argv[1:2] in (["--k1w"], ["--k7w"], ["--k8w"]):
+        tree = sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None
+        sys.exit(wide_ablate(sys.argv[1][2:], tree))
     if sys.argv[1:2] == ["--ctc-long"]:
         tree = sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None
         sys.exit(ctc_wide(tree) if "--wide" in sys.argv else ctc_long(tree))

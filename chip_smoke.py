@@ -169,12 +169,15 @@ Phases, each fatal on failure:
 12. the wide routes of the recurrences (`phase_wide`): K1w, K7w, K2w and
    K8w, which the wrappers launch past the narrow plans
    (`kernels.rnn.lstm_route`/`gru_route`), each held to its plain version
-   at 1e-4 and timed (graph-replayed, beside its plain version, its
-   bound and cuDNN's LSTM or GRU, forward or backward) at every shape of
+   at 1e-4, a rerun and two graph replays bit for bit, and timed
+   (graph-replayed, beside its plain version, its bound and cuDNN's LSTM
+   or GRU, forward or backward) at every shape of
    `WIDE_LSTM_SHAPES`/`WIDE_GRU_SHAPES` (``ms_by_shape``, ...,
-   ``plans_by_shape``; K7w also at `K7W_MORE_SHAPES`, each shape's plan
-   held to its design in `K7W_DESIGNS`: both designs, and the cluster
-   design's partials in chunks of batch rows); then (a) `RNNLM` LSTM and (b) `RNNLM` GRU at their
+   ``plans_by_shape``; K1w, K7w and K8w also at `WIDE_MORE_SHAPES`, each
+   shape's plan held to its design in `K1W_DESIGNS`, `K7W_DESIGNS`,
+   `K8W_DESIGNS`: both designs of each, and the cluster designs at B=64
+   in chunks of batch rows); then
+   (a) `RNNLM` LSTM and (b) `RNNLM` GRU at their
    default width, 512 units and 2 layers, trained at B=8 x 47 inputs
    through `rnnlm_step` (a `StepProgram`, Adam with the Noam schedule),
    and (c) the ASR step at ``model.encoder.rnn_dim`` 512 (`phase_training`
@@ -399,6 +402,31 @@ def device_ms(fn, iters, reps=3):
     return start.elapsed_time(end) / (reps * iters)
 
 
+def graph_replays_equal(fn, eager):
+    """One ``fn()`` captured in a CUDA graph and replayed twice: whether each
+    replay's outputs equal the other's and ``eager``'s (``fn()``'s outputs
+    outside the graph, a tensor or a tuple with Nones) bit for bit."""
+    def outs(x):
+        return [t for t in (x if isinstance(x, tuple) else (x,)) if t is not None]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = outs(fn())
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([o.clone() for o in captured])
+    del graph
+    return all(torch.equal(x, y) and torch.equal(x, e)
+               for x, y, e in zip(replays[0], replays[1], outs(eager)))
+
+
 def max_err(got, want):
     if isinstance(got, tuple):
         if [g is None for g in got] != [w is None for w in want]:
@@ -585,7 +613,8 @@ def _rnn_library_backward(cls, randn, dev, T, B_, H, ndir, D):
 def ptxas_report(log):
     """Registers, spills and static shared memory of each instantiation of
     the recurrence kernels (K1 with its cell-state flag, K2, K7, K8, and the
-    wide routes: `rec_wide_kernel<4>` K1w, `<3>` K2w, K7w, K8w), of the
+    wide routes: `rec_wide_kernel<4>` K1w, `<3>` K2w, K7w, K8w, and the
+    cluster designs of K1w, K7w and K8w), of the
     attention kernels (K3 and its split route's kernel; K9 by span and
     loc_lin staging, and its sums kernel), of K6 (by states a lane, the
     cluster route's two by theirs, the chained route's two by theirs) and of
@@ -594,7 +623,7 @@ def ptxas_report(log):
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(lstm_rec|gru_rec|lstm_bwd|gru_bwd|rec_wide|lstm_wide_bwd_cluster|"
-                      r"lstm_wide_bwd|gru_wide_bwd|"
+                      r"gru_wide_bwd_cluster|lstm_wide_fwd_cluster|lstm_wide_bwd|gru_wide_bwd|"
                       r"attention_bwd_sum|attention_bwd|attention_step|attention_split|"
                       r"ctc_alpha_cluster|ctc_beta_grad_cluster|ctc_alpha_chain|ctc_beta_grad_chain|"
                       r"ctc_alpha|ctc_beta_grad|"
@@ -2058,10 +2087,11 @@ KERNEL_NAMES = {"bilstm_rec": r"lstm_rec_kernel<[^>]*false>",
                 "gl_ola_frame": r"gl_ola_frame_kernel", "stft_frames": r"stft_frames_kernel",
                 "spec_db": r"spec_db_kernel", "ctc_alpha": r"ctc_alpha_kernel",
                 "ctc_beta_grad": r"ctc_beta_grad_kernel", "trim_merge": r"trim_merge_kernel",
-                "trim_merge_bwd": r"trim_merge_bwd_kernel", "lstm_rec_wide": r"rec_wide_kernel<4>",
+                "trim_merge_bwd": r"trim_merge_bwd_kernel",
+                "lstm_rec_wide": r"rec_wide_kernel<4>|lstm_wide_fwd_cluster_kernel",
                 "lstm_rec_bwd_wide": r"lstm_wide_bwd_kernel|lstm_wide_bwd_cluster_kernel",
                 "gru_rec_wide": r"rec_wide_kernel<3>",
-                "gru_rec_bwd_wide": r"gru_wide_bwd_kernel",
+                "gru_rec_bwd_wide": r"gru_wide_bwd_kernel|gru_wide_bwd_cluster_kernel",
                 # the long-length routes (phase 13)
                 "attention_step_split": r"attention_split_kernel",
                 "ctc_alpha_shared": r"ctc_alpha_kernel<", "ctc_beta_grad_shared": r"ctc_beta_grad_kernel<",
@@ -3809,13 +3839,18 @@ def phase_pretrain(card, asr_ckpt):
 WIDE_LSTM_SHAPES = ((47, 8, 512, 1), (133, 8, 512, 2), (32, 8, 1024, 1), (40, 5, 292, 2),
                     (40, 5, 258, 2))
 WIDE_GRU_SHAPES = ((47, 8, 512, 1), (32, 8, 1024, 1), (40, 5, 129, 2))
-# K7w's design at each shape it is held at (`wide_bwd_plan` on an H100): the cluster
-# design at `WIDE_LSTM_SHAPES` and at B=64 (its partials (2, B, H) past shared memory:
-# 32 batch rows at a time), the first (grid) design where the cluster design's shared
-# memory cannot hold a CTA's 4U rows of W_hh (1,024 units in both directions)
-K7W_MORE_SHAPES = ((40, 64, 512, 2), (32, 8, 1024, 2))
-K7W_DESIGNS = {**{sh: "cluster" for sh in WIDE_LSTM_SHAPES},
+# The design of K1w, K7w and K8w at each shape they are held at
+# (`wide_design_plan` on an H100): the cluster design at their rows' shapes and
+# at B=64 (K7w's and K8w's partials (2, B, H) past shared memory: 32 batch rows
+# at a time; K1w 8 chunks of 8 batch rows), the first (grid) design where a
+# CTA's G*U rows of W_hh and its buffers do not fit shared memory (1,024
+# units in both directions)
+WIDE_MORE_SHAPES = ((40, 64, 512, 2), (32, 8, 1024, 2))
+K1W_DESIGNS = K7W_DESIGNS = {**{sh: "cluster" for sh in WIDE_LSTM_SHAPES},
+                             (40, 64, 512, 2): "cluster", (32, 8, 1024, 2): "grid"}
+K8W_DESIGNS = {**{sh: "cluster" for sh in WIDE_GRU_SHAPES},
                (40, 64, 512, 2): "cluster", (32, 8, 1024, 2): "grid"}
+WIDE_DESIGNS = {"lstm": K1W_DESIGNS, "lstm_bwd": K7W_DESIGNS, "gru_bwd": K8W_DESIGNS}
 WIDE_KERNELS = ("lstm_rec_wide", "lstm_rec_bwd_wide", "gru_rec_wide", "gru_rec_bwd_wide")
 NARROW_RECURRENCES = ("bilstm_rec", "bilstm_rec_cs", "bilstm_rec_bwd", "bigru_rec",
                       "bigru_rec_bwd")
@@ -3852,7 +3887,8 @@ def _wide_specs(randn, unif, dev):
             "included; {}")
     return [
         dict(name="lstm_rec_wide", kernel=k.bilstm_rec_cs, plain=k.bilstm_rec_cs_plain,
-             inputs=lstm_in, cost=_lstm_cs_cost, shapes=WIDE_LSTM_SHAPES, plan="lstm",
+             inputs=lstm_in, cost=_lstm_cs_cost, shapes=WIDE_LSTM_SHAPES + WIDE_MORE_SHAPES,
+             plan="lstm",
              library=forward(torch.nn.LSTM), timing=device_ms,
              note=note.format("LSTM", "forward, graph-timed"),
              replaces="tools/proto_pallas_rnn.py:33 (pallas_lstm_rec, pallas_call at :61); "
@@ -3860,7 +3896,7 @@ def _wide_specs(randn, unif, dev):
              "H % 4 != 0)"),
         dict(name="lstm_rec_bwd_wide", kernel=k.bilstm_rec_bwd, plain=k.bilstm_rec_bwd_plain,
              inputs=lambda *sh: _lstm_bwd_inputs(randn, unif, *sh), cost=_lstm_bwd_cost,
-             shapes=WIDE_LSTM_SHAPES + K7W_MORE_SHAPES, plan="lstm_bwd",
+             shapes=WIDE_LSTM_SHAPES + WIDE_MORE_SHAPES, plan="lstm_bwd",
              library=backward(torch.nn.LSTM),
              timing=time_ms,
              note=note.format("LSTM", "backward: data and weight gradients (CUDA events, eager)"),
@@ -3873,7 +3909,8 @@ def _wide_specs(randn, unif, dev):
              replaces="semi_tts_tpu/ops/rnn.py:225 (_gru_rec_fwd), past K2's plan (H > 128)"),
         dict(name="gru_rec_bwd_wide", kernel=k.bigru_rec_bwd, plain=k.bigru_rec_bwd_plain,
              inputs=lambda *sh: _gru_bwd_inputs(randn, unif, *sh), cost=_gru_bwd_cost,
-             shapes=WIDE_GRU_SHAPES, plan="gru_bwd", library=backward(torch.nn.GRU),
+             shapes=WIDE_GRU_SHAPES + WIDE_MORE_SHAPES, plan="gru_bwd",
+             library=backward(torch.nn.GRU),
              timing=time_ms,
              note=note.format("GRU", "backward: data and weight gradients (CUDA events, eager)"),
              replaces="semi_tts_tpu/ops/rnn.py:244 (_gru_rec_bwd, the backward scan), past "
@@ -3882,12 +3919,13 @@ def _wide_specs(randn, unif, dev):
 
 def wide_kernel_rows(dev):
     """The kernels line's rows of the wide routes: each held to its plain
-    version at 1e-4 at every shape of its list, timed there (graph-replayed),
-    beside its plain version, its bound and the cuDNN yardstick; the row's
-    own numbers at its first shape; K7w's plan at each shape must take the
-    design of `K7W_DESIGNS`, so that both designs are held. Also K1w without
-    cell states (both wrappers) and K2w through `gru_rec`, one direction
-    reversed."""
+    version at 1e-4 at every shape of its list, a rerun and two replays of a
+    CUDA graph of it bit for bit, timed there (graph-replayed), beside its
+    plain version, its bound and the cuDNN yardstick; the row's own numbers
+    at its first shape; the plan of K1w, K7w and K8w at each shape must take
+    the design of `WIDE_DESIGNS`, so that both designs of each are held.
+    Also K1w without cell states (both wrappers) and K2w through `gru_rec`,
+    one direction reversed."""
     from semi_tts_tpu_torch.kernels import rnn as k
 
     g = torch.Generator(device=dev).manual_seed(17)
@@ -3898,7 +3936,6 @@ def wide_kernel_rows(dev):
     def unif(*shape, a):
         return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * a
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     with torch.no_grad():
         w, _, x, _ = _lstm_inputs(randn, unif, 40, 5, 258)
@@ -3910,32 +3947,35 @@ def wide_kernel_rows(dev):
                  "gru_rec reversed T=40 B=5 H=129": max_err(k.gru_rec(True, wg, bg, xg),
                                                             k.gru_rec_plain(True, wg, bg, xg))}
         for spec in _wide_specs(randn, unif, dev):
-            by = {n: {} for n in ("err", "ms", "plain", "bound", "library", "plan", "rerun")}
+            by = {n: {} for n in ("err", "ms", "plain", "bound", "library", "plan", "rerun",
+                                  "replays")}
             for sh in spec["shapes"]:
                 key, a = shape_key(*sh), spec["inputs"](*sh)
                 run = lambda a=a: spec["kernel"](*a)
                 first = run()
                 by["err"][key] = max_err(first, spec["plain"](*a))
-                # a rerun bit for bit (fixed summation orders, no atomics on values)
+                # a rerun and two graph replays bit for bit (fixed summation
+                # orders, no atomics on values)
                 again = run()
                 by["rerun"][key] = all(torch.equal(x, y) for x, y in zip(
                     first if isinstance(first, tuple) else (first,),
                     again if isinstance(again, tuple) else (again,)) if x is not None)
-                if not (by["err"][key] <= 1e-4 and by["rerun"][key]):
+                by["replays"][key] = graph_replays_equal(run, first)
+                if not (by["err"][key] <= 1e-4 and by["rerun"][key] and by["replays"][key]):
                     raise SystemExit(f"chip_smoke: {spec['name']} disagrees with its plain "
-                                     f"version or its rerun at {key}: {by['err'][key]}, "
-                                     f"rerun equal {by['rerun'][key]}")
+                                     f"version, its rerun or its graph replays at {key}: "
+                                     f"{by['err'][key]}, rerun equal {by['rerun'][key]}, "
+                                     f"replays equal {by['replays'][key]}")
                 by["ms"][key] = device_ms(run, 10)
                 by["plain"][key] = device_ms(lambda a=a: spec["plain"](*a), 2)
                 by["bound"][key] = bound(spec["cost"](*sh), run)
                 by["library"][key] = spec["timing"](spec["library"](*sh), 10)
-                by["plan"][key] = (k.wide_bwd_plan(sh[1], sh[2], sh[3], sms, k._cluster_fit)
-                                   if spec["plan"] == "lstm_bwd" else
-                                   k.wide_plan(spec["plan"], sh[1], sh[2], sh[3], sms))
-                if spec["plan"] == "lstm_bwd" and by["plan"][key]["design"] != K7W_DESIGNS[sh]:
-                    raise SystemExit(f"chip_smoke: K7w's plan at {key} took the "
-                                     f"{by['plan'][key]['design']} design, not "
-                                     f"{K7W_DESIGNS[sh]}: {by['plan'][key]}")
+                by["plan"][key] = k.wide_design_plan(spec["plan"], sh[1], sh[2], sh[3], dev)
+                want = WIDE_DESIGNS.get(spec["plan"], {}).get(sh, "grid")
+                if by["plan"][key]["design"] != want:
+                    raise SystemExit(f"chip_smoke: {spec['name']}'s plan at {key} took the "
+                                     f"{by['plan'][key]['design']} design, not {want}: "
+                                     f"{by['plan'][key]}")
             main = shape_key(*spec["shapes"][0])
             print(f"kernel {spec['name']}: max_abs_err {max(by['err'].values()):.3e} (tol 1e-4)",
                   flush=True)
@@ -3951,7 +3991,8 @@ def wide_kernel_rows(dev):
                          "bound_ms_by_shape": {n: b[0] for n, b in by["bound"].items()},
                          "library_ms_by_shape": by["library"],
                          "max_abs_err_by_shape": by["err"], "plans_by_shape": by["plan"],
-                         "rerun_equal_by_shape": by["rerun"]})
+                         "rerun_equal_by_shape": by["rerun"],
+                         "replays_equal_by_shape": by["replays"]})
     if not max(extra.values()) <= 1e-4:
         raise SystemExit(f"chip_smoke: a wide route disagrees with its plain version: {extra}")
     rows[0]["checks"] = extra

@@ -21,7 +21,9 @@ sizes each takes (K7 takes K1's, K8 K2's).
 
 Past those sizes the wrappers launch the wide routes of `csrc/rnn_wide.cu`
 (K1w, K7w, K2w, K8w), which take any H >= 1: `lstm_route` and `gru_route`
-pick the route, `wide_plan` plans a wide launch, and each wide launch is
+pick the route, `wide_design_plan` plans a wide launch (K1w's, K7w's and
+K8w's cluster designs where they fit, else `wide_plan`'s first design, the
+only one K2w has), and each wide launch is
 counted on its own wrapper (`lstm_rec_wide`, `lstm_rec_bwd_wide`,
 `gru_rec_wide`, `gru_rec_bwd_wide`), not on the narrow one. Every public
 wrapper reports the dot FLOPs of the JAX scan it replaces to
@@ -49,7 +51,7 @@ SMEM_PER_BLOCK = build.SMEM_PER_BLOCK
 WIDE_THREADS = 256          # K1w, K7w, K2w, K8w: threads of a CTA
 WIDE_CHUNK = 8              # batch rows of a staged vector chunk, at most
 WIDE_ROWS = 4               # rows of W a warp accumulates at once
-WIDE_CLUSTER = 8            # K7w's cluster design: CTAs a thread-block cluster (kCl)
+WIDE_CLUSTER = 8            # the cluster designs: CTAs a thread-block cluster (kCl)
 WIDE_ONE_CTA_SMEM = 116 * 1024  # its shared memory at least: one CTA an SM (kOneCtaSmem)
 
 
@@ -110,79 +112,133 @@ def wide_plan(kernel: str, B: int, H: int, ndir: int, sms: int) -> dict:
                 smem_bytes=4 * (fixed + rows_smem * k))
 
 
-def _cluster_smem(B: int, H: int, U: int, rows: int) -> int:
-    """Bytes of shared memory of a cluster-design K7w CTA (csrc/rnn_wide.cu
-    `cluster_smem_bytes`): its gate gradients (ceil(B / 8), 4U, 8), its
-    dh_rec and dc (B, U each, each rounded up to 4 floats), its 4U rows of
-    W_hh, the partials of ``rows`` batch rows at a time (2, rows, H); at
-    least `WIDE_ONE_CTA_SMEM`, so that one CTA takes an SM."""
-    return max(4 * (_cluster_fixed(B, H, U) + 2 * rows * H), WIDE_ONE_CTA_SMEM)
+def _cluster_smem(G: int, B: int, H: int, U: int, rows: int) -> int:
+    """Bytes of shared memory of a cluster-design K7w (``G`` 4) or K8w (3)
+    CTA (csrc/rnn_wide.cu `cluster_smem_bytes`): its part of the step's
+    vector (ceil(B / 8), G*U, 8), its dh_rec and carried values (B, U each,
+    each rounded up to 4 floats), its G*U rows of W_hh, the partials of
+    ``rows`` batch rows at a time (2, rows, H); at least
+    `WIDE_ONE_CTA_SMEM`, so that one CTA takes an SM."""
+    return max(4 * (_cluster_fixed(G, B, H, U) + 2 * rows * H), WIDE_ONE_CTA_SMEM)
 
 
-def _cluster_fixed(B: int, H: int, U: int) -> int:
-    """Floats of a cluster-design K7w CTA's shared memory but its partials."""
-    return -(-B // WIDE_CHUNK) * WIDE_CHUNK * 4 * U + 2 * _round_up(B * U, 4) + 4 * U * H
+def _cluster_fixed(G: int, B: int, H: int, U: int) -> int:
+    """Floats of a cluster-design backward CTA's shared memory but its partials."""
+    return -(-B // WIDE_CHUNK) * WIDE_CHUNK * G * U + 2 * _round_up(B * U, 4) + G * U * H
 
 
-def wide_bwd_plan(B: int, H: int, ndir: int, sms: int, max_clusters) -> dict:
-    """K7w's launch plan: the cluster design (``design`` "cluster": each
-    CTA's gate gradients times its own gate rows of W_hh, a reduce-scatter
-    over the cluster and the L2) where its CTAs hold all of their 4U gate
-    rows and the partials of at least `WIDE_CHUNK` batch rows in shared
-    memory and its grid fits the card at once, else the first design
-    (`wide_plan` "lstm_bwd", ``design`` "grid": a grid barrier a step, the
-    step's gate gradients staged into every CTA, W_hh's rows that do not
-    fit read from L2), which `chip_ablate.py --k7w` found slower at every
-    shape both take (NVIDIA H100 80GB HBM3, 700 W). The cluster design:
-    ``grid`` (N, ndir), N CTAs a direction a multiple of `WIDE_CLUSTER`: the
-    most up to ``sms`` / ndir whose clusters ``max_clusters(B, H, U,
-    rows)`` (the card's count of co-resident clusters at that plan) takes,
-    U = ceil(H / N) units a CTA and N the fewest multiple of 8 CTAs that
-    hold H; the partials (2, B, H) ``batch_rows`` rows at a time: all B
-    where they fit, else the most multiple of `WIDE_CHUNK` that do."""
-    grid = dict(wide_plan("lstm_bwd", B, H, ndir, sms), design="grid")
-    cluster = None
+def _cluster_widths(H: int, ndir: int, sms: int):
+    """(N, U) of a cluster design, most CTAs first: N CTAs a direction, the
+    fewest multiple of `WIDE_CLUSTER` that hold H at U = ceil(H / n) units a
+    CTA, for each multiple n of 8 up to ``sms`` / ndir."""
     for n in range(WIDE_CLUSTER * (sms // (WIDE_CLUSTER * ndir)), 0, -WIDE_CLUSTER):
         U = math.ceil(H / n)
-        ctas = WIDE_CLUSTER * math.ceil(math.ceil(H / U) / WIDE_CLUSTER)
-        room = (SMEM_PER_BLOCK // 4 - _cluster_fixed(B, H, U)) // (2 * H)  # partial rows
+        yield WIDE_CLUSTER * math.ceil(math.ceil(H / U) / WIDE_CLUSTER), U
+
+
+def wide_bwd_plan(B: int, H: int, ndir: int, sms: int, max_clusters, kernel: str) -> dict:
+    """K7w's (``kernel`` "lstm_bwd") or K8w's ("gru_bwd") launch plan: the
+    cluster design (``design`` "cluster": each CTA's part of the step's
+    vector times its own G gate rows of W_hh, a reduce-scatter over the
+    cluster and the L2) where its CTAs hold all of their G*U gate rows and
+    the partials of at least `WIDE_CHUNK` batch rows in shared memory and its
+    grid fits the card at once, else the first design (`wide_plan` of
+    ``kernel``, ``design`` "grid": a grid barrier a step, the step's vector
+    staged into every CTA, W_hh's rows that do not fit read from L2), which
+    `chip_ablate.py --k7w` and ``--k8w`` found slower at every shape both
+    take (NVIDIA H100 80GB HBM3, 700 W). The cluster design: ``grid`` (N,
+    ndir), N CTAs a direction a multiple of `WIDE_CLUSTER`: the most up to
+    ``sms`` / ndir whose clusters ``max_clusters(B, H, U, rows)`` (the
+    card's count of co-resident clusters at that plan) takes, U = ceil(H /
+    N) units a CTA and N the fewest multiple of 8 CTAs that hold H; the
+    partials (2, B, H) ``batch_rows`` rows at a time: all B where they fit,
+    else the most multiple of `WIDE_CHUNK` that do."""
+    G = WIDE_GATES[kernel]
+    grid = dict(wide_plan(kernel, B, H, ndir, sms), design="grid")
+    for ctas, U in _cluster_widths(H, ndir, sms):
+        room = (SMEM_PER_BLOCK // 4 - _cluster_fixed(G, B, H, U)) // (2 * H)  # partial rows
         if room < min(B, WIDE_CHUNK):
             break
         rows = B if room >= B else room // WIDE_CHUNK * WIDE_CHUNK
         if ndir * ctas // WIDE_CLUSTER <= max_clusters(B, H, U, rows):
-            cluster = dict(design="cluster", grid=(ctas, ndir), ctas=ctas * ndir,
-                           threads=WIDE_THREADS, units_per_cta=U, rows=4 * U, k=H,
-                           rows_smem=4 * U, batch_rows=rows,
-                           smem_bytes=_cluster_smem(B, H, U, rows), cluster=WIDE_CLUSTER,
-                           clusters=ctas // WIDE_CLUSTER,
-                           pub_floats=2 * ndir * (ctas // WIDE_CLUSTER) * B * H,
-                           flags=ndir * ctas)
+            return dict(design="cluster", grid=(ctas, ndir), ctas=ctas * ndir,
+                        threads=WIDE_THREADS, units_per_cta=U, rows=G * U, k=H,
+                        rows_smem=G * U, batch_rows=rows,
+                        smem_bytes=_cluster_smem(G, B, H, U, rows), cluster=WIDE_CLUSTER,
+                        clusters=ctas // WIDE_CLUSTER,
+                        pub_floats=2 * ndir * (ctas // WIDE_CLUSTER) * B * H,
+                        flags=ndir * ctas)
+    return grid
+
+
+def _fwd_cluster_smem(B: int, H: int, U: int) -> int:
+    """Bytes of shared memory of a cluster-design K1w CTA (csrc/rnn_wide.cu
+    `fwd_cluster_smem_bytes`): the column slices' partial sums (32, 256 +
+    U), a chunk's gate pre-activations (8, 4U), a chunk's rows of the other
+    clusters' columns (H, 8), the cluster's columns of h (2, ceil(B / 8),
+    8U, 8), x_proj of its units (2, B, 4U), their cell states (B, U,
+    rounded up to 4 floats), its 4U rows of W_hh, two mbarriers; at least
+    `WIDE_ONE_CTA_SMEM`."""
+    R = 4 * U
+    floats = (32 * (WIDE_THREADS + U) + WIDE_CHUNK * R + WIDE_CHUNK * H
+              + 2 * -(-B // WIDE_CHUNK) * WIDE_CLUSTER * U * WIDE_CHUNK + 2 * B * R
+              + _round_up(B * U, 4) + R * H)
+    return max(4 * (_round_up(floats, 2) + 4), WIDE_ONE_CTA_SMEM)
+
+
+def wide_fwd_plan(B: int, H: int, ndir: int, sms: int, max_clusters) -> dict:
+    """K1w's launch plan: the cluster design (``design`` "cluster": h
+    all-gathered over each cluster's DSMEM and, between clusters, through
+    L2 as ``words`` (2, ndir, B, H) of h and its step; no grid barrier)
+    where a CTA's 4U gate rows of W_hh and its buffers fit shared memory and
+    its grid fits the card at once (the most CTAs up to ``sms`` / ndir whose
+    clusters ``max_clusters(B, H, U, 0)`` takes, U and N as
+    `wide_bwd_plan`'s), else the first design (`wide_plan` "lstm",
+    ``design`` "grid"): at H = 1,024 in both directions."""
+    grid = dict(wide_plan("lstm", B, H, ndir, sms), design="grid")
+    for ctas, U in _cluster_widths(H, ndir, sms):
+        smem = _fwd_cluster_smem(B, H, U)
+        if smem > SMEM_PER_BLOCK:
             break
-    return grid if cluster is None else cluster
+        if ndir * ctas // WIDE_CLUSTER <= max_clusters(B, H, U, 0):
+            return dict(design="cluster", grid=(ctas, ndir), ctas=ctas * ndir,
+                        threads=WIDE_THREADS, units_per_cta=U, rows=4 * U, k=H,
+                        rows_smem=4 * U, smem_bytes=smem, cluster=WIDE_CLUSTER,
+                        clusters=ctas // WIDE_CLUSTER, words=2 * ndir * B * H)
+    return grid
+
+
+WIDE_CLUSTER_KERNELS = {"lstm": 0, "lstm_bwd": 1, "gru_bwd": 2}  # wide_cluster_max_clusters
 
 
 @functools.lru_cache(maxsize=None)
-def _cluster_fit(B: int, H: int, U: int, rows: int) -> int:
-    """The card's co-resident clusters of K7w's cluster design at that plan."""
-    fn = build.load("rnn_wide").lstm_bwd_cluster_max_clusters
-    fn.argtypes = [ctypes.c_int] * 4
+def _cluster_fit(kernel: str, B: int, H: int, U: int, rows: int) -> int:
+    """The card's co-resident clusters of ``kernel``'s cluster design at that plan."""
+    fn = build.load("rnn_wide").wide_cluster_max_clusters
+    fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
-    n = fn(B, H, U, rows)
+    n = fn(WIDE_CLUSTER_KERNELS[kernel], B, H, U, rows)
     if n < 0:
-        raise RuntimeError(f"lstm_bwd_cluster_max_clusters({B}, {H}, {U}, {rows}): "
+        raise RuntimeError(f"wide_cluster_max_clusters({kernel}, {B}, {H}, {U}, {rows}): "
                            f"cudaError {-n}")
     return n
+
+
+def wide_design_plan(kernel: str, B: int, H: int, ndir: int, device) -> dict:
+    """The plan a wide launch of ``kernel`` takes on ``device``'s card, with
+    its ``design``: `wide_fwd_plan` (K1w), `wide_bwd_plan` (K7w, K8w), the
+    first design's `wide_plan` (K2w)."""
+    sms, fit = _sms(device.index), functools.partial(_cluster_fit, kernel)
+    if kernel == "lstm":
+        return wide_fwd_plan(B, H, ndir, sms, fit)
+    if kernel in ("lstm_bwd", "gru_bwd"):
+        return wide_bwd_plan(B, H, ndir, sms, fit, kernel)
+    return dict(wide_plan(kernel, B, H, ndir, sms), design="grid")
 
 
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _wide_ints(kernel: str, B: int, H: int, ndir: int, device) -> tuple:
-    """The three ints of `wide_plan` a wide launch on ``device``'s card takes."""
-    plan = wide_plan(kernel, B, H, ndir, _sms(device.index))
-    return plan["units_per_cta"], plan["chunk"], plan["rows_smem"]
 
 
 def _barrier(device):
@@ -344,19 +400,29 @@ def _launch_lstm(wrapper, dirs, rows, with_cs=False):
 
 def lstm_rec_wide(dirs, with_cs=False):
     """K1w: one launch over ``dirs`` = [(reverse, w_hh, x_proj)] (1 or 2,
-    checked by the caller) at any H; returns hs, or (hs, cs) ``with_cs``."""
+    checked by the caller) at any H, of the design `wide_fwd_plan` picks;
+    returns hs, or (hs, cs) ``with_cs``."""
     T, B, H4 = dirs[0][2].shape
     H, n, dev = H4 // 4, len(dirs), dirs[0][2].device
     hs = torch.empty((T, B, n * H), device=dev, dtype=torch.float32)
     cs = torch.empty_like(hs) if with_cs else None
     if T and B:
-        ints = _wide_ints("lstm", B, H, n, dev)
-        state, bar = torch.empty((n, B, H), device=dev, dtype=torch.float32), _barrier(dev)
+        plan = wide_design_plan("lstm", B, H, n, dev)
         (r0, w0, x0), (r1, w1, x1) = dirs[0], dirs[-1]
-        fn = build.bind("rnn_wide", "lstm_rec_wide_f32", 8, 9)
-        build.check(fn(x0.data_ptr(), x1.data_ptr(), w0.data_ptr(), w1.data_ptr(), hs.data_ptr(),
-                       0 if cs is None else cs.data_ptr(), state.data_ptr(), bar.data_ptr(), T, B,
-                       H, n, int(r0), int(r1), *ints, build.stream()), "lstm_rec_wide")
+        ptrs = (x0.data_ptr(), x1.data_ptr(), w0.data_ptr(), w1.data_ptr(), hs.data_ptr(),
+                0 if cs is None else cs.data_ptr())
+        if plan["design"] == "cluster":
+            # scratch: h and its step a word, by step parity, zeroed
+            words = torch.zeros((plan["words"],), device=dev, dtype=torch.int64)
+            fn = build.bind("rnn_wide", "lstm_rec_wide_cluster_f32", 7, 8)
+            build.check(fn(*ptrs, words.data_ptr(), T, B, H, n, int(r0), int(r1),
+                           plan["units_per_cta"], plan["grid"][0], build.stream()), "lstm_rec_wide")
+        else:
+            state, bar = torch.empty((n, B, H), device=dev, dtype=torch.float32), _barrier(dev)
+            fn = build.bind("rnn_wide", "lstm_rec_wide_f32", 8, 9)
+            build.check(fn(*ptrs, state.data_ptr(), bar.data_ptr(), T, B, H, n, int(r0), int(r1),
+                           plan["units_per_cta"], plan["chunk"], plan["rows_smem"], build.stream()),
+                        "lstm_rec_wide")
         lstm_rec_wide.launches += 1
     return (hs, cs) if with_cs else hs
 
@@ -464,7 +530,7 @@ def lstm_rec_bwd_wide(dirs, cs, g_hs):
     T, B, H4 = dirs[0][2].shape
     H, n, dev = H4 // 4, len(dirs), dirs[0][2].device
     dg = [torch.empty_like(dirs[0][2]) for _ in dirs]
-    plan = wide_bwd_plan(B, H, n, _sms(dev.index), _cluster_fit) if T and B else None
+    plan = wide_design_plan("lstm_bwd", B, H, n, dev) if T and B else None
     if plan is not None and plan["design"] == "cluster":
         # scratch: the clusters' published sums; their step flags, zeroed
         pub = torch.empty((plan["pub_floats"],), device=dev, dtype=torch.float32)
@@ -581,7 +647,8 @@ def gru_rec_wide(dirs):
     H, n, dev = H3 // 3, len(dirs), dirs[0][3].device
     hs = torch.empty((T, B, n * H), device=dev, dtype=torch.float32)
     if T and B:
-        ints = _wide_ints("gru", B, H, n, dev)
+        plan = wide_design_plan("gru", B, H, n, dev)
+        ints = plan["units_per_cta"], plan["chunk"], plan["rows_smem"]
         bar = _barrier(dev)
         (r0, w0, b0, x0), (r1, w1, b1, x1) = dirs[0], dirs[-1]
         fn = build.bind("rnn_wide", "gru_rec_wide_f32", 8, 9)
@@ -640,23 +707,37 @@ def bigru_rec_bwd_plain(w_hh_f, w_hh_b, z_f, z_b, coef_f, coef_b, g_hs):
 
 def gru_rec_bwd_wide(dirs, g_hs):
     """K8w: one launch over ``dirs`` = [(reverse, w_hh, z, coef_h)] (checked
-    by the caller) at any H; returns (dh2_f, dh2_b or None). W_hh^T as for
-    K7w."""
+    by the caller) at any H, of the design `wide_bwd_plan` picks; returns
+    (dh2_f, dh2_b or None). The cluster design reads W_hh's gate rows as
+    they are; the first design reads its columns as rows of W_hh^T,
+    transposed here."""
     T, B, H = dirs[0][2].shape
     n, dev = len(dirs), dirs[0][2].device
     dh2 = [torch.empty_like(dirs[0][2]) for _ in dirs]
     if T and B:
-        ints = _wide_ints("gru_bwd", B, H, n, dev)
-        wt = [w.t().contiguous() for _, w, _, _ in dirs]
-        dh = torch.empty((n, B, H), device=dev, dtype=torch.float32)
-        v = torch.empty((2, n, B, 3 * H), device=dev, dtype=torch.float32)
-        bar = _barrier(dev)
-        (r0, _, z0, c0), (r1, _, z1, c1) = dirs[0], dirs[-1]
-        fn = build.bind("rnn_wide", "gru_rec_bwd_wide_f32", 12, 9)
-        build.check(fn(z0.data_ptr(), z1.data_ptr(), c0.data_ptr(), c1.data_ptr(),
-                       wt[0].data_ptr(), wt[-1].data_ptr(), g_hs.data_ptr(), dh2[0].data_ptr(),
-                       dh2[-1].data_ptr(), dh.data_ptr(), v.data_ptr(), bar.data_ptr(), T, B, H, n,
-                       int(r0), int(r1), *ints, build.stream()), "gru_rec_bwd_wide")
+        plan = wide_design_plan("gru_bwd", B, H, n, dev)
+        (r0, w0, z0, c0), (r1, w1, z1, c1) = dirs[0], dirs[-1]
+        if plan["design"] == "cluster":
+            # scratch: the clusters' published sums; their step flags, zeroed
+            pub = torch.empty((plan["pub_floats"],), device=dev, dtype=torch.float32)
+            flags = torch.zeros((plan["flags"],), device=dev, dtype=torch.int32)
+            fn = build.bind("rnn_wide", "gru_rec_bwd_wide_cluster_f32", 11, 9)
+            build.check(fn(z0.data_ptr(), z1.data_ptr(), c0.data_ptr(), c1.data_ptr(),
+                           w0.data_ptr(), w1.data_ptr(), g_hs.data_ptr(), dh2[0].data_ptr(),
+                           dh2[-1].data_ptr(), pub.data_ptr(), flags.data_ptr(), T, B, H, n,
+                           int(r0), int(r1), plan["units_per_cta"], plan["grid"][0],
+                           plan["batch_rows"], build.stream()), "gru_rec_bwd_wide")
+        else:
+            ints = plan["units_per_cta"], plan["chunk"], plan["rows_smem"]
+            wt = [w.t().contiguous() for _, w, _, _ in dirs]
+            dh = torch.empty((n, B, H), device=dev, dtype=torch.float32)
+            v = torch.empty((2, n, B, 3 * H), device=dev, dtype=torch.float32)
+            bar = _barrier(dev)
+            fn = build.bind("rnn_wide", "gru_rec_bwd_wide_f32", 12, 9)
+            build.check(fn(z0.data_ptr(), z1.data_ptr(), c0.data_ptr(), c1.data_ptr(),
+                           wt[0].data_ptr(), wt[-1].data_ptr(), g_hs.data_ptr(), dh2[0].data_ptr(),
+                           dh2[-1].data_ptr(), dh.data_ptr(), v.data_ptr(), bar.data_ptr(), T, B,
+                           H, n, int(r0), int(r1), *ints, build.stream()), "gru_rec_bwd_wide")
         gru_rec_bwd_wide.launches += 1
     return dh2[0], (dh2[1] if n > 1 else None)
 

@@ -193,44 +193,83 @@ def test_wide_wrappers_count_no_launch_on_cpu():
     assert all(w.launches == 0 for w in kernels.WIDE)
 
 
-# (B, H, ndir, the card's co-resident clusters of 8 at the plan, the design,
-# the plan's CTAs a direction and its partials' batch rows at a time):
-# RNNLM's and the ASR's shapes, H=1024, B=5 at H=292 and 258, a tiny H; B=64
-# and 256, whose partials (2, B, H) take several chunks; W_hh's 4U rows past
-# shared memory (1,024 units in both directions) and no cluster co-resident
-# take the first design
-WIDE_BWD_PLANS = [(8, 512, 1, 15, "cluster", 104, 8), (8, 512, 2, 15, "cluster", 56, 8),
-                  (8, 1024, 1, 15, "cluster", 120, 8), (5, 292, 2, 16, "cluster", 64, 5),
-                  (5, 258, 2, 15, "cluster", 56, 5), (1, 6, 2, 15, "cluster", 8, 1),
-                  (64, 512, 2, 15, "cluster", 56, 32), (256, 512, 2, 15, "cluster", 56, 16),
-                  (8, 1024, 2, 15, "grid", 64, None), (8, 512, 2, 0, "grid", 64, None)]
+# (kernel, B, H, ndir, the card's co-resident clusters of 8 at the plan, the
+# design, the plan's CTAs a direction and its partials' batch rows at a
+# time): K7w's and K8w's rows of chip_smoke.py (RNNLM's and the ASR's shapes,
+# H=1024, B=5 at H=292 and 258, the GRU's 129; B=64, whose partials (2, B,
+# H) take several chunks), a tiny H, B=256; G*U rows of W_hh past shared
+# memory (1,024 units in both directions) and no cluster co-resident take
+# the first design
+WIDE_BWD_PLANS = [
+    ("lstm_bwd", 8, 512, 1, 15, "cluster", 104, 8), ("lstm_bwd", 8, 512, 2, 15, "cluster", 56, 8),
+    ("lstm_bwd", 8, 1024, 1, 15, "cluster", 120, 8), ("lstm_bwd", 5, 292, 2, 16, "cluster", 64, 5),
+    ("lstm_bwd", 5, 258, 2, 15, "cluster", 56, 5), ("lstm_bwd", 1, 6, 2, 15, "cluster", 8, 1),
+    ("lstm_bwd", 64, 512, 2, 15, "cluster", 56, 32),
+    ("lstm_bwd", 256, 512, 2, 15, "cluster", 56, 16),
+    ("lstm_bwd", 8, 1024, 2, 15, "grid", 64, None), ("lstm_bwd", 8, 512, 2, 0, "grid", 64, None),
+    ("gru_bwd", 8, 512, 1, 15, "cluster", 104, 8), ("gru_bwd", 8, 1024, 1, 15, "cluster", 120, 8),
+    ("gru_bwd", 5, 129, 2, 15, "cluster", 48, 5), ("gru_bwd", 64, 512, 2, 15, "cluster", 56, 32),
+    ("gru_bwd", 8, 1024, 2, 15, "grid", 64, None), ("gru_bwd", 8, 512, 1, 0, "grid", 128, None)]
 
 
-@pytest.mark.parametrize("B,H,ndir,fit,design,ctas,rows", WIDE_BWD_PLANS)
-def test_wide_bwd_plan_takes_the_cluster_design_where_it_fits(B, H, ndir, fit, design, ctas,
-                                                              rows):
-    """K7w's plan: the cluster design where its CTAs hold their 4U gate rows
-    of W_hh and the partials of at least 8 batch rows (2, rows, H) in shared
-    memory and its clusters of 8 fit the card at once (the most CTAs up to
-    the SMs a direction, U = ceil(H / N), the fewest multiple of 8 CTAs that
-    hold H; all B rows at a time where they fit, else the most multiple of
-    8 that do); else the first design's plan, unchanged."""
-    plan = K.wide_bwd_plan(B, H, ndir, H100_SMS, lambda *a: fit)
+@pytest.mark.parametrize("kernel,B,H,ndir,fit,design,ctas,rows", WIDE_BWD_PLANS)
+def test_wide_bwd_plan_takes_the_cluster_design_where_it_fits(kernel, B, H, ndir, fit, design,
+                                                              ctas, rows):
+    """K7w's and K8w's plan: the cluster design where its CTAs hold their
+    G*U gate rows of W_hh and the partials of at least 8 batch rows (2,
+    rows, H) in shared memory and its clusters of 8 fit the card at once
+    (the most CTAs up to the SMs a direction, U = ceil(H / N), the fewest
+    multiple of 8 CTAs that hold H; all B rows at a time where they fit,
+    else the most multiple of 8 that do); else the first design's plan,
+    unchanged."""
+    G = K.WIDE_GATES[kernel]
+    plan = K.wide_bwd_plan(B, H, ndir, H100_SMS, lambda *a: fit, kernel)
     assert plan["design"] == design and plan["grid"] == (ctas, ndir)
     assert plan.get("batch_rows") == rows
     U = plan["units_per_cta"]
     assert ctas * U >= H and plan["threads"] == 256 and plan["smem_bytes"] <= K.SMEM_PER_BLOCK
     if design == "grid":
-        assert plan == dict(K.wide_plan("lstm_bwd", B, H, ndir, H100_SMS), design="grid")
+        assert plan == dict(K.wide_plan(kernel, B, H, ndir, H100_SMS), design="grid")
+        return
+    assert ctas % K.WIDE_CLUSTER == 0 and ctas - K.WIDE_CLUSTER < -(-H // U) <= ctas
+    assert ndir * ctas // 8 <= fit and ctas * ndir <= H100_SMS
+    assert plan["rows_smem"] == plan["rows"] == G * U
+    assert plan["smem_bytes"] == K._cluster_smem(G, B, H, U, rows) >= K.WIDE_ONE_CTA_SMEM
+    assert rows == B or (rows % K.WIDE_CHUNK == 0 and K._cluster_smem(
+        G, B, H, U, rows + K.WIDE_CHUNK) > K.SMEM_PER_BLOCK)
+    assert plan["pub_floats"] == 2 * ndir * (ctas // 8) * B * H
+    assert plan["flags"] == ndir * ctas
+
+
+# (B, H, ndir, co-resident clusters, the design, CTAs a direction): K1w's row
+# of chip_smoke.py (as K7w's), a tiny H; B=64 at 1,024 units, B=256 and 1,024
+# units in both directions past shared memory, and no cluster co-resident
+# take the first design
+WIDE_FWD_PLANS = [(8, 512, 1, 15, "cluster", 104), (8, 512, 2, 15, "cluster", 56),
+                  (8, 1024, 1, 15, "cluster", 120), (5, 292, 2, 16, "cluster", 64),
+                  (5, 258, 2, 15, "cluster", 56), (64, 512, 2, 15, "cluster", 56),
+                  (1, 6, 1, 15, "cluster", 8), (64, 1024, 1, 15, "grid", 128),
+                  (256, 512, 2, 15, "grid", 64), (8, 1024, 2, 15, "grid", 64),
+                  (8, 512, 2, 0, "grid", 64)]
+
+
+@pytest.mark.parametrize("B,H,ndir,fit,design,ctas", WIDE_FWD_PLANS)
+def test_wide_fwd_plan_takes_the_cluster_design_where_it_fits(B, H, ndir, fit, design, ctas):
+    """K1w's plan: the cluster design where a CTA's 4U gate rows of W_hh and
+    its buffers fit shared memory and its clusters of 8 fit the card at once
+    (N and U as K7w's); else the first design's plan, unchanged."""
+    plan = K.wide_fwd_plan(B, H, ndir, H100_SMS, lambda *a: fit)
+    assert plan["design"] == design and plan["grid"] == (ctas, ndir)
+    U = plan["units_per_cta"]
+    assert ctas * U >= H and plan["threads"] == 256 and plan["smem_bytes"] <= K.SMEM_PER_BLOCK
+    if design == "grid":
+        assert plan == dict(K.wide_plan("lstm", B, H, ndir, H100_SMS), design="grid")
         return
     assert ctas % K.WIDE_CLUSTER == 0 and ctas - K.WIDE_CLUSTER < -(-H // U) <= ctas
     assert ndir * ctas // 8 <= fit and ctas * ndir <= H100_SMS
     assert plan["rows_smem"] == plan["rows"] == 4 * U
-    assert plan["smem_bytes"] == K._cluster_smem(B, H, U, rows) >= K.WIDE_ONE_CTA_SMEM
-    assert rows == B or (rows % K.WIDE_CHUNK == 0 and K._cluster_smem(
-        B, H, U, rows + K.WIDE_CHUNK) > K.SMEM_PER_BLOCK)
-    assert plan["pub_floats"] == 2 * ndir * (ctas // 8) * B * H
-    assert plan["flags"] == ndir * ctas
+    assert plan["smem_bytes"] == K._fwd_cluster_smem(B, H, U) >= K.WIDE_ONE_CTA_SMEM
+    assert plan["words"] == 2 * ndir * B * H
 
 
 def _k7w_cluster_replay(reverse, w_hh, gates, cs, g_hs, ctas, U):
@@ -287,7 +326,7 @@ def test_k7w_cluster_replay_matches_plain_and_jax(H, reverse):
     rng = np.random.RandomState(H + 7)
     T, B = 5, 2
     w, x = _lstm_case(rng, T, B, H)
-    plan = K.wide_bwd_plan(B, H, 1, 16, lambda *a: 2)
+    plan = K.wide_bwd_plan(B, H, 1, 16, lambda *a: 2, "lstm_bwd")
     assert plan["design"] == "cluster" and plan["grid"] == (16, 1)
     ctas, U = plan["grid"][0], plan["units_per_cta"]
     assert (ctas - 1) * U < H < ctas * U
@@ -302,3 +341,118 @@ def test_k7w_cluster_replay_matches_plain_and_jax(H, reverse):
         plain = K.lstm_rec_bwd_plain(reverse, t(w[0]), gates, cs, t(g))
     np.testing.assert_allclose(_np(got), _np(plain), rtol=0, atol=ATOL)
     np.testing.assert_allclose(_np(got), want_dx, rtol=0, atol=ATOL)
+
+
+def _k1w_cluster_replay(reverse, w_hh, x_proj, ctas, U):
+    """K1w's cluster design (`csrc/rnn_wide.cu` `lstm_wide_fwd_cluster_kernel`)
+    in torch, one direction: at each step the gate pre-activations of
+    cluster c's units (columns k0 = 8cU .. k0 + kc of h its own) as the
+    kernel sums them: slice s of S (S = min(256 // U, 64): a thread a tile
+    of 4 gate rows and a slice of the columns) of the own
+    columns, then slice s of the other columns from k0 + kc on (mod H), each
+    slice's partial in order, the slices' partials in slice order, added to
+    x_proj; then the cell as the plain version. Returns (hs, cs)."""
+    T, B, H4 = x_proj.shape
+    H = H4 // 4
+    S = min(256 // U, 64)
+    h, c = x_proj.new_zeros((B, H)), x_proj.new_zeros((B, H))
+    hs, cs = x_proj.new_empty((T, B, H)), x_proj.new_empty((T, B, H))
+    for step, t in enumerate(range(T - 1, -1, -1) if reverse else range(T)):
+        pre = x_proj.new_empty((B, H4))
+        for cl in range(ctas // K.WIDE_CLUSTER):
+            k0 = cl * K.WIDE_CLUSTER * U
+            kc = min(K.WIDE_CLUSTER * U, H - k0)
+            ko = H - kc
+            units = torch.arange(k0, k0 + kc)
+            rows = torch.cat([g * H + units for g in range(4)])
+            cols = torch.cat([units, (k0 + kc + torch.arange(ko)) % H])
+            w, hp = w_hh[rows][:, cols], h[:, cols]
+            acc = x_proj.new_zeros((B, len(rows)))
+            if step > 0:
+                for s in range(S):
+                    own = slice(kc * s // S, kc * (s + 1) // S)
+                    oth = slice(kc + ko * s // S, kc + ko * (s + 1) // S)
+                    acc = acc + (hp[:, own] @ w[:, own].T + hp[:, oth] @ w[:, oth].T)
+            pre[:, rows] = x_proj[t][:, rows] + acc
+        i, f, g, o = pre.split(H, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs[t], cs[t] = h, c
+    return hs, cs
+
+
+def _k8w_cluster_replay(reverse, w_hh, z, coef_h, g_hs, ctas, U):
+    """K8w's cluster design (`gru_wide_bwd_cluster_kernel`: K7w's at three
+    gates) in torch, one direction: at each step dh2 = g_hs + dh_rec, then
+    each CTA p's partial over all H units from its own 3U gate rows of W_hh
+    in order (g, u) times coef_h * [dh2, dh2, dh2], each cluster's sums of
+    its 8 CTAs' partials in rank order, the clusters' sums in cluster order,
+    plus dh2 * z: dh_rec. Returns dh2 (T, B, H)."""
+    T, B, H = z.shape
+    dh_rec = z.new_zeros((B, H))
+    out = z.new_empty((T, B, H))
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        d = g_hs[t] + dh_rec
+        out[t] = d
+        v = coef_h[t] * d.repeat(1, 3)
+        parts = []
+        for p in range(ctas):
+            acc = z.new_zeros((B, H))
+            for gate in range(3):
+                for u in range(max(0, min(U, H - p * U))):
+                    r = gate * H + p * U + u
+                    acc = acc + v[:, r, None] * w_hh[r]
+            parts.append(acc)
+        dh_rec = z.new_zeros((B, H))
+        for cl in range(ctas // K.WIDE_CLUSTER):
+            acc = z.new_zeros((B, H))
+            for q in range(K.WIDE_CLUSTER):
+                acc = acc + parts[cl * K.WIDE_CLUSTER + q]
+            dh_rec = dh_rec + acc
+        dh_rec = dh_rec + d * z[t]
+    return out
+
+
+@pytest.mark.parametrize("cell,H,reverse", [("lstm", 258, False), ("lstm", 300, True),
+                                            ("gru", 258, True), ("gru", 300, False)])
+def test_k1w_k8w_cluster_replays_match_plain_and_jax(cell, H, reverse):
+    """The cluster designs' summation orders (`_k1w_cluster_replay`,
+    `_k8w_cluster_replay`, at the plan's CTAs and units for B=2 on a card
+    of 16 SMs that fits 2 clusters: 16 CTAs in two clusters, the last CTA
+    holding fewer units) give K1w's hs and cs and K8w's dh2 as the plain
+    versions do, and hs and cs of JAX's `_lstm_rec_fwd`, and dx_proj of
+    JAX's `_gru_rec_bwd` (coef_x * dh2), within ATOL."""
+    rng = np.random.RandomState(H + 11 + (cell == "gru"))
+    T, B = 5, 2
+    t = torch.from_numpy
+    if cell == "lstm":
+        w, x = _lstm_case(rng, T, B, H)
+        plan = K.wide_fwd_plan(B, H, 1, 16, lambda *a: 2)
+        ctas, U = plan["grid"][0], plan["units_per_cta"]
+        want_hs, res = LSTM_FWD(reverse, jnp.asarray(w[0]), jnp.asarray(x[0]))
+        with torch.no_grad():
+            got = _k1w_cluster_replay(reverse, t(w[0]), t(x[0]), ctas, U)
+            plain = K.lstm_rec_cs_plain(reverse, t(w[0]), t(x[0]))
+        want = (want_hs, res[3])
+    else:
+        x = (0.5 * rng.randn(T, B, 3 * H)).astype(np.float32)
+        w = (rng.randn(3 * H, H) / np.sqrt(H)).astype(np.float32)
+        b = (0.1 * rng.randn(3 * H)).astype(np.float32)
+        g = rng.randn(T, B, H).astype(np.float32)
+        plan = K.wide_bwd_plan(B, H, 1, 16, lambda *a: 2, "gru_bwd")
+        ctas, U = plan["grid"][0], plan["units_per_cta"]
+        _, res = GRU_FWD(reverse, *map(jnp.asarray, (w, b, x)))
+        _, _, want_dx = GRU_BWD(reverse, res, jnp.asarray(g))
+        with torch.no_grad():
+            _, z, coef_h, coef_x = P.gru_bwd_coefficients(reverse, t(w), t(b), t(x),
+                                                          t(np.asarray(res[3])))
+            dh2 = _k8w_cluster_replay(reverse, t(w), z, coef_h, t(g), ctas, U)
+            plain = K.gru_rec_bwd_plain(reverse, t(w), z, coef_h, t(g))
+        got, want = (dh2, coef_x * dh2.repeat(1, 1, 3)), (None, want_dx)
+    assert plan["design"] == "cluster" and plan["grid"] == (16, 1)
+    assert (ctas - 1) * U < H < ctas * U
+    for o, p_, j in zip(got, plain if cell == "lstm" else (plain, None), want):
+        if p_ is not None:
+            np.testing.assert_allclose(_np(o), _np(p_), rtol=0, atol=ATOL)
+        if j is not None:
+            np.testing.assert_allclose(_np(o), np.asarray(j), rtol=0, atol=ATOL)
