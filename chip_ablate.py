@@ -11,7 +11,8 @@ card; and the ASR, paired or speech-first train step's time in a given tree.
     python3 chip_ablate.py --kernel-mem TREE
     python3 chip_ablate.py --ctc-long [--wide] [--src TREE]
     python3 chip_ablate.py --k3-split [--src TREE]
-    python3 chip_ablate.py --k1w|--k7w|--k8w [--src TREE]
+    python3 chip_ablate.py --k1w|--k7w|--k2w|--k8w [--src TREE]
+    python3 chip_ablate.py --b6-long [--src TREE]
     python3 chip_ablate.py --sanitize k7|k6|b6|b6_bwd --plan T=..,B=..[,...] [--variant unit_lanes]
     python3 chip_ablate.py --sanitize-all
 
@@ -33,10 +34,13 @@ kernel has a cut list per design, and the copy takes the list whose every
 marker is a line of the source: an edit that moves a marker fails loudly.
 ``--src TREE`` times the checkout at TREE the same way, with that tree's
 sources, wrappers and `chip_smoke.py`, which times an earlier design beside
-this one. ``--k1w``, ``--k7w`` and ``--k8w`` cut the wide recurrences the
+this one. ``--k1w``, ``--k7w``, ``--k2w`` and ``--k8w`` cut the wide recurrences the
 same way at every shape of their `chip_smoke.py` rows (`wide_ablate`):
 each design forced whole and cut after each of its phases (`WIDE_CUTS`),
-with ``--src TREE`` a parent's kernels at the same shapes. ``--only
+with ``--src TREE`` a parent's kernels at the same shapes. ``--b6-long``
+times B6 past its row route (`b6_long`): the route the plan takes at every
+T of `B6_SWEEP`, the split route forced at each and its cuts (the ring
+kernel's cuts in a parent tree that has it). ``--only
 ctc,rnn`` times the cuts of those sources alone. Prints
 the card's name and power limit, then one JSON line ``{"ablation": ...}``.
 
@@ -74,6 +78,7 @@ and wall time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -109,7 +114,45 @@ def K5_THREADS(n):
 
 
 # B6, bulk copies at entry: a cut's wait for the staged latent's bulk copy
-B6_LATENT_WAIT = "  if (stage_latent) mbar_wait(bar0 + 16, 0);\n"
+# (the row route's second mbarrier; the earlier ring kernel's third)
+B6_LATENT_WAIT = "  if (stage_latent) mbar_wait(bar0 + 8, 0);\n"
+B6_RING_LATENT_WAIT = "  if (stage_latent) mbar_wait(bar0 + 16, 0);\n"
+# B6's earlier row kernel for every T (a ring of p_code, the ints in device
+# memory past shared memory): its entry, the end of its tokens' ring, of its
+# scans
+B6_RING_TOP = "  const int n_chunks = tokens != nullptr ? 0 : (T + chunk - 1) / chunk;\n"
+B6_RING_TOKENS = ("      pshift[sl] = issue(k + depth);  // its ends are in by the next chunk's barrier\n"
+                  "    }\n  }\n")
+B6_SCANS_END = "  __syncthreads();  // every slot's start is in\n"
+B6_RING_CUTS = [
+    ("launch", [ret(B6_RING_TOP)]),
+    ("copies landed", [after(
+        "  __syncthreads();  // the copies' ends (and the given tokens) are in\n",
+        "  for (int k = 0; k < min(depth, n_chunks); ++k) mbar_wait(bar0 + 8 * k, 0);\n"
+        + B6_RING_LATENT_WAIT + "  return;\n")]),
+    ("tokens", [after(B6_RING_TOKENS, B6_RING_LATENT_WAIT + "  return;\n")]),
+    ("scans, slots and counts", [after(B6_SCANS_END, B6_RING_LATENT_WAIT + "  return;\n")]),
+]
+# B6's split route: each kernel's first line, and the tokens
+# kernel's, the scan kernel's and the means kernel's starts
+B6_TOKENS_TOP = '  asm volatile("griddepcontrol.wait;\\n" ::: "memory");  // p_code is written\n'
+B6_SCAN_TOP = "  __shared__ int wlast[32], wkept[32];\n"
+B6_MEANS_TOP = '  asm volatile("griddepcontrol.wait;\\n" ::: "memory");  // the scans are written\n'
+B6_SPLIT_CUTS = [
+    ("launches", [ret(B6_TOKENS_TOP), ret(B6_SCAN_TOP), ret(B6_MEANS_TOP)]),
+    ("the tokens", [ret(B6_SCAN_TOP), ret(B6_MEANS_TOP)]),
+    ("the scans", [ret(B6_MEANS_TOP)]),
+    # not cuts: a whole variant, the means kernel launched only once the
+    # scans end (no early launch)
+    ("whole kernel, no early launch of the means", [(
+        '  asm volatile("griddepcontrol.launch_dependents;\\n" ::: "memory");\n'
+        '  asm volatile("griddepcontrol.wait;\\n" ::: "memory");  // the tokens are written\n',
+        '  asm volatile("griddepcontrol.wait;\\n" ::: "memory");  // the tokens are written\n')]),
+    # wrong results on purpose: what the scans' per-frame stores cost
+    ("whole kernel, no stores of slots and counts", [(
+        "      slot_row[t] = tk != 0 ? before - 1 : -1;\n      count_row[t] = (float)n;\n",
+        "")]),
+]
 # K9 (PR 6): the end of a tile's wait for its processed memory, and of the tile loop
 K9_PM_WAIT = ('    asm volatile("cp.async.wait_group 1;\\n" ::: "memory");  '
               "// this tile's processed memory\n    __syncthreads();\n")
@@ -682,17 +725,15 @@ CUTS = {
         # a cut waits for the bulk copies still in flight before it returns,
         # so that none lands in shared memory the CTA has left
         "bulk copies at entry, ballot scans": [
-            ("launch", [ret("  const int n_chunks = tokens != nullptr || depth == 0 ? 0 : (T + chunk - 1) / chunk;\n")]),
+            ("launch", [ret("  const float* x_row = latent + (size_t)b * T * D;\n")]),
             ("copies landed", [after(
                 "  __syncthreads();  // the copies' ends (and the given tokens) are in\n",
-                "  for (int k = 0; k < min(depth, n_chunks); ++k) mbar_wait(bar0 + 8 * k, 0);\n"
-                + B6_LATENT_WAIT + "  return;\n")]),
-            ("tokens", [after(
-                "      pshift[sl] = issue(k + depth);  // its ends are in by the next chunk's barrier\n"
-                "    }\n  }\n", B6_LATENT_WAIT + "  return;\n")]),
-            ("scans, slots and counts", [after(
-                "  __syncthreads();  // every slot's start is in\n", B6_LATENT_WAIT + "  return;\n")]),
+                "  if (tokens == nullptr) mbar_wait(bar0, 0);\n" + B6_LATENT_WAIT + "  return;\n")]),
+            ("tokens", [after("    __syncthreads();  // the tokens are in\n  }\n",
+                              B6_LATENT_WAIT + "  return;\n")]),
+            ("scans, slots and counts", [after(B6_SCANS_END, B6_LATENT_WAIT + "  return;\n")]),
         ],
+        "bulk copies at entry, a ring of p_code past shared memory": B6_RING_CUTS,
         "a CTA a row, Hillis-Steele scans (the first design)": [
             ("launch", [ret("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, "
                             "nwarps = blockDim.x >> 5;\n")]),
@@ -1117,7 +1158,9 @@ def main(src_tree=None, only=None):
 # the kernels whose device time a profiled step picks out: K6 (either
 # design's kernel names) in the ASR step, K9 in the others
 PICKED = {"asr": ("ctc_alpha", "ctc_beta", "ctc_grad"), "paired": ("attention_bwd",),
-          "speech_first": ("attention_bwd", "stft_frames_kernel", "trim_merge_kernel")}
+          "speech_first": ("attention_bwd", "stft_frames_kernel", "trim_merge_kernel",
+                           "trim_merge_tokens_kernel", "trim_merge_scan_kernel",
+                           "trim_merge_means_kernel")}
 
 
 # K6 past the shared-memory lattice (``--ctc-long``): (B, S) of the rows
@@ -1766,6 +1809,24 @@ K1W_CL_OTHERS = ("        if (ko > 0) {\n"
                  "          __syncthreads();  // vec's last readers are done\n")
 K1W_CL_FMA = ("          if (ts < S) fma_cols(vec, ws + (size_t)kc * R, R, tg, ko * ts / S, "
               "ko * (ts + 1) / S, a);\n")
+# K1w's designs' cuts, which K2w's share (the same kernel bodies)
+K1W_CUTS = {
+    "a grid barrier a step, the whole h staged into every CTA": ("grid", [
+        ("launch", [(K1W_START, "  if (p.T > 0) return;\n" + K1W_START)]),
+        ("the cell update", [(K1W_PRODUCT, NO_PRODUCT), (K1W_SYNC, "")]),
+        ("the grid barrier", [(K1W_PRODUCT, NO_PRODUCT)]),
+        ("the staging", [(K1W_DOT, "")]),
+    ]),
+    "clusters of 8, h all-gathered over DSMEM and through L2 as words of h and its step": (
+        "cluster", [
+            ("launch", [(K1W_CL_LOOP, "  if (p.T > 0) return;\n" + K1W_CL_LOOP)]),
+            ("the cell update, the all-gather and the mbarrier wait", [
+                (K1W_CL_PRODUCT, K1W_CL_PRODUCT.replace("(s > 0)", "(s > 0 && p.T < 0)"))]),
+            ("the own columns' product", [(K1W_CL_OTHERS, K1W_CL_OTHERS.replace(
+                "(ko > 0)", "(ko > 0 && p.T < 0)"))]),
+            ("the words' polls and the staging", [(K1W_CL_FMA, "")]),
+        ]),
+}
 # design -> (its plan's ``design`` in a tree that has several, [(cut,
 # [(old, new), ...])]); every design whose markers are all in the tree's
 # rnn_wide.cu once is cut
@@ -1791,24 +1852,25 @@ WIDE_CUTS = {
         ]),
         BWD_CLUSTER: BWD_CLUSTER_CUTS,
     },
-    "k1w": {
-        "a grid barrier a step, the whole h staged into every CTA": ("grid", [
-            ("launch", [(K1W_START, "  if (p.T > 0) return;\n" + K1W_START)]),
-            ("the cell update", [(K1W_PRODUCT, NO_PRODUCT), (K1W_SYNC, "")]),
-            ("the grid barrier", [(K1W_PRODUCT, NO_PRODUCT)]),
-            ("the staging", [(K1W_DOT, "")]),
-        ]),
-        "clusters of 8, h all-gathered over DSMEM and through L2 as words of h and its step": (
-            "cluster", [
-                ("launch", [(K1W_CL_LOOP, "  if (p.T > 0) return;\n" + K1W_CL_LOOP)]),
-                ("the cell update, the all-gather and the mbarrier wait", [
-                    (K1W_CL_PRODUCT, K1W_CL_PRODUCT.replace("(s > 0)", "(s > 0 && p.T < 0)"))]),
-                ("the own columns' product", [(K1W_CL_OTHERS, K1W_CL_OTHERS.replace(
-                    "(ko > 0)", "(ko > 0 && p.T < 0)"))]),
-                ("the words' polls and the staging", [(K1W_CL_FMA, "")]),
-            ]),
-    },
+    "k1w": K1W_CUTS,
+    "k2w": K1W_CUTS,
 }
+# the kernel a design of a kind needs in the tree's rnn_wide.cu to be cut (a
+# tree whose K2w has only its first design still has K1w's cluster kernel)
+WIDE_NEEDS = {("k2w", "cluster"): "gru_wide_fwd_cluster_kernel"}
+
+
+@contextlib.contextmanager
+def one_width(k, N, U):
+    """The cluster designs' plans at N CTAs a direction of U units only."""
+    real = k._cluster_widths
+    k._cluster_widths = lambda H, ndir, sms, unit=1: iter([(N, U)])
+    try:
+        yield
+    finally:
+        k._cluster_widths = real
+
+
 
 
 def _one_dir(a, per_dir):
@@ -1826,12 +1888,15 @@ WIDE_ABLATIONS = {
             lambda cs, randn, unif, *sh: cs._lstm_bwd_inputs(randn, unif, *sh)),
     "k8w": ("bigru_rec_bwd", "bigru_rec_bwd_plain", "gru_bwd", WIDE_GRU + WIDE_MORE,
             lambda cs, randn, unif, *sh: cs._gru_bwd_inputs(randn, unif, *sh)),
+    "k2w": ("bigru_rec", "bigru_rec_plain", "gru", WIDE_GRU + WIDE_MORE,
+            lambda cs, randn, unif, T, B_, H, n: (
+                lambda a: a if n == 2 else _one_dir(a, 3))(cs._gru_inputs(randn, unif, T, B_, H))),
 }
 
 
 def wide_ablate(kind, src_tree=None):
-    """K1w (``kind`` "k1w": `bilstm_rec_cs`), K7w ("k7w": `bilstm_rec_bwd`)
-    or K8w ("k8w": `bigru_rec_bwd`) of the checkout at ``src_tree``
+    """K1w (``kind`` "k1w": `bilstm_rec_cs`), K7w ("k7w": `bilstm_rec_bwd`),
+    K2w ("k2w": `bigru_rec`) or K8w ("k8w": `bigru_rec_bwd`) of the checkout at ``src_tree``
     (default: this one) at every shape of `WIDE_ABLATIONS`, graph-replayed:
     whole (held to its plain version), the cuts of each design of
     `WIDE_CUTS` that finds its markers in the tree's rnn_wide.cu, with that
@@ -1874,7 +1939,8 @@ def wide_ablate(kind, src_tree=None):
     # a tree of one design is cut as that design (its first)
     designs = {d: v for d, v in WIDE_CUTS[kind].items()
                if all(text.count(old) == 1 for _, edits in v[1] for old, _ in edits)
-               and (forced or v[0] == "grid")}
+               and (forced or v[0] == "grid") and WIDE_NEEDS.get((kind, v[0]), "") in text}
+    forced = {f: plan for f, plan in forced.items() if f in {v[0] for v in designs.values()}}
     procs = {}
     for d, (force, cuts) in designs.items():
         for i, (name, edits) in enumerate(cuts):
@@ -1927,6 +1993,24 @@ def wide_ablate(kind, src_tree=None):
                                             "rerun_equal": reruns()}
             finally:
                 setattr(k, attr, real)
+        if kind == "k2w" and "cluster" in forced:
+            # K2w's cluster design at each U, a multiple of 4, from the plan's
+            # up to twice it that fits shared memory and the card
+            result["by_units"] = {}
+            for key, (sh, a) in shapes.items():
+                T_, B_, H, n = sh
+                u_min = result["plans"][key]["units_per_cta"]
+                if result["plans"][key]["design"] != "cluster":
+                    continue
+                for U in range(u_min, 2 * u_min + 1, 4):
+                    N = k.WIDE_CLUSTER * -(-(-(-H // U)) // k.WIDE_CLUSTER)
+                    if (k._fwd_cluster_smem(3, B_, H, U) > k.SMEM_PER_BLOCK
+                            or n * N // 8 > k._cluster_fit(kernel, B_, H, U, 0)):
+                        continue
+                    with one_width(k, N, U):
+                        result["by_units"].setdefault(key, {})[f"U={U} N={N}"] = cs.device_ms(
+                            lambda a=a: run(*a), 10)
+            print(json.dumps({kind: result}), flush=True)
         result["cuts"] = {}
         for (force, name), (_, so) in procs.items():
             print(f"{kind} cut {force}: to {name}", flush=True)
@@ -1943,6 +2027,113 @@ def wide_ablate(kind, src_tree=None):
         build.bind.cache_clear()
         result["ms again"] = times()
     print(json.dumps({kind: result}))
+
+
+# B6 past the row route (``--b6-long``): (B, T, C) of the sweep of both
+# routes: the flagship speech-first step's rows (B=8 T=133), shorter (T=64)
+# and longer ones (T = 200, 300, 450: 4.5 to 10 s), the 15.28 s row's (B=1
+# T=680), rows that the earlier row kernel took through a ring of p_code
+# (T = 2,000, 5,000, 14,528) and past its shared-memory ints (14,529,
+# 20,000), and T=14,528 at C=8,000 (its argmax pass), D=64
+B6_SWEEP = ((8, 64, 43), (8, 133, 43), (8, 200, 43), (8, 300, 43), (8, 450, 43), (1, 680, 43),
+            (2, 2000, 43), (2, 5000, 43), (2, 14528, 43), (2, 14529, 43), (2, 20000, 43),
+            (2, 14528, 8000))
+# design -> its cuts, each the kernels up to and including a phase; the
+# first design whose every marker is in the tree's quantize.cu once is cut
+B6_LONG_CUTS = {"three launches: the tokens over the card, the scans a CTA a row, the means "
+                "over the card": B6_SPLIT_CUTS,
+                "a CTA a row, a ring of p_code, the ints in device memory past ~19,300 frames, "
+                "an argmax pass first past the ring": B6_RING_CUTS}
+
+
+def b6_long(src_tree=None):
+    """B6 `trim_merge` of the checkout at ``src_tree`` (default: this one) at
+    every (B, T, C) of `B6_SWEEP`, graph-replayed: the plan's route whole
+    (``ms``; its largest difference from the plain version and whether the
+    lengths, slots and counts are equal), the plain version (``plain_ms``)
+    and the plan (``plans``); in a tree with the split route, that route
+    forced at every T (``split_ms``, checked the same way) and the tokens
+    kernel alone beside ``torch.argmax`` (``tokens_ms``,
+    ``torch_argmax_ms``); and the cuts of the tree's design
+    (`B6_LONG_CUTS`; the split route's forced at every T), each
+    ``to <phase>``, and its whole variants beside their checks. Prints the card, then one JSON line ``{"b6_long": ...}``."""
+    if src_tree is not None:
+        src_tree = enter_tree(src_tree)
+    import chip_smoke as cs
+    from semi_tts_tpu_torch import use_fp32
+    from semi_tts_tpu_torch.kernels import build, quantize as b6
+
+    card = cs.phase_device()
+    use_fp32()
+    mine = build.load("quantize")
+    text = open(os.path.join(build.CSRC, "quantize.cu")).read()
+    design, cuts = pick_design(text, "quantize", "trim_merge long", B6_LONG_CUTS)
+    out_dir = build.BUILD_DIR / "ablate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, (name, edits) in enumerate(cuts):
+        cut_text = text
+        for old, new in edits:
+            cut_text = cut_text.replace(old, new)
+        cu = out_dir / f"b6_long_{i}.cu"
+        cu.write_text(cut_text)
+        procs.append((name, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), cu.with_suffix(".so")))
+    for name, proc, _ in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"chip_ablate: nvcc failed for the B6 cut {name}:\n{log}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    shapes = {f"B={B_} T={T} C={C}": cs._trim_merge_inputs(randn, dev, B_, T, C=C)
+              for B_, T, C in B6_SWEEP}
+    split = hasattr(b6, "trim_merge_tokens")
+
+    def times():
+        return {key: cs.device_ms(lambda a=a: b6.trim_merge(*a, 3), 10)
+                for key, a in shapes.items()}
+
+    def checks():
+        out = {}
+        for key, a in shapes.items():
+            got, want = b6.trim_merge(*a, 3), b6.trim_merge_plain(*a, 3)
+            out[key] = [cs.max_err(got[0], want[0]),
+                        all(torch.equal(x.to(y.dtype), y) for x, y in zip(got[1:], want[1:]))]
+        return out
+
+    result = {"card": card, "tree": str(build.CSRC), "design_cut": design}
+    with torch.no_grad():
+        result["ms"], result["check"] = times(), checks()
+        result["plain_ms"] = {key: cs.device_ms(lambda a=a: b6.trim_merge_plain(*a, 3), 3)
+                              for key, a in shapes.items()}
+        result["plans"] = {key: b6.trim_merge_plan(a[0].shape[1], a[0].shape[2], 64)
+                           for key, a in shapes.items()}
+        if split:
+            with cs.b6_split_route(b6):
+                result["split_ms"], result["split_check"] = times(), checks()
+            result["tokens_ms"] = {key: cs.device_ms(lambda a=a: b6.trim_merge_tokens(a[0]), 10)
+                                   for key, a in shapes.items()}
+            result["torch_argmax_ms"] = {key: cs.device_ms(lambda a=a: torch.argmax(a[0], -1), 10)
+                                         for key, a in shapes.items()}
+        print(json.dumps({"b6_long": result}), flush=True)
+        result["cuts"] = {}
+        for name, _, so in procs:
+            build._libs["quantize"] = ctypes.CDLL(str(so))
+            build.bind.cache_clear()
+            with (cs.b6_split_route(b6) if split else contextlib.nullcontext()):
+                if name.startswith("whole"):  # a whole variant: held to the plain version too
+                    result["cuts"][name] = {"ms": times(), "check": checks()}
+                else:
+                    result["cuts"][f"to {name}"] = times()
+        build._libs["quantize"] = mine
+        build.bind.cache_clear()
+        result["ms again"] = times()
+    print(json.dumps({"b6_long": result}))
 
 
 def step_busy(tree, kind):
@@ -2289,9 +2480,11 @@ if __name__ == "__main__":
         sys.exit(kernel_mem(sys.argv[2]))
     if sys.argv[1:2] == ["--k3-split"]:
         sys.exit(k3_split(sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None))
-    if sys.argv[1:2] in (["--k1w"], ["--k7w"], ["--k8w"]):
+    if sys.argv[1:2] in (["--k1w"], ["--k7w"], ["--k8w"], ["--k2w"]):
         tree = sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None
         sys.exit(wide_ablate(sys.argv[1][2:], tree))
+    if sys.argv[1:2] == ["--b6-long"]:
+        sys.exit(b6_long(sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None))
     if sys.argv[1:2] == ["--ctc-long"]:
         tree = sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv else None
         sys.exit(ctc_wide(tree) if "--wide" in sys.argv else ctc_long(tree))

@@ -173,8 +173,8 @@ Phases, each fatal on failure:
    (graph-replayed, beside its plain version, its bound and cuDNN's LSTM
    or GRU, forward or backward) at every shape of
    `WIDE_LSTM_SHAPES`/`WIDE_GRU_SHAPES` (``ms_by_shape``, ...,
-   ``plans_by_shape``; K1w, K7w and K8w also at `WIDE_MORE_SHAPES`, each
-   shape's plan held to its design in `K1W_DESIGNS`, `K7W_DESIGNS`,
+   ``plans_by_shape``; each also at `WIDE_MORE_SHAPES`, each shape's plan
+   held to its design in `K1W_DESIGNS`, `K7W_DESIGNS`, `K2W_DESIGNS`,
    `K8W_DESIGNS`: both designs of each, and the cluster designs at B=64
    in chunks of batch rows); then
    (a) `RNNLM` LSTM and (b) `RNNLM` GRU at their
@@ -200,9 +200,10 @@ Phases, each fatal on failure:
    and three live clusters, and at B=16 in waves; with targets of all U
    labels too and two graph replays bit for bit) beside F.ctc_loss, B6 and its
    backward at T = 14,529 and 20,000 (C=43) and T=14,528 C=8,000 (the
-   argmax from device memory): each held to its plain version (1e-4; B6
-   1e-6 on the means and exact elsewhere) and timed beside it and its
-   bound; then (a) `TTSServer.from_checkpoint` on two texts, 1,500 and 40
+   split route: the tokens over the card, the scans a CTA a row, the means
+   over the card): each held to its plain version (1e-4; B6 1e-6 on the
+   means and exact elsewhere) and timed beside it and its bound, B6's
+   tokens kernel alone equal to and beside ``torch.argmax``; then (a) `TTSServer.from_checkpoint` on two texts, 1,500 and 40
    tokens, at 50 decode steps (graphed equal to eager bit for bit, the
    split K3 seen by name, within 1e-3 of the CPU plain path) and at the
    default decode policy (its first call, a replay, capture time, peak
@@ -614,20 +615,22 @@ def ptxas_report(log):
     """Registers, spills and static shared memory of each instantiation of
     the recurrence kernels (K1 with its cell-state flag, K2, K7, K8, and the
     wide routes: `rec_wide_kernel<4>` K1w, `<3>` K2w, K7w, K8w, and the
-    cluster designs of K1w, K7w and K8w), of the
+    cluster designs of K1w, K2w, K7w and K8w), of the
     attention kernels (K3 and its split route's kernel; K9 by span and
     loc_lin staging, and its sums kernel), of K6 (by states a lane, the
     cluster route's two by theirs, the chained route's two by theirs) and of
-    B6, from nvcc's ``-Xptxas -v``
+    B6 (the row route's kernel, the split route's three), from nvcc's ``-Xptxas -v``
     output."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(lstm_rec|gru_rec|lstm_bwd|gru_bwd|rec_wide|lstm_wide_bwd_cluster|"
-                      r"gru_wide_bwd_cluster|lstm_wide_fwd_cluster|lstm_wide_bwd|gru_wide_bwd|"
+                      r"gru_wide_bwd_cluster|lstm_wide_fwd_cluster|gru_wide_fwd_cluster|"
+                      r"lstm_wide_bwd|gru_wide_bwd|"
                       r"attention_bwd_sum|attention_bwd|attention_step|attention_split|"
                       r"ctc_alpha_cluster|ctc_beta_grad_cluster|ctc_alpha_chain|ctc_beta_grad_chain|"
                       r"ctc_alpha|ctc_beta_grad|"
-                      r"trim_argmax|trim_merge_bwd|trim_merge)_kernel"
+                      r"trim_merge_tokens|trim_merge_scan|trim_merge_means|trim_merge_bwd|"
+                      r"trim_merge)_kernel"
                       r"(?:I(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?E)?", line)
         if "Compiling entry function" in line:
             args = ",".join(a for a in m.groups()[1:] if a) if m else ""
@@ -1383,8 +1386,8 @@ def _case_trim_merge(randn, unif, dev):
     counts, and ``ok``; the timed calls are the kernel and its plain version
     alone, also at every shape of `B6_SHAPES` (``ms_by_shape``,
     ``plain_ms_by_shape``, ``bound_ms_by_shape``; ``plans``:
-    `trim_merge_plan` at each). T=1,500 takes p_code through a ring of two
-    chunks."""
+    `trim_merge_plan` at each). T=1,500 takes the split route (the tokens
+    over the card, the scans a CTA a row, the means over the card)."""
     from semi_tts_tpu_torch.kernels import quantize as b6
 
     B_, T, C, D_ = TRAIN_B, 133, 43, 64
@@ -1400,7 +1403,7 @@ def _case_trim_merge(randn, unif, dev):
              _trim_merge_inputs(randn, dev, 3, 50, blank_row=True),
              _trim_merge_inputs(randn, dev, 5, 60, long_runs=True),
              _trim_merge_inputs(randn, dev, 2, 40, ties=True),
-             _trim_merge_inputs(randn, dev, 2, 1500, long_runs=True)]  # a ring of two chunks
+             _trim_merge_inputs(randn, dev, 2, 1500, long_runs=True)]  # the split route
     by_shape = {f"B={b} T={t}": _trim_merge_inputs(randn, dev, b, t) for b, t in B6_SHAPES}
     return dict(
         name="trim_merge", replaces="semi_tts_tpu/ops/quantize.py:26 (trim_merge_segments: "
@@ -2086,11 +2089,13 @@ KERNEL_NAMES = {"bilstm_rec": r"lstm_rec_kernel<[^>]*false>",
                 "attention_step_bwd": r"attention_bwd_kernel", "gl_project": r"gl_project_kernel",
                 "gl_ola_frame": r"gl_ola_frame_kernel", "stft_frames": r"stft_frames_kernel",
                 "spec_db": r"spec_db_kernel", "ctc_alpha": r"ctc_alpha_kernel",
-                "ctc_beta_grad": r"ctc_beta_grad_kernel", "trim_merge": r"trim_merge_kernel",
+                "ctc_beta_grad": r"ctc_beta_grad_kernel",
+                # a call of either route: the row kernel, or the split route's scans
+                "trim_merge": r"trim_merge_kernel|trim_merge_scan_kernel",
                 "trim_merge_bwd": r"trim_merge_bwd_kernel",
                 "lstm_rec_wide": r"rec_wide_kernel<4>|lstm_wide_fwd_cluster_kernel",
                 "lstm_rec_bwd_wide": r"lstm_wide_bwd_kernel|lstm_wide_bwd_cluster_kernel",
-                "gru_rec_wide": r"rec_wide_kernel<3>",
+                "gru_rec_wide": r"rec_wide_kernel<3>|gru_wide_fwd_cluster_kernel",
                 "gru_rec_bwd_wide": r"gru_wide_bwd_kernel|gru_wide_bwd_cluster_kernel",
                 # the long-length routes (phase 13)
                 "attention_step_split": r"attention_split_kernel",
@@ -2098,7 +2103,11 @@ KERNEL_NAMES = {"bilstm_rec": r"lstm_rec_kernel<[^>]*false>",
                 "ctc_alpha_cluster": r"ctc_alpha_cluster_kernel",
                 "ctc_beta_grad_cluster": r"ctc_beta_grad_cluster_kernel",
                 "ctc_alpha_chain": r"ctc_alpha_chain_kernel",
-                "ctc_beta_grad_chain": r"ctc_beta_grad_chain_kernel"}
+                "ctc_beta_grad_chain": r"ctc_beta_grad_chain_kernel",
+                # B6's split route (phase 13), each of its three kernels
+                "trim_merge_tokens": r"trim_merge_tokens_kernel",
+                "trim_merge_scan": r"trim_merge_scan_kernel",
+                "trim_merge_means": r"trim_merge_means_kernel"}
 
 
 def kernels_seen(by_name):
@@ -2666,7 +2675,8 @@ PAIRED, SPEECH_FIRST, TEXT_FIRST = "paired", "speech_first", "text_first"
 CYCLE_KERNELS = ("trim_merge", "trim_merge_bwd")
 # K1 with cell states, K7, K2, K8, K3, K9, K5, K6 and, in the speech-first step, B6
 STEP_KERNELS = {SPEECH_FIRST: PAIRED_STEP_KERNELS + CYCLE_KERNELS, TEXT_FIRST: PAIRED_STEP_KERNELS}
-OWN_KERNELS = ("trim_merge_kernel", "trim_merge_bwd_kernel", "attention_bwd",
+OWN_KERNELS = ("trim_merge_kernel", "trim_merge_tokens_kernel", "trim_merge_scan_kernel",
+               "trim_merge_means_kernel", "trim_merge_bwd_kernel", "attention_bwd",
                "stft_frames_kernel")
 
 
@@ -3839,18 +3849,19 @@ def phase_pretrain(card, asr_ckpt):
 WIDE_LSTM_SHAPES = ((47, 8, 512, 1), (133, 8, 512, 2), (32, 8, 1024, 1), (40, 5, 292, 2),
                     (40, 5, 258, 2))
 WIDE_GRU_SHAPES = ((47, 8, 512, 1), (32, 8, 1024, 1), (40, 5, 129, 2))
-# The design of K1w, K7w and K8w at each shape they are held at
+# The design of each wide route at each shape it is held at
 # (`wide_design_plan` on an H100): the cluster design at their rows' shapes and
 # at B=64 (K7w's and K8w's partials (2, B, H) past shared memory: 32 batch rows
-# at a time; K1w 8 chunks of 8 batch rows), the first (grid) design where a
+# at a time; K1w and K2w 8 chunks of 8 batch rows), the first (grid) design where a
 # CTA's G*U rows of W_hh and its buffers do not fit shared memory (1,024
 # units in both directions)
 WIDE_MORE_SHAPES = ((40, 64, 512, 2), (32, 8, 1024, 2))
 K1W_DESIGNS = K7W_DESIGNS = {**{sh: "cluster" for sh in WIDE_LSTM_SHAPES},
                              (40, 64, 512, 2): "cluster", (32, 8, 1024, 2): "grid"}
-K8W_DESIGNS = {**{sh: "cluster" for sh in WIDE_GRU_SHAPES},
-               (40, 64, 512, 2): "cluster", (32, 8, 1024, 2): "grid"}
-WIDE_DESIGNS = {"lstm": K1W_DESIGNS, "lstm_bwd": K7W_DESIGNS, "gru_bwd": K8W_DESIGNS}
+K2W_DESIGNS = K8W_DESIGNS = {**{sh: "cluster" for sh in WIDE_GRU_SHAPES},
+                             (40, 64, 512, 2): "cluster", (32, 8, 1024, 2): "grid"}
+WIDE_DESIGNS = {"lstm": K1W_DESIGNS, "lstm_bwd": K7W_DESIGNS, "gru": K2W_DESIGNS,
+                "gru_bwd": K8W_DESIGNS}
 WIDE_KERNELS = ("lstm_rec_wide", "lstm_rec_bwd_wide", "gru_rec_wide", "gru_rec_bwd_wide")
 NARROW_RECURRENCES = ("bilstm_rec", "bilstm_rec_cs", "bilstm_rec_bwd", "bigru_rec",
                       "bigru_rec_bwd")
@@ -3903,7 +3914,8 @@ def _wide_specs(randn, unif, dev):
              replaces="semi_tts_tpu/ops/rnn.py:114 (_lstm_rec_bwd, the backward scan), past "
              "K7's plans"),
         dict(name="gru_rec_wide", kernel=k.bigru_rec, plain=k.bigru_rec_plain, inputs=gru_in,
-             cost=_gru_cost, shapes=WIDE_GRU_SHAPES, plan="gru", library=forward(torch.nn.GRU),
+             cost=_gru_cost, shapes=WIDE_GRU_SHAPES + WIDE_MORE_SHAPES, plan="gru",
+             library=forward(torch.nn.GRU),
              timing=device_ms,
              note=note.format("GRU", "forward, graph-timed"),
              replaces="semi_tts_tpu/ops/rnn.py:225 (_gru_rec_fwd), past K2's plan (H > 128)"),
@@ -4866,9 +4878,10 @@ K6_LONG_S = (1025, 2049, 4097, 8193)  # K6 past the flagship's S, on the plan's 
 K6_PAST_CLUSTER = ((24577, 700, (600, 500), (700, 650)), (49153, 120, (100, 80), (120, 110)),
                    (49153, 11000, (5200, 10400), (9000, 11000)))
 K6_WAVES = (16, 98305, 64)
-B6_LONG = ((14529, 43), (20000, 43), (14528, 8000))  # (T, C) of B6 past 14,528 frames or the ring
+B6_LONG = ((14529, 43), (20000, 43), (14528, 8000))  # (T, C) of B6's split route, timed
 PHASE13_KERNELS = {"a": ("attention_step_split",) + SERVING_KERNELS,
-                   "b": ("attention_step_split", "attention_step_bwd", "trim_merge", "trim_merge_bwd")}
+                   "b": ("attention_step_split", "attention_step_bwd", "trim_merge", "trim_merge_bwd",
+                         "trim_merge_tokens", "trim_merge_scan", "trim_merge_means")}
 # K6's kernels on each of `ctc_plan`'s routes, by `KERNEL_NAMES`
 K6_ROUTE_KERNELS = {"shared": ("ctc_alpha_shared", "ctc_beta_grad_shared"),
                     "cluster": ("ctc_alpha_cluster", "ctc_beta_grad_cluster"),
@@ -5164,14 +5177,31 @@ def _k6_chain_checks(k6, a, full, ba, key):
     return out
 
 
+@contextlib.contextmanager
+def b6_split_route(b6):
+    """B6's plan forced onto the split route at any T: the row route's
+    shared memory denied."""
+    real = b6.trim_merge_plan
+    b6.trim_merge_plan = lambda T, C, D, **kw: real(T, C, D, **{**kw, "limit": 0})
+    try:
+        yield
+    finally:
+        b6.trim_merge_plan = real
+
+
 def long_trim_rows(randn, dev):
     """B6 and its backward at every (T, C) of `B6_LONG` (B=2, D=64): the
     means within 1e-6 of the plain version, the lengths, slots and counts
     and the backward equal; timed (graph-replayed) beside the plain
-    version and the bound."""
+    version and the bound. The split route's tokens kernel alone
+    (`trim_merge_tokens`) equal to ``torch.argmax`` and timed beside it
+    (``tokens``: ms, ``torch.argmax`` ms and the bound by shape). The split
+    route forced (`b6_split_route`) at the flagship's `B6_SHAPES`, held to
+    the plain version the same way and timed (``split_forced``)."""
     from semi_tts_tpu_torch.kernels import quantize as b6
 
     by, bb = ({n: {} for n in ("err", "ms", "plain", "bound", "library", "plan")} for _ in range(2))
+    tokens = {n: {} for n in ("ms", "torch_argmax_ms", "bound_ms", "equal")}
     for T, C in B6_LONG:
         key = f"B=2 T={T} C={C}"
         p, lat = _trim_merge_inputs(randn, dev, 2, T, C=C)
@@ -5192,10 +5222,30 @@ def long_trim_rows(randn, dev):
             dd["bound"][key] = bound(cost, lambda f=kern, x=args: f(*x))
         by["plan"][key] = b6.trim_merge_plan(T, C, 64)
         bb["plan"][key] = b6.trim_merge_bwd_plan(2, T, 64)
+        tokens["equal"][key] = torch.equal(b6.trim_merge_tokens(p).long(), torch.argmax(p, -1))
+        _fatal_unless(tokens["equal"][key], f"B6's tokens kernel disagrees with torch.argmax at "
+                      f"{key}", tokens["equal"])
+        tokens["ms"][key] = device_ms(lambda x=p: b6.trim_merge_tokens(x), 5)
+        tokens["torch_argmax_ms"][key] = device_ms(lambda x=p: torch.argmax(x, -1), 5)
+        tokens["bound_ms"][key] = 4 * (2 * T * C + 2 * T) / HBM_BYTES_PER_S * 1e3
+    forced = {n: {} for n in ("err", "exact", "ms")}
+    with b6_split_route(b6):
+        for B_, T in B6_SHAPES:
+            key = f"B={B_} T={T}"
+            p, lat = _trim_merge_inputs(randn, dev, B_, T)
+            got, want = b6.trim_merge(p, lat, 3), b6.trim_merge_plain(p, lat, 3)
+            forced["exact"][key] = all(torch.equal(x.to(y.dtype), y)
+                                       for x, y in zip(got[1:], want[1:]))
+            forced["err"][key] = max_err(got[0], want[0])
+            _fatal_unless(forced["exact"][key] and forced["err"][key] <= 1e-6,
+                          f"B6's split route disagrees with its plain version at {key}", forced)
+            forced["ms"][key] = device_ms(lambda x=p, y=lat: b6.trim_merge(x, y, 3), 5)
     main = f"B=2 T={B6_LONG[1][0]} C={B6_LONG[1][1]}"
+    print(f"B6 tokens kernel alone: {tokens}; the split route forced: {forced}", flush=True)
     return [_long_row("trim_merge long", "semi_tts_tpu_torch/csrc/quantize.cu",
-                      "semi_tts_tpu/ops/quantize.py:26 (trim_merge_segments), past T = 14,528 "
-                      "or the ring", by, main, 1e-6, NO_LIBRARY, {"plans": by["plan"]}),
+                      "semi_tts_tpu/ops/quantize.py:26 (trim_merge_segments), the split route",
+                      by, main, 1e-6, NO_LIBRARY,
+                      {"plans": by["plan"], "tokens": tokens, "split_forced": forced}),
             _long_row("trim_merge_bwd long", "semi_tts_tpu_torch/csrc/quantize.cu",
                       "semi_tts_tpu/ops/quantize.py:26 (the autodiff of trim_merge_segments)",
                       bb, main, 0.0, NO_LIBRARY, {"plans": bb["plan"]})]

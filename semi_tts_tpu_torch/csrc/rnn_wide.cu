@@ -13,8 +13,9 @@
 // - K7w `lstm_wide_bwd_cluster_kernel`, and `lstm_wide_bwd_kernel` where it
 //   does not fit: the backward scan of `_lstm_rec_bwd`
 //   (`semi_tts_tpu/ops/rnn.py:114`);
-// - K2w `rec_wide_kernel<3>`: `_gru_rec_fwd` (`:225`), gates r, z, n with b_hh
-//   inside the recurrence, so that r gates h @ W_hn^T + b_hn;
+// - K2w `gru_wide_fwd_cluster_kernel`, and `rec_wide_kernel<3>` where it does
+//   not fit: `_gru_rec_fwd` (`:225`), gates r, z, n with b_hh inside the
+//   recurrence, so that r gates h @ W_hn^T + b_hn;
 // - K8w `gru_wide_bwd_cluster_kernel`, and `gru_wide_bwd_kernel` where it
 //   does not fit: the backward scan of `_gru_rec_bwd` (`:244`).
 // fp32 FFMA throughout, no tensor cores, as in the JAX recurrences.
@@ -25,7 +26,7 @@
 // for the LSTM at H=512, 16 MiB at H=1024) does not fit one SM, nor a
 // cluster of 16.
 //
-// The first design (K2w; K1w, K7w, K8w where their second does not fit):
+// The first design (each where its second does not fit):
 // - One cooperative launch (cudaLaunchKernelEx with the cooperative
 //   attribute, so every CTA is resident at once) of at most one CTA an SM:
 //   the hidden units are split over the CTAs of a direction, CTA p owning
@@ -712,11 +713,11 @@ __global__ void __launch_bounds__(kThreads, 1) gru_wide_bwd_cluster_kernel(BwdCl
   bwd_cluster<3, kKpt>(p, reinterpret_cast<float*>(smem4));
 }
 
-// ----------------------------------- K1w, the second design: an all-gather --
+// ------------------------- K1w and K2w, the second design: an all-gather --
 //
 // The forward's product needs all of h_{t-1} (B x H) in every CTA, so a
-// reduce-scatter as K7w's would move B x 4H partials, four times the bytes.
-// Here each CTA keeps its units' 4U gate rows of W_hh in shared memory, as
+// reduce-scatter as K7w's would move B x G*H partials, G times the bytes.
+// Here each CTA keeps its units' G*U gate rows of W_hh in shared memory, as
 // the first design, and h reaches it by an all-gather instead of a grid
 // barrier and a staging of the whole h from L2:
 // - within a thread-block cluster of kCl CTAs, each CTA stores its B x U
@@ -738,21 +739,27 @@ __global__ void __launch_bounds__(kThreads, 1) gru_wide_bwd_cluster_kernel(BwdCl
 // the own and then of the other columns (a float4 of W_hh, stored
 // column-major, and two float4 broadcasts of h a column: 32 FMAs to 3
 // loads), and the slices' partials meet in shared memory, summed in slice
-// order: a fixed order, so a rerun is bit for bit. The cell states of the
-// CTA's units stay in shared memory; x_proj of the next step is prefetched
-// into shared memory (cp.async) while a step runs. One CTA an SM, a
-// cooperative clustered launch sized by cudaOccupancyMaxActiveClusters,
-// batch rows kChunk at a time. The first design stays where a CTA's rows of
-// W_hh and buffers do not fit (kernels/rnn.py `wide_fwd_plan`).
+// order: a fixed order, so a rerun is bit for bit. The G*U gate rows are
+// taken 4 at a time, so the GRU's plan takes U a multiple of 4 (no zero
+// fourth gate: its 3U rows are 3U/4 groups). The cell states of the LSTM's
+// units, or h_{t-1} of the GRU's (for z * h), stay in shared memory, and
+// the GRU's b_hh of its units too (b_hr, b_hz added to the gate inputs,
+// b_hn to the hidden product before r scales it); x_proj of the next step
+// is prefetched into shared memory (cp.async) while a step runs. One CTA an
+// SM, a cooperative clustered launch sized by
+// cudaOccupancyMaxActiveClusters, batch rows kChunk at a time. The first
+// design stays where a CTA's rows of W_hh and buffers do not fit
+// (kernels/rnn.py `wide_fwd_plan`).
 constexpr int kGather = 16;  // loads a thread keeps in flight staging the other clusters' columns
 constexpr int kMaxSlices = 64;  // column slices of the product, at most
 
 struct FwdCl {
-  const float* x[2];   // x_proj (T, B, 4H) of each direction
-  const float* w[2];   // W_hh (4H, H)
+  const float* x[2];   // x_proj (T, B, G*H) of each direction
+  const float* w[2];   // W_hh (G*H, H)
+  const float* b[2];   // b_hh (3H), GRU only
   int rev[2];
   float* hs;           // (T, B, ndir*H)
-  float* cs;           // (T, B, ndir*H) or null
+  float* cs;           // (T, B, ndir*H) or null, LSTM only
   unsigned long long* hx;  // (2, ndir, B, H), zeroed: words (h, its step + 1), by step parity
   int T, B, H, ndir, U;
 };
@@ -808,36 +815,39 @@ __device__ __forceinline__ unsigned long long ld_word(const unsigned long long* 
   return v;
 }
 
-// Shared-memory layout of a K1w cluster-design CTA (floats; kernels/rnn.py
-// `_fwd_cluster_smem`): `red` the slices' partial sums (32, kThreads + U: a
-// row's stride U past the threads keeps the slice-order sums free of bank
-// conflicts), `acc`
-// a chunk's gate pre-activations (kChunk, 4U), `vec` the other clusters'
-// columns of a chunk (H, kChunk), `own` the cluster's columns of h (2,
-// ceil(B/8), kCl*U, kChunk), `xs` x_proj of the CTA's units (2, B, 4U),
-// `cst` their cell states (B, U), `w` the 4U gate rows column-major (H, 4U),
-// `bar` the two mbarriers of `own`; at least kOneCtaSmem bytes.
+// Shared-memory layout of a K1w (G = 4) or K2w (G = 3) cluster-design CTA
+// (floats; kernels/rnn.py `_fwd_cluster_smem`), R = G*U gate rows (a
+// multiple of 4) in R / 4 groups of 4: `red` the slices' partial sums (32,
+// kThreads + R/4: a row's stride R/4 past the threads keeps the slice-order
+// sums free of bank conflicts), `acc` a chunk's gate pre-activations
+// (kChunk, R), `vec` the other clusters' columns of a chunk (H, kChunk),
+// `own` the cluster's columns of h (2, ceil(B/8), kCl*U, kChunk), `xs`
+// x_proj of the CTA's units (2, B, R), `cst` the LSTM's cell states or the
+// GRU's h_{t-1} of its units (B, U), `bias` the GRU's b_hh of its gate rows
+// (R; none for the LSTM), `w` the R gate rows column-major (H, R), `bar` the
+// two mbarriers of `own`; at least kOneCtaSmem bytes.
 struct FwdLayout {
-  int red, acc, vec, own, xs, cst, w, bar, total;
+  int red, acc, vec, own, xs, cst, bias, w, bar, total;
 };
 
-__host__ __device__ inline FwdLayout fwd_layout(int B, int H, int U) {
+__host__ __device__ inline FwdLayout fwd_layout(int G, int B, int H, int U) {
   FwdLayout l;
-  const int R = 4 * U, nbc = (B + kChunk - 1) / kChunk;
+  const int R = G * U, nbc = (B + kChunk - 1) / kChunk;
   l.red = 0;
-  l.acc = 32 * (kThreads + U);
+  l.acc = 32 * (kThreads + R / 4);
   l.vec = l.acc + kChunk * R;
   l.own = l.vec + kChunk * H;
   l.xs = l.own + 2 * nbc * kCl * U * kChunk;
   l.cst = l.xs + 2 * B * R;
-  l.w = l.cst + (int)bu_floats(B, U);
+  l.bias = l.cst + (int)bu_floats(B, U);
+  l.w = l.bias + (G == 3 ? R : 0);
   l.bar = (l.w + R * H + 1) / 2 * 2;
   l.total = l.bar + 4;
   return l;
 }
 
-__host__ __device__ inline size_t fwd_cluster_smem_bytes(int B, int H, int U) {
-  const size_t b = 4 * (size_t)fwd_layout(B, H, U).total;
+__host__ __device__ inline size_t fwd_cluster_smem_bytes(int G, int B, int H, int U) {
+  const size_t b = 4 * (size_t)fwd_layout(G, B, H, U).total;
   return b > kOneCtaSmem ? b : kOneCtaSmem;
 }
 
@@ -870,31 +880,32 @@ __device__ __forceinline__ void fma_cols(const float* h, const float* w, int R, 
   }
 }
 
-// K1w, the cluster design: grid (N, ndir), clusters of kCl CTAs along x.
-__global__ void __launch_bounds__(kThreads, 1) lstm_wide_fwd_cluster_kernel(FwdCl p) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int dir = blockIdx.y, H = p.H, B = p.B, T = p.T, U = p.U, R = 4 * U;
+// The forwards' cluster design, G = 4 (K1w) or 3 (K2w): grid (N, ndir),
+// clusters of kCl CTAs along x.
+template <int G>
+__device__ __forceinline__ void fwd_cluster(const FwdCl& p, float* smem) {
+  const int dir = blockIdx.y, H = p.H, B = p.B, T = p.T, U = p.U, R = G * U;
   const int M = gridDim.x / kCl, rank = cl_rank(), cl = blockIdx.x / kCl;
   const int u0 = blockIdx.x * U, uv = max(0, min(U, H - u0)), ld = p.ndir * H, col = dir * H;
   // the cluster's own columns [k0, k0 + kc); the others' ko from k0 + kc on, mod H
   const int k0 = cl * kCl * U, kc = min(kCl * U, H - k0), ko = H - kc;
   const int nbc = (B + kChunk - 1) / kChunk;
-  const FwdLayout L = fwd_layout(B, H, U);
+  const FwdLayout L = fwd_layout(G, B, H, U);
   float *red = smem + L.red, *acc = smem + L.acc, *vec = smem + L.vec, *own = smem + L.own;
-  float *xs = smem + L.xs, *cst = smem + L.cst, *ws = smem + L.w;
+  float *xs = smem + L.xs, *cst = smem + L.cst, *bias = smem + L.bias, *ws = smem + L.w;
   const float* x = p.x[dir];
   const float* W = p.w[dir];
   const int rev = p.rev[dir];
   // thread (g, s): gate rows 4g .. 4g + 3 over column slice s of S
-  const int S = min(kThreads / U, kMaxSlices), tg = threadIdx.x % U, ts = threadIdx.x / U;
+  const int NG = R / 4, S = min(kThreads / NG, kMaxSlices), tg = threadIdx.x % NG,
+            ts = threadIdx.x / NG;
   // x_proj of step s of the CTA's units into xs[s & 1] (one commit group)
   auto prefetch = [&](int s) {
     const int t = rev ? T - 1 - s : s;
     float* dst = xs + (size_t)(s & 1) * B * R;
-    for (int i = threadIdx.x; i < B * 4 * uv; i += kThreads) {
-      const int b = i / (4 * uv), q = i - b * 4 * uv, g = q / uv, u = q - g * uv;
-      cp_async4(dst + b * R + g * U + u, x + ((size_t)t * B + b) * 4 * H + g * H + u0 + u);
+    for (int i = threadIdx.x; i < B * G * uv; i += kThreads) {
+      const int b = i / (G * uv), q = i - b * G * uv, g = q / uv, u = q - g * uv;
+      cp_async4(dst + b * R + g * U + u, x + ((size_t)t * B + b) * G * H + g * H + u0 + u);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
@@ -905,6 +916,11 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_wide_fwd_cluster_kernel(FwdC
     const int r = i / H, j = i - r * H, g = r / U, u = r - g * U;
     ws[(size_t)j * R + r] = __ldg(W + (size_t)(g * H + min(u0 + u, H - 1)) * H + (k0 + j) % H);
   }
+  if (G == 3)  // the GRU's b_hh of the same rows
+    for (int r = threadIdx.x; r < R; r += kThreads) {
+      const int g = r / U, u = r - g * U;
+      bias[r] = __ldg(p.b[dir] + g * H + min(u0 + u, H - 1));
+    }
   // own[p]'s mbarrier: one arrival (this CTA's, with the bytes the cluster
   // stores into it a step) a phase; initialised before any peer stores
   const unsigned bar0 = (unsigned)__cvta_generic_to_shared(smem + L.bar);
@@ -988,15 +1004,15 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_wide_fwd_cluster_kernel(FwdC
           for (int i = 0; i < 4; ++i)
 #pragma unroll
             for (int b = 0; b < kChunk; ++b)
-              red[(i * kChunk + b) * (kThreads + U) + threadIdx.x] = a[i][b];
+              red[(i * kChunk + b) * (kThreads + NG) + threadIdx.x] = a[i][b];
         }
         __syncthreads();
-        for (int o = threadIdx.x; o < 4 * kChunk * U; o += kThreads) {
-          const int g = o % U, ib = o / U, b = ib % kChunk;
+        for (int o = threadIdx.x; o < 4 * kChunk * NG; o += kThreads) {
+          const int g = o % NG, ib = o / NG, b = ib % kChunk;
           if (b >= nb) continue;
           float sum = 0.0f;
 #pragma unroll 4
-          for (int q = 0; q < S; ++q) sum += red[ib * (kThreads + U) + q * U + g];
+          for (int q = 0; q < S; ++q) sum += red[ib * (kThreads + NG) + q * NG + g];
           acc[b * R + 4 * g + ib / kChunk] = sum;
         }
       }
@@ -1008,18 +1024,30 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_wide_fwd_cluster_kernel(FwdC
       const float* xb = xs + (size_t)(s & 1) * B * R;
       for (int i = threadIdx.x; i < nb * uv; i += kThreads) {
         const int bl = i / uv, u = i - bl * uv, b = c0 + bl;
-        float pre[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          pre[g] = s > 0 ? xb[b * R + g * U + u] + acc[bl * R + g * U + u] : xb[b * R + g * U + u];
-        const float ig = sigmoid(pre[0]), fg = sigmoid(pre[1]);
-        const float gg = tanh_(pre[2]), og = sigmoid(pre[3]);
-        const float c = fg * (s > 0 ? cst[b * U + u] : 0.0f) + ig * gg;
-        const float h = og * tanh_(c);
         const size_t o = ((size_t)t * B + b) * ld + col + u0 + u;
+        float h;
+        if constexpr (G == 4) {
+          float pre[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            pre[g] = s > 0 ? xb[b * R + g * U + u] + acc[bl * R + g * U + u] : xb[b * R + g * U + u];
+          const float ig = sigmoid(pre[0]), fg = sigmoid(pre[1]);
+          const float gg = tanh_(pre[2]), og = sigmoid(pre[3]);
+          const float c = fg * (s > 0 ? cst[b * U + u] : 0.0f) + ig * gg;
+          h = og * tanh_(c);
+          if (p.cs) p.cs[o] = c;
+          cst[b * U + u] = c;
+        } else {  // the hidden products hp = h_{t-1} W_hh^T, 0 at s = 0
+          float hp[3];
+#pragma unroll
+          for (int g = 0; g < 3; ++g) hp[g] = s > 0 ? acc[bl * R + g * U + u] : 0.0f;
+          const float r = sigmoid(xb[b * R + u] + bias[u] + hp[0]);
+          const float z = sigmoid(xb[b * R + U + u] + bias[U + u] + hp[1]);
+          const float n = tanh_(xb[b * R + 2 * U + u] + r * (hp[2] + bias[2 * U + u]));
+          h = (1.0f - z) * n + z * (s > 0 ? cst[b * U + u] : 0.0f);
+          cst[b * U + u] = h;
+        }
         p.hs[o] = h;
-        if (p.cs) p.cs[o] = c;
-        cst[b * U + u] = c;
         if (s + 1 < T) {  // the all-gather: h into every CTA of the cluster, and L2
           const unsigned a = (unsigned)__cvta_generic_to_shared(
               hn + ((size_t)(b / kChunk) * kc + rank * U + u) * kChunk + b % kChunk);
@@ -1034,6 +1062,16 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_wide_fwd_cluster_kernel(FwdC
       __syncthreads();  // acc and red are free for the next chunk
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) lstm_wide_fwd_cluster_kernel(FwdCl p) {
+  extern __shared__ float4 smem4[];
+  fwd_cluster<4>(p, reinterpret_cast<float*>(smem4));
+}
+
+__global__ void __launch_bounds__(kThreads, 1) gru_wide_fwd_cluster_kernel(FwdCl p) {
+  extern __shared__ float4 smem4[];
+  fwd_cluster<3>(p, reinterpret_cast<float*>(smem4));
 }
 
 struct GruBwd {
@@ -1194,10 +1232,14 @@ cudaError_t launch_cluster_bwd_h(const BwdCl& p, int N, cudaStream_t stream) {
                       : launch_cluster_bwd<G, 4>(p, N, stream, nullptr);
 }
 
+// The forwards' cluster design at G gates (its G*U gate rows in whole groups of 4).
+template <int G>
 cudaError_t launch_cluster_fwd(const FwdCl& p, int N, cudaStream_t stream, int* max_clusters) {
-  if (!cluster_grid_ok(p, N)) return cudaErrorInvalidValue;
-  return launch_cluster(lstm_wide_fwd_cluster_kernel, p, N, fwd_cluster_smem_bytes(p.B, p.H, p.U),
-                        stream, max_clusters);
+  if (!cluster_grid_ok(p, N) || (G * p.U) % 4 != 0 || G * p.U > 4 * kThreads)
+    return cudaErrorInvalidValue;
+  void (*kernel)(FwdCl) = G == 4 ? lstm_wide_fwd_cluster_kernel : gru_wide_fwd_cluster_kernel;
+  return launch_cluster(kernel, p, N, fwd_cluster_smem_bytes(G, p.B, p.H, p.U), stream,
+                        max_clusters);
 }
 
 }  // namespace
@@ -1261,8 +1303,19 @@ extern "C" int lstm_rec_wide_cluster_f32(const float* x0, const float* x1, const
                                          const float* w1, float* hs, float* cs,
                                          unsigned long long* hx, int T, int B, int H, int ndir,
                                          int rev0, int rev1, int units, int ctas, void* stream) {
-  FwdCl p = {{x0, x1}, {w0, w1}, {rev0, rev1}, hs, cs, hx, T, B, H, ndir, units};
-  return (int)launch_cluster_fwd(p, ctas, (cudaStream_t)stream, nullptr);
+  FwdCl p = {{x0, x1}, {w0, w1}, {nullptr, nullptr}, {rev0, rev1}, hs, cs, hx, T, B, H, ndir, units};
+  return (int)launch_cluster_fwd<4>(p, ctas, (cudaStream_t)stream, nullptr);
+}
+
+// K2w, the cluster design: as gru_rec_wide_f32 with `hx` as K1w's cluster
+// design in place of `bar`; `units` a multiple of 4.
+extern "C" int gru_rec_wide_cluster_f32(const float* x0, const float* x1, const float* w0,
+                                        const float* w1, const float* b0, const float* b1,
+                                        float* hs, unsigned long long* hx, int T, int B, int H,
+                                        int ndir, int rev0, int rev1, int units, int ctas,
+                                        void* stream) {
+  FwdCl p = {{x0, x1}, {w0, w1}, {b0, b1}, {rev0, rev1}, hs, nullptr, hx, T, B, H, ndir, units};
+  return (int)launch_cluster_fwd<3>(p, ctas, (cudaStream_t)stream, nullptr);
 }
 
 // K7w, the cluster design: as lstm_rec_bwd_wide_f32 from W_hh_k (4H, H) itself;
@@ -1294,17 +1347,18 @@ extern "C" int gru_rec_bwd_wide_cluster_f32(const float* z0, const float* z1, co
   return (int)launch_cluster_bwd_h<3>(p, ctas, (cudaStream_t)stream);
 }
 
-// How many clusters of a cluster design (`kernel` 0: K1w, 1: K7w, 2: K8w), at
+// How many clusters of a cluster design (`kernel` 0: K1w, 1: K7w, 2: K8w, 3: K2w), at
 // B rows, H units, `units` a CTA and (the backwards) partials of `rows`
 // batch rows, fit on the card at once (or minus a cudaError_t).
 extern "C" int wide_cluster_max_clusters(int kernel, int B, int H, int units, int rows) {
   const int ctas = ((H + units - 1) / units + kCl - 1) / kCl * kCl;
   int n = 0;
   cudaError_t err;
-  if (kernel == 0) {
-    FwdCl p = {{nullptr, nullptr}, {nullptr, nullptr}, {0, 0}, nullptr, nullptr, nullptr,
-               1, B, H, 1, units};
-    err = launch_cluster_fwd(p, ctas, nullptr, &n);
+  if (kernel == 0 || kernel == 3) {
+    FwdCl p = {{nullptr, nullptr}, {nullptr, nullptr}, {nullptr, nullptr}, {0, 0}, nullptr,
+               nullptr, nullptr, 1, B, H, 1, units};
+    err = kernel == 0 ? launch_cluster_fwd<4>(p, ctas, nullptr, &n)
+                      : launch_cluster_fwd<3>(p, ctas, nullptr, &n);
   } else {
     BwdCl p = {{nullptr, nullptr}, {nullptr, nullptr}, {nullptr, nullptr}, {nullptr, nullptr},
                {0, 0}, nullptr, nullptr, nullptr, nullptr, 1, B, H, 1, units, rows};

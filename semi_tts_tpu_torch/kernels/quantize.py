@@ -1,11 +1,10 @@
 """B6 `trim_merge` and `trim_merge_bwd` (`csrc/quantize.cu`): the unpaired
 speech cycle's segment trim/merge (`semi_tts_tpu/ops/quantize.py`
-`trim_merge_segments`) and its backward, one CTA per batch row
-(`trim_merge_plan`: the row's p_code and latent bulk-copied into shared
-memory at entry, warp-ballot scans carried across warps and chunks; on
-rows too long for shared memory the per-frame ints in a device-memory
-scratch and, where not one frame of p_code fits, the argmax taken first
-by a kernel over the whole card: any T and C).
+`trim_merge_segments`) and its backward. `trim_merge_plan` picks the
+route: one CTA a row for short rows that fit its shared memory (the row's
+p_code and latent bulk-copied in at entry, warp-ballot scans carried
+across warps and chunks), else three launches (the argmax over the whole
+card, the scans a CTA a row, the means over the whole card): any T and C.
 
 `trim_merge` takes each frame's argmax token (or the ``tokens`` given),
 cuts the frames into segments where the token changes or a run grows past
@@ -27,57 +26,73 @@ from ..utils.flops import counted, no_dots
 from . import build
 
 TRIM_THREADS = 1024
-_HEADER = 512           # bytes: 3 mbarriers, two warp arrays of 32 ints
+_HEADER = 512           # bytes: 2 mbarriers, two warp arrays of 32 ints
+GROUP_THREADS = 256     # the split route's tokens and means kernels, and the backward
+TOKEN_LOADS = 8         # the split route's tokens: about this many loads a lane
+# the split route from rows of this many frames on: the least T of
+# chip_ablate.py --b6-long's sweep (64, 133, 200, ..., 20,000 frames) at
+# which the split route beat the row route (0.0060 against 0.0067 ms at B=8;
+# the row route 0.0052 against 0.0059 at T=64; NVIDIA H100 80GB HBM3, 700 W)
+SPLIT_FRAMES = 133
 
 
 def _round4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def _trim_smem(T: int, C: int, D: int, chunk: int, depth: int, stage_latent: bool,
-               ints_global: bool = False) -> int:
-    return _HEADER + 4 * ((0 if ints_global else 3 * _round4(T)) + depth * _round4(chunk * C + 8)
+def _trim_smem(T: int, C: int, D: int, pcode: bool, stage_latent: bool) -> int:
+    """The row route's shared memory (csrc/quantize.cu `trim_smem_bytes`):
+    the header, the tokens, slot starts and slot counts (T ints each), the
+    row's p_code where it is read (T*C floats, 8 of slack) and the staged
+    latent (T*D floats, 8 of slack)."""
+    return _HEADER + 4 * (3 * _round4(T) + (_round4(T * C + 8) if pcode else 0)
                           + (_round4(T * D + 8) if stage_latent else 0))
 
 
-def trim_merge_plan(T: int, C: int, D: int, *, tokens: bool = False) -> dict:
+def _lanes(loads: int, per: int) -> int:
+    """Lanes of a group (`group_lanes`): ``loads`` loads of ``per`` a lane,
+    rounded up to a power of two, at least 1, at most 32."""
+    lanes = 1
+    while lanes * per < loads and lanes < 32:
+        lanes *= 2
+    return lanes
+
+
+def trim_merge_plan(T: int, C: int, D: int, *, tokens: bool = False, aligned: bool = True,
+                    limit: int = build.SMEM_PER_BLOCK) -> dict:
     """`trim_merge`'s launch plan for rows of T frames, C classes and D
-    latent channels: ``threads`` a CTA (one CTA a row); ``ints_global``:
-    the tokens, slot starts and slot frame counts (T ints each) in a
-    device-memory scratch of ``scratch_ints`` a row where they do not fit
-    in shared memory; the row's p_code in shared memory as one slot of T
-    frames (``depth`` 1) where it fits, else a ring of two slots of
-    ``chunk`` frames (``depth`` 2), else, where not one frame fits,
-    ``argmax_pass``: a first kernel takes the tokens, a warp a frame over
-    the whole card, and the row's kernel reads them as given tokens
-    (``depth`` 0, as when the tokens are given); ``stage_latent``: the
-    row's latent in shared memory too where it fits beside them, else read
-    from L2; and ``smem_bytes``: the header, the ints, the ring and the
-    latent. The C dispatch recomputes it. Raises ValueError only for T <
-    1."""
+    latent channels within ``limit`` bytes of shared memory a block.
+    ``route`` "row" below `SPLIT_FRAMES` frames where a CTA of ``threads``
+    holds the row's p_code (none with ``tokens`` given) and its tokens,
+    slot starts and slot counts (T ints each) in shared memory,
+    ``stage_latent`` the row's latent too where it fits beside them (else
+    read from L2), in ``smem_bytes``. Else ``route`` "split", three
+    launches: the tokens over the whole card (none with ``tokens``),
+    ``tok_lanes`` a frame (about `TOKEN_LOADS`
+    loads a lane) of ``tok_vec`` floats a load (4 where C % 4 == 0 and the
+    rows are ``aligned``); the scans a CTA of ``threads`` a row, the slot
+    starts and counts in a device-memory scratch of
+    ``scratch_ints`` a row (``token_ints`` more for the tokens); the means
+    over the whole card, ``lanes`` an output row of ``vec`` floats a load
+    (4 where D % 4 == 0 and the rows are ``aligned``), ``rows`` a CTA of
+    `GROUP_THREADS`. The C dispatch checks it. Raises ValueError only for
+    T < 1."""
     if T < 1:
         raise ValueError(f"trim_merge kernel: T={T} frames, it takes T >= 1")
-    limit = build.SMEM_PER_BLOCK
-    ints_global = _trim_smem(T, C, D, 0, 0, False) > limit
-    smem = lambda chunk, depth, stage=False: _trim_smem(T, C, D, chunk, depth, stage, ints_global)
-    chunk, depth = 0, 0
-    if tokens:
-        pass
-    elif smem(T, 1) <= limit:
-        chunk, depth = T, 1
-    else:
-        chunk = ((limit - smem(0, 0)) // 8 - 8) // C
-        while chunk > 0 and smem(chunk, 2) > limit:
-            chunk -= 1
-        depth = 2 if chunk > 0 else 0
-        chunk = max(chunk, 0)
-    stage = smem(chunk, depth, True) <= limit
-    return dict(threads=TRIM_THREADS, chunk=chunk, depth=depth, stage_latent=stage,
-                ints_global=ints_global, scratch_ints=3 * _round4(T) if ints_global else 0,
-                argmax_pass=not tokens and depth == 0, smem_bytes=smem(chunk, depth, stage))
+    if T < SPLIT_FRAMES and _trim_smem(T, C, D, not tokens, False) <= limit:
+        stage = _trim_smem(T, C, D, not tokens, True) <= limit
+        return dict(route="row", threads=TRIM_THREADS, stage_latent=stage,
+                    smem_bytes=_trim_smem(T, C, D, not tokens, stage))
+    tok_vec = 4 if C % 4 == 0 and aligned else 1
+    vec = 4 if D % 4 == 0 and aligned else 1
+    lanes = _lanes(D // vec, 1)
+    return dict(route="split", threads=TRIM_THREADS, tok_vec=tok_vec,
+                tok_lanes=0 if tokens else _lanes(C // tok_vec, TOKEN_LOADS),
+                scratch_ints=2 * _round4(T), token_ints=0 if tokens else T, vec=vec, lanes=lanes,
+                rows=GROUP_THREADS // lanes)
 
 
-BWD_THREADS = 256
+BWD_THREADS = GROUP_THREADS
 
 
 def trim_merge_bwd_plan(B: int, T: int, D: int, aligned: bool = True) -> dict:
@@ -87,9 +102,7 @@ def trim_merge_bwd_plan(B: int, T: int, D: int, aligned: bool = True) -> dict:
     CTA of `BWD_THREADS` threads and the ``grid`` (frame groups, B). The C
     dispatch checks it."""
     vec = 4 if D % 4 == 0 and aligned else 1
-    lanes = 1
-    while lanes < -(-D // vec) and lanes < 32:
-        lanes *= 2
+    lanes = _lanes(-(-D // vec), 1)
     frames = BWD_THREADS // lanes
     return dict(vec=vec, lanes=lanes, frames=frames, threads=BWD_THREADS,
                 grid=(-(-T // frames), B))
@@ -147,26 +160,49 @@ def trim_merge(p_code, latent, max_frames_per_phn: int, tokens=None):
         C, p_ptr, tok_ptr = 1, None, tokens.data_ptr()
     if max_frames_per_phn < 0:
         raise ValueError(f"trim_merge: max_frames_per_phn must be >= 0, got {max_frames_per_phn}")
-    plan = trim_merge_plan(T, C, D, tokens=tokens is not None)
+    p_aligned = tokens is not None or p_code.data_ptr() % 16 == 0
     dev = latent.device
     out = torch.empty((B, T, D), device=dev, dtype=torch.float32)
     lengths = torch.empty((B,), device=dev, dtype=torch.int32)
     slot = torch.empty((B, T), device=dev, dtype=torch.int32)
     count = torch.empty((B, T), device=dev, dtype=torch.float32)
+    plan = trim_merge_plan(T, C, D, tokens=tokens is not None,
+                           aligned=p_aligned and (latent.data_ptr() | out.data_ptr()) % 16 == 0)
     if B:
-        # scratch: the per-frame ints in device memory; the argmax pass's tokens
-        ints, toks = (torch.empty((n,), device=dev, dtype=torch.int32) if on else None
-                      for n, on in ((B * plan["scratch_ints"], plan["ints_global"]),
-                                    (B * T, plan["argmax_pass"])))
-        ptr = lambda t: None if t is None else t.data_ptr()
-        fn = build.bind("quantize", "trim_merge_f32", 9, 10)
-        build.check(fn(p_ptr, tok_ptr, latent.data_ptr(), out.data_ptr(), lengths.data_ptr(),
-                       slot.data_ptr(), count.data_ptr(), ptr(ints), ptr(toks), B, T, C, D,
-                       max_frames_per_phn, plan["threads"], plan["chunk"], plan["depth"],
-                       int(plan["stage_latent"]), plan["smem_bytes"], build.stream()),
-                    "trim_merge")
+        ptrs = (p_ptr, tok_ptr, latent.data_ptr(), out.data_ptr(), lengths.data_ptr(),
+                slot.data_ptr(), count.data_ptr())
+        if plan["route"] == "row":
+            fn = build.bind("quantize", "trim_merge_f32", 7, 8)
+            build.check(fn(*ptrs, B, T, C, D, max_frames_per_phn, plan["threads"],
+                           int(plan["stage_latent"]), plan["smem_bytes"], build.stream()),
+                        "trim_merge")
+        else:
+            # scratch: the tokens kernel's tokens; the slot starts and counts
+            toks = (torch.empty((B * plan["token_ints"],), device=dev, dtype=torch.int32)
+                    if plan["token_ints"] else None)
+            ints = torch.empty((B * plan["scratch_ints"],), device=dev, dtype=torch.int32)
+            fn = build.bind("quantize", "trim_merge_split_f32", 9, 9)
+            build.check(fn(*ptrs, None if toks is None else toks.data_ptr(), ints.data_ptr(), B, T,
+                           C, D, max_frames_per_phn, plan["tok_vec"], plan["tok_lanes"],
+                           plan["vec"], plan["lanes"], build.stream()), "trim_merge")
         trim_merge.launches += 1
     return out, lengths, slot, count
+
+
+def trim_merge_tokens(p_code):
+    """The split route's tokens kernel alone (for measuring it beside
+    ``torch.argmax``): p_code (B, T, C) on the card -> its argmax (B, T)
+    int32, the first maximum, NaN the largest; one launch a call."""
+    B, T, C = p_code.shape
+    build.require(p_code, (B, T, C), "trim_merge_tokens p_code")
+    plan = trim_merge_plan(T, C, 1, aligned=p_code.data_ptr() % 16 == 0, limit=0)
+    toks = torch.empty((B, T), device=p_code.device, dtype=torch.int32)
+    if toks.numel():
+        fn = build.bind("quantize", "trim_merge_tokens_f32", 2, 5)
+        build.check(fn(p_code.data_ptr(), toks.data_ptr(), B, T, C, plan["tok_vec"],
+                       plan["tok_lanes"], build.stream()), "trim_merge_tokens")
+        trim_merge_tokens.launches += 1
+    return toks
 
 
 @counted(no_dots)
@@ -189,4 +225,5 @@ def trim_merge_bwd(d_out, slot, count):
 
 
 trim_merge.launches = 0
+trim_merge_tokens.launches = 0
 trim_merge_bwd.launches = 0

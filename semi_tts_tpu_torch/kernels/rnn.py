@@ -21,9 +21,9 @@ sizes each takes (K7 takes K1's, K8 K2's).
 
 Past those sizes the wrappers launch the wide routes of `csrc/rnn_wide.cu`
 (K1w, K7w, K2w, K8w), which take any H >= 1: `lstm_route` and `gru_route`
-pick the route, `wide_design_plan` plans a wide launch (K1w's, K7w's and
-K8w's cluster designs where they fit, else `wide_plan`'s first design, the
-only one K2w has), and each wide launch is
+pick the route, `wide_design_plan` plans a wide launch (the cluster
+designs of each where they fit, else `wide_plan`'s first design), and each
+wide launch is
 counted on its own wrapper (`lstm_rec_wide`, `lstm_rec_bwd_wide`,
 `gru_rec_wide`, `gru_rec_bwd_wide`), not on the narrow one. Every public
 wrapper reports the dot FLOPs of the JAX scan it replaces to
@@ -127,12 +127,13 @@ def _cluster_fixed(G: int, B: int, H: int, U: int) -> int:
     return -(-B // WIDE_CHUNK) * WIDE_CHUNK * G * U + 2 * _round_up(B * U, 4) + G * U * H
 
 
-def _cluster_widths(H: int, ndir: int, sms: int):
+def _cluster_widths(H: int, ndir: int, sms: int, unit: int = 1):
     """(N, U) of a cluster design, most CTAs first: N CTAs a direction, the
     fewest multiple of `WIDE_CLUSTER` that hold H at U = ceil(H / n) units a
-    CTA, for each multiple n of 8 up to ``sms`` / ndir."""
+    CTA (rounded up to a multiple of ``unit``), for each multiple n of 8 up
+    to ``sms`` / ndir."""
     for n in range(WIDE_CLUSTER * (sms // (WIDE_CLUSTER * ndir)), 0, -WIDE_CLUSTER):
-        U = math.ceil(H / n)
+        U = _round_up(math.ceil(H / n), unit)
         yield WIDE_CLUSTER * math.ceil(math.ceil(H / U) / WIDE_CLUSTER), U
 
 
@@ -171,44 +172,50 @@ def wide_bwd_plan(B: int, H: int, ndir: int, sms: int, max_clusters, kernel: str
     return grid
 
 
-def _fwd_cluster_smem(B: int, H: int, U: int) -> int:
-    """Bytes of shared memory of a cluster-design K1w CTA (csrc/rnn_wide.cu
-    `fwd_cluster_smem_bytes`): the column slices' partial sums (32, 256 +
-    U), a chunk's gate pre-activations (8, 4U), a chunk's rows of the other
-    clusters' columns (H, 8), the cluster's columns of h (2, ceil(B / 8),
-    8U, 8), x_proj of its units (2, B, 4U), their cell states (B, U,
-    rounded up to 4 floats), its 4U rows of W_hh, two mbarriers; at least
-    `WIDE_ONE_CTA_SMEM`."""
-    R = 4 * U
-    floats = (32 * (WIDE_THREADS + U) + WIDE_CHUNK * R + WIDE_CHUNK * H
+def _fwd_cluster_smem(G: int, B: int, H: int, U: int) -> int:
+    """Bytes of shared memory of a cluster-design K1w (``G`` 4) or K2w (3)
+    CTA (csrc/rnn_wide.cu `fwd_cluster_smem_bytes`), R = G*U gate rows: the
+    column slices' partial sums (32, 256 + R/4), a chunk's gate
+    pre-activations (8, R), a chunk's rows of the other clusters' columns
+    (H, 8), the cluster's columns of h (2, ceil(B / 8), 8U, 8), x_proj of
+    its units (2, B, R), their cell states or (the GRU) h_{t-1} (B, U,
+    rounded up to 4 floats), the GRU's b_hh of its rows (R), its R rows of
+    W_hh, two mbarriers; at least `WIDE_ONE_CTA_SMEM`."""
+    R = G * U
+    floats = (32 * (WIDE_THREADS + R // 4) + WIDE_CHUNK * R + WIDE_CHUNK * H
               + 2 * -(-B // WIDE_CHUNK) * WIDE_CLUSTER * U * WIDE_CHUNK + 2 * B * R
-              + _round_up(B * U, 4) + R * H)
+              + _round_up(B * U, 4) + (R if G == 3 else 0) + R * H)
     return max(4 * (_round_up(floats, 2) + 4), WIDE_ONE_CTA_SMEM)
 
 
-def wide_fwd_plan(B: int, H: int, ndir: int, sms: int, max_clusters) -> dict:
-    """K1w's launch plan: the cluster design (``design`` "cluster": h
-    all-gathered over each cluster's DSMEM and, between clusters, through
-    L2 as ``words`` (2, ndir, B, H) of h and its step; no grid barrier)
-    where a CTA's 4U gate rows of W_hh and its buffers fit shared memory and
-    its grid fits the card at once (the most CTAs up to ``sms`` / ndir whose
-    clusters ``max_clusters(B, H, U, 0)`` takes, U and N as
-    `wide_bwd_plan`'s), else the first design (`wide_plan` "lstm",
-    ``design`` "grid"): at H = 1,024 in both directions."""
-    grid = dict(wide_plan("lstm", B, H, ndir, sms), design="grid")
-    for ctas, U in _cluster_widths(H, ndir, sms):
-        smem = _fwd_cluster_smem(B, H, U)
+def wide_fwd_plan(B: int, H: int, ndir: int, sms: int, max_clusters,
+                  kernel: str = "lstm") -> dict:
+    """K1w's (``kernel`` "lstm") or K2w's ("gru") launch plan: the cluster
+    design (``design`` "cluster": h all-gathered over each cluster's DSMEM
+    and, between clusters, through L2 as ``words`` (2, ndir, B, H) of h and
+    its step; no grid barrier) where a CTA's G*U gate rows of W_hh and its
+    buffers fit shared memory and its grid fits the card at once (the most
+    CTAs up to ``sms`` / ndir whose clusters ``max_clusters(B, H, U, 0)``
+    takes, U and N as `wide_bwd_plan`'s; the GRU's U a multiple of 4, so
+    that its 3U rows make whole groups of the kernel's 4), else
+    the first design (`wide_plan` of ``kernel``, ``design`` "grid"): at H =
+    1,024 in both directions."""
+    G = WIDE_GATES[kernel]
+    grid = dict(wide_plan(kernel, B, H, ndir, sms), design="grid")
+    for ctas, U in _cluster_widths(H, ndir, sms, 4 if G == 3 else 1):
+        smem = _fwd_cluster_smem(G, B, H, U)
         if smem > SMEM_PER_BLOCK:
             break
         if ndir * ctas // WIDE_CLUSTER <= max_clusters(B, H, U, 0):
             return dict(design="cluster", grid=(ctas, ndir), ctas=ctas * ndir,
-                        threads=WIDE_THREADS, units_per_cta=U, rows=4 * U, k=H,
-                        rows_smem=4 * U, smem_bytes=smem, cluster=WIDE_CLUSTER,
+                        threads=WIDE_THREADS, units_per_cta=U, rows=G * U, k=H,
+                        rows_smem=G * U, smem_bytes=smem, cluster=WIDE_CLUSTER,
                         clusters=ctas // WIDE_CLUSTER, words=2 * ndir * B * H)
     return grid
 
 
-WIDE_CLUSTER_KERNELS = {"lstm": 0, "lstm_bwd": 1, "gru_bwd": 2}  # wide_cluster_max_clusters
+# the cluster designs' kernel numbers of `wide_cluster_max_clusters`
+WIDE_CLUSTER_KERNELS = {"lstm": 0, "lstm_bwd": 1, "gru_bwd": 2, "gru": 3}
 
 
 @functools.lru_cache(maxsize=None)
@@ -226,14 +233,11 @@ def _cluster_fit(kernel: str, B: int, H: int, U: int, rows: int) -> int:
 
 def wide_design_plan(kernel: str, B: int, H: int, ndir: int, device) -> dict:
     """The plan a wide launch of ``kernel`` takes on ``device``'s card, with
-    its ``design``: `wide_fwd_plan` (K1w), `wide_bwd_plan` (K7w, K8w), the
-    first design's `wide_plan` (K2w)."""
+    its ``design``: `wide_fwd_plan` (K1w, K2w), `wide_bwd_plan` (K7w, K8w)."""
     sms, fit = _sms(device.index), functools.partial(_cluster_fit, kernel)
-    if kernel == "lstm":
-        return wide_fwd_plan(B, H, ndir, sms, fit)
-    if kernel in ("lstm_bwd", "gru_bwd"):
-        return wide_bwd_plan(B, H, ndir, sms, fit, kernel)
-    return dict(wide_plan(kernel, B, H, ndir, sms), design="grid")
+    if kernel in ("lstm", "gru"):
+        return wide_fwd_plan(B, H, ndir, sms, fit, kernel)
+    return wide_bwd_plan(B, H, ndir, sms, fit, kernel)
 
 
 @functools.lru_cache(maxsize=None)
@@ -642,19 +646,27 @@ def _launch_gru(wrapper, dirs):
 
 def gru_rec_wide(dirs):
     """K2w: one launch over ``dirs`` = [(reverse, w_hh, b_hh, x_proj)]
-    (checked by the caller) at any H; returns hs (T, B, nH)."""
+    (checked by the caller) at any H, of the design `wide_fwd_plan` picks;
+    returns hs (T, B, nH)."""
     T, B, H3 = dirs[0][3].shape
     H, n, dev = H3 // 3, len(dirs), dirs[0][3].device
     hs = torch.empty((T, B, n * H), device=dev, dtype=torch.float32)
     if T and B:
         plan = wide_design_plan("gru", B, H, n, dev)
-        ints = plan["units_per_cta"], plan["chunk"], plan["rows_smem"]
-        bar = _barrier(dev)
         (r0, w0, b0, x0), (r1, w1, b1, x1) = dirs[0], dirs[-1]
-        fn = build.bind("rnn_wide", "gru_rec_wide_f32", 8, 9)
-        build.check(fn(x0.data_ptr(), x1.data_ptr(), w0.data_ptr(), w1.data_ptr(), b0.data_ptr(),
-                       b1.data_ptr(), hs.data_ptr(), bar.data_ptr(), T, B, H, n, int(r0), int(r1),
-                       *ints, build.stream()), "gru_rec_wide")
+        ptrs = (x0.data_ptr(), x1.data_ptr(), w0.data_ptr(), w1.data_ptr(), b0.data_ptr(),
+                b1.data_ptr(), hs.data_ptr())
+        if plan["design"] == "cluster":
+            # scratch: h and its step a word, by step parity, zeroed
+            words = torch.zeros((plan["words"],), device=dev, dtype=torch.int64)
+            fn = build.bind("rnn_wide", "gru_rec_wide_cluster_f32", 8, 8)
+            build.check(fn(*ptrs, words.data_ptr(), T, B, H, n, int(r0), int(r1),
+                           plan["units_per_cta"], plan["grid"][0], build.stream()), "gru_rec_wide")
+        else:
+            fn = build.bind("rnn_wide", "gru_rec_wide_f32", 8, 9)
+            build.check(fn(*ptrs, _barrier(dev).data_ptr(), T, B, H, n, int(r0), int(r1),
+                           plan["units_per_cta"], plan["chunk"], plan["rows_smem"],
+                           build.stream()), "gru_rec_wide")
         gru_rec_wide.launches += 1
     return hs
 

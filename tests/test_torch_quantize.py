@@ -144,143 +144,184 @@ def test_padded_concat_matches_jax(shapes):
 @pytest.mark.parametrize("tokens", [False, True])
 def test_trim_merge_plan_fits(T, tokens):
     """Every T plans within the card's shared memory at the flagship's C=43
-    and D=64: the row's p_code in one slot where it fits, else a ring of
-    two; past 19,328 frames the per-frame ints in device memory."""
+    and D=64: the row route (a CTA a row) below `SPLIT_FRAMES` frames, the
+    row's p_code (none with the tokens given), its three per-frame int
+    arrays and its latent in shared memory; else the split route (the
+    tokens over the card, the scans a CTA a row, the means over the card)."""
     plan = B6.trim_merge_plan(T, 43, 64, tokens=tokens)
-    assert plan["smem_bytes"] <= 232_448 and plan["threads"] == 1024
-    assert plan["ints_global"] == (T > 19_328)
-    if tokens:
-        assert plan["depth"] == 0
-    elif plan["depth"] == 1:
-        assert plan["chunk"] == T
+    assert plan["threads"] == 1024
+    row = T < B6.SPLIT_FRAMES == 133
+    assert plan["route"] == ("row" if row else "split")
+    if row:
+        assert plan["stage_latent"] == (T <= 133 or (tokens and T <= 680))
+        assert plan["smem_bytes"] == B6._trim_smem(T, 43, 64, not tokens, plan["stage_latent"])
+        assert plan["smem_bytes"] <= 232_448
     else:
-        assert plan["depth"] == 2 and 1 <= plan["chunk"] < T
-    assert plan["stage_latent"] == (T <= 133 or (tokens and T <= 680))
+        assert plan["tok_lanes"] == (0 if tokens else 8)
 
 
 def test_trim_merge_plan_limits():
-    """The plan raises only for T < 1: T=14,529 takes the ring beside the
-    ints in shared memory; T=20,000 the
-    ints in a (B, 3, T) device-memory scratch beside the ring; C=20,000 at
-    T=14,528, where not one frame fits the ring, the argmax in a first
-    kernel over the whole card (depth 0, the tokens then given)."""
-    assert B6.trim_merge_plan(133, 43, 64)["depth"] == 1
-    assert B6.trim_merge_plan(14_528, 43, 64)["chunk"] == 167
-    long = B6.trim_merge_plan(14_529, 43, 64)
-    assert (long["depth"], long["chunk"], long["ints_global"]) == (2, 167, False)
-    longer = B6.trim_merge_plan(20_000, 43, 64)
-    assert (longer["depth"], longer["chunk"], longer["ints_global"]) == (2, 674, True)
-    assert longer["scratch_ints"] == 60_000
+    """The plan raises only for T < 1: the row route below 133 frames, the
+    split route from there, and at any T where the row does not fit one
+    CTA's shared memory (C=8,000 at T=20; C=20,000 at T=14,528: float4
+    loads, 32 lanes a frame); a small limit forces the split route at any
+    T."""
+    assert B6.trim_merge_plan(132, 43, 64)["route"] == "row"
+    assert B6.trim_merge_plan(133, 43, 64)["route"] == "split"
+    assert B6.trim_merge_plan(20, 8000, 64)["route"] == "split"
+    long = B6.trim_merge_plan(1_261, 43, 64)
+    assert (long["route"], long["tok_vec"], long["tok_lanes"]) == ("split", 1, 8)
+    assert (long["vec"], long["lanes"], long["rows"]) == (4, 16, 16)
+    assert (long["scratch_ints"], long["token_ints"]) == (2_528, 1_261)
     wide = B6.trim_merge_plan(14_528, 20_000, 64)
-    assert (wide["depth"], wide["chunk"], wide["ints_global"]) == (0, 0, False)
-    assert wide["argmax_pass"] and not long["argmax_pass"]
-    assert not B6.trim_merge_plan(14_528, 20_000, 64, tokens=True)["argmax_pass"]
+    assert (wide["route"], wide["tok_vec"], wide["tok_lanes"]) == ("split", 4, 32)
+    given = B6.trim_merge_plan(20_000, 1, 64, tokens=True)
+    assert (given["route"], given["tok_lanes"], given["token_ints"]) == ("split", 0, 0)
+    assert B6.trim_merge_plan(5, 43, 64, limit=1_024)["route"] == "split"
+    assert B6.trim_merge_plan(5, 43, 64, aligned=False, limit=1_024)["vec"] == 1
     with pytest.raises(ValueError, match="T >= 1"):
         B6.trim_merge_plan(0, 43, 64)
 
 
 @pytest.mark.parametrize("T,C", [(14_529, 43), (20_000, 43), (14_528, 8000), (20_000, 8000),
-                                 (100_000, 43), (14_528, 7192)])
+                                 (100_000, 43), (14_528, 7192), (1_261, 43), (680, 8000),
+                                 (57_977, 44)])
 def test_trim_merge_plan_takes_long_rows(T, C):
-    """No T or C >= 1 raises; every plan fits a block's shared memory and
-    1,024 threads; the ring (depth 2) holds at least one frame, else a
-    first kernel takes the argmax (depth 0, ``argmax_pass``)."""
+    """No T or C >= 1 raises; past one row's shared memory every plan is the
+    split route: its scans a CTA of 1,024 threads a row; about
+    `TOKEN_LOADS` loads a lane of the tokens kernel (float4 where C % 4 == 0, at most 32 lanes a frame); the means a
+    group of 16 lanes of float4 an output row at D=64; the scratch of the
+    slot starts and counts and of the tokens."""
     plan = B6.trim_merge_plan(T, C, 64)
-    assert plan["smem_bytes"] <= 232_448 and plan["threads"] == 1024
-    assert (plan["depth"] == 2 and plan["chunk"] >= 1 and not plan["argmax_pass"]) or (
-        (plan["depth"], plan["chunk"], plan["argmax_pass"]) == (0, 0, True))
-    assert plan["ints_global"] == (B6._trim_smem(T, C, 64, 0, 0, False) > 232_448)
-    assert plan["scratch_ints"] == (3 * -(-T // 4) * 4 if plan["ints_global"] else 0)
+    assert plan["route"] == "split" and B6._trim_smem(T, C, 64, True, False) > 232_448
+    assert plan["threads"] == 1024
+    assert plan["tok_vec"] == (4 if C % 4 == 0 else 1)
+    loads = C // plan["tok_vec"]
+    lanes = plan["tok_lanes"]
+    assert lanes in (1, 2, 4, 8, 16, 32) and (lanes == 32 or lanes * B6.TOKEN_LOADS >= loads)
+    assert lanes == 1 or (lanes // 2) * B6.TOKEN_LOADS < loads
+    assert (plan["vec"], plan["lanes"], plan["rows"]) == (4, 16, 16)
+    assert plan["scratch_ints"] == 2 * -(-T // 4) * 4 and plan["token_ints"] == T
 
 
-def _warp_argmax(p):
-    """The argmax pass of `trim_merge` (`trim_argmax_kernel`, taken first
-    where not one frame of p_code fits the ring), a warp a frame: lane j
-    keeps the first maximum of classes j, j + 32, ... (NaN the largest),
-    then xor shuffles over 16, 8, 4, 2, 1 keep the one first in the
+def _group_argmax(p, lanes, vec):
+    """The split route's tokens (`trim_merge_tokens_kernel`), a group of
+    ``lanes`` lanes a frame: lane l keeps the first maximum (NaN the
+    largest) of its loads of ``vec`` classes at l, l + lanes, ... in class
+    order, then xor shuffles over lanes/2, ..., 1 keep the one first in the
     argmax's order (the larger, NaN the largest; the smaller class on a
     tie). p (T, C) -> tokens (T,)."""
     T, C = p.shape
     beats = lambda x, y: (np.isnan(x) & ~np.isnan(y)) | (x > y)
-    vals, idx = np.zeros((32, T), np.float32), np.full((32, T), -1)
-    for lane in range(min(32, C)):
-        v, i = p[:, lane].copy(), np.full(T, lane)
-        for c in range(lane + 32, C, 32):
-            take = beats(p[:, c], v)
-            v, i = np.where(take, p[:, c], v), np.where(take, c, i)
-        vals[lane], idx[lane] = v, i
-    for o in (16, 8, 4, 2, 1):
-        pv, pi = vals[np.arange(32) ^ o], idx[np.arange(32) ^ o]
+    vals, idx = np.zeros((lanes, T), np.float32), np.full((lanes, T), -1)
+    for lane in range(lanes):
+        for k in range(lane, C // vec, lanes):
+            for c in range(k * vec, k * vec + vec):
+                take = (idx[lane] < 0) | beats(p[:, c], vals[lane])
+                vals[lane], idx[lane] = np.where(take, p[:, c], vals[lane]), np.where(take, c, idx[lane])
+    o = lanes // 2
+    while o:
+        pv, pi = vals[np.arange(lanes) ^ o], idx[np.arange(lanes) ^ o]
         first = beats(vals, pv) | (~beats(pv, vals) & (idx < pi))
         take = (pi >= 0) & ((idx < 0) | ~first)
         vals, idx = np.where(take, pv, vals), np.where(take, pi, idx)
+        o //= 2
     return idx[0]
 
 
-def _b6_replay(p_code, latent, max_f, *, threads, chunk):
-    """`trim_merge_kernel` in numpy: the argmax a chunk of `chunk` frames at a
-    time (chunk 0: the argmax pass, `_warp_argmax`); the scans a chunk of
-    `threads` frames at a time, each warp's run starts and kept counts from
-    its ballots, carried across warps and chunks; the segment ends by
-    walking the tokens; the means in time order. Where the plan puts the
-    per-frame ints in device memory the arithmetic is the same. Returns
-    (trimmed, lengths, slot, count)."""
-    B, T, D = latent.shape
+def _b6_scan_replay(tok, max_f, threads):
+    """`scan_row` in numpy, every thread of a chunk at once: one row's tokens
+    (T,) a chunk of `threads` frames at a time, a thread a frame; a frame's
+    run start the last change point at or before it in its warp (the
+    kernel's ballot and __clz: an inclusive max over the lanes) or, where
+    none, the warps' before it and the chunks' (carried); a segment starts
+    where (t - run start) % (max_f + 1) == 0; its kept starts at or before
+    it counted the same way (ballot and __popc: an inclusive sum); the
+    segment's end walked from the frame. Returns (slot, count, slot
+    starts, slot counts, kept)."""
+    T = len(tok)
     m1 = max_f + 1
+    nw = threads // 32
+    tok = np.asarray(tok)
+    slot = np.zeros(T, np.int32)
+    count = np.zeros(T, np.float32)
+    sstart, scnt = np.zeros(T, np.int64), np.zeros(T, np.int64)
+    chg_all = np.ones(T, bool)
+    chg_all[1:] = tok[1:] != tok[:-1]
+    run_carry = kept_carry = 0
+    for c0 in range(0, T, threads):
+        t = c0 + np.arange(threads)
+        inn = t < T
+        tc = np.minimum(t, T - 1)
+        tk = np.where(inn, tok[tc], 0)
+        chg = (inn & chg_all[tc]).reshape(nw, 32)
+        inc = np.maximum.accumulate(np.where(chg, t.reshape(nw, 32), -1), axis=1)
+        wlast = inc[:, 31]
+        earlier = np.array([max([run_carry] + list(wlast[:w])) for w in range(nw)])
+        run = np.where(inc >= 0, inc, earlier[:, None]).reshape(threads)
+        run_carry = max([run_carry] + list(wlast))
+        pos = t - run
+        ks = inn & (pos % m1 == 0) & (tk != 0)
+        kinc = np.cumsum(ks.reshape(nw, 32), axis=1)
+        wkept = kinc[:, 31]
+        before = (kept_carry + np.concatenate([[0], np.cumsum(wkept)[:-1]])[:, None]
+                  + kinc).reshape(threads)  # kept segments starting at or before t
+        kept_carry += int(wkept.sum())
+        s = t - pos % m1
+        e = t + 1
+        for _ in range(m1 - 1):  # segment_end: at most m1 - 1 steps
+            e = e + (inn & (e < s + m1) & (e < T) & (tok[np.minimum(e, T - 1)] == tk))
+        slot[t[inn]] = np.where(tk[inn] != 0, before[inn] - 1, -1)
+        count[t[inn]] = (e - s)[inn]
+        sstart[before[ks] - 1], scnt[before[ks] - 1] = t[ks], (e - s)[ks]
+    return slot, count, list(sstart), list(scnt), kept_carry
+
+
+def _b6_mean_replay(latent_row, sstart, scnt, kept, lanes=32, vec=2):
+    """`mean_row` in numpy, every output row at once: lane l of a group of
+    ``lanes`` takes ``vec`` channels at l*vec, (l + lanes)*vec, ... of row
+    j: the kept segment's frames summed in time order from 0, divided by
+    its count; zeros past the kept count."""
+    T, D = latent_row.shape
+    out = np.full((T, D), np.nan, np.float32)
+    start, cnt = np.asarray(sstart[:kept]), np.asarray(scnt[:kept])
+    for lane in range(lanes):
+        for k in range(lane, D // vec, lanes):
+            cols = slice(k * vec, (k + 1) * vec)
+            v = np.zeros((kept, vec), np.float32)
+            for d in range(int(cnt.max()) if kept else 0):
+                on = d < cnt
+                v[on] += latent_row[start[on] + d, cols]
+            out[:kept, cols] = v / cnt[:, None].astype(np.float32)
+            out[kept:, cols] = 0.0
+    return out
+
+
+def _b6_replay(tokens, latent, max_f, *, threads, lanes=32, vec=2):
+    """`trim_merge_kernel` (the row route) or, with the means a group of
+    ``lanes`` lanes of ``vec`` channels, `trim_merge_scan_kernel` and
+    `trim_merge_means_kernel` (the split route) in numpy, from the rows'
+    tokens (B, T): the scans (`_b6_scan_replay`), the means in time order
+    (`_b6_mean_replay`). Returns (trimmed, lengths, slot, count)."""
+    B, T, D = latent.shape
     out = np.zeros_like(latent)
     lengths = np.zeros(B, np.int32)
     slot = np.zeros((B, T), np.int32)
     count = np.zeros((B, T), np.float32)
     for b in range(B):
-        tok = np.zeros(T, np.int64)
-        if chunk == 0:
-            tok[:] = _warp_argmax(p_code[b])
-        for f0 in range(0, T, chunk or T):
-            if chunk:
-                tok[f0:f0 + chunk] = p_code[b, f0:f0 + chunk].argmax(-1)
-        sstart, scnt = [0] * T, [0] * T
-        run_carry = kept_carry = 0
-        for c0 in range(0, T, threads):
-            nw = threads // 32
-            t = c0 + np.arange(threads)
-            inn = t < T
-            tk = np.where(inn, tok[np.minimum(t, T - 1)], 0)
-            chg = inn & ((t == 0) | (tk != tok[np.maximum(np.minimum(t, T - 1) - 1, 0)]))
-            chg = chg.reshape(nw, 32)
-            wlast = [c0 + 32 * w + int(np.flatnonzero(chg[w])[-1]) if chg[w].any() else -1
-                     for w in range(nw)]
-            run = np.zeros(threads, np.int64)
-            for w in range(nw):
-                earlier = max([run_carry] + wlast[:w])
-                for lane in range(32):
-                    mine = np.flatnonzero(chg[w, :lane + 1])
-                    run[32 * w + lane] = c0 + 32 * w + mine[-1] if len(mine) else earlier
-            run_carry = max([run_carry] + wlast)
-            pos = t - run
-            ks = (inn & (pos % m1 == 0) & (tk != 0)).reshape(nw, 32)
-            wkept = ks.sum(1)
-            for w in range(nw):
-                for lane in range(32):
-                    i = 32 * w + lane
-                    if not inn[i]:
-                        continue
-                    before = kept_carry + int(wkept[:w].sum()) + int(ks[w, :lane + 1].sum())
-                    s = t[i] - pos[i] % m1
-                    e = t[i] + 1
-                    while e < s + m1 and e < T and tok[e] == tk[i]:
-                        e += 1
-                    slot[b, t[i]] = before - 1 if tk[i] != 0 else -1
-                    count[b, t[i]] = e - s
-                    if ks[w, lane]:
-                        sstart[before - 1], scnt[before - 1] = t[i], e - s
-            kept_carry += int(wkept.sum())
-        lengths[b] = kept_carry
-        for j in range(kept_carry):
-            v = np.zeros(D, np.float32)
-            for t_ in range(sstart[j], sstart[j] + scnt[j]):
-                v += latent[b, t_]
-            out[b, j] = v / np.float32(scnt[j])
+        slot[b], count[b], sstart, scnt, lengths[b] = _b6_scan_replay(tokens[b], max_f, threads)
+        out[b] = _b6_mean_replay(latent[b], sstart, scnt, lengths[b], lanes,
+                                 vec if D % vec == 0 else 1)
     return out, lengths, slot, count
+
+
+def _b6_split_replay(p_code, latent, max_f, plan):
+    """The split route's three launches at ``plan``: the tokens a group of
+    the plan's lanes a frame (`_group_argmax`), the scans a CTA of its
+    threads a row, the means a group of its lanes an output row."""
+    tokens = np.stack([_group_argmax(row, plan["tok_lanes"], plan["tok_vec"]) for row in p_code])
+    return _b6_replay(tokens, latent, max_f, threads=plan["threads"], lanes=plan["lanes"],
+                      vec=plan["vec"])
 
 
 def _one_hot_runs(runs, C=6, D=5, seed=0):
@@ -310,22 +351,28 @@ EDGES = {
 }
 
 
-@pytest.mark.parametrize("max_f", [0, 1, 2, 3, 4, 5])
-@pytest.mark.parametrize("case", sorted(EDGES))
-def test_trim_merge_replay_matches_plain_and_jax(case, max_f):
-    """The kernel's carries replayed (2 warps a chunk of 64 frames, and the
-    kernel's 1,024 threads) equal the plain version bit for bit (trimmed,
-    lengths, slots, counts) and the JAX package to 1e-6."""
-    p, latent = EDGES[case]()
+def _check_replay(got, p, latent, max_f):
+    """``got`` equals the plain version bit for bit (trimmed, lengths, slots,
+    counts) and the JAX package's trimmed latents and lengths to 1e-6."""
     want = [x.numpy() for x in B6.trim_merge_plain(torch.from_numpy(p), torch.from_numpy(latent),
                                                     max_f)]
-    for threads, chunk in ((64, 64), (1024, 167)):
-        got = _b6_replay(p, latent, max_f, threads=threads, chunk=chunk)
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g, w)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
     j_out, j_len, _ = j_trim_merge(jnp.asarray(p), jnp.asarray(latent), max_frames_per_phn=max_f)
     np.testing.assert_array_equal(got[1], np.asarray(j_len))
     np.testing.assert_allclose(got[0], np.asarray(j_out), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("max_f", [0, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("case", sorted(EDGES))
+def test_trim_merge_replay_matches_plain_and_jax(case, max_f):
+    """The scans' carries replayed (2 warps a chunk of 64 frames, and the
+    kernels' 1,024 threads; a thread a frame's argmax, the first maximum)
+    equal the plain version bit for bit (trimmed, lengths, slots, counts)
+    and the JAX package to 1e-6."""
+    p, latent = EDGES[case]()
+    for threads in (64, 1024):
+        _check_replay(_b6_replay(p.argmax(-1), latent, max_f, threads=threads), p, latent, max_f)
 
 
 # ---------------- B6 trim_merge_bwd: its launch plan and a replay of its gather ----------------
@@ -401,22 +448,13 @@ def _long_rows(T, C=5, D=3, seed=0):
 
 @pytest.mark.parametrize("T", [14_529, 20_000])
 def test_trim_merge_long_replay_matches_plain_and_jax(T):
-    """Past 14,528 frames (the ring beside the ints in
-    shared memory at 14,529; the ints in device memory at 20,000, whose
-    arithmetic is the same): the replay at 1,024 threads and the plan's
-    chunk equals the plain version bit for bit and JAX to 1e-6, at C=5,
-    D=3."""
+    """Past 14,528 frames the split route (at C=5, D=3: a lane a frame's
+    tokens, the scans at 1,024 threads, 4 lanes an output row) replayed
+    equals the plain version bit for bit and JAX to 1e-6."""
     p, latent = _long_rows(T, seed=T)
     plan = B6.trim_merge_plan(T, 5, 3)
-    assert plan["depth"] == 2 and plan["ints_global"] == (T > 19_328)
-    got = _b6_replay(p, latent, 3, threads=1024, chunk=plan["chunk"])
-    want = [x.numpy() for x in B6.trim_merge_plain(torch.from_numpy(p), torch.from_numpy(latent),
-                                                    3)]
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
-    j_out, j_len, _ = j_trim_merge(jnp.asarray(p), jnp.asarray(latent), max_frames_per_phn=3)
-    np.testing.assert_array_equal(got[1], np.asarray(j_len))
-    np.testing.assert_allclose(got[0], np.asarray(j_out), rtol=0, atol=ATOL)
+    assert (plan["route"], plan["tok_lanes"], plan["lanes"], plan["vec"]) == ("split", 1, 4, 1)
+    _check_replay(_b6_split_replay(p, latent, 3, plan), p, latent, 3)
 
 
 def _nan_ties(C=70):
@@ -432,21 +470,53 @@ def _nan_ties(C=70):
     return p, rng.randn(2, 40, 4).astype(np.float32)
 
 
-@pytest.mark.parametrize("case", ["nan_ties", "ties", "long_runs"])
+def _nan_ties_43():
+    """As `_nan_ties` at the flagship's 43 classes (8 lanes a frame): ties a
+    lane apart (3, 11, 19) and a group apart (2, 42), with the blank, and
+    NaN in places."""
+    rng = np.random.RandomState(5)
+    p = rng.rand(2, 40, 43).astype(np.float32)
+    p[0, :10, [3, 11, 19]] = 2.0
+    p[0, 10:20, [0, 42, 2]] = 2.0
+    p[1, :8, [41, 9]] = np.nan
+    p[1, 8:16, [42, 34, 7]] = 3.0
+    p[1, 16:20, 40] = np.nan
+    return p, rng.randn(2, 40, 4).astype(np.float32)
+
+
+ARGMAX_CASES = {"nan_ties": _nan_ties, "nan_ties_43": _nan_ties_43,
+                "nan_ties_72": lambda: _nan_ties(72), "ties": CASES["ties"],
+                "long_runs": CASES["long_runs"]}
+
+
+@pytest.mark.parametrize("case", sorted(ARGMAX_CASES))
 def test_trim_merge_device_argmax_replay_matches_plain_and_jax(case):
-    """The argmax pass (depth 0: where not one frame of p_code
-    fits the ring) replayed lane by lane (`_warp_argmax`) gives the first
-    maximum, NaN the largest, as the plain version and `jnp.argmax`; the
-    whole replay equals the plain version bit for bit and JAX to 1e-6."""
-    p, latent = _nan_ties() if case == "nan_ties" else CASES[case]()
-    tokens = np.stack([_warp_argmax(row) for row in p])
+    """The split route's tokens replayed lane by lane (`_group_argmax`, a
+    group of the plan's lanes a frame: 8 at C=43, float4 loads at C=72)
+    give the first maximum, NaN the largest, as the plain version and
+    `jnp.argmax`; the whole split replay equals the plain version bit for
+    bit and JAX to 1e-6."""
+    p, latent = ARGMAX_CASES[case]()
+    plan = B6.trim_merge_plan(p.shape[1], p.shape[2], latent.shape[2], limit=1_024)
+    assert plan["route"] == "split" and plan["tok_vec"] == (4 if p.shape[2] % 4 == 0 else 1)
+    tokens = np.stack([_group_argmax(row, plan["tok_lanes"], plan["tok_vec"]) for row in p])
     np.testing.assert_array_equal(tokens, torch.from_numpy(p).argmax(-1).numpy())
     np.testing.assert_array_equal(tokens, np.asarray(jnp.argmax(jnp.asarray(p), -1)))
-    got = _b6_replay(p, latent, 3, threads=64, chunk=0)
-    want = [x.numpy() for x in B6.trim_merge_plain(torch.from_numpy(p), torch.from_numpy(latent),
-                                                    3)]
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
-    j_out, j_len, _ = j_trim_merge(jnp.asarray(p), jnp.asarray(latent), max_frames_per_phn=3)
-    np.testing.assert_array_equal(got[1], np.asarray(j_len))
-    np.testing.assert_allclose(got[0], np.asarray(j_out), rtol=0, atol=ATOL)
+    _check_replay(_b6_split_replay(p, latent, 3, plan), p, latent, 3)
+
+
+SPLIT_CASES = {"blank_row": _blank_row, "ties": _ties, "long_runs": _long_runs,
+               **{k: EDGES[k] for k in ("warp_edges", "chunk_edges", "all_blank", "T1")}}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_trim_merge_split_replay_matches_plain_and_jax(case):
+    """The split route forced at a small T (a shared-memory limit the row
+    does not fit): its three launches replayed (`_b6_split_replay`: the
+    tokens a lane group a frame, the scans a CTA of 1,024 threads a row,
+    the means a lane group an output row) equal the plain version bit for
+    bit on blank rows, ties and long runs, and JAX to 1e-6."""
+    p, latent = SPLIT_CASES[case]()
+    plan = B6.trim_merge_plan(p.shape[1], p.shape[2], latent.shape[2], limit=600)
+    assert plan["route"] == "split"
+    _check_replay(_b6_split_replay(p, latent, 3, plan), p, latent, 3)

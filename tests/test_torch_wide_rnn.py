@@ -244,31 +244,43 @@ def test_wide_bwd_plan_takes_the_cluster_design_where_it_fits(kernel, B, H, ndir
 # (B, H, ndir, co-resident clusters, the design, CTAs a direction): K1w's row
 # of chip_smoke.py (as K7w's), a tiny H; B=64 at 1,024 units, B=256 and 1,024
 # units in both directions past shared memory, and no cluster co-resident
-# take the first design
+# take the first design. K2w's (`gru`): its row's shapes, with U a multiple
+# of 4 (RNNLM-GRU's 512 units: 64 CTAs of 8, not 104 of 5; 1,024 units: 88
+# of 12; 129: 40 of 4, the last 7 past the units), B=64, and the first
+# design at 1,024 units in both directions and with no cluster co-resident.
 WIDE_FWD_PLANS = [(8, 512, 1, 15, "cluster", 104), (8, 512, 2, 15, "cluster", 56),
                   (8, 1024, 1, 15, "cluster", 120), (5, 292, 2, 16, "cluster", 64),
                   (5, 258, 2, 15, "cluster", 56), (64, 512, 2, 15, "cluster", 56),
                   (1, 6, 1, 15, "cluster", 8), (64, 1024, 1, 15, "grid", 128),
                   (256, 512, 2, 15, "grid", 64), (8, 1024, 2, 15, "grid", 64),
                   (8, 512, 2, 0, "grid", 64)]
+WIDE_GRU_FWD_PLANS = [(8, 512, 1, 15, "cluster", 64), (8, 1024, 1, 15, "cluster", 88),
+                      (5, 129, 2, 16, "cluster", 40), (64, 512, 2, 15, "cluster", 48),
+                      (1, 6, 1, 15, "cluster", 8), (8, 1024, 2, 15, "grid", 64),
+                      (8, 512, 1, 0, "grid", 128)]
 
 
-@pytest.mark.parametrize("B,H,ndir,fit,design,ctas", WIDE_FWD_PLANS)
-def test_wide_fwd_plan_takes_the_cluster_design_where_it_fits(B, H, ndir, fit, design, ctas):
-    """K1w's plan: the cluster design where a CTA's 4U gate rows of W_hh and
-    its buffers fit shared memory and its clusters of 8 fit the card at once
-    (N and U as K7w's); else the first design's plan, unchanged."""
-    plan = K.wide_fwd_plan(B, H, ndir, H100_SMS, lambda *a: fit)
+@pytest.mark.parametrize("kernel,B,H,ndir,fit,design,ctas", [
+    pytest.param("lstm", *c, id="-".join(map(str, c))) for c in WIDE_FWD_PLANS] + [
+    pytest.param("gru", *c, id="gru-" + "-".join(map(str, c))) for c in WIDE_GRU_FWD_PLANS])
+def test_wide_fwd_plan_takes_the_cluster_design_where_it_fits(kernel, B, H, ndir, fit, design,
+                                                              ctas):
+    """K1w's and K2w's plan: the cluster design where a CTA's G*U gate rows
+    of W_hh and its buffers fit shared memory and its clusters of 8 fit the
+    card at once (N and U as K7w's, the GRU's U a multiple of 4); else the
+    first design's plan, unchanged."""
+    G = K.WIDE_GATES[kernel]
+    plan = K.wide_fwd_plan(B, H, ndir, H100_SMS, lambda *a: fit, kernel)
     assert plan["design"] == design and plan["grid"] == (ctas, ndir)
     U = plan["units_per_cta"]
     assert ctas * U >= H and plan["threads"] == 256 and plan["smem_bytes"] <= K.SMEM_PER_BLOCK
     if design == "grid":
-        assert plan == dict(K.wide_plan("lstm", B, H, ndir, H100_SMS), design="grid")
+        assert plan == dict(K.wide_plan(kernel, B, H, ndir, H100_SMS), design="grid")
         return
     assert ctas % K.WIDE_CLUSTER == 0 and ctas - K.WIDE_CLUSTER < -(-H // U) <= ctas
     assert ndir * ctas // 8 <= fit and ctas * ndir <= H100_SMS
-    assert plan["rows_smem"] == plan["rows"] == 4 * U
-    assert plan["smem_bytes"] == K._fwd_cluster_smem(B, H, U) >= K.WIDE_ONE_CTA_SMEM
+    assert plan["rows_smem"] == plan["rows"] == G * U and G * U % 4 == 0
+    assert plan["smem_bytes"] == K._fwd_cluster_smem(G, B, H, U) >= K.WIDE_ONE_CTA_SMEM
     assert plan["words"] == 2 * ndir * B * H
 
 
@@ -381,6 +393,49 @@ def _k1w_cluster_replay(reverse, w_hh, x_proj, ctas, U):
     return hs, cs
 
 
+def _k2w_cluster_replay(reverse, w_hh, b_hh, x_proj, ctas, U):
+    """K2w's cluster design (`csrc/rnn_wide.cu` `gru_wide_fwd_cluster_kernel`:
+    K1w's at three gates) in torch, one direction: at each step the hidden
+    products of cluster c's 3 x 8U gate rows as the kernel sums them (slice
+    s of S = min(256 // (3U/4), 64) of the own columns, then of the other
+    columns from k0 + kc on (mod H), the slices' partials in slice order);
+    then the cell: r and z from (x_proj + b_h) + the product, n from x_n +
+    r * (the product + b_hn), h = (1 - z) n + z h. Returns hs (T, B, H)."""
+    T, B, H3 = x_proj.shape
+    H = H3 // 3
+    S = min(256 // (3 * U // 4), 64)
+    h = x_proj.new_zeros((B, H))
+    hs = x_proj.new_empty((T, B, H))
+    for step, t in enumerate(range(T - 1, -1, -1) if reverse else range(T)):
+        hp = x_proj.new_zeros((B, H3))
+        for cl in range(ctas // K.WIDE_CLUSTER):
+            k0 = cl * K.WIDE_CLUSTER * U
+            if k0 >= H:
+                continue
+            kc = min(K.WIDE_CLUSTER * U, H - k0)
+            ko = H - kc
+            units = torch.arange(k0, k0 + kc)
+            rows = torch.cat([g * H + units for g in range(3)])
+            cols = torch.cat([units, (k0 + kc + torch.arange(ko)) % H])
+            w, hc = w_hh[rows][:, cols], h[:, cols]
+            acc = x_proj.new_zeros((B, len(rows)))
+            if step > 0:
+                for s in range(S):
+                    own = slice(kc * s // S, kc * (s + 1) // S)
+                    oth = slice(kc + ko * s // S, kc + ko * (s + 1) // S)
+                    acc = acc + (hc[:, own] @ w[:, own].T + hc[:, oth] @ w[:, oth].T)
+            hp[:, rows] = acc
+        xr, xz, xn = x_proj[t].split(H, dim=-1)
+        br, bz, bn = b_hh.split(H)
+        hr, hz, hn = hp.split(H, dim=-1)
+        r = torch.sigmoid(xr + br + hr)
+        z = torch.sigmoid(xz + bz + hz)
+        n = torch.tanh(xn + r * (hn + bn))
+        h = (1.0 - z) * n + z * h
+        hs[t] = h
+    return hs
+
+
 def _k8w_cluster_replay(reverse, w_hh, z, coef_h, g_hs, ctas, U):
     """K8w's cluster design (`gru_wide_bwd_cluster_kernel`: K7w's at three
     gates) in torch, one direction: at each step dh2 = g_hs + dh_rec, then
@@ -414,17 +469,35 @@ def _k8w_cluster_replay(reverse, w_hh, z, coef_h, g_hs, ctas, U):
 
 
 @pytest.mark.parametrize("cell,H,reverse", [("lstm", 258, False), ("lstm", 300, True),
-                                            ("gru", 258, True), ("gru", 300, False)])
+                                            ("gru", 258, True), ("gru", 300, False),
+                                            ("gru_fwd", 258, False), ("gru_fwd", 300, True)])
 def test_k1w_k8w_cluster_replays_match_plain_and_jax(cell, H, reverse):
     """The cluster designs' summation orders (`_k1w_cluster_replay`,
-    `_k8w_cluster_replay`, at the plan's CTAs and units for B=2 on a card
-    of 16 SMs that fits 2 clusters: 16 CTAs in two clusters, the last CTA
-    holding fewer units) give K1w's hs and cs and K8w's dh2 as the plain
-    versions do, and hs and cs of JAX's `_lstm_rec_fwd`, and dx_proj of
-    JAX's `_gru_rec_bwd` (coef_x * dh2), within ATOL."""
-    rng = np.random.RandomState(H + 11 + (cell == "gru"))
+    `_k8w_cluster_replay`, `_k2w_cluster_replay`, at the plan's CTAs and
+    units for B=2 on a card of 16 SMs that fits 2 clusters: 16 CTAs in two
+    clusters, the last CTA holding fewer units, or, K2w's units a multiple
+    of 4, none) give K1w's hs and cs, K8w's dh2 and K2w's hs as the plain
+    versions do, and hs and cs of JAX's `_lstm_rec_fwd`, dx_proj of JAX's
+    `_gru_rec_bwd` (coef_x * dh2) and hs of JAX's `_gru_rec_fwd`, within
+    ATOL."""
+    rng = np.random.RandomState(H + 11 + (cell == "gru") + 2 * (cell == "gru_fwd"))
     T, B = 5, 2
     t = torch.from_numpy
+    if cell == "gru_fwd":
+        x = (0.5 * rng.randn(T, B, 3 * H)).astype(np.float32)
+        w = (rng.randn(3 * H, H) / np.sqrt(H)).astype(np.float32)
+        b = (0.1 * rng.randn(3 * H)).astype(np.float32)
+        plan = K.wide_fwd_plan(B, H, 1, 16, lambda *a: 2, "gru")
+        ctas, U = plan["grid"][0], plan["units_per_cta"]
+        assert plan["design"] == "cluster" and plan["grid"] == (16, 1) and U % 4 == 0
+        assert ctas - K.WIDE_CLUSTER < -(-H // U) <= ctas
+        want_hs, _ = GRU_FWD(reverse, *map(jnp.asarray, (w, b, x)))
+        with torch.no_grad():
+            got = _k2w_cluster_replay(reverse, t(w), t(b), t(x), ctas, U)
+            plain = K.gru_rec_plain(reverse, t(w), t(b), t(x))
+        np.testing.assert_allclose(_np(got), _np(plain), rtol=0, atol=ATOL)
+        np.testing.assert_allclose(_np(got), np.asarray(want_hs), rtol=0, atol=ATOL)
+        return
     if cell == "lstm":
         w, x = _lstm_case(rng, T, B, H)
         plan = K.wide_fwd_plan(B, H, 1, 16, lambda *a: 2)
